@@ -1,0 +1,151 @@
+# -*- coding: utf-8 -*-
+"""Synchrosqueezing plan pieces: the associated frequency grid, argument
+checks and the natural bins.
+
+Counterpart of `_compute_associated_frequencies`,
+`_check_ssqueezing_args` and `_natural_bins` in
+`ssqueezepy_tpu/models/ssqueezing.py` (host numpy, once per plan). The
+standalone `ssqueeze` waits for ROADMAP item A5b.
+"""
+from types import FunctionType
+
+import numpy as np
+
+from ..utils.common import NOTE, WARN, pi, p2up, assert_is_one_of
+from ..utils.cwt_utils import logscale_transition_idx
+
+__all__ = ['_compute_associated_frequencies', '_check_ssqueezing_args',
+           '_natural_bins']
+
+
+def _compute_associated_frequencies(scales, N, wavelet, ssq_scaletype,
+                                    maprange, was_padded=True, dt=1,
+                                    transform='cwt'):
+    """Frequency grid the reassigned energy lands on — one entry per
+    scale row, spaced per `ssq_scaletype`, endpoints per `maprange`.
+
+    'log' rides a single exponential ramp between the endpoints;
+    'log-piecewise' joins two ramps at the scale-downsampling transition
+    (the knee frequency is the wavelet's center frequency at the
+    transition scale); 'linear' is an even grid.
+    """
+    lo, hi = _freq_endpoints(maprange, dt, N, wavelet, scales, was_padded)
+    na = len(scales)
+    pos = np.arange(na) / (na - 1)        # output-grid coordinate in [0,1]
+
+    if ssq_scaletype == 'log-piecewise':
+        cut = logscale_transition_idx(scales)
+        if cut is not None:
+            knee = _center_freq_hz(wavelet, N, maprange, dt, scales[cut],
+                                   was_padded)
+            j = na - cut - 1              # knee position in the grid
+            seg_lo = lo * (knee / lo) ** (pos[:j] / pos[j])
+            seg_hi = knee * (hi / knee) ** ((pos[j:] - pos[j])
+                                            / (1 - pos[j]))
+            grid = np.hstack([seg_lo, seg_hi])
+            found = logscale_transition_idx(grid.reshape(-1, 1))
+            if found is None or (na - found) != cut:
+                raise AssertionError(
+                    "piecewise ssq grid knee landed at %s, expected %s "
+                    "(scale transition %d)" % (found, na - cut, cut))
+            return grid
+        ssq_scaletype = 'log'             # no transition -> plain ramp
+
+    if ssq_scaletype.startswith('log'):
+        return lo * (hi / lo) ** pos
+    if transform == 'cwt':
+        return np.linspace(lo, hi, na)
+    return np.linspace(0, .5, na) / dt
+
+
+def _freq_endpoints(maprange, dt, N, wavelet, scales, was_padded):
+    """(lowest, highest) grid frequency in cycles per unit time."""
+    if isinstance(maprange, (tuple, list)):
+        return maprange[0], maprange[1]
+    if maprange == 'maximal':
+        return 1 / (N * dt), 1 / (2 * dt)
+    return (_center_freq_hz(wavelet, N, maprange, dt, scales[-1],
+                            was_padded),
+            _center_freq_hz(wavelet, N, maprange, dt, scales[0],
+                            was_padded))
+
+
+def _center_freq_hz(wavelet, N, kind, dt, scale, was_padded):
+    """Wavelet center frequency at `scale`, rad/sample -> Hz, measured at
+    the padded length when the transform ran padded."""
+    from .wavelets import center_frequency
+    n_eff = p2up(N)[0] if was_padded else N
+    w_peak = center_frequency(wavelet, N=n_eff,
+                              scale=float(np.asarray(scale).squeeze()),
+                              kind=kind,
+                              **(dict(force_int=True) if kind == 'energy'
+                                 else {}))
+    return w_peak / (2 * pi) / dt
+
+
+def _check_ssqueezing_args(squeezing, maprange=None, wavelet=None,
+                           difftype=None, difforder=None, get_w=None,
+                           transform='cwt'):
+    """Validation of the synchrosqueezing options; returns difforder."""
+    if transform not in ('cwt', 'stft'):
+        raise ValueError("`transform` must be one of: cwt, stft "
+                         "(got %s)" % transform)
+    if not isinstance(squeezing, (str, FunctionType)):
+        raise TypeError("`squeezing` must be string or function "
+                        "(got %s)" % type(squeezing))
+    elif isinstance(squeezing, str):
+        assert_is_one_of(squeezing, 'squeezing', ('sum', 'lebesgue', 'abs'))
+
+    if maprange is not None:
+        if isinstance(maprange, (tuple, list)):
+            if not all(isinstance(m, (float, int)) for m in maprange):
+                raise ValueError("all elements of `maprange` must be "
+                                 "float or int")
+        elif isinstance(maprange, str):
+            assert_is_one_of(maprange, 'maprange',
+                             ('maximal', 'peak', 'energy'))
+        else:
+            raise TypeError("`maprange` must be str, tuple, or list "
+                            "(got %s)" % type(maprange))
+        if isinstance(maprange, str) and maprange != 'maximal':
+            if transform != 'cwt':
+                NOTE("string `maprange` currently only functional with "
+                     "`transform='cwt'`")
+            elif wavelet is None:
+                raise ValueError(f"maprange='{maprange}' requires `wavelet`")
+
+    if difftype is not None:
+        if difftype not in ('trig', 'phase', 'numeric'):
+            raise ValueError("`difftype` must be one of: trig, phase, "
+                             "numeric (got %s)" % difftype)
+        elif difftype != 'trig' and not get_w:
+            raise ValueError("`difftype != 'trig'` requires `get_w = True`")
+
+    if difforder is not None:
+        if difftype != 'numeric':
+            WARN("`difforder` is ignored if `difftype != 'numeric'")
+        elif difforder not in (1, 2, 4):
+            raise ValueError("`difforder` must be one of: 1, 2, 4 "
+                             "(got %s)" % difforder)
+    elif difftype == 'numeric':
+        difforder = 4
+    return difforder
+
+
+def _natural_bins(transform, scales, ssq_freqs, params, flipud, na, dt):
+    """Per-row expected bin: the bin each scale's associated frequency
+    falls in (identity for the library's own CWT grids with flipud)."""
+    try:
+        v = np.asarray(ssq_freqs).squeeze()
+        nbins = params['omax'] + 1
+        if transform == 'cwt' and scales is not None and len(v) == na:
+            # scales high->low map to bins low->high: natural ~ reversed
+            base = np.arange(na - 1, -1, -1)
+        else:
+            base = np.arange(na)
+        base = np.clip(base, 0, nbins - 1)
+        if flipud:
+            base = (nbins - 1) - base
+        return base.astype(np.int32)
+    except Exception:
+        return None
