@@ -4,9 +4,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — `ssq_cwt` forward on a 1-D float32 signal
-at the bench headline shape (N = 160000, the bench's 293-row
-log-piecewise plan, white noise from a seed) and `issq_cwt` back — and:
+Drives the port's main paths at the bench shapes (N = 160000, white
+noise from a seed, float32): `ssq_cwt` with the bench's 293-row
+log-piecewise plan and `issq_cwt` back; `ssq_stft` and `stft` (hop 1)
+with n_fft = 598 and `issq_stft`/`istft` back; `cwt` with the same 293
+scales and `icwt` back. It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel from `ssqueezepy_tpu_torch/csrc/` (one nvcc
@@ -15,14 +17,25 @@ log-piecewise plan, white noise from a seed) and `issq_cwt` back — and:
      version at the headline shape, float32 and float64;
   4. holds the reassignment scatter (B2) against its plain version on the
      same planes, and checks two runs are bit-identical;
-  5. runs the public `ssq_cwt` at 160k with every launch counter set to 0
-     just before, reads the counters just after (each kernel must have
-     launched), and checks Tx against the plain path on the card;
-  6. round-trips a chirp through `ssq_cwt`/`issq_cwt` (mad_rms < 0.1);
-  7. times each kernel, its plain version and a library yardstick with
+  5. holds the STFT table kernel (B6) in its three modes (Sx; Sx + dSx;
+     Sx + bins) against its plain version at the ssq_stft headline
+     (Np2 = 163840 = 5 x 2^15) and at N = 10000 (Np2 = 12288 = 3 x 2^12),
+     float32 and float64;
+  6. holds the plain/derivative CWT kernel (B3) against its plain version
+     at cwt@160k (with and without dWx) and on a (16, 10000) batch,
+     float32 and float64;
+  7. runs each public entry point (`ssq_cwt`, `ssq_stft`, `stft`, `cwt`
+     at 160k) with every launch counter set to 0 just before, reads the
+     counters just after (each kernel of the path must have launched),
+     and checks the outputs against the plain path on the card;
+  8. round-trips a chirp through `ssq_cwt`/`issq_cwt`,
+     `ssq_stft`/`issq_stft` and `cwt`/`icwt` (mad_rms < 0.1), and white
+     noise through `stft`/`istft` in float64 at hop 1 and hop 8 (MAE <
+     1e-12);
+  9. times each kernel, its plain version and a library yardstick with
      CUDA events after warm-up, computes each kernel's bound from this
-     run's shapes, and times the whole `ssq_cwt` with its peak memory;
-  8. prints one `{"kernels": [...]}` line, then, as the last line,
+     run's shapes, and times each public call with its peak memory;
+ 10. prints one `{"kernels": [...]}` line, then, as the last line,
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before those lines. Without a CUDA
@@ -72,6 +85,27 @@ def cuda_ms(fn, reps=10, warm=2):
     return t0.elapsed_time(t1) / reps
 
 
+def host_ms(fn, reps=10, warm=2):
+    """(mean host-clock ms per call ending in a synchronize, peak device
+    GB allocated over the timed calls, plan constants included)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    del out
+    return ms, torch.cuda.max_memory_allocated() / 1e9
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
 def bins_criterion(Tx_k, Tx_p, what):
     m = float(Tx_p.abs().max())
     col = float((Tx_k.sum(-2) - Tx_p.sum(-2)).abs().max())
@@ -79,6 +113,23 @@ def bins_criterion(Tx_k, Tx_p, what):
     check(col < 1e-4 * m and abs(e_k - e_p) / e_p < 5e-3,
           "%s: Tx column sums %.3g of max, energy %.3g (bins criterion "
           "1e-4 / 5e-3)" % (what, col / m, abs(e_k - e_p) / e_p))
+
+
+def bound(nbytes, flops):
+    """(bound ms, 'bytes' or 'operations') on the H100 peaks above."""
+    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    return max(tb, tf) * 1e3, ('operations' if tf > tb else 'bytes')
+
+
+def launches_of(kernels, fn):
+    """Set every counter to 0, run `fn` (synchronized), read the counters:
+    (fn's result, {name: count})."""
+    import torch
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in kernels}
 
 
 def main():
@@ -90,17 +141,24 @@ def main():
         import ssqueezepy_tpu_torch as stq
         from ssqueezepy_tpu_torch.ops import _build
         from ssqueezepy_tpu_torch.ops.cwt_cuda import (
-            cwt_bins, cwt_bins_plain, four_step)
+            cwt_bins, cwt_bins_plain, cwt_fused, cwt_fused_plain, four_step)
         from ssqueezepy_tpu_torch.ops.ssq_cuda import (
             scatter_kv, scatter_kv_plain)
+        from ssqueezepy_tpu_torch.ops.stft_cuda import (
+            stft_conv, stft_conv_plain, split_fft_len)
+        from ssqueezepy_tpu_torch.ops.stft_conv import (conv_table,
+                                                        _TABLE_CACHE)
         from ssqueezepy_tpu_torch.ops.fft import rfft
         from ssqueezepy_tpu_torch.ops.pad import padsignal, pad_params
         from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
+        from ssqueezepy_tpu_torch.models.ssq_stft import stft_plan
+        from ssqueezepy_tpu_torch.models.stft import signal_spectrum
         from ssqueezepy_tpu_torch.models.ssqueezing import \
             _compute_associated_frequencies
         from ssqueezepy_tpu_torch.convert import plan_from_numpy
     except ImportError as e:
         fail("the port is not importable beside this script (%s)" % e)
+    all_kernels = (cwt_bins, scatter_kv, stft_conv, cwt_fused)
     # full-precision float32 products in every plain version
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -139,7 +197,8 @@ def main():
           "headline plan: na=%d nbins=%d n_up=%d n1=%d %s"
           % (na, nbins, n_up, n1, params['mode']))
     f1, f2 = four_step(n_up)
-    x_np = np.random.default_rng(0).standard_normal(N).astype(np.float32)
+    rng = np.random.default_rng(0)
+    x_np = rng.standard_normal(N).astype(np.float32)
 
     def kernel_inputs(dtype):
         tdt = getattr(torch, dtype)
@@ -196,45 +255,190 @@ def main():
     n_valid = int(((k >= 0) & (k < nbins)).sum())
     del Tx1, Tx2, Tx_p
 
-    # ---- the main path through the public API ------------------------------
+    # ---- B6 against its plain version, three modes -------------------------
+    n_fft = 300 * 2 - 2
+    n_rows = n_fft // 2 + 1
+
+    def stft_inputs(Ns, dtype, x=None):
+        tdt = getattr(torch, dtype)
+        if x is None:
+            x = rng.standard_normal(Ns)
+        xt = torch.as_tensor(x, dtype=tdt, device=dev)
+        xh6 = signal_spectrum(xt, n_fft, 'reflect')
+        sp = stft_plan(None, None, n_fft, n_fft, 1., dtype)
+        Np2 = xh6.shape[0]
+        H = conv_table(sp.window, n_fft, Np2, True, dtype, dev)
+        Hd = conv_table(sp.diff_window, n_fft, Np2, True, dtype, dev)
+        bins = dict(Sfs=torch.as_tensor(sp.Sfs, device=dev),
+                    params=sp.params, flipud=False,
+                    gamma=10 * float(np.finfo(dtype).eps))
+        c6 = torch.full((n_rows,), sp.const, dtype=tdt, device=dev)
+        return xh6, H, Hd, bins, c6
+
+    b6 = {}
+    for Ns in (N, 10000):
+        for dtype in ('float32', 'float64'):
+            xh6, H, Hd, bins6, c6 = stft_inputs(
+                Ns, dtype, x_np if Ns == N else None)
+            Np2 = xh6.shape[0]
+            print("B6 stft_conv vs plain at (%d, %d), Np2=%d=%dx%d, %s"
+                  % ((n_rows, Ns, Np2) + split_fft_len(Np2) + (dtype,)),
+                  flush=True)
+            tol = 2e-5 if dtype == 'float32' else 1e-9
+            for mode, Hd_, bins_ in (('Sx', None, None),
+                                     ('Sx+dSx', Hd, None),
+                                     ('Sx+k', Hd, bins6)):
+                Sx_k, o_k = stft_conv(xh6, H, Hd_, Ns, 1., bins_)
+                torch.cuda.synchronize()
+                Sx_p, o_p = stft_conv_plain(xh6, H, Hd_, Ns, 1., bins_)
+                err = rel_err(Sx_k, Sx_p)
+                check(err <= tol, "%s %s: max|Sx_kernel - Sx_plain| = %.3g of "
+                      "max|Sx| (limit %g)" % (dtype, mode, err, tol))
+                if mode == 'Sx+dSx':
+                    err_d = rel_err(o_k, o_p)
+                    check(err_d <= tol, "%s %s: dSx %.3g of max|dSx| "
+                          "(limit %g)" % (dtype, mode, err_d, tol))
+                if mode == 'Sx+k':
+                    flips = float((o_k != o_p).double().mean())
+                    check(flips <= 0.01, "%s %s: k differs on %.4f%% of "
+                          "cells (limit 1%%)" % (dtype, mode, 100 * flips))
+                    if dtype == 'float32':
+                        bins_criterion(
+                            scatter_kv_plain(Sx_k, o_k, c6, n_rows),
+                            scatter_kv_plain(Sx_p, o_p, c6, n_rows),
+                            "float32 B6 at N=%d" % Ns)
+                    if Ns == N and dtype == 'float32':
+                        b6 = dict(err=float((Sx_k - Sx_p).abs().max()),
+                                  args=(xh6, H, Hd, Ns, 1., bins6),
+                                  n_valid=int((o_k >= 0).sum()))
+                del Sx_k, o_k, Sx_p, o_p
+            del xh6, H, Hd
+            torch.cuda.empty_cache()
+
+    # ---- B3 against its plain version --------------------------------------
+    xb_np = rng.standard_normal((16, 10000)).astype(np.float32)
+    b3 = {}
+    for shape in ((N,), (16, 10000)):
+        for dtype in ('float32', 'float64'):
+            tdt = getattr(torch, dtype)
+            wv = resolve_wavelet(('gmw', {'dtype': dtype}))
+            Nb = shape[-1]
+            nu, nn1, _ = pad_params(Nb, 'reflect')
+            xsrc = x_np if shape == (N,) else xb_np
+            xh3 = rfft(padsignal(torch.as_tensor(xsrc, dtype=tdt,
+                                                 device=dev),
+                                 'reflect')).contiguous()
+            sc3 = torch.as_tensor(scales.ravel(), dtype=tdt, device=dev)
+            tol = 2e-5 if dtype == 'float32' else 1e-9
+            for deriv in (False, True):
+                args3 = (xh3, sc3, wv, nu, nn1, Nb, 1., deriv, True)
+                W_k, dW_k = cwt_fused(*args3)
+                torch.cuda.synchronize()
+                W_p, dW_p = cwt_fused_plain(*args3)
+                err = rel_err(W_k, W_p)
+                check(err <= tol, "B3 cwt_fused %s %s derivative=%s: "
+                      "max|Wx_kernel - Wx_plain| = %.3g of max|Wx| (limit "
+                      "%g)" % (shape, dtype, deriv, err, tol))
+                if deriv:
+                    err_d = rel_err(dW_k, dW_p)
+                    check(err_d <= tol, "B3 %s %s: dWx %.3g of max|dWx| "
+                          "(limit %g)" % (shape, dtype, err_d, tol))
+                if shape == (N,) and dtype == 'float32' and not deriv:
+                    b3 = dict(err=float((W_k - W_p).abs().max()),
+                              args=args3)
+                del W_k, dW_k, W_p, dW_p
+            del xh3
+            torch.cuda.empty_cache()
+
+    # ---- the main paths through the public API ----------------------------
     x_dev = torch.as_tensor(x_np, device=dev)
     kw = dict(wavelet=spec, scales=scales, ssq_freqs=ssq_freqs)
-    stq.ssq_cwt(x_dev, **kw)                  # plan memo + first launch
-    torch.cuda.synchronize()
-    cwt_bins.launches = scatter_kv.launches = 0
-    Tx, Wx_pub, fr, sc_out = stq.ssq_cwt(x_dev, **kw)
-    torch.cuda.synchronize()
-    launches = {'cwt_bins': cwt_bins.launches,
-                'scatter_kv': scatter_kv.launches}
-    check(all(v >= 1 for v in launches.values()),
-          "ssq_cwt at N=%d launched each kernel: %s" % (N, launches))
-    check(Tx.shape == (nbins, N) and Wx_pub.shape == (na, N)
-          and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
-          "ssq_cwt: Tx (%d, %d), Wx (%d, %d), finite" % (Tx.shape + Wx_pub.shape))
-    # the same pipeline from the plain versions, on the card
-    wv, xh, sc, c, gamma = kernel_inputs('float32')
-    Wx_p, k_p = cwt_bins_plain(xh, sc, wv, n_up, n1, N, 1., True, params,
-                               gamma, True)
-    bins_criterion(Tx, scatter_kv_plain(Wx_p, k_p, c, nbins),
-                   "public ssq_cwt vs plain path")
-    del Wx_p, k_p, Wx_pub
+    calls = {
+        'ssq_cwt': lambda: stq.ssq_cwt(x_dev, **kw),
+        'ssq_stft': lambda: stq.ssq_stft(x_dev, n_fft=n_fft),
+        'stft': lambda: stq.stft(x_dev, n_fft=n_fft),
+        'cwt': lambda: stq.cwt(x_dev, wavelet=spec, scales=scales),
+    }
+    needs = {'ssq_cwt': ('cwt_bins', 'scatter_kv'),
+             'ssq_stft': ('stft_conv', 'scatter_kv'),
+             'stft': ('stft_conv',), 'cwt': ('cwt_fused',)}
+    launches = dict.fromkeys((k.__name__ for k in all_kernels), 0)
+    for name, fn in calls.items():
+        fn()                                  # plan memo + first launch
+        torch.cuda.synchronize()
+        out, counts = launches_of(all_kernels, fn)
+        check(all(counts[kn] >= 1 for kn in needs[name]),
+              "%s at N=%d launched its kernels: %s" % (name, N, counts))
+        for kn, v in counts.items():
+            launches[kn] += v
+        if name == 'ssq_cwt':
+            Tx, Wx_pub = out[0], out[1]
+            check(Tx.shape == (nbins, N) and Wx_pub.shape == (na, N)
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "ssq_cwt: Tx (%d, %d), Wx (%d, %d), finite"
+                  % (Tx.shape + Wx_pub.shape))
+            wv, xh, sc, c, gamma = kernel_inputs('float32')
+            Wx_p, k_p = cwt_bins_plain(xh, sc, wv, n_up, n1, N, 1., True,
+                                       params, gamma, True)
+            bins_criterion(Tx, scatter_kv_plain(Wx_p, k_p, c, nbins),
+                           "public ssq_cwt vs plain path")
+            del Wx_p, k_p, Wx_pub, Tx
+        elif name == 'ssq_stft':
+            Tx, Sx = out[0], out[1]
+            check(Tx.shape == (n_rows, N) and Sx.shape == (n_rows, N)
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "ssq_stft: Tx, Sx (%d, %d), finite" % Tx.shape)
+            xh6, H, Hd, bins6, c6 = stft_inputs(N, 'float32', x_np)
+            Sx_p, k_p = stft_conv_plain(xh6, H, Hd, N, 1., bins6)
+            check(rel_err(Sx, Sx_p) <= 2e-5, "public ssq_stft: Sx %.3g of "
+                  "max vs the plain path" % rel_err(Sx, Sx_p))
+            bins_criterion(Tx, scatter_kv_plain(Sx_p, k_p, c6, n_rows),
+                           "public ssq_stft vs plain path")
+            del Tx, Sx, Sx_p, k_p, xh6, H, Hd
+        elif name == 'stft':
+            xh6, H, _, _, _ = stft_inputs(N, 'float32', x_np)
+            Sx_p, _ = stft_conv_plain(xh6, H, None, N)
+            check(out.shape == (n_rows, N) and rel_err(out, Sx_p) <= 2e-5,
+                  "public stft: Sx (%d, %d), %.3g of max vs the plain path"
+                  % (tuple(out.shape) + (rel_err(out, Sx_p),)))
+            del Sx_p, xh6, H
+        else:
+            Wx_c = out[0]
+            W_p, _ = cwt_fused_plain(*b3['args'])
+            check(Wx_c.shape == (na, N) and rel_err(Wx_c, W_p) <= 2e-5,
+                  "public cwt: Wx (%d, %d), %.3g of max vs the plain path"
+                  % (tuple(Wx_c.shape) + (rel_err(Wx_c, W_p),)))
+            del W_p, Wx_c
+        del out
+        torch.cuda.empty_cache()
 
-    # ---- round trip (the verify skill's chirp) -----------------------------
+    # ---- round trips -------------------------------------------------------
     Nc = 19531
     tc = np.linspace(0, 6, Nc, endpoint=False)
     xc = np.cos(2 * np.pi * 2 * np.exp(tc / 2)).astype(np.float32)
-    cwt_bins.launches = scatter_kv.launches = 0
-    Txc, _, _, _ = stq.ssq_cwt(xc)
-    xrec = stq.issq_cwt(Txc)
-    torch.cuda.synchronize()
-    rt_launches = (cwt_bins.launches, scatter_kv.launches)
-    mad = float(stq.toolkit.mad_rms(xc, xrec))
-    check(min(rt_launches) >= 1 and mad < 0.1,
-          "issq_cwt round trip: mad_rms = %.4g (< 0.1), launches %s"
-          % (mad, rt_launches))
+    for name, fwd, inv, need in (
+            ('issq_cwt', lambda: stq.ssq_cwt(xc)[0], stq.issq_cwt,
+             ('cwt_bins', 'scatter_kv')),
+            ('issq_stft', lambda: stq.ssq_stft(xc)[0], stq.issq_stft,
+             ('stft_conv', 'scatter_kv')),
+            ('icwt', lambda: stq.cwt(xc, scales='log')[0],
+             lambda W: stq.icwt(W, scales='log'), ('cwt_fused',))):
+        out, counts = launches_of(all_kernels, fwd)
+        mad = float(stq.toolkit.mad_rms(xc, inv(out)))
+        check(all(counts[kn] >= 1 for kn in need) and mad < 0.1,
+              "%s round trip: mad_rms = %.4g (< 0.1), launches %s"
+              % (name, mad, counts))
+    x64 = rng.standard_normal(N)
+    for hop in (1, 8):
+        S = stq.stft(x64, n_fft=n_fft, hop_len=hop, dtype='float64')
+        mae = float(np.abs(stq.istft(S, n_fft=n_fft, hop_len=hop, N=N)
+                           - x64).mean())
+        check(mae < 1e-12, "stft -> istft float64 at hop %d: MAE = %.3g "
+              "(< 1e-12)" % (hop, mae))
+        del S
+    torch.cuda.empty_cache()
 
     # ---- timings ---------------------------------------------------------
-    torch.cuda.empty_cache()
     args = b1['args']
     xh, sc = args[0], args[1]
     b1_err = b1['err']
@@ -258,23 +462,42 @@ def main():
         (nbins + 1, N), dtype=Wx.dtype, device=dev).index_put_(
             (kk, cols), vals, accumulate=True))
     del kk, cols, vals
-    torch.cuda.empty_cache()
-
     cb, rb = Wx.element_size(), Wx.element_size() // 2
     del Wx, k, c, b1
     torch.cuda.empty_cache()
-    reps = 10
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        stq.ssq_cwt(x_dev, **kw)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(reps):
-        out = stq.ssq_cwt(x_dev, **kw)
-    torch.cuda.synchronize()
-    e2e_ms = (time.perf_counter() - t1) / reps * 1e3
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del out
+
+    # B6 as the main path runs it (bins mode, two planes); its library
+    # yardstick is the DFT core only: one torch.fft.ifft of the two
+    # (n_rows, Np2) products
+    xh6, H, Hd, bins6 = b6['args'][0], b6['args'][1], b6['args'][2], \
+        b6['args'][5]
+    Np2 = xh6.shape[0]
+    b6_ms = cuda_ms(lambda: stft_conv(*b6['args']))
+    b6_sx_ms = cuda_ms(lambda: stft_conv(xh6, H, None, N))
+    b6_plain_ms = cuda_ms(lambda: stft_conv_plain(*b6['args']), reps=5)
+    prods = torch.cat([H * xh6, Hd * xh6])
+    b6_lib_ms = cuda_ms(lambda: torch.fft.ifft(prods, dim=-1))
+    del prods, H, Hd, xh6, b6['args']
+    torch.cuda.empty_cache()
+
+    # B3 as `cwt` runs it (Wx only, one plane); yardstick: one
+    # torch.fft.ifft of the (na, n_up) spectra
+    xh3 = b3['args'][0]
+    b3_ms = cuda_ms(lambda: cwt_fused(*b3['args']))
+    b3_plain_ms = cuda_ms(lambda: cwt_fused_plain(*b3['args']), reps=5)
+    spec1 = torch.zeros((na, n_up), dtype=xh3.dtype, device=dev)
+    spec1[:, :xh3.shape[0]] = xh3
+    b3_lib_ms = cuda_ms(lambda: torch.fft.ifft(spec1, dim=-1))
+    n_xh3 = xh3.numel()
+    del spec1, xh3, b3['args']
+    torch.cuda.empty_cache()
+
+    # each call's peak with only its own cached window tables live
+    e2e = {}
+    for name, fn in calls.items():
+        _TABLE_CACHE.clear()
+        torch.cuda.empty_cache()
+        e2e[name] = host_ms(fn)
 
     # ---- bounds from this run's shapes -------------------------------------
     b1_bytes = xh.numel() * cb + sc.numel() * rb + na * N * (cb + 4)
@@ -284,24 +507,39 @@ def main():
     # so every pair of the first stage has a zero input. The four-step
     # design's own twiddle multiplies are not work the function needs.
     b1_flops = na * 2 * 5 * n_up * (lg - 1)
-    b1_bound = max(b1_bytes / PEAK_BYTES_S, b1_flops / PEAK_F32_FLOP_S) * 1e3
-    b1_by = 'operations' if b1_flops / PEAK_F32_FLOP_S > \
-        b1_bytes / PEAK_BYTES_S else 'bytes'
+    b1_bound, b1_by = bound(b1_bytes, b1_flops)
     b2_bytes = na * N * (cb + 4) + na * rb + nbins * N * cb
-    b2_flops = 4 * n_valid
-    b2_bound = max(b2_bytes / PEAK_BYTES_S, b2_flops / PEAK_F32_FLOP_S) * 1e3
-    b2_by = 'operations' if b2_flops / PEAK_F32_FLOP_S > \
-        b2_bytes / PEAK_BYTES_S else 'bytes'
+    b2_bound, b2_by = bound(b2_bytes, 4 * n_valid)
+    # B6 (bins mode): xh read, Sx and k written; two length-Np2 inverse
+    # DFTs per row. The window tables and scratch are one design's.
+    b6_bytes = Np2 * cb + n_rows * N * (cb + 4)
+    b6_flops = 2 * n_rows * 5 * Np2 * np.log2(Np2)
+    b6_bound, b6_by = bound(b6_bytes, b6_flops)
+    # B3 (Wx only): xh and scales read, Wx written; one inverse DFT per
+    # scale, less the zero-input first stage
+    b3_bytes = n_xh3 * cb + na * rb + na * N * cb
+    b3_flops = na * 5 * n_up * (lg - 1)
+    b3_bound, b3_by = bound(b3_bytes, b3_flops)
 
-    print("ssq_cwt end to end at N=%d: %.3f ms/call (host clock, mean of "
-          "%d after warm-up), peak device memory %.3f GB; card: %s"
-          % (N, e2e_ms, reps, peak_gb, card), flush=True)
+    for name, (ms, gb) in e2e.items():
+        print("%s end to end at N=%d: %.3f ms/call (host clock, mean of 10 "
+              "after warm-up), peak device memory %.3f GB; card: %s"
+              % (name, N, ms, gb, card), flush=True)
     print("B1 %.3f ms (plain %.3f, torch.fft.ifft DFT core %.3f, bound "
           "%.3f by %s: %.3g B, %.3g FLOP); B2 %.3f ms (plain %.3f, "
           "index_put_ %.3f, bound %.3f by %s: %.3g B, %d valid cells)"
           % (b1_ms, b1_plain_ms, b1_lib_ms, b1_bound, b1_by, b1_bytes,
              b1_flops, b2_ms, b2_plain_ms, b2_lib_ms, b2_bound, b2_by,
              b2_bytes, n_valid), flush=True)
+    print("B6 bins mode %.3f ms, Sx mode %.3f ms (plain bins %.3f, "
+          "torch.fft.ifft DFT core %.3f, bound %.3f by %s: %.3g B, %.3g "
+          "FLOP; Np2=%d); B3 Wx only %.3f ms (plain %.3f, torch.fft.ifft "
+          "DFT core %.3f, bound %.3f by %s: %.3g B, %.3g FLOP)"
+          % (b6_ms, b6_sx_ms, b6_plain_ms, b6_lib_ms, b6_bound, b6_by,
+             b6_bytes, b6_flops, Np2, b3_ms, b3_plain_ms, b3_lib_ms,
+             b3_bound, b3_by, b3_bytes, b3_flops), flush=True)
+    print("main-path launches per kernel, summed over the four public "
+          "calls: %s" % launches, flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),
           flush=True)
 
@@ -318,6 +556,18 @@ def main():
              launches=launches['scatter_kv'], max_abs_err=b2_err,
              ms=b2_ms, plain_ms=b2_plain_ms, bound_ms=b2_bound,
              bound_by=b2_by, library_ms=b2_lib_ms),
+        dict(name='stft_conv', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/stft_conv.cu',
+             replaces='ssqueezepy_tpu/ops/stft_conv.py:393',
+             launches=launches['stft_conv'], max_abs_err=b6['err'],
+             ms=b6_ms, plain_ms=b6_plain_ms, bound_ms=b6_bound,
+             bound_by=b6_by, library_ms=b6_lib_ms),
+        dict(name='cwt_fused', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/cwt_bins.cu',
+             replaces='ssqueezepy_tpu/ops/cwt_pallas.py:70',
+             launches=launches['cwt_fused'], max_abs_err=b3['err'],
+             ms=b3_ms, plain_ms=b3_plain_ms, bound_ms=b3_bound,
+             bound_by=b3_by, library_ms=b3_lib_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

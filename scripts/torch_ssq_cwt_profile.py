@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 # -*- coding: utf-8 -*-
-"""Where the time of the PyTorch port's `ssq_cwt` goes, on one NVIDIA GPU.
+"""Where the time of a PyTorch port call goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_ssq_cwt_profile.py [--n 160000] [--calls 5]
+    python3 scripts/torch_ssq_cwt_profile.py [--transform ssq_cwt]
+        [--n 160000] [--calls 5]
 
-Runs the bench headline call (white noise, the bench's 293-row
-log-piecewise plan, float32) under `torch.profiler` after warm-up and
-prints one JSON line: device time per kernel name (summed over the
-profiled calls, divided by the call count), the wall time per call, and
-the device's idle share of that wall time. Needs a CUDA device.
+Runs one of the bench calls on white noise in float32 — `ssq_cwt` (the
+headline: the bench's 293-row log-piecewise plan and its ssq_freqs),
+`cwt` (the same scales), `ssq_stft` or `stft` (n_fft = 598, hop 1) —
+under `torch.profiler` after warm-up and prints one JSON line: device
+time per kernel name (summed over the profiled calls, divided by the
+call count), the wall time per call, and the device's idle share of
+that wall time. Needs a CUDA device.
 """
 import argparse
 import json
@@ -25,6 +28,8 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
     ap = argparse.ArgumentParser()
+    ap.add_argument('--transform', default='ssq_cwt',
+                    choices=('ssq_cwt', 'cwt', 'ssq_stft', 'stft'))
     ap.add_argument('--n', type=int, default=160000)
     ap.add_argument('--calls', type=int, default=5)
     a = ap.parse_args()
@@ -45,16 +50,21 @@ def main():
         dt=1, transform='cwt')
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(N)
                         .astype(np.float32), device='cuda')
-    kw = dict(wavelet=spec, scales=scales, ssq_freqs=freqs)
+    call = {
+        'ssq_cwt': lambda: stq.ssq_cwt(x, wavelet=spec, scales=scales,
+                                       ssq_freqs=freqs),
+        'cwt': lambda: stq.cwt(x, wavelet=spec, scales=scales),
+        'ssq_stft': lambda: stq.ssq_stft(x, n_fft=598),
+        'stft': lambda: stq.stft(x, n_fft=598)}[a.transform]
     for _ in range(3):
-        stq.ssq_cwt(x, **kw)
+        call()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(a.calls):
-            stq.ssq_cwt(x, **kw)
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / a.calls
 
@@ -71,7 +81,7 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        'card': smi, 'N': N, 'calls': a.calls, 'wall_ms_per_call': wall_ms,
+        'card': smi, 'transform': a.transform, 'N': N, 'calls': a.calls, 'wall_ms_per_call': wall_ms,
         'device_busy_ms_per_call': busy_ms,
         'device_idle_share': (1 - busy_ms / wall_ms) if wall_ms else None,
         'device_ms_per_call_by_kernel': dict(sorted(

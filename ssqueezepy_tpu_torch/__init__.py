@@ -1,17 +1,24 @@
 # -*- coding: utf-8 -*-
 """ssqueezepy_tpu_torch — the PyTorch/CUDA port of ssqueezepy_tpu.
 
-Synchrosqueezed CWT (`ssq_cwt`) and its inverse (`issq_cwt`) on an NVIDIA
-Hopper card: the fused CWT + bin-map kernel and the reassignment scatter
-are hand-written CUDA (`csrc/`), built with nvcc at first use on a CUDA
-tensor. Entry points run on ``device='cuda'`` unless the caller passes
-``device='cpu'``, which runs the kernels' plain PyTorch versions. The
-package imports torch, numpy and scipy — never JAX, and nothing of
-`ssqueezepy_tpu`.
+Synchrosqueezed CWT and STFT (`ssq_cwt`, `ssq_stft`) with their inverses,
+the CWT (`cwt`, `icwt`) and the STFT (`stft`, `istft`) on an NVIDIA
+Hopper card: the fused CWT kernels, the STFT table kernel and the
+reassignment scatter are hand-written CUDA (`csrc/`), built with nvcc at
+first use on a CUDA tensor. Entry points run on ``device='cuda'`` unless
+the caller passes ``device='cpu'``, which runs the kernels' plain PyTorch
+versions. The package imports torch, numpy and scipy — never JAX, and
+nothing of `ssqueezepy_tpu`.
 """
 from . import toolkit
+from .models.cwt import cwt, icwt
 from .models.ssq_cwt import ssq_cwt, issq_cwt
+from .models.ssq_stft import ssq_stft, issq_stft
+from .models.stft import stft, istft
 from .models.wavelets import Wavelet
-from .utils.cwt_utils import process_scales
+from .models.windows import get_window
+from .utils.cwt_utils import process_scales, make_scales, adm_cwt, adm_ssq
 
-__all__ = ['ssq_cwt', 'issq_cwt', 'Wavelet', 'process_scales', 'toolkit']
+__all__ = ['ssq_cwt', 'issq_cwt', 'ssq_stft', 'issq_stft', 'cwt', 'icwt',
+           'stft', 'istft', 'get_window', 'Wavelet', 'process_scales',
+           'make_scales', 'adm_cwt', 'adm_ssq', 'toolkit']

@@ -1,18 +1,23 @@
 # -*- coding: utf-8 -*-
 """Plans carried across from the JAX package.
 
-The synchrosqueezed CWT has no learned weights: what crosses from
-`ssqueezepy_tpu` is its host plan — the scales and the ssq frequency
-grid as numpy arrays. `plan_from_numpy` builds this package's plan from
-those arrays, so both packages can be fed one identical plan; `ssq_cwt`
-accepts the same arrays directly as `scales=` and `ssq_freqs=`.
+The synchrosqueezed transforms have no learned weights: what crosses from
+`ssqueezepy_tpu` is their host plans as numpy arrays — for the CWT the
+scales and the ssq frequency grid, for the STFT the window, its
+derivative window, the row frequencies Sfs, the ssq grid and the bin
+map. `plan_from_numpy` and `stft_plan_from_numpy` build this package's
+plans from those arrays, so both packages can be fed identical plans;
+`ssq_cwt` accepts the CWT arrays directly as `scales=` and `ssq_freqs=`,
+`ssq_stft` the window and grid as `window=` and `ssq_freqs=`.
 """
 import numpy as np
 
 from .models.cwt import resolve_wavelet
 from .models.ssq_cwt import _build_ssq_cwt_plan
+from .models.ssq_stft import StftPlan
+from .ops.ssq_kernels import ssq_bin_params
 
-__all__ = ['plan_from_numpy']
+__all__ = ['plan_from_numpy', 'stft_plan_from_numpy']
 
 
 def plan_from_numpy(scales, ssq_freqs, wavelet_spec, N, maprange='peak',
@@ -26,3 +31,19 @@ def plan_from_numpy(scales, ssq_freqs, wavelet_spec, N, maprange='peak',
     plan = _build_ssq_cwt_plan(wavelet, N, np.asarray(scales).reshape(-1, 1),
                                None, ssq, maprange, padded, dt)
     return plan._asdict()
+
+
+def stft_plan_from_numpy(window, diff_window, Sfs, ssq_freqs=None,
+                         params=None):
+    """Port `StftPlan` (see `models/ssq_stft.py`) from numpy `window` and
+    `diff_window` (n_fft,), `Sfs` (n_rows,) and `ssq_freqs` (nbins,;
+    default Sfs). `params`, the JAX plan's bin map, must equal the one
+    computed here from `ssq_freqs` (it raises otherwise)."""
+    Sfs = np.asarray(Sfs)
+    ssq = Sfs if ssq_freqs is None else np.asarray(ssq_freqs)
+    own = ssq_bin_params(ssq, logscale=False)
+    if params is not None and dict(params) != own:
+        raise ValueError("bin params %r differ from those of ssq_freqs %r"
+                         % (dict(params), own))
+    return StftPlan(np.asarray(window), np.asarray(diff_window), Sfs, ssq,
+                    float(ssq[1] - ssq[0]), own)

@@ -1,29 +1,36 @@
-// Fused CWT + phase transform + bin map for the synchrosqueezed CWT.
+// Fused CWT (+ phase transform + bin map for the synchrosqueezed CWT).
 //
 // Replaces the TPU kernel ssqueezepy_tpu/ops/cwt_pallas.py::_make_kernel
-// in its bins + direct mode (entry point cwt_fused_bins_direct). For each
-// scale a and output time n in [n1, n1 + N):
+// in two of its modes:
+//   * bins + direct mode (entry point cwt_fused_bins_direct): outputs Wx
+//     and the bin plane k;
+//   * plain/derivative mode (entry point cwt_fused_pallas): outputs Wx,
+//     and dWx when asked, over a batch of spectra (B spectra x na
+//     scales, row g = b * na + scale).
+// For each scale a and output time n in [n1, n1 + N):
 //
 //   W[a, n] = (1/n_up) sum_m psih(a xi_m) h_m xh_m e^{+2 pi i m n / n_up}
 //   D[a, n] = the same sum with the extra factor i xi_m / dt
 //
 // over the half spectrum m in [0, n_up/2] (h_m = 1/2 at the Nyquist bin),
-// then w = |Im(D / W)| / 2pi, the gamma gate |W|^2 > gamma^2, and the
-// lin / log / log-piecewise bin map with flipud. Outputs: Wx (na, N)
-// interleaved complex and k (na, N) int32, k = -1 on gated cells.
+// times sqrt(scale) for l1_norm = 0; in bins mode then w = |Im(D / W)| /
+// 2pi, the gamma gate |W|^2 > gamma^2, and the lin / log / log-piecewise
+// bin map with flipud. Outputs: Wx (B * na, N) interleaved complex and
+// either k (na, N) int32, k = -1 on gated cells, or dWx like Wx.
 //
 // Design: four-step DFT over n_up = f1 * f2 with n = k1 + f1 k2 and
 // m = m1 f2 + m2, both steps inside these kernels (no cuFFT).
 //   launch 1 (stage1): one block per (scale, P1 columns m2). Synthesizes
-//     psih in closed form (GMW, log space), forms both spectra, runs the
-//     length-f1 inverse DFT over m1 in shared memory (radix 2), applies
-//     the twiddle e^{+2 pi i m2 k1 / n_up} / n_up and writes both planes
-//     to a scratch buffer (2 x rows x n_up complex).
+//     psih in closed form (GMW, log space), forms the spectra (W, and D
+//     unless only Wx is asked), runs the length-f1 inverse DFT over m1 in
+//     shared memory (radix 2), applies the twiddle
+//     e^{+2 pi i m2 k1 / n_up} / n_up and writes the planes to a scratch
+//     buffer (planes x rows x n_up complex).
 //   launch 2 (stage2): one block per (scale, P2 columns k1). Runs the
 //     length-f2 DFT over m2, keeps the k2 whose n lands in [n1, n1+N),
-//     and runs the phase / gate / bin epilogue; dWx never leaves the chip
-//     beyond the scratch plane.
-// Bound: at the main path's shape (293 scales, n_up = 2^18) the two
+//     and writes Wx (and dWx), or runs the phase / gate / bin epilogue,
+//     where dWx never leaves the chip beyond the scratch plane.
+// Bound (bins mode): at the main path's shape (293 scales, n_up = 2^18) the two
 // inverse DFTs per scale (~13 GFLOP in float32 at 5 n log2 n, less the
 // first stage, whose upper half-spectrum inputs are zero) outweigh the
 // bytes the function must move (~0.56 GB), so it is operation-bound on
@@ -70,6 +77,7 @@ __device__ __forceinline__ bool finite_t(double x) { return fabs(x) <= 1.7976931
 struct Cfg {
   int n_up, f1, f2, lg1, lg2, half, n1, N, P1, P2, rows, row0;
   int l1_norm, mode, idx1, omax, flipud;
+  int out_mode, planes, na;  // out_mode 0: (Wx, k); 1: Wx; 2: (Wx, dWx)
   double xi_step, inv_dt, gamma_gate;
   double logconst, amp, wgamma, beta, wc;
   double a0, d0, a1, d1;
@@ -140,13 +148,15 @@ __global__ void stage1(const typename Cplx<T>::type* __restrict__ xh,
   typedef typename Cplx<T>::type CT;
   extern __shared__ unsigned char smem_raw[];
   CT* tw = reinterpret_cast<CT*>(smem_raw);
-  CT* buf = tw + (c.f1 >> 1);             // [plane][p][m1], 2*P1*f1
+  CT* buf = tw + (c.f1 >> 1);             // [plane][p][m1], planes*P1*f1
   const int L = c.f1, P = c.P1;
   const int a = blockIdx.y;               // row within this chunk
+  const int g = c.row0 + a;               // global row b * na + scale
   const int m2_0 = blockIdx.x * P;
   fill_twiddles<T>(tw, L);
 
-  const T scale = scales[c.row0 + a];
+  xh += (size_t)(g / c.na) * c.half;
+  const T scale = scales[g % c.na];
   const T inv_dt = (T)c.inv_dt;
   const T norm = c.l1_norm ? (T)1 : sqrt_t(scale);
   for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
@@ -168,10 +178,10 @@ __global__ void stage1(const typename Cplx<T>::type* __restrict__ xh,
     }
     const int br = bitrev(m1, c.lg1);
     buf[p * L + br] = X;
-    buf[(P + p) * L + br] = Xd;
+    if (c.planes == 2) buf[(P + p) * L + br] = Xd;
   }
   __syncthreads();
-  block_fft<T>(buf, 2 * P, L, c.lg1, tw);
+  block_fft<T>(buf, c.planes * P, L, c.lg1, tw);
 
   const T inv_n = (T)1 / (T)c.n_up;
   const size_t plane = (size_t)c.rows * c.n_up;
@@ -183,7 +193,7 @@ __global__ void stage1(const typename Cplx<T>::type* __restrict__ xh,
     T s, co;
     sincospi_t((T)((double)(2 * (long)m2 * k1) / c.n_up), &s, &co);
     const size_t o = ((size_t)a * c.f2 + m2) * c.f1 + k1;
-    for (int q = 0; q < 2; ++q) {
+    for (int q = 0; q < c.planes; ++q) {
       const CT v = buf[(q * P + p) * L + k1];
       CT y;
       y.x = (v.x * co - v.y * s) * inv_n;
@@ -215,11 +225,11 @@ __device__ __forceinline__ int bin_of(T w, const Cfg& c) {
 template <typename T>
 __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
                        Cfg c, typename Cplx<T>::type* __restrict__ wx,
-                       int32_t* __restrict__ kout) {
+                       void* __restrict__ out2) {
   typedef typename Cplx<T>::type CT;
   extern __shared__ unsigned char smem_raw[];
   CT* tw = reinterpret_cast<CT*>(smem_raw);
-  CT* buf = tw + (c.f2 >> 1);             // [plane][p][m2], 2*P2*f2
+  CT* buf = tw + (c.f2 >> 1);             // [plane][p][m2], planes*P2*f2
   const int L = c.f2, P = c.P2;
   const int a = blockIdx.y;
   const int k1_0 = blockIdx.x * P;
@@ -232,10 +242,10 @@ __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
     const size_t o = ((size_t)a * c.f2 + m2) * c.f1 + k1_0 + p;
     const int br = bitrev(m2, c.lg2);
     buf[p * L + br] = scratch[o];
-    buf[(P + p) * L + br] = scratch[plane + o];
+    if (c.planes == 2) buf[(P + p) * L + br] = scratch[plane + o];
   }
   __syncthreads();
-  block_fft<T>(buf, 2 * P, L, c.lg2, tw);
+  block_fft<T>(buf, c.planes * P, L, c.lg2, tw);
 
   const int k2lo = c.n1 / c.f1;
   const int k2hi = (c.n1 + c.N + c.f1 - 1) / c.f1;
@@ -248,23 +258,28 @@ __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
     const int j = k1_0 + p + c.f1 * k2 - c.n1;
     if (j < 0 || j >= c.N) continue;
     const CT W = buf[p * L + k2];
+    wx[row + j] = W;
+    if (c.out_mode == 1) continue;
     const CT Dw = buf[(P + p) * L + k2];
+    if (c.out_mode == 2) {
+      static_cast<CT*>(out2)[row + j] = Dw;
+      continue;
+    }
     // w = |Im(dW / W)| / 2pi, W = C + iD, dW = A + iB
     const T denom = W.x * W.x + W.y * W.y;
     const T w = fabs_t((Dw.y * W.x - Dw.x * W.y) / (denom * two_pi));
     const bool valid = (denom > gate) && finite_t(w);
-    wx[row + j] = W;
-    kout[row + j] = valid ? bin_of<T>(w, c) : -1;
+    static_cast<int32_t*>(out2)[row + j] = valid ? bin_of<T>(w, c) : -1;
   }
 }
 
 template <typename T>
 int launch(const void* xh, const void* scales, const Cfg& c, void* scratch,
-           void* wx, void* kout, void* stream) {
+           void* wx, void* out2, void* stream) {
   typedef typename Cplx<T>::type CT;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t sm1 = (size_t)(c.f1 / 2 + 2 * c.P1 * c.f1) * sizeof(CT);
-  const size_t sm2 = (size_t)(c.f2 / 2 + 2 * c.P2 * c.f2) * sizeof(CT);
+  const size_t sm1 = (size_t)(c.f1 / 2 + c.planes * c.P1 * c.f1) * sizeof(CT);
+  const size_t sm2 = (size_t)(c.f2 / 2 + c.planes * c.P2 * c.f2) * sizeof(CT);
   cudaFuncSetAttribute(stage1<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)sm1);
   cudaFuncSetAttribute(stage2<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -276,8 +291,7 @@ int launch(const void* xh, const void* scales, const Cfg& c, void* scratch,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   stage2<T><<<g2, 256, sm2, st>>>(static_cast<const CT*>(scratch), c,
-                                  static_cast<CT*>(wx),
-                                  static_cast<int32_t*>(kout));
+                                  static_cast<CT*>(wx), out2);
   return (int)cudaGetLastError();
 }
 
@@ -287,6 +301,7 @@ Cfg make_cfg(const int* ip, const double* dp) {
   c.half = ip[5]; c.n1 = ip[6]; c.N = ip[7]; c.P1 = ip[8]; c.P2 = ip[9];
   c.rows = ip[10]; c.row0 = ip[11]; c.l1_norm = ip[12]; c.mode = ip[13];
   c.idx1 = ip[14]; c.omax = ip[15]; c.flipud = ip[16];
+  c.out_mode = ip[17]; c.planes = ip[18]; c.na = ip[19];
   c.xi_step = dp[0]; c.inv_dt = dp[1]; c.gamma_gate = dp[2];
   c.logconst = dp[3]; c.amp = dp[4]; c.wgamma = dp[5]; c.beta = dp[6];
   c.wc = dp[7]; c.a0 = dp[8]; c.d0 = dp[9]; c.a1 = dp[10]; c.d1 = dp[11];
@@ -295,18 +310,19 @@ Cfg make_cfg(const int* ip, const double* dp) {
 
 }  // namespace
 
-// ip: 17 ints, dp: 12 doubles (layout in ops/cwt_cuda.py). Returns
+// ip: 20 ints, dp: 12 doubles (layout in ops/cwt_cuda.py). `out2` is k
+// (out_mode 0), dWx (2) or null (1); out_mode in ip says which. Returns
 // cudaGetLastError() after the launches.
 extern "C" int cwt_bins_f32(const void* xh, const void* scales, const int* ip,
                             const double* dp, void* scratch, void* wx,
-                            void* kout, void* stream) {
-  return launch<float>(xh, scales, make_cfg(ip, dp), scratch, wx, kout,
+                            void* out2, void* stream) {
+  return launch<float>(xh, scales, make_cfg(ip, dp), scratch, wx, out2,
                        stream);
 }
 
 extern "C" int cwt_bins_f64(const void* xh, const void* scales, const int* ip,
                             const double* dp, void* scratch, void* wx,
-                            void* kout, void* stream) {
-  return launch<double>(xh, scales, make_cfg(ip, dp), scratch, wx, kout,
+                            void* out2, void* stream) {
+  return launch<double>(xh, scales, make_cfg(ip, dp), scratch, wx, out2,
                         stream);
 }

@@ -1,19 +1,27 @@
 # -*- coding: utf-8 -*-
-"""Continuous Wavelet Transform core: wavelet resolution and the analytic
-half-spectrum FFT convolution.
+"""Continuous Wavelet Transform (forward & inverse).
 
-Counterpart of `ssqueezepy_tpu/models/cwt.py` (`_is_analytic`,
-`_wavelet_key`, `resolve_wavelet`, `_process_gmw_wavelet` and the
-analytic branch of `cwt_core`). `cwt_core` is the plain PyTorch version
-of the CWT part of the fused kernel in `ops/cwt_cuda.py`. The public
-`cwt`/`icwt` wait for ROADMAP item A4b.
+Counterpart of `ssqueezepy_tpu/models/cwt.py` for GMW wavelets (order
+0): wavelet resolution, the analytic half-spectrum FFT convolution
+`cwt_core` (the plain PyTorch version of the kernels in
+`ops/cwt_cuda.py`), the public `cwt` for 1-D and batched 2-D input, and
+`icwt` (one- and two-integral). On a CUDA device `cwt` runs pad ->
+`torch.fft.rfft` -> the fused CWT kernel (`cwt_fused`); with
+``device='cpu'`` its plain version runs.
 """
+import numpy as np
 import torch
 
-from ..ops.fft import ifft
+from ..configs import device_dtype
+from ..ops.cwt_cuda import cwt_fused
+from ..ops.fft import ifft, rfft
+from ..ops.pad import padsignal, pad_params, _MODE_MAP
+from ..utils.common import not_ported, resolve_device
+from ..utils.cwt_utils import (process_scales, logscale_transition_idx,
+                               adm_ssq, adm_cwt, _process_fs_and_t)
 from .wavelets import Wavelet, _xifn
 
-__all__ = ['cwt_core', 'resolve_wavelet']
+__all__ = ['cwt', 'icwt', 'cwt_core', 'resolve_wavelet']
 
 
 def _is_analytic(wavelet):
@@ -80,8 +88,9 @@ def cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative, l1_norm):
     padded signal — the analytic branch of the JAX package's `cwt_core`:
     the wavelet is synthesized on the half grid (it is zero on the
     negative half), the Nyquist bin halved, and the inverse FFT kept to
-    [n1, n1+N). `scales` is a real (na,) tensor on xh's device. Returns
-    (Wx, dWx or None), complex (na, N)."""
+    [n1, n1+N). `scales` is a real (na,) tensor on xh's device; `xh` may
+    be a (B, n_up//2 + 1) batch. Returns (Wx, dWx or None), complex
+    (na, N) or (B, na, N)."""
     if not _is_analytic(wavelet):
         raise NotImplementedError("non-analytic wavelets wait for "
                                   "ROADMAP.md queue A, A4b")
@@ -91,7 +100,7 @@ def cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative, l1_norm):
     psih = wavelet.fn(scales.reshape(-1, 1) * xi, xp=torch)
     if n_up % 2 == 0:
         psih[:, half - 1] /= 2                      # Nyquist halving
-    Psih_xh = psih * xh
+    Psih_xh = psih * xh.unsqueeze(-2)
 
     out_range = (n1, n1 + N)
     Wx = ifft(Psih_xh, n=n_up, out_range=out_range)
@@ -108,3 +117,178 @@ def cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative, l1_norm):
         if derivative:
             dWx = dWx * s_sqrt
     return Wx, dWx
+
+
+_SCALES_CACHE = {}
+
+
+def _cached_scales(scales, N, wavelet, nv, dtype, device):
+    """(scales numpy (na, 1), scales (na,) tensor on `device`), memoized
+    for string specs and arrays: the log-piecewise redundancy scan costs
+    milliseconds, and a per-call upload is a pageable copy that blocks
+    the host until the stream drains."""
+    if isinstance(scales, str):
+        key = (scales, N, _wavelet_key(wavelet), nv, dtype, str(device))
+    elif isinstance(scales, np.ndarray):
+        key = (hash(scales.tobytes()), scales.shape, str(scales.dtype), N,
+               _wavelet_key(wavelet), nv, dtype, str(device))
+    else:
+        key = None
+    hit = _SCALES_CACHE.get(key) if key is not None else None
+    if hit is None:
+        s_np = process_scales(scales, N, wavelet, nv=nv)
+        hit = (s_np, torch.as_tensor(np.asarray(s_np, np.float64).reshape(-1),
+                                     dtype=dtype, device=device))
+        if key is not None:
+            _SCALES_CACHE[key] = hit
+    return hit
+
+
+_CWT_CHUNK = 64
+
+
+def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
+        l1_norm=True, derivative=False, padtype='reflect', rpadded=False,
+        vectorized=True, astensor=True, cache_wavelet=None, order=0,
+        average=None, nan_checks=None, patience=0, device='cuda'):
+    """Continuous Wavelet Transform of a 1-D signal or a 2-D batch (B, N)
+    by frequency-domain convolution with a GMW wavelet.
+
+    Returns (Wx, scales[, dWx]): Wx (na, N) or (B, na, N) complex
+    tensors on `device` (numpy with `astensor=False`), scales (na,).
+    `l1_norm=False` uses the L2 ('energy') GMW and multiplies rows by
+    sqrt(scale); `vectorized=False` runs the scales in chunks of 64 rows.
+    `cache_wavelet`, `nan_checks` and `patience` are accepted for
+    compatibility; non-finite input samples are zeroed."""
+    device = resolve_device(device)
+    if isinstance(order, (tuple, list, range)) or order > 0:
+        not_ported("cwt with order > 0 (cwt_higher_order)", 'A2b')
+    if rpadded:
+        not_ported("cwt(rpadded=True)", 'A4b')
+    if padtype is None:
+        not_ported("cwt with padtype=None", 'A4b')
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    if x.ndim not in (1, 2):
+        raise ValueError("`x` must be 1D or 2D (got x.ndim == %s)" % x.ndim)
+    N = x.shape[-1]
+    dt, _, _ = _process_fs_and_t(fs, t, N)
+
+    wavelet = resolve_wavelet(wavelet, l1_norm)
+    if not _is_analytic(wavelet):
+        not_ported("cwt with a non-analytic wavelet", 'A2b')
+    dtype = getattr(torch, device_dtype(wavelet.dtype))
+    scales_np, sc = _cached_scales(scales, N, wavelet, nv, dtype, device)
+    n_up, n1, _ = pad_params(N, padtype)
+
+    xt = torch.as_tensor(x, dtype=dtype, device=device)
+    xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
+    xh = rfft(padsignal(xt, padtype)).contiguous()
+    if vectorized:
+        Wx, dWx = cwt_fused(xh, sc, wavelet, n_up, n1, N, dt, derivative,
+                            l1_norm)
+    else:
+        parts = [cwt_fused(xh, sc[c0:c0 + _CWT_CHUNK], wavelet, n_up, n1, N,
+                           dt, derivative, l1_norm)
+                 for c0 in range(0, len(sc), _CWT_CHUNK)]
+        Wx = torch.cat([p[0] for p in parts], dim=-2)
+        dWx = (torch.cat([p[1] for p in parts], dim=-2) if derivative
+               else None)
+
+    scales_out = scales_np.squeeze()
+    if not astensor:
+        Wx = Wx.cpu().numpy()
+        dWx = dWx.cpu().numpy() if dWx is not None else None
+    return (Wx, scales_out, dWx) if derivative else (Wx, scales_out)
+
+
+def icwt(Wx, wavelet='gmw', scales='log-piecewise', nv=None, one_int=True,
+         x_len=None, x_mean=0, padtype='reflect', rpadded=False,
+         l1_norm=True):
+    """Inverse CWT by the one-integral (default) or the double-integral
+    formula; log-piecewise scales are inverted piece by piece. `Wx` a
+    complex tensor (the one-integral sum runs on its device) or numpy
+    array; returns numpy."""
+    *_, na, n = Wx.shape
+    x_len = x_len or n
+    if not isinstance(scales, np.ndarray) and nv is None:
+        nv = 32
+
+    wavelet = _process_gmw_wavelet(wavelet, l1_norm)
+    wavelet = Wavelet._init_if_not_isinstance(wavelet)
+    scales, scaletype, _, nv = process_scales(scales, x_len, wavelet, nv=nv,
+                                              get_params=True)
+    assert (len(scales) == na), "%s != %s" % (len(scales), na)
+
+    if scaletype == 'log-piecewise':
+        kw = dict(wavelet=wavelet, one_int=one_int, x_len=x_len,
+                  x_mean=x_mean, padtype=padtype, rpadded=rpadded,
+                  l1_norm=l1_norm)
+        idx = logscale_transition_idx(scales)
+        x = icwt(Wx[..., :idx, :], scales=scales[:idx], **kw)
+        x += icwt(Wx[..., idx:, :], scales=scales[idx:], **kw)
+        return x
+
+    if one_int:
+        x = _icwt_1int(Wx, scales, scaletype, l1_norm)
+    else:
+        if Wx.ndim == 3:
+            raise NotImplementedError("batched `Wx` requires "
+                                      "`one_int=True`.")
+        if isinstance(Wx, torch.Tensor):
+            Wx = Wx.cpu().numpy()
+        x = _icwt_2int(Wx, scales, scaletype, l1_norm, wavelet, x_len,
+                       padtype, rpadded)
+
+    Cpsi = (adm_ssq(wavelet) if one_int else adm_cwt(wavelet))
+    if scaletype == 'log':
+        # ln(2**(1/nv)) == ln(2)/nv == diff(ln(scales))[0]
+        x = x * ((2 / Cpsi) * np.log(2 ** (1 / nv)))
+    else:
+        x = x * ((2 / Cpsi) * np.pi / 4)
+    return x + x_mean
+
+
+def _icwt_norm(scaletype, l1_norm):
+    if l1_norm:
+        return ((lambda scale: 1) if scaletype == 'log' else
+                (lambda scale: scale))
+    if scaletype == 'log':
+        return lambda scale: scale ** .5
+    return lambda scale: scale ** 1.5
+
+
+def _icwt_1int(Wx, scales, scaletype, l1_norm):
+    """One-integral inverse: sum over scales of Re(Wx) / norm(scale); a
+    tensor is reduced on its device."""
+    norm = _icwt_norm(scaletype, l1_norm)
+    if isinstance(Wx, torch.Tensor):
+        Wr = Wx.real
+        nrm = np.broadcast_to(np.asarray(norm(scales), np.float64),
+                              (len(np.atleast_1d(scales)), 1))
+        nrm = torch.as_tensor(np.array(nrm), dtype=Wr.dtype,
+                              device=Wr.device)
+        return (Wr / nrm).sum(dim=-2).cpu().numpy()
+    return (Wx.real / norm(scales)).sum(axis=-2)
+
+
+def _icwt_2int(Wx, scales, scaletype, l1_norm, wavelet, x_len,
+               padtype='zero', rpadded=False):
+    """Double-integral inverse: per-scale FFT deconvolution (host
+    numpy)."""
+    if not rpadded:
+        n_up, n1, n2 = pad_params(Wx.shape[-1], padtype or 'zero')
+        Wx = np.pad(Wx, ((0, 0), (n1, n2)),
+                    mode=_MODE_MAP[padtype or 'zero'])
+    else:
+        n_up, n1 = Wx.shape[-1], 0
+
+    norm = _icwt_norm(scaletype, l1_norm)
+    pn = (-1) ** np.arange(n_up)
+    x = np.zeros(n_up)
+    for scale, Wx_scale in zip(np.asarray(scales).reshape(-1), Wx):
+        psih = wavelet.filterbank_np(np.atleast_1d(np.float64(scale)),
+                                     N=n_up, nohalf=True)[0] * pn
+        xa = np.fft.ifftshift(np.fft.ifft(np.fft.fft(Wx_scale) * psih))
+        x += xa.real / norm(float(scale))
+    return x[n1:n1 + x_len]

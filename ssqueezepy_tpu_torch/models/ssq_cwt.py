@@ -19,7 +19,7 @@ from ..ops.fft import rfft
 from ..ops.pad import padsignal, pad_params
 from ..ops.ssq_cuda import scatter_kv
 from ..ops.ssq_kernels import ssq_bin_params
-from ..utils.common import EPS32, EPS64
+from ..utils.common import EPS32, EPS64, not_ported, resolve_device
 from ..utils.cwt_utils import (process_scales, adm_ssq, _process_fs_and_t,
                                infer_scaletype, nv_from_scales)
 from .cwt import resolve_wavelet, _wavelet_key
@@ -28,24 +28,6 @@ from .ssqueezing import (_check_ssqueezing_args,
                          _compute_associated_frequencies)
 
 __all__ = ['ssq_cwt', 'issq_cwt']
-
-
-def _not_ported(what, item):
-    raise NotImplementedError("%s is not ported yet (ROADMAP.md queue A, %s)"
-                              % (what, item))
-
-
-def resolve_device(device):
-    """torch.device for an entry point; a CUDA request without a CUDA
-    device raises (the entry points never fall back to the CPU)."""
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError("device=%r requested but no CUDA device is "
-                           "available; pass device='cpu' to run the plain "
-                           "PyTorch versions on the CPU" % str(device))
-    if device.type not in ('cuda', 'cpu'):
-        raise ValueError("device must be 'cuda' or 'cpu' (got %s)" % device)
-    return device
 
 
 _PLAN_CACHE = {}
@@ -143,21 +125,21 @@ def _check_slice(x, wavelet, padtype, squeezing, order, get_w, difftype,
                  get_dWx):
     """Calls outside the ported slice raise, naming their ROADMAP item."""
     if isinstance(order, (tuple, list, range)) or order > 0:
-        _not_ported("ssq_cwt with order > 0", 'A6b')
+        not_ported("ssq_cwt with order > 0", 'A6b')
     if get_w:
-        _not_ported("ssq_cwt with get_w=True", 'A6b')
+        not_ported("ssq_cwt with get_w=True", 'A6b')
     if difftype != 'trig':
-        _not_ported("difftype != 'trig'", 'A6b')
+        not_ported("difftype != 'trig'", 'A6b')
     if not isinstance(squeezing, str):
-        _not_ported("callable squeezing", 'A5b')
+        not_ported("callable squeezing", 'A5b')
     if squeezing != 'sum':
-        _not_ported("squeezing=%r" % squeezing, 'A5b')
+        not_ported("squeezing=%r" % squeezing, 'A5b')
     if x.ndim != 1:
-        _not_ported("%d-D input" % x.ndim, 'A6b')
+        not_ported("%d-D input" % x.ndim, 'A6b')
     if get_dWx:
-        _not_ported("get_dWx=True", 'A6b')
+        not_ported("get_dWx=True", 'A6b')
     if padtype is None:
-        _not_ported("padtype=None", 'A6b')
+        not_ported("padtype=None", 'A6b')
 
 
 def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,

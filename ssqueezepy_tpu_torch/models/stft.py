@@ -1,0 +1,129 @@
+# -*- coding: utf-8 -*-
+"""Short-Time Fourier Transform (forward & inverse).
+
+Counterpart of `ssqueezepy_tpu/models/stft.py`. At hop 1 the STFT is
+one FFT of the padded signal and, per row, the inverse DFT of the
+product with that row's window table: on a CUDA device the hand-written
+table kernel (`ops/stft_cuda.py`), with ``device='cpu'`` its plain
+version. At hop > 1 it takes the framed path (frames -> window ->
+`torch.fft.rfft`), which the JAX package left to XLA. The inverse is
+irfft -> fftshift -> windowed overlap-add -> window-norm divide -> unpad,
+on the tensor's device.
+"""
+import functools
+
+import numpy as np
+import torch
+
+from ..configs import default_dtype
+from ..ops.fft import fft, irfft, fftshift, ifftshift, next_fft_len
+from ..ops.framing import buffer, overlap_add, window_norm
+from ..ops.pad import padsignal
+from ..ops.stft_conv import conv_table
+from ..ops.stft_cuda import stft_conv
+from ..utils.common import not_ported, resolve_device
+from ..utils.cwt_utils import _process_fs_and_t
+from .windows import get_window, _check_NOLA
+
+__all__ = ['stft', 'istft']
+
+
+def _as_signal(x, dtype, device):
+    """Real tensor of `dtype` on `device`, non-finite samples zeroed."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    xt = torch.as_tensor(x, dtype=getattr(torch, dtype), device=device)
+    return torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
+
+
+def signal_spectrum(xt, n_fft, padtype):
+    """The full FFT of the signal padded to N + n_fft - 1, at the
+    kernel's transform length `next_fft_len(N + n_fft - 1)`."""
+    padlength = xt.shape[-1] + n_fft - 1
+    xp = padsignal(xt, padtype, padlength=padlength)
+    return fft(xp, n=next_fft_len(padlength)).contiguous()
+
+
+def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
+         t=None, padtype='reflect', modulated=True, derivative=False,
+         dtype=None, device='cuda'):
+    """Short-Time Fourier Transform of a 1-D signal. Returns `Sx`
+    (n_fft//2 + 1, n_segs) complex on `device` (+ `dSx`, the transform
+    with the derivative window times fs, if `derivative`): rows are the
+    positive frequencies, columns the hops (N of them at hop 1)."""
+    device = resolve_device(device)
+    ndim = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
+    if ndim != 1:
+        not_ported("stft of %d-D input" % ndim, 'A7b')
+    N = x.shape[-1]
+    _, fs_, _ = _process_fs_and_t(fs, t, N)
+    n_fft = int(n_fft or min(N // hop_len, 512))
+    if win_len is None:
+        win_len = (len(window) if isinstance(window, np.ndarray) else n_fft)
+    dtype = dtype or default_dtype()
+    window, diff_window = get_window(window, win_len, n_fft,
+                                     derivative=True, dtype=dtype)
+    _check_NOLA(window, hop_len, dtype)
+    xt = _as_signal(x, dtype, device)
+
+    if int(hop_len) == 1:
+        xh = signal_spectrum(xt, n_fft, padtype)
+        Np2 = xh.shape[0]
+        H = conv_table(window, n_fft, Np2, modulated, dtype, device)
+        Hd = (conv_table(diff_window, n_fft, Np2, modulated, dtype, device)
+              if derivative else None)
+        Sx, dSx = stft_conv(xh, H, Hd, N, float(fs_))
+    else:
+        xp = padsignal(xt, padtype, padlength=N + n_fft - 1)
+        frames = buffer(xp, n_fft, n_fft - int(hop_len), modulated)
+
+        def dft(win):
+            w = torch.as_tensor(win, device=device)
+            if modulated:
+                w = ifftshift(w)
+            return torch.fft.rfft(frames * w.reshape(-1, 1), dim=0)
+
+        Sx = dft(window)
+        dSx = dft(diff_window) * fs_ if derivative else None
+    return (Sx, dSx) if derivative else Sx
+
+
+@functools.lru_cache(maxsize=32)
+def _istft_consts(win_bytes, n_fft, hop_len, N, win_exp, dtype, device):
+    """(window ** win_exp as an (n_fft, 1) column, the window norm made
+    safe to divide by), tensors on `device`; `win_bytes` the window's
+    bytes in `dtype`. Kept per plan: a per-call upload is a pageable copy
+    that blocks the host until the stream drains."""
+    window = np.frombuffer(win_bytes, dtype=dtype)
+    w = np.ones_like(window) if win_exp == 0 else window ** win_exp
+    wn = window_norm(window, hop_len, n_fft, N, win_exp)
+    tiny = np.finfo(np.dtype(dtype)).tiny
+    wn = np.where(wn > tiny, wn, 1.0).astype(dtype)
+    return (torch.as_tensor(w.astype(dtype), device=device).reshape(-1, 1),
+            torch.as_tensor(wn, device=device))
+
+
+def istft(Sx, window=None, n_fft=None, win_len=None, hop_len=1, N=None,
+          modulated=True, win_exp=1):
+    """Inverse STFT by least-squares overlap-add. `Sx` (n_rows, n_segs)
+    or a batch (B, n_rows, n_segs), a complex tensor (inverted on its
+    device) or numpy array; returns numpy (N,) or (B, N)."""
+    if not isinstance(Sx, torch.Tensor):
+        Sx = torch.as_tensor(np.asarray(Sx))
+    n_fft = int(n_fft or (Sx.shape[-2] - 1) * 2)
+    win_len = win_len or n_fft
+    N_ = int(N or hop_len * Sx.shape[-1])
+    dtype = 'float32' if Sx.dtype == torch.complex64 else 'float64'
+
+    window = get_window(window, win_len, n_fft=n_fft, dtype=dtype)
+    _check_NOLA(window, hop_len, dtype=dtype)
+    w, wn = _istft_consts(window.tobytes(), n_fft, int(hop_len), N_,
+                          int(win_exp), dtype, Sx.device)
+    full = N_ + n_fft - 1
+    lo, hi = n_fft // 2, full - ((n_fft - 1) // 2)
+
+    xbuf = irfft(Sx, n=n_fft, axis=-2)
+    if modulated:
+        xbuf = fftshift(xbuf, axes=-2)
+    x = overlap_add(xbuf * w, int(hop_len), full) / wn
+    return x[..., lo:hi].cpu().numpy()

@@ -22,7 +22,7 @@ __all__ = ['load', 'build_all', 'check', 'SOURCES']
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD = os.path.join(os.path.dirname(_PKG), 'build')
-SOURCES = ('cwt_bins', 'scatter_kv')
+SOURCES = ('cwt_bins', 'scatter_kv', 'stft_conv')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 
@@ -84,6 +84,7 @@ _SIGNATURES = {
     'scatter_kv': ('scatter_kv_f32', 'scatter_kv_f64',
                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 2),
+    'stft_conv': ('stft_conv_f32', 'stft_conv_f64', [ctypes.c_void_p] * 10),
 }
 
 

@@ -1,18 +1,23 @@
 # -*- coding: utf-8 -*-
-"""Fused CWT + phase transform + bin map: the kernel `csrc/cwt_bins.cu`
-and its plain PyTorch version.
+"""Fused CWT kernels in `csrc/cwt_bins.cu` and their plain PyTorch
+versions. Both replace modes of `ssqueezepy_tpu/ops/cwt_pallas.py::
+_make_kernel`:
 
-Replaces `ssqueezepy_tpu/ops/cwt_pallas.py::_make_kernel` in bins +
-direct mode (`cwt_fused_bins_direct`). From the half spectrum of the
-padded signal it returns Wx (na, N) complex and the reassignment bin
-plane k (na, N) int32, k = -1 on gamma-gated cells; dWx stays inside the
-kernel. The inverse DFT is computed in the kernel itself (four-step,
-radix 2 in shared memory); design and bound are noted in the source.
+  * `cwt_bins` (B1), its bins + direct mode (`cwt_fused_bins_direct`):
+    from the half spectrum of the padded signal, Wx (na, N) complex and
+    the reassignment bin plane k (na, N) int32, k = -1 on gamma-gated
+    cells; dWx stays inside the kernel.
+  * `cwt_fused` (B3), its plain/derivative mode (`cwt_fused_pallas`):
+    Wx, and dWx when asked, for one spectrum (na, N) or a batch of them
+    (B, na, N); L1 or L2 (sqrt(scale)) row norm.
 
-`cwt_bins` launches the kernel for CUDA tensors and runs `cwt_bins_plain`
-for CPU tensors. `cwt_bins.launches` counts calls of the C entry point
-(one per chunk of rows); each such call issues two CUDA launches, stage 1
-and stage 2.
+The inverse DFT is computed in the kernel itself (four-step, radix 2 in
+shared memory); design and bound are noted in the source.
+
+Each wrapper launches the kernel for CUDA tensors and runs its plain
+version for CPU tensors. `cwt_bins.launches` and `cwt_fused.launches`
+count calls of the C entry point (one per chunk of rows); each such call
+issues two CUDA launches, stage 1 and stage 2.
 """
 import ctypes
 import math
@@ -21,12 +26,15 @@ import torch
 
 from . import _build
 
-__all__ = ['cwt_bins', 'cwt_bins_plain', 'four_step']
+__all__ = ['cwt_bins', 'cwt_bins_plain', 'cwt_fused', 'cwt_fused_plain',
+           'four_step']
 
 _MODES = {'lin': 0, 'log': 1, 'log-piecewise': 2}
 # stage-1 scratch held at once (two planes); rows are chunked beyond it
 _SCRATCH_BUDGET = 2 << 30
 _SMEM_BUDGET = 96 * 1024
+_MAX_GRID_Y = 65535
+_OUT_BINS, _OUT_W, _OUT_W_DW = 0, 1, 2
 
 
 def four_step(n_up):
@@ -41,13 +49,13 @@ def four_step(n_up):
     return f1, n_up // f1
 
 
-def _columns(L, other, itemsize):
+def _columns(L, other, itemsize, planes=2):
     """Columns per block: a power of two <= 8 dividing `other`, within
-    the shared-memory budget for two planes of length L."""
+    the shared-memory budget for `planes` planes of length L."""
     P = min(8, other)
-    while P > 1 and (L // 2 + 2 * P * L) * itemsize > _SMEM_BUDGET:
+    while P > 1 and (L // 2 + planes * P * L) * itemsize > _SMEM_BUDGET:
         P //= 2
-    if (L // 2 + 2 * P * L) * itemsize > _SMEM_BUDGET:
+    if (L // 2 + planes * P * L) * itemsize > _SMEM_BUDGET:
         raise NotImplementedError("DFT factor %d exceeds shared memory" % L)
     return P
 
@@ -62,10 +70,13 @@ def _bin_args(params):
             params['dvl1'], params['idx1'])
 
 
-def _check(xh, scales, n_up, n1, N):
-    if xh.dim() != 1 or xh.shape[0] != n_up // 2 + 1:
-        raise ValueError("xh must be the (n_up//2 + 1,) half spectrum "
-                         "(got %s)" % (tuple(xh.shape),))
+def _check(xh, scales, n_up, n1, N, batched=False):
+    if (xh.dim() not in ((1, 2) if batched else (1,))
+            or xh.shape[-1] != n_up // 2 + 1):
+        raise ValueError("xh must be the (n_up//2 + 1,) half spectrum%s "
+                         "(got %s)" % (" or a (B, n_up//2 + 1) batch"
+                                       if batched else "",
+                                       tuple(xh.shape)))
     if not (n1 >= 0 and N >= 1 and n1 + N <= n_up):
         raise ValueError("output span [n1, n1+N) = [%d, %d) must lie in "
                          "[0, n_up=%d)" % (n1, n1 + N, n_up))
@@ -109,6 +120,22 @@ def cwt_bins(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params, gamma,
     if xh.device.type != 'cuda':
         raise RuntimeError("cwt_bins runs on CUDA or CPU tensors (got %s)"
                            % xh.device)
+    Wx = torch.empty((scales.shape[0], N), dtype=xh.dtype, device=xh.device)
+    k = torch.empty((scales.shape[0], N), dtype=torch.int32,
+                    device=xh.device)
+    _launch(cwt_bins, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
+            _OUT_BINS, Wx, k, params, gamma, flipud)
+    return Wx, k
+
+
+cwt_bins.launches = 0
+
+
+def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
+            out_mode, Wx, out2, params=None, gamma=0., flipud=False):
+    """Run the two-launch kernel over every row of `Wx` (B * na, N),
+    chunking rows to the scratch budget; counts each C call on
+    `wrapper.launches`."""
     kp = getattr(wavelet.fn, 'kernel_params', None)
     if kp is None:
         raise NotImplementedError("the CUDA CWT kernel synthesizes GMW "
@@ -116,32 +143,69 @@ def cwt_bins(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params, gamma,
     lib = _build.load('cwt_bins')
     f32 = scales.dtype == torch.float32
     itemsize = xh.element_size()
+    planes = 1 if out_mode == _OUT_W else 2
     f1, f2 = four_step(n_up)
-    P1, P2 = _columns(f1, f2, itemsize), _columns(f2, f1, itemsize)
+    P1 = _columns(f1, f2, itemsize, planes)
+    P2 = _columns(f2, f1, itemsize, planes)
     na = scales.shape[0]
+    n_all = Wx.numel() // N
     dev = xh.device
-    Wx = torch.empty((na, N), dtype=xh.dtype, device=dev)
-    k = torch.empty((na, N), dtype=torch.int32, device=dev)
-    rows = max(1, min(na, _SCRATCH_BUDGET // (2 * n_up * itemsize)))
-    scratch = torch.empty((2, rows, n_up), dtype=xh.dtype, device=dev)
-    a0, d0, a1, d1, idx1 = _bin_args(params)
+    rows = max(1, min(n_all, _MAX_GRID_Y,
+                      _SCRATCH_BUDGET // (planes * n_up * itemsize)))
+    scratch = torch.empty((planes, rows, n_up), dtype=xh.dtype, device=dev)
+    if params is None:
+        mode, idx1, omax, bin_args = 0, 0, 0, (0., 1., 0., 1.)
+    else:
+        a0, d0, a1, d1, idx1 = _bin_args(params)
+        mode, omax, bin_args = _MODES[params['mode']], params['omax'], \
+            (a0, d0, a1, d1)
     dp = (ctypes.c_double * 12)(
         2 * math.pi / n_up, 1.0 / dt, gamma, kp['logconst'], kp['amp'],
-        kp['gamma'], kp['beta'], kp['wc'], a0, d0, a1, d1)
+        kp['gamma'], kp['beta'], kp['wc'], *bin_args)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = lib.cwt_bins_f32 if f32 else lib.cwt_bins_f64
-    for row0 in range(0, na, rows):
-        nr = min(rows, na - row0)
-        ip = (ctypes.c_int * 17)(
+    for row0 in range(0, n_all, rows):
+        nr = min(rows, n_all - row0)
+        ip = (ctypes.c_int * 20)(
             n_up, f1, f2, f1.bit_length() - 1, f2.bit_length() - 1,
             n_up // 2 + 1, n1, N, P1, P2, nr, row0, int(bool(l1_norm)),
-            _MODES[params['mode']], int(idx1), int(params['omax']),
-            int(bool(flipud)))
+            mode, int(idx1), int(omax), int(bool(flipud)), out_mode, planes,
+            na)
         err = fn(xh.data_ptr(), scales.data_ptr(), ip, dp,
-                 scratch.data_ptr(), Wx.data_ptr(), k.data_ptr(), stream)
-        _build.check(err, 'cwt_bins')
-        cwt_bins.launches += 1
-    return Wx, k
+                 scratch.data_ptr(), Wx.data_ptr(),
+                 None if out2 is None else out2.data_ptr(), stream)
+        _build.check(err, wrapper.__name__)
+        wrapper.launches += 1
 
 
-cwt_bins.launches = 0
+def cwt_fused_plain(xh, scales, wavelet, n_up, n1, N, dt, derivative,
+                    l1_norm):
+    """Plain version: `cwt_core` (torch.fft.ifft)."""
+    from ..models.cwt import cwt_core
+    Wx, dWx = cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative,
+                       l1_norm)
+    return Wx.contiguous(), (None if dWx is None else dWx.contiguous())
+
+
+def cwt_fused(xh, scales, wavelet, n_up, n1, N, dt, derivative, l1_norm):
+    """(Wx, dWx or None) of the CWT from the half spectrum `xh` of the
+    padded signal, (n_up//2 + 1,) or a (B, n_up//2 + 1) batch; Wx and
+    dWx are (na, N) or (B, na, N). `scales` (na,) real, `wavelet` a GMW
+    `Wavelet`; output columns are [n1, n1+N) of the padded transform;
+    `l1_norm=False` multiplies rows by sqrt(scale)."""
+    _check(xh, scales, n_up, n1, N, batched=True)
+    if xh.device.type == 'cpu':
+        return cwt_fused_plain(xh, scales, wavelet, n_up, n1, N, dt,
+                               derivative, l1_norm)
+    if xh.device.type != 'cuda':
+        raise RuntimeError("cwt_fused runs on CUDA or CPU tensors (got %s)"
+                           % xh.device)
+    shape = xh.shape[:-1] + (scales.shape[0], N)
+    Wx = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+    dWx = torch.empty_like(Wx) if derivative else None
+    _launch(cwt_fused, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
+            _OUT_W_DW if derivative else _OUT_W, Wx, dWx)
+    return Wx, dWx
+
+
+cwt_fused.launches = 0

@@ -18,6 +18,7 @@ __all__ = ['SUPPORTED_PADTYPES', 'pad_params', 'padsignal']
 SUPPORTED_PADTYPES = ('reflect', 'symmetric', 'replicate', 'wrap', 'zero')
 
 _MODE_MAP = {
+    'zero': 'constant',
     'reflect': 'reflect',
     'symmetric': 'symmetric',
     'replicate': 'edge',
@@ -25,11 +26,17 @@ _MODE_MAP = {
 }
 
 
-def pad_params(N, padtype='reflect'):
-    """(n_up, n1, n2): padded length (next power of two), left pad, right
-    pad. An odd total pad puts the extra sample on the LEFT."""
+def pad_params(N, padtype='reflect', padlength=None):
+    """(n_up, n1, n2): padded length (the next power of two, or
+    `padlength`), left pad, right pad. An odd total pad puts the extra
+    sample on the LEFT."""
     assert_is_one_of(padtype, 'padtype', SUPPORTED_PADTYPES)
-    n_up, n1, n2 = p2up(N)
+    if padlength is None:
+        n_up, n1, n2 = p2up(N)
+    else:
+        n_up = int(padlength)
+        n2 = (n_up - N) // 2
+        n1 = n_up - N - n2
     return int(n_up), int(n1), int(n2)
 
 
@@ -42,11 +49,11 @@ def _pad_index(N, n1, n2, padtype, device):
     return torch.as_tensor(idx, device=device)
 
 
-def padsignal(x, padtype='reflect'):
+def padsignal(x, padtype='reflect', padlength=None):
     """Pad real tensor `x` (1-D or 2-D) along the last axis to the next
-    power of two."""
+    power of two, or to `padlength`."""
     N = x.shape[-1]
-    _, n1, n2 = pad_params(N, padtype)
+    _, n1, n2 = pad_params(N, padtype, padlength)
     if padtype == 'zero':
         return torch.nn.functional.pad(x, (n1, n2))
     return x.index_select(-1, _pad_index(N, n1, n2, padtype, x.device))

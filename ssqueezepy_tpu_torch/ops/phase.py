@@ -1,14 +1,17 @@
 # -*- coding: utf-8 -*-
-"""CWT phase transform (instantaneous-frequency estimate).
+"""Phase transforms (instantaneous-frequency estimates).
 
-    w[a, b] = |Im(dWx / Wx)| / 2pi      (inf where |Wx|^2 < gamma^2)
+    w_cwt[a, b]  = |Im(dWx / Wx)| / 2pi           (inf where |Wx|^2 < gamma^2)
+    w_stft[k, u] = |Sfs[k] - Im(dSx / Sx) / 2pi|  (inf where |Sx|^2 < gamma^2)
 
-Counterpart of `phase_transform_w` in `ssqueezepy_tpu/ops/phase.py`,
-over native complex tensors.
+Counterpart of `phase_transform_w` and `phase_stft` in
+`ssqueezepy_tpu/ops/phase.py`, over native complex tensors.
 """
 import torch
 
-__all__ = ['phase_transform_w']
+from ..utils.common import EPS32, EPS64
+
+__all__ = ['phase_transform_w', 'phase_stft']
 
 _TWO_PI = 6.283185307179586
 
@@ -21,9 +24,24 @@ def _imag_ratio_over_2pi(Wx, dWx):
     return (B * C - A * D) / ((C * C + D * D) * _TWO_PI)
 
 
-def phase_transform_w(Wx, dWx, gamma):
-    """Phase transform with gamma gating (-> inf)."""
-    w = torch.abs(_imag_ratio_over_2pi(Wx, dWx))
+def phase_transform_w(Wx, dWx, gamma, Sfs=None):
+    """Phase transform with gamma gating (-> inf). `Sfs` (n_rows,), when
+    given, is the per-row STFT frequency the estimate is offset from."""
+    w = _imag_ratio_over_2pi(Wx, dWx)
+    if Sfs is None:
+        w = torch.abs(w)
+    else:
+        shape = [1] * w.dim()
+        shape[-2] = -1
+        w = torch.abs(Sfs.to(w.dtype).reshape(shape) - w)
     C, D = Wx.real, Wx.imag
     small = (C * C + D * D) < torch.tensor(gamma, dtype=w.dtype) ** 2
     return torch.where(small, torch.full_like(w, float('inf')), w)
+
+
+def phase_stft(Sx, dSx, Sfs, gamma=None):
+    """STFT phase transform; `gamma` defaults to 10 * machine epsilon."""
+    if gamma is None:
+        gamma = 10 * (EPS64 if Sx.dtype == torch.complex128 else EPS32)
+    return phase_transform_w(Sx, dSx, gamma, Sfs=torch.as_tensor(
+        Sfs, device=Sx.device))

@@ -1,0 +1,178 @@
+# -*- coding: utf-8 -*-
+"""Hop-1 STFT rows from precomputed window tables: the kernel
+`csrc/stft_conv.cu` and its plain PyTorch version.
+
+Replaces `ssqueezepy_tpu/ops/stft_conv.py::_make_stft_kernel`
+(`stft_pallas_rows`, `stft_conv_bins`, `stft_conv`). From the full
+spectrum xh (Np2,) of the padded signal and the row tables H, Hd
+(n_rows, Np2) of `ops/stft_conv.py` it returns, for output columns
+[0, N):
+
+  * Sx = ifft(H * xh)                                  (Hd None)
+  * Sx and dSx = fs * ifft(Hd * xh)                    (bins None)
+  * Sx and the int32 bin plane k of the synchrosqueezed STFT, k = -1 on
+    gamma-gated cells; dSx stays inside the kernel     (bins given)
+
+The inverse DFT runs inside the kernel (four-step, mixed radix 4/2/3/5 in
+shared memory; design and bound are noted in the source). The TPU
+kernel's band plan is not carried over: the kernel computes the full
+correlation.
+
+`stft_conv` launches the kernel for CUDA tensors and runs
+`stft_conv_plain` for CPU tensors. `stft_conv.launches` counts calls of
+the C entry point (one per chunk of rows); each issues two CUDA launches.
+"""
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ['stft_conv', 'stft_conv_plain', 'split_fft_len']
+
+_SCRATCH_BUDGET = 2 << 30
+_SMEM_TARGET = 96 * 1024
+_SMEM_MAX = 220 * 1024
+_MAX_LEN = 1 << 22
+_MAX_GRID_Y = 65535
+
+
+def split_fft_len(n):
+    """(f1, f2) with n = f1 * f2 for the kernel's four-step transform:
+    n must be 2^a * {1, 3, 5, 9, 15} (the lengths `next_fft_len` gives)
+    with 4 <= n <= 2^22; f2 is the power of two that makes the larger
+    factor smallest."""
+    a, r = 0, int(n)
+    while r % 2 == 0:
+        r //= 2
+        a += 1
+    if r not in (1, 3, 5, 9, 15) or not 4 <= n <= _MAX_LEN:
+        raise NotImplementedError(
+            "the CUDA STFT kernel takes transform lengths 2^a * {1, 3, 5, "
+            "9, 15} in [4, 2^22] (got %d), the lengths of N + n_fft - 1 <= "
+            "2^22" % n)
+    best = None
+    for b in range(a + 1):
+        f1, f2 = n >> b, 1 << b
+        key = (max(f1, f2), -f1)
+        if best is None or key < best[0]:
+            best = (key, f1, f2)
+    return best[1], best[2]
+
+
+def _columns(L, other, itemsize, planes):
+    """Columns per block: the largest power of two <= 8 dividing `other`
+    whose shared memory (twiddle table + two buffers per plane) fits the
+    target; one column up to the card's limit."""
+    smem = lambda P: L * (1 + 2 * planes * P) * itemsize
+    P = 8
+    while P > 1 and (other % P or smem(P) > _SMEM_TARGET):
+        P //= 2
+    if smem(P) > _SMEM_MAX:
+        raise NotImplementedError("DFT factor %d exceeds shared memory" % L)
+    return P
+
+
+def _check(xh, H, Hd, N, bins):
+    if xh.dim() != 1 or H.dim() != 2 or H.shape[1] != xh.shape[0]:
+        raise ValueError("xh must be (Np2,) and H (n_rows, Np2) (got %s, %s)"
+                         % (tuple(xh.shape), tuple(H.shape)))
+    if Hd is not None and Hd.shape != H.shape:
+        raise ValueError("Hd must have H's shape (got %s)"
+                         % (tuple(Hd.shape),))
+    if bins is not None and Hd is None:
+        raise ValueError("bins mode needs Hd")
+    if not 1 <= N <= xh.shape[0]:
+        raise ValueError("N=%d must lie in [1, Np2=%d]" % (N, xh.shape[0]))
+    if xh.dtype not in (torch.complex64, torch.complex128):
+        raise TypeError("xh must be complex64 or complex128 (got %s)"
+                        % xh.dtype)
+    tabs = (H,) if Hd is None else (H, Hd)
+    if any(t.dtype != xh.dtype or t.device != xh.device for t in tabs):
+        raise TypeError("H and Hd must share xh's dtype and device")
+    if not all(t.is_contiguous() for t in (xh,) + tabs):
+        raise ValueError("xh, H and Hd must be contiguous")
+    if bins is not None:
+        sfs = bins['Sfs']
+        rdt = torch.float32 if xh.dtype == torch.complex64 else torch.float64
+        if (sfs.shape != (H.shape[0],) or sfs.dtype != rdt
+                or sfs.device != xh.device or not sfs.is_contiguous()):
+            raise ValueError("bins['Sfs'] must be a contiguous (n_rows,) "
+                             "tensor of xh's real type on its device")
+        if bins['params']['mode'] != 'lin':
+            raise ValueError("the STFT bin map is 'lin' (got %r)"
+                             % bins['params']['mode'])
+
+
+def stft_conv_plain(xh, H, Hd, N, fs=1., bins=None):
+    """Plain version: the row products, `torch.fft.ifft`, and in bins
+    mode `phase_transform_w(..., Sfs)` and `compute_bins`."""
+    from .phase import phase_transform_w
+    from .ssq_kernels import compute_bins
+    Sx = torch.fft.ifft(H * xh, dim=-1)[:, :N].contiguous()
+    if Hd is None:
+        return Sx, None
+    dSx = (torch.fft.ifft(Hd * xh, dim=-1)[:, :N] * fs).contiguous()
+    if bins is None:
+        return Sx, dSx
+    w = phase_transform_w(Sx, dSx, bins['gamma'], bins['Sfs'])
+    k, valid = compute_bins(w, bins['params'], bins['flipud'])
+    return Sx, torch.where(valid, k, torch.full_like(k, -1))
+
+
+def stft_conv(xh, H, Hd, N, fs=1., bins=None):
+    """STFT rows [0, N) from the spectrum `xh` (Np2,) of the padded
+    signal and the row tables `H`, `Hd` (n_rows, Np2) (`Hd` None: Sx
+    only). `bins`, when given, is a dict with `Sfs` (n_rows,) tensor,
+    `params` (a 'lin' `ssq_bin_params`), `gamma` and `flipud`. Returns
+    (Sx, dSx), (Sx, k) or (Sx, None)."""
+    _check(xh, H, Hd, N, bins)
+    if xh.device.type == 'cpu':
+        return stft_conv_plain(xh, H, Hd, N, fs, bins)
+    if xh.device.type != 'cuda':
+        raise RuntimeError("stft_conv runs on CUDA or CPU tensors (got %s)"
+                           % xh.device)
+    lib = _build.load('stft_conv')
+    Np2 = xh.shape[0]
+    f1, f2 = split_fft_len(Np2)
+    mode = 0 if Hd is None else (1 if bins is None else 2)
+    planes = 1 if mode == 0 else 2
+    itemsize = xh.element_size()
+    P1 = _columns(f1, f2, itemsize, planes)
+    P2 = _columns(f2, f1, itemsize, planes)
+    n_rows = H.shape[0]
+    dev = xh.device
+    Sx = torch.empty((n_rows, N), dtype=xh.dtype, device=dev)
+    out2 = None
+    if mode == 1:
+        out2 = torch.empty((n_rows, N), dtype=xh.dtype, device=dev)
+    elif mode == 2:
+        out2 = torch.empty((n_rows, N), dtype=torch.int32, device=dev)
+    rows = max(1, min(n_rows, _MAX_GRID_Y,
+                      _SCRATCH_BUDGET // (planes * Np2 * itemsize)))
+    scratch = torch.empty((planes, rows, Np2), dtype=xh.dtype, device=dev)
+    if mode == 2:
+        p = bins['params']
+        omax, flipud, sfs = p['omax'], bins['flipud'], bins['Sfs'].data_ptr()
+        dp = (ctypes.c_double * 5)(1.0 / Np2, fs, bins['gamma'], p['vmin'],
+                                   p['dv'])
+    else:
+        omax, flipud, sfs = 0, False, None
+        dp = (ctypes.c_double * 5)(1.0 / Np2, fs, 0., 0., 1.)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = (lib.stft_conv_f32 if xh.dtype == torch.complex64
+          else lib.stft_conv_f64)
+    for row0 in range(0, n_rows, rows):
+        nr = min(rows, n_rows - row0)
+        ip = (ctypes.c_int * 12)(Np2, f1, f2, N, P1, P2, nr, row0, mode,
+                                 planes, int(omax), int(bool(flipud)))
+        err = fn(xh.data_ptr(), H.data_ptr(),
+                 None if Hd is None else Hd.data_ptr(), sfs, ip, dp,
+                 scratch.data_ptr(), Sx.data_ptr(),
+                 None if out2 is None else out2.data_ptr(), stream)
+        _build.check(err, 'stft_conv')
+        stft_conv.launches += 1
+    return Sx, out2
+
+
+stft_conv.launches = 0

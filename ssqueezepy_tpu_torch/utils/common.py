@@ -1,14 +1,16 @@
 # -*- coding: utf-8 -*-
-"""Shared helpers: logging, numeric constants, padding geometry.
+"""Shared helpers: logging, numeric constants, padding geometry, the
+entry points' device rule.
 
 Counterpart of `ssqueezepy_tpu/utils/common.py` (own copy: this package
 imports nothing of the JAX package).
 """
 import logging
 import numpy as np
+import torch
 
 __all__ = ['WARN', 'NOTE', 'pi', 'EPS32', 'EPS64', 'assert_is_one_of',
-           'p2up']
+           'p2up', 'not_ported', 'resolve_device']
 
 _logger = logging.getLogger('ssqueezepy_tpu_torch')
 
@@ -42,3 +44,24 @@ def p2up(n):
     right = (total - n) // 2
     left = total - n - right
     return total, int(left), int(right)
+
+
+def not_ported(what, item):
+    """Raise for a call outside the ported slices, naming its item of
+    ROADMAP.md."""
+    queue = 'B' if item.startswith('B') else 'A'
+    raise NotImplementedError("%s is not ported yet (ROADMAP.md queue %s, "
+                              "%s)" % (what, queue, item))
+
+
+def resolve_device(device):
+    """torch.device for an entry point; a CUDA request without a CUDA
+    device raises (the entry points never fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("device=%r requested but no CUDA device is "
+                           "available; pass device='cpu' to run the plain "
+                           "PyTorch versions on the CPU" % str(device))
+    if device.type not in ('cuda', 'cpu'):
+        raise ValueError("device must be 'cuda' or 'cpu' (got %s)" % device)
+    return device

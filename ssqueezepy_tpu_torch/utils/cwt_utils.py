@@ -15,7 +15,7 @@ from ..configs import get_config
 from ..ops.search import find_maximum, find_first_occurrence, min_neglect_idx
 
 __all__ = [
-    'adm_ssq', 'cwt_scalebounds', 'process_scales', 'infer_scaletype',
+    'adm_ssq', 'adm_cwt', 'cwt_scalebounds', 'process_scales', 'infer_scaletype',
     'make_scales', 'logscale_transition_idx', 'nv_from_scales',
     'find_min_scale', 'find_max_scale', 'find_downsampling_scale',
     'integrate_analytic', 'find_max_scale_alt', '_process_fs_and_t',
@@ -37,6 +37,14 @@ def adm_ssq(wavelet):
     ``integral(conj(psih(w)) / w, w=0..inf)``."""
     psih = _freq_fn(wavelet)
     return _real_if_close(integrate_analytic(lambda w: np.conj(psih(w)) / w))
+
+
+def adm_cwt(wavelet):
+    """CWT admissibility constant
+    ``integral(|psih(w)|^2 / w, w=0..inf)``."""
+    psih = _freq_fn(wavelet)
+    return _real_if_close(
+        integrate_analytic(lambda w: np.conj(psih(w)) * psih(w) / w))
 
 
 # Escalation ladder for the upper integration bound: (grid multiplier,

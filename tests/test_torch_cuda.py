@@ -7,11 +7,11 @@ so it runs on a machine with only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances: Wx within 2e-5 of max|Wx| in float32 (radix-2 DFT in the
-kernel vs cuFFT in the plain version) and 1e-9 relative in float64; bins
-may differ on at most 1% of cells in float32 (w rounding at bin
-boundaries), Tx then by the bins criterion; the scatter within 1e-5 of
-max|Tx| (summation order) and bit-identical from run to run.
+Tolerances: Wx, Sx and dSx within 2e-5 of their max in float32 (the
+kernels' own DFTs vs cuFFT in the plain versions) and 1e-9 relative in
+float64; bins may differ on at most 1% of cells in float32 (w rounding at
+bin boundaries), Tx then by the bins criterion; the scatter within 1e-5
+of max|Tx| (summation order) and bit-identical from run to run.
 """
 import numpy as np
 import pytest
@@ -20,11 +20,16 @@ import torch
 import ssqueezepy_tpu_torch as stq
 from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
 from ssqueezepy_tpu_torch.models.ssq_cwt import _ssq_cwt_plan
+from ssqueezepy_tpu_torch.models.ssq_stft import stft_plan
+from ssqueezepy_tpu_torch.models.stft import signal_spectrum
 from ssqueezepy_tpu_torch.ops import cwt_cuda
-from ssqueezepy_tpu_torch.ops.cwt_cuda import cwt_bins, cwt_bins_plain
+from ssqueezepy_tpu_torch.ops.cwt_cuda import (cwt_bins, cwt_bins_plain,
+                                               cwt_fused, cwt_fused_plain)
 from ssqueezepy_tpu_torch.ops.fft import rfft
 from ssqueezepy_tpu_torch.ops.pad import pad_params, padsignal
 from ssqueezepy_tpu_torch.ops.ssq_cuda import scatter_kv, scatter_kv_plain
+from ssqueezepy_tpu_torch.ops.stft_conv import conv_table
+from ssqueezepy_tpu_torch.ops.stft_cuda import stft_conv, stft_conv_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -128,3 +133,137 @@ def test_ssq_cwt_on_card_round_trip(dev):
     assert stq.toolkit.mad_rms(x, stq.issq_cwt(Tx)) < 0.1
     Tx_c, _, _, _ = stq.ssq_cwt(x, device='cpu')
     _bins_criterion(Tx.cpu(), Tx_c)
+
+
+def _rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+# (N, n_fft) whose transform length N + n_fft - 1 -> next_fft_len has the
+# odd factor 1 (2^12), 3 (3 x 2^12), 5 (the ssq_stft headline, 5 x 2^15),
+# 9 (9 x 2^10) and 15 (15 x 2^9)
+STFT_SHAPES = [(4000, 97, 1), (10000, 512, 3), (160000, 598, 5),
+               (9000, 128, 9), (7000, 256, 15)]
+
+
+def _stft_inputs(N, n_fft, dtype, dev, modulated=True, seed=0):
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(N),
+                        dtype=getattr(torch, dtype), device=dev)
+    xh = signal_spectrum(x, n_fft, 'reflect')
+    plan = stft_plan(None, None, n_fft, n_fft, 1., dtype)
+    H = conv_table(plan.window, n_fft, xh.shape[0], modulated, dtype, dev)
+    Hd = conv_table(plan.diff_window, n_fft, xh.shape[0], modulated, dtype,
+                    dev)
+    bins = dict(Sfs=torch.as_tensor(plan.Sfs, device=dev),
+                params=plan.params, flipud=False,
+                gamma=10 * float(np.finfo(dtype).eps))
+    c = torch.full((H.shape[0],), plan.const, dtype=getattr(torch, dtype),
+                   device=dev)
+    return xh, H, Hd, bins, c
+
+
+@pytest.mark.parametrize('N,n_fft,odd', STFT_SHAPES)
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_stft_conv_kernel_vs_plain(dev, N, n_fft, odd, dtype):
+    xh, H, Hd, bins, c = _stft_inputs(N, n_fft, dtype, dev)
+    Np2 = xh.shape[0]
+    assert Np2 % odd == 0 and (Np2 // odd) & (Np2 // odd - 1) == 0
+    tol = 2e-5 if dtype == 'float32' else 1e-9
+    n0 = stft_conv.launches
+    for Hd_, bins_ in ((None, None), (Hd, None), (Hd, bins)):
+        Sx_k, o_k = stft_conv(xh, H, Hd_, N, 2., bins_)
+        torch.cuda.synchronize()
+        Sx_p, o_p = stft_conv_plain(xh, H, Hd_, N, 2., bins_)
+        assert _rel_err(Sx_k, Sx_p) <= tol
+        if bins_ is None and Hd_ is not None:
+            assert _rel_err(o_k, o_p) <= tol
+        elif bins_ is not None:
+            assert o_k.dtype == torch.int32
+            assert (o_k != o_p).double().mean() <= 0.01
+            nbins = bins['params']['omax'] + 1
+            _bins_criterion(scatter_kv_plain(Sx_k, o_k, c, nbins),
+                            scatter_kv_plain(Sx_p, o_p, c, nbins))
+    assert stft_conv.launches - n0 == 3
+
+
+def test_stft_conv_unmodulated_and_row_chunks(dev, monkeypatch):
+    N, n_fft = 3001, 64
+    xh, H, Hd, bins, _ = _stft_inputs(N, n_fft, 'float32', dev,
+                                      modulated=False)
+    full = stft_conv(xh, H, Hd, N, 1., bins)
+    assert _rel_err(full[0], stft_conv_plain(xh, H, Hd, N, 1., bins)[0]) \
+        <= 2e-5
+    from ssqueezepy_tpu_torch.ops import stft_cuda
+    monkeypatch.setattr(stft_cuda, '_SCRATCH_BUDGET',
+                        2 * xh.shape[0] * 8 * 5)
+    n0 = stft_conv.launches
+    chunked = stft_conv(xh, H, Hd, N, 1., bins)
+    assert stft_conv.launches - n0 == -(-H.shape[0] // 5)
+    assert torch.equal(full[0], chunked[0])
+    assert torch.equal(full[1], chunked[1])
+
+
+@pytest.mark.parametrize('shape,scales', [((1000,), 'log-piecewise'),
+                                          ((4, 3000), 'log'),
+                                          ((160000,), 'log-piecewise')])
+@pytest.mark.parametrize('derivative', [False, True])
+@pytest.mark.parametrize('dtype,l1_norm', [('float32', True),
+                                           ('float64', True),
+                                           ('float32', False)])
+def test_cwt_fused_kernel_vs_plain(dev, shape, scales, derivative, dtype,
+                                   l1_norm):
+    N = shape[-1]
+    spec = ('gmw', {'dtype': dtype,
+                    'norm': 'bandpass' if l1_norm else 'energy'})
+    wav = resolve_wavelet(spec, l1_norm=l1_norm, N=N)
+    sc = torch.as_tensor(stq.process_scales(scales, N, wav).ravel(),
+                         dtype=getattr(torch, dtype), device=dev)
+    n_up, n1, _ = pad_params(N, 'reflect')
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(shape),
+                        dtype=getattr(torch, dtype), device=dev)
+    xh = rfft(padsignal(x, 'reflect')).contiguous()
+    n0 = cwt_fused.launches
+    Wx_k, dWx_k = cwt_fused(xh, sc, wav, n_up, n1, N, 1., derivative,
+                            l1_norm)
+    torch.cuda.synchronize()
+    assert cwt_fused.launches > n0
+    Wx_p, dWx_p = cwt_fused_plain(xh, sc, wav, n_up, n1, N, 1., derivative,
+                                  l1_norm)
+    assert Wx_k.shape == shape[:-1] + (len(sc), N)
+    tol = 2e-5 if dtype == 'float32' else 1e-9
+    assert _rel_err(Wx_k, Wx_p) <= tol
+    assert (dWx_k is None) == (not derivative)
+    if derivative:
+        assert _rel_err(dWx_k, dWx_p) <= tol
+
+
+def test_public_stft_family_on_card(dev):
+    N = 19531
+    t = np.linspace(0, 6, N, endpoint=False)
+    x = np.cos(2 * np.pi * 2 * np.exp(t / 2)).astype(np.float32)
+    n1, n2 = stft_conv.launches, scatter_kv.launches
+    Tx, Sx, fr, Sfs = stq.ssq_stft(x)
+    assert Tx.is_cuda and Sx.is_cuda
+    assert stft_conv.launches > n1 and scatter_kv.launches > n2
+    assert stq.toolkit.mad_rms(x, stq.issq_stft(Tx)) < 0.1
+    Tx_c, Sx_c, _, _ = stq.ssq_stft(x, device='cpu')
+    assert _rel_err(Sx.cpu(), Sx_c) <= 2e-5
+    _bins_criterion(Tx.cpu(), Tx_c)
+    x64 = np.random.default_rng(0).standard_normal(5000)
+    for hop in (1, 4):
+        S = stq.stft(x64, n_fft=256, hop_len=hop, dtype='float64')
+        assert S.is_cuda
+        assert np.abs(stq.istft(S, n_fft=256, hop_len=hop, N=5000)
+                      - x64).mean() < 1e-12
+
+
+def test_public_cwt_on_card(dev):
+    N = 19531
+    t = np.linspace(0, 6, N, endpoint=False)
+    x = np.cos(2 * np.pi * 2 * np.exp(t / 2)).astype(np.float32)
+    n0 = cwt_fused.launches
+    Wx, scales = stq.cwt(x, scales='log')
+    assert Wx.is_cuda and cwt_fused.launches > n0
+    assert stq.toolkit.mad_rms(x, stq.icwt(Wx, scales='log')) < 0.1
+    Wx_c, _ = stq.cwt(x, scales='log', device='cpu')
+    assert _rel_err(Wx.cpu(), Wx_c) <= 2e-5
