@@ -8,7 +8,9 @@ Drives the port's main paths at the bench shapes (N = 160000, white
 noise from a seed, float32): `ssq_cwt` with the bench's 293-row
 log-piecewise plan and `issq_cwt` back; `ssq_stft` and `stft` (hop 1)
 with n_fft = 598 and `issq_stft`/`istft` back; `cwt` with the same 293
-scales and `icwt` back. It:
+scales and `icwt` back; the second-order `ssq_cwt2` (the 293 scales, no
+ssq_freqs, as the bench calls it) and `ssq_stft2` (n_fft = 598), inverted
+by `issq_cwt`/`issq_stft`. It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel from `ssqueezepy_tpu_torch/csrc/` (one nvcc
@@ -24,18 +26,22 @@ scales and `icwt` back. It:
   6. holds the plain/derivative CWT kernel (B3) against its plain version
      at cwt@160k (with and without dWx) and on a (16, 10000) batch,
      float32 and float64;
-  7. runs each public entry point (`ssq_cwt`, `ssq_stft`, `stft`, `cwt`
-     at 160k) with every launch counter set to 0 just before, reads the
-     counters just after (each kernel of the path must have launched),
-     and checks the outputs against the plain path on the card;
-  8. round-trips a chirp through `ssq_cwt`/`issq_cwt`,
-     `ssq_stft`/`issq_stft` and `cwt`/`icwt` (mad_rms < 0.1), and white
-     noise through `stft`/`istft` in float64 at hop 1 and hop 8 (MAE <
-     1e-12);
-  9. times each kernel, its plain version and a library yardstick with
+  7. holds the WSST2 kernel (B8, the order-2 mode of the CWT kernel) and
+     the FSST2 table kernel (B7) against their plain versions at the
+     ssq_cwt2 / ssq_stft2 headline (float32) and at N = 10000 (float64);
+  8. runs each public entry point (`ssq_cwt`, `ssq_stft`, `stft`, `cwt`,
+     `ssq_cwt2`, `ssq_stft2` at 160k) with every launch counter set to 0
+     just before, reads the counters just after (each kernel of the path
+     must have launched), and checks the outputs against the plain path
+     on the card;
+  9. round-trips a chirp through `ssq_cwt`/`issq_cwt`,
+     `ssq_stft`/`issq_stft`, `cwt`/`icwt`, `ssq_cwt2`/`issq_cwt` and
+     `ssq_stft2`/`issq_stft` (mad_rms < 0.1), and white noise through
+     `stft`/`istft` in float64 at hop 1 and hop 8 (MAE < 1e-12);
+  10. times each kernel, its plain version and a library yardstick with
      CUDA events after warm-up, computes each kernel's bound from this
      run's shapes, and times each public call with its peak memory;
- 10. prints one `{"kernels": [...]}` line, then, as the last line,
+ 11. prints one `{"kernels": [...]}` line, then, as the last line,
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before those lines. Without a CUDA
@@ -141,24 +147,27 @@ def main():
         import ssqueezepy_tpu_torch as stq
         from ssqueezepy_tpu_torch.ops import _build
         from ssqueezepy_tpu_torch.ops.cwt_cuda import (
-            cwt_bins, cwt_bins_plain, cwt_fused, cwt_fused_plain, four_step)
+            cwt_bins, cwt_bins_plain, cwt_bins2, cwt_bins2_plain, cwt_fused,
+            cwt_fused_plain, four_step)
         from ssqueezepy_tpu_torch.ops.ssq_cuda import (
             scatter_kv, scatter_kv_plain)
         from ssqueezepy_tpu_torch.ops.stft_cuda import (
-            stft_conv, stft_conv_plain, split_fft_len)
-        from ssqueezepy_tpu_torch.ops.stft_conv import (conv_table,
-                                                        _TABLE_CACHE)
+            fsst2_conv, fsst2_conv_plain, stft_conv, stft_conv_plain,
+            split_fft_len)
+        from ssqueezepy_tpu_torch.ops.stft_conv import (
+            conv_bank, conv_table, _BANK_CACHE, _TABLE_CACHE)
         from ssqueezepy_tpu_torch.ops.fft import rfft
         from ssqueezepy_tpu_torch.ops.pad import padsignal, pad_params
         from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
-        from ssqueezepy_tpu_torch.models.ssq_stft import stft_plan
+        from ssqueezepy_tpu_torch.models.ssq_stft import fsst2_plan, stft_plan
         from ssqueezepy_tpu_torch.models.stft import signal_spectrum
         from ssqueezepy_tpu_torch.models.ssqueezing import \
             _compute_associated_frequencies
         from ssqueezepy_tpu_torch.convert import plan_from_numpy
     except ImportError as e:
         fail("the port is not importable beside this script (%s)" % e)
-    all_kernels = (cwt_bins, scatter_kv, stft_conv, cwt_fused)
+    all_kernels = (cwt_bins, scatter_kv, stft_conv, cwt_fused, cwt_bins2,
+                   fsst2_conv)
     # full-precision float32 products in every plain version
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -350,6 +359,83 @@ def main():
             del xh3
             torch.cuda.empty_cache()
 
+    # ---- B8 and B7 against their plain versions ----------------------------
+    # B8 on the plan of the bench's ssq_cwt2 call (its scales, the ssq grid
+    # computed from them)
+    plan2 = plan_from_numpy(scales, None, spec, N)
+    params2 = plan2['params']
+    nbins2 = params2['omax'] + 1
+    b8, b7 = {}, {}
+    for Ns, dtype in ((N, 'float32'), (10000, 'float64')):
+        tdt = getattr(torch, dtype)
+        wv = resolve_wavelet(('gmw', {'dtype': dtype}), N=Ns)
+        nu, nn1, _ = pad_params(Ns, 'reflect')
+        xsrc = x_np if Ns == N else rng.standard_normal(Ns)
+        xh8 = rfft(padsignal(torch.as_tensor(xsrc, dtype=tdt, device=dev),
+                             'reflect'))
+        pl8 = plan2 if Ns == N else plan_from_numpy(
+            stq.process_scales('log-piecewise', Ns, wv), None,
+            ('gmw', {'dtype': dtype}), Ns)
+        sc8 = torch.as_tensor(pl8['scales'].ravel(), dtype=tdt, device=dev)
+        c8 = torch.as_tensor(np.broadcast_to(np.ravel(pl8['const']),
+                                             (len(sc8),)).copy(),
+                             dtype=tdt, device=dev)
+        gamma = 10 * float(np.finfo(dtype).eps)
+        args8 = (xh8, sc8, wv, nu, nn1, Ns, 1., pl8['params'], gamma, True)
+        print("B8 cwt_bins2 vs plain at (%d, %d), n_up=%d, %s"
+              % (len(sc8), Ns, nu, dtype), flush=True)
+        W_k, k_k = cwt_bins2(*args8)
+        torch.cuda.synchronize()
+        W_p, k_p = cwt_bins2_plain(*args8)
+        err = rel_err(W_k, W_p)
+        flips = float((k_k != k_p).double().mean())
+        tol = 2e-5 if dtype == 'float32' else 1e-9
+        check(bool(torch.isfinite(torch.view_as_real(W_k)).all())
+              and err <= tol and flips <= 0.01,
+              "B8 %s: max|W_kernel - W_plain| = %.3g of max|W| (limit %g), "
+              "k differs on %.4f%% of cells (limit 1%%)"
+              % (dtype, err, tol, 100 * flips))
+        nb = pl8['params']['omax'] + 1
+        bins_criterion(scatter_kv_plain(W_k, k_k, c8, nb),
+                       scatter_kv_plain(W_p, k_p, c8, nb), "%s B8" % dtype)
+        if Ns == N:
+            b8 = dict(err=float((W_k - W_p).abs().max()), args=args8, c=c8)
+        del W_k, k_k, W_p, k_p
+        torch.cuda.empty_cache()
+
+        # B7 at the ssq_stft2 headline (float32) and at N = 10000 (float64)
+        xt7 = torch.as_tensor(xsrc, dtype=tdt, device=dev)
+        xh7 = signal_spectrum(xt7, n_fft, 'reflect')
+        p7 = fsst2_plan(None, None, n_fft, n_fft, 1., dtype)
+        tab7 = conv_bank(p7.bank, n_fft, xh7.shape[0], True, dtype, dev)
+        bins7 = dict(Sfs=torch.as_tensor(p7.Sfs, device=dev),
+                     params=p7.params, flipud=False, gamma=gamma)
+        c7 = torch.full((n_rows,), p7.const, dtype=tdt, device=dev)
+        print("B7 fsst2_conv vs plain at (%d, %d), Np2=%d=%dx%d, %s"
+              % ((n_rows, Ns, xh7.shape[0]) + split_fft_len(xh7.shape[0])
+                 + (dtype,)), flush=True)
+        V_k, k_k = fsst2_conv(xh7, tab7, Ns, 1., bins7)
+        torch.cuda.synchronize()
+        V_p, k_p = fsst2_conv_plain(xh7, tab7, Ns, 1., bins7)
+        err = rel_err(V_k, V_p)
+        flips = float((k_k != k_p).double().mean())
+        check(bool(torch.isfinite(torch.view_as_real(V_k)).all())
+              and err <= tol and flips <= 0.01,
+              "B7 %s: max|V_kernel - V_plain| = %.3g of max|V| (limit %g), "
+              "k differs on %.4f%% of cells (limit 1%%)"
+              % (dtype, err, tol, 100 * flips))
+        bins_criterion(scatter_kv_plain(V_k, k_k, c7, n_rows),
+                       scatter_kv_plain(V_p, k_p, c7, n_rows),
+                       "%s B7" % dtype)
+        if Ns == N:
+            b7 = dict(err=float((V_k - V_p).abs().max()),
+                      args=(xh7, tab7, Ns, 1., bins7), c=c7)
+        else:
+            del xh7, tab7
+        del V_k, k_k, V_p, k_p
+        _BANK_CACHE.clear()
+        torch.cuda.empty_cache()
+
     # ---- the main paths through the public API ----------------------------
     x_dev = torch.as_tensor(x_np, device=dev)
     kw = dict(wavelet=spec, scales=scales, ssq_freqs=ssq_freqs)
@@ -358,10 +444,14 @@ def main():
         'ssq_stft': lambda: stq.ssq_stft(x_dev, n_fft=n_fft),
         'stft': lambda: stq.stft(x_dev, n_fft=n_fft),
         'cwt': lambda: stq.cwt(x_dev, wavelet=spec, scales=scales),
+        'ssq_cwt2': lambda: stq.ssq_cwt2(x_dev, spec, scales=scales),
+        'ssq_stft2': lambda: stq.ssq_stft2(x_dev, n_fft=n_fft),
     }
     needs = {'ssq_cwt': ('cwt_bins', 'scatter_kv'),
              'ssq_stft': ('stft_conv', 'scatter_kv'),
-             'stft': ('stft_conv',), 'cwt': ('cwt_fused',)}
+             'stft': ('stft_conv',), 'cwt': ('cwt_fused',),
+             'ssq_cwt2': ('cwt_bins2', 'scatter_kv'),
+             'ssq_stft2': ('fsst2_conv', 'scatter_kv')}
     launches = dict.fromkeys((k.__name__ for k in all_kernels), 0)
     for name, fn in calls.items():
         fn()                                  # plan memo + first launch
@@ -402,13 +492,36 @@ def main():
                   "public stft: Sx (%d, %d), %.3g of max vs the plain path"
                   % (tuple(out.shape) + (rel_err(out, Sx_p),)))
             del Sx_p, xh6, H
-        else:
+        elif name == 'cwt':
             Wx_c = out[0]
             W_p, _ = cwt_fused_plain(*b3['args'])
             check(Wx_c.shape == (na, N) and rel_err(Wx_c, W_p) <= 2e-5,
                   "public cwt: Wx (%d, %d), %.3g of max vs the plain path"
                   % (tuple(Wx_c.shape) + (rel_err(Wx_c, W_p),)))
             del W_p, Wx_c
+        elif name == 'ssq_cwt2':
+            Tx, Wx_pub = out[0], out[1]
+            check(Tx.shape == (nbins2, N) and Wx_pub.shape == (na, N)
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "ssq_cwt2: Tx (%d, %d), Wx (%d, %d), finite"
+                  % (Tx.shape + Wx_pub.shape))
+            W_p, k_p = cwt_bins2_plain(*b8['args'])
+            check(rel_err(Wx_pub, W_p) <= 2e-5, "public ssq_cwt2: Wx %.3g of "
+                  "max vs the plain path" % rel_err(Wx_pub, W_p))
+            bins_criterion(Tx, scatter_kv_plain(W_p, k_p, b8['c'], nbins2),
+                           "public ssq_cwt2 vs plain path")
+            del Tx, Wx_pub, W_p, k_p
+        else:
+            Tx, Sx = out[0], out[1]
+            check(Tx.shape == (n_rows, N) and Sx.shape == (n_rows, N)
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "ssq_stft2: Tx, Sx (%d, %d), finite" % Tx.shape)
+            V_p, k_p = fsst2_conv_plain(*b7['args'])
+            check(rel_err(Sx, V_p) <= 2e-5, "public ssq_stft2: Sx %.3g of "
+                  "max vs the plain path" % rel_err(Sx, V_p))
+            bins_criterion(Tx, scatter_kv_plain(V_p, k_p, b7['c'], n_rows),
+                           "public ssq_stft2 vs plain path")
+            del Tx, Sx, V_p, k_p
         del out
         torch.cuda.empty_cache()
 
@@ -422,7 +535,11 @@ def main():
             ('issq_stft', lambda: stq.ssq_stft(xc)[0], stq.issq_stft,
              ('stft_conv', 'scatter_kv')),
             ('icwt', lambda: stq.cwt(xc, scales='log')[0],
-             lambda W: stq.icwt(W, scales='log'), ('cwt_fused',))):
+             lambda W: stq.icwt(W, scales='log'), ('cwt_fused',)),
+            ('ssq_cwt2/issq_cwt', lambda: stq.ssq_cwt2(xc)[0], stq.issq_cwt,
+             ('cwt_bins2', 'scatter_kv')),
+            ('ssq_stft2/issq_stft', lambda: stq.ssq_stft2(xc)[0],
+             stq.issq_stft, ('fsst2_conv', 'scatter_kv'))):
         out, counts = launches_of(all_kernels, fwd)
         mad = float(stq.toolkit.mad_rms(xc, inv(out)))
         check(all(counts[kn] >= 1 for kn in need) and mad < 0.1,
@@ -492,10 +609,32 @@ def main():
     del spec1, xh3, b3['args']
     torch.cuda.empty_cache()
 
+    # B8 and B7 as their main paths run them; yardstick: the DFT core
+    # only, one torch.fft.ifft of the five spectra / table products
+    xh8, sc8 = b8['args'][0], b8['args'][1]
+    b8_ms = cuda_ms(lambda: cwt_bins2(*b8['args']))
+    b8_plain_ms = cuda_ms(lambda: cwt_bins2_plain(*b8['args']), reps=3)
+    spec5 = torch.zeros((5 * na, n_up), dtype=xh8.dtype, device=dev)
+    spec5[:, :xh8.shape[0]] = xh8
+    b8_lib_ms = cuda_ms(lambda: torch.fft.ifft(spec5, dim=-1), reps=5)
+    n_xh8 = xh8.numel()
+    del spec5, xh8, sc8, b8['args']
+    torch.cuda.empty_cache()
+    xh7, tab7 = b7['args'][0], b7['args'][1]
+    Np2_7 = xh7.shape[0]
+    b7_ms = cuda_ms(lambda: fsst2_conv(*b7['args']))
+    b7_plain_ms = cuda_ms(lambda: fsst2_conv_plain(*b7['args']), reps=3)
+    prods5 = tab7 * xh7
+    b7_lib_ms = cuda_ms(lambda: torch.fft.ifft(prods5, dim=-1), reps=5)
+    del prods5, xh7, tab7, b7['args']
+    _BANK_CACHE.clear()
+    torch.cuda.empty_cache()
+
     # each call's peak with only its own cached window tables live
     e2e = {}
     for name, fn in calls.items():
         _TABLE_CACHE.clear()
+        _BANK_CACHE.clear()
         torch.cuda.empty_cache()
         e2e[name] = host_ms(fn)
 
@@ -520,6 +659,16 @@ def main():
     b3_bytes = n_xh3 * cb + na * rb + na * N * cb
     b3_flops = na * 5 * n_up * (lg - 1)
     b3_bound, b3_by = bound(b3_bytes, b3_flops)
+    # B8: xh and scales read, W and k written; five inverse DFTs per scale,
+    # less the zero-input first stage
+    b8_bytes = n_xh8 * cb + na * rb + na * N * (cb + 4)
+    b8_flops = na * 5 * 5 * n_up * (lg - 1)
+    b8_bound, b8_by = bound(b8_bytes, b8_flops)
+    # B7: xh read, V and k written; five length-Np2 inverse DFTs per row.
+    # The five window tables and the scratch are one design's.
+    b7_bytes = Np2_7 * cb + n_rows * N * (cb + 4)
+    b7_flops = 5 * n_rows * 5 * Np2_7 * np.log2(Np2_7)
+    b7_bound, b7_by = bound(b7_bytes, b7_flops)
 
     for name, (ms, gb) in e2e.items():
         print("%s end to end at N=%d: %.3f ms/call (host clock, mean of 10 "
@@ -538,7 +687,14 @@ def main():
           % (b6_ms, b6_sx_ms, b6_plain_ms, b6_lib_ms, b6_bound, b6_by,
              b6_bytes, b6_flops, Np2, b3_ms, b3_plain_ms, b3_lib_ms,
              b3_bound, b3_by, b3_bytes, b3_flops), flush=True)
-    print("main-path launches per kernel, summed over the four public "
+    print("B8 %.3f ms (plain %.3f, torch.fft.ifft DFT core %.3f, bound "
+          "%.3f by %s: %.3g B, %.3g FLOP); B7 %.3f ms (plain %.3f, "
+          "torch.fft.ifft DFT core %.3f, bound %.3f by %s: %.3g B, %.3g "
+          "FLOP; Np2=%d)"
+          % (b8_ms, b8_plain_ms, b8_lib_ms, b8_bound, b8_by, b8_bytes,
+             b8_flops, b7_ms, b7_plain_ms, b7_lib_ms, b7_bound, b7_by,
+             b7_bytes, b7_flops, Np2_7), flush=True)
+    print("main-path launches per kernel, summed over the six public "
           "calls: %s" % launches, flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),
           flush=True)
@@ -568,6 +724,18 @@ def main():
              launches=launches['cwt_fused'], max_abs_err=b3['err'],
              ms=b3_ms, plain_ms=b3_plain_ms, bound_ms=b3_bound,
              bound_by=b3_by, library_ms=b3_lib_ms),
+        dict(name='cwt_bins2', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/cwt_bins.cu',
+             replaces='ssqueezepy_tpu/ops/cwt_pallas.py:70',
+             launches=launches['cwt_bins2'], max_abs_err=b8['err'],
+             ms=b8_ms, plain_ms=b8_plain_ms, bound_ms=b8_bound,
+             bound_by=b8_by, library_ms=b8_lib_ms),
+        dict(name='fsst2_conv', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/stft_conv.cu',
+             replaces='ssqueezepy_tpu/ops/stft_conv.py:655',
+             launches=launches['fsst2_conv'], max_abs_err=b7['err'],
+             ms=b7_ms, plain_ms=b7_plain_ms, bound_ms=b7_bound,
+             bound_by=b7_by, library_ms=b7_lib_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@
 
 Runs one of the bench calls on white noise in float32 — `ssq_cwt` (the
 headline: the bench's 293-row log-piecewise plan and its ssq_freqs),
-`cwt` (the same scales), `ssq_stft` or `stft` (n_fft = 598, hop 1) —
+`cwt` (the same scales), `ssq_cwt2` (the same scales, no ssq_freqs),
+`ssq_stft`, `stft` or `ssq_stft2` (n_fft = 598, hop 1) —
 under `torch.profiler` after warm-up and prints one JSON line: device
 time per kernel name (summed over the profiled calls, divided by the
 call count), the wall time per call, and the device's idle share of
@@ -29,7 +30,8 @@ def main():
     from torch.profiler import profile, ProfilerActivity
     ap = argparse.ArgumentParser()
     ap.add_argument('--transform', default='ssq_cwt',
-                    choices=('ssq_cwt', 'cwt', 'ssq_stft', 'stft'))
+                    choices=('ssq_cwt', 'cwt', 'ssq_stft', 'stft',
+                             'ssq_cwt2', 'ssq_stft2'))
     ap.add_argument('--n', type=int, default=160000)
     ap.add_argument('--calls', type=int, default=5)
     a = ap.parse_args()
@@ -55,7 +57,9 @@ def main():
                                        ssq_freqs=freqs),
         'cwt': lambda: stq.cwt(x, wavelet=spec, scales=scales),
         'ssq_stft': lambda: stq.ssq_stft(x, n_fft=598),
-        'stft': lambda: stq.stft(x, n_fft=598)}[a.transform]
+        'stft': lambda: stq.stft(x, n_fft=598),
+        'ssq_cwt2': lambda: stq.ssq_cwt2(x, spec, scales=scales),
+        'ssq_stft2': lambda: stq.ssq_stft2(x, n_fft=598)}[a.transform]
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -81,7 +85,8 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        'card': smi, 'transform': a.transform, 'N': N, 'calls': a.calls, 'wall_ms_per_call': wall_ms,
+        'card': smi, 'transform': a.transform, 'N': N, 'calls': a.calls,
+        'wall_ms_per_call': wall_ms,
         'device_busy_ms_per_call': busy_ms,
         'device_idle_share': (1 - busy_ms / wall_ms) if wall_ms else None,
         'device_ms_per_call_by_kernel': dict(sorted(

@@ -5,7 +5,8 @@ The synchrosqueezed transforms have no learned weights: what crosses from
 `ssqueezepy_tpu` is their host plans as numpy arrays — for the CWT the
 scales and the ssq frequency grid, for the STFT the window, its
 derivative window, the row frequencies Sfs, the ssq grid and the bin
-map. `plan_from_numpy` and `stft_plan_from_numpy` build this package's
+map, for the second-order STFT the five-window bank. `plan_from_numpy`,
+`stft_plan_from_numpy` and `fsst2_plan_from_numpy` build this package's
 plans from those arrays, so both packages can be fed identical plans;
 `ssq_cwt` accepts the CWT arrays directly as `scales=` and `ssq_freqs=`,
 `ssq_stft` the window and grid as `window=` and `ssq_freqs=`.
@@ -14,10 +15,10 @@ import numpy as np
 
 from .models.cwt import resolve_wavelet
 from .models.ssq_cwt import _build_ssq_cwt_plan
-from .models.ssq_stft import StftPlan
+from .models.ssq_stft import Fsst2Plan, StftPlan
 from .ops.ssq_kernels import ssq_bin_params
 
-__all__ = ['plan_from_numpy', 'stft_plan_from_numpy']
+__all__ = ['plan_from_numpy', 'stft_plan_from_numpy', 'fsst2_plan_from_numpy']
 
 
 def plan_from_numpy(scales, ssq_freqs, wavelet_spec, N, maprange='peak',
@@ -33,17 +34,31 @@ def plan_from_numpy(scales, ssq_freqs, wavelet_spec, N, maprange='peak',
     return plan._asdict()
 
 
-def stft_plan_from_numpy(window, diff_window, Sfs, ssq_freqs=None,
-                         params=None):
-    """Port `StftPlan` (see `models/ssq_stft.py`) from numpy `window` and
-    `diff_window` (n_fft,), `Sfs` (n_rows,) and `ssq_freqs` (nbins,;
-    default Sfs). `params`, the JAX plan's bin map, must equal the one
-    computed here from `ssq_freqs` (it raises otherwise)."""
+def _lin_grid(Sfs, ssq_freqs, params):
     Sfs = np.asarray(Sfs)
     ssq = Sfs if ssq_freqs is None else np.asarray(ssq_freqs)
     own = ssq_bin_params(ssq, logscale=False)
     if params is not None and dict(params) != own:
         raise ValueError("bin params %r differ from those of ssq_freqs %r"
                          % (dict(params), own))
-    return StftPlan(np.asarray(window), np.asarray(diff_window), Sfs, ssq,
-                    float(ssq[1] - ssq[0]), own)
+    return Sfs, ssq, float(ssq[1] - ssq[0]), own
+
+
+def stft_plan_from_numpy(window, diff_window, Sfs, ssq_freqs=None,
+                         params=None):
+    """Port `StftPlan` (see `models/ssq_stft.py`) from numpy `window` and
+    `diff_window` (n_fft,), `Sfs` (n_rows,) and `ssq_freqs` (nbins,;
+    default Sfs). `params`, the JAX plan's bin map, must equal the one
+    computed here from `ssq_freqs` (it raises otherwise)."""
+    return StftPlan(np.asarray(window), np.asarray(diff_window),
+                    *_lin_grid(Sfs, ssq_freqs, params))
+
+
+def fsst2_plan_from_numpy(bank, Sfs, ssq_freqs=None, params=None):
+    """Port `Fsst2Plan` (see `models/ssq_stft.py`) from the JAX package's
+    five-window bank `_fsst2_bank(...)` (5, n_fft), `Sfs` and `ssq_freqs`
+    (default Sfs); `params` as for `stft_plan_from_numpy`."""
+    bank = np.asarray(bank, np.float64)
+    if bank.ndim != 2 or bank.shape[0] != 5:
+        raise ValueError("bank must be (5, n_fft) (got %s)" % (bank.shape,))
+    return Fsst2Plan(bank, *_lin_grid(Sfs, ssq_freqs, params))

@@ -1,12 +1,14 @@
 // Fused CWT (+ phase transform + bin map for the synchrosqueezed CWT).
 //
 // Replaces the TPU kernel ssqueezepy_tpu/ops/cwt_pallas.py::_make_kernel
-// in two of its modes:
+// in three of its modes:
 //   * bins + direct mode (entry point cwt_fused_bins_direct): outputs Wx
 //     and the bin plane k;
 //   * plain/derivative mode (entry point cwt_fused_pallas): outputs Wx,
 //     and dWx when asked, over a batch of spectra (B spectra x na
-//     scales, row g = b * na + scale).
+//     scales, row g = b * na + scale);
+//   * order-2 (WSST2) mode (entry point cwt_fused_bins2_direct): outputs
+//     W and the bin plane k of the chirp-corrected estimate (below).
 // For each scale a and output time n in [n1, n1 + N):
 //
 //   W[a, n] = (1/n_up) sum_m psih(a xi_m) h_m xh_m e^{+2 pi i m n / n_up}
@@ -17,6 +19,18 @@
 // 2pi, the gamma gate |W|^2 > gamma^2, and the lin / log / log-piecewise
 // bin map with flipud. Outputs: Wx (B * na, N) interleaved complex and
 // either k (na, N) int32, k = -1 on gated cells, or dWx like Wx.
+//
+// Order-2 mode (out_mode 3) forms five spectra from psih and its closed-
+// form derivatives psih', psih'' at w = a xi (GMW: with u = wc w,
+// psih' = psih (beta - gamma u^gamma) / w, psih'' = psih ((beta - gamma
+// u^gamma)^2 - beta - gamma (gamma - 1) u^gamma) / w^2):
+//   W = psih xh, A = i xi psih xh, B = i a psih' xh, Bd = -xi a psih' xh,
+//   C = -a^2 psih'' xh
+// (xi not divided by dt; the Nyquist bin halved in all five), and per
+// cell p2 = (Bd W - A B) / (B^2 - C W), p1 = (A + p2 B) / W, both divides
+// regularized by |den|^2 + tiny, w2 = |Im p1| / (2 pi dt), the gamma gate
+// and the bin map (XLA twin: ssqueezepy_tpu/models/ssq_cwt2.py
+// _wsst2_rows; products in its order).
 //
 // Design: four-step DFT over n_up = f1 * f2 with n = k1 + f1 k2 and
 // m = m1 f2 + m2, both steps inside these kernels (no cuFFT).
@@ -35,7 +49,10 @@
 // first stage, whose upper half-spectrum inputs are zero) outweigh the
 // bytes the function must move (~0.56 GB), so it is operation-bound on
 // paper; this first version also moves the scratch planes through device
-// memory twice (~2.5 GB), which the bound does not count. Templated on
+// memory twice (~2.5 GB), which the bound does not count. Order-2 mode:
+// five DFTs per scale (~33 GFLOP) against the same ~0.56 GB, operation-
+// bound; its five scratch planes (~6 GB of traffic at that shape) exceed
+// the wrapper's scratch budget, so rows run in two chunks. Templated on
 // float and double.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,10 +94,12 @@ __device__ __forceinline__ bool finite_t(double x) { return fabs(x) <= 1.7976931
 struct Cfg {
   int n_up, f1, f2, lg1, lg2, half, n1, N, P1, P2, rows, row0;
   int l1_norm, mode, idx1, omax, flipud;
-  int out_mode, planes, na;  // out_mode 0: (Wx, k); 1: Wx; 2: (Wx, dWx)
+  // out_mode 0: (Wx, k); 1: Wx; 2: (Wx, dWx); 3: (W, k) of order 2
+  int out_mode, planes, na;
   double xi_step, inv_dt, gamma_gate;
   double logconst, amp, wgamma, beta, wc;
   double a0, d0, a1, d1;
+  double tiny, two_pi_dt;  // order 2: divide regularizer, 2 pi dt
 };
 
 // GMW (order 0) in log space: amp * exp(logconst + beta ln w - w^gamma)
@@ -91,6 +110,32 @@ __device__ __forceinline__ T gmw_psih(T w, const Cfg& c) {
   if (!(w > (T)0)) return (T)0;
   return (T)c.amp * exp_t((T)c.logconst + (T)c.beta * log_t(w) -
                           pow_t(w, (T)c.wgamma));
+}
+
+template <typename CT>
+__device__ __forceinline__ CT cmul(CT a, CT b) {
+  CT y;
+  y.x = a.x * b.x - a.y * b.y;
+  y.y = a.x * b.y + a.y * b.x;
+  return y;
+}
+
+template <typename CT>
+__device__ __forceinline__ CT csub(CT a, CT b) {
+  CT y;
+  y.x = a.x - b.x;
+  y.y = a.y - b.y;
+  return y;
+}
+
+// a / b with the denominator |b|^2 + tiny
+template <typename T, typename CT>
+__device__ __forceinline__ CT cdiv(CT a, CT b, T tiny) {
+  const T d = b.x * b.x + b.y * b.y + tiny;
+  CT y;
+  y.x = (a.x * b.x + a.y * b.y) / d;
+  y.y = (a.y * b.x - a.x * b.y) / d;
+  return y;
 }
 
 // In-place radix-2 DIT over `nseq` sequences of length L = 2^lg stored
@@ -163,22 +208,50 @@ __global__ void stage1(const typename Cplx<T>::type* __restrict__ xh,
     const int p = e % P;
     const int m1 = e / P;
     const long m = (long)m1 * c.f2 + m2_0 + p;
-    CT X, Xd;
-    X.x = X.y = Xd.x = Xd.y = (T)0;
+    CT X[5];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) X[q].x = X[q].y = (T)0;
     if (m < c.half) {
       const T xi = (T)((double)m * c.xi_step);
-      T psi = gmw_psih<T>(scale * xi, c) * norm;
-      if (m == c.half - 1 && (c.n_up & 1) == 0) psi *= (T)0.5;
-      const CT v = xh[m];
-      X.x = psi * v.x;
-      X.y = psi * v.y;
-      const T xid = xi * inv_dt;
-      Xd.x = -xid * X.y;
-      Xd.y = xid * X.x;
+      const T w = scale * xi;
+      const T psi = gmw_psih<T>(w, c) * norm;
+      CT v = xh[m];
+      if (m == c.half - 1 && (c.n_up & 1) == 0) {  // Nyquist halving
+        v.x *= (T)0.5;
+        v.y *= (T)0.5;
+      }
+      X[0].x = psi * v.x;
+      X[0].y = psi * v.y;
+      if (c.planes == 2) {                  // dW: times i xi / dt
+        const T xid = xi * inv_dt;
+        X[1].x = -xid * X[0].y;
+        X[1].y = xid * X[0].x;
+      } else if (c.planes == 5) {           // order 2: A, B, Bd, C
+        T tb = (T)0, t2b = (T)0;
+        if (psi != (T)0) {
+          const T ug = pow_t(w * (T)c.wc, (T)c.wgamma);
+          const T r = (T)c.beta - (T)c.wgamma * ug;
+          const T d1 = psi * r / w;
+          const T d2 = psi * (r * r - (T)c.beta -
+                              (T)c.wgamma * ((T)c.wgamma - (T)1) * ug) /
+                       (w * w);
+          tb = scale * d1;
+          t2b = (scale * scale) * d2;
+        }
+        X[1].x = -xi * X[0].y;
+        X[1].y = xi * X[0].x;
+        X[2].x = -(tb * v.y);
+        X[2].y = tb * v.x;
+        X[3].x = -xi * (tb * v.x);
+        X[3].y = -xi * (tb * v.y);
+        X[4].x = -(t2b * v.x);
+        X[4].y = -(t2b * v.y);
+      }
     }
     const int br = bitrev(m1, c.lg1);
-    buf[p * L + br] = X;
-    if (c.planes == 2) buf[(P + p) * L + br] = Xd;
+#pragma unroll
+    for (int q = 0; q < 5; ++q)
+      if (q < c.planes) buf[(q * P + p) * L + br] = X[q];
   }
   __syncthreads();
   block_fft<T>(buf, c.planes * P, L, c.lg1, tw);
@@ -241,8 +314,8 @@ __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
     const int m2 = e / P;
     const size_t o = ((size_t)a * c.f2 + m2) * c.f1 + k1_0 + p;
     const int br = bitrev(m2, c.lg2);
-    buf[p * L + br] = scratch[o];
-    if (c.planes == 2) buf[(P + p) * L + br] = scratch[plane + o];
+    for (int q = 0; q < c.planes; ++q)
+      buf[(q * P + p) * L + br] = scratch[q * plane + o];
   }
   __syncthreads();
   block_fft<T>(buf, c.planes * P, L, c.lg2, tw);
@@ -260,6 +333,21 @@ __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
     const CT W = buf[p * L + k2];
     wx[row + j] = W;
     if (c.out_mode == 1) continue;
+    if (c.out_mode == 3) {
+      const CT A = buf[(P + p) * L + k2], B = buf[(2 * P + p) * L + k2];
+      const CT Bd = buf[(3 * P + p) * L + k2], C = buf[(4 * P + p) * L + k2];
+      const T tiny = (T)c.tiny;
+      const CT p2 = cdiv(csub(cmul(Bd, W), cmul(A, B)),
+                         csub(cmul(B, B), cmul(C, W)), tiny);
+      const CT pB = cmul(p2, B);
+      CT num;
+      num.x = A.x + pB.x;
+      num.y = A.y + pB.y;
+      const T w2 = fabs_t(cdiv(num, W, tiny).y) / (T)c.two_pi_dt;
+      const bool valid = (W.x * W.x + W.y * W.y > gate) && finite_t(w2);
+      static_cast<int32_t*>(out2)[row + j] = valid ? bin_of<T>(w2, c) : -1;
+      continue;
+    }
     const CT Dw = buf[(P + p) * L + k2];
     if (c.out_mode == 2) {
       static_cast<CT*>(out2)[row + j] = Dw;
@@ -305,13 +393,14 @@ Cfg make_cfg(const int* ip, const double* dp) {
   c.xi_step = dp[0]; c.inv_dt = dp[1]; c.gamma_gate = dp[2];
   c.logconst = dp[3]; c.amp = dp[4]; c.wgamma = dp[5]; c.beta = dp[6];
   c.wc = dp[7]; c.a0 = dp[8]; c.d0 = dp[9]; c.a1 = dp[10]; c.d1 = dp[11];
+  c.tiny = dp[12]; c.two_pi_dt = dp[13];
   return c;
 }
 
 }  // namespace
 
-// ip: 20 ints, dp: 12 doubles (layout in ops/cwt_cuda.py). `out2` is k
-// (out_mode 0), dWx (2) or null (1); out_mode in ip says which. Returns
+// ip: 20 ints, dp: 14 doubles (layout in ops/cwt_cuda.py). `out2` is k
+// (out_mode 0 or 3), dWx (2) or null (1); out_mode in ip says which. Returns
 // cudaGetLastError() after the launches.
 extern "C" int cwt_bins_f32(const void* xh, const void* scales, const int* ip,
                             const double* dp, void* scratch, void* wx,

@@ -1,17 +1,25 @@
 // Hop-1 STFT rows from precomputed window tables: the table kernel.
 //
-// Replaces the TPU kernel ssqueezepy_tpu/ops/stft_conv.py::_make_stft_kernel
-// (entries stft_pallas_rows, stft_conv_bins, stft_conv). At hop 1 each STFT
+// Replaces the TPU kernels ssqueezepy_tpu/ops/stft_conv.py::_make_stft_kernel
+// (entries stft_pallas_rows, stft_conv_bins, stft_conv) and, in mode 3,
+// fsst2_pallas_rows (FSST2, below). At hop 1 each STFT
 // row i is a correlation of the padded signal with a fixed kernel, so with
 // xh = fft(pad(x), Np2) and the row tables H, Hd (n_rows, Np2):
 //
 //   Sx[i, n]  = (1/Np2) sum_m H[i, m]  xh[m] e^{+2 pi i m n / Np2}
 //   dSx[i, n] = fs * the same sum over Hd[i, m]
 //
-// for n in [0, N). Three modes: Sx; Sx and dSx; Sx and the bin plane k,
-// where dSx stays in the kernel and k[i, n] is the lin bin of
+// for n in [0, N). Four modes: 0 Sx; 1 Sx and dSx; 2 Sx and the bin
+// plane k, where dSx stays in the kernel and k[i, n] is the lin bin of
 // w = |Sfs[i] - Im(dSx / Sx) / 2pi| (round half to even, clamped to
-// [0, omax], flipud), or -1 where |Sx|^2 <= gamma^2.
+// [0, omax], flipud), or -1 where |Sx|^2 <= gamma^2; 3 FSST2: H is a bank
+// of five tables (windows g, g', t g, t g', g'', per-sample units) giving
+// V, Vg1, Vt, Vtd, Vd2, and k is the lin bin of the chirp-corrected
+//   w2 = |Sfs[i] - fs Im(Vg1/V)/2pi + (fs/2pi) Im((Vd2 V - Vg1^2) /
+//        (Vtd V - Vt Vg1)) Re(Vt/V)|
+// (divides regularized by |den|^2 + tiny; XLA twin
+// ssqueezepy_tpu/models/ssq_stft.py _fsst2_rows, products in its order);
+// V is written, the four other rows stay in the kernel.
 //
 // Design: four-step inverse DFT over Np2 = f1 * f2 with n = k1 + f1 k2,
 // m = m1 f2 + m2, both steps in these kernels (no cuFFT). Np2 is
@@ -31,7 +39,10 @@
 // outweigh the DFT operations (~8.5 GFLOP in float32), so it is
 // bytes-bound on paper; this first version also reads the two tables
 // (~0.79 GB) and moves the scratch planes through device memory twice
-// (~1.6 GB), which the bound does not count. Templated on float and double.
+// (~1.6 GB), which the bound does not count. Mode 3 at the ssq_stft2
+// headline: five DFTs per row (~21 GFLOP) against ~0.58 GB, operation-
+// bound on paper; it also reads five tables (~1.97 GB) and moves five
+// scratch planes (~3.9 GB of traffic). Templated on float and double.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,10 +85,30 @@ __device__ __forceinline__ CT cadd(CT a, CT b) {
   return y;
 }
 
+template <typename CT>
+__device__ __forceinline__ CT csub(CT a, CT b) {
+  CT y;
+  y.x = a.x - b.x;
+  y.y = a.y - b.y;
+  return y;
+}
+
+// a / b with the denominator |b|^2 + tiny
+template <typename T, typename CT>
+__device__ __forceinline__ CT cdiv(CT a, CT b, T tiny) {
+  const T d = b.x * b.x + b.y * b.y + tiny;
+  CT y;
+  y.x = (a.x * b.x + a.y * b.y) / d;
+  y.y = (a.y * b.x - a.x * b.y) / d;
+  return y;
+}
+
 // Host-side parameter block, copied by value into both launches.
 struct Cfg {
   int Np2, f1, f2, N, P1, P2, rows, row0, mode, planes, omax, flipud;
+  int tab_rows;                            // rows of each table
   double inv_n, fs, gamma_gate, vmin, dv;
+  double tiny, two_pi, fs_2pi;             // mode 3: regularizer, 2 pi, fs/2pi
 };
 
 // tw[t] = e^{+2 pi i t / L}, t < L (inverse sign).
@@ -176,13 +207,21 @@ __global__ void stage1(const typename Cplx<T>::type* __restrict__ xh,
   const int m2_0 = blockIdx.x * P;
   fill_twiddles<T>(tw, L);
 
+  // mode 3: table q of the bank starts at H + q * tab_rows * Np2
+  const size_t tplane = (size_t)c.tab_rows * c.Np2;
   for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
     const int p = e % P;
     const int m1 = e / P;
     const size_t m = (size_t)m1 * c.f2 + m2_0 + p;
     const CT x = xh[m];
     bufa[p * L + m1] = cmul(H[trow + m], x);
-    if (c.planes == 2) bufa[(P + p) * L + m1] = cmul(Hd[trow + m], x);
+    if (c.mode == 3) {
+#pragma unroll
+      for (int q = 1; q < 5; ++q)
+        bufa[(q * P + p) * L + m1] = cmul(H[q * tplane + trow + m], x);
+    } else if (c.planes == 2) {
+      bufa[(P + p) * L + m1] = cmul(Hd[trow + m], x);
+    }
   }
   __syncthreads();
   const CT* res = stockham<T>(bufa, bufb, nseq, L, tw);
@@ -239,7 +278,7 @@ __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
   const T fs = (T)c.fs;
   const T gate = (T)c.gamma_gate * (T)c.gamma_gate;
   const T two_pi = (T)6.283185307179586;
-  const T sfs_i = c.mode == 2 ? sfs[i] : (T)0;
+  const T sfs_i = c.mode >= 2 ? sfs[i] : (T)0;
   for (int e = threadIdx.x; e < P * k2hi; e += blockDim.x) {
     const int p = e % P;
     const int k2 = e / P;
@@ -249,15 +288,30 @@ __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
     sx[row + n] = S;
     if (c.mode == 0) continue;
     CT D = res[(P + p) * L + k2];
-    D.x *= fs;
-    D.y *= fs;
-    if (c.mode == 1) {
-      static_cast<CT*>(out2)[row + n] = D;
-      continue;
+    T denom, w;
+    if (c.mode == 3) {
+      // S = V, D = Vg1; fs enters only here (per-sample windows)
+      const CT Vt = res[(2 * P + p) * L + k2];
+      const CT Vtd = res[(3 * P + p) * L + k2];
+      const CT Vd2 = res[(4 * P + p) * L + k2];
+      const T tiny = (T)c.tiny;
+      const T w1 = sfs_i - fs * cdiv(D, S, tiny).y / (T)c.two_pi;
+      const T trel = cdiv(Vt, S, tiny).x;
+      const T q = cdiv(csub(cmul(Vd2, S), cmul(D, D)),
+                       csub(cmul(Vtd, S), cmul(Vt, D)), tiny).y;
+      denom = S.x * S.x + S.y * S.y;
+      w = fabs_t(w1 + (T)c.fs_2pi * q * trel);
+    } else {
+      D.x *= fs;
+      D.y *= fs;
+      if (c.mode == 1) {
+        static_cast<CT*>(out2)[row + n] = D;
+        continue;
+      }
+      // w = |Sfs[i] - Im(D / S) / 2pi|, S = C + iE, D = A + iB
+      denom = S.x * S.x + S.y * S.y;
+      w = fabs_t(sfs_i - (D.y * S.x - D.x * S.y) / (denom * two_pi));
     }
-    // w = |Sfs[i] - Im(D / S) / 2pi|, S = C + iE, D = A + iB
-    const T denom = S.x * S.x + S.y * S.y;
-    const T w = fabs_t(sfs_i - (D.y * S.x - D.x * S.y) / (denom * two_pi));
     int k = -1;
     if (denom > gate && finite_t(w)) {
       k = (int)fmin_t(rint_t(fmax_t((w - (T)c.vmin) / (T)c.dv, (T)0)),
@@ -296,16 +350,17 @@ Cfg make_cfg(const int* ip, const double* dp) {
   Cfg c;
   c.Np2 = ip[0]; c.f1 = ip[1]; c.f2 = ip[2]; c.N = ip[3]; c.P1 = ip[4];
   c.P2 = ip[5]; c.rows = ip[6]; c.row0 = ip[7]; c.mode = ip[8];
-  c.planes = ip[9]; c.omax = ip[10]; c.flipud = ip[11];
+  c.planes = ip[9]; c.omax = ip[10]; c.flipud = ip[11]; c.tab_rows = ip[12];
   c.inv_n = dp[0]; c.fs = dp[1]; c.gamma_gate = dp[2]; c.vmin = dp[3];
-  c.dv = dp[4];
+  c.dv = dp[4]; c.tiny = dp[5]; c.two_pi = dp[6]; c.fs_2pi = dp[7];
   return c;
 }
 
 }  // namespace
 
-// ip: 12 ints, dp: 5 doubles (layout in ops/stft_cuda.py). `Hd`, `sfs`
-// and `out2` may be null where the mode does not read or write them.
+// ip: 13 ints, dp: 8 doubles (layout in ops/stft_cuda.py). `Hd`, `sfs`
+// and `out2` may be null where the mode does not read or write them; in
+// mode 3 `H` is the (5, tab_rows, Np2) bank and `Hd` is null.
 // Returns cudaGetLastError() after the launches.
 extern "C" int stft_conv_f32(const void* xh, const void* H, const void* Hd,
                              const void* sfs, const int* ip, const double* dp,

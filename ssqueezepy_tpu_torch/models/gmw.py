@@ -9,8 +9,10 @@ evaluates a tensor in its own dtype and on its own device (the plain
 filterbank synthesis). Both branches work in log space, which keeps the
 L2 ('energy') normalization finite in float32.
 
-The CUDA kernel `csrc/cwt_bins.cu` synthesizes the same closed forms
-in-kernel from `fn.kernel_params`; order > 0 waits for ROADMAP item A2b.
+Each fn also carries ``fn.derivatives(w)``, psih' and psih'' in closed
+form (the second-order transforms' t- and t^2-weighted banks). The CUDA
+kernel `csrc/cwt_bins.cu` synthesizes the same closed forms in-kernel
+from `fn.kernel_params`; order > 0 waits for ROADMAP item A2b.
 """
 import numpy as np
 import torch
@@ -90,6 +92,23 @@ def _make_fn(logconst, amp, gamma, beta, wc, centered_scale):
         out = amp * torch.exp(logconst + beta * logw - w ** gamma)
         return torch.where(pos, out, torch.zeros_like(out))
 
+    def derivatives(w):
+        """(psih', psih'') at `w` (a tensor) in closed form. With u = wc w
+        (wc = 1 unless centered): psih' = psih (beta - gamma u^gamma) / w,
+        psih'' = psih ((beta - gamma u^gamma)^2 - beta - gamma (gamma - 1)
+        u^gamma) / w^2; both 0 where psih is 0 (w <= 0 among them)."""
+        psih = fn(w)
+        ws = torch.where(w > 0, w, torch.ones_like(w))
+        ug = (ws * wc if centered_scale else ws) ** gamma
+        r = beta - gamma * ug
+        d1 = psih * r / ws
+        d2 = psih * (r * r - beta - gamma * (gamma - 1) * ug) / (ws * ws)
+        live = psih != 0
+        return (torch.where(live, d1, torch.zeros_like(d1)),
+                torch.where(live, d2, torch.zeros_like(d2)))
+
+    fn.derivatives = derivatives
+    # the CUDA kernels synthesize psih, psih' and psih'' from these
     fn.kernel_params = dict(logconst=float(logconst), amp=float(amp),
                             gamma=float(gamma), beta=float(beta),
                             wc=float(wc) if centered_scale else 1.0)

@@ -1,0 +1,91 @@
+# -*- coding: utf-8 -*-
+"""Second-order synchrosqueezed CWT (WSST2).
+
+Counterpart of `ssqueezepy_tpu/models/ssq_cwt2.py`. First-order
+reassignment estimates the instantaneous frequency as Im(dWx/Wx)/2pi,
+biased on modulated components; WSST2 fits a local complex linear chirp
+per cell from five wavelet transforms (W, A = x' * h, B = x * th,
+Bd = x' * th, C = x * t^2 h), solves p2 = (Bd W - A B) / (B^2 - C W),
+p1 = (A + p2 B) / W and reassigns by w2 = |Im p1| / (2 pi dt), exact on
+linear chirps. The plan (scales, ssq frequency grid, squeeze constant,
+bin map) is `ssq_cwt`'s, memoized with it; the signal runs pad -> real
+FFT (torch.fft) -> the WSST2 kernel (`ops/cwt_cuda.py::cwt_bins2`) ->
+the reassignment scatter (`ops/ssq_cuda.py`). Inversion is `issq_cwt`:
+reassignment only moves energy within a column.
+"""
+import numpy as np
+import torch
+
+from ..configs import device_dtype
+from ..ops.cwt_cuda import cwt_bins2
+from ..ops.fft import rfft
+from ..ops.pad import padsignal, pad_params
+from ..ops.ssq_cuda import scatter_kv
+from ..utils.common import EPS32, EPS64, not_ported, resolve_device
+from ..utils.cwt_utils import _process_fs_and_t
+from .cwt import resolve_wavelet, _is_analytic
+from .ssq_cwt import _ssq_cwt_plan, _device_plan
+from .ssqueezing import _check_ssqueezing_args
+from .stft import _as_signal
+
+__all__ = ['ssq_cwt2']
+
+
+def _check_slice(ndim, wavelet, padtype, squeezing, get_w):
+    """Calls outside the ported slice raise, naming their ROADMAP item."""
+    if not isinstance(squeezing, str):
+        not_ported("callable squeezing", 'A5b')
+    if squeezing != 'sum':
+        not_ported("squeezing=%r" % squeezing, 'A5b')
+    if get_w:
+        not_ported("ssq_cwt2 with get_w=True", 'A8b')
+    if ndim != 1:
+        not_ported("ssq_cwt2 of %d-D input" % ndim, 'A8b')
+    if padtype is None:
+        not_ported("ssq_cwt2 with padtype=None", 'A8b')
+    if not _is_analytic(wavelet):
+        not_ported("ssq_cwt2 with a non-GMW wavelet", 'A2b')
+
+
+def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
+             t=None, ssq_freqs=None, padtype='reflect', squeezing='sum',
+             maprange='peak', gamma=None, astensor=True, flipud=True,
+             get_w=False, device='cuda'):
+    """Second-order synchrosqueezed CWT of a 1-D signal (GMW, L1 norm).
+
+    Returns (Tx, Wx, ssq_freqs, scales) as `ssq_cwt` does: Tx (nbins, N)
+    and Wx (na, N) complex tensors on `device` (numpy with
+    `astensor=False`), ssq_freqs reversed, scales (na,)."""
+    device = resolve_device(device)
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    ndim = x.ndim
+    _check_ssqueezing_args(squeezing, maprange, wavelet, 'trig', None,
+                           get_w, transform='cwt')
+    N = x.shape[-1]
+    wavelet = resolve_wavelet(wavelet, l1_norm=True, N=N)
+    _check_slice(ndim, wavelet, padtype, squeezing, get_w)
+    if nv is None and not isinstance(scales, np.ndarray):
+        nv = 32
+    dt, _, _ = _process_fs_and_t(fs, t, N)
+    dtype = device_dtype(wavelet.dtype)
+    if gamma is None:
+        gamma = 10 * (EPS64 if dtype == 'float64' else EPS32)
+
+    plan, key = _ssq_cwt_plan(wavelet, N, scales, nv, ssq_freqs, maprange,
+                              True, dt)
+    params = plan.params
+    n_up, n1, _ = pad_params(N, padtype)
+    scales_t, const_t = _device_plan(key, plan.scales, plan.const, dtype,
+                                     device)
+
+    xh = rfft(padsignal(_as_signal(x, dtype, device), padtype))
+    Wx, k = cwt_bins2(xh, scales_t, wavelet, n_up, n1, N, dt, params,
+                      float(gamma), flipud)
+    Tx = scatter_kv(Wx, k, const_t, params['omax'] + 1)
+
+    ssq_freqs_out = np.asarray(plan.ssq_freqs)[::-1].copy()
+    scales_out = plan.scales.squeeze()
+    if not astensor:
+        Tx, Wx = Tx.cpu().numpy(), Wx.cpu().numpy()
+    return Tx, Wx, ssq_freqs_out, scales_out

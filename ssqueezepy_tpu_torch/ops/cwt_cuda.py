@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 """Fused CWT kernels in `csrc/cwt_bins.cu` and their plain PyTorch
-versions. Both replace modes of `ssqueezepy_tpu/ops/cwt_pallas.py::
+versions. All replace modes of `ssqueezepy_tpu/ops/cwt_pallas.py::
 _make_kernel`:
 
   * `cwt_bins` (B1), its bins + direct mode (`cwt_fused_bins_direct`):
@@ -10,31 +10,39 @@ _make_kernel`:
   * `cwt_fused` (B3), its plain/derivative mode (`cwt_fused_pallas`):
     Wx, and dWx when asked, for one spectrum (na, N) or a batch of them
     (B, na, N); L1 or L2 (sqrt(scale)) row norm.
+  * `cwt_bins2` (B8), its order-2 mode (`cwt_fused_bins2_direct`): the
+    five WSST2 banks, the per-cell chirp regression and the bin map ->
+    (W, k); the four auxiliary transforms stay inside the kernel.
 
 The inverse DFT is computed in the kernel itself (four-step, radix 2 in
 shared memory); design and bound are noted in the source.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
-version for CPU tensors. `cwt_bins.launches` and `cwt_fused.launches`
-count calls of the C entry point (one per chunk of rows); each such call
-issues two CUDA launches, stage 1 and stage 2.
+version for CPU tensors. `cwt_bins.launches`, `cwt_fused.launches` and
+`cwt_bins2.launches` count calls of the C entry point (one per chunk of
+rows); each such call issues two CUDA launches, stage 1 and stage 2.
 """
 import ctypes
 import math
 
 import torch
 
+from ..models.wavelets import _xifn
 from . import _build
+from .fft import ifft
+from .phase import cdiv, cmul, div_tiny
 
 __all__ = ['cwt_bins', 'cwt_bins_plain', 'cwt_fused', 'cwt_fused_plain',
-           'four_step']
+           'cwt_bins2', 'cwt_bins2_plain', 'wsst2_rows', 'four_step']
 
 _MODES = {'lin': 0, 'log': 1, 'log-piecewise': 2}
-# stage-1 scratch held at once (two planes); rows are chunked beyond it
+# stage-1 scratch held at once (all planes); rows are chunked beyond it
 _SCRATCH_BUDGET = 2 << 30
 _SMEM_BUDGET = 96 * 1024
 _MAX_GRID_Y = 65535
-_OUT_BINS, _OUT_W, _OUT_W_DW = 0, 1, 2
+_OUT_BINS, _OUT_W, _OUT_W_DW, _OUT_BINS2 = 0, 1, 2, 3
+_PLANES = {_OUT_BINS: 2, _OUT_W: 1, _OUT_W_DW: 2, _OUT_BINS2: 5}
+_TWO_PI = 6.283185307179586
 
 
 def four_step(n_up):
@@ -143,7 +151,7 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
     lib = _build.load('cwt_bins')
     f32 = scales.dtype == torch.float32
     itemsize = xh.element_size()
-    planes = 1 if out_mode == _OUT_W else 2
+    planes = _PLANES[out_mode]
     f1, f2 = four_step(n_up)
     P1 = _columns(f1, f2, itemsize, planes)
     P2 = _columns(f2, f1, itemsize, planes)
@@ -159,9 +167,10 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
         a0, d0, a1, d1, idx1 = _bin_args(params)
         mode, omax, bin_args = _MODES[params['mode']], params['omax'], \
             (a0, d0, a1, d1)
-    dp = (ctypes.c_double * 12)(
+    dp = (ctypes.c_double * 14)(
         2 * math.pi / n_up, 1.0 / dt, gamma, kp['logconst'], kp['amp'],
-        kp['gamma'], kp['beta'], kp['wc'], *bin_args)
+        kp['gamma'], kp['beta'], kp['wc'], *bin_args, div_tiny(xh.dtype),
+        _TWO_PI * dt)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = lib.cwt_bins_f32 if f32 else lib.cwt_bins_f64
     for row0 in range(0, n_all, rows):
@@ -209,3 +218,73 @@ def cwt_fused(xh, scales, wavelet, n_up, n1, N, dt, derivative, l1_norm):
 
 
 cwt_fused.launches = 0
+
+
+def wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma):
+    """(W, w2) of the second-order CWT, step by step with torch.fft (the
+    XLA twin `_wsst2_rows` of `ssqueezepy_tpu/models/ssq_cwt2.py`): the
+    five banks W = psih xh, A = i xi psih xh, B = i a psih' xh,
+    Bd = -xi a psih' xh, C = -a^2 psih'' xh on the half spectrum (Nyquist
+    bin halved in all five), one inverse FFT kept to [n1, n1+N), then
+    p2 = (Bd W - A B) / (B^2 - C W), p1 = (A + p2 B) / W (regularized
+    divides) and w2 = |Im p1| / (2 pi dt), inf where not finite or where
+    |W|^2 <= gamma^2."""
+    half = n_up // 2 + 1
+    xi = torch.as_tensor(_xifn(1., n_up)[:half], dtype=scales.dtype,
+                         device=scales.device)
+    a = scales.reshape(-1, 1)
+    w = a * xi
+    psih = wavelet.fn(w, xp=torch)
+    d1, d2 = wavelet.fn.derivatives(w)
+    if n_up % 2 == 0:
+        for p in (psih, d1, d2):
+            p[:, half - 1] /= 2                     # Nyquist halving
+    tb, t2b = a * d1, (a * a) * d2
+    xr, xim = xh.real, xh.imag
+    re = torch.stack([psih * xr, -xi * (psih * xim), -(tb * xim),
+                      -xi * (tb * xr), -(t2b * xr)])
+    im = torch.stack([psih * xim, xi * (psih * xr), tb * xr,
+                      -xi * (tb * xim), -(t2b * xim)])
+    W, A, B, Bd, C = ifft(torch.complex(re, im), n=n_up,
+                          out_range=(n1, n1 + N))
+    tiny = div_tiny(xh.dtype)
+    p2 = cdiv(cmul(Bd, W) - cmul(A, B), cmul(B, B) - cmul(C, W), tiny)
+    p1 = cdiv(A + cmul(p2, B), W, tiny)
+    w2 = p1.imag.abs() / (_TWO_PI * dt)
+    inf = torch.full_like(w2, float('inf'))
+    w2 = torch.where(torch.isfinite(w2), w2, inf)
+    big = W.real * W.real + W.imag * W.imag > \
+        torch.tensor(gamma, dtype=w2.dtype) ** 2
+    return W.contiguous(), torch.where(big, w2, inf)
+
+
+def cwt_bins2_plain(xh, scales, wavelet, n_up, n1, N, dt, params, gamma,
+                    flipud):
+    """Plain version: `wsst2_rows`, then `compute_bins` on w2."""
+    from .ssq_kernels import compute_bins
+    W, w2 = wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma)
+    k, valid = compute_bins(w2, params, flipud)
+    return W, torch.where(valid, k, torch.full_like(k, -1))
+
+
+def cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params, gamma, flipud):
+    """(W, k) of the second-order synchrosqueezed CWT (WSST2) from the
+    half spectrum `xh` of the padded signal: W (na, N) the L1 CWT, k
+    (na, N) int32 the bin of the chirp-corrected frequency w2, -1 on
+    gamma-gated or non-finite cells. Arguments as `cwt_bins`."""
+    _check(xh, scales, n_up, n1, N)
+    if xh.device.type == 'cpu':
+        return cwt_bins2_plain(xh, scales, wavelet, n_up, n1, N, dt,
+                               params, gamma, flipud)
+    if xh.device.type != 'cuda':
+        raise RuntimeError("cwt_bins2 runs on CUDA or CPU tensors (got %s)"
+                           % xh.device)
+    W = torch.empty((scales.shape[0], N), dtype=xh.dtype, device=xh.device)
+    k = torch.empty((scales.shape[0], N), dtype=torch.int32,
+                    device=xh.device)
+    _launch(cwt_bins2, xh, scales, wavelet, n_up, n1, N, dt, True,
+            _OUT_BINS2, W, k, params, gamma, flipud)
+    return W, k
+
+
+cwt_bins2.launches = 0

@@ -5,15 +5,38 @@
     w_stft[k, u] = |Sfs[k] - Im(dSx / Sx) / 2pi|  (inf where |Sx|^2 < gamma^2)
 
 Counterpart of `phase_transform_w` and `phase_stft` in
-`ssqueezepy_tpu/ops/phase.py`, over native complex tensors.
+`ssqueezepy_tpu/ops/phase.py`, over native complex tensors; and of
+`cdiv2` (`ssqueezepy_tpu/ops/complexlib.py`), the regularized complex
+divide of the second-order estimates.
 """
 import torch
 
 from ..utils.common import EPS32, EPS64
 
-__all__ = ['phase_transform_w', 'phase_stft']
+__all__ = ['phase_transform_w', 'phase_stft', 'cmul', 'cdiv', 'div_tiny']
 
 _TWO_PI = 6.283185307179586
+
+
+def div_tiny(dtype):
+    """The additive regularizer of `cdiv` for a real or complex torch
+    `dtype`: 1e3 x its smallest normal (as `ssqueezepy_tpu/models/
+    ssq_cwt2.py`)."""
+    return torch.finfo(dtype).tiny * 1e3
+
+
+def cmul(a, b):
+    """a * b over complex tensors, on their real and imaginary parts
+    (the JAX package's split-complex product, term by term)."""
+    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
+    return torch.complex(ar * br - ai * bi, ar * bi + ai * br)
+
+
+def cdiv(a, b, tiny):
+    """a / b with the denominator |b|^2 + tiny."""
+    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
+    d = br * br + bi * bi + tiny
+    return torch.complex((ar * br + ai * bi) / d, (ai * br - ar * bi) / d)
 
 
 def _imag_ratio_over_2pi(Wx, dWx):

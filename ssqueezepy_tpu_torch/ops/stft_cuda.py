@@ -13,22 +13,35 @@ spectrum xh (Np2,) of the padded signal and the row tables H, Hd
   * Sx and the int32 bin plane k of the synchrosqueezed STFT, k = -1 on
     gamma-gated cells; dSx stays inside the kernel     (bins given)
 
+`fsst2_conv` (B7) is the kernel's FSST2 mode, replacing
+`ssqueezepy_tpu/ops/stft_conv.py::fsst2_pallas_rows`: from the five
+tables of `conv_bank` (windows g, g', t g, t g', g'') it returns V, the
+STFT with g, and the int32 bin plane k of the chirp-corrected frequency
+w2 (`fsst2_rows`); the four auxiliary transforms stay inside the kernel.
+
 The inverse DFT runs inside the kernel (four-step, mixed radix 4/2/3/5 in
 shared memory; design and bound are noted in the source). The TPU
 kernel's band plan is not carried over: the kernel computes the full
 correlation.
 
-`stft_conv` launches the kernel for CUDA tensors and runs
-`stft_conv_plain` for CPU tensors. `stft_conv.launches` counts calls of
-the C entry point (one per chunk of rows); each issues two CUDA launches.
+`stft_conv` and `fsst2_conv` launch the kernel for CUDA tensors and run
+their plain versions for CPU tensors. `stft_conv.launches` and
+`fsst2_conv.launches` count calls of the C entry point (one per chunk of
+rows); each issues two CUDA launches.
 """
 import ctypes
 
 import torch
 
 from . import _build
+from .phase import cdiv, cmul, div_tiny
 
-__all__ = ['stft_conv', 'stft_conv_plain', 'split_fft_len']
+__all__ = ['stft_conv', 'stft_conv_plain', 'fsst2_conv', 'fsst2_conv_plain',
+           'fsst2_rows', 'split_fft_len']
+
+_TWO_PI = 6.283185307179586
+_MODE_SX, _MODE_SX_DSX, _MODE_BINS, _MODE_FSST2 = 0, 1, 2, 3
+_PLANES = {_MODE_SX: 1, _MODE_SX_DSX: 2, _MODE_BINS: 2, _MODE_FSST2: 5}
 
 _SCRATCH_BUDGET = 2 << 30
 _SMEM_TARGET = 96 * 1024
@@ -93,15 +106,19 @@ def _check(xh, H, Hd, N, bins):
     if not all(t.is_contiguous() for t in (xh,) + tabs):
         raise ValueError("xh, H and Hd must be contiguous")
     if bins is not None:
-        sfs = bins['Sfs']
-        rdt = torch.float32 if xh.dtype == torch.complex64 else torch.float64
-        if (sfs.shape != (H.shape[0],) or sfs.dtype != rdt
-                or sfs.device != xh.device or not sfs.is_contiguous()):
-            raise ValueError("bins['Sfs'] must be a contiguous (n_rows,) "
-                             "tensor of xh's real type on its device")
-        if bins['params']['mode'] != 'lin':
-            raise ValueError("the STFT bin map is 'lin' (got %r)"
-                             % bins['params']['mode'])
+        _check_bins(xh, H.shape[0], bins)
+
+
+def _check_bins(xh, n_rows, bins):
+    sfs = bins['Sfs']
+    rdt = torch.float32 if xh.dtype == torch.complex64 else torch.float64
+    if (sfs.shape != (n_rows,) or sfs.dtype != rdt
+            or sfs.device != xh.device or not sfs.is_contiguous()):
+        raise ValueError("bins['Sfs'] must be a contiguous (n_rows,) "
+                         "tensor of xh's real type on its device")
+    if bins['params']['mode'] != 'lin':
+        raise ValueError("the STFT bin map is 'lin' (got %r)"
+                         % bins['params']['mode'])
 
 
 def stft_conv_plain(xh, H, Hd, N, fs=1., bins=None):
@@ -132,47 +149,119 @@ def stft_conv(xh, H, Hd, N, fs=1., bins=None):
     if xh.device.type != 'cuda':
         raise RuntimeError("stft_conv runs on CUDA or CPU tensors (got %s)"
                            % xh.device)
+    mode = (_MODE_SX if Hd is None else
+            _MODE_SX_DSX if bins is None else _MODE_BINS)
+    n_rows, dev = H.shape[0], xh.device
+    Sx = torch.empty((n_rows, N), dtype=xh.dtype, device=dev)
+    out2 = None
+    if mode == _MODE_SX_DSX:
+        out2 = torch.empty((n_rows, N), dtype=xh.dtype, device=dev)
+    elif mode == _MODE_BINS:
+        out2 = torch.empty((n_rows, N), dtype=torch.int32, device=dev)
+    _launch(stft_conv, mode, xh, H, Hd, N, fs, bins, Sx, out2)
+    return Sx, out2
+
+
+stft_conv.launches = 0
+
+
+def _launch(wrapper, mode, xh, H, Hd, N, fs, bins, Sx, out2):
+    """Run the two-launch kernel over every row of `Sx`, chunking rows to
+    the scratch budget; counts each C call on `wrapper.launches`. In the
+    FSST2 mode `H` is the (5, n_rows, Np2) bank and `Hd` is None."""
     lib = _build.load('stft_conv')
     Np2 = xh.shape[0]
     f1, f2 = split_fft_len(Np2)
-    mode = 0 if Hd is None else (1 if bins is None else 2)
-    planes = 1 if mode == 0 else 2
+    planes = _PLANES[mode]
     itemsize = xh.element_size()
     P1 = _columns(f1, f2, itemsize, planes)
     P2 = _columns(f2, f1, itemsize, planes)
-    n_rows = H.shape[0]
+    n_rows = Sx.shape[0]
     dev = xh.device
-    Sx = torch.empty((n_rows, N), dtype=xh.dtype, device=dev)
-    out2 = None
-    if mode == 1:
-        out2 = torch.empty((n_rows, N), dtype=xh.dtype, device=dev)
-    elif mode == 2:
-        out2 = torch.empty((n_rows, N), dtype=torch.int32, device=dev)
     rows = max(1, min(n_rows, _MAX_GRID_Y,
                       _SCRATCH_BUDGET // (planes * Np2 * itemsize)))
     scratch = torch.empty((planes, rows, Np2), dtype=xh.dtype, device=dev)
-    if mode == 2:
+    if bins is not None:
         p = bins['params']
         omax, flipud, sfs = p['omax'], bins['flipud'], bins['Sfs'].data_ptr()
-        dp = (ctypes.c_double * 5)(1.0 / Np2, fs, bins['gamma'], p['vmin'],
-                                   p['dv'])
+        dp = (ctypes.c_double * 8)(1.0 / Np2, fs, bins['gamma'], p['vmin'],
+                                   p['dv'], div_tiny(xh.dtype), _TWO_PI,
+                                   fs / _TWO_PI)
     else:
         omax, flipud, sfs = 0, False, None
-        dp = (ctypes.c_double * 5)(1.0 / Np2, fs, 0., 0., 1.)
+        dp = (ctypes.c_double * 8)(1.0 / Np2, fs, 0., 0., 1., 0., _TWO_PI,
+                                   fs / _TWO_PI)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = (lib.stft_conv_f32 if xh.dtype == torch.complex64
           else lib.stft_conv_f64)
     for row0 in range(0, n_rows, rows):
         nr = min(rows, n_rows - row0)
-        ip = (ctypes.c_int * 12)(Np2, f1, f2, N, P1, P2, nr, row0, mode,
-                                 planes, int(omax), int(bool(flipud)))
+        ip = (ctypes.c_int * 13)(Np2, f1, f2, N, P1, P2, nr, row0, mode,
+                                 planes, int(omax), int(bool(flipud)),
+                                 n_rows)
         err = fn(xh.data_ptr(), H.data_ptr(),
                  None if Hd is None else Hd.data_ptr(), sfs, ip, dp,
                  scratch.data_ptr(), Sx.data_ptr(),
                  None if out2 is None else out2.data_ptr(), stream)
-        _build.check(err, 'stft_conv')
-        stft_conv.launches += 1
-    return Sx, out2
+        _build.check(err, wrapper.__name__)
+        wrapper.launches += 1
 
 
-stft_conv.launches = 0
+def fsst2_rows(xh, tables, N, fs, Sfs, gamma):
+    """(V, w2) of the second-order STFT, step by step with torch.fft (the
+    XLA twin `_fsst2_rows` of `ssqueezepy_tpu/models/ssq_stft.py`): the
+    five rows V, Vg1, Vt, Vtd, Vd2 = ifft(tables * xh)[..., :N] of the
+    windows g, g', t g, t g', g'' (per-sample units), then
+    w1 = Sfs - fs Im(Vg1 / V) / 2pi, q = Im((Vd2 V - Vg1^2) /
+    (Vtd V - Vt Vg1)), w2 = |w1 + (fs / 2pi) q Re(Vt / V)|, regularized
+    divides; inf where not finite or where |V|^2 <= gamma^2."""
+    V, Vg1, Vt, Vtd, Vd2 = torch.fft.ifft(tables * xh, dim=-1)[..., :N]
+    tiny = div_tiny(xh.dtype)
+    sfs = Sfs.to(V.real.dtype).reshape(-1, 1)
+    w1 = sfs - fs * cdiv(Vg1, V, tiny).imag / _TWO_PI
+    trel = cdiv(Vt, V, tiny).real
+    q = cdiv(cmul(Vd2, V) - cmul(Vg1, Vg1), cmul(Vtd, V) - cmul(Vt, Vg1),
+             tiny).imag
+    w2 = (w1 + (fs / _TWO_PI) * q * trel).abs()
+    inf = torch.full_like(w2, float('inf'))
+    w2 = torch.where(torch.isfinite(w2), w2, inf)
+    big = V.real * V.real + V.imag * V.imag > \
+        torch.tensor(gamma, dtype=w2.dtype) ** 2
+    return V.contiguous(), torch.where(big, w2, inf)
+
+
+def fsst2_conv_plain(xh, tables, N, fs, bins):
+    """Plain version: `fsst2_rows`, then `compute_bins` on w2."""
+    from .ssq_kernels import compute_bins
+    V, w2 = fsst2_rows(xh, tables, N, fs, bins['Sfs'], bins['gamma'])
+    k, valid = compute_bins(w2, bins['params'], bins['flipud'])
+    return V, torch.where(valid, k, torch.full_like(k, -1))
+
+
+def fsst2_conv(xh, tables, N, fs, bins):
+    """(V, k) of the second-order synchrosqueezed STFT (FSST2), rows
+    [0, N), from the spectrum `xh` (Np2,) of the padded signal and the
+    (5, n_rows, Np2) tables of `conv_bank` (windows g, g', t g, t g',
+    g''). `bins` as for `stft_conv`. V (n_rows, N) is the STFT with g; k
+    (n_rows, N) int32 the lin bin of w2, -1 on gamma-gated or
+    non-finite cells."""
+    if tables.dim() != 3 or tables.shape[0] != 5:
+        raise ValueError("tables must be the (5, n_rows, Np2) FSST2 bank "
+                         "(got %s)" % (tuple(tables.shape),))
+    _check(xh, tables[0], None, N, None)
+    _check_bins(xh, tables.shape[1], bins)
+    if not tables.is_contiguous():
+        raise ValueError("tables must be contiguous")
+    if xh.device.type == 'cpu':
+        return fsst2_conv_plain(xh, tables, N, fs, bins)
+    if xh.device.type != 'cuda':
+        raise RuntimeError("fsst2_conv runs on CUDA or CPU tensors (got %s)"
+                           % xh.device)
+    n_rows, dev = tables.shape[1], xh.device
+    V = torch.empty((n_rows, N), dtype=xh.dtype, device=dev)
+    k = torch.empty((n_rows, N), dtype=torch.int32, device=dev)
+    _launch(fsst2_conv, _MODE_FSST2, xh, tables, None, N, fs, bins, V, k)
+    return V, k
+
+
+fsst2_conv.launches = 0

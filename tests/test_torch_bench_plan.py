@@ -17,6 +17,7 @@ from ssqueezepy_tpu_torch.utils.cwt_utils import process_scales
 from ssqueezepy_tpu_torch.models.ssqueezing import \
     _compute_associated_frequencies
 from ssqueezepy_tpu_torch.ops.pad import pad_params
+from torch_jax_reference import xla_reference  # noqa: F401
 
 
 def test_bench_plan_160k_identical():

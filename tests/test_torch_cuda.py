@@ -11,7 +11,11 @@ Tolerances: Wx, Sx and dSx within 2e-5 of their max in float32 (the
 kernels' own DFTs vs cuFFT in the plain versions) and 1e-9 relative in
 float64; bins may differ on at most 1% of cells in float32 (w rounding at
 bin boundaries), Tx then by the bins criterion; the scatter within 1e-5
-of max|Tx| (summation order) and bit-identical from run to run.
+of max|Tx| (summation order) and bit-identical from run to run. The
+second-order kernels (B8, B7) on white noise the same; on a chirp their
+k is held by the order-2 bins criterion alone (column sums 1e-4 of max,
+|dTx| > 1e-3 max on under 2% of cells, energy 0.02): the chirp regression
+cancels where |W| is small, so float rounding moves w2 across bins there.
 """
 import numpy as np
 import pytest
@@ -24,12 +28,15 @@ from ssqueezepy_tpu_torch.models.ssq_stft import stft_plan
 from ssqueezepy_tpu_torch.models.stft import signal_spectrum
 from ssqueezepy_tpu_torch.ops import cwt_cuda
 from ssqueezepy_tpu_torch.ops.cwt_cuda import (cwt_bins, cwt_bins_plain,
+                                               cwt_bins2, cwt_bins2_plain,
                                                cwt_fused, cwt_fused_plain)
 from ssqueezepy_tpu_torch.ops.fft import rfft
 from ssqueezepy_tpu_torch.ops.pad import pad_params, padsignal
 from ssqueezepy_tpu_torch.ops.ssq_cuda import scatter_kv, scatter_kv_plain
-from ssqueezepy_tpu_torch.ops.stft_conv import conv_table
-from ssqueezepy_tpu_torch.ops.stft_cuda import stft_conv, stft_conv_plain
+from ssqueezepy_tpu_torch.models.ssq_stft import fsst2_plan
+from ssqueezepy_tpu_torch.ops.stft_conv import conv_bank, conv_table
+from ssqueezepy_tpu_torch.ops.stft_cuda import (fsst2_conv, fsst2_conv_plain,
+                                                stft_conv, stft_conv_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,15 +48,21 @@ def dev():
     return torch.device('cuda')
 
 
-def _inputs(N, dtype, scales, dev, padtype='reflect', seed=0):
+def _chirp(N):
+    n = np.arange(N)
+    return np.cos(2 * np.pi * (0.02 * n + 0.3 / (2 * N) * n ** 2))
+
+
+def _inputs(N, dtype, scales, dev, padtype='reflect', seed=0, x=None):
     spec = ('gmw', {'dtype': dtype})
     wav = resolve_wavelet(spec, N=N)
     plan, _ = _ssq_cwt_plan(wav, N, scales, 16, None, 'peak', True, 1.)
     scales_np, const, params = plan.scales, plan.const, plan.params
     n_up, n1, _ = pad_params(N, padtype)
     tdt = getattr(torch, dtype)
-    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(N),
-                        dtype=tdt, device=dev)
+    if x is None:
+        x = np.random.default_rng(seed).standard_normal(N)
+    x = torch.as_tensor(x, dtype=tdt, device=dev)
     xh = rfft(padsignal(x, padtype))
     sc = torch.as_tensor(scales_np.ravel(), dtype=tdt, device=dev)
     c = torch.as_tensor(np.broadcast_to(np.ravel(const), (len(sc),)).copy(),
@@ -63,6 +76,14 @@ def _bins_criterion(Tx_k, Tx_p):
     assert (Tx_k.sum(-2) - Tx_p.sum(-2)).abs().max() < 1e-4 * m
     e_k, e_p = Tx_k.abs().sum(), Tx_p.abs().sum()
     assert abs(e_k - e_p) / e_p < 5e-3
+
+
+def _bins2_criterion(Tx_k, Tx_p):
+    m = Tx_p.abs().max()
+    assert (Tx_k.sum(-2) - Tx_p.sum(-2)).abs().max() < 1e-4 * m
+    assert ((Tx_k - Tx_p).abs() > 1e-3 * m).double().mean() < 0.02
+    e_k, e_p = Tx_k.abs().sum(), Tx_p.abs().sum()
+    assert abs(e_k - e_p) / e_p < 0.02
 
 
 @pytest.mark.parametrize('N,scales,padtype', [
@@ -267,3 +288,128 @@ def test_public_cwt_on_card(dev):
     assert stq.toolkit.mad_rms(x, stq.icwt(Wx, scales='log')) < 0.1
     Wx_c, _ = stq.cwt(x, scales='log', device='cpu')
     assert _rel_err(Wx.cpu(), Wx_c) <= 2e-5
+
+
+@pytest.mark.parametrize('N,scales,signal', [
+    (2048, 'log-piecewise', 'noise'), (2048, 'log-piecewise', 'chirp'),
+    (4096, 'log', 'noise'), (160000, 'log-piecewise', 'noise')])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_cwt_bins2_kernel_vs_plain(dev, N, scales, signal, dtype):
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(
+        N, dtype, scales, dev, x=_chirp(N) if signal == 'chirp' else None)
+    n0 = cwt_bins2.launches
+    W_k, k_k = cwt_bins2(xh, sc, wav, n_up, n1, N, 1., params, gamma, True)
+    torch.cuda.synchronize()
+    assert cwt_bins2.launches > n0
+    W_p, k_p = cwt_bins2_plain(xh, sc, wav, n_up, n1, N, 1., params, gamma,
+                               True)
+    assert _rel_err(W_k, W_p) <= (2e-5 if dtype == 'float32' else 1e-9)
+    nbins = params['omax'] + 1
+    Tx_k = scatter_kv_plain(W_k, k_k, c, nbins)
+    Tx_p = scatter_kv_plain(W_p, k_p, c, nbins)
+    if signal == 'noise':
+        assert (k_k != k_p).double().mean() <= 0.01
+        _bins_criterion(Tx_k, Tx_p)
+    else:
+        _bins2_criterion(Tx_k, Tx_p)
+
+
+def test_cwt_bins2_row_chunks_and_repeats(dev, monkeypatch):
+    """Five scratch planes over a budget of 7 rows: rows run in chunks,
+    bit-identical to one chunk; the scatter of (W, k) repeats bit for
+    bit."""
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(5000, 'float32', 'log',
+                                                      dev)
+    args = (xh, sc, wav, n_up, n1, 5000, 1., params, gamma, True)
+    full = cwt_bins2(*args)
+    monkeypatch.setattr(cwt_cuda, '_SCRATCH_BUDGET', 5 * n_up * 8 * 7)
+    n0 = cwt_bins2.launches
+    chunked = cwt_bins2(*args)
+    assert cwt_bins2.launches - n0 == -(-len(sc) // 7)
+    assert torch.equal(full[0], chunked[0])
+    assert torch.equal(full[1], chunked[1])
+    nbins = params['omax'] + 1
+    assert torch.equal(scatter_kv(*full, c, nbins),
+                       scatter_kv(*full, c, nbins))
+
+
+def _fsst2_inputs(N, n_fft, dtype, dev, x=None, modulated=True):
+    if x is None:
+        x = np.random.default_rng(0).standard_normal(N)
+    x = torch.as_tensor(x, dtype=getattr(torch, dtype), device=dev)
+    xh = signal_spectrum(x, n_fft, 'reflect')
+    plan = fsst2_plan(None, None, n_fft, n_fft, 1., dtype)
+    tables = conv_bank(plan.bank, n_fft, xh.shape[0], modulated, dtype, dev)
+    bins = dict(Sfs=torch.as_tensor(plan.Sfs, device=dev),
+                params=plan.params, flipud=False,
+                gamma=10 * float(np.finfo(dtype).eps))
+    c = torch.full((tables.shape[1],), plan.const,
+                   dtype=getattr(torch, dtype), device=dev)
+    return xh, tables, bins, c
+
+
+@pytest.mark.parametrize('N,n_fft,signal', [
+    (10000, 598, 'noise'), (10000, 598, 'chirp'), (4000, 97, 'noise'),
+    (160000, 598, 'noise')])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_fsst2_conv_kernel_vs_plain(dev, N, n_fft, signal, dtype):
+    xh, tables, bins, c = _fsst2_inputs(
+        N, n_fft, dtype, dev, _chirp(N) if signal == 'chirp' else None)
+    if N == 10000:
+        assert xh.shape[0] == 12288               # 3 x 2^12
+    n0 = fsst2_conv.launches
+    V_k, k_k = fsst2_conv(xh, tables, N, 2., bins)
+    torch.cuda.synchronize()
+    assert fsst2_conv.launches > n0 and k_k.dtype == torch.int32
+    V_p, k_p = fsst2_conv_plain(xh, tables, N, 2., bins)
+    assert _rel_err(V_k, V_p) <= (2e-5 if dtype == 'float32' else 1e-9)
+    nbins = bins['params']['omax'] + 1
+    Tx_k = scatter_kv_plain(V_k, k_k, c, nbins)
+    Tx_p = scatter_kv_plain(V_p, k_p, c, nbins)
+    if signal == 'noise':
+        assert (k_k != k_p).double().mean() <= 0.01
+        _bins_criterion(Tx_k, Tx_p)
+    else:
+        _bins2_criterion(Tx_k, Tx_p)
+
+
+def test_fsst2_conv_unmodulated_chunks_and_repeats(dev, monkeypatch):
+    N, n_fft = 3001, 64
+    xh, tables, bins, c = _fsst2_inputs(N, n_fft, 'float32', dev,
+                                        modulated=False)
+    full = fsst2_conv(xh, tables, N, 1., bins)
+    assert _rel_err(full[0], fsst2_conv_plain(xh, tables, N, 1., bins)[0]) \
+        <= 2e-5
+    from ssqueezepy_tpu_torch.ops import stft_cuda
+    monkeypatch.setattr(stft_cuda, '_SCRATCH_BUDGET',
+                        5 * xh.shape[0] * 8 * 5)
+    n0 = fsst2_conv.launches
+    chunked = fsst2_conv(xh, tables, N, 1., bins)
+    assert fsst2_conv.launches - n0 == -(-tables.shape[1] // 5)
+    assert torch.equal(full[0], chunked[0])
+    assert torch.equal(full[1], chunked[1])
+    nbins = bins['params']['omax'] + 1
+    assert torch.equal(scatter_kv(*full, c, nbins),
+                       scatter_kv(*full, c, nbins))
+
+
+def test_public_order2_on_card(dev):
+    N = 19531
+    t = np.linspace(0, 6, N, endpoint=False)
+    x = np.cos(2 * np.pi * 2 * np.exp(t / 2)).astype(np.float32)
+    n1, n2 = cwt_bins2.launches, scatter_kv.launches
+    Tx, Wx, fr, sc = stq.ssq_cwt2(x)
+    assert Tx.is_cuda and Wx.is_cuda
+    assert cwt_bins2.launches > n1 and scatter_kv.launches > n2
+    assert stq.toolkit.mad_rms(x, stq.issq_cwt(Tx)) < 0.1
+    Tx_c, Wx_c, _, _ = stq.ssq_cwt2(x, device='cpu')
+    assert _rel_err(Wx.cpu(), Wx_c) <= 2e-5
+    _bins2_criterion(Tx.cpu(), Tx_c)
+    n1, n2 = fsst2_conv.launches, scatter_kv.launches
+    Tx, Sx, fr, Sfs = stq.ssq_stft2(x)
+    assert Tx.is_cuda and Sx.is_cuda
+    assert fsst2_conv.launches > n1 and scatter_kv.launches > n2
+    assert stq.toolkit.mad_rms(x, stq.issq_stft(Tx)) < 0.1
+    Tx_c, Sx_c, _, _ = stq.ssq_stft2(x, device='cpu')
+    assert _rel_err(Sx.cpu(), Sx_c) <= 2e-5
+    _bins2_criterion(Tx.cpu(), Tx_c)

@@ -25,6 +25,7 @@ import ssqueezepy_tpu_torch as tstq
 from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
 from ssqueezepy_tpu_torch.ops.cwt_cuda import cwt_fused
 from ssqueezepy_tpu_torch.ops.pad import pad_params
+from torch_jax_reference import xla_reference  # noqa: F401
 
 N = 1000
 

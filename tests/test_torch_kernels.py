@@ -28,6 +28,7 @@ from ssqueezepy_tpu_torch.ops.cwt_cuda import cwt_bins, four_step
 from ssqueezepy_tpu_torch.ops.pad import pad_params
 from ssqueezepy_tpu_torch.ops.ssq_cuda import scatter_kv
 from ssqueezepy_tpu_torch.utils.cwt_utils import process_scales
+from torch_jax_reference import xla_reference  # noqa: F401
 
 N = 512
 SPEC = ('gmw', {'dtype': 'float32'})

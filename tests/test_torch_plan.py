@@ -19,6 +19,7 @@ from ssqueezepy_tpu_torch.ops import pad as tpad, fft as tfft
 from ssqueezepy_tpu_torch.models import wavelets as twav, ssqueezing as tsq
 from ssqueezepy_tpu_torch.utils import cwt_utils as tcu
 from ssqueezepy_tpu_torch.ops import ssq_kernels as tssq
+from torch_jax_reference import xla_reference  # noqa: F401
 
 PADTYPES = ('reflect', 'symmetric', 'replicate', 'wrap', 'zero')
 TOL = {'float32': 1e-6, 'float64': 1e-13}

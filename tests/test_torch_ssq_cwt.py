@@ -18,6 +18,7 @@ import torch
 
 import ssqueezepy_tpu as jstq
 import ssqueezepy_tpu_torch as tstq
+from torch_jax_reference import xla_reference  # noqa: F401
 
 N = 2048
 

@@ -40,6 +40,7 @@ from ssqueezepy_tpu_torch.ops.fft import next_fft_len
 from ssqueezepy_tpu_torch.ops.stft_conv import conv_table
 from ssqueezepy_tpu_torch.ops.stft_cuda import (stft_conv, stft_conv_plain,
                                                 split_fft_len)
+from torch_jax_reference import xla_reference  # noqa: F401
 
 TOL = {'float32': 2e-5, 'float64': 1e-9}
 
