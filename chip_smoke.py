@@ -10,7 +10,8 @@ log-piecewise plan and `issq_cwt` back; `ssq_stft` and `stft` (hop 1)
 with n_fft = 598 and `issq_stft`/`istft` back; `cwt` with the same 293
 scales and `icwt` back; the second-order `ssq_cwt2` (the 293 scales, no
 ssq_freqs, as the bench calls it) and `ssq_stft2` (n_fft = 598), inverted
-by `issq_cwt`/`issq_stft`. It:
+by `issq_cwt`/`issq_stft`; `ssq_cwt` on a (4, 160000) batch (the bench's
+`ssq_cwt_b4` call) and with `get_dWx=True`, and `ssq_stft` at hop 8. It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel from `ssqueezepy_tpu_torch/csrc/` (one nvcc
@@ -29,19 +30,29 @@ by `issq_cwt`/`issq_stft`. It:
   7. holds the WSST2 kernel (B8, the order-2 mode of the CWT kernel) and
      the FSST2 table kernel (B7) against their plain versions at the
      ssq_cwt2 / ssq_stft2 headline (float32) and at N = 10000 (float64);
-  8. runs each public entry point (`ssq_cwt`, `ssq_stft`, `stft`, `cwt`,
-     `ssq_cwt2`, `ssq_stft2` at 160k) with every launch counter set to 0
-     just before, reads the counters just after (each kernel of the path
-     must have launched), and checks the outputs against the plain path
-     on the card;
-  9. round-trips a chirp through `ssq_cwt`/`issq_cwt`,
+  8. holds the batched bins mode of the CWT kernel (B3b) against its plain
+     version on a (4, 160000) float32 and a (3, 10000) float64 batch, each
+     row bit-identical to B1 on its signal; the batched scatter (B2) on
+     those planes, bit-identical to per-signal launches and from run to
+     run; and the fused phase + bins + scatter kernel (B4) on the
+     derivative CWT planes at 160k, on the STFT's (Sx, dSx) planes at 160k
+     with Sfs, and at N = 10000 in float64 over the lin, log and
+     log-piecewise grids with both flipud;
+  9. runs each public entry point (`ssq_cwt`, `ssq_stft`, `stft`, `cwt`,
+     `ssq_cwt2`, `ssq_stft2`, the batched `ssq_cwt`, `ssq_cwt(get_dWx=
+     True)` and `ssq_stft(hop_len=8)` at 160k) with every launch counter
+     set to 0 just before, reads the counters just after (each kernel of
+     the path must have launched), and checks the outputs against the
+     plain path on the card;
+ 10. round-trips a chirp through `ssq_cwt`/`issq_cwt`,
      `ssq_stft`/`issq_stft`, `cwt`/`icwt`, `ssq_cwt2`/`issq_cwt` and
-     `ssq_stft2`/`issq_stft` (mad_rms < 0.1), and white noise through
-     `stft`/`istft` in float64 at hop 1 and hop 8 (MAE < 1e-12);
-  10. times each kernel, its plain version and a library yardstick with
+     `ssq_stft2`/`issq_stft`, and a (4, N) chirp batch through the batched
+     `ssq_cwt`/`issq_cwt` (mad_rms < 0.1, each row), and white noise
+     through `stft`/`istft` in float64 at hop 1 and hop 8 (MAE < 1e-12);
+ 11. times each kernel, its plain version and a library yardstick with
      CUDA events after warm-up, computes each kernel's bound from this
      run's shapes, and times each public call with its peak memory;
- 11. prints one `{"kernels": [...]}` line, then, as the last line,
+ 12. prints one `{"kernels": [...]}` line, then, as the last line,
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before those lines. Without a CUDA
@@ -93,7 +104,8 @@ def cuda_ms(fn, reps=10, warm=2):
 
 def host_ms(fn, reps=10, warm=2):
     """(mean host-clock ms per call ending in a synchronize, peak device
-    GB allocated over the timed calls, plan constants included)."""
+    GB allocated over the timed calls, plan constants included). Each
+    call's outputs are dropped before the next call starts."""
     import torch
     for _ in range(warm):
         fn()
@@ -101,10 +113,9 @@ def host_ms(fn, reps=10, warm=2):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(reps):
-        out = fn()
+        fn()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / reps * 1e3
-    del out
     return ms, torch.cuda.max_memory_allocated() / 1e9
 
 
@@ -127,15 +138,15 @@ def bound(nbytes, flops):
     return max(tb, tf) * 1e3, ('operations' if tf > tb else 'bytes')
 
 
-def launches_of(kernels, fn):
-    """Set every counter to 0, run `fn` (synchronized), read the counters:
-    (fn's result, {name: count})."""
+def launches_of(counters, fn):
+    """Set every counter (name, wrapper, attribute) to 0, run `fn`
+    (synchronized), read the counters: (fn's result, {name: count})."""
     import torch
-    for k in kernels:
-        k.launches = 0
+    for _, w, attr in counters:
+        setattr(w, attr, 0)
     out = fn()
     torch.cuda.synchronize()
-    return out, {k.__name__: k.launches for k in kernels}
+    return out, {name: getattr(w, attr) for name, w, attr in counters}
 
 
 def main():
@@ -150,7 +161,7 @@ def main():
             cwt_bins, cwt_bins_plain, cwt_bins2, cwt_bins2_plain, cwt_fused,
             cwt_fused_plain, four_step)
         from ssqueezepy_tpu_torch.ops.ssq_cuda import (
-            scatter_kv, scatter_kv_plain)
+            scatter_kv, scatter_kv_plain, ssq_fused, ssq_fused_plain)
         from ssqueezepy_tpu_torch.ops.stft_cuda import (
             fsst2_conv, fsst2_conv_plain, stft_conv, stft_conv_plain,
             split_fft_len)
@@ -159,6 +170,7 @@ def main():
         from ssqueezepy_tpu_torch.ops.fft import rfft
         from ssqueezepy_tpu_torch.ops.pad import padsignal, pad_params
         from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
+        from ssqueezepy_tpu_torch.models.ssq_cwt import _ssq_cwt_plan
         from ssqueezepy_tpu_torch.models.ssq_stft import fsst2_plan, stft_plan
         from ssqueezepy_tpu_torch.models.stft import signal_spectrum
         from ssqueezepy_tpu_torch.models.ssqueezing import \
@@ -166,8 +178,11 @@ def main():
         from ssqueezepy_tpu_torch.convert import plan_from_numpy
     except ImportError as e:
         fail("the port is not importable beside this script (%s)" % e)
-    all_kernels = (cwt_bins, scatter_kv, stft_conv, cwt_fused, cwt_bins2,
-                   fsst2_conv)
+    # each kernel's launch counter: B3b counts on cwt_bins' batched
+    # counter, B1 on its own
+    all_kernels = [(k.__name__, k, 'launches') for k in (
+        cwt_bins, scatter_kv, stft_conv, cwt_fused, cwt_bins2, fsst2_conv,
+        ssq_fused)] + [('cwt_bins_batched', cwt_bins, 'batched_launches')]
     # full-precision float32 products in every plain version
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -436,8 +451,122 @@ def main():
         _BANK_CACHE.clear()
         torch.cuda.empty_cache()
 
+    # ---- B3b and batched B2 against their plain versions -----------------
+    B4N = 4
+    xb_big = rng.standard_normal((B4N, N)).astype(np.float32)
+    b3b = {}
+    for shape, dtype in (((B4N, N), 'float32'), ((3, 10000), 'float64')):
+        tdt = getattr(torch, dtype)
+        Nb = shape[-1]
+        wv = resolve_wavelet(('gmw', {'dtype': dtype}), N=Nb)
+        if Nb == N:
+            plb, xsrc = plan, xb_big
+        else:
+            plb = plan_from_numpy(stq.process_scales('log-piecewise', Nb, wv),
+                                  None, ('gmw', {'dtype': dtype}), Nb)
+            xsrc = rng.standard_normal(shape)
+        nu, nn1, _ = pad_params(Nb, 'reflect')
+        xhb = rfft(padsignal(torch.as_tensor(xsrc, dtype=tdt, device=dev),
+                             'reflect')).contiguous()
+        scb = torch.as_tensor(plb['scales'].ravel(), dtype=tdt, device=dev)
+        cb_ = torch.as_tensor(np.broadcast_to(np.ravel(plb['const']),
+                                              (len(scb),)).copy(),
+                              dtype=tdt, device=dev)
+        gamma = 10 * float(np.finfo(dtype).eps)
+        rest = (scb, wv, nu, nn1, Nb, 1., True, plb['params'], gamma, True)
+        print("B3b cwt_bins batched vs plain at %s x %d scales, n_up=%d, %s"
+              % (shape, len(scb), nu, dtype), flush=True)
+        W_k, k_k = cwt_bins(xhb, *rest)
+        torch.cuda.synchronize()
+        W_p, k_p = cwt_bins_plain(xhb, *rest)
+        err = rel_err(W_k, W_p)
+        err_abs = float((W_k - W_p).abs().max())
+        flips = float((k_k != k_p).double().mean())
+        tol = 2e-5 if dtype == 'float32' else 1e-9
+        check(bool(torch.isfinite(torch.view_as_real(W_k)).all())
+              and err <= tol and flips <= 0.01,
+              "B3b %s: max|Wx_kernel - Wx_plain| = %.3g of max|Wx| (limit "
+              "%g), k differs on %.4f%% of cells (limit 1%%)"
+              % (dtype, err, tol, 100 * flips))
+        nb = plb['params']['omax'] + 1
+        bins_criterion(scatter_kv_plain(W_k, k_k, cb_, nb),
+                       scatter_kv_plain(W_p, k_p, cb_, nb), "%s B3b" % dtype)
+        del W_p, k_p
+        same = True
+        for b in range(shape[0]):
+            W1, k1 = cwt_bins(xhb[b].contiguous(), *rest)
+            same = same and torch.equal(W1, W_k[b]) and torch.equal(k1,
+                                                                  k_k[b])
+        del W1, k1
+        check(same, "B3b %s: every row bit-identical to B1 on its signal"
+              % dtype)
+        # batched B2 on these planes
+        T1 = scatter_kv(W_k, k_k, cb_, nb)
+        T2 = scatter_kv(W_k, k_k, cb_, nb)
+        torch.cuda.synchronize()
+        check(torch.equal(T1, T2) and all(
+            torch.equal(T1[b], scatter_kv(W_k[b], k_k[b], cb_, nb))
+            for b in range(shape[0])),
+            "B2 batched %s: repeats and per-signal launches bit-identical"
+            % dtype)
+        T_p = scatter_kv_plain(W_k, k_k, cb_, nb)
+        e2 = rel_err(T1, T_p)
+        check(e2 <= 1e-5, "B2 batched %s vs plain: %.3g of max|Tx| (limit "
+              "1e-5)" % (dtype, e2))
+        if Nb == N:
+            b3b = dict(err=err_abs, args=(xhb,) + rest, c=cb_)
+        del W_k, k_k, T1, T2, T_p
+        torch.cuda.empty_cache()
+
+    # ---- B4 against its plain version ------------------------------------
+    def b4_check(Wx4, dWx4, c4, params4, gamma4, flipud4, Sfs4, dtype, what):
+        T1 = ssq_fused(Wx4, dWx4, c4, params4, gamma4, flipud4, Sfs4)
+        T2 = ssq_fused(Wx4, dWx4, c4, params4, gamma4, flipud4, Sfs4)
+        torch.cuda.synchronize()
+        T_p = ssq_fused_plain(Wx4, dWx4, c4, params4, gamma4, flipud4, Sfs4)
+        check(torch.equal(T1, T2) and bool(
+            torch.isfinite(torch.view_as_real(T1)).all()),
+            "B4 %s: finite, repeats bit-identical" % what)
+        if dtype == 'float32':
+            bins_criterion(T1, T_p, "B4 " + what)
+        else:
+            e4 = rel_err(T1, T_p)
+            check(e4 <= 1e-9, "B4 %s: max|Tx_kernel - Tx_plain| = %.3g of "
+                  "max|Tx| (limit 1e-9)" % (what, e4))
+        return float((T1 - T_p).abs().max())
+
+    print("B4 ssq_fused vs plain", flush=True)
+    wv, xh, sc, c, gamma = kernel_inputs('float32')
+    Wx4, dWx4 = cwt_fused(xh, sc, wv, n_up, n1, N, 1., True, True)
+    b4 = dict(err=b4_check(Wx4, dWx4, c, params, gamma, True, None,
+                           'float32', "on the get_dWx CWT planes at 160k"),
+              args=(Wx4, dWx4, c, params, gamma, True))
+    del xh
+    xh6, H, Hd, bins6, c6 = stft_inputs(N, 'float32', x_np)
+    Sx4, dSx4 = stft_conv(xh6, H, Hd, N, 1.)
+    b4_check(Sx4, dSx4, c6, bins6['params'], bins6['gamma'], False,
+             bins6['Sfs'], 'float32', "on the STFT's (Sx, dSx) at 160k, Sfs")
+    del xh6, H, Hd, Sx4, dSx4
+    wv64 = resolve_wavelet(('gmw', {'dtype': 'float64'}), N=10000)
+    nu, nn1, _ = pad_params(10000, 'reflect')
+    x64_10k = torch.as_tensor(rng.standard_normal(10000), device=dev)
+    xh64 = rfft(padsignal(x64_10k, 'reflect')).contiguous()
+    for scl in ('linear', 'log', 'log-piecewise'):
+        pl4, _ = _ssq_cwt_plan(wv64, 10000, scl, 16, None, 'peak', True, 1.)
+        sc4 = torch.as_tensor(pl4.scales.ravel(), device=dev)
+        c4 = torch.as_tensor(np.broadcast_to(np.ravel(pl4.const),
+                                             (len(sc4),)).copy(), device=dev)
+        W64, dW64 = cwt_fused(xh64, sc4, wv64, nu, nn1, 10000, 1., True, True)
+        for fl in (True, False):
+            b4_check(W64, dW64, c4, pl4.params, 10 * float(np.finfo(
+                np.float64).eps), fl, None, 'float64', "float64 at N=10000, "
+                "%s grid, flipud=%s" % (pl4.params['mode'], fl))
+    del xh64, W64, dW64
+    torch.cuda.empty_cache()
+
     # ---- the main paths through the public API ----------------------------
     x_dev = torch.as_tensor(x_np, device=dev)
+    xb_dev = torch.as_tensor(xb_big, device=dev)
     kw = dict(wavelet=spec, scales=scales, ssq_freqs=ssq_freqs)
     calls = {
         'ssq_cwt': lambda: stq.ssq_cwt(x_dev, **kw),
@@ -446,13 +575,19 @@ def main():
         'cwt': lambda: stq.cwt(x_dev, wavelet=spec, scales=scales),
         'ssq_cwt2': lambda: stq.ssq_cwt2(x_dev, spec, scales=scales),
         'ssq_stft2': lambda: stq.ssq_stft2(x_dev, n_fft=n_fft),
+        'ssq_cwt_b4': lambda: stq.ssq_cwt(xb_dev, **kw),
+        'ssq_cwt_dwx': lambda: stq.ssq_cwt(x_dev, get_dWx=True, **kw),
+        'ssq_stft_hop8': lambda: stq.ssq_stft(x_dev, n_fft=n_fft, hop_len=8),
     }
     needs = {'ssq_cwt': ('cwt_bins', 'scatter_kv'),
              'ssq_stft': ('stft_conv', 'scatter_kv'),
              'stft': ('stft_conv',), 'cwt': ('cwt_fused',),
              'ssq_cwt2': ('cwt_bins2', 'scatter_kv'),
-             'ssq_stft2': ('fsst2_conv', 'scatter_kv')}
-    launches = dict.fromkeys((k.__name__ for k in all_kernels), 0)
+             'ssq_stft2': ('fsst2_conv', 'scatter_kv'),
+             'ssq_cwt_b4': ('cwt_bins_batched', 'scatter_kv'),
+             'ssq_cwt_dwx': ('cwt_fused', 'ssq_fused'),
+             'ssq_stft_hop8': ('ssq_fused',)}
+    launches = dict.fromkeys((name for name, _, _ in all_kernels), 0)
     for name, fn in calls.items():
         fn()                                  # plan memo + first launch
         torch.cuda.synchronize()
@@ -511,6 +646,49 @@ def main():
             bins_criterion(Tx, scatter_kv_plain(W_p, k_p, b8['c'], nbins2),
                            "public ssq_cwt2 vs plain path")
             del Tx, Wx_pub, W_p, k_p
+        elif name == 'ssq_cwt_b4':
+            Tx, Wx_pub = out[0], out[1]
+            check(Tx.shape == (B4N, nbins, N) and Wx_pub.shape == (B4N, na, N)
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "batched ssq_cwt: Tx %s, Wx %s, finite"
+                  % (tuple(Tx.shape), tuple(Wx_pub.shape)))
+            W_p, k_p = cwt_bins_plain(*b3b['args'])
+            check(rel_err(Wx_pub, W_p) <= 2e-5, "batched ssq_cwt: Wx %.3g "
+                  "of max vs the plain path" % rel_err(Wx_pub, W_p))
+            del Wx_pub
+            bins_criterion(Tx, scatter_kv_plain(W_p, k_p, b3b['c'], nbins),
+                           "public batched ssq_cwt vs plain path")
+            del Tx, W_p, k_p
+        elif name == 'ssq_cwt_dwx':
+            Tx, Wx_pub, dWx_pub = out[0], out[1], out[4]
+            check(len(out) == 5 and Tx.shape == (nbins, N)
+                  and dWx_pub.shape == (na, N)
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "ssq_cwt(get_dWx=True): Tx (%d, %d), dWx (%d, %d), finite"
+                  % (Tx.shape + dWx_pub.shape))
+            wv, xh, sc, c, gamma = kernel_inputs('float32')
+            W_p, dW_p = cwt_fused_plain(xh, sc, wv, n_up, n1, N, 1., True,
+                                        True)
+            check(rel_err(dWx_pub, dW_p) <= 2e-5, "ssq_cwt(get_dWx=True): "
+                  "dWx %.3g of max vs the plain path" % rel_err(dWx_pub, dW_p))
+            bins_criterion(Tx, ssq_fused_plain(W_p, dW_p, c, params, gamma,
+                                               True),
+                           "public ssq_cwt(get_dWx=True) vs plain path")
+            del Tx, Wx_pub, dWx_pub, W_p, dW_p, xh
+        elif name == 'ssq_stft_hop8':
+            Tx, Sx = out[0], out[1]
+            n_segs = -(-N // 8)
+            check(Tx.shape == (n_rows, n_segs) and Sx.shape == (n_rows, n_segs)
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "ssq_stft(hop_len=8): Tx, Sx (%d, %d), finite" % Tx.shape)
+            _, _, _, bins6, c6 = stft_inputs(N, 'float32', x_np)
+            Sx_p, dSx_p = stq.stft(x_dev, n_fft=n_fft, hop_len=8,
+                                   derivative=True)
+            bins_criterion(Tx, ssq_fused_plain(
+                Sx_p.contiguous(), dSx_p.contiguous(), c6, bins6['params'],
+                bins6['gamma'], False, bins6['Sfs']),
+                "public ssq_stft(hop_len=8) vs plain path")
+            del Tx, Sx, Sx_p, dSx_p
         else:
             Tx, Sx = out[0], out[1]
             check(Tx.shape == (n_rows, N) and Sx.shape == (n_rows, N)
@@ -545,6 +723,17 @@ def main():
         check(all(counts[kn] >= 1 for kn in need) and mad < 0.1,
               "%s round trip: mad_rms = %.4g (< 0.1), launches %s"
               % (name, mad, counts))
+    xcb = np.stack([np.cos(2 * np.pi * f * np.exp(tc / 2))
+                    for f in (1.5, 2., 2.5, 3.)]).astype(np.float32)
+    out, counts = launches_of(all_kernels, lambda: stq.ssq_cwt(xcb)[0])
+    xrb = stq.issq_cwt(out)
+    mads = [float(stq.toolkit.mad_rms(xcb[b], xrb[b])) for b in range(4)]
+    check(counts['cwt_bins_batched'] >= 1 and counts['scatter_kv'] >= 1
+          and xrb.shape == xcb.shape and max(mads) < 0.1,
+          "batched ssq_cwt/issq_cwt round trip of a (4, %d) chirp batch: "
+          "mad_rms = %s (each < 0.1), launches %s"
+          % (Nc, ', '.join('%.4g' % m for m in mads), counts))
+    del out
     x64 = rng.standard_normal(N)
     for hop in (1, 8):
         S = stq.stft(x64, n_fft=n_fft, hop_len=hop, dtype='float64')
@@ -630,11 +819,44 @@ def main():
     _BANK_CACHE.clear()
     torch.cuda.empty_cache()
 
-    # each call's peak with only its own cached window tables live
+    # B3b as the batched ssq_cwt runs it; yardstick: the DFT core only, one
+    # torch.fft.ifft of the two (B * na, n_up) spectra
+    xhb = b3b['args'][0]
+    b3b_ms = cuda_ms(lambda: cwt_bins(*b3b['args']))
+    b3b_plain_ms = cuda_ms(lambda: cwt_bins_plain(*b3b['args']), reps=3)
+    specb = torch.zeros((2 * B4N * na, n_up), dtype=xhb.dtype, device=dev)
+    specb.view(2, B4N, na, n_up)[..., :xhb.shape[-1]] = xhb[:, None, :]
+    b3b_lib_ms = cuda_ms(lambda: torch.fft.ifft(specb, dim=-1), reps=5)
+    n_xhb = xhb.numel()
+    del specb, xhb, b3b['args']
+    torch.cuda.empty_cache()
+
+    # B4 as ssq_cwt(get_dWx=True) runs it; yardstick: the scatter part
+    # only, one index_put_ with accumulate on bins computed beforehand
+    # (no single PyTorch call computes the phase transform and bin map)
+    from ssqueezepy_tpu_torch.ops.phase import phase_transform_w
+    from ssqueezepy_tpu_torch.ops.ssq_kernels import compute_bins
+    Wx4, dWx4, c4, p4, g4, f4 = b4['args']
+    b4_ms = cuda_ms(lambda: ssq_fused(*b4['args']))
+    b4_plain_ms = cuda_ms(lambda: ssq_fused_plain(*b4['args']), reps=5)
+    k4, v4 = compute_bins(phase_transform_w(Wx4, dWx4, g4), p4, f4)
+    n_valid4 = int(v4.sum())
+    kk = torch.where(v4, k4, nbins).long()
+    cols = torch.arange(N, device=dev).expand(na, N)
+    vals = Wx4 * c4.reshape(-1, 1)
+    b4_lib_ms = cuda_ms(lambda: torch.zeros(
+        (nbins + 1, N), dtype=Wx4.dtype, device=dev).index_put_(
+            (kk, cols), vals, accumulate=True))
+    del kk, cols, vals, k4, v4, Wx4, dWx4, b4['args']
+    torch.cuda.empty_cache()
+
+    # each call's peak with only its own cached window tables and cuFFT
+    # plans live
     e2e = {}
     for name, fn in calls.items():
         _TABLE_CACHE.clear()
         _BANK_CACHE.clear()
+        torch.backends.cuda.cufft_plan_cache.clear()
         torch.cuda.empty_cache()
         e2e[name] = host_ms(fn)
 
@@ -669,11 +891,22 @@ def main():
     b7_bytes = Np2_7 * cb + n_rows * N * (cb + 4)
     b7_flops = 5 * n_rows * 5 * Np2_7 * np.log2(Np2_7)
     b7_bound, b7_by = bound(b7_bytes, b7_flops)
+    # B3b: B1's function over the batch
+    b3b_bytes = n_xhb * cb + na * rb + B4N * na * N * (cb + 4)
+    b3b_flops = B4N * na * 2 * 5 * n_up * (lg - 1)
+    b3b_bound, b3b_by = bound(b3b_bytes, b3b_flops)
+    # B4: Wx, dWx and const read, Tx written; per cell the phase ratio and
+    # the bin map (~12 FLOP), per valid cell the accumulate (4 FLOP)
+    b4_bytes = 2 * na * N * cb + na * rb + nbins * N * cb
+    b4_flops = 12 * na * N + 4 * n_valid4
+    b4_bound, b4_by = bound(b4_bytes, b4_flops)
 
     for name, (ms, gb) in e2e.items():
-        print("%s end to end at N=%d: %.3f ms/call (host clock, mean of 10 "
+        per = (", %.3f ms per transform" % (ms / B4N)
+               if name == 'ssq_cwt_b4' else '')
+        print("%s end to end at N=%d: %.3f ms/call%s (host clock, mean of 10 "
               "after warm-up), peak device memory %.3f GB; card: %s"
-              % (name, N, ms, gb, card), flush=True)
+              % (name, N, ms, per, gb, card), flush=True)
     print("B1 %.3f ms (plain %.3f, torch.fft.ifft DFT core %.3f, bound "
           "%.3f by %s: %.3g B, %.3g FLOP); B2 %.3f ms (plain %.3f, "
           "index_put_ %.3f, bound %.3f by %s: %.3g B, %d valid cells)"
@@ -694,8 +927,15 @@ def main():
           % (b8_ms, b8_plain_ms, b8_lib_ms, b8_bound, b8_by, b8_bytes,
              b8_flops, b7_ms, b7_plain_ms, b7_lib_ms, b7_bound, b7_by,
              b7_bytes, b7_flops, Np2_7), flush=True)
-    print("main-path launches per kernel, summed over the six public "
-          "calls: %s" % launches, flush=True)
+    print("B3b %.3f ms at (%d, %d) (plain %.3f, torch.fft.ifft DFT core "
+          "%.3f, bound %.3f by %s: %.3g B, %.3g FLOP); B4 %.3f ms (plain "
+          "%.3f, index_put_ scatter part %.3f, bound %.3f by %s: %.3g B, "
+          "%.3g FLOP, %d valid cells)"
+          % (b3b_ms, B4N, N, b3b_plain_ms, b3b_lib_ms, b3b_bound, b3b_by,
+             b3b_bytes, b3b_flops, b4_ms, b4_plain_ms, b4_lib_ms, b4_bound,
+             b4_by, b4_bytes, b4_flops, n_valid4), flush=True)
+    print("main-path launches per kernel, summed over the %d public "
+          "calls: %s" % (len(calls), launches), flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),
           flush=True)
 
@@ -736,6 +976,18 @@ def main():
              launches=launches['fsst2_conv'], max_abs_err=b7['err'],
              ms=b7_ms, plain_ms=b7_plain_ms, bound_ms=b7_bound,
              bound_by=b7_by, library_ms=b7_lib_ms),
+        dict(name='cwt_bins_batched', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/cwt_bins.cu',
+             replaces='ssqueezepy_tpu/ops/cwt_pallas.py:70',
+             launches=launches['cwt_bins_batched'], max_abs_err=b3b['err'],
+             ms=b3b_ms, plain_ms=b3b_plain_ms, bound_ms=b3b_bound,
+             bound_by=b3b_by, library_ms=b3b_lib_ms),
+        dict(name='ssq_fused', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/ssq_fused.cu',
+             replaces='ssqueezepy_tpu/ops/ssq_pallas.py:345',
+             launches=launches['ssq_fused'], max_abs_err=b4['err'],
+             ms=b4_ms, plain_ms=b4_plain_ms, bound_ms=b4_bound,
+             bound_by=b4_by, library_ms=b4_lib_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

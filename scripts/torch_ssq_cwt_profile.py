@@ -8,7 +8,9 @@
 Runs one of the bench calls on white noise in float32 — `ssq_cwt` (the
 headline: the bench's 293-row log-piecewise plan and its ssq_freqs),
 `cwt` (the same scales), `ssq_cwt2` (the same scales, no ssq_freqs),
-`ssq_stft`, `stft` or `ssq_stft2` (n_fft = 598, hop 1) —
+`ssq_stft`, `stft` or `ssq_stft2` (n_fft = 598, hop 1), `ssq_cwt_b4`
+(`ssq_cwt` on a (4, N) batch), `ssq_cwt_dwx` (`ssq_cwt` with
+`get_dWx=True`) or `ssq_stft_hop8` (`ssq_stft` at hop 8) —
 under `torch.profiler` after warm-up and prints one JSON line: device
 time per kernel name (summed over the profiled calls, divided by the
 call count), the wall time per call, and the device's idle share of
@@ -31,7 +33,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--transform', default='ssq_cwt',
                     choices=('ssq_cwt', 'cwt', 'ssq_stft', 'stft',
-                             'ssq_cwt2', 'ssq_stft2'))
+                             'ssq_cwt2', 'ssq_stft2', 'ssq_cwt_b4',
+                             'ssq_cwt_dwx', 'ssq_stft_hop8'))
     ap.add_argument('--n', type=int, default=160000)
     ap.add_argument('--calls', type=int, default=5)
     a = ap.parse_args()
@@ -52,9 +55,14 @@ def main():
         dt=1, transform='cwt')
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(N)
                         .astype(np.float32), device='cuda')
+    xb = torch.as_tensor(np.random.default_rng(1).standard_normal((4, N))
+                         .astype(np.float32), device='cuda')
+    kw = dict(wavelet=spec, scales=scales, ssq_freqs=freqs)
     call = {
-        'ssq_cwt': lambda: stq.ssq_cwt(x, wavelet=spec, scales=scales,
-                                       ssq_freqs=freqs),
+        'ssq_cwt': lambda: stq.ssq_cwt(x, **kw),
+        'ssq_cwt_b4': lambda: stq.ssq_cwt(xb, **kw),
+        'ssq_cwt_dwx': lambda: stq.ssq_cwt(x, get_dWx=True, **kw),
+        'ssq_stft_hop8': lambda: stq.ssq_stft(x, n_fft=598, hop_len=8),
         'cwt': lambda: stq.cwt(x, wavelet=spec, scales=scales),
         'ssq_stft': lambda: stq.ssq_stft(x, n_fft=598),
         'stft': lambda: stq.stft(x, n_fft=598),

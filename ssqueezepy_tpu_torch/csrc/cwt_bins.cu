@@ -1,12 +1,13 @@
 // Fused CWT (+ phase transform + bin map for the synchrosqueezed CWT).
 //
 // Replaces the TPU kernel ssqueezepy_tpu/ops/cwt_pallas.py::_make_kernel
-// in three of its modes:
-//   * bins + direct mode (entry point cwt_fused_bins_direct): outputs Wx
-//     and the bin plane k;
+// in three of its modes, each over a batch of spectra (B spectra x na
+// scales, row g = b * na + scale):
+//   * bins mode (entry points cwt_fused_bins_direct for one signal and
+//     cwt_fused_bins_pallas for a batch): outputs Wx and the bin plane k;
+//     the phase / gate / bin arithmetic is bins.cuh's phase_bin;
 //   * plain/derivative mode (entry point cwt_fused_pallas): outputs Wx,
-//     and dWx when asked, over a batch of spectra (B spectra x na
-//     scales, row g = b * na + scale);
+//     and dWx when asked;
 //   * order-2 (WSST2) mode (entry point cwt_fused_bins2_direct): outputs
 //     W and the bin plane k of the chirp-corrected estimate (below).
 // For each scale a and output time n in [n1, n1 + N):
@@ -18,7 +19,10 @@
 // times sqrt(scale) for l1_norm = 0; in bins mode then w = |Im(D / W)| /
 // 2pi, the gamma gate |W|^2 > gamma^2, and the lin / log / log-piecewise
 // bin map with flipud. Outputs: Wx (B * na, N) interleaved complex and
-// either k (na, N) int32, k = -1 on gated cells, or dWx like Wx.
+// either k (B * na, N) int32, k = -1 on gated cells, or dWx like Wx. A
+// row's arithmetic does not depend on its batch index or on how the
+// wrapper chunks the rows, so a batched row is bit-identical to the same
+// signal run alone.
 //
 // Order-2 mode (out_mode 3) forms five spectra from psih and its closed-
 // form derivatives psih', psih'' at w = a xi (GMW: with u = wc w,
@@ -57,11 +61,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bins.cuh"
+
 namespace {
 
-template <typename T> struct Cplx;
-template <> struct Cplx<float> { typedef float2 type; };
-template <> struct Cplx<double> { typedef double2 type; };
+using namespace bins;
 
 __device__ __forceinline__ void sincospi_t(float x, float* s, float* c) {
   sincospif(x, s, c);
@@ -75,31 +79,19 @@ __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 __device__ __forceinline__ float pow_t(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double pow_t(double x, double y) { return pow(x, y); }
-__device__ __forceinline__ float log2_t(float x) { return log2f(x); }
-__device__ __forceinline__ double log2_t(double x) { return log2(x); }
-__device__ __forceinline__ float rint_t(float x) { return rintf(x); }
-__device__ __forceinline__ double rint_t(double x) { return rint(x); }
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
-__device__ __forceinline__ float fabs_t(float x) { return fabsf(x); }
-__device__ __forceinline__ double fabs_t(double x) { return fabs(x); }
-__device__ __forceinline__ float fmin_t(float x, float y) { return fminf(x, y); }
-__device__ __forceinline__ double fmin_t(double x, double y) { return fmin(x, y); }
-__device__ __forceinline__ float fmax_t(float x, float y) { return fmaxf(x, y); }
-__device__ __forceinline__ double fmax_t(double x, double y) { return fmax(x, y); }
-__device__ __forceinline__ bool finite_t(float x) { return fabsf(x) <= 3.402823466e38f; }
-__device__ __forceinline__ bool finite_t(double x) { return fabs(x) <= 1.7976931348623157e308; }
 
 // Host-side parameter block, copied by value into both launches.
 struct Cfg {
   int n_up, f1, f2, lg1, lg2, half, n1, N, P1, P2, rows, row0;
-  int l1_norm, mode, idx1, omax, flipud;
+  int l1_norm;
   // out_mode 0: (Wx, k); 1: Wx; 2: (Wx, dWx); 3: (W, k) of order 2
   int out_mode, planes, na;
   double xi_step, inv_dt, gamma_gate;
   double logconst, amp, wgamma, beta, wc;
-  double a0, d0, a1, d1;
   double tiny, two_pi_dt;  // order 2: divide regularizer, 2 pi dt
+  BinMap bm;
 };
 
 // GMW (order 0) in log space: amp * exp(logconst + beta ln w - w^gamma)
@@ -277,25 +269,6 @@ __global__ void stage1(const typename Cplx<T>::type* __restrict__ xh,
 }
 
 template <typename T>
-__device__ __forceinline__ int bin_of(T w, const Cfg& c) {
-  T kf;
-  if (c.mode == 0) {                        // lin
-    kf = fmin_t(rint_t(fmax_t((w - (T)c.a0) / (T)c.d0, (T)0)), (T)c.omax);
-  } else if (c.mode == 1) {                 // log
-    const T wl = log2_t(w);
-    kf = fmin_t(rint_t(fmax_t((wl - (T)c.a0) / (T)c.d0, (T)0)), (T)c.omax);
-  } else {                                  // log-piecewise
-    const T wl = log2_t(w);
-    if (wl > (T)c.a1)
-      kf = fmin_t(rint_t((wl - (T)c.a1) / (T)c.d1) + (T)c.idx1, (T)c.omax);
-    else
-      kf = fmax_t(rint_t((wl - (T)c.a0) / (T)c.d0), (T)0);
-  }
-  const int k = (int)kf;
-  return c.flipud ? c.omax - k : k;
-}
-
-template <typename T>
 __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
                        Cfg c, typename Cplx<T>::type* __restrict__ wx,
                        void* __restrict__ out2) {
@@ -323,7 +296,6 @@ __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
   const int k2lo = c.n1 / c.f1;
   const int k2hi = (c.n1 + c.N + c.f1 - 1) / c.f1;
   const T gate = (T)c.gamma_gate * (T)c.gamma_gate;
-  const T two_pi = (T)6.283185307179586;
   const size_t row = (size_t)(c.row0 + a) * c.N;
   for (int e = threadIdx.x; e < P * (k2hi - k2lo); e += blockDim.x) {
     const int p = e % P;
@@ -345,7 +317,7 @@ __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
       num.y = A.y + pB.y;
       const T w2 = fabs_t(cdiv(num, W, tiny).y) / (T)c.two_pi_dt;
       const bool valid = (W.x * W.x + W.y * W.y > gate) && finite_t(w2);
-      static_cast<int32_t*>(out2)[row + j] = valid ? bin_of<T>(w2, c) : -1;
+      static_cast<int32_t*>(out2)[row + j] = valid ? bin_of<T>(w2, c.bm) : -1;
       continue;
     }
     const CT Dw = buf[(P + p) * L + k2];
@@ -353,11 +325,8 @@ __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
       static_cast<CT*>(out2)[row + j] = Dw;
       continue;
     }
-    // w = |Im(dW / W)| / 2pi, W = C + iD, dW = A + iB
-    const T denom = W.x * W.x + W.y * W.y;
-    const T w = fabs_t((Dw.y * W.x - Dw.x * W.y) / (denom * two_pi));
-    const bool valid = (denom > gate) && finite_t(w);
-    static_cast<int32_t*>(out2)[row + j] = valid ? bin_of<T>(w, c) : -1;
+    static_cast<int32_t*>(out2)[row + j] =
+        phase_bin<T>(W, Dw, false, (T)0, gate, c.bm);
   }
 }
 
@@ -387,12 +356,13 @@ Cfg make_cfg(const int* ip, const double* dp) {
   Cfg c;
   c.n_up = ip[0]; c.f1 = ip[1]; c.f2 = ip[2]; c.lg1 = ip[3]; c.lg2 = ip[4];
   c.half = ip[5]; c.n1 = ip[6]; c.N = ip[7]; c.P1 = ip[8]; c.P2 = ip[9];
-  c.rows = ip[10]; c.row0 = ip[11]; c.l1_norm = ip[12]; c.mode = ip[13];
-  c.idx1 = ip[14]; c.omax = ip[15]; c.flipud = ip[16];
+  c.rows = ip[10]; c.row0 = ip[11]; c.l1_norm = ip[12]; c.bm.mode = ip[13];
+  c.bm.idx1 = ip[14]; c.bm.omax = ip[15]; c.bm.flipud = ip[16];
   c.out_mode = ip[17]; c.planes = ip[18]; c.na = ip[19];
   c.xi_step = dp[0]; c.inv_dt = dp[1]; c.gamma_gate = dp[2];
   c.logconst = dp[3]; c.amp = dp[4]; c.wgamma = dp[5]; c.beta = dp[6];
-  c.wc = dp[7]; c.a0 = dp[8]; c.d0 = dp[9]; c.a1 = dp[10]; c.d1 = dp[11];
+  c.wc = dp[7]; c.bm.a0 = dp[8]; c.bm.d0 = dp[9]; c.bm.a1 = dp[10];
+  c.bm.d1 = dp[11];
   c.tiny = dp[12]; c.two_pi_dt = dp[13];
   return c;
 }

@@ -3,10 +3,21 @@
 
 Counterpart of `ssqueezepy_tpu/models/ssq_cwt.py`. The host plan (scales,
 ssq frequency grid, squeeze constant, bin parameters) is resolved once
-and memoized; the signal then runs pad -> real FFT (torch.fft) -> the
-fused CWT + bins kernel (`ops/cwt_cuda.py`) -> the reassignment scatter
-(`ops/ssq_cuda.py`). On a CUDA device both kernels are the hand-written
-CUDA ones; with ``device='cpu'`` their plain PyTorch versions run.
+and memoized; the signal (1-D, or a (B, N) batch) then runs pad -> real
+FFT (torch.fft) and one of two routes:
+
+  * the fused CWT + bins kernel (`ops/cwt_cuda.py::cwt_bins`,
+    batched for 2-D input) -> `_apply_squeezing` on Wx -> the
+    reassignment scatter (`ops/ssq_cuda.py::scatter_kv`); the bins always
+    come from the raw Wx;
+  * with `get_dWx=True`: the CWT kernel in derivative mode
+    (`cwt_fused`) -> the fused phase + bins + scatter kernel
+    (`ops/ssq_cuda.py::ssq_fused`), and dWx is returned.
+
+On a CUDA device the kernels are the hand-written CUDA ones; with
+``device='cpu'`` their plain PyTorch versions run. The TPU's natural-bin
+row placement is not needed: the scatters walk each column's rows in
+order.
 """
 import collections
 
@@ -14,10 +25,10 @@ import numpy as np
 import torch
 
 from ..configs import device_dtype
-from ..ops.cwt_cuda import cwt_bins
+from ..ops.cwt_cuda import cwt_bins, cwt_fused
 from ..ops.fft import rfft
 from ..ops.pad import padsignal, pad_params
-from ..ops.ssq_cuda import scatter_kv
+from ..ops.ssq_cuda import scatter_kv, ssq_fused
 from ..ops.ssq_kernels import ssq_bin_params
 from ..utils.common import EPS32, EPS64, not_ported, resolve_device
 from ..utils.cwt_utils import (process_scales, adm_ssq, _process_fs_and_t,
@@ -132,12 +143,11 @@ def _check_slice(x, wavelet, padtype, squeezing, order, get_w, difftype,
         not_ported("difftype != 'trig'", 'A6b')
     if not isinstance(squeezing, str):
         not_ported("callable squeezing", 'A5b')
-    if squeezing != 'sum':
-        not_ported("squeezing=%r" % squeezing, 'A5b')
-    if x.ndim != 1:
-        not_ported("%d-D input" % x.ndim, 'A6b')
-    if get_dWx:
-        not_ported("get_dWx=True", 'A6b')
+    if get_dWx and squeezing != 'sum':
+        not_ported("get_dWx=True with squeezing=%r (phase transform, then "
+                   "the generic scatter)" % squeezing, 'B5')
+    if x.ndim not in (1, 2):
+        raise ValueError("`x` must be 1D or 2D (got x.ndim == %s)" % x.ndim)
     if padtype is None:
         not_ported("padtype=None", 'A6b')
 
@@ -149,12 +159,16 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
             order=0, nan_checks=None, patience=0, flipud=True,
             cache_wavelet=None, get_w=False, get_dWx=False, get_Wx=True,
             device='cuda'):
-    """Synchrosqueezed Continuous Wavelet Transform of a 1-D signal.
+    """Synchrosqueezed Continuous Wavelet Transform of a 1-D signal or a
+    (B, N) batch.
 
-    Returns (Tx, Wx, ssq_freqs, scales): Tx (nbins, N) and Wx (na, N)
-    complex tensors on `device` (numpy with `astensor=False`; Wx is None
-    with `get_Wx=False`), ssq_freqs reversed (high to low), scales (na,).
-    `scales` and `ssq_freqs` may be strings or numpy arrays.
+    Returns (Tx, Wx, ssq_freqs, scales[, dWx]): Tx (nbins, N) and Wx
+    (na, N) complex tensors on `device`, (B, nbins, N) and (B, na, N) for
+    a batch (numpy with `astensor=False`; Wx is None with `get_Wx=False`),
+    ssq_freqs reversed (high to low), scales (na,), and dWx like Wx with
+    `get_dWx=True`. `squeezing` is 'sum', 'lebesgue' or 'abs' (the latter
+    two not with `get_dWx`). `scales` and `ssq_freqs` may be strings or
+    numpy arrays.
     """
     device = resolve_device(device)
     if not isinstance(x, torch.Tensor):
@@ -184,10 +198,17 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
 
     xt = torch.as_tensor(x, dtype=getattr(torch, dtype), device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
-    xh = rfft(padsignal(xt, padtype))
-    Wx, k = cwt_bins(xh, scales_t, wavelet, n_up, n1, N, dt, True, params,
-                     gamma, flipud)
-    Tx = scatter_kv(Wx, k, const_t, params['omax'] + 1)
+    xh = rfft(padsignal(xt, padtype)).contiguous()
+    dWx = None
+    if get_dWx:
+        Wx, dWx = cwt_fused(xh, scales_t, wavelet, n_up, n1, N, dt, True,
+                            True)
+        Tx = ssq_fused(Wx, dWx, const_t, params, gamma, flipud)
+    else:
+        Wx, k = cwt_bins(xh, scales_t, wavelet, n_up, n1, N, dt, True,
+                         params, gamma, flipud)
+        Tx = scatter_kv(_apply_squeezing(Wx, squeezing), k, const_t,
+                        params['omax'] + 1)
     if not get_Wx:
         Wx = None
 
@@ -197,13 +218,27 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     if not astensor:
         Tx = Tx.cpu().numpy()
         Wx = Wx.cpu().numpy() if Wx is not None else None
+        dWx = dWx.cpu().numpy() if dWx is not None else None
+    if get_dWx:
+        return Tx, Wx, ssq_freqs_out, scales_out, dWx
     return Tx, Wx, ssq_freqs_out, scales_out
+
+
+def _apply_squeezing(Wx, squeezing):
+    """The values the scatter sums: Wx for 'sum', 1/na everywhere for
+    'lebesgue', |Wx| for 'abs' (as complex tensors of Wx's type)."""
+    if squeezing == 'sum':
+        return Wx
+    if squeezing == 'lebesgue':
+        return torch.full_like(Wx, 1. / Wx.shape[-2])
+    return Wx.abs().to(Wx.dtype)
 
 
 def issq_cwt(Tx, wavelet='gmw', cc=None, cw=None):
     """Inverse synchrosqueezed CWT: full inversion
-    ``x = Re(sum(Tx, axis=0)) * 2/Css`` or masked per-component inversion.
-    `Tx` a complex tensor (reduced on its device) or numpy array; returns
+    ``x = Re(sum(Tx, axis=-2)) * 2/Css`` ((N,) from (nbins, N), (B, N)
+    from a (B, nbins, N) batch) or masked per-component inversion. `Tx` a
+    complex tensor (reduced on its device) or numpy array; returns
     numpy."""
     cc, cw, full_inverse = _process_component_inversion_args(cc, cw)
 

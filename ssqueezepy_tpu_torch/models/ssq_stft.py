@@ -6,7 +6,11 @@ Counterpart of `ssq_stft`/`issq_stft`/`ssq_stft2` in
 window, Sfs, ssq frequency grid, squeeze constant, bin parameters) is
 resolved once and memoized; the signal then runs pad -> `torch.fft.fft`
 -> the STFT table kernel in bins mode (`ops/stft_cuda.py`, (Sx, k)) ->
-the reassignment scatter (`ops/ssq_cuda.py`). `ssq_stft2` (FSST2) runs
+the reassignment scatter (`ops/ssq_cuda.py`). With `hop_len > 1` or
+`get_dWx=True` it runs `stft(..., derivative=True)` instead (the framed
+path, or the table kernel's Sx + dSx mode at hop 1) -> the fused phase +
+bins + scatter kernel (`ops/ssq_cuda.py::ssq_fused`) with the per-row
+frequencies Sfs. `ssq_stft2` (FSST2) runs
 the table kernel's FSST2 mode on the five tables of the windows g, g',
 t g, t g', g'' instead. On a CUDA device the kernels are the hand-written
 CUDA ones; with ``device='cpu'`` their plain PyTorch versions run.
@@ -17,7 +21,7 @@ import numpy as np
 import torch
 
 from ..configs import default_dtype
-from ..ops.ssq_cuda import scatter_kv
+from ..ops.ssq_cuda import scatter_kv, ssq_fused
 from ..ops.ssq_kernels import ssq_bin_params
 from ..ops.stft_conv import conv_bank, conv_table
 from ..ops.stft_cuda import fsst2_conv, stft_conv
@@ -26,7 +30,7 @@ from ..utils.cwt_utils import _process_fs_and_t, infer_scaletype
 from .ssq_cwt import (_invert_components, _process_component_inversion_args,
                       _spec_key)
 from .ssqueezing import _check_ssqueezing_args
-from .stft import _as_signal, signal_spectrum
+from .stft import _as_signal, signal_spectrum, stft
 from .windows import get_window, _check_NOLA
 
 __all__ = ['ssq_stft', 'issq_stft', 'ssq_stft2']
@@ -82,21 +86,16 @@ def _device_consts(plan, dtype, device):
     return hit
 
 
-def _check_slice(ndim, hop_len, squeezing, get_w, get_dWx):
+def _check_slice(ndim, squeezing, get_w):
     """Calls outside the ported slice raise, naming their ROADMAP item."""
     if ndim != 1:
         not_ported("ssq_stft of %d-D input" % ndim, 'A7b')
-    if int(hop_len) != 1:
-        not_ported("ssq_stft with hop_len > 1 (fused phase + scatter)",
-                   'B4')
     if not isinstance(squeezing, str):
         not_ported("callable squeezing", 'A5b')
     if squeezing != 'sum':
         not_ported("squeezing=%r" % squeezing, 'A5b')
     if get_w:
         not_ported("ssq_stft with get_w=True", 'A5b')
-    if get_dWx:
-        not_ported("ssq_stft with get_dWx=True", 'B4')
 
 
 def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
@@ -104,11 +103,13 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
              squeezing='sum', gamma=None, preserve_transform=None,
              dtype=None, astensor=True, flipud=False, get_w=False,
              get_dWx=False, device='cuda'):
-    """Synchrosqueezed STFT of a 1-D signal (hop 1).
+    """Synchrosqueezed STFT of a 1-D signal.
 
-    Returns (Tx, Sx, ssq_freqs, Sfs): Tx (nbins, N) and Sx (n_fft//2 + 1,
-    N) complex tensors on `device` (numpy with `astensor=False`),
-    ssq_freqs reversed if `flipud`, Sfs the STFT row frequencies.
+    Returns (Tx, Sx, ssq_freqs, Sfs[, dSx]): Tx (nbins, n_segs) and Sx
+    (n_fft//2 + 1, n_segs) complex tensors on `device` (numpy with
+    `astensor=False`; n_segs = N at hop 1), ssq_freqs reversed if
+    `flipud`, Sfs the STFT row frequencies, and dSx like Sx with
+    `get_dWx=True`.
     `ssq_freqs` may be a user's linear grid (numpy). The scatter keeps a
     shared-memory accumulator of nbins rows per block, so on the card
     nbins is bounded (about 6400 in float32, half that in float64; it
@@ -116,7 +117,7 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     device = resolve_device(device)
     ndim = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
     _check_ssqueezing_args(squeezing)
-    _check_slice(ndim, hop_len, squeezing, get_w, get_dWx)
+    _check_slice(ndim, squeezing, get_w)
     if isinstance(ssq_freqs, np.ndarray) and \
             infer_scaletype(ssq_freqs)[0] != 'linear':
         raise ValueError("`ssq_freqs` must be linearly distributed "
@@ -134,19 +135,32 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     _check_NOLA(plan.window, hop_len, dtype)
     Sfs_t, const_t = _device_consts(plan, dtype, device)
 
-    xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype)
-    Np2 = xh.shape[0]
-    H = conv_table(plan.window, n_fft, Np2, modulated, dtype, device)
-    Hd = conv_table(plan.diff_window, n_fft, Np2, modulated, dtype, device)
-    bins = dict(Sfs=Sfs_t, params=plan.params, gamma=float(gamma),
-                flipud=bool(flipud))
-    Sx, k = stft_conv(xh, H, Hd, N, float(fs_), bins)
-    Tx = scatter_kv(Sx, k, const_t, plan.params['omax'] + 1)
+    dSx = None
+    if int(hop_len) != 1 or get_dWx:
+        Sx, dSx = stft(x, window, n_fft, win_len, hop_len, fs, t, padtype,
+                       modulated, derivative=True, dtype=dtype,
+                       device=device)
+        Sx, dSx = Sx.contiguous(), dSx.contiguous()
+        Tx = ssq_fused(Sx, dSx, const_t, plan.params, float(gamma),
+                       bool(flipud), Sfs_t)
+    else:
+        xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype)
+        Np2 = xh.shape[0]
+        H = conv_table(plan.window, n_fft, Np2, modulated, dtype, device)
+        Hd = conv_table(plan.diff_window, n_fft, Np2, modulated, dtype,
+                        device)
+        bins = dict(Sfs=Sfs_t, params=plan.params, gamma=float(gamma),
+                    flipud=bool(flipud))
+        Sx, k = stft_conv(xh, H, Hd, N, float(fs_), bins)
+        Tx = scatter_kv(Sx, k, const_t, plan.params['omax'] + 1)
 
     ssq_freqs_out = (np.asarray(plan.ssq_freqs)[::-1].copy() if flipud
                      else np.asarray(plan.ssq_freqs))
     if not astensor:
         Tx, Sx = Tx.cpu().numpy(), Sx.cpu().numpy()
+        dSx = dSx.cpu().numpy() if dSx is not None else None
+    if get_dWx:
+        return Tx, Sx, ssq_freqs_out, plan.Sfs, dSx
     return Tx, Sx, ssq_freqs_out, plan.Sfs
 
 

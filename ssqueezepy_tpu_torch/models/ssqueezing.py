@@ -1,21 +1,108 @@
 # -*- coding: utf-8 -*-
-"""Synchrosqueezing plan pieces: the associated frequency grid, argument
-checks and the natural bins.
+"""Synchrosqueezing: the standalone `ssqueeze` and the plan pieces (the
+associated frequency grid, argument checks, the natural bins).
 
-Counterpart of `_compute_associated_frequencies`,
+Counterpart of `ssqueeze`, `_compute_associated_frequencies`,
 `_check_ssqueezing_args` and `_natural_bins` in
-`ssqueezepy_tpu/models/ssqueezing.py` (host numpy, once per plan). The
-standalone `ssqueeze` waits for ROADMAP item A5b.
+`ssqueezepy_tpu/models/ssqueezing.py` (the plan pieces are host numpy,
+once per plan). `ssqueeze` reassigns from (Wx, dWx) through the fused
+phase + bins + scatter kernel (`ops/ssq_kernels.py::ssqueeze_fast`); a
+precomputed `w` or a squeezing other than 'sum' waits for ROADMAP item
+B5.
 """
 from types import FunctionType
 
 import numpy as np
+import torch
 
-from ..utils.common import NOTE, WARN, pi, p2up, assert_is_one_of
-from ..utils.cwt_utils import logscale_transition_idx
+from ..ops.ssq_kernels import ssqueeze_fast
+from ..utils.common import (NOTE, WARN, pi, p2up, assert_is_one_of,
+                            not_ported, resolve_device)
+from ..utils.cwt_utils import (logscale_transition_idx, process_scales,
+                               infer_scaletype, _process_fs_and_t)
 
-__all__ = ['_compute_associated_frequencies', '_check_ssqueezing_args',
-           '_natural_bins']
+__all__ = ['ssqueeze', '_compute_associated_frequencies',
+           '_check_ssqueezing_args', '_natural_bins']
+
+
+def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
+             t=None, squeezing='sum', maprange='maximal', wavelet=None,
+             gamma=None, was_padded=True, flipud=False, dWx=None,
+             transform='cwt', device='cuda'):
+    """Synchrosqueeze a CWT or STFT from its derivative.
+
+    `Wx`, `dWx` complex (na, N) or (B, na, N), tensors or numpy, moved to
+    `device`; `gamma` gates |Wx| <= gamma. For `transform='cwt'` the
+    squeeze constant comes from `scales`; for 'stft' from the (linear)
+    `ssq_freqs`, and `Sfs` (na,) offsets the phase transform. Returns
+    (Tx, ssq_freqs): Tx (nbins, N) or (B, nbins, N), numpy if `Wx` was
+    numpy, else a tensor on `device`; ssq_freqs reversed for the CWT or
+    with `flipud`."""
+    device = resolve_device(device)
+    was_numpy = not isinstance(Wx, torch.Tensor)
+    if w is None and (dWx is None or gamma is None):
+        raise ValueError("if `w` is None, `dWx` and `gamma` must not be.")
+    if w is not None and np.asarray(w).min() < 0:
+        raise ValueError("found negatives in `w`")
+    _check_ssqueezing_args(squeezing, maprange, transform=transform,
+                           wavelet=wavelet)
+    if scales is None and transform == 'cwt':
+        raise ValueError("`scales` can't be None if `transform == 'cwt'`")
+    if w is not None:
+        not_ported("ssqueeze with a precomputed `w` (the generic scatter)",
+                   'B5')
+    if isinstance(squeezing, FunctionType) or squeezing != 'sum':
+        not_ported("ssqueeze with squeezing=%r (the generic scatter)"
+                   % squeezing, 'B5')
+
+    Wx = torch.as_tensor(Wx, device=device)
+    dWx = torch.as_tensor(dWx, device=device)
+    N = Wx.shape[-1]
+    dt, *_ = _process_fs_and_t(fs, t, N)
+
+    if transform == 'cwt':
+        scales, cwt_scaletype, _, nv = process_scales(scales, N,
+                                                      get_params=True)
+    else:
+        cwt_scaletype, nv = None, None
+
+    if not isinstance(ssq_freqs, np.ndarray):
+        ssq_scaletype = (ssq_freqs if isinstance(ssq_freqs, str)
+                         else cwt_scaletype)
+        if ((maprange == 'maximal' or isinstance(maprange, tuple)) and
+                ssq_scaletype == 'log-piecewise'):
+            raise ValueError("can't have `ssq_scaletype = log-piecewise` or "
+                             "tuple with `maprange = 'maximal'` "
+                             "(got %s)" % str(maprange))
+        ssq_freqs = _compute_associated_frequencies(
+            scales, N, wavelet, ssq_scaletype, maprange, was_padded, dt,
+            transform)
+    elif transform == 'stft':
+        ssq_scaletype = 'linear'
+    else:
+        ssq_scaletype, _ = infer_scaletype(ssq_freqs)
+
+    # squeeze constant: log(2)/nv (a per-row array for log-piecewise) or
+    # the linear scale step over each scale; the STFT's grid step
+    if transform == 'cwt':
+        if cwt_scaletype.startswith('log'):
+            const = np.log(2) / nv
+        else:
+            const = ((scales[1] - scales[0]) / scales).squeeze()
+    else:
+        const = float(ssq_freqs[1] - ssq_freqs[0])
+
+    Tx = ssqueeze_fast(Wx, dWx, ssq_freqs, const,
+                       bool(ssq_scaletype.startswith('log')), flipud, gamma,
+                       Sfs=Sfs if transform == 'stft' else None,
+                       device=device)
+
+    # `scales` go high -> low
+    if (transform == 'cwt' and not flipud) or flipud:
+        ssq_freqs = ssq_freqs[::-1].copy()
+    if was_numpy:
+        Tx = Tx.cpu().numpy()
+    return Tx, ssq_freqs
 
 
 def _compute_associated_frequencies(scales, N, wavelet, ssq_scaletype,

@@ -5,8 +5,8 @@ Each `csrc/<name>.cu` is compiled by `nvcc` on its own into
 `build/lib<name>-<hash>.so` at the repository root (plain C interface,
 nothing else linked) and loaded with `ctypes`. All sources are compiled
 together, one `nvcc` process each, the first time any kernel is asked
-for; the content hash in the file name makes a stale library impossible
-to load. Nothing here runs at import, so the package imports on a machine
+for; the hash in the file name covers the source, the shared headers
+(`csrc/*.cuh`) and the flags, so a stale library is never loaded. Nothing here runs at import, so the package imports on a machine
 without `nvcc`.
 """
 import ctypes
@@ -22,7 +22,7 @@ __all__ = ['load', 'build_all', 'check', 'SOURCES']
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD = os.path.join(os.path.dirname(_PKG), 'build')
-SOURCES = ('cwt_bins', 'scatter_kv', 'stft_conv')
+SOURCES = ('cwt_bins', 'scatter_kv', 'stft_conv', 'ssq_fused')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 
@@ -42,8 +42,11 @@ def _nvcc():
 
 
 def _target(name):
-    with open(os.path.join(CSRC, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith('.cuh'))
+    for fname in [name + '.cu'] + headers:
+        with open(os.path.join(CSRC, fname), 'rb') as f:
+            digest.update(f.read())
     return os.path.join(BUILD, 'lib%s-%s.so' % (name,
                                                 digest.hexdigest()[:16]))
 
@@ -82,8 +85,9 @@ def build_all(verbose=False):
 _SIGNATURES = {
     'cwt_bins': ('cwt_bins_f32', 'cwt_bins_f64', [ctypes.c_void_p] * 8),
     'scatter_kv': ('scatter_kv_f32', 'scatter_kv_f64',
-                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 2),
+    'ssq_fused': ('ssq_fused_f32', 'ssq_fused_f64', [ctypes.c_void_p] * 8),
     'stft_conv': ('stft_conv_f32', 'stft_conv_f64', [ctypes.c_void_p] * 10),
 }
 

@@ -6,7 +6,9 @@ _make_kernel`:
   * `cwt_bins` (B1), its bins + direct mode (`cwt_fused_bins_direct`):
     from the half spectrum of the padded signal, Wx (na, N) complex and
     the reassignment bin plane k (na, N) int32, k = -1 on gamma-gated
-    cells; dWx stays inside the kernel.
+    cells; dWx stays inside the kernel. Over a batch of spectra (B3b,
+    the bins mode of `cwt_fused_bins_pallas`) it returns Wx and k
+    (B, na, N), each row bit-identical to its signal run alone.
   * `cwt_fused` (B3), its plain/derivative mode (`cwt_fused_pallas`):
     Wx, and dWx when asked, for one spectrum (na, N) or a batch of them
     (B, na, N); L1 or L2 (sqrt(scale)) row norm.
@@ -18,7 +20,8 @@ The inverse DFT is computed in the kernel itself (four-step, radix 2 in
 shared memory); design and bound are noted in the source.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
-version for CPU tensors. `cwt_bins.launches`, `cwt_fused.launches` and
+version for CPU tensors. `cwt_bins.launches` (one signal),
+`cwt_bins.batched_launches` (a batch), `cwt_fused.launches` and
 `cwt_bins2.launches` count calls of the C entry point (one per chunk of
 rows); each such call issues two CUDA launches, stage 1 and stage 2.
 """
@@ -105,7 +108,7 @@ def _check(xh, scales, n_up, n1, N, batched=False):
 def cwt_bins_plain(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params,
                    gamma, flipud):
     """Plain version: `cwt_core` (torch.fft.ifft) for Wx and dWx, then
-    `phase_transform_w` and `compute_bins`."""
+    `phase_transform_w` and `compute_bins`; one spectrum or a batch."""
     from ..models.cwt import cwt_core
     from .phase import phase_transform_w
     from .ssq_kernels import compute_bins
@@ -118,32 +121,36 @@ def cwt_bins_plain(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params,
 def cwt_bins(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params, gamma,
              flipud):
     """(Wx, k) of the synchrosqueezed CWT from the half spectrum `xh` of
-    the padded signal. `scales` (na,) real, `wavelet` a GMW `Wavelet`,
-    `params` from `ssq_bin_params`; output columns are [n1, n1+N) of the
-    padded transform."""
-    _check(xh, scales, n_up, n1, N)
+    the padded signal, (n_up//2 + 1,) or a (B, n_up//2 + 1) batch; Wx
+    and k are (na, N) or (B, na, N). `scales` (na,) real, `wavelet` a GMW
+    `Wavelet`, `params` from `ssq_bin_params`; output columns are
+    [n1, n1+N) of the padded transform."""
+    _check(xh, scales, n_up, n1, N, batched=True)
     if xh.device.type == 'cpu':
         return cwt_bins_plain(xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
                               params, gamma, flipud)
     if xh.device.type != 'cuda':
         raise RuntimeError("cwt_bins runs on CUDA or CPU tensors (got %s)"
                            % xh.device)
-    Wx = torch.empty((scales.shape[0], N), dtype=xh.dtype, device=xh.device)
-    k = torch.empty((scales.shape[0], N), dtype=torch.int32,
-                    device=xh.device)
+    shape = xh.shape[:-1] + (scales.shape[0], N)
+    Wx = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+    k = torch.empty(shape, dtype=torch.int32, device=xh.device)
     _launch(cwt_bins, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
-            _OUT_BINS, Wx, k, params, gamma, flipud)
+            _OUT_BINS, Wx, k, params, gamma, flipud,
+            counter='batched_launches' if xh.dim() == 2 else 'launches')
     return Wx, k
 
 
 cwt_bins.launches = 0
+cwt_bins.batched_launches = 0
 
 
 def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
-            out_mode, Wx, out2, params=None, gamma=0., flipud=False):
+            out_mode, Wx, out2, params=None, gamma=0., flipud=False,
+            counter='launches'):
     """Run the two-launch kernel over every row of `Wx` (B * na, N),
-    chunking rows to the scratch budget; counts each C call on
-    `wrapper.launches`."""
+    chunking rows to the scratch budget; counts each C call on the
+    wrapper's attribute `counter`."""
     kp = getattr(wavelet.fn, 'kernel_params', None)
     if kp is None:
         raise NotImplementedError("the CUDA CWT kernel synthesizes GMW "
@@ -184,7 +191,7 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
                  scratch.data_ptr(), Wx.data_ptr(),
                  None if out2 is None else out2.data_ptr(), stream)
         _build.check(err, wrapper.__name__)
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def cwt_fused_plain(xh, scales, wavelet, n_up, n1, N, dt, derivative,

@@ -1,18 +1,22 @@
 # -*- coding: utf-8 -*-
-"""Synchrosqueezing bin map and the plain reassignment scatter.
+"""Synchrosqueezing bin map, the plain reassignment scatter and the fused
+reassignment from (Wx, dWx).
 
-Counterpart of `ssq_bin_params`, `compute_bins` and `_scatter_xla` in
-`ssqueezepy_tpu/ops/ssq_kernels.py`. The bin-map parameters are host
-numpy (once per plan); `compute_bins` and `scatter_plain` are plain
-PyTorch — the latter is the plain version of the CUDA kernel in
-`ops/ssq_cuda.py`.
+Counterpart of `ssq_bin_params`, `compute_bins`, `_broadcast_const`,
+`_scatter_xla` and `ssqueeze_fast` in `ssqueezepy_tpu/ops/ssq_kernels.py`.
+The bin-map parameters are host numpy (once per plan); `compute_bins` and
+`scatter_plain` are plain PyTorch, the building blocks of the plain
+versions of the CUDA kernels in `ops/ssq_cuda.py`. `ssqueeze_fast` runs
+the fused phase + bins + scatter kernel (`ops/ssq_cuda.py::ssq_fused`):
+on CUDA tensors the kernel, on CPU tensors its plain version.
 """
 import numpy as np
 import torch
 
-from ..utils.common import WARN, EPS64
+from ..utils.common import WARN, EPS64, resolve_device
 
-__all__ = ['ssq_bin_params', 'compute_bins', 'scatter_plain']
+__all__ = ['ssq_bin_params', 'compute_bins', 'scatter_plain',
+           'ssqueeze_fast']
 
 
 def _ensure_nonzero_nonnegative(name, x, silent=False):
@@ -79,11 +83,57 @@ def compute_bins(w, params, flipud=False):
 
 
 def scatter_plain(v, k, nbins):
-    """out[k[i,j], j] += v[i,j] over complex `v`; entries with k outside
-    [0, nbins) are dropped."""
+    """out[k[i,j], j] += v[i,j] over complex `v` (na, N), or per signal of
+    a (B, na, N) batch; entries with k outside [0, nbins) are dropped."""
+    if v.dim() == 3:
+        return torch.stack([scatter_plain(vb, kb, nbins)
+                            for vb, kb in zip(v, k)])
     valid = (k >= 0) & (k < nbins)
     cols = torch.arange(v.shape[-1], device=v.device).expand(k.shape)
     out = torch.zeros((nbins, v.shape[-1]), dtype=v.dtype, device=v.device)
     out.index_put_((k[valid].long(), cols[valid]), v[valid],
                    accumulate=True)
     return out
+
+
+def _broadcast_const(const, na, dtype, device):
+    """The squeeze constant as a contiguous (na,) tensor: a scalar ('log'
+    and STFT grids) is broadcast to every row."""
+    if isinstance(const, torch.Tensor):
+        c = const.to(dtype=dtype, device=device).reshape(-1)
+    else:
+        c = torch.as_tensor(np.asarray(const, np.float64).reshape(-1),
+                            dtype=dtype, device=device)
+    if c.numel() == 1:
+        c = c.expand(na)
+    if c.shape != (na,):
+        raise ValueError("const must be a scalar or have one entry per row "
+                         "(%d), got %d" % (na, c.numel()))
+    return c.contiguous()
+
+
+def ssqueeze_fast(Wx, dWx, ssq_freqs, const, logscale=False, flipud=False,
+                  gamma=None, Sfs=None, params=None, device='cuda'):
+    """Fused phase transform + bin map + scatter-add: Tx (nbins, N) from
+    complex Wx, dWx (na, N), or (B, nbins, N) from (B, na, N) batches
+    (tensors or numpy, moved to `device`), a tensor on `device`. `const`
+    the squeeze constant (scalar or (na,)); `Sfs` (na,), when given, the
+    STFT row frequencies the phase transform is offset from; `params` from
+    `ssq_bin_params` (else built from `ssq_freqs` and `logscale`). `gamma`
+    is required: it gates |Wx| <= gamma."""
+    from .ssq_cuda import ssq_fused
+    if gamma is None:
+        raise ValueError("`gamma` is required")
+    device = resolve_device(device)
+    Wx = torch.as_tensor(Wx, device=device)
+    dWx = torch.as_tensor(dWx, device=device)
+    if params is None:
+        params = ssq_bin_params(np.asarray(ssq_freqs), logscale)
+    rdt = Wx.real.dtype
+    na = Wx.shape[-2]
+    c = _broadcast_const(const, na, rdt, Wx.device)
+    if Sfs is not None:
+        Sfs = torch.as_tensor(Sfs).to(dtype=rdt, device=Wx.device)
+        Sfs = Sfs.reshape(-1).contiguous()
+    return ssq_fused(Wx.contiguous(), dWx.contiguous(), c, params,
+                     float(gamma), bool(flipud), Sfs)

@@ -16,6 +16,10 @@ second-order kernels (B8, B7) on white noise the same; on a chirp their
 k is held by the order-2 bins criterion alone (column sums 1e-4 of max,
 |dTx| > 1e-3 max on under 2% of cells, energy 0.02): the chirp regression
 cancels where |W| is small, so float rounding moves w2 across bins there.
+The fused reassignment (B4) by the bins criterion in float32 and within
+1e-9 of max|Tx| in float64, bit-identical from run to run; the batched
+CWT + bins (B3b) and scatter (B2) rows bit-identical to one signal run
+alone.
 """
 import numpy as np
 import pytest
@@ -32,7 +36,9 @@ from ssqueezepy_tpu_torch.ops.cwt_cuda import (cwt_bins, cwt_bins_plain,
                                                cwt_fused, cwt_fused_plain)
 from ssqueezepy_tpu_torch.ops.fft import rfft
 from ssqueezepy_tpu_torch.ops.pad import pad_params, padsignal
-from ssqueezepy_tpu_torch.ops.ssq_cuda import scatter_kv, scatter_kv_plain
+from ssqueezepy_tpu_torch.ops.ssq_cuda import (scatter_kv, scatter_kv_plain,
+                                               ssq_fused, ssq_fused_plain)
+from ssqueezepy_tpu_torch.ops.ssq_kernels import ssq_bin_params
 from ssqueezepy_tpu_torch.models.ssq_stft import fsst2_plan
 from ssqueezepy_tpu_torch.ops.stft_conv import conv_bank, conv_table
 from ssqueezepy_tpu_torch.ops.stft_cuda import (fsst2_conv, fsst2_conv_plain,
@@ -413,3 +419,181 @@ def test_public_order2_on_card(dev):
     Tx_c, Sx_c, _, _ = stq.ssq_stft2(x, device='cpu')
     assert _rel_err(Sx.cpu(), Sx_c) <= 2e-5
     _bins2_criterion(Tx.cpu(), Tx_c)
+
+
+def _grid(mode, n):
+    """ssq frequency grid of each bin-map mode."""
+    if mode == 'lin':
+        return np.linspace(0.008, 0.5, n)
+    if mode == 'log':
+        return 2 ** np.linspace(np.log2(1 / 2048), np.log2(0.5), n)
+    n0 = n // 2
+    lo, mid = np.log2(1 / 2048), np.log2(1 / 64)
+    seg0 = 2 ** (lo + (mid - lo) / n0 * np.arange(n0 + 1))
+    seg1 = seg0[-1] * 2 ** ((mid - lo) / n0 / 4 * np.arange(1, n - n0))
+    return np.concatenate([seg0, seg1])
+
+
+def _noise_planes(shape, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    cdt = torch.complex64 if dtype == 'float32' else torch.complex128
+    return tuple(torch.as_tensor(rng.standard_normal(shape)
+                                 + 1j * rng.standard_normal(shape),
+                                 dtype=cdt, device=dev) for _ in range(2))
+
+
+def _fused_close(Tx_k, Tx_p, dtype):
+    if dtype == 'float32':
+        _bins_criterion(Tx_k, Tx_p)
+    else:
+        assert (Tx_k - Tx_p).abs().max() <= 1e-9 * Tx_p.abs().max()
+
+
+@pytest.mark.parametrize('mode', ['lin', 'log', 'log-piecewise'])
+@pytest.mark.parametrize('flipud', [True, False])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ssq_fused_kernel_vs_plain(dev, mode, flipud, dtype):
+    """White-noise planes, one signal and a batch of three (with Sfs);
+    repeats bit-identical; the batch rows equal single-signal launches."""
+    na, N = 96, 20000
+    params = ssq_bin_params(_grid(mode, na), mode != 'lin')
+    rdt = getattr(torch, dtype)
+    c = torch.as_tensor(np.random.default_rng(1).random(na) + .5,
+                        dtype=rdt, device=dev)
+    Sfs = torch.linspace(0, .5, na, dtype=rdt, device=dev)
+    gamma = 1e-2
+    for shape, sfs in (((na, N), None), ((3, na, N), Sfs)):
+        Wx, dWx = _noise_planes(shape, dtype, dev)
+        n0 = ssq_fused.launches
+        Tx1 = ssq_fused(Wx, dWx, c, params, gamma, flipud, sfs)
+        Tx2 = ssq_fused(Wx, dWx, c, params, gamma, flipud, sfs)
+        torch.cuda.synchronize()
+        assert ssq_fused.launches - n0 == 2
+        assert Tx1.shape == shape[:-2] + (na, N) and torch.equal(Tx1, Tx2)
+        _fused_close(Tx1, ssq_fused_plain(Wx, dWx, c, params, gamma, flipud,
+                                          sfs), dtype)
+        if len(shape) == 3:
+            assert torch.equal(Tx1[2], ssq_fused(Wx[2], dWx[2], c, params,
+                                                 gamma, flipud, sfs))
+
+
+def test_ssq_fused_narrow_blocks(dev):
+    """nbins = 1000 in float64 leaves the accumulator room for 8 columns
+    per block (tc < 32)."""
+    na, N, nbins = 64, 5000, 1000
+    params = ssq_bin_params(_grid('log', nbins), True)
+    Wx, dWx = _noise_planes((na, N), 'float64', dev, seed=2)
+    c = torch.ones(na, dtype=torch.float64, device=dev)
+    Tx = ssq_fused(Wx, dWx, c, params, 1e-2, True)
+    assert Tx.shape == (nbins, N)
+    _fused_close(Tx, ssq_fused_plain(Wx, dWx, c, params, 1e-2, True),
+                 'float64')
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ssq_fused_on_cwt_planes(dev, dtype):
+    """B4 on the derivative CWT of white noise (the get_dWx route), and
+    the same k as the CWT kernel's bins mode on those planes."""
+    N = 10000
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(N, dtype,
+                                                      'log-piecewise', dev)
+    Wx, dWx = cwt_fused(xh, sc, wav, n_up, n1, N, 1., True, True)
+    Tx = ssq_fused(Wx, dWx, c, params, gamma, True)
+    _fused_close(Tx, ssq_fused_plain(Wx, dWx, c, params, gamma, True), dtype)
+    Wx_b, k_b = cwt_bins(xh, sc, wav, n_up, n1, N, 1., True, params, gamma,
+                         True)
+    assert torch.equal(Wx_b, Wx)
+    _fused_close(Tx, scatter_kv(Wx_b, k_b, c, params['omax'] + 1), dtype)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_cwt_bins_batched_vs_plain_and_b1(dev, dtype, monkeypatch):
+    """B3b on a (3, 10000) batch: against its plain version, each row
+    bit-identical to B1 on its signal, and again with rows in chunks."""
+    N, B = 10000, 3
+    xh1, sc, c, wav, n_up, n1, params, gamma = _inputs(N, dtype,
+                                                       'log-piecewise', dev)
+    x = np.random.default_rng(3).standard_normal((B, N))
+    xh = rfft(padsignal(torch.as_tensor(x, dtype=getattr(torch, dtype),
+                                        device=dev), 'reflect')).contiguous()
+    args = (sc, wav, n_up, n1, N, 1., True, params, gamma, True)
+    n0, nb0 = cwt_bins.launches, cwt_bins.batched_launches
+    Wx, k = cwt_bins(xh, *args)
+    torch.cuda.synchronize()
+    assert cwt_bins.launches == n0 and cwt_bins.batched_launches > nb0
+    Wx_p, k_p = cwt_bins_plain(xh, *args)
+    assert Wx.shape == k.shape == (B, len(sc), N)
+    assert _rel_err(Wx, Wx_p) <= (2e-5 if dtype == 'float32' else 1e-9)
+    assert (k != k_p).double().mean() <= 0.01
+    for b in range(B):
+        W1, k1 = cwt_bins(xh[b].contiguous(), *args)
+        assert torch.equal(W1, Wx[b]) and torch.equal(k1, k[b])
+    monkeypatch.setattr(cwt_cuda, '_SCRATCH_BUDGET',
+                        2 * n_up * xh.element_size() * 50)
+    nb0 = cwt_bins.batched_launches
+    Wc, kc = cwt_bins(xh, *args)
+    assert cwt_bins.batched_launches - nb0 == -(-B * len(sc) // 50)
+    assert torch.equal(Wc, Wx) and torch.equal(kc, k)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_scatter_kv_batched(dev, dtype):
+    B, na, N, nbins = 3, 200, 9000, 190
+    rng = np.random.default_rng(5)
+    cdt = torch.complex64 if dtype == 'float32' else torch.complex128
+    Wx = torch.as_tensor(rng.standard_normal((B, na, N))
+                         + 1j * rng.standard_normal((B, na, N)), dtype=cdt,
+                         device=dev)
+    k = torch.as_tensor(rng.integers(-3, nbins + 3, (B, na, N)),
+                        dtype=torch.int32, device=dev)
+    c = torch.as_tensor(rng.random(na), dtype=getattr(torch, dtype),
+                        device=dev)
+    n0 = scatter_kv.launches
+    Tx = scatter_kv(Wx, k, c, nbins)
+    torch.cuda.synchronize()
+    assert scatter_kv.launches - n0 == 1 and Tx.shape == (B, nbins, N)
+    for b in range(B):
+        assert torch.equal(Tx[b], scatter_kv(Wx[b], k[b], c, nbins))
+    Tx_p = scatter_kv_plain(Wx, k, c, nbins)
+    assert (Tx - Tx_p).abs().max() <= 1e-5 * Tx_p.abs().max()
+
+
+def test_public_fifth_slice_on_card(dev):
+    """Batched and 'abs' ssq_cwt, ssq_cwt(get_dWx=True), ssq_stft at hop 4
+    and with get_dWx, ssqueeze: on the card, through their kernels, and
+    against the plain path."""
+    N = 8000
+    t = np.linspace(0, 6, N, endpoint=False)
+    xb = np.stack([np.cos(2 * np.pi * f * np.exp(t / 2))
+                   for f in (2., 3.)]).astype(np.float32)
+    nb, n2 = cwt_bins.batched_launches, scatter_kv.launches
+    Tx, Wx, _, _ = stq.ssq_cwt(xb)
+    assert cwt_bins.batched_launches > nb and scatter_kv.launches > n2
+    xr = stq.issq_cwt(Tx)
+    assert all(stq.toolkit.mad_rms(xb[b], xr[b]) < 0.1 for b in range(2))
+    Tx_c, Wx_c, _, _ = stq.ssq_cwt(xb, device='cpu')
+    assert _rel_err(Wx.cpu(), Wx_c) <= 2e-5
+    _bins_criterion(Tx.cpu(), Tx_c)
+    Tx, _, _, _ = stq.ssq_cwt(xb[0], squeezing='abs')
+    _bins_criterion(Tx.cpu(), stq.ssq_cwt(xb[0], squeezing='abs',
+                                          device='cpu')[0])
+    n3, n4 = cwt_fused.launches, ssq_fused.launches
+    Tx, Wx, _, _, dWx = stq.ssq_cwt(xb[0], get_dWx=True)
+    assert cwt_fused.launches > n3 and ssq_fused.launches > n4
+    Tx_c, _, _, _, dWx_c = stq.ssq_cwt(xb[0], get_dWx=True, device='cpu')
+    assert _rel_err(dWx.cpu(), dWx_c) <= 2e-5
+    _bins_criterion(Tx.cpu(), Tx_c)
+    _, _, fr, sc = stq.ssq_cwt(xb[0])
+    n4 = ssq_fused.launches
+    Tx_s, _ = stq.ssqueeze(Wx, dWx=dWx, gamma=10 * np.finfo(np.float32).eps,
+                           scales=sc.reshape(-1, 1),
+                           ssq_freqs=fr[::-1].copy(), flipud=True)
+    assert Tx_s.is_cuda and ssq_fused.launches > n4
+    assert torch.equal(Tx_s, Tx)
+    for kw in (dict(hop_len=4), dict(get_dWx=True)):
+        n4 = ssq_fused.launches
+        out = stq.ssq_stft(xb[0], n_fft=256, **kw)
+        assert ssq_fused.launches > n4
+        out_c = stq.ssq_stft(xb[0], n_fft=256, device='cpu', **kw)
+        assert _rel_err(out[1].cpu(), out_c[1]) <= 2e-5
+        _bins_criterion(out[0].cpu(), out_c[0])

@@ -155,11 +155,14 @@ def test_default_device_cuda_raises_without_card():
         tstq.ssq_cwt(_noise())
 
 
+# 2-D input, 'abs'/'lebesgue' squeezing and get_dWx are ported; with
+# get_dWx a non-'sum' squeezing waits for the generic scatter (B5)
 @pytest.mark.parametrize('kw', [
-    dict(order=1), dict(get_w=True), dict(squeezing='abs'),
-    dict(squeezing='lebesgue'), dict(get_dWx=True), dict(padtype=None),
+    dict(order=1), dict(get_w=True), dict(squeezing='abs', get_dWx=True),
+    dict(squeezing='lebesgue', get_dWx=True),
+    dict(get_dWx=True, squeezing='abs'), dict(padtype=None),
     dict(wavelet='morlet'), dict(wavelet=('gmw', {'order': 2})),
-    dict(x2d=True),
+    dict(x2d=True, squeezing='lebesgue', get_dWx=True),
 ], ids=lambda kw: next(iter(kw)) + '=' + str(next(iter(kw.values()))))
 def test_outside_slice_raises(kw):
     kw = dict(kw)

@@ -287,9 +287,12 @@ def test_stft_plan_memo_and_tables():
     assert conv_table(p1.window, 64, 960, True, 'float32', 'cpu') is H
 
 
+# hop_len > 1 and get_dWx are ported ('sum' squeezing through the fused
+# kernel); with a non-'sum' squeezing they wait for the generic scatter
 @pytest.mark.parametrize('kw', [
-    dict(x2d=True), dict(hop_len=2), dict(squeezing='abs'),
-    dict(squeezing=lambda v: abs(v)), dict(get_w=True), dict(get_dWx=True)],
+    dict(x2d=True), dict(hop_len=2, squeezing='abs'), dict(squeezing='abs'),
+    dict(squeezing=lambda v: abs(v)), dict(get_w=True),
+    dict(get_dWx=True, squeezing='lebesgue')],
     ids=lambda kw: '%s=%s' % next((k, getattr(v, '__name__', v))
                                   for k, v in kw.items()))
 def test_ssq_stft_outside_slice_raises(kw):
