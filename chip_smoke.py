@@ -11,7 +11,13 @@ with n_fft = 598 and `issq_stft`/`istft` back; `cwt` with the same 293
 scales and `icwt` back; the second-order `ssq_cwt2` (the 293 scales, no
 ssq_freqs, as the bench calls it) and `ssq_stft2` (n_fft = 598), inverted
 by `issq_cwt`/`issq_stft`; `ssq_cwt` on a (4, 160000) batch (the bench's
-`ssq_cwt_b4` call) and with `get_dWx=True`, and `ssq_stft` at hop 8. It:
+`ssq_cwt_b4` call) and with `get_dWx=True`, and `ssq_stft` at hop 8;
+and every squeezing option on those routes: `ssq_cwt(get_w=True)` and
+`ssq_cwt(get_dWx=True, squeezing='lebesgue')` (the derivative CWT, the
+phase transform, the generic scatter), `ssq_stft(hop_len=8,
+squeezing='abs')`, `ssqueeze` from a precomputed w, and 'lebesgue' /
+'abs' `ssq_stft`, `ssq_cwt2` and `ssq_stft2` (their kernels' bins, then
+the scatter from bins). It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel from `ssqueezepy_tpu_torch/csrc/` (one nvcc
@@ -38,21 +44,27 @@ by `issq_cwt`/`issq_stft`; `ssq_cwt` on a (4, 160000) batch (the bench's
      derivative CWT planes at 160k, on the STFT's (Sx, dSx) planes at 160k
      with Sfs, and at N = 10000 in float64 over the lin, log and
      log-piecewise grids with both flipud;
-  9. runs each public entry point (`ssq_cwt`, `ssq_stft`, `stft`, `cwt`,
+  9. holds the generic scatter (B5) against its plain version on the
+     headline planes with planted wrapped (k < 0), dropped (k < -nbins,
+     k >= nbins) and invalid cells, and at N = 10000 in float64, and
+     checks two runs are bit-identical;
+ 10. runs each public entry point (`ssq_cwt`, `ssq_stft`, `stft`, `cwt`,
      `ssq_cwt2`, `ssq_stft2`, the batched `ssq_cwt`, `ssq_cwt(get_dWx=
-     True)` and `ssq_stft(hop_len=8)` at 160k) with every launch counter
-     set to 0 just before, reads the counters just after (each kernel of
-     the path must have launched), and checks the outputs against the
-     plain path on the card;
- 10. round-trips a chirp through `ssq_cwt`/`issq_cwt`,
+     True)`, `ssq_stft(hop_len=8)` and the squeezing calls above at 160k)
+     with every launch counter set to 0 just before, reads the counters
+     just after (each kernel of the path must have launched; the `get_w`
+     call must launch neither bins kernel), and checks the outputs against
+     the plain path on the card;
+ 11. round-trips a chirp through `ssq_cwt`/`issq_cwt`,
      `ssq_stft`/`issq_stft`, `cwt`/`icwt`, `ssq_cwt2`/`issq_cwt` and
-     `ssq_stft2`/`issq_stft`, and a (4, N) chirp batch through the batched
+     `ssq_stft2`/`issq_stft` and `ssq_cwt(get_w=True)`/`issq_cwt`, and a
+     (4, N) chirp batch through the batched
      `ssq_cwt`/`issq_cwt` (mad_rms < 0.1, each row), and white noise
      through `stft`/`istft` in float64 at hop 1 and hop 8 (MAE < 1e-12);
- 11. times each kernel, its plain version and a library yardstick with
+ 12. times each kernel, its plain version and a library yardstick with
      CUDA events after warm-up, computes each kernel's bound from this
      run's shapes, and times each public call with its peak memory;
- 12. prints one `{"kernels": [...]}` line, then, as the last line,
+ 13. prints one `{"kernels": [...]}` line, then, as the last line,
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before those lines. Without a CUDA
@@ -161,7 +173,11 @@ def main():
             cwt_bins, cwt_bins_plain, cwt_bins2, cwt_bins2_plain, cwt_fused,
             cwt_fused_plain, four_step)
         from ssqueezepy_tpu_torch.ops.ssq_cuda import (
-            scatter_kv, scatter_kv_plain, ssq_fused, ssq_fused_plain)
+            scatter_kv, scatter_kv_plain, shift_scatter, shift_scatter_plain,
+            ssq_fused, ssq_fused_plain)
+        from ssqueezepy_tpu_torch.ops.phase import (phase_cwt, phase_stft,
+                                                    phase_transform_w)
+        from ssqueezepy_tpu_torch.ops.ssq_kernels import compute_bins
         from ssqueezepy_tpu_torch.ops.stft_cuda import (
             fsst2_conv, fsst2_conv_plain, stft_conv, stft_conv_plain,
             split_fft_len)
@@ -182,7 +198,7 @@ def main():
     # counter, B1 on its own
     all_kernels = [(k.__name__, k, 'launches') for k in (
         cwt_bins, scatter_kv, stft_conv, cwt_fused, cwt_bins2, fsst2_conv,
-        ssq_fused)] + [('cwt_bins_batched', cwt_bins, 'batched_launches')]
+        ssq_fused, shift_scatter)] + [('cwt_bins_batched', cwt_bins, 'batched_launches')]
     # full-precision float32 products in every plain version
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -564,6 +580,54 @@ def main():
     del xh64, W64, dW64
     torch.cuda.empty_cache()
 
+    # ---- B5 against its plain version --------------------------------------
+    def plant(kb, nbins_, gen):
+        """k with 1% of cells each set to -1 (wraps to nbins - 1), -nbins
+        (wraps to 0), -nbins - 3 and nbins + 2 (both dropped); valid false
+        on 5% of cells."""
+        kb = kb.clone()
+        u = torch.rand(kb.shape, generator=gen, device=kb.device)
+        for j, kv in enumerate((-1, -nbins_, -nbins_ - 3, nbins_ + 2)):
+            kb[(u >= j * .01) & (u < (j + 1) * .01)] = kv
+        valid = torch.rand(kb.shape, generator=gen, device=kb.device) >= .05
+        return kb, valid
+
+    def b5_check(v5, k5, valid5, nb5, c5, tol, what):
+        T1 = shift_scatter(v5, k5, valid5, nb5, c5)
+        T2 = shift_scatter(v5, k5, valid5, nb5, c5)
+        torch.cuda.synchronize()
+        T_p = shift_scatter_plain(v5, k5, valid5, nb5, c5)
+        e5 = rel_err(T1, T_p)
+        check(torch.equal(T1, T2) and e5 <= tol,
+              "B5 shift_scatter %s: repeats bit-identical, max|out_kernel - "
+              "out_plain| = %.3g of max|out| (limit %g)" % (what, e5, tol))
+        return float((T1 - T_p).abs().max())
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k5, valid5 = plant(b1['k'], nbins, gen)
+    print("B5 shift_scatter vs plain at (%d, %d), nbins=%d, planted cells: "
+          "%d wrapped, %d dropped, %d invalid"
+          % (na, N, nbins, int((k5 < 0).sum() - (k5 < -nbins).sum()),
+             int(((k5 < -nbins) | (k5 >= nbins)).sum()),
+             int((~valid5).sum())), flush=True)
+    b5_err = b5_check(b1['Wx'], k5, valid5, nbins, b1['c'], 1e-5,
+                      "float32 at the headline")
+    del k5, valid5
+    rng64 = np.random.default_rng(6)
+    v64 = torch.as_tensor(rng64.standard_normal((na, 10000))
+                          + 1j * rng64.standard_normal((na, 10000)),
+                          device=dev)
+    k64 = torch.as_tensor(rng64.integers(-2 * nbins, 2 * nbins,
+                                         (na, 10000)), dtype=torch.int32,
+                          device=dev)
+    k64, valid64 = plant(k64, nbins, gen)
+    c64 = torch.as_tensor(rng64.random(na) + .5, device=dev)
+    b5_check(v64, k64, valid64, nbins, c64, 1e-12, "float64 at N=10000")
+    b5_check(v64, k64, None, nbins, None, 1e-12,
+             "float64 at N=10000, no mask, no const")
+    del v64, k64, valid64, c64
+    torch.cuda.empty_cache()
+
     # ---- the main paths through the public API ----------------------------
     x_dev = torch.as_tensor(x_np, device=dev)
     xb_dev = torch.as_tensor(xb_big, device=dev)
@@ -578,7 +642,23 @@ def main():
         'ssq_cwt_b4': lambda: stq.ssq_cwt(xb_dev, **kw),
         'ssq_cwt_dwx': lambda: stq.ssq_cwt(x_dev, get_dWx=True, **kw),
         'ssq_stft_hop8': lambda: stq.ssq_stft(x_dev, n_fft=n_fft, hop_len=8),
+        'ssq_cwt_getw': lambda: stq.ssq_cwt(x_dev, get_w=True, **kw),
+        'ssq_cwt_dwx_lebesgue': lambda: stq.ssq_cwt(
+            x_dev, get_dWx=True, squeezing='lebesgue', **kw),
+        'ssq_stft_hop8_abs': lambda: stq.ssq_stft(x_dev, n_fft=n_fft,
+                                                  hop_len=8, squeezing='abs'),
+        'ssqueeze_w': lambda: stq.ssqueeze(
+            sq_in['Wx'], w=sq_in['w'], scales=scales, ssq_freqs=ssq_freqs,
+            flipud=True),
+        'ssq_stft_lebesgue': lambda: stq.ssq_stft(x_dev, n_fft=n_fft,
+                                                  squeezing='lebesgue'),
+        'ssq_cwt2_abs': lambda: stq.ssq_cwt2(x_dev, spec, scales=scales,
+                                             squeezing='abs'),
+        'ssq_stft2_lebesgue': lambda: stq.ssq_stft2(x_dev, n_fft=n_fft,
+                                                    squeezing='lebesgue'),
     }
+    # the w and Wx that `ssqueeze` reassigns: the get_w call's own
+    sq_in = {}
     needs = {'ssq_cwt': ('cwt_bins', 'scatter_kv'),
              'ssq_stft': ('stft_conv', 'scatter_kv'),
              'stft': ('stft_conv',), 'cwt': ('cwt_fused',),
@@ -586,13 +666,24 @@ def main():
              'ssq_stft2': ('fsst2_conv', 'scatter_kv'),
              'ssq_cwt_b4': ('cwt_bins_batched', 'scatter_kv'),
              'ssq_cwt_dwx': ('cwt_fused', 'ssq_fused'),
-             'ssq_stft_hop8': ('ssq_fused',)}
+             'ssq_stft_hop8': ('ssq_fused',),
+             'ssq_cwt_getw': ('cwt_fused', 'shift_scatter'),
+             'ssq_cwt_dwx_lebesgue': ('cwt_fused', 'shift_scatter'),
+             'ssq_stft_hop8_abs': ('shift_scatter',),
+             'ssqueeze_w': ('shift_scatter',),
+             'ssq_stft_lebesgue': ('stft_conv', 'scatter_kv'),
+             'ssq_cwt2_abs': ('cwt_bins2', 'scatter_kv'),
+             'ssq_stft2_lebesgue': ('fsst2_conv', 'scatter_kv')}
+    # kernels a path must not launch: get_w takes no bins kernel
+    avoids = {'ssq_cwt_getw': ('cwt_bins', 'cwt_bins_batched', 'scatter_kv',
+                               'ssq_fused')}
     launches = dict.fromkeys((name for name, _, _ in all_kernels), 0)
     for name, fn in calls.items():
         fn()                                  # plan memo + first launch
         torch.cuda.synchronize()
         out, counts = launches_of(all_kernels, fn)
-        check(all(counts[kn] >= 1 for kn in needs[name]),
+        check(all(counts[kn] >= 1 for kn in needs[name])
+              and not any(counts[kn] for kn in avoids.get(name, ())),
               "%s at N=%d launched its kernels: %s" % (name, N, counts))
         for kn, v in counts.items():
             launches[kn] += v
@@ -689,6 +780,83 @@ def main():
                 bins6['gamma'], False, bins6['Sfs']),
                 "public ssq_stft(hop_len=8) vs plain path")
             del Tx, Sx, Sx_p, dSx_p
+        elif name in ('ssq_cwt_getw', 'ssq_cwt_dwx_lebesgue'):
+            getw = name == 'ssq_cwt_getw'
+            Tx, Wx_pub, extra = out[0], out[1], out[4]
+            check(len(out) == 5 and Tx.shape == (nbins, N)
+                  and extra.shape == (na, N)
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "%s: Tx (%d, %d), %s (%d, %d), finite"
+                  % ((name,) + tuple(Tx.shape) + ('w' if getw else 'dWx',)
+                     + tuple(extra.shape)))
+            wv, xh, sc, c, gamma = kernel_inputs('float32')
+            W_p, dW_p = cwt_fused_plain(xh, sc, wv, n_up, n1, N, 1., True,
+                                        True)
+            check(rel_err(Wx_pub, W_p) <= 2e-5, "%s: Wx %.3g of max vs the "
+                  "plain path" % (name, rel_err(Wx_pub, W_p)))
+            w_p = phase_cwt(W_p, dW_p, 'trig', gamma)
+            k_p, v_p = compute_bins(w_p, params, True)
+            vals = W_p if getw else torch.full_like(W_p, 1. / na)
+            bins_criterion(Tx, shift_scatter_plain(vals, k_p, v_p, nbins, c),
+                           "public %s vs plain path" % name)
+            if getw:
+                gd = float((torch.isinf(extra) != torch.isinf(w_p))
+                           .double().mean())
+                check(gd <= 1e-3, "ssq_cwt(get_w=True): w gated on the plain "
+                      "path's cells but %.4f%% (limit 0.1%%: |Wx| near gamma "
+                      "in float32)" % (100 * gd))
+                Tx_fast = calls['ssq_cwt']()[0]
+                bins_criterion(Tx, Tx_fast, "ssq_cwt(get_w=True) Tx vs the "
+                               "fast (bins) route's Tx")
+                sq_in.update(Wx=Wx_pub, w=extra, Tx=Tx)
+                del Tx_fast
+            del Tx, Wx_pub, extra, W_p, dW_p, w_p, k_p, v_p, vals, xh
+        elif name == 'ssq_stft_hop8_abs':
+            Tx, Sx = out[0], out[1]
+            n_segs = -(-N // 8)
+            check(Tx.shape == (n_rows, n_segs)
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "ssq_stft(hop_len=8, squeezing='abs'): Tx (%d, %d), "
+                  "finite" % Tx.shape)
+            _, _, _, bins6, c6 = stft_inputs(N, 'float32', x_np)
+            Sx_p, dSx_p = stq.stft(x_dev, n_fft=n_fft, hop_len=8,
+                                   derivative=True)
+            k_p, v_p = compute_bins(phase_stft(Sx_p, dSx_p, bins6['Sfs'],
+                                               bins6['gamma']),
+                                    bins6['params'], False)
+            bins_criterion(Tx, shift_scatter_plain(
+                Sx_p.abs().to(Sx_p.dtype), k_p, v_p, n_rows, c6),
+                "public ssq_stft(hop_len=8, squeezing='abs') vs plain path")
+            del Tx, Sx, Sx_p, dSx_p, k_p, v_p
+        elif name == 'ssqueeze_w':
+            Tx, fr = out
+            check(torch.equal(Tx, sq_in['Tx']), "ssqueeze(Wx, w=w) "
+                  "bit-identical to ssq_cwt(get_w=True)'s Tx on its w")
+            del Tx
+            sq_in.pop('Tx')
+        elif name in ('ssq_stft_lebesgue', 'ssq_cwt2_abs',
+                      'ssq_stft2_lebesgue'):
+            Tx, W_pub = out[0], out[1]
+            if name == 'ssq_stft_lebesgue':
+                xh6, H, Hd, bins6, c6 = stft_inputs(N, 'float32', x_np)
+                W_p, k_p = stft_conv_plain(xh6, H, Hd, N, 1., bins6)
+                cp, nb = c6, n_rows
+                del xh6, H, Hd
+            elif name == 'ssq_cwt2_abs':
+                W_p, k_p = cwt_bins2_plain(*b8['args'])
+                cp, nb = b8['c'], nbins2
+            else:
+                W_p, k_p = fsst2_conv_plain(*b7['args'])
+                cp, nb = b7['c'], n_rows
+            check(Tx.shape == (nb, N) and rel_err(W_pub, W_p) <= 2e-5
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "%s: Tx (%d, %d), finite; W %.3g of max vs the plain path"
+                  % ((name,) + tuple(Tx.shape) + (rel_err(W_pub, W_p),)))
+            vals = (W_p.abs().to(W_p.dtype) if name == 'ssq_cwt2_abs'
+                    else torch.full_like(W_p, 1. / W_p.shape[0]))
+            bins_criterion(Tx, scatter_kv_plain(vals, k_p, cp, nb),
+                           "public %s vs plain path" % name)
+            del Tx, W_pub, W_p, k_p, vals
         else:
             Tx, Sx = out[0], out[1]
             check(Tx.shape == (n_rows, N) and Sx.shape == (n_rows, N)
@@ -717,7 +885,10 @@ def main():
             ('ssq_cwt2/issq_cwt', lambda: stq.ssq_cwt2(xc)[0], stq.issq_cwt,
              ('cwt_bins2', 'scatter_kv')),
             ('ssq_stft2/issq_stft', lambda: stq.ssq_stft2(xc)[0],
-             stq.issq_stft, ('fsst2_conv', 'scatter_kv'))):
+             stq.issq_stft, ('fsst2_conv', 'scatter_kv')),
+            ('ssq_cwt(get_w=True)/issq_cwt',
+             lambda: stq.ssq_cwt(xc, get_w=True)[0], stq.issq_cwt,
+             ('cwt_fused', 'shift_scatter'))):
         out, counts = launches_of(all_kernels, fwd)
         mad = float(stq.toolkit.mad_rms(xc, inv(out)))
         check(all(counts[kn] >= 1 for kn in need) and mad < 0.1,
@@ -834,8 +1005,6 @@ def main():
     # B4 as ssq_cwt(get_dWx=True) runs it; yardstick: the scatter part
     # only, one index_put_ with accumulate on bins computed beforehand
     # (no single PyTorch call computes the phase transform and bin map)
-    from ssqueezepy_tpu_torch.ops.phase import phase_transform_w
-    from ssqueezepy_tpu_torch.ops.ssq_kernels import compute_bins
     Wx4, dWx4, c4, p4, g4, f4 = b4['args']
     b4_ms = cuda_ms(lambda: ssq_fused(*b4['args']))
     b4_plain_ms = cuda_ms(lambda: ssq_fused_plain(*b4['args']), reps=5)
@@ -847,18 +1016,41 @@ def main():
     b4_lib_ms = cuda_ms(lambda: torch.zeros(
         (nbins + 1, N), dtype=Wx4.dtype, device=dev).index_put_(
             (kk, cols), vals, accumulate=True))
-    del kk, cols, vals, k4, v4, Wx4, dWx4, b4['args']
+    del kk, cols, vals, k4, v4
+    # B5 as ssq_cwt(get_w=True) runs it: Wx, the bins of the phase
+    # transform of the same planes and their mask, the per-row const;
+    # yardstick: one index_put_ with accumulate (masked cells go to a
+    # dummy row nbins)
+    k5, v5 = compute_bins(phase_cwt(Wx4, dWx4, 'trig', g4), p4, f4)
+    n_valid5 = int(v5.sum())
+    b5_args = (Wx4, k5, v5, nbins, c4)
+    b5_ms = cuda_ms(lambda: shift_scatter(*b5_args))
+    b5_plain_ms = cuda_ms(lambda: shift_scatter_plain(*b5_args), reps=5)
+    kk = torch.where(v5, k5, nbins).long()
+    cols = torch.arange(N, device=dev).expand(na, N)
+    vals = Wx4 * c4.reshape(-1, 1)
+    b5_lib_ms = cuda_ms(lambda: torch.zeros(
+        (nbins + 1, N), dtype=Wx4.dtype, device=dev).index_put_(
+            (kk, cols), vals, accumulate=True))
+    del kk, cols, vals, k5, v5, b5_args, Wx4, dWx4, b4['args']
     torch.cuda.empty_cache()
 
     # each call's peak with only its own cached window tables and cuFFT
-    # plans live
+    # plans live; `ssqueeze`'s inputs (the get_w call's Wx and w) live only
+    # while it is timed
     e2e = {}
+    sq_in.clear()
     for name, fn in calls.items():
         _TABLE_CACHE.clear()
         _BANK_CACHE.clear()
         torch.backends.cuda.cufft_plan_cache.clear()
         torch.cuda.empty_cache()
+        if name == 'ssqueeze_w':
+            out = calls['ssq_cwt_getw']()
+            sq_in.update(Wx=out[1], w=out[4])
+            del out
         e2e[name] = host_ms(fn)
+        sq_in.clear()
 
     # ---- bounds from this run's shapes -------------------------------------
     b1_bytes = xh.numel() * cb + sc.numel() * rb + na * N * (cb + 4)
@@ -900,6 +1092,10 @@ def main():
     b4_bytes = 2 * na * N * cb + na * rb + nbins * N * cb
     b4_flops = 12 * na * N + 4 * n_valid4
     b4_bound, b4_by = bound(b4_bytes, b4_flops)
+    # B5: v, k, the mask and const read, out written; per valid cell the
+    # multiply by const and the accumulate (4 FLOP)
+    b5_bytes = na * N * (cb + 4 + 1) + na * rb + nbins * N * cb
+    b5_bound, b5_by = bound(b5_bytes, 4 * n_valid5)
 
     for name, (ms, gb) in e2e.items():
         per = (", %.3f ms per transform" % (ms / B4N)
@@ -934,6 +1130,10 @@ def main():
           % (b3b_ms, B4N, N, b3b_plain_ms, b3b_lib_ms, b3b_bound, b3b_by,
              b3b_bytes, b3b_flops, b4_ms, b4_plain_ms, b4_lib_ms, b4_bound,
              b4_by, b4_bytes, b4_flops, n_valid4), flush=True)
+    print("B5 %.3f ms (plain %.3f, index_put_ %.3f, bound %.3f by %s: %.3g "
+          "B, %d valid cells); B2 in this run %.3f ms"
+          % (b5_ms, b5_plain_ms, b5_lib_ms, b5_bound, b5_by, b5_bytes,
+             n_valid5, b2_ms), flush=True)
     print("main-path launches per kernel, summed over the %d public "
           "calls: %s" % (len(calls), launches), flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),
@@ -988,6 +1188,12 @@ def main():
              launches=launches['ssq_fused'], max_abs_err=b4['err'],
              ms=b4_ms, plain_ms=b4_plain_ms, bound_ms=b4_bound,
              bound_by=b4_by, library_ms=b4_lib_ms),
+        dict(name='shift_scatter', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/scatter_kv.cu',
+             replaces='ssqueezepy_tpu/ops/ssq_pallas.py:804',
+             launches=launches['shift_scatter'], max_abs_err=b5_err,
+             ms=b5_ms, plain_ms=b5_plain_ms, bound_ms=b5_bound,
+             bound_by=b5_by, library_ms=b5_lib_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

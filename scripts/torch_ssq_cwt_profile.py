@@ -10,7 +10,9 @@ headline: the bench's 293-row log-piecewise plan and its ssq_freqs),
 `cwt` (the same scales), `ssq_cwt2` (the same scales, no ssq_freqs),
 `ssq_stft`, `stft` or `ssq_stft2` (n_fft = 598, hop 1), `ssq_cwt_b4`
 (`ssq_cwt` on a (4, N) batch), `ssq_cwt_dwx` (`ssq_cwt` with
-`get_dWx=True`) or `ssq_stft_hop8` (`ssq_stft` at hop 8) —
+`get_dWx=True`), `ssq_stft_hop8` (`ssq_stft` at hop 8), `ssq_cwt_getw`
+(`ssq_cwt` with `get_w=True`) or `ssq_stft_hop8_abs` (`ssq_stft` at hop
+8 with 'abs' squeezing) —
 under `torch.profiler` after warm-up and prints one JSON line: device
 time per kernel name (summed over the profiled calls, divided by the
 call count), the wall time per call, and the device's idle share of
@@ -34,7 +36,8 @@ def main():
     ap.add_argument('--transform', default='ssq_cwt',
                     choices=('ssq_cwt', 'cwt', 'ssq_stft', 'stft',
                              'ssq_cwt2', 'ssq_stft2', 'ssq_cwt_b4',
-                             'ssq_cwt_dwx', 'ssq_stft_hop8'))
+                             'ssq_cwt_dwx', 'ssq_stft_hop8', 'ssq_cwt_getw',
+                             'ssq_stft_hop8_abs'))
     ap.add_argument('--n', type=int, default=160000)
     ap.add_argument('--calls', type=int, default=5)
     a = ap.parse_args()
@@ -63,6 +66,9 @@ def main():
         'ssq_cwt_b4': lambda: stq.ssq_cwt(xb, **kw),
         'ssq_cwt_dwx': lambda: stq.ssq_cwt(x, get_dWx=True, **kw),
         'ssq_stft_hop8': lambda: stq.ssq_stft(x, n_fft=598, hop_len=8),
+        'ssq_cwt_getw': lambda: stq.ssq_cwt(x, get_w=True, **kw),
+        'ssq_stft_hop8_abs': lambda: stq.ssq_stft(x, n_fft=598, hop_len=8,
+                                                  squeezing='abs'),
         'cwt': lambda: stq.cwt(x, wavelet=spec, scales=scales),
         'ssq_stft': lambda: stq.ssq_stft(x, n_fft=598),
         'stft': lambda: stq.stft(x, n_fft=598),

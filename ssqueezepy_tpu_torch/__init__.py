@@ -4,9 +4,11 @@
 Synchrosqueezed CWT and STFT (`ssq_cwt`, `ssq_stft`) with their inverses,
 their second-order forms (`ssq_cwt2`, `ssq_stft2`), the CWT (`cwt`,
 `icwt`), the STFT (`stft`, `istft`) and the reassignment from a transform
-and its derivative (`ssqueeze`, `ssqueeze_fast`) on an NVIDIA Hopper
-card: the fused CWT kernels, the STFT table kernel, the reassignment
-scatter and the fused phase + bins + scatter kernel are hand-written CUDA
+and its derivative or from a phase transform (`ssqueeze`,
+`ssqueeze_fast`, `indexed_sum_onfly`, with `phase_cwt`, `phase_stft`) on
+an NVIDIA Hopper card: the fused CWT kernels, the STFT table kernel, the
+reassignment scatters (from bins, and the generic one) and the fused
+phase + bins + scatter kernel are hand-written CUDA
 (`csrc/`), built with nvcc at first use on a CUDA tensor. Entry points run on ``device='cuda'`` unless
 the caller passes ``device='cpu'``, which runs the kernels' plain PyTorch
 versions. The package imports torch, numpy and scipy — never JAX, and
@@ -21,11 +23,14 @@ from .models.ssqueezing import ssqueeze
 from .models.stft import stft, istft
 from .models.wavelets import Wavelet
 from .models.windows import get_window
-from .ops.ssq_kernels import ssqueeze_fast
+from .ops.phase import phase_cwt, phase_stft
+from .ops.ssq_kernels import (ssqueeze_fast, indexed_sum_onfly, indexed_sum,
+                              find_closest)
 from .utils.cwt_utils import process_scales, make_scales, adm_cwt, adm_ssq
 
 __all__ = ['ssq_cwt', 'issq_cwt', 'ssq_stft', 'issq_stft', 'ssq_cwt2',
            'ssq_stft2', 'cwt', 'icwt', 'stft', 'istft', 'ssqueeze',
-           'ssqueeze_fast', 'get_window',
+           'ssqueeze_fast', 'indexed_sum_onfly', 'indexed_sum',
+           'find_closest', 'phase_cwt', 'phase_stft', 'get_window',
            'Wavelet', 'process_scales', 'make_scales', 'adm_cwt', 'adm_ssq',
            'toolkit']

@@ -22,6 +22,21 @@
 // row by row, also coalesced.
 // Bound: memory — it must read Wx + k + cst and write Tx (~0.94 GB at
 // 293 x 160000 in complex64 + int32, ~2 FLOP per byte at most).
+//
+// The same file holds the generic scatter (B5), which takes cells marked
+// valid and wraps a negative bin once, as numpy indexing does:
+//
+//   k' = k + nbins where k < 0
+//   out[b, k'[b, i, j], j] += v[b, i, j] * cst[i]
+//        for valid[b, i, j] and 0 <= k' <= nbins - 1
+//
+// any other cell is dropped (so k = -1 lands in bin nbins - 1 here, where
+// B2 drops it). valid is a byte plane (torch.bool) or null (all valid),
+// cst (na,) or null (1). It replaces ssqueezepy_tpu/ops/ssq_pallas.py::
+// _make_scatter_kernel (site _scatter_call, entry point
+// shift_scatter_pallas, selected by ops/ssq_kernels.py::_dispatch_scatter
+// and vmapped over a batch). Design and bound are B2's; it reads one byte
+// more per cell (~0.98 GB at 293 x 160000, ~0.29 ms at 3.35 TB/s).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,6 +112,98 @@ int launch(const void* wx, const void* k, const void* cst, int B, int na,
   return (int)cudaGetLastError();
 }
 
+// B5's column walk, out of line for the reason given above. HasValid and
+// HasConst are compile-time so that B5 without a mask or a const runs B2's
+// loop with only the wrap added.
+template <typename T, bool HasValid, bool HasConst>
+__device__ __noinline__ void shift_scatter_column(
+    const typename Cplx<T>::type* __restrict__ v,
+    const int32_t* __restrict__ k, const uint8_t* __restrict__ valid,
+    const T* __restrict__ cst, int na, int N, int nbins, int j, int t,
+    int TC, typename Cplx<T>::type* acc,
+    typename Cplx<T>::type* __restrict__ out) {
+  typedef typename Cplx<T>::type CT;
+  for (int b = 0; b < nbins; ++b) {
+    acc[b * TC + t].x = (T)0;
+    acc[b * TC + t].y = (T)0;
+  }
+#pragma unroll 8
+  for (int i = 0; i < na; ++i) {
+    const size_t o = (size_t)i * N + j;
+    int kk = k[o];
+    const CT x = v[o];
+    const T c = HasConst ? cst[i] : (T)1;
+    bool ok = true;
+    if (HasValid) ok = valid[o] != 0;
+    if (kk < 0) kk += nbins;
+    if (ok && kk >= 0 && kk < nbins) {
+      CT s = acc[kk * TC + t];
+      if (HasConst) {
+        s.x += x.x * c;
+        s.y += x.y * c;
+      } else {
+        s.x += x.x;
+        s.y += x.y;
+      }
+      acc[kk * TC + t] = s;
+    }
+  }
+  for (int b = 0; b < nbins; ++b) out[(size_t)b * N + j] = acc[b * TC + t];
+}
+
+template <typename T, bool HasValid, bool HasConst>
+__global__ void shift_scatter_kernel(
+    const typename Cplx<T>::type* __restrict__ v,
+    const int32_t* __restrict__ k, const uint8_t* __restrict__ valid,
+    const T* __restrict__ cst, int na, int N, int nbins,
+    typename Cplx<T>::type* __restrict__ out) {
+  typedef typename Cplx<T>::type CT;
+  extern __shared__ unsigned char smem_raw[];
+  CT* acc = reinterpret_cast<CT*>(smem_raw);  // [bin][column]
+  const int TC = blockDim.x;
+  const int t = threadIdx.x;
+  const int j = blockIdx.x * TC + t;
+  if (j >= N) return;
+  const size_t in = (size_t)blockIdx.y * na * N;
+  shift_scatter_column<T, HasValid, HasConst>(
+      v + in, k + in, HasValid ? valid + in : valid, cst, na, N, nbins, j, t,
+      TC, acc, out + (size_t)blockIdx.y * nbins * N);
+}
+
+template <typename T, bool HasValid, bool HasConst>
+int launch_shift(const void* v, const void* k, const void* valid,
+                 const void* cst, int B, int na, int N, int nbins, int tc,
+                 void* out, void* stream) {
+  typedef typename Cplx<T>::type CT;
+  const size_t smem = (size_t)nbins * tc * sizeof(CT);
+  cudaFuncSetAttribute(shift_scatter_kernel<T, HasValid, HasConst>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const dim3 grid((N + tc - 1) / tc, B);
+  shift_scatter_kernel<T, HasValid, HasConst>
+      <<<grid, tc, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+          static_cast<const CT*>(v), static_cast<const int32_t*>(k),
+          static_cast<const uint8_t*>(valid), static_cast<const T*>(cst),
+          na, N, nbins, static_cast<CT*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_shift_any(const void* v, const void* k, const void* valid,
+                     const void* cst, int B, int na, int N, int nbins, int tc,
+                     void* out, void* stream) {
+  if (valid && cst)
+    return launch_shift<T, true, true>(v, k, valid, cst, B, na, N, nbins, tc,
+                                       out, stream);
+  if (valid)
+    return launch_shift<T, true, false>(v, k, valid, cst, B, na, N, nbins,
+                                        tc, out, stream);
+  if (cst)
+    return launch_shift<T, false, true>(v, k, valid, cst, B, na, N, nbins,
+                                        tc, out, stream);
+  return launch_shift<T, false, false>(v, k, valid, cst, B, na, N, nbins, tc,
+                                       out, stream);
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch. `tc` columns per block, B
@@ -111,4 +218,22 @@ extern "C" int scatter_kv_f64(const void* wx, const void* k, const void* cst,
                               int B, int na, int N, int nbins, int tc,
                               void* tx, void* stream) {
   return launch<double>(wx, k, cst, B, na, N, nbins, tc, tx, stream);
+}
+
+// B5. valid (uint8) and cst may be null. Returns cudaGetLastError() after
+// the launch.
+extern "C" int shift_scatter_f32(const void* v, const void* k,
+                                 const void* valid, const void* cst, int B,
+                                 int na, int N, int nbins, int tc, void* out,
+                                 void* stream) {
+  return launch_shift_any<float>(v, k, valid, cst, B, na, N, nbins, tc, out,
+                                 stream);
+}
+
+extern "C" int shift_scatter_f64(const void* v, const void* k,
+                                 const void* valid, const void* cst, int B,
+                                 int na, int N, int nbins, int tc, void* out,
+                                 void* stream) {
+  return launch_shift_any<double>(v, k, valid, cst, B, na, N, nbins, tc, out,
+                                  stream);
 }

@@ -4,15 +4,22 @@
 Counterpart of `ssqueezepy_tpu/models/ssq_cwt.py`. The host plan (scales,
 ssq frequency grid, squeeze constant, bin parameters) is resolved once
 and memoized; the signal (1-D, or a (B, N) batch) then runs pad -> real
-FFT (torch.fft) and one of two routes:
+FFT (torch.fft) and one of three routes:
 
   * the fused CWT + bins kernel (`ops/cwt_cuda.py::cwt_bins`,
-    batched for 2-D input) -> `_apply_squeezing` on Wx -> the
-    reassignment scatter (`ops/ssq_cuda.py::scatter_kv`); the bins always
-    come from the raw Wx;
-  * with `get_dWx=True`: the CWT kernel in derivative mode
-    (`cwt_fused`) -> the fused phase + bins + scatter kernel
-    (`ops/ssq_cuda.py::ssq_fused`), and dWx is returned.
+    batched for 2-D input) -> `_apply_squeezing` on Wx (any squeezing, a
+    function of Wx included) -> the reassignment scatter
+    (`ops/ssq_cuda.py::scatter_kv`); the bins always come from the raw
+    Wx;
+  * with `get_dWx=True` and 'sum' squeezing: the CWT kernel in
+    derivative mode (`cwt_fused`) -> the fused phase + bins + scatter
+    kernel (`ops/ssq_cuda.py::ssq_fused`), and dWx is returned;
+  * with `get_w=True` (1-D input), or `get_dWx=True` and another
+    squeezing: `cwt_fused` in derivative mode -> the phase transform
+    (`ops/phase.py::phase_cwt`, 'trig' or 'phase') -> `_apply_squeezing`
+    -> the generic scatter (`ops/ssq_kernels.py::indexed_sum_onfly`), as
+    the JAX package's compositional route runs; w is returned with
+    `get_w`.
 
 On a CUDA device the kernels are the hand-written CUDA ones; with
 ``device='cpu'`` their plain PyTorch versions run. The TPU's natural-bin
@@ -28,14 +35,15 @@ from ..configs import device_dtype
 from ..ops.cwt_cuda import cwt_bins, cwt_fused
 from ..ops.fft import rfft
 from ..ops.pad import padsignal, pad_params
+from ..ops.phase import phase_cwt
 from ..ops.ssq_cuda import scatter_kv, ssq_fused
-from ..ops.ssq_kernels import ssq_bin_params
+from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
 from ..utils.common import EPS32, EPS64, not_ported, resolve_device
 from ..utils.cwt_utils import (process_scales, adm_ssq, _process_fs_and_t,
                                infer_scaletype, nv_from_scales)
 from .cwt import resolve_wavelet, _wavelet_key
 from .wavelets import Wavelet
-from .ssqueezing import (_check_ssqueezing_args,
+from .ssqueezing import (_apply_squeezing, _check_ssqueezing_args,
                          _compute_associated_frequencies)
 
 __all__ = ['ssq_cwt', 'issq_cwt']
@@ -132,20 +140,15 @@ def _device_plan(key, scales_np, const, dtype, device):
     return out
 
 
-def _check_slice(x, wavelet, padtype, squeezing, order, get_w, difftype,
-                 get_dWx):
+def _check_slice(x, padtype, order, get_w, difftype):
     """Calls outside the ported slice raise, naming their ROADMAP item."""
+    if x.ndim == 2 and get_w:
+        raise NotImplementedError("`get_w=True` unsupported with batched "
+                                  "input.")
     if isinstance(order, (tuple, list, range)) or order > 0:
         not_ported("ssq_cwt with order > 0", 'A6b')
-    if get_w:
-        not_ported("ssq_cwt with get_w=True", 'A6b')
-    if difftype != 'trig':
-        not_ported("difftype != 'trig'", 'A6b')
-    if not isinstance(squeezing, str):
-        not_ported("callable squeezing", 'A5b')
-    if get_dWx and squeezing != 'sum':
-        not_ported("get_dWx=True with squeezing=%r (phase transform, then "
-                   "the generic scatter)" % squeezing, 'B5')
+    if difftype == 'numeric':
+        not_ported("difftype='numeric'", 'A6b')
     if x.ndim not in (1, 2):
         raise ValueError("`x` must be 1D or 2D (got x.ndim == %s)" % x.ndim)
     if padtype is None:
@@ -162,21 +165,21 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     """Synchrosqueezed Continuous Wavelet Transform of a 1-D signal or a
     (B, N) batch.
 
-    Returns (Tx, Wx, ssq_freqs, scales[, dWx]): Tx (nbins, N) and Wx
+    Returns (Tx, Wx, ssq_freqs, scales[, w][, dWx]): Tx (nbins, N) and Wx
     (na, N) complex tensors on `device`, (B, nbins, N) and (B, na, N) for
     a batch (numpy with `astensor=False`; Wx is None with `get_Wx=False`),
-    ssq_freqs reversed (high to low), scales (na,), and dWx like Wx with
-    `get_dWx=True`. `squeezing` is 'sum', 'lebesgue' or 'abs' (the latter
-    two not with `get_dWx`). `scales` and `ssq_freqs` may be strings or
-    numpy arrays.
+    ssq_freqs reversed (high to low), scales (na,), the phase transform w
+    (na, N) real with `get_w=True` (1-D input; `difftype` 'trig' or
+    'phase'), and dWx like Wx with `get_dWx=True`. `squeezing` is 'sum',
+    'lebesgue', 'abs' or a function of Wx. `scales` and `ssq_freqs` may be
+    strings or numpy arrays.
     """
     device = resolve_device(device)
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
     _check_ssqueezing_args(squeezing, maprange, wavelet, difftype,
                            difforder, get_w, transform='cwt')
-    _check_slice(x, wavelet, padtype, squeezing, order, get_w, difftype,
-                 get_dWx)
+    _check_slice(x, padtype, order, get_w, difftype)
     if nv is None and not isinstance(scales, np.ndarray):
         nv = 32
     N = x.shape[-1]
@@ -199,16 +202,24 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     xt = torch.as_tensor(x, dtype=getattr(torch, dtype), device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
     xh = rfft(padsignal(xt, padtype)).contiguous()
-    dWx = None
-    if get_dWx:
+    dWx = w = None
+    nbins = params['omax'] + 1
+    if get_w or (get_dWx and squeezing != 'sum'):
+        Wx, dWx = cwt_fused(xh, scales_t, wavelet, n_up, n1, N, dt, True,
+                            True)
+        w = phase_cwt(Wx, dWx if difftype == 'trig' else None, difftype,
+                      gamma)
+        Tx = indexed_sum_onfly(_apply_squeezing(Wx, squeezing), w, None,
+                               const_t, params=params, flipud=flipud,
+                               device=device)
+    elif get_dWx:
         Wx, dWx = cwt_fused(xh, scales_t, wavelet, n_up, n1, N, dt, True,
                             True)
         Tx = ssq_fused(Wx, dWx, const_t, params, gamma, flipud)
     else:
         Wx, k = cwt_bins(xh, scales_t, wavelet, n_up, n1, N, dt, True,
                          params, gamma, flipud)
-        Tx = scatter_kv(_apply_squeezing(Wx, squeezing), k, const_t,
-                        params['omax'] + 1)
+        Tx = scatter_kv(_apply_squeezing(Wx, squeezing), k, const_t, nbins)
     if not get_Wx:
         Wx = None
 
@@ -219,19 +230,13 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
         Tx = Tx.cpu().numpy()
         Wx = Wx.cpu().numpy() if Wx is not None else None
         dWx = dWx.cpu().numpy() if dWx is not None else None
+        w = w.cpu().numpy() if w is not None else None
+    out = (Tx, Wx, ssq_freqs_out, scales_out)
+    if get_w:
+        out += (w,)
     if get_dWx:
-        return Tx, Wx, ssq_freqs_out, scales_out, dWx
-    return Tx, Wx, ssq_freqs_out, scales_out
-
-
-def _apply_squeezing(Wx, squeezing):
-    """The values the scatter sums: Wx for 'sum', 1/na everywhere for
-    'lebesgue', |Wx| for 'abs' (as complex tensors of Wx's type)."""
-    if squeezing == 'sum':
-        return Wx
-    if squeezing == 'lebesgue':
-        return torch.full_like(Wx, 1. / Wx.shape[-2])
-    return Wx.abs().to(Wx.dtype)
+        out += (dWx,)
+    return out
 
 
 def issq_cwt(Tx, wavelet='gmw', cc=None, cw=None):

@@ -9,9 +9,10 @@ Bd = x' * th, C = x * t^2 h), solves p2 = (Bd W - A B) / (B^2 - C W),
 p1 = (A + p2 B) / W and reassigns by w2 = |Im p1| / (2 pi dt), exact on
 linear chirps. The plan (scales, ssq frequency grid, squeeze constant,
 bin map) is `ssq_cwt`'s, memoized with it; the signal runs pad -> real
-FFT (torch.fft) -> the WSST2 kernel (`ops/cwt_cuda.py::cwt_bins2`) ->
-the reassignment scatter (`ops/ssq_cuda.py`). Inversion is `issq_cwt`:
-reassignment only moves energy within a column.
+FFT (torch.fft) -> the WSST2 kernel (`ops/cwt_cuda.py::cwt_bins2`, W and
+the bins of w2) -> `_apply_squeezing` on W -> the reassignment scatter
+(`ops/ssq_cuda.py`). Inversion is `issq_cwt`: reassignment only moves
+energy within a column.
 """
 import numpy as np
 import torch
@@ -25,18 +26,14 @@ from ..utils.common import EPS32, EPS64, not_ported, resolve_device
 from ..utils.cwt_utils import _process_fs_and_t
 from .cwt import resolve_wavelet, _is_analytic
 from .ssq_cwt import _ssq_cwt_plan, _device_plan
-from .ssqueezing import _check_ssqueezing_args
+from .ssqueezing import _apply_squeezing, _check_ssqueezing_args
 from .stft import _as_signal
 
 __all__ = ['ssq_cwt2']
 
 
-def _check_slice(ndim, wavelet, padtype, squeezing, get_w):
+def _check_slice(ndim, wavelet, padtype, get_w):
     """Calls outside the ported slice raise, naming their ROADMAP item."""
-    if not isinstance(squeezing, str):
-        not_ported("callable squeezing", 'A5b')
-    if squeezing != 'sum':
-        not_ported("squeezing=%r" % squeezing, 'A5b')
     if get_w:
         not_ported("ssq_cwt2 with get_w=True", 'A8b')
     if ndim != 1:
@@ -55,7 +52,8 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
 
     Returns (Tx, Wx, ssq_freqs, scales) as `ssq_cwt` does: Tx (nbins, N)
     and Wx (na, N) complex tensors on `device` (numpy with
-    `astensor=False`), ssq_freqs reversed, scales (na,)."""
+    `astensor=False`), ssq_freqs reversed, scales (na,). `squeezing` is
+    'sum', 'lebesgue', 'abs' or a function of W."""
     device = resolve_device(device)
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
@@ -64,7 +62,7 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
                            get_w, transform='cwt')
     N = x.shape[-1]
     wavelet = resolve_wavelet(wavelet, l1_norm=True, N=N)
-    _check_slice(ndim, wavelet, padtype, squeezing, get_w)
+    _check_slice(ndim, wavelet, padtype, get_w)
     if nv is None and not isinstance(scales, np.ndarray):
         nv = 32
     dt, _, _ = _process_fs_and_t(fs, t, N)
@@ -82,7 +80,8 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     xh = rfft(padsignal(_as_signal(x, dtype, device), padtype))
     Wx, k = cwt_bins2(xh, scales_t, wavelet, n_up, n1, N, dt, params,
                       float(gamma), flipud)
-    Tx = scatter_kv(Wx, k, const_t, params['omax'] + 1)
+    Tx = scatter_kv(_apply_squeezing(Wx, squeezing), k, const_t,
+                    params['omax'] + 1)
 
     ssq_freqs_out = np.asarray(plan.ssq_freqs)[::-1].copy()
     scales_out = plan.scales.squeeze()

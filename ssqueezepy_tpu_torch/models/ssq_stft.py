@@ -6,14 +6,19 @@ Counterpart of `ssq_stft`/`issq_stft`/`ssq_stft2` in
 window, Sfs, ssq frequency grid, squeeze constant, bin parameters) is
 resolved once and memoized; the signal then runs pad -> `torch.fft.fft`
 -> the STFT table kernel in bins mode (`ops/stft_cuda.py`, (Sx, k)) ->
-the reassignment scatter (`ops/ssq_cuda.py`). With `hop_len > 1` or
-`get_dWx=True` it runs `stft(..., derivative=True)` instead (the framed
-path, or the table kernel's Sx + dSx mode at hop 1) -> the fused phase +
-bins + scatter kernel (`ops/ssq_cuda.py::ssq_fused`) with the per-row
-frequencies Sfs. `ssq_stft2` (FSST2) runs
-the table kernel's FSST2 mode on the five tables of the windows g, g',
-t g, t g', g'' instead. On a CUDA device the kernels are the hand-written
-CUDA ones; with ``device='cpu'`` their plain PyTorch versions run.
+the reassignment scatter (`ops/ssq_cuda.py`), the scattered values
+squeezed by `_apply_squeezing`. With `hop_len > 1`, `get_dWx=True` or
+`get_w=True` it runs `stft(..., derivative=True)` instead (the framed
+path, or the table kernel's Sx + dSx mode at hop 1) -> with 'sum'
+squeezing the fused phase + bins + scatter kernel
+(`ops/ssq_cuda.py::ssq_fused`) with the per-row frequencies Sfs;
+otherwise, or with `get_w`, the phase transform (`ops/phase.py::
+phase_stft`) -> `_apply_squeezing` -> the generic scatter
+(`ops/ssq_kernels.py::indexed_sum_onfly`). `ssq_stft2` (FSST2) runs the
+table kernel's FSST2 mode on the five tables of the windows g, g', t g,
+t g', g'' instead, then the same squeezing and scatter. On a CUDA device
+the kernels are the hand-written CUDA ones; with ``device='cpu'`` their
+plain PyTorch versions run.
 """
 import collections
 
@@ -21,15 +26,16 @@ import numpy as np
 import torch
 
 from ..configs import default_dtype
+from ..ops.phase import phase_stft
 from ..ops.ssq_cuda import scatter_kv, ssq_fused
-from ..ops.ssq_kernels import ssq_bin_params
+from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
 from ..ops.stft_conv import conv_bank, conv_table
 from ..ops.stft_cuda import fsst2_conv, stft_conv
 from ..utils.common import (WARN, EPS32, EPS64, not_ported, resolve_device)
 from ..utils.cwt_utils import _process_fs_and_t, infer_scaletype
 from .ssq_cwt import (_invert_components, _process_component_inversion_args,
                       _spec_key)
-from .ssqueezing import _check_ssqueezing_args
+from .ssqueezing import _apply_squeezing, _check_ssqueezing_args
 from .stft import _as_signal, signal_spectrum, stft
 from .windows import get_window, _check_NOLA
 
@@ -86,16 +92,12 @@ def _device_consts(plan, dtype, device):
     return hit
 
 
-def _check_slice(ndim, squeezing, get_w):
-    """Calls outside the ported slice raise, naming their ROADMAP item."""
+def _check_slice(ndim):
+    """Calls outside the ported slice raise, naming their ROADMAP item
+    (2-D input, with any option: `get_w` on a batch raises in the JAX
+    package too)."""
     if ndim != 1:
         not_ported("ssq_stft of %d-D input" % ndim, 'A7b')
-    if not isinstance(squeezing, str):
-        not_ported("callable squeezing", 'A5b')
-    if squeezing != 'sum':
-        not_ported("squeezing=%r" % squeezing, 'A5b')
-    if get_w:
-        not_ported("ssq_stft with get_w=True", 'A5b')
 
 
 def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
@@ -105,11 +107,12 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
              get_dWx=False, device='cuda'):
     """Synchrosqueezed STFT of a 1-D signal.
 
-    Returns (Tx, Sx, ssq_freqs, Sfs[, dSx]): Tx (nbins, n_segs) and Sx
-    (n_fft//2 + 1, n_segs) complex tensors on `device` (numpy with
+    Returns (Tx, Sx, ssq_freqs, Sfs[, w][, dSx]): Tx (nbins, n_segs) and
+    Sx (n_fft//2 + 1, n_segs) complex tensors on `device` (numpy with
     `astensor=False`; n_segs = N at hop 1), ssq_freqs reversed if
-    `flipud`, Sfs the STFT row frequencies, and dSx like Sx with
-    `get_dWx=True`.
+    `flipud`, Sfs the STFT row frequencies, the phase transform w like Sx
+    but real with `get_w=True`, and dSx like Sx with `get_dWx=True`.
+    `squeezing` is 'sum', 'lebesgue', 'abs' or a function of Sx.
     `ssq_freqs` may be a user's linear grid (numpy). The scatter keeps a
     shared-memory accumulator of nbins rows per block, so on the card
     nbins is bounded (about 6400 in float32, half that in float64; it
@@ -117,7 +120,7 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     device = resolve_device(device)
     ndim = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
     _check_ssqueezing_args(squeezing)
-    _check_slice(ndim, squeezing, get_w)
+    _check_slice(ndim)
     if isinstance(ssq_freqs, np.ndarray) and \
             infer_scaletype(ssq_freqs)[0] != 'linear':
         raise ValueError("`ssq_freqs` must be linearly distributed "
@@ -135,14 +138,21 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     _check_NOLA(plan.window, hop_len, dtype)
     Sfs_t, const_t = _device_consts(plan, dtype, device)
 
-    dSx = None
-    if int(hop_len) != 1 or get_dWx:
+    dSx = w = None
+    nbins = plan.params['omax'] + 1
+    if int(hop_len) != 1 or get_dWx or get_w:
         Sx, dSx = stft(x, window, n_fft, win_len, hop_len, fs, t, padtype,
                        modulated, derivative=True, dtype=dtype,
                        device=device)
         Sx, dSx = Sx.contiguous(), dSx.contiguous()
-        Tx = ssq_fused(Sx, dSx, const_t, plan.params, float(gamma),
-                       bool(flipud), Sfs_t)
+        if get_w or squeezing != 'sum':
+            w = phase_stft(Sx, dSx, Sfs_t, gamma)
+            Tx = indexed_sum_onfly(_apply_squeezing(Sx, squeezing), w, None,
+                                   const_t, params=plan.params,
+                                   flipud=flipud, device=device)
+        else:
+            Tx = ssq_fused(Sx, dSx, const_t, plan.params, float(gamma),
+                           bool(flipud), Sfs_t)
     else:
         xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype)
         Np2 = xh.shape[0]
@@ -152,16 +162,20 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
         bins = dict(Sfs=Sfs_t, params=plan.params, gamma=float(gamma),
                     flipud=bool(flipud))
         Sx, k = stft_conv(xh, H, Hd, N, float(fs_), bins)
-        Tx = scatter_kv(Sx, k, const_t, plan.params['omax'] + 1)
+        Tx = scatter_kv(_apply_squeezing(Sx, squeezing), k, const_t, nbins)
 
     ssq_freqs_out = (np.asarray(plan.ssq_freqs)[::-1].copy() if flipud
                      else np.asarray(plan.ssq_freqs))
     if not astensor:
         Tx, Sx = Tx.cpu().numpy(), Sx.cpu().numpy()
         dSx = dSx.cpu().numpy() if dSx is not None else None
+        w = w.cpu().numpy() if w is not None else None
+    out = (Tx, Sx, ssq_freqs_out, plan.Sfs)
+    if get_w:
+        out += (w,)
     if get_dWx:
-        return Tx, Sx, ssq_freqs_out, plan.Sfs, dSx
-    return Tx, Sx, ssq_freqs_out, plan.Sfs
+        out += (dSx,)
+    return out
 
 
 def issq_stft(Tx, window=None, cc=None, cw=None, n_fft=None, win_len=None,
@@ -230,15 +244,11 @@ def ssq_stft2(x, window=None, n_fft=None, win_len=None, fs=None, t=None,
     First-order reassignment estimates w1 = Sfs - Im(V^g' / V) / 2pi; FSST2
     adds the chirp-rate correction (fs / 2pi) q Re(V^tg / V), q =
     Im((V^g'' V - (V^g')^2) / (V^tg' V - V^tg V^g')), exact on linear
-    chirps. Returns (Tx, Sx, ssq_freqs, Sfs) as `ssq_stft` does. Inversion
-    is `issq_stft`."""
+    chirps. `squeezing` as `ssq_stft` takes it. Returns (Tx, Sx, ssq_freqs,
+    Sfs) as `ssq_stft` does. Inversion is `issq_stft`."""
     device = resolve_device(device)
     ndim = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
     _check_ssqueezing_args(squeezing)
-    if not isinstance(squeezing, str):
-        not_ported("callable squeezing", 'A5b')
-    if squeezing != 'sum':
-        not_ported("squeezing=%r" % squeezing, 'A5b')
     if get_w:
         not_ported("ssq_stft2 with get_w=True", 'A8b')
     if ndim != 1:
@@ -265,7 +275,8 @@ def ssq_stft2(x, window=None, n_fft=None, win_len=None, fs=None, t=None,
     bins = dict(Sfs=Sfs_t, params=plan.params, gamma=float(gamma),
                 flipud=bool(flipud))
     Sx, k = fsst2_conv(xh, tables, N, float(fs_), bins)
-    Tx = scatter_kv(Sx, k, const_t, plan.params['omax'] + 1)
+    Tx = scatter_kv(_apply_squeezing(Sx, squeezing), k, const_t,
+                    plan.params['omax'] + 1)
 
     ssq_freqs_out = (np.asarray(plan.ssq_freqs)[::-1].copy() if flipud
                      else np.asarray(plan.ssq_freqs))

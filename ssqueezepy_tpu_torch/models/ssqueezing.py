@@ -5,23 +5,26 @@ associated frequency grid, argument checks, the natural bins).
 Counterpart of `ssqueeze`, `_compute_associated_frequencies`,
 `_check_ssqueezing_args` and `_natural_bins` in
 `ssqueezepy_tpu/models/ssqueezing.py` (the plan pieces are host numpy,
-once per plan). `ssqueeze` reassigns from (Wx, dWx) through the fused
-phase + bins + scatter kernel (`ops/ssq_kernels.py::ssqueeze_fast`); a
-precomputed `w` or a squeezing other than 'sum' waits for ROADMAP item
-B5.
+once per plan). `ssqueeze` reassigns from (Wx, dWx) with 'sum'
+squeezing through the fused phase + bins + scatter kernel
+(`ops/ssq_kernels.py::ssqueeze_fast`); from a precomputed `w`, or with
+'lebesgue', 'abs' or a callable squeezing, it takes the phase transform
+of the raw Wx and scatters the squeezed values through the generic
+scatter (`ops/ssq_kernels.py::indexed_sum_onfly`).
 """
 from types import FunctionType
 
 import numpy as np
 import torch
 
-from ..ops.ssq_kernels import ssqueeze_fast
+from ..ops.phase import phase_transform_w
+from ..ops.ssq_kernels import indexed_sum_onfly, ssqueeze_fast
 from ..utils.common import (NOTE, WARN, pi, p2up, assert_is_one_of,
-                            not_ported, resolve_device)
+                            resolve_device, to_device)
 from ..utils.cwt_utils import (logscale_transition_idx, process_scales,
                                infer_scaletype, _process_fs_and_t)
 
-__all__ = ['ssqueeze', '_compute_associated_frequencies',
+__all__ = ['ssqueeze', '_apply_squeezing', '_compute_associated_frequencies',
            '_check_ssqueezing_args', '_natural_bins']
 
 
@@ -29,10 +32,13 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
              t=None, squeezing='sum', maprange='maximal', wavelet=None,
              gamma=None, was_padded=True, flipud=False, dWx=None,
              transform='cwt', device='cuda'):
-    """Synchrosqueeze a CWT or STFT from its derivative.
+    """Synchrosqueeze a CWT or STFT from its derivative or from a phase
+    transform.
 
-    `Wx`, `dWx` complex (na, N) or (B, na, N), tensors or numpy, moved to
-    `device`; `gamma` gates |Wx| <= gamma. For `transform='cwt'` the
+    `Wx`, `dWx` complex (na, N) or (B, na, N), `w` real of Wx's shape
+    (inf marks a dropped cell), tensors or numpy, moved to `device`;
+    without `w`, `gamma` gates |Wx| <= gamma. `squeezing` is 'sum',
+    'lebesgue', 'abs' or a function of Wx. For `transform='cwt'` the
     squeeze constant comes from `scales`; for 'stft' from the (linear)
     `ssq_freqs`, and `Sfs` (na,) offsets the phase transform. Returns
     (Tx, ssq_freqs): Tx (nbins, N) or (B, nbins, N), numpy if `Wx` was
@@ -42,21 +48,17 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     was_numpy = not isinstance(Wx, torch.Tensor)
     if w is None and (dWx is None or gamma is None):
         raise ValueError("if `w` is None, `dWx` and `gamma` must not be.")
-    if w is not None and np.asarray(w).min() < 0:
+    if w is not None and (bool(w.min() < 0) if isinstance(w, torch.Tensor)
+                          else np.asarray(w).min() < 0):
         raise ValueError("found negatives in `w`")
     _check_ssqueezing_args(squeezing, maprange, transform=transform,
                            wavelet=wavelet)
     if scales is None and transform == 'cwt':
         raise ValueError("`scales` can't be None if `transform == 'cwt'`")
-    if w is not None:
-        not_ported("ssqueeze with a precomputed `w` (the generic scatter)",
-                   'B5')
-    if isinstance(squeezing, FunctionType) or squeezing != 'sum':
-        not_ported("ssqueeze with squeezing=%r (the generic scatter)"
-                   % squeezing, 'B5')
 
-    Wx = torch.as_tensor(Wx, device=device)
-    dWx = torch.as_tensor(dWx, device=device)
+    Wx = to_device(Wx, device)
+    if dWx is not None:
+        dWx = to_device(dWx, device)
     N = Wx.shape[-1]
     dt, *_ = _process_fs_and_t(fs, t, N)
 
@@ -92,10 +94,22 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     else:
         const = float(ssq_freqs[1] - ssq_freqs[0])
 
-    Tx = ssqueeze_fast(Wx, dWx, ssq_freqs, const,
-                       bool(ssq_scaletype.startswith('log')), flipud, gamma,
-                       Sfs=Sfs if transform == 'stft' else None,
-                       device=device)
+    logscale = bool(ssq_scaletype.startswith('log'))
+    Sfs = Sfs if transform == 'stft' else None
+    if w is None and squeezing == 'sum':
+        Tx = ssqueeze_fast(Wx, dWx, ssq_freqs, const, logscale, flipud,
+                           gamma, Sfs=Sfs, device=device)
+    else:
+        # the phase transform sees the raw Wx (a squeezed plane carries
+        # no usable phase); only the scattered values are squeezed
+        if w is None:
+            if Sfs is not None:
+                Sfs = torch.as_tensor(Sfs).to(dtype=Wx.real.dtype,
+                                              device=device)
+            w = phase_transform_w(Wx, dWx, gamma, Sfs=Sfs)
+        Tx = indexed_sum_onfly(_apply_squeezing(Wx, squeezing), w,
+                               ssq_freqs, const, logscale, flipud,
+                               device=device)
 
     # `scales` go high -> low
     if (transform == 'cwt' and not flipud) or flipud:
@@ -103,6 +117,19 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     if was_numpy:
         Tx = Tx.cpu().numpy()
     return Tx, ssq_freqs
+
+
+def _apply_squeezing(Wx, squeezing):
+    """The values the scatter sums: Wx for 'sum', 1/na everywhere for
+    'lebesgue', |Wx| for 'abs', `squeezing(Wx)` for a function (each as a
+    complex tensor of Wx's type)."""
+    if squeezing == 'sum':
+        return Wx
+    if squeezing == 'lebesgue':
+        return torch.full_like(Wx, 1. / Wx.shape[-2])
+    if squeezing == 'abs':
+        return Wx.abs().to(Wx.dtype)
+    return torch.as_tensor(squeezing(Wx), device=Wx.device).to(Wx.dtype)
 
 
 def _compute_associated_frequencies(scales, N, wavelet, ssq_scaletype,

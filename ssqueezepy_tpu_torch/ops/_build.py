@@ -82,13 +82,19 @@ def build_all(verbose=False):
         return time.perf_counter() - t0
 
 
+# each library's C entry points (float32 and float64) and their arguments
 _SIGNATURES = {
-    'cwt_bins': ('cwt_bins_f32', 'cwt_bins_f64', [ctypes.c_void_p] * 8),
-    'scatter_kv': ('scatter_kv_f32', 'scatter_kv_f64',
-                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 2),
-    'ssq_fused': ('ssq_fused_f32', 'ssq_fused_f64', [ctypes.c_void_p] * 8),
-    'stft_conv': ('stft_conv_f32', 'stft_conv_f64', [ctypes.c_void_p] * 10),
+    'cwt_bins': [(('cwt_bins_f32', 'cwt_bins_f64'), [ctypes.c_void_p] * 8)],
+    'scatter_kv': [
+        (('scatter_kv_f32', 'scatter_kv_f64'),
+         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2),
+        (('shift_scatter_f32', 'shift_scatter_f64'),
+         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+         + [ctypes.c_void_p] * 2)],
+    'ssq_fused': [(('ssq_fused_f32', 'ssq_fused_f64'),
+                   [ctypes.c_void_p] * 8)],
+    'stft_conv': [(('stft_conv_f32', 'stft_conv_f64'),
+                   [ctypes.c_void_p] * 10)],
 }
 
 
@@ -101,10 +107,10 @@ def load(name):
     with _lock:
         if name not in _libs:
             lib = ctypes.CDLL(_target(name))
-            f32, f64, argtypes = _SIGNATURES[name]
-            for fn in (f32, f64):
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+            for fns, argtypes in _SIGNATURES[name]:
+                for fn in fns:
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return _libs[name]
 

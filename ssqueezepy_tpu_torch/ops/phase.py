@@ -4,16 +4,20 @@
     w_cwt[a, b]  = |Im(dWx / Wx)| / 2pi           (inf where |Wx|^2 < gamma^2)
     w_stft[k, u] = |Sfs[k] - Im(dSx / Sx) / 2pi|  (inf where |Sx|^2 < gamma^2)
 
-Counterpart of `phase_transform_w` and `phase_stft` in
-`ssqueezepy_tpu/ops/phase.py`, over native complex tensors; and of
+Counterpart of `phase_transform_w`, `phase_cwt` and `phase_stft` in
+`ssqueezepy_tpu/ops/phase.py`, over native complex tensors, on their
+device; and of
 `cdiv2` (`ssqueezepy_tpu/ops/complexlib.py`), the regularized complex
 divide of the second-order estimates.
 """
+import math
+
 import torch
 
 from ..utils.common import EPS32, EPS64
 
-__all__ = ['phase_transform_w', 'phase_stft', 'cmul', 'cdiv', 'div_tiny']
+__all__ = ['phase_transform_w', 'phase_cwt', 'phase_stft', 'cmul', 'cdiv',
+           'div_tiny']
 
 _TWO_PI = 6.283185307179586
 
@@ -60,6 +64,37 @@ def phase_transform_w(Wx, dWx, gamma, Sfs=None):
     C, D = Wx.real, Wx.imag
     small = (C * C + D * D) < torch.tensor(gamma, dtype=w.dtype) ** 2
     return torch.where(small, torch.full_like(w, float('inf')), w)
+
+
+def _unwrap(p):
+    """`np.unwrap` of phases `p` along the last axis (period 2pi)."""
+    dd = torch.diff(p, dim=-1)
+    ddmod = torch.remainder(dd + math.pi, 2 * math.pi) - math.pi
+    ddmod = torch.where((ddmod == -math.pi) & (dd > 0),
+                        torch.full_like(ddmod, math.pi), ddmod)
+    corr = torch.where(dd.abs() < math.pi, torch.zeros_like(dd), ddmod - dd)
+    return torch.cat([p[..., :1], p[..., 1:] + torch.cumsum(corr, dim=-1)],
+                     dim=-1)
+
+
+def phase_cwt(Wx, dWx, difftype='trig', gamma=None):
+    """CWT phase transform. 'trig' from the derivative `dWx`
+    (`phase_transform_w`); 'phase' from forward differences of the
+    unwrapped angle of `Wx` along time, the last column the whole span
+    u[..., -1] - u[..., 0], inf where |Wx| < gamma. `gamma` defaults to
+    the square root of machine epsilon."""
+    if gamma is None:
+        gamma = math.sqrt(EPS64 if Wx.dtype == torch.complex128 else EPS32)
+    if difftype == 'trig':
+        return phase_transform_w(Wx, dWx, gamma)
+    if difftype == 'phase':
+        u = _unwrap(torch.angle(Wx))
+        w = torch.cat([torch.diff(u, dim=-1), u[..., -1:] - u[..., :1]],
+                      dim=-1).abs() / (2 * math.pi)
+        return torch.where(Wx.abs() < gamma,
+                           torch.full_like(w, float('inf')), w)
+    raise ValueError(f"unsupported `difftype` '{difftype}'; must be one of "
+                     "'trig', 'phase'.")
 
 
 def phase_stft(Sx, dSx, Sfs, gamma=None):

@@ -12,14 +12,25 @@
     written out; replaces `ssqueezepy_tpu/ops/ssq_pallas.py::
     _make_fused_kernel` (`ssq_fused_pallas`).
 
-Both take one signal (na, N) or a batch (B, na, N), the batch in one
+  * `shift_scatter` (B5), `csrc/scatter_kv.cu`, the generic scatter over
+    cells marked valid, a negative bin wrapped once as numpy indexing
+    does; replaces `ssqueezepy_tpu/ops/ssq_pallas.py::
+    _make_scatter_kernel` (`shift_scatter_pallas`):
+
+        k' = k + nbins where k < 0
+        out[k'[i, j], j] += v[i, j] * const[i]   for valid[i, j],
+                                                  0 <= k'[i, j] < nbins
+
+    so k = -1 lands in bin nbins - 1, where B2 drops it.
+
+All three take one signal (na, N) or a batch (B, na, N), the batch in one
 launch. Each CUDA thread owns one time column and sums its rows in order
 into shared memory, so the results are bit-identical from run to run
 (design and bound are noted in the sources).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version for CPU tensors; `scatter_kv.launches` and `ssq_fused.launches`
-count kernel launches.
+version for CPU tensors; `scatter_kv.launches`, `ssq_fused.launches` and
+`shift_scatter.launches` count kernel launches.
 """
 import ctypes
 
@@ -30,7 +41,8 @@ from .cwt_cuda import _MODES, _bin_args
 from .phase import phase_transform_w
 from .ssq_kernels import compute_bins, scatter_plain
 
-__all__ = ['scatter_kv', 'scatter_kv_plain', 'ssq_fused', 'ssq_fused_plain']
+__all__ = ['scatter_kv', 'scatter_kv_plain', 'ssq_fused', 'ssq_fused_plain',
+           'shift_scatter', 'shift_scatter_plain']
 
 _SMEM_BUDGET = 200 * 1024
 _MAX_BATCH = 65535
@@ -38,7 +50,8 @@ _MAX_BATCH = 65535
 
 def _check_planes(Wx, other, const, what):
     """Common checks: Wx (na, N) or (B, na, N) complex, `other` of its
-    shape, const (na,) of its real type, one device, contiguous."""
+    shape, const (na,) of its real type (or None), one device,
+    contiguous."""
     if Wx.dim() not in (2, 3) or other.shape != Wx.shape:
         raise ValueError("Wx and %s must be (na, N) or (B, na, N) of one "
                          "shape (got %s, %s)" % (what, tuple(Wx.shape),
@@ -46,19 +59,27 @@ def _check_planes(Wx, other, const, what):
     if Wx.dim() == 3 and not 1 <= Wx.shape[0] <= _MAX_BATCH:
         raise ValueError("batch size must lie in [1, %d] (got %d)"
                          % (_MAX_BATCH, Wx.shape[0]))
+    rdt = {torch.complex64: torch.float32,
+           torch.complex128: torch.float64}.get(Wx.dtype)
+    if rdt is None:
+        raise TypeError("Wx must be complex64 or complex128 (got %s)"
+                        % Wx.dtype)
+    if Wx.device != other.device:
+        raise ValueError("Wx and %s must be on one device" % what)
+    if not (Wx.is_contiguous() and other.is_contiguous()):
+        raise ValueError("Wx and %s must be contiguous" % what)
+    if const is None:
+        return
     if const.shape != (Wx.shape[-2],):
         raise ValueError("const must be (na,) (got %s)"
                          % (tuple(const.shape),))
-    if not (Wx.device == other.device == const.device):
+    if const.device != Wx.device:
         raise ValueError("Wx, %s and const must be on one device" % what)
-    rdt = {torch.complex64: torch.float32,
-           torch.complex128: torch.float64}.get(Wx.dtype)
-    if rdt is None or const.dtype != rdt:
+    if const.dtype != rdt:
         raise TypeError("dtypes: complex Wx and const of Wx's real type "
                         "(got %s, %s)" % (Wx.dtype, const.dtype))
-    if not (Wx.is_contiguous() and other.is_contiguous()
-            and const.is_contiguous()):
-        raise ValueError("Wx, %s and const must be contiguous" % what)
+    if not const.is_contiguous():
+        raise ValueError("const must be contiguous")
 
 
 def _columns(nbins, itemsize):
@@ -161,3 +182,53 @@ def ssq_fused(Wx, dWx, const, params, gamma, flipud, Sfs=None):
 
 
 ssq_fused.launches = 0
+
+
+def shift_scatter_plain(v, k, valid, nbins, const=None):
+    """Plain version: the wrap, then `index_put_` with accumulate (the
+    twin of `ssqueezepy_tpu/ops/ssq_kernels.py::_scatter_xla`)."""
+    if const is not None:
+        v = v * const.reshape(-1, 1)
+    k = torch.where(k < 0, k + nbins, k)
+    if valid is not None:
+        k = torch.where(valid, k, torch.full_like(k, -1))
+    return scatter_plain(v, k, nbins)
+
+
+def shift_scatter(v, k, valid, nbins, const=None):
+    """out (nbins, N) complex from values v (na, N) complex, bins k
+    (na, N) int32, the mask valid (na, N) bool or None (all valid) and
+    per-row const (na,) or None (1); or out (B, nbins, N) from a
+    (B, na, N) batch of v, k and valid. A negative k is wrapped once
+    (k + nbins); a cell still outside [0, nbins), or not valid, is
+    dropped."""
+    _check_planes(v, k, const, 'k')
+    if k.dtype != torch.int32:
+        raise TypeError("k must be int32 (got %s)" % k.dtype)
+    if valid is not None:
+        if valid.shape != v.shape or valid.dtype != torch.bool:
+            raise ValueError("valid must be a bool tensor of v's shape")
+        if valid.device != v.device or not valid.is_contiguous():
+            raise ValueError("valid must be contiguous, on v's device")
+    if v.device.type == 'cpu':
+        return shift_scatter_plain(v, k, valid, nbins, const)
+    _on_card(v, 'shift_scatter')
+    lib = _build.load('scatter_kv')
+    na, N = v.shape[-2:]
+    B = v.shape[0] if v.dim() == 3 else 1
+    tc = _columns(nbins, v.element_size())
+    out = torch.empty(v.shape[:-2] + (nbins, N), dtype=v.dtype,
+                      device=v.device)
+    fn = (lib.shift_scatter_f32 if v.dtype == torch.complex64
+          else lib.shift_scatter_f64)
+    err = fn(v.data_ptr(), k.data_ptr(),
+             None if valid is None else valid.data_ptr(),
+             None if const is None else const.data_ptr(), B, na, N, nbins,
+             tc, out.data_ptr(),
+             torch.cuda.current_stream(v.device).cuda_stream)
+    _build.check(err, 'shift_scatter')
+    shift_scatter.launches += 1
+    return out
+
+
+shift_scatter.launches = 0

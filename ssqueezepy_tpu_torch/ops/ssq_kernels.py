@@ -1,22 +1,29 @@
 # -*- coding: utf-8 -*-
-"""Synchrosqueezing bin map, the plain reassignment scatter and the fused
-reassignment from (Wx, dWx).
+"""Synchrosqueezing bin map, the plain reassignment scatter, the fused
+reassignment from (Wx, dWx) and the reassignment from a phase transform.
 
 Counterpart of `ssq_bin_params`, `compute_bins`, `_broadcast_const`,
-`_scatter_xla` and `ssqueeze_fast` in `ssqueezepy_tpu/ops/ssq_kernels.py`.
-The bin-map parameters are host numpy (once per plan); `compute_bins` and
-`scatter_plain` are plain PyTorch, the building blocks of the plain
-versions of the CUDA kernels in `ops/ssq_cuda.py`. `ssqueeze_fast` runs
-the fused phase + bins + scatter kernel (`ops/ssq_cuda.py::ssq_fused`):
-on CUDA tensors the kernel, on CPU tensors its plain version.
+`_scatter_xla`, `_dispatch_scatter`, `ssqueeze_fast`, `indexed_sum_onfly`,
+`indexed_sum` and the `find_closest` family in
+`ssqueezepy_tpu/ops/ssq_kernels.py`. The bin-map parameters are host numpy
+(once per plan); `compute_bins` and `scatter_plain` are plain PyTorch, the
+building blocks of the plain versions of the CUDA kernels in
+`ops/ssq_cuda.py`. `ssqueeze_fast` runs the fused phase + bins + scatter
+kernel (`ops/ssq_cuda.py::ssq_fused`); `indexed_sum_onfly` bins a given
+phase transform w on the device (elementwise torch ops) and runs the
+generic scatter (`ops/ssq_cuda.py::shift_scatter`): on CUDA tensors the
+kernels, on CPU tensors their plain versions. `find_closest*` are host
+numpy.
 """
 import numpy as np
 import torch
 
-from ..utils.common import WARN, EPS64, resolve_device
+from ..utils.common import WARN, EPS64, resolve_device, to_device
 
 __all__ = ['ssq_bin_params', 'compute_bins', 'scatter_plain',
-           'ssqueeze_fast']
+           'ssqueeze_fast', 'indexed_sum_onfly', 'indexed_sum',
+           'find_closest', 'find_closest_smart', 'find_closest_brute',
+           'find_closest_log', 'find_closest_lin']
 
 
 def _ensure_nonzero_nonnegative(name, x, silent=False):
@@ -125,8 +132,8 @@ def ssqueeze_fast(Wx, dWx, ssq_freqs, const, logscale=False, flipud=False,
     if gamma is None:
         raise ValueError("`gamma` is required")
     device = resolve_device(device)
-    Wx = torch.as_tensor(Wx, device=device)
-    dWx = torch.as_tensor(dWx, device=device)
+    Wx = to_device(Wx, device)
+    dWx = to_device(dWx, device)
     if params is None:
         params = ssq_bin_params(np.asarray(ssq_freqs), logscale)
     rdt = Wx.real.dtype
@@ -137,3 +144,90 @@ def ssqueeze_fast(Wx, dWx, ssq_freqs, const, logscale=False, flipud=False,
         Sfs = Sfs.reshape(-1).contiguous()
     return ssq_fused(Wx.contiguous(), dWx.contiguous(), c, params,
                      float(gamma), bool(flipud), Sfs)
+
+
+def _dispatch_scatter(v, k, valid, nbins, const=None):
+    """out[k, j] += v[i, j] (* const[i]) over the valid cells, negative k
+    wrapped once: the generic scatter (B5) on v's device."""
+    from .ssq_cuda import shift_scatter
+    return shift_scatter(v, k, valid, nbins, const)
+
+
+def indexed_sum_onfly(Wx, w, ssq_freqs, const=1, logscale=False,
+                      flipud=False, params=None, device='cuda'):
+    """Scatter-add of complex Wx (na, N), or a (B, na, N) batch, by the
+    bins of a precomputed phase transform `w` (real, Wx's shape; inf marks
+    a dropped cell): Tx[k(w[i, j]), j] += Wx[i, j] * const[i]. `const` a
+    scalar or (na,); `params` from `ssq_bin_params` (else built from
+    `ssq_freqs` and `logscale`). Tensors or numpy, moved to `device`;
+    returns a tensor on `device`."""
+    device = resolve_device(device)
+    Wx = to_device(Wx, device)
+    w = to_device(w, device)
+    if params is None:
+        params = ssq_bin_params(np.asarray(ssq_freqs), logscale)
+    k, valid = compute_bins(w, params, flipud)
+    c = _broadcast_const(const, Wx.shape[-2], Wx.real.dtype, Wx.device)
+    return _dispatch_scatter(Wx.contiguous(), k.contiguous(),
+                             valid.contiguous(), params['omax'] + 1, c)
+
+
+def indexed_sum(a, k, device='cuda'):
+    """out[k[i, j], j] += a[i, j] over complex `a` (na, N) and int bins
+    `k`, nbins = na, a negative k wrapped once; returns numpy."""
+    device = resolve_device(device)
+    a = to_device(a, device)
+    if not a.is_complex():
+        a = a.to(torch.complex128 if a.dtype == torch.float64
+                 else torch.complex64)
+    k = to_device(k, device).to(torch.int32)
+    out = _dispatch_scatter(a.contiguous(), k.contiguous(), None,
+                            a.shape[0])
+    return out.cpu().numpy()
+
+
+def find_closest(a, v, logscale=False, parallel=None, smart=None):
+    """argmin(|a[i, j] - v|) over v for each element of 2-D `a` (host
+    numpy); by the bin map of `v` where `smart` is false, or where it is
+    None and `parallel` is given."""
+    a, v = np.asarray(a), np.asarray(v).squeeze()
+    if smart is None and parallel is None:
+        smart = True
+    if smart:
+        return (find_closest_smart(np.log2(a), np.log2(v)) if logscale
+                else find_closest_smart(a, v))
+    if logscale:
+        return find_closest_log(a, v)
+    return find_closest_lin(a, v)
+
+
+def find_closest_smart(a, v):
+    """Exact argmin through a sorted search."""
+    sidx = v.argsort()
+    v_s = v[sidx]
+    idx = np.searchsorted(v_s, a)
+    idx[idx == len(v)] = len(v) - 1
+    idx0 = (idx - 1).clip(min=0)
+    m = np.abs(a - v_s[idx]) >= np.abs(v_s[idx0] - a)
+    m[idx == 0] = 0
+    idx[m] -= 1
+    return sidx[idx]
+
+
+def find_closest_brute(a, v):
+    """Exhaustive argmin."""
+    return np.argmin(np.abs(a[..., None] - v), axis=-1)
+
+
+def find_closest_log(a, v):
+    """The 'log' bin map of grid `v` applied to `a`."""
+    k, _ = compute_bins(to_device(np.asarray(a), 'cpu'),
+                        ssq_bin_params(v, logscale=True))
+    return k.numpy()
+
+
+def find_closest_lin(a, v):
+    """The 'lin' bin map of grid `v` applied to `a`."""
+    k, _ = compute_bins(to_device(np.asarray(a), 'cpu'),
+                        ssq_bin_params(v, logscale=False))
+    return k.numpy()

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 __all__ = ['WARN', 'NOTE', 'pi', 'EPS32', 'EPS64', 'assert_is_one_of',
-           'p2up', 'not_ported', 'resolve_device']
+           'p2up', 'not_ported', 'resolve_device', 'to_device']
 
 _logger = logging.getLogger('ssqueezepy_tpu_torch')
 
@@ -65,3 +65,12 @@ def resolve_device(device):
     if device.type not in ('cuda', 'cpu'):
         raise ValueError("device must be 'cuda' or 'cpu' (got %s)" % device)
     return device
+
+
+def to_device(x, device):
+    """`x` (a tensor, numpy array or array-like) as a tensor on `device`;
+    a read-only numpy array is copied first (torch takes no read-only
+    memory)."""
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        x = x.copy()
+    return torch.as_tensor(x, device=device)

@@ -19,7 +19,9 @@ cancels where |W| is small, so float rounding moves w2 across bins there.
 The fused reassignment (B4) by the bins criterion in float32 and within
 1e-9 of max|Tx| in float64, bit-identical from run to run; the batched
 CWT + bins (B3b) and scatter (B2) rows bit-identical to one signal run
-alone.
+alone. The generic scatter (B5) within 1e-5 of max|out| in float32 and
+1e-12 in float64 (summation order), bit-identical from run to run and
+its batch rows bit-identical to one signal run alone.
 """
 import numpy as np
 import pytest
@@ -37,6 +39,8 @@ from ssqueezepy_tpu_torch.ops.cwt_cuda import (cwt_bins, cwt_bins_plain,
 from ssqueezepy_tpu_torch.ops.fft import rfft
 from ssqueezepy_tpu_torch.ops.pad import pad_params, padsignal
 from ssqueezepy_tpu_torch.ops.ssq_cuda import (scatter_kv, scatter_kv_plain,
+                                               shift_scatter,
+                                               shift_scatter_plain,
                                                ssq_fused, ssq_fused_plain)
 from ssqueezepy_tpu_torch.ops.ssq_kernels import ssq_bin_params
 from ssqueezepy_tpu_torch.models.ssq_stft import fsst2_plan
@@ -597,3 +601,128 @@ def test_public_fifth_slice_on_card(dev):
         out_c = stq.ssq_stft(xb[0], n_fft=256, device='cpu', **kw)
         assert _rel_err(out[1].cpu(), out_c[1]) <= 2e-5
         _bins_criterion(out[0].cpu(), out_c[0])
+
+
+def _b5_inputs(shape, nbins, dtype, dev, seed=0):
+    """White-noise v, k over [-2 nbins, 2 nbins) with k = -1, -nbins,
+    -nbins - 1 and nbins planted in each signal's first row, valid false
+    on ~20% of cells, a per-row const."""
+    rng = np.random.default_rng(seed)
+    cdt = torch.complex64 if dtype == 'float32' else torch.complex128
+    v = torch.as_tensor(rng.standard_normal(shape)
+                        + 1j * rng.standard_normal(shape), dtype=cdt,
+                        device=dev)
+    k = rng.integers(-2 * nbins, 2 * nbins, shape)
+    k[..., 0, :4] = [-1, -nbins, -nbins - 1, nbins]
+    valid = rng.random(shape) > .2
+    valid[..., 0, :4] = True
+    c = torch.as_tensor(rng.random(shape[-2]) + .5,
+                        dtype=getattr(torch, dtype), device=dev)
+    return (v, torch.as_tensor(k, dtype=torch.int32, device=dev),
+            torch.as_tensor(valid, device=dev), c)
+
+
+def _b5_close(out, ref, dtype):
+    tol = 1e-5 if dtype == 'float32' else 1e-12
+    assert (out - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_shift_scatter_kernel_vs_plain(dev, dtype):
+    """B5 on white noise with the wrap (k = -1 -> nbins - 1, k = -nbins
+    -> 0) and the drop on both sides (k < -nbins, k >= nbins) and invalid
+    cells; with and without the mask and the const; bit-identical
+    repeats."""
+    na, N, nbins = 300, 20000, 290
+    v, k, valid, c = _b5_inputs((na, N), nbins, dtype, dev)
+    for vd, cc in ((valid, c), (valid, None), (None, c), (None, None)):
+        n0 = shift_scatter.launches
+        o1 = shift_scatter(v, k, vd, nbins, cc)
+        o2 = shift_scatter(v, k, vd, nbins, cc)
+        torch.cuda.synchronize()
+        assert shift_scatter.launches - n0 == 2 and torch.equal(o1, o2)
+        _b5_close(o1, shift_scatter_plain(v, k, vd, nbins, cc), dtype)
+    # the planted cells, one column each: k = -1 and -nbins wrap, k =
+    # -nbins - 1 and nbins are dropped
+    one = shift_scatter(v[:1, :4].contiguous(), k[:1, :4].contiguous(), None,
+                        nbins)
+    assert torch.equal(one[nbins - 1, 0], v[0, 0])
+    assert torch.equal(one[0, 1], v[0, 1])
+    assert not one[:, 2:].abs().any()
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_shift_scatter_batched(dev, dtype):
+    """A (3, na, N) batch in one launch: each signal's out bit-identical
+    to the one-signal launch, and against the plain version."""
+    B, na, N, nbins = 3, 200, 9000, 190
+    v, k, valid, c = _b5_inputs((B, na, N), nbins, dtype, dev, seed=1)
+    n0 = shift_scatter.launches
+    out = shift_scatter(v, k, valid, nbins, c)
+    torch.cuda.synchronize()
+    assert shift_scatter.launches - n0 == 1 and out.shape == (B, nbins, N)
+    for b in range(B):
+        assert torch.equal(out[b], shift_scatter(v[b], k[b], valid[b],
+                                                 nbins, c))
+    _b5_close(out, shift_scatter_plain(v, k, valid, nbins, c), dtype)
+
+
+def test_shift_scatter_narrow_blocks(dev):
+    """nbins = 1000 in float64 leaves the accumulator room for 8 columns
+    per block."""
+    v, k, valid, c = _b5_inputs((64, 5000), 1000, 'float64', dev, seed=2)
+    out = shift_scatter(v, k, valid, 1000, c)
+    assert out.shape == (1000, 5000)
+    _b5_close(out, shift_scatter_plain(v, k, valid, 1000, c), 'float64')
+
+
+def test_public_sixth_slice_on_card(dev):
+    """Every squeezing option on the card: ssq_cwt with get_w and with
+    get_dWx + 'lebesgue' (B3 -> phase -> B5), ssq_stft at hop 4 with
+    'abs' (B5), ssqueeze from w (B5), 'lebesgue' ssq_stft and 'abs'
+    ssq_cwt2 / ssq_stft2 (their kernels' bins -> B2), a callable on
+    ssq_cwt; each through its kernels and against the plain path. The
+    chirp carries white noise: without it the far scales hold |Wx| near
+    gamma, where the kernel's and cuFFT's float32 planes gate different
+    cells, and 'lebesgue' weighs every kept cell alike."""
+    N = 8000
+    t = np.linspace(0, 6, N, endpoint=False)
+    x = (np.cos(2 * np.pi * 2 * np.exp(t / 2))
+         + .1 * np.random.default_rng(0).standard_normal(N)
+         ).astype(np.float32)
+    n3, n5, n1 = cwt_fused.launches, shift_scatter.launches, cwt_bins.launches
+    Tx, Wx, fr, sc, w = stq.ssq_cwt(x, get_w=True)
+    assert cwt_fused.launches > n3 and shift_scatter.launches > n5
+    assert cwt_bins.launches == n1
+    assert stq.toolkit.mad_rms(x, stq.issq_cwt(Tx)) < 0.1
+    Tx_c, Wx_c, _, _, w_c = stq.ssq_cwt(x, get_w=True, device='cpu')
+    assert _rel_err(Wx.cpu(), Wx_c) <= 2e-5
+    # w is gated where |Wx| < gamma on the card's own planes
+    g2 = torch.tensor(10 * float(np.finfo(np.float32).eps)) ** 2
+    assert torch.equal(torch.isinf(w),
+                       Wx.real * Wx.real + Wx.imag * Wx.imag < g2.to(dev))
+    _bins_criterion(Tx.cpu(), Tx_c)
+    n5 = shift_scatter.launches
+    Tx_s, _ = stq.ssqueeze(Wx, w=w, scales=sc.reshape(-1, 1),
+                           ssq_freqs=fr[::-1].copy(), flipud=True)
+    assert Tx_s.is_cuda and shift_scatter.launches > n5
+    assert torch.equal(Tx_s, Tx)
+    calls = (
+        (dict(get_dWx=True, squeezing='lebesgue'), stq.ssq_cwt,
+         shift_scatter),
+        (dict(squeezing=lambda W: W * W.abs()), stq.ssq_cwt, scatter_kv),
+        (dict(hop_len=4, squeezing='abs', n_fft=256), stq.ssq_stft,
+         shift_scatter),
+        (dict(squeezing='lebesgue', n_fft=256), stq.ssq_stft, scatter_kv),
+        (dict(squeezing='abs'), stq.ssq_cwt2, scatter_kv),
+        (dict(squeezing='abs', n_fft=256), stq.ssq_stft2, scatter_kv))
+    for kw, fn, kern in calls:
+        n0 = kern.launches
+        out = fn(x, **kw)
+        assert kern.launches > n0, (fn.__name__, kw)
+        out_c = fn(x, device='cpu', **kw)
+        assert _rel_err(out[1].cpu(), out_c[1]) <= 2e-5
+        if fn in (stq.ssq_cwt2, stq.ssq_stft2):
+            _bins2_criterion(out[0].cpu(), out_c[0])
+        else:
+            _bins_criterion(out[0].cpu(), out_c[0])

@@ -387,10 +387,51 @@ def test_fsst2_conv_checks_inputs():
         fsst2_conv(xh.to(torch.complex128), tables, 100, 1., bins)
 
 
+# ---- squeezing other than 'sum' ------------------------------------------
+def _cube(W):
+    """A callable squeezing both packages can run: W * |W|."""
+    return W * W.abs()
+
+
+# the port squeezes the order-2 kernels' W / V and scatters it by their
+# bins (B8 / B7 -> B2); the JAX package scatters the same plane by the bins
+# of an explicit w2 (indexed_sum_onfly), so Tx is held by the order-2 bins
+# criterion in both types
+@pytest.mark.parametrize('squeezing', ['abs', 'lebesgue', 'callable'])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ssq_cwt2_squeezing_vs_jax(squeezing, dtype):
+    N = 1500
+    x = _chirp(N, .02, .3 / N, dtype) + .1 * _noise(N, dtype, seed=6)
+    spec = ('gmw', {'dtype': dtype})
+    kw = dict(nv=16, astensor=False,
+              squeezing=_cube if squeezing == 'callable' else squeezing)
+    Tx_j, Wx_j, fr_j, _ = jstq.ssq_cwt2(x, spec, **kw)
+    Tx_t, Wx_t, fr_t, _ = tstq.ssq_cwt2(x, spec, device='cpu', **kw)
+    assert np.array_equal(fr_t, fr_j) and Tx_t.dtype == Tx_j.dtype
+    assert _rel(Wx_t, Wx_j) <= TOL[dtype]
+    _bins2_criterion(Tx_t, Tx_j)
+
+
+@pytest.mark.parametrize('squeezing', ['abs', 'lebesgue', 'callable'])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ssq_stft2_squeezing_vs_jax(squeezing, dtype):
+    N = 1200
+    x = _chirp(N, .05, .1 / N, dtype) + .1 * _noise(N, dtype, seed=7)
+    kw = dict(n_fft=96, dtype=dtype, astensor=False,
+              squeezing=_cube if squeezing == 'callable' else squeezing)
+    Tx_j, V_j, fr_j, _ = jstq.ssq_stft2(x, **kw)
+    Tx_t, V_t, fr_t, _ = tstq.ssq_stft2(x, device='cpu', **kw)
+    assert np.array_equal(fr_t, fr_j) and Tx_t.dtype == Tx_j.dtype
+    assert _rel(V_t, V_j) <= TOL[dtype]
+    _bins2_criterion(Tx_t, Tx_j)
+
+
 # ---- the slice's bounds ------------------------------------------------
+# every squeezing is ported (compared with the JAX package above);
+# get_w, 2-D input, padtype=None and non-GMW wavelets are not
 @pytest.mark.parametrize('kw', [
-    dict(get_w=True), dict(x2d=True), dict(squeezing='abs'),
-    dict(squeezing=lambda v: abs(v)), dict(padtype=None),
+    dict(get_w=True), dict(x2d=True), dict(squeezing='abs', padtype=None),
+    dict(squeezing=lambda v: abs(v), get_w=True), dict(padtype=None),
     dict(wavelet='morlet')],
     ids=lambda kw: '%s=%s' % next((k, getattr(v, '__name__', v))
                                   for k, v in kw.items()))
@@ -404,7 +445,8 @@ def test_ssq_cwt2_outside_slice_raises(kw):
 
 
 @pytest.mark.parametrize('kw', [
-    dict(get_w=True), dict(x2d=True), dict(squeezing='lebesgue')],
+    dict(get_w=True), dict(x2d=True),
+    dict(squeezing='lebesgue', get_w=True)],
     ids=lambda kw: '%s=%s' % next(iter(kw.items())))
 def test_ssq_stft2_outside_slice_raises(kw):
     kw = dict(kw)

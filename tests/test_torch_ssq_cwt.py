@@ -155,14 +155,18 @@ def test_default_device_cuda_raises_without_card():
         tstq.ssq_cwt(_noise())
 
 
-# 2-D input, 'abs'/'lebesgue' squeezing and get_dWx are ported; with
-# get_dWx a non-'sum' squeezing waits for the generic scatter (B5)
+# 2-D input, every squeezing, get_dWx and get_w ('trig', 'phase') are
+# ported (tests/test_torch_squeezing.py); order > 0, padtype=None,
+# difftype='numeric' and non-GMW wavelets are not, whatever the other
+# options
 @pytest.mark.parametrize('kw', [
-    dict(order=1), dict(get_w=True), dict(squeezing='abs', get_dWx=True),
-    dict(squeezing='lebesgue', get_dWx=True),
-    dict(get_dWx=True, squeezing='abs'), dict(padtype=None),
+    dict(order=1), dict(get_w=True, difftype='numeric'),
+    dict(squeezing='abs', get_dWx=True, padtype=None),
+    dict(squeezing='lebesgue', get_dWx=True, order=1),
+    dict(get_dWx=True, squeezing='abs', get_w=True, difftype='numeric'),
+    dict(padtype=None),
     dict(wavelet='morlet'), dict(wavelet=('gmw', {'order': 2})),
-    dict(x2d=True, squeezing='lebesgue', get_dWx=True),
+    dict(x2d=True, squeezing='lebesgue', get_dWx=True, padtype=None),
 ], ids=lambda kw: next(iter(kw)) + '=' + str(next(iter(kw.values()))))
 def test_outside_slice_raises(kw):
     kw = dict(kw)

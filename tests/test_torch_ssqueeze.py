@@ -14,7 +14,8 @@ against the JAX package on the CPU:
     `get_dWx=True`; `ssq_stft` at hop > 1 and with `get_dWx=True`;
     `ssqueeze` for the CWT and the STFT; the batched `issq_cwt`;
   * `padsignal` on a batch for each padtype;
-  * every route that waits for the generic scatter (ROADMAP B5) raises.
+  * the routes that wait for the generic scatter before it was ported:
+    non-'sum' `ssq_cwt(get_dWx=True)`, `ssqueeze` from `w` and with 'abs'.
 
 Tolerances: Wx and dWx within 1e-5 of max in float32 and 1e-9 in float64;
 Tx in float32 by the bins criterion (column sums within 1e-4 of max,
@@ -341,24 +342,38 @@ def test_issq_cwt_batched_round_trip():
                        jstq.issq_cwt(Tx.numpy()), rtol=1e-5, atol=1e-5)
 
 
+# these routes took the generic scatter (B5) before the port had it and
+# raised; now each is held against the JAX package (float64, 1e-9)
 @pytest.mark.parametrize('call', [
     'ssq_cwt-abs-dwx', 'ssq_cwt-lebesgue-dwx', 'ssqueeze-w',
     'ssqueeze-abs'])
 def test_b5_routes_raise(call):
-    x = np.random.default_rng(0).standard_normal(512).astype(np.float32)
-    with pytest.raises(NotImplementedError, match='B5'):
-        if call.startswith('ssq_cwt'):
-            tstq.ssq_cwt(x, squeezing=call.split('-')[1], get_dWx=True,
-                         device='cpu')
-        else:
-            scales = np.geomspace(2., 64., 12).reshape(-1, 1)
-            Wx = np.ones((12, 512), np.complex64)
-            if call == 'ssqueeze-w':
-                tstq.ssqueeze(Wx, w=np.ones((12, 512)), scales=scales,
-                              device='cpu')
-            else:
-                tstq.ssqueeze(Wx, dWx=Wx, gamma=1e-6, scales=scales,
-                              squeezing='abs', device='cpu')
+    x = np.random.default_rng(0).standard_normal(512)
+    spec = ('gmw', {'dtype': 'float64'})
+    if call.startswith('ssq_cwt'):
+        kw = dict(wavelet=spec, nv=16, squeezing=call.split('-')[1],
+                  get_dWx=True, astensor=False)
+        out_j = jstq.ssq_cwt(x, **kw)
+        out_t = tstq.ssq_cwt(x, device='cpu', **kw)
+        assert len(out_t) == len(out_j) == 5
+        for a, b in zip(out_t[:2] + out_t[4:], out_j[:2] + out_j[4:]):
+            assert _rel(a, b) <= 1e-9
+        return
+    scales = 2 ** (1 + np.arange(20) / 4).reshape(-1, 1)      # nv = 4
+    Wx, _, dWx = tstq.cwt(x, spec, scales=scales, nv=4, derivative=True,
+                          device='cpu', astensor=False)
+    gamma = 1e-8
+    if call == 'ssqueeze-w':
+        from ssqueezepy_tpu.ops.phase import phase_transform_w
+        kw = dict(w=np.asarray(phase_transform_w(
+            Complex.from_numpy(Wx), Complex.from_numpy(dWx), gamma)))
+    else:
+        kw = dict(dWx=dWx, gamma=gamma, squeezing='abs')
+    Tx_j, fr_j = jstq.ssqueeze(Wx, scales=scales, **kw)
+    Tx_t, fr_t = tstq.ssqueeze(Wx, scales=scales, device='cpu', **kw)
+    assert np.array_equal(fr_t, fr_j)
+    assert _rel(Tx_t, _np(Tx_j) if isinstance(Tx_j, Complex) else Tx_j) \
+        <= 1e-9
 
 
 def test_ssq_fused_checks_inputs():

@@ -287,12 +287,76 @@ def test_stft_plan_memo_and_tables():
     assert conv_table(p1.window, 64, 960, True, 'float32', 'cpu') is H
 
 
-# hop_len > 1 and get_dWx are ported ('sum' squeezing through the fused
-# kernel); with a non-'sum' squeezing they wait for the generic scatter
+def _cube(W):
+    """A callable squeezing both packages can run: Sx * |Sx|."""
+    return W * W.abs()
+
+
+# the port's route differs from the JAX package's at hop 1 without
+# get_dWx: the table kernel's bins (B6) against bins of an explicit w
+@pytest.mark.parametrize('hop,get_dWx,squeezing,dtype,same_route', [
+    (1, False, 'abs', 'float32', False),
+    (1, False, 'lebesgue', 'float64', False),
+    (1, False, 'callable', 'float32', False),
+    (2, False, 'abs', 'float64', True),
+    (3, False, 'callable', 'float64', True),
+    (1, True, 'lebesgue', 'float64', True),
+    (2, True, 'abs', 'float32', True)])
+def test_ssq_stft_squeezing_vs_jax(hop, get_dWx, squeezing, dtype,
+                                   same_route):
+    """'abs', 'lebesgue' and a callable squeezing at hop 1 (the table
+    kernel's bins, then the scatter from bins) and at hop > 1 or with
+    get_dWx (the phase transform, then the generic scatter)."""
+    x = _noise(900, dtype, seed=41)
+    kw = dict(n_fft=96, hop_len=hop, get_dWx=get_dWx, dtype=dtype, fs=2.,
+              squeezing=_cube if squeezing == 'callable' else squeezing,
+              astensor=False)
+    out_j = jstq.ssq_stft(x, **kw)
+    out_t = tstq.ssq_stft(x, device='cpu', **kw)
+    assert len(out_t) == len(out_j) == (5 if get_dWx else 4)
+    Tx_j, Sx_j, fr_j, Sfs_j = out_j[:4]
+    Tx_t, Sx_t, fr_t, Sfs_t = out_t[:4]
+    assert np.array_equal(fr_t, fr_j) and np.array_equal(Sfs_t, Sfs_j)
+    tol = TOL[dtype]
+    assert _rel(Sx_t, Sx_j) <= tol
+    if get_dWx:
+        assert _rel(out_t[4], out_j[4]) <= tol
+    if same_route and dtype == 'float64':
+        assert _rel(Tx_t, Tx_j) <= 1e-9
+    else:
+        _bins_criterion(Tx_t, Tx_j)
+
+
+@pytest.mark.parametrize('hop,get_dWx,squeezing', [
+    (1, False, 'sum'), (2, True, 'abs'), (1, True, 'lebesgue')])
+def test_ssq_stft_get_w_vs_jax(hop, get_dWx, squeezing):
+    """float64: (Tx, Sx, ssq_freqs, Sfs, w[, dSx]), w the STFT phase
+    transform offset from Sfs, Tx through the generic scatter."""
+    x = _noise(900, 'float64', seed=42)
+    kw = dict(n_fft=96, hop_len=hop, get_w=True, get_dWx=get_dWx,
+              squeezing=squeezing, dtype='float64', astensor=False)
+    out_j = jstq.ssq_stft(x, **kw)
+    out_t = tstq.ssq_stft(x, device='cpu', **kw)
+    assert len(out_t) == len(out_j) == (6 if get_dWx else 5)
+    assert _rel(out_t[1], out_j[1]) <= 1e-9
+    w_t, w_j = out_t[4], out_j[4]
+    inf = np.isinf(w_j)
+    assert np.array_equal(np.isinf(w_t), inf)
+    assert np.abs(w_t[~inf] - w_j[~inf]).max() <= 1e-9 * np.abs(
+        w_j[~inf]).max()
+    assert _rel(out_t[0], out_j[0]) <= 1e-9
+    if get_dWx:
+        assert _rel(out_t[5], out_j[5]) <= 1e-9
+
+
+# every squeezing, hop_len > 1, get_dWx and get_w are ported (compared
+# with the JAX package above); 2-D input is not (ROADMAP A7b), whatever
+# the other options
 @pytest.mark.parametrize('kw', [
-    dict(x2d=True), dict(hop_len=2, squeezing='abs'), dict(squeezing='abs'),
-    dict(squeezing=lambda v: abs(v)), dict(get_w=True),
-    dict(get_dWx=True, squeezing='lebesgue')],
+    dict(x2d=True), dict(hop_len=2, squeezing='abs', x2d=True),
+    dict(squeezing='abs', x2d=True),
+    dict(squeezing=lambda v: abs(v), x2d=True), dict(get_w=True, x2d=True),
+    dict(get_dWx=True, squeezing='lebesgue', x2d=True)],
     ids=lambda kw: '%s=%s' % next((k, getattr(v, '__name__', v))
                                   for k, v in kw.items()))
 def test_ssq_stft_outside_slice_raises(kw):
