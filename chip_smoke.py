@@ -21,9 +21,13 @@ the scatter from bins). It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel from `ssqueezepy_tpu_torch/csrc/` (one nvcc
-     per source, in parallel) and prints the build time;
+     per source, in parallel, with `-Xptxas -v`), prints the build time and
+     the compiler's report (registers, spills) of the bins engine's two
+     kernels;
   3. holds the fused CWT + bins kernel (B1) against its plain PyTorch
-     version at the headline shape, float32 and float64;
+     version at the headline shape, float32 and float64, checks two runs
+     are bit-identical and reports whether its Wx is bit-identical to the
+     radix-2 engine's (B3);
   4. holds the reassignment scatter (B2) against its plain version on the
      same planes, and checks two runs are bit-identical;
   5. holds the STFT table kernel (B6) in its three modes (Sx; Sx + dSx;
@@ -150,6 +154,19 @@ def bound(nbytes, flops):
     return max(tb, tf) * 1e3, ('operations' if tf > tb else 'bytes')
 
 
+def ptxas_report(log, key):
+    """One line per kernel whose mangled name holds `key`, from an
+    `nvcc -Xptxas -v` log: its registers, barriers, stack and spills."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("'")[1]
+            out[name] = []
+        elif name is not None and ('Used' in line or 'spill' in line):
+            out[name].append(line.split(' : ')[-1].strip())
+    return ['%s: %s' % (n, '; '.join(v)) for n, v in out.items() if key in n]
+
+
 def launches_of(counters, fn):
     """Set every counter (name, wrapper, attribute) to 0, run `fn`
     (synchronized), read the counters: (fn's result, {name: count})."""
@@ -216,9 +233,13 @@ def main():
         flush=True)
 
     t0 = time.perf_counter()
-    build_s = _build.build_all()
+    ptxas = {}
+    build_s = _build.build_all(ptxas=ptxas)
     print("built %s in %.2f s (nvcc, in parallel)"
           % (', '.join(_build.SOURCES), build_s), flush=True)
+    for line in (ptxas_report(ptxas['cwt_bins'], 'bins_stage')
+                 if 'cwt_bins' in ptxas else ["not rebuilt in this run"]):
+        print("ptxas, bins engine: " + line, flush=True)
 
     # ---- the bench headline plan ---------------------------------------
     N = 160000
@@ -273,6 +294,14 @@ def main():
             bins_criterion(scatter_kv_plain(Wx_k, k_k, c, nbins),
                            scatter_kv_plain(Wx_p, k_p, c, nbins),
                            "float32 B1")
+            Wx_r, k_r = cwt_bins(*args)
+            check(torch.equal(Wx_r, Wx_k) and torch.equal(k_r, k_k),
+                  "float32 B1 repeat runs bit-identical")
+            del Wx_r, k_r
+            Wx_3, _ = cwt_fused(xh, sc, wv, n_up, n1, N, 1., False, True)
+            print("  B1 Wx bit-identical to the radix-2 engine's (B3): %s"
+                  % bool(torch.equal(Wx_3, Wx_k)), flush=True)
+            del Wx_3
             b1 = dict(err=err, args=args, Wx=Wx_k, k=k_k, c=c)
         else:
             check(err <= 1e-9 * m, "float64: max|Wx_kernel - Wx_plain| = %.3g of max|Wx| "

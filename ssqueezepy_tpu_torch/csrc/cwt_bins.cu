@@ -52,12 +52,45 @@
 // inverse DFTs per scale (~13 GFLOP in float32 at 5 n log2 n, less the
 // first stage, whose upper half-spectrum inputs are zero) outweigh the
 // bytes the function must move (~0.56 GB), so it is operation-bound on
-// paper; this first version also moves the scratch planes through device
-// memory twice (~2.5 GB), which the bound does not count. Order-2 mode:
-// five DFTs per scale (~33 GFLOP) against the same ~0.56 GB, operation-
-// bound; its five scratch planes (~6 GB of traffic at that shape) exceed
-// the wrapper's scratch budget, so rows run in two chunks. Templated on
-// float and double.
+// paper: 0.195 ms on an H100 SXM; this design also moves the scratch planes
+// through device memory twice (~2.5 GB), which the bound does not count.
+// Order-2 mode: five DFTs per scale (~33 GFLOP) against the same ~0.56 GB,
+// operation-bound; its five scratch planes (~6 GB of traffic at that shape)
+// exceed the wrapper's scratch budget, so rows run in two chunks. Templated
+// on float and double.
+//
+// Bins mode (out_mode 0: B1 for one signal, site cwt_pallas.py:526; B3b for
+// a batch, cwt_fused_bins_pallas :830, site :583) runs its own pair of
+// launches, bins_stage1 / bins_stage2, on the same four-step plan; the
+// other modes keep stage1 / stage2 / block_fft. Their layout of sequence s
+// (s = plane * P + p) at buf[s * L + i] puts, in the bit-reversed stores
+// and in the epilogue reads, every thread of a half-warp on one or two bank
+// pairs (8- and 16-way conflicts), and block_fft runs lg radix-2 passes,
+// each with its own loads, stores and __syncthreads. The bins engine:
+//   * layout: element i of sequence s at smem_index(s, i) = s * S + i, with
+//     the sequence stride S = L + 1 odd (ops/cwt_cuda.py::smem_index, same
+//     form; no in-sequence pad is needed);
+//   * thread maps: the radix passes put the sequence index fastest, so a
+//     half-warp's 16 accesses sit at q * S + const, q = 0..15 (S odd: 16
+//     distinct bank pairs) and its twiddle read is one broadcast; the
+//     strided gathers (stage-1 spectra, stage-2 scratch) and the stage-2
+//     epilogue put the column p fastest and walk positions through swz,
+//     which reverses the low `sw` bits of the running index, so the 16 / P
+//     positions a half-warp covers lie P apart: p * S + P * u, again 16
+//     distinct bank pairs (stage 1 walks position pairs 2u, 2u + 1 with
+//     sw - 1 bits, the same spacing); the stage-1 epilogue reads
+//     consecutive elements.
+//     For float32 with P = 8 (the main path) every access pattern is free
+//     of bank conflicts (tests/test_torch_cwt_layout.py enumerates them);
+//     for float64 (16-byte elements, served by quarter-warps, P = 4, sw = 3)
+//     the same holds per quarter-warp;
+//   * radix 4: two radix-2 levels per pass in registers, one __syncthreads
+//     per pass, a last radix-2 pass when the levels left are odd; stage 1
+//     runs its first level in registers as it forms the spectra (the
+//     partner column lies beyond the half spectrum), so at L = 512 stage 1
+//     runs 4 passes and stage 2 5, against 9 each. Each butterfly is
+//     block_fft's arithmetic with block_fft's table twiddle, so Wx is
+//     bit-identical to the other modes' Wx.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,6 +125,8 @@ struct Cfg {
   double logconst, amp, wgamma, beta, wc;
   double tiny, two_pi_dt;  // order 2: divide regularizer, 2 pi dt
   BinMap bm;
+  // bins engine (out_mode 0): sequence strides and swizzle widths
+  int S1, S2, sw1, sw2;
 };
 
 // GMW (order 0) in log space: amp * exp(logconst + beta ln w - w^gamma)
@@ -330,11 +365,237 @@ __global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
   }
 }
 
+// ---- bins engine (out_mode 0) -------------------------------------------
+
+// r with its low b bits reversed (0 <= b <= 31): a bijection on every
+// aligned block of 2^b (ops/cwt_cuda.py::swz).
+__device__ __forceinline__ int swz(int r, int b) {
+  const int m = (1 << b) - 1;
+  return (r & ~m) | (int)(__brev((unsigned)(r & m)) >> (31 - b) >> 1);
+}
+
+// One radix-2 DIT butterfly with block_fft's arithmetic, in place:
+// (x0, x1) <- (x0 + w x1, x0 - w x1).
+template <typename T, typename CT>
+__device__ __forceinline__ void bfly(CT& x0, CT& x1, const CT w) {
+  const T tr = w.x * x1.x - w.y * x1.y;
+  const T ti = w.x * x1.y + w.y * x1.x;
+  CT y0, y1;
+  y0.x = x0.x + tr; y0.y = x0.y + ti;
+  y1.x = x0.x - tr; y1.y = x0.y - ti;
+  x0 = y0;
+  x1 = y1;
+}
+
+// block_fft's transform over 2^lgn sequences of length L = 2^lg at
+// buf[s * S + i], from level s0 on (the levels before it done already),
+// levels fused in pairs: butterfly b -> sequence q = b mod 2^lgn
+// (fastest), index j = b >> lgn; level s pairs (x0, x1) and (x2, x3) with
+// twiddle tw[pos L / 2^s], level s + 1 pairs (x0, x2) and (x1, x3) with
+// tw[pos L / 2^(s+1)] and tw[(pos + hl) L / 2^(s+1)], as block_fft's two
+// passes would.
+template <typename T>
+__device__ void block_fft4(typename Cplx<T>::type* buf, int lgn, int S, int L,
+                           int lg, int s0,
+                           const typename Cplx<T>::type* tw) {
+  typedef typename Cplx<T>::type CT;
+  const int qmask = (1 << lgn) - 1;
+  int s = s0;
+  for (; s < lg; s += 2) {
+    const int hl = 1 << (s - 1);
+    const int t1 = L >> s, t2 = L >> (s + 1);
+    for (int b = threadIdx.x; b < (L << lgn) >> 2; b += blockDim.x) {
+      const int j = b >> lgn;
+      const int pos = j & (hl - 1);
+      CT* x = buf + (b & qmask) * S + ((j >> (s - 1)) << (s + 1)) + pos;
+      CT x0 = x[0], x1 = x[hl], x2 = x[2 * hl], x3 = x[3 * hl];
+      const CT wa = tw[pos * t1];
+      bfly<T>(x0, x1, wa);
+      bfly<T>(x2, x3, wa);
+      bfly<T>(x0, x2, tw[pos * t2]);
+      bfly<T>(x1, x3, tw[(pos + hl) * t2]);
+      x[0] = x0; x[hl] = x1; x[2 * hl] = x2; x[3 * hl] = x3;
+    }
+    __syncthreads();
+  }
+  if (s == lg) {                          // odd lg: the last level alone
+    const int hl = L >> 1;
+    for (int b = threadIdx.x; b < hl << lgn; b += blockDim.x) {
+      const int j = b >> lgn;
+      CT* x = buf + (b & qmask) * S + j;
+      CT x0 = x[0], x1 = x[hl];
+      bfly<T>(x0, x1, tw[j]);
+      x[0] = x0; x[hl] = x1;
+    }
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ int ilog2(int v) { return 31 - __clz(v); }
+
+// W and dW spectra of column m, zero from m = half on: stage1's
+// arithmetic for planes = 2.
+template <typename T>
+__device__ __forceinline__ void spectra(const typename Cplx<T>::type* xh,
+                                        long m, T scale, T norm,
+                                        const Cfg& c,
+                                        typename Cplx<T>::type& X0,
+                                        typename Cplx<T>::type& X1) {
+  X0.x = X0.y = X1.x = X1.y = (T)0;
+  if (m < c.half) {
+    const T xi = (T)((double)m * c.xi_step);
+    const T w = scale * xi;
+    const T psi = gmw_psih<T>(w, c) * norm;
+    typename Cplx<T>::type v = xh[m];
+    if (m == c.half - 1 && (c.n_up & 1) == 0) {  // Nyquist halving
+      v.x *= (T)0.5;
+      v.y *= (T)0.5;
+    }
+    X0.x = psi * v.x;
+    X0.y = psi * v.y;
+    const T xid = xi * (T)c.inv_dt;        // dW: times i xi / dt
+    X1.x = -xid * X0.y;
+    X1.y = xid * X0.x;
+  }
+}
+
+// Stage 1 of bins mode: stage1's arithmetic for planes = 2 (W and dW) in
+// the bins engine's layout and passes. The first DFT level pairs position
+// 2u (column m1 = bitrev(2u) < L/2) with 2u + 1 (m1 + L/2, whose spectra
+// are zero except at the Nyquist column), with twiddle tw[0] = 1: a thread
+// forms both columns and runs that butterfly in registers, and the passes
+// start at level 2.
+template <typename T>
+__global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
+                            const T* __restrict__ scales, Cfg c,
+                            typename Cplx<T>::type* __restrict__ scratch) {
+  typedef typename Cplx<T>::type CT;
+  extern __shared__ unsigned char smem_raw[];
+  CT* tw = reinterpret_cast<CT*>(smem_raw);
+  CT* buf = tw + (c.f1 >> 1);             // sequence plane * P + p at s * S
+  const int L = c.f1, P = c.P1, S = c.S1, lgP = ilog2(c.P1);
+  const int a = blockIdx.y;
+  const int g = c.row0 + a;
+  const int m2_0 = blockIdx.x * P;
+  fill_twiddles<T>(tw, L);
+
+  xh += (size_t)(g / c.na) * c.half;
+  const T scale = scales[g % c.na];
+  const T norm = c.l1_norm ? (T)1 : sqrt_t(scale);
+  CT one;                                   // tw[0] = sincospi(0), exactly
+  one.x = (T)1;
+  one.y = (T)0;
+  for (int e = threadIdx.x; e < P * (L >> 1); e += blockDim.x) {
+    const int p = e & (P - 1);
+    const int i = 2 * swz(e >> lgP, c.sw1 - 1);  // pair (i, i + 1)
+    const long m = (long)bitrev(i, c.lg1) * c.f2 + m2_0 + p;
+    CT W0, D0, W1, D1;
+    spectra<T>(xh, m, scale, norm, c, W0, D0);
+    spectra<T>(xh, m + (long)(L >> 1) * c.f2, scale, norm, c, W1, D1);
+    bfly<T>(W0, W1, one);
+    bfly<T>(D0, D1, one);
+    buf[p * S + i] = W0;
+    buf[p * S + i + 1] = W1;
+    buf[(P + p) * S + i] = D0;
+    buf[(P + p) * S + i + 1] = D1;
+  }
+  __syncthreads();
+  block_fft4<T>(buf, lgP + 1, S, L, c.lg1, 2, tw);
+
+  const T inv_n = (T)1 / (T)c.n_up;
+  const size_t plane = (size_t)c.rows * c.n_up;
+  for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
+    const int k1 = e & (L - 1);
+    const int p = e >> c.lg1;
+    const int m2 = m2_0 + p;
+    // m2 * k1 < f2 * f1 = n_up: the twiddle's argument is exact
+    T s, co;
+    sincospi_t((T)((double)(2 * (long)m2 * k1) / c.n_up), &s, &co);
+    const size_t o = ((size_t)a * c.f2 + m2) * c.f1 + k1;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const CT v = buf[(q * P + p) * S + k1];
+      CT y;
+      y.x = (v.x * co - v.y * s) * inv_n;
+      y.y = (v.x * s + v.y * co) * inv_n;
+      scratch[q * plane + o] = y;
+    }
+  }
+}
+
+// Stage 2 of bins mode: stage2's arithmetic for out_mode 0 in the bins
+// engine's layout and passes.
+template <typename T>
+__global__ void bins_stage2(const typename Cplx<T>::type* __restrict__ scratch,
+                            Cfg c, typename Cplx<T>::type* __restrict__ wx,
+                            int32_t* __restrict__ kout) {
+  typedef typename Cplx<T>::type CT;
+  extern __shared__ unsigned char smem_raw[];
+  CT* tw = reinterpret_cast<CT*>(smem_raw);
+  CT* buf = tw + (c.f2 >> 1);             // sequence plane * P + p at s * S
+  const int L = c.f2, P = c.P2, S = c.S2, lgP = ilog2(c.P2);
+  const int a = blockIdx.y;
+  const int k1_0 = blockIdx.x * P;
+  fill_twiddles<T>(tw, L);
+
+  const size_t plane = (size_t)c.rows * c.n_up;
+  for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
+    const int p = e & (P - 1);
+    const int i = swz(e >> lgP, c.sw2);   // position, bit-reversed order
+    const size_t o = ((size_t)a * c.f2 + bitrev(i, c.lg2)) * c.f1 + k1_0 + p;
+    buf[p * S + i] = scratch[o];
+    buf[(P + p) * S + i] = scratch[plane + o];
+  }
+  __syncthreads();
+  block_fft4<T>(buf, lgP + 1, S, L, c.lg2, 1, tw);
+
+  const int k2lo = c.n1 / c.f1;
+  const int k2hi = (c.n1 + c.N + c.f1 - 1) / c.f1;
+  // k2 offsets walked through swz over whole blocks of 2^sw2
+  const int nk = ((k2hi - k2lo + (1 << c.sw2) - 1) >> c.sw2) << c.sw2;
+  const T gate = (T)c.gamma_gate * (T)c.gamma_gate;
+  const size_t row = (size_t)(c.row0 + a) * c.N;
+  for (int e = threadIdx.x; e < P * nk; e += blockDim.x) {
+    const int p = e & (P - 1);
+    const int k2 = k2lo + swz(e >> lgP, c.sw2);
+    const int j = k1_0 + p + c.f1 * k2 - c.n1;
+    if (k2 >= k2hi || j < 0 || j >= c.N) continue;
+    const CT W = buf[p * S + k2];
+    const CT Dw = buf[(P + p) * S + k2];
+    wx[row + j] = W;
+    kout[row + j] = phase_bin<T>(W, Dw, false, (T)0, gate, c.bm);
+  }
+}
+
+template <typename T>
+int launch_bins(const void* xh, const void* scales, const Cfg& c,
+                void* scratch, void* wx, void* k, cudaStream_t st) {
+  typedef typename Cplx<T>::type CT;
+  const size_t sm1 = (size_t)(c.f1 / 2 + 2 * c.P1 * c.S1) * sizeof(CT);
+  const size_t sm2 = (size_t)(c.f2 / 2 + 2 * c.P2 * c.S2) * sizeof(CT);
+  cudaFuncSetAttribute(bins_stage1<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
+  cudaFuncSetAttribute(bins_stage2<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm2);
+  dim3 g1(c.f2 / c.P1, c.rows), g2(c.f1 / c.P2, c.rows);
+  bins_stage1<T><<<g1, 256, sm1, st>>>(static_cast<const CT*>(xh),
+                                       static_cast<const T*>(scales), c,
+                                       static_cast<CT*>(scratch));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bins_stage2<T><<<g2, 256, sm2, st>>>(static_cast<const CT*>(scratch), c,
+                                       static_cast<CT*>(wx),
+                                       static_cast<int32_t*>(k));
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* xh, const void* scales, const Cfg& c, void* scratch,
            void* wx, void* out2, void* stream) {
   typedef typename Cplx<T>::type CT;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (c.out_mode == 0)
+    return launch_bins<T>(xh, scales, c, scratch, wx, out2, st);
   const size_t sm1 = (size_t)(c.f1 / 2 + c.planes * c.P1 * c.f1) * sizeof(CT);
   const size_t sm2 = (size_t)(c.f2 / 2 + c.planes * c.P2 * c.f2) * sizeof(CT);
   cudaFuncSetAttribute(stage1<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -364,12 +625,13 @@ Cfg make_cfg(const int* ip, const double* dp) {
   c.wc = dp[7]; c.bm.a0 = dp[8]; c.bm.d0 = dp[9]; c.bm.a1 = dp[10];
   c.bm.d1 = dp[11];
   c.tiny = dp[12]; c.two_pi_dt = dp[13];
+  c.S1 = ip[20]; c.S2 = ip[21]; c.sw1 = ip[22]; c.sw2 = ip[23];
   return c;
 }
 
 }  // namespace
 
-// ip: 20 ints, dp: 14 doubles (layout in ops/cwt_cuda.py). `out2` is k
+// ip: 24 ints, dp: 14 doubles (layout in ops/cwt_cuda.py). `out2` is k
 // (out_mode 0 or 3), dWx (2) or null (1); out_mode in ip says which. Returns
 // cudaGetLastError() after the launches.
 extern "C" int cwt_bins_f32(const void* xh, const void* scales, const int* ip,

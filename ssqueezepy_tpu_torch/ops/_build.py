@@ -51,9 +51,12 @@ def _target(name):
                                                 digest.hexdigest()[:16]))
 
 
-def build_all(verbose=False):
+def build_all(ptxas=None):
     """Compile every missing library in parallel; returns the seconds
-    spent (0.0 when all were built already)."""
+    spent (0.0 when all were built already). Given a dict `ptxas`, each
+    source compiled now is compiled with `-Xptxas -v` and the compiler's
+    report (registers, shared memory, spills per kernel) is stored under
+    the source's name."""
     with _lock:
         todo = [n for n in SOURCES if not os.path.isfile(_target(n))]
         t0 = time.perf_counter()
@@ -63,8 +66,8 @@ def build_all(verbose=False):
             procs = []
             for name in todo:
                 tmp = _target(name) + '.tmp%d' % os.getpid()
-                cmd = [nvcc] + NVCC_FLAGS + (['-Xptxas', '-v'] if verbose
-                                             else []) + [
+                cmd = [nvcc] + NVCC_FLAGS + (['-Xptxas', '-v'] if ptxas
+                                             is not None else []) + [
                     '-o', tmp, os.path.join(CSRC, name + '.cu')]
                 procs.append((name, tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
@@ -75,8 +78,8 @@ def build_all(verbose=False):
                     errors.append('%s.cu:\n%s' % (name, out))
                 else:
                     os.replace(tmp, _target(name))
-                    if verbose and out.strip():
-                        print(out, flush=True)
+                    if ptxas is not None:
+                        ptxas[name] = out
             if errors:
                 raise RuntimeError("nvcc failed:\n" + '\n'.join(errors))
         return time.perf_counter() - t0

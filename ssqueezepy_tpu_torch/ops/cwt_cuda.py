@@ -16,8 +16,10 @@ _make_kernel`:
     five WSST2 banks, the per-cell chirp regression and the bin map ->
     (W, k); the four auxiliary transforms stay inside the kernel.
 
-The inverse DFT is computed in the kernel itself (four-step, radix 2 in
-shared memory); design and bound are noted in the source.
+The inverse DFT is computed in the kernel itself (four-step in shared
+memory: radix 2 for B3 and B8; for B1/B3b the bins engine, radix 4 in a
+bank-conflict-free layout, `bins_plan`); design and bound are noted in
+the source.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors. `cwt_bins.launches` (one signal),
@@ -25,6 +27,7 @@ version for CPU tensors. `cwt_bins.launches` (one signal),
 `cwt_bins2.launches` count calls of the C entry point (one per chunk of
 rows); each such call issues two CUDA launches, stage 1 and stage 2.
 """
+import collections
 import ctypes
 import math
 
@@ -36,7 +39,8 @@ from .fft import ifft
 from .phase import cdiv, cmul, div_tiny
 
 __all__ = ['cwt_bins', 'cwt_bins_plain', 'cwt_fused', 'cwt_fused_plain',
-           'cwt_bins2', 'cwt_bins2_plain', 'wsst2_rows', 'four_step']
+           'cwt_bins2', 'cwt_bins2_plain', 'wsst2_rows', 'four_step',
+           'bins_plan', 'smem_index', 'swz']
 
 _MODES = {'lin': 0, 'log': 1, 'log-piecewise': 2}
 # stage-1 scratch held at once (all planes); rows are chunked beyond it
@@ -46,6 +50,9 @@ _MAX_GRID_Y = 65535
 _OUT_BINS, _OUT_W, _OUT_W_DW, _OUT_BINS2 = 0, 1, 2, 3
 _PLANES = {_OUT_BINS: 2, _OUT_W: 1, _OUT_W_DW: 2, _OUT_BINS2: 5}
 _TWO_PI = 6.283185307179586
+# bytes of shared memory one wavefront serves: 16 threads of 8-byte
+# (complex64) or 8 of 16-byte (complex128) accesses
+_WAVEFRONT = 128
 
 
 def four_step(n_up):
@@ -60,15 +67,57 @@ def four_step(n_up):
     return f1, n_up // f1
 
 
-def _columns(L, other, itemsize, planes=2):
+def _columns(L, other, itemsize, planes=2, stride=None):
     """Columns per block: a power of two <= 8 dividing `other`, within
-    the shared-memory budget for `planes` planes of length L."""
+    the shared-memory budget for `planes` planes of length L, each
+    sequence `stride` elements apart (default L) after the L/2 twiddles."""
+    stride = L if stride is None else stride
     P = min(8, other)
-    while P > 1 and (L // 2 + planes * P * L) * itemsize > _SMEM_BUDGET:
+    while P > 1 and (L // 2 + planes * P * stride) * itemsize > _SMEM_BUDGET:
         P //= 2
-    if (L // 2 + planes * P * L) * itemsize > _SMEM_BUDGET:
+    if (L // 2 + planes * P * stride) * itemsize > _SMEM_BUDGET:
         raise NotImplementedError("DFT factor %d exceeds shared memory" % L)
     return P
+
+
+def swz(r, b):
+    """`r` with its low `b` bits reversed (an int or an integer array): a
+    bijection on every aligned block of 2^b, the bins engine's walk over
+    positions (csrc/cwt_bins.cu::swz)."""
+    out = (r >> b) << b
+    for t in range(b):
+        out = out | (((r >> t) & 1) << (b - 1 - t))
+    return out
+
+
+def smem_index(s, i, S):
+    """Shared-memory element (after the twiddle table) of position `i` of
+    sequence `s` in the bins engine: s * S + i (csrc/cwt_bins.cu)."""
+    return s * S + i
+
+
+BinsPlan = collections.namedtuple(
+    'BinsPlan', 'f1 f2 P1 P2 S1 S2 sw1 sw2 smem1 smem2')
+
+
+def bins_plan(n_up, itemsize):
+    """Launch plan of the bins engine (B1/B3b, two planes): per stage the
+    columns per block P, the sequence stride S = L + 1 (odd, so sequences
+    at one position fall on distinct bank pairs), the swizzle width sw
+    (the low bits reversed when a half-warp walks P columns by positions:
+    log2 of the elements one wavefront serves, at most log2 L) and the
+    dynamic shared bytes."""
+    f1, f2 = four_step(n_up)
+    wave = (_WAVEFRONT // itemsize).bit_length() - 1
+
+    def stage(L, other):
+        S = L + 1
+        P = _columns(L, other, itemsize, 2, S)
+        return (P, S, min(wave, L.bit_length() - 1),
+                (L // 2 + 2 * P * S) * itemsize)
+
+    (P1, S1, sw1, sm1), (P2, S2, sw2, sm2) = stage(f1, f2), stage(f2, f1)
+    return BinsPlan(f1, f2, P1, P2, S1, S2, sw1, sw2, sm1, sm2)
 
 
 def _bin_args(params):
@@ -160,8 +209,13 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
     itemsize = xh.element_size()
     planes = _PLANES[out_mode]
     f1, f2 = four_step(n_up)
-    P1 = _columns(f1, f2, itemsize, planes)
-    P2 = _columns(f2, f1, itemsize, planes)
+    if out_mode == _OUT_BINS:
+        bp = bins_plan(n_up, itemsize)
+        P1, P2, engine = bp.P1, bp.P2, (bp.S1, bp.S2, bp.sw1, bp.sw2)
+    else:
+        P1 = _columns(f1, f2, itemsize, planes)
+        P2 = _columns(f2, f1, itemsize, planes)
+        engine = (0, 0, 0, 0)
     na = scales.shape[0]
     n_all = Wx.numel() // N
     dev = xh.device
@@ -182,11 +236,14 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
     fn = lib.cwt_bins_f32 if f32 else lib.cwt_bins_f64
     for row0 in range(0, n_all, rows):
         nr = min(rows, n_all - row0)
-        ip = (ctypes.c_int * 20)(
+        # ip: n_up, f1, f2, lg1, lg2, half, n1, N, P1, P2, rows, row0,
+        # l1_norm, bin mode, idx1, omax, flipud, out_mode, planes, na, and
+        # for the bins engine (out_mode 0) S1, S2, sw1, sw2
+        ip = (ctypes.c_int * 24)(
             n_up, f1, f2, f1.bit_length() - 1, f2.bit_length() - 1,
             n_up // 2 + 1, n1, N, P1, P2, nr, row0, int(bool(l1_norm)),
             mode, int(idx1), int(omax), int(bool(flipud)), out_mode, planes,
-            na)
+            na, *engine)
         err = fn(xh.data_ptr(), scales.data_ptr(), ip, dp,
                  scratch.data_ptr(), Wx.data_ptr(),
                  None if out2 is None else out2.data_ptr(), stream)

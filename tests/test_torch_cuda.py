@@ -17,8 +17,9 @@ k is held by the order-2 bins criterion alone (column sums 1e-4 of max,
 |dTx| > 1e-3 max on under 2% of cells, energy 0.02): the chirp regression
 cancels where |W| is small, so float rounding moves w2 across bins there.
 The fused reassignment (B4) by the bins criterion in float32 and within
-1e-9 of max|Tx| in float64, bit-identical from run to run; the batched
-CWT + bins (B3b) and scatter (B2) rows bit-identical to one signal run
+1e-9 of max|Tx| in float64, bit-identical from run to run; the CWT +
+bins kernel (B1) bit-identical from run to run, its batched form (B3b)
+and the batched scatter (B2) rows bit-identical to one signal run
 alone. The generic scatter (B5) within 1e-5 of max|out| in float32 and
 1e-12 in float64 (summation order), bit-identical from run to run and
 its batch rows bit-identical to one signal run alone.
@@ -98,7 +99,10 @@ def _bins2_criterion(Tx_k, Tx_p):
 
 @pytest.mark.parametrize('N,scales,padtype', [
     (1000, 'log-piecewise', 'reflect'), (4096, 'log', 'symmetric'),
-    (3001, 'linear', 'zero'), (160000, 'log-piecewise', 'reflect')])
+    (3001, 'linear', 'zero'), (160000, 'log-piecewise', 'reflect'),
+    # n_up = 4, 8, 32, 2048: DFT lengths 2 to 64, odd log2 included
+    (2, 'log-piecewise', 'reflect'), (3, 'log-piecewise', 'reflect'),
+    (20, 'log-piecewise', 'reflect'), (1025, 'log', 'reflect')])
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
 def test_cwt_bins_kernel_vs_plain(dev, N, scales, padtype, dtype):
     xh, sc, c, wav, n_up, n1, params, gamma = _inputs(N, dtype, scales, dev,
@@ -116,6 +120,19 @@ def test_cwt_bins_kernel_vs_plain(dev, N, scales, padtype, dtype):
     nbins = params['omax'] + 1
     _bins_criterion(scatter_kv_plain(Wx_k, k_k, c, nbins),
                     scatter_kv_plain(Wx_p, k_p, c, nbins))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_cwt_bins_repeats_bit_identical(dev, dtype):
+    """Two launches on the same inputs give the same Wx and k, bit for
+    bit."""
+    N = 10000
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(N, dtype,
+                                                      'log-piecewise', dev)
+    args = (xh, sc, wav, n_up, n1, N, 1., True, params, gamma, True)
+    W1, k1 = cwt_bins(*args)
+    W2, k2 = cwt_bins(*args)
+    assert torch.equal(W1, W2) and torch.equal(k1, k2)
 
 
 def test_cwt_bins_row_chunks(dev, monkeypatch):

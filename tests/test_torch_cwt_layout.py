@@ -1,0 +1,274 @@
+# -*- coding: utf-8 -*-
+"""The bins engine of the CWT kernel (`csrc/cwt_bins.cu`, out_mode 0: B1
+and B3b) on the CPU: its launch plan, its shared-memory access patterns
+and the index arithmetic of its radix-4 passes. No card and no kernel run
+here; the thread maps below mirror the kernel's loops (`bins_stage1`,
+`bins_stage2`, `block_fft4`) and use the wrapper's own `bins_plan`,
+`smem_index` and `swz`.
+
+Bank model: shared memory serves 128 bytes per wavefront, so a warp's
+8-byte (complex64) accesses are served per half-warp of 16 threads and
+16-byte (complex128) ones per quarter-warp of 8; element `a` of such a
+group lies on bank group `a mod 16` (or `a mod 8`), and a group is free
+of conflicts when no two threads read different elements of one bank
+group.
+"""
+import numpy as np
+import pytest
+
+from ssqueezepy_tpu_torch.ops import cwt_cuda
+from ssqueezepy_tpu_torch.ops.cwt_cuda import bins_plan, smem_index, swz
+from ssqueezepy_tpu_torch.ops.pad import pad_params
+
+BENCH_N = 160000               # the main path's signal length
+ITEMSIZE = {'float32': 8, 'float64': 16}
+
+
+def _wavefronts(addr, active, itemsize):
+    """Wavefronts each thread group needs for one instruction: `addr`
+    holds one element index per thread id e (e = tid + 256 * iteration,
+    256 threads per block, so aligned runs of the group size share a
+    wavefront), `active` masks the threads that access."""
+    g = 128 // itemsize
+    n = -(-len(addr) // g) * g
+    a = np.full(n, -1, np.int64)
+    a[:len(addr)] = np.where(active, addr, -1)
+    return np.array([np.bincount(grp[grp >= 0] % g).max()
+                     if (grp >= 0).any() else 0
+                     for grp in map(np.unique, a.reshape(-1, g))])
+
+
+def _passes(L, P, S, s0):
+    """`block_fft4`'s passes from level s0 over the 2P sequences of length
+    L: per pass, (the data addresses, one array per element a butterfly
+    touches, each loaded and then stored; the twiddle addresses), one
+    entry per butterfly b -> sequence b mod 2P, index b // 2P."""
+    lg, nseq, tw0 = L.bit_length() - 1, 2 * P, L // 2
+    b = np.arange(nseq * L // 4)
+    q, j = b % nseq, b // nseq
+    s, out = s0, []
+    while s < lg:                              # radix 4: levels s, s + 1
+        hl = 1 << (s - 1)
+        pos = j & (hl - 1)
+        base = tw0 + smem_index(q, ((j >> (s - 1)) << (s + 1)) + pos, S)
+        out.append(([base + m * hl for m in range(4)],
+                    [pos * (L >> s), pos * (L >> (s + 1)),
+                     (pos + hl) * (L >> (s + 1))]))
+        s += 2
+    if s == lg:                                # odd lg: radix 2, level lg
+        b = np.arange(nseq * L // 2)
+        q, j = b % nseq, b // nseq
+        base = tw0 + smem_index(q, j, S)
+        out.append(([base, base + L // 2], [j]))
+    return out
+
+
+def _stage_patterns(plan, stage, n1=0, N=0):
+    """{pattern: [(addresses, active), ...]} of one launch, one entry per
+    load or store instruction; addresses count elements from the start of
+    dynamic shared memory (the twiddle table, then the sequences)."""
+    L = plan.f1 if stage == 1 else plan.f2
+    P, S, sw = ((plan.P1, plan.S1, plan.sw1) if stage == 1
+                else (plan.P2, plan.S2, plan.sw2))
+    tw0 = L // 2
+    pats = {}
+    e = np.arange(P * L)
+    ones = np.ones(e.size, bool)
+    pats['twiddle table fill'] = [(np.arange(L // 2), np.ones(L // 2, bool))]
+    # into bit-reversed positions: stage 1 the spectra by position pairs
+    # (2u, 2u + 1) after the first level, stage 2 the scratch
+    if stage == 1:
+        u = np.arange(P * L // 2)
+        i = 2 * swz(u // P, sw - 1)
+        pats['bit-reversed store'] = [
+            (tw0 + smem_index(q * P + u % P, i + d, S),
+             np.ones(u.size, bool)) for q in (0, 1) for d in (0, 1)]
+    else:
+        pats['bit-reversed store'] = [
+            (tw0 + smem_index(q * P + e % P, swz(e // P, sw), S), ones)
+            for q in (0, 1)]
+    # every load, twiddle read and store of the passes
+    pats['radix passes'] = [(a, np.ones(a.size, bool))
+                            for data, tws in _passes(L, P, S, 3 - stage)
+                            for a in data + tws + data]
+    if stage == 1:
+        k1, p = e % L, e // L
+        pats['twiddle epilogue'] = [
+            (tw0 + smem_index(qq * P + p, k1, S), ones) for qq in (0, 1)]
+    else:
+        k2lo, k2hi = n1 // plan.f1, -(-(n1 + N) // plan.f1)
+        nk = -(-(k2hi - k2lo) // (1 << sw)) << sw
+        e = np.arange(P * nk)
+        p, k2 = e % P, k2lo + swz(e // P, sw)
+        jj = (e % P) + plan.f1 * k2 - n1      # block k1_0 = 0
+        act = (k2 < k2hi) & (jj >= 0) & (jj < N)
+        pats['phase/bin epilogue'] = [
+            (tw0 + smem_index(qq * P + p, k2, S), act) for qq in (0, 1)]
+    return pats
+
+
+@pytest.mark.parametrize('lg', range(2, 23))
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_bins_plan_fits_and_divides(lg, dtype):
+    """The launch plan of every power-of-two n_up from 4 to 2^22: shared
+    memory within budget, columns dividing the grid, strides odd."""
+    n_up, itemsize = 1 << lg, ITEMSIZE[dtype]
+    plan = bins_plan(n_up, itemsize)
+    assert plan.f1 * plan.f2 == n_up
+    for L, other, P, S, sw, sm in (
+            (plan.f1, plan.f2, plan.P1, plan.S1, plan.sw1, plan.smem1),
+            (plan.f2, plan.f1, plan.P2, plan.S2, plan.sw2, plan.smem2)):
+        assert P >= 1 and P & (P - 1) == 0 and other % P == 0
+        assert S >= L and S % 2 == 1
+        assert 1 <= sw <= L.bit_length() - 1
+        assert sm == (L // 2 + 2 * P * S) * itemsize <= cwt_cuda._SMEM_BUDGET
+        # a wider block would no longer fit, unless P is already 8 or `other`
+        if P < min(8, other):
+            assert (L // 2 + 4 * P * S) * itemsize > cwt_cuda._SMEM_BUDGET
+
+
+@pytest.mark.parametrize('lg', [2, 3, 5, 11, 18, 22])
+def test_bins_patterns_cover_each_element_once(lg):
+    """Each store pattern and each radix pass touches every element of
+    every sequence exactly once (the swizzled walks are bijections)."""
+    n_up, N = 1 << lg, (1 << lg) * 5 // 8 + 1
+    _, n1, _ = pad_params(N, 'reflect', padlength=n_up)
+    plan = bins_plan(n_up, 8)
+    for stage in (1, 2):
+        L = plan.f1 if stage == 1 else plan.f2
+        P, S = (plan.P1, plan.S1) if stage == 1 else (plan.P2, plan.S2)
+        want = np.sort(np.add.outer(np.arange(2 * P) * S, np.arange(L))
+                       .ravel() + L // 2)
+        pats = _stage_patterns(plan, stage, n1, N)
+        got = np.sort(np.concatenate([a for a, _ in
+                                      pats['bit-reversed store']]))
+        assert np.array_equal(got, want)
+        for data, _ in _passes(L, P, S, 3 - stage):
+            assert np.array_equal(np.sort(np.concatenate(data)), want)
+        if stage == 2:
+            a, act = pats['phase/bin epilogue'][0]
+            k2 = a[act] - L // 2 - (np.arange(a.size) % P)[act] * S
+            cols = (np.arange(a.size) % P)[act] + plan.f1 * k2 - n1
+            assert np.array_equal(np.sort(cols),
+                                  np.arange(N)[(np.arange(N) + n1)
+                                               % plan.f1 < P])
+
+
+@pytest.mark.parametrize('pattern', ['twiddle table fill',
+                                     'bit-reversed store', 'radix passes',
+                                     'twiddle epilogue',
+                                     'phase/bin epilogue'])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_bins_engine_free_of_bank_conflicts(pattern, dtype):
+    """At the main path's plan (n_up = 2^18, f1 = f2 = 512) every shared-
+    memory access of both launches is served in one wavefront per
+    half-warp (float32) or quarter-warp (float64)."""
+    n_up, n1, _ = pad_params(BENCH_N, 'reflect')
+    itemsize = ITEMSIZE[dtype]
+    plan = bins_plan(n_up, itemsize)
+    assert (plan.f1, plan.f2) == (512, 512)
+    assert (plan.P1, plan.P2) == ((8, 8) if dtype == 'float32' else (4, 4))
+    seen = 0
+    for stage in (1, 2):
+        for addr, act in _stage_patterns(plan, stage, n1,
+                                         BENCH_N).get(pattern, []):
+            seen += 1
+            assert _wavefronts(addr, act, itemsize).max() == 1, (stage,
+                                                                pattern)
+    assert seen
+
+
+def _radix2_engine_patterns(L, P, stage, n1=0, N=0):
+    """The parent engine the other modes keep (stage1 / stage2 /
+    block_fft, two planes): sequence s at buf[s * L + i], the column p
+    fastest with m1 (m2) next in the bit-reversed store, and radix-2
+    passes with butterfly b -> sequence b >> (lg - 1), r = b mod L/2."""
+    lg, tw0 = L.bit_length() - 1, L // 2
+    e = np.arange(P * L)
+    ones = np.ones(e.size, bool)
+    pats = [(np.arange(L // 2), np.ones(L // 2, bool))]       # twiddles
+    pats += [(tw0 + (q * P + e % P) * L + swz(e // P, lg), ones)
+             for q in (0, 1)]
+    b = np.arange(2 * P * L // 2)
+    q, r = b >> (lg - 1), b & (L // 2 - 1)
+    for s in range(1, lg + 1):
+        hl = 1 << (s - 1)
+        pos = r & (hl - 1)
+        i0 = tw0 + q * L + ((r >> (s - 1)) << s) + pos
+        act = np.ones(b.size, bool)
+        pats += [(i0, act), (i0 + hl, act)] * 2 + [(pos * (L >> s), act)]
+    if stage == 1:
+        pats += [(tw0 + (q * P + e // L) * L + e % L, ones) for q in (0, 1)]
+    else:
+        k2lo, k2hi = n1 // L, -(-(n1 + N) // L)
+        e = np.arange(P * (k2hi - k2lo))
+        k2, j = k2lo + e // P, e % P + L * (k2lo + e // P) - n1
+        pats += [(tw0 + (q * P + e % P) * L + k2, (j >= 0) & (j < N))
+                 for q in (0, 1)]
+    return pats
+
+
+def test_wavefronts_per_block_against_the_radix2_engine():
+    """Shared-memory wavefronts one block of each launch needs at the main
+    path's plan (float32, f1 = f2 = 512, P = 8), loads and stores counted:
+    the parent engine's conflicts (16-way bit-reversed stores, 2-way data
+    at levels 1-4, up to 16-way twiddle reads at level 5) against the bins
+    engine's."""
+    n_up, n1, _ = pad_params(BENCH_N, 'reflect')
+    plan = bins_plan(n_up, 8)
+    got = {}
+    for stage in (1, 2):
+        old = _radix2_engine_patterns(512, 8, stage, n1, BENCH_N)
+        new = [am for pat in _stage_patterns(plan, stage, n1,
+                                             BENCH_N).values() for am in pat]
+        got[stage] = tuple(sum(_wavefronts(a, m, 8).sum() for a, m in pats)
+                           for pats in (old, new))
+    assert got == {1: (33808, 6672), 2: (35808, 7760)}
+
+
+def _fft4(x, s0):
+    """`block_fft4`'s passes from level s0 on the rows of `x` (bit-reversed
+    input), level 1 done first in pairs (2u, 2u + 1) when s0 = 2, as
+    `bins_stage1` does."""
+    L = x.shape[-1]
+    lg = L.bit_length() - 1
+    tw = np.exp(2j * np.pi * np.arange(L // 2) / L)
+    y = x.copy()
+    if s0 == 2:
+        y[:, 0::2], y[:, 1::2] = x[:, 0::2] + x[:, 1::2], x[:, 0::2] - x[:, 1::2]
+    s = s0
+    while s < lg:
+        hl = 1 << (s - 1)
+        j = np.arange(L // 4)
+        pos = j & (hl - 1)
+        base = ((j >> (s - 1)) << (s + 1)) + pos
+        x0, x1, x2, x3 = (y[:, base + m * hl] for m in range(4))
+        wa = tw[pos * (L >> s)]
+        x0, x1 = x0 + wa * x1, x0 - wa * x1
+        x2, x3 = x2 + wa * x3, x2 - wa * x3
+        wb, wc = tw[pos * (L >> (s + 1))], tw[(pos + hl) * (L >> (s + 1))]
+        x0, x2 = x0 + wb * x2, x0 - wb * x2
+        x1, x3 = x1 + wc * x3, x1 - wc * x3
+        for m, v in enumerate((x0, x1, x2, x3)):
+            y[:, base + m * hl] = v
+        s += 2
+    if s == lg:
+        j = np.arange(L // 2)
+        x0, x1 = y[:, j], y[:, j + L // 2]
+        y[:, j], y[:, j + L // 2] = x0 + tw[j] * x1, x0 - tw[j] * x1
+    return y
+
+
+@pytest.mark.parametrize('lg', range(1, 12))
+@pytest.mark.parametrize('s0', [1, 2])
+def test_radix4_passes_compute_the_inverse_dft(lg, s0):
+    """The passes' index arithmetic, from level 1 (stage 2) or after the
+    first level in registers (stage 1), is an unnormalized inverse DFT
+    for every length 2^1 .. 2^11, odd log2 L included (the last radix-2
+    pass)."""
+    L = 1 << lg
+    rng = np.random.default_rng(lg)
+    x = rng.standard_normal((3, L)) + 1j * rng.standard_normal((3, L))
+    y = _fft4(x[:, swz(np.arange(L), lg)], s0)
+    np.testing.assert_allclose(y, np.fft.ifft(x, axis=-1) * L,
+                               rtol=0, atol=1e-10 * L)
