@@ -22,12 +22,13 @@ the scatter from bins). It:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel from `ssqueezepy_tpu_torch/csrc/` (one nvcc
      per source, in parallel, with `-Xptxas -v`), prints the build time and
-     the compiler's report (registers, spills) of the bins engine's two
-     kernels;
+     the compiler's report (registers, spills) of every instantiation of
+     the CWT kernel's DFT engine (`bins_stage1` per plane count,
+     `bins_stage2` per output mode, float and double);
   3. holds the fused CWT + bins kernel (B1) against its plain PyTorch
      version at the headline shape, float32 and float64, checks two runs
-     are bit-identical and reports whether its Wx is bit-identical to the
-     radix-2 engine's (B3);
+     are bit-identical and that the Wx of the plain/derivative mode (B3),
+     with one plane and with two, is bit-identical to B1's;
   4. holds the reassignment scatter (B2) against its plain version on the
      same planes, and checks two runs are bit-identical;
   5. holds the STFT table kernel (B6) in its three modes (Sx; Sx + dSx;
@@ -39,7 +40,9 @@ the scatter from bins). It:
      float32 and float64;
   7. holds the WSST2 kernel (B8, the order-2 mode of the CWT kernel) and
      the FSST2 table kernel (B7) against their plain versions at the
-     ssq_cwt2 / ssq_stft2 headline (float32) and at N = 10000 (float64);
+     ssq_cwt2 / ssq_stft2 headline (float32) and at N = 10000 (float64),
+     and checks that B8's W is bit-identical to B1's Wx at the headline
+     (L1 norm, the same spectrum and scales);
   8. holds the batched bins mode of the CWT kernel (B3b) against its plain
      version on a (4, 160000) float32 and a (3, 10000) float64 batch, each
      row bit-identical to B1 on its signal; the batched scatter (B2) on
@@ -76,6 +79,7 @@ device, or without the package beside this script, it exits non-zero.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -156,7 +160,8 @@ def bound(nbytes, flops):
 
 def ptxas_report(log, key):
     """One line per kernel whose mangled name holds `key`, from an
-    `nvcc -Xptxas -v` log: its registers, barriers, stack and spills."""
+    `nvcc -Xptxas -v` log: its registers, barriers, stack and spills. A
+    kernel template `name<float|double, int>` is named so."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function '" in line:
@@ -164,7 +169,14 @@ def ptxas_report(log, key):
             out[name] = []
         elif name is not None and ('Used' in line or 'spill' in line):
             out[name].append(line.split(' : ')[-1].strip())
-    return ['%s: %s' % (n, '; '.join(v)) for n, v in out.items() if key in n]
+
+    def readable(n):
+        m = re.search(r'\d+(%s\w*?)I([fd])Li(\d+)E' % key, n)
+        return n if m is None else '%s<%s, %s>' % (
+            m.group(1), 'float' if m.group(2) == 'f' else 'double',
+            m.group(3))
+    return ['%s: %s' % (readable(n), '; '.join(v)) for n, v in out.items()
+            if key in n]
 
 
 def launches_of(counters, fn):
@@ -237,9 +249,10 @@ def main():
     build_s = _build.build_all(ptxas=ptxas)
     print("built %s in %.2f s (nvcc, in parallel)"
           % (', '.join(_build.SOURCES), build_s), flush=True)
+    # the DFT engine: bins_stage1<T, planes>, bins_stage2<T, out_mode>
     for line in (ptxas_report(ptxas['cwt_bins'], 'bins_stage')
                  if 'cwt_bins' in ptxas else ["not rebuilt in this run"]):
-        print("ptxas, bins engine: " + line, flush=True)
+        print("ptxas, CWT engine: " + line, flush=True)
 
     # ---- the bench headline plan ---------------------------------------
     N = 160000
@@ -298,10 +311,12 @@ def main():
             check(torch.equal(Wx_r, Wx_k) and torch.equal(k_r, k_k),
                   "float32 B1 repeat runs bit-identical")
             del Wx_r, k_r
-            Wx_3, _ = cwt_fused(xh, sc, wv, n_up, n1, N, 1., False, True)
-            print("  B1 Wx bit-identical to the radix-2 engine's (B3): %s"
-                  % bool(torch.equal(Wx_3, Wx_k)), flush=True)
-            del Wx_3
+            for deriv in (False, True):
+                Wx_3, _ = cwt_fused(xh, sc, wv, n_up, n1, N, 1., deriv, True)
+                check(torch.equal(Wx_3, Wx_k), "float32 B3 Wx (%s) "
+                      "bit-identical to B1's" % ("Wx and dWx" if deriv
+                                                 else "Wx only"))
+                del Wx_3
             b1 = dict(err=err, args=args, Wx=Wx_k, k=k_k, c=c)
         else:
             check(err <= 1e-9 * m, "float64: max|Wx_kernel - Wx_plain| = %.3g of max|Wx| "
@@ -460,6 +475,8 @@ def main():
                        scatter_kv_plain(W_p, k_p, c8, nb), "%s B8" % dtype)
         if Ns == N:
             b8 = dict(err=float((W_k - W_p).abs().max()), args=args8, c=c8)
+            check(torch.equal(W_k, b1['Wx']), "B8 W bit-identical to "
+                  "B1's Wx (L1 norm, same spectrum and scales)")
         del W_k, k_k, W_p, k_p
         torch.cuda.empty_cache()
 
@@ -987,15 +1004,23 @@ def main():
     torch.cuda.empty_cache()
 
     # B3 as `cwt` runs it (Wx only, one plane); yardstick: one
-    # torch.fft.ifft of the (na, n_up) spectra
+    # torch.fft.ifft of the (na, n_up) spectra. Its derivative mode (Wx
+    # and dWx, as ssq_cwt(get_dWx=True) and get_w run it) beside one
+    # torch.fft.ifft of the two planes' spectra
     xh3 = b3['args'][0]
     b3_ms = cuda_ms(lambda: cwt_fused(*b3['args']))
     b3_plain_ms = cuda_ms(lambda: cwt_fused_plain(*b3['args']), reps=5)
     spec1 = torch.zeros((na, n_up), dtype=xh3.dtype, device=dev)
     spec1[:, :xh3.shape[0]] = xh3
     b3_lib_ms = cuda_ms(lambda: torch.fft.ifft(spec1, dim=-1))
+    del spec1
+    args3d = b3['args'][:7] + (True,) + b3['args'][8:]
+    b3d_ms = cuda_ms(lambda: cwt_fused(*args3d))
+    spec2 = torch.zeros((2 * na, n_up), dtype=xh3.dtype, device=dev)
+    spec2[:, :xh3.shape[0]] = xh3
+    b3d_lib_ms = cuda_ms(lambda: torch.fft.ifft(spec2, dim=-1))
     n_xh3 = xh3.numel()
-    del spec1, xh3, b3['args']
+    del spec2, xh3, b3['args'], args3d
     torch.cuda.empty_cache()
 
     # B8 and B7 as their main paths run them; yardstick: the DFT core
@@ -1145,6 +1170,8 @@ def main():
           % (b6_ms, b6_sx_ms, b6_plain_ms, b6_lib_ms, b6_bound, b6_by,
              b6_bytes, b6_flops, Np2, b3_ms, b3_plain_ms, b3_lib_ms,
              b3_bound, b3_by, b3_bytes, b3_flops), flush=True)
+    print("B3 Wx + dWx %.3f ms (torch.fft.ifft DFT core of the two planes "
+          "%.3f)" % (b3d_ms, b3d_lib_ms), flush=True)
     print("B8 %.3f ms (plain %.3f, torch.fft.ifft DFT core %.3f, bound "
           "%.3f by %s: %.3g B, %.3g FLOP); B7 %.3f ms (plain %.3f, "
           "torch.fft.ifft DFT core %.3f, bound %.3f by %s: %.3g B, %.3g "

@@ -20,12 +20,13 @@
 // 2pi, the gamma gate |W|^2 > gamma^2, and the lin / log / log-piecewise
 // bin map with flipud. Outputs: Wx (B * na, N) interleaved complex and
 // either k (B * na, N) int32, k = -1 on gated cells, or dWx like Wx. A
-// row's arithmetic does not depend on its batch index or on how the
-// wrapper chunks the rows, so a batched row is bit-identical to the same
-// signal run alone.
+// row's arithmetic does not depend on its batch index, on how the
+// wrapper chunks the rows or on the columns per block, so a batched row
+// is bit-identical to the same signal run alone, and Wx is bit-identical
+// across the modes.
 //
-// Order-2 mode (out_mode 3) forms five spectra from psih and its closed-
-// form derivatives psih', psih'' at w = a xi (GMW: with u = wc w,
+// Order-2 mode forms five spectra from psih and its closed-form
+// derivatives psih', psih'' at w = a xi (GMW: with u = wc w,
 // psih' = psih (beta - gamma u^gamma) / w, psih'' = psih ((beta - gamma
 // u^gamma)^2 - beta - gamma (gamma - 1) u^gamma) / w^2):
 //   W = psih xh, A = i xi psih xh, B = i a psih' xh, Bd = -xi a psih' xh,
@@ -37,17 +38,20 @@
 // _wsst2_rows; products in its order).
 //
 // Design: four-step DFT over n_up = f1 * f2 with n = k1 + f1 k2 and
-// m = m1 f2 + m2, both steps inside these kernels (no cuFFT).
-//   launch 1 (stage1): one block per (scale, P1 columns m2). Synthesizes
-//     psih in closed form (GMW, log space), forms the spectra (W, and D
-//     unless only Wx is asked), runs the length-f1 inverse DFT over m1 in
-//     shared memory (radix 2), applies the twiddle
-//     e^{+2 pi i m2 k1 / n_up} / n_up and writes the planes to a scratch
-//     buffer (planes x rows x n_up complex).
-//   launch 2 (stage2): one block per (scale, P2 columns k1). Runs the
+// m = m1 f2 + m2, both steps inside these kernels (no cuFFT), in one
+// kernel pair for every mode, chosen at compile time: bins_stage1 is
+// templated on the number of planes NP its DFT carries (1: W; 2: W and
+// dW; 5: W, A, B, Bd, C), bins_stage2 on the mode, whose epilogue it
+// runs. No mode branches at run time inside a kernel.
+//   launch 1 (bins_stage1): one block per (row, P1 columns m2).
+//     Synthesizes psih in closed form (GMW, log space), forms the NP
+//     spectra, runs the length-f1 inverse DFT over m1 in shared memory,
+//     applies the twiddle e^{+2 pi i m2 k1 / n_up} / n_up and writes the
+//     planes to a scratch buffer (NP x rows x n_up complex).
+//   launch 2 (bins_stage2): one block per (row, P2 columns k1). Runs the
 //     length-f2 DFT over m2, keeps the k2 whose n lands in [n1, n1+N),
-//     and writes Wx (and dWx), or runs the phase / gate / bin epilogue,
-//     where dWx never leaves the chip beyond the scratch plane.
+//     and writes Wx (and dWx), or runs the bins or order-2 epilogue,
+//     where the other planes never leave the chip beyond the scratch.
 // Bound (bins mode): at the main path's shape (293 scales, n_up = 2^18) the two
 // inverse DFTs per scale (~13 GFLOP in float32 at 5 n log2 n, less the
 // first stage, whose upper half-spectrum inputs are zero) outweigh the
@@ -56,41 +60,41 @@
 // through device memory twice (~2.5 GB), which the bound does not count.
 // Order-2 mode: five DFTs per scale (~33 GFLOP) against the same ~0.56 GB,
 // operation-bound; its five scratch planes (~6 GB of traffic at that shape)
-// exceed the wrapper's scratch budget, so rows run in two chunks. Templated
-// on float and double.
+// exceed the wrapper's scratch budget, so rows run in two chunks. Wx-only
+// mode: one DFT per scale against ~0.37 GB, bound by bytes. Templated on
+// float and double.
 //
-// Bins mode (out_mode 0: B1 for one signal, site cwt_pallas.py:526; B3b for
-// a batch, cwt_fused_bins_pallas :830, site :583) runs its own pair of
-// launches, bins_stage1 / bins_stage2, on the same four-step plan; the
-// other modes keep stage1 / stage2 / block_fft. Their layout of sequence s
-// (s = plane * P + p) at buf[s * L + i] puts, in the bit-reversed stores
-// and in the epilogue reads, every thread of a half-warp on one or two bank
-// pairs (8- and 16-way conflicts), and block_fft runs lg radix-2 passes,
-// each with its own loads, stores and __syncthreads. The bins engine:
-//   * layout: element i of sequence s at smem_index(s, i) = s * S + i, with
-//     the sequence stride S = L + 1 odd (ops/cwt_cuda.py::smem_index, same
-//     form; no in-sequence pad is needed);
+// The engine lays shared memory out so that a block's accesses avoid bank
+// conflicts (32 banks of 4 bytes, 128 bytes per wavefront):
+//   * layout: element i of sequence s = plane * P + p at smem_index(s, i)
+//     = s * S + i, with the sequence stride S = L + 1 odd
+//     (ops/cwt_cuda.py::smem_index, same form; no in-sequence pad is
+//     needed);
 //   * thread maps: the radix passes put the sequence index fastest, so a
-//     half-warp's 16 accesses sit at q * S + const, q = 0..15 (S odd: 16
-//     distinct bank pairs) and its twiddle read is one broadcast; the
-//     strided gathers (stage-1 spectra, stage-2 scratch) and the stage-2
-//     epilogue put the column p fastest and walk positions through swz,
-//     which reverses the low `sw` bits of the running index, so the 16 / P
-//     positions a half-warp covers lie P apart: p * S + P * u, again 16
-//     distinct bank pairs (stage 1 walks position pairs 2u, 2u + 1 with
-//     sw - 1 bits, the same spacing); the stage-1 epilogue reads
-//     consecutive elements.
-//     For float32 with P = 8 (the main path) every access pattern is free
-//     of bank conflicts (tests/test_torch_cwt_layout.py enumerates them);
-//     for float64 (16-byte elements, served by quarter-warps, P = 4, sw = 3)
-//     the same holds per quarter-warp;
+//     half-warp's 16 accesses sit at q * S + const over 16 sequences q
+//     (S odd: 16 distinct bank pairs) and its twiddle read is one
+//     broadcast; the strided gathers (stage-1 spectra, stage-2 scratch)
+//     and the stage-2 epilogue put the column p fastest and walk
+//     positions through swz, which reverses the low `sw` bits of the
+//     running index, so the 16 / P positions a half-warp covers lie P
+//     apart: p * S + P * u, again 16 distinct bank pairs (stage 1 walks
+//     position pairs 2u, 2u + 1 with sw - 1 bits, the same spacing); the
+//     stage-1 epilogue reads consecutive elements.
+//     The wrapper's plan (ops/cwt_cuda.py::bins_plan) takes P <= 8
+//     columns that fit: for float32 at the main path P = 8, 8 and 4 for
+//     1, 2 and 5 planes. With 2 planes every access pattern is then free
+//     of bank conflicts (per quarter-warp for float64's 16-byte
+//     elements); with 1 plane the passes walk 8 sequences and with 5
+//     planes 20, and a half-warp that straddles two indices j is 2-way
+//     there (tests/test_torch_cwt_layout.py enumerates every pattern).
+//     One plane at P = 16 would be conflict-free, but P = 8 runs twice
+//     the blocks per SM and times faster;
 //   * radix 4: two radix-2 levels per pass in registers, one __syncthreads
 //     per pass, a last radix-2 pass when the levels left are odd; stage 1
 //     runs its first level in registers as it forms the spectra (the
 //     partner column lies beyond the half spectrum), so at L = 512 stage 1
-//     runs 4 passes and stage 2 5, against 9 each. Each butterfly is
-//     block_fft's arithmetic with block_fft's table twiddle, so Wx is
-//     bit-identical to the other modes' Wx.
+//     runs 4 passes and stage 2 5. Each butterfly is a radix-2 DIT
+//     butterfly with a table twiddle, in the same order in every mode.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,17 +119,29 @@ __device__ __forceinline__ double pow_t(double x, double y) { return pow(x, y); 
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 
+// Output modes (ops/cwt_cuda.py _OUT_*): (Wx, k); Wx; (Wx, dWx); (W, k)
+// of order 2.
+enum { MODE_BINS = 0, MODE_W = 1, MODE_W_DW = 2, MODE_BINS2 = 3 };
+
+// planes a mode's DFT carries
+__host__ __device__ constexpr int planes_of(int mode) {
+  return mode == MODE_W ? 1 : mode == MODE_BINS2 ? 5 : 2;
+}
+
+__host__ __device__ constexpr int clog2(int v) {
+  return v > 1 ? 1 + clog2(v >> 1) : 0;
+}
+
 // Host-side parameter block, copied by value into both launches.
 struct Cfg {
   int n_up, f1, f2, lg1, lg2, half, n1, N, P1, P2, rows, row0;
   int l1_norm;
-  // out_mode 0: (Wx, k); 1: Wx; 2: (Wx, dWx); 3: (W, k) of order 2
-  int out_mode, planes, na;
+  int out_mode, na;
   double xi_step, inv_dt, gamma_gate;
   double logconst, amp, wgamma, beta, wc;
   double tiny, two_pi_dt;  // order 2: divide regularizer, 2 pi dt
   BinMap bm;
-  // bins engine (out_mode 0): sequence strides and swizzle widths
+  // sequence strides and swizzle widths of the two stages
   int S1, S2, sw1, sw2;
 };
 
@@ -165,40 +181,7 @@ __device__ __forceinline__ CT cdiv(CT a, CT b, T tiny) {
   return y;
 }
 
-// In-place radix-2 DIT over `nseq` sequences of length L = 2^lg stored
-// back to back in shared memory, inputs in bit-reversed order, outputs in
-// natural order; tw[k] = e^{+2 pi i k / L}, k < L/2 (inverse sign).
-template <typename T>
-__device__ void block_fft(typename Cplx<T>::type* buf, int nseq, int L, int lg,
-                          const typename Cplx<T>::type* tw) {
-  typedef typename Cplx<T>::type CT;
-  const int halfL = L >> 1;
-  const int total = nseq * halfL;
-  for (int s = 1; s <= lg; ++s) {
-    const int hl = 1 << (s - 1);
-    const int tstride = L >> s;
-    for (int b = threadIdx.x; b < total; b += blockDim.x) {
-      const int q = b >> (lg - 1);
-      const int r = b & (halfL - 1);
-      const int grp = r >> (s - 1);
-      const int pos = r & (hl - 1);
-      const int i0 = q * L + (grp << s) + pos;
-      const int i1 = i0 + hl;
-      const CT w = tw[pos * tstride];
-      const CT x1 = buf[i1];
-      const CT x0 = buf[i0];
-      const T tr = w.x * x1.x - w.y * x1.y;
-      const T ti = w.x * x1.y + w.y * x1.x;
-      CT y0, y1;
-      y0.x = x0.x + tr; y0.y = x0.y + ti;
-      y1.x = x0.x - tr; y1.y = x0.y - ti;
-      buf[i0] = y0;
-      buf[i1] = y1;
-    }
-    __syncthreads();
-  }
-}
-
+// tw[k] = e^{+2 pi i k / L}, k < L/2 (inverse sign)
 template <typename T>
 __device__ void fill_twiddles(typename Cplx<T>::type* tw, int L) {
   for (int i = threadIdx.x; i < (L >> 1); i += blockDim.x) {
@@ -213,160 +196,6 @@ __device__ __forceinline__ int bitrev(int i, int lg) {
   return (int)(__brev((unsigned)i) >> (32 - lg));
 }
 
-template <typename T>
-__global__ void stage1(const typename Cplx<T>::type* __restrict__ xh,
-                       const T* __restrict__ scales, Cfg c,
-                       typename Cplx<T>::type* __restrict__ scratch) {
-  typedef typename Cplx<T>::type CT;
-  extern __shared__ unsigned char smem_raw[];
-  CT* tw = reinterpret_cast<CT*>(smem_raw);
-  CT* buf = tw + (c.f1 >> 1);             // [plane][p][m1], planes*P1*f1
-  const int L = c.f1, P = c.P1;
-  const int a = blockIdx.y;               // row within this chunk
-  const int g = c.row0 + a;               // global row b * na + scale
-  const int m2_0 = blockIdx.x * P;
-  fill_twiddles<T>(tw, L);
-
-  xh += (size_t)(g / c.na) * c.half;
-  const T scale = scales[g % c.na];
-  const T inv_dt = (T)c.inv_dt;
-  const T norm = c.l1_norm ? (T)1 : sqrt_t(scale);
-  for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
-    const int p = e % P;
-    const int m1 = e / P;
-    const long m = (long)m1 * c.f2 + m2_0 + p;
-    CT X[5];
-#pragma unroll
-    for (int q = 0; q < 5; ++q) X[q].x = X[q].y = (T)0;
-    if (m < c.half) {
-      const T xi = (T)((double)m * c.xi_step);
-      const T w = scale * xi;
-      const T psi = gmw_psih<T>(w, c) * norm;
-      CT v = xh[m];
-      if (m == c.half - 1 && (c.n_up & 1) == 0) {  // Nyquist halving
-        v.x *= (T)0.5;
-        v.y *= (T)0.5;
-      }
-      X[0].x = psi * v.x;
-      X[0].y = psi * v.y;
-      if (c.planes == 2) {                  // dW: times i xi / dt
-        const T xid = xi * inv_dt;
-        X[1].x = -xid * X[0].y;
-        X[1].y = xid * X[0].x;
-      } else if (c.planes == 5) {           // order 2: A, B, Bd, C
-        T tb = (T)0, t2b = (T)0;
-        if (psi != (T)0) {
-          const T ug = pow_t(w * (T)c.wc, (T)c.wgamma);
-          const T r = (T)c.beta - (T)c.wgamma * ug;
-          const T d1 = psi * r / w;
-          const T d2 = psi * (r * r - (T)c.beta -
-                              (T)c.wgamma * ((T)c.wgamma - (T)1) * ug) /
-                       (w * w);
-          tb = scale * d1;
-          t2b = (scale * scale) * d2;
-        }
-        X[1].x = -xi * X[0].y;
-        X[1].y = xi * X[0].x;
-        X[2].x = -(tb * v.y);
-        X[2].y = tb * v.x;
-        X[3].x = -xi * (tb * v.x);
-        X[3].y = -xi * (tb * v.y);
-        X[4].x = -(t2b * v.x);
-        X[4].y = -(t2b * v.y);
-      }
-    }
-    const int br = bitrev(m1, c.lg1);
-#pragma unroll
-    for (int q = 0; q < 5; ++q)
-      if (q < c.planes) buf[(q * P + p) * L + br] = X[q];
-  }
-  __syncthreads();
-  block_fft<T>(buf, c.planes * P, L, c.lg1, tw);
-
-  const T inv_n = (T)1 / (T)c.n_up;
-  const size_t plane = (size_t)c.rows * c.n_up;
-  for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
-    const int k1 = e % L;
-    const int p = e / L;
-    const int m2 = m2_0 + p;
-    // m2 * k1 < f2 * f1 = n_up: the twiddle's argument is exact
-    T s, co;
-    sincospi_t((T)((double)(2 * (long)m2 * k1) / c.n_up), &s, &co);
-    const size_t o = ((size_t)a * c.f2 + m2) * c.f1 + k1;
-    for (int q = 0; q < c.planes; ++q) {
-      const CT v = buf[(q * P + p) * L + k1];
-      CT y;
-      y.x = (v.x * co - v.y * s) * inv_n;
-      y.y = (v.x * s + v.y * co) * inv_n;
-      scratch[q * plane + o] = y;
-    }
-  }
-}
-
-template <typename T>
-__global__ void stage2(const typename Cplx<T>::type* __restrict__ scratch,
-                       Cfg c, typename Cplx<T>::type* __restrict__ wx,
-                       void* __restrict__ out2) {
-  typedef typename Cplx<T>::type CT;
-  extern __shared__ unsigned char smem_raw[];
-  CT* tw = reinterpret_cast<CT*>(smem_raw);
-  CT* buf = tw + (c.f2 >> 1);             // [plane][p][m2], planes*P2*f2
-  const int L = c.f2, P = c.P2;
-  const int a = blockIdx.y;
-  const int k1_0 = blockIdx.x * P;
-  fill_twiddles<T>(tw, L);
-
-  const size_t plane = (size_t)c.rows * c.n_up;
-  for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
-    const int p = e % P;
-    const int m2 = e / P;
-    const size_t o = ((size_t)a * c.f2 + m2) * c.f1 + k1_0 + p;
-    const int br = bitrev(m2, c.lg2);
-    for (int q = 0; q < c.planes; ++q)
-      buf[(q * P + p) * L + br] = scratch[q * plane + o];
-  }
-  __syncthreads();
-  block_fft<T>(buf, c.planes * P, L, c.lg2, tw);
-
-  const int k2lo = c.n1 / c.f1;
-  const int k2hi = (c.n1 + c.N + c.f1 - 1) / c.f1;
-  const T gate = (T)c.gamma_gate * (T)c.gamma_gate;
-  const size_t row = (size_t)(c.row0 + a) * c.N;
-  for (int e = threadIdx.x; e < P * (k2hi - k2lo); e += blockDim.x) {
-    const int p = e % P;
-    const int k2 = k2lo + e / P;
-    const int j = k1_0 + p + c.f1 * k2 - c.n1;
-    if (j < 0 || j >= c.N) continue;
-    const CT W = buf[p * L + k2];
-    wx[row + j] = W;
-    if (c.out_mode == 1) continue;
-    if (c.out_mode == 3) {
-      const CT A = buf[(P + p) * L + k2], B = buf[(2 * P + p) * L + k2];
-      const CT Bd = buf[(3 * P + p) * L + k2], C = buf[(4 * P + p) * L + k2];
-      const T tiny = (T)c.tiny;
-      const CT p2 = cdiv(csub(cmul(Bd, W), cmul(A, B)),
-                         csub(cmul(B, B), cmul(C, W)), tiny);
-      const CT pB = cmul(p2, B);
-      CT num;
-      num.x = A.x + pB.x;
-      num.y = A.y + pB.y;
-      const T w2 = fabs_t(cdiv(num, W, tiny).y) / (T)c.two_pi_dt;
-      const bool valid = (W.x * W.x + W.y * W.y > gate) && finite_t(w2);
-      static_cast<int32_t*>(out2)[row + j] = valid ? bin_of<T>(w2, c.bm) : -1;
-      continue;
-    }
-    const CT Dw = buf[(P + p) * L + k2];
-    if (c.out_mode == 2) {
-      static_cast<CT*>(out2)[row + j] = Dw;
-      continue;
-    }
-    static_cast<int32_t*>(out2)[row + j] =
-        phase_bin<T>(W, Dw, false, (T)0, gate, c.bm);
-  }
-}
-
-// ---- bins engine (out_mode 0) -------------------------------------------
-
 // r with its low b bits reversed (0 <= b <= 31): a bijection on every
 // aligned block of 2^b (ops/cwt_cuda.py::swz).
 __device__ __forceinline__ int swz(int r, int b) {
@@ -374,8 +203,7 @@ __device__ __forceinline__ int swz(int r, int b) {
   return (r & ~m) | (int)(__brev((unsigned)(r & m)) >> (31 - b) >> 1);
 }
 
-// One radix-2 DIT butterfly with block_fft's arithmetic, in place:
-// (x0, x1) <- (x0 + w x1, x0 - w x1).
+// One radix-2 DIT butterfly, in place: (x0, x1) <- (x0 + w x1, x0 - w x1).
 template <typename T, typename CT>
 __device__ __forceinline__ void bfly(CT& x0, CT& x1, const CT w) {
   const T tr = w.x * x1.x - w.y * x1.y;
@@ -387,27 +215,34 @@ __device__ __forceinline__ void bfly(CT& x0, CT& x1, const CT w) {
   x1 = y1;
 }
 
-// block_fft's transform over 2^lgn sequences of length L = 2^lg at
+// In-place radix-2 DIT transform, inputs in bit-reversed order, outputs
+// in natural order, over NP * 2^lgP sequences of length L = 2^lg at
 // buf[s * S + i], from level s0 on (the levels before it done already),
-// levels fused in pairs: butterfly b -> sequence q = b mod 2^lgn
-// (fastest), index j = b >> lgn; level s pairs (x0, x1) and (x2, x3) with
-// twiddle tw[pos L / 2^s], level s + 1 pairs (x0, x2) and (x1, x3) with
-// tw[pos L / 2^(s+1)] and tw[(pos + hl) L / 2^(s+1)], as block_fft's two
-// passes would.
-template <typename T>
-__device__ void block_fft4(typename Cplx<T>::type* buf, int lgn, int S, int L,
+// levels fused in pairs: butterfly b -> sequence q = b mod (NP * 2^lgP)
+// (fastest), index j = b div (NP * 2^lgP); level s pairs (x0, x1) and
+// (x2, x3) with twiddle tw[pos L / 2^s], level s + 1 pairs (x0, x2) and
+// (x1, x3) with tw[pos L / 2^(s+1)] and tw[(pos + hl) L / 2^(s+1)], as two
+// radix-2 passes would.
+template <typename T, int NP>
+__device__ void block_fft4(typename Cplx<T>::type* buf, int lgP, int S, int L,
                            int lg, int s0,
                            const typename Cplx<T>::type* tw) {
   typedef typename Cplx<T>::type CT;
+  // a power-of-two sequence count splits b by shift and mask
+  constexpr bool POW2 = (NP & (NP - 1)) == 0;
+  const int lgn = lgP + clog2(NP);
   const int qmask = (1 << lgn) - 1;
+  const int nseq = NP << lgP;
   int s = s0;
   for (; s < lg; s += 2) {
     const int hl = 1 << (s - 1);
     const int t1 = L >> s, t2 = L >> (s + 1);
-    for (int b = threadIdx.x; b < (L << lgn) >> 2; b += blockDim.x) {
-      const int j = b >> lgn;
+    for (int b = threadIdx.x; b < (POW2 ? (L << lgn) : L * nseq) >> 2;
+         b += blockDim.x) {
+      const int j = POW2 ? b >> lgn : (int)((unsigned)(b >> lgP) / NP);
+      const int q = POW2 ? b & qmask : b - ((j * NP) << lgP);
       const int pos = j & (hl - 1);
-      CT* x = buf + (b & qmask) * S + ((j >> (s - 1)) << (s + 1)) + pos;
+      CT* x = buf + q * S + ((j >> (s - 1)) << (s + 1)) + pos;
       CT x0 = x[0], x1 = x[hl], x2 = x[2 * hl], x3 = x[3 * hl];
       const CT wa = tw[pos * t1];
       bfly<T>(x0, x1, wa);
@@ -420,9 +255,11 @@ __device__ void block_fft4(typename Cplx<T>::type* buf, int lgn, int S, int L,
   }
   if (s == lg) {                          // odd lg: the last level alone
     const int hl = L >> 1;
-    for (int b = threadIdx.x; b < hl << lgn; b += blockDim.x) {
-      const int j = b >> lgn;
-      CT* x = buf + (b & qmask) * S + j;
+    for (int b = threadIdx.x; b < (POW2 ? hl << lgn : hl * nseq);
+         b += blockDim.x) {
+      const int j = POW2 ? b >> lgn : (int)((unsigned)(b >> lgP) / NP);
+      const int q = POW2 ? b & qmask : b - ((j * NP) << lgP);
+      CT* x = buf + q * S + j;
       CT x0 = x[0], x1 = x[hl];
       bfly<T>(x0, x1, tw[j]);
       x[0] = x0; x[hl] = x1;
@@ -433,15 +270,15 @@ __device__ void block_fft4(typename Cplx<T>::type* buf, int lgn, int S, int L,
 
 __device__ __forceinline__ int ilog2(int v) { return 31 - __clz(v); }
 
-// W and dW spectra of column m, zero from m = half on: stage1's
-// arithmetic for planes = 2.
-template <typename T>
+// The NP spectra of column m, zero from m = half on: W = psih xh; with
+// NP = 2 dW = i xi / dt W; with NP = 5 the order-2 spectra A, B, Bd, C.
+template <typename T, int NP>
 __device__ __forceinline__ void spectra(const typename Cplx<T>::type* xh,
                                         long m, T scale, T norm,
                                         const Cfg& c,
-                                        typename Cplx<T>::type& X0,
-                                        typename Cplx<T>::type& X1) {
-  X0.x = X0.y = X1.x = X1.y = (T)0;
+                                        typename Cplx<T>::type (&X)[NP]) {
+#pragma unroll
+  for (int q = 0; q < NP; ++q) X[q].x = X[q].y = (T)0;
   if (m < c.half) {
     const T xi = (T)((double)m * c.xi_step);
     const T w = scale * xi;
@@ -451,21 +288,43 @@ __device__ __forceinline__ void spectra(const typename Cplx<T>::type* xh,
       v.x *= (T)0.5;
       v.y *= (T)0.5;
     }
-    X0.x = psi * v.x;
-    X0.y = psi * v.y;
-    const T xid = xi * (T)c.inv_dt;        // dW: times i xi / dt
-    X1.x = -xid * X0.y;
-    X1.y = xid * X0.x;
+    X[0].x = psi * v.x;
+    X[0].y = psi * v.y;
+    if constexpr (NP == 2) {               // dW: times i xi / dt
+      const T xid = xi * (T)c.inv_dt;
+      X[1].x = -xid * X[0].y;
+      X[1].y = xid * X[0].x;
+    } else if constexpr (NP == 5) {        // order 2: A, B, Bd, C
+      T tb = (T)0, t2b = (T)0;
+      if (psi != (T)0) {
+        const T ug = pow_t(w * (T)c.wc, (T)c.wgamma);
+        const T r = (T)c.beta - (T)c.wgamma * ug;
+        const T d1 = psi * r / w;
+        const T d2 = psi * (r * r - (T)c.beta -
+                            (T)c.wgamma * ((T)c.wgamma - (T)1) * ug) /
+                     (w * w);
+        tb = scale * d1;
+        t2b = (scale * scale) * d2;
+      }
+      X[1].x = -xi * X[0].y;
+      X[1].y = xi * X[0].x;
+      X[2].x = -(tb * v.y);
+      X[2].y = tb * v.x;
+      X[3].x = -xi * (tb * v.x);
+      X[3].y = -xi * (tb * v.y);
+      X[4].x = -(t2b * v.x);
+      X[4].y = -(t2b * v.y);
+    }
   }
 }
 
-// Stage 1 of bins mode: stage1's arithmetic for planes = 2 (W and dW) in
-// the bins engine's layout and passes. The first DFT level pairs position
-// 2u (column m1 = bitrev(2u) < L/2) with 2u + 1 (m1 + L/2, whose spectra
-// are zero except at the Nyquist column), with twiddle tw[0] = 1: a thread
-// forms both columns and runs that butterfly in registers, and the passes
-// start at level 2.
-template <typename T>
+// Stage 1: the NP spectra of P1 columns m2, the length-f1 DFT over m1,
+// the four-step twiddle, NP scratch planes. The first DFT level pairs
+// position 2u (column m1 = bitrev(2u) < L/2) with 2u + 1 (m1 + L/2, whose
+// spectra are zero except at the Nyquist column), with twiddle tw[0] = 1:
+// a thread forms both columns and runs that butterfly in registers, and
+// the passes start at level 2.
+template <typename T, int NP>
 __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
                             const T* __restrict__ scales, Cfg c,
                             typename Cplx<T>::type* __restrict__ scratch) {
@@ -474,8 +333,8 @@ __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
   CT* tw = reinterpret_cast<CT*>(smem_raw);
   CT* buf = tw + (c.f1 >> 1);             // sequence plane * P + p at s * S
   const int L = c.f1, P = c.P1, S = c.S1, lgP = ilog2(c.P1);
-  const int a = blockIdx.y;
-  const int g = c.row0 + a;
+  const int a = blockIdx.y;               // row within this chunk
+  const int g = c.row0 + a;               // global row b * na + scale
   const int m2_0 = blockIdx.x * P;
   fill_twiddles<T>(tw, L);
 
@@ -489,18 +348,19 @@ __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
     const int p = e & (P - 1);
     const int i = 2 * swz(e >> lgP, c.sw1 - 1);  // pair (i, i + 1)
     const long m = (long)bitrev(i, c.lg1) * c.f2 + m2_0 + p;
-    CT W0, D0, W1, D1;
-    spectra<T>(xh, m, scale, norm, c, W0, D0);
-    spectra<T>(xh, m + (long)(L >> 1) * c.f2, scale, norm, c, W1, D1);
-    bfly<T>(W0, W1, one);
-    bfly<T>(D0, D1, one);
-    buf[p * S + i] = W0;
-    buf[p * S + i + 1] = W1;
-    buf[(P + p) * S + i] = D0;
-    buf[(P + p) * S + i + 1] = D1;
+    CT X0[NP], X1[NP];
+    spectra<T, NP>(xh, m, scale, norm, c, X0);
+    spectra<T, NP>(xh, m + (long)(L >> 1) * c.f2, scale, norm, c, X1);
+#pragma unroll
+    for (int q = 0; q < NP; ++q) bfly<T>(X0[q], X1[q], one);
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      buf[(q * P + p) * S + i] = X0[q];
+      buf[(q * P + p) * S + i + 1] = X1[q];
+    }
   }
   __syncthreads();
-  block_fft4<T>(buf, lgP + 1, S, L, c.lg1, 2, tw);
+  block_fft4<T, NP>(buf, lgP, S, L, c.lg1, 2, tw);
 
   const T inv_n = (T)1 / (T)c.n_up;
   const size_t plane = (size_t)c.rows * c.n_up;
@@ -513,7 +373,7 @@ __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
     sincospi_t((T)((double)(2 * (long)m2 * k1) / c.n_up), &s, &co);
     const size_t o = ((size_t)a * c.f2 + m2) * c.f1 + k1;
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
+    for (int q = 0; q < NP; ++q) {
       const CT v = buf[(q * P + p) * S + k1];
       CT y;
       y.x = (v.x * co - v.y * s) * inv_n;
@@ -523,13 +383,15 @@ __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
   }
 }
 
-// Stage 2 of bins mode: stage2's arithmetic for out_mode 0 in the bins
-// engine's layout and passes.
-template <typename T>
+// Stage 2: the length-f2 DFT over m2 of the mode's planes, then its
+// epilogue on the kept k2: Wx and k (bins), Wx (Wx only), Wx and dWx
+// (derivative), W and k of the order-2 estimate.
+template <typename T, int MODE>
 __global__ void bins_stage2(const typename Cplx<T>::type* __restrict__ scratch,
                             Cfg c, typename Cplx<T>::type* __restrict__ wx,
-                            int32_t* __restrict__ kout) {
+                            void* __restrict__ out2) {
   typedef typename Cplx<T>::type CT;
+  constexpr int NP = planes_of(MODE);
   extern __shared__ unsigned char smem_raw[];
   CT* tw = reinterpret_cast<CT*>(smem_raw);
   CT* buf = tw + (c.f2 >> 1);             // sequence plane * P + p at s * S
@@ -543,11 +405,12 @@ __global__ void bins_stage2(const typename Cplx<T>::type* __restrict__ scratch,
     const int p = e & (P - 1);
     const int i = swz(e >> lgP, c.sw2);   // position, bit-reversed order
     const size_t o = ((size_t)a * c.f2 + bitrev(i, c.lg2)) * c.f1 + k1_0 + p;
-    buf[p * S + i] = scratch[o];
-    buf[(P + p) * S + i] = scratch[plane + o];
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      buf[(q * P + p) * S + i] = scratch[q * plane + o];
   }
   __syncthreads();
-  block_fft4<T>(buf, lgP + 1, S, L, c.lg2, 1, tw);
+  block_fft4<T, NP>(buf, lgP, S, L, c.lg2, 1, tw);
 
   const int k2lo = c.n1 / c.f1;
   const int k2hi = (c.n1 + c.N + c.f1 - 1) / c.f1;
@@ -561,56 +424,73 @@ __global__ void bins_stage2(const typename Cplx<T>::type* __restrict__ scratch,
     const int j = k1_0 + p + c.f1 * k2 - c.n1;
     if (k2 >= k2hi || j < 0 || j >= c.N) continue;
     const CT W = buf[p * S + k2];
-    const CT Dw = buf[(P + p) * S + k2];
-    wx[row + j] = W;
-    kout[row + j] = phase_bin<T>(W, Dw, false, (T)0, gate, c.bm);
+    if constexpr (MODE == MODE_BINS) {
+      const CT Dw = buf[(P + p) * S + k2];
+      wx[row + j] = W;
+      static_cast<int32_t*>(out2)[row + j] =
+          phase_bin<T>(W, Dw, false, (T)0, gate, c.bm);
+    } else if constexpr (MODE == MODE_W) {
+      wx[row + j] = W;
+    } else if constexpr (MODE == MODE_W_DW) {
+      wx[row + j] = W;
+      static_cast<CT*>(out2)[row + j] = buf[(P + p) * S + k2];
+    } else {
+      const CT A = buf[(P + p) * S + k2], B = buf[(2 * P + p) * S + k2];
+      const CT Bd = buf[(3 * P + p) * S + k2], C = buf[(4 * P + p) * S + k2];
+      wx[row + j] = W;
+      const T tiny = (T)c.tiny;
+      const CT p2 = cdiv(csub(cmul(Bd, W), cmul(A, B)),
+                         csub(cmul(B, B), cmul(C, W)), tiny);
+      const CT pB = cmul(p2, B);
+      CT num;
+      num.x = A.x + pB.x;
+      num.y = A.y + pB.y;
+      const T w2 = fabs_t(cdiv(num, W, tiny).y) / (T)c.two_pi_dt;
+      const bool valid = (W.x * W.x + W.y * W.y > gate) && finite_t(w2);
+      static_cast<int32_t*>(out2)[row + j] =
+          valid ? bin_of<T>(w2, c.bm) : -1;
+    }
   }
 }
 
-template <typename T>
-int launch_bins(const void* xh, const void* scales, const Cfg& c,
-                void* scratch, void* wx, void* k, cudaStream_t st) {
+template <typename T, int MODE>
+int launch_mode(const void* xh, const void* scales, const Cfg& c,
+                void* scratch, void* wx, void* out2, cudaStream_t st) {
   typedef typename Cplx<T>::type CT;
-  const size_t sm1 = (size_t)(c.f1 / 2 + 2 * c.P1 * c.S1) * sizeof(CT);
-  const size_t sm2 = (size_t)(c.f2 / 2 + 2 * c.P2 * c.S2) * sizeof(CT);
-  cudaFuncSetAttribute(bins_stage1<T>,
+  constexpr int NP = planes_of(MODE);
+  const size_t sm1 = (size_t)(c.f1 / 2 + NP * c.P1 * c.S1) * sizeof(CT);
+  const size_t sm2 = (size_t)(c.f2 / 2 + NP * c.P2 * c.S2) * sizeof(CT);
+  cudaFuncSetAttribute(bins_stage1<T, NP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
-  cudaFuncSetAttribute(bins_stage2<T>,
+  cudaFuncSetAttribute(bins_stage2<T, MODE>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm2);
   dim3 g1(c.f2 / c.P1, c.rows), g2(c.f1 / c.P2, c.rows);
-  bins_stage1<T><<<g1, 256, sm1, st>>>(static_cast<const CT*>(xh),
-                                       static_cast<const T*>(scales), c,
-                                       static_cast<CT*>(scratch));
+  bins_stage1<T, NP><<<g1, 256, sm1, st>>>(static_cast<const CT*>(xh),
+                                           static_cast<const T*>(scales), c,
+                                           static_cast<CT*>(scratch));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bins_stage2<T><<<g2, 256, sm2, st>>>(static_cast<const CT*>(scratch), c,
-                                       static_cast<CT*>(wx),
-                                       static_cast<int32_t*>(k));
+  bins_stage2<T, MODE><<<g2, 256, sm2, st>>>(
+      static_cast<const CT*>(scratch), c, static_cast<CT*>(wx), out2);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* xh, const void* scales, const Cfg& c, void* scratch,
            void* wx, void* out2, void* stream) {
-  typedef typename Cplx<T>::type CT;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (c.out_mode == 0)
-    return launch_bins<T>(xh, scales, c, scratch, wx, out2, st);
-  const size_t sm1 = (size_t)(c.f1 / 2 + c.planes * c.P1 * c.f1) * sizeof(CT);
-  const size_t sm2 = (size_t)(c.f2 / 2 + c.planes * c.P2 * c.f2) * sizeof(CT);
-  cudaFuncSetAttribute(stage1<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)sm1);
-  cudaFuncSetAttribute(stage2<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)sm2);
-  dim3 g1(c.f2 / c.P1, c.rows), g2(c.f1 / c.P2, c.rows);
-  stage1<T><<<g1, 256, sm1, st>>>(static_cast<const CT*>(xh),
-                                  static_cast<const T*>(scales), c,
-                                  static_cast<CT*>(scratch));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stage2<T><<<g2, 256, sm2, st>>>(static_cast<const CT*>(scratch), c,
-                                  static_cast<CT*>(wx), out2);
-  return (int)cudaGetLastError();
+  switch (c.out_mode) {
+    case MODE_BINS:
+      return launch_mode<T, MODE_BINS>(xh, scales, c, scratch, wx, out2, st);
+    case MODE_W:
+      return launch_mode<T, MODE_W>(xh, scales, c, scratch, wx, out2, st);
+    case MODE_W_DW:
+      return launch_mode<T, MODE_W_DW>(xh, scales, c, scratch, wx, out2, st);
+    case MODE_BINS2:
+      return launch_mode<T, MODE_BINS2>(xh, scales, c, scratch, wx, out2,
+                                        st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 Cfg make_cfg(const int* ip, const double* dp) {
@@ -619,19 +499,19 @@ Cfg make_cfg(const int* ip, const double* dp) {
   c.half = ip[5]; c.n1 = ip[6]; c.N = ip[7]; c.P1 = ip[8]; c.P2 = ip[9];
   c.rows = ip[10]; c.row0 = ip[11]; c.l1_norm = ip[12]; c.bm.mode = ip[13];
   c.bm.idx1 = ip[14]; c.bm.omax = ip[15]; c.bm.flipud = ip[16];
-  c.out_mode = ip[17]; c.planes = ip[18]; c.na = ip[19];
+  c.out_mode = ip[17]; c.na = ip[18];
+  c.S1 = ip[19]; c.S2 = ip[20]; c.sw1 = ip[21]; c.sw2 = ip[22];
   c.xi_step = dp[0]; c.inv_dt = dp[1]; c.gamma_gate = dp[2];
   c.logconst = dp[3]; c.amp = dp[4]; c.wgamma = dp[5]; c.beta = dp[6];
   c.wc = dp[7]; c.bm.a0 = dp[8]; c.bm.d0 = dp[9]; c.bm.a1 = dp[10];
   c.bm.d1 = dp[11];
   c.tiny = dp[12]; c.two_pi_dt = dp[13];
-  c.S1 = ip[20]; c.S2 = ip[21]; c.sw1 = ip[22]; c.sw2 = ip[23];
   return c;
 }
 
 }  // namespace
 
-// ip: 24 ints, dp: 14 doubles (layout in ops/cwt_cuda.py). `out2` is k
+// ip: 23 ints, dp: 14 doubles (layout in ops/cwt_cuda.py). `out2` is k
 // (out_mode 0 or 3), dWx (2) or null (1); out_mode in ip says which. Returns
 // cudaGetLastError() after the launches.
 extern "C" int cwt_bins_f32(const void* xh, const void* scales, const int* ip,

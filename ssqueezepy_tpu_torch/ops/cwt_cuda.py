@@ -16,10 +16,10 @@ _make_kernel`:
     five WSST2 banks, the per-cell chirp regression and the bin map ->
     (W, k); the four auxiliary transforms stay inside the kernel.
 
-The inverse DFT is computed in the kernel itself (four-step in shared
-memory: radix 2 for B3 and B8; for B1/B3b the bins engine, radix 4 in a
-bank-conflict-free layout, `bins_plan`); design and bound are noted in
-the source.
+The inverse DFT is computed in the kernel itself, in one engine for
+every mode (four-step, radix-4 passes in shared memory laid out against
+bank conflicts; `bins_plan` sizes it for the mode's planes); design and
+bound are noted in the source.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors. `cwt_bins.launches` (one signal),
@@ -53,6 +53,11 @@ _TWO_PI = 6.283185307179586
 # bytes of shared memory one wavefront serves: 16 threads of 8-byte
 # (complex64) or 8 of 16-byte (complex128) accesses
 _WAVEFRONT = 128
+# columns per block at most: at the main path's plan 8 (4 for 5 planes,
+# by the budget) times best in every mode (scripts/torch_cwt_plan_sweep.py),
+# also with one plane, where 16 would give the passes 16 sequences and no
+# bank conflicts but half the blocks per SM
+_MAX_COLUMNS = 8
 
 
 def four_step(n_up):
@@ -67,12 +72,11 @@ def four_step(n_up):
     return f1, n_up // f1
 
 
-def _columns(L, other, itemsize, planes=2, stride=None):
-    """Columns per block: a power of two <= 8 dividing `other`, within
-    the shared-memory budget for `planes` planes of length L, each
-    sequence `stride` elements apart (default L) after the L/2 twiddles."""
-    stride = L if stride is None else stride
-    P = min(8, other)
+def _columns(L, other, itemsize, planes, stride):
+    """Columns per block P: a power of two <= `_MAX_COLUMNS` dividing
+    `other`, halved until the L/2 twiddles and planes * P sequences
+    `stride` elements apart fit the shared-memory budget."""
+    P = min(_MAX_COLUMNS, other)
     while P > 1 and (L // 2 + planes * P * stride) * itemsize > _SMEM_BUDGET:
         P //= 2
     if (L // 2 + planes * P * stride) * itemsize > _SMEM_BUDGET:
@@ -82,7 +86,7 @@ def _columns(L, other, itemsize, planes=2, stride=None):
 
 def swz(r, b):
     """`r` with its low `b` bits reversed (an int or an integer array): a
-    bijection on every aligned block of 2^b, the bins engine's walk over
+    bijection on every aligned block of 2^b, the DFT engine's walk over
     positions (csrc/cwt_bins.cu::swz)."""
     out = (r >> b) << b
     for t in range(b):
@@ -92,7 +96,7 @@ def swz(r, b):
 
 def smem_index(s, i, S):
     """Shared-memory element (after the twiddle table) of position `i` of
-    sequence `s` in the bins engine: s * S + i (csrc/cwt_bins.cu)."""
+    sequence `s` in the DFT engine: s * S + i (csrc/cwt_bins.cu)."""
     return s * S + i
 
 
@@ -100,21 +104,21 @@ BinsPlan = collections.namedtuple(
     'BinsPlan', 'f1 f2 P1 P2 S1 S2 sw1 sw2 smem1 smem2')
 
 
-def bins_plan(n_up, itemsize):
-    """Launch plan of the bins engine (B1/B3b, two planes): per stage the
-    columns per block P, the sequence stride S = L + 1 (odd, so sequences
-    at one position fall on distinct bank pairs), the swizzle width sw
-    (the low bits reversed when a half-warp walks P columns by positions:
-    log2 of the elements one wavefront serves, at most log2 L) and the
-    dynamic shared bytes."""
+def bins_plan(n_up, itemsize, planes):
+    """Launch plan of the DFT engine for `planes` planes (1: Wx; 2: bins
+    mode or Wx and dWx; 5: order 2): per stage the columns per block P,
+    the sequence stride S = L + 1 (odd, so sequences at one position fall
+    on distinct bank pairs), the swizzle width sw (the low bits reversed
+    when a half-warp walks P columns by positions: log2 of the elements
+    one wavefront serves, at most log2 L) and the dynamic shared bytes."""
     f1, f2 = four_step(n_up)
     wave = (_WAVEFRONT // itemsize).bit_length() - 1
 
     def stage(L, other):
         S = L + 1
-        P = _columns(L, other, itemsize, 2, S)
+        P = _columns(L, other, itemsize, planes, S)
         return (P, S, min(wave, L.bit_length() - 1),
-                (L // 2 + 2 * P * S) * itemsize)
+                (L // 2 + planes * P * S) * itemsize)
 
     (P1, S1, sw1, sm1), (P2, S2, sw2, sm2) = stage(f1, f2), stage(f2, f1)
     return BinsPlan(f1, f2, P1, P2, S1, S2, sw1, sw2, sm1, sm2)
@@ -208,14 +212,8 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
     f32 = scales.dtype == torch.float32
     itemsize = xh.element_size()
     planes = _PLANES[out_mode]
-    f1, f2 = four_step(n_up)
-    if out_mode == _OUT_BINS:
-        bp = bins_plan(n_up, itemsize)
-        P1, P2, engine = bp.P1, bp.P2, (bp.S1, bp.S2, bp.sw1, bp.sw2)
-    else:
-        P1 = _columns(f1, f2, itemsize, planes)
-        P2 = _columns(f2, f1, itemsize, planes)
-        engine = (0, 0, 0, 0)
+    bp = bins_plan(n_up, itemsize, planes)
+    f1, f2 = bp.f1, bp.f2
     na = scales.shape[0]
     n_all = Wx.numel() // N
     dev = xh.device
@@ -237,13 +235,13 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
     for row0 in range(0, n_all, rows):
         nr = min(rows, n_all - row0)
         # ip: n_up, f1, f2, lg1, lg2, half, n1, N, P1, P2, rows, row0,
-        # l1_norm, bin mode, idx1, omax, flipud, out_mode, planes, na, and
-        # for the bins engine (out_mode 0) S1, S2, sw1, sw2
-        ip = (ctypes.c_int * 24)(
+        # l1_norm, bin mode, idx1, omax, flipud, out_mode, na, S1, S2, sw1,
+        # sw2
+        ip = (ctypes.c_int * 23)(
             n_up, f1, f2, f1.bit_length() - 1, f2.bit_length() - 1,
-            n_up // 2 + 1, n1, N, P1, P2, nr, row0, int(bool(l1_norm)),
-            mode, int(idx1), int(omax), int(bool(flipud)), out_mode, planes,
-            na, *engine)
+            n_up // 2 + 1, n1, N, bp.P1, bp.P2, nr, row0,
+            int(bool(l1_norm)), mode, int(idx1), int(omax),
+            int(bool(flipud)), out_mode, na, bp.S1, bp.S2, bp.sw1, bp.sw2)
         err = fn(xh.data_ptr(), scales.data_ptr(), ip, dp,
                  scratch.data_ptr(), Wx.data_ptr(),
                  None if out2 is None else out2.data_ptr(), stream)

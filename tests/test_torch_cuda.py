@@ -17,10 +17,10 @@ k is held by the order-2 bins criterion alone (column sums 1e-4 of max,
 |dTx| > 1e-3 max on under 2% of cells, energy 0.02): the chirp regression
 cancels where |W| is small, so float rounding moves w2 across bins there.
 The fused reassignment (B4) by the bins criterion in float32 and within
-1e-9 of max|Tx| in float64, bit-identical from run to run; the CWT +
-bins kernel (B1) bit-identical from run to run, its batched form (B3b)
-and the batched scatter (B2) rows bit-identical to one signal run
-alone. The generic scatter (B5) within 1e-5 of max|out| in float32 and
+1e-9 of max|Tx| in float64, bit-identical from run to run; every mode of
+the CWT kernel (B1, B3, B8) bit-identical from run to run, B3's Wx
+bit-identical to B1's, B1's batched form (B3b) and the batched scatter
+(B2) rows bit-identical to one signal run alone. The generic scatter (B5) within 1e-5 of max|out| in float32 and
 1e-12 in float64 (summation order), bit-identical from run to run and
 its batch rows bit-identical to one signal run alone.
 """
@@ -122,17 +122,53 @@ def test_cwt_bins_kernel_vs_plain(dev, N, scales, padtype, dtype):
                     scatter_kv_plain(Wx_p, k_p, c, nbins))
 
 
+@pytest.mark.parametrize('mode', ['bins', 'wx', 'wx_dwx', 'order2'])
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
-def test_cwt_bins_repeats_bit_identical(dev, dtype):
-    """Two launches on the same inputs give the same Wx and k, bit for
-    bit."""
+def test_cwt_bins_repeats_bit_identical(dev, dtype, mode):
+    """Two launches on the same inputs give the same outputs, bit for bit,
+    in every mode of the CWT kernel: Wx and k (B1), Wx (B3), Wx and dWx
+    (B3), W and k of order 2 (B8)."""
     N = 10000
     xh, sc, c, wav, n_up, n1, params, gamma = _inputs(N, dtype,
                                                       'log-piecewise', dev)
-    args = (xh, sc, wav, n_up, n1, N, 1., True, params, gamma, True)
-    W1, k1 = cwt_bins(*args)
-    W2, k2 = cwt_bins(*args)
-    assert torch.equal(W1, W2) and torch.equal(k1, k2)
+    if mode == 'bins':
+        def run():
+            return cwt_bins(xh, sc, wav, n_up, n1, N, 1., True, params,
+                            gamma, True)
+    elif mode == 'order2':
+        def run():
+            return cwt_bins2(xh, sc, wav, n_up, n1, N, 1., params, gamma,
+                             True)
+    else:
+        def run():
+            return cwt_fused(xh, sc, wav, n_up, n1, N, 1., mode == 'wx_dwx',
+                             True)
+    (W1, o1), (W2, o2) = run(), run()
+    assert torch.equal(W1, W2)
+    assert (o1 is None and o2 is None) if mode == 'wx' else \
+        torch.equal(o1, o2)
+
+
+@pytest.mark.parametrize('shape', [(10000,), (3, 4000)])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_cwt_modes_wx_bit_identical_to_b1(dev, shape, dtype):
+    """B3's Wx, with one plane (Wx only) and with two (Wx and dWx), is
+    bit-identical to B1's (B3b's for a batch) on
+    the same spectra and scales, and so is B8's W (one signal, L1 norm):
+    one DFT engine, the same spectra and butterflies."""
+    N = shape[-1]
+    _, sc, _, wav, n_up, n1, params, gamma = _inputs(N, dtype,
+                                                     'log-piecewise', dev)
+    x = np.random.default_rng(4).standard_normal(shape)
+    xh = rfft(padsignal(torch.as_tensor(x, dtype=getattr(torch, dtype),
+                                        device=dev), 'reflect')).contiguous()
+    Wx, _ = cwt_bins(xh, sc, wav, n_up, n1, N, 1., True, params, gamma, True)
+    for derivative in (False, True):
+        W3, _ = cwt_fused(xh, sc, wav, n_up, n1, N, 1., derivative, True)
+        assert torch.equal(W3, Wx), derivative
+    if len(shape) == 1:
+        W8, _ = cwt_bins2(xh, sc, wav, n_up, n1, N, 1., params, gamma, True)
+        assert torch.equal(W8, Wx)
 
 
 def test_cwt_bins_row_chunks(dev, monkeypatch):
@@ -251,9 +287,12 @@ def test_stft_conv_unmodulated_and_row_chunks(dev, monkeypatch):
     assert torch.equal(full[1], chunked[1])
 
 
-@pytest.mark.parametrize('shape,scales', [((1000,), 'log-piecewise'),
-                                          ((4, 3000), 'log'),
-                                          ((160000,), 'log-piecewise')])
+@pytest.mark.parametrize('shape,scales', [
+    ((1000,), 'log-piecewise'), ((4, 3000), 'log'),
+    ((160000,), 'log-piecewise'),
+    # n_up = 4, 8, 32, 2048: DFT lengths 2 to 64, odd log2 included
+    ((2,), 'log-piecewise'), ((3,), 'log-piecewise'),
+    ((20,), 'log-piecewise'), ((1025,), 'log')])
 @pytest.mark.parametrize('derivative', [False, True])
 @pytest.mark.parametrize('dtype,l1_norm', [('float32', True),
                                            ('float64', True),
@@ -319,7 +358,10 @@ def test_public_cwt_on_card(dev):
 
 @pytest.mark.parametrize('N,scales,signal', [
     (2048, 'log-piecewise', 'noise'), (2048, 'log-piecewise', 'chirp'),
-    (4096, 'log', 'noise'), (160000, 'log-piecewise', 'noise')])
+    (4096, 'log', 'noise'), (160000, 'log-piecewise', 'noise'),
+    # n_up = 4, 8, 32, 2048: DFT lengths 2 to 64, odd log2 included
+    (2, 'log-piecewise', 'noise'), (3, 'log-piecewise', 'noise'),
+    (20, 'log-piecewise', 'noise'), (1025, 'log', 'noise')])
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
 def test_cwt_bins2_kernel_vs_plain(dev, N, scales, signal, dtype):
     xh, sc, c, wav, n_up, n1, params, gamma = _inputs(

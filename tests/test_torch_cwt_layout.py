@@ -1,10 +1,12 @@
 # -*- coding: utf-8 -*-
-"""The bins engine of the CWT kernel (`csrc/cwt_bins.cu`, out_mode 0: B1
-and B3b) on the CPU: its launch plan, its shared-memory access patterns
-and the index arithmetic of its radix-4 passes. No card and no kernel run
-here; the thread maps below mirror the kernel's loops (`bins_stage1`,
-`bins_stage2`, `block_fft4`) and use the wrapper's own `bins_plan`,
-`smem_index` and `swz`.
+"""The DFT engine of the CWT kernel (`csrc/cwt_bins.cu`: bins mode B1 and
+B3b, Wx-only and derivative mode B3, order-2 mode B8) on the CPU: its
+launch plan, its shared-memory access patterns and the index arithmetic
+of its radix-4 passes, for each plane count (1: Wx only; 2: bins or Wx
+and dWx; 5: order 2). No card and no kernel run here; the thread maps
+below mirror the kernel's loops (`bins_stage1`, `bins_stage2`,
+`block_fft4`) and use the wrapper's own `bins_plan`, `smem_index` and
+`swz`.
 
 Bank model: shared memory serves 128 bytes per wavefront, so a warp's
 8-byte (complex64) accesses are served per half-warp of 16 threads and
@@ -22,6 +24,7 @@ from ssqueezepy_tpu_torch.ops.pad import pad_params
 
 BENCH_N = 160000               # the main path's signal length
 ITEMSIZE = {'float32': 8, 'float64': 16}
+PLANES = [1, 2, 5]             # Wx only; bins or Wx + dWx; order 2
 
 
 def _wavefronts(addr, active, itemsize):
@@ -38,12 +41,13 @@ def _wavefronts(addr, active, itemsize):
                      for grp in map(np.unique, a.reshape(-1, g))])
 
 
-def _passes(L, P, S, s0):
-    """`block_fft4`'s passes from level s0 over the 2P sequences of length
-    L: per pass, (the data addresses, one array per element a butterfly
-    touches, each loaded and then stored; the twiddle addresses), one
-    entry per butterfly b -> sequence b mod 2P, index b // 2P."""
-    lg, nseq, tw0 = L.bit_length() - 1, 2 * P, L // 2
+def _passes(L, P, S, s0, planes):
+    """`block_fft4`'s passes from level s0 over the planes * P sequences
+    of length L: per pass, (the data addresses, one array per element a
+    butterfly touches, each loaded and then stored; the twiddle
+    addresses), one entry per butterfly b -> sequence b mod (planes * P),
+    index b // (planes * P)."""
+    lg, nseq, tw0 = L.bit_length() - 1, planes * P, L // 2
     b = np.arange(nseq * L // 4)
     q, j = b % nseq, b // nseq
     s, out = s0, []
@@ -63,7 +67,7 @@ def _passes(L, P, S, s0):
     return out
 
 
-def _stage_patterns(plan, stage, n1=0, N=0):
+def _stage_patterns(plan, stage, n1, N, planes):
     """{pattern: [(addresses, active), ...]} of one launch, one entry per
     load or store instruction; addresses count elements from the start of
     dynamic shared memory (the twiddle table, then the sequences)."""
@@ -82,20 +86,24 @@ def _stage_patterns(plan, stage, n1=0, N=0):
         i = 2 * swz(u // P, sw - 1)
         pats['bit-reversed store'] = [
             (tw0 + smem_index(q * P + u % P, i + d, S),
-             np.ones(u.size, bool)) for q in (0, 1) for d in (0, 1)]
+             np.ones(u.size, bool)) for q in range(planes) for d in (0, 1)]
     else:
         pats['bit-reversed store'] = [
             (tw0 + smem_index(q * P + e % P, swz(e // P, sw), S), ones)
-            for q in (0, 1)]
+            for q in range(planes)]
     # every load, twiddle read and store of the passes
     pats['radix passes'] = [(a, np.ones(a.size, bool))
-                            for data, tws in _passes(L, P, S, 3 - stage)
+                            for data, tws in _passes(L, P, S, 3 - stage,
+                                                     planes)
                             for a in data + tws + data]
     if stage == 1:
         k1, p = e % L, e // L
         pats['twiddle epilogue'] = [
-            (tw0 + smem_index(qq * P + p, k1, S), ones) for qq in (0, 1)]
+            (tw0 + smem_index(qq * P + p, k1, S), ones)
+            for qq in range(planes)]
     else:
+        # the mode's epilogue reads every plane at k2 (Wx; Wx and dW for
+        # the bins or the dWx output; the five order-2 planes)
         k2lo, k2hi = n1 // plan.f1, -(-(n1 + N) // plan.f1)
         nk = -(-(k2hi - k2lo) // (1 << sw)) << sw
         e = np.arange(P * nk)
@@ -103,17 +111,26 @@ def _stage_patterns(plan, stage, n1=0, N=0):
         jj = (e % P) + plan.f1 * k2 - n1      # block k1_0 = 0
         act = (k2 < k2hi) & (jj >= 0) & (jj < N)
         pats['phase/bin epilogue'] = [
-            (tw0 + smem_index(qq * P + p, k2, S), act) for qq in (0, 1)]
+            (tw0 + smem_index(qq * P + p, k2, S), act)
+            for qq in range(planes)]
     return pats
 
 
 @pytest.mark.parametrize('lg', range(2, 23))
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
-def test_bins_plan_fits_and_divides(lg, dtype):
+@pytest.mark.parametrize('planes', PLANES)
+def test_bins_plan_fits_and_divides(lg, dtype, planes):
     """The launch plan of every power-of-two n_up from 4 to 2^22: shared
-    memory within budget, columns dividing the grid, strides odd."""
+    memory within budget, columns dividing the grid, strides odd; where no
+    column fits the budget, the plan raises."""
     n_up, itemsize = 1 << lg, ITEMSIZE[dtype]
-    plan = bins_plan(n_up, itemsize)
+    f1, _ = cwt_cuda.four_step(n_up)
+    if (f1 // 2 + planes * (f1 + 1)) * itemsize > cwt_cuda._SMEM_BUDGET:
+        # not even one column fits (order 2 in float64 from n_up = 2^21)
+        with pytest.raises(NotImplementedError, match='shared memory'):
+            bins_plan(n_up, itemsize, planes)
+        return
+    plan = bins_plan(n_up, itemsize, planes)
     assert plan.f1 * plan.f2 == n_up
     for L, other, P, S, sw, sm in (
             (plan.f1, plan.f2, plan.P1, plan.S1, plan.sw1, plan.smem1),
@@ -121,29 +138,34 @@ def test_bins_plan_fits_and_divides(lg, dtype):
         assert P >= 1 and P & (P - 1) == 0 and other % P == 0
         assert S >= L and S % 2 == 1
         assert 1 <= sw <= L.bit_length() - 1
-        assert sm == (L // 2 + 2 * P * S) * itemsize <= cwt_cuda._SMEM_BUDGET
-        # a wider block would no longer fit, unless P is already 8 or `other`
-        if P < min(8, other):
-            assert (L // 2 + 4 * P * S) * itemsize > cwt_cuda._SMEM_BUDGET
+        assert sm == (L // 2 + planes * P * S) * itemsize \
+            <= cwt_cuda._SMEM_BUDGET
+        # a wider block would no longer fit, unless P is already at its
+        # cap or `other`
+        if P < min(cwt_cuda._MAX_COLUMNS, other):
+            assert (L // 2 + 2 * planes * P * S) * itemsize \
+                > cwt_cuda._SMEM_BUDGET
 
 
 @pytest.mark.parametrize('lg', [2, 3, 5, 11, 18, 22])
-def test_bins_patterns_cover_each_element_once(lg):
+@pytest.mark.parametrize('planes', PLANES)
+def test_bins_patterns_cover_each_element_once(lg, planes):
     """Each store pattern and each radix pass touches every element of
-    every sequence exactly once (the swizzled walks are bijections)."""
+    every sequence exactly once (the swizzled walks are bijections), and
+    the stage-2 epilogue visits each output column of its block once."""
     n_up, N = 1 << lg, (1 << lg) * 5 // 8 + 1
     _, n1, _ = pad_params(N, 'reflect', padlength=n_up)
-    plan = bins_plan(n_up, 8)
+    plan = bins_plan(n_up, 8, planes)
     for stage in (1, 2):
         L = plan.f1 if stage == 1 else plan.f2
         P, S = (plan.P1, plan.S1) if stage == 1 else (plan.P2, plan.S2)
-        want = np.sort(np.add.outer(np.arange(2 * P) * S, np.arange(L))
-                       .ravel() + L // 2)
-        pats = _stage_patterns(plan, stage, n1, N)
+        want = np.sort(np.add.outer(np.arange(planes * P) * S,
+                                    np.arange(L)).ravel() + L // 2)
+        pats = _stage_patterns(plan, stage, n1, N, planes)
         got = np.sort(np.concatenate([a for a, _ in
                                       pats['bit-reversed store']]))
         assert np.array_equal(got, want)
-        for data, _ in _passes(L, P, S, 3 - stage):
+        for data, _ in _passes(L, P, S, 3 - stage, planes):
             assert np.array_equal(np.sort(np.concatenate(data)), want)
         if stage == 2:
             a, act = pats['phase/bin epilogue'][0]
@@ -154,42 +176,62 @@ def test_bins_patterns_cover_each_element_once(lg):
                                                % plan.f1 < P])
 
 
+# (planes, dtype): columns per block at the main path's plan, and the
+# patterns that are not conflict-free with their most wavefronts per
+# thread group: the passes walk planes * P sequences, so fewer than a
+# group's 16 (float32) or 8 (float64) threads, or 20, put two indices j in
+# one group
+MAIN_PLAN = {
+    (1, 'float32'): (8, {'radix passes': 2}),
+    (2, 'float32'): (8, {}),
+    (5, 'float32'): (4, {'radix passes': 2}),
+    (1, 'float64'): (8, {}),
+    (2, 'float64'): (4, {}),
+    (5, 'float64'): (2, {'radix passes': 2}),
+}
+
+
 @pytest.mark.parametrize('pattern', ['twiddle table fill',
                                      'bit-reversed store', 'radix passes',
                                      'twiddle epilogue',
                                      'phase/bin epilogue'])
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
-def test_bins_engine_free_of_bank_conflicts(pattern, dtype):
+@pytest.mark.parametrize('planes', PLANES)
+def test_bins_engine_free_of_bank_conflicts(pattern, dtype, planes):
     """At the main path's plan (n_up = 2^18, f1 = f2 = 512) every shared-
     memory access of both launches is served in one wavefront per
-    half-warp (float32) or quarter-warp (float64)."""
+    half-warp (float32) or quarter-warp (float64), except the passes
+    where the plan walks 8 (one plane, float32: 8 columns time best) or
+    10 and 20 sequences (order 2): 2-way at most there."""
     n_up, n1, _ = pad_params(BENCH_N, 'reflect')
     itemsize = ITEMSIZE[dtype]
-    plan = bins_plan(n_up, itemsize)
+    plan = bins_plan(n_up, itemsize, planes)
     assert (plan.f1, plan.f2) == (512, 512)
-    assert (plan.P1, plan.P2) == ((8, 8) if dtype == 'float32' else (4, 4))
-    seen = 0
+    P, ways = MAIN_PLAN[planes, dtype]
+    assert (plan.P1, plan.P2) == (P, P)
+    worst = {}
     for stage in (1, 2):
-        for addr, act in _stage_patterns(plan, stage, n1,
-                                         BENCH_N).get(pattern, []):
-            seen += 1
-            assert _wavefronts(addr, act, itemsize).max() == 1, (stage,
-                                                                pattern)
-    assert seen
+        for addr, act in _stage_patterns(plan, stage, n1, BENCH_N,
+                                         planes).get(pattern, []):
+            worst[stage] = max(worst.get(stage, 0),
+                               _wavefronts(addr, act, itemsize).max())
+    assert worst and set(worst.values()) == {ways.get(pattern, 1)}, worst
 
 
-def _radix2_engine_patterns(L, P, stage, n1=0, N=0):
-    """The parent engine the other modes keep (stage1 / stage2 /
-    block_fft, two planes): sequence s at buf[s * L + i], the column p
-    fastest with m1 (m2) next in the bit-reversed store, and radix-2
-    passes with butterfly b -> sequence b >> (lg - 1), r = b mod L/2."""
+def _radix2_engine_patterns(L, P, stage, n1, N, planes):
+    """The radix-2 engine the kernel ran before this one (stage1 / stage2
+    / block_fft; removed from `csrc/cwt_bins.cu`, kept here as the model
+    that the counts below compare with): sequence s = plane * P + p at
+    buf[s * L + i], the column p fastest with m1 (m2) next in the
+    bit-reversed store, and radix-2 passes with butterfly b -> sequence
+    b >> (lg - 1), r = b mod L/2."""
     lg, tw0 = L.bit_length() - 1, L // 2
     e = np.arange(P * L)
     ones = np.ones(e.size, bool)
     pats = [(np.arange(L // 2), np.ones(L // 2, bool))]       # twiddles
     pats += [(tw0 + (q * P + e % P) * L + swz(e // P, lg), ones)
-             for q in (0, 1)]
-    b = np.arange(2 * P * L // 2)
+             for q in range(planes)]
+    b = np.arange(planes * P * L // 2)
     q, r = b >> (lg - 1), b & (L // 2 - 1)
     for s in range(1, lg + 1):
         hl = 1 << (s - 1)
@@ -198,77 +240,90 @@ def _radix2_engine_patterns(L, P, stage, n1=0, N=0):
         act = np.ones(b.size, bool)
         pats += [(i0, act), (i0 + hl, act)] * 2 + [(pos * (L >> s), act)]
     if stage == 1:
-        pats += [(tw0 + (q * P + e // L) * L + e % L, ones) for q in (0, 1)]
+        pats += [(tw0 + (q * P + e // L) * L + e % L, ones)
+                 for q in range(planes)]
     else:
         k2lo, k2hi = n1 // L, -(-(n1 + N) // L)
         e = np.arange(P * (k2hi - k2lo))
         k2, j = k2lo + e // P, e % P + L * (k2lo + e // P) - n1
         pats += [(tw0 + (q * P + e % P) * L + k2, (j >= 0) & (j < N))
-                 for q in (0, 1)]
+                 for q in range(planes)]
     return pats
 
 
-def test_wavefronts_per_block_against_the_radix2_engine():
+# wavefronts per block at the main path's plan (float32, f1 = f2 = 512):
+# {stage: (radix-2 engine, this engine, this engine's passes alone)}; both
+# engines run P = 8 columns for 1 and 2 planes and 4 for 5
+WAVEFRONTS = {
+    1: {1: (16912, 5776, 5248), 2: (17912, 6704, 6272)},
+    2: {1: (33808, 6672, 5632), 2: (35808, 7760, 6912)},
+    5: {1: (42256, 11984, 10688), 2: (43196, 13152, 12096)},
+}
+
+
+@pytest.mark.parametrize('planes', PLANES)
+def test_wavefronts_per_block_against_the_radix2_engine(planes):
     """Shared-memory wavefronts one block of each launch needs at the main
-    path's plan (float32, f1 = f2 = 512, P = 8), loads and stores counted:
-    the parent engine's conflicts (16-way bit-reversed stores, 2-way data
-    at levels 1-4, up to 16-way twiddle reads at level 5) against the bins
-    engine's."""
+    path's plan (float32, f1 = f2 = 512), loads and stores counted: the
+    radix-2 engine's conflicts (16-way bit-reversed stores, 2-way data at
+    levels 1-4, up to 16-way twiddle reads at level 5) against this
+    engine's; with one plane its passes walk 8 sequences and with 5
+    planes 20, 2-way where a half-warp straddles two indices j."""
     n_up, n1, _ = pad_params(BENCH_N, 'reflect')
-    plan = bins_plan(n_up, 8)
+    plan = bins_plan(n_up, 8, planes)
     got = {}
     for stage in (1, 2):
-        old = _radix2_engine_patterns(512, 8, stage, n1, BENCH_N)
-        new = [am for pat in _stage_patterns(plan, stage, n1,
-                                             BENCH_N).values() for am in pat]
-        got[stage] = tuple(sum(_wavefronts(a, m, 8).sum() for a, m in pats)
-                           for pats in (old, new))
-    assert got == {1: (33808, 6672), 2: (35808, 7760)}
+        old = _radix2_engine_patterns(512, plan.P1, stage, n1, BENCH_N,
+                                      planes)
+        pats = _stage_patterns(plan, stage, n1, BENCH_N, planes)
+        new = [am for pat in pats.values() for am in pat]
+        got[stage] = tuple(sum(_wavefronts(a, m, 8).sum() for a, m in pl)
+                           for pl in (old, new, pats['radix passes']))
+    assert got == WAVEFRONTS[planes]
 
 
-def _fft4(x, s0):
-    """`block_fft4`'s passes from level s0 on the rows of `x` (bit-reversed
-    input), level 1 done first in pairs (2u, 2u + 1) when s0 = 2, as
-    `bins_stage1` does."""
-    L = x.shape[-1]
-    lg = L.bit_length() - 1
-    tw = np.exp(2j * np.pi * np.arange(L // 2) / L)
-    y = x.copy()
+def _run_passes(x, P, planes, s0):
+    """The engine's passes on a shared-memory image: `x` (planes * P, L)
+    is stored bit-reversed at smem_index(s, i, L + 1) after the L/2
+    twiddles; level 1 runs first in pairs (2u, 2u + 1) when s0 = 2, as
+    `bins_stage1` does; then every butterfly of `_passes` reads and
+    writes through its own addresses. Returns the sequences read back."""
+    nseq, L = x.shape
+    lg, S, tw0 = L.bit_length() - 1, L + 1, L // 2
+    mem = np.zeros(tw0 + nseq * S, complex)
+    mem[:tw0] = np.exp(2j * np.pi * np.arange(tw0) / L)
+    at = tw0 + smem_index(np.arange(nseq)[:, None], np.arange(L), S)
+    mem[at] = x[:, swz(np.arange(L), lg)]
     if s0 == 2:
-        y[:, 0::2], y[:, 1::2] = x[:, 0::2] + x[:, 1::2], x[:, 0::2] - x[:, 1::2]
-    s = s0
-    while s < lg:
-        hl = 1 << (s - 1)
-        j = np.arange(L // 4)
-        pos = j & (hl - 1)
-        base = ((j >> (s - 1)) << (s + 1)) + pos
-        x0, x1, x2, x3 = (y[:, base + m * hl] for m in range(4))
-        wa = tw[pos * (L >> s)]
-        x0, x1 = x0 + wa * x1, x0 - wa * x1
-        x2, x3 = x2 + wa * x3, x2 - wa * x3
-        wb, wc = tw[pos * (L >> (s + 1))], tw[(pos + hl) * (L >> (s + 1))]
-        x0, x2 = x0 + wb * x2, x0 - wb * x2
-        x1, x3 = x1 + wc * x3, x1 - wc * x3
-        for m, v in enumerate((x0, x1, x2, x3)):
-            y[:, base + m * hl] = v
-        s += 2
-    if s == lg:
-        j = np.arange(L // 2)
-        x0, x1 = y[:, j], y[:, j + L // 2]
-        y[:, j], y[:, j + L // 2] = x0 + tw[j] * x1, x0 - tw[j] * x1
-    return y
+        a0, a1 = at[:, 0::2], at[:, 1::2]
+        mem[a0], mem[a1] = mem[a0] + mem[a1], mem[a0] - mem[a1]
+    for data, tws in _passes(L, P, S, s0, planes):
+        v, w = [mem[a] for a in data], [mem[t] for t in tws]
+        if len(v) == 4:
+            v[0], v[1] = v[0] + w[0] * v[1], v[0] - w[0] * v[1]
+            v[2], v[3] = v[2] + w[0] * v[3], v[2] - w[0] * v[3]
+            v[0], v[2] = v[0] + w[1] * v[2], v[0] - w[1] * v[2]
+            v[1], v[3] = v[1] + w[2] * v[3], v[1] - w[2] * v[3]
+        else:
+            v[0], v[1] = v[0] + w[0] * v[1], v[0] - w[0] * v[1]
+        for a, y in zip(data, v):
+            mem[a] = y
+    return mem[at]
 
 
 @pytest.mark.parametrize('lg', range(1, 12))
 @pytest.mark.parametrize('s0', [1, 2])
-def test_radix4_passes_compute_the_inverse_dft(lg, s0):
-    """The passes' index arithmetic, from level 1 (stage 2) or after the
-    first level in registers (stage 1), is an unnormalized inverse DFT
-    for every length 2^1 .. 2^11, odd log2 L included (the last radix-2
-    pass)."""
-    L = 1 << lg
+@pytest.mark.parametrize('planes', PLANES)
+def test_radix4_passes_compute_the_inverse_dft(lg, s0, planes):
+    """The passes' index arithmetic, with its sequence map over planes * 4
+    sequences (20 for order 2: not a power of two), from level 1 (stage
+    2) or after the first level in registers (stage 1), is an
+    unnormalized inverse DFT of every sequence for every length 2^1 ..
+    2^11, odd log2 L included (the last radix-2 pass)."""
+    L, P = 1 << lg, 4
     rng = np.random.default_rng(lg)
-    x = rng.standard_normal((3, L)) + 1j * rng.standard_normal((3, L))
-    y = _fft4(x[:, swz(np.arange(L), lg)], s0)
+    x = (rng.standard_normal((planes * P, L))
+         + 1j * rng.standard_normal((planes * P, L)))
+    y = _run_passes(x, P, planes, s0)
     np.testing.assert_allclose(y, np.fft.ifft(x, axis=-1) * L,
                                rtol=0, atol=1e-10 * L)
