@@ -24,7 +24,9 @@ the scatter from bins). It:
      per source, in parallel, with `-Xptxas -v`), prints the build time and
      the compiler's report (registers, spills) of every instantiation of
      the CWT kernel's DFT engine (`bins_stage1` per plane count,
-     `bins_stage2` per output mode, float and double);
+     `bins_stage2` per output mode) and of the STFT kernel's
+     (`stft_stage1` per plane count, `stft_stage2` per mode), float
+     and double;
   3. holds the fused CWT + bins kernel (B1) against its plain PyTorch
      version at the headline shape, float32 and float64, checks two runs
      are bit-identical and that the Wx of the plain/derivative mode (B3),
@@ -34,7 +36,9 @@ the scatter from bins). It:
   5. holds the STFT table kernel (B6) in its three modes (Sx; Sx + dSx;
      Sx + bins) against its plain version at the ssq_stft headline
      (Np2 = 163840 = 5 x 2^15) and at N = 10000 (Np2 = 12288 = 3 x 2^12),
-     float32 and float64;
+     float32 and float64, checks that its Sx is bit-identical across the
+     three modes and, at the headline in float32, that each mode repeats
+     bit for bit;
   6. holds the plain/derivative CWT kernel (B3) against its plain version
      at cwt@160k (with and without dWx) and on a (16, 10000) batch,
      float32 and float64;
@@ -42,7 +46,9 @@ the scatter from bins). It:
      the FSST2 table kernel (B7) against their plain versions at the
      ssq_cwt2 / ssq_stft2 headline (float32) and at N = 10000 (float64),
      and checks that B8's W is bit-identical to B1's Wx at the headline
-     (L1 norm, the same spectrum and scales);
+     (L1 norm, the same spectrum and scales), that B7's V is bit-identical
+     to B6's Sx (Sx mode) with the bank's first table as H, and that B7
+     repeats bit for bit;
   8. holds the batched bins mode of the CWT kernel (B3b) against its plain
      version on a (4, 160000) float32 and a (3, 10000) float64 batch, each
      row bit-identical to B1 on its signal; the batched scatter (B2) on
@@ -253,6 +259,10 @@ def main():
     for line in (ptxas_report(ptxas['cwt_bins'], 'bins_stage')
                  if 'cwt_bins' in ptxas else ["not rebuilt in this run"]):
         print("ptxas, CWT engine: " + line, flush=True)
+    # the STFT kernel's: stft_stage1<T, planes>, stft_stage2<T, mode>
+    for line in (ptxas_report(ptxas['stft_conv'], 'stft_stage')
+                 if 'stft_conv' in ptxas else ["not rebuilt in this run"]):
+        print("ptxas, STFT engine: " + line, flush=True)
 
     # ---- the bench headline plan ---------------------------------------
     N = 160000
@@ -369,6 +379,7 @@ def main():
                   % ((n_rows, Ns, Np2) + split_fft_len(Np2) + (dtype,)),
                   flush=True)
             tol = 2e-5 if dtype == 'float32' else 1e-9
+            Sx_0 = None
             for mode, Hd_, bins_ in (('Sx', None, None),
                                      ('Sx+dSx', Hd, None),
                                      ('Sx+k', Hd, bins6)):
@@ -378,6 +389,17 @@ def main():
                 err = rel_err(Sx_k, Sx_p)
                 check(err <= tol, "%s %s: max|Sx_kernel - Sx_plain| = %.3g of "
                       "max|Sx| (limit %g)" % (dtype, mode, err, tol))
+                if Sx_0 is None:
+                    Sx_0 = Sx_k
+                else:
+                    check(torch.equal(Sx_k, Sx_0), "%s %s: Sx bit-identical "
+                          "to the Sx mode's" % (dtype, mode))
+                if Ns == N and dtype == 'float32':
+                    Sx_r, o_r = stft_conv(xh6, H, Hd_, Ns, 1., bins_)
+                    check(torch.equal(Sx_r, Sx_k) and (
+                        o_k is None or torch.equal(o_r, o_k)),
+                        "float32 B6 %s repeat runs bit-identical" % mode)
+                    del Sx_r, o_r
                 if mode == 'Sx+dSx':
                     err_d = rel_err(o_k, o_p)
                     check(err_d <= tol, "%s %s: dSx %.3g of max|dSx| "
@@ -396,7 +418,7 @@ def main():
                                   args=(xh6, H, Hd, Ns, 1., bins6),
                                   n_valid=int((o_k >= 0).sum()))
                 del Sx_k, o_k, Sx_p, o_p
-            del xh6, H, Hd
+            del xh6, H, Hd, Sx_0
             torch.cuda.empty_cache()
 
     # ---- B3 against its plain version --------------------------------------
@@ -504,6 +526,13 @@ def main():
         bins_criterion(scatter_kv_plain(V_k, k_k, c7, n_rows),
                        scatter_kv_plain(V_p, k_p, c7, n_rows),
                        "%s B7" % dtype)
+        check(torch.equal(stft_conv(xh7, tab7[0], None, Ns)[0], V_k),
+              "B7 %s: V bit-identical to B6's Sx with the first table as H"
+              % dtype)
+        V_r, k_r = fsst2_conv(xh7, tab7, Ns, 1., bins7)
+        check(torch.equal(V_r, V_k) and torch.equal(k_r, k_k),
+              "B7 %s repeat runs bit-identical" % dtype)
+        del V_r, k_r
         if Ns == N:
             b7 = dict(err=float((V_k - V_p).abs().max()),
                       args=(xh7, tab7, Ns, 1., bins7), c=c7)
@@ -998,7 +1027,11 @@ def main():
     b6_ms = cuda_ms(lambda: stft_conv(*b6['args']))
     b6_sx_ms = cuda_ms(lambda: stft_conv(xh6, H, None, N))
     b6_plain_ms = cuda_ms(lambda: stft_conv_plain(*b6['args']), reps=5)
-    prods = torch.cat([H * xh6, Hd * xh6])
+    prods = H * xh6
+    # the Sx mode's yardstick: one torch.fft.ifft of the (n_rows, Np2)
+    # products
+    b6_sx_lib_ms = cuda_ms(lambda: torch.fft.ifft(prods, dim=-1))
+    prods = torch.cat([prods, Hd * xh6])
     b6_lib_ms = cuda_ms(lambda: torch.fft.ifft(prods, dim=-1))
     del prods, H, Hd, xh6, b6['args']
     torch.cuda.empty_cache()
@@ -1164,12 +1197,13 @@ def main():
              b1_flops, b2_ms, b2_plain_ms, b2_lib_ms, b2_bound, b2_by,
              b2_bytes, n_valid), flush=True)
     print("B6 bins mode %.3f ms, Sx mode %.3f ms (plain bins %.3f, "
-          "torch.fft.ifft DFT core %.3f, bound %.3f by %s: %.3g B, %.3g "
-          "FLOP; Np2=%d); B3 Wx only %.3f ms (plain %.3f, torch.fft.ifft "
-          "DFT core %.3f, bound %.3f by %s: %.3g B, %.3g FLOP)"
-          % (b6_ms, b6_sx_ms, b6_plain_ms, b6_lib_ms, b6_bound, b6_by,
-             b6_bytes, b6_flops, Np2, b3_ms, b3_plain_ms, b3_lib_ms,
-             b3_bound, b3_by, b3_bytes, b3_flops), flush=True)
+          "torch.fft.ifft DFT core %.3f, of the Sx mode's one plane %.3f, "
+          "bound %.3f by %s: %.3g B, %.3g FLOP; Np2=%d); B3 Wx only %.3f "
+          "ms (plain %.3f, torch.fft.ifft DFT core %.3f, bound %.3f by %s: "
+          "%.3g B, %.3g FLOP)"
+          % (b6_ms, b6_sx_ms, b6_plain_ms, b6_lib_ms, b6_sx_lib_ms,
+             b6_bound, b6_by, b6_bytes, b6_flops, Np2, b3_ms, b3_plain_ms,
+             b3_lib_ms, b3_bound, b3_by, b3_bytes, b3_flops), flush=True)
     print("B3 Wx + dWx %.3f ms (torch.fft.ifft DFT core of the two planes "
           "%.3f)" % (b3d_ms, b3d_lib_ms), flush=True)
     print("B8 %.3f ms (plain %.3f, torch.fft.ifft DFT core %.3f, bound "

@@ -77,12 +77,13 @@ def _unwrap(p):
                      dim=-1)
 
 
-def phase_cwt(Wx, dWx, difftype='trig', gamma=None):
+def phase_cwt(Wx, dWx, difftype='trig', gamma=None, parallel=None):
     """CWT phase transform. 'trig' from the derivative `dWx`
     (`phase_transform_w`); 'phase' from forward differences of the
     unwrapped angle of `Wx` along time, the last column the whole span
     u[..., -1] - u[..., 0], inf where |Wx| < gamma. `gamma` defaults to
-    the square root of machine epsilon."""
+    the square root of machine epsilon; `parallel` is ignored, as in the
+    JAX package."""
     if gamma is None:
         gamma = math.sqrt(EPS64 if Wx.dtype == torch.complex128 else EPS32)
     if difftype == 'trig':
@@ -97,8 +98,9 @@ def phase_cwt(Wx, dWx, difftype='trig', gamma=None):
                      "'trig', 'phase'.")
 
 
-def phase_stft(Sx, dSx, Sfs, gamma=None):
-    """STFT phase transform; `gamma` defaults to 10 * machine epsilon."""
+def phase_stft(Sx, dSx, Sfs, gamma=None, parallel=None):
+    """STFT phase transform; `gamma` defaults to 10 * machine epsilon;
+    `parallel` is ignored, as in the JAX package."""
     if gamma is None:
         gamma = 10 * (EPS64 if Sx.dtype == torch.complex128 else EPS32)
     return phase_transform_w(Sx, dSx, gamma, Sfs=torch.as_tensor(

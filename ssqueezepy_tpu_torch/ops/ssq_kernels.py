@@ -120,14 +120,17 @@ def _broadcast_const(const, na, dtype, device):
 
 
 def ssqueeze_fast(Wx, dWx, ssq_freqs, const, logscale=False, flipud=False,
-                  gamma=None, Sfs=None, params=None, device='cuda'):
+                  gamma=None, Sfs=None, params=None, out=None,
+                  natural_bins=None, device='cuda'):
     """Fused phase transform + bin map + scatter-add: Tx (nbins, N) from
     complex Wx, dWx (na, N), or (B, nbins, N) from (B, na, N) batches
     (tensors or numpy, moved to `device`), a tensor on `device`. `const`
     the squeeze constant (scalar or (na,)); `Sfs` (na,), when given, the
     STFT row frequencies the phase transform is offset from; `params` from
     `ssq_bin_params` (else built from `ssq_freqs` and `logscale`). `gamma`
-    is required: it gates |Wx| <= gamma."""
+    is required: it gates |Wx| <= gamma. `out` is ignored and
+    `natural_bins` has no effect (the JAX package's parameters, at its
+    positions: there they pick the TPU scatter's layout)."""
     from .ssq_cuda import ssq_fused
     if gamma is None:
         raise ValueError("`gamma` is required")
@@ -154,13 +157,15 @@ def _dispatch_scatter(v, k, valid, nbins, const=None):
 
 
 def indexed_sum_onfly(Wx, w, ssq_freqs, const=1, logscale=False,
-                      flipud=False, params=None, device='cuda'):
+                      flipud=False, out=None, parallel=None, params=None,
+                      natural_bins=None, device='cuda'):
     """Scatter-add of complex Wx (na, N), or a (B, na, N) batch, by the
     bins of a precomputed phase transform `w` (real, Wx's shape; inf marks
     a dropped cell): Tx[k(w[i, j]), j] += Wx[i, j] * const[i]. `const` a
     scalar or (na,); `params` from `ssq_bin_params` (else built from
     `ssq_freqs` and `logscale`). Tensors or numpy, moved to `device`;
-    returns a tensor on `device`."""
+    returns a tensor on `device`. `out` and `parallel` are ignored and
+    `natural_bins` has no effect, as in the JAX package."""
     device = resolve_device(device)
     Wx = to_device(Wx, device)
     w = to_device(w, device)
@@ -172,9 +177,10 @@ def indexed_sum_onfly(Wx, w, ssq_freqs, const=1, logscale=False,
                              valid.contiguous(), params['omax'] + 1, c)
 
 
-def indexed_sum(a, k, device='cuda'):
+def indexed_sum(a, k, parallel=None, device='cuda'):
     """out[k[i, j], j] += a[i, j] over complex `a` (na, N) and int bins
-    `k`, nbins = na, a negative k wrapped once; returns numpy."""
+    `k`, nbins = na, a negative k wrapped once; returns numpy. `parallel`
+    is ignored, as in the JAX package."""
     device = resolve_device(device)
     a = to_device(a, device)
     if not a.is_complex():

@@ -29,6 +29,7 @@ their plain versions for CPU tensors. `stft_conv.launches` and
 `fsst2_conv.launches` count calls of the C entry point (one per chunk of
 rows); each issues two CUDA launches.
 """
+import collections
 import ctypes
 
 import torch
@@ -37,17 +38,26 @@ from . import _build
 from .phase import cdiv, cmul, div_tiny
 
 __all__ = ['stft_conv', 'stft_conv_plain', 'fsst2_conv', 'fsst2_conv_plain',
-           'fsst2_rows', 'split_fft_len']
+           'fsst2_rows', 'split_fft_len', 'launch_plan', 'radices']
 
 _TWO_PI = 6.283185307179586
 _MODE_SX, _MODE_SX_DSX, _MODE_BINS, _MODE_FSST2 = 0, 1, 2, 3
 _PLANES = {_MODE_SX: 1, _MODE_SX_DSX: 2, _MODE_BINS: 2, _MODE_FSST2: 5}
 
 _SCRATCH_BUDGET = 2 << 30
-_SMEM_TARGET = 96 * 1024
+_SMEM_TARGET = 112 * 1024
 _SMEM_MAX = 220 * 1024
 _MAX_LEN = 1 << 22
 _MAX_GRID_Y = 65535
+# bytes of shared memory one wavefront serves: 16 threads of 8-byte
+# (complex64) or 8 of 16-byte (complex128) accesses
+_WAVEFRONT = 128
+# columns per block at most
+_MAX_COLUMNS = 8
+# planes per block up to which the first pass reads device memory itself
+# (`Direct` in csrc/stft_conv.cu holds the same number); with more, a
+# gather into shared memory comes first
+_DIRECT_MAX_PLANES = 2
 
 
 def split_fft_len(n):
@@ -73,17 +83,70 @@ def split_fft_len(n):
     return best[1], best[2]
 
 
-def _columns(L, other, itemsize, planes):
-    """Columns per block: the largest power of two <= 8 dividing `other`
-    whose shared memory (twiddle table + two buffers per plane) fits the
-    target; one column up to the card's limit."""
-    smem = lambda P: L * (1 + 2 * planes * P) * itemsize
-    P = 8
+def radices(L):
+    """The passes of the kernel's length-L transform, in order: (radix R,
+    Ns = the product of the radices before it); radix 4 while 4 divides
+    what is left, then 2, 3, 5 (Stockham autosort, natural order in and
+    out; csrc/dft_mixed.cuh)."""
+    out, Ns, rem = [], 1, int(L)
+    while rem > 1:
+        R = (4 if rem % 4 == 0 else 2 if rem % 2 == 0 else
+             3 if rem % 3 == 0 else 5)
+        out.append((R, Ns))
+        Ns *= R
+        rem //= R
+    return out
+
+
+def _columns(L, other, itemsize, planes, stride):
+    """Columns per block P: the fewest (a power of two, at most
+    `_MAX_COLUMNS`) that give the passes at least 8 sequences (planes * P:
+    a half-warp then spans two indices j at most) and the gathers whole
+    32-byte sectors (P * itemsize >= 32), halved until P divides `other`
+    and the block's shared memory (the L twiddles and two buffers of
+    planes * P sequences `stride` elements apart) fits the target; one
+    column up to the card's limit. Fewer columns leave room for more
+    blocks per SM, which times faster than conflict-free passes over 16
+    sequences (scripts/torch_stft_plan_sweep.py)."""
+    smem = lambda P: (L + 2 * planes * P * stride) * itemsize
+    P = 1
+    while P < _MAX_COLUMNS and (planes * P < 8 or P * itemsize < 32):
+        P *= 2
     while P > 1 and (other % P or smem(P) > _SMEM_TARGET):
         P //= 2
     if smem(P) > _SMEM_MAX:
         raise NotImplementedError("DFT factor %d exceeds shared memory" % L)
     return P
+
+
+LaunchPlan = collections.namedtuple(
+    'LaunchPlan', 'f1 f2 direct P1 P2 S1 S2 sw1 sw2 smem1 smem2')
+
+
+def launch_plan(Np2, itemsize, planes):
+    """Launch plan of the DFT engine for `planes` planes (1: Sx; 2: Sx and
+    dSx, or bins mode; 5: FSST2; both launches take all of them per
+    block): whether the first pass reads device memory itself (`direct`,
+    up to `_DIRECT_MAX_PLANES`) or a gather first, and per stage the
+    columns per block P, the sequence stride S = L | 1 (L + 1 for even L:
+    odd, so the sequences at one position fall on distinct bank pairs),
+    the swizzle width sw (the low bits reversed where a thread group walks
+    P columns fastest and positions next, in a gather and in the stage-2
+    epilogue, so that its 16 / P positions lie P apart: log2 of the
+    elements one wavefront serves, at most the power of two in L, which
+    keeps the walk a bijection on [0, L)) and the dynamic shared bytes."""
+    f1, f2 = split_fft_len(Np2)
+    wave = (_WAVEFRONT // itemsize).bit_length() - 1
+
+    def stage(L, other):
+        S = L | 1
+        P = _columns(L, other, itemsize, planes, S)
+        sw = min(wave, (L & -L).bit_length() - 1)
+        return P, S, sw, (L + 2 * planes * P * S) * itemsize
+
+    (P1, S1, sw1, sm1), (P2, S2, sw2, sm2) = stage(f1, f2), stage(f2, f1)
+    return LaunchPlan(f1, f2, planes <= _DIRECT_MAX_PLANES, P1, P2, S1, S2,
+                      sw1, sw2, sm1, sm2)
 
 
 def _check(xh, H, Hd, N, bins):
@@ -171,11 +234,9 @@ def _launch(wrapper, mode, xh, H, Hd, N, fs, bins, Sx, out2):
     FSST2 mode `H` is the (5, n_rows, Np2) bank and `Hd` is None."""
     lib = _build.load('stft_conv')
     Np2 = xh.shape[0]
-    f1, f2 = split_fft_len(Np2)
     planes = _PLANES[mode]
     itemsize = xh.element_size()
-    P1 = _columns(f1, f2, itemsize, planes)
-    P2 = _columns(f2, f1, itemsize, planes)
+    sp = launch_plan(Np2, itemsize, planes)
     n_rows = Sx.shape[0]
     dev = xh.device
     rows = max(1, min(n_rows, _MAX_GRID_Y,
@@ -196,9 +257,11 @@ def _launch(wrapper, mode, xh, H, Hd, N, fs, bins, Sx, out2):
           else lib.stft_conv_f64)
     for row0 in range(0, n_rows, rows):
         nr = min(rows, n_rows - row0)
-        ip = (ctypes.c_int * 13)(Np2, f1, f2, N, P1, P2, nr, row0, mode,
-                                 planes, int(omax), int(bool(flipud)),
-                                 n_rows)
+        # ip: Np2, f1, f2, N, P1, P2, rows, row0, mode, omax, flipud,
+        # table rows, S1, S2, sw1, sw2
+        ip = (ctypes.c_int * 16)(Np2, sp.f1, sp.f2, N, sp.P1, sp.P2, nr,
+                                 row0, mode, int(omax), int(bool(flipud)),
+                                 n_rows, sp.S1, sp.S2, sp.sw1, sp.sw2)
         err = fn(xh.data_ptr(), H.data_ptr(),
                  None if Hd is None else Hd.data_ptr(), sfs, ip, dp,
                  scratch.data_ptr(), Sx.data_ptr(),

@@ -225,9 +225,12 @@ def _rel_err(a, b):
 
 # (N, n_fft) whose transform length N + n_fft - 1 -> next_fft_len has the
 # odd factor 1 (2^12), 3 (3 x 2^12), 5 (the ssq_stft headline, 5 x 2^15),
-# 9 (9 x 2^10) and 15 (15 x 2^9)
+# 9 (9 x 2^10) and 15 (15 x 2^9); and N = 2, 3, 20, 1025 with transform
+# lengths 20 (5 x 4), 15 (15 x 1: no second step), 12 (3 x 4), 60
+# (15 x 4) and 1152 (36 x 32)
 STFT_SHAPES = [(4000, 97, 1), (10000, 512, 3), (160000, 598, 5),
-               (9000, 128, 9), (7000, 256, 15)]
+               (9000, 128, 9), (7000, 256, 15), (2, 19, 5), (2, 12, 15),
+               (3, 10, 3), (20, 30, 15), (1025, 64, 9)]
 
 
 def _stft_inputs(N, n_fft, dtype, dev, modulated=True, seed=0):
@@ -419,7 +422,10 @@ def _fsst2_inputs(N, n_fft, dtype, dev, x=None, modulated=True):
 
 @pytest.mark.parametrize('N,n_fft,signal', [
     (10000, 598, 'noise'), (10000, 598, 'chirp'), (4000, 97, 'noise'),
-    (160000, 598, 'noise')])
+    (160000, 598, 'noise'),
+    # transform lengths 9 x 2^10 and 15 x 2^9; N = 2, 3, 20, 1025
+    (9000, 128, 'noise'), (7000, 256, 'noise'), (2, 19, 'noise'),
+    (3, 10, 'noise'), (20, 30, 'noise'), (1025, 64, 'noise')])
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
 def test_fsst2_conv_kernel_vs_plain(dev, N, n_fft, signal, dtype):
     xh, tables, bins, c = _fsst2_inputs(
@@ -460,6 +466,47 @@ def test_fsst2_conv_unmodulated_chunks_and_repeats(dev, monkeypatch):
     nbins = bins['params']['omax'] + 1
     assert torch.equal(scatter_kv(*full, c, nbins),
                        scatter_kv(*full, c, nbins))
+
+
+@pytest.mark.parametrize('mode', ['sx', 'sx_dsx', 'bins', 'fsst2'])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_stft_conv_repeats_bit_identical(dev, dtype, mode):
+    """Two launches on the same inputs give the same outputs, bit for bit,
+    in every mode of the STFT table kernel: Sx (B6 mode 0), Sx and dSx
+    (1), Sx and k (2), V and k (B7)."""
+    N, n_fft = 10000, 598
+    if mode == 'fsst2':
+        xh, tables, bins, _ = _fsst2_inputs(N, n_fft, dtype, dev)
+
+        def run():
+            return fsst2_conv(xh, tables, N, 1., bins)
+    else:
+        xh, H, Hd, bins, _ = _stft_inputs(N, n_fft, dtype, dev)
+        Hd_ = None if mode == 'sx' else Hd
+        bins_ = bins if mode == 'bins' else None
+
+        def run():
+            return stft_conv(xh, H, Hd_, N, 1., bins_)
+    (S1, o1), (S2, o2) = run(), run()
+    assert torch.equal(S1, S2)
+    assert (o1 is None and o2 is None) if mode == 'sx' else \
+        torch.equal(o1, o2)
+
+
+@pytest.mark.parametrize('N,n_fft', [(10000, 598), (9000, 128),
+                                     (7000, 256), (20, 30)])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_stft_modes_sx_bit_identical(dev, N, n_fft, dtype):
+    """B6's Sx is bit-identical across its modes 0, 1 and 2, and B7's V is
+    bit-identical to B6's Sx (mode 0) with the bank's first table as H:
+    one DFT engine, the same products and butterflies."""
+    xh, H, Hd, bins, _ = _stft_inputs(N, n_fft, dtype, dev)
+    Sx, _ = stft_conv(xh, H, None, N)
+    for Hd_, bins_ in ((Hd, None), (Hd, bins)):
+        assert torch.equal(stft_conv(xh, H, Hd_, N, 1., bins_)[0], Sx)
+    xh, tables, bins, _ = _fsst2_inputs(N, n_fft, dtype, dev)
+    V, _ = fsst2_conv(xh, tables, N, 1., bins)
+    assert torch.equal(V, stft_conv(xh, tables[0], None, N)[0])
 
 
 def test_public_order2_on_card(dev):
