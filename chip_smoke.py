@@ -24,9 +24,12 @@ the scatter from bins). It:
      per source, in parallel, with `-Xptxas -v`), prints the build time and
      the compiler's report (registers, spills) of every instantiation of
      the CWT kernel's DFT engine (`bins_stage1` per plane count,
-     `bins_stage2` per output mode) and of the STFT kernel's
-     (`stft_stage1` per plane count, `stft_stage2` per mode), float
-     and double;
+     `bins_stage2` per output mode), of the STFT kernel's
+     (`stft_stage1` per plane count, `stft_stage2` per mode) and of the
+     reassignment scatters (`scatter_kv_kernel`, `shift_scatter_kernel`
+     per mask/const mode), float and double, and the scatters' launch
+     plan at the headline (columns, stages and shared memory per block,
+     the blocks per SM the runtime grants it);
   3. holds the fused CWT + bins kernel (B1) against its plain PyTorch
      version at the headline shape, float32 and float64, checks two runs
      are bit-identical and that the Wx of the plain/derivative mode (B3),
@@ -75,8 +78,10 @@ the scatter from bins). It:
      `ssq_cwt`/`issq_cwt` (mad_rms < 0.1, each row), and white noise
      through `stft`/`istft` in float64 at hop 1 and hop 8 (MAE < 1e-12);
  12. times each kernel, its plain version and a library yardstick with
-     CUDA events after warm-up, computes each kernel's bound from this
-     run's shapes, and times each public call with its peak memory;
+     CUDA events after warm-up (B2 also on the (4, 160000) batch),
+     computes each kernel's bound from this run's shapes (and, for B2 and
+     B5, the bytes/s achieved and the share of the bound), and times each
+     public call with its peak memory;
  13. prints one `{"kernels": [...]}` line, then, as the last line,
      `{"ok": true, "device": {...}}`.
 
@@ -167,7 +172,7 @@ def bound(nbytes, flops):
 def ptxas_report(log, key):
     """One line per kernel whose mangled name holds `key`, from an
     `nvcc -Xptxas -v` log: its registers, barriers, stack and spills. A
-    kernel template `name<float|double, int>` is named so."""
+    kernel template `name<float|double, int|bool, ...>` is named so."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function '" in line:
@@ -177,10 +182,14 @@ def ptxas_report(log, key):
             out[name].append(line.split(' : ')[-1].strip())
 
     def readable(n):
-        m = re.search(r'\d+(%s\w*?)I([fd])Li(\d+)E' % key, n)
-        return n if m is None else '%s<%s, %s>' % (
-            m.group(1), 'float' if m.group(2) == 'f' else 'double',
-            m.group(3))
+        m = re.search(r'\d+(%s\w*?)I((?:[fd]|L[ib]\d+E)+)E' % key, n)
+        if m is None:
+            return n
+        args = [{'f': 'float', 'd': 'double'}[f] if f else
+                ('true' if val == '1' else 'false') if kind == 'b' else val
+                for f, kind, val in re.findall(r'([fd])|L([ib])(\d+)E',
+                                               m.group(2))]
+        return '%s<%s>' % (m.group(1), ', '.join(args))
     return ['%s: %s' % (readable(n), '; '.join(v)) for n, v in out.items()
             if key in n]
 
@@ -208,8 +217,8 @@ def main():
             cwt_bins, cwt_bins_plain, cwt_bins2, cwt_bins2_plain, cwt_fused,
             cwt_fused_plain, four_step)
         from ssqueezepy_tpu_torch.ops.ssq_cuda import (
-            scatter_kv, scatter_kv_plain, shift_scatter, shift_scatter_plain,
-            ssq_fused, ssq_fused_plain)
+            scatter_kv, scatter_kv_plain, scatter_launch_plan, shift_scatter,
+            shift_scatter_plain, ssq_fused, ssq_fused_plain)
         from ssqueezepy_tpu_torch.ops.phase import (phase_cwt, phase_stft,
                                                     phase_transform_w)
         from ssqueezepy_tpu_torch.ops.ssq_kernels import compute_bins
@@ -263,6 +272,13 @@ def main():
     for line in (ptxas_report(ptxas['stft_conv'], 'stft_stage')
                  if 'stft_conv' in ptxas else ["not rebuilt in this run"]):
         print("ptxas, STFT engine: " + line, flush=True)
+    # the scatters: scatter_kv_kernel<T>, shift_scatter_kernel<T, mask,
+    # const>
+    for key in ('scatter_kv_kernel', 'shift_scatter_kernel'):
+        for line in (ptxas_report(ptxas['scatter_kv'], key)
+                     if 'scatter_kv' in ptxas
+                     else ["not rebuilt in this run"]):
+            print("ptxas, scatters: " + line, flush=True)
 
     # ---- the bench headline plan ---------------------------------------
     N = 160000
@@ -281,6 +297,19 @@ def main():
           "headline plan: na=%d nbins=%d n_up=%d n1=%d %s"
           % (na, nbins, n_up, n1, params['mode']))
     f1, f2 = four_step(n_up)
+    # B2/B5's plan at the headline, from the kernel's shared bytes and the
+    # blocks per SM the runtime grants (kind: 0 B2, 1 B5 with mask and
+    # const, 4 B5 with neither)
+    for what, kind, itemsize in (('B2 float32', 0, 8), ('B2 float64', 0, 16),
+                                 ('B5 float32, mask + const', 1, 8),
+                                 ('B5 float32, neither', 4, 8),
+                                 ('B5 float64, mask + const', 1, 16)):
+        sp = scatter_launch_plan(kind, nbins, itemsize, dev)
+        print("scatter plan, %s at nbins=%d: %d columns, ring of %d stages "
+              "x 8 rows, %d B shared per block, %d blocks per SM granted by "
+              "the runtime, %d B of copies in flight per SM"
+              % (what, nbins, sp.columns, sp.stages, sp.smem,
+                 sp.blocks_per_sm, sp.inflight), flush=True)
     rng = np.random.default_rng(0)
     x_np = rng.standard_normal(N).astype(np.float32)
 
@@ -605,7 +634,8 @@ def main():
         check(e2 <= 1e-5, "B2 batched %s vs plain: %.3g of max|Tx| (limit "
               "1e-5)" % (dtype, e2))
         if Nb == N:
-            b3b = dict(err=err_abs, args=(xhb,) + rest, c=cb_)
+            b3b = dict(err=err_abs, args=(xhb,) + rest, c=cb_,
+                       b2=(W_k, k_k, cb_, nb))
         del W_k, k_k, T1, T2, T_p
         torch.cuda.empty_cache()
 
@@ -1087,6 +1117,13 @@ def main():
     b3b_lib_ms = cuda_ms(lambda: torch.fft.ifft(specb, dim=-1), reps=5)
     n_xhb = xhb.numel()
     del specb, xhb, b3b['args']
+    # B2 as the batched ssq_cwt runs it, on B3b's (4, 293, 160000) planes
+    b2b_ms = cuda_ms(lambda: scatter_kv(*b3b['b2']))
+    Wb, kb = b3b['b2'][:2]
+    b2b_bytes = Wb.numel() * (cb + 4) + na * rb + B4N * nbins * N * cb
+    b2b_bound, b2b_by = bound(b2b_bytes, 4 * int(((kb >= 0)
+                                                 & (kb < nbins)).sum()))
+    del Wb, kb, b3b['b2']
     torch.cuda.empty_cache()
 
     # B4 as ssq_cwt(get_dWx=True) runs it; yardstick: the scatter part
@@ -1224,6 +1261,16 @@ def main():
           "B, %d valid cells); B2 in this run %.3f ms"
           % (b5_ms, b5_plain_ms, b5_lib_ms, b5_bound, b5_by, b5_bytes,
              n_valid5, b2_ms), flush=True)
+    for what, ms, nbytes, bms in (
+            ('B2 at (%d, %d)' % (na, N), b2_ms, b2_bytes, b2_bound),
+            ('B2 at (%d, %d, %d)' % (B4N, na, N), b2b_ms, b2b_bytes,
+             b2b_bound),
+            ('B5 at (%d, %d), mask + const' % (na, N), b5_ms, b5_bytes,
+             b5_bound)):
+        print("%s: %.3f ms, %.3f TB/s of the bytes it must move (%.3g B), "
+              "bound %.3f ms, %.1f%% of the bound; card: %s"
+              % (what, ms, nbytes / ms / 1e9, nbytes, bms, 100 * bms / ms,
+                 card), flush=True)
     print("main-path launches per kernel, summed over the %d public "
           "calls: %s" % (len(calls), launches), flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),

@@ -90,10 +90,11 @@ _SIGNATURES = {
     'cwt_bins': [(('cwt_bins_f32', 'cwt_bins_f64'), [ctypes.c_void_p] * 8)],
     'scatter_kv': [
         (('scatter_kv_f32', 'scatter_kv_f64'),
-         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2),
+         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2),
         (('shift_scatter_f32', 'shift_scatter_f64'),
-         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-         + [ctypes.c_void_p] * 2)],
+         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+         + [ctypes.c_void_p] * 2),
+        (('scatter_occupancy',), [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)],
     'ssq_fused': [(('ssq_fused_f32', 'ssq_fused_f64'),
                    [ctypes.c_void_p] * 8)],
     'stft_conv': [(('stft_conv_f32', 'stft_conv_f64'),

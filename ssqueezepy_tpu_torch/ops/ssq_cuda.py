@@ -26,13 +26,16 @@
 All three take one signal (na, N) or a batch (B, na, N), the batch in one
 launch. Each CUDA thread owns one time column and sums its rows in order
 into shared memory, so the results are bit-identical from run to run
-(design and bound are noted in the sources).
+(design and bound are noted in the sources). B2 and B5 feed the rows
+through a ring of asynchronous copies laid out by `scatter_plan`.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors; `scatter_kv.launches`, `ssq_fused.launches` and
 `shift_scatter.launches` count kernel launches.
 """
 import ctypes
+import itertools
+from collections import namedtuple
 
 import torch
 
@@ -42,10 +45,24 @@ from .phase import phase_transform_w
 from .ssq_kernels import compute_bins, scatter_plain
 
 __all__ = ['scatter_kv', 'scatter_kv_plain', 'ssq_fused', 'ssq_fused_plain',
-           'shift_scatter', 'shift_scatter_plain']
+           'shift_scatter', 'shift_scatter_plain', 'scatter_plan',
+           'scatter_launch_plan']
 
 _SMEM_BUDGET = 200 * 1024
 _MAX_BATCH = 65535
+
+# B2/B5's ring: the bytes of one block's row of values (one 128-byte
+# line) and the bytes of copies to keep in flight per SM. The H100 sweep
+# (scripts/torch_scatter_sweep.py, PERF.md section 6) found more resident
+# columns worth more than a deeper ring: past ~16 KB in flight, a stage
+# that costs a block loses.
+_ROW_BYTES = 128
+_INFLIGHT = 16 * 1024
+_CUDA_INVALID_VALUE = 1    # cudaErrorInvalidValue
+
+ScatterPlan = namedtuple('ScatterPlan', 'columns stages smem blocks_per_sm '
+                                        'inflight')
+_plans = {}
 
 
 def _check_planes(Wx, other, const, what):
@@ -94,6 +111,70 @@ def _columns(nbins, itemsize):
     return tc
 
 
+def scatter_plan(nbins, itemsize, occupancy):
+    """B2/B5's launch plan for an (nbins, columns) accumulator of complex
+    `itemsize` bytes. `occupancy(columns, stages)` gives the shared bytes
+    of a block and the blocks per SM the card grants it (0 where the
+    block does not fit or the kernel takes no such ring): on the card the
+    kernel's own figures (`scatter_launch_plan`).
+    Returns a `ScatterPlan` of the columns per block (threads), the ring's
+    stages, the block's shared bytes, its blocks per SM and the bytes of
+    copies in flight per SM, (stages - 1) x (bytes of a stage) x blocks.
+
+    Columns: one 128-byte line of values per row (16 in complex64, 8 in
+    complex128), halved while a two-stage ring does not fit. Stages: the
+    fewest that keep `_INFLIGHT` bytes in flight; where none does, those
+    that keep the most. An accumulator column over 200 KB raises, as B4's
+    plan (`_columns`) does."""
+    if nbins * itemsize > _SMEM_BUDGET:
+        raise NotImplementedError("nbins=%d exceeds the kernel's shared "
+                                  "memory accumulator" % nbins)
+    columns = _ROW_BYTES // itemsize
+    while columns > 1 and occupancy(columns, 2)[1] < 1:
+        columns //= 2
+    stage = occupancy(columns, 3)[0] - occupancy(columns, 2)[0]
+    best = None
+    for stages in itertools.count(2):
+        smem, blocks = occupancy(columns, stages)
+        if blocks < 1:
+            break
+        plan = ScatterPlan(columns, stages, smem, blocks,
+                           (stages - 1) * stage * blocks)
+        if plan.inflight >= _INFLIGHT:
+            return plan
+        if best is None or plan.inflight > best.inflight:
+            best = plan
+    return best
+
+
+def scatter_launch_plan(kind, nbins, itemsize, device):
+    """`scatter_plan` on the card for kernel `kind` (0: B2; 1-4: B5 with
+    mask and const, mask only, const only, neither), from the kernel's
+    shared bytes and the runtime's blocks per SM (`scatter_occupancy` of
+    `csrc/scatter_kv.cu`); computed once per shape and device."""
+    key = (kind, nbins, itemsize, device)
+    plan = _plans.get(key)
+    if plan is None:
+        lib = _build.load('scatter_kv')
+
+        def occupancy(columns, stages):
+            blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+            err = lib.scatter_occupancy(kind, int(itemsize == 16), nbins,
+                                        columns, stages, ctypes.byref(blocks),
+                                        ctypes.byref(smem))
+            if err != _CUDA_INVALID_VALUE:      # that one: does not fit
+                _build.check(err, 'scatter_occupancy')
+            return smem.value, blocks.value
+        plan = _plans[key] = scatter_plan(nbins, itemsize, occupancy)
+    return plan
+
+
+def _shift_kind(valid, const):
+    """B5's kernel for a mask and a const, each given or None."""
+    return (1 if const is not None else 2) if valid is not None else (
+        3 if const is not None else 4)
+
+
 def _on_card(Wx, name):
     if Wx.device.type != 'cuda':
         raise RuntimeError("%s runs on CUDA or CPU tensors (got %s)"
@@ -118,14 +199,14 @@ def scatter_kv(Wx, k, const, nbins):
     lib = _build.load('scatter_kv')
     na, N = Wx.shape[-2:]
     B = Wx.shape[0] if Wx.dim() == 3 else 1
-    tc = _columns(nbins, Wx.element_size())
+    p = scatter_launch_plan(0, nbins, Wx.element_size(), Wx.device)
     Tx = torch.empty(Wx.shape[:-2] + (nbins, N), dtype=Wx.dtype,
                      device=Wx.device)
     fn = (lib.scatter_kv_f32 if Wx.dtype == torch.complex64
           else lib.scatter_kv_f64)
     err = fn(Wx.data_ptr(), k.data_ptr(), const.data_ptr(), B, na, N, nbins,
-             tc, Tx.data_ptr(), torch.cuda.current_stream(Wx.device)
-             .cuda_stream)
+             p.columns, p.stages, Tx.data_ptr(),
+             torch.cuda.current_stream(Wx.device).cuda_stream)
     _build.check(err, 'scatter_kv')
     scatter_kv.launches += 1
     return Tx
@@ -216,7 +297,8 @@ def shift_scatter(v, k, valid, nbins, const=None):
     lib = _build.load('scatter_kv')
     na, N = v.shape[-2:]
     B = v.shape[0] if v.dim() == 3 else 1
-    tc = _columns(nbins, v.element_size())
+    p = scatter_launch_plan(_shift_kind(valid, const), nbins,
+                            v.element_size(), v.device)
     out = torch.empty(v.shape[:-2] + (nbins, N), dtype=v.dtype,
                       device=v.device)
     fn = (lib.shift_scatter_f32 if v.dtype == torch.complex64
@@ -224,7 +306,7 @@ def shift_scatter(v, k, valid, nbins, const=None):
     err = fn(v.data_ptr(), k.data_ptr(),
              None if valid is None else valid.data_ptr(),
              None if const is None else const.data_ptr(), B, na, N, nbins,
-             tc, out.data_ptr(),
+             p.columns, p.stages, out.data_ptr(),
              torch.cuda.current_stream(v.device).cuda_stream)
     _build.check(err, 'shift_scatter')
     shift_scatter.launches += 1

@@ -22,8 +22,14 @@ the CWT kernel (B1, B3, B8) bit-identical from run to run, B3's Wx
 bit-identical to B1's, B1's batched form (B3b) and the batched scatter
 (B2) rows bit-identical to one signal run alone. The generic scatter (B5) within 1e-5 of max|out| in float32 and
 1e-12 in float64 (summation order), bit-identical from run to run and
-its batch rows bit-identical to one signal run alone.
+its batch rows bit-identical to one signal run alone. B2 and the four
+instantiations of B5 the same at ragged shapes (N of 1, odd, just over a
+block; one row; bins from 1 to the most the launch plan takes), and the
+launch plan's shared bytes and blocks per SM the kernel's and the
+runtime's.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -33,13 +39,14 @@ from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
 from ssqueezepy_tpu_torch.models.ssq_cwt import _ssq_cwt_plan
 from ssqueezepy_tpu_torch.models.ssq_stft import stft_plan
 from ssqueezepy_tpu_torch.models.stft import signal_spectrum
-from ssqueezepy_tpu_torch.ops import cwt_cuda
+from ssqueezepy_tpu_torch.ops import _build, cwt_cuda
 from ssqueezepy_tpu_torch.ops.cwt_cuda import (cwt_bins, cwt_bins_plain,
                                                cwt_bins2, cwt_bins2_plain,
                                                cwt_fused, cwt_fused_plain)
 from ssqueezepy_tpu_torch.ops.fft import rfft
 from ssqueezepy_tpu_torch.ops.pad import pad_params, padsignal
 from ssqueezepy_tpu_torch.ops.ssq_cuda import (scatter_kv, scatter_kv_plain,
+                                               scatter_launch_plan,
                                                shift_scatter,
                                                shift_scatter_plain,
                                                ssq_fused, ssq_fused_plain)
@@ -832,3 +839,84 @@ def test_public_sixth_slice_on_card(dev):
             _bins2_criterion(out[0].cpu(), out_c[0])
         else:
             _bins_criterion(out[0].cpu(), out_c[0])
+
+
+# (N, na, nbins, B): N of one column, odd, just over one block; one row,
+# a few, the headline's; bins from one to the most the plan takes
+RAGGED = [(1, 1, 1, 1), (1, 293, 2, 3), (31, 5, 293, 3), (31, 1, 1, 3),
+          (33, 293, 4096, 1), (33, 5, 'max', 3), (7001, 293, 293, 3),
+          (7001, 1, 'max', 1), (7001, 5, 4096, 3), (10000, 5, 2, 3),
+          (10000, 293, 4096, 1), (10000, 293, 293, 1)]
+
+
+@pytest.mark.parametrize('N,na,nbins,B', RAGGED)
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ring_scatters_ragged(dev, dtype, N, na, nbins, B):
+    """B2 and B5 in its four instantiations (mask and const, mask only,
+    const only, neither) against their plain versions, with k outside
+    [0, nbins) planted on both sides (B5: wrapped and dropped); two runs
+    bit-identical, one launch each, batch rows bit-identical to one-signal
+    launches."""
+    if nbins == 'max':
+        nbins = 25600 if dtype == 'float32' else 12800
+    rng = np.random.default_rng(N + na + nbins + B)
+    shape = (B, na, N) if B > 1 else (na, N)
+    cdt = torch.complex64 if dtype == 'float32' else torch.complex128
+    v = torch.as_tensor(rng.standard_normal(shape)
+                        + 1j * rng.standard_normal(shape), dtype=cdt,
+                        device=dev)
+    k2 = torch.as_tensor(rng.integers(-3, nbins + 3, shape),
+                         dtype=torch.int32, device=dev)
+    k5 = torch.as_tensor(rng.integers(-2 * nbins - 2, 2 * nbins + 2, shape),
+                         dtype=torch.int32, device=dev)
+    valid = torch.as_tensor(rng.random(shape) > .2, device=dev)
+    c = torch.as_tensor(rng.random(na) + .5, dtype=getattr(torch, dtype),
+                        device=dev)
+    tol = 1e-5 if dtype == 'float32' else 1e-12
+    runs = [('B2', scatter_kv, scatter_kv_plain, (v, k2, c, nbins), None)]
+    for vd, cc in ((valid, c), (valid, None), (None, c), (None, None)):
+        runs.append(('B5', shift_scatter, shift_scatter_plain,
+                     (v, k5, vd, nbins, cc), vd))
+    for what, fn, plain, args, vd in runs:
+        n0 = fn.launches
+        o1, o2 = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches - n0 == 2 and o1.shape == shape[:-2] + (nbins, N)
+        assert torch.equal(o1, o2), what
+        ref = plain(*args)
+        assert (o1 - ref).abs().max() <= tol * ref.abs().max(), what
+        for b in range(B if B > 1 else 0):
+            one = [a[b] if isinstance(a, torch.Tensor) and a.dim() == 3
+                   else a for a in args]
+            assert torch.equal(o1[b], fn(*one)), (what, b)
+        del o1, o2, ref
+
+
+@pytest.mark.parametrize('nbins', [1, 31, 293, 300, 4096, 'max'])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_scatter_plan_blocks_per_sm_granted(dev, dtype, nbins):
+    """Each plan of B2 and B5 (with and without the mask and const) is the
+    card's: its shared bytes are the kernel's and its blocks per SM the
+    runtime's for the plan's columns and stages, at every nbins; at the
+    headline it is the plan the CPU model gives (16 or 8 columns, three
+    stages, five blocks per SM, 16 KB or more in flight)."""
+    if nbins == 'max':
+        nbins = 25600 if dtype == 'float32' else 12800
+    lib = _build.load('scatter_kv')
+    itemsize = 8 if dtype == 'float32' else 16
+    # kind 0: B2; 1: B5 with mask and const; 4: B5 with neither
+    for kind in (0, 1, 4):
+        p = scatter_launch_plan(kind, nbins, itemsize, dev)
+        got, smem = ctypes.c_int(0), ctypes.c_int(0)
+        _build.check(lib.scatter_occupancy(kind, int(itemsize == 16), nbins,
+                                           p.columns, p.stages,
+                                           ctypes.byref(got),
+                                           ctypes.byref(smem)),
+                     'scatter_occupancy')
+        assert (smem.value, got.value) == (p.smem, p.blocks_per_sm), (
+            kind, p)
+        assert p.smem <= 232448 and p.blocks_per_sm >= 1
+        if nbins == 293 and kind < 4:
+            assert (p.columns * itemsize, p.stages, p.blocks_per_sm) == (
+                128, 3, 5), (kind, p)
+            assert p.inflight >= 16 * 1024
