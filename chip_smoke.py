@@ -26,10 +26,11 @@ the scatter from bins). It:
      the CWT kernel's DFT engine (`bins_stage1` per plane count,
      `bins_stage2` per output mode), of the STFT kernel's
      (`stft_stage1` per plane count, `stft_stage2` per mode) and of the
-     reassignment scatters (`scatter_kv_kernel`, `shift_scatter_kernel`
-     per mask/const mode), float and double, and the scatters' launch
-     plan at the headline (columns, stages and shared memory per block,
-     the blocks per SM the runtime grants it);
+     reassignment kernels (`scatter_kv_kernel`, `shift_scatter_kernel`
+     per mask/const mode, `ssq_fused_kernel` without and with Sfs), float
+     and double, and their launch plans at the headline (columns, stages
+     and shared memory per block, the blocks per SM the runtime grants
+     it, the bytes of copies in flight per SM);
   3. holds the fused CWT + bins kernel (B1) against its plain PyTorch
      version at the headline shape, float32 and float64, checks two runs
      are bit-identical and that the Wx of the plain/derivative mode (B3),
@@ -58,7 +59,8 @@ the scatter from bins). It:
      those planes, bit-identical to per-signal launches and from run to
      run; and the fused phase + bins + scatter kernel (B4) on the
      derivative CWT planes at 160k, on the STFT's (Sx, dSx) planes at 160k
-     with Sfs, and at N = 10000 in float64 over the lin, log and
+     with Sfs, on the hop-8 STFT's planes with Sfs (as `ssq_stft(hop_len=
+     8)` runs it), and at N = 10000 in float64 over the lin, log and
      log-piecewise grids with both flipud;
   9. holds the generic scatter (B5) against its plain version on the
      headline planes with planted wrapped (k < 0), dropped (k < -nbins,
@@ -66,7 +68,8 @@ the scatter from bins). It:
      checks two runs are bit-identical;
  10. runs each public entry point (`ssq_cwt`, `ssq_stft`, `stft`, `cwt`,
      `ssq_cwt2`, `ssq_stft2`, the batched `ssq_cwt`, `ssq_cwt(get_dWx=
-     True)`, `ssq_stft(hop_len=8)` and the squeezing calls above at 160k)
+     True)`, `ssq_stft(hop_len=8)`, `ssqueeze` from (Wx, dWx) and the
+     squeezing calls above at 160k)
      with every launch counter set to 0 just before, reads the counters
      just after (each kernel of the path must have launched; the `get_w`
      call must launch neither bins kernel), and checks the outputs against
@@ -78,10 +81,11 @@ the scatter from bins). It:
      `ssq_cwt`/`issq_cwt` (mad_rms < 0.1, each row), and white noise
      through `stft`/`istft` in float64 at hop 1 and hop 8 (MAE < 1e-12);
  12. times each kernel, its plain version and a library yardstick with
-     CUDA events after warm-up (B2 also on the (4, 160000) batch),
-     computes each kernel's bound from this run's shapes (and, for B2 and
-     B5, the bytes/s achieved and the share of the bound), and times each
-     public call with its peak memory;
+     CUDA events after warm-up (B2 also on the (4, 160000) batch, B4 also
+     on the hop-8 STFT's planes), computes each kernel's bound from this
+     run's shapes (and, for B2, B4 and B5, the bytes/s achieved and the
+     share of the bound), and times each public call with its peak
+     memory;
  13. prints one `{"kernels": [...]}` line, then, as the last line,
      `{"ok": true, "device": {...}}`.
 
@@ -272,9 +276,10 @@ def main():
     for line in (ptxas_report(ptxas['stft_conv'], 'stft_stage')
                  if 'stft_conv' in ptxas else ["not rebuilt in this run"]):
         print("ptxas, STFT engine: " + line, flush=True)
-    # the scatters: scatter_kv_kernel<T>, shift_scatter_kernel<T, mask,
-    # const>
-    for key in ('scatter_kv_kernel', 'shift_scatter_kernel'):
+    # the reassignment kernels: scatter_kv_kernel<T>,
+    # shift_scatter_kernel<T, mask, const>, ssq_fused_kernel<T, sfs>
+    for key in ('scatter_kv_kernel', 'shift_scatter_kernel',
+                'ssq_fused_kernel'):
         for line in (ptxas_report(ptxas['scatter_kv'], key)
                      if 'scatter_kv' in ptxas
                      else ["not rebuilt in this run"]):
@@ -297,18 +302,21 @@ def main():
           "headline plan: na=%d nbins=%d n_up=%d n1=%d %s"
           % (na, nbins, n_up, n1, params['mode']))
     f1, f2 = four_step(n_up)
-    # B2/B5's plan at the headline, from the kernel's shared bytes and the
-    # blocks per SM the runtime grants (kind: 0 B2, 1 B5 with mask and
-    # const, 4 B5 with neither)
-    for what, kind, itemsize in (('B2 float32', 0, 8), ('B2 float64', 0, 16),
-                                 ('B5 float32, mask + const', 1, 8),
-                                 ('B5 float32, neither', 4, 8),
-                                 ('B5 float64, mask + const', 1, 16)):
-        sp = scatter_launch_plan(kind, nbins, itemsize, dev)
+    # B2/B5/B4's plans at the headline, from the kernel's shared bytes and
+    # the blocks per SM the runtime grants (kind: 0 B2, 1 B5 with mask and
+    # const, 4 B5 with neither, 5 B4, 6 B4 with Sfs at ssq_stft's 300 bins)
+    for what, kind, itemsize, nb in (
+            ('B2 float32', 0, 8, nbins), ('B2 float64', 0, 16, nbins),
+            ('B5 float32, mask + const', 1, 8, nbins),
+            ('B5 float32, neither', 4, 8, nbins),
+            ('B5 float64, mask + const', 1, 16, nbins),
+            ('B4 float32', 5, 8, nbins), ('B4 float64', 5, 16, nbins),
+            ('B4 float32, Sfs', 6, 8, 300)):
+        sp = scatter_launch_plan(kind, nb, itemsize, dev)
         print("scatter plan, %s at nbins=%d: %d columns, ring of %d stages "
               "x 8 rows, %d B shared per block, %d blocks per SM granted by "
               "the runtime, %d B of copies in flight per SM"
-              % (what, nbins, sp.columns, sp.stages, sp.smem,
+              % (what, nb, sp.columns, sp.stages, sp.smem,
                  sp.blocks_per_sm, sp.inflight), flush=True)
     rng = np.random.default_rng(0)
     x_np = rng.standard_normal(N).astype(np.float32)
@@ -668,6 +676,15 @@ def main():
     b4_check(Sx4, dSx4, c6, bins6['params'], bins6['gamma'], False,
              bins6['Sfs'], 'float32', "on the STFT's (Sx, dSx) at 160k, Sfs")
     del xh6, H, Hd, Sx4, dSx4
+    # as ssq_stft(hop_len=8) runs it: the framed STFT's planes, Sfs
+    Sx8, dSx8 = stq.stft(torch.as_tensor(x_np, device=dev), n_fft=n_fft,
+                         hop_len=8, derivative=True)
+    b4h = dict(args=(Sx8.contiguous(), dSx8.contiguous(), c6,
+                     bins6['params'], bins6['gamma'], False, bins6['Sfs']))
+    b4h['err'] = b4_check(*b4h['args'], 'float32',
+                          "on the hop-8 STFT's (Sx, dSx) %s, Sfs"
+                          % (tuple(Sx8.shape),))
+    del Sx8, dSx8
     wv64 = resolve_wavelet(('gmw', {'dtype': 'float64'}), N=10000)
     nu, nn1, _ = pad_params(10000, 'reflect')
     x64_10k = torch.as_tensor(rng.standard_normal(10000), device=dev)
@@ -735,6 +752,7 @@ def main():
 
     # ---- the main paths through the public API ----------------------------
     x_dev = torch.as_tensor(x_np, device=dev)
+    gamma32 = 10 * float(np.finfo(np.float32).eps)   # ssq_cwt's default
     xb_dev = torch.as_tensor(xb_big, device=dev)
     kw = dict(wavelet=spec, scales=scales, ssq_freqs=ssq_freqs)
     calls = {
@@ -755,6 +773,9 @@ def main():
         'ssqueeze_w': lambda: stq.ssqueeze(
             sq_in['Wx'], w=sq_in['w'], scales=scales, ssq_freqs=ssq_freqs,
             flipud=True),
+        'ssqueeze_dwx': lambda: stq.ssqueeze(
+            sq_in['Wx_d'], dWx=sq_in['dWx'], gamma=gamma32, scales=scales,
+            ssq_freqs=ssq_freqs, flipud=True),
         'ssq_stft_lebesgue': lambda: stq.ssq_stft(x_dev, n_fft=n_fft,
                                                   squeezing='lebesgue'),
         'ssq_cwt2_abs': lambda: stq.ssq_cwt2(x_dev, spec, scales=scales,
@@ -776,6 +797,7 @@ def main():
              'ssq_cwt_dwx_lebesgue': ('cwt_fused', 'shift_scatter'),
              'ssq_stft_hop8_abs': ('shift_scatter',),
              'ssqueeze_w': ('shift_scatter',),
+             'ssqueeze_dwx': ('ssq_fused',),
              'ssq_stft_lebesgue': ('stft_conv', 'scatter_kv'),
              'ssq_cwt2_abs': ('cwt_bins2', 'scatter_kv'),
              'ssq_stft2_lebesgue': ('fsst2_conv', 'scatter_kv')}
@@ -870,6 +892,7 @@ def main():
             bins_criterion(Tx, ssq_fused_plain(W_p, dW_p, c, params, gamma,
                                                True),
                            "public ssq_cwt(get_dWx=True) vs plain path")
+            sq_in.update(Wx_d=Wx_pub, dWx=dWx_pub, Tx_d=Tx)
             del Tx, Wx_pub, dWx_pub, W_p, dW_p, xh
         elif name == 'ssq_stft_hop8':
             Tx, Sx = out[0], out[1]
@@ -939,6 +962,13 @@ def main():
                   "bit-identical to ssq_cwt(get_w=True)'s Tx on its w")
             del Tx
             sq_in.pop('Tx')
+        elif name == 'ssqueeze_dwx':
+            Tx, fr = out
+            check(torch.equal(Tx, sq_in['Tx_d']), "ssqueeze(Wx, dWx=dWx) "
+                  "bit-identical to ssq_cwt(get_dWx=True)'s Tx")
+            del Tx
+            for key in ('Wx_d', 'dWx', 'Tx_d'):
+                sq_in.pop(key)
         elif name in ('ssq_stft_lebesgue', 'ssq_cwt2_abs',
                       'ssq_stft2_lebesgue'):
             Tx, W_pub = out[0], out[1]
@@ -1141,6 +1171,20 @@ def main():
         (nbins + 1, N), dtype=Wx4.dtype, device=dev).index_put_(
             (kk, cols), vals, accumulate=True))
     del kk, cols, vals, k4, v4
+    # B4 as ssq_stft(hop_len=8) runs it, the same yardstick
+    Sx8, dSx8, c8, p8, g8, f8, Sfs8 = b4h['args']
+    nr8, ns8 = Sx8.shape
+    b4h['ms'] = cuda_ms(lambda: ssq_fused(*b4h['args']))
+    b4h['plain_ms'] = cuda_ms(lambda: ssq_fused_plain(*b4h['args']))
+    k8, v8 = compute_bins(phase_transform_w(Sx8, dSx8, g8, Sfs8), p8, f8)
+    n_valid8 = int(v8.sum())
+    kk = torch.where(v8, k8, nr8).long()
+    cols = torch.arange(ns8, device=dev).expand(nr8, ns8)
+    vals = Sx8 * c8.reshape(-1, 1)
+    b4h['lib_ms'] = cuda_ms(lambda: torch.zeros(
+        (nr8 + 1, ns8), dtype=Sx8.dtype, device=dev).index_put_(
+            (kk, cols), vals, accumulate=True))
+    del kk, cols, vals, k8, v8, Sx8, dSx8, b4h['args']
     # B5 as ssq_cwt(get_w=True) runs it: Wx, the bins of the phase
     # transform of the same planes and their mask, the per-row const;
     # yardstick: one index_put_ with accumulate (masked cells go to a
@@ -1172,6 +1216,10 @@ def main():
         if name == 'ssqueeze_w':
             out = calls['ssq_cwt_getw']()
             sq_in.update(Wx=out[1], w=out[4])
+            del out
+        elif name == 'ssqueeze_dwx':
+            out = calls['ssq_cwt_dwx']()
+            sq_in.update(Wx_d=out[1], dWx=out[4])
             del out
         e2e[name] = host_ms(fn)
         sq_in.clear()
@@ -1216,6 +1264,10 @@ def main():
     b4_bytes = 2 * na * N * cb + na * rb + nbins * N * cb
     b4_flops = 12 * na * N + 4 * n_valid4
     b4_bound, b4_by = bound(b4_bytes, b4_flops)
+    # at hop 8: the Sfs read too, nbins = the STFT's rows
+    b4h['bytes'] = 2 * nr8 * ns8 * cb + 2 * nr8 * rb + nr8 * ns8 * cb
+    b4h['bound'], b4h['by'] = bound(b4h['bytes'],
+                                    12 * nr8 * ns8 + 4 * n_valid8)
     # B5: v, k, the mask and const read, out written; per valid cell the
     # multiply by const and the accumulate (4 FLOP)
     b5_bytes = na * N * (cb + 4 + 1) + na * rb + nbins * N * cb
@@ -1257,6 +1309,10 @@ def main():
           % (b3b_ms, B4N, N, b3b_plain_ms, b3b_lib_ms, b3b_bound, b3b_by,
              b3b_bytes, b3b_flops, b4_ms, b4_plain_ms, b4_lib_ms, b4_bound,
              b4_by, b4_bytes, b4_flops, n_valid4), flush=True)
+    print("B4 at hop 8 (%d, %d), Sfs: %.3f ms (plain %.3f, index_put_ "
+          "scatter part %.3f, bound %.3f by %s: %.3g B, %d valid cells)"
+          % (nr8, ns8, b4h['ms'], b4h['plain_ms'], b4h['lib_ms'],
+             b4h['bound'], b4h['by'], b4h['bytes'], n_valid8), flush=True)
     print("B5 %.3f ms (plain %.3f, index_put_ %.3f, bound %.3f by %s: %.3g "
           "B, %d valid cells); B2 in this run %.3f ms"
           % (b5_ms, b5_plain_ms, b5_lib_ms, b5_bound, b5_by, b5_bytes,
@@ -1266,7 +1322,10 @@ def main():
             ('B2 at (%d, %d, %d)' % (B4N, na, N), b2b_ms, b2b_bytes,
              b2b_bound),
             ('B5 at (%d, %d), mask + const' % (na, N), b5_ms, b5_bytes,
-             b5_bound)):
+             b5_bound),
+            ('B4 at (%d, %d)' % (na, N), b4_ms, b4_bytes, b4_bound),
+            ('B4 at (%d, %d), Sfs' % (nr8, ns8), b4h['ms'], b4h['bytes'],
+             b4h['bound'])):
         print("%s: %.3f ms, %.3f TB/s of the bytes it must move (%.3g B), "
               "bound %.3f ms, %.1f%% of the bound; card: %s"
               % (what, ms, nbytes / ms / 1e9, nbytes, bms, 100 * bms / ms,
@@ -1320,7 +1379,7 @@ def main():
              ms=b3b_ms, plain_ms=b3b_plain_ms, bound_ms=b3b_bound,
              bound_by=b3b_by, library_ms=b3b_lib_ms),
         dict(name='ssq_fused', route='cuda',
-             source='ssqueezepy_tpu_torch/csrc/ssq_fused.cu',
+             source='ssqueezepy_tpu_torch/csrc/scatter_kv.cu',
              replaces='ssqueezepy_tpu/ops/ssq_pallas.py:345',
              launches=launches['ssq_fused'], max_abs_err=b4['err'],
              ms=b4_ms, plain_ms=b4_plain_ms, bound_ms=b4_bound,

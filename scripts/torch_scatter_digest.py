@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 # -*- coding: utf-8 -*-
-"""Digests of every output of the reassignment scatters
-(`csrc/scatter_kv.cu`: B2 `scatter_kv` and B5 `shift_scatter` with mask
-and const, mask only, const only and neither), so that two checkouts of
+"""Digests of every output of the reassignment kernels
+(B2 `scatter_kv`, B5 `shift_scatter` with mask and const, mask only,
+const only and neither, and B4 `ssq_fused`), so that two checkouts of
 the port can be compared bit for bit on one NVIDIA GPU.
 
     python3 scripts/torch_scatter_digest.py [--root DIR] > digests.json
@@ -15,9 +15,12 @@ rows, bins over [-3, 296) for B2 and [-588, 588) for B5 (so some are
 wrapped and some dropped), a mask with 20% of cells false and a per-row
 const, at N = 160000 (the headline), 10000 and 7001, in float32 and
 float64, for one signal and for a batch (2 signals at the headline, 3
-otherwise). Prints one JSON object {"<N> <dtype> <B> <kernel>": sha256 of
-the output's bytes, ...} with the card's name and power limit. Needs a
-CUDA device.
+otherwise). B4 on white-noise planes of Wx and dWx with 293 rows (|Wx|
+under gamma = 0.1 on ~1% of cells) over a lin, a log and a log-piecewise
+grid of 293 bins, each with and without flipud and with and without a
+per-row Sfs, at the same N, dtypes and batches. Prints one JSON object
+{"<N> <dtype> <B> <kernel>": sha256 of the output's bytes, ...} with the
+card's name and power limit. Needs a CUDA device.
 """
 import argparse
 import hashlib
@@ -25,6 +28,21 @@ import json
 import os
 import subprocess
 import sys
+
+import numpy as np
+
+
+def grid(mode, n):
+    """An ssq frequency grid of n bins for each bin-map mode."""
+    if mode == 'lin':
+        return np.linspace(0.008, 0.5, n)
+    if mode == 'log':
+        return 2 ** np.linspace(np.log2(1 / 2048), np.log2(0.5), n)
+    n0 = n // 2
+    lo, mid = np.log2(1 / 2048), np.log2(1 / 64)
+    seg0 = 2 ** (lo + (mid - lo) / n0 * np.arange(n0 + 1))
+    seg1 = seg0[-1] * 2 ** ((mid - lo) / n0 / 4 * np.arange(1, n - n0))
+    return np.concatenate([seg0, seg1])
 
 
 def main():
@@ -36,7 +54,9 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     sys.path.insert(0, os.path.abspath(a.root))
-    from ssqueezepy_tpu_torch.ops.ssq_cuda import scatter_kv, shift_scatter
+    from ssqueezepy_tpu_torch.ops.ssq_cuda import (scatter_kv, shift_scatter,
+                                                   ssq_fused)
+    from ssqueezepy_tpu_torch.ops.ssq_kernels import ssq_bin_params
 
     def digest(t):
         return hashlib.sha256(torch.view_as_real(t).contiguous().cpu()
@@ -71,7 +91,17 @@ def main():
                                      ('neither', None, None)):
                     out[key + 'B5 ' + name] = digest(
                         shift_scatter(v, k5, vd, nbins, cc))
-                del v, k2, k5, valid, c
+                del k2, k5, valid
+                dv = torch.randn(shape, dtype=cdt, device=dev, generator=g)
+                sfs = torch.linspace(0, .5, na, dtype=c.dtype, device=dev)
+                for mode in ('lin', 'log', 'log-piecewise'):
+                    params = ssq_bin_params(grid(mode, nbins), mode != 'lin')
+                    for flipud in (False, True):
+                        for name, sf in (('', None), (' Sfs', sfs)):
+                            out[key + 'B4 %s flipud=%s%s' % (
+                                mode, flipud, name)] = digest(ssq_fused(
+                                    v, dv, c, params, .1, flipud, sf))
+                del v, dv, c, sfs
                 torch.cuda.empty_cache()
     print(json.dumps(out, indent=1))
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 # -*- coding: utf-8 -*-
-"""Times the reassignment scatters (`csrc/scatter_kv.cu`: B2 and the four
-instantiations of B5) at the ssq_cwt headline on one NVIDIA GPU, and shows
-how the compiled kernels address memory.
+"""Times the reassignment kernels (`csrc/scatter_kv.cu`: B2, the four
+instantiations of B5 and B4, the fused reassignment) at the ssq_cwt
+headline on one NVIDIA GPU, and shows how the compiled kernels address
+memory.
 
     python3 scripts/torch_scatter_sweep.py [--reps 20] [--root DIR]
         [--columns 8,16,32 --stages 2,3,4,6,8] [--sass]
@@ -17,17 +18,20 @@ launches after two, so any version of the port can be timed; B2 in
 complex64 also on bins that load it differently (every cell dropped,
 every cell in one bin, random), and the host's microseconds per call of
 B2 and B5 on (8, 64) planes, where the launch and not the kernel sets the
-time (wall clock over 2000 calls). Each line is one JSON object with the
-time, the bytes per second reached on the bytes the function must move
-(inputs read once, output written once) and the card's name and power
-limit.
+time (wall clock over 2000 calls). B4 (`ssq_fused`) runs on white-noise
+planes of Wx and dWx: at the headline (293, 160000) over a log-piecewise
+grid of 293 bins with flipud, in complex64 and complex128, and at
+`ssq_stft`'s hop-8 shape (300, 20000) over a linear grid of 300 bins
+with a per-row Sfs. Each line is one JSON object with the time, the
+bytes per second reached on the bytes the function must move (inputs
+read once, output written once) and the card's name and power limit.
 
 `--columns` and `--stages` also time B2 and B5 (mask and const) in
-complex64 and B2 in complex128 at each given count of columns per block
-and of ring stages that fits, through the C entry points of this
-version's library (`tc`, `stages`), with the shared bytes per block and
-the blocks per SM the runtime grants (`scatter_occupancy`), each output
-checked bit for bit against the plan's. `--sass` first prints one
+complex64, B2 in complex128 and every B4 run at each given count of
+columns per block and of ring stages that fits, through the C entry
+points of this version's library (`tc`, `stages`), with the shared bytes
+per block and the blocks per SM the runtime grants (`scatter_occupancy`),
+each output checked bit for bit against the plan's. `--sass` first prints one
 line per kernel with its SASS memory instruction counts (`cuobjdump
 -sass`): shared (LDS/STS), generic (LD/ST), global (LDG/STG) and
 asynchronous-copy (LDGSTS) accesses. Needs a CUDA device.
@@ -209,6 +213,69 @@ def main():
                    ms=timed(lambda: ssq_cuda.scatter_kv(vb, kb, c, nbins)))
             del vb, kb
         del v, c
+        torch.cuda.empty_cache()
+    b4_runs(ssq_cuda, lib, timed, report, columns, stages)
+
+
+def b4_runs(ssq_cuda, lib, timed, report, columns, stages):
+    """B4 through its public wrapper and, for each (columns, stages),
+    through this version's C entry point (kind 5 without Sfs, 6 with)."""
+    import torch
+    from ssqueezepy_tpu_torch.ops import _build
+    from ssqueezepy_tpu_torch.ops.ssq_kernels import ssq_bin_params
+    from torch_scatter_digest import grid
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(4)
+    for what, cdt, na, N, mode, flipud, with_sfs in (
+            ('B4', torch.complex64, 293, 160000, 'log-piecewise', True,
+             False),
+            ('B4', torch.complex128, 293, 160000, 'log-piecewise', True,
+             False),
+            ('B4 Sfs', torch.complex64, 300, 20000, 'lin', False, True)):
+        nbins = na
+        v = torch.randn((na, N), dtype=cdt, device=dev, generator=g)
+        dv = torch.randn((na, N), dtype=cdt, device=dev, generator=g)
+        c = torch.rand(na, dtype=v.real.dtype, device=dev, generator=g) + .5
+        sfs = (torch.linspace(0, .5, na, dtype=c.dtype, device=dev)
+               if with_sfs else None)
+        params = ssq_bin_params(grid(mode, nbins), mode != 'lin')
+        it, f64 = v.element_size(), int(cdt == torch.complex128)
+        nbytes = (2 * na * N * it + na * c.element_size() * (1 + with_sfs)
+                  + nbins * N * it)
+
+        def fn():
+            return ssq_cuda.ssq_fused(v, dv, c, params, .1, flipud, sfs)
+        report(kernel=what, dtype=str(cdt), shape=[na, N], mode=mode,
+               ms=timed(fn), bytes=nbytes)
+        if not columns:
+            continue
+        from ssqueezepy_tpu_torch.ops.cwt_cuda import _MODES, _bin_args
+        ref = fn()
+        a0, d0, a1, d1, idx1 = _bin_args(params)
+        entry = lib.ssq_fused_f64 if f64 else lib.ssq_fused_f32
+        for tc, st in ((tc, st) for tc in columns for st in stages):
+            granted, smem = ctypes.c_int(0), ctypes.c_int(0)
+            if lib.scatter_occupancy(5 + with_sfs, f64, nbins, tc, st,
+                                     ctypes.byref(granted),
+                                     ctypes.byref(smem)) != 0:
+                continue
+            out = torch.empty_like(ref)
+            ip = (ctypes.c_int * 10)(1, na, N, nbins, tc, st,
+                                     _MODES[mode], int(idx1), nbins - 1,
+                                     int(flipud))
+            dp = (ctypes.c_double * 5)(.1, a0, d0, a1, d1)
+            stream = torch.cuda.current_stream().cuda_stream
+            call = (lambda: entry(v.data_ptr(), dv.data_ptr(),
+                                  c.data_ptr(), None if sfs is None
+                                  else sfs.data_ptr(), ip, dp,
+                                  out.data_ptr(), stream))
+            _build.check(call(), what)
+            report(kernel=what, dtype=str(cdt), shape=[na, N], mode=mode,
+                   columns=tc, stages=st, smem_bytes=smem.value,
+                   blocks_per_sm=granted.value, ms=timed(call),
+                   bytes=nbytes, bit_identical_to_plan=torch.equal(out, ref))
+            del out
+        del v, dv, c, ref
         torch.cuda.empty_cache()
 
 

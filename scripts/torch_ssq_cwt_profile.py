@@ -11,8 +11,9 @@ headline: the bench's 293-row log-piecewise plan and its ssq_freqs),
 `ssq_stft`, `stft` or `ssq_stft2` (n_fft = 598, hop 1), `ssq_cwt_b4`
 (`ssq_cwt` on a (4, N) batch), `ssq_cwt_dwx` (`ssq_cwt` with
 `get_dWx=True`), `ssq_stft_hop8` (`ssq_stft` at hop 8), `ssq_cwt_getw`
-(`ssq_cwt` with `get_w=True`) or `ssq_stft_hop8_abs` (`ssq_stft` at hop
-8 with 'abs' squeezing) —
+(`ssq_cwt` with `get_w=True`), `ssq_stft_hop8_abs` (`ssq_stft` at hop
+8 with 'abs' squeezing) or `ssqueeze_dwx` (`ssqueeze` of the
+`get_dWx=True` call's Wx and dWx) —
 under `torch.profiler` after warm-up and prints one JSON line: device
 time per kernel name (summed over the profiled calls, divided by the
 call count), the wall time per call, and the device's idle share of
@@ -37,7 +38,7 @@ def main():
                     choices=('ssq_cwt', 'cwt', 'ssq_stft', 'stft',
                              'ssq_cwt2', 'ssq_stft2', 'ssq_cwt_b4',
                              'ssq_cwt_dwx', 'ssq_stft_hop8', 'ssq_cwt_getw',
-                             'ssq_stft_hop8_abs'))
+                             'ssq_stft_hop8_abs', 'ssqueeze_dwx'))
     ap.add_argument('--n', type=int, default=160000)
     ap.add_argument('--calls', type=int, default=5)
     a = ap.parse_args()
@@ -61,7 +62,12 @@ def main():
     xb = torch.as_tensor(np.random.default_rng(1).standard_normal((4, N))
                          .astype(np.float32), device='cuda')
     kw = dict(wavelet=spec, scales=scales, ssq_freqs=freqs)
+    if a.transform == 'ssqueeze_dwx':
+        _, Wx, _, _, dWx = stq.ssq_cwt(x, get_dWx=True, **kw)
     call = {
+        'ssqueeze_dwx': lambda: stq.ssqueeze(
+            Wx, dWx=dWx, gamma=10 * float(np.finfo(np.float32).eps),
+            scales=scales, ssq_freqs=freqs, flipud=True),
         'ssq_cwt': lambda: stq.ssq_cwt(x, **kw),
         'ssq_cwt_b4': lambda: stq.ssq_cwt(xb, **kw),
         'ssq_cwt_dwx': lambda: stq.ssq_cwt(x, get_dWx=True, **kw),

@@ -1,7 +1,7 @@
 // Phase transform -> reassignment frequency -> bin index, shared by the
 // fused CWT kernel's bins epilogues (cwt_bins.cu) and the fused phase +
-// bins + scatter kernel (ssq_fused.cu), so both give the same k for the
-// same (W, dW) cell.
+// bins + scatter kernel (B4, scatter_kv.cu), so both give the same k for
+// the same (W, dW) cell.
 //
 // Replaces the arithmetic of ssqueezepy_tpu/ops/ssq_pallas.py::
 // _phase_bin_math and _bins_from_w: w = Im(dW / W) / 2pi as

@@ -22,7 +22,7 @@ __all__ = ['load', 'build_all', 'check', 'SOURCES']
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD = os.path.join(os.path.dirname(_PKG), 'build')
-SOURCES = ('cwt_bins', 'scatter_kv', 'stft_conv', 'ssq_fused')
+SOURCES = ('cwt_bins', 'scatter_kv', 'stft_conv')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 
@@ -94,9 +94,8 @@ _SIGNATURES = {
         (('shift_scatter_f32', 'shift_scatter_f64'),
          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
          + [ctypes.c_void_p] * 2),
+        (('ssq_fused_f32', 'ssq_fused_f64'), [ctypes.c_void_p] * 8),
         (('scatter_occupancy',), [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)],
-    'ssq_fused': [(('ssq_fused_f32', 'ssq_fused_f64'),
-                   [ctypes.c_void_p] * 8)],
     'stft_conv': [(('stft_conv_f32', 'stft_conv_f64'),
                    [ctypes.c_void_p] * 10)],
 }

@@ -7,7 +7,7 @@
 
         Tx[k[i, j], j] += Wx[i, j] * const[i]     for 0 <= k[i, j] < nbins
 
-  * `ssq_fused` (B4), `csrc/ssq_fused.cu`, the phase transform, the bin
+  * `ssq_fused` (B4), `csrc/scatter_kv.cu`, the phase transform, the bin
     map and the same scatter in one pass over (Wx, dWx), the bins never
     written out; replaces `ssqueezepy_tpu/ops/ssq_pallas.py::
     _make_fused_kernel` (`ssq_fused_pallas`).
@@ -24,10 +24,11 @@
     so k = -1 lands in bin nbins - 1, where B2 drops it.
 
 All three take one signal (na, N) or a batch (B, na, N), the batch in one
-launch. Each CUDA thread owns one time column and sums its rows in order
-into shared memory, so the results are bit-identical from run to run
-(design and bound are noted in the sources). B2 and B5 feed the rows
-through a ring of asynchronous copies laid out by `scatter_plan`.
+launch. Each time column's rows are summed in order into shared memory by
+its own thread (B4: by two, one per real and imaginary part), so the
+results are bit-identical from run to run (design and bound are noted in
+the source). All three feed the rows through a ring of asynchronous
+copies laid out by `scatter_plan`.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors; `scatter_kv.launches`, `ssq_fused.launches` and
@@ -51,11 +52,11 @@ __all__ = ['scatter_kv', 'scatter_kv_plain', 'ssq_fused', 'ssq_fused_plain',
 _SMEM_BUDGET = 200 * 1024
 _MAX_BATCH = 65535
 
-# B2/B5's ring: the bytes of one block's row of values (one 128-byte
-# line) and the bytes of copies to keep in flight per SM. The H100 sweep
-# (scripts/torch_scatter_sweep.py, PERF.md section 6) found more resident
-# columns worth more than a deeper ring: past ~16 KB in flight, a stage
-# that costs a block loses.
+# The ring of B2, B4 and B5: the bytes of one block's row of values (one
+# 128-byte line) and the bytes of copies to keep in flight per SM. The
+# H100 sweeps (scripts/torch_scatter_sweep.py, PERF.md section 6) found
+# more resident columns worth more than a deeper ring: past ~16 KB in
+# flight, a stage that costs a block loses.
 _ROW_BYTES = 128
 _INFLIGHT = 16 * 1024
 _CUDA_INVALID_VALUE = 1    # cudaErrorInvalidValue
@@ -99,33 +100,20 @@ def _check_planes(Wx, other, const, what):
         raise ValueError("const must be contiguous")
 
 
-def _columns(nbins, itemsize):
-    """Columns per block: the largest power of two <= 32 whose (nbins,
-    columns) complex accumulator fits the shared-memory budget."""
-    tc = 32
-    while tc > 1 and nbins * tc * itemsize > _SMEM_BUDGET:
-        tc //= 2
-    if nbins * tc * itemsize > _SMEM_BUDGET:
-        raise NotImplementedError("nbins=%d exceeds the kernel's shared "
-                                  "memory accumulator" % nbins)
-    return tc
-
-
 def scatter_plan(nbins, itemsize, occupancy):
-    """B2/B5's launch plan for an (nbins, columns) accumulator of complex
+    """B2/B4/B5's launch plan for an (nbins, columns) accumulator of complex
     `itemsize` bytes. `occupancy(columns, stages)` gives the shared bytes
     of a block and the blocks per SM the card grants it (0 where the
     block does not fit or the kernel takes no such ring): on the card the
     kernel's own figures (`scatter_launch_plan`).
-    Returns a `ScatterPlan` of the columns per block (threads), the ring's
-    stages, the block's shared bytes, its blocks per SM and the bytes of
-    copies in flight per SM, (stages - 1) x (bytes of a stage) x blocks.
+    Returns a `ScatterPlan` of the columns per block, the ring's stages,
+    the block's shared bytes, its blocks per SM and the bytes of copies in
+    flight per SM, (stages - 1) x (bytes of a stage) x blocks.
 
     Columns: one 128-byte line of values per row (16 in complex64, 8 in
     complex128), halved while a two-stage ring does not fit. Stages: the
     fewest that keep `_INFLIGHT` bytes in flight; where none does, those
-    that keep the most. An accumulator column over 200 KB raises, as B4's
-    plan (`_columns`) does."""
+    that keep the most. An accumulator column over 200 KB raises."""
     if nbins * itemsize > _SMEM_BUDGET:
         raise NotImplementedError("nbins=%d exceeds the kernel's shared "
                                   "memory accumulator" % nbins)
@@ -149,9 +137,10 @@ def scatter_plan(nbins, itemsize, occupancy):
 
 def scatter_launch_plan(kind, nbins, itemsize, device):
     """`scatter_plan` on the card for kernel `kind` (0: B2; 1-4: B5 with
-    mask and const, mask only, const only, neither), from the kernel's
-    shared bytes and the runtime's blocks per SM (`scatter_occupancy` of
-    `csrc/scatter_kv.cu`); computed once per shape and device."""
+    mask and const, mask only, const only, neither; 5-6: B4 without and
+    with Sfs), from the kernel's shared bytes and the runtime's blocks per
+    SM (`scatter_occupancy` of `csrc/scatter_kv.cu`); computed once per
+    shape and device."""
     key = (kind, nbins, itemsize, device)
     plan = _plans.get(key)
     if plan is None:
@@ -241,14 +230,15 @@ def ssq_fused(Wx, dWx, const, params, gamma, flipud, Sfs=None):
     if Wx.device.type == 'cpu':
         return ssq_fused_plain(Wx, dWx, const, params, gamma, flipud, Sfs)
     _on_card(Wx, 'ssq_fused')
-    lib = _build.load('ssq_fused')
+    lib = _build.load('scatter_kv')
     na, N = Wx.shape[-2:]
     B = Wx.shape[0] if Wx.dim() == 3 else 1
-    tc = _columns(nbins, Wx.element_size())
+    p = scatter_launch_plan(5 if Sfs is None else 6, nbins,
+                            Wx.element_size(), Wx.device)
     Tx = torch.empty(Wx.shape[:-2] + (nbins, N), dtype=Wx.dtype,
                      device=Wx.device)
     a0, d0, a1, d1, idx1 = _bin_args(params)
-    ip = (ctypes.c_int * 10)(B, na, N, nbins, tc, int(Sfs is not None),
+    ip = (ctypes.c_int * 10)(B, na, N, nbins, p.columns, p.stages,
                              _MODES[params['mode']], int(idx1),
                              int(params['omax']), int(bool(flipud)))
     dp = (ctypes.c_double * 5)(gamma, a0, d0, a1, d1)

@@ -595,16 +595,19 @@ def test_ssq_fused_kernel_vs_plain(dev, mode, flipud, dtype):
 
 
 def test_ssq_fused_narrow_blocks(dev):
-    """nbins = 1000 in float64 leaves the accumulator room for 8 columns
-    per block (tc < 32)."""
-    na, N, nbins = 64, 5000, 1000
-    params = ssq_bin_params(_grid('log', nbins), True)
+    """Large accumulators in float64 on the ring's plan: nbins = 1000
+    takes one 128-byte line of values per row (8 columns) at one block
+    per SM; nbins = 4096 halves the line twice (2 columns per block)."""
+    na, N = 64, 5000
     Wx, dWx = _noise_planes((na, N), 'float64', dev, seed=2)
     c = torch.ones(na, dtype=torch.float64, device=dev)
-    Tx = ssq_fused(Wx, dWx, c, params, 1e-2, True)
-    assert Tx.shape == (nbins, N)
-    _fused_close(Tx, ssq_fused_plain(Wx, dWx, c, params, 1e-2, True),
-                 'float64')
+    for nbins, columns in ((1000, 8), (4096, 2)):
+        params = ssq_bin_params(_grid('log', nbins), True)
+        assert scatter_launch_plan(5, nbins, 16, dev).columns == columns
+        Tx = ssq_fused(Wx, dWx, c, params, 1e-2, True)
+        assert Tx.shape == (nbins, N)
+        _fused_close(Tx, ssq_fused_plain(Wx, dWx, c, params, 1e-2, True),
+                     'float64')
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
@@ -621,6 +624,34 @@ def test_ssq_fused_on_cwt_planes(dev, dtype):
                          True)
     assert torch.equal(Wx_b, Wx)
     _fused_close(Tx, scatter_kv(Wx_b, k_b, c, params['omax'] + 1), dtype)
+
+
+@pytest.mark.parametrize('N,scales', [(7001, 'log-piecewise'),
+                                      (7001, 'log'), (4096, 'linear'),
+                                      (160000, 'log-piecewise')])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ssq_fused_equals_scatter_on_cwt_bins(dev, N, scales, dtype):
+    """B4 on the derivative CWT planes (B3) against B2 on the CWT
+    kernel's own bins (B1) of the same signal, one signal and a batch of
+    two: the two kernels share the ring and `bins.cuh::phase_bin`, so
+    their Tx agree within the bins criterion (float32; 1e-9 of max in
+    float64), and B4's batch rows equal its one-signal launches."""
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(N, dtype, scales, dev,
+                                                      seed=N)
+    nbins = params['omax'] + 1
+    Wx, dWx = cwt_fused(xh, sc, wav, n_up, n1, N, 1., True, True)
+    Wx_b, k_b = cwt_bins(xh, sc, wav, n_up, n1, N, 1., True, params, gamma,
+                         True)
+    Tx = ssq_fused(Wx, dWx, c, params, gamma, True)
+    _fused_close(Tx, scatter_kv(Wx_b, k_b, c, nbins), dtype)
+    if N < 160000:
+        Wb, dWb = torch.stack([Wx, Wx.flip(-1)]), torch.stack(
+            [dWx, dWx.flip(-1)])
+        Tb = ssq_fused(Wb, dWb, c, params, gamma, True)
+        assert torch.equal(Tb[0], Tx)
+        assert torch.equal(Tb[1], ssq_fused(Wb[1].contiguous(),
+                                            dWb[1].contiguous(), c, params,
+                                            gamma, True))
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
@@ -917,6 +948,67 @@ def test_scatter_plan_blocks_per_sm_granted(dev, dtype, nbins):
             kind, p)
         assert p.smem <= 232448 and p.blocks_per_sm >= 1
         if nbins == 293 and kind < 4:
+            assert (p.columns * itemsize, p.stages, p.blocks_per_sm) == (
+                128, 3, 5), (kind, p)
+            assert p.inflight >= 16 * 1024
+
+
+@pytest.mark.parametrize('N,na,nbins,B', RAGGED)
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ssq_fused_ragged(dev, dtype, N, na, nbins, B):
+    """B4 without and with Sfs at the ragged shapes of the scatters (bins
+    from one to the most the plan takes, a log grid from 4 bins) against
+    its plain version: the bins criterion in float32, 1e-9 of max in
+    float64; two runs bit-identical, one launch each, batch rows
+    bit-identical to one-signal launches."""
+    if nbins == 'max':
+        nbins = 25600 if dtype == 'float32' else 12800
+    params = (dict(mode='lin', vmin=0., dv=1., omax=0) if nbins == 1
+              else ssq_bin_params(_grid('lin', nbins), False) if nbins < 4
+              else ssq_bin_params(_grid('log', nbins), True))
+    shape = (B, na, N) if B > 1 else (na, N)
+    Wx, dWx = _noise_planes(shape, dtype, dev, seed=N + na + nbins + B)
+    rdt = getattr(torch, dtype)
+    c = torch.as_tensor(np.random.default_rng(N).random(na) + .5,
+                        dtype=rdt, device=dev)
+    Sfs = torch.linspace(0, .5, na, dtype=rdt, device=dev)
+    for sfs in (None, Sfs):
+        args = (Wx, dWx, c, params, .1, True, sfs)
+        n0 = ssq_fused.launches
+        o1, o2 = ssq_fused(*args), ssq_fused(*args)
+        torch.cuda.synchronize()
+        assert ssq_fused.launches - n0 == 2
+        assert o1.shape == shape[:-2] + (nbins, N) and torch.equal(o1, o2)
+        _fused_close(o1, ssq_fused_plain(*args), dtype)
+        for b in range(B if B > 1 else 0):
+            assert torch.equal(o1[b], ssq_fused(Wx[b], dWx[b], *args[2:]))
+        del o1, o2
+
+
+@pytest.mark.parametrize('nbins', [1, 31, 293, 300, 4096, 'max'])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_fused_plan_blocks_per_sm_granted(dev, dtype, nbins):
+    """B4's plans (without and with Sfs) are the card's: the shared bytes
+    are the kernel's and the blocks per SM the runtime's for the plan's
+    columns and stages, at every nbins; at ssq_cwt's 293 bins and
+    ssq_stft's 300 the plan the CPU model gives (one 128-byte line of
+    values per row, three stages, five blocks per SM)."""
+    if nbins == 'max':
+        nbins = 25600 if dtype == 'float32' else 12800
+    lib = _build.load('scatter_kv')
+    itemsize = 8 if dtype == 'float32' else 16
+    for kind in (5, 6):
+        p = scatter_launch_plan(kind, nbins, itemsize, dev)
+        got, smem = ctypes.c_int(0), ctypes.c_int(0)
+        _build.check(lib.scatter_occupancy(kind, int(itemsize == 16), nbins,
+                                           p.columns, p.stages,
+                                           ctypes.byref(got),
+                                           ctypes.byref(smem)),
+                     'scatter_occupancy')
+        assert (smem.value, got.value) == (p.smem, p.blocks_per_sm), (
+            kind, p)
+        assert p.smem <= 232448 and p.blocks_per_sm >= 1
+        if nbins in (293, 300):
             assert (p.columns * itemsize, p.stages, p.blocks_per_sm) == (
                 128, 3, 5), (kind, p)
             assert p.inflight >= 16 * 1024
