@@ -12,6 +12,8 @@ scales and `icwt` back; the second-order `ssq_cwt2` (the 293 scales, no
 ssq_freqs, as the bench calls it) and `ssq_stft2` (n_fft = 598), inverted
 by `issq_cwt`/`issq_stft`; `ssq_cwt` on a (4, 160000) batch (the bench's
 `ssq_cwt_b4` call) and with `get_dWx=True`, and `ssq_stft` at hop 8;
+`stft`, `ssq_stft` (hop 1, hop 8, hop 8 'abs'), `ssq_stft2` and
+`ssq_cwt2` on the same (4, 160000) batch;
 and every squeezing option on those routes: `ssq_cwt(get_w=True)` and
 `ssq_cwt(get_dWx=True, squeezing='lebesgue')` (the derivative CWT, the
 phase transform, the generic scatter), `ssq_stft(hop_len=8,
@@ -66,10 +68,17 @@ the scatter from bins). It:
      headline planes with planted wrapped (k < 0), dropped (k < -nbins,
      k >= nbins) and invalid cells, and at N = 10000 in float64, and
      checks two runs are bit-identical;
+ 9b. holds the STFT table kernel over a batch of spectra (B6 in its three
+     modes, B7) and the WSST2 kernel over a batch (B8) against their
+     plain versions on a (4, 160000) float32 and a (3, 10000) float64
+     batch, each row bit-identical to its spectrum launched alone, each
+     launch on the batched counter only;
  10. runs each public entry point (`ssq_cwt`, `ssq_stft`, `stft`, `cwt`,
      `ssq_cwt2`, `ssq_stft2`, the batched `ssq_cwt`, `ssq_cwt(get_dWx=
-     True)`, `ssq_stft(hop_len=8)`, `ssqueeze` from (Wx, dWx) and the
-     squeezing calls above at 160k)
+     True)`, `ssq_stft(hop_len=8)`, `ssqueeze` from (Wx, dWx), the
+     squeezing calls above at 160k and the batched STFT-family and
+     `ssq_cwt2` calls, which must launch the batched counters and no
+     one-signal counter of B6, B7 or B8)
      with every launch counter set to 0 just before, reads the counters
      just after (each kernel of the path must have launched; the `get_w`
      call must launch neither bins kernel), and checks the outputs against
@@ -79,10 +88,12 @@ the scatter from bins). It:
      `ssq_stft2`/`issq_stft` and `ssq_cwt(get_w=True)`/`issq_cwt`, and a
      (4, N) chirp batch through the batched
      `ssq_cwt`/`issq_cwt` (mad_rms < 0.1, each row), and white noise
-     through `stft`/`istft` in float64 at hop 1 and hop 8 (MAE < 1e-12);
+     through `stft`/`istft` in float64 at hop 1 and hop 8, one signal and
+     a (4, 160000) batch (MAE < 1e-12);
  12. times each kernel, its plain version and a library yardstick with
      CUDA events after warm-up (B2 also on the (4, 160000) batch, B4 also
-     on the hop-8 STFT's planes), computes each kernel's bound from this
+     on the hop-8 STFT's planes, B6 (bins and Sx modes), B7 and B8 also
+     on the (4, 160000) batch), computes each kernel's bound from this
      run's shapes (and, for B2, B4 and B5, the bytes/s achieved and the
      share of the bound), and times each public call with its peak
      memory;
@@ -243,10 +254,12 @@ def main():
     except ImportError as e:
         fail("the port is not importable beside this script (%s)" % e)
     # each kernel's launch counter: B3b counts on cwt_bins' batched
-    # counter, B1 on its own
+    # counter, B1 on its own; B6, B7 and B8 over a batch on theirs
     all_kernels = [(k.__name__, k, 'launches') for k in (
         cwt_bins, scatter_kv, stft_conv, cwt_fused, cwt_bins2, fsst2_conv,
-        ssq_fused, shift_scatter)] + [('cwt_bins_batched', cwt_bins, 'batched_launches')]
+        ssq_fused, shift_scatter)] + [
+        (k.__name__ + '_batched', k, 'batched_launches')
+        for k in (cwt_bins, stft_conv, fsst2_conv, cwt_bins2)]
     # full-precision float32 products in every plain version
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -397,7 +410,7 @@ def main():
         xt = torch.as_tensor(x, dtype=tdt, device=dev)
         xh6 = signal_spectrum(xt, n_fft, 'reflect')
         sp = stft_plan(None, None, n_fft, n_fft, 1., dtype)
-        Np2 = xh6.shape[0]
+        Np2 = xh6.shape[-1]
         H = conv_table(sp.window, n_fft, Np2, True, dtype, dev)
         Hd = conv_table(sp.diff_window, n_fft, Np2, True, dtype, dev)
         bins = dict(Sfs=torch.as_tensor(sp.Sfs, device=dev),
@@ -750,6 +763,136 @@ def main():
     del v64, k64, valid64, c64
     torch.cuda.empty_cache()
 
+    # ---- B6, B7 and B8 over a batch against their plain versions ---------
+    # rows b * n_rows + i of one launch pair per chunk; each row must be
+    # bit-identical to its spectrum launched alone, and each call must
+    # count on the batched counter only
+    rngb = np.random.default_rng(14)
+    b6b, b7b, b8b = {}, {}, {}
+    for xsrc, dtype in ((xb_big, 'float32'),
+                        (rngb.standard_normal((3, 10000)), 'float64')):
+        Bb, Ns = xsrc.shape
+        tdt = getattr(torch, dtype)
+        tol = 2e-5 if dtype == 'float32' else 1e-9
+        gamma = 10 * float(np.finfo(dtype).eps)
+        xh6, H, Hd, bins6, c6 = stft_inputs(Ns, dtype, xsrc)
+        print("B6 stft_conv over a batch vs plain at (%d, %d, %d), Np2=%d, "
+              "%s" % (Bb, n_rows, Ns, xh6.shape[-1], dtype), flush=True)
+        for mode, Hd_, bins_ in (('Sx', None, None), ('Sx+dSx', Hd, None),
+                                 ('Sx+k', Hd, bins6)):
+            out_k, counts = launches_of(all_kernels, lambda: stft_conv(
+                xh6, H, Hd_, Ns, 1., bins_))
+            check(counts['stft_conv_batched'] >= 1
+                  and counts['stft_conv'] == 0,
+                  "B6 %s %s over a batch: the batched counter only (%d C "
+                  "calls)" % (dtype, mode, counts['stft_conv_batched']))
+            out_p = stft_conv_plain(xh6, H, Hd_, Ns, 1., bins_)
+            err = rel_err(out_k[0], out_p[0])
+            check(out_k[0].shape == (Bb, n_rows, Ns) and err <= tol,
+                  "B6 %s %s over a batch: max|Sx_kernel - Sx_plain| = %.3g "
+                  "of max|Sx| (limit %g)" % (dtype, mode, err, tol))
+            if mode == 'Sx+dSx':
+                err_d = rel_err(out_k[1], out_p[1])
+                check(err_d <= tol, "B6 %s %s over a batch: dSx %.3g of "
+                      "max|dSx| (limit %g)" % (dtype, mode, err_d, tol))
+            if mode == 'Sx+k':
+                flips = float((out_k[1] != out_p[1]).double().mean())
+                check(flips <= 0.01, "B6 %s %s over a batch: k differs on "
+                      "%.4f%% of cells (limit 1%%)"
+                      % (dtype, mode, 100 * flips))
+                if dtype == 'float32':
+                    bins_criterion(
+                        scatter_kv_plain(out_k[0], out_k[1], c6, n_rows),
+                        scatter_kv_plain(out_p[0], out_p[1], c6, n_rows),
+                        "float32 B6 over a batch")
+            same = all(
+                (o is None and o1 is None) or torch.equal(o[b], o1)
+                for b in range(Bb) for o, o1 in zip(out_k, stft_conv(
+                    xh6[b].contiguous(), H, Hd_, Ns, 1., bins_)))
+            check(same, "B6 %s %s over a batch: every row bit-identical to "
+                  "its spectrum launched alone" % (dtype, mode))
+            if Ns == N and mode == 'Sx+k':
+                b6b = dict(err=float((out_k[0] - out_p[0]).abs().max()),
+                           args=(xh6, H, Hd, Ns, 1., bins6), c=c6)
+            del out_k, out_p
+        del H, Hd
+        torch.cuda.empty_cache()
+
+        p7 = fsst2_plan(None, None, n_fft, n_fft, 1., dtype)
+        tab7 = conv_bank(p7.bank, n_fft, xh6.shape[-1], True, dtype, dev)
+        bins7 = dict(Sfs=torch.as_tensor(p7.Sfs, device=dev),
+                     params=p7.params, flipud=False, gamma=gamma)
+        c7 = torch.full((n_rows,), p7.const, dtype=tdt, device=dev)
+        print("B7 fsst2_conv over a batch vs plain at (%d, %d, %d), %s"
+              % (Bb, n_rows, Ns, dtype), flush=True)
+        (V_k, k_k), counts = launches_of(all_kernels, lambda: fsst2_conv(
+            xh6, tab7, Ns, 1., bins7))
+        V_p, k_p = fsst2_conv_plain(xh6, tab7, Ns, 1., bins7)
+        err, err_abs = rel_err(V_k, V_p), float((V_k - V_p).abs().max())
+        flips = float((k_k != k_p).double().mean())
+        check(counts['fsst2_conv_batched'] >= 1 and counts['fsst2_conv'] == 0
+              and V_k.shape == (Bb, n_rows, Ns) and err <= tol
+              and flips <= 0.01,
+              "B7 %s over a batch: the batched counter only, max|V_kernel "
+              "- V_plain| = %.3g of max|V| (limit %g), k differs on %.4f%% "
+              "of cells (limit 1%%)" % (dtype, err, tol, 100 * flips))
+        bins_criterion(scatter_kv_plain(V_k, k_k, c7, n_rows),
+                       scatter_kv_plain(V_p, k_p, c7, n_rows),
+                       "%s B7 over a batch" % dtype)
+        del V_p, k_p
+        same = all(torch.equal(V_k[b], V1) and torch.equal(k_k[b], k1)
+                   for b in range(Bb) for V1, k1 in [fsst2_conv(
+                       xh6[b].contiguous(), tab7, Ns, 1., bins7)])
+        check(same, "B7 %s over a batch: every row bit-identical to its "
+              "spectrum launched alone" % dtype)
+        if Ns == N:
+            b7b = dict(err=err_abs,
+                       args=(xh6, tab7, Ns, 1., bins7), c=c7)
+        del V_k, k_k, xh6, tab7
+        _BANK_CACHE.clear()
+        torch.cuda.empty_cache()
+
+        wv = resolve_wavelet(('gmw', {'dtype': dtype}), N=Ns)
+        nu, nn1, _ = pad_params(Ns, 'reflect')
+        xh8 = rfft(padsignal(torch.as_tensor(xsrc, dtype=tdt, device=dev),
+                             'reflect')).contiguous()
+        pl8 = plan2 if Ns == N else plan_from_numpy(
+            stq.process_scales('log-piecewise', Ns, wv), None,
+            ('gmw', {'dtype': dtype}), Ns)
+        sc8 = torch.as_tensor(pl8['scales'].ravel(), dtype=tdt, device=dev)
+        c8 = torch.as_tensor(np.broadcast_to(np.ravel(pl8['const']),
+                                             (len(sc8),)).copy(),
+                             dtype=tdt, device=dev)
+        rest8 = (sc8, wv, nu, nn1, Ns, 1., pl8['params'], gamma, True)
+        print("B8 cwt_bins2 over a batch vs plain at (%d, %d, %d), n_up=%d, "
+              "%s" % (Bb, len(sc8), Ns, nu, dtype), flush=True)
+        (W_k, k_k), counts = launches_of(all_kernels,
+                                         lambda: cwt_bins2(xh8, *rest8))
+        W_p, k_p = cwt_bins2_plain(xh8, *rest8)
+        err, err_abs = rel_err(W_k, W_p), float((W_k - W_p).abs().max())
+        flips = float((k_k != k_p).double().mean())
+        check(counts['cwt_bins2_batched'] >= 1 and counts['cwt_bins2'] == 0
+              and W_k.shape == (Bb, len(sc8), Ns) and err <= tol
+              and flips <= 0.01,
+              "B8 %s over a batch: the batched counter only, max|W_kernel "
+              "- W_plain| = %.3g of max|W| (limit %g), k differs on %.4f%% "
+              "of cells (limit 1%%)" % (dtype, err, tol, 100 * flips))
+        nb = pl8['params']['omax'] + 1
+        bins_criterion(scatter_kv_plain(W_k, k_k, c8, nb),
+                       scatter_kv_plain(W_p, k_p, c8, nb),
+                       "%s B8 over a batch" % dtype)
+        del W_p, k_p
+        same = all(torch.equal(W_k[b], W1) and torch.equal(k_k[b], k1)
+                   for b in range(Bb) for W1, k1 in [cwt_bins2(
+                       xh8[b].contiguous(), *rest8)])
+        check(same, "B8 %s over a batch: every row bit-identical to its "
+              "spectrum launched alone" % dtype)
+        if Ns == N:
+            b8b = dict(err=err_abs,
+                       args=(xh8,) + rest8, c=c8)
+        del W_k, k_k, xh8
+        torch.cuda.empty_cache()
+
     # ---- the main paths through the public API ----------------------------
     x_dev = torch.as_tensor(x_np, device=dev)
     gamma32 = 10 * float(np.finfo(np.float32).eps)   # ssq_cwt's default
@@ -782,6 +925,14 @@ def main():
                                              squeezing='abs'),
         'ssq_stft2_lebesgue': lambda: stq.ssq_stft2(x_dev, n_fft=n_fft,
                                                     squeezing='lebesgue'),
+        'stft_b4': lambda: stq.stft(xb_dev, n_fft=n_fft),
+        'ssq_stft_b4': lambda: stq.ssq_stft(xb_dev, n_fft=n_fft),
+        'ssq_stft_hop8_b4': lambda: stq.ssq_stft(xb_dev, n_fft=n_fft,
+                                                 hop_len=8),
+        'ssq_stft_hop8_abs_b4': lambda: stq.ssq_stft(
+            xb_dev, n_fft=n_fft, hop_len=8, squeezing='abs'),
+        'ssq_stft2_b4': lambda: stq.ssq_stft2(xb_dev, n_fft=n_fft),
+        'ssq_cwt2_b4': lambda: stq.ssq_cwt2(xb_dev, spec, scales=scales),
     }
     # the w and Wx that `ssqueeze` reassigns: the get_w call's own
     sq_in = {}
@@ -800,10 +951,19 @@ def main():
              'ssqueeze_dwx': ('ssq_fused',),
              'ssq_stft_lebesgue': ('stft_conv', 'scatter_kv'),
              'ssq_cwt2_abs': ('cwt_bins2', 'scatter_kv'),
-             'ssq_stft2_lebesgue': ('fsst2_conv', 'scatter_kv')}
-    # kernels a path must not launch: get_w takes no bins kernel
+             'ssq_stft2_lebesgue': ('fsst2_conv', 'scatter_kv'),
+             'stft_b4': ('stft_conv_batched',),
+             'ssq_stft_b4': ('stft_conv_batched', 'scatter_kv'),
+             'ssq_stft_hop8_b4': ('ssq_fused',),
+             'ssq_stft_hop8_abs_b4': ('shift_scatter',),
+             'ssq_stft2_b4': ('fsst2_conv_batched', 'scatter_kv'),
+             'ssq_cwt2_b4': ('cwt_bins2_batched', 'scatter_kv')}
+    # kernels a path must not launch: get_w takes no bins kernel, a batch
+    # no one-signal launch of B6, B7 or B8
     avoids = {'ssq_cwt_getw': ('cwt_bins', 'cwt_bins_batched', 'scatter_kv',
                                'ssq_fused')}
+    avoids.update((name, ('stft_conv', 'fsst2_conv', 'cwt_bins2'))
+                  for name in calls if name.endswith('_b4'))
     launches = dict.fromkeys((name for name, _, _ in all_kernels), 0)
     for name, fn in calls.items():
         fn()                                  # plan memo + first launch
@@ -992,6 +1152,61 @@ def main():
             bins_criterion(Tx, scatter_kv_plain(vals, k_p, cp, nb),
                            "public %s vs plain path" % name)
             del Tx, W_pub, W_p, k_p, vals
+        elif name == 'stft_b4':
+            xh6, H, _, _, _ = stft_inputs(N, 'float32', xb_big)
+            Sx_p, _ = stft_conv_plain(xh6, H, None, N)
+            check(out.shape == (B4N, n_rows, N)
+                  and rel_err(out, Sx_p) <= 2e-5,
+                  "public batched stft: Sx %s, %.3g of max vs the plain "
+                  "path" % (tuple(out.shape), rel_err(out, Sx_p)))
+            del Sx_p, xh6, H
+        elif name in ('ssq_stft_b4', 'ssq_stft2_b4', 'ssq_cwt2_b4'):
+            Tx, W_pub = out[0], out[1]
+            if name == 'ssq_stft_b4':
+                xh6, H, Hd, bins6, c6 = stft_inputs(N, 'float32', xb_big)
+                W_p, k_p = stft_conv_plain(xh6, H, Hd, N, 1., bins6)
+                cp, nb = c6, n_rows
+                del xh6, H, Hd
+            elif name == 'ssq_stft2_b4':
+                W_p, k_p = fsst2_conv_plain(*b7b['args'])
+                cp, nb = b7b['c'], n_rows
+            else:
+                W_p, k_p = cwt_bins2_plain(*b8b['args'])
+                cp, nb = b8b['c'], nbins2
+            check(Tx.shape == (B4N, nb, N) and W_pub.shape == W_p.shape
+                  and rel_err(W_pub, W_p) <= 2e-5
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "batched %s: Tx %s, finite; W %s, %.3g of max vs the "
+                  "plain path" % (name[:-3], tuple(Tx.shape),
+                                  tuple(W_pub.shape), rel_err(W_pub, W_p)))
+            bins_criterion(Tx, scatter_kv_plain(W_p, k_p, cp, nb),
+                           "public batched %s vs plain path" % name[:-3])
+            del Tx, W_pub, W_p, k_p
+        elif name in ('ssq_stft_hop8_b4', 'ssq_stft_hop8_abs_b4'):
+            Tx, Sx = out[0], out[1]
+            n_segs = -(-N // 8)
+            check(Tx.shape == (B4N, n_rows, n_segs)
+                  and Sx.shape == (B4N, n_rows, n_segs)
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "batched %s: Tx, Sx %s, finite"
+                  % (name[:-3], tuple(Tx.shape)))
+            _, _, _, bins6, c6 = stft_inputs(N, 'float32', x_np)
+            Sx_p, dSx_p = stq.stft(xb_dev, n_fft=n_fft, hop_len=8,
+                                   derivative=True)
+            Sx_p, dSx_p = Sx_p.contiguous(), dSx_p.contiguous()
+            if name == 'ssq_stft_hop8_b4':
+                Tx_p = ssq_fused_plain(Sx_p, dSx_p, c6, bins6['params'],
+                                       bins6['gamma'], False, bins6['Sfs'])
+            else:
+                k_p, v_p = compute_bins(phase_stft(Sx_p, dSx_p, bins6['Sfs'],
+                                                   bins6['gamma']),
+                                        bins6['params'], False)
+                Tx_p = shift_scatter_plain(Sx_p.abs().to(Sx_p.dtype), k_p,
+                                           v_p, n_rows, c6)
+                del k_p, v_p
+            bins_criterion(Tx, Tx_p, "public batched %s vs plain path"
+                           % name[:-3])
+            del Tx, Sx, Sx_p, dSx_p, Tx_p
         else:
             Tx, Sx = out[0], out[1]
             check(Tx.shape == (n_rows, N) and Sx.shape == (n_rows, N)
@@ -1048,6 +1263,19 @@ def main():
         check(mae < 1e-12, "stft -> istft float64 at hop %d: MAE = %.3g "
               "(< 1e-12)" % (hop, mae))
         del S
+    xb64 = rngb.standard_normal((B4N, N))
+    for hop in (1, 8):
+        S, counts = launches_of(all_kernels, lambda: stq.stft(
+            xb64, n_fft=n_fft, hop_len=hop, dtype='float64'))
+        xr = stq.istft(S, n_fft=n_fft, hop_len=hop, N=N)
+        mae = max(float(np.abs(xr[b] - xb64[b]).mean()) for b in range(B4N))
+        check(xr.shape == xb64.shape and mae < 1e-12 and (
+            hop > 1 or (counts['stft_conv_batched'] >= 1
+                        and counts['stft_conv'] == 0)),
+              "batched stft -> istft float64 of a %s batch at hop %d: MAE "
+              "= %.3g (< 1e-12, each row), launches %s"
+              % (xb64.shape, hop, mae, counts))
+        del S, xr
     torch.cuda.empty_cache()
 
     # ---- timings ---------------------------------------------------------
@@ -1156,6 +1384,39 @@ def main():
     del Wb, kb, b3b['b2']
     torch.cuda.empty_cache()
 
+    # B6 (bins and Sx modes), B7 and B8 over the (4, 160000) batch as the
+    # batched ssq_stft, stft, ssq_stft2 and ssq_cwt2 run them; yardstick:
+    # the DFT core only, one torch.fft.ifft of the (B * n_rows, Np2)
+    # products per plane (B * na spectra for B8)
+    xh6b, H6b, Hd6b = b6b['args'][:3]
+    b6b_ms = cuda_ms(lambda: stft_conv(*b6b['args']))
+    b6b_sx_ms = cuda_ms(lambda: stft_conv(xh6b, H6b, None, N))
+    b6b_plain_ms = cuda_ms(lambda: stft_conv_plain(*b6b['args']), reps=3)
+    prods = H6b * xh6b[:, None, :]
+    b6b_sx_lib_ms = cuda_ms(lambda: torch.fft.ifft(prods, dim=-1))
+    prods = torch.cat([prods, Hd6b * xh6b[:, None, :]])
+    b6b_lib_ms = cuda_ms(lambda: torch.fft.ifft(prods, dim=-1), reps=5)
+    del prods, xh6b, H6b, Hd6b, b6b['args']
+    torch.cuda.empty_cache()
+    xh7b, tab7b = b7b['args'][:2]
+    b7b_ms = cuda_ms(lambda: fsst2_conv(*b7b['args']))
+    b7b_plain_ms = cuda_ms(lambda: fsst2_conv_plain(*b7b['args']), reps=2,
+                           warm=1)
+    prods5 = tab7b * xh7b[:, None, None, :]
+    b7b_lib_ms = cuda_ms(lambda: torch.fft.ifft(prods5, dim=-1), reps=3)
+    del prods5, xh7b, tab7b, b7b['args']
+    torch.cuda.empty_cache()
+    xh8b = b8b['args'][0]
+    b8b_ms = cuda_ms(lambda: cwt_bins2(*b8b['args']))
+    b8b_plain_ms = cuda_ms(lambda: cwt_bins2_plain(*b8b['args']), reps=2,
+                           warm=1)
+    spec5b = torch.zeros((5 * B4N * na, n_up), dtype=xh8b.dtype, device=dev)
+    spec5b.view(5, B4N, na, n_up)[..., :xh8b.shape[-1]] = xh8b[:, None, :]
+    b8b_lib_ms = cuda_ms(lambda: torch.fft.ifft(spec5b, dim=-1), reps=3)
+    n_xh8b = xh8b.numel()
+    del spec5b, xh8b, b8b['args']
+    torch.cuda.empty_cache()
+
     # B4 as ssq_cwt(get_dWx=True) runs it; yardstick: the scatter part
     # only, one index_put_ with accumulate on bins computed beforehand
     # (no single PyTorch call computes the phase transform and bin map)
@@ -1259,6 +1520,14 @@ def main():
     b3b_bytes = n_xhb * cb + na * rb + B4N * na * N * (cb + 4)
     b3b_flops = B4N * na * 2 * 5 * n_up * (lg - 1)
     b3b_bound, b3b_by = bound(b3b_bytes, b3b_flops)
+    # B6, B7 and B8 over the batch: their one-signal functions B4N times
+    # (B6 in bins mode, as the batched ssq_stft runs it; and in Sx mode)
+    b6b_bound, b6b_by = bound(B4N * b6_bytes, B4N * b6_flops)
+    b6b_sx_bound, _ = bound(B4N * (Np2 * cb + n_rows * N * cb),
+                            B4N * b6_flops / 2)
+    b7b_bound, b7b_by = bound(B4N * b7_bytes, B4N * b7_flops)
+    b8b_bytes = n_xh8b * cb + na * rb + B4N * na * N * (cb + 4)
+    b8b_bound, b8b_by = bound(b8b_bytes, B4N * b8_flops)
     # B4: Wx, dWx and const read, Tx written; per cell the phase ratio and
     # the bin map (~12 FLOP), per valid cell the accumulate (4 FLOP)
     b4_bytes = 2 * na * N * cb + na * rb + nbins * N * cb
@@ -1275,7 +1544,7 @@ def main():
 
     for name, (ms, gb) in e2e.items():
         per = (", %.3f ms per transform" % (ms / B4N)
-               if name == 'ssq_cwt_b4' else '')
+               if name.endswith('_b4') else '')
         print("%s end to end at N=%d: %.3f ms/call%s (host clock, mean of 10 "
               "after warm-up), peak device memory %.3f GB; card: %s"
               % (name, N, ms, per, gb, card), flush=True)
@@ -1309,6 +1578,16 @@ def main():
           % (b3b_ms, B4N, N, b3b_plain_ms, b3b_lib_ms, b3b_bound, b3b_by,
              b3b_bytes, b3b_flops, b4_ms, b4_plain_ms, b4_lib_ms, b4_bound,
              b4_by, b4_bytes, b4_flops, n_valid4), flush=True)
+    print("over a (%d, %d) batch: B6 bins mode %.3f ms, Sx mode %.3f ms "
+          "(plain bins %.3f, torch.fft.ifft DFT core %.3f, of the Sx mode's "
+          "one plane %.3f, bound %.3f by %s, Sx mode %.3f); B7 %.3f ms "
+          "(plain %.3f, torch.fft.ifft DFT core %.3f, bound %.3f by %s); B8 "
+          "%.3f ms (plain %.3f, torch.fft.ifft DFT core %.3f, bound %.3f by "
+          "%s); card: %s"
+          % (B4N, N, b6b_ms, b6b_sx_ms, b6b_plain_ms, b6b_lib_ms,
+             b6b_sx_lib_ms, b6b_bound, b6b_by, b6b_sx_bound, b7b_ms,
+             b7b_plain_ms, b7b_lib_ms, b7b_bound, b7b_by, b8b_ms,
+             b8b_plain_ms, b8b_lib_ms, b8b_bound, b8b_by, card), flush=True)
     print("B4 at hop 8 (%d, %d), Sfs: %.3f ms (plain %.3f, index_put_ "
           "scatter part %.3f, bound %.3f by %s: %.3g B, %d valid cells)"
           % (nr8, ns8, b4h['ms'], b4h['plain_ms'], b4h['lib_ms'],
@@ -1390,6 +1669,24 @@ def main():
              launches=launches['shift_scatter'], max_abs_err=b5_err,
              ms=b5_ms, plain_ms=b5_plain_ms, bound_ms=b5_bound,
              bound_by=b5_by, library_ms=b5_lib_ms),
+        dict(name='stft_conv_batched', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/stft_conv.cu',
+             replaces='ssqueezepy_tpu/ops/stft_conv.py:393',
+             launches=launches['stft_conv_batched'], max_abs_err=b6b['err'],
+             ms=b6b_ms, plain_ms=b6b_plain_ms, bound_ms=b6b_bound,
+             bound_by=b6b_by, library_ms=b6b_lib_ms),
+        dict(name='fsst2_conv_batched', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/stft_conv.cu',
+             replaces='ssqueezepy_tpu/ops/stft_conv.py:655',
+             launches=launches['fsst2_conv_batched'],
+             max_abs_err=b7b['err'], ms=b7b_ms, plain_ms=b7b_plain_ms,
+             bound_ms=b7b_bound, bound_by=b7b_by, library_ms=b7b_lib_ms),
+        dict(name='cwt_bins2_batched', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/cwt_bins.cu',
+             replaces='ssqueezepy_tpu/ops/cwt_pallas.py:70',
+             launches=launches['cwt_bins2_batched'],
+             max_abs_err=b8b['err'], ms=b8b_ms, plain_ms=b8b_plain_ms,
+             bound_ms=b8b_bound, bound_by=b8b_by, library_ms=b8b_lib_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,10 @@ headline: the bench's 293-row log-piecewise plan and its ssq_freqs),
 (`ssq_cwt` on a (4, N) batch), `ssq_cwt_dwx` (`ssq_cwt` with
 `get_dWx=True`), `ssq_stft_hop8` (`ssq_stft` at hop 8), `ssq_cwt_getw`
 (`ssq_cwt` with `get_w=True`), `ssq_stft_hop8_abs` (`ssq_stft` at hop
-8 with 'abs' squeezing) or `ssqueeze_dwx` (`ssqueeze` of the
-`get_dWx=True` call's Wx and dWx) —
+8 with 'abs' squeezing), `ssqueeze_dwx` (`ssqueeze` of the
+`get_dWx=True` call's Wx and dWx), or `stft_b4`, `ssq_stft_b4`,
+`ssq_stft_hop8_b4`, `ssq_stft_hop8_abs_b4`, `ssq_stft2_b4`,
+`ssq_cwt2_b4` (those calls on the (4, N) batch) —
 under `torch.profiler` after warm-up and prints one JSON line: device
 time per kernel name (summed over the profiled calls, divided by the
 call count), the wall time per call, and the device's idle share of
@@ -38,7 +40,10 @@ def main():
                     choices=('ssq_cwt', 'cwt', 'ssq_stft', 'stft',
                              'ssq_cwt2', 'ssq_stft2', 'ssq_cwt_b4',
                              'ssq_cwt_dwx', 'ssq_stft_hop8', 'ssq_cwt_getw',
-                             'ssq_stft_hop8_abs', 'ssqueeze_dwx'))
+                             'ssq_stft_hop8_abs', 'ssqueeze_dwx',
+                             'stft_b4', 'ssq_stft_b4', 'ssq_stft_hop8_b4',
+                             'ssq_stft_hop8_abs_b4', 'ssq_stft2_b4',
+                             'ssq_cwt2_b4'))
     ap.add_argument('--n', type=int, default=160000)
     ap.add_argument('--calls', type=int, default=5)
     a = ap.parse_args()
@@ -79,7 +84,15 @@ def main():
         'ssq_stft': lambda: stq.ssq_stft(x, n_fft=598),
         'stft': lambda: stq.stft(x, n_fft=598),
         'ssq_cwt2': lambda: stq.ssq_cwt2(x, spec, scales=scales),
-        'ssq_stft2': lambda: stq.ssq_stft2(x, n_fft=598)}[a.transform]
+        'ssq_stft2': lambda: stq.ssq_stft2(x, n_fft=598),
+        'stft_b4': lambda: stq.stft(xb, n_fft=598),
+        'ssq_stft_b4': lambda: stq.ssq_stft(xb, n_fft=598),
+        'ssq_stft_hop8_b4': lambda: stq.ssq_stft(xb, n_fft=598, hop_len=8),
+        'ssq_stft_hop8_abs_b4': lambda: stq.ssq_stft(
+            xb, n_fft=598, hop_len=8, squeezing='abs'),
+        'ssq_stft2_b4': lambda: stq.ssq_stft2(xb, n_fft=598),
+        'ssq_cwt2_b4': lambda: stq.ssq_cwt2(xb, spec, scales=scales)
+    }[a.transform]
     for _ in range(3):
         call()
     torch.cuda.synchronize()

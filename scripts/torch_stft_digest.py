@@ -13,6 +13,12 @@ at N = 10000 (Np2 = 12288 = 3 x 2^12), 9000 (n_fft = 128, 9 x 2^10) and
 7000 (n_fft = 256, 15 x 2^9) in float32 and float64. Prints one JSON
 object {"<N> <dtype> <output>": sha256 of the bytes, ...} with the card's
 name and power limit. Needs a CUDA device.
+
+Where the checkout's kernel takes a batch of spectra (it counts on
+`stft_conv.batched_launches`), each case also runs a batch: the spectrum
+above stacked with those of seeds N + 1 (and N + 2 below 160000), keys
+"<B>x<N> <dtype> <output>", and "... rows equal" says whether each row of
+every batched output is bit-identical to its spectrum launched alone.
 """
 import argparse
 import hashlib
@@ -51,31 +57,52 @@ def main():
         (N, n_fft, dtype) for N, n_fft in ((10000, 598), (9000, 128),
                                            (7000, 256))
         for dtype in ('float32', 'float64')]
+    batched = hasattr(stft_conv, 'batched_launches')
+
+    def spectrum(seed, N, n_fft, dtype):
+        x = np.random.default_rng(seed).standard_normal(N)
+        return signal_spectrum(torch.as_tensor(
+            x, dtype=getattr(torch, dtype), device=dev), n_fft, 'reflect')
+
     for N, n_fft, dtype in cases:
-        x = np.random.default_rng(N).standard_normal(N)
-        xh = signal_spectrum(torch.as_tensor(x, dtype=getattr(torch, dtype),
-                                             device=dev), n_fft, 'reflect')
+        xh = spectrum(N, N, n_fft, dtype)
         gamma = 10 * float(np.finfo(dtype).eps)
         sp = stft_plan(None, None, n_fft, n_fft, 1., dtype)
         H = conv_table(sp.window, n_fft, xh.shape[0], True, dtype, dev)
         Hd = conv_table(sp.diff_window, n_fft, xh.shape[0], True, dtype, dev)
         bins = dict(Sfs=torch.as_tensor(sp.Sfs, device=dev),
                     params=sp.params, flipud=False, gamma=gamma)
-        key = '%d %s ' % (N, dtype)
-        out[key + 'mode 0 Sx'] = digest(stft_conv(xh, H, None, N)[0])
-        Sx, dSx = stft_conv(xh, H, Hd, N, 2.)
-        out[key + 'mode 1 Sx'], out[key + 'mode 1 dSx'] = map(digest,
-                                                              (Sx, dSx))
-        Sx, k = stft_conv(xh, H, Hd, N, 1., bins)
-        out[key + 'mode 2 Sx'], out[key + 'mode 2 k'] = map(digest, (Sx, k))
-        del H, Hd, Sx, dSx, k
         fp = fsst2_plan(None, None, n_fft, n_fft, 1., dtype)
         bank = conv_bank(fp.bank, n_fft, xh.shape[0], True, dtype, dev)
         bins7 = dict(Sfs=torch.as_tensor(fp.Sfs, device=dev),
                      params=fp.params, flipud=False, gamma=gamma)
-        V, k = fsst2_conv(xh, bank, N, 1., bins7)
-        out[key + 'B7 V'], out[key + 'B7 k'] = map(digest, (V, k))
-        del bank, V, k
+        runs = (('mode 0', ('Sx',), lambda z: stft_conv(z, H, None, N)[:1]),
+                ('mode 1', ('Sx', 'dSx'), lambda z: stft_conv(z, H, Hd, N,
+                                                              2.)),
+                ('mode 2', ('Sx', 'k'), lambda z: stft_conv(z, H, Hd, N, 1.,
+                                                            bins)),
+                ('B7', ('V', 'k'), lambda z: fsst2_conv(z, bank, N, 1.,
+                                                        bins7)))
+        key = '%d %s ' % (N, dtype)
+        for mode, names, run in runs:
+            for name, o in zip(names, run(xh)):
+                out[key + '%s %s' % (mode, name)] = digest(o)
+        if batched:
+            B = 2 if N == 160000 else 3
+            xb = torch.stack([xh] + [spectrum(N + b, N, n_fft, dtype)
+                                     for b in range(1, B)])
+            keyb, same = '%dx%d %s ' % (B, N, dtype), True
+            for mode, names, run in runs:
+                outs = run(xb)
+                for name, o in zip(names, outs):
+                    out[keyb + '%s %s' % (mode, name)] = digest(o)
+                for b in range(B):
+                    same = same and all(torch.equal(o[b], o1) for o, o1 in
+                                        zip(outs, run(xb[b].contiguous())))
+                del outs
+            out[keyb + 'rows equal'] = same
+            del xb
+        del H, Hd, bank
         torch.cuda.empty_cache()
     print(json.dumps(out, indent=1))
 

@@ -38,6 +38,12 @@
 //     The scratch planes feed the length-f2 transform over m2 of every
 //     plane of the mode, and the n that land in [0, N) go through the
 //     mode's epilogue.
+// A batch of spectra xh (B, Np2) runs as B * tab_rows rows, global row
+// g = b * tab_rows + i (as the CWT engine's batch): stage 1 reads table row
+// g % tab_rows and the spectrum of signal g / tab_rows, stage 2 Sfs at
+// g % tab_rows and writes output row g; the divide is once per block, and
+// no arithmetic of a row depends on b, so each row is bit-identical to its
+// signal launched alone. Row chunks may cross signals.
 // With one or two planes per block the first pass reads its inputs from
 // device memory itself (`Direct`): the passes put the sequence
 // q = plane * P + p fastest, so it reads P consecutive columns per plane
@@ -104,7 +110,7 @@ constexpr int kThreads = 256;
 // Host-side parameter block, copied by value into both launches.
 struct Cfg {
   int Np2, f1, f2, N, P1, P2, rows, row0, omax, flipud;
-  int tab_rows;                            // rows of each table
+  int tab_rows;                            // rows of each table (i)
   int S1, S2, sw1, sw2;                    // sequence strides, swizzles
   double inv_n, fs, gamma_gate, vmin, dv;
   double tiny, two_pi, fs_2pi;             // mode 3: regularizer, 2 pi, fs/2pi
@@ -195,10 +201,11 @@ stft_stage1(const typename Cplx<T>::type* __restrict__ xh, Tabs<T> tabs,
   CT* bufa = tw + L;                       // sequence q * P + p at q * S
   CT* bufb = bufa + NP * P * S;
   const int a = blockIdx.y;                // row within this chunk
-  const size_t trow = (size_t)(c.row0 + a) * c.Np2;
+  const int gr = c.row0 + a;               // global row b * tab_rows + i
+  const size_t trow = (size_t)(gr % c.tab_rows) * c.Np2;
   const int m2_0 = blockIdx.x * P;
   Products<T, NP> first;
-  first.xh = xh;
+  first.xh = xh + (size_t)(gr / c.tab_rows) * c.Np2;
 #pragma unroll
   for (int g = 0; g < NP; ++g) first.tab[g] = tabs.t[g] + trow;
   first.f2 = c.f2;
@@ -287,13 +294,13 @@ __global__ void stft_stage2(const typename Cplx<T>::type* __restrict__ scratch,
   const int k2hi = (c.N + c.f1 - 1) / c.f1;
   // k2 walked through swz over whole blocks of 2^sw2 (<= f2)
   const int nk = ((k2hi + (1 << c.sw2) - 1) >> c.sw2) << c.sw2;
-  const int i = c.row0 + a;
-  const size_t row = (size_t)i * c.N;
+  const int gr = c.row0 + a;               // global row b * tab_rows + i
+  const size_t row = (size_t)gr * c.N;
   const T fs = (T)c.fs;
   const T gate = (T)c.gamma_gate * (T)c.gamma_gate;
   const T two_pi = (T)6.283185307179586;
   T sfs_i = (T)0;
-  if constexpr (MODE >= MODE_BINS) sfs_i = sfs[i];
+  if constexpr (MODE >= MODE_BINS) sfs_i = sfs[gr % c.tab_rows];
   for (int e = threadIdx.x; e < P * nk; e += blockDim.x) {
     const int p = e & (P - 1);
     const int k2 = swz(e >> lgP, c.sw2);
@@ -402,7 +409,8 @@ Cfg make_cfg(const int* ip, const double* dp) {
 }  // namespace
 
 // ip: 16 ints, dp: 8 doubles (layout in ops/stft_cuda.py; ip[8] the
-// mode). `Hd`, `sfs` and `out2` may
+// mode, ip[11] the rows of each table). `xh` is (B, Np2), the rows of
+// `sx` and `out2` B * tab_rows. `Hd`, `sfs` and `out2` may
 // be null where the mode does not read or write them; in mode 3 `H` is
 // the (5, tab_rows, Np2) bank and `Hd` is null.
 // Returns cudaGetLastError() after the launches.

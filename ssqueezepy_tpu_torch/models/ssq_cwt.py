@@ -38,7 +38,8 @@ from ..ops.pad import padsignal, pad_params
 from ..ops.phase import phase_cwt
 from ..ops.ssq_cuda import scatter_kv, ssq_fused
 from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
-from ..utils.common import EPS32, EPS64, not_ported, resolve_device
+from ..utils.common import (EPS32, EPS64, check_batch, not_ported,
+                            resolve_device)
 from ..utils.cwt_utils import (process_scales, adm_ssq, _process_fs_and_t,
                                infer_scaletype, nv_from_scales)
 from .cwt import resolve_wavelet, _wavelet_key
@@ -142,15 +143,11 @@ def _device_plan(key, scales_np, const, dtype, device):
 
 def _check_slice(x, padtype, order, get_w, difftype):
     """Calls outside the ported slice raise, naming their ROADMAP item."""
-    if x.ndim == 2 and get_w:
-        raise NotImplementedError("`get_w=True` unsupported with batched "
-                                  "input.")
+    check_batch(x.ndim, get_w)
     if isinstance(order, (tuple, list, range)) or order > 0:
         not_ported("ssq_cwt with order > 0", 'A6b')
     if difftype == 'numeric':
         not_ported("difftype='numeric'", 'A6b')
-    if x.ndim not in (1, 2):
-        raise ValueError("`x` must be 1D or 2D (got x.ndim == %s)" % x.ndim)
     if padtype is None:
         not_ported("padtype=None", 'A6b')
 

@@ -11,8 +11,9 @@ linear chirps. The plan (scales, ssq frequency grid, squeeze constant,
 bin map) is `ssq_cwt`'s, memoized with it; the signal runs pad -> real
 FFT (torch.fft) -> the WSST2 kernel (`ops/cwt_cuda.py::cwt_bins2`, W and
 the bins of w2) -> `_apply_squeezing` on W -> the reassignment scatter
-(`ops/ssq_cuda.py`). Inversion is `issq_cwt`: reassignment only moves
-energy within a column.
+(`ops/ssq_cuda.py`). A (B, N) batch runs each kernel once over the
+batch. Inversion is `issq_cwt`: reassignment only moves energy within a
+column.
 """
 import numpy as np
 import torch
@@ -22,7 +23,8 @@ from ..ops.cwt_cuda import cwt_bins2
 from ..ops.fft import rfft
 from ..ops.pad import padsignal, pad_params
 from ..ops.ssq_cuda import scatter_kv
-from ..utils.common import EPS32, EPS64, not_ported, resolve_device
+from ..utils.common import (EPS32, EPS64, check_batch, not_ported,
+                            resolve_device)
 from ..utils.cwt_utils import _process_fs_and_t
 from .cwt import resolve_wavelet, _is_analytic
 from .ssq_cwt import _ssq_cwt_plan, _device_plan
@@ -32,12 +34,10 @@ from .stft import _as_signal
 __all__ = ['ssq_cwt2']
 
 
-def _check_slice(ndim, wavelet, padtype, get_w):
+def _check_slice(wavelet, padtype, get_w):
     """Calls outside the ported slice raise, naming their ROADMAP item."""
     if get_w:
         not_ported("ssq_cwt2 with get_w=True", 'A8b')
-    if ndim != 1:
-        not_ported("ssq_cwt2 of %d-D input" % ndim, 'A8b')
     if padtype is None:
         not_ported("ssq_cwt2 with padtype=None", 'A8b')
     if not _is_analytic(wavelet):
@@ -48,21 +48,23 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
              t=None, ssq_freqs=None, padtype='reflect', squeezing='sum',
              maprange='peak', gamma=None, astensor=True, flipud=True,
              get_w=False, device='cuda'):
-    """Second-order synchrosqueezed CWT of a 1-D signal (GMW, L1 norm).
+    """Second-order synchrosqueezed CWT of a signal (N,) or a batch of
+    signals (B, N) (GMW, L1 norm).
 
     Returns (Tx, Wx, ssq_freqs, scales) as `ssq_cwt` does: Tx (nbins, N)
-    and Wx (na, N) complex tensors on `device` (numpy with
+    and Wx (na, N), with a leading B for a batch, complex tensors on
+    `device` (numpy with
     `astensor=False`), ssq_freqs reversed, scales (na,). `squeezing` is
     'sum', 'lebesgue', 'abs' or a function of W."""
-    device = resolve_device(device)
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
-    ndim = x.ndim
+    check_batch(x.ndim, get_w)
+    device = resolve_device(device)
     _check_ssqueezing_args(squeezing, maprange, wavelet, 'trig', None,
                            get_w, transform='cwt')
     N = x.shape[-1]
     wavelet = resolve_wavelet(wavelet, l1_norm=True, N=N)
-    _check_slice(ndim, wavelet, padtype, get_w)
+    _check_slice(wavelet, padtype, get_w)
     if nv is None and not isinstance(scales, np.ndarray):
         nv = 32
     dt, _, _ = _process_fs_and_t(fs, t, N)

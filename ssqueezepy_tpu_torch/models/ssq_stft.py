@@ -16,7 +16,9 @@ otherwise, or with `get_w`, the phase transform (`ops/phase.py::
 phase_stft`) -> `_apply_squeezing` -> the generic scatter
 (`ops/ssq_kernels.py::indexed_sum_onfly`). `ssq_stft2` (FSST2) runs the
 table kernel's FSST2 mode on the five tables of the windows g, g', t g,
-t g', g'' instead, then the same squeezing and scatter. On a CUDA device
+t g', g'' instead, then the same squeezing and scatter. A (B, N) batch
+runs every kernel once over the batch (its rows b * n_rows + i in the
+table kernel, a batch axis in the scatters). On a CUDA device
 the kernels are the hand-written CUDA ones; with ``device='cpu'`` their
 plain PyTorch versions run.
 """
@@ -31,7 +33,8 @@ from ..ops.ssq_cuda import scatter_kv, ssq_fused
 from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
 from ..ops.stft_conv import conv_bank, conv_table
 from ..ops.stft_cuda import fsst2_conv, stft_conv
-from ..utils.common import (WARN, EPS32, EPS64, not_ported, resolve_device)
+from ..utils.common import (WARN, EPS32, EPS64, check_batch, not_ported,
+                            resolve_device)
 from ..utils.cwt_utils import _process_fs_and_t, infer_scaletype
 from .ssq_cwt import (_invert_components, _process_component_inversion_args,
                       _spec_key)
@@ -92,35 +95,30 @@ def _device_consts(plan, dtype, device):
     return hit
 
 
-def _check_slice(ndim):
-    """Calls outside the ported slice raise, naming their ROADMAP item
-    (2-D input, with any option: `get_w` on a batch raises in the JAX
-    package too)."""
-    if ndim != 1:
-        not_ported("ssq_stft of %d-D input" % ndim, 'A7b')
-
-
 def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
              t=None, modulated=True, ssq_freqs=None, padtype='reflect',
              squeezing='sum', gamma=None, preserve_transform=None,
              dtype=None, astensor=True, flipud=False, get_w=False,
              get_dWx=False, device='cuda'):
-    """Synchrosqueezed STFT of a 1-D signal.
+    """Synchrosqueezed STFT of a signal (N,) or a batch of signals
+    (B, N).
 
     Returns (Tx, Sx, ssq_freqs, Sfs[, w][, dSx]): Tx (nbins, n_segs) and
-    Sx (n_fft//2 + 1, n_segs) complex tensors on `device` (numpy with
+    Sx (n_fft//2 + 1, n_segs), with a leading B for a batch, complex
+    tensors on `device` (numpy with
     `astensor=False`; n_segs = N at hop 1), ssq_freqs reversed if
     `flipud`, Sfs the STFT row frequencies, the phase transform w like Sx
-    but real with `get_w=True`, and dSx like Sx with `get_dWx=True`.
+    but real with `get_w=True` (one signal only, as in the JAX package),
+    and dSx like Sx with `get_dWx=True`.
     `squeezing` is 'sum', 'lebesgue', 'abs' or a function of Sx.
     `ssq_freqs` may be a user's linear grid (numpy). The scatter keeps a
     shared-memory accumulator of nbins rows per block, so on the card
     nbins is bounded (about 6400 in float32, half that in float64; it
     raises beyond)."""
-    device = resolve_device(device)
     ndim = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
+    check_batch(ndim, get_w)
+    device = resolve_device(device)
     _check_ssqueezing_args(squeezing)
-    _check_slice(ndim)
     if isinstance(ssq_freqs, np.ndarray) and \
             infer_scaletype(ssq_freqs)[0] != 'linear':
         raise ValueError("`ssq_freqs` must be linearly distributed "
@@ -155,7 +153,7 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
                            bool(flipud), Sfs_t)
     else:
         xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype)
-        Np2 = xh.shape[0]
+        Np2 = xh.shape[-1]
         H = conv_table(plan.window, n_fft, Np2, modulated, dtype, device)
         Hd = conv_table(plan.diff_window, n_fft, Np2, modulated, dtype,
                         device)
@@ -239,7 +237,8 @@ def ssq_stft2(x, window=None, n_fft=None, win_len=None, fs=None, t=None,
               modulated=True, ssq_freqs=None, padtype='reflect',
               squeezing='sum', gamma=None, dtype=None, astensor=True,
               flipud=False, get_w=False, device='cuda'):
-    """Second-order synchrosqueezed STFT (FSST2) of a 1-D signal, hop 1.
+    """Second-order synchrosqueezed STFT (FSST2) of a signal (N,) or a
+    batch of signals (B, N), hop 1.
 
     First-order reassignment estimates w1 = Sfs - Im(V^g' / V) / 2pi; FSST2
     adds the chirp-rate correction (fs / 2pi) q Re(V^tg / V), q =
@@ -251,8 +250,7 @@ def ssq_stft2(x, window=None, n_fft=None, win_len=None, fs=None, t=None,
     _check_ssqueezing_args(squeezing)
     if get_w:
         not_ported("ssq_stft2 with get_w=True", 'A8b')
-    if ndim != 1:
-        not_ported("ssq_stft2 of %d-D input" % ndim, 'A8b')
+    check_batch(ndim)
     if isinstance(ssq_freqs, np.ndarray) and \
             infer_scaletype(ssq_freqs)[0] != 'linear':
         raise ValueError("`ssq_freqs` must be linearly distributed "
@@ -270,7 +268,7 @@ def ssq_stft2(x, window=None, n_fft=None, win_len=None, fs=None, t=None,
     Sfs_t, const_t = _device_consts(plan, dtype, device)
 
     xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype)
-    tables = conv_bank(plan.bank, n_fft, xh.shape[0], modulated, dtype,
+    tables = conv_bank(plan.bank, n_fft, xh.shape[-1], modulated, dtype,
                        device)
     bins = dict(Sfs=Sfs_t, params=plan.params, gamma=float(gamma),
                 flipud=bool(flipud))

@@ -6,7 +6,9 @@ one FFT of the padded signal and, per row, the inverse DFT of the
 product with that row's window table: on a CUDA device the hand-written
 table kernel (`ops/stft_cuda.py`), with ``device='cpu'`` its plain
 version. At hop > 1 it takes the framed path (frames -> window ->
-`torch.fft.rfft`), which the JAX package left to XLA. The inverse is
+`torch.fft.rfft`), which the JAX package left to XLA. A (B, N) batch
+runs as one call: the table kernel over its B spectra, or the framed
+path over its B signals. The inverse is
 irfft -> fftshift -> windowed overlap-add -> window-norm divide -> unpad,
 on the tensor's device.
 """
@@ -21,7 +23,7 @@ from ..ops.framing import buffer, overlap_add, window_norm
 from ..ops.pad import padsignal
 from ..ops.stft_conv import conv_table
 from ..ops.stft_cuda import stft_conv
-from ..utils.common import not_ported, resolve_device
+from ..utils.common import check_batch, resolve_device
 from ..utils.cwt_utils import _process_fs_and_t
 from .windows import get_window, _check_NOLA
 
@@ -47,14 +49,14 @@ def signal_spectrum(xt, n_fft, padtype):
 def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
          t=None, padtype='reflect', modulated=True, derivative=False,
          dtype=None, device='cuda'):
-    """Short-Time Fourier Transform of a 1-D signal. Returns `Sx`
-    (n_fft//2 + 1, n_segs) complex on `device` (+ `dSx`, the transform
-    with the derivative window times fs, if `derivative`): rows are the
-    positive frequencies, columns the hops (N of them at hop 1)."""
+    """Short-Time Fourier Transform of a signal (N,) or a batch of
+    signals (B, N). Returns `Sx` (n_fft//2 + 1, n_segs), or (B, n_fft//2
+    + 1, n_segs), complex on `device` (+ `dSx`, the transform with the
+    derivative window times fs, if `derivative`): rows are the positive
+    frequencies, columns the hops (N of them at hop 1)."""
     device = resolve_device(device)
     ndim = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
-    if ndim != 1:
-        not_ported("stft of %d-D input" % ndim, 'A7b')
+    check_batch(ndim)
     N = x.shape[-1]
     _, fs_, _ = _process_fs_and_t(fs, t, N)
     n_fft = int(n_fft or min(N // hop_len, 512))
@@ -68,7 +70,7 @@ def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
 
     if int(hop_len) == 1:
         xh = signal_spectrum(xt, n_fft, padtype)
-        Np2 = xh.shape[0]
+        Np2 = xh.shape[-1]
         H = conv_table(window, n_fft, Np2, modulated, dtype, device)
         Hd = (conv_table(diff_window, n_fft, Np2, modulated, dtype, device)
               if derivative else None)
@@ -81,7 +83,7 @@ def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
             w = torch.as_tensor(win, device=device)
             if modulated:
                 w = ifftshift(w)
-            return torch.fft.rfft(frames * w.reshape(-1, 1), dim=0)
+            return torch.fft.rfft(frames * w.reshape(-1, 1), dim=-2)
 
         Sx = dft(window)
         dSx = dft(diff_window) * fs_ if derivative else None

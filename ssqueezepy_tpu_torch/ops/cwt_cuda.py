@@ -14,7 +14,9 @@ _make_kernel`:
     (B, na, N); L1 or L2 (sqrt(scale)) row norm.
   * `cwt_bins2` (B8), its order-2 mode (`cwt_fused_bins2_direct`): the
     five WSST2 banks, the per-cell chirp regression and the bin map ->
-    (W, k); the four auxiliary transforms stay inside the kernel.
+    (W, k), for one spectrum (na, N) or a batch of them (B, na, N), each
+    row bit-identical to its signal run alone; the four auxiliary
+    transforms stay inside the kernel.
 
 The inverse DFT is computed in the kernel itself, in one engine for
 every mode (four-step, radix-4 passes in shared memory laid out against
@@ -22,10 +24,11 @@ bank conflicts; `bins_plan` sizes it for the mode's planes); design and
 bound are noted in the source.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
-version for CPU tensors. `cwt_bins.launches` (one signal),
-`cwt_bins.batched_launches` (a batch), `cwt_fused.launches` and
-`cwt_bins2.launches` count calls of the C entry point (one per chunk of
-rows); each such call issues two CUDA launches, stage 1 and stage 2.
+version for CPU tensors. `cwt_bins.launches` and `cwt_bins2.launches`
+(one signal), `cwt_bins.batched_launches` and
+`cwt_bins2.batched_launches` (a batch), and `cwt_fused.launches` count
+calls of the C entry point (one per chunk of rows); each such call
+issues two CUDA launches, stage 1 and stage 2.
 """
 import collections
 import ctypes
@@ -284,7 +287,8 @@ cwt_fused.launches = 0
 
 def wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma):
     """(W, w2) of the second-order CWT, step by step with torch.fft (the
-    XLA twin `_wsst2_rows` of `ssqueezepy_tpu/models/ssq_cwt2.py`): the
+    XLA twin `_wsst2_rows` of `ssqueezepy_tpu/models/ssq_cwt2.py`), for
+    one half spectrum xh or a (B, n_up//2 + 1) batch: the
     five banks W = psih xh, A = i xi psih xh, B = i a psih' xh,
     Bd = -xi a psih' xh, C = -a^2 psih'' xh on the half spectrum (Nyquist
     bin halved in all five), one inverse FFT kept to [n1, n1+N), then
@@ -302,13 +306,13 @@ def wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma):
         for p in (psih, d1, d2):
             p[:, half - 1] /= 2                     # Nyquist halving
     tb, t2b = a * d1, (a * a) * d2
-    xr, xim = xh.real, xh.imag
+    xr, xim = xh.real[..., None, :], xh.imag[..., None, :]
     re = torch.stack([psih * xr, -xi * (psih * xim), -(tb * xim),
-                      -xi * (tb * xr), -(t2b * xr)])
+                      -xi * (tb * xr), -(t2b * xr)], dim=-3)
     im = torch.stack([psih * xim, xi * (psih * xr), tb * xr,
-                      -xi * (tb * xim), -(t2b * xim)])
+                      -xi * (tb * xim), -(t2b * xim)], dim=-3)
     W, A, B, Bd, C = ifft(torch.complex(re, im), n=n_up,
-                          out_range=(n1, n1 + N))
+                          out_range=(n1, n1 + N)).unbind(-3)
     tiny = div_tiny(xh.dtype)
     p2 = cdiv(cmul(Bd, W) - cmul(A, B), cmul(B, B) - cmul(C, W), tiny)
     p1 = cdiv(A + cmul(p2, B), W, tiny)
@@ -331,22 +335,25 @@ def cwt_bins2_plain(xh, scales, wavelet, n_up, n1, N, dt, params, gamma,
 
 def cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params, gamma, flipud):
     """(W, k) of the second-order synchrosqueezed CWT (WSST2) from the
-    half spectrum `xh` of the padded signal: W (na, N) the L1 CWT, k
-    (na, N) int32 the bin of the chirp-corrected frequency w2, -1 on
+    half spectrum `xh` of the padded signal, (n_up//2 + 1,) or a
+    (B, n_up//2 + 1) batch: W (na, N) or (B, na, N) the L1 CWT, k of W's
+    shape int32 the bin of the chirp-corrected frequency w2, -1 on
     gamma-gated or non-finite cells. Arguments as `cwt_bins`."""
-    _check(xh, scales, n_up, n1, N)
+    _check(xh, scales, n_up, n1, N, batched=True)
     if xh.device.type == 'cpu':
         return cwt_bins2_plain(xh, scales, wavelet, n_up, n1, N, dt,
                                params, gamma, flipud)
     if xh.device.type != 'cuda':
         raise RuntimeError("cwt_bins2 runs on CUDA or CPU tensors (got %s)"
                            % xh.device)
-    W = torch.empty((scales.shape[0], N), dtype=xh.dtype, device=xh.device)
-    k = torch.empty((scales.shape[0], N), dtype=torch.int32,
-                    device=xh.device)
+    shape = xh.shape[:-1] + (scales.shape[0], N)
+    W = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+    k = torch.empty(shape, dtype=torch.int32, device=xh.device)
     _launch(cwt_bins2, xh, scales, wavelet, n_up, n1, N, dt, True,
-            _OUT_BINS2, W, k, params, gamma, flipud)
+            _OUT_BINS2, W, k, params, gamma, flipud,
+            counter='batched_launches' if xh.dim() == 2 else 'launches')
     return W, k
 
 
 cwt_bins2.launches = 0
+cwt_bins2.batched_launches = 0

@@ -4,9 +4,9 @@
 
 Replaces `ssqueezepy_tpu/ops/stft_conv.py::_make_stft_kernel`
 (`stft_pallas_rows`, `stft_conv_bins`, `stft_conv`). From the full
-spectrum xh (Np2,) of the padded signal and the row tables H, Hd
-(n_rows, Np2) of `ops/stft_conv.py` it returns, for output columns
-[0, N):
+spectrum xh (Np2,) of the padded signal, or a batch of them (B, Np2),
+and the row tables H, Hd (n_rows, Np2) of `ops/stft_conv.py` it returns,
+for output columns [0, N), planes (n_rows, N) or (B, n_rows, N):
 
   * Sx = ifft(H * xh)                                  (Hd None)
   * Sx and dSx = fs * ifft(Hd * xh)                    (bins None)
@@ -25,9 +25,12 @@ kernel's band plan is not carried over: the kernel computes the full
 correlation.
 
 `stft_conv` and `fsst2_conv` launch the kernel for CUDA tensors and run
-their plain versions for CPU tensors. `stft_conv.launches` and
-`fsst2_conv.launches` count calls of the C entry point (one per chunk of
-rows); each issues two CUDA launches.
+their plain versions for CPU tensors. A batch runs as B * n_rows rows of
+one launch pair per chunk, each row bit-identical to its signal run
+alone. `stft_conv.launches` and `fsst2_conv.launches` (one signal),
+`stft_conv.batched_launches` and `fsst2_conv.batched_launches` (a batch)
+count calls of the C entry point (one per chunk of rows); each issues two
+CUDA launches.
 """
 import collections
 import ctypes
@@ -150,16 +153,18 @@ def launch_plan(Np2, itemsize, planes):
 
 
 def _check(xh, H, Hd, N, bins):
-    if xh.dim() != 1 or H.dim() != 2 or H.shape[1] != xh.shape[0]:
-        raise ValueError("xh must be (Np2,) and H (n_rows, Np2) (got %s, %s)"
+    if (xh.dim() not in (1, 2) or H.dim() != 2
+            or H.shape[1] != xh.shape[-1]):
+        raise ValueError("xh must be (Np2,) or a (B, Np2) batch and H "
+                         "(n_rows, Np2) (got %s, %s)"
                          % (tuple(xh.shape), tuple(H.shape)))
     if Hd is not None and Hd.shape != H.shape:
         raise ValueError("Hd must have H's shape (got %s)"
                          % (tuple(Hd.shape),))
     if bins is not None and Hd is None:
         raise ValueError("bins mode needs Hd")
-    if not 1 <= N <= xh.shape[0]:
-        raise ValueError("N=%d must lie in [1, Np2=%d]" % (N, xh.shape[0]))
+    if not 1 <= N <= xh.shape[-1]:
+        raise ValueError("N=%d must lie in [1, Np2=%d]" % (N, xh.shape[-1]))
     if xh.dtype not in (torch.complex64, torch.complex128):
         raise TypeError("xh must be complex64 or complex128 (got %s)"
                         % xh.dtype)
@@ -186,13 +191,15 @@ def _check_bins(xh, n_rows, bins):
 
 def stft_conv_plain(xh, H, Hd, N, fs=1., bins=None):
     """Plain version: the row products, `torch.fft.ifft`, and in bins
-    mode `phase_transform_w(..., Sfs)` and `compute_bins`."""
+    mode `phase_transform_w(..., Sfs)` and `compute_bins`; one spectrum
+    or a batch."""
     from .phase import phase_transform_w
     from .ssq_kernels import compute_bins
-    Sx = torch.fft.ifft(H * xh, dim=-1)[:, :N].contiguous()
+    xr = xh[..., None, :]
+    Sx = torch.fft.ifft(H * xr, dim=-1)[..., :N].contiguous()
     if Hd is None:
         return Sx, None
-    dSx = (torch.fft.ifft(Hd * xh, dim=-1)[:, :N] * fs).contiguous()
+    dSx = (torch.fft.ifft(Hd * xr, dim=-1)[..., :N] * fs).contiguous()
     if bins is None:
         return Sx, dSx
     w = phase_transform_w(Sx, dSx, bins['gamma'], bins['Sfs'])
@@ -202,10 +209,11 @@ def stft_conv_plain(xh, H, Hd, N, fs=1., bins=None):
 
 def stft_conv(xh, H, Hd, N, fs=1., bins=None):
     """STFT rows [0, N) from the spectrum `xh` (Np2,) of the padded
-    signal and the row tables `H`, `Hd` (n_rows, Np2) (`Hd` None: Sx
-    only). `bins`, when given, is a dict with `Sfs` (n_rows,) tensor,
-    `params` (a 'lin' `ssq_bin_params`), `gamma` and `flipud`. Returns
-    (Sx, dSx), (Sx, k) or (Sx, None)."""
+    signal, or a (B, Np2) batch of them, and the row tables `H`, `Hd`
+    (n_rows, Np2) (`Hd` None: Sx only). `bins`, when given, is a dict
+    with `Sfs` (n_rows,) tensor, `params` (a 'lin' `ssq_bin_params`),
+    `gamma` and `flipud`. Returns (Sx, dSx), (Sx, k) or (Sx, None), each
+    (n_rows, N) or (B, n_rows, N)."""
     _check(xh, H, Hd, N, bins)
     if xh.device.type == 'cpu':
         return stft_conv_plain(xh, H, Hd, N, fs, bins)
@@ -214,30 +222,35 @@ def stft_conv(xh, H, Hd, N, fs=1., bins=None):
                            % xh.device)
     mode = (_MODE_SX if Hd is None else
             _MODE_SX_DSX if bins is None else _MODE_BINS)
-    n_rows, dev = H.shape[0], xh.device
-    Sx = torch.empty((n_rows, N), dtype=xh.dtype, device=dev)
+    shape, dev = xh.shape[:-1] + (H.shape[0], N), xh.device
+    Sx = torch.empty(shape, dtype=xh.dtype, device=dev)
     out2 = None
     if mode == _MODE_SX_DSX:
-        out2 = torch.empty((n_rows, N), dtype=xh.dtype, device=dev)
+        out2 = torch.empty(shape, dtype=xh.dtype, device=dev)
     elif mode == _MODE_BINS:
-        out2 = torch.empty((n_rows, N), dtype=torch.int32, device=dev)
+        out2 = torch.empty(shape, dtype=torch.int32, device=dev)
     _launch(stft_conv, mode, xh, H, Hd, N, fs, bins, Sx, out2)
     return Sx, out2
 
 
 stft_conv.launches = 0
+stft_conv.batched_launches = 0
 
 
 def _launch(wrapper, mode, xh, H, Hd, N, fs, bins, Sx, out2):
-    """Run the two-launch kernel over every row of `Sx`, chunking rows to
-    the scratch budget; counts each C call on `wrapper.launches`. In the
-    FSST2 mode `H` is the (5, n_rows, Np2) bank and `Hd` is None."""
+    """Run the two-launch kernel over every row of `Sx` ((B *) n_rows
+    rows, global row b * n_rows + i), chunking rows to the scratch
+    budget; counts each C call on `wrapper.launches` (one signal) or
+    `wrapper.batched_launches` (a batch). In the FSST2 mode `H` is the
+    (5, n_rows, Np2) bank and `Hd` is None."""
     lib = _build.load('stft_conv')
-    Np2 = xh.shape[0]
+    Np2 = xh.shape[-1]
     planes = _PLANES[mode]
     itemsize = xh.element_size()
     sp = launch_plan(Np2, itemsize, planes)
-    n_rows = Sx.shape[0]
+    tab_rows = H.shape[-2]
+    n_rows = Sx.numel() // N
+    counter = 'batched_launches' if xh.dim() == 2 else 'launches'
     dev = xh.device
     rows = max(1, min(n_rows, _MAX_GRID_Y,
                       _SCRATCH_BUDGET // (planes * Np2 * itemsize)))
@@ -261,24 +274,26 @@ def _launch(wrapper, mode, xh, H, Hd, N, fs, bins, Sx, out2):
         # table rows, S1, S2, sw1, sw2
         ip = (ctypes.c_int * 16)(Np2, sp.f1, sp.f2, N, sp.P1, sp.P2, nr,
                                  row0, mode, int(omax), int(bool(flipud)),
-                                 n_rows, sp.S1, sp.S2, sp.sw1, sp.sw2)
+                                 tab_rows, sp.S1, sp.S2, sp.sw1, sp.sw2)
         err = fn(xh.data_ptr(), H.data_ptr(),
                  None if Hd is None else Hd.data_ptr(), sfs, ip, dp,
                  scratch.data_ptr(), Sx.data_ptr(),
                  None if out2 is None else out2.data_ptr(), stream)
         _build.check(err, wrapper.__name__)
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def fsst2_rows(xh, tables, N, fs, Sfs, gamma):
     """(V, w2) of the second-order STFT, step by step with torch.fft (the
-    XLA twin `_fsst2_rows` of `ssqueezepy_tpu/models/ssq_stft.py`): the
+    XLA twin `_fsst2_rows` of `ssqueezepy_tpu/models/ssq_stft.py`), for
+    one spectrum xh (Np2,) or a (B, Np2) batch: the
     five rows V, Vg1, Vt, Vtd, Vd2 = ifft(tables * xh)[..., :N] of the
     windows g, g', t g, t g', g'' (per-sample units), then
     w1 = Sfs - fs Im(Vg1 / V) / 2pi, q = Im((Vd2 V - Vg1^2) /
     (Vtd V - Vt Vg1)), w2 = |w1 + (fs / 2pi) q Re(Vt / V)|, regularized
     divides; inf where not finite or where |V|^2 <= gamma^2."""
-    V, Vg1, Vt, Vtd, Vd2 = torch.fft.ifft(tables * xh, dim=-1)[..., :N]
+    V, Vg1, Vt, Vtd, Vd2 = torch.fft.ifft(
+        tables * xh[..., None, None, :], dim=-1)[..., :N].unbind(-3)
     tiny = div_tiny(xh.dtype)
     sfs = Sfs.to(V.real.dtype).reshape(-1, 1)
     w1 = sfs - fs * cdiv(Vg1, V, tiny).imag / _TWO_PI
@@ -303,11 +318,12 @@ def fsst2_conv_plain(xh, tables, N, fs, bins):
 
 def fsst2_conv(xh, tables, N, fs, bins):
     """(V, k) of the second-order synchrosqueezed STFT (FSST2), rows
-    [0, N), from the spectrum `xh` (Np2,) of the padded signal and the
-    (5, n_rows, Np2) tables of `conv_bank` (windows g, g', t g, t g',
-    g''). `bins` as for `stft_conv`. V (n_rows, N) is the STFT with g; k
-    (n_rows, N) int32 the lin bin of w2, -1 on gamma-gated or
-    non-finite cells."""
+    [0, N), from the spectrum `xh` (Np2,) of the padded signal, or a
+    (B, Np2) batch of them, and the (5, n_rows, Np2) tables of
+    `conv_bank` (windows g, g', t g, t g', g''). `bins` as for
+    `stft_conv`. V (n_rows, N) or (B, n_rows, N) is the STFT with g; k of
+    V's shape int32 the lin bin of w2, -1 on gamma-gated or non-finite
+    cells."""
     if tables.dim() != 3 or tables.shape[0] != 5:
         raise ValueError("tables must be the (5, n_rows, Np2) FSST2 bank "
                          "(got %s)" % (tuple(tables.shape),))
@@ -320,11 +336,12 @@ def fsst2_conv(xh, tables, N, fs, bins):
     if xh.device.type != 'cuda':
         raise RuntimeError("fsst2_conv runs on CUDA or CPU tensors (got %s)"
                            % xh.device)
-    n_rows, dev = tables.shape[1], xh.device
-    V = torch.empty((n_rows, N), dtype=xh.dtype, device=dev)
-    k = torch.empty((n_rows, N), dtype=torch.int32, device=dev)
+    shape = xh.shape[:-1] + (tables.shape[1], N)
+    V = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+    k = torch.empty(shape, dtype=torch.int32, device=xh.device)
     _launch(fsst2_conv, _MODE_FSST2, xh, tables, None, N, fs, bins, V, k)
     return V, k
 
 
 fsst2_conv.launches = 0
+fsst2_conv.batched_launches = 0

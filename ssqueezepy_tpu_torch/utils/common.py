@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 __all__ = ['WARN', 'NOTE', 'pi', 'EPS32', 'EPS64', 'assert_is_one_of',
-           'p2up', 'not_ported', 'resolve_device', 'to_device']
+           'p2up', 'not_ported', 'check_batch', 'resolve_device',
+           'to_device']
 
 _logger = logging.getLogger('ssqueezepy_tpu_torch')
 
@@ -52,6 +53,16 @@ def not_ported(what, item):
     queue = 'B' if item.startswith('B') else 'A'
     raise NotImplementedError("%s is not ported yet (ROADMAP.md queue %s, "
                               "%s)" % (what, queue, item))
+
+
+def check_batch(ndim, get_w=False):
+    """An entry point's input is a signal (N,) or a batch (B, N);
+    `get_w=True` on a batch raises, as in the JAX package."""
+    if ndim not in (1, 2):
+        raise ValueError("`x` must be 1D or 2D (got x.ndim == %s)" % ndim)
+    if ndim == 2 and get_w:
+        raise NotImplementedError("`get_w=True` unsupported with batched "
+                                  "input.")
 
 
 def resolve_device(device):

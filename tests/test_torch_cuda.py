@@ -20,7 +20,12 @@ The fused reassignment (B4) by the bins criterion in float32 and within
 1e-9 of max|Tx| in float64, bit-identical from run to run; every mode of
 the CWT kernel (B1, B3, B8) bit-identical from run to run, B3's Wx
 bit-identical to B1's, B1's batched form (B3b) and the batched scatter
-(B2) rows bit-identical to one signal run alone. The generic scatter (B5) within 1e-5 of max|out| in float32 and
+(B2) rows bit-identical to one signal run alone. The STFT table kernel
+(B6 in its three modes, B7) and B8 over a batch of spectra: against
+their plain versions, each row bit-identical to its signal launched
+alone, also with row chunks that cross signals; the public batched
+routes through the batched counters only. The generic scatter (B5)
+within 1e-5 of max|out| in float32 and
 1e-12 in float64 (summation order), bit-identical from run to run and
 its batch rows bit-identical to one signal run alone. B2 and the four
 instantiations of B5 the same at ragged shapes (N of 1, odd, just over a
@@ -161,8 +166,8 @@ def test_cwt_bins_repeats_bit_identical(dev, dtype, mode):
 def test_cwt_modes_wx_bit_identical_to_b1(dev, shape, dtype):
     """B3's Wx, with one plane (Wx only) and with two (Wx and dWx), is
     bit-identical to B1's (B3b's for a batch) on
-    the same spectra and scales, and so is B8's W (one signal, L1 norm):
-    one DFT engine, the same spectra and butterflies."""
+    the same spectra and scales, and so is B8's W (L1 norm; one signal or
+    a batch): one DFT engine, the same spectra and butterflies."""
     N = shape[-1]
     _, sc, _, wav, n_up, n1, params, gamma = _inputs(N, dtype,
                                                      'log-piecewise', dev)
@@ -173,9 +178,8 @@ def test_cwt_modes_wx_bit_identical_to_b1(dev, shape, dtype):
     for derivative in (False, True):
         W3, _ = cwt_fused(xh, sc, wav, n_up, n1, N, 1., derivative, True)
         assert torch.equal(W3, Wx), derivative
-    if len(shape) == 1:
-        W8, _ = cwt_bins2(xh, sc, wav, n_up, n1, N, 1., params, gamma, True)
-        assert torch.equal(W8, Wx)
+    W8, _ = cwt_bins2(xh, sc, wav, n_up, n1, N, 1., params, gamma, True)
+    assert torch.equal(W8, Wx)
 
 
 def test_cwt_bins_row_chunks(dev, monkeypatch):
@@ -245,8 +249,8 @@ def _stft_inputs(N, n_fft, dtype, dev, modulated=True, seed=0):
                         dtype=getattr(torch, dtype), device=dev)
     xh = signal_spectrum(x, n_fft, 'reflect')
     plan = stft_plan(None, None, n_fft, n_fft, 1., dtype)
-    H = conv_table(plan.window, n_fft, xh.shape[0], modulated, dtype, dev)
-    Hd = conv_table(plan.diff_window, n_fft, xh.shape[0], modulated, dtype,
+    H = conv_table(plan.window, n_fft, xh.shape[-1], modulated, dtype, dev)
+    Hd = conv_table(plan.diff_window, n_fft, xh.shape[-1], modulated, dtype,
                     dev)
     bins = dict(Sfs=torch.as_tensor(plan.Sfs, device=dev),
                 params=plan.params, flipud=False,
@@ -418,7 +422,7 @@ def _fsst2_inputs(N, n_fft, dtype, dev, x=None, modulated=True):
     x = torch.as_tensor(x, dtype=getattr(torch, dtype), device=dev)
     xh = signal_spectrum(x, n_fft, 'reflect')
     plan = fsst2_plan(None, None, n_fft, n_fft, 1., dtype)
-    tables = conv_bank(plan.bank, n_fft, xh.shape[0], modulated, dtype, dev)
+    tables = conv_bank(plan.bank, n_fft, xh.shape[-1], modulated, dtype, dev)
     bins = dict(Sfs=torch.as_tensor(plan.Sfs, device=dev),
                 params=plan.params, flipud=False,
                 gamma=10 * float(np.finfo(dtype).eps))
@@ -1012,3 +1016,168 @@ def test_fused_plan_blocks_per_sm_granted(dev, dtype, nbins):
             assert (p.columns * itemsize, p.stages, p.blocks_per_sm) == (
                 128, 3, 5), (kind, p)
             assert p.inflight >= 16 * 1024
+
+
+# ---- batched STFT table kernel (B6, B7) and WSST2 kernel (B8) -------------
+@pytest.mark.parametrize('mode', ['sx', 'sx_dsx', 'bins', 'fsst2'])
+@pytest.mark.parametrize('shape,n_fft', [((3, 10000), 598), ((2, 4000), 97),
+                                         ((4, 20), 30), ((1, 9000), 128)])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_stft_conv_batched_vs_plain_and_one_signal(dev, mode, shape, n_fft,
+                                                   dtype, monkeypatch):
+    """B6 (modes 0-2) and B7 over a (B, Np2) batch: one C call per row
+    chunk on the batched counter (none on the one-signal counter), within
+    tolerance of the plain version, each row bit-identical to its signal
+    launched alone, and the same bits with row chunks of 7 (which cross
+    signals where the tables' rows are not a multiple of 7)."""
+    N = shape[-1]
+    wrapper = fsst2_conv if mode == 'fsst2' else stft_conv
+    if mode == 'fsst2':
+        xh, bank, bins7, c = _fsst2_inputs(shape, n_fft, dtype, dev)
+        H = bank[0]
+
+        def run(z):
+            return fsst2_conv(z, bank, N, 2., bins7)
+
+        def plain(z):
+            return fsst2_conv_plain(z, bank, N, 2., bins7)
+    else:
+        xh, H, Hd, bins, c = _stft_inputs(shape, n_fft, dtype, dev, seed=11)
+        Hd_ = None if mode == 'sx' else Hd
+        bins_ = bins if mode == 'bins' else None
+
+        def run(z):
+            return stft_conv(z, H, Hd_, N, 2., bins_)
+
+        def plain(z):
+            return stft_conv_plain(z, H, Hd_, N, 2., bins_)
+    B, Np2 = xh.shape
+    n0, nb0 = wrapper.launches, wrapper.batched_launches
+    out = run(xh)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 and wrapper.batched_launches - nb0 == 1
+    n_rows = H.shape[0]
+    assert out[0].shape == (B, n_rows, N)
+    ref = plain(xh)
+    tol = 2e-5 if dtype == 'float32' else 1e-9
+    assert _rel_err(out[0], ref[0]) <= tol
+    if mode == 'sx_dsx':
+        assert _rel_err(out[1], ref[1]) <= tol
+    elif mode in ('bins', 'fsst2'):
+        assert out[1].dtype == torch.int32 and out[1].shape == (B, n_rows, N)
+        assert (out[1] != ref[1]).double().mean() <= 0.01
+        if mode == 'bins':
+            nb = bins['params']['omax'] + 1
+            _bins_criterion(scatter_kv_plain(out[0], out[1], c, nb),
+                            scatter_kv_plain(ref[0], ref[1], c, nb))
+    for b in range(B):
+        one = run(xh[b].contiguous())
+        for o, o1 in zip(out, one):
+            assert (o is None and o1 is None) or torch.equal(o[b], o1)
+    assert wrapper.launches - n0 == B
+    from ssqueezepy_tpu_torch.ops import stft_cuda
+    planes = 5 if mode == 'fsst2' else 1 if mode == 'sx' else 2
+    monkeypatch.setattr(stft_cuda, '_SCRATCH_BUDGET',
+                        planes * Np2 * xh.element_size() * 7)
+    nb0 = wrapper.batched_launches
+    chunked = run(xh)
+    assert wrapper.batched_launches - nb0 == -(-B * n_rows // 7)
+    for o, oc in zip(out, chunked):
+        assert (o is None and oc is None) or torch.equal(o, oc)
+
+
+@pytest.mark.parametrize('shape,scales', [((3, 10000), 'log-piecewise'),
+                                          ((2, 4001), 'log'),
+                                          ((1, 3000), 'linear')])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_cwt_bins2_batched_vs_plain_and_one_signal(dev, shape, scales, dtype,
+                                                   monkeypatch):
+    """B8 over a (B, n_up/2 + 1) batch: the batched counter only, within
+    tolerance of the plain version, each row bit-identical to its signal
+    launched alone, and the same bits with row chunks of 7."""
+    N = shape[-1]
+    _, sc, c, wav, n_up, n1, params, gamma = _inputs(N, dtype, scales, dev)
+    x = np.random.default_rng(12).standard_normal(shape)
+    xh = rfft(padsignal(torch.as_tensor(x, dtype=getattr(torch, dtype),
+                                        device=dev), 'reflect')).contiguous()
+    args = (sc, wav, n_up, n1, N, 1., params, gamma, True)
+    n0, nb0 = cwt_bins2.launches, cwt_bins2.batched_launches
+    W, k = cwt_bins2(xh, *args)
+    torch.cuda.synchronize()
+    assert cwt_bins2.launches == n0 and cwt_bins2.batched_launches > nb0
+    assert W.shape == k.shape == (shape[0], len(sc), N)
+    W_p, k_p = cwt_bins2_plain(xh, *args)
+    assert _rel_err(W, W_p) <= (2e-5 if dtype == 'float32' else 1e-9)
+    assert (k != k_p).double().mean() <= 0.01
+    nbins = params['omax'] + 1
+    _bins_criterion(scatter_kv_plain(W, k, c, nbins),
+                    scatter_kv_plain(W_p, k_p, c, nbins))
+    for b in range(shape[0]):
+        W1, k1 = cwt_bins2(xh[b].contiguous(), *args)
+        assert torch.equal(W1, W[b]) and torch.equal(k1, k[b])
+    monkeypatch.setattr(cwt_cuda, '_SCRATCH_BUDGET',
+                        5 * n_up * xh.element_size() * 7)
+    nb0 = cwt_bins2.batched_launches
+    Wc, kc = cwt_bins2(xh, *args)
+    assert cwt_bins2.batched_launches - nb0 == -(-shape[0] * len(sc) // 7)
+    assert torch.equal(Wc, W) and torch.equal(kc, k)
+
+
+def _counts():
+    return (stft_conv.launches, stft_conv.batched_launches,
+            fsst2_conv.launches, fsst2_conv.batched_launches,
+            cwt_bins2.launches, cwt_bins2.batched_launches)
+
+
+def test_public_batched_stft_family_on_card(dev):
+    """`stft`, `ssq_stft` (hop 1, hop 4, 'abs', get_dWx), `ssq_stft2` and
+    `ssq_cwt2` on a (3, N) batch: on the card, through the batched
+    counters (never the one-signal ones), each row against the one-signal
+    call and the batch against the plain path, on white noise (Tx by the
+    bins criterion, as the second-order kernels on noise; the signal's
+    FFT is cuFFT's, batched or not, so rows are held by tolerance here;
+    the kernel tests above hold them bit for bit on one spectrum);
+    `stft` -> `istft` in float64."""
+    N = 6000
+    xb = np.random.default_rng(14).standard_normal((3, N)).astype(
+        np.float32)
+    calls = [
+        ('stft', lambda x, **d: (stq.stft(x, n_fft=256, **d),), 1),
+        ('stft_dsx', lambda x, **d: stq.stft(x, n_fft=256, derivative=True,
+                                             **d), 1),
+        ('stft_hop4', lambda x, **d: (stq.stft(x, n_fft=256, hop_len=4,
+                                               **d),), None),
+        ('ssq_stft', lambda x, **d: stq.ssq_stft(x, n_fft=256, **d)[:2], 1),
+        ('ssq_stft_dwx', lambda x, **d: stq.ssq_stft(
+            x, n_fft=256, get_dWx=True, **d)[:2], 1),
+        ('ssq_stft_hop4', lambda x, **d: stq.ssq_stft(
+            x, n_fft=256, hop_len=4, **d)[:2], None),
+        ('ssq_stft_hop4_abs', lambda x, **d: stq.ssq_stft(
+            x, n_fft=256, hop_len=4, squeezing='abs', **d)[:2], None),
+        ('ssq_stft2', lambda x, **d: stq.ssq_stft2(x, n_fft=256, **d)[:2],
+         3),
+        ('ssq_cwt2', lambda x, **d: stq.ssq_cwt2(x, **d)[:2], 5)]
+    for name, fn, counter in calls:
+        c0 = _counts()
+        out = fn(xb)
+        torch.cuda.synchronize()
+        dc = [a - b for a, b in zip(_counts(), c0)]
+        assert not any(dc[0::2]), name            # no one-signal launch
+        assert (dc[counter] >= 1) if counter is not None else not any(dc)
+        crit = _bins_criterion
+        for b in range(3):
+            one = fn(xb[b])
+            assert out[-1].is_cuda and out[-1].shape[1:] == one[-1].shape
+            assert _rel_err(out[-1][b], one[-1]) <= 2e-5, (name, b)
+            if name.startswith('ssq'):
+                crit(out[0][b], one[0])
+        ref = fn(xb, device='cpu')
+        assert _rel_err(out[-1].cpu(), ref[-1]) <= 2e-5, name
+        if name.startswith('ssq'):
+            crit(out[0].cpu(), ref[0])
+    x64 = np.random.default_rng(13).standard_normal((3, N))
+    for hop in (1, 8):
+        S = stq.stft(x64, n_fft=256, hop_len=hop, dtype='float64')
+        assert S.is_cuda and S.shape[0] == 3
+        xr = stq.istft(S, n_fft=256, hop_len=hop, N=N)
+        assert np.abs(xr - x64).mean() < 1e-12

@@ -427,10 +427,13 @@ def test_ssq_stft2_squeezing_vs_jax(squeezing, dtype):
 
 
 # ---- the slice's bounds ------------------------------------------------
-# every squeezing is ported (compared with the JAX package above);
-# get_w, 2-D input, padtype=None and non-GMW wavelets are not
+# every squeezing and 2-D input are ported (compared with the JAX package
+# above and in test_torch_stft_batch.py); get_w, padtype=None and non-GMW
+# wavelets are not, and get_w on 2-D input raises as the JAX package's
+# ssq_cwt2 does
 @pytest.mark.parametrize('kw', [
-    dict(get_w=True), dict(x2d=True), dict(squeezing='abs', padtype=None),
+    dict(get_w=True), dict(x2d=True, get_w=True),
+    dict(squeezing='abs', padtype=None),
     dict(squeezing=lambda v: abs(v), get_w=True), dict(padtype=None),
     dict(wavelet='morlet')],
     ids=lambda kw: '%s=%s' % next((k, getattr(v, '__name__', v))
@@ -440,12 +443,17 @@ def test_ssq_cwt2_outside_slice_raises(kw):
     x = _noise(1000)
     if kw.pop('x2d', False):
         x = np.stack([x, x])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        with pytest.raises(NotImplementedError,
+                           match='unsupported with batched input'):
+            jstq.ssq_cwt2(x, **kw)
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP' if x.ndim == 1
+                       else 'unsupported with batched input'):
         tstq.ssq_cwt2(x, device='cpu', **kw)
 
 
 @pytest.mark.parametrize('kw', [
-    dict(get_w=True), dict(x2d=True),
+    dict(get_w=True), dict(x2d=True, get_w=True),
     dict(squeezing='lebesgue', get_w=True)],
     ids=lambda kw: '%s=%s' % next(iter(kw.items())))
 def test_ssq_stft2_outside_slice_raises(kw):

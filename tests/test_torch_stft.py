@@ -349,9 +349,10 @@ def test_ssq_stft_get_w_vs_jax(hop, get_dWx, squeezing):
         assert _rel(out_t[5], out_j[5]) <= 1e-9
 
 
-# every squeezing, hop_len > 1, get_dWx and get_w are ported (compared
-# with the JAX package above); 2-D input is not (ROADMAP A7b), whatever
-# the other options
+# every squeezing, hop_len > 1, get_dWx, get_w and 2-D input are ported
+# (compared with the JAX package above and in test_torch_stft_batch.py);
+# get_w on 2-D input raises, whatever the other options, with the JAX
+# package's own message, and `stft` takes no 3-D input
 @pytest.mark.parametrize('kw', [
     dict(x2d=True), dict(hop_len=2, squeezing='abs', x2d=True),
     dict(squeezing='abs', x2d=True),
@@ -360,15 +361,17 @@ def test_ssq_stft_get_w_vs_jax(hop, get_dWx, squeezing):
     ids=lambda kw: '%s=%s' % next((k, getattr(v, '__name__', v))
                                   for k, v in kw.items()))
 def test_ssq_stft_outside_slice_raises(kw):
-    kw = dict(kw)
+    kw = dict(kw, get_w=True)
     x = _noise(600)
     if kw.pop('x2d', False):
         x = np.stack([x, x])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tstq.ssq_stft(x, device='cpu', **kw)
-    if x.ndim == 2:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tstq.stft(x, device='cpu')
+    for ssq_stft, dev in ((jstq.ssq_stft, {}),
+                          (tstq.ssq_stft, dict(device='cpu'))):
+        with pytest.raises(NotImplementedError,
+                           match='unsupported with batched input'):
+            ssq_stft(x, **kw, **dev)
+    with pytest.raises(ValueError, match='1D or 2D'):
+        tstq.stft(x[None], device='cpu')
 
 
 def test_stft_default_device_raises_without_card():
