@@ -13,7 +13,11 @@ ssq_freqs, as the bench calls it) and `ssq_stft2` (n_fft = 598), inverted
 by `issq_cwt`/`issq_stft`; `ssq_cwt` on a (4, 160000) batch (the bench's
 `ssq_cwt_b4` call) and with `get_dWx=True`, and `ssq_stft` at hop 8;
 `stft`, `ssq_stft` (hop 1, hop 8, hop 8 'abs'), `ssq_stft2` and
-`ssq_cwt2` on the same (4, 160000) batch;
+`ssq_cwt2` on the same (4, 160000) batch; the unpadded calls
+(`padtype=None`, n_up = N = 160000 = 400 x 400, the CWT kernel's mixed
+engine) `ssq_cwt`, `cwt`, `ssq_cwt2` and the (4, 160000) `ssq_cwt`,
+`cwt(rpadded=True)` (the whole padded window) and `ssq_cwt(difftype=
+'numeric', get_w=True)`;
 and every squeezing option on those routes: `ssq_cwt(get_w=True)` and
 `ssq_cwt(get_dWx=True, squeezing='lebesgue')` (the derivative CWT, the
 phase transform, the generic scatter), `ssq_stft(hop_len=8,
@@ -73,6 +77,13 @@ the scatter from bins). It:
      plain versions on a (4, 160000) float32 and a (3, 10000) float64
      batch, each row bit-identical to its spectrum launched alone, each
      launch on the batched counter only;
+ 9c. holds the CWT kernel's mixed engine (n_up 7-smooth, not a power of
+     two) in every mode (B1; B3 with one plane and with two; B8; B3b on a
+     batch of two) against its plain versions at n_up = 160000 (float32,
+     the bench's 293 scales) and 99225 = 315 x 315 (float64, odd), each
+     launch on the mixed counters only, Wx bit-identical across the
+     modes, two runs bit-identical, the batched row bit-identical to its
+     one-signal launch;
  10. runs each public entry point (`ssq_cwt`, `ssq_stft`, `stft`, `cwt`,
      `ssq_cwt2`, `ssq_stft2`, the batched `ssq_cwt`, `ssq_cwt(get_dWx=
      True)`, `ssq_stft(hop_len=8)`, `ssqueeze` from (Wx, dWx), the
@@ -83,7 +94,10 @@ the scatter from bins). It:
      just after (each kernel of the path must have launched; the `get_w`
      call must launch neither bins kernel), and checks the outputs against
      the plain path on the card;
+ 10b. checks that an unpadded call at a length with a prime factor 11
+     raises naming A6b and launches no kernel;
  11. round-trips a chirp through `ssq_cwt`/`issq_cwt`,
+     `ssq_cwt(padtype=None)`/`issq_cwt` (N = 19600 = 2^4 5^2 7^2),
      `ssq_stft`/`issq_stft`, `cwt`/`icwt`, `ssq_cwt2`/`issq_cwt` and
      `ssq_stft2`/`issq_stft` and `ssq_cwt(get_w=True)`/`issq_cwt`, and a
      (4, N) chirp batch through the batched
@@ -93,7 +107,8 @@ the scatter from bins). It:
  12. times each kernel, its plain version and a library yardstick with
      CUDA events after warm-up (B2 also on the (4, 160000) batch, B4 also
      on the hop-8 STFT's planes, B6 (bins and Sx modes), B7 and B8 also
-     on the (4, 160000) batch), computes each kernel's bound from this
+     on the (4, 160000) batch, the CWT kernel's mixed engine in each mode
+     at n_up = 160000), computes each kernel's bound from this
      run's shapes (and, for B2, B4 and B5, the bytes/s achieved and the
      share of the bound), and times each public call with its peak
      memory;
@@ -102,6 +117,8 @@ the scatter from bins). It:
 
 Any failed check exits non-zero before those lines. Without a CUDA
 device, or without the package beside this script, it exits non-zero.
+The port's plan memo on disk is kept under `build/plan_cache` beside this
+script.
 """
 import json
 import os
@@ -225,16 +242,19 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
     sys.path.insert(0, HERE)
+    os.environ['SSQ_TPU_TORCH_CACHE'] = os.path.join(HERE, 'build',
+                                                     'plan_cache')
     try:
         import ssqueezepy_tpu_torch as stq
         from ssqueezepy_tpu_torch.ops import _build
         from ssqueezepy_tpu_torch.ops.cwt_cuda import (
-            cwt_bins, cwt_bins_plain, cwt_bins2, cwt_bins2_plain, cwt_fused,
-            cwt_fused_plain, four_step)
+            bins_plan, cwt_bins, cwt_bins_plain, cwt_bins2, cwt_bins2_plain,
+            cwt_fused, cwt_fused_plain, four_step)
         from ssqueezepy_tpu_torch.ops.ssq_cuda import (
             scatter_kv, scatter_kv_plain, scatter_launch_plan, shift_scatter,
             shift_scatter_plain, ssq_fused, ssq_fused_plain)
-        from ssqueezepy_tpu_torch.ops.phase import (phase_cwt, phase_stft,
+        from ssqueezepy_tpu_torch.ops.phase import (phase_cwt, phase_cwt_num,
+                                                    phase_stft,
                                                     phase_transform_w)
         from ssqueezepy_tpu_torch.ops.ssq_kernels import compute_bins
         from ssqueezepy_tpu_torch.ops.stft_cuda import (
@@ -254,12 +274,17 @@ def main():
     except ImportError as e:
         fail("the port is not importable beside this script (%s)" % e)
     # each kernel's launch counter: B3b counts on cwt_bins' batched
-    # counter, B1 on its own; B6, B7 and B8 over a batch on theirs
+    # counter, B1 on its own; B6, B7 and B8 over a batch on theirs; the
+    # CWT kernel's mixed engine on its own counters (`mixed_*`)
     all_kernels = [(k.__name__, k, 'launches') for k in (
         cwt_bins, scatter_kv, stft_conv, cwt_fused, cwt_bins2, fsst2_conv,
         ssq_fused, shift_scatter)] + [
         (k.__name__ + '_batched', k, 'batched_launches')
-        for k in (cwt_bins, stft_conv, fsst2_conv, cwt_bins2)]
+        for k in (cwt_bins, stft_conv, fsst2_conv, cwt_bins2)] + [
+        (k.__name__ + '_mixed', k, 'mixed_launches')
+        for k in (cwt_bins, cwt_fused, cwt_bins2)] + [
+        (k.__name__ + '_batched_mixed', k, 'mixed_batched_launches')
+        for k in (cwt_bins, cwt_bins2)]
     # full-precision float32 products in every plain version
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -372,7 +397,7 @@ def main():
                   "float32 B1 repeat runs bit-identical")
             del Wx_r, k_r
             for deriv in (False, True):
-                Wx_3, _ = cwt_fused(xh, sc, wv, n_up, n1, N, 1., deriv, True)
+                Wx_3 = cwt_fused(xh, sc, wv, n_up, n1, N, 1., deriv, True)[0]
                 check(torch.equal(Wx_3, Wx_k), "float32 B3 Wx (%s) "
                       "bit-identical to B1's" % ("Wx and dWx" if deriv
                                                  else "Wx only"))
@@ -893,6 +918,105 @@ def main():
         del W_k, k_k, xh8
         torch.cuda.empty_cache()
 
+    # ---- the CWT kernel's mixed engine against its plain versions --------
+    # padtype=None: n_up = N, whose prime factors are at most 7; 160000 =
+    # 400 x 400 (radices 4 4 5 5), 99225 = 3^4 5^2 7^2 = 315 x 315 (radices
+    # 3 3 5 7, no power of two in either factor). Each launch must count
+    # on the mixed counters only.
+    rngm = np.random.default_rng(15)
+    mx = {}
+    for Nm, dtype in ((N, 'float32'), (99225, 'float64')):
+        tdt = getattr(torch, dtype)
+        wv = resolve_wavelet(('gmw', {'dtype': dtype}), N=Nm)
+        plm = (plan_from_numpy(scales, None, spec, N, padded=False)
+               if Nm == N else plan_from_numpy(
+                   stq.process_scales('log-piecewise', Nm, wv), None,
+                   ('gmw', {'dtype': dtype}), Nm, padded=False))
+        xm = x_np if Nm == N else rngm.standard_normal(Nm)
+        xhm = rfft(torch.as_tensor(xm, dtype=tdt, device=dev)).contiguous()
+        scm = torch.as_tensor(plm['scales'].ravel(), dtype=tdt, device=dev)
+        cm = torch.as_tensor(np.broadcast_to(np.ravel(plm['const']),
+                                             (len(scm),)).copy(),
+                             dtype=tdt, device=dev)
+        pm, nbm = plm['params'], plm['params']['omax'] + 1
+        gamma = 10 * float(np.finfo(dtype).eps)
+        tol = 2e-5 if dtype == 'float32' else 1e-9
+        isz = xhm.element_size()
+        print("mixed engine at (%d, %d), n_up=%d=%dx%d, %s; plans (planes: "
+              "P1, P2, shared bytes per block): %s" % (
+                  len(scm), Nm, Nm, *four_step(Nm), dtype, ', '.join(
+                      '%d: %d, %d, %d' % (q, bp.P1, bp.P2, bp.smem1)
+                      for q in (1, 2, 5) for bp in [bins_plan(Nm, isz, q)])),
+              flush=True)
+        argsm = (xhm, scm, wv, Nm, 0, Nm, 1., True, pm, gamma, True)
+        (W_k, k_k), counts = launches_of(all_kernels,
+                                         lambda: cwt_bins(*argsm))
+        W_p, k_p = cwt_bins_plain(*argsm)
+        err, err_abs = rel_err(W_k, W_p), float((W_k - W_p).abs().max())
+        flips = float((k_k != k_p).double().mean())
+        check(counts['cwt_bins_mixed'] >= 1 and counts['cwt_bins'] == 0
+              and bool(torch.isfinite(torch.view_as_real(W_k)).all())
+              and err <= tol and flips <= 0.01,
+              "mixed B1 %s: the mixed counter only, max|Wx_kernel - "
+              "Wx_plain| = %.3g of max|Wx| (limit %g), k differs on %.4f%% "
+              "of cells (limit 1%%)" % (dtype, err, tol, 100 * flips))
+        bins_criterion(scatter_kv_plain(W_k, k_k, cm, nbm),
+                       scatter_kv_plain(W_p, k_p, cm, nbm),
+                       "%s mixed B1" % dtype)
+        del k_p
+        W_r, k_r = cwt_bins(*argsm)
+        check(torch.equal(W_r, W_k) and torch.equal(k_r, k_k),
+              "mixed B1 %s repeat runs bit-identical" % dtype)
+        del W_r, k_r
+        mx[dtype] = dict(args=argsm, err=err_abs, c=cm, nb=nbm)
+        for deriv in (False, True):
+            (W3, dW3), counts = launches_of(all_kernels, lambda: cwt_fused(
+                xhm, scm, wv, Nm, 0, Nm, 1., deriv, True))
+            check(counts['cwt_fused_mixed'] >= 1 and counts['cwt_fused'] == 0
+                  and torch.equal(W3, W_k), "mixed B3 %s (%s): the mixed "
+                  "counter only, Wx bit-identical to B1's" % (
+                      dtype, "Wx and dWx" if deriv else "Wx only"))
+            if deriv:
+                dW_p = cwt_fused_plain(xhm, scm, wv, Nm, 0, Nm, 1., True,
+                                       True)[1]
+                e3 = rel_err(dW3, dW_p)
+                check(e3 <= tol, "mixed B3 %s: dWx %.3g of max|dWx| (limit "
+                      "%g)" % (dtype, e3, tol))
+                mx[dtype]['err3d'] = float((dW3 - dW_p).abs().max())
+                del dW_p
+            del W3, dW3
+        mx[dtype]['err3'] = err_abs        # B3's Wx is B1's, bit for bit
+        (W8, k8), counts = launches_of(all_kernels, lambda: cwt_bins2(
+            xhm, scm, wv, Nm, 0, Nm, 1., pm, gamma, True))
+        W8_p, k8_p = cwt_bins2_plain(xhm, scm, wv, Nm, 0, Nm, 1., pm, gamma,
+                                     True)
+        flips8 = float((k8 != k8_p).double().mean())
+        check(counts['cwt_bins2_mixed'] >= 1 and counts['cwt_bins2'] == 0
+              and torch.equal(W8, W_k) and flips8 <= 0.01,
+              "mixed B8 %s: the mixed counter only, W bit-identical to B1's "
+              "Wx, k differs on %.4f%% of cells (limit 1%%)"
+              % (dtype, 100 * flips8))
+        bins_criterion(scatter_kv_plain(W8, k8, cm, nbm),
+                       scatter_kv_plain(W8_p, k8_p, cm, nbm),
+                       "%s mixed B8" % dtype)
+        mx[dtype]['err8'] = float((W8 - W8_p).abs().max())
+        del W8, k8, W8_p, k8_p
+        xh2 = torch.stack([xhm, rfft(torch.as_tensor(
+            rngm.standard_normal(Nm), dtype=tdt, device=dev))]).contiguous()
+        (Wb, kb), counts = launches_of(all_kernels, lambda: cwt_bins(
+            xh2, *argsm[1:]))
+        check(counts['cwt_bins_batched_mixed'] >= 1
+              and counts['cwt_bins_batched'] == 0
+              and torch.equal(Wb[0], W_k) and torch.equal(kb[0], k_k),
+              "mixed B3b %s on a batch of two: the mixed batched counter "
+              "only, row 0 bit-identical to its one-signal launch" % dtype)
+        W1b, k1b = cwt_bins(xh2[1].contiguous(), *argsm[1:])
+        check(torch.equal(Wb[1], W1b) and torch.equal(kb[1], k1b),
+              "mixed B3b %s: row 1 bit-identical to its one-signal launch"
+              % dtype)
+        del Wb, kb, W1b, k1b, xh2, W_k, k_k, W_p
+        torch.cuda.empty_cache()
+
     # ---- the main paths through the public API ----------------------------
     x_dev = torch.as_tensor(x_np, device=dev)
     gamma32 = 10 * float(np.finfo(np.float32).eps)   # ssq_cwt's default
@@ -933,6 +1057,21 @@ def main():
             xb_dev, n_fft=n_fft, hop_len=8, squeezing='abs'),
         'ssq_stft2_b4': lambda: stq.ssq_stft2(xb_dev, n_fft=n_fft),
         'ssq_cwt2_b4': lambda: stq.ssq_cwt2(xb_dev, spec, scales=scales),
+        # unpadded (n_up = N, the mixed engine), the whole padded window,
+        # the numeric phase transform
+        'ssq_cwt_padnone': lambda: stq.ssq_cwt(x_dev, wavelet=spec,
+                                               scales=scales, padtype=None),
+        'ssq_cwt_padnone_b4': lambda: stq.ssq_cwt(
+            xb_dev, wavelet=spec, scales=scales, padtype=None),
+        'cwt_padnone': lambda: stq.cwt(x_dev, wavelet=spec, scales=scales,
+                                       padtype=None),
+        'cwt_rpadded': lambda: stq.cwt(x_dev, wavelet=spec, scales=scales,
+                                       rpadded=True),
+        'ssq_cwt_numeric': lambda: stq.ssq_cwt(
+            x_dev, wavelet=spec, scales=scales, difftype='numeric',
+            get_w=True),
+        'ssq_cwt2_padnone': lambda: stq.ssq_cwt2(x_dev, spec, scales=scales,
+                                                 padtype=None),
     }
     # the w and Wx that `ssqueeze` reassigns: the get_w call's own
     sq_in = {}
@@ -957,13 +1096,42 @@ def main():
              'ssq_stft_hop8_b4': ('ssq_fused',),
              'ssq_stft_hop8_abs_b4': ('shift_scatter',),
              'ssq_stft2_b4': ('fsst2_conv_batched', 'scatter_kv'),
-             'ssq_cwt2_b4': ('cwt_bins2_batched', 'scatter_kv')}
+             'ssq_cwt2_b4': ('cwt_bins2_batched', 'scatter_kv'),
+             'ssq_cwt_padnone': ('cwt_bins_mixed', 'scatter_kv'),
+             'ssq_cwt_padnone_b4': ('cwt_bins_batched_mixed', 'scatter_kv'),
+             'cwt_padnone': ('cwt_fused_mixed',),
+             'cwt_rpadded': ('cwt_fused',),
+             'ssq_cwt_numeric': ('cwt_fused', 'shift_scatter'),
+             'ssq_cwt2_padnone': ('cwt_bins2_mixed', 'scatter_kv')}
     # kernels a path must not launch: get_w takes no bins kernel, a batch
     # no one-signal launch of B6, B7 or B8
     avoids = {'ssq_cwt_getw': ('cwt_bins', 'cwt_bins_batched', 'scatter_kv',
                                'ssq_fused')}
     avoids.update((name, ('stft_conv', 'fsst2_conv', 'cwt_bins2'))
                   for name in calls if name.endswith('_b4'))
+    # an unpadded call takes the mixed engine only, a padded one (the
+    # numeric route, the whole window) the radix-4 engine only
+    radix4 = ('cwt_bins', 'cwt_fused', 'cwt_bins2', 'cwt_bins_batched',
+              'cwt_bins2_batched')
+    mixed = tuple(name + '_mixed' for name in radix4)
+    for name in ('ssq_cwt_padnone', 'ssq_cwt_padnone_b4', 'cwt_padnone',
+                 'ssq_cwt2_padnone'):
+        avoids[name] = avoids.get(name, ()) + radix4
+    avoids['cwt_rpadded'] = mixed
+    avoids['ssq_cwt_numeric'] = mixed + ('cwt_bins', 'scatter_kv',
+                                         'ssq_fused')
+    # the plans and spectra the unpadded and numeric calls' plain paths
+    # take: the plan without padding (was_padded=False) and with it
+    wv32 = resolve_wavelet(spec, N=N)
+    plan0, _ = _ssq_cwt_plan(wv32, N, scales, None, None, 'peak', False, 1.)
+    planR, _ = _ssq_cwt_plan(wv32, N, scales, None, None, 'peak', True, 1.)
+    sc32 = torch.as_tensor(scales.ravel(), dtype=torch.float32, device=dev)
+
+    def consts(pl):
+        return (torch.as_tensor(np.broadcast_to(np.ravel(pl.const),
+                                                (na,)).copy(),
+                                dtype=torch.float32, device=dev),
+                pl.params, pl.params['omax'] + 1)
     launches = dict.fromkeys((name for name, _, _ in all_kernels), 0)
     for name, fn in calls.items():
         fn()                                  # plan memo + first launch
@@ -999,15 +1167,15 @@ def main():
                            "public ssq_stft vs plain path")
             del Tx, Sx, Sx_p, k_p, xh6, H, Hd
         elif name == 'stft':
-            xh6, H, _, _, _ = stft_inputs(N, 'float32', x_np)
-            Sx_p, _ = stft_conv_plain(xh6, H, None, N)
+            xh6, H = stft_inputs(N, 'float32', x_np)[:2]
+            Sx_p = stft_conv_plain(xh6, H, None, N)[0]
             check(out.shape == (n_rows, N) and rel_err(out, Sx_p) <= 2e-5,
                   "public stft: Sx (%d, %d), %.3g of max vs the plain path"
                   % (tuple(out.shape) + (rel_err(out, Sx_p),)))
             del Sx_p, xh6, H
         elif name == 'cwt':
             Wx_c = out[0]
-            W_p, _ = cwt_fused_plain(*b3['args'])
+            W_p = cwt_fused_plain(*b3['args'])[0]
             check(Wx_c.shape == (na, N) and rel_err(Wx_c, W_p) <= 2e-5,
                   "public cwt: Wx (%d, %d), %.3g of max vs the plain path"
                   % (tuple(Wx_c.shape) + (rel_err(Wx_c, W_p),)))
@@ -1060,7 +1228,7 @@ def main():
             check(Tx.shape == (n_rows, n_segs) and Sx.shape == (n_rows, n_segs)
                   and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
                   "ssq_stft(hop_len=8): Tx, Sx (%d, %d), finite" % Tx.shape)
-            _, _, _, bins6, c6 = stft_inputs(N, 'float32', x_np)
+            bins6, c6 = stft_inputs(N, 'float32', x_np)[3:]
             Sx_p, dSx_p = stq.stft(x_dev, n_fft=n_fft, hop_len=8,
                                    derivative=True)
             bins_criterion(Tx, ssq_fused_plain(
@@ -1106,7 +1274,7 @@ def main():
                   and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
                   "ssq_stft(hop_len=8, squeezing='abs'): Tx (%d, %d), "
                   "finite" % Tx.shape)
-            _, _, _, bins6, c6 = stft_inputs(N, 'float32', x_np)
+            bins6, c6 = stft_inputs(N, 'float32', x_np)[3:]
             Sx_p, dSx_p = stq.stft(x_dev, n_fft=n_fft, hop_len=8,
                                    derivative=True)
             k_p, v_p = compute_bins(phase_stft(Sx_p, dSx_p, bins6['Sfs'],
@@ -1153,8 +1321,8 @@ def main():
                            "public %s vs plain path" % name)
             del Tx, W_pub, W_p, k_p, vals
         elif name == 'stft_b4':
-            xh6, H, _, _, _ = stft_inputs(N, 'float32', xb_big)
-            Sx_p, _ = stft_conv_plain(xh6, H, None, N)
+            xh6, H = stft_inputs(N, 'float32', xb_big)[:2]
+            Sx_p = stft_conv_plain(xh6, H, None, N)[0]
             check(out.shape == (B4N, n_rows, N)
                   and rel_err(out, Sx_p) <= 2e-5,
                   "public batched stft: Sx %s, %.3g of max vs the plain "
@@ -1190,7 +1358,7 @@ def main():
                   and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
                   "batched %s: Tx, Sx %s, finite"
                   % (name[:-3], tuple(Tx.shape)))
-            _, _, _, bins6, c6 = stft_inputs(N, 'float32', x_np)
+            bins6, c6 = stft_inputs(N, 'float32', x_np)[3:]
             Sx_p, dSx_p = stq.stft(xb_dev, n_fft=n_fft, hop_len=8,
                                    derivative=True)
             Sx_p, dSx_p = Sx_p.contiguous(), dSx_p.contiguous()
@@ -1207,6 +1375,64 @@ def main():
             bins_criterion(Tx, Tx_p, "public batched %s vs plain path"
                            % name[:-3])
             del Tx, Sx, Sx_p, dSx_p, Tx_p
+        elif name in ('ssq_cwt_padnone', 'ssq_cwt_padnone_b4',
+                      'ssq_cwt2_padnone'):
+            Tx, W_pub = out[0], out[1]
+            c0, p0, nb0 = consts(plan0)
+            xh0 = rfft(xb_dev if name.endswith('_b4')
+                       else x_dev).contiguous()
+            lead = (B4N,) if name.endswith('_b4') else ()
+            if name == 'ssq_cwt2_padnone':
+                W_p, k_p = cwt_bins2_plain(xh0, sc32, wv32, N, 0, N, 1., p0,
+                                           gamma32, True)
+            else:
+                W_p, k_p = cwt_bins_plain(xh0, sc32, wv32, N, 0, N, 1., True,
+                                          p0, gamma32, True)
+            check(Tx.shape == lead + (nb0, N) and W_pub.shape == W_p.shape
+                  and rel_err(W_pub, W_p) <= 2e-5
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "%s: Tx %s, finite; Wx %.3g of max vs the plain path"
+                  % (name, tuple(Tx.shape), rel_err(W_pub, W_p)))
+            bins_criterion(Tx, scatter_kv_plain(W_p, k_p, c0, nb0),
+                           "public %s vs plain path" % name)
+            del Tx, W_pub, W_p, k_p, xh0
+        elif name in ('cwt_padnone', 'cwt_rpadded'):
+            Wx_c = out[0]
+            if name == 'cwt_padnone':
+                xh0, nu, lo, nn = rfft(x_dev).contiguous(), N, 0, N
+            else:
+                xh0, nu, lo, nn = b3['args'][0], n_up, 0, n_up
+            W_p = cwt_fused_plain(xh0, sc32, wv32, nu, lo, nn, 1., False,
+                                  True)[0]
+            check(Wx_c.shape == (na, nn) and rel_err(Wx_c, W_p) <= 2e-5,
+                  "public %s: Wx (%d, %d), %.3g of max vs the plain path"
+                  % ((name,) + tuple(Wx_c.shape) + (rel_err(Wx_c, W_p),)))
+            del Wx_c, W_p, xh0
+        elif name == 'ssq_cwt_numeric':
+            Tx, Wx_pub, w_pub = out[0], out[1], out[4]
+            cR, pR, nbR = consts(planR)
+            check(len(out) == 5 and Tx.shape == (nbR, N)
+                  and Wx_pub.shape == (na, N) and w_pub.shape == (na, N)
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "ssq_cwt(difftype='numeric', get_w=True): Tx (%d, %d), Wx "
+                  "and w (%d, %d), finite" % (Tx.shape + Wx_pub.shape))
+            W_p = cwt_fused_plain(b3['args'][0], sc32, wv32, n_up, 0,
+                                  n_up, 1., False, True)[0]
+            W_s = W_p[:, n1 - 4:n1 + N + 4]
+            w_p = phase_cwt_num(W_s, 1., 4, gamma32)
+            k_p, v_p = compute_bins(w_p, pR, True)
+            Tx_p = shift_scatter_plain(W_s.contiguous(), k_p, v_p, nbR,
+                                       cR)[:, 4:-4]
+            check(rel_err(Wx_pub, W_s[:, 4:-4]) <= 2e-5,
+                  "ssq_cwt(difftype='numeric'): Wx %.3g of max vs the plain "
+                  "path" % rel_err(Wx_pub, W_s[:, 4:-4]))
+            bins_criterion(Tx, Tx_p, "public ssq_cwt(difftype='numeric') vs "
+                           "plain path")
+            gd = float((torch.isinf(w_pub) != torch.isinf(w_p[:, 4:-4]))
+                       .double().mean())
+            check(gd <= 1e-3, "ssq_cwt(difftype='numeric'): w gated on the "
+                  "plain path's cells but %.4f%% (limit 0.1%%)" % (100 * gd))
+            del Tx, Wx_pub, w_pub, W_p, W_s, w_p, k_p, v_p, Tx_p
         else:
             Tx, Sx = out[0], out[1]
             check(Tx.shape == (n_rows, N) and Sx.shape == (n_rows, N)
@@ -1221,7 +1447,33 @@ def main():
         del out
         torch.cuda.empty_cache()
 
+    # ---- the length rule: a prime factor above 7 launches nothing ---------
+    x11 = x_np[:2002]                     # 2002 = 2 7 11 13
+    for what, fn in (('ssq_cwt', lambda: stq.ssq_cwt(x11, padtype=None)),
+                     ('cwt', lambda: stq.cwt(x11, padtype=None)),
+                     ('ssq_cwt2', lambda: stq.ssq_cwt2(x11, padtype=None))):
+        def refused():
+            try:
+                fn()
+            except NotImplementedError as e:
+                return str(e)
+            return None
+        msg, counts = launches_of(all_kernels, refused)
+        check(msg is not None and 'A6b' in msg and not any(counts.values()),
+              "%s(padtype=None) at N=2002 raises naming A6b and launches no "
+              "kernel: %r" % (what, msg))
+
     # ---- round trips -------------------------------------------------------
+    Nc7 = 19600                           # 2^4 5^2 7^2: unpadded, mixed
+    tc7 = np.linspace(0, 6, Nc7, endpoint=False)
+    xc7 = np.cos(2 * np.pi * 2 * np.exp(tc7 / 2)).astype(np.float32)
+    out, counts = launches_of(all_kernels,
+                              lambda: stq.ssq_cwt(xc7, padtype=None)[0])
+    mad = float(stq.toolkit.mad_rms(xc7, stq.issq_cwt(out)))
+    check(counts['cwt_bins_mixed'] >= 1 and counts['scatter_kv'] >= 1
+          and mad < 0.1, "ssq_cwt(padtype=None)/issq_cwt round trip at N=%d:"
+          " mad_rms = %.4g (< 0.1), launches %s" % (Nc7, mad, counts))
+    del out
     Nc = 19531
     tc = np.linspace(0, 6, Nc, endpoint=False)
     xc = np.cos(2 * np.pi * 2 * np.exp(tc / 2)).astype(np.float32)
@@ -1464,6 +1716,49 @@ def main():
     del kk, cols, vals, k5, v5, b5_args, Wx4, dWx4, b4['args']
     torch.cuda.empty_cache()
 
+    # the mixed engine at n_up = 160000 (float32) as the unpadded calls run
+    # it: B1 (bins), B3 (Wx only; Wx and dWx), B8, B3b on the (4, 160000)
+    # batch; yardstick: the DFT core only, one torch.fft.ifft of the
+    # (rows, n_up) spectra per plane. B1 also at n_up = 99225 in float64.
+    am = mx['float32']['args']
+    xhm, nm = am[0], am[3]
+    a3m = (xhm, am[1], am[2], nm, 0, nm, 1., False, True)
+    a3dm = a3m[:7] + (True, True)
+    a8m = am[:7] + am[8:]
+    mk = {}
+    mk['b1'] = (cuda_ms(lambda: cwt_bins(*am)),
+                cuda_ms(lambda: cwt_bins_plain(*am), reps=5))
+    mk['b3'] = (cuda_ms(lambda: cwt_fused(*a3m)),
+                cuda_ms(lambda: cwt_fused_plain(*a3m), reps=5))
+    mk['b3d'] = (cuda_ms(lambda: cwt_fused(*a3dm)),
+                 cuda_ms(lambda: cwt_fused_plain(*a3dm), reps=5))
+    mk['b8'] = (cuda_ms(lambda: cwt_bins2(*a8m)),
+                cuda_ms(lambda: cwt_bins2_plain(*a8m), reps=3))
+    a64 = mx['float64']['args']
+    mk['b1_64'] = (cuda_ms(lambda: cwt_bins(*a64)),
+                   cuda_ms(lambda: cwt_bins_plain(*a64), reps=3))
+    mlib = {}
+    for planes in (1, 2, 5):
+        specm = torch.zeros((planes * na, nm), dtype=xhm.dtype, device=dev)
+        specm[:, :xhm.shape[0]] = xhm
+        mlib[planes] = cuda_ms(lambda: torch.fft.ifft(specm, dim=-1),
+                               reps=5)
+        del specm
+    xhbm = rfft(xb_dev).contiguous()
+    abm = (xhbm,) + am[1:]
+    mk['b3b'] = (cuda_ms(lambda: cwt_bins(*abm), reps=5),
+                 cuda_ms(lambda: cwt_bins_plain(*abm), reps=2, warm=1))
+    Wbm = cwt_bins(*abm)[0]
+    Wbm_p = cwt_bins_plain(*abm)[0]
+    mx['b3b_err'] = float((Wbm - Wbm_p).abs().max())
+    del Wbm, Wbm_p
+    specm = torch.zeros((2 * B4N * na, nm), dtype=xhm.dtype, device=dev)
+    specm.view(2, B4N, na, nm)[..., :xhbm.shape[-1]] = xhbm[:, None, :]
+    mlib['b3b'] = cuda_ms(lambda: torch.fft.ifft(specm, dim=-1), reps=3)
+    n_xhbm = xhbm.numel()
+    del specm, xhbm, abm, a3m, a3dm, a8m
+    torch.cuda.empty_cache()
+
     # each call's peak with only its own cached window tables and cuFFT
     # plans live; `ssqueeze`'s inputs (the get_w call's Wx and w) live only
     # while it is timed
@@ -1520,6 +1815,24 @@ def main():
     b3b_bytes = n_xhb * cb + na * rb + B4N * na * N * (cb + 4)
     b3b_flops = B4N * na * 2 * 5 * n_up * (lg - 1)
     b3b_bound, b3b_by = bound(b3b_bytes, b3b_flops)
+    # B6 in Sx mode: xh read, Sx written; one length-Np2 inverse DFT per
+    # row. B3 with two planes: xh and scales read, Wx and dWx written; two
+    # inverse DFTs per scale, less the zero-input first stage
+    b6_sx_bound, b6_sx_by = bound(Np2 * cb + n_rows * N * cb, b6_flops / 2)
+    b3d_bytes = n_xh3 * cb + na * rb + 2 * na * N * cb
+    b3d_bound, b3d_by = bound(b3d_bytes, 2 * b3_flops)
+    # the mixed engine at n_up = 160000 = N: each mode's function (inputs
+    # read, outputs written once) over na scales, 5 n log2 n FLOP per
+    # length-n_up inverse DFT
+    dft_m = 5 * nm * np.log2(nm)
+    xhm_b = (nm // 2 + 1) * cb + na * rb
+    mb = {
+        'b1': bound(xhm_b + na * nm * (cb + 4), 2 * na * dft_m),
+        'b3': bound(xhm_b + na * nm * cb, na * dft_m),
+        'b3d': bound(xhm_b + 2 * na * nm * cb, 2 * na * dft_m),
+        'b8': bound(xhm_b + na * nm * (cb + 4), 5 * na * dft_m),
+        'b3b': bound(n_xhbm * cb + na * rb + B4N * na * nm * (cb + 4),
+                     2 * B4N * na * dft_m)}
     # B6, B7 and B8 over the batch: their one-signal functions B4N times
     # (B6 in bins mode, as the batched ssq_stft runs it; and in Sx mode)
     b6b_bound, b6b_by = bound(B4N * b6_bytes, B4N * b6_flops)
@@ -1556,14 +1869,29 @@ def main():
              b2_bytes, n_valid), flush=True)
     print("B6 bins mode %.3f ms, Sx mode %.3f ms (plain bins %.3f, "
           "torch.fft.ifft DFT core %.3f, of the Sx mode's one plane %.3f, "
-          "bound %.3f by %s: %.3g B, %.3g FLOP; Np2=%d); B3 Wx only %.3f "
+          "bound %.3f by %s: %.3g B, %.3g FLOP; Sx mode bound %.3f by %s; "
+          "Np2=%d); B3 Wx only %.3f "
           "ms (plain %.3f, torch.fft.ifft DFT core %.3f, bound %.3f by %s: "
           "%.3g B, %.3g FLOP)"
           % (b6_ms, b6_sx_ms, b6_plain_ms, b6_lib_ms, b6_sx_lib_ms,
-             b6_bound, b6_by, b6_bytes, b6_flops, Np2, b3_ms, b3_plain_ms,
+             b6_bound, b6_by, b6_bytes, b6_flops, b6_sx_bound, b6_sx_by,
+             Np2, b3_ms, b3_plain_ms,
              b3_lib_ms, b3_bound, b3_by, b3_bytes, b3_flops), flush=True)
     print("B3 Wx + dWx %.3f ms (torch.fft.ifft DFT core of the two planes "
-          "%.3f)" % (b3d_ms, b3d_lib_ms), flush=True)
+          "%.3f, bound %.3f by %s: %.3g B)"
+          % (b3d_ms, b3d_lib_ms, b3d_bound, b3d_by, b3d_bytes), flush=True)
+    for key, what, lib in (
+            ('b1', 'B1 (bins, 2 planes)', mlib[2]),
+            ('b3', 'B3 Wx only (1 plane)', mlib[1]),
+            ('b3d', 'B3 Wx + dWx (2 planes)', mlib[2]),
+            ('b8', 'B8 (order 2, 5 planes)', mlib[5]),
+            ('b3b', 'B3b on (%d, %d)' % (B4N, nm), mlib['b3b'])):
+        print("mixed engine at n_up=%d=%dx%d float32, %s: %.3f ms (plain "
+              "%.3f, torch.fft.ifft DFT core %.3f, bound %.3f by %s); card: "
+              "%s" % ((nm,) + four_step(nm) + (what,) + mk[key] + (lib,)
+                      + mb[key] + (card,)), flush=True)
+    print("mixed engine at n_up=99225=315x315 float64, B1: %.3f ms (plain "
+          "%.3f); card: %s" % (mk['b1_64'] + (card,)), flush=True)
     print("B8 %.3f ms (plain %.3f, torch.fft.ifft DFT core %.3f, bound "
           "%.3f by %s: %.3g B, %.3g FLOP); B7 %.3f ms (plain %.3f, "
           "torch.fft.ifft DFT core %.3f, bound %.3f by %s: %.3g B, %.3g "
@@ -1688,6 +2016,19 @@ def main():
              max_abs_err=b8b['err'], ms=b8b_ms, plain_ms=b8b_plain_ms,
              bound_ms=b8b_bound, bound_by=b8b_by, library_ms=b8b_lib_ms),
     ]
+    # the CWT kernel's mixed engine (n_up = 160000 = 400 x 400, float32)
+    for name, key, err, lib in (
+            ('cwt_bins_mixed', 'b1', mx['float32']['err'], mlib[2]),
+            ('cwt_fused_mixed', 'b3', mx['float32']['err3'], mlib[1]),
+            ('cwt_bins2_mixed', 'b8', mx['float32']['err8'], mlib[5]),
+            ('cwt_bins_batched_mixed', 'b3b', mx['b3b_err'], mlib['b3b'])):
+        kernels.append(dict(
+            name=name, route='cuda',
+            source='ssqueezepy_tpu_torch/csrc/cwt_bins.cu',
+            replaces='ssqueezepy_tpu/ops/cwt_pallas.py:70',
+            launches=launches[name], max_abs_err=err, ms=mk[key][0],
+            plain_ms=mk[key][1], bound_ms=mb[key][0], bound_by=mb[key][1],
+            library_ms=lib))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+# -*- coding: utf-8 -*-
+"""Digests of every output of the CWT kernel (`csrc/cwt_bins.cu`: B1 and
+B3b in bins mode, B3 with one plane and with two, in the L1 and L2 norm,
+B8 in order-2 mode, one signal and a batch), so that two checkouts of the
+port can be compared bit for bit on one NVIDIA GPU; and, with `--time`,
+the kernels' times at the headline.
+
+    python3 scripts/torch_cwt_digest.py [--root DIR] [--time] > out.json
+
+`--root` names the checkout whose `ssqueezepy_tpu_torch` is imported
+(default: the one holding this script). The inputs are white noise from
+a seed, reflect-padded to a power of two (the radix-4 engine): N = 160000
+(n_up = 262144, the bench's 293 log-piecewise scales) in float32, and
+N = 10000 (n_up = 32768) and 1000 (n_up = 2048) in float32 and float64
+with their own log-piecewise scales; a batch stacks the spectrum with
+those of seeds N + 1 and N + 2. Prints one JSON object {"<N> <dtype>
+<kernel> <output>": sha256 of the bytes, ...} with the card's name and
+power limit; `--time` adds "<kernel> ms" at N = 160000 (CUDA events, mean
+of 20 after 3 warm-up launches). Needs a CUDA device.
+"""
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+
+def main():
+    import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--root', default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument('--time', action='store_true')
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    sys.path.insert(0, os.path.abspath(a.root))
+    import ssqueezepy_tpu_torch as stq
+    from ssqueezepy_tpu_torch.convert import plan_from_numpy
+    from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
+    from ssqueezepy_tpu_torch.ops.cwt_cuda import (cwt_bins, cwt_bins2,
+                                                   cwt_fused)
+    from ssqueezepy_tpu_torch.ops.fft import rfft
+    from ssqueezepy_tpu_torch.ops.pad import pad_params, padsignal
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()
+                              ).hexdigest()
+
+    def ms(fn, reps=20, warm=3):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+
+    dev = torch.device('cuda')
+    out = {'card': subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60).stdout.strip()}
+    cases = [(160000, 'float32')] + [(N, dtype) for N in (10000, 1000)
+                                     for dtype in ('float32', 'float64')]
+    for N, dtype in cases:
+        tdt = getattr(torch, dtype)
+        spec = ('gmw', {'dtype': dtype})
+        wv = resolve_wavelet(spec, N=N)
+        scales = stq.process_scales('log-piecewise', N, wv)
+        if N == 160000:
+            scales = scales[:300]
+        plan = plan_from_numpy(scales, None, spec, N)
+        sc = torch.as_tensor(plan['scales'].ravel(), dtype=tdt, device=dev)
+        n_up, n1, _ = pad_params(N, 'reflect')
+
+        def spectrum(seed):
+            x = np.random.default_rng(seed).standard_normal(N)
+            return rfft(padsignal(torch.as_tensor(x, dtype=tdt, device=dev),
+                                  'reflect')).contiguous()
+
+        gamma = 10 * float(np.finfo(dtype).eps)
+        runs = {
+            'B1': (('Wx', 'k'), lambda z: cwt_bins(
+                z, sc, wv, n_up, n1, N, 1., True, plan['params'], gamma,
+                True)),
+            'B3 Wx only': (('Wx',), lambda z: cwt_fused(
+                z, sc, wv, n_up, n1, N, 1., False, True)[:1]),
+            'B3 Wx + dWx': (('Wx', 'dWx'), lambda z: cwt_fused(
+                z, sc, wv, n_up, n1, N, 1., True, True)),
+            'B3 L2': (('Wx',), lambda z: cwt_fused(
+                z, sc, wv, n_up, n1, N, 1., False, False)[:1]),
+            'B8': (('W', 'k'), lambda z: cwt_bins2(
+                z, sc, wv, n_up, n1, N, 1., plan['params'], gamma, True)),
+        }
+        xh = spectrum(N)
+        xb = torch.stack([xh, spectrum(N + 1), spectrum(N + 2)])
+        for kernel, (names, run) in runs.items():
+            for key, z in (('%d %s ' % (N, dtype), xh),
+                           ('3x%d %s ' % (N, dtype), xb)):
+                outs = run(z)
+                for name, o in zip(names, outs):
+                    out[key + '%s %s' % (kernel, name)] = digest(o)
+                del outs
+            torch.cuda.empty_cache()
+        if a.time and N == 160000:
+            for kernel, (_, run) in runs.items():
+                out['%s ms' % kernel] = ms(lambda: run(xh))
+        del xh, xb
+        torch.cuda.empty_cache()
+    print(json.dumps(out, indent=1))
+
+
+if __name__ == '__main__':
+    main()

@@ -15,7 +15,11 @@ headline: the bench's 293-row log-piecewise plan and its ssq_freqs),
 8 with 'abs' squeezing), `ssqueeze_dwx` (`ssqueeze` of the
 `get_dWx=True` call's Wx and dWx), or `stft_b4`, `ssq_stft_b4`,
 `ssq_stft_hop8_b4`, `ssq_stft_hop8_abs_b4`, `ssq_stft2_b4`,
-`ssq_cwt2_b4` (those calls on the (4, N) batch) —
+`ssq_cwt2_b4` (those calls on the (4, N) batch), `ssq_cwt_padnone`,
+`ssq_cwt_padnone_b4`, `cwt_padnone`, `ssq_cwt2_padnone` (`padtype=None`,
+the same scales, no ssq_freqs: n_up = N on the CWT kernel's mixed engine
+at N = 160000), `cwt_rpadded` (`cwt(rpadded=True)`) or `ssq_cwt_numeric`
+(`ssq_cwt(difftype='numeric', get_w=True)`, the same scales) —
 under `torch.profiler` after warm-up and prints one JSON line: device
 time per kernel name (summed over the profiled calls, divided by the
 call count), the wall time per call, and the device's idle share of
@@ -43,14 +47,19 @@ def main():
                              'ssq_stft_hop8_abs', 'ssqueeze_dwx',
                              'stft_b4', 'ssq_stft_b4', 'ssq_stft_hop8_b4',
                              'ssq_stft_hop8_abs_b4', 'ssq_stft2_b4',
-                             'ssq_cwt2_b4'))
+                             'ssq_cwt2_b4', 'ssq_cwt_padnone',
+                             'ssq_cwt_padnone_b4', 'cwt_padnone',
+                             'cwt_rpadded', 'ssq_cwt_numeric',
+                             'ssq_cwt2_padnone'))
     ap.add_argument('--n', type=int, default=160000)
     ap.add_argument('--calls', type=int, default=5)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    os.environ.setdefault('SSQ_TPU_TORCH_CACHE',
+                          os.path.join(root, 'build', 'plan_cache'))
     import ssqueezepy_tpu_torch as stq
     from ssqueezepy_tpu_torch.models.ssqueezing import \
         _compute_associated_frequencies
@@ -91,7 +100,19 @@ def main():
         'ssq_stft_hop8_abs_b4': lambda: stq.ssq_stft(
             xb, n_fft=598, hop_len=8, squeezing='abs'),
         'ssq_stft2_b4': lambda: stq.ssq_stft2(xb, n_fft=598),
-        'ssq_cwt2_b4': lambda: stq.ssq_cwt2(xb, spec, scales=scales)
+        'ssq_cwt2_b4': lambda: stq.ssq_cwt2(xb, spec, scales=scales),
+        'ssq_cwt_padnone': lambda: stq.ssq_cwt(x, wavelet=spec, scales=scales,
+                                               padtype=None),
+        'ssq_cwt_padnone_b4': lambda: stq.ssq_cwt(
+            xb, wavelet=spec, scales=scales, padtype=None),
+        'cwt_padnone': lambda: stq.cwt(x, wavelet=spec, scales=scales,
+                                       padtype=None),
+        'cwt_rpadded': lambda: stq.cwt(x, wavelet=spec, scales=scales,
+                                       rpadded=True),
+        'ssq_cwt_numeric': lambda: stq.ssq_cwt(
+            x, wavelet=spec, scales=scales, difftype='numeric', get_w=True),
+        'ssq_cwt2_padnone': lambda: stq.ssq_cwt2(x, spec, scales=scales,
+                                                 padtype=None),
     }[a.transform]
     for _ in range(3):
         call()

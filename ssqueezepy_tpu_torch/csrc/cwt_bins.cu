@@ -95,10 +95,29 @@
 //     partner column lies beyond the half spectrum), so at L = 512 stage 1
 //     runs 4 passes and stage 2 5. Each butterfly is a radix-2 DIT
 //     butterfly with a table twiddle, in the same order in every mode.
+//
+// Two engines, a compile-time parameter of both launches beside the
+// planes or the mode (ops/cwt_cuda.py::bins_plan picks one per n_up):
+//   * ENG_RADIX4, for a power-of-two n_up: the in-place radix-4 passes
+//     above, in bit-reversed order, with L/2 twiddles;
+//   * ENG_MIXED, for any other n_up >= 4 whose prime factors are at most
+//     7 (the split f1 * f2 whose larger factor is smallest): the Stockham
+//     passes of dft_mixed.cuh (radix 4, 2, 3, 5, 7, natural order in and
+//     out) between two buffers of NP * P sequences, with L twiddles. Each
+//     launch first gathers its NP planes into shared memory (stage 1
+//     forms every spectrum column m1, zero from the half spectrum on;
+//     stage 2 reads the scratch), the column p fastest and positions
+//     walked through swz over the power of two in L (none for an odd L).
+//     The columns per block need not divide the partner factor: the grid
+//     rounds up, a column beyond it runs the passes on zeros, and its
+//     outputs are not written.
+// Both engines share the spectra, the four-step twiddle and the stage-2
+// epilogues, so each keeps Wx bit-identical across the modes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bins.cuh"
+#include "dft_mixed.cuh"
 
 namespace {
 
@@ -128,6 +147,10 @@ __host__ __device__ constexpr int planes_of(int mode) {
   return mode == MODE_W ? 1 : mode == MODE_BINS2 ? 5 : 2;
 }
 
+// DFT engines (ops/cwt_cuda.py _ENGINE_*): radix 4 in place, for a
+// power-of-two n_up; mixed radix (dft_mixed.cuh) between two buffers.
+enum { ENG_RADIX4 = 0, ENG_MIXED = 1 };
+
 __host__ __device__ constexpr int clog2(int v) {
   return v > 1 ? 1 + clog2(v >> 1) : 0;
 }
@@ -143,6 +166,7 @@ struct Cfg {
   BinMap bm;
   // sequence strides and swizzle widths of the two stages
   int S1, S2, sw1, sw2;
+  int engine;
 };
 
 // GMW (order 0) in log space: amp * exp(logconst + beta ln w - w^gamma)
@@ -319,62 +343,88 @@ __device__ __forceinline__ void spectra(const typename Cplx<T>::type* xh,
 }
 
 // Stage 1: the NP spectra of P1 columns m2, the length-f1 DFT over m1,
-// the four-step twiddle, NP scratch planes. The first DFT level pairs
-// position 2u (column m1 = bitrev(2u) < L/2) with 2u + 1 (m1 + L/2, whose
-// spectra are zero except at the Nyquist column), with twiddle tw[0] = 1:
-// a thread forms both columns and runs that butterfly in registers, and
-// the passes start at level 2.
-template <typename T, int NP>
+// the four-step twiddle, NP scratch planes. Radix-4 engine: the first DFT
+// level pairs position 2u (column m1 = bitrev(2u) < L/2) with 2u + 1
+// (m1 + L/2, whose spectra are zero except at the Nyquist column), with
+// twiddle tw[0] = 1: a thread forms both columns and runs that butterfly
+// in registers, and the passes start at level 2. Mixed engine: every
+// column m1 is formed and gathered in natural order, then the passes.
+template <typename T, int NP, int ENG>
 __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
                             const T* __restrict__ scales, Cfg c,
                             typename Cplx<T>::type* __restrict__ scratch) {
   typedef typename Cplx<T>::type CT;
   extern __shared__ unsigned char smem_raw[];
   CT* tw = reinterpret_cast<CT*>(smem_raw);
-  CT* buf = tw + (c.f1 >> 1);             // sequence plane * P + p at s * S
   const int L = c.f1, P = c.P1, S = c.S1, lgP = ilog2(c.P1);
   const int a = blockIdx.y;               // row within this chunk
   const int g = c.row0 + a;               // global row b * na + scale
   const int m2_0 = blockIdx.x * P;
-  fill_twiddles<T>(tw, L);
 
   xh += (size_t)(g / c.na) * c.half;
   const T scale = scales[g % c.na];
   const T norm = c.l1_norm ? (T)1 : sqrt_t(scale);
-  CT one;                                   // tw[0] = sincospi(0), exactly
-  one.x = (T)1;
-  one.y = (T)0;
-  for (int e = threadIdx.x; e < P * (L >> 1); e += blockDim.x) {
-    const int p = e & (P - 1);
-    const int i = 2 * swz(e >> lgP, c.sw1 - 1);  // pair (i, i + 1)
-    const long m = (long)bitrev(i, c.lg1) * c.f2 + m2_0 + p;
-    CT X0[NP], X1[NP];
-    spectra<T, NP>(xh, m, scale, norm, c, X0);
-    spectra<T, NP>(xh, m + (long)(L >> 1) * c.f2, scale, norm, c, X1);
+  const CT* res;                          // sequence plane * P + p at s * S
+  if constexpr (ENG == ENG_RADIX4) {
+    CT* buf = tw + (L >> 1);
+    fill_twiddles<T>(tw, L);
+    CT one;                                 // tw[0] = sincospi(0), exactly
+    one.x = (T)1;
+    one.y = (T)0;
+    for (int e = threadIdx.x; e < P * (L >> 1); e += blockDim.x) {
+      const int p = e & (P - 1);
+      const int i = 2 * swz(e >> lgP, c.sw1 - 1);  // pair (i, i + 1)
+      const long m = (long)bitrev(i, c.lg1) * c.f2 + m2_0 + p;
+      CT X0[NP], X1[NP];
+      spectra<T, NP>(xh, m, scale, norm, c, X0);
+      spectra<T, NP>(xh, m + (long)(L >> 1) * c.f2, scale, norm, c, X1);
 #pragma unroll
-    for (int q = 0; q < NP; ++q) bfly<T>(X0[q], X1[q], one);
+      for (int q = 0; q < NP; ++q) bfly<T>(X0[q], X1[q], one);
 #pragma unroll
-    for (int q = 0; q < NP; ++q) {
-      buf[(q * P + p) * S + i] = X0[q];
-      buf[(q * P + p) * S + i + 1] = X1[q];
+      for (int q = 0; q < NP; ++q) {
+        buf[(q * P + p) * S + i] = X0[q];
+        buf[(q * P + p) * S + i + 1] = X1[q];
+      }
     }
+    __syncthreads();
+    block_fft4<T, NP>(buf, lgP, S, L, c.lg1, 2, tw);
+    res = buf;
+  } else {
+    CT* bufa = tw + L;
+    CT* bufb = bufa + NP * P * S;
+    dft::fill_twiddles<T>(tw, L);
+    for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
+      const int p = e & (P - 1);
+      const int m1 = swz(e >> lgP, c.sw1);
+      CT X[NP];
+      if (m2_0 + p < c.f2) {
+        spectra<T, NP>(xh, (long)m1 * c.f2 + m2_0 + p, scale, norm, c, X);
+      } else {                              // beyond the last column
+#pragma unroll
+        for (int q = 0; q < NP; ++q) X[q].x = X[q].y = (T)0;
+      }
+#pragma unroll
+      for (int q = 0; q < NP; ++q) bufb[(q * P + p) * S + m1] = X[q];
+    }
+    __syncthreads();
+    res = dft::transform<T, NP, true>(dft::SmemSeq<CT>{bufb, S}, bufa,
+                                      bufb, lgP, S, L, tw);
   }
-  __syncthreads();
-  block_fft4<T, NP>(buf, lgP, S, L, c.lg1, 2, tw);
 
   const T inv_n = (T)1 / (T)c.n_up;
   const size_t plane = (size_t)c.rows * c.n_up;
   for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
-    const int k1 = e & (L - 1);
-    const int p = e >> c.lg1;
+    const int k1 = ENG == ENG_RADIX4 ? e & (L - 1) : e % L;
+    const int p = ENG == ENG_RADIX4 ? e >> c.lg1 : e / L;
     const int m2 = m2_0 + p;
+    if (ENG == ENG_MIXED && m2 >= c.f2) continue;
     // m2 * k1 < f2 * f1 = n_up: the twiddle's argument is exact
     T s, co;
     sincospi_t((T)((double)(2 * (long)m2 * k1) / c.n_up), &s, &co);
     const size_t o = ((size_t)a * c.f2 + m2) * c.f1 + k1;
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
-      const CT v = buf[(q * P + p) * S + k1];
+      const CT v = res[(q * P + p) * S + k1];
       CT y;
       y.x = (v.x * co - v.y * s) * inv_n;
       y.y = (v.x * s + v.y * co) * inv_n;
@@ -386,7 +436,7 @@ __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
 // Stage 2: the length-f2 DFT over m2 of the mode's planes, then its
 // epilogue on the kept k2: Wx and k (bins), Wx (Wx only), Wx and dWx
 // (derivative), W and k of the order-2 estimate.
-template <typename T, int MODE>
+template <typename T, int MODE, int ENG>
 __global__ void bins_stage2(const typename Cplx<T>::type* __restrict__ scratch,
                             Cfg c, typename Cplx<T>::type* __restrict__ wx,
                             void* __restrict__ out2) {
@@ -394,23 +444,48 @@ __global__ void bins_stage2(const typename Cplx<T>::type* __restrict__ scratch,
   constexpr int NP = planes_of(MODE);
   extern __shared__ unsigned char smem_raw[];
   CT* tw = reinterpret_cast<CT*>(smem_raw);
-  CT* buf = tw + (c.f2 >> 1);             // sequence plane * P + p at s * S
   const int L = c.f2, P = c.P2, S = c.S2, lgP = ilog2(c.P2);
   const int a = blockIdx.y;
   const int k1_0 = blockIdx.x * P;
-  fill_twiddles<T>(tw, L);
 
   const size_t plane = (size_t)c.rows * c.n_up;
-  for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
-    const int p = e & (P - 1);
-    const int i = swz(e >> lgP, c.sw2);   // position, bit-reversed order
-    const size_t o = ((size_t)a * c.f2 + bitrev(i, c.lg2)) * c.f1 + k1_0 + p;
+  const CT* buf;                          // sequence plane * P + p at s * S
+  if constexpr (ENG == ENG_RADIX4) {
+    CT* b = tw + (L >> 1);
+    fill_twiddles<T>(tw, L);
+    for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
+      const int p = e & (P - 1);
+      const int i = swz(e >> lgP, c.sw2);   // position, bit-reversed order
+      const size_t o =
+          ((size_t)a * c.f2 + bitrev(i, c.lg2)) * c.f1 + k1_0 + p;
 #pragma unroll
-    for (int q = 0; q < NP; ++q)
-      buf[(q * P + p) * S + i] = scratch[q * plane + o];
+      for (int q = 0; q < NP; ++q)
+        b[(q * P + p) * S + i] = scratch[q * plane + o];
+    }
+    __syncthreads();
+    block_fft4<T, NP>(b, lgP, S, L, c.lg2, 1, tw);
+    buf = b;
+  } else {
+    CT* bufa = tw + L;
+    CT* bufb = bufa + NP * P * S;
+    dft::fill_twiddles<T>(tw, L);
+    for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
+      const int p = e & (P - 1);
+      const int m2 = swz(e >> lgP, c.sw2);  // position, natural order
+      const bool in = k1_0 + p < c.f1;      // not beyond the last column
+      const size_t o = ((size_t)a * c.f2 + m2) * c.f1 + k1_0 + p;
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        CT v;
+        v.x = v.y = (T)0;
+        if (in) v = scratch[q * plane + o];
+        bufb[(q * P + p) * S + m2] = v;
+      }
+    }
+    __syncthreads();
+    buf = dft::transform<T, NP, true>(dft::SmemSeq<CT>{bufb, S}, bufa,
+                                      bufb, lgP, S, L, tw);
   }
-  __syncthreads();
-  block_fft4<T, NP>(buf, lgP, S, L, c.lg2, 1, tw);
 
   const int k2lo = c.n1 / c.f1;
   const int k2hi = (c.n1 + c.N + c.f1 - 1) / c.f1;
@@ -423,6 +498,7 @@ __global__ void bins_stage2(const typename Cplx<T>::type* __restrict__ scratch,
     const int k2 = k2lo + swz(e >> lgP, c.sw2);
     const int j = k1_0 + p + c.f1 * k2 - c.n1;
     if (k2 >= k2hi || j < 0 || j >= c.N) continue;
+    if (ENG == ENG_MIXED && k1_0 + p >= c.f1) continue;
     const CT W = buf[p * S + k2];
     if constexpr (MODE == MODE_BINS) {
       const CT Dw = buf[(P + p) * S + k2];
@@ -453,42 +529,72 @@ __global__ void bins_stage2(const typename Cplx<T>::type* __restrict__ scratch,
   }
 }
 
-template <typename T, int MODE>
+// Dynamic shared bytes of a stage over a length-L DFT of NP * P
+// sequences S apart (ops/cwt_cuda.py::bins_plan reckons the same): the
+// radix-4 engine's L/2 twiddles and one buffer, the mixed engine's L
+// twiddles and two.
+template <typename T, int ENG>
+size_t smem_bytes(int L, int np, int P, int S) {
+  typedef typename Cplx<T>::type CT;
+  return (ENG == ENG_RADIX4 ? (size_t)(L / 2 + np * P * S)
+                            : (size_t)(L + 2 * np * P * S)) * sizeof(CT);
+}
+
+template <typename T, int MODE, int ENG>
 int launch_mode(const void* xh, const void* scales, const Cfg& c,
                 void* scratch, void* wx, void* out2, cudaStream_t st) {
   typedef typename Cplx<T>::type CT;
   constexpr int NP = planes_of(MODE);
-  const size_t sm1 = (size_t)(c.f1 / 2 + NP * c.P1 * c.S1) * sizeof(CT);
-  const size_t sm2 = (size_t)(c.f2 / 2 + NP * c.P2 * c.S2) * sizeof(CT);
-  cudaFuncSetAttribute(bins_stage1<T, NP>,
+  const size_t sm1 = smem_bytes<T, ENG>(c.f1, NP, c.P1, c.S1);
+  const size_t sm2 = smem_bytes<T, ENG>(c.f2, NP, c.P2, c.S2);
+  cudaFuncSetAttribute(bins_stage1<T, NP, ENG>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
-  cudaFuncSetAttribute(bins_stage2<T, MODE>,
+  cudaFuncSetAttribute(bins_stage2<T, MODE, ENG>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm2);
-  dim3 g1(c.f2 / c.P1, c.rows), g2(c.f1 / c.P2, c.rows);
-  bins_stage1<T, NP><<<g1, 256, sm1, st>>>(static_cast<const CT*>(xh),
-                                           static_cast<const T*>(scales), c,
-                                           static_cast<CT*>(scratch));
+  // the last block's columns may run past the partner factor (mixed)
+  dim3 g1((c.f2 + c.P1 - 1) / c.P1, c.rows);
+  dim3 g2((c.f1 + c.P2 - 1) / c.P2, c.rows);
+  bins_stage1<T, NP, ENG><<<g1, 256, sm1, st>>>(
+      static_cast<const CT*>(xh), static_cast<const T*>(scales), c,
+      static_cast<CT*>(scratch));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bins_stage2<T, MODE><<<g2, 256, sm2, st>>>(
+  bins_stage2<T, MODE, ENG><<<g2, 256, sm2, st>>>(
       static_cast<const CT*>(scratch), c, static_cast<CT*>(wx), out2);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int ENG>
+int launch_engine(const void* xh, const void* scales, const Cfg& c,
+                  void* scratch, void* wx, void* out2, cudaStream_t st) {
+  switch (c.out_mode) {
+    case MODE_BINS:
+      return launch_mode<T, MODE_BINS, ENG>(xh, scales, c, scratch, wx,
+                                            out2, st);
+    case MODE_W:
+      return launch_mode<T, MODE_W, ENG>(xh, scales, c, scratch, wx, out2,
+                                         st);
+    case MODE_W_DW:
+      return launch_mode<T, MODE_W_DW, ENG>(xh, scales, c, scratch, wx,
+                                            out2, st);
+    case MODE_BINS2:
+      return launch_mode<T, MODE_BINS2, ENG>(xh, scales, c, scratch, wx,
+                                             out2, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int launch(const void* xh, const void* scales, const Cfg& c, void* scratch,
            void* wx, void* out2, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (c.out_mode) {
-    case MODE_BINS:
-      return launch_mode<T, MODE_BINS>(xh, scales, c, scratch, wx, out2, st);
-    case MODE_W:
-      return launch_mode<T, MODE_W>(xh, scales, c, scratch, wx, out2, st);
-    case MODE_W_DW:
-      return launch_mode<T, MODE_W_DW>(xh, scales, c, scratch, wx, out2, st);
-    case MODE_BINS2:
-      return launch_mode<T, MODE_BINS2>(xh, scales, c, scratch, wx, out2,
-                                        st);
+  switch (c.engine) {
+    case ENG_RADIX4:
+      return launch_engine<T, ENG_RADIX4>(xh, scales, c, scratch, wx, out2,
+                                          st);
+    case ENG_MIXED:
+      return launch_engine<T, ENG_MIXED>(xh, scales, c, scratch, wx, out2,
+                                         st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -501,6 +607,7 @@ Cfg make_cfg(const int* ip, const double* dp) {
   c.bm.idx1 = ip[14]; c.bm.omax = ip[15]; c.bm.flipud = ip[16];
   c.out_mode = ip[17]; c.na = ip[18];
   c.S1 = ip[19]; c.S2 = ip[20]; c.sw1 = ip[21]; c.sw2 = ip[22];
+  c.engine = ip[23];
   c.xi_step = dp[0]; c.inv_dt = dp[1]; c.gamma_gate = dp[2];
   c.logconst = dp[3]; c.amp = dp[4]; c.wgamma = dp[5]; c.beta = dp[6];
   c.wc = dp[7]; c.bm.a0 = dp[8]; c.bm.d0 = dp[9]; c.bm.a1 = dp[10];
@@ -511,7 +618,7 @@ Cfg make_cfg(const int* ip, const double* dp) {
 
 }  // namespace
 
-// ip: 23 ints, dp: 14 doubles (layout in ops/cwt_cuda.py). `out2` is k
+// ip: 24 ints, dp: 14 doubles (layout in ops/cwt_cuda.py). `out2` is k
 // (out_mode 0 or 3), dWx (2) or null (1); out_mode in ip says which. Returns
 // cudaGetLastError() after the launches.
 extern "C" int cwt_bins_f32(const void* xh, const void* scales, const int* ip,

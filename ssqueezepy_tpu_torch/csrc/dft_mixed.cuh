@@ -1,5 +1,6 @@
-// Mixed-radix (4, 2, 3, 5) DFT passes in shared memory, laid out against
-// bank conflicts: the engine of the STFT table kernel (stft_conv.cu).
+// Mixed-radix (4, 2, 3, 5, 7) DFT passes in shared memory, laid out
+// against bank conflicts: the engine of the STFT table kernel
+// (stft_conv.cu) and of the CWT kernel's mixed path (cwt_bins.cu).
 //
 // Layout: position i of sequence s at buf[s * S + i], with the sequence
 // stride S = L | 1 odd (ops/cwt_cuda.py::smem_index, same form), so the
@@ -8,14 +9,18 @@
 //
 // Passes: Stockham autosort, natural order in and out, ping-ponging
 // between two buffers, radix 4 while 4 divides what is left of L, then
-// 2, 3, 5 (ops/stft_cuda.py::radices). Butterfly b of a pass runs on
-// sequence q = b mod nseq (the sequence fastest) at index j = b div nseq,
+// 2, 3, 5 and, where the caller asks for it (`transform<T, NP, true>`,
+// the CWT kernel's mixed path), 7 (ops/stft_cuda.py::radices). The STFT
+// kernel's lengths have no factor 7, and without radix 7 its passes
+// compile as they did before radix 7 came (with it, their registers grow
+// and stft_stage1<float, 2> spills). Butterfly b of a pass runs
+// on sequence q = b mod nseq (the sequence fastest) at index j = b div nseq,
 // so a half-warp reads and writes q * S + const over 16 sequences (16
 // distinct bank pairs when nseq >= 16) and reads one twiddle (a
 // broadcast). Each butterfly is the textbook Stockham one: inputs
 // src[j + r L/R] times tw[r (j mod Ns) L / (Ns R)], outputs at
 // dst[(j - j mod Ns) R + j mod Ns + k Ns], with the table
-// tw[t] = e^{+2 pi i t / L}; radix 3 and 5 sum over the table twiddles
+// tw[t] = e^{+2 pi i t / L}; radix 3, 5 and 7 sum over the table twiddles
 // tw[((r k) mod R) L / R], which a thread loads once per pass.
 #pragma once
 #include <cuda_runtime.h>
@@ -110,8 +115,8 @@ __device__ __forceinline__ void stockham_pass(Src src,
   const int nseq = NP << lgP;
   const int LR = L / R;
   const int tstep = L / (Ns * R);
-  CT wt[R];                                // radix 3, 5: tw[t * L/R]
-  if constexpr (R == 3 || R == 5) {
+  CT wt[R];                                // radix 3, 5, 7: tw[t * L/R]
+  if constexpr (R == 3 || R == 5 || R == 7) {
 #pragma unroll
     for (int t = 0; t < R; ++t) wt[t] = tw[t * LR];
   }
@@ -162,9 +167,9 @@ __device__ __forceinline__ void stockham_pass(Src src,
 // as first(q, i) by the first pass (which the caller's loads feed
 // directly, so the input never passes through shared memory), then
 // ping-ponging between a and b at a[q * S + i]; returns the buffer
-// holding the result. The caller has filled `tw` and synchronized; ends
-// with __syncthreads().
-template <typename T, int NP, typename Src>
+// holding the result. L's prime factors are 2, 3, 5, and 7 with R7. The
+// caller has filled `tw` and synchronized; ends with __syncthreads().
+template <typename T, int NP, bool R7 = false, typename Src>
 __device__ typename Cplx<T>::type* transform(Src first,
                                              typename Cplx<T>::type* a,
                                              typename Cplx<T>::type* b,
@@ -187,15 +192,24 @@ __device__ typename Cplx<T>::type* transform(Src first,
       R = 2;
     } else if (rem % 3 == 0) {
       R = 3;
-    } else {
+    } else if (!R7 || rem % 5 == 0) {
       R = 5;
+    } else {
+      R = 7;
     }
     if (head) {
       switch (R) {
         case 4: stockham_pass<T, NP, 4>(first, a, lgP, S, L, Ns, tw); break;
         case 2: stockham_pass<T, NP, 2>(first, a, lgP, S, L, Ns, tw); break;
         case 3: stockham_pass<T, NP, 3>(first, a, lgP, S, L, Ns, tw); break;
-        default: stockham_pass<T, NP, 5>(first, a, lgP, S, L, Ns, tw);
+        default:
+          if constexpr (R7) {
+            if (R == 7) {
+              stockham_pass<T, NP, 7>(first, a, lgP, S, L, Ns, tw);
+              break;
+            }
+          }
+          stockham_pass<T, NP, 5>(first, a, lgP, S, L, Ns, tw);
       }
       head = false;
     } else {
@@ -204,7 +218,14 @@ __device__ typename Cplx<T>::type* transform(Src first,
         case 4: stockham_pass<T, NP, 4>(src, a, lgP, S, L, Ns, tw); break;
         case 2: stockham_pass<T, NP, 2>(src, a, lgP, S, L, Ns, tw); break;
         case 3: stockham_pass<T, NP, 3>(src, a, lgP, S, L, Ns, tw); break;
-        default: stockham_pass<T, NP, 5>(src, a, lgP, S, L, Ns, tw);
+        default:
+          if constexpr (R7) {
+            if (R == 7) {
+              stockham_pass<T, NP, 7>(src, a, lgP, S, L, Ns, tw);
+              break;
+            }
+          }
+          stockham_pass<T, NP, 5>(src, a, lgP, S, L, Ns, tw);
       }
     }
     CT* t = a;                             // the result is now in `b`

@@ -5,15 +5,18 @@ Counterpart of `ssqueezepy_tpu/models/cwt.py` for GMW wavelets (order
 0): wavelet resolution, the analytic half-spectrum FFT convolution
 `cwt_core` (the plain PyTorch version of the kernels in
 `ops/cwt_cuda.py`), the public `cwt` for 1-D and batched 2-D input, and
-`icwt` (one- and two-integral). On a CUDA device `cwt` runs pad ->
-`torch.fft.rfft` -> the fused CWT kernel (`cwt_fused`); with
-``device='cpu'`` its plain version runs.
+`icwt` (one- and two-integral). On a CUDA device `cwt` runs pad (none
+with `padtype=None`) -> `torch.fft.rfft` -> the fused CWT kernel
+(`cwt_fused`); with ``device='cpu'`` its plain version runs. The kernel
+takes a padded length n_up whose prime factors are at most 7
+(`ops/cwt_cuda.py::four_step`): any N when padded (n_up is a power of
+two), such N with `padtype=None` (n_up = N); another N raises there.
 """
 import numpy as np
 import torch
 
 from ..configs import device_dtype
-from ..ops.cwt_cuda import cwt_fused
+from ..ops.cwt_cuda import cwt_fused, four_step
 from ..ops.fft import ifft, rfft
 from ..ops.pad import padsignal, pad_params, _MODE_MAP
 from ..utils.common import not_ported, resolve_device
@@ -21,7 +24,7 @@ from ..utils.cwt_utils import (process_scales, logscale_transition_idx,
                                adm_ssq, adm_cwt, _process_fs_and_t)
 from .wavelets import Wavelet, _xifn
 
-__all__ = ['cwt', 'icwt', 'cwt_core', 'resolve_wavelet']
+__all__ = ['cwt', 'icwt', 'cwt_core', 'resolve_wavelet', 'cwt_spectrum']
 
 
 def _is_analytic(wavelet):
@@ -119,6 +122,22 @@ def cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative, l1_norm):
     return Wx, dWx
 
 
+def cwt_spectrum(xt, padtype):
+    """(xh, n_up, n1): the half spectrum (B?, n_up//2 + 1) of the real
+    signal or batch `xt` padded by `padtype` to n_up (`pad_params`, left
+    pad n1), or with `padtype=None` of `xt` itself (n_up = N, n1 = 0), as
+    the JAX package's CWT entry points take it. n_up is checked against
+    the CWT kernel's length rule before anything runs on the device."""
+    N = xt.shape[-1]
+    if padtype is None:
+        n_up, n1 = N, 0
+    else:
+        n_up, n1, _ = pad_params(N, padtype)
+    four_step(n_up)
+    xp = xt if padtype is None else padsignal(xt, padtype)
+    return rfft(xp).contiguous(), n_up, n1
+
+
 _SCALES_CACHE = {}
 
 
@@ -156,6 +175,9 @@ def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
 
     Returns (Wx, scales[, dWx]): Wx (na, N) or (B, na, N) complex
     tensors on `device` (numpy with `astensor=False`), scales (na,).
+    `padtype=None` transforms the signal unpadded (n_up = N; on a CUDA
+    device N's prime factors must be at most 7); `rpadded=True` returns
+    the whole padded transform, (na, n_up) or (B, na, n_up).
     `l1_norm=False` uses the L2 ('energy') GMW and multiplies rows by
     sqrt(scale); `vectorized=False` runs the scales in chunks of 64 rows.
     `cache_wavelet`, `nan_checks` and `patience` are accepted for
@@ -163,10 +185,6 @@ def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
     device = resolve_device(device)
     if isinstance(order, (tuple, list, range)) or order > 0:
         not_ported("cwt with order > 0 (cwt_higher_order)", 'A2b')
-    if rpadded:
-        not_ported("cwt(rpadded=True)", 'A4b')
-    if padtype is None:
-        not_ported("cwt with padtype=None", 'A4b')
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
     if x.ndim not in (1, 2):
@@ -179,11 +197,12 @@ def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
         not_ported("cwt with a non-analytic wavelet", 'A2b')
     dtype = getattr(torch, device_dtype(wavelet.dtype))
     scales_np, sc = _cached_scales(scales, N, wavelet, nv, dtype, device)
-    n_up, n1, _ = pad_params(N, padtype)
 
     xt = torch.as_tensor(x, dtype=dtype, device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
-    xh = rfft(padsignal(xt, padtype)).contiguous()
+    xh, n_up, n1 = cwt_spectrum(xt, padtype)
+    if rpadded:                        # the whole padded transform
+        n1, N = 0, n_up
     if vectorized:
         Wx, dWx = cwt_fused(xh, sc, wavelet, n_up, n1, N, dt, derivative,
                             l1_norm)

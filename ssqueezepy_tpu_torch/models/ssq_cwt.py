@@ -19,7 +19,18 @@ FFT (torch.fft) and one of three routes:
     (`ops/phase.py::phase_cwt`, 'trig' or 'phase') -> `_apply_squeezing`
     -> the generic scatter (`ops/ssq_kernels.py::indexed_sum_onfly`), as
     the JAX package's compositional route runs; w is returned with
-    `get_w`.
+    `get_w`. With `difftype='numeric'` (which needs `get_w`) `cwt_fused`
+    returns the whole padded planes, and the route runs as the JAX
+    package's does: `phase_cwt_num` on Wx's columns [n1 - 4, n1 + N + 4)
+    (n1 the left pad of `p2up(N)`, whatever `padtype`), the scatter over
+    those columns, then Tx, Wx and w trimmed by 4 each side; dWx is
+    returned padded.
+
+`padtype=None` transforms the signal unpadded (n_up = N) on each route;
+on a CUDA device N's prime factors must then be at most 7
+(`ops/cwt_cuda.py::four_step`). The JAX package takes its XLA CWT and
+`ssqueeze_fast` there; its Tx agrees with this one by the bins criterion
+and its Wx to 2e-5 of max (float32) or 1e-9 (float64).
 
 On a CUDA device the kernels are the hand-written CUDA ones; with
 ``device='cpu'`` their plain PyTorch versions run. The TPU's natural-bin
@@ -33,16 +44,15 @@ import torch
 
 from ..configs import device_dtype
 from ..ops.cwt_cuda import cwt_bins, cwt_fused
-from ..ops.fft import rfft
-from ..ops.pad import padsignal, pad_params
-from ..ops.phase import phase_cwt
+from ..ops.phase import phase_cwt, phase_cwt_num
 from ..ops.ssq_cuda import scatter_kv, ssq_fused
 from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
-from ..utils.common import (EPS32, EPS64, check_batch, not_ported,
+from ..utils.common import (EPS32, EPS64, check_batch, not_ported, p2up,
                             resolve_device)
 from ..utils.cwt_utils import (process_scales, adm_ssq, _process_fs_and_t,
                                infer_scaletype, nv_from_scales)
-from .cwt import resolve_wavelet, _wavelet_key
+from ..utils.plan_cache import disk_memo
+from .cwt import cwt_spectrum, resolve_wavelet, _wavelet_key
 from .wavelets import Wavelet
 from .ssqueezing import (_apply_squeezing, _check_ssqueezing_args,
                          _compute_associated_frequencies)
@@ -71,7 +81,9 @@ def _spec_key(spec):
 def _ssq_cwt_plan(wavelet, N, scales, nv, ssq_freqs, maprange, was_padded,
                   dt):
     """Host `Plan`, memoized for string AND array specs (the scale-bound
-    searches and center-frequency integrals cost ~100 ms+ per call).
+    searches and center-frequency integrals cost ~100 ms+ per call); a
+    plan from string specs is also kept on disk from one process to the
+    next (`utils/plan_cache.py`, as the JAX package keeps its own).
     Returns (plan, key); key is None when the spec is not cacheable."""
     skey, fkey = _spec_key(scales), _spec_key(ssq_freqs)
     key = None
@@ -82,8 +94,16 @@ def _ssq_cwt_plan(wavelet, N, scales, nv, ssq_freqs, maprange, was_padded,
         hit = _PLAN_CACHE.get(key)
         if hit is not None:
             return hit, key
-    out = _build_ssq_cwt_plan(wavelet, N, scales, nv, ssq_freqs, maprange,
-                              was_padded, dt)
+
+    def build():
+        return _build_ssq_cwt_plan(wavelet, N, scales, nv, ssq_freqs,
+                                   maprange, was_padded, dt)
+    if key is not None and isinstance(scales, str) and (
+            ssq_freqs is None or isinstance(ssq_freqs, str)):
+        out = Plan(*disk_memo(('ssqueezepy_tpu_torch.ssq_cwt_plan',) + key,
+                              build))
+    else:
+        out = build()
     if key is not None:
         _PLAN_CACHE[key] = out
     return out, key
@@ -141,15 +161,11 @@ def _device_plan(key, scales_np, const, dtype, device):
     return out
 
 
-def _check_slice(x, padtype, order, get_w, difftype):
+def _check_slice(x, order, get_w):
     """Calls outside the ported slice raise, naming their ROADMAP item."""
     check_batch(x.ndim, get_w)
     if isinstance(order, (tuple, list, range)) or order > 0:
-        not_ported("ssq_cwt with order > 0", 'A6b')
-    if difftype == 'numeric':
-        not_ported("difftype='numeric'", 'A6b')
-    if padtype is None:
-        not_ported("padtype=None", 'A6b')
+        not_ported("ssq_cwt with order > 0", 'A2b')
 
 
 def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
@@ -167,16 +183,19 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     a batch (numpy with `astensor=False`; Wx is None with `get_Wx=False`),
     ssq_freqs reversed (high to low), scales (na,), the phase transform w
     (na, N) real with `get_w=True` (1-D input; `difftype` 'trig' or
-    'phase'), and dWx like Wx with `get_dWx=True`. `squeezing` is 'sum',
-    'lebesgue', 'abs' or a function of Wx. `scales` and `ssq_freqs` may be
-    strings or numpy arrays.
+    'phase' or 'numeric'), and dWx like Wx with `get_dWx=True` (padded,
+    (na, n_up), with 'numeric', as the JAX package returns it).
+    `squeezing` is 'sum', 'lebesgue', 'abs' or a function of Wx.
+    `scales` and `ssq_freqs` may be strings or numpy arrays. `padtype=None`
+    transforms the signal unpadded.
     """
     device = resolve_device(device)
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
-    _check_ssqueezing_args(squeezing, maprange, wavelet, difftype,
-                           difforder, get_w, transform='cwt')
-    _check_slice(x, padtype, order, get_w, difftype)
+    difforder = _check_ssqueezing_args(squeezing, maprange, wavelet,
+                                       difftype, difforder, get_w,
+                                       transform='cwt')
+    _check_slice(x, order, get_w)
     if nv is None and not isinstance(scales, np.ndarray):
         nv = 32
     N = x.shape[-1]
@@ -192,16 +211,26 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     plan, key = _ssq_cwt_plan(wavelet, N, scales, nv, ssq_freqs, maprange,
                               padtype is not None, dt)
     params = plan.params
-    n_up, n1, _ = pad_params(N, padtype)
     scales_t, const_t = _device_plan(key, plan.scales, plan.const, dtype,
                                      device)
 
     xt = torch.as_tensor(x, dtype=getattr(torch, dtype), device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
-    xh = rfft(padsignal(xt, padtype)).contiguous()
+    xh, n_up, n1 = cwt_spectrum(xt, padtype)
     dWx = w = None
     nbins = params['omax'] + 1
-    if get_w or (get_dWx and squeezing != 'sum'):
+    if difftype == 'numeric':
+        # the whole padded planes, then JAX's window of p2up's left pad
+        Wx, dWx = cwt_fused(xh, scales_t, wavelet, n_up, 0, n_up, dt, True,
+                            True)
+        _, n1p, _ = p2up(N)
+        Wx = Wx[..., n1p - 4:n1p + N + 4]
+        w = phase_cwt_num(Wx, dt, difforder, gamma)
+        Tx = indexed_sum_onfly(_apply_squeezing(Wx, squeezing), w, None,
+                               const_t, params=params, flipud=flipud,
+                               device=device)
+        Tx, Wx, w = (v[..., 4:-4].contiguous() for v in (Tx, Wx, w))
+    elif get_w or (get_dWx and squeezing != 'sum'):
         Wx, dWx = cwt_fused(xh, scales_t, wavelet, n_up, n1, N, dt, True,
                             True)
         w = phase_cwt(Wx, dWx if difftype == 'trig' else None, difftype,

@@ -8,25 +8,24 @@ per cell from five wavelet transforms (W, A = x' * h, B = x * th,
 Bd = x' * th, C = x * t^2 h), solves p2 = (Bd W - A B) / (B^2 - C W),
 p1 = (A + p2 B) / W and reassigns by w2 = |Im p1| / (2 pi dt), exact on
 linear chirps. The plan (scales, ssq frequency grid, squeeze constant,
-bin map) is `ssq_cwt`'s, memoized with it; the signal runs pad -> real
-FFT (torch.fft) -> the WSST2 kernel (`ops/cwt_cuda.py::cwt_bins2`, W and
-the bins of w2) -> `_apply_squeezing` on W -> the reassignment scatter
-(`ops/ssq_cuda.py`). A (B, N) batch runs each kernel once over the
-batch. Inversion is `issq_cwt`: reassignment only moves energy within a
-column.
+bin map) is `ssq_cwt`'s, memoized with it; the signal runs pad (none
+with `padtype=None`, n_up = N, whose prime factors must then be at most 7
+on a CUDA device) -> real FFT (torch.fft) -> the WSST2 kernel
+(`ops/cwt_cuda.py::cwt_bins2`, W and the bins of w2) ->
+`_apply_squeezing` on W -> the reassignment scatter (`ops/ssq_cuda.py`).
+A (B, N) batch runs each kernel once over the batch. Inversion is
+`issq_cwt`: reassignment only moves energy within a column.
 """
 import numpy as np
 import torch
 
 from ..configs import device_dtype
 from ..ops.cwt_cuda import cwt_bins2
-from ..ops.fft import rfft
-from ..ops.pad import padsignal, pad_params
 from ..ops.ssq_cuda import scatter_kv
 from ..utils.common import (EPS32, EPS64, check_batch, not_ported,
                             resolve_device)
 from ..utils.cwt_utils import _process_fs_and_t
-from .cwt import resolve_wavelet, _is_analytic
+from .cwt import cwt_spectrum, resolve_wavelet, _is_analytic
 from .ssq_cwt import _ssq_cwt_plan, _device_plan
 from .ssqueezing import _apply_squeezing, _check_ssqueezing_args
 from .stft import _as_signal
@@ -34,12 +33,10 @@ from .stft import _as_signal
 __all__ = ['ssq_cwt2']
 
 
-def _check_slice(wavelet, padtype, get_w):
+def _check_slice(wavelet, get_w):
     """Calls outside the ported slice raise, naming their ROADMAP item."""
     if get_w:
         not_ported("ssq_cwt2 with get_w=True", 'A8b')
-    if padtype is None:
-        not_ported("ssq_cwt2 with padtype=None", 'A8b')
     if not _is_analytic(wavelet):
         not_ported("ssq_cwt2 with a non-GMW wavelet", 'A2b')
 
@@ -55,7 +52,8 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     and Wx (na, N), with a leading B for a batch, complex tensors on
     `device` (numpy with
     `astensor=False`), ssq_freqs reversed, scales (na,). `squeezing` is
-    'sum', 'lebesgue', 'abs' or a function of W."""
+    'sum', 'lebesgue', 'abs' or a function of W. `padtype=None`
+    transforms the signal unpadded."""
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
     check_batch(x.ndim, get_w)
@@ -64,7 +62,7 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
                            get_w, transform='cwt')
     N = x.shape[-1]
     wavelet = resolve_wavelet(wavelet, l1_norm=True, N=N)
-    _check_slice(wavelet, padtype, get_w)
+    _check_slice(wavelet, get_w)
     if nv is None and not isinstance(scales, np.ndarray):
         nv = 32
     dt, _, _ = _process_fs_and_t(fs, t, N)
@@ -73,13 +71,12 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
         gamma = 10 * (EPS64 if dtype == 'float64' else EPS32)
 
     plan, key = _ssq_cwt_plan(wavelet, N, scales, nv, ssq_freqs, maprange,
-                              True, dt)
+                              padtype is not None, dt)
     params = plan.params
-    n_up, n1, _ = pad_params(N, padtype)
     scales_t, const_t = _device_plan(key, plan.scales, plan.const, dtype,
                                      device)
 
-    xh = rfft(padsignal(_as_signal(x, dtype, device), padtype))
+    xh, n_up, n1 = cwt_spectrum(_as_signal(x, dtype, device), padtype)
     Wx, k = cwt_bins2(xh, scales_t, wavelet, n_up, n1, N, dt, params,
                       float(gamma), flipud)
     Tx = scatter_kv(_apply_squeezing(Wx, squeezing), k, const_t,

@@ -18,20 +18,26 @@ _make_kernel`:
     row bit-identical to its signal run alone; the four auxiliary
     transforms stay inside the kernel.
 
-The inverse DFT is computed in the kernel itself, in one engine for
-every mode (four-step, radix-4 passes in shared memory laid out against
-bank conflicts; `bins_plan` sizes it for the mode's planes); design and
-bound are noted in the source.
+The inverse DFT is computed in the kernel itself, four-step, in shared
+memory laid out against bank conflicts, for every mode: radix-4 passes
+for a power-of-two n_up, the mixed-radix (4, 2, 3, 5, 7) passes of
+`csrc/dft_mixed.cuh` for any other n_up >= 4 whose prime factors are at
+most 7 (`four_step` holds that rule, the only one on the length, and
+raises for any other n_up on every device; `bins_plan` sizes either
+engine for the mode's planes); design and bound are noted in the source.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors. `cwt_bins.launches` and `cwt_bins2.launches`
 (one signal), `cwt_bins.batched_launches` and
 `cwt_bins2.batched_launches` (a batch), and `cwt_fused.launches` count
-calls of the C entry point (one per chunk of rows); each such call
-issues two CUDA launches, stage 1 and stage 2.
+calls of the C entry point on the radix-4 engine (one per chunk of
+rows), and the same names prefixed `mixed_` (`cwt_bins.mixed_launches`,
+...) its calls on the mixed engine; each such call issues two CUDA
+launches, stage 1 and stage 2.
 """
 import collections
 import ctypes
+import functools
 import math
 
 import torch
@@ -49,6 +55,10 @@ _MODES = {'lin': 0, 'log': 1, 'log-piecewise': 2}
 # stage-1 scratch held at once (all planes); rows are chunked beyond it
 _SCRATCH_BUDGET = 2 << 30
 _SMEM_BUDGET = 96 * 1024
+# one column of the mixed engine may take up to this much (the card's
+# limit per block is 227 KB)
+_SMEM_MAX = 220 * 1024
+_ENGINE_RADIX4, _ENGINE_MIXED = 0, 1
 _MAX_GRID_Y = 65535
 _OUT_BINS, _OUT_W, _OUT_W_DW, _OUT_BINS2 = 0, 1, 2, 3
 _PLANES = {_OUT_BINS: 2, _OUT_W: 1, _OUT_W_DW: 2, _OUT_BINS2: 5}
@@ -63,26 +73,56 @@ _WAVEFRONT = 128
 _MAX_COLUMNS = 8
 
 
+@functools.lru_cache(maxsize=256)
 def four_step(n_up):
-    """(f1, f2) with n_up = f1 * f2, both powers of two, f1 >= f2."""
-    lg = int(n_up).bit_length() - 1
-    if n_up < 4 or (1 << lg) != n_up:
+    """(f1, f2) with n_up = f1 * f2, f1 >= f2: for a power of two both
+    powers of two, f1 = 2^ceil(lg n_up / 2) (the radix-4 engine); for any
+    other n_up >= 4 whose prime factors are at most 7, the split whose
+    larger factor is smallest, as `ssqueezepy_tpu/ops/fft.py::_factorize`
+    splits (the mixed engine; 160000 = 400 x 400, 99225 = 315 x 315).
+    Any other length raises: this is the CWT kernel's one length rule."""
+    n_up = int(n_up)
+    r = n_up
+    for p in (2, 3, 5, 7):
+        while r and r % p == 0:
+            r //= p
+    if n_up < 4 or r != 1:
         raise NotImplementedError(
-            "the CUDA CWT kernel takes a power-of-two padded length >= 4 "
-            "(got %d); other lengths wait for ROADMAP.md queue A, A6b"
-            % n_up)
-    f1 = 1 << ((lg + 1) // 2)
+            "the CWT kernel takes a padded length n_up >= 4 whose prime "
+            "factors are at most 7 (got %d); other lengths wait for "
+            "ROADMAP.md queue A, A6b" % n_up)
+    lg = n_up.bit_length() - 1
+    if (1 << lg) == n_up:
+        f1 = 1 << ((lg + 1) // 2)
+    else:
+        f1 = next(d for d in range(math.isqrt(n_up - 1) + 1, n_up + 1)
+                  if n_up % d == 0)
     return f1, n_up // f1
 
 
-def _columns(L, other, itemsize, planes, stride):
-    """Columns per block P: a power of two <= `_MAX_COLUMNS` dividing
-    `other`, halved until the L/2 twiddles and planes * P sequences
-    `stride` elements apart fit the shared-memory budget."""
-    P = min(_MAX_COLUMNS, other)
-    while P > 1 and (L // 2 + planes * P * stride) * itemsize > _SMEM_BUDGET:
+def smem_bytes(engine, L, planes, P, stride, itemsize):
+    """Dynamic shared bytes of one stage (csrc/cwt_bins.cu::smem_bytes):
+    the radix-4 engine's L/2 twiddles and one buffer of planes * P
+    sequences `stride` elements apart, the mixed engine's L twiddles and
+    two such buffers."""
+    if engine == _ENGINE_RADIX4:
+        return (L // 2 + planes * P * stride) * itemsize
+    return (L + 2 * planes * P * stride) * itemsize
+
+
+def _columns(engine, L, other, itemsize, planes, stride):
+    """Columns per block P, a power of two <= `_MAX_COLUMNS`, halved until
+    the stage fits the shared-memory budget. Radix 4: P divides `other`
+    and must fit the budget. Mixed: P starts at the least power of two
+    covering `other` (the kernel guards the last block's columns, so P
+    need not divide it), and one column may take up to `_SMEM_MAX`."""
+    P = min(_MAX_COLUMNS, other if engine == _ENGINE_RADIX4
+            else 1 << (other - 1).bit_length())
+    size = lambda P: smem_bytes(engine, L, planes, P, stride, itemsize)
+    while P > 1 and size(P) > _SMEM_BUDGET:
         P //= 2
-    if (L // 2 + planes * P * stride) * itemsize > _SMEM_BUDGET:
+    limit = _SMEM_BUDGET if engine == _ENGINE_RADIX4 else _SMEM_MAX
+    if size(P) > limit:
         raise NotImplementedError("DFT factor %d exceeds shared memory" % L)
     return P
 
@@ -104,27 +144,32 @@ def smem_index(s, i, S):
 
 
 BinsPlan = collections.namedtuple(
-    'BinsPlan', 'f1 f2 P1 P2 S1 S2 sw1 sw2 smem1 smem2')
+    'BinsPlan', 'f1 f2 P1 P2 S1 S2 sw1 sw2 smem1 smem2 engine')
 
 
+@functools.lru_cache(maxsize=256)
 def bins_plan(n_up, itemsize, planes):
     """Launch plan of the DFT engine for `planes` planes (1: Wx; 2: bins
-    mode or Wx and dWx; 5: order 2): per stage the columns per block P,
-    the sequence stride S = L + 1 (odd, so sequences at one position fall
-    on distinct bank pairs), the swizzle width sw (the low bits reversed
-    when a half-warp walks P columns by positions: log2 of the elements
-    one wavefront serves, at most log2 L) and the dynamic shared bytes."""
+    mode or Wx and dWx; 5: order 2): the engine (radix 4 for a power-of-two
+    n_up, else mixed), per stage the columns per block P (`_columns`), the
+    sequence stride S (L + 1 for an even L, L for an odd one: odd, so
+    sequences at one position fall on distinct bank pairs), the swizzle
+    width sw (the low bits reversed when a half-warp walks P columns by
+    positions: log2 of the elements one wavefront serves, at most the
+    power of two in L, which keeps the walk a bijection on [0, L)) and the
+    dynamic shared bytes."""
     f1, f2 = four_step(n_up)
+    engine = _ENGINE_RADIX4 if n_up & (n_up - 1) == 0 else _ENGINE_MIXED
     wave = (_WAVEFRONT // itemsize).bit_length() - 1
 
     def stage(L, other):
-        S = L + 1
-        P = _columns(L, other, itemsize, planes, S)
-        return (P, S, min(wave, L.bit_length() - 1),
-                (L // 2 + planes * P * S) * itemsize)
+        S = L | 1
+        P = _columns(engine, L, other, itemsize, planes, S)
+        return (P, S, min(wave, (L & -L).bit_length() - 1),
+                smem_bytes(engine, L, planes, P, S, itemsize))
 
     (P1, S1, sw1, sm1), (P2, S2, sw2, sm2) = stage(f1, f2), stage(f2, f1)
-    return BinsPlan(f1, f2, P1, P2, S1, S2, sw1, sw2, sm1, sm2)
+    return BinsPlan(f1, f2, P1, P2, S1, S2, sw1, sw2, sm1, sm2, engine)
 
 
 def _bin_args(params):
@@ -151,6 +196,7 @@ def _check(xh, scales, n_up, n1, N, batched=False):
         raise ValueError("scales must be 1-D (na,)")
     if xh.device != scales.device:
         raise ValueError("xh and scales must be on one device")
+    four_step(n_up)                    # the one length rule, every device
     cdt = {torch.float32: torch.complex64,
            torch.float64: torch.complex128}.get(scales.dtype)
     if cdt is None or xh.dtype != cdt:
@@ -197,8 +243,8 @@ def cwt_bins(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params, gamma,
     return Wx, k
 
 
-cwt_bins.launches = 0
-cwt_bins.batched_launches = 0
+cwt_bins.launches = cwt_bins.mixed_launches = 0
+cwt_bins.batched_launches = cwt_bins.mixed_batched_launches = 0
 
 
 def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
@@ -206,7 +252,8 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
             counter='launches'):
     """Run the two-launch kernel over every row of `Wx` (B * na, N),
     chunking rows to the scratch budget; counts each C call on the
-    wrapper's attribute `counter`."""
+    wrapper's attribute `counter`, prefixed `mixed_` on the mixed
+    engine."""
     kp = getattr(wavelet.fn, 'kernel_params', None)
     if kp is None:
         raise NotImplementedError("the CUDA CWT kernel synthesizes GMW "
@@ -217,6 +264,8 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
     planes = _PLANES[out_mode]
     bp = bins_plan(n_up, itemsize, planes)
     f1, f2 = bp.f1, bp.f2
+    if bp.engine == _ENGINE_MIXED:
+        counter = 'mixed_' + counter
     na = scales.shape[0]
     n_all = Wx.numel() // N
     dev = xh.device
@@ -239,12 +288,13 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
         nr = min(rows, n_all - row0)
         # ip: n_up, f1, f2, lg1, lg2, half, n1, N, P1, P2, rows, row0,
         # l1_norm, bin mode, idx1, omax, flipud, out_mode, na, S1, S2, sw1,
-        # sw2
-        ip = (ctypes.c_int * 23)(
+        # sw2, engine
+        ip = (ctypes.c_int * 24)(
             n_up, f1, f2, f1.bit_length() - 1, f2.bit_length() - 1,
             n_up // 2 + 1, n1, N, bp.P1, bp.P2, nr, row0,
             int(bool(l1_norm)), mode, int(idx1), int(omax),
-            int(bool(flipud)), out_mode, na, bp.S1, bp.S2, bp.sw1, bp.sw2)
+            int(bool(flipud)), out_mode, na, bp.S1, bp.S2, bp.sw1, bp.sw2,
+            bp.engine)
         err = fn(xh.data_ptr(), scales.data_ptr(), ip, dp,
                  scratch.data_ptr(), Wx.data_ptr(),
                  None if out2 is None else out2.data_ptr(), stream)
@@ -282,7 +332,7 @@ def cwt_fused(xh, scales, wavelet, n_up, n1, N, dt, derivative, l1_norm):
     return Wx, dWx
 
 
-cwt_fused.launches = 0
+cwt_fused.launches = cwt_fused.mixed_launches = 0
 
 
 def wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma):
@@ -355,5 +405,5 @@ def cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params, gamma, flipud):
     return W, k
 
 
-cwt_bins2.launches = 0
-cwt_bins2.batched_launches = 0
+cwt_bins2.launches = cwt_bins2.mixed_launches = 0
+cwt_bins2.batched_launches = cwt_bins2.mixed_batched_launches = 0

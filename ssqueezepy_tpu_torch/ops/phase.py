@@ -4,9 +4,11 @@
     w_cwt[a, b]  = |Im(dWx / Wx)| / 2pi           (inf where |Wx|^2 < gamma^2)
     w_stft[k, u] = |Sfs[k] - Im(dSx / Sx) / 2pi|  (inf where |Sx|^2 < gamma^2)
 
-Counterpart of `phase_transform_w`, `phase_cwt` and `phase_stft` in
-`ssqueezepy_tpu/ops/phase.py`, over native complex tensors, on their
-device; and of
+Counterpart of `phase_transform_w`, `phase_cwt`, `phase_cwt_num` and
+`phase_stft` in `ssqueezepy_tpu/ops/phase.py`, over native complex
+tensors, on their device (the JAX package runs `phase_cwt_num` in numpy
+on the host; here it is the same elementwise arithmetic as torch ops);
+and of
 `cdiv2` (`ssqueezepy_tpu/ops/complexlib.py`), the regularized complex
 divide of the second-order estimates.
 """
@@ -16,8 +18,8 @@ import torch
 
 from ..utils.common import EPS32, EPS64
 
-__all__ = ['phase_transform_w', 'phase_cwt', 'phase_stft', 'cmul', 'cdiv',
-           'div_tiny']
+__all__ = ['phase_transform_w', 'phase_cwt', 'phase_cwt_num', 'phase_stft',
+           'cmul', 'cdiv', 'div_tiny']
 
 _TWO_PI = 6.283185307179586
 
@@ -96,6 +98,39 @@ def phase_cwt(Wx, dWx, difftype='trig', gamma=None, parallel=None):
                            torch.full_like(w, float('inf')), w)
     raise ValueError(f"unsupported `difftype` '{difftype}'; must be one of "
                      "'trig', 'phase'.")
+
+
+def phase_cwt_num(Wx, dt, difforder=4, gamma=None):
+    """CWT phase transform by numeric differentiation along time: first
+    (forward), second or fourth order finite differences, wrapping
+    around the row's ends, w = |Im(dWx / Wx)| / 2pi with dWx the
+    difference over `dt`, inf where |Wx| < gamma (default 10 * machine
+    epsilon). `Wx` (na, n) is expected padded by 4 samples each side, as
+    `ssq_cwt(difftype='numeric')` passes it."""
+    if difforder not in (1, 2, 4):
+        raise ValueError("`difforder` must be one of: 1, 2, 4 "
+                         "(got %s)" % difforder)
+    if difforder in (2, 4):
+        Wxr = torch.cat([Wx[..., -2:], Wx, Wx[..., :2]], dim=-1)
+    if difforder == 1:
+        w = torch.cat([Wx[..., 1:] - Wx[..., :-1],
+                       Wx[..., :1] - Wx[..., -1:]], dim=-1)
+        w = w / dt
+    elif difforder == 2:
+        w = -Wxr[..., 4:] + 4 * Wxr[..., 3:-1] - 3 * Wxr[..., 2:-2]
+        w = w / (2 * dt)
+    else:
+        w = -Wxr[..., 4:]
+        w = w + Wxr[..., 3:-1] * 8
+        w = w - Wxr[..., 1:-3] * 8
+        w = w + Wxr[..., 0:-4]
+        w = w / (12 * dt)
+    # zero-magnitude cells divide to inf / nan here; the gate masks them
+    w = (-1j * w / Wx).real / (2 * math.pi)
+    if not gamma:
+        gamma = 10 * (EPS64 if Wx.dtype == torch.complex128 else EPS32)
+    w = torch.where(Wx.abs() < gamma, torch.full_like(w, float('inf')), w)
+    return w.abs()
 
 
 def phase_stft(Sx, dSx, Sfs, gamma=None, parallel=None):

@@ -89,12 +89,12 @@ def split_fft_len(n):
 def radices(L):
     """The passes of the kernel's length-L transform, in order: (radix R,
     Ns = the product of the radices before it); radix 4 while 4 divides
-    what is left, then 2, 3, 5 (Stockham autosort, natural order in and
-    out; csrc/dft_mixed.cuh)."""
+    what is left, then 2, 3, 5, 7 (Stockham autosort, natural order in and
+    out; csrc/dft_mixed.cuh, also the CWT kernel's mixed path)."""
     out, Ns, rem = [], 1, int(L)
     while rem > 1:
         R = (4 if rem % 4 == 0 else 2 if rem % 2 == 0 else
-             3 if rem % 3 == 0 else 5)
+             3 if rem % 3 == 0 else 5 if rem % 5 == 0 else 7)
         out.append((R, Ns))
         Ns *= R
         rem //= R

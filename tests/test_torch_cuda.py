@@ -31,7 +31,10 @@ its batch rows bit-identical to one signal run alone. B2 and the four
 instantiations of B5 the same at ragged shapes (N of 1, odd, just over a
 block; one row; bins from 1 to the most the launch plan takes), and the
 launch plan's shared bytes and blocks per SM the kernel's and the
-runtime's.
+runtime's. The CWT kernel's mixed engine (n_up 7-smooth, not a power of
+two; `padtype=None`) the same as its radix-4 one, on its own counters;
+a length with a prime factor above 7 raises naming A6b and launches
+nothing.
 """
 import ctypes
 
@@ -65,9 +68,11 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def dev():
+def dev(monkeypatch, tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # the plan memo on disk writes under the case's own directory
+    monkeypatch.setenv('SSQ_TPU_TORCH_CACHE', str(tmp_path / 'plans'))
     return torch.device('cuda')
 
 
@@ -77,16 +82,18 @@ def _chirp(N):
 
 
 def _inputs(N, dtype, scales, dev, padtype='reflect', seed=0, x=None):
+    """Kernel inputs; `padtype=None`: the unpadded spectrum, n_up = N."""
     spec = ('gmw', {'dtype': dtype})
     wav = resolve_wavelet(spec, N=N)
-    plan, _ = _ssq_cwt_plan(wav, N, scales, 16, None, 'peak', True, 1.)
+    plan, _ = _ssq_cwt_plan(wav, N, scales, 16, None, 'peak',
+                            padtype is not None, 1.)
     scales_np, const, params = plan.scales, plan.const, plan.params
-    n_up, n1, _ = pad_params(N, padtype)
+    n_up, n1 = (N, 0) if padtype is None else pad_params(N, padtype)[:2]
     tdt = getattr(torch, dtype)
     if x is None:
         x = np.random.default_rng(seed).standard_normal(N)
     x = torch.as_tensor(x, dtype=tdt, device=dev)
-    xh = rfft(padsignal(x, padtype))
+    xh = rfft(x if padtype is None else padsignal(x, padtype))
     sc = torch.as_tensor(scales_np.ravel(), dtype=tdt, device=dev)
     c = torch.as_tensor(np.broadcast_to(np.ravel(const), (len(sc),)).copy(),
                         dtype=tdt, device=dev)
@@ -1181,3 +1188,147 @@ def test_public_batched_stft_family_on_card(dev):
         assert S.is_cuda and S.shape[0] == 3
         xr = stq.istft(S, n_fft=256, hop_len=hop, N=N)
         assert np.abs(xr - x64).mean() < 1e-12
+
+
+# ---- the CWT kernel's mixed engine (n_up 7-smooth, not a power of two) --
+
+def _mixed_counts():
+    return [getattr(w, a) for w in (cwt_bins, cwt_fused, cwt_bins2)
+            for a in ('launches', 'mixed_launches')] + [
+        getattr(w, a) for w in (cwt_bins, cwt_bins2)
+        for a in ('batched_launches', 'mixed_batched_launches')]
+
+
+@pytest.mark.parametrize('N', [7, 30, 3000, 3072, 4410, 4725, 99225,
+                               160000])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_mixed_engine_vs_plain(dev, N, dtype):
+    """B1, B3 (one and two planes, L1 and L2) and B8 on the mixed engine
+    against their plain versions on the unpadded spectrum (n_up = N: odd
+    lengths, a prime length, factors with no power of two), Wx
+    bit-identical across the modes and from run to run, each launch on
+    the mixed counters only."""
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(
+        N, dtype, 'log-piecewise', dev, padtype=None)
+    assert cwt_cuda.bins_plan(n_up, xh.element_size(), 2).engine == \
+        cwt_cuda._ENGINE_MIXED
+    tol = 2e-5 if dtype == 'float32' else 1e-9
+    args = (xh, sc, wav, n_up, 0, N, 1., True, params, gamma, True)
+    c0 = _mixed_counts()
+    Wx, k = cwt_bins(*args)
+    torch.cuda.synchronize()
+    dc = [a - b for a, b in zip(_mixed_counts(), c0)]
+    assert dc == [0, 1, 0, 0, 0, 0, 0, 0, 0, 0]
+    Wx_p, k_p = cwt_bins_plain(*args)
+    assert _rel_err(Wx, Wx_p) <= tol
+    assert (k != k_p).double().mean() <= 0.01
+    nbins = params['omax'] + 1
+    _bins_criterion(scatter_kv_plain(Wx, k, c, nbins),
+                    scatter_kv_plain(Wx_p, k_p, c, nbins))
+    Wr, kr = cwt_bins(*args)
+    assert torch.equal(Wr, Wx) and torch.equal(kr, k)
+    for derivative in (False, True):
+        W3, dW3 = cwt_fused(xh, sc, wav, n_up, 0, N, 1., derivative, True)
+        assert torch.equal(W3, Wx)
+        if derivative:
+            _, dW_p = cwt_fused_plain(xh, sc, wav, n_up, 0, N, 1., True,
+                                      True)
+            assert _rel_err(dW3, dW_p) <= tol
+    W2, _ = cwt_fused(xh, sc, wav, n_up, 0, N, 1., False, False)
+    W2_p, _ = cwt_fused_plain(xh, sc, wav, n_up, 0, N, 1., False, False)
+    assert _rel_err(W2, W2_p) <= tol
+    W8, k8 = cwt_bins2(xh, sc, wav, n_up, 0, N, 1., params, gamma, True)
+    assert torch.equal(W8, Wx)
+    W8_p, k8_p = cwt_bins2_plain(xh, sc, wav, n_up, 0, N, 1., params, gamma,
+                                 True)
+    assert (k8 != k8_p).double().mean() <= 0.01
+    _bins_criterion(scatter_kv_plain(W8, k8, c, nbins),
+                    scatter_kv_plain(W8_p, k8_p, c, nbins))
+
+
+@pytest.mark.parametrize('N', [4725, 3000])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_mixed_engine_batch_windows_and_chunks(dev, N, dtype, monkeypatch):
+    """B3b and batched B8 rows on the mixed engine bit-identical to each
+    signal launched alone; a window [n1, n1 + N') inside n_up; rows in
+    chunks that cross signals, bit-identical to one chunk."""
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(
+        N, dtype, 'log', dev, padtype=None)
+    xb = torch.stack([xh, xh.flip(0), 0.5 * xh]).contiguous()
+    one = [cwt_bins(xb[b].contiguous(), sc, wav, n_up, 0, N, 1., True,
+                    params, gamma, True) for b in range(3)]
+    one2 = [cwt_bins2(xb[b].contiguous(), sc, wav, n_up, 0, N, 1., params,
+                      gamma, True) for b in range(3)]
+    c0 = _mixed_counts()
+    Wb, kb = cwt_bins(xb, sc, wav, n_up, 0, N, 1., True, params, gamma,
+                      True)
+    W8b, k8b = cwt_bins2(xb, sc, wav, n_up, 0, N, 1., params, gamma, True)
+    torch.cuda.synchronize()
+    dc = [a - b for a, b in zip(_mixed_counts(), c0)]
+    assert dc == [0, 0, 0, 0, 0, 0, 0, 1, 0, 1]
+    for b in range(3):
+        assert torch.equal(Wb[b], one[b][0]) and torch.equal(kb[b], one[b][1])
+        assert torch.equal(W8b[b], one2[b][0])
+        assert torch.equal(k8b[b], one2[b][1])
+    lo, n = N // 7, N - N // 7 - 5
+    Ww, _ = cwt_fused(xh, sc, wav, n_up, lo, n, 1., True, True)
+    assert torch.equal(Ww, one[0][0][:, lo:lo + n])
+    monkeypatch.setattr(cwt_cuda, '_SCRATCH_BUDGET', 2 * n_up * 16 * 7)
+    Wc, kc = cwt_bins(xb, sc, wav, n_up, 0, N, 1., True, params, gamma,
+                      True)
+    assert torch.equal(Wc, Wb) and torch.equal(kc, kb)
+
+
+def test_mixed_public_calls_on_card(dev):
+    """`ssq_cwt`, `cwt` and `ssq_cwt2` with `padtype=None` (mixed engine),
+    `cwt(rpadded=True)` (radix-4, the whole window) and
+    `ssq_cwt(difftype='numeric', get_w=True)` on the card against the
+    same calls' plain versions on the CPU."""
+    N = 4410
+    x = np.random.default_rng(21).standard_normal(N).astype(np.float32)
+    xb = np.stack([x, x[::-1].copy()])
+    for name, fn, n_ssq in (
+            ('ssq_cwt', lambda v, **d: stq.ssq_cwt(v, padtype=None, **d), 1),
+            ('ssq_cwt_b2', lambda v, **d: stq.ssq_cwt(
+                xb if v is x else v, padtype=None, **d), 1),
+            ('ssq_cwt_dwx', lambda v, **d: stq.ssq_cwt(
+                v, padtype=None, get_dWx=True, **d), 1),
+            ('ssq_cwt_numeric', lambda v, **d: stq.ssq_cwt(
+                v, difftype='numeric', get_w=True, **d), 1),
+            ('ssq_cwt2', lambda v, **d: stq.ssq_cwt2(v, padtype=None, **d),
+             1),
+            ('cwt', lambda v, **d: stq.cwt(v, padtype=None, **d), 0),
+            ('cwt_rpadded', lambda v, **d: stq.cwt(v, rpadded=True, **d),
+             0)):
+        c0 = _mixed_counts()
+        out = fn(x)
+        torch.cuda.synchronize()
+        dc = [a - b for a, b in zip(_mixed_counts(), c0)]
+        mixed, radix4 = sum(dc[1::2]), sum(dc[0::2])
+        if name in ('ssq_cwt_numeric', 'cwt_rpadded'):
+            assert radix4 >= 1 and not mixed, name
+        else:
+            assert mixed >= 1 and not radix4, name
+        ref = fn(x, device='cpu')
+        W, W_ref = out[1 if n_ssq else 0], ref[1 if n_ssq else 0]
+        assert W.is_cuda and W.shape == W_ref.shape
+        assert _rel_err(W.cpu(), W_ref) <= 2e-5, name
+        if n_ssq:
+            _bins_criterion(out[0].cpu(), ref[0])
+
+
+def test_mixed_length_rule_launches_nothing(dev):
+    """A length with a prime factor above 7 (2002 = 2 7 11 13) raises
+    naming A6b on the card before any kernel launches."""
+    x = np.random.default_rng(22).standard_normal(2002).astype(np.float32)
+    for fn in (lambda: stq.ssq_cwt(x, padtype=None),
+               lambda: stq.cwt(x, padtype=None),
+               lambda: stq.ssq_cwt2(x, padtype=None),
+               lambda: cwt_fused(torch.zeros(1002, dtype=torch.complex64,
+                                             device=dev),
+                                 torch.ones(3, device=dev), None, 2002, 0,
+                                 2002, 1., False, True)):
+        c0 = _mixed_counts()
+        with pytest.raises(NotImplementedError, match='A6b'):
+            fn()
+        assert _mixed_counts() == c0

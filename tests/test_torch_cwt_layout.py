@@ -21,6 +21,7 @@ import pytest
 from ssqueezepy_tpu_torch.ops import cwt_cuda
 from ssqueezepy_tpu_torch.ops.cwt_cuda import bins_plan, smem_index, swz
 from ssqueezepy_tpu_torch.ops.pad import pad_params
+from ssqueezepy_tpu_torch.ops.stft_cuda import radices
 
 BENCH_N = 160000               # the main path's signal length
 ITEMSIZE = {'float32': 8, 'float64': 16}
@@ -327,3 +328,175 @@ def test_radix4_passes_compute_the_inverse_dft(lg, s0, planes):
     y = _run_passes(x, P, planes, s0)
     np.testing.assert_allclose(y, np.fft.ifft(x, axis=-1) * L,
                                rtol=0, atol=1e-10 * L)
+
+
+# ---- the mixed engine (n_up 7-smooth, not a power of two) ---------------
+
+def _smooth7(hi):
+    """Every n in [4, hi] whose prime factors are at most 7, powers of two
+    excepted (those take the radix-4 engine)."""
+    out = {1}
+    for p in (2, 3, 5, 7):
+        grow = set(out)
+        for n in out:
+            while n * p <= hi:
+                n *= p
+                grow.add(n)
+        out = grow
+    return sorted(n for n in out if n >= 4 and n & (n - 1))
+
+
+def _divisors(n):
+    """Every divisor of a 7-smooth n, from its exponents."""
+    out = [1]
+    for p in (2, 3, 5, 7):
+        e = 0
+        while n % p ** (e + 1) == 0:
+            e += 1
+        out = [d * p ** k for d in out for k in range(e + 1)]
+    return out
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+@pytest.mark.parametrize('planes', PLANES)
+def test_mixed_plan_fits_and_divides(dtype, planes):
+    """The launch plan of every 7-smooth n_up in [4, 2^22] that is not a
+    power of two: the split whose larger factor is smallest (f1 the least
+    divisor >= sqrt(n_up)); per stage P a power of two <= 8 that covers at
+    most the next power of two of the partner factor (the kernel guards
+    the last block's columns, so P need not divide it), the stride odd,
+    the swizzle a bijection on [0, L), two buffers and L twiddles within
+    the budget, or one column within the card's limit; where not even one
+    column fits, the plan raises."""
+    itemsize = ITEMSIZE[dtype]
+    lens = _smooth7(1 << 22)
+    assert len(lens) > 1000 and 160000 in lens and 99225 in lens
+    for n_up in lens:
+        f1, f2 = cwt_cuda.four_step(n_up)
+        assert f1 * f2 == n_up and f1 >= f2
+        assert f1 == min(d for d in _divisors(n_up) if d * d >= n_up)
+        if (f1 + 2 * planes * (f1 | 1)) * itemsize > cwt_cuda._SMEM_MAX:
+            with pytest.raises(NotImplementedError, match='shared memory'):
+                bins_plan(n_up, itemsize, planes)
+            continue
+        plan = bins_plan(n_up, itemsize, planes)
+        assert plan.engine == cwt_cuda._ENGINE_MIXED
+        for L, other, P, S, sw, sm in (
+                (plan.f1, plan.f2, plan.P1, plan.S1, plan.sw1, plan.smem1),
+                (plan.f2, plan.f1, plan.P2, plan.S2, plan.sw2, plan.smem2)):
+            assert P & (P - 1) == 0 and 1 <= P <= cwt_cuda._MAX_COLUMNS
+            assert P == 1 or P < 2 * other
+            assert S in (L, L + 1) and S % 2 == 1
+            assert L % (1 << sw) == 0 and (1 << sw) <= 128 // itemsize
+            assert sm == (L + 2 * planes * P * S) * itemsize
+            assert sm <= cwt_cuda._SMEM_BUDGET or (
+                P == 1 and sm <= cwt_cuda._SMEM_MAX)
+
+
+def test_length_rule():
+    """`four_step` is the kernel's one length rule: n_up >= 4 with no
+    prime factor above 7, every other length raises naming A6b."""
+    for n_up in (4, 5, 6, 7, 49, 3 * 1024, 160000, 99225, 1 << 22):
+        f1, f2 = cwt_cuda.four_step(n_up)
+        assert f1 * f2 == n_up
+    for n_up in (1, 2, 3, 11, 11 * 1024, 13 * 49, 2002, 160000 * 11):
+        with pytest.raises(NotImplementedError, match='A6b'):
+            cwt_cuda.four_step(n_up)
+
+
+def _mixed_transform(mem, a, b, nseq, S, L):
+    """`dft::transform` over `nseq` sequences of length L on a shared-
+    memory image whose first L elements are the twiddles: the first pass
+    reads buffer `b` (the gather's), the passes ping-pong between a and b
+    (radices of `radices`, butterfly e -> sequence e mod nseq, index e div
+    nseq; every radix as a sum over the table twiddles, which is the
+    kernel's radix-4 and radix-2 arithmetic in exact arithmetic); returns
+    the base of the buffer holding the result."""
+    if L == 1:
+        q = np.arange(nseq)
+        mem[a + q * S] = mem[b + q * S]
+        return a
+    src, dst = b, a
+    for R, Ns in radices(L):
+        LR, tstep = L // R, L // (Ns * R)
+        e = np.arange(nseq * LR)
+        q, j = e % nseq, e // nseq
+        jm = j % Ns
+        v = [mem[src + q * S + j + r * LR] * mem[r * jm * tstep]
+             for r in range(R)]
+        d = dst + q * S + (j - jm) * R + jm
+        for k in range(R):
+            mem[d + k * Ns] = sum(v[r] * mem[((r * k) % R) * LR]
+                                  for r in range(R))
+        src, dst = dst, src
+    return src
+
+
+@pytest.mark.parametrize('n_up', [160000, 99225, 44100, 4725, 30])
+@pytest.mark.parametrize('planes', PLANES)
+def test_mixed_four_step_through_the_engine(n_up, planes):
+    """Both launches of the mixed engine simulated block by block through
+    its own index maps (`bins_stage1`/`bins_stage2` with ENG_MIXED): the
+    gather of every plane's spectrum column m1 = swz(.) of the block's
+    columns (zero beyond the last), the Stockham passes, the four-step
+    twiddle into the scratch layout (columns beyond the last not written),
+    the scratch gather, the passes, and the epilogue's k2 walk over
+    [n1, n1 + N): each plane comes out as np.fft.ifft of its half
+    spectrum, every output column written once."""
+    plan = bins_plan(n_up, 8, planes)
+    f1, f2 = plan.f1, plan.f2
+    half = n_up // 2 + 1
+    n1, N = n_up // 7, n_up - n_up // 7 - 3
+    rng = np.random.default_rng(n_up + planes)
+    spec = np.zeros((planes, n_up), complex)
+    spec[:, :half] = (rng.standard_normal((planes, half))
+                      + 1j * rng.standard_normal((planes, half)))
+    scratch = np.full((planes, n_up), np.nan, complex)
+    for stage, L, other, P, S, sw in (
+            (1, f1, f2, plan.P1, plan.S1, plan.sw1),
+            (2, f2, f1, plan.P2, plan.S2, plan.sw2)):
+        nseq = planes * P
+        lgP = P.bit_length() - 1
+        out = np.full((planes, N), np.nan, complex)
+        for blk in range(-(-other // P)):
+            c0 = blk * P
+            mem = np.zeros(L + 2 * nseq * S, complex)
+            mem[:L] = np.exp(2j * np.pi * np.arange(L) / L)
+            bufa, bufb = L, L + nseq * S
+            e = np.arange(P * L)
+            p, i = e & (P - 1), swz(e >> lgP, sw)
+            col = c0 + p
+            inside = col < other
+            for q in range(planes):
+                if stage == 1:        # spectra at m = m1 f2 + m2
+                    v = spec[q, np.minimum(i * f2 + col, n_up - 1)]
+                else:                 # scratch at (m2, k1)
+                    v = scratch[q, np.minimum(i * f1 + col, n_up - 1)]
+                mem[bufb + (q * P + p) * S + i] = np.where(inside, v, 0)
+            res = _mixed_transform(mem, bufa, bufb, nseq, S, L)
+            if stage == 1:
+                k1, p = e % L, e // L
+                m2 = c0 + p
+                keep = m2 < f2
+                for q in range(planes):
+                    y = mem[res + (q * P + p) * S + k1] * np.exp(
+                        2j * np.pi * m2 * k1 / n_up) / n_up
+                    assert np.isnan(scratch[q, (m2 * f1 + k1)[keep]]).all()
+                    scratch[q, (m2 * f1 + k1)[keep]] = y[keep]
+            else:
+                k2lo, k2hi = n1 // f1, -(-(n1 + N) // f1)
+                nk = -(-(k2hi - k2lo) >> sw) << sw
+                e = np.arange(P * nk)
+                p, k2 = e & (P - 1), k2lo + swz(e >> lgP, sw)
+                j = c0 + p + f1 * k2 - n1
+                keep = ((k2 < k2hi) & (j >= 0) & (j < N)
+                        & (c0 + p < f1))
+                for q in range(planes):
+                    assert np.isnan(out[q, j[keep]]).all()
+                    out[q, j[keep]] = mem[res + (q * P + p[keep]) * S
+                                          + k2[keep]]
+        if stage == 1:
+            assert not np.isnan(scratch).any()
+    want = np.fft.ifft(spec, axis=-1)[:, n1:n1 + N]
+    np.testing.assert_allclose(out, want, rtol=0,
+                               atol=1e-12 * np.abs(spec).max())

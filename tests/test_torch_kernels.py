@@ -112,8 +112,11 @@ def test_four_step_factors():
     for n_up in (4, 8, 1024, 2048, 262144):
         f1, f2 = four_step(n_up)
         assert f1 * f2 == n_up and f1 >= f2 and f1 & (f1 - 1) == 0
-    with pytest.raises(NotImplementedError):
-        four_step(3 * 1024)
+    # a 7-smooth length that is not a power of two: the mixed engine's
+    # split, the larger factor smallest
+    assert four_step(3 * 1024) == (64, 48)
+    with pytest.raises(NotImplementedError, match='A6b'):
+        four_step(11 * 1024)
 
 
 def test_wrappers_check_inputs():

@@ -428,9 +428,10 @@ def test_ssq_stft2_squeezing_vs_jax(squeezing, dtype):
 
 # ---- the slice's bounds ------------------------------------------------
 # every squeezing and 2-D input are ported (compared with the JAX package
-# above and in test_torch_stft_batch.py); get_w, padtype=None and non-GMW
-# wavelets are not, and get_w on 2-D input raises as the JAX package's
-# ssq_cwt2 does
+# above and in test_torch_stft_batch.py), and padtype=None at lengths whose
+# prime factors are at most 7 (tests/test_torch_padnone.py); get_w,
+# padtype=None at another length (1001 = 7 11 13) and non-GMW wavelets are
+# not, and get_w on 2-D input raises as the JAX package's ssq_cwt2 does
 @pytest.mark.parametrize('kw', [
     dict(get_w=True), dict(x2d=True, get_w=True),
     dict(squeezing='abs', padtype=None),
@@ -440,7 +441,7 @@ def test_ssq_stft2_squeezing_vs_jax(squeezing, dtype):
                                   for k, v in kw.items()))
 def test_ssq_cwt2_outside_slice_raises(kw):
     kw = dict(kw)
-    x = _noise(1000)
+    x = _noise(1001 if 'padtype' in kw else 1000)
     if kw.pop('x2d', False):
         x = np.stack([x, x])
         with pytest.raises(NotImplementedError,

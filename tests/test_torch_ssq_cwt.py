@@ -155,23 +155,27 @@ def test_default_device_cuda_raises_without_card():
         tstq.ssq_cwt(_noise())
 
 
-# 2-D input, every squeezing, get_dWx and get_w ('trig', 'phase') are
-# ported (tests/test_torch_squeezing.py); order > 0, padtype=None,
-# difftype='numeric' and non-GMW wavelets are not, whatever the other
-# options
+# 2-D input, every squeezing, get_dWx, get_w ('trig', 'phase', 'numeric')
+# and padtype=None at lengths whose prime factors are at most 7 are ported
+# (tests/test_torch_squeezing.py, tests/test_torch_padnone.py); order > 0,
+# non-GMW wavelets and padtype=None at another length (1001 = 7 11 13,
+# which raises naming A6b) are not, whatever the other options
 @pytest.mark.parametrize('kw', [
-    dict(order=1), dict(get_w=True, difftype='numeric'),
+    dict(order=1), dict(get_w=True, difftype='numeric', padtype=None),
     dict(squeezing='abs', get_dWx=True, padtype=None),
     dict(squeezing='lebesgue', get_dWx=True, order=1),
-    dict(get_dWx=True, squeezing='abs', get_w=True, difftype='numeric'),
+    dict(get_dWx=True, squeezing='abs', get_w=True, difftype='numeric',
+         padtype=None),
     dict(padtype=None),
     dict(wavelet='morlet'), dict(wavelet=('gmw', {'order': 2})),
     dict(x2d=True, squeezing='lebesgue', get_dWx=True, padtype=None),
 ], ids=lambda kw: next(iter(kw)) + '=' + str(next(iter(kw.values()))))
 def test_outside_slice_raises(kw):
     kw = dict(kw)
-    x = _noise()
+    unpadded = 'padtype' in kw and 'order' not in kw
+    x = _noise()[:1001] if unpadded else _noise()
     if kw.pop('x2d', False):
         x = np.stack([x, x])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(NotImplementedError,
+                       match='A6b' if unpadded else 'ROADMAP'):
         tstq.ssq_cwt(x, device='cpu', **kw)

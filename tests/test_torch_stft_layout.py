@@ -470,16 +470,18 @@ def _run_passes(x, S, direct):
 
 
 @pytest.mark.parametrize('L', [1, 2, 3, 4, 5, 6, 9, 15, 12, 20, 36, 60,
-                               96, 120, 128, 144, 240, 320, 512])
+                               96, 120, 128, 144, 240, 320, 512, 7, 14, 49,
+                               63, 210, 315, 400])
 @pytest.mark.parametrize('nseq', [1, 8, 10, 16, 20])
 @pytest.mark.parametrize('direct', [True, False])
 def test_passes_compute_the_inverse_dft(L, nseq, direct):
-    """The passes' index arithmetic (radices 4, 2, 3, 5 in the kernel's
+    """The passes' index arithmetic (radices 4, 2, 3, 5, 7 in the kernel's
     order; the sequence fastest, over 1 to 20 sequences; the first pass
     reading device memory or the gather's buffer) is an unnormalized
     inverse DFT of every sequence, for the headline factors 320 and 512,
-    the N = 10000 plan's 96 and 128, and lengths with each odd factor 3,
-    5, 9 and 15."""
+    the N = 10000 plan's 96 and 128, lengths with each odd factor 3, 5, 9
+    and 15, and the factors of the CWT kernel's mixed path (7, 49, 63,
+    210, 315, 400: radix 7 after 4, 2, 3 and 5)."""
     rng = np.random.default_rng(L * 100 + nseq)
     x = rng.standard_normal((nseq, L)) + 1j * rng.standard_normal((nseq, L))
     y = _run_passes(x, L | 1, direct)

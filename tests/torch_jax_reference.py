@@ -16,7 +16,8 @@ _device_scalar`) keeps when its first call for a value comes from inside
 a jit trace, as the framed path of `ssq_stft` makes it: a later program
 that closes over such a tracer fails on its second call ("Execution
 supplied 1 buffers but compiled program expected 3 buffers"), so
-whichever test first reaches it, in this file or another, fails. Import
+whichever test first reaches it, in this file or another, fails. It also
+points the port's plan cache on disk at the case's `tmp_path`. Import
 the fixture into a test module with ``from torch_jax_reference import
 xla_reference``.
 """
@@ -37,7 +38,10 @@ def _drop_leaked_tracers():
 
 
 @pytest.fixture(autouse=True)
-def xla_reference():
+def xla_reference(monkeypatch, tmp_path):
+    # the port's plan memo on disk (ssqueezepy_tpu_torch/utils/
+    # plan_cache.py) writes under the case's own directory, never to ~
+    monkeypatch.setenv('SSQ_TPU_TORCH_CACHE', str(tmp_path / 'plans'))
     reset_config()
     assert backend() == 'cpu' and _pallas_enabled() == (False, False)
     jax.clear_caches()
