@@ -17,7 +17,9 @@ by `issq_cwt`/`issq_stft`; `ssq_cwt` on a (4, 160000) batch (the bench's
 (`padtype=None`, n_up = N = 160000 = 400 x 400, the CWT kernel's mixed
 engine) `ssq_cwt`, `cwt`, `ssq_cwt2` and the (4, 160000) `ssq_cwt`,
 `cwt(rpadded=True)` (the whole padded window) and `ssq_cwt(difftype=
-'numeric', get_w=True)`;
+'numeric', get_w=True)`; `ssq_cwt2(get_w=True)` (padded and unpadded)
+and `ssq_stft2(get_w=True)` (one signal and the (4, 160000) batch), which
+return the chirp-corrected frequency w2;
 and every squeezing option on those routes: `ssq_cwt(get_w=True)` and
 `ssq_cwt(get_dWx=True, squeezing='lebesgue')` (the derivative CWT, the
 phase transform, the generic scatter), `ssq_stft(hop_len=8,
@@ -84,6 +86,15 @@ the scatter from bins). It:
      launch on the mixed counters only, Wx bit-identical across the
      modes, two runs bit-identical, the batched row bit-identical to its
      one-signal launch;
+ 9d. holds the w2 modes of B8 (`cwt_w2`, both engines: n_up = 262144 and
+     160000, the 293 scales) and B7 (`fsst2_w`, the ssq_stft2 headline,
+     one signal and the (4, 160000) batch) against their plain versions
+     (`wsst2_rows`, `fsst2_rows`), float32: W/V within 2e-5 of max, the
+     same inf cells of w2 but on at most 0.1% of cells, Tx of B5 on the
+     bins of w2 by the bins criterion; W/V bit-identical to the bins
+     modes' launch and the bins of w2 equal to its k (the count of cells
+     that differ is printed; the criterion is none); batched rows
+     bit-identical to their one-signal launches;
  10. runs each public entry point (`ssq_cwt`, `ssq_stft`, `stft`, `cwt`,
      `ssq_cwt2`, `ssq_stft2`, the batched `ssq_cwt`, `ssq_cwt(get_dWx=
      True)`, `ssq_stft(hop_len=8)`, `ssqueeze` from (Wx, dWx), the
@@ -95,7 +106,15 @@ the scatter from bins). It:
      call must launch neither bins kernel), and checks the outputs against
      the plain path on the card;
  10b. checks that an unpadded call at a length with a prime factor 11
-     raises naming A6b and launches no kernel;
+     raises naming A6b and launches no kernel, and that a call just past
+     each ceiling of the kernels (the CWT kernel's for 1, 2 and 5 planes
+     in float32, the STFT kernel's 2^22, the scatters' 25600 bins)
+     raises the same error naming ROADMAP.md queue C, C1b on the card and
+     on the CPU, launching nothing; runs the radix-4 engine at its
+     largest lengths through the public calls: `cwt(padtype=None)` at
+     n_up = 2^28 (three scales, one plane) and `ssq_cwt2(padtype=None)`
+     at n_up = 2^24 (eight scales, five planes), against the plain path
+     on the card;
  11. round-trips a chirp through `ssq_cwt`/`issq_cwt`,
      `ssq_cwt(padtype=None)`/`issq_cwt` (N = 19600 = 2^4 5^2 7^2),
      `ssq_stft`/`issq_stft`, `cwt`/`icwt`, `ssq_cwt2`/`issq_cwt` and
@@ -108,7 +127,8 @@ the scatter from bins). It:
      CUDA events after warm-up (B2 also on the (4, 160000) batch, B4 also
      on the hop-8 STFT's planes, B6 (bins and Sx modes), B7 and B8 also
      on the (4, 160000) batch, the CWT kernel's mixed engine in each mode
-     at n_up = 160000), computes each kernel's bound from this
+     at n_up = 160000, the w2 modes of B8 on both engines and of B7 on one
+     signal and the batch), computes each kernel's bound from this
      run's shapes (and, for B2, B4 and B5, the bytes/s achieved and the
      share of the bound), and times each public call with its peak
      memory;
@@ -126,6 +146,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -249,7 +270,7 @@ def main():
         from ssqueezepy_tpu_torch.ops import _build
         from ssqueezepy_tpu_torch.ops.cwt_cuda import (
             bins_plan, cwt_bins, cwt_bins_plain, cwt_bins2, cwt_bins2_plain,
-            cwt_fused, cwt_fused_plain, four_step)
+            cwt_fused, cwt_fused_plain, cwt_w2, four_step, wsst2_rows)
         from ssqueezepy_tpu_torch.ops.ssq_cuda import (
             scatter_kv, scatter_kv_plain, scatter_launch_plan, shift_scatter,
             shift_scatter_plain, ssq_fused, ssq_fused_plain)
@@ -258,8 +279,8 @@ def main():
                                                     phase_transform_w)
         from ssqueezepy_tpu_torch.ops.ssq_kernels import compute_bins
         from ssqueezepy_tpu_torch.ops.stft_cuda import (
-            fsst2_conv, fsst2_conv_plain, stft_conv, stft_conv_plain,
-            split_fft_len)
+            fsst2_conv, fsst2_conv_plain, fsst2_rows, fsst2_w, stft_conv,
+            stft_conv_plain, split_fft_len)
         from ssqueezepy_tpu_torch.ops.stft_conv import (
             conv_bank, conv_table, _BANK_CACHE, _TABLE_CACHE)
         from ssqueezepy_tpu_torch.ops.fft import rfft
@@ -275,16 +296,18 @@ def main():
         fail("the port is not importable beside this script (%s)" % e)
     # each kernel's launch counter: B3b counts on cwt_bins' batched
     # counter, B1 on its own; B6, B7 and B8 over a batch on theirs; the
-    # CWT kernel's mixed engine on its own counters (`mixed_*`)
+    # CWT kernel's mixed engine on its own counters (`mixed_*`); the w2
+    # modes of B8 (`cwt_w2`) and B7 (`fsst2_w`) on theirs
     all_kernels = [(k.__name__, k, 'launches') for k in (
         cwt_bins, scatter_kv, stft_conv, cwt_fused, cwt_bins2, fsst2_conv,
-        ssq_fused, shift_scatter)] + [
+        ssq_fused, shift_scatter, cwt_w2, fsst2_w)] + [
         (k.__name__ + '_batched', k, 'batched_launches')
-        for k in (cwt_bins, stft_conv, fsst2_conv, cwt_bins2)] + [
+        for k in (cwt_bins, stft_conv, fsst2_conv, cwt_bins2, cwt_w2,
+                  fsst2_w)] + [
         (k.__name__ + '_mixed', k, 'mixed_launches')
-        for k in (cwt_bins, cwt_fused, cwt_bins2)] + [
+        for k in (cwt_bins, cwt_fused, cwt_bins2, cwt_w2)] + [
         (k.__name__ + '_batched_mixed', k, 'mixed_batched_launches')
-        for k in (cwt_bins, cwt_bins2)]
+        for k in (cwt_bins, cwt_bins2, cwt_w2)]
     # full-precision float32 products in every plain version
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1017,6 +1040,82 @@ def main():
         del Wb, kb, W1b, k1b, xh2, W_k, k_k, W_p
         torch.cuda.empty_cache()
 
+    # ---- the w2 modes of B8 and B7 against their plain versions --------
+    # B8's w2 mode on both engines with the bins mode's inputs (radix 4:
+    # n_up = 262144, the bench's ssq_cwt2 plan; mixed: n_up = 160000,
+    # unpadded), B7's at the ssq_stft2 headline and on the (4, 160000)
+    # batch. W/V must be the bins mode's bits and the bins of w2 its k.
+    def w2_check(what, run, plain, binned, params_w, flipud_w, c_w, nb_w,
+                 need, batched=None):
+        (W, w2), counts = launches_of(all_kernels, run)
+        check(counts[need] >= 1 and sum(counts.values()) == counts[need],
+              "%s: launched %s only (%d C calls)" % (what, need,
+                                                     counts[need]))
+        W_p, w2_p = plain()
+        err = rel_err(W, W_p)
+        gd = float((torch.isinf(w2) != torch.isinf(w2_p)).double().mean())
+        check(err <= 2e-5 and gd <= 1e-3 and w2.dtype == torch.float32
+              and bool((w2 >= 0).all()),
+              "%s: max|W_kernel - W_plain| = %.3g of max|W| (limit 2e-5); "
+              "w2 inf on other cells than the plain version's on %.4f%% "
+              "(limit 0.1%%)" % (what, err, 100 * gd))
+        k_w, v_w = compute_bins(w2, params_w, flipud_w)
+        W_b, k_b = binned()
+        n_diff = int((torch.where(v_w, k_w, torch.full_like(k_w, -1))
+                      != k_b).sum())
+        print("%s: the bins of w2 differ from the bins mode's k on %d "
+              "cells (criterion: none)" % (what, n_diff), flush=True)
+        check(torch.equal(W, W_b) and n_diff == 0, "%s: W bit-identical to "
+              "the bins mode's, the bins of w2 equal to its k" % what)
+        del W_b, k_b
+        k_p, v_p = compute_bins(w2_p, params_w, flipud_w)
+        bins_criterion(shift_scatter(W, k_w, v_w, nb_w, c_w),
+                       shift_scatter_plain(W_p, k_p, v_p, nb_w, c_w),
+                       "%s, B5 on the bins of w2" % what)
+        if batched is not None:
+            same = all(torch.equal(W[b], W1) and torch.equal(w2[b], w21)
+                       for b in range(W.shape[0])
+                       for W1, w21 in [batched(b)])
+            check(same, "%s: every row bit-identical to its spectrum "
+                  "launched alone" % what)
+        out = float((W - W_p).abs().max())
+        del W, w2, W_p, w2_p, k_w, v_w, k_p, v_p
+        torch.cuda.empty_cache()
+        return out
+
+    w2k = {}
+    a8 = b8['args']
+    w2k['radix-4'] = dict(args=a8[:7] + (a8[8],))
+    am = mx['float32']['args']
+    w2k['mixed'] = dict(args=am[:7] + (am[9],))
+    for eng, a, c_w, nb_w, need in (
+            ('radix-4', a8, b8['c'], nbins2, 'cwt_w2'),
+            ('mixed', am[:7] + am[8:], mx['float32']['c'],
+             mx['float32']['nb'], 'cwt_w2_mixed')):
+        aw = w2k[eng]['args']
+        print("B8 w2 mode (cwt_w2) vs plain on the %s engine at (%d, %d), "
+              "n_up=%d" % (eng, len(aw[1]), N, aw[3]), flush=True)
+        w2k[eng]['err'] = w2_check(
+            "B8 w2 mode, %s engine" % eng, lambda: cwt_w2(*aw),
+            lambda: wsst2_rows(*aw), lambda: cwt_bins2(*a), a[7], True,
+            c_w, nb_w, need)
+    a7 = b7['args']
+    w2k['b7'] = dict(args=a7[:4] + (a7[4]['Sfs'], a7[4]['gamma']))
+    a7b = b7b['args']
+    w2k['b7b'] = dict(args=a7b[:4] + (a7b[4]['Sfs'], a7b[4]['gamma']))
+    for key, a, c_w, need in (('b7', a7, b7['c'], 'fsst2_w'),
+                              ('b7b', a7b, b7b['c'], 'fsst2_w_batched')):
+        aw = w2k[key]['args']
+        what = "B7 w2 mode (fsst2_w) at %s" % (tuple(aw[0].shape),)
+        print(what + " vs plain", flush=True)
+        w2k[key]['err'] = w2_check(
+            what, lambda: fsst2_w(*aw), lambda: fsst2_rows(*aw),
+            lambda: fsst2_conv(*a), a[4]['params'], False, c_w, n_rows,
+            need, batched=None if key == 'b7' else (
+                lambda b: fsst2_w(aw[0][b].contiguous(), *aw[1:])))
+    # the inputs stay in `w2k` and the kernels' dicts until they are timed
+    del a, a7, a7b, a8, am, aw
+
     # ---- the main paths through the public API ----------------------------
     x_dev = torch.as_tensor(x_np, device=dev)
     gamma32 = 10 * float(np.finfo(np.float32).eps)   # ssq_cwt's default
@@ -1072,6 +1171,16 @@ def main():
             get_w=True),
         'ssq_cwt2_padnone': lambda: stq.ssq_cwt2(x_dev, spec, scales=scales,
                                                  padtype=None),
+        # order 2 with w2 returned: the w2 modes of B8 (both engines) and
+        # B7 (one signal and a batch), then B5 on the bins of w2
+        'ssq_cwt2_getw': lambda: stq.ssq_cwt2(x_dev, spec, scales=scales,
+                                              get_w=True),
+        'ssq_cwt2_getw_padnone': lambda: stq.ssq_cwt2(
+            x_dev, spec, scales=scales, padtype=None, get_w=True),
+        'ssq_stft2_getw': lambda: stq.ssq_stft2(x_dev, n_fft=n_fft,
+                                                get_w=True),
+        'ssq_stft2_getw_b4': lambda: stq.ssq_stft2(xb_dev, n_fft=n_fft,
+                                                   get_w=True),
     }
     # the w and Wx that `ssqueeze` reassigns: the get_w call's own
     sq_in = {}
@@ -1102,7 +1211,11 @@ def main():
              'cwt_padnone': ('cwt_fused_mixed',),
              'cwt_rpadded': ('cwt_fused',),
              'ssq_cwt_numeric': ('cwt_fused', 'shift_scatter'),
-             'ssq_cwt2_padnone': ('cwt_bins2_mixed', 'scatter_kv')}
+             'ssq_cwt2_padnone': ('cwt_bins2_mixed', 'scatter_kv'),
+             'ssq_cwt2_getw': ('cwt_w2', 'shift_scatter'),
+             'ssq_cwt2_getw_padnone': ('cwt_w2_mixed', 'shift_scatter'),
+             'ssq_stft2_getw': ('fsst2_w', 'shift_scatter'),
+             'ssq_stft2_getw_b4': ('fsst2_w_batched', 'shift_scatter')}
     # kernels a path must not launch: get_w takes no bins kernel, a batch
     # no one-signal launch of B6, B7 or B8
     avoids = {'ssq_cwt_getw': ('cwt_bins', 'cwt_bins_batched', 'scatter_kv',
@@ -1120,6 +1233,32 @@ def main():
     avoids['cwt_rpadded'] = mixed
     avoids['ssq_cwt_numeric'] = mixed + ('cwt_bins', 'scatter_kv',
                                          'ssq_fused')
+    # get_w of order 2: no bins mode, no B2, the other engine's or the
+    # one-signal w2 launch neither
+    bins_modes = tuple(name for name, _, _ in all_kernels if name.split(
+        '_batched')[0].split('_mixed')[0] in ('cwt_bins', 'cwt_bins2',
+                                              'stft_conv', 'fsst2_conv'))
+    for name, other in (('ssq_cwt2_getw', 'cwt_w2_mixed'),
+                        ('ssq_cwt2_getw_padnone', 'cwt_w2'),
+                        ('ssq_stft2_getw', 'fsst2_w_batched'),
+                        ('ssq_stft2_getw_b4', 'fsst2_w')):
+        avoids[name] = avoids.get(name, ()) + bins_modes + (
+            'scatter_kv', 'ssq_fused', other)
+    # no public call on the card may run a plain version: the order-2 ones
+    # (the w2 modes' plain versions) count their calls here
+    from ssqueezepy_tpu_torch.ops import cwt_cuda as cwt_mod, \
+        stft_cuda as stft_mod
+    plain_calls = types.SimpleNamespace(wsst2_rows=0, fsst2_rows=0)
+    for mod, fn in ((cwt_mod, wsst2_rows), (stft_mod, fsst2_rows)):
+        def shim(*a, _fn=fn, **k):
+            setattr(plain_calls, _fn.__name__,
+                    getattr(plain_calls, _fn.__name__) + 1)
+            return _fn(*a, **k)
+        setattr(mod, fn.__name__, shim)
+    plain_kernels = [(name, plain_calls, name)
+                     for name in ('wsst2_rows', 'fsst2_rows')]
+    for name in calls:
+        avoids[name] = avoids.get(name, ()) + ('wsst2_rows', 'fsst2_rows')
     # the plans and spectra the unpadded and numeric calls' plain paths
     # take: the plan without padding (was_padded=False) and with it
     wv32 = resolve_wavelet(spec, N=N)
@@ -1132,11 +1271,18 @@ def main():
                                                 (na,)).copy(),
                                 dtype=torch.float32, device=dev),
                 pl.params, pl.params['omax'] + 1)
-    launches = dict.fromkeys((name for name, _, _ in all_kernels), 0)
+    # get_w of order 2: (the w2 mode's inputs in `w2k`, the same call
+    # without get_w)
+    w2_calls = {'ssq_cwt2_getw': ('radix-4', 'ssq_cwt2'),
+                'ssq_cwt2_getw_padnone': ('mixed', 'ssq_cwt2_padnone'),
+                'ssq_stft2_getw': ('b7', 'ssq_stft2'),
+                'ssq_stft2_getw_b4': ('b7b', 'ssq_stft2_b4')}
+    launches = dict.fromkeys((name for name, _, _ in all_kernels
+                              + plain_kernels), 0)
     for name, fn in calls.items():
         fn()                                  # plan memo + first launch
         torch.cuda.synchronize()
-        out, counts = launches_of(all_kernels, fn)
+        out, counts = launches_of(all_kernels + plain_kernels, fn)
         check(all(counts[kn] >= 1 for kn in needs[name])
               and not any(counts[kn] for kn in avoids.get(name, ())),
               "%s at N=%d launched its kernels: %s" % (name, N, counts))
@@ -1433,6 +1579,38 @@ def main():
             check(gd <= 1e-3, "ssq_cwt(difftype='numeric'): w gated on the "
                   "plain path's cells but %.4f%% (limit 0.1%%)" % (100 * gd))
             del Tx, Wx_pub, w_pub, W_p, W_s, w_p, k_p, v_p, Tx_p
+        elif name in w2_calls:
+            key, base = w2_calls[name]
+            Tx, W_pub, w2_pub = out[0], out[1], out[4]
+            aw = w2k[key]['args']
+            if name.startswith('ssq_cwt2'):
+                W_p, w2_p = wsst2_rows(*aw)
+                params_w, flip_w, c_w, nb_w = (
+                    (b8['args'][7], True, b8['c'], nbins2) if key == 'radix-4'
+                    else (mx['float32']['args'][8], True, mx['float32']['c'],
+                          mx['float32']['nb']))
+            else:
+                W_p, w2_p = fsst2_rows(*aw)
+                params_w, flip_w, c_w, nb_w = (b7['args'][4]['params'], False,
+                                               b7['c'], n_rows)
+            gd = float((torch.isinf(w2_pub) != torch.isinf(w2_p))
+                       .double().mean())
+            check(len(out) == 5 and Tx.shape == W_p.shape[:-2] + (nb_w, N)
+                  and W_pub.shape == w2_pub.shape == W_p.shape
+                  and rel_err(W_pub, W_p) <= 2e-5 and gd <= 1e-3
+                  and bool(torch.isfinite(torch.view_as_real(Tx)).all()),
+                  "%s: Tx %s, finite; W %.3g of max vs the plain path; w2 %s,"
+                  " inf on other cells than the plain path's on %.4f%% "
+                  "(limit 0.1%%)" % (name, tuple(Tx.shape),
+                                     rel_err(W_pub, W_p),
+                                     tuple(w2_pub.shape), 100 * gd))
+            k_p, v_p = compute_bins(w2_p, params_w, flip_w)
+            bins_criterion(Tx, shift_scatter_plain(W_p, k_p, v_p, nb_w, c_w),
+                           "public %s vs plain path" % name)
+            del W_p, w2_p, k_p, v_p
+            bins_criterion(Tx, calls[base]()[0], "%s: Tx vs the same call "
+                           "without get_w (%s)" % (name, base))
+            del Tx, W_pub, w2_pub
         else:
             Tx, Sx = out[0], out[1]
             check(Tx.shape == (n_rows, N) and Sx.shape == (n_rows, N)
@@ -1462,6 +1640,106 @@ def main():
         check(msg is not None and 'A6b' in msg and not any(counts.values()),
               "%s(padtype=None) at N=2002 raises naming A6b and launches no "
               "kernel: %r" % (what, msg))
+
+    # ---- the kernels' ceilings: one rule on every device -----------------
+    # a call just past each ceiling raises the same error naming C1b on
+    # the card and on the CPU, before any FFT or launch: the CWT kernel's
+    # radix-4 engine in float32 past 2^28 (one plane: cwt), 2^26 (two:
+    # ssq_cwt) and 2^24 (five: ssq_cwt2), reached by reflect padding
+    # (n_up = p2up(N)); the STFT kernel past 2^22; the scatters past 25600
+    # bins
+    sc8s = 2. ** (2 + np.arange(8) / 4)
+    for what, fn in (
+            ('cwt, n_up = 2^29', lambda d: stq.cwt(
+                np.ones(3 << 26, np.float32), scales=sc8s, nv=None,
+                device=d)),
+            ('ssq_cwt, n_up = 2^27', lambda d: stq.ssq_cwt(
+                np.ones(3 << 24, np.float32), scales=sc8s, device=d)),
+            ('ssq_cwt2, n_up = 2^25', lambda d: stq.ssq_cwt2(
+                np.ones(3 << 22, np.float32), scales=sc8s, device=d)),
+            ('ssq_stft2, Np2 > 2^22', lambda d: stq.ssq_stft2(
+                np.ones(1 << 22, np.float32), n_fft=n_fft, device=d)),
+            ('stft, Np2 > 2^22', lambda d: stq.stft(
+                np.ones(1 << 22, np.float32), n_fft=n_fft, device=d)),
+            ('ssq_stft, nbins = 25601', lambda d: stq.ssq_stft(
+                np.ones(4096, np.float32), n_fft=51200, window='hann',
+                device=d))):
+        msgs = []
+        for d in ('cuda', 'cpu'):
+            def refused():
+                try:
+                    fn(d)
+                except NotImplementedError as e:
+                    return str(e)
+                return None
+            msg, counts = launches_of(all_kernels, refused)
+            msgs.append(msg)
+            check(msg is not None and 'ROADMAP.md queue C, C1b' in msg
+                  and not any(counts.values()), "%s on device=%r raises "
+                  "naming C1b, launching nothing: %r" % (what, d, msg))
+        check(msgs[0] == msgs[1], "%s: the same error on both devices"
+              % what)
+    torch.cuda.empty_cache()
+
+    # ---- the radix-4 engine at its largest lengths, public calls ---------
+    # cwt(padtype=None) at n_up = 2^28 (one plane; three scales, the
+    # fewest the scale inference takes) and ssq_cwt2(padtype=None) at
+    # n_up = 2^24 (five planes, eight scales), float32, against the plain
+    # path on the card
+    sc3 = np.array([4., 16., 64.])
+    for lg, what in ((28, 'cwt'), (24, 'ssq_cwt2')):
+        nl = 1 << lg
+        xl = torch.randn(nl, generator=torch.Generator(
+            device=dev).manual_seed(lg), device=dev)
+        wvl = resolve_wavelet(spec, N=nl)
+        if what == 'cwt':
+            t1 = time.perf_counter()
+            out, counts = launches_of(all_kernels, lambda: stq.cwt(
+                xl, wavelet=spec, scales=sc3, nv=None, padtype=None))
+            t1 = time.perf_counter() - t1
+            Wl = out[0]
+            check(counts['cwt_fused'] >= 1
+                  and sum(counts.values()) == counts['cwt_fused'],
+                  "cwt(padtype=None) at n_up=2^28: the radix-4 engine only "
+                  "(%d C calls: one row fills the 2 GiB scratch)"
+                  % counts['cwt_fused'])
+            xhl = rfft(xl)
+            del xl
+            W_p = cwt_fused_plain(xhl, torch.as_tensor(
+                sc3, dtype=torch.float32, device=dev), wvl, nl, 0, nl, 1.,
+                False, True)[0]
+            err = rel_err(Wl, W_p)
+            check(Wl.shape == (3, nl) and err <= 2e-5,
+                  "cwt(padtype=None) at n_up=2^28=%dx%d, 3 scales: Wx %s, "
+                  "max|Wx - Wx_plain| = %.3g of max (limit 2e-5); %.3f s "
+                  "for the call with its first launch; card: %s"
+                  % (four_step(nl) + (tuple(Wl.shape), err, t1, card)))
+            del Wl, W_p, out, xhl
+        else:
+            out, counts = launches_of(all_kernels, lambda: stq.ssq_cwt2(
+                xl, spec, scales=sc8s, padtype=None))
+            check(counts['cwt_bins2'] >= 1 and counts['scatter_kv'] == 1,
+                  "ssq_cwt2(padtype=None) at n_up=2^24: B8 on the radix-4 "
+                  "engine and B2 (%s)" % counts)
+            pll, _ = _ssq_cwt_plan(wvl, nl, sc8s, None, None, 'peak', False,
+                                   1.)
+            scl = torch.as_tensor(pll.scales.ravel(), dtype=torch.float32,
+                                  device=dev)
+            cl = torch.as_tensor(np.broadcast_to(np.ravel(pll.const),
+                                                 (len(scl),)).copy(),
+                                 dtype=torch.float32, device=dev)
+            W_p, k_p = cwt_bins2_plain(rfft(xl), scl, wvl, nl, 0, nl, 1.,
+                                       pll.params, gamma32, True)
+            err = rel_err(out[1], W_p)
+            check(out[1].shape == (8, nl) and err <= 2e-5,
+                  "ssq_cwt2(padtype=None) at n_up=2^24=%dx%d, 8 scales: W "
+                  "%.3g of max vs the plain path (limit 2e-5); card: %s"
+                  % (four_step(nl) + (err, card)))
+            bins_criterion(out[0], scatter_kv_plain(
+                W_p, k_p, cl, pll.params['omax'] + 1),
+                "ssq_cwt2(padtype=None) at n_up=2^24 vs plain path")
+            del out, W_p, k_p, xl
+        torch.cuda.empty_cache()
 
     # ---- round trips -------------------------------------------------------
     Nc7 = 19600                           # 2^4 5^2 7^2: unpadded, mixed
@@ -1605,7 +1883,11 @@ def main():
     spec5[:, :xh8.shape[0]] = xh8
     b8_lib_ms = cuda_ms(lambda: torch.fft.ifft(spec5, dim=-1), reps=5)
     n_xh8 = xh8.numel()
-    del spec5, xh8, sc8, b8['args']
+    # B8's w2 mode on the same inputs; the same DFT core as yardstick
+    aw = w2k['radix-4'].pop('args')
+    w2_ms = cuda_ms(lambda: cwt_w2(*aw))
+    w2_plain_ms = cuda_ms(lambda: wsst2_rows(*aw), reps=3)
+    del spec5, xh8, sc8, b8['args'], aw
     torch.cuda.empty_cache()
     xh7, tab7 = b7['args'][0], b7['args'][1]
     Np2_7 = xh7.shape[0]
@@ -1613,7 +1895,10 @@ def main():
     b7_plain_ms = cuda_ms(lambda: fsst2_conv_plain(*b7['args']), reps=3)
     prods5 = tab7 * xh7
     b7_lib_ms = cuda_ms(lambda: torch.fft.ifft(prods5, dim=-1), reps=5)
-    del prods5, xh7, tab7, b7['args']
+    aw = w2k['b7'].pop('args')
+    w7_ms = cuda_ms(lambda: fsst2_w(*aw))
+    w7_plain_ms = cuda_ms(lambda: fsst2_rows(*aw), reps=3)
+    del prods5, xh7, tab7, b7['args'], aw
     _BANK_CACHE.clear()
     torch.cuda.empty_cache()
 
@@ -1656,7 +1941,10 @@ def main():
                            warm=1)
     prods5 = tab7b * xh7b[:, None, None, :]
     b7b_lib_ms = cuda_ms(lambda: torch.fft.ifft(prods5, dim=-1), reps=3)
-    del prods5, xh7b, tab7b, b7b['args']
+    aw = w2k['b7b'].pop('args')
+    w7b_ms = cuda_ms(lambda: fsst2_w(*aw))
+    w7b_plain_ms = cuda_ms(lambda: fsst2_rows(*aw), reps=2, warm=1)
+    del prods5, xh7b, tab7b, b7b['args'], aw
     torch.cuda.empty_cache()
     xh8b = b8b['args'][0]
     b8b_ms = cuda_ms(lambda: cwt_bins2(*b8b['args']))
@@ -1734,6 +2022,10 @@ def main():
                  cuda_ms(lambda: cwt_fused_plain(*a3dm), reps=5))
     mk['b8'] = (cuda_ms(lambda: cwt_bins2(*a8m)),
                 cuda_ms(lambda: cwt_bins2_plain(*a8m), reps=3))
+    aw = w2k['mixed'].pop('args')
+    mk['w2'] = (cuda_ms(lambda: cwt_w2(*aw)),
+                cuda_ms(lambda: wsst2_rows(*aw), reps=3))
+    del aw
     a64 = mx['float64']['args']
     mk['b1_64'] = (cuda_ms(lambda: cwt_bins(*a64)),
                    cuda_ms(lambda: cwt_bins_plain(*a64), reps=3))
@@ -1831,6 +2123,7 @@ def main():
         'b3': bound(xhm_b + na * nm * cb, na * dft_m),
         'b3d': bound(xhm_b + 2 * na * nm * cb, 2 * na * dft_m),
         'b8': bound(xhm_b + na * nm * (cb + 4), 5 * na * dft_m),
+        'w2': bound(xhm_b + na * nm * (cb + rb), 5 * na * dft_m),
         'b3b': bound(n_xhbm * cb + na * rb + B4N * na * nm * (cb + 4),
                      2 * B4N * na * dft_m)}
     # B6, B7 and B8 over the batch: their one-signal functions B4N times
@@ -1850,6 +2143,13 @@ def main():
     b4h['bytes'] = 2 * nr8 * ns8 * cb + 2 * nr8 * rb + nr8 * ns8 * cb
     b4h['bound'], b4h['by'] = bound(b4h['bytes'],
                                     12 * nr8 * ns8 + 4 * n_valid8)
+    # the w2 modes: B8's and B7's functions with w2 (real) written in
+    # place of k
+    w2_bound, w2_by = bound(n_xh8 * cb + na * rb + na * N * (cb + rb),
+                            b8_flops)
+    w7_bytes = Np2_7 * cb + n_rows * N * (cb + rb)
+    w7_bound, w7_by = bound(w7_bytes, b7_flops)
+    w7b_bound, w7b_by = bound(B4N * w7_bytes, B4N * b7_flops)
     # B5: v, k, the mask and const read, out written; per valid cell the
     # multiply by const and the accumulate (4 FLOP)
     b5_bytes = na * N * (cb + 4 + 1) + na * rb + nbins * N * cb
@@ -1890,6 +2190,16 @@ def main():
               "%.3f, torch.fft.ifft DFT core %.3f, bound %.3f by %s); card: "
               "%s" % ((nm,) + four_step(nm) + (what,) + mk[key] + (lib,)
                       + mb[key] + (card,)), flush=True)
+    print("w2 modes: B8 (cwt_w2) %.3f ms at (%d, %d), n_up=%d (plain %.3f, "
+          "torch.fft.ifft DFT core %.3f, bound %.3f by %s); on the mixed "
+          "engine at n_up=%d %.3f ms (plain %.3f, DFT core %.3f, bound %.3f "
+          "by %s); B7 (fsst2_w) %.3f ms (plain %.3f, DFT core %.3f, bound "
+          "%.3f by %s); over a (%d, %d) batch %.3f ms (plain %.3f, DFT core "
+          "%.3f, bound %.3f by %s); card: %s"
+          % (w2_ms, na, N, n_up, w2_plain_ms, b8_lib_ms, w2_bound, w2_by,
+             nm, mk['w2'][0], mk['w2'][1], mlib[5], mb['w2'][0], mb['w2'][1],
+             w7_ms, w7_plain_ms, b7_lib_ms, w7_bound, w7_by, B4N, N, w7b_ms,
+             w7b_plain_ms, b7b_lib_ms, w7b_bound, w7b_by, card), flush=True)
     print("mixed engine at n_up=99225=315x315 float64, B1: %.3f ms (plain "
           "%.3f); card: %s" % (mk['b1_64'] + (card,)), flush=True)
     print("B8 %.3f ms (plain %.3f, torch.fft.ifft DFT core %.3f, bound "
@@ -2021,7 +2331,8 @@ def main():
             ('cwt_bins_mixed', 'b1', mx['float32']['err'], mlib[2]),
             ('cwt_fused_mixed', 'b3', mx['float32']['err3'], mlib[1]),
             ('cwt_bins2_mixed', 'b8', mx['float32']['err8'], mlib[5]),
-            ('cwt_bins_batched_mixed', 'b3b', mx['b3b_err'], mlib['b3b'])):
+            ('cwt_bins_batched_mixed', 'b3b', mx['b3b_err'], mlib['b3b']),
+            ('cwt_w2_mixed', 'w2', w2k['mixed']['err'], mlib[5])):
         kernels.append(dict(
             name=name, route='cuda',
             source='ssqueezepy_tpu_torch/csrc/cwt_bins.cu',
@@ -2029,6 +2340,28 @@ def main():
             launches=launches[name], max_abs_err=err, ms=mk[key][0],
             plain_ms=mk[key][1], bound_ms=mb[key][0], bound_by=mb[key][1],
             library_ms=lib))
+    # the w2 modes of B8 (radix 4, n_up = 262144) and B7 (one signal and
+    # the (4, 160000) batch)
+    kernels += [
+        dict(name='cwt_w2', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/cwt_bins.cu',
+             replaces='ssqueezepy_tpu/ops/cwt_pallas.py:70',
+             launches=launches['cwt_w2'], max_abs_err=w2k['radix-4']['err'],
+             ms=w2_ms, plain_ms=w2_plain_ms, bound_ms=w2_bound,
+             bound_by=w2_by, library_ms=b8_lib_ms),
+        dict(name='fsst2_w', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/stft_conv.cu',
+             replaces='ssqueezepy_tpu/ops/stft_conv.py:655',
+             launches=launches['fsst2_w'], max_abs_err=w2k['b7']['err'],
+             ms=w7_ms, plain_ms=w7_plain_ms, bound_ms=w7_bound,
+             bound_by=w7_by, library_ms=b7_lib_ms),
+        dict(name='fsst2_w_batched', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/stft_conv.cu',
+             replaces='ssqueezepy_tpu/ops/stft_conv.py:655',
+             launches=launches['fsst2_w_batched'],
+             max_abs_err=w2k['b7b']['err'], ms=w7b_ms,
+             plain_ms=w7b_plain_ms, bound_ms=w7b_bound, bound_by=w7b_by,
+             library_ms=b7b_lib_ms)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 # -*- coding: utf-8 -*-
 """Digests of every output of the CWT kernel (`csrc/cwt_bins.cu`: B1 and
 B3b in bins mode, B3 with one plane and with two, in the L1 and L2 norm,
-B8 in order-2 mode, one signal and a batch), so that two checkouts of the
-port can be compared bit for bit on one NVIDIA GPU; and, with `--time`,
-the kernels' times at the headline.
+B8 in order-2 mode and, where the checkout has it (`cwt_w2`), in its w2
+mode, one signal and a batch, on both DFT engines), so that two checkouts
+of the port can be compared bit for bit on one NVIDIA GPU; and, with
+`--time`, the kernels' times at the headline.
 
     python3 scripts/torch_cwt_digest.py [--root DIR] [--time] > out.json
 
@@ -13,11 +14,14 @@ the kernels' times at the headline.
 a seed, reflect-padded to a power of two (the radix-4 engine): N = 160000
 (n_up = 262144, the bench's 293 log-piecewise scales) in float32, and
 N = 10000 (n_up = 32768) and 1000 (n_up = 2048) in float32 and float64
-with their own log-piecewise scales; a batch stacks the spectrum with
-those of seeds N + 1 and N + 2. Prints one JSON object {"<N> <dtype>
-<kernel> <output>": sha256 of the bytes, ...} with the card's name and
-power limit; `--time` adds "<kernel> ms" at N = 160000 (CUDA events, mean
-of 20 after 3 warm-up launches). Needs a CUDA device.
+with their own log-piecewise scales; and unpadded (n_up = N, the mixed
+engine, keys "<N> <dtype> unpadded ..."): N = 160000 = 400 x 400 in
+float32 (the 293 scales) and 99225 = 315 x 315 in float64; a batch
+stacks the spectrum with those of seeds N + 1 and N + 2. Prints one JSON
+object {"<N> <dtype> <kernel> <output>": sha256 of the bytes, ...} with
+the card's name and power limit; `--time` adds "<kernel> ms" at N =
+160000 reflect-padded (CUDA events, mean of 20 after 3 warm-up launches).
+Needs a CUDA device.
 """
 import argparse
 import hashlib
@@ -42,6 +46,7 @@ def main():
     import ssqueezepy_tpu_torch as stq
     from ssqueezepy_tpu_torch.convert import plan_from_numpy
     from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
+    from ssqueezepy_tpu_torch.ops import cwt_cuda
     from ssqueezepy_tpu_torch.ops.cwt_cuda import (cwt_bins, cwt_bins2,
                                                    cwt_fused)
     from ssqueezepy_tpu_torch.ops.fft import rfft
@@ -69,23 +74,28 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip()}
-    cases = [(160000, 'float32')] + [(N, dtype) for N in (10000, 1000)
-                                     for dtype in ('float32', 'float64')]
-    for N, dtype in cases:
+    cases = [(160000, 'float32', 'reflect')] + [
+        (N, dtype, 'reflect') for N in (10000, 1000)
+        for dtype in ('float32', 'float64')] + [
+        (160000, 'float32', None), (99225, 'float64', None)]
+    for N, dtype, padtype in cases:
         tdt = getattr(torch, dtype)
         spec = ('gmw', {'dtype': dtype})
         wv = resolve_wavelet(spec, N=N)
         scales = stq.process_scales('log-piecewise', N, wv)
         if N == 160000:
             scales = scales[:300]
-        plan = plan_from_numpy(scales, None, spec, N)
+        plan = plan_from_numpy(scales, None, spec, N,
+                               padded=padtype is not None)
         sc = torch.as_tensor(plan['scales'].ravel(), dtype=tdt, device=dev)
-        n_up, n1, _ = pad_params(N, 'reflect')
+        n_up, n1 = ((N, 0) if padtype is None
+                    else pad_params(N, padtype)[:2])
 
         def spectrum(seed):
-            x = np.random.default_rng(seed).standard_normal(N)
-            return rfft(padsignal(torch.as_tensor(x, dtype=tdt, device=dev),
-                                  'reflect')).contiguous()
+            x = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+                N), dtype=tdt, device=dev)
+            return rfft(x if padtype is None
+                        else padsignal(x, padtype)).contiguous()
 
         gamma = 10 * float(np.finfo(dtype).eps)
         runs = {
@@ -101,17 +111,21 @@ def main():
             'B8': (('W', 'k'), lambda z: cwt_bins2(
                 z, sc, wv, n_up, n1, N, 1., plan['params'], gamma, True)),
         }
+        if hasattr(cwt_cuda, 'cwt_w2'):
+            runs['B8 w2'] = (('W', 'w2'), lambda z: cwt_cuda.cwt_w2(
+                z, sc, wv, n_up, n1, N, 1., gamma))
         xh = spectrum(N)
         xb = torch.stack([xh, spectrum(N + 1), spectrum(N + 2)])
+        tag = '' if padtype else 'unpadded '
         for kernel, (names, run) in runs.items():
-            for key, z in (('%d %s ' % (N, dtype), xh),
-                           ('3x%d %s ' % (N, dtype), xb)):
+            for key, z in (('%d %s %s' % (N, dtype, tag), xh),
+                           ('3x%d %s %s' % (N, dtype, tag), xb)):
                 outs = run(z)
                 for name, o in zip(names, outs):
                     out[key + '%s %s' % (kernel, name)] = digest(o)
                 del outs
             torch.cuda.empty_cache()
-        if a.time and N == 160000:
+        if a.time and N == 160000 and padtype:
             for kernel, (_, run) in runs.items():
                 out['%s ms' % kernel] = ms(lambda: run(xh))
         del xh, xb

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 # -*- coding: utf-8 -*-
-"""Host-clock time per call of the padded CWT calls and `ssq_stft`, for
-one checkout of the port, on one NVIDIA GPU: run it for two checkouts in
-turns (parent, change, parent, change, ...) in one process each to
-compare them without the order effects of a longer script.
+"""Host-clock time per call of the padded CWT calls, `ssq_stft` and the
+reassignment from a phase transform, for one checkout of the port, on
+one NVIDIA GPU: run it for two checkouts in turns (parent, change,
+parent, change, ...) in one process each to compare them without the
+order effects of a longer script.
 
     python3 scripts/torch_e2e_time.py [--root DIR] [--rounds 5]
 
 `--root` names the checkout whose `ssqueezepy_tpu_torch` is imported
 (default: the one holding this script). White noise from a seed at
 N = 160000, float32: `ssq_cwt` (the bench's 293 log-piecewise scales and
-their ssq_freqs), `cwt` (the same scales), `ssq_cwt(get_dWx=True)` and
-`ssq_stft` (n_fft = 598). Each call is warmed up 5 times, then timed in
-`--rounds` rounds of 20 calls ending in a synchronize. Prints one JSON
-object {"root": DIR, "card": ..., "<call>": [ms per call, one per
-round], ...}. Needs a CUDA device.
+their ssq_freqs), `cwt` (the same scales), `ssq_cwt(get_dWx=True)`,
+`ssq_stft` (n_fft = 598), `ssq_cwt(get_w=True)` and `ssqueeze` of that
+call's Wx and w (`ssqueeze_w`). Each call is warmed up 5 times, then
+timed in `--rounds` rounds of 20 calls ending in a synchronize. Prints
+one JSON object {"root": DIR, "card": ..., "<call>": [ms per call, one
+per round], ...}. Needs a CUDA device.
 """
 import argparse
 import json
@@ -57,7 +59,12 @@ def main():
         'ssq_cwt': lambda: stq.ssq_cwt(x, **kw),
         'cwt': lambda: stq.cwt(x, wavelet=spec, scales=scales),
         'ssq_cwt_dwx': lambda: stq.ssq_cwt(x, get_dWx=True, **kw),
-        'ssq_stft': lambda: stq.ssq_stft(x, n_fft=598)}
+        'ssq_stft': lambda: stq.ssq_stft(x, n_fft=598),
+        'ssq_cwt_getw': lambda: stq.ssq_cwt(x, get_w=True, **kw),
+        'ssqueeze_w': lambda: stq.ssqueeze(
+            held[1], w=held[4], scales=scales, ssq_freqs=freqs,
+            flipud=True)}
+    held = calls['ssq_cwt_getw']()
     out = {'root': a.root, 'card': subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,

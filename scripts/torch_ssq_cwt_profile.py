@@ -18,8 +18,11 @@ headline: the bench's 293-row log-piecewise plan and its ssq_freqs),
 `ssq_cwt2_b4` (those calls on the (4, N) batch), `ssq_cwt_padnone`,
 `ssq_cwt_padnone_b4`, `cwt_padnone`, `ssq_cwt2_padnone` (`padtype=None`,
 the same scales, no ssq_freqs: n_up = N on the CWT kernel's mixed engine
-at N = 160000), `cwt_rpadded` (`cwt(rpadded=True)`) or `ssq_cwt_numeric`
-(`ssq_cwt(difftype='numeric', get_w=True)`, the same scales) —
+at N = 160000), `cwt_rpadded` (`cwt(rpadded=True)`), `ssq_cwt_numeric`
+(`ssq_cwt(difftype='numeric', get_w=True)`, the same scales),
+`ssq_cwt2_getw`, `ssq_cwt2_getw_padnone`, `ssq_stft2_getw` or
+`ssq_stft2_getw_b4` (the order-2 calls with `get_w=True`: the w2 modes
+of B8 and B7, then B5) —
 under `torch.profiler` after warm-up and prints one JSON line: device
 time per kernel name (summed over the profiled calls, divided by the
 call count), the wall time per call, and the device's idle share of
@@ -50,7 +53,9 @@ def main():
                              'ssq_cwt2_b4', 'ssq_cwt_padnone',
                              'ssq_cwt_padnone_b4', 'cwt_padnone',
                              'cwt_rpadded', 'ssq_cwt_numeric',
-                             'ssq_cwt2_padnone'))
+                             'ssq_cwt2_padnone', 'ssq_cwt2_getw',
+                             'ssq_cwt2_getw_padnone', 'ssq_stft2_getw',
+                             'ssq_stft2_getw_b4'))
     ap.add_argument('--n', type=int, default=160000)
     ap.add_argument('--calls', type=int, default=5)
     a = ap.parse_args()
@@ -113,6 +118,13 @@ def main():
             x, wavelet=spec, scales=scales, difftype='numeric', get_w=True),
         'ssq_cwt2_padnone': lambda: stq.ssq_cwt2(x, spec, scales=scales,
                                                  padtype=None),
+        'ssq_cwt2_getw': lambda: stq.ssq_cwt2(x, spec, scales=scales,
+                                              get_w=True),
+        'ssq_cwt2_getw_padnone': lambda: stq.ssq_cwt2(
+            x, spec, scales=scales, padtype=None, get_w=True),
+        'ssq_stft2_getw': lambda: stq.ssq_stft2(x, n_fft=598, get_w=True),
+        'ssq_stft2_getw_b4': lambda: stq.ssq_stft2(xb, n_fft=598,
+                                                   get_w=True),
     }[a.transform]
     for _ in range(3):
         call()

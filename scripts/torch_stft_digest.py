@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 # -*- coding: utf-8 -*-
 """Digests of every output of the STFT table kernel (`csrc/stft_conv.cu`:
-B6 in its modes 0 Sx, 1 Sx + dSx, 2 Sx + bins, and B7), so that two
-checkouts of the port can be compared bit for bit on one NVIDIA GPU.
+B6 in its modes 0 Sx, 1 Sx + dSx, 2 Sx + bins, and B7; and B7's w2 mode
+where the checkout has it, `fsst2_w`), so that two checkouts of the port
+can be compared bit for bit on one NVIDIA GPU.
 
     python3 scripts/torch_stft_digest.py [--root DIR] > digests.json
 
@@ -42,6 +43,7 @@ def main():
     from ssqueezepy_tpu_torch.models.ssq_stft import fsst2_plan, stft_plan
     from ssqueezepy_tpu_torch.models.stft import signal_spectrum
     from ssqueezepy_tpu_torch.ops.stft_conv import conv_bank, conv_table
+    from ssqueezepy_tpu_torch.ops import stft_cuda
     from ssqueezepy_tpu_torch.ops.stft_cuda import fsst2_conv, stft_conv
 
     def digest(t):
@@ -83,6 +85,9 @@ def main():
                                                             bins)),
                 ('B7', ('V', 'k'), lambda z: fsst2_conv(z, bank, N, 1.,
                                                         bins7)))
+        if hasattr(stft_cuda, 'fsst2_w'):
+            runs += (('B7 w2', ('V', 'w2'), lambda z: stft_cuda.fsst2_w(
+                z, bank, N, 1., bins7['Sfs'], gamma)),)
         key = '%d %s ' % (N, dtype)
         for mode, names, run in runs:
             for name, o in zip(names, run(xh)):

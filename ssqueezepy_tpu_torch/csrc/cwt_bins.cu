@@ -2,14 +2,20 @@
 //
 // Replaces the TPU kernel ssqueezepy_tpu/ops/cwt_pallas.py::_make_kernel
 // in three of its modes, each over a batch of spectra (B spectra x na
-// scales, row g = b * na + scale):
+// scales, row g = b * na + scale), and adds one output mode of its own:
 //   * bins mode (entry points cwt_fused_bins_direct for one signal and
 //     cwt_fused_bins_pallas for a batch): outputs Wx and the bin plane k;
 //     the phase / gate / bin arithmetic is bins.cuh's phase_bin;
 //   * plain/derivative mode (entry point cwt_fused_pallas): outputs Wx,
 //     and dWx when asked;
 //   * order-2 (WSST2) mode (entry point cwt_fused_bins2_direct): outputs
-//     W and the bin plane k of the chirp-corrected estimate (below).
+//     W and the bin plane k of the chirp-corrected estimate (below);
+//   * order-2 w2 mode: the same, with the estimate w2 written as a real
+//     plane in place of its bins, for ssq_cwt2(get_w=True) (the TPU
+//     package computes that plane on its XLA path,
+//     ssqueezepy_tpu/models/ssq_cwt2.py::_wsst2_rows). Both order-2
+//     epilogues take w2 from one function (order2_w), so W and w2 are the
+//     bits that the bins mode bins.
 // For each scale a and output time n in [n1, n1 + N):
 //
 //   W[a, n] = (1/n_up) sum_m psih(a xi_m) h_m xh_m e^{+2 pi i m n / n_up}
@@ -60,9 +66,18 @@
 // through device memory twice (~2.5 GB), which the bound does not count.
 // Order-2 mode: five DFTs per scale (~33 GFLOP) against the same ~0.56 GB,
 // operation-bound; its five scratch planes (~6 GB of traffic at that shape)
-// exceed the wrapper's scratch budget, so rows run in two chunks. Wx-only
-// mode: one DFT per scale against ~0.37 GB, bound by bytes. Templated on
-// float and double.
+// exceed the wrapper's scratch budget, so rows run in two chunks; the w2
+// mode is the same work and the same bytes (w2 in place of k, 4 bytes a
+// cell in float32). Wx-only mode: one DFT per scale against ~0.37 GB,
+// bound by bytes. Templated on float and double.
+//
+// Sizes: one column of a stage takes at most 220 KB of shared memory
+// (ops/cwt_cuda.py::_SMEM_MAX, under the card's 227 KB per block), so the
+// radix-4 engine reaches n_up = 2^28 with one plane in float32 (f1 =
+// 2^14, one sequence of 16385 elements and 2^13 twiddles per block). Every
+// offset that can pass 2^31 (rows x n_up, planes x rows x n_up, row x N)
+// is size_t; int ones stay below n_up (positions, twiddle indices
+// m2 k1 < n_up) or below one block's shared memory.
 //
 // The engine lays shared memory out so that a block's accesses avoid bank
 // conflicts (32 banks of 4 bytes, 128 bytes per wavefront):
@@ -139,12 +154,13 @@ __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 
 // Output modes (ops/cwt_cuda.py _OUT_*): (Wx, k); Wx; (Wx, dWx); (W, k)
-// of order 2.
-enum { MODE_BINS = 0, MODE_W = 1, MODE_W_DW = 2, MODE_BINS2 = 3 };
+// of order 2; (W, w2) of order 2.
+enum { MODE_BINS = 0, MODE_W = 1, MODE_W_DW = 2, MODE_BINS2 = 3,
+       MODE_W2 = 4 };
 
 // planes a mode's DFT carries
 __host__ __device__ constexpr int planes_of(int mode) {
-  return mode == MODE_W ? 1 : mode == MODE_BINS2 ? 5 : 2;
+  return mode == MODE_W ? 1 : mode >= MODE_BINS2 ? 5 : 2;
 }
 
 // DFT engines (ops/cwt_cuda.py _ENGINE_*): radix 4 in place, for a
@@ -203,6 +219,32 @@ __device__ __forceinline__ CT cdiv(CT a, CT b, T tiny) {
   y.x = (a.x * b.x + a.y * b.y) / d;
   y.y = (a.y * b.x - a.x * b.y) / d;
   return y;
+}
+
+__device__ __forceinline__ float inf_t(float) {
+  return __int_as_float(0x7f800000);
+}
+__device__ __forceinline__ double inf_t(double) {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
+
+// The order-2 estimate of one cell from its five planes: p2 = (Bd W -
+// A B) / (B^2 - C W), p1 = (A + p2 B) / W, both divides regularized,
+// w2 = |Im p1| / (2 pi dt); +inf where w2 is not finite or where |W|^2
+// <= gate (gamma^2). MODE_BINS2 bins it, MODE_W2 writes it.
+template <typename T, typename CT>
+__device__ __forceinline__ T order2_w(CT W, CT A, CT B, CT Bd, CT C,
+                                      const Cfg& c, T gate) {
+  const T tiny = (T)c.tiny;
+  const CT p2 = cdiv(csub(cmul(Bd, W), cmul(A, B)),
+                     csub(cmul(B, B), cmul(C, W)), tiny);
+  const CT pB = cmul(p2, B);
+  CT num;
+  num.x = A.x + pB.x;
+  num.y = A.y + pB.y;
+  const T w2 = fabs_t(cdiv(num, W, tiny).y) / (T)c.two_pi_dt;
+  const bool valid = (W.x * W.x + W.y * W.y > gate) && finite_t(w2);
+  return valid ? w2 : inf_t(w2);
 }
 
 // tw[k] = e^{+2 pi i k / L}, k < L/2 (inverse sign)
@@ -435,7 +477,7 @@ __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
 
 // Stage 2: the length-f2 DFT over m2 of the mode's planes, then its
 // epilogue on the kept k2: Wx and k (bins), Wx (Wx only), Wx and dWx
-// (derivative), W and k of the order-2 estimate.
+// (derivative), W and k of the order-2 estimate, W and the estimate w2.
 template <typename T, int MODE, int ENG>
 __global__ void bins_stage2(const typename Cplx<T>::type* __restrict__ scratch,
                             Cfg c, typename Cplx<T>::type* __restrict__ wx,
@@ -514,17 +556,12 @@ __global__ void bins_stage2(const typename Cplx<T>::type* __restrict__ scratch,
       const CT A = buf[(P + p) * S + k2], B = buf[(2 * P + p) * S + k2];
       const CT Bd = buf[(3 * P + p) * S + k2], C = buf[(4 * P + p) * S + k2];
       wx[row + j] = W;
-      const T tiny = (T)c.tiny;
-      const CT p2 = cdiv(csub(cmul(Bd, W), cmul(A, B)),
-                         csub(cmul(B, B), cmul(C, W)), tiny);
-      const CT pB = cmul(p2, B);
-      CT num;
-      num.x = A.x + pB.x;
-      num.y = A.y + pB.y;
-      const T w2 = fabs_t(cdiv(num, W, tiny).y) / (T)c.two_pi_dt;
-      const bool valid = (W.x * W.x + W.y * W.y > gate) && finite_t(w2);
-      static_cast<int32_t*>(out2)[row + j] =
-          valid ? bin_of<T>(w2, c.bm) : -1;
+      const T w2 = order2_w<T>(W, A, B, Bd, C, c, gate);
+      if constexpr (MODE == MODE_BINS2)
+        static_cast<int32_t*>(out2)[row + j] =
+            finite_t(w2) ? bin_of<T>(w2, c.bm) : -1;
+      else
+        static_cast<T*>(out2)[row + j] = w2;
     }
   }
 }
@@ -580,6 +617,9 @@ int launch_engine(const void* xh, const void* scales, const Cfg& c,
     case MODE_BINS2:
       return launch_mode<T, MODE_BINS2, ENG>(xh, scales, c, scratch, wx,
                                              out2, st);
+    case MODE_W2:
+      return launch_mode<T, MODE_W2, ENG>(xh, scales, c, scratch, wx, out2,
+                                          st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -619,8 +659,8 @@ Cfg make_cfg(const int* ip, const double* dp) {
 }  // namespace
 
 // ip: 24 ints, dp: 14 doubles (layout in ops/cwt_cuda.py). `out2` is k
-// (out_mode 0 or 3), dWx (2) or null (1); out_mode in ip says which. Returns
-// cudaGetLastError() after the launches.
+// (out_mode 0 or 3), dWx (2), w2 (4, real) or null (1); out_mode in ip
+// says which. Returns cudaGetLastError() after the launches.
 extern "C" int cwt_bins_f32(const void* xh, const void* scales, const int* ip,
                             const double* dp, void* scratch, void* wx,
                             void* out2, void* stream) {

@@ -2,14 +2,17 @@
 //
 // Replaces the TPU kernels ssqueezepy_tpu/ops/stft_conv.py::_make_stft_kernel
 // (entries stft_pallas_rows, stft_conv_bins, stft_conv) and, in mode 3,
-// fsst2_pallas_rows (FSST2, below). At hop 1 each STFT
+// fsst2_pallas_rows (FSST2, below); mode 4 is mode 3 with w2 written as a
+// real plane in place of its bins, for ssq_stft2(get_w=True) (the TPU
+// package computes that plane on its XLA path,
+// ssqueezepy_tpu/models/ssq_stft.py::_fsst2_rows). At hop 1 each STFT
 // row i is a correlation of the padded signal with a fixed kernel, so with
 // xh = fft(pad(x), Np2) and the row tables H, Hd (n_rows, Np2):
 //
 //   Sx[i, n]  = (1/Np2) sum_m H[i, m]  xh[m] e^{+2 pi i m n / Np2}
 //   dSx[i, n] = fs * the same sum over Hd[i, m]
 //
-// for n in [0, N). Four modes: 0 Sx; 1 Sx and dSx; 2 Sx and the bin
+// for n in [0, N). Five modes: 0 Sx; 1 Sx and dSx; 2 Sx and the bin
 // plane k, where dSx stays in the kernel and k[i, n] is the lin bin of
 // w = |Sfs[i] - Im(dSx / Sx) / 2pi| (round half to even, clamped to
 // [0, omax], flipud), or -1 where |Sx|^2 <= gamma^2; 3 FSST2: H is a bank
@@ -19,7 +22,10 @@
 //        (Vtd V - Vt Vg1)) Re(Vt/V)|
 // (divides regularized by |den|^2 + tiny; XLA twin
 // ssqueezepy_tpu/models/ssq_stft.py _fsst2_rows, products in its order);
-// V is written, the four other rows stay in the kernel.
+// V is written, the four other rows stay in the kernel; 4 FSST2 with V
+// and w2 written, +inf where |V|^2 <= gamma^2 or w2 is not finite. Modes 3
+// and 4 take w2 from one function (fsst2_w), so V and w2 are the bits
+// that mode 3 bins.
 //
 // Design: four-step inverse DFT over Np2 = f1 * f2 with n = k1 + f1 k2,
 // m = m1 f2 + m2, both steps in these kernels (no cuFFT). Np2 is
@@ -96,12 +102,14 @@ __device__ __forceinline__ CT cdiv(CT a, CT b, T tiny) {
   return y;
 }
 
-// Modes (ops/stft_cuda.py _MODE_*): Sx; Sx and dSx; Sx and k; FSST2.
-enum { MODE_SX = 0, MODE_SX_DSX = 1, MODE_BINS = 2, MODE_FSST2 = 3 };
+// Modes (ops/stft_cuda.py _MODE_*): Sx; Sx and dSx; Sx and k; FSST2 (V
+// and k); FSST2 (V and w2).
+enum { MODE_SX = 0, MODE_SX_DSX = 1, MODE_BINS = 2, MODE_FSST2 = 3,
+       MODE_FSST2_W = 4 };
 
 // planes a mode's DFT carries
 __host__ __device__ constexpr int planes_of(int mode) {
-  return mode == MODE_SX ? 1 : mode == MODE_FSST2 ? 5 : 2;
+  return mode == MODE_SX ? 1 : mode >= MODE_FSST2 ? 5 : 2;
 }
 
 // Threads per block of both launches.
@@ -113,8 +121,41 @@ struct Cfg {
   int tab_rows;                            // rows of each table (i)
   int S1, S2, sw1, sw2;                    // sequence strides, swizzles
   double inv_n, fs, gamma_gate, vmin, dv;
-  double tiny, two_pi, fs_2pi;             // mode 3: regularizer, 2 pi, fs/2pi
+  // modes 3-4: the divides' regularizer, 2 pi, fs / 2 pi
+  double tiny, two_pi, fs_2pi;
 };
+
+__device__ __forceinline__ float inf_t(float) {
+  return __int_as_float(0x7f800000);
+}
+__device__ __forceinline__ double inf_t(double) {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
+
+// The lin bin of w: round half to even, clamped to [0, omax], flipud.
+template <typename T>
+__device__ __forceinline__ int lin_bin(T w, const Cfg& c) {
+  const int k = (int)fmin_t(rint_t(fmax_t((w - (T)c.vmin) / (T)c.dv, (T)0)),
+                            (T)c.omax);
+  return c.flipud ? c.omax - k : k;
+}
+
+// The chirp-corrected frequency of one cell from its five rows V, Vg1,
+// Vt, Vtd, Vd2 (fs enters only here: per-sample windows): w2 = |sfs_i -
+// fs Im(Vg1 / V) / 2pi + (fs / 2pi) Im((Vd2 V - Vg1^2) / (Vtd V - Vt Vg1))
+// Re(Vt / V)|, divides regularized; +inf where w2 is not finite or where
+// |V|^2 <= gate (gamma^2). MODE_FSST2 bins it, MODE_FSST2_W writes it.
+template <typename T, typename CT>
+__device__ __forceinline__ T fsst2_w(CT V, CT Vg1, CT Vt, CT Vtd, CT Vd2,
+                                     T sfs_i, T gate, const Cfg& c) {
+  const T tiny = (T)c.tiny;
+  const T w1 = sfs_i - (T)c.fs * cdiv(Vg1, V, tiny).y / (T)c.two_pi;
+  const T trel = cdiv(Vt, V, tiny).x;
+  const T q = cdiv(csub(cmul(Vd2, V), cmul(Vg1, Vg1)),
+                   csub(cmul(Vtd, V), cmul(Vt, Vg1)), tiny).y;
+  const T w = fabs_t(w1 + (T)c.fs_2pi * q * trel);
+  return (V.x * V.x + V.y * V.y > gate && finite_t(w)) ? w : inf_t(w);
+}
 
 // The table of each plane (H; H, Hd; the five FSST2 tables).
 template <typename T>
@@ -308,39 +349,31 @@ __global__ void stft_stage2(const typename Cplx<T>::type* __restrict__ scratch,
     if (k2 >= k2hi || n >= c.N) continue;
     const CT Sv = res[p * S + k2];
     sx[row + n] = Sv;
-    if constexpr (MODE != MODE_SX) {
+    if constexpr (MODE >= MODE_FSST2) {
+      // Sv = V, then Vg1, Vt, Vtd, Vd2
+      const T w2 = fsst2_w<T>(Sv, res[(P + p) * S + k2],
+                              res[(2 * P + p) * S + k2],
+                              res[(3 * P + p) * S + k2],
+                              res[(4 * P + p) * S + k2], sfs_i, gate, c);
+      if constexpr (MODE == MODE_FSST2_W)
+        static_cast<T*>(out2)[row + n] = w2;
+      else
+        static_cast<int32_t*>(out2)[row + n] =
+            finite_t(w2) ? lin_bin<T>(w2, c) : -1;
+    } else if constexpr (MODE != MODE_SX) {
       CT D = res[(P + p) * S + k2];
-      T denom, w;
-      if constexpr (MODE == MODE_FSST2) {
-        // Sv = V, D = Vg1; fs enters only here (per-sample windows)
-        const CT Vt = res[(2 * P + p) * S + k2];
-        const CT Vtd = res[(3 * P + p) * S + k2];
-        const CT Vd2 = res[(4 * P + p) * S + k2];
-        const T tiny = (T)c.tiny;
-        const T w1 = sfs_i - fs * cdiv(D, Sv, tiny).y / (T)c.two_pi;
-        const T trel = cdiv(Vt, Sv, tiny).x;
-        const T q = cdiv(csub(cmul(Vd2, Sv), cmul(D, D)),
-                         csub(cmul(Vtd, Sv), cmul(Vt, D)), tiny).y;
-        denom = Sv.x * Sv.x + Sv.y * Sv.y;
-        w = fabs_t(w1 + (T)c.fs_2pi * q * trel);
-      } else {
-        D.x *= fs;
-        D.y *= fs;
-        if constexpr (MODE == MODE_SX_DSX) {
-          static_cast<CT*>(out2)[row + n] = D;
-          continue;
-        }
-        // w = |Sfs[i] - Im(D / S) / 2pi|, S = C + iE, D = A + iB
-        denom = Sv.x * Sv.x + Sv.y * Sv.y;
-        w = fabs_t(sfs_i - (D.y * Sv.x - D.x * Sv.y) / (denom * two_pi));
+      D.x *= fs;
+      D.y *= fs;
+      if constexpr (MODE == MODE_SX_DSX) {
+        static_cast<CT*>(out2)[row + n] = D;
+        continue;
       }
-      int k = -1;
-      if (denom > gate && finite_t(w)) {
-        k = (int)fmin_t(rint_t(fmax_t((w - (T)c.vmin) / (T)c.dv, (T)0)),
-                        (T)c.omax);
-        if (c.flipud) k = c.omax - k;
-      }
-      static_cast<int32_t*>(out2)[row + n] = k;
+      // w = |Sfs[i] - Im(D / S) / 2pi|, S = C + iE, D = A + iB
+      const T denom = Sv.x * Sv.x + Sv.y * Sv.y;
+      const T w =
+          fabs_t(sfs_i - (D.y * Sv.x - D.x * Sv.y) / (denom * two_pi));
+      static_cast<int32_t*>(out2)[row + n] =
+          (denom > gate && finite_t(w)) ? lin_bin<T>(w, c) : -1;
     }
   }
 }
@@ -376,9 +409,10 @@ int launch(const void* xh, const void* H, const void* Hd, const void* sfs,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   Tabs<T> tabs;
   const CT* h = static_cast<const CT*>(H);
-  for (int q = 0; q < 5; ++q)              // mode 3: the (5, rows, Np2) bank
+  for (int q = 0; q < 5; ++q)
     tabs.t[q] = h + (size_t)q * c.tab_rows * c.Np2;
-  tabs.t[1] = mode == MODE_FSST2 ? tabs.t[1] : static_cast<const CT*>(Hd);
+  // modes 3 and 4: the (5, rows, Np2) bank
+  tabs.t[1] = mode >= MODE_FSST2 ? tabs.t[1] : static_cast<const CT*>(Hd);
   switch (mode) {
     case MODE_SX:
       return launch_mode<T, MODE_SX>(xh, tabs, sfs, c, scratch, sx, out2, st);
@@ -391,6 +425,9 @@ int launch(const void* xh, const void* H, const void* Hd, const void* sfs,
     case MODE_FSST2:
       return launch_mode<T, MODE_FSST2>(xh, tabs, sfs, c, scratch, sx, out2,
                                         st);
+    case MODE_FSST2_W:
+      return launch_mode<T, MODE_FSST2_W>(xh, tabs, sfs, c, scratch, sx,
+                                          out2, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -411,8 +448,9 @@ Cfg make_cfg(const int* ip, const double* dp) {
 // ip: 16 ints, dp: 8 doubles (layout in ops/stft_cuda.py; ip[8] the
 // mode, ip[11] the rows of each table). `xh` is (B, Np2), the rows of
 // `sx` and `out2` B * tab_rows. `Hd`, `sfs` and `out2` may
-// be null where the mode does not read or write them; in mode 3 `H` is
-// the (5, tab_rows, Np2) bank and `Hd` is null.
+// be null where the mode does not read or write them; in modes 3 and 4
+// `H` is the (5, tab_rows, Np2) bank and `Hd` is null, and in mode 4
+// `out2` is the real w2 plane.
 // Returns cudaGetLastError() after the launches.
 extern "C" int stft_conv_f32(const void* xh, const void* H, const void* Hd,
                              const void* sfs, const int* ip, const double* dp,

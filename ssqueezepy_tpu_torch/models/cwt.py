@@ -8,15 +8,17 @@ Counterpart of `ssqueezepy_tpu/models/cwt.py` for GMW wavelets (order
 `icwt` (one- and two-integral). On a CUDA device `cwt` runs pad (none
 with `padtype=None`) -> `torch.fft.rfft` -> the fused CWT kernel
 (`cwt_fused`); with ``device='cpu'`` its plain version runs. The kernel
-takes a padded length n_up whose prime factors are at most 7
-(`ops/cwt_cuda.py::four_step`): any N when padded (n_up is a power of
-two), such N with `padtype=None` (n_up = N); another N raises there.
+takes a padded length n_up whose prime factors are at most 7 and whose
+DFT factors fit one block's shared memory (`ops/cwt_cuda.py::
+cwt_length_rule`): a padded N up to n_up = 2^28 (one plane, float32),
+such N with `padtype=None` (n_up = N); another raises on every device,
+before the signal's FFT.
 """
 import numpy as np
 import torch
 
 from ..configs import device_dtype
-from ..ops.cwt_cuda import cwt_fused, four_step
+from ..ops.cwt_cuda import cwt_fused, cwt_length_rule
 from ..ops.fft import ifft, rfft
 from ..ops.pad import padsignal, pad_params, _MODE_MAP
 from ..utils.common import not_ported, resolve_device
@@ -122,18 +124,19 @@ def cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative, l1_norm):
     return Wx, dWx
 
 
-def cwt_spectrum(xt, padtype):
+def cwt_spectrum(xt, padtype, planes):
     """(xh, n_up, n1): the half spectrum (B?, n_up//2 + 1) of the real
     signal or batch `xt` padded by `padtype` to n_up (`pad_params`, left
     pad n1), or with `padtype=None` of `xt` itself (n_up = N, n1 = 0), as
     the JAX package's CWT entry points take it. n_up is checked against
-    the CWT kernel's length rule before anything runs on the device."""
+    the CWT kernel's length rule for the route's `planes` (1: Wx; 2: bins
+    or derivative; 5: order 2) before anything runs on the device."""
     N = xt.shape[-1]
     if padtype is None:
         n_up, n1 = N, 0
     else:
         n_up, n1, _ = pad_params(N, padtype)
-    four_step(n_up)
+    cwt_length_rule(n_up, 2 * xt.element_size(), planes)
     xp = xt if padtype is None else padsignal(xt, padtype)
     return rfft(xp).contiguous(), n_up, n1
 
@@ -200,7 +203,7 @@ def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
 
     xt = torch.as_tensor(x, dtype=dtype, device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
-    xh, n_up, n1 = cwt_spectrum(xt, padtype)
+    xh, n_up, n1 = cwt_spectrum(xt, padtype, 2 if derivative else 1)
     if rpadded:                        # the whole padded transform
         n1, N = 0, n_up
     if vectorized:

@@ -27,8 +27,9 @@ FFT (torch.fft) and one of three routes:
     returned padded.
 
 `padtype=None` transforms the signal unpadded (n_up = N) on each route;
-on a CUDA device N's prime factors must then be at most 7
-(`ops/cwt_cuda.py::four_step`). The JAX package takes its XLA CWT and
+N's prime factors must then be at most 7, on every device
+(`ops/cwt_cuda.py::cwt_length_rule`, which also bounds n_up by one
+block's shared memory, and `ops/ssq_cuda.py::scatter_rule` the bins). The JAX package takes its XLA CWT and
 `ssqueeze_fast` there; its Tx agrees with this one by the bins criterion
 and its Wx to 2e-5 of max (float32) or 1e-9 (float64).
 
@@ -45,7 +46,7 @@ import torch
 from ..configs import device_dtype
 from ..ops.cwt_cuda import cwt_bins, cwt_fused
 from ..ops.phase import phase_cwt, phase_cwt_num
-from ..ops.ssq_cuda import scatter_kv, ssq_fused
+from ..ops.ssq_cuda import scatter_kv, scatter_rule, ssq_fused
 from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
 from ..utils.common import (EPS32, EPS64, check_batch, not_ported, p2up,
                             resolve_device)
@@ -214,11 +215,12 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     scales_t, const_t = _device_plan(key, plan.scales, plan.const, dtype,
                                      device)
 
+    nbins = params['omax'] + 1
+    scatter_rule(nbins, 2 * np.dtype(dtype).itemsize)
     xt = torch.as_tensor(x, dtype=getattr(torch, dtype), device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
-    xh, n_up, n1 = cwt_spectrum(xt, padtype)
+    xh, n_up, n1 = cwt_spectrum(xt, padtype, 2)
     dWx = w = None
-    nbins = params['omax'] + 1
     if difftype == 'numeric':
         # the whole padded planes, then JAX's window of p2up's left pad
         Wx, dWx = cwt_fused(xh, scales_t, wavelet, n_up, 0, n_up, dt, True,

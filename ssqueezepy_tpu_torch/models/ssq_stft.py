@@ -16,11 +16,16 @@ otherwise, or with `get_w`, the phase transform (`ops/phase.py::
 phase_stft`) -> `_apply_squeezing` -> the generic scatter
 (`ops/ssq_kernels.py::indexed_sum_onfly`). `ssq_stft2` (FSST2) runs the
 table kernel's FSST2 mode on the five tables of the windows g, g', t g,
-t g', g'' instead, then the same squeezing and scatter. A (B, N) batch
-runs every kernel once over the batch (its rows b * n_rows + i in the
-table kernel, a batch axis in the scatters). On a CUDA device
+t g', g'' instead, then the same squeezing and scatter; with `get_w` its
+w2 mode (`fsst2_w`, V and w2), then the squeezing and the generic
+scatter by the bins of w2, as the JAX package's XLA path runs it. A
+(B, N) batch runs every kernel once over the batch (its rows b * n_rows
++ i in the table kernel, a batch axis in the scatters). On a CUDA device
 the kernels are the hand-written CUDA ones; with ``device='cpu'`` their
-plain PyTorch versions run.
+plain PyTorch versions run. Both check the bins against the scatters'
+rule (`ops/ssq_cuda.py::scatter_rule`) and, at hop 1, the transform
+length against the table kernel's (`models/stft.py::signal_spectrum`),
+on every device before the transform.
 """
 import collections
 
@@ -29,11 +34,11 @@ import torch
 
 from ..configs import default_dtype
 from ..ops.phase import phase_stft
-from ..ops.ssq_cuda import scatter_kv, ssq_fused
+from ..ops.ssq_cuda import scatter_kv, scatter_rule, ssq_fused
 from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
 from ..ops.stft_conv import conv_bank, conv_table
-from ..ops.stft_cuda import fsst2_conv, stft_conv
-from ..utils.common import (WARN, EPS32, EPS64, check_batch, not_ported,
+from ..ops.stft_cuda import fsst2_conv, fsst2_w, stft_conv
+from ..utils.common import (WARN, EPS32, EPS64, check_batch,
                             resolve_device)
 from ..utils.cwt_utils import _process_fs_and_t, infer_scaletype
 from .ssq_cwt import (_invert_components, _process_component_inversion_args,
@@ -112,9 +117,11 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     and dSx like Sx with `get_dWx=True`.
     `squeezing` is 'sum', 'lebesgue', 'abs' or a function of Sx.
     `ssq_freqs` may be a user's linear grid (numpy). The scatter keeps a
-    shared-memory accumulator of nbins rows per block, so on the card
-    nbins is bounded (about 6400 in float32, half that in float64; it
-    raises beyond)."""
+    shared-memory accumulator of nbins rows per block, so nbins is bounded
+    (25600 in float32, 12800 in float64: n_fft up to ~51200 or ~25600;
+    beyond it raises on every device, `ops/ssq_cuda.py::scatter_rule`),
+    and at hop 1 the transform length N + n_fft - 1 by the table kernel's
+    rule (up to 2^22)."""
     ndim = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
     check_batch(ndim, get_w)
     device = resolve_device(device)
@@ -138,6 +145,7 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
 
     dSx = w = None
     nbins = plan.params['omax'] + 1
+    scatter_rule(nbins, 2 * np.dtype(dtype).itemsize)
     if int(hop_len) != 1 or get_dWx or get_w:
         Sx, dSx = stft(x, window, n_fft, win_len, hop_len, fs, t, padtype,
                        modulated, derivative=True, dtype=dtype,
@@ -152,7 +160,7 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
             Tx = ssq_fused(Sx, dSx, const_t, plan.params, float(gamma),
                            bool(flipud), Sfs_t)
     else:
-        xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype)
+        xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype, 2)
         Np2 = xh.shape[-1]
         H = conv_table(plan.window, n_fft, Np2, modulated, dtype, device)
         Hd = conv_table(plan.diff_window, n_fft, Np2, modulated, dtype,
@@ -244,12 +252,12 @@ def ssq_stft2(x, window=None, n_fft=None, win_len=None, fs=None, t=None,
     adds the chirp-rate correction (fs / 2pi) q Re(V^tg / V), q =
     Im((V^g'' V - (V^g')^2) / (V^tg' V - V^tg V^g')), exact on linear
     chirps. `squeezing` as `ssq_stft` takes it. Returns (Tx, Sx, ssq_freqs,
-    Sfs) as `ssq_stft` does. Inversion is `issq_stft`."""
+    Sfs[, w2]) as `ssq_stft` does, with `get_w=True` (one signal or a
+    batch, as in the JAX package) the chirp-corrected frequency w2 like Sx
+    but real, inf on dropped cells. Inversion is `issq_stft`."""
     device = resolve_device(device)
     ndim = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
     _check_ssqueezing_args(squeezing)
-    if get_w:
-        not_ported("ssq_stft2 with get_w=True", 'A8b')
     check_batch(ndim)
     if isinstance(ssq_freqs, np.ndarray) and \
             infer_scaletype(ssq_freqs)[0] != 'linear':
@@ -266,18 +274,28 @@ def ssq_stft2(x, window=None, n_fft=None, win_len=None, fs=None, t=None,
 
     plan = fsst2_plan(window, ssq_freqs, n_fft, win_len, fs_, dtype)
     Sfs_t, const_t = _device_consts(plan, dtype, device)
+    nbins = plan.params['omax'] + 1
+    scatter_rule(nbins, 2 * np.dtype(dtype).itemsize)
 
-    xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype)
+    xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype, 5)
     tables = conv_bank(plan.bank, n_fft, xh.shape[-1], modulated, dtype,
                        device)
-    bins = dict(Sfs=Sfs_t, params=plan.params, gamma=float(gamma),
-                flipud=bool(flipud))
-    Sx, k = fsst2_conv(xh, tables, N, float(fs_), bins)
-    Tx = scatter_kv(_apply_squeezing(Sx, squeezing), k, const_t,
-                    plan.params['omax'] + 1)
+    if get_w:
+        Sx, w2 = fsst2_w(xh, tables, N, float(fs_), Sfs_t, float(gamma))
+        Tx = indexed_sum_onfly(_apply_squeezing(Sx, squeezing), w2, None,
+                               const_t, params=plan.params, flipud=flipud,
+                               device=device)
+    else:
+        bins = dict(Sfs=Sfs_t, params=plan.params, gamma=float(gamma),
+                    flipud=bool(flipud))
+        Sx, k = fsst2_conv(xh, tables, N, float(fs_), bins)
+        Tx = scatter_kv(_apply_squeezing(Sx, squeezing), k, const_t, nbins)
 
     ssq_freqs_out = (np.asarray(plan.ssq_freqs)[::-1].copy() if flipud
                      else np.asarray(plan.ssq_freqs))
     if not astensor:
         Tx, Sx = Tx.cpu().numpy(), Sx.cpu().numpy()
+    if get_w:
+        return Tx, Sx, ssq_freqs_out, plan.Sfs, (
+            w2.cpu().numpy() if not astensor else w2)
     return Tx, Sx, ssq_freqs_out, plan.Sfs

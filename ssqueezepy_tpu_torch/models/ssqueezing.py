@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.phase import phase_transform_w
+from ..ops.ssq_cuda import scatter_rule
 from ..ops.ssq_kernels import indexed_sum_onfly, ssqueeze_fast
 from ..utils.common import (NOTE, WARN, pi, p2up, assert_is_one_of,
                             resolve_device, to_device)
@@ -96,6 +97,7 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
 
     logscale = bool(ssq_scaletype.startswith('log'))
     Sfs = Sfs if transform == 'stft' else None
+    scatter_rule(len(ssq_freqs), 2 * Wx.real.element_size())
     if w is None and squeezing == 'sum':
         Tx = ssqueeze_fast(Wx, dWx, ssq_freqs, const, logscale, flipud,
                            gamma, Sfs=Sfs, device=device)

@@ -8,7 +8,9 @@ table kernel (`ops/stft_cuda.py`), with ``device='cpu'`` its plain
 version. At hop > 1 it takes the framed path (frames -> window ->
 `torch.fft.rfft`), which the JAX package left to XLA. A (B, N) batch
 runs as one call: the table kernel over its B spectra, or the framed
-path over its B signals. The inverse is
+path over its B signals. At hop 1 the transform length is checked
+against the table kernel's rule (`ops/stft_cuda.py::stft_length_rule`)
+on every device before the signal's FFT. The inverse is
 irfft -> fftshift -> windowed overlap-add -> window-norm divide -> unpad,
 on the tensor's device.
 """
@@ -22,7 +24,7 @@ from ..ops.fft import fft, irfft, fftshift, ifftshift, next_fft_len
 from ..ops.framing import buffer, overlap_add, window_norm
 from ..ops.pad import padsignal
 from ..ops.stft_conv import conv_table
-from ..ops.stft_cuda import stft_conv
+from ..ops.stft_cuda import stft_conv, stft_length_rule
 from ..utils.common import check_batch, resolve_device
 from ..utils.cwt_utils import _process_fs_and_t
 from .windows import get_window, _check_NOLA
@@ -38,12 +40,16 @@ def _as_signal(x, dtype, device):
     return torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
 
 
-def signal_spectrum(xt, n_fft, padtype):
+def signal_spectrum(xt, n_fft, padtype, planes=1):
     """The full FFT of the signal padded to N + n_fft - 1, at the
-    kernel's transform length `next_fft_len(N + n_fft - 1)`."""
+    kernel's transform length `next_fft_len(N + n_fft - 1)`, which is
+    checked first against the kernel's length rule for the route's
+    `planes` (1: Sx; 2: Sx and dSx, or bins; 5: FSST2)."""
     padlength = xt.shape[-1] + n_fft - 1
+    Np2 = next_fft_len(padlength)
+    stft_length_rule(Np2, 2 * xt.element_size(), planes)
     xp = padsignal(xt, padtype, padlength=padlength)
-    return fft(xp, n=next_fft_len(padlength)).contiguous()
+    return fft(xp, n=Np2).contiguous()
 
 
 def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
@@ -69,7 +75,7 @@ def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     xt = _as_signal(x, dtype, device)
 
     if int(hop_len) == 1:
-        xh = signal_spectrum(xt, n_fft, padtype)
+        xh = signal_spectrum(xt, n_fft, padtype, 2 if derivative else 1)
         Np2 = xh.shape[-1]
         H = conv_table(window, n_fft, Np2, modulated, dtype, device)
         Hd = (conv_table(diff_window, n_fft, Np2, modulated, dtype, device)

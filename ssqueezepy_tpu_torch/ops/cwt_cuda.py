@@ -16,24 +16,30 @@ _make_kernel`:
     five WSST2 banks, the per-cell chirp regression and the bin map ->
     (W, k), for one spectrum (na, N) or a batch of them (B, na, N), each
     row bit-identical to its signal run alone; the four auxiliary
-    transforms stay inside the kernel.
+    transforms stay inside the kernel. `cwt_w2` is the same mode with
+    w2 written in place of its bins (W, w2), for `ssq_cwt2(get_w=True)`;
+    the JAX package computes that plane on its XLA path
+    (`ssqueezepy_tpu/models/ssq_cwt2.py::_wsst2_rows`).
 
 The inverse DFT is computed in the kernel itself, four-step, in shared
 memory laid out against bank conflicts, for every mode: radix-4 passes
 for a power-of-two n_up, the mixed-radix (4, 2, 3, 5, 7) passes of
 `csrc/dft_mixed.cuh` for any other n_up >= 4 whose prime factors are at
-most 7 (`four_step` holds that rule, the only one on the length, and
-raises for any other n_up on every device; `bins_plan` sizes either
-engine for the mode's planes); design and bound are noted in the source.
+most 7; design and bound are noted in the source. `cwt_length_rule` is
+the kernel's one rule on the length, checked on every device (by each
+wrapper, and by the models before the signal's FFT): `four_step` takes
+the 7-smooth n_up (another raises naming A6b) and `bins_plan` sizes
+either engine for the mode's planes, one column per block at most
+`_SMEM_MAX` bytes (beyond it raises naming C1b).
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
-version for CPU tensors. `cwt_bins.launches` and `cwt_bins2.launches`
-(one signal), `cwt_bins.batched_launches` and
-`cwt_bins2.batched_launches` (a batch), and `cwt_fused.launches` count
-calls of the C entry point on the radix-4 engine (one per chunk of
-rows), and the same names prefixed `mixed_` (`cwt_bins.mixed_launches`,
-...) its calls on the mixed engine; each such call issues two CUDA
-launches, stage 1 and stage 2.
+version for CPU tensors. `cwt_bins.launches`, `cwt_bins2.launches` and
+`cwt_w2.launches` (one signal), `cwt_bins.batched_launches`,
+`cwt_bins2.batched_launches` and `cwt_w2.batched_launches` (a batch),
+and `cwt_fused.launches` count calls of the C entry point on the
+radix-4 engine (one per chunk of rows), and the same names prefixed
+`mixed_` (`cwt_bins.mixed_launches`, ...) its calls on the mixed engine;
+each such call issues two CUDA launches, stage 1 and stage 2.
 """
 import collections
 import ctypes
@@ -43,25 +49,28 @@ import math
 import torch
 
 from ..models.wavelets import _xifn
+from ..utils.common import not_ported
 from . import _build
 from .fft import ifft
 from .phase import cdiv, cmul, div_tiny
 
 __all__ = ['cwt_bins', 'cwt_bins_plain', 'cwt_fused', 'cwt_fused_plain',
-           'cwt_bins2', 'cwt_bins2_plain', 'wsst2_rows', 'four_step',
-           'bins_plan', 'smem_index', 'swz']
+           'cwt_bins2', 'cwt_bins2_plain', 'cwt_w2', 'wsst2_rows',
+           'four_step', 'bins_plan', 'cwt_length_rule', 'smem_index', 'swz']
 
 _MODES = {'lin': 0, 'log': 1, 'log-piecewise': 2}
 # stage-1 scratch held at once (all planes); rows are chunked beyond it
 _SCRATCH_BUDGET = 2 << 30
+# the columns per block are halved until a stage fits this target...
 _SMEM_BUDGET = 96 * 1024
-# one column of the mixed engine may take up to this much (the card's
-# limit per block is 227 KB)
+# ...and one column of either engine may take up to this much (the
+# card's limit per block is 227 KB)
 _SMEM_MAX = 220 * 1024
 _ENGINE_RADIX4, _ENGINE_MIXED = 0, 1
 _MAX_GRID_Y = 65535
-_OUT_BINS, _OUT_W, _OUT_W_DW, _OUT_BINS2 = 0, 1, 2, 3
-_PLANES = {_OUT_BINS: 2, _OUT_W: 1, _OUT_W_DW: 2, _OUT_BINS2: 5}
+_OUT_BINS, _OUT_W, _OUT_W_DW, _OUT_BINS2, _OUT_W2 = 0, 1, 2, 3, 4
+_PLANES = {_OUT_BINS: 2, _OUT_W: 1, _OUT_W_DW: 2, _OUT_BINS2: 5,
+           _OUT_W2: 5}
 _TWO_PI = 6.283185307179586
 # bytes of shared memory one wavefront serves: 16 threads of 8-byte
 # (complex64) or 8 of 16-byte (complex128) accesses
@@ -112,19 +121,17 @@ def smem_bytes(engine, L, planes, P, stride, itemsize):
 
 def _columns(engine, L, other, itemsize, planes, stride):
     """Columns per block P, a power of two <= `_MAX_COLUMNS`, halved until
-    the stage fits the shared-memory budget. Radix 4: P divides `other`
-    and must fit the budget. Mixed: P starts at the least power of two
-    covering `other` (the kernel guards the last block's columns, so P
-    need not divide it), and one column may take up to `_SMEM_MAX`."""
+    the stage fits the shared-memory budget; one column may take up to
+    `_SMEM_MAX`, and None where not even one fits. Radix 4: P divides
+    `other`. Mixed: P starts at the least power of two covering `other`
+    (the kernel guards the last block's columns, so P need not divide
+    it)."""
     P = min(_MAX_COLUMNS, other if engine == _ENGINE_RADIX4
             else 1 << (other - 1).bit_length())
     size = lambda P: smem_bytes(engine, L, planes, P, stride, itemsize)
     while P > 1 and size(P) > _SMEM_BUDGET:
         P //= 2
-    limit = _SMEM_BUDGET if engine == _ENGINE_RADIX4 else _SMEM_MAX
-    if size(P) > limit:
-        raise NotImplementedError("DFT factor %d exceeds shared memory" % L)
-    return P
+    return P if size(P) <= _SMEM_MAX else None
 
 
 def swz(r, b):
@@ -165,11 +172,29 @@ def bins_plan(n_up, itemsize, planes):
     def stage(L, other):
         S = L | 1
         P = _columns(engine, L, other, itemsize, planes, S)
+        if P is None:
+            not_ported("the CUDA CWT kernel at n_up=%d, %d plane(s) of "
+                       "%d-byte elements (its DFT factor %d exceeds one "
+                       "block's shared memory)" % (n_up, planes, itemsize,
+                                                   L), 'C1b')
         return (P, S, min(wave, (L & -L).bit_length() - 1),
                 smem_bytes(engine, L, planes, P, S, itemsize))
 
     (P1, S1, sw1, sm1), (P2, S2, sw2, sm2) = stage(f1, f2), stage(f2, f1)
     return BinsPlan(f1, f2, P1, P2, S1, S2, sw1, sw2, sm1, sm2, engine)
+
+
+def cwt_length_rule(n_up, itemsize, planes):
+    """The CWT kernel's one rule on the padded length, checked on every
+    device before the signal's FFT and by each wrapper: n_up >= 4 with
+    no prime factor above 7 (`four_step`; another raises naming A6b),
+    whose plan for `planes` planes (1: Wx; 2: bins mode, or Wx and dWx;
+    5: order 2) of complex elements of `itemsize` bytes fits one block's
+    shared memory (`bins_plan`; beyond it raises naming C1b). On the
+    radix-4 engine that takes n_up up to 2^28, 2^26 and 2^24 for 1, 2
+    and 5 planes in complex64, 2^26, 2^24 and 2^22 in complex128.
+    Returns the plan."""
+    return bins_plan(int(n_up), int(itemsize), int(planes))
 
 
 def _bin_args(params):
@@ -182,7 +207,7 @@ def _bin_args(params):
             params['dvl1'], params['idx1'])
 
 
-def _check(xh, scales, n_up, n1, N, batched=False):
+def _check(xh, scales, n_up, n1, N, planes, batched=False):
     if (xh.dim() not in ((1, 2) if batched else (1,))
             or xh.shape[-1] != n_up // 2 + 1):
         raise ValueError("xh must be the (n_up//2 + 1,) half spectrum%s "
@@ -196,7 +221,6 @@ def _check(xh, scales, n_up, n1, N, batched=False):
         raise ValueError("scales must be 1-D (na,)")
     if xh.device != scales.device:
         raise ValueError("xh and scales must be on one device")
-    four_step(n_up)                    # the one length rule, every device
     cdt = {torch.float32: torch.complex64,
            torch.float64: torch.complex128}.get(scales.dtype)
     if cdt is None or xh.dtype != cdt:
@@ -205,6 +229,8 @@ def _check(xh, scales, n_up, n1, N, batched=False):
                         % (scales.dtype, xh.dtype))
     if not (xh.is_contiguous() and scales.is_contiguous()):
         raise ValueError("xh and scales must be contiguous")
+    # the one length rule, every device
+    cwt_length_rule(n_up, xh.element_size(), planes)
 
 
 def cwt_bins_plain(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params,
@@ -227,7 +253,7 @@ def cwt_bins(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params, gamma,
     and k are (na, N) or (B, na, N). `scales` (na,) real, `wavelet` a GMW
     `Wavelet`, `params` from `ssq_bin_params`; output columns are
     [n1, n1+N) of the padded transform."""
-    _check(xh, scales, n_up, n1, N, batched=True)
+    _check(xh, scales, n_up, n1, N, _PLANES[_OUT_BINS], batched=True)
     if xh.device.type == 'cpu':
         return cwt_bins_plain(xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
                               params, gamma, flipud)
@@ -317,7 +343,8 @@ def cwt_fused(xh, scales, wavelet, n_up, n1, N, dt, derivative, l1_norm):
     dWx are (na, N) or (B, na, N). `scales` (na,) real, `wavelet` a GMW
     `Wavelet`; output columns are [n1, n1+N) of the padded transform;
     `l1_norm=False` multiplies rows by sqrt(scale)."""
-    _check(xh, scales, n_up, n1, N, batched=True)
+    _check(xh, scales, n_up, n1, N,
+           _PLANES[_OUT_W_DW if derivative else _OUT_W], batched=True)
     if xh.device.type == 'cpu':
         return cwt_fused_plain(xh, scales, wavelet, n_up, n1, N, dt,
                                derivative, l1_norm)
@@ -389,7 +416,7 @@ def cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params, gamma, flipud):
     (B, n_up//2 + 1) batch: W (na, N) or (B, na, N) the L1 CWT, k of W's
     shape int32 the bin of the chirp-corrected frequency w2, -1 on
     gamma-gated or non-finite cells. Arguments as `cwt_bins`."""
-    _check(xh, scales, n_up, n1, N, batched=True)
+    _check(xh, scales, n_up, n1, N, _PLANES[_OUT_BINS2], batched=True)
     if xh.device.type == 'cpu':
         return cwt_bins2_plain(xh, scales, wavelet, n_up, n1, N, dt,
                                params, gamma, flipud)
@@ -407,3 +434,29 @@ def cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params, gamma, flipud):
 
 cwt_bins2.launches = cwt_bins2.mixed_launches = 0
 cwt_bins2.batched_launches = cwt_bins2.mixed_batched_launches = 0
+
+
+def cwt_w2(xh, scales, wavelet, n_up, n1, N, dt, gamma):
+    """(W, w2) of the second-order CWT (WSST2) from the half spectrum `xh`
+    of the padded signal, (n_up//2 + 1,) or a (B, n_up//2 + 1) batch: W
+    (na, N) or (B, na, N) the L1 CWT, w2 of W's shape and real type the
+    chirp-corrected frequency |Im p1| / (2 pi dt), inf where not finite
+    or where |W|^2 <= gamma^2 (the plane whose bins `cwt_bins2` returns:
+    B8's w2 output mode). Plain version: `wsst2_rows`."""
+    _check(xh, scales, n_up, n1, N, _PLANES[_OUT_W2], batched=True)
+    if xh.device.type == 'cpu':
+        return wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma)
+    if xh.device.type != 'cuda':
+        raise RuntimeError("cwt_w2 runs on CUDA or CPU tensors (got %s)"
+                           % xh.device)
+    shape = xh.shape[:-1] + (scales.shape[0], N)
+    W = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+    w2 = torch.empty(shape, dtype=scales.dtype, device=xh.device)
+    _launch(cwt_w2, xh, scales, wavelet, n_up, n1, N, dt, True, _OUT_W2, W,
+            w2, gamma=gamma,
+            counter='batched_launches' if xh.dim() == 2 else 'launches')
+    return W, w2
+
+
+cwt_w2.launches = cwt_w2.mixed_launches = 0
+cwt_w2.batched_launches = cwt_w2.mixed_batched_launches = 0

@@ -32,7 +32,10 @@ copies laid out by `scatter_plan`.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors; `scatter_kv.launches`, `ssq_fused.launches` and
-`shift_scatter.launches` count kernel launches.
+`shift_scatter.launches` count kernel launches. `scatter_rule` bounds
+the bins of all three (one column's accumulator in shared memory),
+checked on every device by each wrapper and by the synchrosqueezing
+models before their transforms run.
 """
 import ctypes
 import itertools
@@ -40,6 +43,7 @@ from collections import namedtuple
 
 import torch
 
+from ..utils.common import not_ported
 from . import _build
 from .cwt_cuda import _MODES, _bin_args
 from .phase import phase_transform_w
@@ -47,7 +51,7 @@ from .ssq_kernels import compute_bins, scatter_plain
 
 __all__ = ['scatter_kv', 'scatter_kv_plain', 'ssq_fused', 'ssq_fused_plain',
            'shift_scatter', 'shift_scatter_plain', 'scatter_plan',
-           'scatter_launch_plan']
+           'scatter_launch_plan', 'scatter_rule']
 
 _SMEM_BUDGET = 200 * 1024
 _MAX_BATCH = 65535
@@ -100,6 +104,19 @@ def _check_planes(Wx, other, const, what):
         raise ValueError("const must be contiguous")
 
 
+def scatter_rule(nbins, itemsize):
+    """The reassignment kernels' one rule on the bins, checked on every
+    device: one column's accumulator of `nbins` complex elements of
+    `itemsize` bytes within `_SMEM_BUDGET` (25600 bins in complex64, 12800
+    in complex128: `ssq_stft` up to n_fft ~51200 or ~25600); beyond it
+    raises naming C1b."""
+    if nbins * itemsize > _SMEM_BUDGET:
+        not_ported("a scatter over nbins=%d of %d-byte elements in the "
+                   "CUDA reassignment kernels (one column's accumulator "
+                   "exceeds the block's shared memory)" % (nbins, itemsize),
+                   'C1b')
+
+
 def scatter_plan(nbins, itemsize, occupancy):
     """B2/B4/B5's launch plan for an (nbins, columns) accumulator of complex
     `itemsize` bytes. `occupancy(columns, stages)` gives the shared bytes
@@ -113,10 +130,9 @@ def scatter_plan(nbins, itemsize, occupancy):
     Columns: one 128-byte line of values per row (16 in complex64, 8 in
     complex128), halved while a two-stage ring does not fit. Stages: the
     fewest that keep `_INFLIGHT` bytes in flight; where none does, those
-    that keep the most. An accumulator column over 200 KB raises."""
-    if nbins * itemsize > _SMEM_BUDGET:
-        raise NotImplementedError("nbins=%d exceeds the kernel's shared "
-                                  "memory accumulator" % nbins)
+    that keep the most. An accumulator column over 200 KB raises
+    (`scatter_rule`)."""
+    scatter_rule(nbins, itemsize)
     columns = _ROW_BYTES // itemsize
     while columns > 1 and occupancy(columns, 2)[1] < 1:
         columns //= 2
@@ -182,6 +198,7 @@ def scatter_kv(Wx, k, const, nbins):
     _check_planes(Wx, k, const, 'k')
     if k.dtype != torch.int32:
         raise TypeError("k must be int32 (got %s)" % k.dtype)
+    scatter_rule(nbins, Wx.element_size())
     if Wx.device.type == 'cpu':
         return scatter_kv_plain(Wx, k, const, nbins)
     _on_card(Wx, 'scatter_kv')
@@ -227,6 +244,7 @@ def ssq_fused(Wx, dWx, const, params, gamma, flipud, Sfs=None):
         raise ValueError("Sfs must be a contiguous (na,) tensor of Wx's "
                          "real type on its device")
     nbins = params['omax'] + 1
+    scatter_rule(nbins, Wx.element_size())
     if Wx.device.type == 'cpu':
         return ssq_fused_plain(Wx, dWx, const, params, gamma, flipud, Sfs)
     _on_card(Wx, 'ssq_fused')
@@ -281,6 +299,7 @@ def shift_scatter(v, k, valid, nbins, const=None):
             raise ValueError("valid must be a bool tensor of v's shape")
         if valid.device != v.device or not valid.is_contiguous():
             raise ValueError("valid must be contiguous, on v's device")
+    scatter_rule(nbins, v.element_size())
     if v.device.type == 'cpu':
         return shift_scatter_plain(v, k, valid, nbins, const)
     _on_card(v, 'shift_scatter')

@@ -15,6 +15,8 @@ generic scatter (`ops/ssq_cuda.py::shift_scatter`): on CUDA tensors the
 kernels, on CPU tensors their plain versions. `find_closest*` are host
 numpy.
 """
+import functools
+
 import numpy as np
 import torch
 
@@ -62,24 +64,37 @@ def ssq_bin_params(ssq_freqs, logscale):
                 dvl0=dvl0, dvl1=dvl1, idx1=int(idx - 1), omax=len(v) - 1)
 
 
+@functools.lru_cache(maxsize=64)
+def _divisor(v, dtype, device):
+    """`v` as a 0-dim tensor: torch divides by a Python number on a CUDA
+    tensor as a multiply by its reciprocal, a bit off the quotient, where
+    the kernels' bin map divides; by a tensor it divides as they do."""
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
 def compute_bins(w, params, flipud=False):
     """int32 bin indices from phase-transform values `w` (inf = invalid);
-    returns (k, valid). Rounds half to even, as the reference does."""
+    returns (k, valid). Rounds half to even, as the reference does, and
+    divides as the kernels' bin map does (`csrc/bins.cuh::bin_of`), so
+    the bins of a kernel's w are its k."""
     omax = params['omax']
+
+    def div(x, v):
+        return x / _divisor(float(v), x.dtype, x.device)
     if params['mode'] == 'lin':
         k = torch.clamp_max(torch.round(torch.clamp_min(
-            (w - params['vmin']) / params['dv'], 0)), omax)
+            div(w - params['vmin'], params['dv']), 0)), omax)
     elif params['mode'] == 'log':
         wl = torch.log2(w)
         k = torch.clamp_max(torch.round(torch.clamp_min(
-            (wl - params['vlmin']) / params['dvl'], 0)), omax)
+            div(wl - params['vlmin'], params['dvl']), 0)), omax)
     else:  # log-piecewise (two segments)
         wl = torch.log2(w)
         k_hi = torch.clamp_max(
-            torch.round((wl - params['vlmin1']) / params['dvl1'])
+            torch.round(div(wl - params['vlmin1'], params['dvl1']))
             + params['idx1'], omax)
         k_lo = torch.clamp_min(
-            torch.round((wl - params['vlmin0']) / params['dvl0']), 0)
+            torch.round(div(wl - params['vlmin0'], params['dvl0'])), 0)
         k = torch.where(wl > params['vlmin1'], k_hi, k_lo)
 
     valid = torch.isfinite(w)

@@ -18,34 +18,45 @@ for output columns [0, N), planes (n_rows, N) or (B, n_rows, N):
 tables of `conv_bank` (windows g, g', t g, t g', g'') it returns V, the
 STFT with g, and the int32 bin plane k of the chirp-corrected frequency
 w2 (`fsst2_rows`); the four auxiliary transforms stay inside the kernel.
+`fsst2_w` is the same mode with w2 written in place of its bins (V, w2),
+for `ssq_stft2(get_w=True)`; the JAX package computes that plane on its
+XLA path (`ssqueezepy_tpu/models/ssq_stft.py::_fsst2_rows`).
 
 The inverse DFT runs inside the kernel (four-step, mixed radix 4/2/3/5 in
 shared memory; design and bound are noted in the source). The TPU
 kernel's band plan is not carried over: the kernel computes the full
-correlation.
+correlation. `stft_length_rule` is the kernel's one rule on the
+transform length, checked on every device (by each wrapper, and by the
+models before the signal's FFT).
 
-`stft_conv` and `fsst2_conv` launch the kernel for CUDA tensors and run
-their plain versions for CPU tensors. A batch runs as B * n_rows rows of
-one launch pair per chunk, each row bit-identical to its signal run
-alone. `stft_conv.launches` and `fsst2_conv.launches` (one signal),
-`stft_conv.batched_launches` and `fsst2_conv.batched_launches` (a batch)
-count calls of the C entry point (one per chunk of rows); each issues two
-CUDA launches.
+`stft_conv`, `fsst2_conv` and `fsst2_w` launch the kernel for CUDA
+tensors and run their plain versions for CPU tensors. A batch runs as
+B * n_rows rows of one launch pair per chunk, each row bit-identical to
+its signal run alone. `stft_conv.launches`, `fsst2_conv.launches` and
+`fsst2_w.launches` (one signal), and the same wrappers'
+`batched_launches` (a batch) count calls of the C entry point (one per
+chunk of rows); each issues two CUDA launches.
 """
 import collections
 import ctypes
+import functools
 
 import torch
 
+from ..utils.common import not_ported
 from . import _build
 from .phase import cdiv, cmul, div_tiny
 
 __all__ = ['stft_conv', 'stft_conv_plain', 'fsst2_conv', 'fsst2_conv_plain',
-           'fsst2_rows', 'split_fft_len', 'launch_plan', 'radices']
+           'fsst2_w', 'fsst2_rows', 'split_fft_len', 'launch_plan',
+           'stft_length_rule', 'radices']
 
 _TWO_PI = 6.283185307179586
-_MODE_SX, _MODE_SX_DSX, _MODE_BINS, _MODE_FSST2 = 0, 1, 2, 3
-_PLANES = {_MODE_SX: 1, _MODE_SX_DSX: 2, _MODE_BINS: 2, _MODE_FSST2: 5}
+_MODE_SX, _MODE_SX_DSX, _MODE_BINS, _MODE_FSST2, _MODE_FSST2_W = range(5)
+_PLANES = {_MODE_SX: 1, _MODE_SX_DSX: 2, _MODE_BINS: 2, _MODE_FSST2: 5,
+           _MODE_FSST2_W: 5}
+# the bin map's arguments where a mode writes no bin
+_NO_BINS = dict(mode='lin', vmin=0., dv=1., omax=0)
 
 _SCRATCH_BUDGET = 2 << 30
 _SMEM_TARGET = 112 * 1024
@@ -73,10 +84,10 @@ def split_fft_len(n):
         r //= 2
         a += 1
     if r not in (1, 3, 5, 9, 15) or not 4 <= n <= _MAX_LEN:
-        raise NotImplementedError(
-            "the CUDA STFT kernel takes transform lengths 2^a * {1, 3, 5, "
-            "9, 15} in [4, 2^22] (got %d), the lengths of N + n_fft - 1 <= "
-            "2^22" % n)
+        not_ported("the CUDA STFT kernel at transform length %d (it takes "
+                   "2^a * {1, 3, 5, 9, 15} in [4, 2^22], the lengths of "
+                   "N + n_fft - 1 <= 2^22; longer ones go with queue B "
+                   "item 1, the band plan)" % n, 'C1b')
     best = None
     for b in range(a + 1):
         f1, f2 = n >> b, 1 << b
@@ -108,24 +119,24 @@ def _columns(L, other, itemsize, planes, stride):
     32-byte sectors (P * itemsize >= 32), halved until P divides `other`
     and the block's shared memory (the L twiddles and two buffers of
     planes * P sequences `stride` elements apart) fits the target; one
-    column up to the card's limit. Fewer columns leave room for more
-    blocks per SM, which times faster than conflict-free passes over 16
-    sequences (scripts/torch_stft_plan_sweep.py)."""
+    column up to the card's limit, and None where not even one fits.
+    Fewer columns leave room for more blocks per SM, which times faster
+    than conflict-free passes over 16 sequences
+    (scripts/torch_stft_plan_sweep.py)."""
     smem = lambda P: (L + 2 * planes * P * stride) * itemsize
     P = 1
     while P < _MAX_COLUMNS and (planes * P < 8 or P * itemsize < 32):
         P *= 2
     while P > 1 and (other % P or smem(P) > _SMEM_TARGET):
         P //= 2
-    if smem(P) > _SMEM_MAX:
-        raise NotImplementedError("DFT factor %d exceeds shared memory" % L)
-    return P
+    return P if smem(P) <= _SMEM_MAX else None
 
 
 LaunchPlan = collections.namedtuple(
     'LaunchPlan', 'f1 f2 direct P1 P2 S1 S2 sw1 sw2 smem1 smem2')
 
 
+@functools.lru_cache(maxsize=256)
 def launch_plan(Np2, itemsize, planes):
     """Launch plan of the DFT engine for `planes` planes (1: Sx; 2: Sx and
     dSx, or bins mode; 5: FSST2; both launches take all of them per
@@ -144,6 +155,11 @@ def launch_plan(Np2, itemsize, planes):
     def stage(L, other):
         S = L | 1
         P = _columns(L, other, itemsize, planes, S)
+        if P is None:
+            not_ported("the CUDA STFT kernel at transform length %d, %d "
+                       "plane(s) of %d-byte elements (its DFT factor %d "
+                       "exceeds one block's shared memory)"
+                       % (Np2, planes, itemsize, L), 'C1b')
         sw = min(wave, (L & -L).bit_length() - 1)
         return P, S, sw, (L + 2 * planes * P * S) * itemsize
 
@@ -152,7 +168,19 @@ def launch_plan(Np2, itemsize, planes):
                       sw1, sw2, sm1, sm2)
 
 
-def _check(xh, H, Hd, N, bins):
+def stft_length_rule(Np2, itemsize, planes):
+    """The STFT table kernel's one rule on the transform length, checked
+    on every device before the signal's FFT and by each wrapper: Np2 =
+    2^a * {1, 3, 5, 9, 15} in [4, 2^22] (`split_fft_len`), whose plan for
+    `planes` planes (1: Sx; 2: Sx and dSx, or bins mode; 5: FSST2) of
+    complex elements of `itemsize` bytes fits one block's shared memory
+    (`launch_plan`). Beyond either it raises naming C1b; lengths above
+    2^22 also wait for queue B item 1 (the band plan), since the tables
+    hold rows x Np2 elements each. Returns the plan."""
+    return launch_plan(int(Np2), int(itemsize), int(planes))
+
+
+def _check(xh, H, Hd, N, bins, planes=None):
     if (xh.dim() not in (1, 2) or H.dim() != 2
             or H.shape[1] != xh.shape[-1]):
         raise ValueError("xh must be (Np2,) or a (B, Np2) batch and H "
@@ -175,6 +203,9 @@ def _check(xh, H, Hd, N, bins):
         raise ValueError("xh, H and Hd must be contiguous")
     if bins is not None:
         _check_bins(xh, H.shape[0], bins)
+    # the one length rule, every device
+    stft_length_rule(xh.shape[-1], xh.element_size(),
+                     planes or (1 if Hd is None else 2))
 
 
 def _check_bins(xh, n_rows, bins):
@@ -316,6 +347,16 @@ def fsst2_conv_plain(xh, tables, N, fs, bins):
     return V, torch.where(valid, k, torch.full_like(k, -1))
 
 
+def _check_bank(xh, tables, N, bins):
+    if tables.dim() != 3 or tables.shape[0] != 5:
+        raise ValueError("tables must be the (5, n_rows, Np2) FSST2 bank "
+                         "(got %s)" % (tuple(tables.shape),))
+    _check(xh, tables[0], None, N, None, _PLANES[_MODE_FSST2])
+    _check_bins(xh, tables.shape[1], bins)
+    if not tables.is_contiguous():
+        raise ValueError("tables must be contiguous")
+
+
 def fsst2_conv(xh, tables, N, fs, bins):
     """(V, k) of the second-order synchrosqueezed STFT (FSST2), rows
     [0, N), from the spectrum `xh` (Np2,) of the padded signal, or a
@@ -324,13 +365,7 @@ def fsst2_conv(xh, tables, N, fs, bins):
     `stft_conv`. V (n_rows, N) or (B, n_rows, N) is the STFT with g; k of
     V's shape int32 the lin bin of w2, -1 on gamma-gated or non-finite
     cells."""
-    if tables.dim() != 3 or tables.shape[0] != 5:
-        raise ValueError("tables must be the (5, n_rows, Np2) FSST2 bank "
-                         "(got %s)" % (tuple(tables.shape),))
-    _check(xh, tables[0], None, N, None)
-    _check_bins(xh, tables.shape[1], bins)
-    if not tables.is_contiguous():
-        raise ValueError("tables must be contiguous")
+    _check_bank(xh, tables, N, bins)
     if xh.device.type == 'cpu':
         return fsst2_conv_plain(xh, tables, N, fs, bins)
     if xh.device.type != 'cuda':
@@ -345,3 +380,29 @@ def fsst2_conv(xh, tables, N, fs, bins):
 
 fsst2_conv.launches = 0
 fsst2_conv.batched_launches = 0
+
+
+def fsst2_w(xh, tables, N, fs, Sfs, gamma):
+    """(V, w2) of the second-order STFT (FSST2), rows [0, N), from the
+    spectrum `xh` (Np2,) of the padded signal, or a (B, Np2) batch of
+    them, and the (5, n_rows, Np2) tables of `conv_bank`: V (n_rows, N) or
+    (B, n_rows, N) the STFT with g, w2 of V's shape and real type the
+    chirp-corrected frequency, inf where not finite or where |V|^2 <=
+    gamma^2 (the plane whose bins `fsst2_conv` returns: B7's w2 mode).
+    `Sfs` (n_rows,) the row frequencies. Plain version: `fsst2_rows`."""
+    bins = dict(Sfs=Sfs, gamma=float(gamma), params=_NO_BINS, flipud=False)
+    _check_bank(xh, tables, N, bins)
+    if xh.device.type == 'cpu':
+        return fsst2_rows(xh, tables, N, fs, Sfs, gamma)
+    if xh.device.type != 'cuda':
+        raise RuntimeError("fsst2_w runs on CUDA or CPU tensors (got %s)"
+                           % xh.device)
+    shape = xh.shape[:-1] + (tables.shape[1], N)
+    V = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+    w2 = torch.empty(shape, dtype=Sfs.dtype, device=xh.device)
+    _launch(fsst2_w, _MODE_FSST2_W, xh, tables, None, N, fs, bins, V, w2)
+    return V, w2
+
+
+fsst2_w.launches = 0
+fsst2_w.batched_launches = 0

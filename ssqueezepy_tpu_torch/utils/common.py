@@ -49,8 +49,8 @@ def p2up(n):
 
 def not_ported(what, item):
     """Raise for a call outside the ported slices, naming its item of
-    ROADMAP.md."""
-    queue = 'B' if item.startswith('B') else 'A'
+    ROADMAP.md; the item's letter (A, B or C) names its queue."""
+    queue = item[0]
     raise NotImplementedError("%s is not ported yet (ROADMAP.md queue %s, "
                               "%s)" % (what, queue, item))
 

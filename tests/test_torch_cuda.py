@@ -34,7 +34,14 @@ launch plan's shared bytes and blocks per SM the kernel's and the
 runtime's. The CWT kernel's mixed engine (n_up 7-smooth, not a power of
 two; `padtype=None`) the same as its radix-4 one, on its own counters;
 a length with a prime factor above 7 raises naming A6b and launches
-nothing.
+nothing. The w2 modes of B8 (`cwt_w2`, both engines) and B7 (`fsst2_w`)
+against their plain versions (`wsst2_rows`, `fsst2_rows`): W/V as above,
+w2 with the same inf cells (float64; float32 on all but 0.1% of cells)
+and its finite cells within 1e-9 of max in float64; W/V bit-identical to
+the bins modes' and the bins of w2 equal to their k; batches and row
+chunks bit-identical to one signal. The radix-4 engine at its largest
+n_up (2^28, 2^26, 2^24 for 1, 2, 5 planes in float32), Wx past 2^31
+elements, and the length rules raising alike on the card and the CPU.
 """
 import ctypes
 
@@ -58,7 +65,9 @@ from ssqueezepy_tpu_torch.ops.ssq_cuda import (scatter_kv, scatter_kv_plain,
                                                shift_scatter,
                                                shift_scatter_plain,
                                                ssq_fused, ssq_fused_plain)
-from ssqueezepy_tpu_torch.ops.ssq_kernels import ssq_bin_params
+from ssqueezepy_tpu_torch.ops.ssq_kernels import (compute_bins,
+                                                  indexed_sum_onfly,
+                                                  ssq_bin_params)
 from ssqueezepy_tpu_torch.models.ssq_stft import fsst2_plan
 from ssqueezepy_tpu_torch.ops.stft_conv import conv_bank, conv_table
 from ssqueezepy_tpu_torch.ops.stft_cuda import (fsst2_conv, fsst2_conv_plain,
@@ -1331,4 +1340,279 @@ def test_mixed_length_rule_launches_nothing(dev):
         c0 = _mixed_counts()
         with pytest.raises(NotImplementedError, match='A6b'):
             fn()
+        assert _mixed_counts() == c0
+
+
+# ---- the w2 modes of B8 and B7 (get_w of ssq_cwt2 and ssq_stft2) -------
+def _w2_close(w2_k, w2_p, dtype, rel=None):
+    """The w2 planes: the same inf cells but on at most 0.1% of cells in
+    float32 (|W| near gamma), none in float64; finite cells where both are
+    finite within 1e-9 of max (float64), and in float32 energy-weighted
+    by the cells the kernel bins, held through the bins criterion by the
+    caller."""
+    inf_k, inf_p = torch.isinf(w2_k), torch.isinf(w2_p)
+    gd = (inf_k != inf_p).double().mean()
+    if dtype == 'float64':
+        assert gd == 0
+        both = ~inf_k & ~inf_p
+        assert (w2_k[both] - w2_p[both]).abs().max() <= \
+            1e-9 * w2_p[both].abs().max()
+    else:
+        assert gd <= 1e-3
+    assert bool((w2_k >= 0).all())
+
+
+@pytest.mark.parametrize('N,padtype', [
+    (10000, 'reflect'), (2048, 'reflect'), (3, 'reflect'),
+    # unpadded: the mixed engine (odd, and no power of two)
+    (4725, None), (3000, None), (99225, None)])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_cwt_w2_kernel_vs_plain(dev, N, padtype, dtype):
+    """B8's w2 mode (`cwt_w2`) against its plain version `wsst2_rows`:
+    W within 2e-5 of max (float32) or 1e-9, w2 as `_w2_close`; W
+    bit-identical to the bins mode's (`cwt_bins2`) and the bins of w2
+    equal to its k; each launch on its engine's counter."""
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(
+        N, dtype, 'log-piecewise', dev, padtype=padtype)
+    mixed = padtype is None and n_up & (n_up - 1) != 0
+    counter = 'mixed_launches' if mixed else 'launches'
+    n0 = getattr(cwt_cuda.cwt_w2, counter)
+    W, w2 = cwt_cuda.cwt_w2(xh, sc, wav, n_up, n1, N, 1., gamma)
+    torch.cuda.synchronize()
+    assert getattr(cwt_cuda.cwt_w2, counter) == n0 + 1
+    assert w2.dtype == sc.dtype and w2.shape == W.shape
+    W_p, w2_p = cwt_cuda.wsst2_rows(xh, sc, wav, n_up, n1, N, 1., gamma)
+    assert _rel_err(W, W_p) <= (2e-5 if dtype == 'float32' else 1e-9)
+    _w2_close(w2, w2_p, dtype)
+    W8, k8 = cwt_bins2(xh, sc, wav, n_up, n1, N, 1., params, gamma, True)
+    assert torch.equal(W, W8)
+    k, valid = compute_bins(w2, params, True)
+    assert torch.equal(torch.where(valid, k, torch.full_like(k, -1)), k8)
+    W2r, w2r = cwt_cuda.cwt_w2(xh, sc, wav, n_up, n1, N, 1., gamma)
+    assert torch.equal(W2r, W) and torch.equal(w2r, w2)
+    nbins = params['omax'] + 1
+    _bins_criterion(indexed_sum_onfly(W, w2, None, c, params=params,
+                                      flipud=True),
+                    shift_scatter_plain(W_p, *compute_bins(w2_p, params,
+                                                           True), nbins, c))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_cwt_w2_batch_and_chunks(dev, dtype, monkeypatch):
+    """`cwt_w2` over a batch of three spectra, on both engines: each row
+    bit-identical to its spectrum launched alone, counted on the batched
+    counters; rows in chunks that cross signals bit-identical to one
+    chunk."""
+    for N, padtype in ((4000, 'reflect'), (4725, None)):
+        xh, sc, c, wav, n_up, n1, params, gamma = _inputs(
+            N, dtype, 'log', dev, padtype=padtype)
+        xb = torch.stack([xh, xh.flip(0), 0.5 * xh]).contiguous()
+        counter = ('batched_launches' if padtype
+                   else 'mixed_batched_launches')
+        n0 = getattr(cwt_cuda.cwt_w2, counter)
+        Wb, w2b = cwt_cuda.cwt_w2(xb, sc, wav, n_up, n1, N, 1., gamma)
+        torch.cuda.synchronize()
+        assert getattr(cwt_cuda.cwt_w2, counter) == n0 + 1
+        assert Wb.shape == (3, len(sc), N) == w2b.shape
+        for b in range(3):
+            W1, w21 = cwt_cuda.cwt_w2(xb[b].contiguous(), sc, wav, n_up, n1,
+                                      N, 1., gamma)
+            assert torch.equal(Wb[b], W1) and torch.equal(w2b[b], w21)
+        with monkeypatch.context() as m:
+            m.setattr(cwt_cuda, '_SCRATCH_BUDGET', 5 * n_up * 16 * 7)
+            Wc, w2c = cwt_cuda.cwt_w2(xb, sc, wav, n_up, n1, N, 1., gamma)
+        assert torch.equal(Wc, Wb) and torch.equal(w2c, w2b)
+
+
+@pytest.mark.parametrize('N,n_fft', [(10000, 598), (4000, 97), (9000, 128),
+                                     (7000, 256), (20, 30)])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_fsst2_w_kernel_vs_plain(dev, N, n_fft, dtype):
+    """B7's w2 mode (`fsst2_w`) against its plain version `fsst2_rows`: V
+    within 2e-5 of max (float32) or 1e-9, w2 as `_w2_close`; V
+    bit-identical to the bins mode's (`fsst2_conv`) and the bins of w2
+    equal to its k; repeats bit for bit."""
+    xh, tables, bins, c = _fsst2_inputs(N, n_fft, dtype, dev)
+    from ssqueezepy_tpu_torch.ops import stft_cuda
+    n0 = stft_cuda.fsst2_w.launches
+    V, w2 = stft_cuda.fsst2_w(xh, tables, N, 2., bins['Sfs'], bins['gamma'])
+    torch.cuda.synchronize()
+    assert stft_cuda.fsst2_w.launches == n0 + 1
+    assert w2.dtype == bins['Sfs'].dtype and w2.shape == V.shape
+    V_p, w2_p = stft_cuda.fsst2_rows(xh, tables, N, 2., bins['Sfs'],
+                                     bins['gamma'])
+    assert _rel_err(V, V_p) <= (2e-5 if dtype == 'float32' else 1e-9)
+    _w2_close(w2, w2_p, dtype)
+    V7, k7 = fsst2_conv(xh, tables, N, 2., bins)
+    assert torch.equal(V, V7)
+    k, valid = compute_bins(w2, bins['params'], False)
+    assert torch.equal(torch.where(valid, k, torch.full_like(k, -1)), k7)
+    Vr, w2r = stft_cuda.fsst2_w(xh, tables, N, 2., bins['Sfs'],
+                                bins['gamma'])
+    assert torch.equal(Vr, V) and torch.equal(w2r, w2)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_fsst2_w_batch_and_chunks(dev, dtype, monkeypatch):
+    """`fsst2_w` over a batch of three spectra: each row bit-identical to
+    its spectrum launched alone, on the batched counter; row chunks that
+    cross signals bit-identical to one chunk."""
+    from ssqueezepy_tpu_torch.ops import stft_cuda
+    N, n_fft = 4000, 128
+    x = np.random.default_rng(31).standard_normal((3, N))
+    xb, tables, bins, _ = _fsst2_inputs(N, n_fft, dtype, dev, x=x)
+    n0 = stft_cuda.fsst2_w.batched_launches
+    Vb, w2b = stft_cuda.fsst2_w(xb, tables, N, 1., bins['Sfs'],
+                                bins['gamma'])
+    torch.cuda.synchronize()
+    assert stft_cuda.fsst2_w.batched_launches == n0 + 1
+    for b in range(3):
+        V1, w21 = stft_cuda.fsst2_w(xb[b].contiguous(), tables, N, 1.,
+                                    bins['Sfs'], bins['gamma'])
+        assert torch.equal(Vb[b], V1) and torch.equal(w2b[b], w21)
+    monkeypatch.setattr(stft_cuda, '_SCRATCH_BUDGET',
+                        5 * xb.shape[-1] * 16 * 7)
+    Vc, w2c = stft_cuda.fsst2_w(xb, tables, N, 1., bins['Sfs'],
+                                bins['gamma'])
+    assert torch.equal(Vc, Vb) and torch.equal(w2c, w2b)
+
+
+def test_public_get_w_order2_on_card(dev):
+    """`ssq_cwt2(get_w=True)` and `ssq_stft2(get_w=True)` (one signal,
+    and a (2, N) batch for the STFT) on the card: the w2 modes and B5
+    launch, no bins mode, B2 or plain version; against the same calls on
+    the CPU, and Tx by the bins criterion against the calls without
+    `get_w`."""
+    from ssqueezepy_tpu_torch.ops import stft_cuda
+    N = 6000
+    x = np.random.default_rng(32).standard_normal(N).astype(np.float32)
+    xb = np.stack([x, x[::-1].copy()])
+    watch = [(cwt_cuda.cwt_w2, 'launches'),
+             (cwt_cuda.cwt_w2, 'batched_launches'),
+             (stft_cuda.fsst2_w, 'launches'),
+             (stft_cuda.fsst2_w, 'batched_launches'),
+             (shift_scatter, 'launches'), (cwt_bins2, 'launches'),
+             (fsst2_conv, 'launches'), (fsst2_conv, 'batched_launches'),
+             (scatter_kv, 'launches')]
+    for name, fn, ref_fn, need in (
+            ('ssq_cwt2', lambda **d: stq.ssq_cwt2(x, get_w=True, **d),
+             lambda: stq.ssq_cwt2(x), (0, 4)),
+            ('ssq_stft2', lambda **d: stq.ssq_stft2(x, n_fft=256,
+                                                    get_w=True, **d),
+             lambda: stq.ssq_stft2(x, n_fft=256), (2, 4)),
+            ('ssq_stft2_b2', lambda **d: stq.ssq_stft2(xb, n_fft=256,
+                                                       get_w=True, **d),
+             lambda: stq.ssq_stft2(xb, n_fft=256), (3, 4))):
+        c0 = [getattr(w, a) for w, a in watch]
+        out = fn()
+        torch.cuda.synchronize()
+        dc = [getattr(w, a) - v for (w, a), v in zip(watch, c0)]
+        assert all(dc[i] == 1 for i in need), (name, dc)
+        assert sum(dc) == len(need), (name, dc)
+        assert len(out) == 5 and out[4].is_cuda
+        ref = fn(device='cpu')
+        assert _rel_err(out[1].cpu(), ref[1]) <= 2e-5, name
+        assert (torch.isinf(out[4].cpu()) != torch.isinf(ref[4])
+                ).double().mean() <= 1e-3
+        _bins2_criterion(out[0].cpu(), ref[0])
+        _bins_criterion(out[0], ref_fn()[0])
+
+
+# ---- the lifted radix-4 ceiling and 64-bit offsets ----------------------
+@pytest.mark.parametrize('lg,planes', [(28, 1), (26, 2), (24, 5)])
+def test_radix4_ceiling_vs_plain(dev, lg, planes):
+    """The radix-4 engine at its largest n_up in float32 (one column per
+    block, up to 220 KB of shared memory): 2^28 with one plane (Wx), 2^26
+    with two (Wx, dWx), 2^24 with five (order 2, W and w2), two scales,
+    the unpadded spectrum of white noise, against the plain versions;
+    one past it raises naming C1b and launches nothing."""
+    n_up = 1 << lg
+    plan = cwt_cuda.cwt_length_rule(n_up, 8, planes)
+    assert plan.P1 == 1 and plan.smem1 > cwt_cuda._SMEM_BUDGET
+    wav = resolve_wavelet(('gmw', {'dtype': 'float32'}), N=n_up)
+    x = torch.randn(n_up, generator=torch.Generator(device=dev).manual_seed(
+        lg), device=dev)
+    xh = rfft(x)
+    del x
+    sc = torch.tensor([4., 64.], device=dev)
+    if planes == 5:
+        W, w2 = cwt_cuda.cwt_w2(xh, sc, wav, n_up, 0, n_up, 1., 1e-6)
+        torch.cuda.synchronize()
+        W_p, w2_p = cwt_cuda.wsst2_rows(xh, sc, wav, n_up, 0, n_up, 1., 1e-6)
+        assert _rel_err(W, W_p) <= 2e-5
+        _w2_close(w2, w2_p, 'float32')
+        del W, w2, W_p, w2_p
+    else:
+        deriv = planes == 2
+        W, dW = cwt_fused(xh, sc, wav, n_up, 0, n_up, 1., deriv, True)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(torch.view_as_real(W)).all())
+        W_p, dW_p = cwt_fused_plain(xh, sc, wav, n_up, 0, n_up, 1., deriv,
+                                    True)
+        assert _rel_err(W, W_p) <= 2e-5
+        if deriv:
+            assert _rel_err(dW, dW_p) <= 2e-5
+        del W, dW, W_p, dW_p
+    torch.cuda.empty_cache()
+    c0 = _mixed_counts() + [cwt_cuda.cwt_w2.launches]
+    with pytest.raises(NotImplementedError, match='queue C, C1b'):
+        cwt_cuda.cwt_length_rule(2 * n_up, 8, planes)
+    xh2 = torch.zeros(n_up + 1, dtype=torch.complex64, device=dev)
+    with pytest.raises(NotImplementedError, match='queue C, C1b'):
+        if planes == 5:
+            cwt_cuda.cwt_w2(xh2, sc, wav, 2 * n_up, 0, 8, 1., 1e-6)
+        else:
+            cwt_fused(xh2, sc, wav, 2 * n_up, 0, 8, 1., planes == 2, True)
+    assert _mixed_counts() + [cwt_cuda.cwt_w2.launches] == c0
+
+
+def test_cwt_offsets_past_2_31(dev):
+    """Wx of 640 rows x 2^22 columns (2.7e9 elements, past 2^31): the
+    first and last rows against the plain version on their scales alone
+    (a row's arithmetic does not depend on its index), and the rows of
+    the last chunk bit-identical to a launch of those scales alone."""
+    n_up = 1 << 22
+    wav = resolve_wavelet(('gmw', {'dtype': 'float32'}), N=n_up)
+    x = torch.randn(n_up, generator=torch.Generator(device=dev).manual_seed(
+        7), device=dev)
+    xh = rfft(x)
+    sc = torch.as_tensor(np.geomspace(2., 2000., 640), dtype=torch.float32,
+                         device=dev)
+    assert len(sc) * n_up > 2 ** 31
+    W, _ = cwt_fused(xh, sc, wav, n_up, 0, n_up, 1., False, True)
+    torch.cuda.synchronize()
+    for rows in (slice(0, 2), slice(638, 640)):
+        W_p, _ = cwt_fused_plain(xh, sc[rows].contiguous(), wav, n_up, 0,
+                                 n_up, 1., False, True)
+        assert _rel_err(W[rows], W_p) <= 2e-5
+        W1, _ = cwt_fused(xh, sc[rows].contiguous(), wav, n_up, 0, n_up, 1.,
+                          False, True)
+        assert torch.equal(W[rows], W1)
+        del W_p, W1
+    del W
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_rules_raise_alike_on_both_devices(dev, dtype):
+    """A call just past each ceiling raises the same C1b error on the card
+    and on the CPU, before any launch."""
+    itemsize = 8 if dtype == 'float32' else 16
+    scales = 2. ** (2 + np.arange(8) / 4)
+    lg5 = 22 if dtype == 'float64' else 24
+    N5 = 3 << (lg5 - 2)                    # p2up -> n_up = 2^(lg5 + 1)
+    cases = [
+        lambda d: stq.ssq_cwt2(np.ones(N5, dtype), ('gmw', {'dtype': dtype}),
+                               scales=scales, device=d),
+        lambda d: stq.ssq_stft(np.ones(4096, dtype), n_fft=2 * (
+            200 * 1024 // itemsize), window='hann', dtype=dtype, device=d)]
+    for fn in cases:
+        msgs = []
+        c0 = _mixed_counts()
+        for d in ('cuda', 'cpu'):
+            with pytest.raises(NotImplementedError,
+                               match='queue C, C1b') as e:
+                fn(d)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
         assert _mixed_counts() == c0

@@ -428,14 +428,14 @@ def test_ssq_stft2_squeezing_vs_jax(squeezing, dtype):
 
 # ---- the slice's bounds ------------------------------------------------
 # every squeezing and 2-D input are ported (compared with the JAX package
-# above and in test_torch_stft_batch.py), and padtype=None at lengths whose
-# prime factors are at most 7 (tests/test_torch_padnone.py); get_w,
-# padtype=None at another length (1001 = 7 11 13) and non-GMW wavelets are
-# not, and get_w on 2-D input raises as the JAX package's ssq_cwt2 does
+# above and in test_torch_stft_batch.py), padtype=None at lengths whose
+# prime factors are at most 7 (tests/test_torch_padnone.py), and get_w
+# (tests/test_torch_order2_w.py); padtype=None at another length (1001 =
+# 7 11 13) and non-GMW wavelets are not, and get_w on 2-D input raises as
+# the JAX package's ssq_cwt2 does
 @pytest.mark.parametrize('kw', [
-    dict(get_w=True), dict(x2d=True, get_w=True),
-    dict(squeezing='abs', padtype=None),
-    dict(squeezing=lambda v: abs(v), get_w=True), dict(padtype=None),
+    dict(x2d=True, get_w=True),
+    dict(squeezing='abs', padtype=None), dict(padtype=None),
     dict(wavelet='morlet')],
     ids=lambda kw: '%s=%s' % next((k, getattr(v, '__name__', v))
                                   for k, v in kw.items()))
@@ -451,19 +451,6 @@ def test_ssq_cwt2_outside_slice_raises(kw):
                        match='ROADMAP' if x.ndim == 1
                        else 'unsupported with batched input'):
         tstq.ssq_cwt2(x, device='cpu', **kw)
-
-
-@pytest.mark.parametrize('kw', [
-    dict(get_w=True), dict(x2d=True, get_w=True),
-    dict(squeezing='lebesgue', get_w=True)],
-    ids=lambda kw: '%s=%s' % next(iter(kw.items())))
-def test_ssq_stft2_outside_slice_raises(kw):
-    kw = dict(kw)
-    x = _noise(600)
-    if kw.pop('x2d', False):
-        x = np.stack([x, x])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tstq.ssq_stft2(x, device='cpu', **kw)
 
 
 def test_order2_default_device_raises_without_card():

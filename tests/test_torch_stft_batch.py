@@ -301,12 +301,22 @@ def test_batched_get_w_raises_like_jax(fn, kw):
 
 
 def test_batched_ssq_stft2_get_w_and_3d_input_raise():
-    """`ssq_stft2(get_w=True)` stays unported for a signal and a batch;
-    3-D input raises in every batched entry point."""
+    """`ssq_stft2(get_w=True)` returns w2 for a signal and a batch (each
+    batched row the signal's, held against the JAX package in
+    tests/test_torch_order2_w.py), `ssq_cwt2(get_w=True)` on a batch
+    raises as the JAX package's does; 3-D input raises in every batched
+    entry point."""
     x = _batch('float32', seed=10)
-    for xi in (x, x[0]):
-        with pytest.raises(NotImplementedError, match='ROADMAP.*A8b'):
-            tstq.ssq_stft2(xi, get_w=True, device='cpu')
+    outs = [tstq.ssq_stft2(xi, n_fft=N_FFT, get_w=True, device='cpu')
+            for xi in (x, x[0])]
+    for out, lead in zip(outs, ((B,), ())):
+        assert len(out) == 5
+        assert out[4].shape == lead + (N_FFT // 2 + 1, N)
+        assert out[4].dtype == torch.float32
+    assert torch.equal(outs[0][4][0], outs[1][4])
+    with pytest.raises(NotImplementedError,
+                       match='unsupported with batched input'):
+        tstq.ssq_cwt2(x, get_w=True, device='cpu')
     for fn in (tstq.stft, tstq.ssq_stft, tstq.ssq_stft2, tstq.ssq_cwt2):
         with pytest.raises(ValueError, match='1D or 2D'):
             fn(x[None], device='cpu')
