@@ -132,8 +132,24 @@ the scatter from bins). It:
      run's shapes (and, for B2, B4 and B5, the bytes/s achieved and the
      share of the bound), and times each public call with its peak
      memory;
- 13. prints one `{"kernels": [...]}` line, then, as the last line,
-     `{"ok": true, "device": {...}}`.
+ 12b. (`wavelet_section`) the other wavelets: holds every table mode of
+     the CWT kernel (B1 with cmhat, B3 with hhhat and with an order-1 GMW
+     and two planes, B8 with morlet and its w2 mode with cmhat, B3b with
+     a bump on the (4, 160000) batch, hhhat unpadded), each at its
+     wavelet's own scales, against its plain version on both engines
+     (n_up = 262144 and 160000), two runs bit-identical, with the
+     launch's peak; the order-0 GMW read from a memoized table against
+     its closed form, with both times; then 16 public calls (the GMW as
+     a reference; `ssq_cwt` with cmhat, an order-1 GMW, morlet through
+     `cwt_general`, `order=(0, 1)`, a bump on the batch; `cwt` with hhhat
+     and a user's function; `ssq_cwt2` with morlet and cmhat `get_w`;
+     four of them unpadded), each on exactly its route's counters (the
+     `table_*` ones, `cwt_general.calls`, a `trigdiff` shim, no plain
+     version), against the same call with the models' kernel wrappers
+     swapped for their plain versions, timed with its peak above what
+     the script holds;
+ 13. prints one `{"kernels": [...]}` line (the table modes' nine rows
+     last), then, as the last line, `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before those lines. Without a CUDA
 device, or without the package beside this script, it exits non-zero.
@@ -256,6 +272,382 @@ def launches_of(counters, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, {name: getattr(w, attr) for name, w, attr in counters}
+
+
+def wavelet_section(stq, dev, card, x_np, xb_np):
+    """Section 12b: the CWT kernel's table modes (every wavelet but the
+    order-0 GMW read from a table) and the public calls with the other
+    wavelets. Returns (kernel rows, {call: (e2e ms, peak GB)})."""
+    import torch
+    from ssqueezepy_tpu_torch.models import (cwt as cwt_mod,
+                                             ssq_cwt as ssq_mod,
+                                             ssq_cwt2 as ssq2_mod)
+    from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
+    from ssqueezepy_tpu_torch.models.ssq_cwt import _ssq_cwt_plan
+    from ssqueezepy_tpu_torch.ops import cwt_cuda, ssq_cuda
+    from ssqueezepy_tpu_torch.ops.cwt_cuda import (
+        cwt_bins, cwt_bins_plain, cwt_bins2, cwt_bins2_plain, cwt_fused,
+        cwt_fused_plain, cwt_w2, four_step)
+    from ssqueezepy_tpu_torch.ops.ssq_cuda import (
+        scatter_kv, scatter_kv_plain, shift_scatter, shift_scatter_plain,
+        ssq_fused, ssq_fused_plain)
+    from ssqueezepy_tpu_torch.ops.ssq_kernels import compute_bins
+    from ssqueezepy_tpu_torch.ops.fft import rfft
+    from ssqueezepy_tpu_torch.ops.pad import padsignal, pad_params
+
+    N, B = len(x_np), len(xb_np)
+    cb, rb = 8, 4                       # complex64, float32 bytes
+    nr4, n1 = pad_params(N, 'reflect')[:2]
+    gamma = 10 * float(np.finfo(np.float32).eps)
+    rows, e2e = [], {}
+    # every plain version (and `trigdiff`) behind a counting shim: the
+    # public calls below must reach none of them on the card
+    shims = {}
+    for mod, name in ((cwt_cuda, 'cwt_bins_plain'),
+                      (cwt_cuda, 'cwt_fused_plain'),
+                      (cwt_cuda, 'cwt_bins2_plain'), (cwt_cuda, 'wsst2_rows'),
+                      (cwt_mod, 'cwt_core'), (ssq_cuda, 'scatter_kv_plain'),
+                      (ssq_cuda, 'ssq_fused_plain'),
+                      (ssq_cuda, 'shift_scatter_plain'),
+                      (ssq_mod, 'trigdiff')):
+        orig = getattr(mod, name)
+
+        def shim(*a, _orig=orig, _name=name, **k):
+            shims[_name][3].calls += 1
+            return _orig(*a, **k)
+        shim.calls = 0
+        shims[name] = (mod, name, orig, shim)
+        setattr(mod, name, shim)
+    counters = [('%s.%s' % (w.__name__, a), w, a)
+                for w in (cwt_bins, cwt_fused, cwt_bins2, cwt_w2)
+                for a in dir(w) if a.endswith('launches')] + [
+        ('%s.launches' % w.__name__, w, 'launches')
+        for w in (scatter_kv, ssq_fused, shift_scatter)] + [
+        ('cwt_general', cwt_mod.cwt_general, 'calls')] + [
+        (name if name == 'trigdiff' else 'plain ' + name, v[3], 'calls')
+        for name, v in shims.items()]
+
+    def plain_route(fn):
+        """fn() with every kernel wrapper the models call replaced by its
+        plain version (on the card's tensors)."""
+        swaps = [(cwt_mod, 'cwt_fused', cwt_fused_plain),
+                 (ssq_mod, 'cwt_bins', cwt_bins_plain),
+                 (ssq_mod, 'cwt_fused', cwt_fused_plain),
+                 (ssq_mod, 'scatter_kv', scatter_kv_plain),
+                 (ssq_mod, 'ssq_fused', ssq_fused_plain),
+                 (ssq2_mod, 'cwt_bins2', cwt_bins2_plain),
+                 (ssq2_mod, 'cwt_w2', shims['wsst2_rows'][2]),
+                 (ssq2_mod, 'scatter_kv', scatter_kv_plain),
+                 (ssq_cuda, 'shift_scatter', shift_scatter_plain)]
+        saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+        try:
+            for m, n, f in swaps:
+                setattr(m, n, f)
+            return fn()
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+
+    def gauss4(w):
+        """A user's wavelet: a real Gaussian bump at w = 4."""
+        return torch.exp(-(w - 4.) ** 2) * (w > 0)
+
+    def own_scales(spec):
+        wv = resolve_wavelet(spec, N=N)
+        return wv, stq.process_scales('log-piecewise', N, wv)[:300]
+
+    # ---- each table mode against its plain version, both engines ---------
+    modes = {'bins': ('cmhat', 2), 'wx': ('hhhat', 1),
+             'wx_dwx': (('gmw', {'order': 1}), 2), 'bins2': ('morlet', 5),
+             'w2': ('cmhat', 5), 'batched': ('bump', 2)}
+    x_t = torch.as_tensor(x_np, device=dev)
+    xb_t = torch.as_tensor(xb_np, device=dev)
+    spectra = {'radix-4': (rfft(padsignal(x_t, 'reflect')).contiguous(),
+                           rfft(padsignal(xb_t, 'reflect')).contiguous(),
+                           nr4, n1),
+               'mixed': (rfft(x_t).contiguous(), rfft(xb_t).contiguous(), N,
+                         0)}
+    km = {}
+    for engine, (xh1, xhb, n_up, n1e) in spectra.items():
+        half = n_up // 2 + 1
+        for mode, (spec, planes) in modes.items():
+            if engine == 'mixed' and spec == 'bump':
+                # the bump's unpadded piecewise ssq grid has no knee at
+                # this N (in the JAX package too)
+                spec = 'hhhat'
+            wv, sc_np = own_scales(spec)
+            pl, _ = _ssq_cwt_plan(wv, N, sc_np, None, None, 'peak',
+                                  engine == 'radix-4', 1.)
+            na = len(sc_np)
+            sc = torch.as_tensor(sc_np.ravel(), dtype=torch.float32,
+                                 device=dev)
+            c = torch.as_tensor(np.broadcast_to(np.ravel(pl.const),
+                                                (na,)).copy(),
+                                dtype=torch.float32, device=dev)
+            nb = pl.params['omax'] + 1
+            xh = xhb if mode == 'batched' else xh1
+            if mode in ('bins', 'batched'):
+                a = (xh, sc, wv, n_up, n1e, N, 1., True, pl.params, gamma,
+                     True)
+                k_fn, p_fn = cwt_bins, cwt_bins_plain
+            elif mode in ('wx', 'wx_dwx'):
+                a = (xh, sc, wv, n_up, n1e, N, 1., mode == 'wx_dwx', True)
+                k_fn, p_fn = cwt_fused, cwt_fused_plain
+            elif mode == 'bins2':
+                a = (xh, sc, wv, n_up, n1e, N, 1., pl.params, gamma, True)
+                k_fn, p_fn = cwt_bins2, cwt_bins2_plain
+            else:
+                a = (xh, sc, wv, n_up, n1e, N, 1., gamma)
+                k_fn, p_fn = cwt_w2, shims['wsst2_rows'][2]
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            outk = k_fn(*a)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            outp = p_fn(*a)
+            what = "%s table mode %s (%s) at n_up=%d=%dx%d, %d scales" % (
+                (engine, mode, wv.name, n_up) + four_step(n_up) + (na,))
+            if mode == 'batched':
+                what += ", batch of %d" % B
+            err = float((outk[0] - outp[0]).abs().max())
+            m = float(outp[0].abs().max())
+            check(bool(torch.isfinite(torch.view_as_real(outk[0])).all())
+                  and err <= 2e-5 * m,
+                  "%s: Wx %.3g of max vs plain (limit 2e-5); the launch's "
+                  "peak %.3f GB above what was live, its table and scratch "
+                  "included" % (what, err / m, peak))
+            if mode in ('bins', 'batched', 'bins2'):
+                flips = float((outk[1] != outp[1]).double().mean())
+                check(flips <= 0.01, "%s: k differs on %.4f%% of cells "
+                      "(limit 1%%)" % (what, 100 * flips))
+                bins_criterion(scatter_kv_plain(outk[0], outk[1], c, nb),
+                               scatter_kv_plain(outp[0], outp[1], c, nb),
+                               what)
+            elif mode == 'wx_dwx':
+                check(rel_err(outk[1], outp[1]) <= 2e-5, "%s: dWx %.3g of "
+                      "max vs plain" % (what, rel_err(outk[1], outp[1])))
+            elif mode == 'w2':
+                gd = float((torch.isinf(outk[1]) != torch.isinf(outp[1]))
+                           .double().mean())
+                check(gd <= 1e-3, "%s: w2 gated alike but on %.4f%% of "
+                      "cells (limit 0.1%%)" % (what, 100 * gd))
+                bins_criterion(
+                    shift_scatter_plain(outk[0], *compute_bins(
+                        outk[1], pl.params, True), nb, c),
+                    shift_scatter_plain(outp[0], *compute_bins(
+                        outp[1], pl.params, True), nb, c), what + " Tx")
+            again = k_fn(*a)
+            check(all(torch.equal(u, v) for u, v in zip(outk, again)
+                      if u is not None), "%s: repeat bit-identical" % what)
+            del outk, outp, again
+            torch.cuda.empty_cache()
+            tab_bytes = (3 if planes == 5 else 1) * na * half * rb
+            # the table's build outside the memo, beside the kernel's time
+            # and not in its bound: the TPU kernel computes psih in its body
+            tab_ms = cuda_ms(lambda: cwt_cuda.wavelet_table(
+                wv, sc, n_up, planes == 5), reps=2, warm=0)
+            ms = cuda_ms(lambda: k_fn(*a), reps=5)
+            plain_ms = cuda_ms(lambda: p_fn(*a), reps=2, warm=1)
+            n_rows = na * (B if mode == 'batched' else 1)
+            spec_lib = torch.zeros((planes * n_rows, n_up),
+                                   dtype=torch.complex64, device=dev)
+            spec_lib[:, :half] = 1.
+            lib_ms = cuda_ms(lambda: torch.fft.ifft(spec_lib, dim=-1),
+                             reps=3)
+            del spec_lib
+            torch.cuda.empty_cache()
+            # inputs read once (the half spectra, the scales; not the
+            # table, which the function does not need), outputs written once
+            # (Wx; k, w2 or dWx); `planes` inverse DFTs per row at
+            # 5 n log2 n FLOP, less the zero-input first stage on radix 4
+            out_b = n_rows * N * (cb + {'wx': 0, 'wx_dwx': cb,
+                                        'w2': rb}.get(mode, 4))
+            nbytes = xh.numel() * cb + na * rb + out_b
+            lg = np.log2(n_up) - (1 if engine == 'radix-4' else 0)
+            flops = planes * n_rows * 5 * n_up * lg
+            bms, by = bound(nbytes, flops)
+            km[(engine, mode)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bms, bound_by=by,
+                                      library_ms=lib_ms)
+            print("%s: %.3f ms from the memoized table (plain %.3f, "
+                  "torch.fft.ifft DFT core %.3f, bound %.3f by %s: %.3g B, "
+                  "%.3g FLOP); the table %.3g B, built in %.3f ms; card: %s"
+                  % (what, ms, plain_ms, lib_ms, bms, by, nbytes, flops,
+                     tab_bytes, tab_ms, card), flush=True)
+            del a, xh
+            cwt_cuda._TABLES.clear()
+            torch.cuda.empty_cache()
+
+    # ---- the order-0 GMW through the table against its closed form -------
+    gmw = resolve_wavelet(('gmw', {'dtype': 'float32'}), N=N)
+    gfn = gmw.fn
+
+    def twin_fn(w, xp=torch):
+        """The order-0 GMW with neither its kernel parameters nor its
+        closed-form derivatives: a named wavelet, so its table is
+        memoized as any other's (derivatives by autograd)."""
+        return gfn(w, xp=xp)
+    twin_fn.config, twin_fn.qualname = {}, 'gmw_table_twin'
+    twin = resolve_wavelet(stq.Wavelet(twin_fn, dtype='float32'))
+    sc_np = stq.process_scales('log-piecewise', N, gmw)[:300]
+    for engine, (xh1, _, n_up, n1e) in spectra.items():
+        pl, _ = _ssq_cwt_plan(gmw, N, sc_np, None, None, 'peak',
+                              engine == 'radix-4', 1.)
+        sc = torch.as_tensor(sc_np.ravel(), dtype=torch.float32, device=dev)
+        for mode, fn, a in (
+                ('bins', cwt_bins, (n_up, n1e, N, 1., True, pl.params,
+                                    gamma, True)),
+                ('wx', cwt_fused, (n_up, n1e, N, 1., False, True)),
+                ('bins2', cwt_bins2, (n_up, n1e, N, 1., pl.params, gamma,
+                                      True))):
+            ref = fn(xh1, sc, gmw, *a)
+            got = fn(xh1, sc, twin, *a)
+            torch.cuda.synchronize()
+            err = rel_err(got[0], ref[0])
+            nk = int((got[1] != ref[1]).sum()) if mode != 'wx' else 0
+            ms_c = cuda_ms(lambda: fn(xh1, sc, gmw, *a), reps=5)
+            ms_t = cuda_ms(lambda: fn(xh1, sc, twin, *a), reps=5)
+            check(err <= 2e-5, "%s %s: GMW read from its table (derivatives "
+                  "by autograd) vs synthesized: W %.3g of max (limit 2e-5), "
+                  "%d of %d k cells differ; %.3f ms from the memoized table "
+                  "vs %.3f ms synthesized (stage 2 is the same code); card: "
+                  "%s"
+                  % (engine, mode, err, nk, ref[0].numel(), ms_t, ms_c,
+                     card))
+            del ref, got
+        cwt_cuda._TABLES.clear()
+        torch.cuda.empty_cache()
+    del spectra, xh1
+
+    # ---- the public calls, counters zeroed just before, read just after --
+    wsc = {name: own_scales(spec)[1] for name, spec in (
+        ('cmhat', 'cmhat'), ('gmw1', ('gmw', {'order': 1})),
+        ('morlet', 'morlet'), ('hhhat', 'hhhat'), ('bump', 'bump'))}
+    calls = {
+        # the order-0 GMW at its own 293 scales: the closed form, measured
+        # as the calls below are
+        'ssq_cwt_gmw': (lambda: stq.ssq_cwt(x_t, scales=sc_np),
+                        {'cwt_bins.launches', 'scatter_kv.launches'}),
+        'cwt_gmw': (lambda: stq.cwt(x_t, scales=sc_np),
+                    {'cwt_fused.launches'}),
+        'ssq_cwt2_gmw': (lambda: stq.ssq_cwt2(x_t, scales=sc_np),
+                         {'cwt_bins2.launches', 'scatter_kv.launches'}),
+        'ssq_cwt_cmhat': (lambda: stq.ssq_cwt(x_t, 'cmhat',
+                                              scales=wsc['cmhat']),
+                          {'cwt_bins.table_launches', 'scatter_kv.launches'}),
+        'ssq_cwt_gmw_order1': (lambda: stq.ssq_cwt(
+            x_t, ('gmw', {'order': 1}), scales=wsc['gmw1']),
+            {'cwt_bins.table_launches', 'scatter_kv.launches'}),
+        'ssq_cwt_morlet': (lambda: stq.ssq_cwt(x_t, 'morlet',
+                                               scales=wsc['morlet']),
+                           {'cwt_general', 'ssq_fused.launches'}),
+        'ssq_cwt_order01': (lambda: stq.ssq_cwt(x_t, order=(0, 1),
+                                                scales=sc_np),
+                            {'cwt_fused.launches',
+                             'cwt_fused.table_launches', 'trigdiff',
+                             'ssq_fused.launches'}),
+        'cwt_hhhat': (lambda: stq.cwt(x_t, 'hhhat', scales=wsc['hhhat']),
+                      {'cwt_fused.table_launches'}),
+        'ssq_cwt_bump_b4': (lambda: stq.ssq_cwt(xb_t, 'bump',
+                                                scales=wsc['bump']),
+                            {'cwt_bins.table_batched_launches',
+                             'scatter_kv.launches'}),
+        'ssq_cwt2_morlet': (lambda: stq.ssq_cwt2(x_t, 'morlet',
+                                                 scales=wsc['morlet']),
+                            {'cwt_bins2.table_launches',
+                             'scatter_kv.launches'}),
+        'ssq_cwt2_cmhat_getw': (lambda: stq.ssq_cwt2(
+            x_t, 'cmhat', scales=wsc['cmhat'], get_w=True),
+            {'cwt_w2.table_launches', 'shift_scatter.launches'}),
+        'cwt_custom': (lambda: stq.cwt(x_t, gauss4, scales=wsc['cmhat']),
+                       {'cwt_general'}),
+        # unpadded (n_up = N, the mixed engine)
+        'ssq_cwt_cmhat_padnone': (lambda: stq.ssq_cwt(
+            x_t, 'cmhat', scales=wsc['cmhat'], padtype=None),
+            {'cwt_bins.table_mixed_launches', 'scatter_kv.launches'}),
+        'cwt_hhhat_padnone': (lambda: stq.cwt(
+            x_t, 'hhhat', scales=wsc['hhhat'], padtype=None),
+            {'cwt_fused.table_mixed_launches'}),
+        'ssq_cwt2_morlet_padnone': (lambda: stq.ssq_cwt2(
+            x_t, 'morlet', scales=wsc['morlet'], padtype=None),
+            {'cwt_bins2.table_mixed_launches', 'scatter_kv.launches'}),
+        'ssq_cwt2_cmhat_getw_padnone': (lambda: stq.ssq_cwt2(
+            x_t, 'cmhat', scales=wsc['cmhat'], padtype=None, get_w=True),
+            {'cwt_w2.table_mixed_launches', 'shift_scatter.launches'}),
+    }
+    launches = dict.fromkeys((n for n, _, _ in counters), 0)
+    for name, (fn, need) in calls.items():
+        fn()                                  # plan memo + first launch
+        torch.cuda.synchronize()
+        out, counts = launches_of(counters, fn)
+        moved = {k for k, v in counts.items() if v}
+        check(moved == need, "%s at N=%d launched %s (needs exactly %s)"
+              % (name, N, sorted(moved), sorted(need)))
+        for k, v in counts.items():
+            launches[k] += v
+        ref = plain_route(fn)
+        if name.startswith('cwt'):
+            err = rel_err(out[0], ref[0])
+            check(bool(torch.isfinite(torch.view_as_real(out[0])).all())
+                  and err <= 2e-5, "%s: Wx %s finite, %.3g of max vs the "
+                  "plain path" % (name, tuple(out[0].shape), err))
+        else:
+            err = rel_err(out[1], ref[1])
+            check(bool(torch.isfinite(torch.view_as_real(out[0])).all())
+                  and err <= 2e-5, "%s: Tx %s finite, Wx %.3g of max vs the "
+                  "plain path" % (name, tuple(out[0].shape), err))
+            bins_criterion(out[0], ref[0], "%s vs plain path" % name)
+        del out, ref
+        cwt_cuda._TABLES.clear()
+        torch.cuda.empty_cache()
+    # each call's peak above what the script holds before it, with only
+    # its own wavelet table and cuFFT plans cached
+    for name, (fn, _) in calls.items():
+        cwt_cuda._TABLES.clear()
+        torch.backends.cuda.cufft_plan_cache.clear()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() / 1e9
+        ms, peak = host_ms(fn)
+        e2e[name] = (ms, peak - base)
+        print("%s end to end at N=%d: %.3f ms/call (host clock, mean of 10 "
+              "after warm-up), peak device memory %.3f GB above the %.3f GB "
+              "held before the call; card: %s"
+              % (name, N, ms, peak - base, base, card), flush=True)
+    cwt_cuda._TABLES.clear()
+    for mod, name, orig, _ in shims.values():
+        setattr(mod, name, orig)
+    print("wavelet-table calls' launches, summed over the %d calls: %s"
+          % (len(calls), {k: v for k, v in launches.items() if v}),
+          flush=True)
+
+    for name, key, counter in (
+            ('cwt_bins_table', ('radix-4', 'bins'),
+             'cwt_bins.table_launches'),
+            ('cwt_fused_table', ('radix-4', 'wx'),
+             'cwt_fused.table_launches'),
+            ('cwt_bins_batched_table', ('radix-4', 'batched'),
+             'cwt_bins.table_batched_launches'),
+            ('cwt_bins2_table', ('radix-4', 'bins2'),
+             'cwt_bins2.table_launches'),
+            ('cwt_w2_table', ('radix-4', 'w2'), 'cwt_w2.table_launches'),
+            ('cwt_bins_table_mixed', ('mixed', 'bins'),
+             'cwt_bins.table_mixed_launches'),
+            ('cwt_fused_table_mixed', ('mixed', 'wx'),
+             'cwt_fused.table_mixed_launches'),
+            ('cwt_bins2_table_mixed', ('mixed', 'bins2'),
+             'cwt_bins2.table_mixed_launches'),
+            ('cwt_w2_table_mixed', ('mixed', 'w2'),
+             'cwt_w2.table_mixed_launches')):
+        r = km[key]
+        rows.append(dict(
+            name=name, route='cuda',
+            source='ssqueezepy_tpu_torch/csrc/cwt_bins.cu',
+            replaces='ssqueezepy_tpu/ops/cwt_pallas.py:70',
+            launches=launches[counter], max_abs_err=r['err'], ms=r['ms'],
+            plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+            bound_by=r['bound_by'], library_ms=r['library_ms']))
+    return rows, e2e
 
 
 def main():
@@ -2247,6 +2639,7 @@ def main():
               "bound %.3f ms, %.1f%% of the bound; card: %s"
               % (what, ms, nbytes / ms / 1e9, nbytes, bms, 100 * bms / ms,
                  card), flush=True)
+    wav_rows, _ = wavelet_section(stq, dev, card, x_np, xb_big)
     print("main-path launches per kernel, summed over the %d public "
           "calls: %s" % (len(calls), launches), flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),
@@ -2362,6 +2755,7 @@ def main():
              max_abs_err=w2k['b7b']['err'], ms=w7b_ms,
              plain_ms=w7b_plain_ms, bound_ms=w7b_bound, bound_by=w7b_by,
              library_ms=b7b_lib_ms)]
+    kernels += wav_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,11 @@
 """Digests of every output of the CWT kernel (`csrc/cwt_bins.cu`: B1 and
 B3b in bins mode, B3 with one plane and with two, in the L1 and L2 norm,
 B8 in order-2 mode and, where the checkout has it (`cwt_w2`), in its w2
-mode, one signal and a batch, on both DFT engines), so that two checkouts
-of the port can be compared bit for bit on one NVIDIA GPU; and, with
-`--time`, the kernels' times at the headline.
+mode, one signal and a batch, on both DFT engines; and, where the
+checkout has the wavelet table (`wavelet_table`), every mode again with
+the order-1 GMW read from its table, keys "... table <kernel> ..."), so
+that two checkouts of the port can be compared bit for bit on one NVIDIA
+GPU; and, with `--time`, the kernels' times at the headline.
 
     python3 scripts/torch_cwt_digest.py [--root DIR] [--time] > out.json
 
@@ -114,6 +116,21 @@ def main():
         if hasattr(cwt_cuda, 'cwt_w2'):
             runs['B8 w2'] = (('W', 'w2'), lambda z: cwt_cuda.cwt_w2(
                 z, sc, wv, n_up, n1, N, 1., gamma))
+        if hasattr(cwt_cuda, 'wavelet_table'):
+            wt = resolve_wavelet(('gmw', {'order': 1, 'dtype': dtype}), N=N)
+            runs.update({
+                'table B1': (('Wx', 'k'), lambda z: cwt_bins(
+                    z, sc, wt, n_up, n1, N, 1., True, plan['params'],
+                    gamma, True)),
+                'table B3 Wx only': (('Wx',), lambda z: cwt_fused(
+                    z, sc, wt, n_up, n1, N, 1., False, True)[:1]),
+                'table B3 Wx + dWx': (('Wx', 'dWx'), lambda z: cwt_fused(
+                    z, sc, wt, n_up, n1, N, 1., True, True)),
+                'table B8': (('W', 'k'), lambda z: cwt_bins2(
+                    z, sc, wt, n_up, n1, N, 1., plan['params'], gamma,
+                    True)),
+                'table B8 w2': (('W', 'w2'), lambda z: cwt_cuda.cwt_w2(
+                    z, sc, wt, n_up, n1, N, 1., gamma))})
         xh = spectrum(N)
         xb = torch.stack([xh, spectrum(N + 1), spectrum(N + 2)])
         tag = '' if padtype else 'unpadded '

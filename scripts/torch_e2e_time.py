@@ -12,8 +12,10 @@ order effects of a longer script.
 (default: the one holding this script). White noise from a seed at
 N = 160000, float32: `ssq_cwt` (the bench's 293 log-piecewise scales and
 their ssq_freqs), `cwt` (the same scales), `ssq_cwt(get_dWx=True)`,
-`ssq_stft` (n_fft = 598), `ssq_cwt(get_w=True)` and `ssqueeze` of that
-call's Wx and w (`ssqueeze_w`). Each call is warmed up 5 times, then
+`ssq_stft` (n_fft = 598), `stft` (n_fft = 598), `ssq_stft(hop_len=8)`,
+`ssq_cwt(get_w=True)`, `ssqueeze` of that call's Wx and w
+(`ssqueeze_w`) and of the `get_dWx` call's Wx and dWx (`ssqueeze_dwx`),
+as `chip_smoke.py` calls them. Each call is warmed up 5 times, then
 timed in `--rounds` rounds of 20 calls ending in a synchronize. Prints
 one JSON object {"root": DIR, "card": ..., "<call>": [ms per call, one
 per round], ...}. Needs a CUDA device.
@@ -60,11 +62,18 @@ def main():
         'cwt': lambda: stq.cwt(x, wavelet=spec, scales=scales),
         'ssq_cwt_dwx': lambda: stq.ssq_cwt(x, get_dWx=True, **kw),
         'ssq_stft': lambda: stq.ssq_stft(x, n_fft=598),
+        'stft': lambda: stq.stft(x, n_fft=598),
+        'ssq_stft_hop8': lambda: stq.ssq_stft(x, n_fft=598, hop_len=8),
         'ssq_cwt_getw': lambda: stq.ssq_cwt(x, get_w=True, **kw),
         'ssqueeze_w': lambda: stq.ssqueeze(
             held[1], w=held[4], scales=scales, ssq_freqs=freqs,
+            flipud=True),
+        'ssqueeze_dwx': lambda: stq.ssqueeze(
+            held_d[1], dWx=held_d[4], gamma=10 * float(np.finfo(
+                np.float32).eps), scales=scales, ssq_freqs=freqs,
             flipud=True)}
     held = calls['ssq_cwt_getw']()
+    held_d = calls['ssq_cwt_dwx']()
     out = {'root': a.root, 'card': subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,

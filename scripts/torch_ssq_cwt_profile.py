@@ -22,7 +22,12 @@ at N = 160000), `cwt_rpadded` (`cwt(rpadded=True)`), `ssq_cwt_numeric`
 (`ssq_cwt(difftype='numeric', get_w=True)`, the same scales),
 `ssq_cwt2_getw`, `ssq_cwt2_getw_padnone`, `ssq_stft2_getw` or
 `ssq_stft2_getw_b4` (the order-2 calls with `get_w=True`: the w2 modes
-of B8 and B7, then B5) —
+of B8 and B7, then B5), or with another wavelet at its own
+log-piecewise scales (at most 300) `ssq_cwt_cmhat`, `ssq_cwt_gmw_order1`,
+`ssq_cwt_morlet`, `ssq_cwt_order01` (`order=(0, 1)`, the GMW's scales),
+`cwt_hhhat`, `ssq_cwt_bump_b4`, `ssq_cwt2_morlet`,
+`ssq_cwt2_cmhat_getw`, `cwt_custom` (a Gaussian bump at w = 4 as a
+function, at cmhat's scales) —
 under `torch.profiler` after warm-up and prints one JSON line: device
 time per kernel name (summed over the profiled calls, divided by the
 call count), the wall time per call, and the device's idle share of
@@ -36,6 +41,36 @@ import sys
 import time
 
 import numpy as np
+
+
+def _gauss4(w):
+    """A user's wavelet: a real Gaussian bump at w = 4."""
+    return (-(w - 4.) ** 2).exp() * (w > 0)
+
+
+# name: (call of (package, x, batch, scales), the wavelet whose own
+# scales it takes)
+_WAVELET_CALLS = {
+    'ssq_cwt_cmhat': (lambda s, x, xb, sc: s.ssq_cwt(x, 'cmhat', scales=sc),
+                      'cmhat'),
+    'ssq_cwt_gmw_order1': (lambda s, x, xb, sc: s.ssq_cwt(
+        x, ('gmw', {'order': 1}), scales=sc), ('gmw', {'order': 1})),
+    'ssq_cwt_morlet': (lambda s, x, xb, sc: s.ssq_cwt(x, 'morlet',
+                                                      scales=sc), 'morlet'),
+    'ssq_cwt_order01': (lambda s, x, xb, sc: s.ssq_cwt(x, order=(0, 1),
+                                                       scales=sc), 'gmw'),
+    'cwt_hhhat': (lambda s, x, xb, sc: s.cwt(x, 'hhhat', scales=sc),
+                  'hhhat'),
+    'ssq_cwt_bump_b4': (lambda s, x, xb, sc: s.ssq_cwt(xb, 'bump',
+                                                       scales=sc), 'bump'),
+    'ssq_cwt2_morlet': (lambda s, x, xb, sc: s.ssq_cwt2(x, 'morlet',
+                                                        scales=sc),
+                        'morlet'),
+    'ssq_cwt2_cmhat_getw': (lambda s, x, xb, sc: s.ssq_cwt2(
+        x, 'cmhat', scales=sc, get_w=True), 'cmhat'),
+    'cwt_custom': (lambda s, x, xb, sc: s.cwt(x, _gauss4, scales=sc),
+                   'cmhat'),
+}
 
 
 def main():
@@ -55,7 +90,7 @@ def main():
                              'cwt_rpadded', 'ssq_cwt_numeric',
                              'ssq_cwt2_padnone', 'ssq_cwt2_getw',
                              'ssq_cwt2_getw_padnone', 'ssq_stft2_getw',
-                             'ssq_stft2_getw_b4'))
+                             'ssq_stft2_getw_b4') + tuple(_WAVELET_CALLS))
     ap.add_argument('--n', type=int, default=160000)
     ap.add_argument('--calls', type=int, default=5)
     a = ap.parse_args()
@@ -81,9 +116,14 @@ def main():
     xb = torch.as_tensor(np.random.default_rng(1).standard_normal((4, N))
                          .astype(np.float32), device='cuda')
     kw = dict(wavelet=spec, scales=scales, ssq_freqs=freqs)
+    if a.transform in _WAVELET_CALLS:
+        fn, wspec = _WAVELET_CALLS[a.transform]
+        wsc = scales if wspec == 'gmw' else stq.process_scales(
+            'log-piecewise', N, stq.Wavelet(wspec))[:300]
+        call = lambda: fn(stq, x, xb, wsc)         # noqa: E731
     if a.transform == 'ssqueeze_dwx':
         _, Wx, _, _, dWx = stq.ssq_cwt(x, get_dWx=True, **kw)
-    call = {
+    calls = {
         'ssqueeze_dwx': lambda: stq.ssqueeze(
             Wx, dWx=dWx, gamma=10 * float(np.finfo(np.float32).eps),
             scales=scales, ssq_freqs=freqs, flipud=True),
@@ -125,7 +165,9 @@ def main():
         'ssq_stft2_getw': lambda: stq.ssq_stft2(x, n_fft=598, get_w=True),
         'ssq_stft2_getw_b4': lambda: stq.ssq_stft2(xb, n_fft=598,
                                                    get_w=True),
-    }[a.transform]
+    }
+    if a.transform in calls:
+        call = calls[a.transform]
     for _ in range(3):
         call()
     torch.cuda.synchronize()

@@ -5,7 +5,9 @@ Synchrosqueezed CWT and STFT (`ssq_cwt`, `ssq_stft`) with their inverses,
 their second-order forms (`ssq_cwt2`, `ssq_stft2`), the CWT (`cwt`,
 `icwt`), the STFT (`stft`, `istft`) and the reassignment from a transform
 and its derivative or from a phase transform (`ssqueeze`,
-`ssqueeze_fast`, `indexed_sum_onfly`, with `phase_cwt`, `phase_stft`) on
+`ssqueeze_fast`, `indexed_sum_onfly`, with `phase_cwt`, `phase_stft`),
+with every wavelet (GMW of any order, morlet, bump, cmhat, hhhat, a
+function of a torch tensor) and the higher-order CWT, on
 an NVIDIA Hopper card: the fused CWT kernels, the STFT table kernel, the
 reassignment scatters (from bins, and the generic one) and the fused
 phase + bins + scatter kernel are hand-written CUDA
@@ -15,13 +17,17 @@ versions. The package imports torch, numpy and scipy — never JAX, and
 nothing of `ssqueezepy_tpu`.
 """
 from . import toolkit
-from .models.cwt import cwt, icwt
+from .models.cwt import cwt, icwt, cwt_higher_order
+from .models.gmw import gmw, compute_gmw, morsewave, morsefreq
 from .models.ssq_cwt import ssq_cwt, issq_cwt
 from .models.ssq_cwt2 import ssq_cwt2
 from .models.ssq_stft import ssq_stft, issq_stft, ssq_stft2
 from .models.ssqueezing import ssqueeze
 from .models.stft import stft, istft
-from .models.wavelets import Wavelet
+from .models.wavelets import (Wavelet, morlet, bump, cmhat, hhhat,
+                              center_frequency, freq_resolution,
+                              time_resolution)
+from .ops.diff import trigdiff
 from .models.windows import get_window
 from .ops.phase import phase_cwt, phase_stft
 from .ops.ssq_kernels import (ssqueeze_fast, indexed_sum_onfly, indexed_sum,
@@ -29,8 +35,10 @@ from .ops.ssq_kernels import (ssqueeze_fast, indexed_sum_onfly, indexed_sum,
 from .utils.cwt_utils import process_scales, make_scales, adm_cwt, adm_ssq
 
 __all__ = ['ssq_cwt', 'issq_cwt', 'ssq_stft', 'issq_stft', 'ssq_cwt2',
-           'ssq_stft2', 'cwt', 'icwt', 'stft', 'istft', 'ssqueeze',
-           'ssqueeze_fast', 'indexed_sum_onfly', 'indexed_sum',
-           'find_closest', 'phase_cwt', 'phase_stft', 'get_window',
-           'Wavelet', 'process_scales', 'make_scales', 'adm_cwt', 'adm_ssq',
-           'toolkit']
+           'ssq_stft2', 'cwt', 'icwt', 'cwt_higher_order', 'stft', 'istft',
+           'ssqueeze', 'ssqueeze_fast', 'indexed_sum_onfly', 'indexed_sum',
+           'find_closest', 'phase_cwt', 'phase_stft', 'trigdiff',
+           'get_window', 'Wavelet', 'morlet', 'bump', 'cmhat', 'hhhat',
+           'gmw', 'center_frequency', 'freq_resolution', 'time_resolution',
+           'compute_gmw', 'morsewave', 'morsefreq', 'process_scales',
+           'make_scales', 'adm_cwt', 'adm_ssq', 'toolkit']

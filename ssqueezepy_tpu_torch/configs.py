@@ -5,8 +5,9 @@ Defaults live in typed dataclasses, layered as
 
     explicit kwargs  >  environment (``SSQTORCH_*``)  >  built-in defaults
 
-Built-in defaults follow ssqueezepy's `configs.ini` values: GMW
-gamma=3, beta=60, norm='bandpass'; global dtype float32; log-piecewise
+Built-in defaults follow ssqueezepy's `configs.ini` values: morlet
+mu=13.4; bump mu=5, s=1, om=0; cmhat mu=1, s=1; hhhat mu=5; GMW gamma=3,
+beta=60, norm='bandpass'; global dtype float32; log-piecewise
 downsample=4. Counterpart of `ssqueezepy_tpu/configs.py`, cut to what
 the synchrosqueezed CWT needs (no backend or kernel switches: CUDA
 tensors always run the hand-written kernels, CPU tensors their plain
@@ -23,6 +24,10 @@ __all__ = ['Config', 'get_config', 'configure',
 @dataclass
 class WaveletDefaults:
     """Per-wavelet default parameters (ssqueezepy configs.ini)."""
+    morlet: dict = field(default_factory=lambda: dict(mu=13.4))
+    bump: dict = field(default_factory=lambda: dict(mu=5.0, s=1.0, om=0.0))
+    cmhat: dict = field(default_factory=lambda: dict(mu=1.0, s=1.0))
+    hhhat: dict = field(default_factory=lambda: dict(mu=5.0))
     gmw: dict = field(default_factory=lambda: dict(
         gamma=3.0, beta=60.0, norm='bandpass', order=0, centered_scale=False))
 
@@ -85,7 +90,7 @@ def device_dtype(dtype):
 
 def gdefaults(section, **kw):
     """Fill `None` kwargs from the wavelet defaults table (`section` e.g.
-    'gmw')."""
+    'morlet', 'gmw')."""
     table = dataclasses.asdict(get_config().wavelets).get(section, {})
     out = {}
     for k, v in kw.items():

@@ -31,10 +31,23 @@
 // is bit-identical to the same signal run alone, and Wx is bit-identical
 // across the modes.
 //
-// Order-2 mode forms five spectra from psih and its closed-form
-// derivatives psih', psih'' at w = a xi (GMW: with u = wc w,
+// The wavelet psih(a xi_m) comes from one of two sources, a compile-time
+// parameter SYN of stage 1 (the TPU kernel traces any real wavelet fn
+// into its body):
+//   * SYN_GMW: the order-0 GMW synthesized in closed form from its
+//     parameters (log space), its derivatives too;
+//   * SYN_TABLE: any other real-valued wavelet (GMW of order k, morlet,
+//     bump, cmhat, hhhat, a user's function), read from a table in device
+//     memory that the wrapper evaluates with torch (ops/cwt_cuda.py::
+//     wavelet_table): (na, n_up/2 + 1) values psih(a xi_m), and for order
+//     2 three such planes, psih, psih' and psih''. The table carries
+//     neither the row norm nor the Nyquist halving: the kernel applies
+//     both, as for the closed form. Row g reads row g % na.
+//
+// Order-2 mode forms five spectra from psih and its derivatives psih',
+// psih'' at w = a xi (GMW in closed form: with u = wc w,
 // psih' = psih (beta - gamma u^gamma) / w, psih'' = psih ((beta - gamma
-// u^gamma)^2 - beta - gamma (gamma - 1) u^gamma) / w^2):
+// u^gamma)^2 - beta - gamma (gamma - 1) u^gamma) / w^2; else the table):
 //   W = psih xh, A = i xi psih xh, B = i a psih' xh, Bd = -xi a psih' xh,
 //   C = -a^2 psih'' xh
 // (xi not divided by dt; the Nyquist bin halved in all five), and per
@@ -47,10 +60,11 @@
 // m = m1 f2 + m2, both steps inside these kernels (no cuFFT), in one
 // kernel pair for every mode, chosen at compile time: bins_stage1 is
 // templated on the number of planes NP its DFT carries (1: W; 2: W and
-// dW; 5: W, A, B, Bd, C), bins_stage2 on the mode, whose epilogue it
-// runs. No mode branches at run time inside a kernel.
+// dW; 5: W, A, B, Bd, C) and on the source of psih (SYN), bins_stage2 on
+// the mode, whose epilogue it runs. No mode or source branches at run
+// time inside a kernel.
 //   launch 1 (bins_stage1): one block per (row, P1 columns m2).
-//     Synthesizes psih in closed form (GMW, log space), forms the NP
+//     Synthesizes psih (closed form) or reads it (table), forms the NP
 //     spectra, runs the length-f1 inverse DFT over m1 in shared memory,
 //     applies the twiddle e^{+2 pi i m2 k1 / n_up} / n_up and writes the
 //     planes to a scratch buffer (NP x rows x n_up complex).
@@ -162,6 +176,9 @@ enum { MODE_BINS = 0, MODE_W = 1, MODE_W_DW = 2, MODE_BINS2 = 3,
 __host__ __device__ constexpr int planes_of(int mode) {
   return mode == MODE_W ? 1 : mode >= MODE_BINS2 ? 5 : 2;
 }
+
+// Sources of psih (above): closed-form GMW, or the wavelet table.
+enum { SYN_GMW = 0, SYN_TABLE = 1 };
 
 // DFT engines (ops/cwt_cuda.py _ENGINE_*): radix 4 in place, for a
 // power-of-two n_up; mixed radix (dft_mixed.cuh) between two buffers.
@@ -338,17 +355,24 @@ __device__ __forceinline__ int ilog2(int v) { return 31 - __clz(v); }
 
 // The NP spectra of column m, zero from m = half on: W = psih xh; with
 // NP = 2 dW = i xi / dt W; with NP = 5 the order-2 spectra A, B, Bd, C.
-template <typename T, int NP>
+// SYN_TABLE reads psih at tab[m] (the row's table), psih' and psih'' at
+// tab[tplane + m] and tab[2 tplane + m].
+template <typename T, int NP, int SYN>
 __device__ __forceinline__ void spectra(const typename Cplx<T>::type* xh,
                                         long m, T scale, T norm,
-                                        const Cfg& c,
+                                        const Cfg& c, const T* tab,
+                                        size_t tplane,
                                         typename Cplx<T>::type (&X)[NP]) {
 #pragma unroll
   for (int q = 0; q < NP; ++q) X[q].x = X[q].y = (T)0;
   if (m < c.half) {
     const T xi = (T)((double)m * c.xi_step);
     const T w = scale * xi;
-    const T psi = gmw_psih<T>(w, c) * norm;
+    T psi;
+    if constexpr (SYN == SYN_TABLE)
+      psi = tab[m] * norm;
+    else
+      psi = gmw_psih<T>(w, c) * norm;
     typename Cplx<T>::type v = xh[m];
     if (m == c.half - 1 && (c.n_up & 1) == 0) {  // Nyquist halving
       v.x *= (T)0.5;
@@ -362,7 +386,10 @@ __device__ __forceinline__ void spectra(const typename Cplx<T>::type* xh,
       X[1].y = xid * X[0].x;
     } else if constexpr (NP == 5) {        // order 2: A, B, Bd, C
       T tb = (T)0, t2b = (T)0;
-      if (psi != (T)0) {
+      if constexpr (SYN == SYN_TABLE) {
+        tb = scale * tab[tplane + m];
+        t2b = (scale * scale) * tab[2 * tplane + m];
+      } else if (psi != (T)0) {
         const T ug = pow_t(w * (T)c.wc, (T)c.wgamma);
         const T r = (T)c.beta - (T)c.wgamma * ug;
         const T d1 = psi * r / w;
@@ -391,9 +418,10 @@ __device__ __forceinline__ void spectra(const typename Cplx<T>::type* xh,
 // twiddle tw[0] = 1: a thread forms both columns and runs that butterfly
 // in registers, and the passes start at level 2. Mixed engine: every
 // column m1 is formed and gathered in natural order, then the passes.
-template <typename T, int NP, int ENG>
+template <typename T, int NP, int ENG, int SYN>
 __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
-                            const T* __restrict__ scales, Cfg c,
+                            const T* __restrict__ scales,
+                            const T* __restrict__ table, Cfg c,
                             typename Cplx<T>::type* __restrict__ scratch) {
   typedef typename Cplx<T>::type CT;
   extern __shared__ unsigned char smem_raw[];
@@ -405,6 +433,10 @@ __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
 
   xh += (size_t)(g / c.na) * c.half;
   const T scale = scales[g % c.na];
+  // the row's table (SYN_TABLE): planes of na * half values
+  const size_t tplane = (size_t)c.na * c.half;
+  const T* tab = SYN == SYN_TABLE ? table + (size_t)(g % c.na) * c.half
+                                  : nullptr;
   const T norm = c.l1_norm ? (T)1 : sqrt_t(scale);
   const CT* res;                          // sequence plane * P + p at s * S
   if constexpr (ENG == ENG_RADIX4) {
@@ -418,8 +450,9 @@ __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
       const int i = 2 * swz(e >> lgP, c.sw1 - 1);  // pair (i, i + 1)
       const long m = (long)bitrev(i, c.lg1) * c.f2 + m2_0 + p;
       CT X0[NP], X1[NP];
-      spectra<T, NP>(xh, m, scale, norm, c, X0);
-      spectra<T, NP>(xh, m + (long)(L >> 1) * c.f2, scale, norm, c, X1);
+      spectra<T, NP, SYN>(xh, m, scale, norm, c, tab, tplane, X0);
+      spectra<T, NP, SYN>(xh, m + (long)(L >> 1) * c.f2, scale, norm, c,
+                          tab, tplane, X1);
 #pragma unroll
       for (int q = 0; q < NP; ++q) bfly<T>(X0[q], X1[q], one);
 #pragma unroll
@@ -440,7 +473,8 @@ __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
       const int m1 = swz(e >> lgP, c.sw1);
       CT X[NP];
       if (m2_0 + p < c.f2) {
-        spectra<T, NP>(xh, (long)m1 * c.f2 + m2_0 + p, scale, norm, c, X);
+        spectra<T, NP, SYN>(xh, (long)m1 * c.f2 + m2_0 + p, scale, norm,
+                            c, tab, tplane, X);
       } else {                              // beyond the last column
 #pragma unroll
         for (int q = 0; q < NP; ++q) X[q].x = X[q].y = (T)0;
@@ -577,24 +611,37 @@ size_t smem_bytes(int L, int np, int P, int S) {
                             : (size_t)(L + 2 * np * P * S)) * sizeof(CT);
 }
 
+template <typename T, int NP, int ENG, int SYN>
+cudaError_t launch_stage1(const void* xh, const void* scales,
+                          const void* table, const Cfg& c, void* scratch,
+                          size_t sm1, cudaStream_t st) {
+  typedef typename Cplx<T>::type CT;
+  cudaFuncSetAttribute(bins_stage1<T, NP, ENG, SYN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
+  // the last block's columns may run past the partner factor (mixed)
+  dim3 g1((c.f2 + c.P1 - 1) / c.P1, c.rows);
+  bins_stage1<T, NP, ENG, SYN><<<g1, 256, sm1, st>>>(
+      static_cast<const CT*>(xh), static_cast<const T*>(scales),
+      static_cast<const T*>(table), c, static_cast<CT*>(scratch));
+  return cudaGetLastError();
+}
+
 template <typename T, int MODE, int ENG>
-int launch_mode(const void* xh, const void* scales, const Cfg& c,
-                void* scratch, void* wx, void* out2, cudaStream_t st) {
+int launch_mode(const void* xh, const void* scales, const void* table,
+                const Cfg& c, void* scratch, void* wx, void* out2,
+                cudaStream_t st) {
   typedef typename Cplx<T>::type CT;
   constexpr int NP = planes_of(MODE);
   const size_t sm1 = smem_bytes<T, ENG>(c.f1, NP, c.P1, c.S1);
   const size_t sm2 = smem_bytes<T, ENG>(c.f2, NP, c.P2, c.S2);
-  cudaFuncSetAttribute(bins_stage1<T, NP, ENG>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
   cudaFuncSetAttribute(bins_stage2<T, MODE, ENG>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm2);
-  // the last block's columns may run past the partner factor (mixed)
-  dim3 g1((c.f2 + c.P1 - 1) / c.P1, c.rows);
   dim3 g2((c.f1 + c.P2 - 1) / c.P2, c.rows);
-  bins_stage1<T, NP, ENG><<<g1, 256, sm1, st>>>(
-      static_cast<const CT*>(xh), static_cast<const T*>(scales), c,
-      static_cast<CT*>(scratch));
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      table ? launch_stage1<T, NP, ENG, SYN_TABLE>(xh, scales, table, c,
+                                                   scratch, sm1, st)
+            : launch_stage1<T, NP, ENG, SYN_GMW>(xh, scales, table, c,
+                                                 scratch, sm1, st);
   if (err != cudaSuccess) return (int)err;
   bins_stage2<T, MODE, ENG><<<g2, 256, sm2, st>>>(
       static_cast<const CT*>(scratch), c, static_cast<CT*>(wx), out2);
@@ -602,39 +649,40 @@ int launch_mode(const void* xh, const void* scales, const Cfg& c,
 }
 
 template <typename T, int ENG>
-int launch_engine(const void* xh, const void* scales, const Cfg& c,
-                  void* scratch, void* wx, void* out2, cudaStream_t st) {
+int launch_engine(const void* xh, const void* scales, const void* table,
+                  const Cfg& c, void* scratch, void* wx, void* out2,
+                  cudaStream_t st) {
   switch (c.out_mode) {
     case MODE_BINS:
-      return launch_mode<T, MODE_BINS, ENG>(xh, scales, c, scratch, wx,
-                                            out2, st);
+      return launch_mode<T, MODE_BINS, ENG>(xh, scales, table, c, scratch,
+                                            wx, out2, st);
     case MODE_W:
-      return launch_mode<T, MODE_W, ENG>(xh, scales, c, scratch, wx, out2,
-                                         st);
+      return launch_mode<T, MODE_W, ENG>(xh, scales, table, c, scratch, wx,
+                                         out2, st);
     case MODE_W_DW:
-      return launch_mode<T, MODE_W_DW, ENG>(xh, scales, c, scratch, wx,
-                                            out2, st);
+      return launch_mode<T, MODE_W_DW, ENG>(xh, scales, table, c, scratch,
+                                            wx, out2, st);
     case MODE_BINS2:
-      return launch_mode<T, MODE_BINS2, ENG>(xh, scales, c, scratch, wx,
-                                             out2, st);
+      return launch_mode<T, MODE_BINS2, ENG>(xh, scales, table, c, scratch,
+                                             wx, out2, st);
     case MODE_W2:
-      return launch_mode<T, MODE_W2, ENG>(xh, scales, c, scratch, wx, out2,
-                                          st);
+      return launch_mode<T, MODE_W2, ENG>(xh, scales, table, c, scratch, wx,
+                                          out2, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int launch(const void* xh, const void* scales, const Cfg& c, void* scratch,
-           void* wx, void* out2, void* stream) {
+int launch(const void* xh, const void* scales, const void* table,
+           const Cfg& c, void* scratch, void* wx, void* out2, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (c.engine) {
     case ENG_RADIX4:
-      return launch_engine<T, ENG_RADIX4>(xh, scales, c, scratch, wx, out2,
-                                          st);
+      return launch_engine<T, ENG_RADIX4>(xh, scales, table, c, scratch, wx,
+                                          out2, st);
     case ENG_MIXED:
-      return launch_engine<T, ENG_MIXED>(xh, scales, c, scratch, wx, out2,
-                                         st);
+      return launch_engine<T, ENG_MIXED>(xh, scales, table, c, scratch, wx,
+                                         out2, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -658,19 +706,24 @@ Cfg make_cfg(const int* ip, const double* dp) {
 
 }  // namespace
 
-// ip: 24 ints, dp: 14 doubles (layout in ops/cwt_cuda.py). `out2` is k
-// (out_mode 0 or 3), dWx (2), w2 (4, real) or null (1); out_mode in ip
-// says which. Returns cudaGetLastError() after the launches.
-extern "C" int cwt_bins_f32(const void* xh, const void* scales, const int* ip,
+// ip: 24 ints, dp: 14 doubles (layout in ops/cwt_cuda.py). `table` is
+// the wavelet table (real, of the scales' type: (na, n_up/2 + 1), three
+// such planes in the order-2 modes) or null for the closed-form GMW.
+// `out2` is k (out_mode 0 or 3), dWx (2), w2 (4, real) or null (1);
+// out_mode in ip says which. Returns cudaGetLastError() after the
+// launches.
+extern "C" int cwt_bins_f32(const void* xh, const void* scales,
+                            const void* table, const int* ip,
                             const double* dp, void* scratch, void* wx,
                             void* out2, void* stream) {
-  return launch<float>(xh, scales, make_cfg(ip, dp), scratch, wx, out2,
-                       stream);
+  return launch<float>(xh, scales, table, make_cfg(ip, dp), scratch, wx,
+                       out2, stream);
 }
 
-extern "C" int cwt_bins_f64(const void* xh, const void* scales, const int* ip,
+extern "C" int cwt_bins_f64(const void* xh, const void* scales,
+                            const void* table, const int* ip,
                             const double* dp, void* scratch, void* wx,
                             void* out2, void* stream) {
-  return launch<double>(xh, scales, make_cfg(ip, dp), scratch, wx, out2,
-                        stream);
+  return launch<double>(xh, scales, table, make_cfg(ip, dp), scratch, wx,
+                        out2, stream);
 }

@@ -1,43 +1,93 @@
 # -*- coding: utf-8 -*-
 """Continuous Wavelet Transform (forward & inverse).
 
-Counterpart of `ssqueezepy_tpu/models/cwt.py` for GMW wavelets (order
-0): wavelet resolution, the analytic half-spectrum FFT convolution
-`cwt_core` (the plain PyTorch version of the kernels in
-`ops/cwt_cuda.py`), the public `cwt` for 1-D and batched 2-D input, and
-`icwt` (one- and two-integral). On a CUDA device `cwt` runs pad (none
-with `padtype=None`) -> `torch.fft.rfft` -> the fused CWT kernel
-(`cwt_fused`); with ``device='cpu'`` its plain version runs. The kernel
-takes a padded length n_up whose prime factors are at most 7 and whose
-DFT factors fit one block's shared memory (`ops/cwt_cuda.py::
-cwt_length_rule`): a padded N up to n_up = 2^28 (one plane, float32),
-such N with `padtype=None` (n_up = N); another raises on every device,
-before the signal's FFT.
+Counterpart of `ssqueezepy_tpu/models/cwt.py`: wavelet resolution, the
+analytic half-spectrum FFT convolution `cwt_core` (the plain PyTorch
+version of the kernels in `ops/cwt_cuda.py`), the general FFT
+convolution `cwt_general`, the public `cwt` for 1-D and batched 2-D
+input, `cwt_higher_order` (GMW of orders 0..k, averaged) and `icwt` (one-
+and two-integral). `cwt` routes as the JAX package's gates do:
+
+  * an analytic wavelet with a real-valued spectrum (GMW of any order,
+    cmhat, hhhat with mu >= 0, bump with mu - .999 s >= 0 and om = 0):
+    pad (none with `padtype=None`) -> `torch.fft.rfft` -> the fused CWT
+    kernel (`cwt_fused`; the order-0 GMW synthesized in the kernel, every
+    other wavelet read from its table); with ``device='cpu'`` its plain
+    version. The kernel takes a padded length n_up whose prime factors
+    are at most 7 and whose DFT factors fit one block's shared memory
+    (`ops/cwt_cuda.py::cwt_length_rule`): a padded N up to n_up = 2^28
+    (one plane, float32), such N with `padtype=None` (n_up = N); another
+    raises on every device, before the signal's FFT;
+  * any other wavelet (morlet, hhhat with mu < 0, another bump, a user's
+    callable): `cwt_general`, the JAX package's XLA branch, by
+    `torch.fft` on the signal's device, at any length.
 """
 import numpy as np
 import torch
 
 from ..configs import device_dtype
-from ..ops.cwt_cuda import cwt_fused, cwt_length_rule
-from ..ops.fft import ifft, rfft
+from ..ops.cwt_cuda import (cwt_fused, cwt_length_rule, wavelet_table,
+                             _halve_nyquist)
+from ..ops.fft import fft, ifft, rfft
 from ..ops.pad import padsignal, pad_params, _MODE_MAP
-from ..utils.common import not_ported, resolve_device
+from ..utils.common import WARN, resolve_device
 from ..utils.cwt_utils import (process_scales, logscale_transition_idx,
                                adm_ssq, adm_cwt, _process_fs_and_t)
 from .wavelets import Wavelet, _xifn
 
-__all__ = ['cwt', 'icwt', 'cwt_core', 'resolve_wavelet', 'cwt_spectrum']
+__all__ = ['cwt', 'icwt', 'cwt_core', 'cwt_general', 'cwt_higher_order',
+           'resolve_wavelet', 'cwt_spectrum']
 
 
 def _is_analytic(wavelet):
-    """True if the freq-domain wavelet is exactly zero for w < 0."""
-    return getattr(wavelet.fn, 'qualname', '').startswith('gmw')
+    """True if the freq-domain wavelet is exactly zero for w < 0 (the
+    half-spectrum routes): GMW, cmhat, hhhat with mu >= 0, bump with
+    mu - .999 s >= 0. Morlet and a user's callable are only approximately
+    analytic."""
+    name = getattr(wavelet.fn, 'qualname', '')
+    if name.startswith('gmw') or name in ('cmhat',):
+        return True
+    if name == 'hhhat':
+        return wavelet.config.get('mu', 5) >= 0
+    if name == 'bump':
+        mu, s = wavelet.config.get('mu', 5), wavelet.config.get('s', 1)
+        return mu - s * .999 >= 0
+    return False
+
+
+def _is_custom(wavelet):
+    """True for a user's callable (not one of this package's wavelets)."""
+    fn = wavelet.fn
+    return hasattr(fn, 'user_fn') or not hasattr(fn, 'qualname')
+
+
+def _is_real(wavelet):
+    """True if the wavelet's spectrum is real-valued (a pair (re, im) or
+    a complex tensor is not), probed at one frequency once per Wavelet
+    (the probe's torch ops cost tens of microseconds a call)."""
+    def probe():
+        psih = wavelet.fn(torch.zeros(1, dtype=getattr(torch,
+                                                       wavelet.dtype)),
+                          xp=torch)
+        return not (isinstance(psih, tuple) or psih.is_complex())
+    return wavelet._cached('is_real', probe)
+
+
+def _kernel_route(wavelet):
+    """True where the CWT kernel computes the transform: an analytic
+    wavelet with a real-valued spectrum (the JAX package's gate of its
+    Pallas kernel); else `cwt_general`."""
+    return _is_analytic(wavelet) and _is_real(wavelet)
 
 
 def _wavelet_key(wavelet):
+    """Plan and table key of one of this package's wavelets: its name,
+    configuration and dtype. A user's callable has none: it is kept out of
+    every process-wide cache (its name does not tell two functions apart,
+    and keying by the function would keep each fresh lambda alive for
+    good), so its plan, scales and table are made anew per call."""
     cfg = tuple(sorted((k, str(v)) for k, v in wavelet.config.items()))
-    return (getattr(wavelet.fn, 'qualname', str(id(wavelet.fn))), cfg,
-            wavelet.dtype)
+    return (wavelet.fn.qualname, cfg, wavelet.dtype)
 
 
 _WAVELET_CANON = {}
@@ -45,19 +95,25 @@ _SPEC_WAVELET_CACHE = {}
 
 
 def _canonical_wavelet(wavelet):
-    """One Wavelet per configuration, so plan caches keyed on it stay
-    hot across calls."""
+    """One Wavelet per configuration of this package's wavelets, so plan
+    caches keyed on it stay hot across calls; a user's callable is its own
+    Wavelet, cached nowhere."""
+    if _is_custom(wavelet):
+        return wavelet
     return _WAVELET_CANON.setdefault(_wavelet_key(wavelet), wavelet)
 
 
 def resolve_wavelet(wavelet, l1_norm=True, N=None):
-    """Spec -> canonical Wavelet, memoized per (spec, l1_norm, N)."""
+    """Spec -> canonical Wavelet, memoized per (spec, l1_norm, N) for a
+    name or (name, dict) spec."""
     if isinstance(wavelet, Wavelet):
         return _canonical_wavelet(wavelet)
-    try:
-        key = (repr(wavelet), bool(l1_norm), N)
-    except Exception:
-        key = None
+    key = None
+    if isinstance(wavelet, (str, tuple)):
+        try:
+            key = (repr(wavelet), bool(l1_norm), N)
+        except Exception:
+            key = None
     if key is not None:
         hit = _SPEC_WAVELET_CACHE.get(key)
         if hit is not None:
@@ -65,7 +121,7 @@ def resolve_wavelet(wavelet, l1_norm=True, N=None):
     w = _process_gmw_wavelet(wavelet, l1_norm)
     kw = {} if N is None else {'N': N}
     w = _canonical_wavelet(Wavelet._init_if_not_isinstance(w, **kw))
-    if key is not None:
+    if key is not None and not _is_custom(w):
         _SPEC_WAVELET_CACHE[key] = w
     return w
 
@@ -88,30 +144,15 @@ def _process_gmw_wavelet(wavelet, l1_norm):
     return wavelet
 
 
-def cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative, l1_norm):
-    """CWT rows from the half spectrum `xh` (complex, n_up//2 + 1) of the
-    padded signal — the analytic branch of the JAX package's `cwt_core`:
-    the wavelet is synthesized on the half grid (it is zero on the
-    negative half), the Nyquist bin halved, and the inverse FFT kept to
-    [n1, n1+N). `scales` is a real (na,) tensor on xh's device; `xh` may
-    be a (B, n_up//2 + 1) batch. Returns (Wx, dWx or None), complex
-    (na, N) or (B, na, N)."""
-    if not _is_analytic(wavelet):
-        raise NotImplementedError("non-analytic wavelets wait for "
-                                  "ROADMAP.md queue A, A4b")
-    half = n_up // 2 + 1
-    xi = torch.as_tensor(_xifn(1., n_up)[:half], dtype=scales.dtype,
-                         device=scales.device)
-    psih = wavelet.fn(scales.reshape(-1, 1) * xi, xp=torch)
-    if n_up % 2 == 0:
-        psih[:, half - 1] /= 2                      # Nyquist halving
-    Psih_xh = psih * xh.unsqueeze(-2)
-
+def _convolve(Psih_xh, xi, scales, n_up, n1, N, dt, derivative, l1_norm):
+    """(Wx, dWx or None) from the product of the wavelet and the signal's
+    spectrum on the grid `xi` (the half or the full one): the inverse FFT
+    kept to [n1, n1+N), dWx from the spectrum times i xi / dt, and the
+    sqrt(scale) norm for L2."""
     out_range = (n1, n1 + N)
     Wx = ifft(Psih_xh, n=n_up, out_range=out_range)
     dWx = None
     if derivative:
-        # spectrum times 1j * xi / dt
         xi_dt = xi / dt
         dWx = ifft(torch.complex(-Psih_xh.imag * xi_dt,
                                  Psih_xh.real * xi_dt),
@@ -124,6 +165,66 @@ def cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative, l1_norm):
     return Wx, dWx
 
 
+def cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative, l1_norm):
+    """CWT rows from the half spectrum `xh` (complex, n_up//2 + 1) of the
+    padded signal — the analytic branch of the JAX package's `cwt_core`:
+    the wavelet (its table, `ops/cwt_cuda.py::wavelet_table`) on the half
+    grid (it is zero on the negative half), the Nyquist bin halved, and
+    the inverse FFT kept to [n1, n1+N). `scales` is a real (na,) tensor on
+    xh's device; `xh` may be a (B, n_up//2 + 1) batch. Returns (Wx, dWx
+    or None), complex (na, N) or (B, na, N)."""
+    half = n_up // 2 + 1
+    xi = torch.as_tensor(_xifn(1., n_up)[:half], dtype=scales.dtype,
+                         device=scales.device)
+    psih = wavelet_table(wavelet, scales, n_up)
+    Psih_xh = psih * _halve_nyquist(xh, n_up).unsqueeze(-2)
+    return _convolve(Psih_xh, xi, scales, n_up, n1, N, dt, derivative,
+                     l1_norm)
+
+
+def cwt_general(xp, wavelet, scales, n1, N, dt, derivative, l1_norm):
+    """CWT rows of the padded real signal `xp` ((n_up,) or a (B, n_up)
+    batch) for any wavelet — the JAX package's XLA branch of `cwt_core`,
+    by `torch.fft` on xp's device: the full spectrum and the wavelet on
+    the full grid, or for an analytic wavelet with a complex spectrum the
+    half of both; the Nyquist bin halved; the inverse FFT kept to
+    [n1, n1+N). `scales` a real (na,) tensor on xp's device. Returns (Wx,
+    dWx or None), complex (na, N) or (B, na, N). Counts its calls on
+    `cwt_general.calls`."""
+    cwt_general.calls += 1
+    n_up = xp.shape[-1]
+    analytic = _is_analytic(wavelet)
+    half = n_up // 2 + 1
+    xh = rfft(xp) if analytic else fft(xp)
+    xi = torch.as_tensor(_xifn(1., n_up)[:half] if analytic else
+                         _xifn(1., n_up), dtype=scales.dtype,
+                         device=scales.device)
+    psih = wavelet.fn(scales.reshape(-1, 1) * xi, xp=torch)
+    if isinstance(psih, tuple):                     # complex wavelet
+        psih = torch.complex(*psih)
+    if n_up % 2 == 0:                               # Nyquist halving
+        psih = psih.clone()
+        psih[..., n_up // 2] /= 2
+    Psih_xh = psih * xh.unsqueeze(-2)
+    Wx, dWx = _convolve(Psih_xh, xi, scales, n_up, n1, N, dt, derivative,
+                        l1_norm)
+    return Wx.contiguous(), (None if dWx is None else dWx.contiguous())
+
+
+cwt_general.calls = 0
+
+
+def padded_signal(xt, padtype):
+    """(xp, n_up, n1): the real signal or batch `xt` padded by `padtype`
+    to n_up (`pad_params`, left pad n1), or with `padtype=None` `xt`
+    itself (n_up = N, n1 = 0)."""
+    N = xt.shape[-1]
+    if padtype is None:
+        return xt, N, 0
+    n_up, n1, _ = pad_params(N, padtype)
+    return padsignal(xt, padtype), n_up, n1
+
+
 def cwt_spectrum(xt, padtype, planes):
     """(xh, n_up, n1): the half spectrum (B?, n_up//2 + 1) of the real
     signal or batch `xt` padded by `padtype` to n_up (`pad_params`, left
@@ -133,11 +234,11 @@ def cwt_spectrum(xt, padtype, planes):
     or derivative; 5: order 2) before anything runs on the device."""
     N = xt.shape[-1]
     if padtype is None:
-        n_up, n1 = N, 0
+        n_up = N
     else:
-        n_up, n1, _ = pad_params(N, padtype)
+        n_up = pad_params(N, padtype)[0]
     cwt_length_rule(n_up, 2 * xt.element_size(), planes)
-    xp = xt if padtype is None else padsignal(xt, padtype)
+    xp, n_up, n1 = padded_signal(xt, padtype)
     return rfft(xp).contiguous(), n_up, n1
 
 
@@ -148,8 +249,10 @@ def _cached_scales(scales, N, wavelet, nv, dtype, device):
     """(scales numpy (na, 1), scales (na,) tensor on `device`), memoized
     for string specs and arrays: the log-piecewise redundancy scan costs
     milliseconds, and a per-call upload is a pageable copy that blocks
-    the host until the stream drains."""
-    if isinstance(scales, str):
+    the host until the stream drains. Not for a user's callable."""
+    if _is_custom(wavelet):
+        key = None
+    elif isinstance(scales, str):
         key = (scales, N, _wavelet_key(wavelet), nv, dtype, str(device))
     elif isinstance(scales, np.ndarray):
         key = (hash(scales.tobytes()), scales.shape, str(scales.dtype), N,
@@ -174,20 +277,27 @@ def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
         vectorized=True, astensor=True, cache_wavelet=None, order=0,
         average=None, nan_checks=None, patience=0, device='cuda'):
     """Continuous Wavelet Transform of a 1-D signal or a 2-D batch (B, N)
-    by frequency-domain convolution with a GMW wavelet.
+    by frequency-domain convolution.
 
     Returns (Wx, scales[, dWx]): Wx (na, N) or (B, na, N) complex
     tensors on `device` (numpy with `astensor=False`), scales (na,).
-    `padtype=None` transforms the signal unpadded (n_up = N; on a CUDA
-    device N's prime factors must be at most 7); `rpadded=True` returns
-    the whole padded transform, (na, n_up) or (B, na, n_up).
-    `l1_norm=False` uses the L2 ('energy') GMW and multiplies rows by
-    sqrt(scale); `vectorized=False` runs the scales in chunks of 64 rows.
-    `cache_wavelet`, `nan_checks` and `patience` are accepted for
-    compatibility; non-finite input samples are zeroed."""
+    `wavelet` is a name ('gmw', 'morlet', 'bump', 'cmhat', 'hhhat'), a
+    (name, dict) pair, a `Wavelet` or a function of a torch tensor of
+    radian frequencies. `padtype=None` transforms the signal unpadded
+    (n_up = N; on the kernel's route N's prime factors must be at most
+    7); `rpadded=True` returns the whole padded transform, (na, n_up) or
+    (B, na, n_up). `l1_norm=False` uses the L2 ('energy') GMW and
+    multiplies rows by sqrt(scale); `vectorized=False` runs the scales in
+    chunks of 64 rows. `order` > 0 or a tuple of orders runs
+    `cwt_higher_order`. `cache_wavelet`, `nan_checks` and `patience` are
+    accepted for compatibility; non-finite input samples are zeroed."""
     device = resolve_device(device)
     if isinstance(order, (tuple, list, range)) or order > 0:
-        not_ported("cwt with order > 0 (cwt_higher_order)", 'A2b')
+        kw = dict(wavelet=wavelet, scales=scales, fs=fs, t=t, nv=nv,
+                  l1_norm=l1_norm, derivative=derivative, padtype=padtype,
+                  rpadded=rpadded, device=device)
+        return cwt_higher_order(x, order=order, average=average,
+                                astensor=astensor, **kw)
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
     if x.ndim not in (1, 2):
@@ -196,22 +306,29 @@ def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
     dt, _, _ = _process_fs_and_t(fs, t, N)
 
     wavelet = resolve_wavelet(wavelet, l1_norm)
-    if not _is_analytic(wavelet):
-        not_ported("cwt with a non-analytic wavelet", 'A2b')
     dtype = getattr(torch, device_dtype(wavelet.dtype))
     scales_np, sc = _cached_scales(scales, N, wavelet, nv, dtype, device)
 
     xt = torch.as_tensor(x, dtype=dtype, device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
-    xh, n_up, n1 = cwt_spectrum(xt, padtype, 2 if derivative else 1)
+    if _kernel_route(wavelet):
+        xh, n_up, n1 = cwt_spectrum(xt, padtype, 2 if derivative else 1)
+
+        def rows(s):
+            return cwt_fused(xh, s, wavelet, n_up, n1, N, dt, derivative,
+                             l1_norm)
+    else:
+        xp, n_up, n1 = padded_signal(xt, padtype)
+
+        def rows(s):
+            return cwt_general(xp, wavelet, s, n1, N, dt, derivative,
+                               l1_norm)
     if rpadded:                        # the whole padded transform
         n1, N = 0, n_up
     if vectorized:
-        Wx, dWx = cwt_fused(xh, sc, wavelet, n_up, n1, N, dt, derivative,
-                            l1_norm)
+        Wx, dWx = rows(sc)
     else:
-        parts = [cwt_fused(xh, sc[c0:c0 + _CWT_CHUNK], wavelet, n_up, n1, N,
-                           dt, derivative, l1_norm)
+        parts = [rows(sc[c0:c0 + _CWT_CHUNK])
                  for c0 in range(0, len(sc), _CWT_CHUNK)]
         Wx = torch.cat([p[0] for p in parts], dim=-2)
         dWx = (torch.cat([p[1] for p in parts], dim=-2) if derivative
@@ -222,6 +339,64 @@ def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
         Wx = Wx.cpu().numpy()
         dWx = dWx.cpu().numpy() if dWx is not None else None
     return (Wx, scales_out, dWx) if derivative else (Wx, scales_out)
+
+
+def cwt_higher_order(x, wavelet='gmw', order=1, average=None, astensor=True,
+                     **kw):
+    """CWT with the higher-order GMWs (the orthogonal family of orders
+    0..k), one `cwt` per order at the order-0 GMW's scales, averaged when
+    `average` (by default with more than one order; a tuple of orders
+    without it returns a list). `wavelet` must be a GMW; the orders'
+    wavelets take its configuration (not its dtype), as the JAX package
+    builds them."""
+    if isinstance(order, (list, range)):
+        order = tuple(order)
+    if not isinstance(order, tuple):
+        order = (order,)
+        if average:
+            WARN("`average` ignored with single `order`")
+            average = False
+    wavelet_ = Wavelet._init_if_not_isinstance(wavelet)
+    if not wavelet_.name.lower().startswith('gmw'):
+        raise ValueError("`wavelet` must be GMW for higher-order "
+                         "transforms (got %s)" % wavelet_.name)
+    wavopts = dict(wavelet_.config)
+    wavopts.pop('order', None)
+    wavelets = [Wavelet(('gmw', dict(order=k, **wavopts))) for k in order]
+
+    scales = kw.pop('scales', 'log-piecewise')
+    if isinstance(scales, str):
+        wav0 = Wavelet(('gmw', dict(order=0, **wavopts)))
+        scales = process_scales(scales, x.shape[-1], wavelet=wav0,
+                                nv=kw.get('nv', 32))
+    kw['scales'] = scales
+
+    derivative = kw.get('derivative', False)
+    Wx_all, dWx_all = [], []
+    for wav in wavelets:
+        out = cwt(x, wav, order=0, astensor=True, **kw)
+        Wx_all.append(out[0])
+        if derivative:
+            dWx_all.append(out[-1])
+
+    if average or (average is None and len(order) > 1):
+        Wx_all = torch.stack(Wx_all).mean(dim=0)
+        if derivative:
+            dWx_all = torch.stack(dWx_all).mean(dim=0)
+    elif len(Wx_all) == 1:
+        Wx_all = Wx_all[0]
+        if derivative:
+            dWx_all = dWx_all[0]
+
+    scales_out = np.asarray(scales).squeeze()
+    if not astensor:
+        conv = (lambda W: W.cpu().numpy() if isinstance(W, torch.Tensor)
+                else [g.cpu().numpy() for g in W])
+        Wx_all = conv(Wx_all)
+        if derivative:
+            dWx_all = conv(dWx_all)
+    return ((Wx_all, scales_out, dWx_all) if derivative else
+            (Wx_all, scales_out))
 
 
 def icwt(Wx, wavelet='gmw', scales='log-piecewise', nv=None, one_int=True,

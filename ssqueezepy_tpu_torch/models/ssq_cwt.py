@@ -26,8 +26,20 @@ FFT (torch.fft) and one of three routes:
     those columns, then Tx, Wx and w trimmed by 4 each side; dWx is
     returned padded.
 
+A wavelet outside the CWT kernel's route (`models/cwt.py::
+_kernel_route`: morlet, hhhat with mu < 0, a bump that is not analytic
+or not real, a user's callable) takes `models/cwt.py::cwt_general` for
+(Wx, dWx) in place of the kernel, then `ssq_fused` for 'sum' and the
+phase transform and the generic scatter otherwise, as the JAX package's
+XLA path runs it. `order` > 0 (or a tuple of orders) runs the JAX
+package's compositional route: `cwt_higher_order` over the whole padded
+window (rpadded), `ops/diff.py::trigdiff` of it, the unpadded slice, then
+`ssq_fused` for 'sum' and the phase transform and the generic scatter
+otherwise.
+
 `padtype=None` transforms the signal unpadded (n_up = N) on each route;
-N's prime factors must then be at most 7, on every device
+on the kernel's route N's prime factors must then be at most 7, on every
+device
 (`ops/cwt_cuda.py::cwt_length_rule`, which also bounds n_up by one
 block's shared memory, and `ops/ssq_cuda.py::scatter_rule` the bins). The JAX package takes its XLA CWT and
 `ssqueeze_fast` there; its Tx agrees with this one by the bins criterion
@@ -45,15 +57,17 @@ import torch
 
 from ..configs import device_dtype
 from ..ops.cwt_cuda import cwt_bins, cwt_fused
+from ..ops.diff import trigdiff
 from ..ops.phase import phase_cwt, phase_cwt_num
 from ..ops.ssq_cuda import scatter_kv, scatter_rule, ssq_fused
 from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
-from ..utils.common import (EPS32, EPS64, check_batch, not_ported, p2up,
+from ..utils.common import (EPS32, EPS64, check_batch, p2up,
                             resolve_device)
 from ..utils.cwt_utils import (process_scales, adm_ssq, _process_fs_and_t,
                                infer_scaletype, nv_from_scales)
 from ..utils.plan_cache import disk_memo
-from .cwt import cwt_spectrum, resolve_wavelet, _wavelet_key
+from .cwt import (cwt, cwt_general, cwt_spectrum, padded_signal,
+                  resolve_wavelet, _is_custom, _kernel_route, _wavelet_key)
 from .wavelets import Wavelet
 from .ssqueezing import (_apply_squeezing, _check_ssqueezing_args,
                          _compute_associated_frequencies)
@@ -84,12 +98,14 @@ def _ssq_cwt_plan(wavelet, N, scales, nv, ssq_freqs, maprange, was_padded,
     """Host `Plan`, memoized for string AND array specs (the scale-bound
     searches and center-frequency integrals cost ~100 ms+ per call); a
     plan from string specs is also kept on disk from one process to the
-    next (`utils/plan_cache.py`, as the JAX package keeps its own).
-    Returns (plan, key); key is None when the spec is not cacheable."""
+    next (`utils/plan_cache.py`, as the JAX package keeps its own). A
+    user's callable is cached nowhere (`models/cwt.py::_wavelet_key`).
+    Returns (plan, key); key is None when the plan is not cached."""
     skey, fkey = _spec_key(scales), _spec_key(ssq_freqs)
     key = None
     if (skey is not None and (ssq_freqs is None or fkey is not None) and
-            not isinstance(maprange, (tuple, list))):
+            not isinstance(maprange, (tuple, list)) and
+            not _is_custom(wavelet)):
         key = (_wavelet_key(wavelet), N, skey, nv, fkey, maprange,
                was_padded, float(dt))
         hit = _PLAN_CACHE.get(key)
@@ -162,13 +178,6 @@ def _device_plan(key, scales_np, const, dtype, device):
     return out
 
 
-def _check_slice(x, order, get_w):
-    """Calls outside the ported slice raise, naming their ROADMAP item."""
-    check_batch(x.ndim, get_w)
-    if isinstance(order, (tuple, list, range)) or order > 0:
-        not_ported("ssq_cwt with order > 0", 'A2b')
-
-
 def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
             t=None, ssq_freqs=None, padtype='reflect', squeezing='sum',
             maprange='peak', difftype='trig', difforder=None, gamma=None,
@@ -188,7 +197,9 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     (na, n_up), with 'numeric', as the JAX package returns it).
     `squeezing` is 'sum', 'lebesgue', 'abs' or a function of Wx.
     `scales` and `ssq_freqs` may be strings or numpy arrays. `padtype=None`
-    transforms the signal unpadded.
+    transforms the signal unpadded. `wavelet` is any that `cwt` takes;
+    `order` > 0 or a tuple of orders (a GMW) squeezes the higher-order
+    CWT, averaged over a tuple.
     """
     device = resolve_device(device)
     if not isinstance(x, torch.Tensor):
@@ -196,11 +207,11 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     difforder = _check_ssqueezing_args(squeezing, maprange, wavelet,
                                        difftype, difforder, get_w,
                                        transform='cwt')
-    _check_slice(x, order, get_w)
+    check_batch(x.ndim, get_w)
     if nv is None and not isinstance(scales, np.ndarray):
         nv = 32
     N = x.shape[-1]
-    dt, _, _ = _process_fs_and_t(fs, t, N)
+    dt, fs_, _ = _process_fs_and_t(fs, t, N)
 
     wavelet = resolve_wavelet(wavelet, l1_norm=True, N=N)
     dtype = device_dtype(wavelet.dtype)
@@ -219,30 +230,65 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     scatter_rule(nbins, 2 * np.dtype(dtype).itemsize)
     xt = torch.as_tensor(x, dtype=getattr(torch, dtype), device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
-    xh, n_up, n1 = cwt_spectrum(xt, padtype, 2)
-    dWx = w = None
-    if difftype == 'numeric':
-        # the whole padded planes, then JAX's window of p2up's left pad
-        Wx, dWx = cwt_fused(xh, scales_t, wavelet, n_up, 0, n_up, dt, True,
-                            True)
+    kernel = _kernel_route(wavelet)
+    higher = isinstance(order, (tuple, list, range)) or order > 0
+    dWx = None
+    if higher:
+        # the JAX package's compositional route: the higher-order CWT over
+        # the whole padded window, its trigonometric derivative, the
+        # unpadded slice
         _, n1p, _ = p2up(N)
-        Wx = Wx[..., n1p - 4:n1p + N + 4]
+        Wx, _ = cwt(xt, wavelet, scales=plan.scales, fs=fs_, nv=nv,
+                    l1_norm=True, padtype=padtype, rpadded=True,
+                    order=order,
+                    average=isinstance(order, (tuple, list, range)),
+                    device=device)
+        dWx = trigdiff(Wx, fs_, rpadded=True, N=N, n1=n1p)
+        # the orders' wavelets run in the default dtype (as the JAX
+        # package builds them); the squeeze runs in the plan's
+        cdt = torch.complex64 if dtype == 'float32' else torch.complex128
+        Wx, dWx = Wx[..., n1p:n1p + N].to(cdt), dWx.to(cdt)
+    elif kernel:
+        xh, n_up, n1 = cwt_spectrum(xt, padtype, 2)
+    else:
+        xp, n_up, n1 = padded_signal(xt, padtype)
+
+    def planes(n1_, N_):
+        """(Wx, dWx) of columns [n1_, n1_ + N_) of the padded transform."""
+        if kernel:
+            return cwt_fused(xh, scales_t, wavelet, n_up, n1_, N_, dt, True,
+                             True)
+        return cwt_general(xp, wavelet, scales_t, n1_, N_, dt, True, True)
+
+    w = None
+    if difftype == 'numeric':
+        if higher:
+            Wx = Wx[..., n1p - 4:n1p + N + 4]
+        else:
+            # the whole padded planes, then JAX's window of p2up's left pad
+            Wx, dWx = planes(0, n_up)
+            _, n1p, _ = p2up(N)
+            Wx = Wx[..., n1p - 4:n1p + N + 4]
         w = phase_cwt_num(Wx, dt, difforder, gamma)
         Tx = indexed_sum_onfly(_apply_squeezing(Wx, squeezing), w, None,
                                const_t, params=params, flipud=flipud,
                                device=device)
         Tx, Wx, w = (v[..., 4:-4].contiguous() for v in (Tx, Wx, w))
-    elif get_w or (get_dWx and squeezing != 'sum'):
-        Wx, dWx = cwt_fused(xh, scales_t, wavelet, n_up, n1, N, dt, True,
-                            True)
+    elif get_w or ((get_dWx or higher or not kernel)
+                   and squeezing != 'sum'):
+        if not higher:
+            Wx, dWx = planes(n1, N)
         w = phase_cwt(Wx, dWx if difftype == 'trig' else None, difftype,
                       gamma)
         Tx = indexed_sum_onfly(_apply_squeezing(Wx, squeezing), w, None,
                                const_t, params=params, flipud=flipud,
                                device=device)
-    elif get_dWx:
-        Wx, dWx = cwt_fused(xh, scales_t, wavelet, n_up, n1, N, dt, True,
-                            True)
+        if not get_w:
+            w = None
+    elif get_dWx or higher or not kernel:
+        if not higher:
+            Wx, dWx = planes(n1, N)
+        Wx, dWx = Wx.contiguous(), dWx.contiguous()
         Tx = ssq_fused(Wx, dWx, const_t, params, gamma, flipud)
     else:
         Wx, k = cwt_bins(xh, scales_t, wavelet, n_up, n1, N, dt, True,

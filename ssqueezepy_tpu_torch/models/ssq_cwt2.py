@@ -17,20 +17,26 @@ With `get_w=True` (one signal) the kernel's w2 mode (`cwt_w2`, W and w2)
 runs instead, then `_apply_squeezing` on W -> the generic scatter by the
 bins of w2 (`ops/ssq_kernels.py::indexed_sum_onfly`), as the JAX
 package's XLA path runs it, and w2 is returned. A (B, N) batch runs each
-kernel once over the batch. Inversion is `issq_cwt`: reassignment only
+kernel once over the batch. Every wavelet that the JAX package's
+`_supports_order2` accepts runs there: an analytic wavelet, or one whose
+spectrum is below 1e-12 on [-20, 0] (morlet, a user's callable), with a
+real-valued spectrum that torch autograd differentiates twice; the order-0
+GMW is synthesized in the kernel, any other wavelet read from its
+three-plane table (`ops/cwt_cuda.py::wavelet_table`). Another raises with
+the JAX package's message. Inversion is `issq_cwt`: reassignment only
 moves energy within a column.
 """
 import numpy as np
 import torch
 
 from ..configs import device_dtype
-from ..ops.cwt_cuda import cwt_bins2, cwt_w2
+from ..ops.cwt_cuda import cwt_bins2, cwt_w2, _wavelet_derivatives
 from ..ops.ssq_cuda import scatter_kv, scatter_rule
 from ..ops.ssq_kernels import indexed_sum_onfly
-from ..utils.common import (EPS32, EPS64, check_batch, not_ported,
-                            resolve_device)
+from ..utils.common import EPS32, EPS64, check_batch, resolve_device
 from ..utils.cwt_utils import _process_fs_and_t
-from .cwt import cwt_spectrum, resolve_wavelet, _is_analytic
+from .cwt import (cwt_spectrum, resolve_wavelet, _is_analytic, _is_custom,
+                  _wavelet_key)
 from .ssq_cwt import _ssq_cwt_plan, _device_plan
 from .ssqueezing import _apply_squeezing, _check_ssqueezing_args
 from .stft import _as_signal
@@ -38,10 +44,43 @@ from .stft import _as_signal
 __all__ = ['ssq_cwt2']
 
 
-def _check_slice(wavelet):
-    """Calls outside the ported slice raise, naming their ROADMAP item."""
+_SUPPORTS2 = {}
+
+
+def _supports_order2(wavelet, dtype):
+    """(ok, why): ssq_cwt2 needs an analytic wavelet (or one whose
+    spectrum is below 1e-12 on [-20, 0]: the half-grid transform is then
+    exact in float32 and float64) with a real-valued spectrum that torch
+    autograd differentiates twice; the JAX package's gate, memoized per
+    (wavelet, dtype) for this package's wavelets, probed anew per call
+    for a user's callable (`models/cwt.py::_wavelet_key`)."""
+    if _is_custom(wavelet):
+        return _supports_order2_probe(wavelet, dtype)
+    key = (_wavelet_key(wavelet), dtype)
+    hit = _SUPPORTS2.get(key)
+    if hit is None:
+        hit = _SUPPORTS2[key] = _supports_order2_probe(wavelet, dtype)
+    return hit
+
+
+def _supports_order2_probe(wavelet, dtype):
     if not _is_analytic(wavelet):
-        not_ported("ssq_cwt2 with a non-GMW wavelet", 'A2b')
+        try:
+            neg = wavelet.fn(np.linspace(-20., 0., 64), xp=np)
+            if (isinstance(neg, tuple)
+                    or np.abs(np.asarray(neg)).max() > 1e-12):
+                return False, "requires an analytic wavelet"
+        except Exception:
+            return False, "requires an analytic wavelet"
+    try:
+        w = torch.ones(2, dtype=getattr(torch, dtype))
+        probe = wavelet.fn(w, xp=torch)
+        if isinstance(probe, tuple) or probe.is_complex():
+            return False, "requires a real-valued spectral fn"
+        _wavelet_derivatives(wavelet.fn, w)
+    except Exception as e:
+        return False, "spectral fn not differentiable (%s)" % e
+    return True, None
 
 
 def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
@@ -49,7 +88,7 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
              maprange='peak', gamma=None, astensor=True, flipud=True,
              get_w=False, device='cuda'):
     """Second-order synchrosqueezed CWT of a signal (N,) or a batch of
-    signals (B, N) (GMW, L1 norm).
+    signals (B, N) (L1 norm), for any wavelet `_supports_order2` takes.
 
     Returns (Tx, Wx, ssq_freqs, scales[, w2]) as `ssq_cwt` does: Tx
     (nbins, N) and Wx (na, N), with a leading B for a batch, complex
@@ -66,11 +105,15 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
                            get_w, transform='cwt')
     N = x.shape[-1]
     wavelet = resolve_wavelet(wavelet, l1_norm=True, N=N)
-    _check_slice(wavelet)
     if nv is None and not isinstance(scales, np.ndarray):
         nv = 32
     dt, _, _ = _process_fs_and_t(fs, t, N)
     dtype = device_dtype(wavelet.dtype)
+    ok, why = _supports_order2(wavelet, dtype)
+    if not ok:
+        raise NotImplementedError("ssq_cwt2 %s (got %r)"
+                                  % (why, getattr(wavelet.fn, 'qualname',
+                                                  wavelet.fn)))
     if gamma is None:
         gamma = 10 * (EPS64 if dtype == 'float64' else EPS32)
 

@@ -21,6 +21,15 @@ _make_kernel`:
     the JAX package computes that plane on its XLA path
     (`ssqueezepy_tpu/models/ssq_cwt2.py::_wsst2_rows`).
 
+Every mode takes any real-valued wavelet: the order-0 GMW is synthesized
+in the kernel in closed form (`fn.kernel_params`), any other wavelet is
+read from a table that `wavelet_table` evaluates with torch on the
+device, psih(a xi) on the half grid (and psih', psih'' for order 2, from
+`fn.derivatives` or torch autograd), memoized for the kernel per
+wavelet, scales and length, as the JAX kernel traces the wavelet fn into
+its body. The plain versions take every wavelet through the same table
+function, evaluated anew on each call.
+
 The inverse DFT is computed in the kernel itself, four-step, in shared
 memory laid out against bank conflicts, for every mode: radix-4 passes
 for a power-of-two n_up, the mixed-radix (4, 2, 3, 5, 7) passes of
@@ -39,7 +48,9 @@ version for CPU tensors. `cwt_bins.launches`, `cwt_bins2.launches` and
 and `cwt_fused.launches` count calls of the C entry point on the
 radix-4 engine (one per chunk of rows), and the same names prefixed
 `mixed_` (`cwt_bins.mixed_launches`, ...) its calls on the mixed engine;
-each such call issues two CUDA launches, stage 1 and stage 2.
+each such call issues two CUDA launches, stage 1 and stage 2. Calls with
+a wavelet table count on the same names prefixed `table_`
+(`cwt_bins.table_launches`, `cwt_bins.table_mixed_launches`, ...).
 """
 import collections
 import ctypes
@@ -56,7 +67,8 @@ from .phase import cdiv, cmul, div_tiny
 
 __all__ = ['cwt_bins', 'cwt_bins_plain', 'cwt_fused', 'cwt_fused_plain',
            'cwt_bins2', 'cwt_bins2_plain', 'cwt_w2', 'wsst2_rows',
-           'four_step', 'bins_plan', 'cwt_length_rule', 'smem_index', 'swz']
+           'wavelet_table', 'four_step', 'bins_plan', 'cwt_length_rule',
+           'smem_index', 'swz']
 
 _MODES = {'lin': 0, 'log': 1, 'log-piecewise': 2}
 # stage-1 scratch held at once (all planes); rows are chunked beyond it
@@ -80,6 +92,9 @@ _WAVEFRONT = 128
 # also with one plane, where 16 would give the passes 16 sequences and no
 # bank conflicts but half the blocks per SM
 _MAX_COLUMNS = 8
+# wavelet tables held at once (`wavelet_table`)
+_TABLE_SLOTS = 4
+_TABLES = collections.OrderedDict()
 
 
 @functools.lru_cache(maxsize=256)
@@ -197,6 +212,78 @@ def cwt_length_rule(n_up, itemsize, planes):
     return bins_plan(int(n_up), int(itemsize), int(planes))
 
 
+def _wavelet_derivatives(fn, w):
+    """(psih, psih', psih'') of the elementwise wavelet fn at `w`: the
+    closed form `fn.derivatives` where the fn has one, else torch autograd
+    of the sum (the derivative of an elementwise map is the gradient of
+    its sum), as the JAX package takes `jax.grad` of it."""
+    derivatives = getattr(fn, 'derivatives', None)
+    if derivatives is not None:
+        return fn(w, xp=torch), *derivatives(w)
+    wg = w.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        psih = fn(wg, xp=torch)
+        d1, = torch.autograd.grad(psih.sum(), wg, create_graph=True,
+                                  allow_unused=True)
+        if d1 is None:
+            d1 = torch.zeros_like(w)
+        d2 = None
+        if d1.requires_grad:
+            d2, = torch.autograd.grad(d1.sum(), wg, allow_unused=True)
+        if d2 is None:
+            d2 = torch.zeros_like(w)
+    return psih.detach(), d1.detach(), d2.detach()
+
+
+def wavelet_table(wavelet, scales, n_up, order2=False, memo=False):
+    """The CWT kernel's wavelet table: psih(a xi) on the half grid
+    xi_m = 2 pi m / n_up, m <= n_up // 2, for each scale a of `scales`
+    ((na,) real, on its device): (na, n_up//2 + 1) in the scales' dtype,
+    and for `order2` (3, na, n_up//2 + 1), psih, psih' and psih''. No row
+    norm and no Nyquist halving: the kernel and the plain versions apply
+    both. With `memo` (the kernel's launches) memoized per (wavelet,
+    scales tensor, n_up, order2), `_TABLE_SLOTS` at once, for a named
+    wavelet; a user's callable, and every call of a plain version, is
+    evaluated anew."""
+    from ..models.cwt import _is_custom, _wavelet_key
+    key = None
+    if memo and not _is_custom(wavelet):
+        key = (_wavelet_key(wavelet), id(scales), scales._version,
+               int(n_up), bool(order2))
+        hit = _TABLES.get(key)
+        if hit is not None and hit[0] is scales:
+            _TABLES.move_to_end(key)
+            return hit[1]
+    half = n_up // 2 + 1
+    xi = torch.as_tensor(_xifn(1., n_up)[:half], dtype=scales.dtype,
+                         device=scales.device)
+    w = scales.reshape(-1, 1) * xi
+    if order2:
+        table = torch.stack(_wavelet_derivatives(wavelet.fn, w))
+    else:
+        table = wavelet.fn(w, xp=torch)
+    if isinstance(table, tuple) or table.is_complex():
+        raise TypeError("the CWT kernel's wavelet table takes a real-valued "
+                        "wavelet (got %s)" % wavelet.name)
+    table = table.to(scales.dtype).contiguous()
+    if key is not None:
+        _TABLES[key] = (scales, table)
+        while len(_TABLES) > _TABLE_SLOTS:
+            _TABLES.popitem(last=False)
+    return table
+
+
+def _halve_nyquist(xh, n_up):
+    """xh with its Nyquist bin halved (even n_up), as a new tensor: the
+    plain versions halve the spectrum where the kernel does, which equals
+    halving the wavelet bit for bit (a power-of-two scaling)."""
+    if n_up % 2:
+        return xh
+    xh = xh.clone()
+    xh[..., n_up // 2] /= 2
+    return xh
+
+
 def _bin_args(params):
     mode = params['mode']
     if mode == 'lin':
@@ -250,9 +337,9 @@ def cwt_bins(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params, gamma,
              flipud):
     """(Wx, k) of the synchrosqueezed CWT from the half spectrum `xh` of
     the padded signal, (n_up//2 + 1,) or a (B, n_up//2 + 1) batch; Wx
-    and k are (na, N) or (B, na, N). `scales` (na,) real, `wavelet` a GMW
-    `Wavelet`, `params` from `ssq_bin_params`; output columns are
-    [n1, n1+N) of the padded transform."""
+    and k are (na, N) or (B, na, N). `scales` (na,) real, `wavelet` a
+    real-valued `Wavelet`, `params` from `ssq_bin_params`; output columns
+    are [n1, n1+N) of the padded transform."""
     _check(xh, scales, n_up, n1, N, _PLANES[_OUT_BINS], batched=True)
     if xh.device.type == 'cpu':
         return cwt_bins_plain(xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
@@ -269,8 +356,17 @@ def cwt_bins(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params, gamma,
     return Wx, k
 
 
-cwt_bins.launches = cwt_bins.mixed_launches = 0
-cwt_bins.batched_launches = cwt_bins.mixed_batched_launches = 0
+_COUNTERS = ('launches', 'mixed_launches', 'batched_launches',
+             'mixed_batched_launches')
+
+
+def _zero_counters(wrapper, names=_COUNTERS):
+    for name in names:
+        setattr(wrapper, name, 0)
+        setattr(wrapper, 'table_' + name, 0)
+
+
+_zero_counters(cwt_bins)
 
 
 def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
@@ -278,12 +374,15 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
             counter='launches'):
     """Run the two-launch kernel over every row of `Wx` (B * na, N),
     chunking rows to the scratch budget; counts each C call on the
-    wrapper's attribute `counter`, prefixed `mixed_` on the mixed
-    engine."""
+    wrapper's attribute `counter`, prefixed `mixed_` on the mixed engine
+    and `table_` where the wavelet comes from its table (every wavelet
+    but the order-0 GMW, which the kernel synthesizes)."""
     kp = getattr(wavelet.fn, 'kernel_params', None)
+    table = None
     if kp is None:
-        raise NotImplementedError("the CUDA CWT kernel synthesizes GMW "
-                                  "(order 0) only; ROADMAP.md queue A, A2b")
+        table = wavelet_table(wavelet, scales, n_up,
+                              order2=_PLANES[out_mode] == 5, memo=True)
+        kp = dict(logconst=0., amp=0., gamma=1., beta=0., wc=1.)
     lib = _build.load('cwt_bins')
     f32 = scales.dtype == torch.float32
     itemsize = xh.element_size()
@@ -292,6 +391,8 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
     f1, f2 = bp.f1, bp.f2
     if bp.engine == _ENGINE_MIXED:
         counter = 'mixed_' + counter
+    if table is not None:
+        counter = 'table_' + counter
     na = scales.shape[0]
     n_all = Wx.numel() // N
     dev = xh.device
@@ -321,7 +422,8 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
             int(bool(l1_norm)), mode, int(idx1), int(omax),
             int(bool(flipud)), out_mode, na, bp.S1, bp.S2, bp.sw1, bp.sw2,
             bp.engine)
-        err = fn(xh.data_ptr(), scales.data_ptr(), ip, dp,
+        err = fn(xh.data_ptr(), scales.data_ptr(),
+                 None if table is None else table.data_ptr(), ip, dp,
                  scratch.data_ptr(), Wx.data_ptr(),
                  None if out2 is None else out2.data_ptr(), stream)
         _build.check(err, wrapper.__name__)
@@ -340,8 +442,9 @@ def cwt_fused_plain(xh, scales, wavelet, n_up, n1, N, dt, derivative,
 def cwt_fused(xh, scales, wavelet, n_up, n1, N, dt, derivative, l1_norm):
     """(Wx, dWx or None) of the CWT from the half spectrum `xh` of the
     padded signal, (n_up//2 + 1,) or a (B, n_up//2 + 1) batch; Wx and
-    dWx are (na, N) or (B, na, N). `scales` (na,) real, `wavelet` a GMW
-    `Wavelet`; output columns are [n1, n1+N) of the padded transform;
+    dWx are (na, N) or (B, na, N). `scales` (na,) real, `wavelet` a
+    real-valued `Wavelet`; output columns are [n1, n1+N) of the padded
+    transform;
     `l1_norm=False` multiplies rows by sqrt(scale)."""
     _check(xh, scales, n_up, n1, N,
            _PLANES[_OUT_W_DW if derivative else _OUT_W], batched=True)
@@ -359,7 +462,7 @@ def cwt_fused(xh, scales, wavelet, n_up, n1, N, dt, derivative, l1_norm):
     return Wx, dWx
 
 
-cwt_fused.launches = cwt_fused.mixed_launches = 0
+_zero_counters(cwt_fused, _COUNTERS[:2])
 
 
 def wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma):
@@ -376,12 +479,8 @@ def wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma):
     xi = torch.as_tensor(_xifn(1., n_up)[:half], dtype=scales.dtype,
                          device=scales.device)
     a = scales.reshape(-1, 1)
-    w = a * xi
-    psih = wavelet.fn(w, xp=torch)
-    d1, d2 = wavelet.fn.derivatives(w)
-    if n_up % 2 == 0:
-        for p in (psih, d1, d2):
-            p[:, half - 1] /= 2                     # Nyquist halving
+    psih, d1, d2 = wavelet_table(wavelet, scales, n_up, order2=True)
+    xh = _halve_nyquist(xh, n_up)                   # in all five banks
     tb, t2b = a * d1, (a * a) * d2
     xr, xim = xh.real[..., None, :], xh.imag[..., None, :]
     re = torch.stack([psih * xr, -xi * (psih * xim), -(tb * xim),
@@ -432,8 +531,7 @@ def cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params, gamma, flipud):
     return W, k
 
 
-cwt_bins2.launches = cwt_bins2.mixed_launches = 0
-cwt_bins2.batched_launches = cwt_bins2.mixed_batched_launches = 0
+_zero_counters(cwt_bins2)
 
 
 def cwt_w2(xh, scales, wavelet, n_up, n1, N, dt, gamma):
@@ -458,5 +556,4 @@ def cwt_w2(xh, scales, wavelet, n_up, n1, N, dt, gamma):
     return W, w2
 
 
-cwt_w2.launches = cwt_w2.mixed_launches = 0
-cwt_w2.batched_launches = cwt_w2.mixed_batched_launches = 0
+_zero_counters(cwt_w2)

@@ -1616,3 +1616,226 @@ def test_rules_raise_alike_on_both_devices(dev, dtype):
             msgs.append(str(e.value))
         assert msgs[0] == msgs[1]
         assert _mixed_counts() == c0
+
+
+# ---- the wavelet table: every other wavelet through every mode -----------
+def _gauss_bump(w):
+    """A user's wavelet: a real Gaussian bump at w = 4."""
+    return torch.exp(-(w - 4.) ** 2) * (w > 0)
+
+
+def _table_inputs(N, dtype, spec, dev, padtype='reflect', seed=0, B=None):
+    """Kernel inputs for wavelet `spec` at its own log-piecewise plan;
+    `B` makes a (B, n_up//2 + 1) batch of spectra."""
+    if callable(spec):
+        wav = resolve_wavelet(stq.Wavelet(spec, dtype=dtype), N=N)
+    else:
+        wav = resolve_wavelet((spec[0], dict(spec[1], dtype=dtype)), N=N)
+    # the bump's piecewise ssq grid has no knee at N = 3000 unpadded (in
+    # the JAX package too): its plan takes 'log' scales
+    plan, _ = _ssq_cwt_plan(wav, N, 'log' if wav.name == 'Bump' else
+                            'log-piecewise', 16, None, 'peak',
+                            padtype is not None, 1.)
+    n_up, n1 = (N, 0) if padtype is None else pad_params(N, padtype)[:2]
+    tdt = getattr(torch, dtype)
+    x = np.random.default_rng(seed).standard_normal(
+        N if B is None else (B, N))
+    x = torch.as_tensor(x, dtype=tdt, device=dev)
+    xh = rfft(x if padtype is None else padsignal(x, padtype)).contiguous()
+    sc = torch.as_tensor(plan.scales.ravel(), dtype=tdt, device=dev)
+    c = torch.as_tensor(np.broadcast_to(np.ravel(plan.const),
+                                        (len(sc),)).copy(),
+                        dtype=tdt, device=dev)
+    gamma = 10 * float(np.finfo(dtype).eps)
+    return xh, sc, c, wav, n_up, n1, plan.params, gamma
+
+
+# each mode with a wavelet of its own: B1 cmhat, B3 hhhat and an order-1
+# GMW (L2, two planes), B8 morlet (bins) and the order-2 GMW (w2), B3b a
+# bump and the user's Gaussian
+_TABLE_MODES = {'bins': ('cmhat', {}), 'wx': ('hhhat', {}),
+                'wx_dwx': ('gmw', {'order': 1, 'norm': 'energy'}),
+                'order2': ('morlet', {}), 'w2': ('gmw', {'order': 2}),
+                'batched': ('bump', {}), 'custom': _gauss_bump}
+_TABLE_SHAPES = [(10000, 'reflect'), (2048, 'reflect'), (4725, None),
+                 (3000, None)]
+
+
+def _table_run(mode, xh, sc, c, wav, n_up, n1, N, params, gamma,
+               plain=False):
+    """The kernel's outputs in `mode` (its plain version's with
+    `plain`)."""
+    if mode in ('bins', 'batched', 'custom'):
+        a = (xh, sc, wav, n_up, n1, N, 1., True, params, gamma, True)
+        return (cwt_bins_plain if plain else cwt_bins)(*a)
+    if mode in ('wx', 'wx_dwx'):
+        a = (xh, sc, wav, n_up, n1, N, 1., mode == 'wx_dwx',
+             mode != 'wx_dwx')
+        return (cwt_fused_plain if plain else cwt_fused)(*a)
+    if mode == 'order2':
+        a = (xh, sc, wav, n_up, n1, N, 1., params, gamma, True)
+        return (cwt_bins2_plain if plain else cwt_bins2)(*a)
+    a = (xh, sc, wav, n_up, n1, N, 1., gamma)
+    return (cwt_cuda.wsst2_rows if plain else cwt_cuda.cwt_w2)(*a)
+
+
+def _table_wrapper(mode):
+    return {'wx': cwt_fused, 'wx_dwx': cwt_fused, 'order2': cwt_bins2,
+            'w2': cwt_cuda.cwt_w2}.get(mode, cwt_bins)
+
+
+@pytest.mark.parametrize('N,padtype', _TABLE_SHAPES)
+@pytest.mark.parametrize('mode', list(_TABLE_MODES))
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_table_modes_vs_plain(dev, N, padtype, mode, dtype):
+    """Every mode of the CWT kernel with a wavelet read from its table
+    (B1, B3 with one and two planes, B8 bins and w2, B3b) against its plain
+    version on both engines: Wx (and dWx) within 2e-5 of max (float32) or
+    1e-9, bins on at most 1% of cells, w2 as `_w2_close`; each launch on
+    its engine's table counter, none on the closed form's; two runs
+    bit-identical."""
+    B = 2 if mode == 'batched' else None
+    xh, sc, c, wav, n_up, n1, params, gamma = _table_inputs(
+        N, dtype, _TABLE_MODES[mode], dev, padtype, B=B)
+    mixed = n_up & (n_up - 1) != 0
+    counter = ('table_' + ('mixed_' if mixed else '')
+               + ('batched_launches' if B else 'launches'))
+    wrapper = _table_wrapper(mode)
+    before = {a: getattr(wrapper, a) for a in dir(wrapper)
+              if a.endswith('launches')}
+    args = (mode, xh, sc, c, wav, n_up, n1, N, params, gamma)
+    out = _table_run(*args)
+    torch.cuda.synchronize()
+    plain = _table_run(*args, plain=True)
+    moved = {a: getattr(wrapper, a) - v for a, v in before.items()
+             if getattr(wrapper, a) != v}
+    assert moved == {counter: 1}, moved
+    tol = 2e-5 if dtype == 'float32' else 1e-9
+    assert _rel_err(out[0], plain[0]) <= tol
+    if mode == 'wx_dwx':
+        assert _rel_err(out[1], plain[1]) <= tol
+    elif mode == 'w2':
+        _w2_close(out[1], plain[1], dtype)
+    elif mode != 'wx':
+        assert (out[1] != plain[1]).double().mean() <= 0.01
+        nbins = params['omax'] + 1
+        Tx_k = scatter_kv_plain(out[0], out[1], c, nbins)
+        Tx_p = scatter_kv_plain(plain[0], plain[1], c, nbins)
+        (_bins2_criterion if mode == 'order2' else _bins_criterion)(
+            Tx_k, Tx_p)
+    again = _table_run(*args)
+    for a, b in zip(out, again):
+        assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.parametrize('N,padtype', _TABLE_SHAPES)
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_table_batch_rows_equal_one_signal(dev, N, padtype, dtype):
+    """B3b and B8 in table mode over a batch of three spectra: each row
+    bit-identical to its spectrum launched alone."""
+    xh, sc, c, wav, n_up, n1, params, gamma = _table_inputs(
+        N, dtype, ('gmw', {'order': 1}), dev, padtype, B=3)
+    for fn, a in ((cwt_bins, (sc, wav, n_up, n1, N, 1., True, params,
+                              gamma, True)),
+                  (cwt_bins2, (sc, wav, n_up, n1, N, 1., params, gamma,
+                               True))):
+        Wb, kb = fn(xh, *a)
+        for b in range(3):
+            W1, k1 = fn(xh[b].contiguous(), *a)
+            assert torch.equal(W1, Wb[b]) and torch.equal(k1, kb[b])
+
+
+@pytest.mark.parametrize('N,padtype', [(10000, 'reflect'), (4725, None)])
+@pytest.mark.parametrize('mode', ['bins', 'wx_dwx', 'order2', 'w2'])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_gmw_through_table_vs_closed_form(dev, N, padtype, mode, dtype):
+    """The order-0 GMW read from a table (its fn wrapped as a user's
+    callable: no closed form, derivatives by autograd) against the same
+    GMW synthesized in the kernel: within 2e-5 of max (float32) or 1e-9,
+    bins on at most 1% of cells."""
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(
+        N, dtype, 'log-piecewise', dev, padtype=padtype)
+    gmw_fn = wav.fn
+    twin = resolve_wavelet(stq.Wavelet(lambda w: gmw_fn(w), dtype=dtype))
+    run = lambda w: _table_run(mode, xh, sc, c, w, n_up, n1, N, params,
+                               gamma)
+    wrapper = _table_wrapper(mode)
+    ref = run(wav)
+    t0 = sum(getattr(wrapper, a) for a in dir(wrapper)
+             if a.startswith('table_'))
+    got = run(twin)
+    torch.cuda.synchronize()
+    assert sum(getattr(wrapper, a) for a in dir(wrapper)
+               if a.startswith('table_')) == t0 + 1
+    tol = 2e-5 if dtype == 'float32' else 1e-9
+    assert _rel_err(got[0], ref[0]) <= tol
+    if mode == 'wx_dwx':
+        assert _rel_err(got[1], ref[1]) <= tol
+    elif mode == 'w2':
+        _w2_close(got[1], ref[1], dtype)
+    else:
+        assert (got[1] != ref[1]).double().mean() <= 0.01
+
+
+def test_public_wavelet_routes_on_card(dev, monkeypatch):
+    """The public calls with each wavelet route as the JAX package's gates
+    say: analytic real wavelets through the table modes, morlet and a
+    user's callable in `cwt`/`ssq_cwt` through `cwt_general` (no CWT
+    kernel) and B4, order > 0 through B3 (closed form for order 0, table
+    for order 1) and B4; no plain version runs; each against the same
+    call on the CPU."""
+    from ssqueezepy_tpu_torch.models import cwt as cwt_mod
+    N = 6000
+    x = np.random.default_rng(40).standard_normal(N).astype(np.float32)
+    xb = np.stack([x, x[::-1].copy()])
+    boom = lambda *a, **k: (_ for _ in ()).throw(AssertionError('plain'))
+    watch = {}
+    for w in (cwt_bins, cwt_fused, cwt_bins2, cwt_cuda.cwt_w2):
+        for a in dir(w):
+            if a.endswith('launches'):
+                watch['%s.%s' % (w.__name__, a)] = (w, a)
+    for w in (scatter_kv, ssq_fused, shift_scatter):
+        watch['%s.launches' % w.__name__] = (w, 'launches')
+    watch['cwt_general'] = (cwt_mod.cwt_general, 'calls')
+    calls = [
+        ('ssq_cwt cmhat', lambda **d: stq.ssq_cwt(x, 'cmhat', **d),
+         {'cwt_bins.table_launches', 'scatter_kv.launches'}),
+        ('ssq_cwt gmw1', lambda **d: stq.ssq_cwt(
+            x, ('gmw', {'order': 1}), **d),
+         {'cwt_bins.table_launches', 'scatter_kv.launches'}),
+        ('ssq_cwt morlet', lambda **d: stq.ssq_cwt(x, 'morlet', **d),
+         {'cwt_general', 'ssq_fused.launches'}),
+        ('ssq_cwt order (0, 1)', lambda **d: stq.ssq_cwt(
+            x, order=(0, 1), **d),
+         {'cwt_fused.launches', 'cwt_fused.table_launches',
+          'ssq_fused.launches'}),
+        ('cwt hhhat', lambda **d: stq.cwt(x, 'hhhat', **d),
+         {'cwt_fused.table_launches'}),
+        ('ssq_cwt bump batch', lambda **d: stq.ssq_cwt(xb, 'bump', **d),
+         {'cwt_bins.table_batched_launches', 'scatter_kv.launches'}),
+        ('ssq_cwt2 morlet', lambda **d: stq.ssq_cwt2(x, 'morlet', **d),
+         {'cwt_bins2.table_launches', 'scatter_kv.launches'}),
+        ('ssq_cwt2 cmhat get_w', lambda **d: stq.ssq_cwt2(
+            x, 'cmhat', get_w=True, **d),
+         {'cwt_w2.table_launches', 'shift_scatter.launches'}),
+        ('cwt custom', lambda **d: stq.cwt(x, _gauss_bump, **d),
+         {'cwt_general'})]
+    for name, fn, need in calls:
+        fn()
+        with monkeypatch.context() as m:
+            for p in ('cwt_bins_plain', 'cwt_fused_plain', 'cwt_bins2_plain',
+                      'wsst2_rows'):
+                m.setattr(cwt_cuda, p, boom)
+            m.setattr(cwt_mod, 'cwt_core', boom)
+            c0 = {k: getattr(w, a) for k, (w, a) in watch.items()}
+            out = fn()
+            torch.cuda.synchronize()
+        moved = {k for k, (w, a) in watch.items() if getattr(w, a) != c0[k]}
+        assert moved == need, (name, moved)
+        ref = fn(device='cpu')
+        assert _rel_err(out[0].cpu() if name.startswith('cwt') else
+                        out[1].cpu(), ref[0] if name.startswith('cwt') else
+                        ref[1]) <= 2e-5, name
+        if not name.startswith('cwt'):
+            (_bins2_criterion if 'cwt2' in name else _bins_criterion)(
+                out[0].cpu(), ref[0])
