@@ -25,7 +25,8 @@ and every squeezing option on those routes: `ssq_cwt(get_w=True)` and
 phase transform, the generic scatter), `ssq_stft(hop_len=8,
 squeezing='abs')`, `ssqueeze` from a precomputed w, and 'lebesgue' /
 'abs' `ssq_stft`, `ssq_cwt2` and `ssq_stft2` (their kernels' bins, then
-the scatter from bins). It:
+the scatter from bins); and the streaming plans chunk by chunk (section
+12c). It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel from `ssqueezepy_tpu_torch/csrc/` (one nvcc
@@ -148,6 +149,26 @@ the scatter from bins). It:
      version), against the same call with the models' kernel wrappers
      swapped for their plain versions, timed with its peak above what
      the script holds;
+ 12c. (`streaming_section`) the streaming plans (`ssqueezepy_tpu_torch/
+     streaming.py`, `streaming_multirate.py`) at chunk 4096 on white
+     noise: `StreamingSSQCWT` with 97 scales (n_up 8192, B1 + B2; and on
+     a (4, 4096) batch, B3b + B2) and with 181 wide scales (n_up 20480,
+     the mixed engine), `StreamingMultirateSSQCWT` with the 181 (B3 per
+     octave block + B5), `StreamingSSQSTFT` (n_fft 512: B6 bins + B2),
+     `StreamingCWT` (B3), `StreamingSTFT` (B6 Sx mode),
+     `StreamingSSQCWT2` (B8 + B2) and `StreamingSSQSTFT2` (B7 + B2).
+     Each plan: one `process` with the counters zeroed launches exactly
+     its route's kernels and no plain version; 40 chunks and `finalize`
+     against the same plan with the kernel wrappers swapped for their
+     plain versions (each multirate octave's B3 against its plain
+     version on its own); the STFT streams against the offline
+     `ssq_stft`/`stft`/`ssq_stft2` of the record; the carry state after
+     chunk 20, resumed in a fresh plan, continues bit for bit; ms per
+     chunk over 50 chunks on the card, the real-time factor at 48 kHz
+     and the peak. Then a 160000-sample chirp through `stream_ssq_cwt(x,
+     10000, 'gmw', N=160000)` (mixed B1 + B2) and `issq_cwt` back
+     (mad_rms < 0.1), its Tx column sums against the offline `ssq_cwt`
+     of the same plan one context from each edge, and its ms per record;
  13. prints one `{"kernels": [...]}` line (the table modes' nine rows
      last), then, as the last line, `{"ok": true, "device": {...}}`.
 
@@ -648,6 +669,314 @@ def wavelet_section(stq, dev, card, x_np, xb_np):
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
             bound_by=r['bound_by'], library_ms=r['library_ms']))
     return rows, e2e
+
+
+def streaming_section(stq, dev, card, counters):
+    """Section 12c: the streaming plans (A10) at chunk 4096 and the 160k
+    record through `stream_ssq_cwt`. Returns {kernel counter name:
+    launches} of one counted `process` per plan and of the record."""
+    import torch
+    from ssqueezepy_tpu_torch import streaming as st_mod
+    from ssqueezepy_tpu_torch import streaming_multirate as mr_mod
+    from ssqueezepy_tpu_torch.models import cwt as cwt_mod
+    from ssqueezepy_tpu_torch.ops import cwt_cuda, ssq_cuda, stft_cuda
+    from ssqueezepy_tpu_torch.ops.cwt_cuda import (
+        cwt_bins_plain, cwt_bins2_plain, cwt_fused, cwt_fused_plain)
+    from ssqueezepy_tpu_torch.ops.ssq_cuda import (scatter_kv_plain,
+                                                   shift_scatter_plain)
+    from ssqueezepy_tpu_torch.ops.stft_cuda import (fsst2_conv_plain,
+                                                    stft_conv_plain)
+
+    chunk, n_chunks, B = 4096, 40, 4
+    audio_ms = chunk / 48000 * 1e3
+    g32 = ('gmw', {'dtype': 'float32'})
+    sc97 = np.geomspace(1., 64., 97).reshape(-1, 1)
+    wide = np.geomspace(1., 512., 181).reshape(-1, 1)
+    ctx97 = dict(scales=sc97, nv=None, N=16 * chunk, history=2048,
+                 lookahead=2048)
+    # every plain version behind a counting shim: no plan may reach one
+    shims = {}
+    for mod, name in ((cwt_cuda, 'cwt_bins_plain'),
+                      (cwt_cuda, 'cwt_fused_plain'),
+                      (cwt_cuda, 'cwt_bins2_plain'), (cwt_cuda, 'wsst2_rows'),
+                      (cwt_mod, 'cwt_core'),
+                      (ssq_cuda, 'scatter_kv_plain'),
+                      (ssq_cuda, 'shift_scatter_plain'),
+                      (ssq_cuda, 'ssq_fused_plain'),
+                      (stft_cuda, 'stft_conv_plain'),
+                      (stft_cuda, 'fsst2_conv_plain'),
+                      (stft_cuda, 'fsst2_rows')):
+        orig = getattr(mod, name)
+
+        def shim(*a, _orig=orig, _name=name, **k):
+            shims[_name][3].calls += 1
+            return _orig(*a, **k)
+        shim.calls = 0
+        shims[name] = (mod, name, orig, shim)
+        setattr(mod, name, shim)
+    # `cwt_general` (the route of the wavelets off the kernel's) counts
+    # its own calls: these GMW plans must take none
+    watched = counters + [('cwt_general', cwt_mod.cwt_general, 'calls')] + [
+        ('plain ' + n, v[3], 'calls') for n, v in shims.items()]
+
+    def plain_route(fn):
+        """fn() with every kernel wrapper the streaming plans call
+        replaced by its plain version (on the card's tensors)."""
+        swaps = [(st_mod, 'cwt_bins', cwt_bins_plain),
+                 (st_mod, 'cwt_fused', cwt_fused_plain),
+                 (st_mod, 'cwt_bins2', cwt_bins2_plain),
+                 (st_mod, 'scatter_kv', scatter_kv_plain),
+                 (st_mod, 'stft_conv', stft_conv_plain),
+                 (st_mod, 'fsst2_conv', fsst2_conv_plain),
+                 (mr_mod, 'cwt_fused', cwt_fused_plain),
+                 (ssq_cuda, 'shift_scatter', shift_scatter_plain)]
+        saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+        try:
+            for m, n, f in swaps:
+                setattr(m, n, f)
+            return fn()
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+
+    def engine(n_up):
+        return '' if n_up & (n_up - 1) == 0 else '_mixed'
+
+    def cwt_need(kernel, plan, batched=False):
+        return {kernel + ('_batched' if batched else '') + engine(plan.n_up),
+                'scatter_kv'} - ({'scatter_kv'} if kernel == 'cwt_fused'
+                                 else set())
+
+    plans = {
+        'ssq_cwt_97': (lambda: stq.StreamingSSQCWT(chunk, g32, **ctx97), 1,
+                       lambda p: cwt_need('cwt_bins', p)),
+        'ssq_cwt_97_b4': (lambda: stq.StreamingSSQCWT(chunk, g32, **ctx97),
+                          B, lambda p: cwt_need('cwt_bins', p, True)),
+        'ssq_cwt_181_flat': (lambda: stq.StreamingSSQCWT(
+            chunk, g32, scales=wide, nv=None, N=16 * chunk, history=8192,
+            lookahead=8192), 1, lambda p: cwt_need('cwt_bins', p)),
+        'ssq_cwt_181_multirate': (lambda: stq.StreamingMultirateSSQCWT(
+            chunk, g32, scales=wide, nv=None, N=16 * chunk), 1,
+            lambda p: {'cwt_fused' + engine(q['n_up']) for q in p._plans}
+            | {'shift_scatter'}),
+        'ssq_stft_512': (lambda: stq.StreamingSSQSTFT(
+            chunk, n_fft=512, dtype='float32'), 1,
+            lambda p: {'stft_conv', 'scatter_kv'}),
+        'cwt_97': (lambda: stq.StreamingCWT(chunk, g32, **ctx97), 1,
+                   lambda p: cwt_need('cwt_fused', p)),
+        'stft_512': (lambda: stq.StreamingSTFT(chunk, n_fft=512,
+                                               dtype='float32'), 1,
+                     lambda p: {'stft_conv'}),
+        'ssq_cwt2_97': (lambda: stq.StreamingSSQCWT2(chunk, g32, **ctx97), 1,
+                        lambda p: cwt_need('cwt_bins2', p)),
+        'ssq_stft2_512': (lambda: stq.StreamingSSQSTFT2(
+            chunk, n_fft=512, dtype='float32'), 1,
+            lambda p: {'fsst2_conv', 'scatter_kv'}),
+    }
+    rng = np.random.default_rng(18)
+    rec = torch.as_tensor(rng.standard_normal((B, n_chunks * chunk))
+                          .astype(np.float32), device=dev)
+    launches, rows = {}, {}
+
+    def cat(parts, i):
+        return torch.cat([p[i] for p in parts if p[i] is not None], dim=-1)
+
+    # (Tx or None, Wx) of every plan, `StreamingCWT`/`StreamingSTFT` too
+    # (their own `process` returns Wx alone)
+    def proc(plan, c):
+        return st_mod._StreamingBase.process(plan, c)
+
+    def fin(plan):
+        return st_mod._StreamingBase.finalize(plan)
+
+    for name, (make, b, need_of) in plans.items():
+        x = rec[0] if b == 1 else rec
+        chunks = [x[..., i * chunk:(i + 1) * chunk] for i in range(n_chunks)]
+        plan = make()
+        what = "streaming %s (%s, chunk %d%s)" % (
+            name, type(plan).__name__, chunk,
+            ", batch of %d" % b if b > 1 else "")
+        plan.process(chunks[0])               # first launch, cuFFT plans
+        plan.reset()
+        # 1. exactly the route's kernels in one process, no plain version
+        _, counts = launches_of(watched, lambda: plan.process(chunks[0]))
+        moved = {k for k, v in counts.items() if v}
+        need = need_of(plan)
+        check(moved == need, "%s: one process launched %s (needs exactly "
+              "%s)" % (what, sorted(moved), sorted(need)))
+        for k in need:
+            launches[k] = launches.get(k, 0) + counts[k]
+        # 2. the stream against the same plan on the plain versions; the
+        # carry state snapshot after chunk 20 (4.: resumed below)
+        plan.reset()
+        outs = []
+        for i, c in enumerate(chunks):
+            outs.append(proc(plan, c))
+            if i == n_chunks // 2 - 1:
+                state = plan.state_dict()
+        outs.append(fin(plan))
+        ref_plan = make()
+        ref = plain_route(lambda: [proc(ref_plan, c) for c in chunks]
+                          + [fin(ref_plan)])
+        W, W_p = cat(outs, 1), cat(ref, 1)
+        err = rel_err(W, W_p)
+        check(W.shape[-1] == n_chunks * chunk and err <= 2e-5 and
+              bool(torch.isfinite(torch.view_as_real(W)).all()),
+              "%s: %d chunks + finalize emit %s, finite, %.3g of max vs the "
+              "plain versions (limit 2e-5)" % (what, n_chunks,
+                                               tuple(W.shape), err))
+        if plan.ssq:
+            bins_criterion(cat(outs, 0), cat(ref, 0),
+                           "%s vs the plain versions" % what)
+        del ref, W_p
+        # 3. the STFT streams against the offline port on the record
+        if 'stft' in name:
+            kw = dict(n_fft=512, dtype='float32')
+            if name == 'stft_512':
+                S_o = stq.stft(x, **kw)
+                e_o = rel_err(W, S_o)
+            else:
+                off = (stq.ssq_stft2 if name.startswith('ssq_stft2')
+                       else stq.ssq_stft)
+                T_o, S_o = off(x, **kw)[:2]
+                e_o = rel_err(W, S_o)
+                bins_criterion(cat(outs, 0), T_o, "%s vs offline" % what)
+            check(e_o <= 1e-5, "%s: Sx %.3g of max vs the offline call on "
+                  "the %d-sample record, every column (limit 1e-5)"
+                  % (what, e_o, x.shape[-1]))
+            del S_o
+        # 4. resume from the snapshot in a fresh plan, bit for bit
+        resumed = make().load_state(state)
+        rest = [proc(resumed, c) for c in chunks[n_chunks // 2:]] + [
+            fin(resumed)]
+        same = all((a is None and b_ is None) or torch.equal(a, b_)
+                   for o, r in zip(outs[n_chunks // 2:], rest)
+                   for a, b_ in zip(o, r))
+        check(same, "%s: resumed after chunk %d in a fresh plan, the "
+              "continuation is bit-identical" % (what, n_chunks // 2))
+        # each multirate octave's B3 against its plain version
+        if name == 'ssq_cwt_181_multirate':
+            errs = []
+
+            def held(xh, scales, *a, _errs=errs):
+                out = cwt_fused(xh, scales, *a)
+                ref1 = cwt_fused_plain(xh, scales, *a)
+                _errs.append(max(rel_err(out[0], ref1[0]),
+                                 rel_err(out[1], ref1[1])))
+                return out
+            mr_mod.cwt_fused = held
+            try:
+                plan.reset()
+                plan.process(chunks[3])
+            finally:
+                mr_mod.cwt_fused = cwt_fused
+            for p, e in zip(plan._plans, errs):
+                check(e <= 2e-5, "%s: octave %d B3 (%d rows, n_up=%d, %s "
+                      "engine) Wx, dWx %.3g of max vs its plain version "
+                      "(limit 2e-5)" % (what, p['j'], len(p['scales']),
+                                        p['n_up'], 'mixed' if engine(
+                                            p['n_up']) else 'radix-4', e))
+        del outs, rest, W
+        # 6. ms per chunk and peak, chunks on the card, plan included
+        del plan, resumed, ref_plan
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        plan = make()
+        for i in range(3):
+            plan.process(chunks[i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(50):
+            plan.process(chunks[(3 + i) % n_chunks])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 50 * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        rows[name] = (ms, peak)
+        extra = {'n_up': getattr(plan, 'n_up', None),
+                 'Np2': getattr(plan, 'Np2', None),
+                 'history': plan.history, 'lookahead': plan.lookahead}
+        if name == 'ssq_cwt_181_multirate':
+            extra['octave n_up'] = [p['n_up'] for p in plan._plans]
+            extra['compute_ratio'] = round(plan.compute_ratio, 3)
+        print("%s: %.4f ms per chunk (host clock, mean of 50 after 3 "
+              "warm-up, chunks on the card), real-time factor %.1f at 48 "
+              "kHz (%d samples = %.3f ms of audio%s), peak %.4f GB above "
+              "the %.3f GB held before the plan (its constants included); "
+              "%s; card: %s"
+              % (what, ms, audio_ms * b / ms, chunk, audio_ms,
+                 ", %d signals" % b if b > 1 else "", peak, base / 1e9,
+                 extra, card), flush=True)
+        del plan
+        torch.cuda.empty_cache()
+
+    # 5. a 160000-sample chirp through `stream_ssq_cwt` and back
+    N, c10 = 160000, 10000
+    n = np.arange(N)
+    xc = np.cos(2 * np.pi * (0.02 * n + (0.18 - 0.02) / (2 * N) * n ** 2)) \
+        .astype(np.float32)
+    x160 = torch.as_tensor(xc, device=dev)
+    stq.stream_ssq_cwt(x160, c10, 'gmw', N=N)   # first launches, cuFFT plans
+    torch.cuda.synchronize()
+    (Tx, Wx, fr, sc), counts = launches_of(
+        watched, lambda: stq.stream_ssq_cwt(x160, c10, 'gmw', N=N))
+    plan = stq.StreamingSSQCWT(c10, 'gmw', N=N)
+    need = cwt_need('cwt_bins', plan)
+    moved = {k for k, v in counts.items() if v}
+    check(moved == need, "stream_ssq_cwt at N=%d, chunk %d: launched %s "
+          "(needs exactly %s)" % (N, c10, sorted(moved), sorted(need)))
+    for k in need:
+        launches[k] = launches.get(k, 0) + counts[k]
+    mad = stq.toolkit.mad_rms(xc, stq.issq_cwt(Tx))
+    check(Tx.shape == (plan.nbins, N) and mad < 0.1, "stream_ssq_cwt at "
+          "N=%d (%d scales, n_reliable %d, history = lookahead = %d, n_up = "
+          "%d): Tx %s, issq_cwt mad_rms %.4f (limit 0.1)"
+          % (N, len(sc), plan.n_reliable, plan.history, plan.n_up,
+             tuple(Tx.shape), mad))
+    Tx_o = stq.ssq_cwt(x160, 'gmw', scales='log', nv=32)[0]
+    m = plan.history
+    cs = (Tx.real.sum(-2) - Tx_o.real.sum(-2))[m:-m].abs().max()
+    col = float(cs / Tx_o.abs().max())
+    check(col < 5e-2, "stream_ssq_cwt at N=%d: Tx column sums %.3g of "
+          "max|Tx| from the offline ssq_cwt of the same plan, %d columns "
+          "from each edge (limit 5e-2)" % (N, col, m))
+    del Tx, Wx, Tx_o
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = stq.stream_ssq_cwt(x160, c10, 'gmw', N=N)
+        torch.cuda.synchronize()
+        rec_ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    drive_ms = []
+    for _ in range(3):
+        plan.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = st_mod._drive(plan, x160, c10)
+        torch.cuda.synchronize()
+        drive_ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    rows['stream_ssq_cwt_160k'] = (min(rec_ms), peak)
+    print("streaming stream_ssq_cwt at N=%d, chunk %d (%d steps with "
+          "finalize's): %.3f ms per record (host clock, best of 3 calls, "
+          "plan made in the call: %s), %.3f ms for the chunks and finalize "
+          "with the plan made (best of 3: %s), peak %.3f GB above the %.3f "
+          "GB held before; card: %s"
+          % (N, c10, N // c10 + -(-plan.lookahead // c10), min(rec_ms),
+             ', '.join('%.3f' % v for v in rec_ms), min(drive_ms),
+             ', '.join('%.3f' % v for v in drive_ms), peak, base / 1e9,
+             card), flush=True)
+    for mod, name, orig, _ in shims.values():
+        setattr(mod, name, orig)
+    print("streaming launches, one process per plan and the 160k record: "
+          "%s" % launches, flush=True)
+    return launches
 
 
 def main():
@@ -2640,8 +2969,11 @@ def main():
               % (what, ms, nbytes / ms / 1e9, nbytes, bms, 100 * bms / ms,
                  card), flush=True)
     wav_rows, _ = wavelet_section(stq, dev, card, x_np, xb_big)
+    for k, v in streaming_section(stq, dev, card, all_kernels).items():
+        launches[k] += v
     print("main-path launches per kernel, summed over the %d public "
-          "calls: %s" % (len(calls), launches), flush=True)
+          "calls and the streaming section's counted calls: %s"
+          % (len(calls), launches), flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),
           flush=True)
 

@@ -27,11 +27,21 @@ log-piecewise scales (at most 300) `ssq_cwt_cmhat`, `ssq_cwt_gmw_order1`,
 `ssq_cwt_morlet`, `ssq_cwt_order01` (`order=(0, 1)`, the GMW's scales),
 `cwt_hhhat`, `ssq_cwt_bump_b4`, `ssq_cwt2_morlet`,
 `ssq_cwt2_cmhat_getw`, `cwt_custom` (a Gaussian bump at w = 4 as a
-function, at cmhat's scales) —
+function, at cmhat's scales), or one `process` of a streaming plan at
+chunk 4096 on chunks already on the card (`--n` unused): `stream_ssq_cwt97`
+(`StreamingSSQCWT`, 97 scales geomspace(1, 64), history = lookahead =
+2048), `stream_ssq_cwt97_b4` (the same on a (4, 4096) batch),
+`stream_ssq_cwt181` (181 scales geomspace(1, 512), history = lookahead
+= 8192), `stream_multirate181` (`StreamingMultirateSSQCWT`, the 181),
+`stream_ssq_stft512` (`StreamingSSQSTFT`, n_fft = 512), or a 160000-sample
+record through a made `StreamingSSQCWT(10000, 'gmw', N=160000)`
+(`stream_ssq_cwt_160k`, its chunks and finalize) —
 under `torch.profiler` after warm-up and prints one JSON line: device
 time per kernel name (summed over the profiled calls, divided by the
-call count), the wall time per call, and the device's idle share of
-that wall time. Needs a CUDA device.
+call count), the wall time per call, the device's idle share of that
+wall time, and the host's top-level torch operator calls per call (an
+`aten::` op not inside another: what the host dispatches). Needs a CUDA
+device.
 """
 import argparse
 import json
@@ -72,6 +82,25 @@ _WAVELET_CALLS = {
                    'cmhat'),
 }
 
+_G32 = ('gmw', {'dtype': 'float32'})
+_SC97 = dict(scales=np.geomspace(1., 64., 97).reshape(-1, 1), nv=None,
+             N=65536, history=2048, lookahead=2048)
+# name: (the plan of `stq`, the batch it streams)
+_STREAM_PLANS = {
+    'stream_ssq_cwt97': (lambda s: s.StreamingSSQCWT(4096, _G32, **_SC97),
+                         1),
+    'stream_ssq_cwt97_b4': (lambda s: s.StreamingSSQCWT(4096, _G32,
+                                                        **_SC97), 4),
+    'stream_ssq_cwt181': (lambda s: s.StreamingSSQCWT(
+        4096, _G32, scales=np.geomspace(1., 512., 181).reshape(-1, 1),
+        nv=None, N=65536, history=8192, lookahead=8192), 1),
+    'stream_multirate181': (lambda s: s.StreamingMultirateSSQCWT(
+        4096, _G32, scales=np.geomspace(1., 512., 181).reshape(-1, 1),
+        nv=None, N=65536), 1),
+    'stream_ssq_stft512': (lambda s: s.StreamingSSQSTFT(
+        4096, n_fft=512, dtype='float32'), 1),
+}
+
 
 def main():
     import torch
@@ -90,7 +119,8 @@ def main():
                              'cwt_rpadded', 'ssq_cwt_numeric',
                              'ssq_cwt2_padnone', 'ssq_cwt2_getw',
                              'ssq_cwt2_getw_padnone', 'ssq_stft2_getw',
-                             'ssq_stft2_getw_b4') + tuple(_WAVELET_CALLS))
+                             'ssq_stft2_getw_b4', 'stream_ssq_cwt_160k')
+                    + tuple(_WAVELET_CALLS) + tuple(_STREAM_PLANS))
     ap.add_argument('--n', type=int, default=160000)
     ap.add_argument('--calls', type=int, default=5)
     a = ap.parse_args()
@@ -121,6 +151,24 @@ def main():
         wsc = scales if wspec == 'gmw' else stq.process_scales(
             'log-piecewise', N, stq.Wavelet(wspec))[:300]
         call = lambda: fn(stq, x, xb, wsc)         # noqa: E731
+    if a.transform in _STREAM_PLANS:
+        make, b = _STREAM_PLANS[a.transform]
+        plan = make(stq)
+        chunks = torch.as_tensor(np.random.default_rng(2).standard_normal(
+            (8, b, 4096)).astype(np.float32), device='cuda')
+        if b == 1:
+            chunks = chunks[:, 0]
+        step = iter(range(1 << 62))
+        call = lambda: plan.process(chunks[next(step) % 8])  # noqa: E731
+    if a.transform == 'stream_ssq_cwt_160k':
+        from ssqueezepy_tpu_torch.streaming import _drive
+        plan160 = stq.StreamingSSQCWT(10000, 'gmw', N=160000)
+        x160 = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            160000).astype(np.float32), device='cuda')
+
+        def call():
+            plan160.reset()
+            return _drive(plan160, x160, 10000)
     if a.transform == 'ssqueeze_dwx':
         _, Wx, _, _, dWx = stq.ssq_cwt(x, get_dWx=True, **kw)
     calls = {
@@ -189,6 +237,9 @@ def main():
         if ev.device_type == DeviceType.CUDA and dev_us > 0:
             per_kernel[ev.key[:80]] = dev_us / 1e3 / a.calls
     busy_ms = sum(per_kernel.values())
+    host_ops = sum(1 for ev in prof.events() if ev.name.startswith('aten::')
+                   and (ev.cpu_parent is None or
+                        not ev.cpu_parent.name.startswith('aten::')))
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -197,6 +248,7 @@ def main():
         'wall_ms_per_call': wall_ms,
         'device_busy_ms_per_call': busy_ms,
         'device_idle_share': (1 - busy_ms / wall_ms) if wall_ms else None,
+        'host_aten_ops_per_call': host_ops / a.calls,
         'device_ms_per_call_by_kernel': dict(sorted(
             per_kernel.items(), key=lambda kv: -kv[1]))}))
 

@@ -7,13 +7,17 @@ their second-order forms (`ssq_cwt2`, `ssq_stft2`), the CWT (`cwt`,
 and its derivative or from a phase transform (`ssqueeze`,
 `ssqueeze_fast`, `indexed_sum_onfly`, with `phase_cwt`, `phase_stft`),
 with every wavelet (GMW of any order, morlet, bump, cmhat, hhhat, a
-function of a torch tensor) and the higher-order CWT, on
-an NVIDIA Hopper card: the fused CWT kernels, the STFT table kernel, the
-reassignment scatters (from bins, and the generic one) and the fused
-phase + bins + scatter kernel are hand-written CUDA
-(`csrc/`), built with nvcc at first use on a CUDA tensor. Entry points run on ``device='cuda'`` unless
-the caller passes ``device='cpu'``, which runs the kernels' plain PyTorch
-versions. The package imports torch, numpy and scipy — never JAX, and
+function of a torch tensor) and the higher-order CWT, and their
+streaming forms (`StreamingSSQCWT`, `StreamingCWT`, `StreamingSSQCWT2`,
+`StreamingSSQSTFT`, `StreamingSTFT`, `StreamingSSQSTFT2`,
+`StreamingMultirateSSQCWT` and `stream_*`: chunk by chunk in
+overlap-save form on the same kernels, with a carry state that can be
+saved and resumed), on an NVIDIA Hopper card: the fused CWT kernels, the
+STFT table kernel, the reassignment scatters (from bins, and the generic
+one) and the fused phase + bins + scatter kernel are hand-written CUDA
+(`csrc/`), built with nvcc at first use on a CUDA tensor. Entry points
+and plans run on ``device='cuda'`` unless the caller passes
+``device='cpu'``, which runs the kernels' plain PyTorch versions. The package imports torch, numpy and scipy — never JAX, and
 nothing of `ssqueezepy_tpu`.
 """
 from . import toolkit
@@ -33,6 +37,11 @@ from .ops.phase import phase_cwt, phase_stft
 from .ops.ssq_kernels import (ssqueeze_fast, indexed_sum_onfly, indexed_sum,
                               find_closest)
 from .utils.cwt_utils import process_scales, make_scales, adm_cwt, adm_ssq
+from .streaming import (StreamingSSQCWT, StreamingSSQCWT2, StreamingCWT,
+                        StreamingSSQSTFT, StreamingSSQSTFT2,
+                        StreamingSTFT, stream_ssq_cwt, stream_cwt,
+                        stream_ssq_stft, stream_ssq_stft2, stream_stft)
+from .streaming_multirate import StreamingMultirateSSQCWT
 
 __all__ = ['ssq_cwt', 'issq_cwt', 'ssq_stft', 'issq_stft', 'ssq_cwt2',
            'ssq_stft2', 'cwt', 'icwt', 'cwt_higher_order', 'stft', 'istft',
@@ -41,4 +50,8 @@ __all__ = ['ssq_cwt', 'issq_cwt', 'ssq_stft', 'issq_stft', 'ssq_cwt2',
            'get_window', 'Wavelet', 'morlet', 'bump', 'cmhat', 'hhhat',
            'gmw', 'center_frequency', 'freq_resolution', 'time_resolution',
            'compute_gmw', 'morsewave', 'morsefreq', 'process_scales',
-           'make_scales', 'adm_cwt', 'adm_ssq', 'toolkit']
+           'make_scales', 'adm_cwt', 'adm_ssq', 'toolkit',
+           'StreamingSSQCWT', 'StreamingSSQCWT2', 'StreamingCWT',
+           'StreamingSSQSTFT', 'StreamingSSQSTFT2', 'StreamingSTFT',
+           'stream_ssq_cwt', 'stream_cwt', 'stream_ssq_stft',
+           'stream_ssq_stft2', 'stream_stft', 'StreamingMultirateSSQCWT']

@@ -165,18 +165,20 @@ def _convolve(Psih_xh, xi, scales, n_up, n1, N, dt, derivative, l1_norm):
     return Wx, dWx
 
 
-def cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative, l1_norm):
+def cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative, l1_norm,
+             table=None):
     """CWT rows from the half spectrum `xh` (complex, n_up//2 + 1) of the
     padded signal — the analytic branch of the JAX package's `cwt_core`:
     the wavelet (its table, `ops/cwt_cuda.py::wavelet_table`) on the half
     grid (it is zero on the negative half), the Nyquist bin halved, and
     the inverse FFT kept to [n1, n1+N). `scales` is a real (na,) tensor on
-    xh's device; `xh` may be a (B, n_up//2 + 1) batch. Returns (Wx, dWx
-    or None), complex (na, N) or (B, na, N)."""
+    xh's device; `xh` may be a (B, n_up//2 + 1) batch; `table`, where
+    given, is that wavelet table already made. Returns (Wx, dWx or None),
+    complex (na, N) or (B, na, N)."""
     half = n_up // 2 + 1
     xi = torch.as_tensor(_xifn(1., n_up)[:half], dtype=scales.dtype,
                          device=scales.device)
-    psih = wavelet_table(wavelet, scales, n_up)
+    psih = wavelet_table(wavelet, scales, n_up) if table is None else table
     Psih_xh = psih * _halve_nyquist(xh, n_up).unsqueeze(-2)
     return _convolve(Psih_xh, xi, scales, n_up, n1, N, dt, derivative,
                      l1_norm)

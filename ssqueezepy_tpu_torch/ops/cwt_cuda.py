@@ -294,7 +294,7 @@ def _bin_args(params):
             params['dvl1'], params['idx1'])
 
 
-def _check(xh, scales, n_up, n1, N, planes, batched=False):
+def _check(xh, scales, n_up, n1, N, planes, batched=False, table=None):
     if (xh.dim() not in ((1, 2) if batched else (1,))
             or xh.shape[-1] != n_up // 2 + 1):
         raise ValueError("xh must be the (n_up//2 + 1,) half spectrum%s "
@@ -316,34 +316,47 @@ def _check(xh, scales, n_up, n1, N, planes, batched=False):
                         % (scales.dtype, xh.dtype))
     if not (xh.is_contiguous() and scales.is_contiguous()):
         raise ValueError("xh and scales must be contiguous")
+    if table is not None:
+        shape = ((3,) if planes == 5 else ()) + (scales.shape[0],
+                                                n_up // 2 + 1)
+        if (tuple(table.shape) != shape or table.dtype != scales.dtype
+                or table.device != scales.device
+                or not table.is_contiguous()):
+            raise ValueError("table must be the contiguous %s wavelet table "
+                             "of the scales' dtype and device (got %s %s)"
+                             % (shape, tuple(table.shape), table.dtype))
     # the one length rule, every device
     cwt_length_rule(n_up, xh.element_size(), planes)
 
 
 def cwt_bins_plain(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params,
-                   gamma, flipud):
+                   gamma, flipud, table=None):
     """Plain version: `cwt_core` (torch.fft.ifft) for Wx and dWx, then
     `phase_transform_w` and `compute_bins`; one spectrum or a batch."""
     from ..models.cwt import cwt_core
     from .phase import phase_transform_w
     from .ssq_kernels import compute_bins
-    Wx, dWx = cwt_core(xh, wavelet, scales, n_up, n1, N, dt, True, l1_norm)
+    Wx, dWx = cwt_core(xh, wavelet, scales, n_up, n1, N, dt, True, l1_norm,
+                       table)
     w = phase_transform_w(Wx, dWx, gamma)
     k, valid = compute_bins(w, params, flipud)
     return Wx.contiguous(), torch.where(valid, k, torch.full_like(k, -1))
 
 
 def cwt_bins(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params, gamma,
-             flipud):
+             flipud, table=None):
     """(Wx, k) of the synchrosqueezed CWT from the half spectrum `xh` of
     the padded signal, (n_up//2 + 1,) or a (B, n_up//2 + 1) batch; Wx
     and k are (na, N) or (B, na, N). `scales` (na,) real, `wavelet` a
     real-valued `Wavelet`, `params` from `ssq_bin_params`; output columns
-    are [n1, n1+N) of the padded transform."""
-    _check(xh, scales, n_up, n1, N, _PLANES[_OUT_BINS], batched=True)
+    are [n1, n1+N) of the padded transform. `table`, where given, is the
+    caller's `wavelet_table` of `scales` (a streaming plan holds its own),
+    read in place of the memo's; the order-0 GMW is synthesized anyway."""
+    _check(xh, scales, n_up, n1, N, _PLANES[_OUT_BINS], batched=True,
+           table=table)
     if xh.device.type == 'cpu':
         return cwt_bins_plain(xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
-                              params, gamma, flipud)
+                              params, gamma, flipud, table)
     if xh.device.type != 'cuda':
         raise RuntimeError("cwt_bins runs on CUDA or CPU tensors (got %s)"
                            % xh.device)
@@ -352,7 +365,8 @@ def cwt_bins(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params, gamma,
     k = torch.empty(shape, dtype=torch.int32, device=xh.device)
     _launch(cwt_bins, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
             _OUT_BINS, Wx, k, params, gamma, flipud,
-            counter='batched_launches' if xh.dim() == 2 else 'launches')
+            counter='batched_launches' if xh.dim() == 2 else 'launches',
+            table=table)
     return Wx, k
 
 
@@ -371,18 +385,21 @@ _zero_counters(cwt_bins)
 
 def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
             out_mode, Wx, out2, params=None, gamma=0., flipud=False,
-            counter='launches'):
+            counter='launches', table=None):
     """Run the two-launch kernel over every row of `Wx` (B * na, N),
     chunking rows to the scratch budget; counts each C call on the
     wrapper's attribute `counter`, prefixed `mixed_` on the mixed engine
     and `table_` where the wavelet comes from its table (every wavelet
-    but the order-0 GMW, which the kernel synthesizes)."""
+    but the order-0 GMW, which the kernel synthesizes): the caller's
+    `table`, else the memo's."""
     kp = getattr(wavelet.fn, 'kernel_params', None)
-    table = None
     if kp is None:
-        table = wavelet_table(wavelet, scales, n_up,
-                              order2=_PLANES[out_mode] == 5, memo=True)
+        if table is None:
+            table = wavelet_table(wavelet, scales, n_up,
+                                  order2=_PLANES[out_mode] == 5, memo=True)
         kp = dict(logconst=0., amp=0., gamma=1., beta=0., wc=1.)
+    else:
+        table = None
     lib = _build.load('cwt_bins')
     f32 = scales.dtype == torch.float32
     itemsize = xh.element_size()
@@ -431,26 +448,29 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
 
 
 def cwt_fused_plain(xh, scales, wavelet, n_up, n1, N, dt, derivative,
-                    l1_norm):
+                    l1_norm, table=None):
     """Plain version: `cwt_core` (torch.fft.ifft)."""
     from ..models.cwt import cwt_core
     Wx, dWx = cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative,
-                       l1_norm)
+                       l1_norm, table)
     return Wx.contiguous(), (None if dWx is None else dWx.contiguous())
 
 
-def cwt_fused(xh, scales, wavelet, n_up, n1, N, dt, derivative, l1_norm):
+def cwt_fused(xh, scales, wavelet, n_up, n1, N, dt, derivative, l1_norm,
+              table=None):
     """(Wx, dWx or None) of the CWT from the half spectrum `xh` of the
     padded signal, (n_up//2 + 1,) or a (B, n_up//2 + 1) batch; Wx and
     dWx are (na, N) or (B, na, N). `scales` (na,) real, `wavelet` a
     real-valued `Wavelet`; output columns are [n1, n1+N) of the padded
     transform;
-    `l1_norm=False` multiplies rows by sqrt(scale)."""
+    `l1_norm=False` multiplies rows by sqrt(scale). `table` as `cwt_bins`
+    takes it."""
     _check(xh, scales, n_up, n1, N,
-           _PLANES[_OUT_W_DW if derivative else _OUT_W], batched=True)
+           _PLANES[_OUT_W_DW if derivative else _OUT_W], batched=True,
+           table=table)
     if xh.device.type == 'cpu':
         return cwt_fused_plain(xh, scales, wavelet, n_up, n1, N, dt,
-                               derivative, l1_norm)
+                               derivative, l1_norm, table)
     if xh.device.type != 'cuda':
         raise RuntimeError("cwt_fused runs on CUDA or CPU tensors (got %s)"
                            % xh.device)
@@ -458,14 +478,14 @@ def cwt_fused(xh, scales, wavelet, n_up, n1, N, dt, derivative, l1_norm):
     Wx = torch.empty(shape, dtype=xh.dtype, device=xh.device)
     dWx = torch.empty_like(Wx) if derivative else None
     _launch(cwt_fused, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
-            _OUT_W_DW if derivative else _OUT_W, Wx, dWx)
+            _OUT_W_DW if derivative else _OUT_W, Wx, dWx, table=table)
     return Wx, dWx
 
 
 _zero_counters(cwt_fused, _COUNTERS[:2])
 
 
-def wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma):
+def wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma, table=None):
     """(W, w2) of the second-order CWT, step by step with torch.fft (the
     XLA twin `_wsst2_rows` of `ssqueezepy_tpu/models/ssq_cwt2.py`), for
     one half spectrum xh or a (B, n_up//2 + 1) batch: the
@@ -474,12 +494,14 @@ def wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma):
     bin halved in all five), one inverse FFT kept to [n1, n1+N), then
     p2 = (Bd W - A B) / (B^2 - C W), p1 = (A + p2 B) / W (regularized
     divides) and w2 = |Im p1| / (2 pi dt), inf where not finite or where
-    |W|^2 <= gamma^2."""
+    |W|^2 <= gamma^2. `table`, where given, is the (3, na, n_up//2 + 1)
+    `wavelet_table` of `scales`."""
     half = n_up // 2 + 1
     xi = torch.as_tensor(_xifn(1., n_up)[:half], dtype=scales.dtype,
                          device=scales.device)
     a = scales.reshape(-1, 1)
-    psih, d1, d2 = wavelet_table(wavelet, scales, n_up, order2=True)
+    psih, d1, d2 = (wavelet_table(wavelet, scales, n_up, order2=True)
+                    if table is None else table)
     xh = _halve_nyquist(xh, n_up)                   # in all five banks
     tb, t2b = a * d1, (a * a) * d2
     xr, xim = xh.real[..., None, :], xh.imag[..., None, :]
@@ -501,24 +523,27 @@ def wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma):
 
 
 def cwt_bins2_plain(xh, scales, wavelet, n_up, n1, N, dt, params, gamma,
-                    flipud):
+                    flipud, table=None):
     """Plain version: `wsst2_rows`, then `compute_bins` on w2."""
     from .ssq_kernels import compute_bins
-    W, w2 = wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma)
+    W, w2 = wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma, table)
     k, valid = compute_bins(w2, params, flipud)
     return W, torch.where(valid, k, torch.full_like(k, -1))
 
 
-def cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params, gamma, flipud):
+def cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params, gamma, flipud,
+              table=None):
     """(W, k) of the second-order synchrosqueezed CWT (WSST2) from the
     half spectrum `xh` of the padded signal, (n_up//2 + 1,) or a
     (B, n_up//2 + 1) batch: W (na, N) or (B, na, N) the L1 CWT, k of W's
     shape int32 the bin of the chirp-corrected frequency w2, -1 on
-    gamma-gated or non-finite cells. Arguments as `cwt_bins`."""
-    _check(xh, scales, n_up, n1, N, _PLANES[_OUT_BINS2], batched=True)
+    gamma-gated or non-finite cells. Arguments as `cwt_bins`; `table` the
+    three-plane one (`wavelet_table(..., order2=True)`)."""
+    _check(xh, scales, n_up, n1, N, _PLANES[_OUT_BINS2], batched=True,
+           table=table)
     if xh.device.type == 'cpu':
         return cwt_bins2_plain(xh, scales, wavelet, n_up, n1, N, dt,
-                               params, gamma, flipud)
+                               params, gamma, flipud, table)
     if xh.device.type != 'cuda':
         raise RuntimeError("cwt_bins2 runs on CUDA or CPU tensors (got %s)"
                            % xh.device)
@@ -527,7 +552,8 @@ def cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params, gamma, flipud):
     k = torch.empty(shape, dtype=torch.int32, device=xh.device)
     _launch(cwt_bins2, xh, scales, wavelet, n_up, n1, N, dt, True,
             _OUT_BINS2, W, k, params, gamma, flipud,
-            counter='batched_launches' if xh.dim() == 2 else 'launches')
+            counter='batched_launches' if xh.dim() == 2 else 'launches',
+            table=table)
     return W, k
 
 

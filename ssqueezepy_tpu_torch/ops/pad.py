@@ -4,7 +4,11 @@
 Counterpart of `ssqueezepy_tpu/ops/pad.py`. The pad geometry is host
 arithmetic; the padded signal is one gather whose index is numpy's own
 `np.pad` of `arange(N)`, so every padtype (including reflections longer
-than the signal) follows numpy's semantics exactly.
+than the signal) follows numpy's semantics exactly. `reflect_index` and
+`_reflect` take the reflected material alone from the same index (the
+streaming plans' carry state: `_reflect` of
+`ssqueezepy_tpu/parallel/time_sharded.py`, and the repeated reflection
+`np.pad(..., 'reflect')` applies when the pad is longer than the signal).
 """
 import functools
 
@@ -13,7 +17,8 @@ import torch
 
 from ..utils.common import p2up, assert_is_one_of
 
-__all__ = ['SUPPORTED_PADTYPES', 'pad_params', 'padsignal']
+__all__ = ['SUPPORTED_PADTYPES', 'pad_params', 'padsignal',
+           'reflect_index']
 
 SUPPORTED_PADTYPES = ('reflect', 'symmetric', 'replicate', 'wrap', 'zero')
 
@@ -57,3 +62,22 @@ def padsignal(x, padtype='reflect', padlength=None):
     if padtype == 'zero':
         return torch.nn.functional.pad(x, (n1, n2))
     return x.index_select(-1, _pad_index(N, n1, n2, padtype, x.device))
+
+
+def reflect_index(N, n, from_start, device):
+    """Gather index (on `device`) of the `n` samples that 'reflect'
+    padding puts before (`from_start`) or after a length-N signal: the
+    signal reflected from its own edge with no repeated edge sample, and
+    reflected again (numpy's rule) where n >= N. A slice of `_pad_index`,
+    kept with it."""
+    if from_start:
+        return _pad_index(N, n, 0, 'reflect', device)[:n]
+    return _pad_index(N, 0, n, 'reflect', device)[N:]
+
+
+def _reflect(x, n, from_start):
+    """The `n` samples 'reflect' padding puts before (`from_start`) or
+    after `x` along its last axis; x[..., 1:n + 1] reversed, or
+    x[..., -n - 1:-1] reversed, for n < x.shape[-1]."""
+    return x.index_select(-1, reflect_index(x.shape[-1], n, from_start,
+                                            x.device))
