@@ -169,6 +169,20 @@ the scatter from bins); and the streaming plans chunk by chunk (section
      10000, 'gmw', N=160000)` (mixed B1 + B2) and `issq_cwt` back
      (mad_rms < 0.1), its Tx column sums against the offline `ssq_cwt`
      of the same plan one context from each edge, and its ms per record;
+ 12d. (`grad_section`) gradients through the kernels' autograd
+     Functions at the 160k shapes: `ssq_cwt` (one signal, the (4, N)
+     batch, `get_dWx`, `get_w`), `cwt`, `ssq_cwt2`, `ssq_stft` (hop 1 and
+     8), `ssq_stft2`, `stft` and `ssqueeze(Wx, dWx=...)` from the signal.
+     Per route the forward launches exactly its kernels and the backward
+     none; x.grad through the kernels against x.grad through the plain
+     versions on the card (autograd through torch ops): for a
+     reconstruction loss through the route's inverse (`issq_cwt`, `icwt`,
+     `issq_stft`, `istft`) within 1e-4 of max, for sum |out|^2 within
+     2e-3 of max at the kernel route's bins and Tx (its difference on
+     the plain versions' own bins, and the count of cells whose bins
+     differ, printed); forward and forward + backward ms (host clock)
+     with the peak. Then the framed STFT at hop 8 on the (4, 160000)
+     batch, each row bit-identical to its one-signal call;
  13. prints one `{"kernels": [...]}` line (the table modes' nine rows
      last), then, as the last line, `{"ok": true, "device": {...}}`.
 
@@ -976,6 +990,289 @@ def streaming_section(stq, dev, card, counters):
         setattr(mod, name, orig)
     print("streaming launches, one process per plan and the 160k record: "
           "%s" % launches, flush=True)
+    return launches
+
+
+def grad_section(stq, dev, card, counters, x_np, xb_np, spec, scales,
+                 ssq_freqs, n_fft):
+    """Section 12d: gradients through the kernels (each wrapper's
+    `torch.autograd.Function`) at the 160k shapes. Per route: the forward
+    on exactly the route's kernels and the backward on none; x.grad
+    through the kernels against x.grad through the plain versions on the
+    card (the models' kernel wrappers swapped for them, autograd through
+    torch ops): for a reconstruction loss through the route's inverse
+    within 1e-4 of max, for sum |out|^2 within 2e-3 of max with the plain
+    versions at the kernel route's state, on the bins its scatters used
+    and with its cotangent 2 Tx (the difference on their own bins and Tx,
+    and the count of cells whose bins differ, printed);
+    forward and forward + backward ms (host clock) and the peak. Returns
+    the forward launches per counter."""
+    import torch
+    from ssqueezepy_tpu_torch.models import (cwt as cwt_mod,
+                                             ssq_cwt as ssq_mod,
+                                             ssq_cwt2 as ssq2_mod,
+                                             ssq_stft as ssq_stft_mod,
+                                             stft as stft_mod)
+    from ssqueezepy_tpu_torch.models.windows import get_window
+    from ssqueezepy_tpu_torch.ops import cwt_cuda, ssq_cuda, stft_cuda
+    from ssqueezepy_tpu_torch.ops.phase import phase_transform_w
+    from ssqueezepy_tpu_torch.ops.ssq_kernels import compute_bins
+
+    N = len(x_np)
+    f_stft = 2 / get_window(None, n_fft, n_fft=n_fft)[n_fft // 2]
+    kw = dict(wavelet=spec, scales=scales, ssq_freqs=ssq_freqs)
+    gamma = 10 * float(np.finfo(np.float32).eps)
+
+    def route(call, inverse, need, hop=1):
+        """(forward: x -> (plane, its reconstruction, hop), the counters
+        the forward must launch, exactly)."""
+        def fwd(x):
+            plane = call(x)
+            return plane, inverse(plane), hop
+        return fwd, need
+
+    def issq_cwt(Tx):
+        return stq.issq_cwt(Tx, spec)
+
+    def issq_stft(Tx):
+        return stq.issq_stft(Tx, n_fft=n_fft)
+
+    def ssqueeze_dwx(x):
+        Wx, _, dWx = stq.cwt(x, wavelet=spec, scales=scales,
+                             derivative=True)
+        return stq.ssqueeze(Wx, dWx=dWx, gamma=gamma, scales=scales,
+                            ssq_freqs=ssq_freqs, flipud=True)[0]
+
+    routes = {
+        'ssq_cwt': route(lambda x: stq.ssq_cwt(x, **kw)[0], issq_cwt,
+                         {'cwt_bins', 'scatter_kv'}),
+        'ssq_cwt_b4': route(lambda x: stq.ssq_cwt(x, **kw)[0], issq_cwt,
+                            {'cwt_bins_batched', 'scatter_kv'}),
+        'ssq_cwt_dwx': route(lambda x: stq.ssq_cwt(x, get_dWx=True,
+                                                   **kw)[0], issq_cwt,
+                             {'cwt_fused', 'ssq_fused'}),
+        'ssq_cwt_getw': route(lambda x: stq.ssq_cwt(x, get_w=True, **kw)[0],
+                              issq_cwt, {'cwt_fused', 'shift_scatter'}),
+        'cwt': route(lambda x: stq.cwt(x, wavelet=spec, scales=scales)[0],
+                     lambda Wx: stq.icwt(Wx, spec, scales=scales),
+                     {'cwt_fused'}),
+        'ssq_cwt2': route(lambda x: stq.ssq_cwt2(x, spec, scales=scales)[0],
+                          issq_cwt, {'cwt_bins2', 'scatter_kv'}),
+        'ssq_stft': route(lambda x: stq.ssq_stft(x, n_fft=n_fft)[0],
+                          issq_stft, {'stft_conv', 'scatter_kv'}),
+        'ssq_stft_hop8': route(
+            lambda x: stq.ssq_stft(x, n_fft=n_fft, hop_len=8)[0],
+            lambda Tx: Tx.real.sum(-2) * f_stft, {'ssq_fused'}, hop=8),
+        'ssq_stft2': route(lambda x: stq.ssq_stft2(x, n_fft=n_fft)[0],
+                           issq_stft, {'fsst2_conv', 'scatter_kv'}),
+        'stft': route(lambda x: stq.stft(x, n_fft=n_fft),
+                      lambda Sx: stq.istft(Sx, n_fft=n_fft, N=N),
+                      {'stft_conv'}),
+        'ssqueeze_dwx': route(ssqueeze_dwx, issq_cwt,
+                              {'cwt_fused', 'ssq_fused'}),
+    }
+    # the plain versions of the transforms, where the models reach them
+    transforms = [(cwt_mod, 'cwt_fused', cwt_cuda.cwt_fused_plain),
+                  (ssq_mod, 'cwt_bins', cwt_cuda.cwt_bins_plain),
+                  (ssq_mod, 'cwt_fused', cwt_cuda.cwt_fused_plain),
+                  (ssq2_mod, 'cwt_bins2', cwt_cuda.cwt_bins2_plain),
+                  (ssq_stft_mod, 'stft_conv', stft_cuda.stft_conv_plain),
+                  (ssq_stft_mod, 'fsst2_conv', stft_cuda.fsst2_conv_plain),
+                  (stft_mod, 'stft_conv', stft_cuda.stft_conv_plain)]
+    kernel = dict(kv=ssq_cuda.scatter_kv, fused=ssq_cuda.ssq_fused,
+                  shift=ssq_cuda.shift_scatter)
+    plain = dict(kv=ssq_cuda.scatter_kv_plain, fused=ssq_cuda.ssq_fused_plain,
+                 shift=ssq_cuda.shift_scatter_plain)
+
+    def fused_bins(Wx, dWx, params, gamma, flipud, Sfs):
+        """The bins B4's backward gathers by: the plain bin map of its
+        inputs (-1 where gated)."""
+        k, valid = compute_bins(phase_transform_w(
+            Wx.detach(), dWx.detach(), gamma, Sfs), params, flipud)
+        return torch.where(valid, k, torch.full_like(k, -1))
+
+    class Counted:
+        """`fn` under the wrapper's name, its attributes (the launch
+        counts) those of `wrapper`: a kernel wrapper counts its launches
+        on the module name it is reached by."""
+        def __init__(self, fn, wrapper):
+            object.__setattr__(self, 'fn', fn)
+            object.__setattr__(self, 'wrapper', wrapper)
+
+        def __call__(self, *a, **k):
+            return self.fn(*a, **k)
+
+        def __getattr__(self, name):
+            return getattr(self.wrapper, name)
+
+        def __setattr__(self, name, value):
+            setattr(self.wrapper, name, value)
+
+    def scatters(mode, log):
+        """The scatter wrappers, where the models reach them, for `mode`:
+        'kernel' (the kernels) and 'plain' (the plain versions), each
+        appending to `log` the bins it scatters by (B4: those its backward
+        gathers by); 'pinned' (the plain versions on the bins of `log`, in
+        call order)."""
+        replay = iter(list(log)) if mode == 'pinned' else None
+        use = kernel if mode == 'kernel' else plain
+
+        def kv(Wx, k, const, nbins):
+            if replay is not None:
+                k = next(replay)
+            else:
+                log.append(k)
+            return use['kv'](Wx, k, const, nbins)
+
+        def fused(Wx, dWx, const, params, gamma, flipud, Sfs=None):
+            if replay is not None:
+                return plain['kv'](Wx, next(replay), const,
+                                   params['omax'] + 1)
+            log.append(fused_bins(Wx, dWx, params, gamma, flipud, Sfs))
+            return use['fused'](Wx, dWx, const, params, gamma, flipud, Sfs)
+
+        def shift(v, k, valid, nbins, const=None):
+            if replay is not None:
+                k, valid = next(replay)
+            else:
+                log.append((k, valid))
+            return use['shift'](v, k, valid, nbins, const)
+        kv, fused, shift = (Counted(f, kernel[n]) for f, n in (
+            (kv, 'kv'), (fused, 'fused'), (shift, 'shift')))
+        return ([(m, 'scatter_kv', kv) for m in (ssq_mod, ssq2_mod,
+                                                 ssq_stft_mod)]
+                + [(m, 'ssq_fused', fused) for m in (ssq_mod, ssq_stft_mod,
+                                                     ssq_cuda)]
+                + [(ssq_cuda, 'shift_scatter', shift)])
+
+    def swapped(swaps, fn):
+        """fn() with the module attributes of `swaps` replaced."""
+        saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+        try:
+            for m, n, f in swaps:
+                setattr(m, n, f)
+            return fn()
+        finally:
+            for m, n, f in reversed(saved):
+                setattr(m, n, f)
+
+    def differ(log_a, log_b):
+        """Cells whose bins differ between two logs of one route."""
+        n = 0
+        for a, b in zip(log_a, log_b):
+            if isinstance(a, tuple):
+                n += int(((a[0] != b[0]) | (a[1] != b[1])).sum())
+            else:
+                n += int((a != b).sum())
+        return n
+
+    def loss(kind, out, y):
+        plane, rec, hop = out
+        if kind == 'sq':
+            return (plane.real ** 2 + plane.imag ** 2).sum()
+        return ((rec - y[..., ::hop]) ** 2).mean()
+
+    launches = dict.fromkeys((n for n, _, _ in counters), 0)
+    for name, (fwd, need) in routes.items():
+        src = xb_np if name.endswith('_b4') else x_np
+        x = torch.as_tensor(src, device=dev).requires_grad_()
+        # the reconstruction's target: half the signal (a target the
+        # inverse does not reach exactly, so that its gradient is not
+        # rounding noise)
+        y = (0.5 * x).detach()
+        fwd(x)                                  # plan memo, first launch
+        for kind in ('rec', 'sq'):
+            x.grad = None
+            log_k, log_p = [], []
+            out, counts = launches_of(counters, lambda: swapped(
+                scatters('kernel', log_k), lambda: fwd(x)))
+            moved = {k for k, v in counts.items() if v}
+            check(moved == need, "grad %s: the forward launched %s (needs "
+                  "exactly %s)" % (name, sorted(moved), sorted(need)))
+            if kind == 'rec':
+                for k, v in counts.items():
+                    launches[k] += v
+            fn_name = type(out[0].grad_fn).__name__
+            check(fn_name.endswith('GradBackward'), "grad %s: the output's "
+                  "grad_fn is a kernel's Function (%s)" % (name, fn_name))
+            _, counts = launches_of(
+                counters, lambda: loss(kind, out, y).backward())
+            check(not any(counts.values()), "grad %s, %s loss: the "
+                  "backward launched no kernel" % (name, kind))
+            g_k, plane_k = x.grad, out[0].detach()
+            del out
+            x.grad = None
+            swapped(transforms + scatters('plain', log_p),
+                    lambda: loss(kind, fwd(x), y).backward())
+            g_p = x.grad
+            err = rel_err(g_k, g_p)
+            flips = differ(log_k, log_p)
+            if kind == 'rec':
+                check(bool(torch.isfinite(g_k).all()) and float(
+                    g_p.abs().max()) > 0 and err <= 1e-4, "grad %s, "
+                    "reconstruction loss: x.grad through the kernels %.3g "
+                    "of max vs through the plain versions (1e-4; %d cells' "
+                    "bins differ)" % (name, err, flips))
+            else:
+                # sum |out|^2 is piecewise in the bins: its cotangent 2 Tx
+                # and the cell each gradient reads follow each cell's bin,
+                # and the kernel and the plain bin map place a few cells
+                # apart (B4's backward also maps its own bins, as the JAX
+                # package's VJP does). So the plain versions run at the
+                # kernel route's state: on the bins its scatters used,
+                # with its cotangent 2 Tx; on their own bins and Tx the
+                # difference is printed
+                x.grad = None
+
+                def pinned():
+                    plane = fwd(x)[0]
+                    (2 * (plane_k.real * plane.real + plane_k.imag
+                          * plane.imag)).sum().backward()
+                swapped(transforms + scatters('pinned', log_k), pinned)
+                err_pin = rel_err(g_k, x.grad)
+                cells = sum(int(np.prod(tuple((a[0] if isinstance(a, tuple)
+                                                else a).shape)))
+                            for a in log_k)
+                check(bool(torch.isfinite(g_k).all()) and float(
+                    g_p.abs().max()) > 0 and err_pin <= 2e-3, "grad %s, "
+                    "sum |out|^2: x.grad through the kernels %.3g of max vs "
+                    "through the plain versions at the kernel route's bins "
+                    "and Tx (2e-3); on their own %.3g (%d of %d cells' bins "
+                    "differ)" % (name, err_pin, err, flips, cells))
+            del g_k, g_p, plane_k, log_k, log_p
+        x.grad = None
+        torch.backends.cuda.cufft_plan_cache.clear()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() / 1e9
+        fwd_ms, fwd_peak = host_ms(lambda: fwd(x))
+
+        def step():
+            x.grad = None
+            loss('rec', fwd(x), y).backward()
+        step_ms, step_peak = host_ms(step)
+        print("grad %s at %s: forward %.3f ms (x requiring grad; peak %.3f "
+              "GB above the %.3f held), forward + backward %.3f ms (peak "
+              "%.3f GB above), backward's share %.1f%% (host clock, mean of "
+              "10 after warm-up); card: %s"
+              % (name, tuple(x.shape), fwd_ms, fwd_peak - base, base,
+                 step_ms, step_peak - base,
+                 100 * (step_ms - fwd_ms) / step_ms, card), flush=True)
+        del x, y
+        torch.cuda.empty_cache()
+
+    # the framed STFT (hop 8) on the batch: each row bit-identical to its
+    # signal transformed alone (its frames are rows transformed along
+    # their last axis)
+    xb = torch.as_tensor(xb_np, device=dev)
+    Sb = stq.stft(xb, n_fft=n_fft, hop_len=8)
+    same = [bool(torch.equal(Sb[b], stq.stft(xb[b], n_fft=n_fft,
+                                              hop_len=8)))
+            for b in range(len(xb_np))]
+    check(all(same), "framed stft (hop 8) on %s: each row bit-identical "
+          "to its one-signal call (%s)" % (tuple(xb.shape), same))
+    del Sb, xb
+    print("grad section: forward launches %s"
+          % {k: v for k, v in launches.items() if v}, flush=True)
     return launches
 
 
@@ -2971,8 +3268,12 @@ def main():
     wav_rows, _ = wavelet_section(stq, dev, card, x_np, xb_big)
     for k, v in streaming_section(stq, dev, card, all_kernels).items():
         launches[k] += v
+    for k, v in grad_section(stq, dev, card, all_kernels, x_np, xb_big,
+                             spec, scales, ssq_freqs, n_fft).items():
+        launches[k] += v
     print("main-path launches per kernel, summed over the %d public "
-          "calls and the streaming section's counted calls: %s"
+          "calls, the streaming section's counted calls and the gradient "
+          "section's forwards: %s"
           % (len(calls), launches), flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),
           flush=True)

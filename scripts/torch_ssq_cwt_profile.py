@@ -3,7 +3,7 @@
 """Where the time of a PyTorch port call goes, on one NVIDIA GPU.
 
     python3 scripts/torch_ssq_cwt_profile.py [--transform ssq_cwt]
-        [--n 160000] [--calls 5]
+        [--n 160000] [--calls 5] [--backward]
 
 Runs one of the bench calls on white noise in float32 — `ssq_cwt` (the
 headline: the bench's 293-row log-piecewise plan and its ssq_freqs),
@@ -40,8 +40,12 @@ under `torch.profiler` after warm-up and prints one JSON line: device
 time per kernel name (summed over the profiled calls, divided by the
 call count), the wall time per call, the device's idle share of that
 wall time, and the host's top-level torch operator calls per call (an
-`aten::` op not inside another: what the host dispatches). Needs a CUDA
-device.
+`aten::` op not inside another: what the host dispatches). With
+`--backward` each profiled call is the forward with the signal requiring
+grad (for `ssqueeze_dwx`, its Wx) and the backward of sum |out|^2 of its
+first output (Tx, Wx or Sx): the kernels' forward and the torch ops of
+their autograd Functions' backward (the streaming plans are
+forward-only). Needs a CUDA device.
 """
 import argparse
 import json
@@ -123,6 +127,7 @@ def main():
                     + tuple(_WAVELET_CALLS) + tuple(_STREAM_PLANS))
     ap.add_argument('--n', type=int, default=160000)
     ap.add_argument('--calls', type=int, default=5)
+    ap.add_argument('--backward', action='store_true')
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -216,6 +221,17 @@ def main():
     }
     if a.transform in calls:
         call = calls[a.transform]
+    if a.backward:
+        if a.transform in _STREAM_PLANS or a.transform.startswith('stream'):
+            sys.exit("the streaming plans are forward-only")
+        for t in (x, xb) + ((Wx,) if a.transform == 'ssqueeze_dwx' else ()):
+            t.requires_grad_()
+        forward = call
+
+        def call():
+            out = forward()
+            plane = out[0] if isinstance(out, tuple) else out
+            (plane.real ** 2 + plane.imag ** 2).sum().backward()
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -245,6 +261,7 @@ def main():
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
         'card': smi, 'transform': a.transform, 'N': N, 'calls': a.calls,
+        'backward': a.backward,
         'wall_ms_per_call': wall_ms,
         'device_busy_ms_per_call': busy_ms,
         'device_idle_share': (1 - busy_ms / wall_ms) if wall_ms else None,

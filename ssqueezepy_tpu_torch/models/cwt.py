@@ -30,7 +30,7 @@ from ..ops.cwt_cuda import (cwt_fused, cwt_length_rule, wavelet_table,
                              _halve_nyquist)
 from ..ops.fft import fft, ifft, rfft
 from ..ops.pad import padsignal, pad_params, _MODE_MAP
-from ..utils.common import WARN, resolve_device
+from ..utils.common import WARN, numpy_unless_grad, resolve_device
 from ..utils.cwt_utils import (process_scales, logscale_transition_idx,
                                adm_ssq, adm_cwt, _process_fs_and_t)
 from .wavelets import Wavelet, _xifn
@@ -407,7 +407,8 @@ def icwt(Wx, wavelet='gmw', scales='log-piecewise', nv=None, one_int=True,
     """Inverse CWT by the one-integral (default) or the double-integral
     formula; log-piecewise scales are inverted piece by piece. `Wx` a
     complex tensor (the one-integral sum runs on its device) or numpy
-    array; returns numpy."""
+    array; returns numpy, or for the one-integral inverse of a tensor that
+    requires grad a tensor on its device carrying the graph."""
     *_, na, n = Wx.shape
     x_len = x_len or n
     if not isinstance(scales, np.ndarray) and nv is None:
@@ -424,9 +425,8 @@ def icwt(Wx, wavelet='gmw', scales='log-piecewise', nv=None, one_int=True,
                   x_mean=x_mean, padtype=padtype, rpadded=rpadded,
                   l1_norm=l1_norm)
         idx = logscale_transition_idx(scales)
-        x = icwt(Wx[..., :idx, :], scales=scales[:idx], **kw)
-        x += icwt(Wx[..., idx:, :], scales=scales[idx:], **kw)
-        return x
+        return (icwt(Wx[..., :idx, :], scales=scales[:idx], **kw)
+                + icwt(Wx[..., idx:, :], scales=scales[idx:], **kw))
 
     if one_int:
         x = _icwt_1int(Wx, scales, scaletype, l1_norm)
@@ -467,7 +467,7 @@ def _icwt_1int(Wx, scales, scaletype, l1_norm):
                               (len(np.atleast_1d(scales)), 1))
         nrm = torch.as_tensor(np.array(nrm), dtype=Wr.dtype,
                               device=Wr.device)
-        return (Wr / nrm).sum(dim=-2).cpu().numpy()
+        return numpy_unless_grad((Wr / nrm).sum(dim=-2))
     return (Wx.real / norm(scales)).sum(axis=-2)
 
 

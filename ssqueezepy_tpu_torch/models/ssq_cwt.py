@@ -61,8 +61,8 @@ from ..ops.diff import trigdiff
 from ..ops.phase import phase_cwt, phase_cwt_num
 from ..ops.ssq_cuda import scatter_kv, scatter_rule, ssq_fused
 from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
-from ..utils.common import (EPS32, EPS64, check_batch, p2up,
-                            resolve_device)
+from ..utils.common import (EPS32, EPS64, check_batch, numpy_unless_grad,
+                            p2up, resolve_device)
 from ..utils.cwt_utils import (process_scales, adm_ssq, _process_fs_and_t,
                                infer_scaletype, nv_from_scales)
 from ..utils.plan_cache import disk_memo
@@ -318,12 +318,13 @@ def issq_cwt(Tx, wavelet='gmw', cc=None, cw=None):
     ``x = Re(sum(Tx, axis=-2)) * 2/Css`` ((N,) from (nbins, N), (B, N)
     from a (B, nbins, N) batch) or masked per-component inversion. `Tx` a
     complex tensor (reduced on its device) or numpy array; returns
-    numpy."""
+    numpy, or for the full inversion of a tensor that requires grad a
+    tensor on its device carrying the graph."""
     cc, cw, full_inverse = _process_component_inversion_args(cc, cw)
 
     if full_inverse:
         if isinstance(Tx, torch.Tensor):
-            x = Tx.real.sum(dim=-2).cpu().numpy()
+            x = numpy_unless_grad(Tx.real.sum(dim=-2))
         else:
             x = np.asarray(Tx).real.sum(axis=-2)
     else:

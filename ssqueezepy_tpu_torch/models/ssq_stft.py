@@ -39,7 +39,7 @@ from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
 from ..ops.stft_conv import conv_bank, conv_table
 from ..ops.stft_cuda import fsst2_conv, fsst2_w, stft_conv
 from ..utils.common import (WARN, EPS32, EPS64, check_batch,
-                            resolve_device)
+                            numpy_unless_grad, resolve_device)
 from ..utils.cwt_utils import _process_fs_and_t, infer_scaletype
 from .ssq_cwt import (_invert_components, _process_component_inversion_args,
                       _spec_key)
@@ -189,7 +189,9 @@ def issq_stft(Tx, window=None, cc=None, cw=None, n_fft=None, win_len=None,
     """Inverse synchrosqueezed STFT:
     ``x = Re(sum(Tx, axis=0)) * 2 / window[n_fft // 2]``, or per component
     with `cc`, `cw` (as `issq_cwt`). `Tx` a complex tensor (reduced on its
-    device) or numpy array; returns numpy."""
+    device) or numpy array; returns numpy, or for the full inversion of
+    a tensor that requires grad a tensor on its device carrying the
+    graph."""
     if not modulated:
         raise ValueError("inversion with `modulated == False` is "
                          "unsupported.")
@@ -206,7 +208,7 @@ def issq_stft(Tx, window=None, cc=None, cw=None, n_fft=None, win_len=None,
     if not full_inverse:
         x = _invert_components(Tx, cc, cw)
     elif isinstance(Tx, torch.Tensor):
-        x = Tx.real.sum(dim=0).cpu().numpy()
+        x = numpy_unless_grad(Tx.real.sum(dim=0))
     else:
         x = np.asarray(Tx).real.sum(axis=0)
     return x * (2 / window[len(window) // 2])

@@ -6,7 +6,11 @@ one FFT of the padded signal and, per row, the inverse DFT of the
 product with that row's window table: on a CUDA device the hand-written
 table kernel (`ops/stft_cuda.py`), with ``device='cpu'`` its plain
 version. At hop > 1 it takes the framed path (frames -> window ->
-`torch.fft.rfft`), which the JAX package left to XLA. A (B, N) batch
+`torch.fft.rfft`), which the JAX package left to XLA: the windowed frames
+are one contiguous (..., n_segs, n_fft) tensor, transformed along their
+last axis and returned transposed, (..., n_fft//2 + 1, n_segs), so that
+each frame is transformed as in a one-signal call, whatever the batch
+and the CPU's thread count. A (B, N) batch
 runs as one call: the table kernel over its B spectra, or the framed
 path over its B signals. At hop 1 the transform length is checked
 against the table kernel's rule (`ops/stft_cuda.py::stft_length_rule`)
@@ -21,11 +25,11 @@ import torch
 
 from ..configs import default_dtype
 from ..ops.fft import fft, irfft, fftshift, ifftshift, next_fft_len
-from ..ops.framing import buffer, overlap_add, window_norm
+from ..ops.framing import frame_rows, overlap_add, window_norm
 from ..ops.pad import padsignal
 from ..ops.stft_conv import conv_table
 from ..ops.stft_cuda import stft_conv, stft_length_rule
-from ..utils.common import check_batch, resolve_device
+from ..utils.common import check_batch, numpy_unless_grad, resolve_device
 from ..utils.cwt_utils import _process_fs_and_t
 from .windows import get_window, _check_NOLA
 
@@ -83,13 +87,14 @@ def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
         Sx, dSx = stft_conv(xh, H, Hd, N, float(fs_))
     else:
         xp = padsignal(xt, padtype, padlength=N + n_fft - 1)
-        frames = buffer(xp, n_fft, n_fft - int(hop_len), modulated)
+        frames = frame_rows(xp, n_fft, int(hop_len), modulated)
 
         def dft(win):
             w = torch.as_tensor(win, device=device)
             if modulated:
                 w = ifftshift(w)
-            return torch.fft.rfft(frames * w.reshape(-1, 1), dim=-2)
+            return torch.fft.rfft((frames * w).contiguous(),
+                                  dim=-1).transpose(-1, -2)
 
         Sx = dft(window)
         dSx = dft(diff_window) * fs_ if derivative else None
@@ -115,7 +120,8 @@ def istft(Sx, window=None, n_fft=None, win_len=None, hop_len=1, N=None,
           modulated=True, win_exp=1):
     """Inverse STFT by least-squares overlap-add. `Sx` (n_rows, n_segs)
     or a batch (B, n_rows, n_segs), a complex tensor (inverted on its
-    device) or numpy array; returns numpy (N,) or (B, N)."""
+    device) or numpy array; returns numpy (N,) or (B, N), or for a tensor
+    that requires grad a tensor on its device carrying the graph."""
     if not isinstance(Sx, torch.Tensor):
         Sx = torch.as_tensor(np.asarray(Sx))
     n_fft = int(n_fft or (Sx.shape[-2] - 1) * 2)
@@ -134,4 +140,4 @@ def istft(Sx, window=None, n_fft=None, win_len=None, hop_len=1, N=None,
     if modulated:
         xbuf = fftshift(xbuf, axes=-2)
     x = overlap_add(xbuf * w, int(hop_len), full) / wn
-    return x[..., lo:hi].cpu().numpy()
+    return numpy_unless_grad(x[..., lo:hi])

@@ -42,7 +42,15 @@ either engine for the mode's planes, one column per block at most
 `_SMEM_MAX` bytes (beyond it raises naming C1b).
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
-version for CPU tensors. `cwt_bins.launches`, `cwt_bins2.launches` and
+version for CPU tensors. Where autograd records and xh or the scales
+require grad, it runs the same launch through its `torch.autograd.Function`
+(`CwtBinsGrad`, `CwtFusedGrad`, `CwtBins2Grad`, `CwtW2Grad`; base
+`ops/adjoint.py::Adjoint`), the counterparts of the JAX package's
+`_cwt_fused_vjp_fn`, `_cwt_fused_bins_vjp_fn`,
+`_cwt_fused_bins_direct_vjp_fn` and `_cwt_fused_bins2_direct_vjp_fn`:
+the backward is the gradient of the plain formulation of the
+differentiable outputs (torch ops on the tensors' device), the bins
+carry none. `cwt_bins.launches`, `cwt_bins2.launches` and
 `cwt_w2.launches` (one signal), `cwt_bins.batched_launches`,
 `cwt_bins2.batched_launches` and `cwt_w2.batched_launches` (a batch),
 and `cwt_fused.launches` count calls of the C entry point on the
@@ -62,13 +70,15 @@ import torch
 from ..models.wavelets import _xifn
 from ..utils.common import not_ported
 from . import _build
+from .adjoint import Adjoint, needs_grad
 from .fft import ifft
 from .phase import cdiv, cmul, div_tiny
 
 __all__ = ['cwt_bins', 'cwt_bins_plain', 'cwt_fused', 'cwt_fused_plain',
            'cwt_bins2', 'cwt_bins2_plain', 'cwt_w2', 'wsst2_rows',
            'wavelet_table', 'four_step', 'bins_plan', 'cwt_length_rule',
-           'smem_index', 'swz']
+           'smem_index', 'swz', 'CwtBinsGrad', 'CwtFusedGrad',
+           'CwtBins2Grad', 'CwtW2Grad']
 
 _MODES = {'lin': 0, 'log': 1, 'log-piecewise': 2}
 # stage-1 scratch held at once (all planes); rows are chunked beyond it
@@ -354,20 +364,46 @@ def cwt_bins(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params, gamma,
     read in place of the memo's; the order-0 GMW is synthesized anyway."""
     _check(xh, scales, n_up, n1, N, _PLANES[_OUT_BINS], batched=True,
            table=table)
-    if xh.device.type == 'cpu':
-        return cwt_bins_plain(xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
-                              params, gamma, flipud, table)
-    if xh.device.type != 'cuda':
-        raise RuntimeError("cwt_bins runs on CUDA or CPU tensors (got %s)"
-                           % xh.device)
-    shape = xh.shape[:-1] + (scales.shape[0], N)
-    Wx = torch.empty(shape, dtype=xh.dtype, device=xh.device)
-    k = torch.empty(shape, dtype=torch.int32, device=xh.device)
-    _launch(cwt_bins, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
-            _OUT_BINS, Wx, k, params, gamma, flipud,
-            counter='batched_launches' if xh.dim() == 2 else 'launches',
-            table=table)
-    return Wx, k
+
+    def run(xh, scales):
+        if xh.device.type == 'cpu':
+            return cwt_bins_plain(xh, scales, wavelet, n_up, n1, N, dt,
+                                  l1_norm, params, gamma, flipud, table)
+        if xh.device.type != 'cuda':
+            raise RuntimeError("cwt_bins runs on CUDA or CPU tensors (got "
+                               "%s)" % xh.device)
+        shape = xh.shape[:-1] + (scales.shape[0], N)
+        Wx = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+        k = torch.empty(shape, dtype=torch.int32, device=xh.device)
+        _launch(cwt_bins, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
+                _OUT_BINS, Wx, k, params, gamma, flipud,
+                counter='batched_launches' if xh.dim() == 2 else 'launches',
+                table=table)
+        return Wx, k
+
+    if not needs_grad(xh, scales):
+        return run(xh, scales)
+
+    def vjp(xh, scales):
+        return _wx_plain(xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
+                         table), None
+    return CwtBinsGrad.apply(run, vjp, xh, scales)
+
+
+class CwtBinsGrad(Adjoint):
+    """`cwt_bins` (B1, B3b) under autograd: (Wx, k), k carrying no
+    gradient. Backward: the gradient of the Wx-only plain CWT
+    (`cwt_fused_plain(derivative=False)`) in Wx's cotangent, with respect
+    to xh and the scales; the phase transform and the bins are never
+    recomputed (JAX: `_cwt_fused_bins_vjp_fn`,
+    `_cwt_fused_bins_direct_vjp_fn`)."""
+
+
+def _wx_plain(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, table):
+    """Wx alone, by the plain version of the plain mode (B3, one plane):
+    the formulation the bins and order-2 modes differentiate."""
+    return cwt_fused_plain(xh, scales, wavelet, n_up, n1, N, dt, False,
+                           l1_norm, table)[0]
 
 
 _COUNTERS = ('launches', 'mixed_launches', 'batched_launches',
@@ -468,18 +504,33 @@ def cwt_fused(xh, scales, wavelet, n_up, n1, N, dt, derivative, l1_norm,
     _check(xh, scales, n_up, n1, N,
            _PLANES[_OUT_W_DW if derivative else _OUT_W], batched=True,
            table=table)
-    if xh.device.type == 'cpu':
+
+    def plain(xh, scales):
         return cwt_fused_plain(xh, scales, wavelet, n_up, n1, N, dt,
                                derivative, l1_norm, table)
-    if xh.device.type != 'cuda':
-        raise RuntimeError("cwt_fused runs on CUDA or CPU tensors (got %s)"
-                           % xh.device)
-    shape = xh.shape[:-1] + (scales.shape[0], N)
-    Wx = torch.empty(shape, dtype=xh.dtype, device=xh.device)
-    dWx = torch.empty_like(Wx) if derivative else None
-    _launch(cwt_fused, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
-            _OUT_W_DW if derivative else _OUT_W, Wx, dWx, table=table)
-    return Wx, dWx
+
+    def run(xh, scales):
+        if xh.device.type == 'cpu':
+            return plain(xh, scales)
+        if xh.device.type != 'cuda':
+            raise RuntimeError("cwt_fused runs on CUDA or CPU tensors (got "
+                               "%s)" % xh.device)
+        shape = xh.shape[:-1] + (scales.shape[0], N)
+        Wx = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+        dWx = torch.empty_like(Wx) if derivative else None
+        _launch(cwt_fused, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
+                _OUT_W_DW if derivative else _OUT_W, Wx, dWx, table=table)
+        return Wx, dWx
+
+    if not needs_grad(xh, scales):
+        return run(xh, scales)
+    return CwtFusedGrad.apply(run, plain, xh, scales)
+
+
+class CwtFusedGrad(Adjoint):
+    """`cwt_fused` (B3) under autograd: (Wx, dWx or None). Backward: the
+    gradient of `cwt_fused_plain` (Wx, or Wx and dWx) with respect to xh
+    and the scales (JAX: `_cwt_fused_vjp_fn`)."""
 
 
 _zero_counters(cwt_fused, _COUNTERS[:2])
@@ -541,20 +592,39 @@ def cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params, gamma, flipud,
     three-plane one (`wavelet_table(..., order2=True)`)."""
     _check(xh, scales, n_up, n1, N, _PLANES[_OUT_BINS2], batched=True,
            table=table)
-    if xh.device.type == 'cpu':
-        return cwt_bins2_plain(xh, scales, wavelet, n_up, n1, N, dt,
-                               params, gamma, flipud, table)
-    if xh.device.type != 'cuda':
-        raise RuntimeError("cwt_bins2 runs on CUDA or CPU tensors (got %s)"
-                           % xh.device)
-    shape = xh.shape[:-1] + (scales.shape[0], N)
-    W = torch.empty(shape, dtype=xh.dtype, device=xh.device)
-    k = torch.empty(shape, dtype=torch.int32, device=xh.device)
-    _launch(cwt_bins2, xh, scales, wavelet, n_up, n1, N, dt, True,
-            _OUT_BINS2, W, k, params, gamma, flipud,
-            counter='batched_launches' if xh.dim() == 2 else 'launches',
-            table=table)
-    return W, k
+
+    def run(xh, scales):
+        if xh.device.type == 'cpu':
+            return cwt_bins2_plain(xh, scales, wavelet, n_up, n1, N, dt,
+                                   params, gamma, flipud, table)
+        if xh.device.type != 'cuda':
+            raise RuntimeError("cwt_bins2 runs on CUDA or CPU tensors (got "
+                               "%s)" % xh.device)
+        shape = xh.shape[:-1] + (scales.shape[0], N)
+        W = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+        k = torch.empty(shape, dtype=torch.int32, device=xh.device)
+        _launch(cwt_bins2, xh, scales, wavelet, n_up, n1, N, dt, True,
+                _OUT_BINS2, W, k, params, gamma, flipud,
+                counter='batched_launches' if xh.dim() == 2 else 'launches',
+                table=table)
+        return W, k
+
+    if not needs_grad(xh, scales):
+        return run(xh, scales)
+
+    def vjp(xh, scales):
+        return _wx_plain(xh, scales, wavelet, n_up, n1, N, dt, True,
+                         None if table is None else table[0]), None
+    return CwtBins2Grad.apply(run, vjp, xh, scales)
+
+
+class CwtBins2Grad(Adjoint):
+    """`cwt_bins2` (B8) under autograd: (W, k), k carrying no gradient.
+    Backward: the gradient of the W-only plain CWT (L1,
+    `cwt_fused_plain(derivative=False)`, the first plane of `wsst2_rows`)
+    in W's cotangent, with respect to xh and the scales; the four
+    auxiliary transforms and the bins are never recomputed (JAX:
+    `_cwt_fused_bins2_direct_vjp_fn`)."""
 
 
 _zero_counters(cwt_bins2)
@@ -568,18 +638,33 @@ def cwt_w2(xh, scales, wavelet, n_up, n1, N, dt, gamma):
     or where |W|^2 <= gamma^2 (the plane whose bins `cwt_bins2` returns:
     B8's w2 output mode). Plain version: `wsst2_rows`."""
     _check(xh, scales, n_up, n1, N, _PLANES[_OUT_W2], batched=True)
-    if xh.device.type == 'cpu':
+
+    def plain(xh, scales):
         return wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma)
-    if xh.device.type != 'cuda':
-        raise RuntimeError("cwt_w2 runs on CUDA or CPU tensors (got %s)"
-                           % xh.device)
-    shape = xh.shape[:-1] + (scales.shape[0], N)
-    W = torch.empty(shape, dtype=xh.dtype, device=xh.device)
-    w2 = torch.empty(shape, dtype=scales.dtype, device=xh.device)
-    _launch(cwt_w2, xh, scales, wavelet, n_up, n1, N, dt, True, _OUT_W2, W,
-            w2, gamma=gamma,
-            counter='batched_launches' if xh.dim() == 2 else 'launches')
-    return W, w2
+
+    def run(xh, scales):
+        if xh.device.type == 'cpu':
+            return plain(xh, scales)
+        if xh.device.type != 'cuda':
+            raise RuntimeError("cwt_w2 runs on CUDA or CPU tensors (got %s)"
+                               % xh.device)
+        shape = xh.shape[:-1] + (scales.shape[0], N)
+        W = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+        w2 = torch.empty(shape, dtype=scales.dtype, device=xh.device)
+        _launch(cwt_w2, xh, scales, wavelet, n_up, n1, N, dt, True, _OUT_W2,
+                W, w2, gamma=gamma,
+                counter='batched_launches' if xh.dim() == 2 else 'launches')
+        return W, w2
+
+    if not needs_grad(xh, scales):
+        return run(xh, scales)
+    return CwtW2Grad.apply(run, plain, xh, scales)
+
+
+class CwtW2Grad(Adjoint):
+    """`cwt_w2` (B8's w2 mode) under autograd: (W, w2). Backward: the
+    gradient of `wsst2_rows` in both outputs (the JAX package's `get_w`
+    differentiates its XLA twin `_wsst2_rows`)."""
 
 
 _zero_counters(cwt_w2)

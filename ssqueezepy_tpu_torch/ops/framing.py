@@ -2,14 +2,16 @@
 """Signal framing and overlap-add for the framed STFT and its inverse.
 
 Counterpart of `buffer`, the overlap-add of `istft` and `window_norm` in
-`ssqueezepy_tpu/ops/framing.py`. Frames are `Tensor.unfold` views; the
+`ssqueezepy_tpu/ops/framing.py`. Frames are `Tensor.unfold` views, one
+frame per row (`frame_rows`; `buffer` is their transpose); the
 overlap-add is `torch.nn.functional.fold`, which gathers per output
 sample (no atomics, so it is deterministic on the card).
 """
 import numpy as np
 import torch
 
-__all__ = ['buffer', 'overlap_add', 'window_norm', 'mod_roll_amount']
+__all__ = ['frame_rows', 'buffer', 'overlap_add', 'window_norm',
+           'mod_roll_amount']
 
 
 def mod_roll_amount(seg_len):
@@ -19,15 +21,23 @@ def mod_roll_amount(seg_len):
     return s20 - 1 if seg_len % 2 == 1 else s20
 
 
+def frame_rows(x, seg_len, hop_len, modulated=False):
+    """Successive length-`seg_len` slices of `x` along its last axis,
+    `hop_len` apart, as rows: 1-D (L,) -> (n_segs, seg_len); 2-D (B, L)
+    -> (B, n_segs, seg_len). A view of `x`; `modulated` rolls each frame
+    left by s21 (`mod_roll_amount`) into a new tensor."""
+    out = x.unfold(-1, seg_len, hop_len)
+    if modulated:
+        out = torch.roll(out, -mod_roll_amount(seg_len), dims=-1)
+    return out
+
+
 def buffer(x, seg_len, n_overlap, modulated=False):
     """Successive length-`seg_len` slices of `x` along its last axis,
     overlapping by `n_overlap`, as columns: 1-D (L,) -> (seg_len,
     n_segs); 2-D (B, L) -> (B, seg_len, n_segs)."""
-    hop_len = seg_len - n_overlap
-    out = x.unfold(-1, seg_len, hop_len).transpose(-1, -2)
-    if modulated:
-        out = torch.roll(out, -mod_roll_amount(seg_len), dims=-2)
-    return out
+    return frame_rows(x, seg_len, seg_len - n_overlap,
+                      modulated).transpose(-1, -2)
 
 
 def overlap_add(frames, hop_len, out_len):

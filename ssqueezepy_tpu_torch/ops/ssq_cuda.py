@@ -31,7 +31,14 @@ the source). All three feed the rows through a ring of asynchronous
 copies laid out by `scatter_plan`.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version for CPU tensors; `scatter_kv.launches`, `ssq_fused.launches` and
+version for CPU tensors. Where autograd records and a floating input
+requires grad, it runs the same launch through its
+`torch.autograd.Function` (`ScatterKvGrad`, `SsqFusedGrad`,
+`ShiftScatterGrad`; base `ops/adjoint.py::Adjoint`), the counterparts of
+the JAX package's `_scatter_kv_vjp_fn`, `_ssq_fused_vjp_fn` and
+`_scatter_vjp_fn`: the backward is the gradient of the plain version
+(torch ops on the tensors' device), the adjoint gather of the forward's
+bins; `scatter_kv.launches`, `ssq_fused.launches` and
 `shift_scatter.launches` count kernel launches. `scatter_rule` bounds
 the bins of all three (one column's accumulator in shared memory),
 checked on every device by each wrapper and by the synchrosqueezing
@@ -45,13 +52,15 @@ import torch
 
 from ..utils.common import not_ported
 from . import _build
+from .adjoint import Adjoint, needs_grad
 from .cwt_cuda import _MODES, _bin_args
 from .phase import phase_transform_w
 from .ssq_kernels import compute_bins, scatter_plain
 
 __all__ = ['scatter_kv', 'scatter_kv_plain', 'ssq_fused', 'ssq_fused_plain',
            'shift_scatter', 'shift_scatter_plain', 'scatter_plan',
-           'scatter_launch_plan', 'scatter_rule']
+           'scatter_launch_plan', 'scatter_rule', 'ScatterKvGrad',
+           'SsqFusedGrad', 'ShiftScatterGrad']
 
 _SMEM_BUDGET = 200 * 1024
 _MAX_BATCH = 65535
@@ -199,6 +208,14 @@ def scatter_kv(Wx, k, const, nbins):
     if k.dtype != torch.int32:
         raise TypeError("k must be int32 (got %s)" % k.dtype)
     scatter_rule(nbins, Wx.element_size())
+    if not needs_grad(Wx, const):
+        return _scatter_kv_run(Wx, k, const, nbins)
+    return ScatterKvGrad.apply(
+        lambda *a: (_scatter_kv_run(*a, nbins),),
+        lambda *a: (scatter_kv_plain(*a, nbins),), Wx, k, const)[0]
+
+
+def _scatter_kv_run(Wx, k, const, nbins):
     if Wx.device.type == 'cpu':
         return scatter_kv_plain(Wx, k, const, nbins)
     _on_card(Wx, 'scatter_kv')
@@ -216,6 +233,12 @@ def scatter_kv(Wx, k, const, nbins):
     _build.check(err, 'scatter_kv')
     scatter_kv.launches += 1
     return Tx
+
+
+class ScatterKvGrad(Adjoint):
+    """`scatter_kv` (B2) under autograd. Backward: the gradient of
+    `scatter_kv_plain` with respect to Wx and const, the adjoint gather
+    on the forward's own k (JAX: `_scatter_kv_vjp_fn`)."""
 
 
 scatter_kv.launches = 0
@@ -245,8 +268,34 @@ def ssq_fused(Wx, dWx, const, params, gamma, flipud, Sfs=None):
                          "real type on its device")
     nbins = params['omax'] + 1
     scatter_rule(nbins, Wx.element_size())
-    if Wx.device.type == 'cpu':
-        return ssq_fused_plain(Wx, dWx, const, params, gamma, flipud, Sfs)
+
+    def plain(Wx, dWx, const, Sfs):
+        return (ssq_fused_plain(Wx, dWx, const, params, gamma, flipud,
+                                Sfs),)
+
+    def run(Wx, dWx, const, Sfs):
+        if Wx.device.type == 'cpu':
+            return plain(Wx, dWx, const, Sfs)
+        return (_ssq_fused_launch(Wx, dWx, const, params, gamma, flipud,
+                                  Sfs),)
+
+    if not needs_grad(Wx, dWx, const, Sfs):
+        return run(Wx, dWx, const, Sfs)[0]
+    return SsqFusedGrad.apply(run, plain, Wx, dWx, const, Sfs)[0]
+
+
+class SsqFusedGrad(Adjoint):
+    """`ssq_fused` (B4) under autograd. Backward: the gradient of
+    `ssq_fused_plain` with respect to Wx, dWx, const (and Sfs): the
+    adjoint gather on bins that the plain bin map recomputes, as the JAX
+    package's `xla_ref` does (`_ssq_fused_vjp_fn`), so a cell whose bin
+    the kernel placed across a boundary (<= 1% of cells in float32 on
+    white noise) reads its neighbour's cotangent; dWx enters only through
+    the bins and gets no gradient."""
+
+
+def _ssq_fused_launch(Wx, dWx, const, params, gamma, flipud, Sfs):
+    nbins = params['omax'] + 1
     _on_card(Wx, 'ssq_fused')
     lib = _build.load('scatter_kv')
     na, N = Wx.shape[-2:]
@@ -300,6 +349,24 @@ def shift_scatter(v, k, valid, nbins, const=None):
         if valid.device != v.device or not valid.is_contiguous():
             raise ValueError("valid must be contiguous, on v's device")
     scatter_rule(nbins, v.element_size())
+    if not needs_grad(v, const):
+        return _shift_scatter_run(v, k, valid, nbins, const)
+    return ShiftScatterGrad.apply(
+        lambda v, k, valid, const: (
+            _shift_scatter_run(v, k, valid, nbins, const),),
+        lambda v, k, valid, const: (
+            shift_scatter_plain(v, k, valid, nbins, const),),
+        v, k, valid, const)[0]
+
+
+class ShiftScatterGrad(Adjoint):
+    """`shift_scatter` (B5) under autograd. Backward: the gradient of
+    `shift_scatter_plain` with respect to v (and const where given), the
+    adjoint gather on the forward's own wrapped bins and mask (JAX:
+    `_scatter_vjp_fn`)."""
+
+
+def _shift_scatter_run(v, k, valid, nbins, const):
     if v.device.type == 'cpu':
         return shift_scatter_plain(v, k, valid, nbins, const)
     _on_card(v, 'shift_scatter')

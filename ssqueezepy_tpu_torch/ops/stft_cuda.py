@@ -30,9 +30,17 @@ transform length, checked on every device (by each wrapper, and by the
 models before the signal's FFT).
 
 `stft_conv`, `fsst2_conv` and `fsst2_w` launch the kernel for CUDA
-tensors and run their plain versions for CPU tensors. A batch runs as
-B * n_rows rows of one launch pair per chunk, each row bit-identical to
-its signal run alone. `stft_conv.launches`, `fsst2_conv.launches` and
+tensors and run their plain versions for CPU tensors. Where autograd
+records and xh (or a table) requires grad, each runs the same launch
+through its `torch.autograd.Function` (`StftConvGrad`, `Fsst2ConvGrad`,
+`Fsst2WGrad`; base `ops/adjoint.py::Adjoint`), whose backward is the
+gradient of the plain formulation of the floating outputs (torch ops on
+the tensors' device; the bins carry none). The JAX package defines no
+VJP for its STFT kernels and differentiates its STFT on the XLA path;
+these keep one rule on every device: the CPU path differentiates the
+plain versions, the card the same formulation around its kernel. A batch
+runs as B * n_rows rows of one launch pair per chunk, each row
+bit-identical to its signal run alone. `stft_conv.launches`, `fsst2_conv.launches` and
 `fsst2_w.launches` (one signal), and the same wrappers'
 `batched_launches` (a batch) count calls of the C entry point (one per
 chunk of rows); each issues two CUDA launches.
@@ -45,11 +53,13 @@ import torch
 
 from ..utils.common import not_ported
 from . import _build
+from .adjoint import Adjoint, needs_grad
 from .phase import cdiv, cmul, div_tiny
 
 __all__ = ['stft_conv', 'stft_conv_plain', 'fsst2_conv', 'fsst2_conv_plain',
            'fsst2_w', 'fsst2_rows', 'split_fft_len', 'launch_plan',
-           'stft_length_rule', 'radices']
+           'stft_length_rule', 'radices', 'StftConvGrad', 'Fsst2ConvGrad',
+           'Fsst2WGrad']
 
 _TWO_PI = 6.283185307179586
 _MODE_SX, _MODE_SX_DSX, _MODE_BINS, _MODE_FSST2, _MODE_FSST2_W = range(5)
@@ -246,22 +256,40 @@ def stft_conv(xh, H, Hd, N, fs=1., bins=None):
     `gamma` and `flipud`. Returns (Sx, dSx), (Sx, k) or (Sx, None), each
     (n_rows, N) or (B, n_rows, N)."""
     _check(xh, H, Hd, N, bins)
-    if xh.device.type == 'cpu':
-        return stft_conv_plain(xh, H, Hd, N, fs, bins)
-    if xh.device.type != 'cuda':
-        raise RuntimeError("stft_conv runs on CUDA or CPU tensors (got %s)"
-                           % xh.device)
-    mode = (_MODE_SX if Hd is None else
-            _MODE_SX_DSX if bins is None else _MODE_BINS)
-    shape, dev = xh.shape[:-1] + (H.shape[0], N), xh.device
-    Sx = torch.empty(shape, dtype=xh.dtype, device=dev)
-    out2 = None
-    if mode == _MODE_SX_DSX:
-        out2 = torch.empty(shape, dtype=xh.dtype, device=dev)
-    elif mode == _MODE_BINS:
-        out2 = torch.empty(shape, dtype=torch.int32, device=dev)
-    _launch(stft_conv, mode, xh, H, Hd, N, fs, bins, Sx, out2)
-    return Sx, out2
+
+    def run(xh, H, Hd):
+        if xh.device.type == 'cpu':
+            return stft_conv_plain(xh, H, Hd, N, fs, bins)
+        if xh.device.type != 'cuda':
+            raise RuntimeError("stft_conv runs on CUDA or CPU tensors (got "
+                               "%s)" % xh.device)
+        mode = (_MODE_SX if Hd is None else
+                _MODE_SX_DSX if bins is None else _MODE_BINS)
+        shape, dev = xh.shape[:-1] + (H.shape[0], N), xh.device
+        Sx = torch.empty(shape, dtype=xh.dtype, device=dev)
+        out2 = None
+        if mode == _MODE_SX_DSX:
+            out2 = torch.empty(shape, dtype=xh.dtype, device=dev)
+        elif mode == _MODE_BINS:
+            out2 = torch.empty(shape, dtype=torch.int32, device=dev)
+        _launch(stft_conv, mode, xh, H, Hd, N, fs, bins, Sx, out2)
+        return Sx, out2
+
+    if not needs_grad(xh, H, Hd):
+        return run(xh, H, Hd)
+
+    def vjp(xh, H, Hd):
+        # the bins mode differentiates Sx alone
+        return stft_conv_plain(xh, H, Hd if bins is None else None, N, fs)
+    return StftConvGrad.apply(run, vjp, xh, H, Hd)
+
+
+class StftConvGrad(Adjoint):
+    """`stft_conv` (B6, three modes) under autograd: (Sx, dSx), (Sx, k)
+    or (Sx, None), k carrying no gradient. Backward: the gradient of
+    `stft_conv_plain` (Sx, or Sx and dSx; the bins mode's Sx alone,
+    neither the phase transform nor the bins recomputed) with respect to
+    xh and the tables."""
 
 
 stft_conv.launches = 0
@@ -366,16 +394,34 @@ def fsst2_conv(xh, tables, N, fs, bins):
     V's shape int32 the lin bin of w2, -1 on gamma-gated or non-finite
     cells."""
     _check_bank(xh, tables, N, bins)
-    if xh.device.type == 'cpu':
-        return fsst2_conv_plain(xh, tables, N, fs, bins)
-    if xh.device.type != 'cuda':
-        raise RuntimeError("fsst2_conv runs on CUDA or CPU tensors (got %s)"
-                           % xh.device)
-    shape = xh.shape[:-1] + (tables.shape[1], N)
-    V = torch.empty(shape, dtype=xh.dtype, device=xh.device)
-    k = torch.empty(shape, dtype=torch.int32, device=xh.device)
-    _launch(fsst2_conv, _MODE_FSST2, xh, tables, None, N, fs, bins, V, k)
-    return V, k
+
+    def run(xh, tables):
+        if xh.device.type == 'cpu':
+            return fsst2_conv_plain(xh, tables, N, fs, bins)
+        if xh.device.type != 'cuda':
+            raise RuntimeError("fsst2_conv runs on CUDA or CPU tensors (got "
+                               "%s)" % xh.device)
+        shape = xh.shape[:-1] + (tables.shape[1], N)
+        V = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+        k = torch.empty(shape, dtype=torch.int32, device=xh.device)
+        _launch(fsst2_conv, _MODE_FSST2, xh, tables, None, N, fs, bins, V,
+                k)
+        return V, k
+
+    if not needs_grad(xh, tables):
+        return run(xh, tables)
+
+    def vjp(xh, tables):
+        return stft_conv_plain(xh, tables[0], None, N)[0], None
+    return Fsst2ConvGrad.apply(run, vjp, xh, tables)
+
+
+class Fsst2ConvGrad(Adjoint):
+    """`fsst2_conv` (B7) under autograd: (V, k), k carrying no gradient.
+    Backward: the gradient of V alone, ifft(tables[0] * xh)[..., :N] (the
+    first plane of `fsst2_rows`, by `stft_conv_plain`), with respect to
+    xh and the tables; the four auxiliary transforms and the bins are
+    never recomputed."""
 
 
 fsst2_conv.launches = 0
@@ -392,16 +438,33 @@ def fsst2_w(xh, tables, N, fs, Sfs, gamma):
     `Sfs` (n_rows,) the row frequencies. Plain version: `fsst2_rows`."""
     bins = dict(Sfs=Sfs, gamma=float(gamma), params=_NO_BINS, flipud=False)
     _check_bank(xh, tables, N, bins)
-    if xh.device.type == 'cpu':
+
+    def plain(xh, tables, Sfs):
         return fsst2_rows(xh, tables, N, fs, Sfs, gamma)
-    if xh.device.type != 'cuda':
-        raise RuntimeError("fsst2_w runs on CUDA or CPU tensors (got %s)"
-                           % xh.device)
-    shape = xh.shape[:-1] + (tables.shape[1], N)
-    V = torch.empty(shape, dtype=xh.dtype, device=xh.device)
-    w2 = torch.empty(shape, dtype=Sfs.dtype, device=xh.device)
-    _launch(fsst2_w, _MODE_FSST2_W, xh, tables, None, N, fs, bins, V, w2)
-    return V, w2
+
+    def run(xh, tables, Sfs):
+        if xh.device.type == 'cpu':
+            return plain(xh, tables, Sfs)
+        if xh.device.type != 'cuda':
+            raise RuntimeError("fsst2_w runs on CUDA or CPU tensors (got %s)"
+                               % xh.device)
+        shape = xh.shape[:-1] + (tables.shape[1], N)
+        V = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+        w2 = torch.empty(shape, dtype=Sfs.dtype, device=xh.device)
+        _launch(fsst2_w, _MODE_FSST2_W, xh, tables, None, N, fs, bins, V,
+                w2)
+        return V, w2
+
+    if not needs_grad(xh, tables, Sfs):
+        return run(xh, tables, Sfs)
+    return Fsst2WGrad.apply(run, plain, xh, tables, Sfs)
+
+
+class Fsst2WGrad(Adjoint):
+    """`fsst2_w` (B7's w2 mode) under autograd: (V, w2). Backward: the
+    gradient of `fsst2_rows` in both outputs with respect to xh, the
+    tables and Sfs (the JAX package's `get_w` differentiates its XLA twin
+    `_fsst2_rows`)."""
 
 
 fsst2_w.launches = 0

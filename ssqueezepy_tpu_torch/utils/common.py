@@ -11,7 +11,7 @@ import torch
 
 __all__ = ['WARN', 'NOTE', 'pi', 'EPS32', 'EPS64', 'assert_is_one_of',
            'p2up', 'not_ported', 'check_batch', 'resolve_device',
-           'to_device']
+           'to_device', 'numpy_unless_grad']
 
 _logger = logging.getLogger('ssqueezepy_tpu_torch')
 
@@ -85,3 +85,12 @@ def to_device(x, device):
     if isinstance(x, np.ndarray) and not x.flags.writeable:
         x = x.copy()
     return torch.as_tensor(x, device=device)
+
+
+def numpy_unless_grad(t):
+    """An inverse's result: `t` as numpy on the host, or `t` itself (on
+    its device) where autograd records and it requires grad, so that a
+    loss through the inverse stays differentiable."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return t
+    return t.cpu().numpy()

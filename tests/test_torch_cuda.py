@@ -42,6 +42,10 @@ the bins modes' and the bins of w2 equal to their k; batches and row
 chunks bit-identical to one signal. The radix-4 engine at its largest
 n_up (2^28, 2^26, 2^24 for 1, 2, 5 planes in float32), Wx past 2^31
 elements, and the length rules raising alike on the card and the CPU.
+Each kernel's `torch.autograd.Function`: its forward the kernel's one
+launch, bit-identical to the launch without grad; its backward launching
+nothing and within 1e-5 of max of the gradient through the plain version
+on the card.
 """
 import ctypes
 
@@ -54,7 +58,7 @@ from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
 from ssqueezepy_tpu_torch.models.ssq_cwt import _ssq_cwt_plan
 from ssqueezepy_tpu_torch.models.ssq_stft import stft_plan
 from ssqueezepy_tpu_torch.models.stft import signal_spectrum
-from ssqueezepy_tpu_torch.ops import _build, cwt_cuda
+from ssqueezepy_tpu_torch.ops import _build, cwt_cuda, ssq_cuda, stft_cuda
 from ssqueezepy_tpu_torch.ops.cwt_cuda import (cwt_bins, cwt_bins_plain,
                                                cwt_bins2, cwt_bins2_plain,
                                                cwt_fused, cwt_fused_plain)
@@ -1839,3 +1843,119 @@ def test_public_wavelet_routes_on_card(dev, monkeypatch):
         if not name.startswith('cwt'):
             (_bins2_criterion if 'cwt2' in name else _bins_criterion)(
                 out[0].cpu(), ref[0])
+
+
+# ---- autograd: each kernel's torch.autograd.Function on the card -----------
+def _grad_cases(dev):
+    """name -> (Function, (wrapper, counter), run(*floats), plain(*floats),
+    floats): a kernel wrapper and its plain version as functions of their
+    differentiable inputs, float32 on the card (N = 4000)."""
+    N = 4000
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(N, 'float32', 'log',
+                                                      dev)
+    cw = (wav, n_up, n1, N, 1.)
+    sxh, H, Hd, bins, c6 = _stft_inputs(N, 97, 'float32', dev)
+    bank = conv_bank(fsst2_plan(None, None, 97, 97, 1., 'float32').bank, 97,
+                     sxh.shape[0], True, 'float32', dev)
+    rng = np.random.default_rng(41)
+    na = len(sc)
+    Wx, dWx = (torch.as_tensor(rng.standard_normal((na, N))
+                               + 1j * rng.standard_normal((na, N)),
+                               dtype=torch.complex64, device=dev)
+               for _ in range(2))
+    k = torch.as_tensor(rng.integers(-na, 2 * na, (na, N)).astype(np.int32),
+                        device=dev)
+    valid = torch.as_tensor(rng.random((na, N)) > .2, device=dev)
+    Sfs = bins['Sfs']
+    return {
+        'cwt_bins': (cwt_cuda.CwtBinsGrad, (cwt_bins, 'launches'),
+                     lambda xh, sc: cwt_bins(xh, sc, *cw, True, params,
+                                             gamma, True),
+                     lambda xh, sc: cwt_bins_plain(xh, sc, *cw, True, params,
+                                                   gamma, True), (xh, sc)),
+        'cwt_fused': (cwt_cuda.CwtFusedGrad, (cwt_fused, 'launches'),
+                      lambda xh, sc: cwt_fused(xh, sc, *cw, True, True),
+                      lambda xh, sc: cwt_fused_plain(xh, sc, *cw, True,
+                                                     True), (xh, sc)),
+        'cwt_bins2': (cwt_cuda.CwtBins2Grad, (cwt_bins2, 'launches'),
+                      lambda xh, sc: cwt_bins2(xh, sc, *cw, params, gamma,
+                                               True),
+                      lambda xh, sc: cwt_bins2_plain(xh, sc, *cw, params,
+                                                     gamma, True), (xh, sc)),
+        'cwt_w2': (cwt_cuda.CwtW2Grad, (cwt_cuda.cwt_w2, 'launches'),
+                   lambda xh: cwt_cuda.cwt_w2(xh, sc, *cw, gamma),
+                   lambda xh: cwt_cuda.wsst2_rows(xh, sc, *cw, gamma),
+                   (xh,)),
+        'scatter_kv': (ssq_cuda.ScatterKvGrad, (scatter_kv, 'launches'),
+                       lambda W, c: (scatter_kv(W, k, c, na),),
+                       lambda W, c: (scatter_kv_plain(W, k, c, na),),
+                       (Wx, c)),
+        'ssq_fused': (ssq_cuda.SsqFusedGrad, (ssq_fused, 'launches'),
+                      lambda W, dW, c: (ssq_fused(W, dW, c, params, gamma,
+                                                  True),),
+                      lambda W, dW, c: (ssq_fused_plain(W, dW, c, params,
+                                                        gamma, True),),
+                      (Wx, dWx, c)),
+        'shift_scatter': (ssq_cuda.ShiftScatterGrad,
+                          (shift_scatter, 'launches'),
+                          lambda v, c: (shift_scatter(v, k, valid, na, c),),
+                          lambda v, c: (shift_scatter_plain(v, k, valid, na,
+                                                            c),), (Wx, c)),
+        'stft_conv': (stft_cuda.StftConvGrad, (stft_conv, 'launches'),
+                      lambda xh: stft_conv(xh, H, Hd, N, 1., bins),
+                      lambda xh: stft_conv_plain(xh, H, Hd, N, 1., bins),
+                      (sxh,)),
+        'fsst2_conv': (stft_cuda.Fsst2ConvGrad, (fsst2_conv, 'launches'),
+                       lambda xh: fsst2_conv(xh, bank, N, 1., bins),
+                       lambda xh: fsst2_conv_plain(xh, bank, N, 1., bins),
+                       (sxh,)),
+        'fsst2_w': (stft_cuda.Fsst2WGrad, (stft_cuda.fsst2_w, 'launches'),
+                    lambda xh: stft_cuda.fsst2_w(xh, bank, N, 1., Sfs,
+                                                 gamma),
+                    lambda xh: stft_cuda.fsst2_rows(xh, bank, N, 1., Sfs,
+                                                    gamma), (sxh,)),
+    }
+
+
+GRAD_CASES = ['cwt_bins', 'cwt_fused', 'cwt_bins2', 'cwt_w2', 'scatter_kv',
+              'ssq_fused', 'shift_scatter', 'stft_conv', 'fsst2_conv',
+              'fsst2_w']
+
+
+@pytest.mark.parametrize('name', GRAD_CASES)
+def test_function_grad_on_card(dev, name):
+    """Each Function on the card: its forward is the kernel's launch
+    (counted once, outputs bit-identical to the launch without grad), its
+    backward launches nothing and equals the gradient through the plain
+    version (autograd through torch ops on the card) of a random linear
+    functional of the floating outputs (zero on w2's inf cells), within
+    1e-5 of max."""
+    Fn, (wrapper, counter), run, plain, floats = _grad_cases(dev)[name]
+    ref = run(*floats)
+    assert all(o is None or o.grad_fn is None for o in ref)
+    ins = [t.clone().requires_grad_() for t in floats]
+    setattr(wrapper, counter, 0)
+    outs = run(*ins)
+    torch.cuda.synchronize()
+    assert getattr(wrapper, counter) == 1
+    assert isinstance(outs[0].grad_fn, Fn._backward_cls)
+    for o, r in zip(outs, ref):
+        assert (o is None and r is None) or torch.equal(o.detach(), r)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    floating = [o for o in outs if o is not None
+                and (o.is_complex() or o.is_floating_point())]
+    vs = [torch.where(torch.isfinite(o), torch.randn(
+        o.shape, dtype=o.dtype, device=dev, generator=gen), 0).detach()
+        for o in floating]
+    g_k = torch.autograd.grad(floating, ins, vs, allow_unused=True)
+    torch.cuda.synchronize()
+    assert getattr(wrapper, counter) == 1
+    ins_p = [t.clone().requires_grad_() for t in floats]
+    outs_p = [o for o in plain(*ins_p) if o is not None
+              and (o.is_complex() or o.is_floating_point())]
+    g_p = torch.autograd.grad(outs_p, ins_p, vs, allow_unused=True)
+    for a, b in zip(g_k, g_p):
+        if b is None or not b.abs().max():
+            assert a is None or not a.abs().max()
+        else:
+            assert _rel_err(a, b) <= 1e-5, _rel_err(a, b)

@@ -11,7 +11,7 @@ the CPU:
   * batched `ssq_stft2` and `ssq_cwt2` in both dtypes;
   * every batched row against the port's own one-signal call on that
     row (bit for bit: the plain versions run each row's arithmetic as a
-    one-signal call does);
+    one-signal call does), with the CPU's thread count at 1 and at 4;
   * `stft_conv_plain`, `fsst2_conv_plain` and `cwt_bins2_plain` on a
     batch against a loop over its rows;
   * `get_w` on a batch raising as in the JAX package, and the wrappers
@@ -87,12 +87,23 @@ def _bins2_criterion(Tx_t, Tx_j):
     assert abs(e_t - e_j) / e_j < 0.02
 
 
-def _rows_equal(batched, one_signal):
-    """Each row of the batched outputs bit-equal to `one_signal(b)`'s."""
-    for b in range(B):
-        for o_b, o_1 in zip(batched, one_signal(b)):
-            assert o_b[b].shape == o_1.shape
-            assert torch.equal(o_b[b], o_1)
+def _rows_equal(batched, one_signal, threads=(1, 4)):
+    """Each row of the batched outputs `batched()` bit-equal to
+    `one_signal(b)`'s, both computed with the CPU's thread count set to
+    each of `threads` in turn (the count is restored afterwards): a row
+    may not depend on the batch it rides in, nor on how the CPU splits
+    the work."""
+    before = torch.get_num_threads()
+    try:
+        for n in threads:
+            torch.set_num_threads(n)
+            outs = batched()
+            for b in range(B):
+                for o_b, o_1 in zip(outs, one_signal(b)):
+                    assert o_b[b].shape == o_1.shape
+                    assert torch.equal(o_b[b], o_1), (n, b)
+    finally:
+        torch.set_num_threads(before)
 
 
 # ---- stft ------------------------------------------------------------------
@@ -113,9 +124,11 @@ def test_batched_stft_vs_jax(hop, modulated, derivative):
             assert o_t.dtype == (torch.complex64 if dtype == 'float32'
                                  else torch.complex128)
             assert _rel(o_t, o_j) <= TOL[dtype]
-        _rows_equal(out_t, lambda b: (
-            tstq.stft(x[b], device='cpu', **kw),) if not derivative
-            else tstq.stft(x[b], device='cpu', **kw))
+
+        def call(sig):
+            out = tstq.stft(sig, device='cpu', **kw)
+            return out if derivative else (out,)
+        _rows_equal(lambda: call(x), lambda b: call(x[b]))
 
 
 def test_batched_stft_istft_round_trip():
@@ -179,9 +192,9 @@ def test_batched_ssq_stft_rows_equal_one_signal(hop, squeezing, get_dWx):
     x = _batch('float32', seed=3)
     kw = dict(n_fft=N_FFT, hop_len=hop, squeezing=squeezing,
               get_dWx=get_dWx, device='cpu')
-    out = tstq.ssq_stft(x, **kw)
     planes = (0, 1, 4) if get_dWx else (0, 1)
-    _rows_equal([out[i] for i in planes], lambda b: [
+    _rows_equal(lambda: [tstq.ssq_stft(x, **kw)[i] for i in planes],
+                lambda b: [
         tstq.ssq_stft(x[b], **kw)[i] for i in planes])
 
 
@@ -199,9 +212,9 @@ def test_batched_ssq_stft2_vs_jax(dtype, squeezing):
     assert np.array_equal(fr_t, fr_j) and np.array_equal(Sfs_t, Sfs_j)
     assert _rel(V_t, V_j) <= TOL[dtype]
     _bins2_criterion(Tx_t, Tx_j)
-    out = tstq.ssq_stft2(x, n_fft=N_FFT, squeezing=squeezing, dtype=dtype,
-                         device='cpu')
-    _rows_equal(out[:2], lambda b: tstq.ssq_stft2(
+    _rows_equal(lambda: tstq.ssq_stft2(
+        x, n_fft=N_FFT, squeezing=squeezing, dtype=dtype,
+        device='cpu')[:2], lambda b: tstq.ssq_stft2(
         x[b], n_fft=N_FFT, squeezing=squeezing, dtype=dtype,
         device='cpu')[:2])
 
@@ -220,9 +233,8 @@ def test_batched_ssq_cwt2_vs_jax(dtype, squeezing):
     assert np.array_equal(fr_t, fr_j) and np.array_equal(sc_t, sc_j)
     assert _rel(W_t, W_j) <= TOL[dtype]
     _bins2_criterion(Tx_t, Tx_j)
-    out = tstq.ssq_cwt2(x, wav, device='cpu', **kw)
-    _rows_equal(out[:2], lambda b: tstq.ssq_cwt2(x[b], wav, device='cpu',
-                                                 **kw)[:2])
+    _rows_equal(lambda: tstq.ssq_cwt2(x, wav, device='cpu', **kw)[:2],
+                lambda b: tstq.ssq_cwt2(x[b], wav, device='cpu', **kw)[:2])
 
 
 # ---- the kernels' plain versions on a batch --------------------------------
@@ -247,7 +259,8 @@ def test_stft_plain_versions_batch_vs_row_loop(dtype):
     for Hd_, bins_ in ((None, None), (Hd, None), (Hd, bins)):
         out = stft_conv_plain(xh, H, Hd_, N, 2., bins_)
         assert out[0].shape == (B, H.shape[0], N)
-        _rows_equal([o for o in out if o is not None], lambda b: [
+        _rows_equal(lambda: [o for o in stft_conv_plain(
+            xh, H, Hd_, N, 2., bins_) if o is not None], lambda b: [
             o for o in stft_conv_plain(xh[b], H, Hd_, N, 2., bins_)
             if o is not None])
         for o_w, o_p in zip(stft_conv(xh, H, Hd_, N, 2., bins_), out):
@@ -258,8 +271,8 @@ def test_stft_plain_versions_batch_vs_row_loop(dtype):
                  flipud=True, gamma=bins['gamma'])
     V, k = fsst2_conv_plain(xh, tables, N, 2., bins7)
     assert V.shape == k.shape == (B, tables.shape[1], N)
-    _rows_equal((V, k), lambda b: fsst2_conv_plain(xh[b], tables, N, 2.,
-                                                   bins7))
+    _rows_equal(lambda: fsst2_conv_plain(xh, tables, N, 2., bins7),
+                lambda b: fsst2_conv_plain(xh[b], tables, N, 2., bins7))
     V_w, k_w = fsst2_conv(xh, tables, N, 2., bins7)
     assert torch.equal(V_w, V) and torch.equal(k_w, k)
 
@@ -277,7 +290,8 @@ def test_cwt_bins2_plain_batch_vs_row_loop(dtype):
             10 * float(np.finfo(dtype).eps), True)
     W, k = cwt_bins2_plain(xh, *args)
     assert W.shape == k.shape == (B, len(sc), N)
-    _rows_equal((W, k), lambda b: cwt_bins2_plain(xh[b], *args))
+    _rows_equal(lambda: cwt_bins2_plain(xh, *args),
+                lambda b: cwt_bins2_plain(xh[b], *args))
     W_w, k_w = cwt_bins2(xh, *args)
     assert torch.equal(W_w, W) and torch.equal(k_w, k)
 
