@@ -25,8 +25,8 @@ and every squeezing option on those routes: `ssq_cwt(get_w=True)` and
 phase transform, the generic scatter), `ssq_stft(hop_len=8,
 squeezing='abs')`, `ssqueeze` from a precomputed w, and 'lebesgue' /
 'abs' `ssq_stft`, `ssq_cwt2` and `ssq_stft2` (their kernels' bins, then
-the scatter from bins); and the streaming plans chunk by chunk (section
-12c). It:
+the scatter from bins); the streaming plans chunk by chunk (section 12c);
+and the sharded plans over ranks (section 12e). It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel from `ssqueezepy_tpu_torch/csrc/` (one nvcc
@@ -183,6 +183,24 @@ the scatter from bins); and the streaming plans chunk by chunk (section
      differ, printed); forward and forward + backward ms (host clock)
      with the peak. Then the framed STFT at hop 8 on the (4, 160000)
      batch, each row bit-identical to its one-signal call;
+ 12e. (`parallel_section`) the multi-rank layer
+     (`ssqueezepy_tpu_torch/parallel/`): (a) a world of one under NCCL on
+     this card at the headline, `ShardedSSQCWT` (the 293 scales),
+     `ShardedSSQSTFT` and `ShardedSSQSTFT2` (n_fft = 598),
+     `ShardedSSQCWT2`, `sharded_cwt` and `TimeShardedSSQCWT` on the
+     (4, 160000) batch, each with the counters zeroed just before it and
+     on exactly its kernels, each output bit-identical to the one-device
+     call on the same batch (the time plan, whose window differs, within
+     5e-3 of max on interior columns), then `sharded_icwt` and
+     `sharded_issq_cwt` on the shards (1e-5 of max, no kernel); each timed
+     beside its one-device call (CUDA events, in turns) with its peak, and
+     the all_reduce of Tx alone; (b) worlds of 2 and 4 ranks spawned on
+     this card under gloo with CUDA tensors (`_parallel_rank`): the mesh
+     shapes (1, 2), (2, 1), (2, 2), the time meshes (1, 2) and (1, 4), the
+     STFT rows on (1, 2) and the three-axis (1, 2, 2) at N = 32768, each
+     held against the one-device call with the CPU tests' tolerances, and
+     a heartbeat. Every kernel is built before the ranks are spawned;
+     (a)'s launches are added to the `kernels` line's counts;
  13. prints one `{"kernels": [...]}` line (the table modes' nine rows
      last), then, as the last line, `{"ok": true, "device": {...}}`.
 
@@ -1272,6 +1290,211 @@ def grad_section(stq, dev, card, counters, x_np, xb_np, spec, scales,
           "to its one-signal call (%s)" % (tuple(xb.shape), same))
     del Sb, xb
     print("grad section: forward launches %s"
+          % {k: v for k, v in launches.items() if v}, flush=True)
+    return launches
+
+
+def _parallel_rank(rank, world, N):
+    """Section 12e (b): one rank of a world of 2 or 4 spawned on this card
+    under gloo with CUDA tensors. Runs the mesh shapes (1, 2), (2, 1), the
+    time mesh (1, 2) and the STFT rows (world 2), or (2, 2), the time mesh
+    (1, 4) and the three-axis (1, 2, 2) (world 4), each on the global
+    (2, N) and gathered, and a heartbeat; rank 0 holds each against the
+    one-device call on this card with the CPU tests' tolerances. Returns
+    rank 0's {check: (value, limit)}."""
+    import torch
+    import ssqueezepy_tpu_torch as stq
+    from ssqueezepy_tpu_torch import parallel as par
+
+    g32 = ('gmw', {'dtype': 'float32'})
+    x = np.random.default_rng(20).standard_normal((2, N)).astype(np.float32)
+    lead = rank == 0
+    out = {}
+
+    def rel(a, b, m=0):
+        if m:
+            a, b = a[..., m:-m], b[..., m:-m]
+        return float((a - b).abs().max() / b.abs().max())
+
+    def hold(name, T, W, T1, W1, m=0, w_lim=1e-5):
+        """Wx (Sx) within `w_lim` of max, Tx by its column sums within 1e-4
+        of max (5e-3 for the time plans: `m` columns trimmed each side)
+        and its energy within 5e-3."""
+        if not lead:
+            return
+        if W is not None:
+            out[name + ' Wx'] = (rel(W, W1, m), w_lim)
+        c = float((T.sum(-2) - T1.sum(-2))[..., m:N - m].abs().max()
+                  / T1.abs().max())
+        out[name + ' Tx column sums'] = (c, 1e-4 if not m else 5e-3)
+        e, e1 = float(T.abs().sum()), float(T1.abs().sum())
+        out[name + ' Tx energy'] = (abs(e - e1) / e1, 5e-3)
+
+    T1, W1, *_ = stq.ssq_cwt(x, g32, scales='log', nv=16)
+    for b, s in (((1, 2), (2, 1)) if world == 2 else ((2, 2),)):
+        mesh = par.make_mesh(batch=b, scale=s, device_type='cuda')
+        p = par.ShardedSSQCWT(N, g32, 'log', nv=16, mesh=mesh)
+        hold('ShardedSSQCWT %dx%d' % (b, s), *p.gather(*p(x)), T1, W1)
+    tmesh = par.make_mesh_time(batch=1, time=world, device_type='cuda')
+    p = par.TimeShardedSSQCWT(N, g32, 'log', nv=16, mesh=tmesh)
+    Tt, Wt, _ = p.gather(*p(x))
+    hold('TimeShardedSSQCWT 1x%d' % world, Tt, Wt, T1, W1, 256, 5e-3)
+    if world == 2:
+        mesh = par.make_mesh(batch=1, scale=2, device_type='cuda')
+        p = par.ShardedSSQSTFT(N, n_fft=256, mesh=mesh, dtype='float32')
+        Ts1, Ss1, *_ = stq.ssq_stft(x, n_fft=256, dtype='float32')
+        hold('ShardedSSQSTFT 1x2', *p.gather(*p(x)), Ts1, Ss1)
+    else:
+        m3 = par.make_mesh3(batch=1, scale=2, time=2, device_type='cuda')
+        p = par.FullShardedSSQCWT(N, g32, 'log', nv=16, mesh=m3)
+        T3, = p.gather(p(x))
+        hold('FullShardedSSQCWT 1x2x2', T3, None, T1, None, 256)
+    ok, dt = par.collective_heartbeat(par.make_mesh(device_type='cuda'),
+                                      timeout=60.)
+    out['heartbeat missed'] = (0. if ok else 1., 0.5)
+    return out if lead else None
+
+
+def parallel_section(stq, dev, card, counters, xb_np, spec, scales, n_fft):
+    """Section 12e: the multi-rank layer (`ssqueezepy_tpu_torch/parallel/`).
+    (a) A world of one under NCCL on this card at the headline: each plan
+    on the (4, 160000) batch, the counters zeroed just before it, held
+    against the one-device call on the same batch (bit-identical: the same
+    launches on the same inputs; the time plan, whose window differs, by
+    the time tolerances), timed beside it (CUDA events) with the
+    all_reduce's time and the peak. (b) Worlds of 2 and 4 ranks spawned on
+    this card under gloo with CUDA tensors (`_parallel_rank`). Returns
+    (a)'s launches per counter."""
+    import torch
+    import torch.distributed as dist
+    from ssqueezepy_tpu_torch import parallel as par
+    from ssqueezepy_tpu_torch.parallel.collectives import psum
+    from ssqueezepy_tpu_torch.parallel.distributed import spawn
+
+    N = xb_np.shape[-1]
+    xb = torch.as_tensor(xb_np, device=dev)
+    rank, world = par.init_distributed(backend='nccl', device_type='cuda')
+    check((rank, world, dist.get_backend()) == (0, 1, 'nccl'),
+          "parallel (a): a world of one under NCCL (rank %d of %d, %s)"
+          % (rank, world, dist.get_backend()))
+    mesh = par.make_mesh(device_type='cuda')
+    tmesh = par.make_mesh_time(device_type='cuda')
+    kw = dict(wavelet=spec, scales=scales, nv=None)
+    plans = {
+        'ShardedSSQCWT': (
+            par.ShardedSSQCWT(N, spec, scales, nv=None, mesh=mesh),
+            lambda: stq.ssq_cwt(xb, **kw)[:2],
+            {'cwt_bins_batched', 'scatter_kv'}),
+        'ShardedSSQSTFT': (
+            par.ShardedSSQSTFT(N, n_fft=n_fft, mesh=mesh, dtype='float32'),
+            lambda: stq.ssq_stft(xb, n_fft=n_fft)[:2],
+            {'stft_conv_batched', 'scatter_kv'}),
+        'ShardedSSQSTFT2': (
+            par.ShardedSSQSTFT2(N, n_fft=n_fft, mesh=mesh, dtype='float32'),
+            lambda: stq.ssq_stft2(xb, n_fft=n_fft)[:2],
+            {'fsst2_conv_batched', 'scatter_kv'}),
+        'ShardedSSQCWT2': (
+            par.ShardedSSQCWT2(N, spec, scales, nv=None, mesh=mesh),
+            lambda: stq.ssq_cwt2(xb, **kw)[:2],
+            {'cwt_bins2_batched', 'scatter_kv'}),
+        'sharded_cwt': (
+            lambda x: par.sharded_cwt(x, spec, scales, nv=None,
+                                      mesh=mesh)[:1],
+            lambda: stq.cwt(xb, spec, scales=scales)[:1], {'cwt_fused'}),
+    }
+    # the time plan: B3 on its interior rows (n_up of the extended chunk,
+    # the mixed engine unless a power of two) and on its exact rows (the
+    # global window), then B4
+    tp = par.TimeShardedSSQCWT(N, spec, scales, nv=None, mesh=tmesh)
+    need = {'ssq_fused'}
+    for n_up, rows in ((tp.n_up, tp._mid), (tp.g_nup, tp._exact)):
+        if len(rows):
+            need.add('cwt_fused' + ('' if n_up & (n_up - 1) == 0
+                                    else '_mixed'))
+    plans['TimeShardedSSQCWT'] = (
+        tp, lambda: stq.ssq_cwt(xb, get_dWx=True, **kw), need)
+    launches = {}
+    for name, (plan, one, need) in plans.items():
+        out, got = launches_of(counters, lambda: plan(xb))
+        ran = {k for k, v in got.items() if v}
+        check(ran == need, "parallel (a) %s on %s launches exactly %s (%s)"
+              % (name, tuple(xb.shape), sorted(need),
+                 {k: v for k, v in got.items() if v}))
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        ref = one()
+        if name == 'TimeShardedSSQCWT':
+            T, W, dW = out
+            T1, W1 = ref[0], ref[1]
+            m = 256
+            c = float((T.sum(-2) - T1.sum(-2))[..., m:-m].abs().max()
+                      / T1.abs().max())
+            w = rel_err(W[..., m:-m], W1[..., m:-m])
+            check(c < 5e-3 and w < 5e-3, "parallel (a) %s (n_up %d, halo "
+                  "%d, exact rows %d): Tx column sums %.3g, Wx %.3g of max "
+                  "on columns [%d, N - %d) of the one-device get_dWx call "
+                  "(time tolerances 5e-3)" % (name, tp.n_up, tp.halo,
+                                             tp.n_lo + len(scales) - tp.n_hi,
+                                             c, w, m, m))
+        else:
+            same = [bool(torch.equal(a, b)) for a, b in zip(out, ref)]
+            check(all(same), "parallel (a) %s: every output bit-identical "
+                  "to the one-device call on the batch (%s)" % (name, same))
+        if name == 'ShardedSSQCWT':
+            Tx, Wx = out
+        del out, ref
+    # the inverses, on (a)'s shards (a world of one: the whole planes)
+    for name, sharded, one in (
+            ('sharded_icwt', lambda: par.sharded_icwt(
+                Wx, spec, scales=scales, mesh=mesh),
+             lambda: stq.icwt(Wx, spec, scales=scales)),
+            ('sharded_issq_cwt', lambda: par.sharded_issq_cwt(
+                Tx, spec, mesh=mesh), lambda: stq.issq_cwt(Tx, spec))):
+        xr, got = launches_of(counters, sharded)
+        x1 = one()
+        e = float(np.abs(xr - x1).max() / np.abs(x1).max())
+        check(e < 1e-5 and not any(got.values()),
+              "parallel (a) %s: %.3g of max from the one-device inverse, no "
+              "kernel launched" % (name, e))
+
+    # times: each plan and its one-device call in turns (CUDA events), the
+    # all_reduce of Tx alone, the peak above what the script holds
+    for name, (plan, one, _) in plans.items():
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: plan(xb), reps=5)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        one_ms = cuda_ms(one, reps=5)
+        ms2 = cuda_ms(lambda: plan(xb), reps=5)
+        one_ms2 = cuda_ms(one, reps=5)
+        print("parallel (a) %s on %s, a world of one under NCCL: %.3f, "
+              "%.3f ms; the one-device call %.3f, %.3f ms (CUDA events, "
+              "mean of 5 after 2 warm-up, in turns); peak %.3f GB above the "
+              "%.3f GB held; card: %s"
+              % (name, tuple(xb.shape), ms, ms2, one_ms, one_ms2, peak,
+                 base / 1e9, card), flush=True)
+    ar_ms = cuda_ms(lambda: psum(Tx, mesh.get_group('scale')), reps=10)
+    print("parallel (a) psum of Tx %s complex64 (%.3f GB) over 'scale', "
+          "NCCL world of one: %.3f ms (CUDA events, mean of 10); card: %s"
+          % (tuple(Tx.shape), Tx.numel() * 8 / 1e9, ar_ms, card), flush=True)
+    del plans, tp, Tx, Wx
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b): worlds of 2 and 4 spawned on this card under gloo
+    Nb = 32768
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        res = spawn(_parallel_rank, world, (Nb,), backend='gloo',
+                    device_type='cuda', timeout=300.)[0]
+        for what, (v, lim) in res.items():
+            check(v < lim, "parallel (b) %d gloo ranks on this card, N=%d: "
+                  "%s %.3g (limit %g)" % (world, Nb, what, v, lim))
+        print("parallel (b) world of %d (gloo, CUDA tensors, one card): %.1f "
+              "s with its spawn (a correctness run of a transport no "
+              "deployment uses)" % (world, time.perf_counter() - t0),
+              flush=True)
+    print("parallel section: (a)'s launches %s"
           % {k: v for k, v in launches.items() if v}, flush=True)
     return launches
 
@@ -3271,9 +3494,12 @@ def main():
     for k, v in grad_section(stq, dev, card, all_kernels, x_np, xb_big,
                              spec, scales, ssq_freqs, n_fft).items():
         launches[k] += v
+    for k, v in parallel_section(stq, dev, card, all_kernels, xb_big, spec,
+                                 scales, n_fft).items():
+        launches[k] += v
     print("main-path launches per kernel, summed over the %d public "
-          "calls, the streaming section's counted calls and the gradient "
-          "section's forwards: %s"
+          "calls, the streaming section's counted calls, the gradient "
+          "section's forwards and the parallel section's world of one: %s"
           % (len(calls), launches), flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),
           flush=True)

@@ -12,7 +12,9 @@ streaming forms (`StreamingSSQCWT`, `StreamingCWT`, `StreamingSSQCWT2`,
 `StreamingSSQSTFT`, `StreamingSTFT`, `StreamingSSQSTFT2`,
 `StreamingMultirateSSQCWT` and `stream_*`: chunk by chunk in
 overlap-save form on the same kernels, with a carry state that can be
-saved and resumed), on an NVIDIA Hopper card: the fused CWT kernels, the
+saved and resumed) and their sharded forms over several ranks
+(`parallel`: scale-, batch-, time- and three-axis-sharded plans on
+`torch.distributed`), on an NVIDIA Hopper card: the fused CWT kernels, the
 STFT table kernel, the reassignment scatters (from bins, and the generic
 one) and the fused phase + bins + scatter kernel are hand-written CUDA
 (`csrc/`), built with nvcc at first use on a CUDA tensor. Entry points
@@ -42,6 +44,7 @@ from .streaming import (StreamingSSQCWT, StreamingSSQCWT2, StreamingCWT,
                         StreamingSTFT, stream_ssq_cwt, stream_cwt,
                         stream_ssq_stft, stream_ssq_stft2, stream_stft)
 from .streaming_multirate import StreamingMultirateSSQCWT
+from . import parallel
 
 __all__ = ['ssq_cwt', 'issq_cwt', 'ssq_stft', 'issq_stft', 'ssq_cwt2',
            'ssq_stft2', 'cwt', 'icwt', 'cwt_higher_order', 'stft', 'istft',
@@ -54,4 +57,5 @@ __all__ = ['ssq_cwt', 'issq_cwt', 'ssq_stft', 'issq_stft', 'ssq_cwt2',
            'StreamingSSQCWT', 'StreamingSSQCWT2', 'StreamingCWT',
            'StreamingSSQSTFT', 'StreamingSSQSTFT2', 'StreamingSTFT',
            'stream_ssq_cwt', 'stream_cwt', 'stream_ssq_stft',
-           'stream_ssq_stft2', 'stream_stft', 'StreamingMultirateSSQCWT']
+           'stream_ssq_stft2', 'stream_stft', 'StreamingMultirateSSQCWT',
+           'parallel']

@@ -235,10 +235,14 @@ def test_plain_table_gmw0_vs_closed_form(order2):
             _close(a.numpy(), b.numpy(), 1e-12)
 
 
-def test_callables_of_one_name_are_two_wavelets(tmp_path):
+def test_callables_of_one_name_are_two_wavelets(tmp_path, monkeypatch):
     """Two different callables of the same `__name__` give different
     transforms (each its own plan and table), and no plan of either
     reaches the plan memo on disk."""
+    from ssqueezepy_tpu_torch.models import ssq_cwt as tssq
+    # the process's plan memo starts empty, whichever test ran before in
+    # this process, so that the named wavelet's plan goes to disk below
+    monkeypatch.setattr(tssq, '_PLAN_CACHE', {})
     f1 = lambda w: torch.exp(-(w - 4.) ** 2) * (w > 0)   # noqa: E731
     f2 = lambda w: torch.exp(-(w - 6.) ** 2) * (w > 0)   # noqa: E731
     assert f1.__name__ == f2.__name__
