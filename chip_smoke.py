@@ -26,7 +26,10 @@ phase transform, the generic scatter), `ssq_stft(hop_len=8,
 squeezing='abs')`, `ssqueeze` from a precomputed w, and 'lebesgue' /
 'abs' `ssq_stft`, `ssq_cwt2` and `ssq_stft2` (their kernels' bins, then
 the scatter from bins); the streaming plans chunk by chunk (section 12c);
-and the sharded plans over ranks (section 12e). It:
+the sharded plans over ranks (section 12e); `padtype=None` at lengths
+with a prime factor above 7 (section 10b); and the analysis layer,
+`extract_ridges` on a two-chirp `TestSignals` signal and
+`experimental.phase_ssqueeze` (section 12f). It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel from `ssqueezepy_tpu_torch/csrc/` (one nvcc
@@ -106,8 +109,16 @@ and the sharded plans over ranks (section 12e). It:
      just after (each kernel of the path must have launched; the `get_w`
      call must launch neither bins kernel), and checks the outputs against
      the plain path on the card;
- 10b. checks that an unpadded call at a length with a prime factor 11
-     raises naming A6b and launches no kernel, and that a call just past
+ 10b. (`prime_length_section`) runs `ssq_cwt` (and with `get_w`, with
+     `get_dWx`), `cwt`, `ssq_cwt2` (and with `get_w`) with
+     `padtype=None` at N = 2002 = 2 7 11 13 (and `ssq_cwt` on a (4, 2002)
+     batch) and at N = 160001 (a prime), each with the counters zeroed
+     just before: the general route (`cwt_general`, or `wsst2_general` for
+     order 2) once and then exactly B4 or B5, no CWT kernel; at 2002
+     against the same call on the CPU (Wx within 1e-5 of max, Tx by the
+     bins criterion), at 160001 by a chirp's round trip (`issq_cwt`,
+     `icwt`; mad_rms < 0.1), each timed beside the same call padded at
+     N = 160000 (the kernel route); then checks that a call just past
      each ceiling of the kernels (the CWT kernel's for 1, 2 and 5 planes
      in float32, the STFT kernel's 2^22, the scatters' 25600 bins)
      raises the same error naming ROADMAP.md queue C, C1b on the card and
@@ -201,8 +212,22 @@ and the sharded plans over ranks (section 12e). It:
      held against the one-device call with the CPU tests' tolerances, and
      a heartbeat. Every kernel is built before the ranks are spawned;
      (a)'s launches are added to the `kernels` line's counts;
- 13. prints one `{"kernels": [...]}` line (the table modes' nine rows
-     last), then, as the last line, `{"ok": true, "device": {...}}`.
+ 12f. (`analysis_section`) `extract_ridges(Tx, scales, penalty=2,
+     n_ridges=2)` on the bench plan's `ssq_cwt` of a linear plus an
+     exponential chirp from `TestSignals(N=160000)`: exactly 2 forward +
+     2 trace launches of the ridge kernels (`csrc/ridge_dp.cu`), the
+     median relative error of `ssq_freqs[ridge]` against the two known
+     frequency laws on the interior 80% of columns < 10%; the kernels
+     against their plain versions on the first 8192 columns and at the
+     full 160000 (pe bit-identical, the indices equal), each timed at
+     160000 (CUDA events, 3 after one warm-up) with its plain version
+     (one run) and its bound, and the public call (host clock, 3); then
+     `experimental.phase_ssqueeze` from `ssq_cwt(get_dWx=True)`'s Wx and
+     dWx (`get_w=True`): B5 alone, against `ssq_cwt(get_w=True)`'s Tx by
+     the bins criterion, timed;
+ 13. prints one `{"kernels": [...]}` line (the table modes' nine rows,
+     then the ridge kernels' two, last), then, as the last line,
+     `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before those lines. Without a CUDA
 device, or without the package beside this script, it exits non-zero.
@@ -1499,6 +1524,258 @@ def parallel_section(stq, dev, card, counters, xb_np, spec, scales, n_fft):
     return launches
 
 
+def prime_length_section(stq, dev, card, counters):
+    """10b: `padtype=None` at lengths with a prime factor above 7 (2002 =
+    2 7 11 13 and 160001, a prime), where the public calls take the
+    general route (`cwt_general`, or `wsst2_general` for order 2) and then
+    exactly B4 or B5, launching no CWT kernel. At 2002 each call (and a
+    (4, 2002) batch) against the same call on the CPU; at 160001 each
+    call's round trip on a chirp, timed beside the padded kernel route at
+    160000. Returns the launches per kernel counter."""
+    import torch
+    from ssqueezepy_tpu_torch.models.cwt import cwt_general
+    from ssqueezepy_tpu_torch.models.ssq_cwt2 import wsst2_general
+    ctr = counters + [('cwt_general', cwt_general, 'calls'),
+                      ('wsst2_general', wsst2_general, 'calls')]
+    calls = {
+        'ssq_cwt': (lambda x, **k: stq.ssq_cwt(x, **k),
+                    {'cwt_general', 'ssq_fused'}),
+        'ssq_cwt(get_w=True)': (
+            lambda x, **k: stq.ssq_cwt(x, get_w=True, **k),
+            {'cwt_general', 'shift_scatter'}),
+        'ssq_cwt(get_dWx=True)': (
+            lambda x, **k: stq.ssq_cwt(x, get_dWx=True, **k),
+            {'cwt_general', 'ssq_fused'}),
+        'cwt': (lambda x, **k: stq.cwt(x, **k), {'cwt_general'}),
+        'ssq_cwt2': (lambda x, **k: stq.ssq_cwt2(x, **k),
+                     {'wsst2_general', 'shift_scatter'}),
+        'ssq_cwt2(get_w=True)': (
+            lambda x, **k: stq.ssq_cwt2(x, get_w=True, **k),
+            {'wsst2_general', 'shift_scatter'})}
+    launches = {}
+
+    kernel_names = {n for n, _, _ in counters}
+
+    def counted(what, fn, need):
+        out, counts = launches_of(ctr, fn)
+        moved = {k: v for k, v in counts.items() if v}
+        check(moved == dict.fromkeys(need, 1), "%s: the general route and "
+              "exactly %s, no CWT kernel (%s)" % (what, sorted(need), moved))
+        for k in kernel_names & set(moved):
+            launches[k] = launches.get(k, 0) + moved[k]
+        return out
+
+    rng = np.random.default_rng(2002)
+    x2002 = rng.standard_normal(2002).astype(np.float32)
+    xb2002 = rng.standard_normal((4, 2002)).astype(np.float32)
+    for name, (fn, need) in list(calls.items()) + [
+            ('ssq_cwt on (4, 2002)', (calls['ssq_cwt'][0],
+                                      {'cwt_general', 'ssq_fused'}))]:
+        x = xb2002 if name.endswith('2002)') else x2002
+        xd = torch.as_tensor(x, device=dev)
+        out = counted("%s(padtype=None) at N=2002" % name,
+                      lambda: fn(xd, padtype=None), need)
+        ref = fn(x, padtype=None, device='cpu')
+        iW = 0 if name == 'cwt' else 1
+        err = rel_err(out[iW].cpu(), ref[iW])
+        check(tuple(out[iW].shape) == tuple(ref[iW].shape) and err <= 1e-5,
+              "%s(padtype=None) at N=2002: Wx %s, %.3g of max vs the CPU "
+              "(limit 1e-5)" % (name, tuple(out[iW].shape), err))
+        if name != 'cwt':
+            bins_criterion(out[0].cpu(), ref[0], "%s(padtype=None) at "
+                           "N=2002 vs the CPU" % name)
+        del out, ref
+    # N = 160001 (a prime): round trips of a chirp, and each call's time
+    # beside the same call padded (reflect, n_up = 262144: the kernel
+    # route) at N = 160000
+    Np = 160001
+    n = np.arange(Np)
+    xc = np.cos(2 * np.pi * (0.02 * n + 0.3 / (2 * Np) * n ** 2)).astype(
+        np.float32)
+    xcd = torch.as_tensor(xc, device=dev)
+    x160 = torch.as_tensor(xc[:160000], device=dev)
+    inverse = {'cwt': lambda out: stq.icwt(out[0])}
+    for name, (fn, need) in calls.items():
+        out = counted("%s(padtype=None) at N=%d" % (name, Np),
+                      lambda: fn(xcd, padtype=None), need)
+        inv = inverse.get(name, lambda out: stq.issq_cwt(out[0]))
+        mad = float(stq.toolkit.mad_rms(xc, inv(out)))
+        check(bool(torch.isfinite(torch.view_as_real(out[0])).all())
+              and out[0].shape[-1] == Np and mad < 0.1,
+              "%s(padtype=None) at N=%d: round trip mad_rms = %.4g (< 0.1)"
+              % (name, Np, mad))
+        del out
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 1e9
+        ms, gb = host_ms(lambda: fn(xcd, padtype=None), reps=5, warm=1)
+        ms_k, gb_k = host_ms(lambda: fn(x160), reps=5, warm=1)
+        print("%s: general route at N=%d unpadded %.3f ms (peak %.3f GB "
+              "above what the script holds); kernel route at N=160000 "
+              "padded %.3f ms (peak %.3f GB); ratio %.2f (host clock, mean "
+              "of 5 after warm-up); card: %s"
+              % (name, Np, ms, gb - held, ms_k, gb_k - held, ms / ms_k,
+                 card), flush=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
+def analysis_section(stq, dev, card, counters, x_np, spec, scales,
+                     ssq_freqs):
+    """The analysis layer at N = 160000: `extract_ridges` (two ridges) on
+    the bench plan's `ssq_cwt` of a linear plus an exponential chirp from
+    `TestSignals`, on exactly the ridge kernels, its ridges against the
+    two known frequency laws; the ridge kernels against their plain
+    versions on the first 8192 columns and at the full length (pe
+    bit-identical, the indices equal), each timed at the full length
+    beside its plain version and its bound; `experimental.phase_ssqueeze` from `ssq_cwt(get_dWx=True)`'s
+    planes, on B5 alone, against `ssq_cwt(get_w=True)` by the bins
+    criterion. Returns (the kernel rows, launches per counter)."""
+    import torch
+    from ssqueezepy_tpu_torch.models.ridge_extraction import _normalized
+    from ssqueezepy_tpu_torch.models.test_signals import (_law_exp,
+                                                          _law_linear)
+    from ssqueezepy_tpu_torch.ops.ridge_cuda import (
+        ridge_forward, ridge_forward_plain, ridge_trace, ridge_trace_plain)
+    N = 160000
+    eps = float(np.finfo(np.float32).eps)
+    ts = stq.TestSignals(N=N)
+    f_lin, f_exp = (.0125 * N, .075 * N), (.125 * N, .375 * N)
+    (x1, t), (x2, _) = ts.lchirp(N, *f_lin), ts.echirp(N, *f_exp)
+    x = torch.as_tensor((x1 + x2).astype(np.float32), device=dev)
+    Tx, _, sf = stq.ssq_cwt(x, wavelet=spec, scales=scales,
+                            ssq_freqs=ssq_freqs)[:3]
+    torch.cuda.synchronize()
+
+    def run():
+        return stq.extract_ridges(Tx, scales, penalty=2, n_ridges=2)
+    run()                                     # first launches
+    ridges, counts = launches_of(counters, run)
+    moved = {k: v for k, v in counts.items() if v}
+    check(moved == {'ridge_forward': 2, 'ridge_trace': 2}
+          and ridges.shape == (N, 2),
+          "extract_ridges(Tx, scales, penalty=2, n_ridges=2) at (%d, %d): "
+          "exactly 2 forward + 2 trace launches (%s)"
+          % (len(scales), N, moved))
+    launches = {k: v for k, v in counts.items() if v}
+    # each ridge against the nearer frequency law, cycles per sample, on
+    # the interior 80% of columns
+    dt = t[1] - t[0]
+    laws = [law(t, 0, 1, *f)[1] / (2 * np.pi) * dt
+            for law, f in ((_law_linear, f_lin), (_law_exp, f_exp))]
+    lo, hi = N // 10, N - N // 10
+    med = [[float(np.median(np.abs(sf[ridges[lo:hi, i]] / law[lo:hi] - 1)))
+            for law in laws] for i in range(2)]
+    errs = min((med[0][0], med[1][1]), (med[0][1], med[1][0]),
+               key=lambda p: p[0] + p[1])
+    check(max(errs) < 0.1, "extract_ridges on lchirp + echirp: median "
+          "relative error of ssq_freqs[ridge] against the known laws %.4g "
+          "(linear), %.4g (exponential) on the interior 80%% (< 0.1)"
+          % errs)
+    # the kernels against their plain versions on 8192 columns
+    a = Tx.abs()
+    E = (a * a)[None]
+    del a
+    v = torch.as_tensor(np.log(np.asarray(scales, np.float32)).reshape(-1),
+                        device=dev)
+    e8 = _normalized(E[..., :8192], eps, torch.float32)
+    pe8, pe8_p = ridge_forward(e8, v, 2.), ridge_forward_plain(e8, v, 2.)
+    r8, r8_p = ridge_trace(pe8, e8, v, 2., eps), ridge_trace_plain(
+        pe8_p, e8, v, 2., eps)
+    torch.cuda.synchronize()
+    err_f = float((pe8 - pe8_p).abs().max())
+    err_t = int((r8 - r8_p).abs().max())
+    check(torch.equal(pe8, pe8_p) and torch.equal(r8, r8_p),
+          "ridge kernels vs plain on (1, 8192, %d): pe bit-identical, "
+          "indices equal (max |dpe| %.3g, max |dr| %d)"
+          % (len(scales), err_f, err_t))
+    # times at the full length: the kernels (CUDA events, 3 after one
+    # warm-up), their plain versions (one run each) and the public call
+    e = _normalized(E, eps, torch.float32)
+    F, T = e.shape[-1], e.shape[-2]
+    fw_ms = cuda_ms(lambda: ridge_forward(e, v, 2.), reps=3, warm=1)
+    pe = ridge_forward(e, v, 2.)
+    tr_ms = cuda_ms(lambda: ridge_trace(pe, e, v, 2., eps), reps=3, warm=1)
+    r = ridge_trace(pe, e, v, 2., eps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pe_p = ridge_forward_plain(e, v, 2.)
+    torch.cuda.synchronize()
+    fw_plain = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    r_p = ridge_trace_plain(pe, e, v, 2., eps)
+    torch.cuda.synchronize()
+    tr_plain = (time.perf_counter() - t0) * 1e3
+    # the same kernels against the plain outputs at the main path's shape
+    err_f = max(err_f, float((pe - pe_p).abs().max()))
+    err_t = max(err_t, int((r - r_p).abs().max()))
+    check(torch.equal(pe, pe_p) and torch.equal(r, r_p),
+          "ridge kernels vs plain on (1, %d, %d): pe bit-identical, "
+          "indices equal (max |dpe| %.3g, max |dr| %d)"
+          % (T, F, err_f, err_t))
+    del pe_p, r_p, r
+    held = torch.cuda.memory_allocated() / 1e9
+    e2e, gb = host_ms(run, reps=3, warm=1)
+    gb -= held
+    # bounds: the forward's min-plus pairs (an add and a min each) and its
+    # bytes (e in, pe out); the trace's bytes (pe read once, e and the
+    # index per column)
+    fw_bound, fw_by = bound(2 * T * F * 4, 2 * (T - 1) * F * F)
+    tr_bound, tr_by = bound(T * F * 4 + 2 * T * 4, 4 * T * F)
+    print("ridge_forward at (1, %d, %d) float32: %.3f ms (%.3f us per "
+          "column; plain %.1f ms; bound %.3f ms by %s); ridge_trace %.3f ms "
+          "(%.3f us per column; plain %.1f ms; bound %.3f ms by %s); "
+          "extract_ridges (2 ridges) %.1f ms end to end (host clock, mean "
+          "of 3 after one warm-up), peak %.3f GB above what the script "
+          "holds; card: %s"
+          % (T, F, fw_ms, fw_ms * 1e3 / (T - 1), fw_plain, fw_bound, fw_by,
+             tr_ms, tr_ms * 1e3 / (T - 1), tr_plain, tr_bound, tr_by, e2e,
+             gb, card), flush=True)
+    del E, e, pe, e8, pe8, pe8_p, Tx
+    torch.cuda.empty_cache()
+    # phase_ssqueeze from (Wx, dWx) against ssq_cwt(get_w=True)
+    xn = torch.as_tensor(x_np, device=dev)
+    kw = dict(wavelet=spec, scales=scales, ssq_freqs=ssq_freqs)
+    out = stq.ssq_cwt(xn, get_dWx=True, **kw)
+    Wx, dWx = out[1], out[4]
+    del out
+
+    def pssq():
+        return stq.experimental.phase_ssqueeze(
+            Wx, dWx, ssq_freqs=ssq_freqs, scales=scales, wavelet=spec,
+            get_w=True, flipud=True)
+    pssq()
+    ps, counts = launches_of(counters, pssq)
+    moved = {k: v for k, v in counts.items() if v}
+    check(moved == {'shift_scatter': 1}, "experimental.phase_ssqueeze at "
+          "(%d, %d): B5 alone (%s)" % (len(scales), N, moved))
+    launches['shift_scatter'] = launches.get('shift_scatter', 0) + 1
+    ref = stq.ssq_cwt(xn, get_w=True, **kw)
+    bins_criterion(ps[0], ref[0], "phase_ssqueeze vs ssq_cwt(get_w=True)")
+    del ps, ref
+    held = torch.cuda.memory_allocated() / 1e9
+    ms, gb = host_ms(pssq, reps=5, warm=1)
+    print("experimental.phase_ssqueeze(Wx, dWx, get_w=True) at (%d, %d): "
+          "%.3f ms (host clock, mean of 5), peak %.3f GB above what the "
+          "script holds; card: %s" % (len(scales), N, ms, gb - held, card),
+          flush=True)
+    del Wx, dWx
+    torch.cuda.empty_cache()
+    rows = [
+        dict(name='ridge_forward', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/ridge_dp.cu',
+             replaces='ssqueezepy_tpu/models/ridge_extraction.py:24',
+             launches=launches['ridge_forward'], max_abs_err=err_f,
+             ms=fw_ms, plain_ms=fw_plain, bound_ms=fw_bound,
+             bound_by=fw_by, library_ms=None),
+        dict(name='ridge_trace', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/ridge_dp.cu',
+             replaces='ssqueezepy_tpu/models/ridge_extraction.py:24',
+             launches=launches['ridge_trace'], max_abs_err=err_t,
+             ms=tr_ms, plain_ms=tr_plain, bound_ms=tr_bound,
+             bound_by=tr_by, library_ms=None)]
+    return rows, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1515,6 +1792,8 @@ def main():
         from ssqueezepy_tpu_torch.ops.ssq_cuda import (
             scatter_kv, scatter_kv_plain, scatter_launch_plan, shift_scatter,
             shift_scatter_plain, ssq_fused, ssq_fused_plain)
+        from ssqueezepy_tpu_torch.ops.ridge_cuda import (ridge_forward,
+                                                         ridge_trace)
         from ssqueezepy_tpu_torch.ops.phase import (phase_cwt, phase_cwt_num,
                                                     phase_stft,
                                                     phase_transform_w)
@@ -1541,7 +1820,8 @@ def main():
     # modes of B8 (`cwt_w2`) and B7 (`fsst2_w`) on theirs
     all_kernels = [(k.__name__, k, 'launches') for k in (
         cwt_bins, scatter_kv, stft_conv, cwt_fused, cwt_bins2, fsst2_conv,
-        ssq_fused, shift_scatter, cwt_w2, fsst2_w)] + [
+        ssq_fused, shift_scatter, cwt_w2, fsst2_w, ridge_forward,
+        ridge_trace)] + [
         (k.__name__ + '_batched', k, 'batched_launches')
         for k in (cwt_bins, stft_conv, fsst2_conv, cwt_bins2, cwt_w2,
                   fsst2_w)] + [
@@ -2866,21 +3146,10 @@ def main():
         del out
         torch.cuda.empty_cache()
 
-    # ---- the length rule: a prime factor above 7 launches nothing ---------
-    x11 = x_np[:2002]                     # 2002 = 2 7 11 13
-    for what, fn in (('ssq_cwt', lambda: stq.ssq_cwt(x11, padtype=None)),
-                     ('cwt', lambda: stq.cwt(x11, padtype=None)),
-                     ('ssq_cwt2', lambda: stq.ssq_cwt2(x11, padtype=None))):
-        def refused():
-            try:
-                fn()
-            except NotImplementedError as e:
-                return str(e)
-            return None
-        msg, counts = launches_of(all_kernels, refused)
-        check(msg is not None and 'A6b' in msg and not any(counts.values()),
-              "%s(padtype=None) at N=2002 raises naming A6b and launches no "
-              "kernel: %r" % (what, msg))
+    # ---- lengths with a prime factor above 7: the general route ---------
+    for kn, v in prime_length_section(stq, dev, card, all_kernels).items():
+        launches[kn] += v
+    torch.cuda.empty_cache()
 
     # ---- the kernels' ceilings: one rule on every device -----------------
     # a call just past each ceiling raises the same error naming C1b on
@@ -3497,10 +3766,15 @@ def main():
     for k, v in parallel_section(stq, dev, card, all_kernels, xb_big, spec,
                                  scales, n_fft).items():
         launches[k] += v
+    ridge_rows, ridge_launches = analysis_section(
+        stq, dev, card, all_kernels, x_np, spec, scales, ssq_freqs)
+    for kn, v in ridge_launches.items():
+        launches[kn] += v
     print("main-path launches per kernel, summed over the %d public "
-          "calls, the streaming section's counted calls, the gradient "
-          "section's forwards and the parallel section's world of one: %s"
-          % (len(calls), launches), flush=True)
+          "calls, the prime lengths' counted calls, the streaming "
+          "section's counted calls, the gradient section's forwards, the "
+          "parallel section's world of one and the analysis section's "
+          "counted calls: %s" % (len(calls), launches), flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),
           flush=True)
 
@@ -3614,7 +3888,7 @@ def main():
              max_abs_err=w2k['b7b']['err'], ms=w7b_ms,
              plain_ms=w7b_plain_ms, bound_ms=w7b_bound, bound_by=w7b_by,
              library_ms=b7b_lib_ms)]
-    kernels += wav_rows
+    kernels += wav_rows + ridge_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

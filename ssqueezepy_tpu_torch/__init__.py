@@ -14,10 +14,12 @@ streaming forms (`StreamingSSQCWT`, `StreamingCWT`, `StreamingSSQCWT2`,
 overlap-save form on the same kernels, with a carry state that can be
 saved and resumed) and their sharded forms over several ranks
 (`parallel`: scale-, batch-, time- and three-axis-sharded plans on
-`torch.distributed`), on an NVIDIA Hopper card: the fused CWT kernels, the
-STFT table kernel, the reassignment scatters (from bins, and the generic
-one) and the fused phase + bins + scatter kernel are hand-written CUDA
-(`csrc/`), built with nvcc at first use on a CUDA tensor. Entry points
+`torch.distributed`), and the analysis layer (`extract_ridges`,
+`TestSignals`, `experimental`'s scale <-> frequency maps and
+`phase_ssqueeze`, `toolkit`), on an NVIDIA Hopper card: the fused CWT
+kernels, the STFT table kernel, the reassignment scatters (from bins, and
+the generic one), the fused phase + bins + scatter kernel and the ridge
+dynamic program are hand-written CUDA (`csrc/`), built with nvcc at first use on a CUDA tensor. Entry points
 and plans run on ``device='cuda'`` unless the caller passes
 ``device='cpu'``, which runs the kernels' plain PyTorch versions. The package imports torch, numpy and scipy — never JAX, and
 nothing of `ssqueezepy_tpu`.
@@ -29,6 +31,8 @@ from .models.ssq_cwt import ssq_cwt, issq_cwt
 from .models.ssq_cwt2 import ssq_cwt2
 from .models.ssq_stft import ssq_stft, issq_stft, ssq_stft2
 from .models.ssqueezing import ssqueeze
+from .models.ridge_extraction import extract_ridges
+from .models.test_signals import TestSignals
 from .models.stft import stft, istft
 from .models.wavelets import (Wavelet, morlet, bump, cmhat, hhhat,
                               center_frequency, freq_resolution,
@@ -45,6 +49,8 @@ from .streaming import (StreamingSSQCWT, StreamingSSQCWT2, StreamingCWT,
                         stream_ssq_stft, stream_ssq_stft2, stream_stft)
 from .streaming_multirate import StreamingMultirateSSQCWT
 from . import parallel
+from . import experimental
+from .models import ridge_extraction
 
 __all__ = ['ssq_cwt', 'issq_cwt', 'ssq_stft', 'issq_stft', 'ssq_cwt2',
            'ssq_stft2', 'cwt', 'icwt', 'cwt_higher_order', 'stft', 'istft',
@@ -58,4 +64,5 @@ __all__ = ['ssq_cwt', 'issq_cwt', 'ssq_stft', 'issq_stft', 'ssq_cwt2',
            'StreamingSSQSTFT', 'StreamingSSQSTFT2', 'StreamingSTFT',
            'stream_ssq_cwt', 'stream_cwt', 'stream_ssq_stft',
            'stream_ssq_stft2', 'stream_stft', 'StreamingMultirateSSQCWT',
-           'parallel']
+           'parallel', 'extract_ridges', 'TestSignals', 'experimental',
+           'ridge_extraction']

@@ -10,24 +10,27 @@ and two-integral). `cwt` routes as the JAX package's gates do:
 
   * an analytic wavelet with a real-valued spectrum (GMW of any order,
     cmhat, hhhat with mu >= 0, bump with mu - .999 s >= 0 and om = 0):
-    pad (none with `padtype=None`) -> `torch.fft.rfft` -> the fused CWT
-    kernel (`cwt_fused`; the order-0 GMW synthesized in the kernel, every
-    other wavelet read from its table); with ``device='cpu'`` its plain
-    version. The kernel takes a padded length n_up whose prime factors
-    are at most 7 and whose DFT factors fit one block's shared memory
-    (`ops/cwt_cuda.py::cwt_length_rule`): a padded N up to n_up = 2^28
-    (one plane, float32), such N with `padtype=None` (n_up = N); another
+    at a padded length n_up (n_up = N with `padtype=None`) whose prime
+    factors are at most 7 (`ops/cwt_cuda.py::kernel_length`): pad ->
+    `torch.fft.rfft` -> the fused CWT kernel (`cwt_fused`; the order-0
+    GMW synthesized in the kernel, every other wavelet read from its
+    table); with ``device='cpu'`` its plain version. Its DFT factors must
+    fit one block's shared memory (`ops/cwt_cuda.py::cwt_length_rule`: a
+    padded N up to n_up = 2^28, one plane, float32); past that a call
     raises on every device, before the signal's FFT;
   * any other wavelet (morlet, hhhat with mu < 0, another bump, a user's
-    callable): `cwt_general`, the JAX package's XLA branch, by
-    `torch.fft` on the signal's device, at any length.
+    callable), and any wavelet at an n_up with a prime factor above 7
+    (an unpadded N such as 1031 or 2002): `cwt_general`, the JAX
+    package's XLA branch, by `torch.fft` on the signal's device, at any
+    length. The route is decided by the wavelet and n_up before anything
+    runs (`_kernel_route`).
 """
 import numpy as np
 import torch
 
 from ..configs import device_dtype
-from ..ops.cwt_cuda import (cwt_fused, cwt_length_rule, wavelet_table,
-                             _halve_nyquist)
+from ..ops.cwt_cuda import (cwt_fused, cwt_length_rule, kernel_length,
+                             wavelet_table, _halve_nyquist)
 from ..ops.fft import fft, ifft, rfft
 from ..ops.pad import padsignal, pad_params, _MODE_MAP
 from ..utils.common import WARN, numpy_unless_grad, resolve_device
@@ -36,7 +39,7 @@ from ..utils.cwt_utils import (process_scales, logscale_transition_idx,
 from .wavelets import Wavelet, _xifn
 
 __all__ = ['cwt', 'icwt', 'cwt_core', 'cwt_general', 'cwt_higher_order',
-           'resolve_wavelet', 'cwt_spectrum']
+           'resolve_wavelet', 'cwt_spectrum', 'padded_length']
 
 
 def _is_analytic(wavelet):
@@ -73,11 +76,14 @@ def _is_real(wavelet):
     return wavelet._cached('is_real', probe)
 
 
-def _kernel_route(wavelet):
+def _kernel_route(wavelet, n_up):
     """True where the CWT kernel computes the transform: an analytic
-    wavelet with a real-valued spectrum (the JAX package's gate of its
-    Pallas kernel); else `cwt_general`."""
-    return _is_analytic(wavelet) and _is_real(wavelet)
+    wavelet with a real-valued spectrum at a padded length n_up whose
+    prime factors are at most 7 (`ops/cwt_cuda.py::kernel_length`; the
+    JAX package's gate of its Pallas kernel takes both); else the general
+    path (`cwt_general`)."""
+    return (kernel_length(n_up) and _is_analytic(wavelet)
+            and _is_real(wavelet))
 
 
 def _wavelet_key(wavelet):
@@ -216,6 +222,12 @@ def cwt_general(xp, wavelet, scales, n1, N, dt, derivative, l1_norm):
 cwt_general.calls = 0
 
 
+def padded_length(N, padtype):
+    """n_up, the length the CWT transforms: `pad_params`' padded length,
+    or N itself with `padtype=None`."""
+    return N if padtype is None else pad_params(N, padtype)[0]
+
+
 def padded_signal(xt, padtype):
     """(xp, n_up, n1): the real signal or batch `xt` padded by `padtype`
     to n_up (`pad_params`, left pad n1), or with `padtype=None` `xt`
@@ -234,11 +246,7 @@ def cwt_spectrum(xt, padtype, planes):
     the JAX package's CWT entry points take it. n_up is checked against
     the CWT kernel's length rule for the route's `planes` (1: Wx; 2: bins
     or derivative; 5: order 2) before anything runs on the device."""
-    N = xt.shape[-1]
-    if padtype is None:
-        n_up = N
-    else:
-        n_up = pad_params(N, padtype)[0]
+    n_up = padded_length(xt.shape[-1], padtype)
     cwt_length_rule(n_up, 2 * xt.element_size(), planes)
     xp, n_up, n1 = padded_signal(xt, padtype)
     return rfft(xp).contiguous(), n_up, n1
@@ -286,8 +294,8 @@ def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
     `wavelet` is a name ('gmw', 'morlet', 'bump', 'cmhat', 'hhhat'), a
     (name, dict) pair, a `Wavelet` or a function of a torch tensor of
     radian frequencies. `padtype=None` transforms the signal unpadded
-    (n_up = N; on the kernel's route N's prime factors must be at most
-    7); `rpadded=True` returns the whole padded transform, (na, n_up) or
+    (n_up = N; an N with a prime factor above 7 takes `cwt_general`);
+    `rpadded=True` returns the whole padded transform, (na, n_up) or
     (B, na, n_up). `l1_norm=False` uses the L2 ('energy') GMW and
     multiplies rows by sqrt(scale); `vectorized=False` runs the scales in
     chunks of 64 rows. `order` > 0 or a tuple of orders runs
@@ -313,7 +321,7 @@ def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
 
     xt = torch.as_tensor(x, dtype=dtype, device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
-    if _kernel_route(wavelet):
+    if _kernel_route(wavelet, padded_length(N, padtype)):
         xh, n_up, n1 = cwt_spectrum(xt, padtype, 2 if derivative else 1)
 
         def rows(s):

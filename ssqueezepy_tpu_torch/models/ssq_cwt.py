@@ -28,7 +28,9 @@ FFT (torch.fft) and one of three routes:
 
 A wavelet outside the CWT kernel's route (`models/cwt.py::
 _kernel_route`: morlet, hhhat with mu < 0, a bump that is not analytic
-or not real, a user's callable) takes `models/cwt.py::cwt_general` for
+or not real, a user's callable), and any wavelet at a padded length
+with a prime factor above 7 (`padtype=None` at an N such as 1031 or
+2002), takes `models/cwt.py::cwt_general` for
 (Wx, dWx) in place of the kernel, then `ssq_fused` for 'sum' and the
 phase transform and the generic scatter otherwise, as the JAX package's
 XLA path runs it. `order` > 0 (or a tuple of orders) runs the JAX
@@ -38,10 +40,12 @@ window (rpadded), `ops/diff.py::trigdiff` of it, the unpadded slice, then
 otherwise.
 
 `padtype=None` transforms the signal unpadded (n_up = N) on each route;
-on the kernel's route N's prime factors must then be at most 7, on every
-device
-(`ops/cwt_cuda.py::cwt_length_rule`, which also bounds n_up by one
-block's shared memory, and `ops/ssq_cuda.py::scatter_rule` the bins). The JAX package takes its XLA CWT and
+the kernel's route takes it where N's prime factors are at most 7
+(`ops/cwt_cuda.py::kernel_length`; `cwt_length_rule` also bounds n_up by
+one block's shared memory, and `ops/ssq_cuda.py::scatter_rule` the
+bins, on every device), `cwt_general` at any other N, chosen before
+anything runs, with every option carried as on a non-kernel wavelet.
+The JAX package takes its XLA CWT and
 `ssqueeze_fast` there; its Tx agrees with this one by the bins criterion
 and its Wx to 2e-5 of max (float32) or 1e-9 (float64).
 
@@ -66,8 +70,9 @@ from ..utils.common import (EPS32, EPS64, check_batch, numpy_unless_grad,
 from ..utils.cwt_utils import (process_scales, adm_ssq, _process_fs_and_t,
                                infer_scaletype, nv_from_scales)
 from ..utils.plan_cache import disk_memo
-from .cwt import (cwt, cwt_general, cwt_spectrum, padded_signal,
-                  resolve_wavelet, _is_custom, _kernel_route, _wavelet_key)
+from .cwt import (cwt, cwt_general, cwt_spectrum, padded_length,
+                  padded_signal, resolve_wavelet, _is_custom, _kernel_route,
+                  _wavelet_key)
 from .wavelets import Wavelet
 from .ssqueezing import (_apply_squeezing, _check_ssqueezing_args,
                          _compute_associated_frequencies)
@@ -230,7 +235,7 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     scatter_rule(nbins, 2 * np.dtype(dtype).itemsize)
     xt = torch.as_tensor(x, dtype=getattr(torch, dtype), device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
-    kernel = _kernel_route(wavelet)
+    kernel = _kernel_route(wavelet, padded_length(N, padtype))
     higher = isinstance(order, (tuple, list, range)) or order > 0
     dWx = None
     if higher:

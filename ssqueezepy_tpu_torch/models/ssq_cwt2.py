@@ -9,15 +9,20 @@ Bd = x' * th, C = x * t^2 h), solves p2 = (Bd W - A B) / (B^2 - C W),
 p1 = (A + p2 B) / W and reassigns by w2 = |Im p1| / (2 pi dt), exact on
 linear chirps. The plan (scales, ssq frequency grid, squeeze constant,
 bin map) is `ssq_cwt`'s, memoized with it; the signal runs pad (none
-with `padtype=None`, n_up = N, whose prime factors must then be at most
-7) -> real FFT (torch.fft) -> the WSST2 kernel
+with `padtype=None`, n_up = N) -> real FFT (torch.fft) -> the WSST2 kernel
 (`ops/cwt_cuda.py::cwt_bins2`, W and the bins of w2) ->
 `_apply_squeezing` on W -> the reassignment scatter (`ops/ssq_cuda.py`).
 With `get_w=True` (one signal) the kernel's w2 mode (`cwt_w2`, W and w2)
 runs instead, then `_apply_squeezing` on W -> the generic scatter by the
 bins of w2 (`ops/ssq_kernels.py::indexed_sum_onfly`), as the JAX
 package's XLA path runs it, and w2 is returned. A (B, N) batch runs each
-kernel once over the batch. Every wavelet that the JAX package's
+kernel once over the batch. At a padded length with a prime factor above
+7 (`padtype=None` at an N such as 1031; `ops/cwt_cuda.py::kernel_length`,
+decided before anything runs) the general route `wsst2_general` runs in
+the kernel's place: the JAX package's XLA branch `_wsst2_rows`, by
+torch.fft (`ops/cwt_cuda.py::wsst2_rows`), then `_apply_squeezing` on W
+and the generic scatter by the bins of w2, for one signal or a batch,
+with or without `get_w`. Every wavelet that the JAX package's
 `_supports_order2` accepts runs there: an analytic wavelet, or one whose
 spectrum is below 1e-12 on [-20, 0] (morlet, a user's callable), with a
 real-valued spectrum that torch autograd differentiates twice; the order-0
@@ -30,18 +35,20 @@ import numpy as np
 import torch
 
 from ..configs import device_dtype
-from ..ops.cwt_cuda import cwt_bins2, cwt_w2, _wavelet_derivatives
+from ..ops.cwt_cuda import (cwt_bins2, cwt_w2, kernel_length, wsst2_rows,
+                             _wavelet_derivatives)
+from ..ops.fft import rfft
 from ..ops.ssq_cuda import scatter_kv, scatter_rule
 from ..ops.ssq_kernels import indexed_sum_onfly
 from ..utils.common import EPS32, EPS64, check_batch, resolve_device
 from ..utils.cwt_utils import _process_fs_and_t
-from .cwt import (cwt_spectrum, resolve_wavelet, _is_analytic, _is_custom,
-                  _wavelet_key)
+from .cwt import (cwt_spectrum, padded_length, padded_signal,
+                  resolve_wavelet, _is_analytic, _is_custom, _wavelet_key)
 from .ssq_cwt import _ssq_cwt_plan, _device_plan
 from .ssqueezing import _apply_squeezing, _check_ssqueezing_args
 from .stft import _as_signal
 
-__all__ = ['ssq_cwt2']
+__all__ = ['ssq_cwt2', 'wsst2_general', 'wsst2_tx']
 
 
 _SUPPORTS2 = {}
@@ -83,6 +90,44 @@ def _supports_order2_probe(wavelet, dtype):
     return True, None
 
 
+def wsst2_general(xt, padtype, scales, wavelet, N, dt, gamma):
+    """(W, w2) of the real signal or (B, N) batch `xt` off the WSST2
+    kernel's lengths: padded by `padtype` (none for None), its half
+    spectrum by `torch.fft.rfft`, then the torch WSST2 rows
+    (`ops/cwt_cuda.py::wsst2_rows`, the JAX package's `_wsst2_rows`) on
+    xt's device at any n_up. Counts its calls on
+    `wsst2_general.calls`."""
+    wsst2_general.calls += 1
+    xp, n_up, n1 = padded_signal(xt, padtype)
+    return wsst2_rows(rfft(xp), scales, wavelet, n_up, n1, N, dt, gamma)
+
+
+wsst2_general.calls = 0
+
+
+def wsst2_tx(xt, padtype, scales, wavelet, N, dt, gamma, params, flipud,
+             squeeze, const, get_w=False):
+    """(Tx, W, w2) of the real signal or (B, N) batch `xt`, on the route
+    its padded length takes (decided before anything runs): a 7-smooth
+    n_up runs the WSST2 kernel, in its bins mode then the reassignment
+    scatter on `squeeze(W)`, or with `get_w` in its w2 mode; any other
+    n_up runs `wsst2_general`. w2 then feeds the generic scatter by its
+    bins; it is None on the bins mode."""
+    nbins = params['omax'] + 1
+    if not kernel_length(padded_length(N, padtype)):
+        W, w2 = wsst2_general(xt, padtype, scales, wavelet, N, dt, gamma)
+    else:
+        xh, n_up, n1 = cwt_spectrum(xt, padtype, 5)
+        if not get_w:
+            W, k = cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params,
+                             gamma, flipud)
+            return scatter_kv(squeeze(W), k, const, nbins), W, None
+        W, w2 = cwt_w2(xh, scales, wavelet, n_up, n1, N, dt, gamma)
+    Tx = indexed_sum_onfly(squeeze(W), w2, None, const, params=params,
+                           flipud=flipud, device=xt.device)
+    return Tx, W, w2
+
+
 def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
              t=None, ssq_freqs=None, padtype='reflect', squeezing='sum',
              maprange='peak', gamma=None, astensor=True, flipud=True,
@@ -96,7 +141,8 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     reversed, scales (na,), and with `get_w=True` (one signal, as in the
     JAX package) the chirp-corrected frequency w2 (na, N) real, inf on
     dropped cells. `squeezing` is 'sum', 'lebesgue', 'abs' or a function
-    of W. `padtype=None` transforms the signal unpadded."""
+    of W. `padtype=None` transforms the signal unpadded (an N with a
+    prime factor above 7 takes `wsst2_general`)."""
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
     check_batch(x.ndim, get_w)
@@ -125,17 +171,10 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
 
     nbins = params['omax'] + 1
     scatter_rule(nbins, 2 * np.dtype(dtype).itemsize)
-    xh, n_up, n1 = cwt_spectrum(_as_signal(x, dtype, device), padtype, 5)
-    if get_w:
-        Wx, w2 = cwt_w2(xh, scales_t, wavelet, n_up, n1, N, dt,
-                        float(gamma))
-        Tx = indexed_sum_onfly(_apply_squeezing(Wx, squeezing), w2, None,
-                               const_t, params=params, flipud=flipud,
-                               device=device)
-    else:
-        Wx, k = cwt_bins2(xh, scales_t, wavelet, n_up, n1, N, dt, params,
-                          float(gamma), flipud)
-        Tx = scatter_kv(_apply_squeezing(Wx, squeezing), k, const_t, nbins)
+    Tx, Wx, w2 = wsst2_tx(
+        _as_signal(x, dtype, device), padtype, scales_t, wavelet, N, dt,
+        float(gamma), params, flipud,
+        lambda W: _apply_squeezing(W, squeezing), const_t, get_w)
 
     ssq_freqs_out = np.asarray(plan.ssq_freqs)[::-1].copy()
     scales_out = plan.scales.squeeze()

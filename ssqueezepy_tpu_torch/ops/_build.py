@@ -22,7 +22,7 @@ __all__ = ['load', 'build_all', 'check', 'SOURCES']
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD = os.path.join(os.path.dirname(_PKG), 'build')
-SOURCES = ('cwt_bins', 'scatter_kv', 'stft_conv')
+SOURCES = ('cwt_bins', 'scatter_kv', 'stft_conv', 'ridge_dp')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 
@@ -98,6 +98,13 @@ _SIGNATURES = {
         (('scatter_occupancy',), [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)],
     'stft_conv': [(('stft_conv_f32', 'stft_conv_f64'),
                    [ctypes.c_void_p] * 10)],
+    'ridge_dp': [
+        (('ridge_forward_f32', 'ridge_forward_f64'),
+         [ctypes.c_void_p] * 2 + [ctypes.c_double] + [ctypes.c_int] * 3
+         + [ctypes.c_void_p] * 2),
+        (('ridge_trace_f32', 'ridge_trace_f64'),
+         [ctypes.c_void_p] * 3 + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
+         + [ctypes.c_void_p] * 2)],
 }
 
 

@@ -37,9 +37,10 @@ for a power-of-two n_up, the mixed-radix (4, 2, 3, 5, 7) passes of
 most 7; design and bound are noted in the source. `cwt_length_rule` is
 the kernel's one rule on the length, checked on every device (by each
 wrapper, and by the models before the signal's FFT): `four_step` takes
-the 7-smooth n_up (another raises naming A6b) and `bins_plan` sizes
-either engine for the mode's planes, one column per block at most
-`_SMEM_MAX` bytes (beyond it raises naming C1b).
+the 7-smooth n_up (`kernel_length`; another raises, and the public entry
+points route such lengths to the general path before anything runs) and
+`bins_plan` sizes either engine for the mode's planes, one column per
+block at most `_SMEM_MAX` bytes (beyond it raises naming C1b).
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors. Where autograd records and xh or the scales
@@ -76,7 +77,8 @@ from .phase import cdiv, cmul, div_tiny
 
 __all__ = ['cwt_bins', 'cwt_bins_plain', 'cwt_fused', 'cwt_fused_plain',
            'cwt_bins2', 'cwt_bins2_plain', 'cwt_w2', 'wsst2_rows',
-           'wavelet_table', 'four_step', 'bins_plan', 'cwt_length_rule',
+           'wavelet_table', 'kernel_length', 'four_step', 'bins_plan',
+           'cwt_length_rule',
            'smem_index', 'swz', 'CwtBinsGrad', 'CwtFusedGrad',
            'CwtBins2Grad', 'CwtW2Grad']
 
@@ -107,6 +109,22 @@ _TABLE_SLOTS = 4
 _TABLES = collections.OrderedDict()
 
 
+def kernel_length(n_up):
+    """True where the CWT kernel's DFT engines take the padded length:
+    n_up >= 4 with no prime factor above 7 (the JAX package's kernel gate
+    `cwt_pallas_applicable` likewise looks at n_up). The entry points
+    decide their route by it before the signal's FFT: another n_up runs
+    the general path (`models/cwt.py::cwt_general`, and for order 2
+    `models/ssq_cwt2.py::wsst2_general`), as the JAX package's XLA
+    branch runs it."""
+    n_up = int(n_up)
+    r = n_up
+    for p in (2, 3, 5, 7):
+        while r and r % p == 0:
+            r //= p
+    return n_up >= 4 and r == 1
+
+
 @functools.lru_cache(maxsize=256)
 def four_step(n_up):
     """(f1, f2) with n_up = f1 * f2, f1 >= f2: for a power of two both
@@ -114,17 +132,15 @@ def four_step(n_up):
     other n_up >= 4 whose prime factors are at most 7, the split whose
     larger factor is smallest, as `ssqueezepy_tpu/ops/fft.py::_factorize`
     splits (the mixed engine; 160000 = 400 x 400, 99225 = 315 x 315).
-    Any other length raises: this is the CWT kernel's one length rule."""
+    Any other length raises (`kernel_length`): this is the CWT kernel's
+    one length rule."""
     n_up = int(n_up)
-    r = n_up
-    for p in (2, 3, 5, 7):
-        while r and r % p == 0:
-            r //= p
-    if n_up < 4 or r != 1:
+    if not kernel_length(n_up):
         raise NotImplementedError(
             "the CWT kernel takes a padded length n_up >= 4 whose prime "
-            "factors are at most 7 (got %d); other lengths wait for "
-            "ROADMAP.md queue A, A6b" % n_up)
+            "factors are at most 7 (got %d); the public entry points route "
+            "other lengths to the general path (torch.fft, then the "
+            "reassignment kernels)" % n_up)
     lg = n_up.bit_length() - 1
     if (1 << lg) == n_up:
         f1 = 1 << ((lg + 1) // 2)
@@ -212,8 +228,9 @@ def bins_plan(n_up, itemsize, planes):
 def cwt_length_rule(n_up, itemsize, planes):
     """The CWT kernel's one rule on the padded length, checked on every
     device before the signal's FFT and by each wrapper: n_up >= 4 with
-    no prime factor above 7 (`four_step`; another raises naming A6b),
-    whose plan for `planes` planes (1: Wx; 2: bins mode, or Wx and dWx;
+    no prime factor above 7 (`kernel_length`; `four_step` raises on
+    another, which the public entry points route to the general path
+    before they reach this rule), whose plan for `planes` planes (1: Wx; 2: bins mode, or Wx and dWx;
     5: order 2) of complex elements of `itemsize` bytes fits one block's
     shared memory (`bins_plan`; beyond it raises naming C1b). On the
     radix-4 engine that takes n_up up to 2^28, 2^26 and 2^24 for 1, 2

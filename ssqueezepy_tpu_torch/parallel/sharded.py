@@ -29,8 +29,9 @@ import numpy as np
 import torch
 
 from ..configs import device_dtype
-from ..models.cwt import (cwt_general, cwt_spectrum, padded_signal,
-                          resolve_wavelet, _cached_scales, _kernel_route)
+from ..models.cwt import (cwt_general, cwt_spectrum, padded_length,
+                          padded_signal, resolve_wavelet, _cached_scales,
+                          _kernel_route)
 from ..models.ssq_cwt import _device_plan, _ssq_cwt_plan
 from ..models.ssqueezing import _apply_squeezing, _check_ssqueezing_args
 from ..ops.cwt_cuda import cwt_bins, cwt_fused
@@ -178,7 +179,8 @@ class ShardedSSQCWT(_ScaleSharded):
                              self.device)
         lo, hi = self.rows
         self._scales, self._const = sc[lo:hi], c[lo:hi]
-        self._kernel = _kernel_route(self.wavelet)
+        self._kernel = _kernel_route(self.wavelet,
+                                     padded_length(self.N, self.padtype))
 
     def _rows(self, xt):
         sc, c, N, dt = self._scales, self._const, self.N, self.dt
@@ -234,7 +236,7 @@ def sharded_cwt(x, wavelet='gmw', scales='log-piecewise', nv=32, fs=1.,
     xt = batch_block(x, mesh, dtype, device)
     if hi == lo:
         Wx = no_rows(xt, (xt.shape[0], 0, N))
-    elif _kernel_route(wavelet):
+    elif _kernel_route(wavelet, padded_length(N, padtype)):
         xh, n_up, n1 = cwt_spectrum(xt, padtype, 1)
         xh, one = _one_signal(xh)
         Wx, = _rebatch(one, cwt_fused(xh, sc, wavelet, n_up, n1, N, 1.,

@@ -9,12 +9,12 @@ regression and the bins of w2 in one launch pair) on its `row_block` of
 the scales, scatters its partial Tx into the full bin space (B2), and one
 sum over 'scale' completes the reassignment. (The JAX package runs its
 XLA twin `_wsst2_rows` and `compute_bins` here; B8's bins equal the bins
-of that w2.)
+of that w2.) At a padded length with a prime factor above 7 (`padtype=
+None`) each rank runs the torch WSST2 rows and the generic scatter by the
+bins of w2 (B5): the route `models/ssq_cwt2.py::wsst2_tx` takes for
+`ssq_cwt2` too.
 """
-from ..models.cwt import cwt_spectrum
-from ..models.ssq_cwt2 import _supports_order2
-from ..ops.cwt_cuda import cwt_bins2
-from ..ops.ssq_cuda import scatter_kv
+from ..models.ssq_cwt2 import _supports_order2, wsst2_tx
 from ..streaming import _one_signal, _rebatch
 from .sharded import ShardedSSQCWT
 
@@ -43,10 +43,8 @@ class ShardedSSQCWT2(ShardedSSQCWT):
             raise NotImplementedError("ShardedSSQCWT2 %s" % why)
 
     def _rows(self, xt):
-        xh, n_up, n1 = cwt_spectrum(xt, self.padtype, 5)
-        xh, one = _one_signal(xh)
-        W, k = _rebatch(one, *cwt_bins2(
-            xh, self._scales, self.wavelet, n_up, n1, self.N, self.dt,
-            self.params, self.gamma, self.flipud))
-        return scatter_kv(self._squeeze(W), k, self._const, self.nbins), W
-
+        xt, one = _one_signal(xt)
+        Tx, W, _ = wsst2_tx(xt, self.padtype, self._scales, self.wavelet,
+                            self.N, self.dt, self.gamma, self.params,
+                            self.flipud, self._squeeze, self._const)
+        return _rebatch(one, Tx, W)

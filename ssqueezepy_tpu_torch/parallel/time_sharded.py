@@ -129,7 +129,8 @@ class _TimeSharded:
         self.n_lo, self.n_hi = _row_split(self.wavelet, plan.scales, self.N,
                                           self.halo, halo_mult)
         self.g_nup, self.g_n1, _ = pad_params(self.N, 'reflect')
-        self._kernel = _kernel_route(self.wavelet)
+        self._kernel = all(_kernel_route(self.wavelet, n)
+                           for n in (self.n_up, self.g_nup))
         itemsize = 2 * np.dtype(self.dtype).itemsize
         scatter_rule(self.nbins, itemsize)
         if self._kernel:

@@ -343,7 +343,7 @@ class StreamingSSQCWT(_StreamingBase):
         """The route and its plan constants: the kernel's length rule for
         its planes, the scatter's for nbins, and the wavelet table where
         the kernel reads one (any wavelet but the order-0 GMW)."""
-        self._kernel = order2 or _kernel_route(self.wavelet)
+        self._kernel = order2 or _kernel_route(self.wavelet, self.n_up)
         itemsize = 2 * np.dtype(self.dtype).itemsize
         if self._kernel:
             cwt_length_rule(self.n_up, itemsize,

@@ -164,7 +164,6 @@ class StreamingMultirateSSQCWT(_StreamingBase):
         h, c = self.history, self.chunk
         tdt = getattr(torch, self.dtype)
         itemsize = 2 * np.dtype(self.dtype).itemsize
-        self._kernel = _kernel_route(self.wavelet)
         self._hfir = halfband_fir(self.taps)
         synth = getattr(self.wavelet.fn, 'kernel_params', None) is not None
         Wn = h + c + self.lookahead
@@ -184,16 +183,18 @@ class StreamingMultirateSSQCWT(_StreamingBase):
                 for _ in range(j):
                     n = (n - self.taps + 1 + 1) // 2
             n_up = next_fft_len(n)
-            if self._kernel:
+            kernel = _kernel_route(self.wavelet, n_up)
+            if kernel:
                 cwt_length_rule(n_up, itemsize, 2 if self.ssq else 1)
             plans.append(dict(
                 j=j, scales=scales, span=span, n1=n1, N=N, crop=crop,
-                n_up=n_up, dt=self.dt * 2 ** j,
+                n_up=n_up, dt=self.dt * 2 ** j, kernel=kernel,
                 pad=(_pad_index(n, 0, n_up - n, 'reflect', self.device)
                      if n_up > n else None),
                 table=(wavelet_table(self.wavelet, scales, n_up)
-                       if self._kernel and not synth else None)))
+                       if kernel and not synth else None)))
         self._plans = plans
+        self._kernel = all(p['kernel'] for p in plans)
         if self.ssq:
             scatter_rule(self.nbins, itemsize)
 
@@ -202,7 +203,7 @@ class StreamingMultirateSSQCWT(_StreamingBase):
         columns [n1, n1 + N) of its padded window `wj`."""
         if p['pad'] is not None:
             wj = wj.index_select(-1, p['pad'])
-        if not self._kernel:
+        if not p['kernel']:
             return cwt_general(wj, self.wavelet, p['scales'], p['n1'],
                                p['N'], p['dt'], self.ssq, True)
         xh, one = _one_signal(rfft(wj).contiguous())

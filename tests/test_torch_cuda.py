@@ -33,8 +33,12 @@ block; one row; bins from 1 to the most the launch plan takes), and the
 launch plan's shared bytes and blocks per SM the kernel's and the
 runtime's. The CWT kernel's mixed engine (n_up 7-smooth, not a power of
 two; `padtype=None`) the same as its radix-4 one, on its own counters;
-a length with a prime factor above 7 raises naming A6b and launches
-nothing. The w2 modes of B8 (`cwt_w2`, both engines) and B7 (`fsst2_w`)
+at a length with a prime factor above 7 the public calls launch no CWT
+kernel: `cwt_general` or `wsst2_general`, then only B4 or B5, against
+the same call on the CPU, and the CWT kernel's wrapper raises on it. The
+ridge dynamic program (`ridge_forward`, `ridge_trace`) against its plain
+versions on planted inputs: pe bit-identical, the indices equal, float32
+and float64, one launch each for a batch. The w2 modes of B8 (`cwt_w2`, both engines) and B7 (`fsst2_w`)
 against their plain versions (`wsst2_rows`, `fsst2_rows`): W/V as above,
 w2 with the same inf cells (float64; float32 on all but 0.1% of cells)
 and its finite cells within 1e-9 of max in float64; W/V bit-identical to
@@ -1331,20 +1335,23 @@ def test_mixed_public_calls_on_card(dev):
 
 
 def test_mixed_length_rule_launches_nothing(dev):
-    """A length with a prime factor above 7 (2002 = 2 7 11 13) raises
-    naming A6b on the card before any kernel launches."""
+    """A length with a prime factor above 7 (2002 = 2 7 11 13): the CWT
+    kernel's wrapper raises on it before any launch, naming the general
+    path, and the public calls take that path, launching no CWT kernel
+    (more in `test_general_route_counters`)."""
     x = np.random.default_rng(22).standard_normal(2002).astype(np.float32)
+    c0 = _mixed_counts()
+    with pytest.raises(NotImplementedError, match='general path'):
+        cwt_fused(torch.zeros(1002, dtype=torch.complex64, device=dev),
+                  torch.ones(3, device=dev), None, 2002, 0, 2002, 1., False,
+                  True)
     for fn in (lambda: stq.ssq_cwt(x, padtype=None),
                lambda: stq.cwt(x, padtype=None),
-               lambda: stq.ssq_cwt2(x, padtype=None),
-               lambda: cwt_fused(torch.zeros(1002, dtype=torch.complex64,
-                                             device=dev),
-                                 torch.ones(3, device=dev), None, 2002, 0,
-                                 2002, 1., False, True)):
-        c0 = _mixed_counts()
-        with pytest.raises(NotImplementedError, match='A6b'):
-            fn()
-        assert _mixed_counts() == c0
+               lambda: stq.ssq_cwt2(x, padtype=None)):
+        out = fn()
+        torch.cuda.synchronize()
+        assert out[0].is_cuda and out[0].shape[-1] == 2002
+    assert _mixed_counts() == c0
 
 
 # ---- the w2 modes of B8 and B7 (get_w of ssq_cwt2 and ssq_stft2) -------
@@ -1959,3 +1966,172 @@ def test_function_grad_on_card(dev, name):
             assert a is None or not a.abs().max()
         else:
             assert _rel_err(a, b) <= 1e-5, _rel_err(a, b)
+
+
+# ---- the general routes at a length with a prime factor above 7 --------
+def _route_counts():
+    from ssqueezepy_tpu_torch.models.cwt import cwt_general
+    from ssqueezepy_tpu_torch.models.ssq_cwt2 import wsst2_general
+    return dict(general=cwt_general.calls, wsst2=wsst2_general.calls,
+                b4=ssq_fused.launches, b5=shift_scatter.launches,
+                b2=scatter_kv.launches, cwt=sum(_mixed_counts()),
+                w2=cwt_cuda.cwt_w2.launches
+                + cwt_cuda.cwt_w2.mixed_launches)
+
+
+@pytest.mark.parametrize('name,fn,want', [
+    ('ssq_cwt', lambda x, **d: stq.ssq_cwt(x, padtype=None, **d),
+     dict(general=1, b4=1)),
+    ('ssq_cwt get_w', lambda x, **d: stq.ssq_cwt(x, padtype=None,
+                                                 get_w=True, **d),
+     dict(general=1, b5=1)),
+    ('ssq_cwt get_dWx', lambda x, **d: stq.ssq_cwt(x, padtype=None,
+                                                   get_dWx=True, **d),
+     dict(general=1, b4=1)),
+    ('ssq_cwt batch', lambda x, **d: stq.ssq_cwt(np.stack([x, x[::-1]]),
+                                                 padtype=None, **d),
+     dict(general=1, b4=1)),
+    ('cwt', lambda x, **d: stq.cwt(x, padtype=None, **d), dict(general=1)),
+    ('ssq_cwt2', lambda x, **d: stq.ssq_cwt2(x, padtype=None, **d),
+     dict(wsst2=1, b5=1)),
+    ('ssq_cwt2 get_w', lambda x, **d: stq.ssq_cwt2(x, padtype=None,
+                                                   get_w=True, **d),
+     dict(wsst2=1, b5=1))])
+def test_general_route_counters(dev, name, fn, want):
+    """At N = 2002 = 2 7 11 13 unpadded, each public call runs its general
+    route (`cwt_general`, or `wsst2_general` for order 2) and then exactly
+    B4 or B5: no CWT kernel, no B2; Wx within 1e-5 of max of the same call
+    on the CPU and Tx by the bins criterion."""
+    x = np.random.default_rng(2002).standard_normal(2002).astype(
+        np.float32)
+    c0 = _route_counts()
+    out = fn(x)
+    torch.cuda.synchronize()
+    dc = {k: v - c0[k] for k, v in _route_counts().items()}
+    assert dc == dict(dict.fromkeys(c0, 0), **want), dc
+    cpu = fn(x, device='cpu')
+    if name == 'cwt':
+        assert _rel_err(out[0].cpu(), cpu[0]) <= 1e-5
+        return
+    assert _rel_err(out[1].cpu(), cpu[1]) <= 1e-5
+    _bins_criterion(out[0].cpu(), cpu[0])
+
+
+# ---- the ridge dynamic program -----------------------------------------
+def _ridge_inputs(B, T, F, dtype, seed, dev):
+    """-log-normalized energy of noise with two planted wandering ridges,
+    time-major (B, T, F), and log-scale row coordinates."""
+    rng = np.random.default_rng(seed)
+    E = rng.random((B, F, T)) * 0.05
+    t = np.arange(T)
+    for b in range(B):
+        for amp, c, w, p in ((1., .3, .2, 300.), (.6, .7, .1, 500.)):
+            r = (F * (c + w * np.sin(2 * np.pi * t / p + b))).astype(int)
+            E[b, np.clip(r, 0, F - 1), t] += amp
+    e = -np.log(E / E.max(axis=1, keepdims=True) + np.finfo(dtype).eps)
+    e = torch.as_tensor(np.ascontiguousarray(
+        e.astype(dtype).transpose(0, 2, 1)), device=dev)
+    v = torch.as_tensor(np.log(np.geomspace(1., 300., F)).astype(dtype),
+                        device=dev)
+    return e, v
+
+
+@pytest.mark.parametrize('B,T,F', [(1, 2000, 293), (3, 700, 40),
+                                   (2, 64, 1100), (1, 1, 5)])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ridge_kernels_vs_plain(dev, B, T, F, dtype):
+    """`ridge_forward` and `ridge_trace` against their plain versions on
+    the card: pe bit-identical, the indices equal; one launch each for the
+    batch (F = 1100 runs more rows than threads per block)."""
+    from ssqueezepy_tpu_torch.ops.ridge_cuda import (
+        ridge_forward, ridge_forward_plain, ridge_trace, ridge_trace_plain)
+    e, v = _ridge_inputs(B, T, F, dtype, B + T, dev)
+    eps = float(np.finfo(dtype).eps)
+    f0, t0 = ridge_forward.launches, ridge_trace.launches
+    pe = ridge_forward(e, v, 2.)
+    r = ridge_trace(pe, e, v, 2., eps)
+    torch.cuda.synchronize()
+    assert (ridge_forward.launches - f0, ridge_trace.launches - t0) == (1, 1)
+    pe_p = ridge_forward_plain(e, v, 2.)
+    assert torch.equal(pe, pe_p)
+    assert torch.equal(r, ridge_trace_plain(pe_p, e, v, 2., eps))
+    assert r.dtype == torch.int64 and r.shape == (B, T)
+
+
+def _ridge_states(Tf, ridges, bw, device):
+    """The DP's input (B, T, F) before each ridge, on `device`, its kill
+    of +-bw rows replayed from `ridges` (B, T, n); returned on the CPU."""
+    from ssqueezepy_tpu_torch.models.ridge_extraction import _normalized
+    a = torch.as_tensor(Tf, device=device).abs()
+    E = a * a
+    rows = torch.arange(E.shape[1], device=device)[:, None]
+    out = []
+    for i in range(ridges.shape[-1]):
+        out.append(_normalized(E, float(np.finfo(np.float32).eps),
+                               torch.float32).cpu())
+        r = torch.as_tensor(ridges[..., i], device=device)
+        E = E.masked_fill((rows >= r[:, None, :] - bw) &
+                          (rows < r[:, None, :] + bw), 0)
+    return out
+
+
+def _hold_ridges_across(Tf, scales, r_card, r_cpu, dev, bw=15):
+    """Each ridge that differs between the card and the CPU: after the
+    same earlier ridges its inputs differ by rounding only (16 eps), and
+    the DP's total penalized energy (min_f pe[T-1, f], plain version)
+    on each side's input agrees within 1e-6 relative."""
+    from ssqueezepy_tpu_torch.ops.ridge_cuda import ridge_forward_plain
+    eps = float(np.finfo(np.float32).eps)
+    s_card = _ridge_states(Tf, r_card, bw, dev)
+    s_cpu = _ridge_states(Tf, r_cpu, bw, 'cpu')
+    v = torch.as_tensor(np.log(scales.astype(np.float32)))
+    for i in range(r_card.shape[-1]):
+        for b in range(r_card.shape[0]):
+            if np.array_equal(r_card[b, :, i], r_cpu[b, :, i]):
+                continue
+            if np.array_equal(r_card[b, :, :i], r_cpu[b, :, :i]):
+                d = (s_card[i][b].double() - s_cpu[i][b].double()).abs()
+                assert 0 < float(d.max()) <= 16 * eps
+            pa, pc = (float(ridge_forward_plain(s[i][b:b + 1], v, 2.)
+                            [0, -1].min()) for s in (s_card, s_cpu))
+            assert abs(pa - pc) <= 1e-6 * abs(pc)
+
+
+def test_extract_ridges_on_card(dev, monkeypatch):
+    """`extract_ridges` on the card: 2 forward + 2 trace launches for two
+    ridges of a (2, na, T) batch, the same indices, ridge_f and ridge_e as
+    the same call with the plain versions in the kernels' place (the same
+    torch energy on the card); against the same call on the CPU by the
+    rule of the CPU tests against the JAX package
+    (`tests/test_torch_analysis.py::_hold_ridges`): where a ridge differs
+    after the same earlier ridges, the two -log-normalized inputs differ
+    by rounding only (within 16 eps), and the DP's total penalized energy
+    on each side's input agrees within 1e-6 relative. The count of cells
+    that differ is printed."""
+    from ssqueezepy_tpu_torch.models import ridge_extraction
+    from ssqueezepy_tpu_torch.ops.ridge_cuda import (
+        ridge_forward, ridge_forward_plain, ridge_trace, ridge_trace_plain)
+    rng = np.random.default_rng(5)
+    na, T = 60, 900
+    Tf = (rng.standard_normal((2, na, T))
+          + 1j * rng.standard_normal((2, na, T))) * .1
+    t = np.arange(T)
+    Tf[:, (20 + 10 * np.sin(t / 50)).astype(int), t] += 3
+    Tf[:, (45 + 5 * np.cos(t / 70)).astype(int), t] += 2
+    Tf = Tf.astype(np.complex64)
+    scales = np.geomspace(1, 64, na)
+    f0, t0 = ridge_forward.launches, ridge_trace.launches
+    out = stq.extract_ridges(Tf, scales, n_ridges=2, get_params=True)
+    assert (ridge_forward.launches - f0, ridge_trace.launches - t0) == (2, 2)
+    cpu = stq.extract_ridges(Tf, scales, n_ridges=2, device='cpu')
+    print("extract_ridges card vs CPU: %d of %d cells differ"
+          % (int((out[0] != cpu).sum()), cpu.size))
+    if not np.array_equal(out[0], cpu):
+        _hold_ridges_across(Tf, scales, out[0], cpu, dev)
+    monkeypatch.setattr(ridge_extraction, 'ridge_forward',
+                        ridge_forward_plain)
+    monkeypatch.setattr(ridge_extraction, 'ridge_trace', ridge_trace_plain)
+    ref = stq.extract_ridges(Tf, scales, n_ridges=2, get_params=True)
+    assert (ridge_forward.launches - f0, ridge_trace.launches - t0) == (2, 2)
+    for a, b in zip(out, ref):
+        assert np.array_equal(a, b)

@@ -141,24 +141,19 @@ def test_icwt_batched_one_integral():
                        atol=1e-5)
 
 
-# padtype=None and rpadded=True are ported at lengths whose prime factors
-# are at most 7 (tests/test_torch_padnone.py); at another length (1001 =
-# 7 11 13) the unpadded transform raises, naming A6b. The higher orders
-# and the other wavelets, which raised here before they were ported, now
-# agree with the JAX package (more of them in
-# tests/test_torch_wavelet_routes.py)
+# padtype=None and rpadded=True at a length with a prime factor above 7
+# (1001 = 7 11 13), the higher orders and the other wavelets, which raised
+# here before they were ported, now agree with the JAX package (the
+# unpadded ones through `cwt_general`; more in tests/test_torch_padnone.py,
+# tests/test_torch_prime_length.py and tests/test_torch_wavelet_routes.py)
 @pytest.mark.parametrize('kw', [
     dict(order=1), dict(rpadded=True, padtype=None), dict(padtype=None),
     dict(wavelet='morlet'), dict(wavelet=('gmw', {'order': 1}))],
     ids=lambda kw: next(iter(kw)) + '=' + str(next(iter(kw.values()))))
 def test_cwt_outside_slice_raises(kw):
     x = _chirp(1001) if 'padtype' in kw else _chirp()
-    if 'padtype' not in kw:
-        assert _rel(tstq.cwt(x, device='cpu', **kw)[0],
-                    jstq.cwt(x, **kw)[0]) <= 1e-5
-        return
-    with pytest.raises(NotImplementedError, match='A6b'):
-        tstq.cwt(x, device='cpu', **kw)
+    assert _rel(tstq.cwt(x, device='cpu', **kw)[0],
+                jstq.cwt(x, **kw)[0]) <= 1e-5
 
 
 def test_cwt_default_device_raises_without_card():

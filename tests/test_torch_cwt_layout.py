@@ -398,12 +398,14 @@ def test_mixed_plan_fits_and_divides(dtype, planes):
 
 def test_length_rule():
     """`four_step` is the kernel's one length rule: n_up >= 4 with no
-    prime factor above 7, every other length raises naming A6b."""
+    prime factor above 7 (`kernel_length`), every other length raises
+    naming the general path that the public calls take for it."""
     for n_up in (4, 5, 6, 7, 49, 3 * 1024, 160000, 99225, 1 << 22):
         f1, f2 = cwt_cuda.four_step(n_up)
         assert f1 * f2 == n_up
     for n_up in (1, 2, 3, 11, 11 * 1024, 13 * 49, 2002, 160000 * 11):
-        with pytest.raises(NotImplementedError, match='A6b'):
+        assert not cwt_cuda.kernel_length(n_up)
+        with pytest.raises(NotImplementedError, match='general path'):
             cwt_cuda.four_step(n_up)
 
 

@@ -115,7 +115,7 @@ def test_four_step_factors():
     # a 7-smooth length that is not a power of two: the mixed engine's
     # split, the larger factor smallest
     assert four_step(3 * 1024) == (64, 48)
-    with pytest.raises(NotImplementedError, match='A6b'):
+    with pytest.raises(NotImplementedError, match='general path'):
         four_step(11 * 1024)
 
 

@@ -430,11 +430,11 @@ def test_ssq_stft2_squeezing_vs_jax(squeezing, dtype):
 # every squeezing and 2-D input are ported (compared with the JAX package
 # above and in test_torch_stft_batch.py), padtype=None at lengths whose
 # prime factors are at most 7 (tests/test_torch_padnone.py), and get_w
-# (tests/test_torch_order2_w.py); padtype=None at another length (1001 =
-# 7 11 13) is not, and get_w on 2-D input raises as the JAX package's
-# ssq_cwt2 does. Morlet, which raised here before it was ported, now
-# agrees with the JAX package (W within 1e-5 of max, Tx by the order-2
-# bins criterion; the other wavelets in
+# (tests/test_torch_order2_w.py); get_w on 2-D input raises as the JAX
+# package's ssq_cwt2 does. padtype=None at another length (1001 = 7 11 13,
+# through `wsst2_general`) and morlet, which raised here before they were
+# ported, now agree with the JAX package (W within 1e-5 of max, Tx by the
+# order-2 bins criterion; more in tests/test_torch_prime_length.py and
 # tests/test_torch_wavelet_routes.py)
 @pytest.mark.parametrize('kw', [
     dict(x2d=True, get_w=True),
@@ -445,20 +445,19 @@ def test_ssq_stft2_squeezing_vs_jax(squeezing, dtype):
 def test_ssq_cwt2_outside_slice_raises(kw):
     kw = dict(kw)
     x = _noise(1001 if 'padtype' in kw else 1000)
-    if kw.get('wavelet') == 'morlet':
+    if not kw.get('x2d'):
         out_t = tstq.ssq_cwt2(x, device='cpu', **kw)
         out_j = jstq.ssq_cwt2(x, **kw)
         assert _rel(out_t[1], out_j[1]) <= TOL['float32']
         _bins2_criterion(out_t[0], out_j[0])
         return
-    if kw.pop('x2d', False):
-        x = np.stack([x, x])
-        with pytest.raises(NotImplementedError,
-                           match='unsupported with batched input'):
-            jstq.ssq_cwt2(x, **kw)
+    kw.pop('x2d')
+    x = np.stack([x, x])
     with pytest.raises(NotImplementedError,
-                       match='ROADMAP' if x.ndim == 1
-                       else 'unsupported with batched input'):
+                       match='unsupported with batched input'):
+        jstq.ssq_cwt2(x, **kw)
+    with pytest.raises(NotImplementedError,
+                       match='unsupported with batched input'):
         tstq.ssq_cwt2(x, device='cpu', **kw)
 
 

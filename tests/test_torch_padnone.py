@@ -6,8 +6,10 @@ i.e. the kernels' plain PyTorch versions) against the JAX package on the
 CPU, at lengths whose prime factors are at most 7, even and odd
 (3000 = 2^3 3 5^3, 4410 = 2 3^2 5 7^2, 4725 = 3^3 5^2 7) and a power of
 two (2048); the plain versions at such an n_up against `np.fft`; the
-length rule (a prime factor above 7 raises naming A6b on every device);
-and the plan's memo on disk.
+length rule (a prime factor above 7 takes the general path through the
+public calls, and raises naming it where the kernel's rule is called
+directly; more in tests/test_torch_prime_length.py); and the plan's
+memo on disk.
 
 Tolerances: Wx and dWx within 2e-5 of their max in float32 and 1e-9 in
 float64; Tx by the bins criterion in float32 (column sums within 1e-4 of
@@ -28,7 +30,7 @@ from ssqueezepy_tpu_torch.models import ssq_cwt as tssq_cwt
 from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
 from ssqueezepy_tpu_torch.models.wavelets import _xifn
 from ssqueezepy_tpu_torch.ops.cwt_cuda import (cwt_bins_plain, cwt_fused,
-                                               wsst2_rows)
+                                               cwt_length_rule, wsst2_rows)
 from ssqueezepy_tpu_torch.ops.phase import phase_cwt_num
 from ssqueezepy_tpu_torch.ops.ssq_kernels import ssq_bin_params
 from torch_jax_reference import xla_reference  # noqa: F401
@@ -273,12 +275,22 @@ def test_plain_versions_at_a_mixed_n_up(n_up):
 
 @pytest.mark.parametrize('fn', ['ssq_cwt', 'cwt', 'ssq_cwt2'])
 def test_length_rule_names_a6b(fn):
-    """A length with a prime factor above 7 (2002 = 2 7 11 13) raises
-    naming A6b on the CPU as on the card, before anything runs; the same
+    """A length with a prime factor above 7 (2002 = 2 7 11 13) runs the
+    general path unpadded (`cwt_general` or `wsst2_general`, chosen by the
+    length before anything runs) and agrees with the JAX package, while
+    the kernel's own rule still raises on it, naming that path; the same
     length padded (n_up a power of two) runs."""
     x = _noise(2002, 'float32')
-    with pytest.raises(NotImplementedError, match='A6b'):
-        getattr(tstq, fn)(x, padtype=None, nv=16, device='cpu')
+    with pytest.raises(NotImplementedError, match='general path'):
+        cwt_length_rule(2002, 8, 5 if fn == 'ssq_cwt2' else 2)
+    out_t, out_j = _both(fn, x, 'float32', padtype=None, nv=16)
+    assert out_t[0].shape == _np(out_j[0]).shape
+    assert out_t[0].shape[-1] == 2002
+    if fn == 'cwt':
+        assert _rel(out_t[0], out_j[0]) <= TOL['float32']
+    else:
+        assert _rel(out_t[1], out_j[1]) <= TOL['float32']
+        _tx_close(out_t[0], out_j[0], 'float32')
     out = getattr(tstq, fn)(x, nv=16, device='cpu')
     assert out[0].shape[-1] == 2002
 

@@ -276,6 +276,21 @@ def test_sharded_ssq_cwt2(world):
     bins_criterion(Tx, Tt)
 
 
+def test_sharded_prime_length(world):
+    """`padtype=None` at N = 521 (a prime): every block on the general
+    route (`cwt_general`, `wsst2_general`), against the one-device port
+    (held against the JAX package in tests/test_torch_prime_length.py)."""
+    x = w.noise((4, 521))
+    kw = dict(wavelet=w.G32, scales='log', nv=16, padtype=None)
+    close(world['cwt_prime'], one_device(tstq.cwt, x, **kw)[0])
+    for name, fn in (('ssq_prime', tstq.ssq_cwt),
+                     ('cwt2_prime', tstq.ssq_cwt2)):
+        Tx, Wx = world[name]
+        Tt, Wt, *_ = one_device(fn, x, **kw)
+        close(Wx, Wt)
+        bins_criterion(Tx, Tt)
+
+
 @pytest.mark.parametrize('scales', ['log', 'log-piecewise', 'linear'])
 def test_sharded_icwt_roundtrip(world, scales):
     xb = w.tones()

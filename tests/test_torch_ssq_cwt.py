@@ -157,11 +157,12 @@ def test_default_device_cuda_raises_without_card():
 
 # 2-D input, every squeezing, get_dWx, get_w ('trig', 'phase', 'numeric')
 # and padtype=None at lengths whose prime factors are at most 7 are ported
-# (tests/test_torch_squeezing.py, tests/test_torch_padnone.py); padtype=None
-# at another length (1001 = 7 11 13) raises naming A6b, whatever the other
-# options. Order > 0 and the other wavelets, which raised here before they
-# were ported, now agree with the JAX package (Wx within 1e-5 of max, Tx
-# by the bins criterion; more in tests/test_torch_wavelet_routes.py)
+# (tests/test_torch_squeezing.py, tests/test_torch_padnone.py). padtype=None
+# at another length (1001 = 7 11 13), order > 0 and the other wavelets,
+# which raised here before they were ported, now agree with the JAX
+# package (Wx within 1e-5 of max, Tx by the bins criterion; the unpadded
+# ones through `cwt_general`; more in tests/test_torch_prime_length.py and
+# tests/test_torch_wavelet_routes.py)
 @pytest.mark.parametrize('kw', [
     dict(order=1), dict(get_w=True, difftype='numeric', padtype=None),
     dict(squeezing='abs', get_dWx=True, padtype=None),
@@ -178,13 +179,13 @@ def test_outside_slice_raises(kw):
     x = _noise()[:1001] if unpadded else _noise()
     if kw.pop('x2d', False):
         x = np.stack([x, x])
-    if not unpadded:
-        out_t = tstq.ssq_cwt(x, device='cpu', astensor=False, **kw)
-        out_j = jstq.ssq_cwt(x, astensor=False, **kw)
-        assert len(out_t) == len(out_j)
-        assert np.abs(out_t[1] - out_j[1]).max() <= \
-            1e-5 * np.abs(out_j[1]).max()
+    out_t = tstq.ssq_cwt(x, device='cpu', astensor=False, **kw)
+    out_j = jstq.ssq_cwt(x, astensor=False, **kw)
+    assert len(out_t) == len(out_j)
+    assert np.abs(out_t[1] - out_j[1]).max() <= \
+        1e-5 * np.abs(out_j[1]).max()
+    if x.ndim == 2:
+        for b in range(2):
+            _bins_criterion(out_t[0][b], out_j[0][b])
+    else:
         _bins_criterion(out_t[0], out_j[0])
-        return
-    with pytest.raises(NotImplementedError, match='A6b'):
-        tstq.ssq_cwt(x, device='cpu', **kw)

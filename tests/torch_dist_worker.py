@@ -107,6 +107,15 @@ def scale_world(rank, world, b, s):
     p = par.ShardedSSQCWT2(512, G32, 'log', nv=16, mesh=mesh)
     Tx, Wx = p.gather(*p(x))
     out['cwt2'] = (_np(Tx), _np(Wx))
+    # unpadded at a prime length: the general routes on every block
+    xp = noise((4, 521))
+    Wx, _ = par.sharded_cwt(xp, G32, 'log', nv=16, mesh=mesh, padtype=None)
+    out['cwt_prime'] = _np(Wx)
+    for name, cls in (('ssq_prime', par.ShardedSSQCWT),
+                      ('cwt2_prime', par.ShardedSSQCWT2)):
+        p = cls(521, G32, 'log', nv=16, mesh=mesh, padtype=None)
+        Tx, Wx = p.gather(*p(xp))
+        out[name] = (_np(Tx), _np(Wx))
 
     # the inverses on the forward's shards
     xt = tones()
