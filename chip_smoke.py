@@ -221,7 +221,11 @@ with a prime factor above 7 (section 10b); and the analysis layer,
      against their plain versions on the first 8192 columns and at the
      full 160000 (pe bit-identical, the indices equal), each timed at
      160000 (CUDA events, 3 after one warm-up) with its plain version
-     (one run) and its bound, and the public call (host clock, 3); then
+     (one run) and its bound, and the public call (host clock, 3); the
+     launch plan (`ridge_plan`: the forward's cluster of 8 CTAs, P in
+     registers, the clusters that fit the card at once; the trace's
+     rings), the forward at 16 CTAs (bit-identical, timed) and its
+     per-column floor at (1, 160000, 8), beside its bound; then
      `experimental.phase_ssqueeze` from `ssq_cwt(get_dWx=True)`'s Wx and
      dWx (`get_w=True`): B5 alone, against `ssq_cwt(get_w=True)`'s Tx by
      the bins criterion, timed;
@@ -1627,15 +1631,21 @@ def analysis_section(stq, dev, card, counters, x_np, spec, scales,
     two known frequency laws; the ridge kernels against their plain
     versions on the first 8192 columns and at the full length (pe
     bit-identical, the indices equal), each timed at the full length
-    beside its plain version and its bound; `experimental.phase_ssqueeze` from `ssq_cwt(get_dWx=True)`'s
+    beside its plain version and its bound; the forward's plan (cluster
+    size, P in registers, trace rings), the forward also at 16 CTAs
+    (bit-identical) and its per-column floor at F = 8;
+    `experimental.phase_ssqueeze` from `ssq_cwt(get_dWx=True)`'s
     planes, on B5 alone, against `ssq_cwt(get_w=True)` by the bins
     criterion. Returns (the kernel rows, launches per counter)."""
+    import ctypes
     import torch
     from ssqueezepy_tpu_torch.models.ridge_extraction import _normalized
     from ssqueezepy_tpu_torch.models.test_signals import (_law_exp,
                                                           _law_linear)
+    from ssqueezepy_tpu_torch.ops import _build
     from ssqueezepy_tpu_torch.ops.ridge_cuda import (
-        ridge_forward, ridge_forward_plain, ridge_trace, ridge_trace_plain)
+        ridge_forward, ridge_forward_plain, ridge_plan, ridge_trace,
+        ridge_trace_plain)
     N = 160000
     eps = float(np.finfo(np.float32).eps)
     ts = stq.TestSignals(N=N)
@@ -1689,11 +1699,42 @@ def analysis_section(stq, dev, card, counters, x_np, spec, scales,
           "indices equal (max |dpe| %.3g, max |dr| %d)"
           % (len(scales), err_f, err_t))
     # times at the full length: the kernels (CUDA events, 3 after one
-    # warm-up), their plain versions (one run each) and the public call
+    # warm-up) at the plan's cluster and at 16 CTAs, the per-column floor
+    # (F = 8: a column's work negligible, the chain of one DSMEM store and
+    # one cluster barrier), their plain versions (one run each) and the
+    # public call
     e = _normalized(E, eps, torch.float32)
     F, T = e.shape[-1], e.shape[-2]
+    plan, plan16 = ridge_plan(F, 4), ridge_plan(F, 4, clusters=16)
+    occ = []
+    for p in (plan, plan16):
+        n = ctypes.c_int(0)
+        _build.check(_build.load('ridge_dp').ridge_forward_clusters(
+            4, p.clusters, int(p.resident), p.warps, p.forward_smem,
+            ctypes.addressof(n)), 'ridge_forward_clusters')
+        occ.append(n.value)
+    print("ridge plan at F = %d float32: forward cluster of %d CTAs (%d rows "
+          "each, %d warps, P %s, %d B of shared memory; %d such clusters fit "
+          "the card at once; 16 CTAs: %d rows, P %s, %d fit), trace rings of "
+          "%d pe and %d e slots of %d rows (%d B slots, %d B)"
+          % (F, plan.clusters, plan.rows, plan.warps,
+             'in registers' if plan.resident else 'recomputed',
+             plan.forward_smem, occ[0], plan16.rows,
+             'in registers' if plan16.resident else 'recomputed', occ[1],
+             plan.trace_depth, plan.trace_e_depth, plan.trace_rows,
+             plan.trace_slot, plan.trace_smem), flush=True)
+    check(min(occ) >= 1 and plan.clusters >= 2, "ridge forward: a cluster of "
+          "%d CTAs (and of 16) fits the card" % plan.clusters)
     fw_ms = cuda_ms(lambda: ridge_forward(e, v, 2.), reps=3, warm=1)
+    fw16_ms = cuda_ms(lambda: ridge_forward(e, v, 2., plan=plan16), reps=3,
+                      warm=1)
     pe = ridge_forward(e, v, 2.)
+    check(torch.equal(ridge_forward(e, v, 2., plan=plan16), pe),
+          "ridge forward at 16 CTAs bit-identical to %d CTAs at (1, %d, %d)"
+          % (plan.clusters, T, F))
+    ef = e[..., :8].contiguous()
+    floor_ms = cuda_ms(lambda: ridge_forward(ef, v[:8], 2.), reps=3, warm=1)
+    del ef
     tr_ms = cuda_ms(lambda: ridge_trace(pe, e, v, 2., eps), reps=3, warm=1)
     r = ridge_trace(pe, e, v, 2., eps)
     torch.cuda.synchronize()
@@ -1720,16 +1761,21 @@ def analysis_section(stq, dev, card, counters, x_np, spec, scales,
     # bytes (e in, pe out); the trace's bytes (pe read once, e and the
     # index per column)
     fw_bound, fw_by = bound(2 * T * F * 4, 2 * (T - 1) * F * F)
+    fl_bound, fl_by = bound(2 * T * 8 * 4, 2 * (T - 1) * 8 * 8)
     tr_bound, tr_by = bound(T * F * 4 + 2 * T * 4, 4 * T * F)
-    print("ridge_forward at (1, %d, %d) float32: %.3f ms (%.3f us per "
-          "column; plain %.1f ms; bound %.3f ms by %s); ridge_trace %.3f ms "
-          "(%.3f us per column; plain %.1f ms; bound %.3f ms by %s); "
-          "extract_ridges (2 ridges) %.1f ms end to end (host clock, mean "
-          "of 3 after one warm-up), peak %.3f GB above what the script "
-          "holds; card: %s"
-          % (T, F, fw_ms, fw_ms * 1e3 / (T - 1), fw_plain, fw_bound, fw_by,
-             tr_ms, tr_ms * 1e3 / (T - 1), tr_plain, tr_bound, tr_by, e2e,
-             gb, card), flush=True)
+    print("ridge_forward at (1, %d, %d) float32: %.3f ms at %d CTAs per "
+          "cluster (%.3f us per column; plain %.1f ms; bound %.3f ms by %s), "
+          "%.3f ms at 16 CTAs (%.3f us per column); per-column floor at "
+          "(1, %d, 8): %.3f ms (%.3f us per column; bound %.4f ms by %s); "
+          "ridge_trace %.3f ms (%.3f us per column; plain %.1f ms; bound "
+          "%.3f ms by %s); extract_ridges (2 ridges) %.1f ms end to end "
+          "(host clock, mean of 3 after one warm-up), peak %.3f GB above "
+          "what the script holds; card: %s"
+          % (T, F, fw_ms, plan.clusters, fw_ms * 1e3 / (T - 1), fw_plain,
+             fw_bound, fw_by, fw16_ms, fw16_ms * 1e3 / (T - 1), T, floor_ms,
+             floor_ms * 1e3 / (T - 1), fl_bound, fl_by, tr_ms,
+             tr_ms * 1e3 / (T - 1), tr_plain, tr_bound, tr_by, e2e, gb,
+             card), flush=True)
     del E, e, pe, e8, pe8, pe8_p, Tx
     torch.cuda.empty_cache()
     # phase_ssqueeze from (Wx, dWx) against ssq_cwt(get_w=True)

@@ -21,33 +21,70 @@
 // (~640000 per pass at T = 160000).
 //
 // Exactness. pe must be bit-identical to the plain version
-// (ops/ridge_cuda.py::ridge_forward_plain): P is computed per use with
+// (ops/ridge_cuda.py::ridge_forward_plain): P is computed with
 // round-to-nearest intrinsics in the plain version's order (d = v_f - v_g;
 // pen * (d * d); then pe + P; then e + min), so no FMA contraction can
-// creep in. The min is exact; a NaN among the candidates makes the min
-// NaN, as torch.amin and jnp.min do. The argmin treats NaN as the least
-// value and takes the first occurrence, as torch.argmin and jnp.argmin do.
+// creep in; a P kept in registers holds the same rounded values. The min
+// is exact and its order free (where -0 and +0 tie for it, its sign is
+// as unspecified as in torch); a NaN among the candidates makes the min
+// NaN, as torch.amin and jnp.min do (min.NaN.f32 for float, a flag for
+// double). The argmin treats NaN as the least value, -0 and +0 as equal,
+// and takes the first occurrence, as torch.argmin and jnp.argmin do.
 //
 // Bound. The function needs B (T - 1) F^2 min-plus pairs (an add and a
 // min: 2 operations each; at T = 160000, F = 293 about 2.7e10, 0.41 ms at
 // 67 TFLOP/s) and moves e in and pe out (2 B T F elements, 0.11 ms at
 // 3.35 TB/s): operations bound it. The trace reads pe once (and e along
-// the path): bytes bound it (0.06 ms at that shape).
+// the path): bytes bound it (0.06 ms at that shape). Neither bound is in
+// reach: the T columns are sequential, so each column's latency (a
+// barrier, a copy, a reduction) is paid T times.
 //
-// Design (simple first). The steps are sequential, so one thread block
-// per batch row does all of them: the forward keeps the previous and the
-// current row and v in shared memory, threads over f, each thread's min
-// over g in four partial minima from 128-bit broadcast loads, and one
-// __syncthreads per step; P is recomputed per use (3 operations per
-// pair), since F x F does not fit in shared memory (343 KB at F = 293
-// in float). One SM therefore runs the whole pass: ~1-3 us per step. The
-// trace is a second launch, one block per batch row: each step's rows of
-// pe and e are copied into a double buffer with cp.async one step ahead,
-// and a block reduction per step gives the last qualifying f and the
-// argmin. A cluster that splits f over several SMs (distributed shared
-// memory) is later work (ROADMAP.md, parked performance list).
+// Forward design: one thread-block cluster of C = 8 CTAs per batch row
+// (portable; 16 measured slower at (1, 160000, 293) on an H100, PERF.md
+// §6: a column's chain is latency, not work, and 16 CTAs lengthen it).
+// CTA c owns rows [c R, min(F, (c + 1) R)), R = ceil(F / C); each warp a
+// row pair, its lanes 16-byte pieces of g. Where F <= 384 the pair's rows
+// of P live in the warp's registers, computed once, and every lane takes
+// three pieces (those past the row repeat its last: no branch); re-read
+// from shared memory, the CTA's 37 x 296 slice at F = 293 would cost ~340
+// cycles of bandwidth a column. Else P is recomputed per use (a
+// compile-time mode). Each lane keeps four partial minima a row; one
+// redux.sync on order-preserving integer keys gives the row's min (a vote
+// the NaN; double: a shuffle tree). Column t goes by st.async into buffer
+// t % 3 of every CTA of the cluster (distributed shared memory), counted
+// by that buffer's mbarrier (complete-tx): one wait per column, no
+// cluster barrier (st.shared::cluster and a cluster barrier per column,
+// with two buffers, measured slower while this kernel was written). The
+// three buffers make the data dependence the only guard: a
+// CTA writes buffer t % 3 of a peer only after that peer's column t - 1,
+// which came after its last read of the buffer. e comes three columns
+// ahead by cp.async into a 4-slot ring of the warp's rows. Lanes below 16
+// send, lanes 16-30 copy e in and pe out (a column late, from shared
+// memory), thread 31 re-arms the mbarriers: no global access precedes a
+// release in its thread. A cluster barrier after start-up and one at the
+// end (after the last column has landed) guard the peers' memory; every
+// CTA, one with no rows too, takes part.
+//
+// Trace design: one block of two warps per batch row. Warp 1 (one lane)
+// is the producer: groups of G consecutive rows of pe and of e (up to 16
+// rows, ~16 KB; contiguous in memory) in reverse time order, each by one
+// cp.async.bulk of its 16-byte aligned superset (the few elements past
+// the tensor's last whole 16 bytes by plain copies) into rings of 2-4
+// slots, each slot with a full and an empty mbarrier. Warp 0 walks the
+// chain, waiting and arriving once per group: each lane tests its f =
+// lane + 32 j with the plain version's arithmetic, twelve at a time with
+// their loads issued together and no branch among them (v_f in registers
+// where F <= 384), __reduce_max_sync gives the last qualifying f, and
+// only where none qualifies (rarely, along a ridge) does the warp take
+// argmin_f pe[t] (its first NaN, else the first least value, by
+// redux.sync). Nothing in the step loop is block-wide. At the largest F
+// the rule admits, one row per slot, two slots of pe and one of e.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -57,8 +94,6 @@ __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, 
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float min_t(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ double min_t(double a, double b) { return fmin(a, b); }
 __device__ __forceinline__ float abs_t(float a) { return fabsf(a); }
 __device__ __forceinline__ double abs_t(double a) { return fabs(a); }
 template <typename T> __device__ __forceinline__ T inf_t();
@@ -67,6 +102,47 @@ template <> __device__ __forceinline__ double inf_t<double>() { return CUDART_IN
 template <typename T> __device__ __forceinline__ T nan_t();
 template <> __device__ __forceinline__ float nan_t<float>() { return CUDART_NAN_F; }
 template <> __device__ __forceinline__ double nan_t<double>() { return CUDART_NAN; }
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// A running min with torch's NaN rule: float by min.NaN.f32, double by
+// fmin and a flag (PTX has no min.NaN.f64). warp_min() gives every lane
+// the warp's min: float by one redux.sync on order-preserving integers
+// (NaN by a vote), double by a shuffle tree.
+template <typename T> struct MinAcc;
+template <> struct MinAcc<float> {
+  float m;
+  __device__ __forceinline__ MinAcc() : m(inf_t<float>()) {}
+  __device__ __forceinline__ void add(float s) {
+    asm("min.NaN.f32 %0, %0, %1;" : "+f"(m) : "f"(s));
+  }
+  __device__ __forceinline__ void merge(const MinAcc& o) { add(o.m); }
+  __device__ __forceinline__ float warp_min() const {
+    const int i = __float_as_int(m);
+    const int k = __reduce_min_sync(kFull, i >= 0 ? i : i ^ 0x7fffffff);
+    if (__any_sync(kFull, m != m)) return nan_t<float>();
+    return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+  }
+};
+template <> struct MinAcc<double> {
+  double m;
+  bool nan;
+  __device__ __forceinline__ MinAcc() : m(inf_t<double>()), nan(false) {}
+  __device__ __forceinline__ void add(double s) {
+    m = fmin(m, s);
+    nan |= (s != s);
+  }
+  __device__ __forceinline__ void merge(const MinAcc& o) {
+    m = fmin(m, o.m);
+    nan |= o.nan;
+  }
+  __device__ __forceinline__ double warp_min() const {
+    double r = m;
+    for (int o = 16; o > 0; o >>= 1)
+      r = fmin(r, __shfl_xor_sync(kFull, r, o));
+    return __any_sync(kFull, nan) ? nan_t<double>() : r;
+  }
+};
 
 // Four consecutive elements of a shared array, 16-byte aligned: one
 // 128-bit load for float, two for double.
@@ -81,272 +157,694 @@ __device__ __forceinline__ Quad<double> load4(const double* p) {
   return {q0.x, q0.y, q1.x, q1.y};
 }
 
-// One candidate pe[g] + P[f, g] into the partial min m, NaN noted apart
-// (fmin drops a NaN; the flag puts it back after the loop).
 template <typename T>
-__device__ __forceinline__ void relax(T vf, T vg, T pg, T pen, T& m,
-                                      bool& nan) {
+__device__ __forceinline__ T penalty(T pen, T vf, T vg) {
   const T d = sub_rn(vf, vg);
-  const T s = add_rn(pg, mul_rn(pen, mul_rn(d, d)));
-  m = min_t(m, s);
-  nan |= (s != s);
+  return mul_rn(pen, mul_rn(d, d));
 }
 
-// Rows padded to a multiple of 4: v with 0, prev with +inf, whose
-// candidates (+inf) never lower a min nor raise the NaN flag.
+// Rows padded to a multiple of 4: v with 0, pe rows with +inf and P with
+// 0, whose candidates (+inf) never lower a min nor make it NaN.
 __host__ __device__ __forceinline__ int pad4(int F) { return (F + 3) & ~3; }
 
-template <typename T>
-__global__ void ridge_forward_kernel(const T* __restrict__ e,
-                                     const T* __restrict__ v, T pen, int F,
-                                     int Tn, T* __restrict__ pe) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Fp = pad4(F);
-  T* sv = reinterpret_cast<T*>(smem_raw);
-  T* prev = sv + Fp;
-  T* cur = prev + Fp;
-  const size_t base = (size_t)blockIdx.x * Tn * F;
-  const T* eb = e + base;
-  T* pb = pe + base;
-  for (int f = threadIdx.x; f < Fp; f += blockDim.x) {
-    const bool in = f < F;
-    sv[f] = in ? v[f] : T(0);
-    const T x = in ? eb[f] : inf_t<T>();
-    prev[f] = x;
-    cur[f] = inf_t<T>();
-    if (in) pb[f] = x;
-  }
-  __syncthreads();
-  for (int t = 1; t < Tn; ++t) {
-    const T* et = eb + (size_t)t * F;
-    T* pt = pb + (size_t)t * F;
-    for (int f = threadIdx.x; f < F; f += blockDim.x) {
-      const T ef = et[f];
-      const T vf = sv[f];
-      T m0 = inf_t<T>(), m1 = m0, m2 = m0, m3 = m0;
-      bool nan = false;
-      for (int g = 0; g < Fp; g += 4) {
-        const Quad<T> vq = load4(sv + g);
-        const Quad<T> pq = load4(prev + g);
-        relax(vf, vq.a, pq.a, pen, m0, nan);
-        relax(vf, vq.b, pq.b, pen, m1, nan);
-        relax(vf, vq.c, pq.c, pen, m2, nan);
-        relax(vf, vq.d, pq.d, pen, m3, nan);
-      }
-      const T m = nan ? nan_t<T>() : min_t(min_t(m0, m1), min_t(m2, m3));
-      const T x = add_rn(ef, m);
-      cur[f] = x;
-      pt[f] = x;
-    }
-    __syncthreads();
-    T* tmp = prev;
-    prev = cur;
-    cur = tmp;
-  }
-}
+constexpr int kERing = 4;  // columns of e in flight (forward)
 
-// (value, index) with NaN the least value and ties to the lower index,
-// the order of torch.argmin and jnp.argmin.
-template <typename T>
-__device__ __forceinline__ bool better(T a, int ia, T b, int ib) {
-  const bool na = a != a, nb = b != b;
-  if (na || nb) return na && (!nb || ia < ib);
-  return a < b || (a == b && ia < ib);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
-
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   if (bytes == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_u32(dst)),
                  "l"(src));
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                     smem_u32(dst)),
                  "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Whether the phase of `parity` has completed, with acquire at cluster
+// scope (kCluster: the forward's bytes come from peer CTAs) or CTA scope
+// (the trace's, from its own bulk copies; no L1 invalidation).
+template <bool kCluster>
+__device__ __forceinline__ unsigned mbar_done(uint64_t* bar,
+                                              unsigned parity) {
+  unsigned done;
+  if (kCluster)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  else
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  return done;
+}
+// Waits for the phase of `parity`. A wait past ~2^35 cycles (~20 s) can
+// only be a broken protocol: trap, so that the launch fails instead of
+// holding the card.
+template <bool kCluster = false>
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  long long t0 = 0;
+  while (!mbar_done<kCluster>(bar, parity)) {
+    if (t0 == 0)
+      t0 = clock64();
+    else if (clock64() - t0 > (1ll << 35))
+      __trap();
+  }
 }
 
-// Copy row t of pe and e into buffers (each thread its own elements).
+// Elements g0 .. g0 + n of src (a tensor of `total` elements) into a
+// slot: the 16-byte aligned superset [a, a_end) by one bulk copy that
+// completes on `bar`, the elements past the tensor's last whole 16 bytes
+// by plain copies, then the arrival on `bar` expecting the copy's bytes.
+// Element g lands at slot[g - a].
 template <typename T>
-__device__ __forceinline__ void fetch_row(const T* pb, const T* eb, int t,
-                                          int F, T* pdst, T* edst) {
-  const size_t o = (size_t)t * F;
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
-    cp_async(pdst + f, pb + o + f, (int)sizeof(T));
-    cp_async(edst + f, eb + o + f, (int)sizeof(T));
+__device__ __forceinline__ void load_span(const T* src, size_t g0, size_t n,
+                                          size_t total, T* slot,
+                                          uint64_t* bar) {
+  constexpr int Q = 16 / sizeof(T);
+  const size_t a = g0 / Q * Q;
+  const size_t end = g0 + n;
+  const size_t up = (end + Q - 1) / Q * Q, whole = total / Q * Q;
+  const size_t a_end = up < whole ? up : whole;
+  const size_t bulk_end = a_end > a ? a_end : a;
+  for (size_t g = bulk_end; g < end; ++g) slot[g - a] = src[g];
+  if (bulk_end < end)  // plain writes, ordered before later bulk copies
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  const unsigned bytes = (unsigned)((bulk_end - a) * sizeof(T));
+  if (bytes == 0) {
+    mbar_arrive(bar);
+    return;
   }
-  cp_async_commit();
+  mbar_arrive_tx(bar, bytes);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(slot)),
+      "l"(src + a), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-constexpr int kMaxWarps = 32;
+// The shared::cluster address of `addr` in CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned mapa(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// A value into a peer's row buffer whose mbarrier counts its bytes.
+__device__ __forceinline__ void st_async(unsigned addr, float x,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "f"(x), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async(unsigned addr, double x,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f64 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "d"(x), "r"(bar)
+      : "memory");
+}
 
-// Block reduction of (last qualifying f, argmin pair); the result is
-// valid in thread 0. red_* hold one entry per warp; the caller's next
-// write to them follows a __syncthreads that thread 0 reaches after its
-// reads.
-template <typename T>
-__device__ __forceinline__ void reduce_step(int& last, T& best, int& ibest,
-                                            int* red_last, T* red_val,
-                                            int* red_idx) {
-  const unsigned full = 0xffffffffu;
-  for (int o = 16; o > 0; o >>= 1) {
-    last = max(last, __shfl_down_sync(full, last, o));
-    const T b = __shfl_down_sync(full, best, o);
-    const int ib = __shfl_down_sync(full, ibest, o);
-    if (better(b, ib, best, ibest)) { best = b; ibest = ib; }
+constexpr int kQuads = 3;  // P in registers: 16-byte pieces of g per lane
+
+// The candidates of rows f0 and f1 over this lane's g (pieces g = 4 lane
+// + 128 j), four partial minima per row: pe_prev[g] + P[f, g], P from the
+// registers q0, q1 (kRegs) or recomputed from v.
+template <typename T, bool kRegs>
+__device__ __forceinline__ void row_pair(const T* prev, const T* sv,
+                                         const Quad<T>* q0, const Quad<T>* q1,
+                                         T vf0, T vf1, T pen, int Fp,
+                                         int lane, MinAcc<T>& m0,
+                                         MinAcc<T>& m1) {
+  MinAcc<T> a0[4], a1[4];
+  if (kRegs) {  // pieces past Fp repeat the last one: no branch
+#pragma unroll
+    for (int j = 0; j < kQuads; ++j) {
+      const Quad<T> p = load4(prev + min(4 * lane + 128 * j, Fp - 4));
+      a0[0].add(add_rn(p.a, q0[j].a)); a1[0].add(add_rn(p.a, q1[j].a));
+      a0[1].add(add_rn(p.b, q0[j].b)); a1[1].add(add_rn(p.b, q1[j].b));
+      a0[2].add(add_rn(p.c, q0[j].c)); a1[2].add(add_rn(p.c, q1[j].c));
+      a0[3].add(add_rn(p.d, q0[j].d)); a1[3].add(add_rn(p.d, q1[j].d));
+    }
+  } else {
+    for (int g = 4 * lane; g < Fp; g += 128) {
+      const Quad<T> p = load4(prev + g);
+      const Quad<T> w = load4(sv + g);
+      a0[0].add(add_rn(p.a, penalty(pen, vf0, w.a)));
+      a1[0].add(add_rn(p.a, penalty(pen, vf1, w.a)));
+      a0[1].add(add_rn(p.b, penalty(pen, vf0, w.b)));
+      a1[1].add(add_rn(p.b, penalty(pen, vf1, w.b)));
+      a0[2].add(add_rn(p.c, penalty(pen, vf0, w.c)));
+      a1[2].add(add_rn(p.c, penalty(pen, vf1, w.c)));
+      a0[3].add(add_rn(p.d, penalty(pen, vf0, w.d)));
+      a1[3].add(add_rn(p.d, penalty(pen, vf1, w.d)));
+    }
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    red_last[warp] = last;
-    red_val[warp] = best;
-    red_idx[warp] = ibest;
+  a0[0].merge(a0[1]); a0[2].merge(a0[3]); a0[0].merge(a0[2]);
+  a1[0].merge(a1[1]); a1[2].merge(a1[3]); a1[0].merge(a1[2]);
+  m0 = a0[0];
+  m1 = a1[0];
+}
+
+// Bytes of a ring slot holding n elements of itemsize isz from any
+// offset: a 16-byte aligned superset.
+__host__ __device__ __forceinline__ size_t span_slot(size_t n, int isz) {
+  const size_t b = n * isz;
+  return (b + 15) / 16 * 16 + 16;
+}
+
+// Shared memory of one forward CTA, in bytes: v, three pe rows, the e
+// ring (kERing columns of the CTA's R rows), the three rows' mbarriers.
+// ops/ridge_cuda.py::ridge_plan states the same layout; the launcher
+// checks that they agree.
+__host__ __device__ __forceinline__ size_t forward_smem_bytes(int F, int R,
+                                                              int isz) {
+  return ((size_t)4 * pad4(F) + (size_t)kERing * pad4(R)) * isz +
+         3 * sizeof(uint64_t);
+}
+
+// kRegs: one row pair per warp, its P in registers (Fp <= 128 kQuads);
+// else P recomputed per use.
+template <typename T, bool kRegs>
+__global__ void __launch_bounds__(kRegs ? 768 : 1024)
+    ridge_forward_kernel(const T* __restrict__ e, const T* __restrict__ v,
+                         T pen, int F, int Tn, int R, T* __restrict__ pe) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const int f0 = min(F, c * R);
+  const int nr = min(F, f0 + R) - f0;  // this CTA's rows (0 for a spare CTA)
+  const int Fp = pad4(F), Rp = pad4(R);
+  T* sv = reinterpret_cast<T*>(smem_raw);
+  T* buf = sv + Fp;         // pe of column t at buf[(t % 3) Fp]
+  T* ering = buf + 3 * Fp;  // e of column t at ering[(t % 4) Rp]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ering + kERing * Rp);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = nth >> 5;
+  // lanes 16-30 read e and write pe, thread 31 arms the mbarriers, lanes
+  // below 16 send: no global access precedes a send or an arrive in its
+  // thread, whose release would wait for it
+  const int gl = lane - 16;
+  const bool glob = gl >= 0 && gl < 15;
+  const size_t base = (size_t)b * Tn * F;
+  const T* eb = e + base;
+  T* pb = pe + base;
+  const unsigned rowb = (unsigned)(Fp * sizeof(T));
+
+  for (int g = tid; g < Fp; g += nth) {
+    sv[g] = g < F ? v[g] : T(0);
+    buf[g] = buf[Fp + g] = buf[2 * Fp + g] = inf_t<T>();
+  }
+  // e of column col: the warp's rows warp + nw j into slot col % 4 of the
+  // ring by cp.async, visible to the warp after the wait and a __syncwarp
+  auto fetch = [&](int col) {
+    if (col < Tn && glob)
+      for (int i = warp + nw * gl; i < nr; i += 15 * nw)
+        cp_async(ering + (col % kERing) * Rp + i,
+                 eb + (size_t)col * F + f0 + i, (int)sizeof(T));
+    cp_async_commit();
+  };
+  for (int col = 1; col < kERing; ++col) fetch(col);
+  // column t's bytes from every CTA land in buffer t % 3 and count on its
+  // mbarrier
+  if (tid == 31) {
+    for (int k = 0; k < 3; ++k) mbar_init(full + k, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < 3; ++k)  // columns 0, 1, 2
+      mbar_arrive_tx(full + k, (unsigned)(F * sizeof(T)));
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    const int nw = (blockDim.x + 31) >> 5;
-    for (int w = 1; w < nw; ++w) {
-      last = max(last, red_last[w]);
-      if (better(red_val[w], red_idx[w], best, ibest)) {
-        best = red_val[w];
-        ibest = red_idx[w];
+  // the warp's row pair: i0 = warp, i1 = warp + nw (kRegs: the only one)
+  Quad<T> q0[kRegs ? kQuads : 1], q1[kRegs ? kQuads : 1];
+  if (kRegs && warp < nr) {
+    const T v0 = sv[f0 + warp], v1 = sv[f0 + min(warp + nw, nr - 1)];
+#pragma unroll
+    for (int j = 0; j < kQuads; ++j) {  // row_pair's pieces of g
+      const int g = min(4 * lane + 128 * j, Fp - 4);
+      T* a0 = &q0[j].a;
+      T* a1 = &q1[j].a;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const bool in = g + x < F;
+        a0[x] = in ? penalty(pen, v0, sv[g + x]) : T(0);
+        a1[x] = in ? penalty(pen, v1, sv[g + x]) : T(0);
       }
     }
   }
+  // lane < C sends the warp's rows to CTA `lane`
+  const unsigned peer = lane < C ? (unsigned)lane : 0u;
+  const unsigned rbuf = mapa(smem_u32(buf), peer);
+  const unsigned rbar = mapa(smem_u32(full), peer);
+  auto send = [&](T x, int f, int t) {
+    const int s = t % 3;
+    if (lane < C)
+      st_async(rbuf + s * rowb + (unsigned)(f * sizeof(T)), x,
+               rbar + s * (unsigned)sizeof(uint64_t));
+  };
+  // this CTA's rows of column t to pe, coalesced
+  auto store = [&](int t) {
+    if (glob)
+      for (int i = warp * 15 + gl; i < nr; i += 15 * nw)
+        pb[(size_t)t * F + f0 + i] = buf[(t % 3) * Fp + f0 + i];
+  };
+  cluster.sync();  // every CTA started, its buffers and mbarriers ready
+
+  for (int i = warp; i < nr; i += nw) send(eb[f0 + i], f0 + i, 0);
+  for (int t = 1; t < Tn; ++t) {
+    const int sp = (t - 1) % 3;
+    mbar_wait<true>(full + sp, (unsigned)(((t - 1) / 3) & 1));
+    cp_async_wait<kERing - 2>();  // column t of e, this lane's copies
+    __syncwarp();
+    const T* prev = buf + sp * Fp;
+    const T* et = ering + (t % kERing) * Rp;
+    for (int i0 = warp; i0 < nr; i0 += 2 * nw) {
+      const bool two = i0 + nw < nr;
+      const int i1 = two ? i0 + nw : i0;
+      MinAcc<T> a0, a1;
+      row_pair<T, kRegs>(prev, sv, q0, q1, sv[f0 + i0], sv[f0 + i1], pen,
+                         Fp, lane, a0, a1);
+      const T x0 = add_rn(et[i0], a0.warp_min());
+      const T x1 = add_rn(et[i1], a1.warp_min());
+      send(x0, f0 + i0, t);
+      if (two) send(x1, f0 + i1, t);
+    }
+    // off the chain: the buffer's next column (t + 2), column t - 1 to
+    // pe, column t + 3 of e into the slot of column t - 1 (whose reads
+    // the warp finished: their values went into its last sends)
+    if (tid == 31 && t + 2 < Tn)
+      mbar_arrive_tx(full + sp, (unsigned)(F * sizeof(T)));
+    store(t - 1);
+    fetch(t + kERing - 1);
+  }
+  // the last column's bytes from every peer have landed here, then its
+  // rows to pe; no CTA leaves while a peer may still write to it
+  mbar_wait<true>(full + (Tn - 1) % 3, (unsigned)(((Tn - 1) / 3) & 1));
+  store(Tn - 1);
+  cluster.sync();
 }
 
+// argmin_f row[f] over the warp, every lane gets it: the first NaN if any
+// (NaN is the least value, as torch.argmin and jnp.argmin take it), else
+// the first f of the least value (-0 and +0 equal). Each lane keeps its
+// first least element; two redux.sync on order-preserving integer keys
+// give the least value and the first f that holds it.
+__device__ __forceinline__ int order_key(float x) {
+  const int i = __float_as_int(x);
+  return x == 0.f ? 0 : (i >= 0 ? i : i ^ 0x7fffffff);
+}
 template <typename T>
-__global__ void ridge_trace_kernel(const T* __restrict__ pe,
-                                   const T* __restrict__ e,
-                                   const T* __restrict__ v, T pen, T eps,
-                                   int F, int Tn, int* __restrict__ ridge) {
+__device__ __forceinline__ int warp_argmin(const T* row, int F, int lane) {
+  constexpr int kNone = 0x7fffffff;
+  T best = inf_t<T>();
+  int ib = kNone, inan = kNone;
+  for (int f = lane; f < F; f += 32) {
+    const T x = row[f];
+    if (x != x)
+      inan = min(inan, f);
+    else if (ib == kNone || x < best) {
+      best = x;
+      ib = f;
+    }
+  }
+  inan = __reduce_min_sync(kFull, inan);
+  if (inan != kNone) return inan;
+  bool least;
+  if (sizeof(T) == 4) {
+    const int key = order_key((float)best);
+    least = __reduce_min_sync(kFull, key) == key;
+  } else {  // double: the least value by a shuffle tree
+    T m = best;
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmin(m, __shfl_xor_sync(kFull, m, o));
+    least = best == m;
+  }
+  return __reduce_min_sync(kFull, least ? ib : kNone);
+}
+
+// Shared memory of one trace block, in bytes: the pe ring (dp slots), the
+// e ring (de slots), each slot G rows (a 16-byte aligned superset), v,
+// then per slot two mbarriers (full, empty).
+__host__ __device__ __forceinline__ size_t trace_smem_bytes(int F, int isz,
+                                                            int G, int dp,
+                                                            int de) {
+  const size_t vb = ((size_t)F * isz + 15) / 16 * 16;
+  return (size_t)(dp + de) * span_slot((size_t)G * F, isz) + vb +
+         (size_t)16 * (dp + de);
+}
+
+// A ring position: slot and the parity of its current use.
+struct Ring {
+  int slot, n;
+  unsigned parity;
+  __device__ __forceinline__ Ring(int n_) : slot(0), n(n_), parity(0) {}
+  __device__ __forceinline__ void next() {
+    if (++slot == n) {
+      slot = 0;
+      parity ^= 1u;
+    }
+  }
+};
+
+// The walker's scan: the last f with |val - (row[f] + P[n, f])| < eps,
+// -1 if none. kScan f per lane at a time, their loads issued together and
+// no branch among them (no short-circuit test), so that their latencies
+// overlap (one f at a time, the chain of a load and seven dependent
+// operations is paid per f).
+// kRegV (F <= 32 kScan): the lane's v_f, clamped offsets and valid bits
+// in registers, set once.
+constexpr int kScan = 12;
+template <typename T, bool kRegV>
+struct Scan {
+  T vr[kRegV ? kScan : 1];
+  int off[kRegV ? kScan : 1];
+  unsigned valid = 0;
+  __device__ __forceinline__ Scan(const T* sv, int F, int lane) {
+    if (kRegV)
+#pragma unroll
+      for (int j = 0; j < kScan; ++j) {
+        const int f = lane + 32 * j;
+        off[j] = min(f, F - 1);
+        vr[j] = sv[off[j]];
+        valid |= (f < F ? 1u : 0u) << j;
+      }
+  }
+  __device__ __forceinline__ int find(const T* row, const T* sv, T vn, T val,
+                                      T pen, T eps, int F, int lane) const {
+    int last = -1;
+    if (kRegV) {
+      T r[kScan];
+#pragma unroll
+      for (int j = 0; j < kScan; ++j) r[j] = row[off[j]];
+#pragma unroll
+      for (int j = 0; j < kScan; ++j) {
+        const T s = add_rn(r[j], penalty(pen, vn, vr[j]));
+        const bool ok = (abs_t(sub_rn(val, s)) < eps) & bool(valid >> j & 1u);
+        last = ok ? lane + 32 * j : last;
+      }
+    } else {
+      for (int f = lane; f < F; f += 32 * kScan) {
+        T r[kScan], w[kScan];
+#pragma unroll
+        for (int j = 0; j < kScan; ++j) {
+          const int g = min(f + 32 * j, F - 1);
+          r[j] = row[g];
+          w[j] = sv[g];
+        }
+#pragma unroll
+        for (int j = 0; j < kScan; ++j) {
+          const T s = add_rn(r[j], penalty(pen, vn, w[j]));
+          const bool ok = (abs_t(sub_rn(val, s)) < eps) & (f + 32 * j < F);
+          last = ok ? f + 32 * j : last;
+        }
+      }
+    }
+    return __reduce_max_sync(kFull, last);
+  }
+};
+
+// Rows are taken in groups of G consecutive rows (contiguous in memory:
+// one bulk copy and one wait per group and tensor), group q holding rows
+// [max(0, T - (q + 1) G), T - q G).
+template <typename T, bool kRegV>
+__global__ void __launch_bounds__(64)
+    ridge_trace_kernel(const T* __restrict__ pe, const T* __restrict__ e,
+                       const T* __restrict__ v, T pen, T eps, int F, int Tn,
+                       int G, int dp, int de, int* __restrict__ ridge) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red_val[kMaxWarps];
-  __shared__ int red_last[kMaxWarps], red_idx[kMaxWarps];
-  __shared__ int s_nxt;  // r[t+1] and val, from thread 0 to the block
-  __shared__ T s_val;
-  T* sv = reinterpret_cast<T*>(smem_raw);
-  T* pbuf = sv + F;            // [2][F]
-  T* ebuf = pbuf + 2 * F;      // [2][F]
-  const size_t base = (size_t)blockIdx.x * Tn * F;
-  const T* pb = pe + base;
-  const T* eb = e + base;
-  int* rb = ridge + (size_t)blockIdx.x * Tn;
+  const size_t slot = span_slot((size_t)G * F, sizeof(T));
+  unsigned char* ring_p = smem_raw;
+  unsigned char* ring_e = ring_p + dp * slot;
+  T* sv = reinterpret_cast<T*>(ring_e + de * slot);
+  uint64_t* full_p = reinterpret_cast<uint64_t*>(
+      smem_raw + trace_smem_bytes(F, sizeof(T), G, dp, de) -
+      (size_t)16 * (dp + de));
+  uint64_t* empty_p = full_p + dp;
+  uint64_t* full_e = empty_p + dp;
+  uint64_t* empty_e = full_e + de;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t total = (size_t)gridDim.x * Tn * F;
+  const size_t row0 = (size_t)blockIdx.x * Tn;
+  const int nq = (Tn + G - 1) / G;
+  constexpr int Q = 16 / sizeof(T);
 
   for (int f = threadIdx.x; f < F; f += blockDim.x) sv[f] = v[f];
-  const int last_buf = (Tn - 1) & 1;
-  fetch_row(pb, eb, Tn - 1, F, pbuf + last_buf * F, ebuf + last_buf * F);
-  cp_async_wait_all();
+  if (threadIdx.x == 32) {
+    for (int s = 0; s < dp; ++s) {
+      mbar_init(full_p + s, 1);
+      mbar_init(empty_p + s, 1);
+    }
+    for (int s = 0; s < de; ++s) {
+      mbar_init(full_e + s, 1);
+      mbar_init(empty_e + s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  {
-    int last = -1, ib = F;
-    T best = inf_t<T>();
-    const T* row = pbuf + last_buf * F;
-    for (int f = threadIdx.x; f < F; f += blockDim.x)
-      if (better(row[f], f, best, ib)) { best = row[f]; ib = f; }
-    reduce_step(last, best, ib, red_last, red_val, red_idx);
-    if (threadIdx.x == 0) {
-      rb[Tn - 1] = ib;
-      s_nxt = ib;
-      s_val = sub_rn(row[ib], ebuf[last_buf * F + ib]);
+
+  if (warp == 1) {  // the producer: groups of rows, T-1 .. 0, into the rings
+    if (lane == 0) {
+      Ring rp(dp), re(de);
+      for (int q = 0; q < nq; ++q) {
+        const int lo = max(0, Tn - (q + 1) * G), hi = Tn - q * G;
+        const size_t g0 = (row0 + lo) * F, n = (size_t)(hi - lo) * F;
+        if (q >= dp) mbar_wait(empty_p + rp.slot, rp.parity ^ 1u);
+        load_span(pe, g0, n, total,
+                  reinterpret_cast<T*>(ring_p + rp.slot * slot),
+                  full_p + rp.slot);
+        if (q >= de) mbar_wait(empty_e + re.slot, re.parity ^ 1u);
+        load_span(e, g0, n, total,
+                  reinterpret_cast<T*>(ring_e + re.slot * slot),
+                  full_e + re.slot);
+        rp.next();
+        re.next();
+      }
     }
+    return;
   }
-  if (Tn >= 2) {
-    const int b = (Tn - 2) & 1;
-    fetch_row(pb, eb, Tn - 2, F, pbuf + b * F, ebuf + b * F);
-  }
-  for (int t = Tn - 2; t >= 0; --t) {
-    cp_async_wait_all();
-    __syncthreads();  // row t landed for every thread; s_nxt/s_val visible
-    const int cb = t & 1;
-    if (t >= 1)  // the other buffer was last read before the sync above
-      fetch_row(pb, eb, t - 1, F, pbuf + (1 - cb) * F, ebuf + (1 - cb) * F);
-    const int nxt = s_nxt;
-    const T val = s_val;
-    const T vn = sv[nxt];
-    const T* row = pbuf + cb * F;
-    int last = -1, ib = F;
-    T best = inf_t<T>();
-    for (int f = threadIdx.x; f < F; f += blockDim.x) {
-      const T pf = row[f];
-      const T d = sub_rn(vn, sv[f]);
-      const T s = add_rn(pf, mul_rn(pen, mul_rn(d, d)));
-      if (abs_t(sub_rn(val, s)) < eps) last = f;
-      if (better(pf, f, best, ib)) { best = pf; ib = f; }
+
+  // the walker
+  const Scan<T, kRegV> scan(sv, F, lane);
+  int* rb = ridge + row0;
+  int mine = 0;  // r[t] for t = 32 q + lane, stored when t reaches 32 q
+  T val = T(0), vn = T(0);
+  Ring rp(dp), re(de);
+  for (int q = 0; q < nq; ++q) {
+    const int lo = max(0, Tn - (q + 1) * G), hi = Tn - q * G;
+    const size_t g0 = (row0 + lo) * F, off = g0 - g0 / Q * Q;
+    // row t at gp + (t - lo) F, and of e at ge + (t - lo) F
+    const T* gp = reinterpret_cast<const T*>(ring_p + rp.slot * slot) + off;
+    const T* ge = reinterpret_cast<const T*>(ring_e + re.slot * slot) + off;
+    mbar_wait(full_p + rp.slot, rp.parity);
+    for (int t = hi - 1; t >= lo; --t) {
+      const T* row = gp + (size_t)(t - lo) * F;
+      int last = t == Tn - 1
+                     ? -1
+                     : scan.find(row, sv, vn, val, pen, eps, F, lane);
+      if (last < 0) last = warp_argmin(row, F, lane);  // nothing qualifies
+      if (t == hi - 1)  // e of the group (one slot: copied meanwhile)
+        mbar_wait(full_e + re.slot, re.parity);
+      val = sub_rn(row[last], ge[(size_t)(t - lo) * F + last]);
+      vn = sv[last];
+      if ((t & 31) == lane) mine = last;
+      if ((t & 31) == 0 && t + lane < Tn) rb[t + lane] = mine;
     }
-    reduce_step(last, best, ib, red_last, red_val, red_idx);
-    if (threadIdx.x == 0) {
-      const int idx = last >= 0 ? last : ib;
-      rb[t] = idx;
-      s_nxt = idx;
-      s_val = sub_rn(row[idx], ebuf[cb * F + idx]);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(empty_p + rp.slot);
+      mbar_arrive(empty_e + re.slot);
     }
+    rp.next();
+    re.next();
   }
 }
 
-int threads_for(int F) {
-  int n = ((F + 31) / 32) * 32;
-  return n > 1024 ? 1024 : (n < 32 ? 32 : n);
-}
+// Launcher errors of the plan (the wrapper names them).
+constexpr int kErrLayout = -2;     // the plan's shared bytes disagree
+constexpr int kErrNoCluster = -3;  // no cluster of C CTAs fits the card
 
-template <typename T>
-int launch_forward(const void* e, const void* v, double pen, int B, int F,
-                   int Tn, void* pe, void* stream) {
-  if (B < 1 || F < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)3 * pad4(F) * sizeof(T);
-  auto fn = ridge_forward_kernel<T>;
+template <typename T, bool kRegs>
+int forward_config(int B, int C, int warps, int smem, cudaStream_t stream,
+                   cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  auto fn = ridge_forward_kernel<T, kRegs>;
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fn<<<B, threads_for(F), smem, (cudaStream_t)stream>>>(
-      (const T*)e, (const T*)v, (T)pen, F, Tn, (T*)pe);
+  if (C > 8) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)(B * C));
+  cfg->blockDim = dim3((unsigned)(32 * warps));
+  cfg->dynamicSmemBytes = (size_t)smem;
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+template <typename T, bool kRegs>
+int cluster_occupancy(int C, int warps, int smem, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int err = forward_config<T, kRegs>(1, C, warps, smem, 0, &cfg, attr);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters, ridge_forward_kernel<T, kRegs>, &cfg);
+}
+
+template <typename T, bool kRegs>
+int launch_forward(const T* e, const T* v, T pen, int B, int F, int Tn,
+                   int C, int R, int warps, int smem, T* pe,
+                   cudaStream_t stream) {
+  if ((size_t)smem != forward_smem_bytes(F, R, sizeof(T)))
+    return kErrLayout;
+  int clusters = 0;
+  int err = cluster_occupancy<T, kRegs>(C, warps, smem, &clusters);
+  if (err) return err;
+  if (clusters < 1) return kErrNoCluster;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  err = forward_config<T, kRegs>(B, C, warps, smem, stream, &cfg, attr);
+  if (err) return err;
+  err = (int)cudaLaunchKernelEx(&cfg, ridge_forward_kernel<T, kRegs>, e,
+                                v, pen, F, Tn, R, pe);
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_trace(const void* pe, const void* e, const void* v, double pen,
-                 double eps, int B, int F, int Tn, void* ridge,
-                 void* stream) {
-  if (B < 1 || F < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)5 * F * sizeof(T);
-  auto fn = ridge_trace_kernel<T>;
+int forward(const void* e, const void* v, double pen, int B, int F, int Tn,
+            int C, int R, int resident, int warps, int smem, void* pe,
+            void* stream) {
+  if (B < 1 || F < 1 || Tn < 1 || C < 1 || C > 16 || R < 1 ||
+      (long long)C * R < F || warps < 1 || warps > (resident ? 24 : 32) ||
+      (resident && (pad4(F) > 128 * kQuads || 2 * warps < R)))
+    return (int)cudaErrorInvalidValue;
+  return resident
+             ? launch_forward<T, true>((const T*)e, (const T*)v, (T)pen, B,
+                                       F, Tn, C, R, warps, smem, (T*)pe,
+                                       (cudaStream_t)stream)
+             : launch_forward<T, false>((const T*)e, (const T*)v, (T)pen, B,
+                                        F, Tn, C, R, warps, smem, (T*)pe,
+                                        (cudaStream_t)stream);
+}
+
+template <typename T>
+int trace(const void* pe, const void* e, const void* v, double pen,
+          double eps, int B, int F, int Tn, int G, int dp, int de, int smem,
+          void* ridge, void* stream) {
+  if (B < 1 || F < 1 || Tn < 1 || G < 1 || dp < 2 || de < 1 ||
+      ((uintptr_t)pe | (uintptr_t)e) % 16)
+    return (int)cudaErrorInvalidValue;
+  if ((size_t)smem != trace_smem_bytes(F, sizeof(T), G, dp, de))
+    return kErrLayout;
+  auto fn = F <= 32 * kScan ? ridge_trace_kernel<T, true>
+                            : ridge_trace_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fn<<<B, threads_for(F), smem, (cudaStream_t)stream>>>(
-      (const T*)pe, (const T*)e, (const T*)v, (T)pen, (T)eps, F, Tn,
-      (int*)ridge);
+  fn<<<B, 64, smem, (cudaStream_t)stream>>>((const T*)pe, (const T*)e,
+                                            (const T*)v, (T)pen, (T)eps, F,
+                                            Tn, G, dp, de, (int*)ridge);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // pe (B, T, F) from e (B, T, F) and v (F,); pen is rounded to the type.
+// The launch plan (C, R, resident: P in registers, warps, smem) is
+// ridge_plan's.
 extern "C" int ridge_forward_f32(const void* e, const void* v, double pen,
-                                 int B, int F, int Tn, void* pe,
+                                 int B, int F, int Tn, int C, int R,
+                                 int resident, int warps, int smem, void* pe,
                                  void* stream) {
-  return launch_forward<float>(e, v, pen, B, F, Tn, pe, stream);
+  return forward<float>(e, v, pen, B, F, Tn, C, R, resident, warps, smem, pe,
+                        stream);
 }
 
 extern "C" int ridge_forward_f64(const void* e, const void* v, double pen,
-                                 int B, int F, int Tn, void* pe,
+                                 int B, int F, int Tn, int C, int R,
+                                 int resident, int warps, int smem, void* pe,
                                  void* stream) {
-  return launch_forward<double>(e, v, pen, B, F, Tn, pe, stream);
+  return forward<double>(e, v, pen, B, F, Tn, C, R, resident, warps, smem,
+                         pe, stream);
 }
 
-// ridge (B, T) int32 from pe and e (B, T, F) and v (F,).
+// How many clusters of the forward at this plan the card runs at once
+// (cudaOccupancyMaxActiveClusters); itemsize 4 or 8.
+extern "C" int ridge_forward_clusters(int itemsize, int C, int resident,
+                                      int warps, int smem, int* clusters) {
+  if (itemsize == 4)
+    return resident ? cluster_occupancy<float, true>(C, warps, smem, clusters)
+                    : cluster_occupancy<float, false>(C, warps, smem,
+                                                      clusters);
+  return resident ? cluster_occupancy<double, true>(C, warps, smem, clusters)
+                  : cluster_occupancy<double, false>(C, warps, smem,
+                                                     clusters);
+}
+
+// ridge (B, T) int32 from pe and e (B, T, F), 16-byte aligned, and v (F,);
+// the rings (groups of G rows, dp and de slots, smem in all) are
+// ridge_plan's.
 extern "C" int ridge_trace_f32(const void* pe, const void* e, const void* v,
                                double pen, double eps, int B, int F, int Tn,
-                               void* ridge, void* stream) {
-  return launch_trace<float>(pe, e, v, pen, eps, B, F, Tn, ridge, stream);
+                               int G, int dp, int de, int smem, void* ridge,
+                               void* stream) {
+  return trace<float>(pe, e, v, pen, eps, B, F, Tn, G, dp, de, smem, ridge,
+                      stream);
 }
 
 extern "C" int ridge_trace_f64(const void* pe, const void* e, const void* v,
                                double pen, double eps, int B, int F, int Tn,
-                               void* ridge, void* stream) {
-  return launch_trace<double>(pe, e, v, pen, eps, B, F, Tn, ridge, stream);
+                               int G, int dp, int de, int smem, void* ridge,
+                               void* stream) {
+  return trace<double>(pe, e, v, pen, eps, B, F, Tn, G, dp, de, smem, ridge,
+                       stream);
 }

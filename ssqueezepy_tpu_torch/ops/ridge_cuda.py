@@ -15,12 +15,18 @@ penalty matrix P[f, g] = penalty * (v_f - v_g)^2 of the row coordinates v
     e[t+1, r[t+1]], else argmin_f pe[t] (first occurrence).
 
 Each wrapper launches its kernel for CUDA tensors (one launch for the
-whole batch: one block per row) and runs its plain version, a loop over
-t that mirrors `_fw_bw_jit` step by step, for CPU tensors; on the card
-the plain versions are the kernels' oracle. `ridge_forward.launches` and
+whole batch: the forward on one thread-block cluster per batch row, the
+trace on one block) and runs its plain version, a loop over t that
+mirrors `_fw_bw_jit` step by step, for CPU tensors; on the card the plain
+versions are the kernels' oracle. `ridge_forward.launches` and
 `ridge_trace.launches` count the launches. `ridge_rule` bounds F (the
-kernels' rows in one block's shared memory), checked on every device. Design and bound are noted in the source.
+kernels' rows in one block's shared memory), checked on every device;
+`ridge_plan` decides each launch on the host (cluster size, rows per
+CTA, P in registers or recomputed, the trace's rings, shared bytes).
+Design and bound are noted in the source.
 """
+from collections import namedtuple
+
 import torch
 
 from ..utils.common import not_ported
@@ -28,22 +34,107 @@ from . import _build
 from .ssq_cuda import _on_card
 
 __all__ = ['ridge_forward', 'ridge_forward_plain', 'ridge_trace',
-           'ridge_trace_plain', 'ridge_penalty', 'ridge_rule']
+           'ridge_trace_plain', 'ridge_penalty', 'ridge_rule', 'ridge_plan']
 
 # shared bytes a block may take (the card's limit is 227 KB)
 _SMEM_MAX = 220 * 1024
 
 
 def ridge_rule(F, itemsize):
-    """The ridge kernels' rule on the rows, checked on every device: the
-    forward's v and two rows (padded to a multiple of 4) and the trace's
-    v and two double-buffered rows of pe and e fit one block's shared
-    memory: F <= 11264 in float32, 5632 in float64."""
+    """The ridge kernels' rule on the rows, checked on every device: v and
+    two pe rows (padded to a multiple of 4) and v with two rows each of pe
+    and e fit one block's shared memory: F <= 11264 in float32, 5632 in
+    float64. `ridge_plan` builds both kernels' launches for every F it
+    admits."""
     need = max(3 * ((F + 3) & ~3), 5 * F) * itemsize
     if need > _SMEM_MAX:
         not_ported("the ridge kernels at F=%d rows of %d-byte elements "
                    "(%d B of shared memory per block)" % (F, itemsize, need),
                    'C1b')
+
+
+# the forward's cluster size (8, portable: measured against 16 in
+# `chip_smoke.py` 12f, PERF.md §6), its columns of e in flight and
+# 16-byte pieces of P per lane in registers (csrc/ridge_dp.cu kERing,
+# kQuads)
+_CLUSTER = 8
+_E_RING = 4
+_P_QUADS = 3
+
+RidgePlan = namedtuple('RidgePlan', [
+    'clusters',       # C, CTAs per batch row (forward)
+    'rows',           # R = ceil(F / C), rows per CTA
+    'row_ranges',     # each CTA's [lo, hi) of f, empty for a spare CTA
+    'resident',       # P of each warp's row pair kept in its registers
+    'warps',          # warps per forward CTA (row pairs)
+    'forward_smem',   # shared bytes per forward CTA
+    'trace_rows',     # G, consecutive rows per slot of the trace's rings
+    'trace_depth',    # slots of the trace's pe ring
+    'trace_e_depth',  # slots of its e ring
+    'trace_slot',     # bytes per slot (a 16-byte aligned superset)
+    'trace_smem'])    # shared bytes per trace block
+
+
+def _pad4(n):
+    return (n + 3) & ~3
+
+
+def _up16(n):
+    return (n + 15) // 16 * 16
+
+
+def _span_slot(n, itemsize):
+    """Bytes of a slot holding n elements from any offset: a 16-byte
+    aligned superset (csrc/ridge_dp.cu span_slot)."""
+    return _up16(n * itemsize) + 16
+
+
+def ridge_plan(F, itemsize, clusters=None):
+    """The launch plan of both ridge kernels for rows of F elements of
+    `itemsize` bytes, decided on the host (csrc/ridge_dp.cu states the
+    same layouts and its launchers check the shared bytes):
+
+      * forward: a cluster of C = min(`clusters` or 8, F) CTAs per batch
+        row, CTA c on rows [c R, min(F, (c + 1) R)), R = ceil(F / C),
+        ceil(R / 2) warps of a row pair each; shared memory v, three pe
+        rows and a 4-column ring of e's R rows (padded to 4) and three
+        mbarriers; P resident (each warp's two rows of P in its
+        registers) where F <= 384 and R <= 48, else recomputed per use;
+      * trace: rings of pe and e, each slot G consecutive rows (one bulk
+        copy, a 16-byte aligned superset), G up to 16 (about 16 KB a
+        slot) and 2 to 4 slots of each beside v and two mbarriers per
+        slot; where not even two slots of one row fit (the rule's largest
+        F), two slots of pe and one of e.
+
+    Each kernel's shared bytes are at most `_SMEM_MAX`. F past
+    `ridge_rule` raises naming C1b; a plan that cannot be built raises."""
+    ridge_rule(F, itemsize)
+    C = min(clusters or _CLUSTER, F)
+    if not 1 <= C <= 16:
+        raise ValueError("a ridge cluster has 1 to 16 CTAs (got %d)" % C)
+    R = -(-F // C)
+    ranges = tuple((min(F, c * R), min(F, (c + 1) * R)) for c in range(C))
+    Fp = _pad4(F)
+    warps = min(32, -(-R // 2))
+    resident = Fp <= 128 * _P_QUADS and warps <= 24
+    fw = (4 * Fp + _E_RING * _pad4(R)) * itemsize + 24
+    row = F * itemsize
+
+    def trace_bytes(G, dp, de):
+        return (dp + de) * _span_slot(G * F, itemsize) + _up16(row) + \
+            16 * (dp + de)
+    G, dp, de = 1, 2, 1  # the rule's edge: two slots of pe, one of e
+    for g in range(min(16, max(1, 16384 // row)), 0, -1):
+        d = max((d for d in range(2, 5) if trace_bytes(g, d, d) <=
+                 _SMEM_MAX), default=0)
+        if d:
+            G, dp, de = g, d, d
+            break
+    if fw > _SMEM_MAX or trace_bytes(G, dp, de) > _SMEM_MAX:
+        raise ValueError("no ridge plan fits %d B of shared memory at F=%d, "
+                         "itemsize %d" % (_SMEM_MAX, F, itemsize))
+    return RidgePlan(C, R, ranges, resident, warps, fw, G, dp, de,
+                     _span_slot(G * F, itemsize), trace_bytes(G, dp, de))
 
 
 def ridge_penalty(v, penalty):
@@ -77,22 +168,37 @@ def ridge_forward_plain(e, v, penalty):
     return pe
 
 
-def ridge_forward(e, v, penalty):
+def _check_launch(err, name, plan):
+    if err == -2:
+        raise RuntimeError("%s: the plan's shared bytes disagree with the "
+                           "kernel's layout (%s)" % (name, plan))
+    if err == -3:
+        raise RuntimeError("%s: no cluster of %d CTAs (%d B of shared "
+                           "memory each) fits this card"
+                           % (name, plan.clusters, plan.forward_smem))
+    _build.check(err, name)
+
+
+def ridge_forward(e, v, penalty, plan=None):
     """pe (B, T, F) of the forward pass over e (B, T, F) real, time-major,
     with the row coordinates v (F,) of e's type and `penalty` a float
-    (rounded to e's type)."""
+    (rounded to e's type). `plan` (the card only): a `ridge_plan` of F
+    and e's item size in place of the default one."""
     _check(e, v, 'ridge_forward')
     if e.device.type == 'cpu':
         return ridge_forward_plain(e, v, penalty)
     _on_card(e, 'ridge_forward')
     lib = _build.load('ridge_dp')
     B, T, F = e.shape
+    plan = plan or ridge_plan(F, e.element_size())
     pe = torch.empty_like(e)
     fn = (lib.ridge_forward_f32 if e.dtype == torch.float32
           else lib.ridge_forward_f64)
     err = fn(e.data_ptr(), v.data_ptr(), float(penalty), B, F, T,
-             pe.data_ptr(), torch.cuda.current_stream(e.device).cuda_stream)
-    _build.check(err, 'ridge_forward')
+             plan.clusters, plan.rows, int(plan.resident), plan.warps,
+             plan.forward_smem, pe.data_ptr(),
+             torch.cuda.current_stream(e.device).cuda_stream)
+    _check_launch(err, 'ridge_forward', plan)
     ridge_forward.launches += 1
     return pe
 
@@ -133,13 +239,17 @@ def ridge_trace(pe, e, v, penalty, eps):
     _on_card(pe, 'ridge_trace')
     lib = _build.load('ridge_dp')
     B, T, F = pe.shape
+    plan = ridge_plan(F, pe.element_size())
+    # the rings' bulk copies read 16-byte aligned pieces of the tensors
+    pe, e = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (pe, e))
     ridge = torch.empty((B, T), dtype=torch.int32, device=pe.device)
     fn = (lib.ridge_trace_f32 if pe.dtype == torch.float32
           else lib.ridge_trace_f64)
     err = fn(pe.data_ptr(), e.data_ptr(), v.data_ptr(), float(penalty),
-             float(eps), B, F, T, ridge.data_ptr(),
+             float(eps), B, F, T, plan.trace_rows, plan.trace_depth,
+             plan.trace_e_depth, plan.trace_smem, ridge.data_ptr(),
              torch.cuda.current_stream(pe.device).cuda_stream)
-    _build.check(err, 'ridge_trace')
+    _check_launch(err, 'ridge_trace', plan)
     ridge_trace.launches += 1
     return ridge.long()
 

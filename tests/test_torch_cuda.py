@@ -38,7 +38,9 @@ kernel: `cwt_general` or `wsst2_general`, then only B4 or B5, against
 the same call on the CPU, and the CWT kernel's wrapper raises on it. The
 ridge dynamic program (`ridge_forward`, `ridge_trace`) against its plain
 versions on planted inputs: pe bit-identical, the indices equal, float32
-and float64, one launch each for a batch. The w2 modes of B8 (`cwt_w2`, both engines) and B7 (`fsst2_w`)
+and float64, one launch each for a batch; F below, at and one past the
+cluster size, a batch that runs in cluster waves, T of 1 and 2, the
+rule's largest F, NaN cells and exact ties, clusters of 2, 8 and 16. The w2 modes of B8 (`cwt_w2`, both engines) and B7 (`fsst2_w`)
 against their plain versions (`wsst2_rows`, `fsst2_rows`): W/V as above,
 w2 with the same inf cells (float64; float32 on all but 0.1% of cells)
 and its finite cells within 1e-9 of max in float64; W/V bit-identical to
@@ -2036,26 +2038,70 @@ def _ridge_inputs(B, T, F, dtype, seed, dev):
     return e, v
 
 
-@pytest.mark.parametrize('B,T,F', [(1, 2000, 293), (3, 700, 40),
-                                   (2, 64, 1100), (1, 1, 5)])
-@pytest.mark.parametrize('dtype', ['float32', 'float64'])
-def test_ridge_kernels_vs_plain(dev, B, T, F, dtype):
-    """`ridge_forward` and `ridge_trace` against their plain versions on
-    the card: pe bit-identical, the indices equal; one launch each for the
-    batch (F = 1100 runs more rows than threads per block)."""
+def _ridge_vs_plain(e, v, eps, plan=None):
+    """Both ridge kernels, one launch each, against their plain versions:
+    pe bit-identical (NaN cells NaN on both sides), the indices equal."""
     from ssqueezepy_tpu_torch.ops.ridge_cuda import (
         ridge_forward, ridge_forward_plain, ridge_trace, ridge_trace_plain)
-    e, v = _ridge_inputs(B, T, F, dtype, B + T, dev)
-    eps = float(np.finfo(dtype).eps)
     f0, t0 = ridge_forward.launches, ridge_trace.launches
-    pe = ridge_forward(e, v, 2.)
+    pe = ridge_forward(e, v, 2., plan=plan)
     r = ridge_trace(pe, e, v, 2., eps)
     torch.cuda.synchronize()
     assert (ridge_forward.launches - f0, ridge_trace.launches - t0) == (1, 1)
     pe_p = ridge_forward_plain(e, v, 2.)
-    assert torch.equal(pe, pe_p)
+    nan = pe_p.isnan()
+    assert torch.equal(pe.isnan(), nan)
+    assert torch.equal(pe[~nan], pe_p[~nan])
     assert torch.equal(r, ridge_trace_plain(pe_p, e, v, 2., eps))
-    assert r.dtype == torch.int64 and r.shape == (B, T)
+    assert r.dtype == torch.int64 and r.shape == e.shape[:2]
+    return pe, r
+
+
+@pytest.mark.parametrize('B,T,F', [(1, 2000, 293), (3, 700, 40),
+                                   (2, 64, 1100), (1, 1, 5), (2, 300, 9),
+                                   (20, 150, 40), (3, 1, 40), (2, 2, 293),
+                                   (1, 24, 5632), (1, 24, 11264)])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ridge_kernels_vs_plain(dev, B, T, F, dtype):
+    """`ridge_forward` and `ridge_trace` against their plain versions on
+    the card: pe bit-identical, the indices equal; one launch each for the
+    batch. F = 5 runs fewer rows than the cluster's 8 CTAs, F = 9 one more
+    (spare CTAs); B = 20 runs 160 CTAs, more than fit at once (cluster
+    waves); T = 1 and 2; F = 1100 recomputes P (F = 5632 in float64 and
+    11264 in float32, the rule's edge, also with one slot of e in the
+    trace); F = 11264 in float64 is past the rule and raises on the card
+    as on the CPU."""
+    from ssqueezepy_tpu_torch.ops.ridge_cuda import ridge_plan
+    if F * np.dtype(dtype).itemsize > 11264 * 4:
+        e = torch.zeros((B, T, F), dtype=getattr(torch, dtype), device=dev)
+        with pytest.raises(NotImplementedError, match='C1b'):
+            stq.ops.ridge_cuda.ridge_forward(e, e[0, 0], 2.)
+        return
+    e, v = _ridge_inputs(B, T, F, dtype, B + T, dev)
+    plan = ridge_plan(F, e.element_size())
+    assert plan.clusters == min(8, F)
+    assert plan.resident == (F <= 293)
+    _ridge_vs_plain(e, v, float(np.finfo(dtype).eps))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+@pytest.mark.parametrize('clusters', [2, 16])
+def test_ridge_kernels_nan_ties(dev, dtype, clusters):
+    """NaN cells and exact ties on the card: a NaN of e spreads through
+    every later column of pe (torch's NaN rule), the trace's argmin takes
+    the first NaN and, where nothing qualifies, the first least pe;
+    constant columns tie every f. At the default cluster and at 2 and 16
+    CTAs (the non-portable size)."""
+    from ssqueezepy_tpu_torch.ops.ridge_cuda import ridge_plan
+    e, v = _ridge_inputs(3, 400, 293, dtype, 7, dev)
+    e[:, ::9] = 1.                       # constant columns: exact ties
+    e[1, 350, 17] = float('nan')         # NaN from column 350 of row 1
+    e[2, 399, ::5] = float('nan')        # NaN in the last column only
+    eps = float(np.finfo(dtype).eps)
+    pe, r = _ridge_vs_plain(e, v, eps)
+    assert pe[1, 351:].isnan().all() and not pe[0].isnan().any()
+    _ridge_vs_plain(e, v, eps, plan=ridge_plan(293, e.element_size(),
+                                               clusters=clusters))
 
 
 def _ridge_states(Tf, ridges, bw, device):
