@@ -229,8 +229,21 @@ with a prime factor above 7 (section 10b); and the analysis layer,
      `experimental.phase_ssqueeze` from `ssq_cwt(get_dWx=True)`'s Wx and
      dWx (`get_w=True`): B5 alone, against `ssq_cwt(get_w=True)`'s Tx by
      the bins criterion, timed;
- 13. prints one `{"kernels": [...]}` line (the table modes' nine rows,
-     then the ridge kernels' two, last), then, as the last line,
+ 12g. (`band_section`) the band plan of B6/B7 at the headline (n_fft =
+     598: the pair's band br = 40 and the bank's 48 of f1 = 320) and on
+     the (4, 160000) batch: the tables' MB banded and full; every mode
+     (B6 Sx, Sx + dSx, bins; B7 FSST2 and w2) on the banded tables that
+     the public calls take, against its banded plain version (2e-5 of
+     max, bins by the criteria above), the batch's rows bit-identical to
+     one-signal launches, B7's V bit-identical to B6's Sx on the bank's
+     band; each mode timed banded and full in turns (CUDA events) and
+     its two launches under the profiler (stage 1, stage 2); the peaks
+     and host ms of `stft`, `ssq_stft` and `ssq_stft2` with the band on
+     and off. Section 10's float32 hop-1 STFT calls (and 12c-12e's) must
+     launch B6/B7 on banded tables only (the `*_banded` counters);
+ 13. prints one `{"kernels": [...]}` line (the band plan's six rows, the
+     table modes' nine, then the ridge kernels' two, last), then, as the
+     last line,
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before those lines. Without a CUDA
@@ -822,17 +835,17 @@ def streaming_section(stq, dev, card, counters):
             | {'shift_scatter'}),
         'ssq_stft_512': (lambda: stq.StreamingSSQSTFT(
             chunk, n_fft=512, dtype='float32'), 1,
-            lambda p: {'stft_conv', 'scatter_kv'}),
+            lambda p: {'stft_conv', 'stft_conv_banded', 'scatter_kv'}),
         'cwt_97': (lambda: stq.StreamingCWT(chunk, g32, **ctx97), 1,
                    lambda p: cwt_need('cwt_fused', p)),
         'stft_512': (lambda: stq.StreamingSTFT(chunk, n_fft=512,
                                                dtype='float32'), 1,
-                     lambda p: {'stft_conv'}),
+                     lambda p: {'stft_conv', 'stft_conv_banded'}),
         'ssq_cwt2_97': (lambda: stq.StreamingSSQCWT2(chunk, g32, **ctx97), 1,
                         lambda p: cwt_need('cwt_bins2', p)),
         'ssq_stft2_512': (lambda: stq.StreamingSSQSTFT2(
             chunk, n_fft=512, dtype='float32'), 1,
-            lambda p: {'fsst2_conv', 'scatter_kv'}),
+            lambda p: {'fsst2_conv', 'fsst2_conv_banded', 'scatter_kv'}),
     }
     rng = np.random.default_rng(18)
     rec = torch.as_tensor(rng.standard_normal((B, n_chunks * chunk))
@@ -1106,15 +1119,17 @@ def grad_section(stq, dev, card, counters, x_np, xb_np, spec, scales,
         'ssq_cwt2': route(lambda x: stq.ssq_cwt2(x, spec, scales=scales)[0],
                           issq_cwt, {'cwt_bins2', 'scatter_kv'}),
         'ssq_stft': route(lambda x: stq.ssq_stft(x, n_fft=n_fft)[0],
-                          issq_stft, {'stft_conv', 'scatter_kv'}),
+                          issq_stft, {'stft_conv', 'stft_conv_banded',
+                                      'scatter_kv'}),
         'ssq_stft_hop8': route(
             lambda x: stq.ssq_stft(x, n_fft=n_fft, hop_len=8)[0],
             lambda Tx: Tx.real.sum(-2) * f_stft, {'ssq_fused'}, hop=8),
         'ssq_stft2': route(lambda x: stq.ssq_stft2(x, n_fft=n_fft)[0],
-                           issq_stft, {'fsst2_conv', 'scatter_kv'}),
+                           issq_stft, {'fsst2_conv', 'fsst2_conv_banded',
+                                       'scatter_kv'}),
         'stft': route(lambda x: stq.stft(x, n_fft=n_fft),
                       lambda Sx: stq.istft(Sx, n_fft=n_fft, N=N),
-                      {'stft_conv'}),
+                      {'stft_conv', 'stft_conv_banded'}),
         'ssqueeze_dwx': route(ssqueeze_dwx, issq_cwt,
                               {'cwt_fused', 'ssq_fused'}),
     }
@@ -1417,11 +1432,12 @@ def parallel_section(stq, dev, card, counters, xb_np, spec, scales, n_fft):
         'ShardedSSQSTFT': (
             par.ShardedSSQSTFT(N, n_fft=n_fft, mesh=mesh, dtype='float32'),
             lambda: stq.ssq_stft(xb, n_fft=n_fft)[:2],
-            {'stft_conv_batched', 'scatter_kv'}),
+            {'stft_conv_batched', 'stft_conv_batched_banded', 'scatter_kv'}),
         'ShardedSSQSTFT2': (
             par.ShardedSSQSTFT2(N, n_fft=n_fft, mesh=mesh, dtype='float32'),
             lambda: stq.ssq_stft2(xb, n_fft=n_fft)[:2],
-            {'fsst2_conv_batched', 'scatter_kv'}),
+            {'fsst2_conv_batched', 'fsst2_conv_batched_banded',
+             'scatter_kv'}),
         'ShardedSSQCWT2': (
             par.ShardedSSQCWT2(N, spec, scales, nv=None, mesh=mesh),
             lambda: stq.ssq_cwt2(xb, **kw)[:2],
@@ -1822,6 +1838,213 @@ def analysis_section(stq, dev, card, counters, x_np, spec, scales,
     return rows, launches
 
 
+def stage_ms(fn, reps=5):
+    """Device ms per call of the STFT kernel's two launches
+    (`stft_stage1`, `stft_stage2`) over `reps` calls of `fn` under
+    `torch.profiler`, after one warm-up; {} where the profiler saw no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, 'self_device_time_total',
+                     getattr(ev, 'self_cuda_time_total', 0))
+        if ev.device_type != DeviceType.CUDA or us <= 0:
+            continue
+        for stage in ('stft_stage1', 'stft_stage2'):
+            if stage in ev.key:
+                out[stage] = out.get(stage, 0.) + us / 1e3 / reps
+    return out
+
+
+def band_section(stq, dev, card, x_np, xb_np, n_fft):
+    """Section 12g: the band plan of B6/B7 at the headline (N = 160000,
+    n_fft = 598) and on the (4, 160000) batch. Prints the bands (br of f1)
+    and the tables' MB, banded and full; holds every mode (B6 0-2, B7 3-4)
+    on banded tables against its banded plain version (2e-5 of max, k
+    flips <= 1%, Tx by the bins criterion, w2's inf cells but 0.1%), the
+    batch's rows bit-identical to their spectra launched alone, B7's V
+    bit-identical to B6's Sx with the bank's first table on the bank's
+    band; times each mode banded and full in turns (CUDA events) and its
+    two launches under the profiler (stage 1 and stage 2, banded against
+    full); and the peaks of `stft`, `ssq_stft` and `ssq_stft2` with the
+    band on and off. Returns {(mode, shape): numbers} for the `kernels`
+    line."""
+    import torch
+    from ssqueezepy_tpu_torch.configs import configure
+    from ssqueezepy_tpu_torch.models.ssq_stft import fsst2_plan, stft_plan
+    from ssqueezepy_tpu_torch.models.stft import signal_spectrum
+    from ssqueezepy_tpu_torch.ops import stft_conv as tabs
+    from ssqueezepy_tpu_torch.ops.ssq_cuda import scatter_kv_plain
+    from ssqueezepy_tpu_torch.ops.ssq_kernels import compute_bins
+    from ssqueezepy_tpu_torch.ops.stft_cuda import (
+        BandedTable, fsst2_conv, fsst2_conv_plain, fsst2_rows, fsst2_w,
+        split_fft_len, stft_conv, stft_conv_plain)
+    n_rows = n_fft // 2 + 1
+    sp = stft_plan(None, None, n_fft, n_fft, 1., 'float32')
+    fp = fsst2_plan(None, None, n_fft, n_fft, 1., 'float32')
+    bins = dict(Sfs=torch.as_tensor(sp.Sfs, device=dev), params=sp.params,
+                flipud=False, gamma=10 * float(np.finfo(np.float32).eps))
+    c = torch.full((n_rows,), sp.const, dtype=torch.float32, device=dev)
+    nb = sp.params['omax'] + 1
+    names = {0: 'B6 Sx', 1: 'B6 Sx + dSx', 2: 'B6 bins', 3: 'B7 FSST2',
+             4: 'B7 w2'}
+
+    N = x_np.shape[-1]
+
+    def run(mode, xh, H, Hd, B, plain=False):
+        if mode <= 2:
+            fn = stft_conv_plain if plain else stft_conv
+            return fn(xh, H, None if mode == 0 else Hd, N, 1.,
+                      bins if mode == 2 else None)
+        if mode == 3:
+            return (fsst2_conv_plain if plain else fsst2_conv)(xh, B, N, 1.,
+                                                               bins)
+        return (fsst2_rows if plain else fsst2_w)(xh, B, N, 1., bins['Sfs'],
+                                                  bins['gamma'])
+
+    out = {}
+    for shape, xs in (('one', x_np), ('b4', xb_np)):
+        xh = signal_spectrum(torch.as_tensor(xs, dtype=torch.float32,
+                                             device=dev), n_fft, 'reflect')
+        Np2 = xh.shape[-1]
+        f1, f2 = split_fft_len(Np2)
+        H, Hd = tabs.stft_tables(sp.window, sp.diff_window, n_fft, Np2,
+                                 True, 'float32', dev)
+        B = tabs.fsst2_tables(fp.bank, n_fft, Np2, True, 'float32', dev)
+        check(all(isinstance(t, BandedTable) for t in (H, Hd, B))
+              and H.br <= f1 // 2 and B.br <= f1 // 2,
+              "band plan at Np2=%d=%dx%d: pair br=%d, bank br=%d of f1=%d "
+              "(band starts 8-aligned: %s)"
+              % (Np2, f1, f2, H.br, B.br, f1,
+                 bool((H.r0_host % 8 == 0).all())))
+        Hf = tabs.conv_table(sp.window, n_fft, Np2, True, 'float32', dev)
+        Hdf = tabs.conv_table(sp.diff_window, n_fft, Np2, True, 'float32',
+                              dev)
+        Bf = tabs.conv_bank(fp.bank, n_fft, Np2, True, 'float32', dev)
+        if shape == 'one':
+            mb = lambda *ts: sum(t.numel() * t.element_size()
+                                 for t in ts) / 1e6
+            print("band plan tables at n_fft=%d, Np2=%d: pair %.1f MB "
+                  "banded (br=%d) vs %.1f MB full; bank %.1f MB banded "
+                  "(br=%d) vs %.1f MB full; card: %s"
+                  % (n_fft, Np2, mb(H.t, Hd.t), H.br, mb(Hf, Hdf),
+                     mb(B.t), B.br, mb(Bf), card), flush=True)
+        # the bank's band over its first table: B7's V is B6's Sx there
+        V = run(3, xh, H, Hd, B)[0]
+        check(torch.equal(V, stft_conv(xh, B.plane(0), None, N)[0]),
+              "banded B7 %s: V bit-identical to banded B6's Sx with the "
+              "bank's first table on the bank's band" % shape)
+        del V
+        for mode in range(5):
+            what = "banded %s %s" % (names[mode], shape)
+            o_k = run(mode, xh, H, Hd, B)
+            torch.cuda.synchronize()
+            o_p = run(mode, xh, H, Hd, B, plain=True)
+            err = rel_err(o_k[0], o_p[0])
+            check(err <= 2e-5, "%s: %.3g of max vs its banded plain "
+                  "version (limit 2e-5)" % (what, err))
+            row = dict(err=float((o_k[0] - o_p[0]).abs().max()))
+            if mode == 1:
+                e1 = rel_err(o_k[1], o_p[1])
+                check(e1 <= 2e-5, "%s: dSx %.3g of max (limit 2e-5)"
+                      % (what, e1))
+            if mode == 4:
+                inf = float((torch.isinf(o_k[1]) != torch.isinf(o_p[1]))
+                            .double().mean())
+                check(inf <= 1e-3, "%s: w2's inf cells differ on %.4f%% "
+                      "(limit 0.1%%)" % (what, 100 * inf))
+                k_k, k_p = (torch.where(v, k, -1) for k, v in (
+                    compute_bins(w, sp.params, False)
+                    for w in (o_k[1], o_p[1])))
+            elif mode >= 2:
+                k_k, k_p = o_k[1], o_p[1]
+            if mode >= 2:
+                flips = float((k_k != k_p).double().mean())
+                check(flips <= 0.01, "%s: bins differ on %.4f%% of cells "
+                      "(limit 1%%)" % (what, 100 * flips))
+                bins_criterion(scatter_kv_plain(o_k[0], k_k, c, nb),
+                               scatter_kv_plain(o_p[0], k_p, c, nb), what)
+                del k_k, k_p
+            if shape == 'b4':
+                same = all(torch.equal(a[b], a1) for b in range(len(xs))
+                           for a, a1 in zip(o_k, run(
+                               mode, xh[b].contiguous(), H, Hd, B))
+                           if a is not None)
+                check(same, "%s: each row bit-identical to its spectrum "
+                      "launched alone" % what)
+            del o_k, o_p
+            torch.cuda.empty_cache()
+            # banded against full, in turns (full, banded, banded, full)
+            kb = lambda m=mode: run(m, xh, H, Hd, B)
+            kf = lambda m=mode: run(m, xh, Hf, Hdf, Bf)
+            t = [cuda_ms(f) for f in (kf, kb, kb, kf)]
+            row['ms'], row['ms_full'] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            row['stages'], row['stages_full'] = stage_ms(kb), stage_ms(kf)
+            if mode >= 2:
+                row['plain_ms'] = cuda_ms(
+                    lambda m=mode: run(m, xh, H, Hd, B, plain=True),
+                    reps=2, warm=1)
+            st = lambda d: ("stage 1 %.3f + stage 2 %.3f ms"
+                            % (d['stft_stage1'], d['stft_stage2'])
+                            if {'stft_stage1', 'stft_stage2'} <= set(d)
+                            else "stages not measured (no device time in "
+                            "the profile)")
+            print("%s at %s: %.3f ms banded (br=%d) vs %.3f ms full "
+                  "(CUDA events, in turns); banded %s, full %s "
+                  "(profiler); card: %s"
+                  % (what, tuple(xh.shape[:-1]) + (n_rows, N), row['ms'],
+                     B.br if mode >= 3 else H.br, row['ms_full'],
+                     st(row['stages']), st(row['stages_full']), card),
+                  flush=True)
+            out[(mode, shape)] = row
+        del xh, H, Hd, B, Hf, Hdf, Bf
+        torch.cuda.empty_cache()
+
+    # the peaks of the public calls, band on and off, each with only its
+    # own tables and cuFFT plans live
+    x_dev = torch.as_tensor(x_np, device=dev)
+    calls = {'stft': lambda: stq.stft(x_dev, n_fft=n_fft),
+             'ssq_stft': lambda: stq.ssq_stft(x_dev, n_fft=n_fft),
+             'ssq_stft2': lambda: stq.ssq_stft2(x_dev, n_fft=n_fft)}
+    for name, fn in calls.items():
+        got = {}
+        for band in (True, False, True, False):
+            configure(stft_band=band)
+            try:
+                for cache in (tabs._TABLE_CACHE, tabs._BANK_CACHE,
+                              tabs._BAND_CACHE):
+                    cache.clear()
+                torch.backends.cuda.cufft_plan_cache.clear()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated() / 1e9
+                ms, peak = host_ms(fn, reps=5)
+                got.setdefault(band, []).append((ms, peak, base))
+            finally:
+                configure(stft_band=True)
+        on, off = got[True], got[False]
+        print("band plan %s at N=%d: peak %.3f GB banded vs %.3f GB full "
+              "(above the %.3f GB held: %.3f vs %.3f), %.3f ms vs %.3f ms "
+              "per call (host clock, mean of 5 after 2 warm-up, banded and "
+              "full in turns); card: %s"
+              % (name, len(x_np), on[0][1], off[0][1], on[0][2],
+                 on[0][1] - on[0][2], off[0][1] - off[0][2],
+                 (on[0][0] + on[1][0]) / 2, (off[0][0] + off[1][0]) / 2,
+                 card), flush=True)
+    for cache in (tabs._TABLE_CACHE, tabs._BANK_CACHE, tabs._BAND_CACHE):
+        cache.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1848,7 +2071,7 @@ def main():
             fsst2_conv, fsst2_conv_plain, fsst2_rows, fsst2_w, stft_conv,
             stft_conv_plain, split_fft_len)
         from ssqueezepy_tpu_torch.ops.stft_conv import (
-            conv_bank, conv_table, _BANK_CACHE, _TABLE_CACHE)
+            conv_bank, conv_table, _BAND_CACHE, _BANK_CACHE, _TABLE_CACHE)
         from ssqueezepy_tpu_torch.ops.fft import rfft
         from ssqueezepy_tpu_torch.ops.pad import padsignal, pad_params
         from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
@@ -1874,7 +2097,13 @@ def main():
         (k.__name__ + '_mixed', k, 'mixed_launches')
         for k in (cwt_bins, cwt_fused, cwt_bins2, cwt_w2)] + [
         (k.__name__ + '_batched_mixed', k, 'mixed_batched_launches')
-        for k in (cwt_bins, cwt_bins2, cwt_w2)]
+        for k in (cwt_bins, cwt_bins2, cwt_w2)] + [
+        # B6/B7 launches on banded tables (the band plan), also counted
+        # on the wrappers' own counters above
+        (k.__name__ + suffix + '_banded', k, 'banded_' + attr)
+        for k in (stft_conv, fsst2_conv, fsst2_w)
+        for suffix, attr in (('', 'launches'),
+                             ('_batched', 'batched_launches'))]
     # full-precision float32 products in every plain version
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2752,10 +2981,11 @@ def main():
     # the w and Wx that `ssqueeze` reassigns: the get_w call's own
     sq_in = {}
     needs = {'ssq_cwt': ('cwt_bins', 'scatter_kv'),
-             'ssq_stft': ('stft_conv', 'scatter_kv'),
-             'stft': ('stft_conv',), 'cwt': ('cwt_fused',),
+             'ssq_stft': ('stft_conv', 'scatter_kv', 'stft_conv_banded'),
+             'stft': ('stft_conv', 'stft_conv_banded'),
+             'cwt': ('cwt_fused',),
              'ssq_cwt2': ('cwt_bins2', 'scatter_kv'),
-             'ssq_stft2': ('fsst2_conv', 'scatter_kv'),
+             'ssq_stft2': ('fsst2_conv', 'scatter_kv', 'fsst2_conv_banded'),
              'ssq_cwt_b4': ('cwt_bins_batched', 'scatter_kv'),
              'ssq_cwt_dwx': ('cwt_fused', 'ssq_fused'),
              'ssq_stft_hop8': ('ssq_fused',),
@@ -2764,14 +2994,18 @@ def main():
              'ssq_stft_hop8_abs': ('shift_scatter',),
              'ssqueeze_w': ('shift_scatter',),
              'ssqueeze_dwx': ('ssq_fused',),
-             'ssq_stft_lebesgue': ('stft_conv', 'scatter_kv'),
+             'ssq_stft_lebesgue': ('stft_conv', 'scatter_kv',
+                                   'stft_conv_banded'),
              'ssq_cwt2_abs': ('cwt_bins2', 'scatter_kv'),
-             'ssq_stft2_lebesgue': ('fsst2_conv', 'scatter_kv'),
-             'stft_b4': ('stft_conv_batched',),
-             'ssq_stft_b4': ('stft_conv_batched', 'scatter_kv'),
+             'ssq_stft2_lebesgue': ('fsst2_conv', 'scatter_kv',
+                                    'fsst2_conv_banded'),
+             'stft_b4': ('stft_conv_batched', 'stft_conv_batched_banded'),
+             'ssq_stft_b4': ('stft_conv_batched', 'scatter_kv',
+                             'stft_conv_batched_banded'),
              'ssq_stft_hop8_b4': ('ssq_fused',),
              'ssq_stft_hop8_abs_b4': ('shift_scatter',),
-             'ssq_stft2_b4': ('fsst2_conv_batched', 'scatter_kv'),
+             'ssq_stft2_b4': ('fsst2_conv_batched', 'scatter_kv',
+                              'fsst2_conv_batched_banded'),
              'ssq_cwt2_b4': ('cwt_bins2_batched', 'scatter_kv'),
              'ssq_cwt_padnone': ('cwt_bins_mixed', 'scatter_kv'),
              'ssq_cwt_padnone_b4': ('cwt_bins_batched_mixed', 'scatter_kv'),
@@ -2781,8 +3015,10 @@ def main():
              'ssq_cwt2_padnone': ('cwt_bins2_mixed', 'scatter_kv'),
              'ssq_cwt2_getw': ('cwt_w2', 'shift_scatter'),
              'ssq_cwt2_getw_padnone': ('cwt_w2_mixed', 'shift_scatter'),
-             'ssq_stft2_getw': ('fsst2_w', 'shift_scatter'),
-             'ssq_stft2_getw_b4': ('fsst2_w_batched', 'shift_scatter')}
+             'ssq_stft2_getw': ('fsst2_w', 'shift_scatter',
+                                'fsst2_w_banded'),
+             'ssq_stft2_getw_b4': ('fsst2_w_batched', 'shift_scatter',
+                                   'fsst2_w_batched_banded')}
     # kernels a path must not launch: get_w takes no bins kernel, a batch
     # no one-signal launch of B6, B7 or B8
     avoids = {'ssq_cwt_getw': ('cwt_bins', 'cwt_bins_batched', 'scatter_kv',
@@ -2846,6 +3082,8 @@ def main():
                 'ssq_stft2_getw_b4': ('b7b', 'ssq_stft2_b4')}
     launches = dict.fromkeys((name for name, _, _ in all_kernels
                               + plain_kernels), 0)
+    stft_b67 = [k + sfx for k in ('stft_conv', 'fsst2_conv', 'fsst2_w')
+                for sfx in ('', '_batched')]
     for name, fn in calls.items():
         fn()                                  # plan memo + first launch
         torch.cuda.synchronize()
@@ -2853,6 +3091,12 @@ def main():
         check(all(counts[kn] >= 1 for kn in needs[name])
               and not any(counts[kn] for kn in avoids.get(name, ())),
               "%s at N=%d launched its kernels: %s" % (name, N, counts))
+        # the float32 hop-1 STFT family on banded tables only: every B6/B7
+        # launch of the call is a banded one
+        full = {kn: counts[kn] - counts[kn + '_banded'] for kn in stft_b67
+                if counts[kn] != counts[kn + '_banded']}
+        check(not full, "%s: every B6/B7 launch on banded tables (full-"
+              "table launches: %s)" % (name, full or 'none'))
         for kn, v in counts.items():
             launches[kn] += v
         if name == 'ssq_cwt':
@@ -3615,6 +3859,7 @@ def main():
     for name, fn in calls.items():
         _TABLE_CACHE.clear()
         _BANK_CACHE.clear()
+        _BAND_CACHE.clear()
         torch.backends.cuda.cufft_plan_cache.clear()
         torch.cuda.empty_cache()
         if name == 'ssqueeze_w':
@@ -3803,6 +4048,7 @@ def main():
               "bound %.3f ms, %.1f%% of the bound; card: %s"
               % (what, ms, nbytes / ms / 1e9, nbytes, bms, 100 * bms / ms,
                  card), flush=True)
+    band = band_section(stq, dev, card, x_np, xb_big, n_fft)
     wav_rows, _ = wavelet_section(stq, dev, card, x_np, xb_big)
     for k, v in streaming_section(stq, dev, card, all_kernels).items():
         launches[k] += v
@@ -3934,6 +4180,28 @@ def main():
              max_abs_err=w2k['b7b']['err'], ms=w7b_ms,
              plain_ms=w7b_plain_ms, bound_ms=w7b_bound, bound_by=w7b_by,
              library_ms=b7b_lib_ms)]
+    # the band plan (section 12g): B6 in bins mode and B7's two modes on
+    # banded tables, one signal and the (4, 160000) batch; the bound and
+    # the library yardstick are the full-table rows' (the same function)
+    for name, mode, shape, bnd, lib in (
+            ('stft_conv_banded', 2, 'one', (b6_bound, b6_by), b6_lib_ms),
+            ('stft_conv_batched_banded', 2, 'b4', (b6b_bound, b6b_by),
+             b6b_lib_ms),
+            ('fsst2_conv_banded', 3, 'one', (b7_bound, b7_by), b7_lib_ms),
+            ('fsst2_conv_batched_banded', 3, 'b4', (b7b_bound, b7b_by),
+             b7b_lib_ms),
+            ('fsst2_w_banded', 4, 'one', (w7_bound, w7_by), b7_lib_ms),
+            ('fsst2_w_batched_banded', 4, 'b4', (w7b_bound, w7b_by),
+             b7b_lib_ms)):
+        r = band[(mode, shape)]
+        kernels.append(dict(
+            name=name, route='cuda',
+            source='ssqueezepy_tpu_torch/csrc/stft_conv.cu',
+            replaces='ssqueezepy_tpu/ops/stft_conv.py:%d'
+            % (393 if mode == 2 else 655),
+            launches=launches[name], max_abs_err=r['err'], ms=r['ms'],
+            plain_ms=r['plain_ms'], bound_ms=bnd[0], bound_by=bnd[1],
+            library_ms=lib))
     kernels += wav_rows + ridge_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

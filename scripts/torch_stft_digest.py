@@ -20,6 +20,12 @@ Where the checkout's kernel takes a batch of spectra (it counts on
 above stacked with those of seeds N + 1 (and N + 2 below 160000), keys
 "<B>x<N> <dtype> <output>", and "... rows equal" says whether each row of
 every batched output is bit-identical to its spectrum launched alone.
+
+The tables above are the full ones (`conv_table`, `conv_bank`) in every
+checkout. Where the checkout has the band plan (`ops/stft_conv.py::
+stft_tables`), each float32 case also runs every mode on the banded
+tables that the public calls take, under the keys "<N> float32 banded
+<mode> <output>" (and "<B>x<N> float32 banded ..." for the batch).
 """
 import argparse
 import hashlib
@@ -42,6 +48,7 @@ def main():
     sys.path.insert(0, os.path.abspath(a.root))
     from ssqueezepy_tpu_torch.models.ssq_stft import fsst2_plan, stft_plan
     from ssqueezepy_tpu_torch.models.stft import signal_spectrum
+    from ssqueezepy_tpu_torch.ops import stft_conv as tables
     from ssqueezepy_tpu_torch.ops.stft_conv import conv_bank, conv_table
     from ssqueezepy_tpu_torch.ops import stft_cuda
     from ssqueezepy_tpu_torch.ops.stft_cuda import fsst2_conv, stft_conv
@@ -78,36 +85,49 @@ def main():
         bank = conv_bank(fp.bank, n_fft, xh.shape[0], True, dtype, dev)
         bins7 = dict(Sfs=torch.as_tensor(fp.Sfs, device=dev),
                      params=fp.params, flipud=False, gamma=gamma)
-        runs = (('mode 0', ('Sx',), lambda z: stft_conv(z, H, None, N)[:1]),
-                ('mode 1', ('Sx', 'dSx'), lambda z: stft_conv(z, H, Hd, N,
-                                                              2.)),
-                ('mode 2', ('Sx', 'k'), lambda z: stft_conv(z, H, Hd, N, 1.,
-                                                            bins)),
-                ('B7', ('V', 'k'), lambda z: fsst2_conv(z, bank, N, 1.,
-                                                        bins7)))
-        if hasattr(stft_cuda, 'fsst2_w'):
-            runs += (('B7 w2', ('V', 'w2'), lambda z: stft_cuda.fsst2_w(
-                z, bank, N, 1., bins7['Sfs'], gamma)),)
-        key = '%d %s ' % (N, dtype)
-        for mode, names, run in runs:
-            for name, o in zip(names, run(xh)):
-                out[key + '%s %s' % (mode, name)] = digest(o)
-        if batched:
-            B = 2 if N == 160000 else 3
-            xb = torch.stack([xh] + [spectrum(N + b, N, n_fft, dtype)
-                                     for b in range(1, B)])
-            keyb, same = '%dx%d %s ' % (B, N, dtype), True
+        def modes(H, Hd, bank):
+            runs = (('mode 0', ('Sx',), lambda z: stft_conv(z, H, None,
+                                                            N)[:1]),
+                    ('mode 1', ('Sx', 'dSx'), lambda z: stft_conv(
+                        z, H, Hd, N, 2.)),
+                    ('mode 2', ('Sx', 'k'), lambda z: stft_conv(
+                        z, H, Hd, N, 1., bins)),
+                    ('B7', ('V', 'k'), lambda z: fsst2_conv(z, bank, N, 1.,
+                                                            bins7)))
+            if hasattr(stft_cuda, 'fsst2_w'):
+                runs += (('B7 w2', ('V', 'w2'), lambda z: stft_cuda.fsst2_w(
+                    z, bank, N, 1., bins7['Sfs'], gamma)),)
+            return runs
+
+        sets = [('', modes(H, Hd, bank))]
+        if hasattr(tables, 'stft_tables') and dtype == 'float32':
+            sets.append(('banded ', modes(
+                *tables.stft_tables(sp.window, sp.diff_window, n_fft,
+                                    xh.shape[0], True, dtype, dev),
+                tables.fsst2_tables(fp.bank, n_fft, xh.shape[0], True,
+                                    dtype, dev))))
+        for tag, runs in sets:
+            key = '%d %s %s' % (N, dtype, tag)
             for mode, names, run in runs:
-                outs = run(xb)
-                for name, o in zip(names, outs):
-                    out[keyb + '%s %s' % (mode, name)] = digest(o)
-                for b in range(B):
-                    same = same and all(torch.equal(o[b], o1) for o, o1 in
-                                        zip(outs, run(xb[b].contiguous())))
-                del outs
-            out[keyb + 'rows equal'] = same
-            del xb
-        del H, Hd, bank
+                for name, o in zip(names, run(xh)):
+                    out[key + '%s %s' % (mode, name)] = digest(o)
+            if batched:
+                B = 2 if N == 160000 else 3
+                xb = torch.stack([xh] + [spectrum(N + b, N, n_fft, dtype)
+                                         for b in range(1, B)])
+                keyb, same = '%dx%d %s %s' % (B, N, dtype, tag), True
+                for mode, names, run in runs:
+                    outs = run(xb)
+                    for name, o in zip(names, outs):
+                        out[keyb + '%s %s' % (mode, name)] = digest(o)
+                    for b in range(B):
+                        same = same and all(
+                            torch.equal(o[b], o1) for o, o1 in
+                            zip(outs, run(xb[b].contiguous())))
+                    del outs
+                out[keyb + 'rows equal'] = same
+                del xb
+        del H, Hd, bank, sets
         torch.cuda.empty_cache()
     print(json.dumps(out, indent=1))
 

@@ -9,9 +9,12 @@ Built-in defaults follow ssqueezepy's `configs.ini` values: morlet
 mu=13.4; bump mu=5, s=1, om=0; cmhat mu=1, s=1; hhhat mu=5; GMW gamma=3,
 beta=60, norm='bandpass'; global dtype float32; log-piecewise
 downsample=4. Counterpart of `ssqueezepy_tpu/configs.py`, cut to what
-the synchrosqueezed CWT needs (no backend or kernel switches: CUDA
-tensors always run the hand-written kernels, CPU tensors their plain
-PyTorch versions).
+the port needs. It has no backend or kernel switches: CUDA tensors always
+run the hand-written kernels, CPU tensors their plain PyTorch versions.
+`stft_band` (the JAX field of that name) chooses a function, not a
+kernel: on, the float32 hop-1 STFT drops each row's 1e-7 spectral tail
+(`ops/stft_conv.py`, the band plan); off, it computes the exact sum; both
+run the same kernel on the card.
 """
 import os
 import dataclasses
@@ -35,12 +38,16 @@ class WaveletDefaults:
 @dataclass
 class Config:
     """Global defaults; access via `get_config()`, override via
-    `configure()` or env vars ``SSQTORCH_DTYPE``, ``SSQTORCH_DOWNSAMPLE``.
+    `configure()` or env vars ``SSQTORCH_DTYPE``, ``SSQTORCH_DOWNSAMPLE``,
+    ``SSQTORCH_STFT_BAND``.
     """
     # global compute precision ('float32' | 'float64')
     dtype: str = 'float32'
     # log-piecewise scale downsampling factor
     downsample: int = 4
+    # float32 hop-1 STFT tables cut to each row's spectral band (all but
+    # 1e-7 of its L1 mass) where the band pays; False: full tables
+    stft_band: bool = True
     wavelets: WaveletDefaults = field(default_factory=WaveletDefaults)
 
 
@@ -54,6 +61,9 @@ def _from_env(cfg):
     ds = os.environ.get('SSQTORCH_DOWNSAMPLE')
     if ds:
         cfg.downsample = int(ds)
+    sb = os.environ.get('SSQTORCH_STFT_BAND')
+    if sb:
+        cfg.stft_band = sb not in ('0', 'false', 'False')
     return cfg
 
 

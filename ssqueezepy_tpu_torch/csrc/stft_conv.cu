@@ -61,17 +61,28 @@
 // the position k1 fastest (consecutive elements, coalesced scratch
 // writes). Every butterfly, twiddle and product is the one the first
 // version of this kernel computed, in the same order.
+// Band plan (the TPU kernel's `_band_plan`, ops/stft_conv.py): a table row
+// may hold only its spectral band, br of the f1 rows m1 of the split,
+// starting at r0[row] and wrapping mod f1: table row i is then (br, f2)
+// and holds m1 = (r0[i] + r) % f1 at r < br. Stage 1 reads the table at r
+// = (m1 - r0) mod f1 and takes the product as zero where r >= br, reading
+// neither the table nor xh there; the passes, the twiddle and stage 2 do
+// not change. A full table is the band br = f1, r0 = 0 (null r0): then
+// every address and product is the one the kernel computed before it had
+// a band, so full-table outputs keep their bits. Banding is data, not a
+// template parameter: one body serves both.
 // Twiddle arguments are exact: products of integers below Np2 (or below
 // the transform length) index a table or are reduced before sincospi.
 // Bound: at the ssq_stft headline (300 rows, Np2 = 163840 = 320 x 512,
 // bins mode) the bytes the function must move (xh + Sx + k, ~0.58 GB)
 // outweigh the DFT operations (~8.5 GFLOP in float32), so it is
-// bytes-bound on paper; the design also reads the two tables (~0.79 GB)
-// and moves the scratch planes through device memory twice (~1.6 GB),
-// which the bound does not count. Mode 3 at the ssq_stft2 headline: five
-// DFTs per row (~21 GFLOP) against ~0.58 GB, operation-bound on paper; it
-// also reads five tables (~1.97 GB) and moves five scratch planes (~3.9
-// GB of traffic). Templated on float and double.
+// bytes-bound on paper; the design also reads the two tables (~0.79 GB
+// full, ~0.098 GB on their band of 40 of 320 rows) and moves the scratch
+// planes through device memory twice (~1.6 GB), which the bound does not
+// count. Mode 3 at the ssq_stft2 headline: five DFTs per row (~21 GFLOP)
+// against ~0.58 GB, operation-bound on paper; it also reads five tables
+// (~1.97 GB full, ~0.30 GB on their band of 48 rows) and moves five
+// scratch planes (~3.9 GB of traffic). Templated on float and double.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -119,6 +130,7 @@ constexpr int kThreads = 256;
 struct Cfg {
   int Np2, f1, f2, N, P1, P2, rows, row0, omax, flipud;
   int tab_rows;                            // rows of each table (i)
+  int br;                                  // band rows of each table row
   int S1, S2, sw1, sw2;                    // sequence strides, swizzles
   double inv_n, fs, gamma_gate, vmin, dv;
   // modes 3-4: the divides' regularizer, 2 pi, fs / 2 pi
@@ -164,29 +176,45 @@ struct Tabs {
 };
 
 // Stage-1 input: position m1 of sequence q = g * P + p is the product
-// table[g][m] x xh[m] at column m = m1 f2 + m2_0 + p (tab[g] the row of
-// plane g), read by the first pass or by a gather (`Direct`).
+// table[g][r f2 + m2] x xh[m] at column m = m1 f2 + m2, m2 = m2_0 + p,
+// band row r = (m1 - r0) mod f1 (tab[g] the row of plane g), and zero
+// where r >= br; read by the first pass or by a gather (`Direct`).
 template <typename T, int NP>
 struct Products {
   typedef typename Cplx<T>::type CT;
   const CT* xh;
   const CT* tab[NP];
-  int f2, m2_0, lgP;
+  int f1, f2, m2_0, lgP, r0, br;
+  // the band row of m1, or -1 outside the band
+  __device__ __forceinline__ int band_row(int m1) const {
+    int r = m1 - r0;
+    if (r < 0) r += f1;
+    return r < br ? r : -1;
+  }
   __device__ __forceinline__ CT operator()(int q, int m1) const {
     const int g = q >> lgP;
-    const size_t m = (size_t)m1 * f2 + m2_0 + (q & ((1 << lgP) - 1));
+    const int m2 = m2_0 + (q & ((1 << lgP) - 1));
+    const int r = band_row(m1);
+    if (r < 0) return CT{(T)0, (T)0};
     const CT* t = tab[0];
 #pragma unroll
     for (int i = 1; i < NP; ++i)           // no run-time index into tab
       if (g == i) t = tab[i];
-    return cmul(t[m], xh[m]);
+    return cmul(t[(size_t)r * f2 + m2], xh[(size_t)m1 * f2 + m2]);
   }
   // all NP products at (p, m1), for a gather into shared memory
   __device__ __forceinline__ void all(int p, int m1, CT (&X)[NP]) const {
-    const size_t m = (size_t)m1 * f2 + m2_0 + p;
-    const CT x = xh[m];
+    const int m2 = m2_0 + p;
+    const int r = band_row(m1);
+    if (r < 0) {
 #pragma unroll
-    for (int g = 0; g < NP; ++g) X[g] = cmul(tab[g][m], x);
+      for (int g = 0; g < NP; ++g) X[g] = CT{(T)0, (T)0};
+      return;
+    }
+    const CT x = xh[(size_t)m1 * f2 + m2];
+    const size_t o = (size_t)r * f2 + m2;
+#pragma unroll
+    for (int g = 0; g < NP; ++g) X[g] = cmul(tab[g][o], x);
   }
 };
 
@@ -234,7 +262,8 @@ struct ScratchSeq {
 template <typename T, int NP>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 4 : 2)
 stft_stage1(const typename Cplx<T>::type* __restrict__ xh, Tabs<T> tabs,
-            Cfg c, typename Cplx<T>::type* __restrict__ scratch) {
+            const int* __restrict__ r0, Cfg c,
+            typename Cplx<T>::type* __restrict__ scratch) {
   typedef typename Cplx<T>::type CT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int L = c.f1, P = c.P1, S = c.S1, lgP = ilog2(c.P1);
@@ -243,15 +272,19 @@ stft_stage1(const typename Cplx<T>::type* __restrict__ xh, Tabs<T> tabs,
   CT* bufb = bufa + NP * P * S;
   const int a = blockIdx.y;                // row within this chunk
   const int gr = c.row0 + a;               // global row b * tab_rows + i
-  const size_t trow = (size_t)(gr % c.tab_rows) * c.Np2;
+  const int i = gr % c.tab_rows;            // table row
+  const size_t trow = (size_t)i * c.br * c.f2;
   const int m2_0 = blockIdx.x * P;
   Products<T, NP> first;
   first.xh = xh + (size_t)(gr / c.tab_rows) * c.Np2;
 #pragma unroll
   for (int g = 0; g < NP; ++g) first.tab[g] = tabs.t[g] + trow;
+  first.f1 = c.f1;
   first.f2 = c.f2;
   first.m2_0 = m2_0;
   first.lgP = lgP;
+  first.r0 = r0 ? r0[i] : 0;
+  first.br = c.br;
   fill_twiddles<T>(tw, L);
   const CT* res;
   if constexpr (Direct<NP>::value) {
@@ -379,9 +412,9 @@ __global__ void stft_stage2(const typename Cplx<T>::type* __restrict__ scratch,
 }
 
 template <typename T, int MODE>
-int launch_mode(const void* xh, const Tabs<T>& tabs, const void* sfs,
-                const Cfg& c, void* scratch, void* sx, void* out2,
-                cudaStream_t st) {
+int launch_mode(const void* xh, const Tabs<T>& tabs, const int* r0,
+                const void* sfs, const Cfg& c, void* scratch, void* sx,
+                void* out2, cudaStream_t st) {
   typedef typename Cplx<T>::type CT;
   constexpr int NP = planes_of(MODE);
   const size_t sm1 = (size_t)(c.f1 + 2 * NP * c.P1 * c.S1) * sizeof(CT);
@@ -392,7 +425,7 @@ int launch_mode(const void* xh, const Tabs<T>& tabs, const void* sfs,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm2);
   dim3 g1(c.f2 / c.P1, c.rows), g2(c.f1 / c.P2, c.rows);
   stft_stage1<T, NP><<<g1, kThreads, sm1, st>>>(
-      static_cast<const CT*>(xh), tabs, c, static_cast<CT*>(scratch));
+      static_cast<const CT*>(xh), tabs, r0, c, static_cast<CT*>(scratch));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   stft_stage2<T, MODE><<<g2, kThreads, sm2, st>>>(
@@ -402,31 +435,32 @@ int launch_mode(const void* xh, const Tabs<T>& tabs, const void* sfs,
 }
 
 template <typename T>
-int launch(const void* xh, const void* H, const void* Hd, const void* sfs,
-           const Cfg& c, int mode, void* scratch, void* sx, void* out2,
-           void* stream) {
+int launch(const void* xh, const void* H, const void* Hd, const int* r0,
+           const void* sfs, const Cfg& c, int mode, void* scratch, void* sx,
+           void* out2, void* stream) {
   typedef typename Cplx<T>::type CT;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   Tabs<T> tabs;
   const CT* h = static_cast<const CT*>(H);
   for (int q = 0; q < 5; ++q)
-    tabs.t[q] = h + (size_t)q * c.tab_rows * c.Np2;
-  // modes 3 and 4: the (5, rows, Np2) bank
+    tabs.t[q] = h + (size_t)q * c.tab_rows * c.br * c.f2;
+  // modes 3 and 4: the (5, rows, br, f2) bank
   tabs.t[1] = mode >= MODE_FSST2 ? tabs.t[1] : static_cast<const CT*>(Hd);
   switch (mode) {
     case MODE_SX:
-      return launch_mode<T, MODE_SX>(xh, tabs, sfs, c, scratch, sx, out2, st);
+      return launch_mode<T, MODE_SX>(xh, tabs, r0, sfs, c, scratch, sx, out2,
+                                     st);
     case MODE_SX_DSX:
-      return launch_mode<T, MODE_SX_DSX>(xh, tabs, sfs, c, scratch, sx, out2,
-                                         st);
+      return launch_mode<T, MODE_SX_DSX>(xh, tabs, r0, sfs, c, scratch, sx,
+                                         out2, st);
     case MODE_BINS:
-      return launch_mode<T, MODE_BINS>(xh, tabs, sfs, c, scratch, sx, out2,
-                                       st);
+      return launch_mode<T, MODE_BINS>(xh, tabs, r0, sfs, c, scratch, sx,
+                                       out2, st);
     case MODE_FSST2:
-      return launch_mode<T, MODE_FSST2>(xh, tabs, sfs, c, scratch, sx, out2,
-                                        st);
+      return launch_mode<T, MODE_FSST2>(xh, tabs, r0, sfs, c, scratch, sx,
+                                        out2, st);
     case MODE_FSST2_W:
-      return launch_mode<T, MODE_FSST2_W>(xh, tabs, sfs, c, scratch, sx,
+      return launch_mode<T, MODE_FSST2_W>(xh, tabs, r0, sfs, c, scratch, sx,
                                           out2, st);
   }
   return (int)cudaErrorInvalidValue;
@@ -437,7 +471,7 @@ Cfg make_cfg(const int* ip, const double* dp) {
   c.Np2 = ip[0]; c.f1 = ip[1]; c.f2 = ip[2]; c.N = ip[3]; c.P1 = ip[4];
   c.P2 = ip[5]; c.rows = ip[6]; c.row0 = ip[7]; c.omax = ip[9];
   c.flipud = ip[10]; c.tab_rows = ip[11]; c.S1 = ip[12]; c.S2 = ip[13];
-  c.sw1 = ip[14]; c.sw2 = ip[15];
+  c.sw1 = ip[14]; c.sw2 = ip[15]; c.br = ip[16];
   c.inv_n = dp[0]; c.fs = dp[1]; c.gamma_gate = dp[2]; c.vmin = dp[3];
   c.dv = dp[4]; c.tiny = dp[5]; c.two_pi = dp[6]; c.fs_2pi = dp[7];
   return c;
@@ -445,25 +479,27 @@ Cfg make_cfg(const int* ip, const double* dp) {
 
 }  // namespace
 
-// ip: 16 ints, dp: 8 doubles (layout in ops/stft_cuda.py; ip[8] the
-// mode, ip[11] the rows of each table). `xh` is (B, Np2), the rows of
-// `sx` and `out2` B * tab_rows. `Hd`, `sfs` and `out2` may
-// be null where the mode does not read or write them; in modes 3 and 4
-// `H` is the (5, tab_rows, Np2) bank and `Hd` is null, and in mode 4
-// `out2` is the real w2 plane.
+// ip: 17 ints, dp: 8 doubles (layout in ops/stft_cuda.py; ip[8] the
+// mode, ip[11] the rows of each table, ip[16] the band rows br). `xh` is
+// (B, Np2), each table (tab_rows, br, f2), the rows of `sx` and `out2`
+// B * tab_rows. `r0` is the (tab_rows,) int32 band starts, or null for
+// full tables (br = f1). `Hd`, `sfs` and `out2` may be null where the
+// mode does not read or write them; in modes 3 and 4 `H` is the
+// (5, tab_rows, br, f2) bank and `Hd` is null, and in mode 4 `out2` is the
+// real w2 plane.
 // Returns cudaGetLastError() after the launches.
 extern "C" int stft_conv_f32(const void* xh, const void* H, const void* Hd,
-                             const void* sfs, const int* ip, const double* dp,
-                             void* scratch, void* sx, void* out2,
-                             void* stream) {
-  return launch<float>(xh, H, Hd, sfs, make_cfg(ip, dp), ip[8], scratch,
-                       sx, out2, stream);
+                             const void* r0, const void* sfs, const int* ip,
+                             const double* dp, void* scratch, void* sx,
+                             void* out2, void* stream) {
+  return launch<float>(xh, H, Hd, static_cast<const int*>(r0), sfs,
+                       make_cfg(ip, dp), ip[8], scratch, sx, out2, stream);
 }
 
 extern "C" int stft_conv_f64(const void* xh, const void* H, const void* Hd,
-                             const void* sfs, const int* ip, const double* dp,
-                             void* scratch, void* sx, void* out2,
-                             void* stream) {
-  return launch<double>(xh, H, Hd, sfs, make_cfg(ip, dp), ip[8], scratch,
-                        sx, out2, stream);
+                             const void* r0, const void* sfs, const int* ip,
+                             const double* dp, void* scratch, void* sx,
+                             void* out2, void* stream) {
+  return launch<double>(xh, H, Hd, static_cast<const int*>(r0), sfs,
+                        make_cfg(ip, dp), ip[8], scratch, sx, out2, stream);
 }

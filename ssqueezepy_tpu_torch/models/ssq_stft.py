@@ -36,7 +36,7 @@ from ..configs import default_dtype
 from ..ops.phase import phase_stft
 from ..ops.ssq_cuda import scatter_kv, scatter_rule, ssq_fused
 from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
-from ..ops.stft_conv import conv_bank, conv_table
+from ..ops.stft_conv import fsst2_tables, stft_tables
 from ..ops.stft_cuda import fsst2_conv, fsst2_w, stft_conv
 from ..utils.common import (WARN, EPS32, EPS64, check_batch,
                             numpy_unless_grad, resolve_device)
@@ -162,9 +162,8 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     else:
         xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype, 2)
         Np2 = xh.shape[-1]
-        H = conv_table(plan.window, n_fft, Np2, modulated, dtype, device)
-        Hd = conv_table(plan.diff_window, n_fft, Np2, modulated, dtype,
-                        device)
+        H, Hd = stft_tables(plan.window, plan.diff_window, n_fft, Np2,
+                            modulated, dtype, device)
         bins = dict(Sfs=Sfs_t, params=plan.params, gamma=float(gamma),
                     flipud=bool(flipud))
         Sx, k = stft_conv(xh, H, Hd, N, float(fs_), bins)
@@ -280,8 +279,8 @@ def ssq_stft2(x, window=None, n_fft=None, win_len=None, fs=None, t=None,
     scatter_rule(nbins, 2 * np.dtype(dtype).itemsize)
 
     xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype, 5)
-    tables = conv_bank(plan.bank, n_fft, xh.shape[-1], modulated, dtype,
-                       device)
+    tables = fsst2_tables(plan.bank, n_fft, xh.shape[-1], modulated, dtype,
+                          device)
     if get_w:
         Sx, w2 = fsst2_w(xh, tables, N, float(fs_), Sfs_t, float(gamma))
         Tx = indexed_sum_onfly(_apply_squeezing(Sx, squeezing), w2, None,

@@ -3,10 +3,12 @@
 
 Counterpart of `ssqueezepy_tpu/models/stft.py`. At hop 1 the STFT is
 one FFT of the padded signal and, per row, the inverse DFT of the
-product with that row's window table: on a CUDA device the hand-written
-table kernel (`ops/stft_cuda.py`), with ``device='cpu'`` its plain
-version. At hop > 1 it takes the framed path (frames -> window ->
-`torch.fft.rfft`), which the JAX package left to XLA: the windowed frames
+product with that row's window table (in float32, by default, cut to
+the row's spectral band: `ops/stft_conv.py::stft_tables`): on a CUDA
+device the hand-written table kernel (`ops/stft_cuda.py`), with
+``device='cpu'`` its plain version. At hop > 1 it takes the framed
+path (frames -> window -> `torch.fft.rfft`), which the JAX package left
+to XLA: the windowed frames
 are one contiguous (..., n_segs, n_fft) tensor, transformed along their
 last axis and returned transposed, (..., n_fft//2 + 1, n_segs), so that
 each frame is transformed as in a one-signal call, whatever the batch
@@ -27,7 +29,7 @@ from ..configs import default_dtype
 from ..ops.fft import fft, irfft, fftshift, ifftshift, next_fft_len
 from ..ops.framing import frame_rows, overlap_add, window_norm
 from ..ops.pad import padsignal
-from ..ops.stft_conv import conv_table
+from ..ops.stft_conv import stft_tables
 from ..ops.stft_cuda import stft_conv, stft_length_rule
 from ..utils.common import check_batch, numpy_unless_grad, resolve_device
 from ..utils.cwt_utils import _process_fs_and_t
@@ -81,9 +83,8 @@ def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     if int(hop_len) == 1:
         xh = signal_spectrum(xt, n_fft, padtype, 2 if derivative else 1)
         Np2 = xh.shape[-1]
-        H = conv_table(window, n_fft, Np2, modulated, dtype, device)
-        Hd = (conv_table(diff_window, n_fft, Np2, modulated, dtype, device)
-              if derivative else None)
+        H, Hd = stft_tables(window, diff_window, n_fft, Np2, modulated,
+                            dtype, device, derivative)
         Sx, dSx = stft_conv(xh, H, Hd, N, float(fs_))
     else:
         xp = padsignal(xt, padtype, padlength=N + n_fft - 1)

@@ -97,7 +97,7 @@ _SIGNATURES = {
         (('ssq_fused_f32', 'ssq_fused_f64'), [ctypes.c_void_p] * 8),
         (('scatter_occupancy',), [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)],
     'stft_conv': [(('stft_conv_f32', 'stft_conv_f64'),
-                   [ctypes.c_void_p] * 10)],
+                   [ctypes.c_void_p] * 11)],
     'ridge_dp': [
         (('ridge_forward_f32', 'ridge_forward_f64'),
          [ctypes.c_void_p] * 2 + [ctypes.c_double] + [ctypes.c_int] * 8

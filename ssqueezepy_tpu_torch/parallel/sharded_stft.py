@@ -23,7 +23,7 @@ from ..models.stft import signal_spectrum
 from ..models.windows import _check_NOLA
 from ..ops.fft import next_fft_len
 from ..ops.ssq_cuda import scatter_kv, scatter_rule
-from ..ops.stft_conv import conv_bank, conv_table
+from ..ops.stft_conv import fsst2_tables, row_block, stft_tables
 from ..ops.stft_cuda import fsst2_conv, stft_conv, stft_length_rule
 from ..streaming import _one_signal, _rebatch
 from .sharded import _ScaleSharded, _gamma
@@ -90,9 +90,9 @@ class ShardedSSQSTFT(_ScaleSharded):
         return plan
 
     def _device_tables(self, plan, lo, hi):
-        return tuple(conv_table(w, self.n_fft, self.Np2, True, self.dtype,
-                                self.device)[lo:hi]
-                     for w in (plan.window, plan.diff_window))
+        return tuple(row_block(t, lo, hi) for t in stft_tables(
+            plan.window, plan.diff_window, self.n_fft, self.Np2, True,
+            self.dtype, self.device))
 
     def _transform(self, xh):
         return stft_conv(xh, *self._tables, self.N, self.fs, self._bins)
@@ -136,8 +136,8 @@ class ShardedSSQSTFT2(ShardedSSQSTFT):
                           self.dtype)
 
     def _device_tables(self, plan, lo, hi):
-        return conv_bank(plan.bank, self.n_fft, self.Np2, True, self.dtype,
-                         self.device)[:, lo:hi].contiguous()
+        return row_block(fsst2_tables(plan.bank, self.n_fft, self.Np2, True,
+                                      self.dtype, self.device), lo, hi)
 
     def _transform(self, xh):
         return fsst2_conv(xh, self._tables, self.N, self.fs, self._bins)

@@ -63,7 +63,7 @@ from .ops.pad import _pad_index, reflect_index
 from .ops.phase import _imag_ratio_over_2pi
 from .ops.ssq_cuda import scatter_kv, scatter_rule
 from .ops.ssq_kernels import _dispatch_scatter, compute_bins
-from .ops.stft_conv import conv_bank, conv_table
+from .ops.stft_conv import fsst2_tables, stft_tables
 from .ops.stft_cuda import fsst2_conv, stft_conv, stft_length_rule
 from .utils.common import EPS32, EPS64, resolve_device, to_device
 
@@ -506,11 +506,9 @@ class StreamingSSQSTFT(_StreamingBase):
         stft_length_rule(self.Np2, itemsize, 2 if self.ssq else 1)
         if self.ssq:
             scatter_rule(self.nbins, itemsize)
-        self._H = conv_table(plan.window, self.n_fft, self.Np2,
-                             self.modulated, self.dtype, self.device)
-        self._Hd = (conv_table(plan.diff_window, self.n_fft, self.Np2,
-                               self.modulated, self.dtype, self.device)
-                    if self.ssq else None)
+        self._H, self._Hd = stft_tables(
+            plan.window, plan.diff_window, self.n_fft, self.Np2,
+            self.modulated, self.dtype, self.device, self.ssq)
 
     def _body(self, w):
         xh, one = _one_signal(fft(w, n=self.Np2).contiguous())
@@ -544,8 +542,8 @@ class StreamingSSQSTFT2(StreamingSSQSTFT):
         scatter_rule(self.nbins, itemsize)
         bank = _fsst2_bank(self._window_spec, self.win_len, self.n_fft,
                            self.dtype)
-        self._tables = conv_bank(bank, self.n_fft, self.Np2, self.modulated,
-                                 self.dtype, self.device)
+        self._tables = fsst2_tables(bank, self.n_fft, self.Np2,
+                                    self.modulated, self.dtype, self.device)
 
     def _body(self, w):
         xh, one = _one_signal(fft(w, n=self.Np2).contiguous())

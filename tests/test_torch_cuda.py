@@ -60,6 +60,7 @@ import pytest
 import torch
 
 import ssqueezepy_tpu_torch as stq
+from ssqueezepy_tpu_torch.configs import configure
 from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
 from ssqueezepy_tpu_torch.models.ssq_cwt import _ssq_cwt_plan
 from ssqueezepy_tpu_torch.models.ssq_stft import stft_plan
@@ -544,6 +545,157 @@ def test_stft_modes_sx_bit_identical(dev, N, n_fft, dtype):
     xh, tables, bins, _ = _fsst2_inputs(N, n_fft, dtype, dev)
     V, _ = fsst2_conv(xh, tables, N, 1., bins)
     assert torch.equal(V, stft_conv(xh, tables[0], None, N)[0])
+
+
+# ---- the band plan of B6/B7 (`ops/stft_conv.py::stft_tables`,
+# `fsst2_tables`): banded tables against the banded plain versions ---------
+def _banded_inputs(shape, n_fft, dev, seed=0):
+    from ssqueezepy_tpu_torch.ops.stft_conv import fsst2_tables, stft_tables
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(shape),
+                        dtype=torch.float32, device=dev)
+    xh = signal_spectrum(x, n_fft, 'reflect')
+    plan = stft_plan(None, None, n_fft, n_fft, 1., 'float32')
+    fplan = fsst2_plan(None, None, n_fft, n_fft, 1., 'float32')
+    H, Hd = stft_tables(plan.window, plan.diff_window, n_fft, xh.shape[-1],
+                        True, 'float32', dev)
+    B = fsst2_tables(fplan.bank, n_fft, xh.shape[-1], True, 'float32', dev)
+    assert all(isinstance(t, stft_cuda.BandedTable) for t in (H, Hd, B))
+    assert H.br <= H.f1 // 2 and B.br <= B.f1 // 2
+    bins = dict(Sfs=torch.as_tensor(plan.Sfs, device=dev),
+                params=plan.params, flipud=False,
+                gamma=10 * float(np.finfo(np.float32).eps))
+    c = torch.full((n_fft // 2 + 1,), plan.const, dtype=torch.float32,
+                   device=dev)
+    return xh, H, Hd, B, bins, c
+
+
+def _banded_run(mode, xh, H, Hd, B, bins, N, plain=False):
+    """One mode of the banded kernel (or its plain version): 0 Sx, 1 Sx
+    and dSx, 2 Sx and k, 3 V and k, 4 V and w2."""
+    if mode <= 2:
+        fn = stft_conv_plain if plain else stft_conv
+        return fn(xh, H, None if mode == 0 else Hd, N, 2.,
+                  bins if mode == 2 else None)
+    if mode == 3:
+        fn = fsst2_conv_plain if plain else fsst2_conv
+        return fn(xh, B, N, 2., bins)
+    if plain:
+        return stft_cuda.fsst2_rows(xh, B, N, 2., bins['Sfs'],
+                                    bins['gamma'])
+    return stft_cuda.fsst2_w(xh, B, N, 2., bins['Sfs'], bins['gamma'])
+
+
+@pytest.mark.parametrize('mode', [0, 1, 2, 3, 4])
+@pytest.mark.parametrize('shape,n_fft', [((10000,), 598), ((3900,), 128),
+                                         ((3, 10000), 598), ((2, 3900), 128)])
+def test_banded_kernel_vs_plain(dev, mode, shape, n_fft):
+    """Every mode of B6/B7 on banded float32 tables against the banded
+    plain version (which expands the band into a zero-filled table): Sx/V
+    and dSx within 2e-5 of max, k flips <= 1% and Tx by the bins
+    criterion, w2 on the same inf cells but 0.1% and its bins' flips
+    <= 1%; one launch of the mode's counter; a batch's rows
+    bit-identical to their spectra launched alone."""
+    N = shape[-1]
+    xh, H, Hd, B, bins, c = _banded_inputs(shape, n_fft, dev)
+    wrapper = (stft_conv if mode <= 2 else fsst2_conv if mode == 3
+               else stft_cuda.fsst2_w)
+    counter = 'batched_launches' if len(shape) == 2 else 'launches'
+    n0 = getattr(wrapper, counter)
+    nb0 = getattr(wrapper, 'banded_' + counter)
+    S_k, o_k = _banded_run(mode, xh, H, Hd, B, bins, N)
+    torch.cuda.synchronize()
+    assert getattr(wrapper, counter) - n0 == 1
+    assert getattr(wrapper, 'banded_' + counter) - nb0 == 1
+    S_p, o_p = _banded_run(mode, xh, H, Hd, B, bins, N, plain=True)
+    assert _rel_err(S_k, S_p) <= 2e-5
+    nbins = bins['params']['omax'] + 1
+    if mode == 1:
+        assert _rel_err(o_k, o_p) <= 2e-5
+    elif mode == 4:
+        assert (torch.isinf(o_k) != torch.isinf(o_p)).double().mean() \
+            <= 1e-3
+        o_k, o_p = (torch.where(v, k, -1) for k, v in (
+            compute_bins(w, bins['params'], False) for w in (o_k, o_p)))
+    if mode in (2, 3, 4):
+        assert (o_k != o_p).double().mean() <= 0.01
+        _bins_criterion(scatter_kv_plain(S_k, o_k, c, nbins),
+                        scatter_kv_plain(S_p, o_p, c, nbins))
+    if len(shape) == 2:
+        for b in range(shape[0]):
+            one = _banded_run(mode, xh[b].contiguous(), H, Hd, B, bins, N)
+            assert torch.equal(one[0], S_k[b])
+    assert mode != 0 or o_k is None
+
+
+@pytest.mark.parametrize('mode', [0, 1, 2, 3, 4])
+def test_full_band_bit_identical_to_full_table(dev, mode):
+    """The band br = f1, r0 = 0 over the full tables reads every address
+    the full-table launch reads: its outputs equal the full launch's bit
+    for bit, one signal and a batch."""
+    N, n_fft = 10000, 598
+    for shape in ((N,), (2, N)):
+        xh, H, Hd, bins, _ = _stft_inputs(N, n_fft, 'float32', dev)
+        if len(shape) == 2:
+            xh = torch.stack([xh, xh.flip(0)])
+        xhf, tables, _, _ = _fsst2_inputs(N, n_fft, 'float32', dev)
+        f1, f2 = stft_cuda.split_fft_len(xh.shape[-1])
+        n_rows = H.shape[0]
+        r0 = torch.zeros(n_rows, dtype=torch.int32, device=dev)
+
+        def band(t):
+            return stft_cuda.BandedTable(
+                t.reshape(t.shape[:-1] + (f1, f2)), r0, f1)
+        full = _banded_run(mode, xh, H, Hd, tables, bins, N)
+        banded = _banded_run(mode, xh, band(H), band(Hd), band(tables),
+                             bins, N)
+        for a, b in zip(full, banded):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_malformed_band_raises_before_launch(dev):
+    xh, H, Hd, B, bins, _ = _banded_inputs((3900,), 128, dev)
+    f1 = H.f1
+    n0 = stft_conv.launches
+    for bad in (stft_cuda.BandedTable(H.t, H.r0.long(), f1),
+                stft_cuda.BandedTable(H.t, H.r0.cpu(), f1),
+                stft_cuda.BandedTable(H.t, H.r0[:-1], f1),
+                stft_cuda.BandedTable(H.t, torch.full_like(H.r0, f1), f1),
+                stft_cuda.BandedTable(H.t, torch.full_like(H.r0, -8), f1)):
+        with pytest.raises(ValueError):
+            stft_conv(xh, bad, None, 3900)
+    with pytest.raises(ValueError):
+        stft_conv(xh, H, stft_cuda.BandedTable(Hd.t, (Hd.r0 + 8) % f1, f1),
+                  3900)
+    with pytest.raises(ValueError):
+        fsst2_conv(xh, stft_cuda.BandedTable(B.t, B.r0.long(), f1), 3900,
+                   1., bins)
+    assert stft_conv.launches == n0
+
+
+def test_public_stft_family_banded_on_card(dev):
+    """The public float32 hop-1 calls on banded tables: `stft`, `ssq_stft`
+    and `ssq_stft2` on the card against the same calls on the CPU (the
+    banded plain versions), and against `stft_band=False` (full tables)
+    within 2e-5 of max."""
+    N = 19531
+    t = np.linspace(0, 6, N, endpoint=False)
+    x = np.cos(2 * np.pi * 2 * np.exp(t / 2)).astype(np.float32)
+    Sx = stq.stft(x, n_fft=512)
+    assert _rel_err(Sx.cpu(), stq.stft(x, n_fft=512, device='cpu')) <= 2e-5
+    Tx, Sx1, _, _ = stq.ssq_stft(x, n_fft=512)
+    assert torch.equal(Sx1, Sx)
+    Tx2, V, _, _ = stq.ssq_stft2(x, n_fft=512)
+    Tx2_c, V_c, _, _ = stq.ssq_stft2(x, n_fft=512, device='cpu')
+    assert _rel_err(V.cpu(), V_c) <= 2e-5
+    _bins2_criterion(Tx2.cpu(), Tx2_c)
+    configure(stft_band=False)
+    try:
+        Sx_f = stq.stft(x, n_fft=512)
+        Tx_f = stq.ssq_stft(x, n_fft=512)[0]
+    finally:
+        configure(stft_band=True)
+    assert _rel_err(Sx, Sx_f) <= 2e-5
+    _bins_criterion(Tx.cpu(), Tx_f.cpu())
 
 
 def test_public_order2_on_card(dev):

@@ -6,7 +6,9 @@ patterns and the index arithmetic of its mixed-radix passes. No card and
 no kernel run here; the thread maps below mirror the kernel's loops
 (`stft_stage1`, `stft_stage2`, `dft::stockham_pass`) and use the
 wrapper's own `launch_plan` (whose `direct` says whether the first pass
-reads device memory), `radices`, `smem_index` and `swz`. The
+reads device memory), `radices`, `smem_index` and `swz`; stage 1's
+products of a banded table row (the band plan) through the kernel's
+addresses. The
 engine the kernel ran before (`stockham`, `stage1`, `stage2`: sequences
 at stride L, the position fastest in the passes) is kept here as a
 frozen model that the counts compare with.
@@ -496,11 +498,63 @@ def test_four_step_through_the_engine(Np2):
     twiddle into the scratch plane's layout, the scratch into the first
     pass, the epilogue walk): one row of table x spectrum comes out as
     ifft(H * xh)[:N]."""
-    plan = launch_plan(Np2, 8, 1)
-    f1, f2 = plan.f1, plan.f2
     N = Np2 - 3
     rng = np.random.default_rng(Np2)
     prod = rng.standard_normal(Np2) + 1j * rng.standard_normal(Np2)
+    np.testing.assert_allclose(_four_step(prod, N), np.fft.ifft(prod)[:N],
+                               rtol=0, atol=1e-12 * np.abs(prod).max())
+
+
+def _band_products(t, xh, r0, f1, f2):
+    """Stage 1's products of one banded table row, through the kernel's
+    addresses (`Products::band_row`, `operator()`, `all` in
+    csrc/stft_conv.cu): position m1, column m2 reads the packed row at
+    r f2 + m2, r = m1 - r0 (plus f1 where negative), and xh at m1 f2 + m2;
+    zero where r >= br, reading neither. Returns the products at m."""
+    br = len(t) // f2
+    m1, m2 = np.arange(f1)[:, None], np.arange(f2)[None]
+    r = m1 - r0
+    r = np.where(r < 0, r + f1, r)
+    inside = np.broadcast_to(r < br, (f1, f2))
+    prod = np.zeros((f1, f2), complex)
+    prod[inside] = (t[(r * f2 + m2)[inside]]
+                    * xh[(m1 * f2 + m2)[inside]])
+    return prod.ravel()
+
+
+@pytest.mark.parametrize('Np2,br,r0', [(576, 8, 16), (2304, 16, 32),
+                                       (12288, 24, 88), (12288, 24, 0),
+                                       (4608, 16, 64), (163840, 40, 312),
+                                       (2304, 36, 0)])
+def test_banded_products_through_the_engine(Np2, br, r0):
+    """A banded table row (br of f1 rows from r0, wrapping mod f1) read
+    through the kernel's addresses, then both launches: ifft of the
+    zero-filled full row times xh, as `BandedTable.expand` builds it; the
+    band br = f1, r0 = 0 reads every address of the full row, so its
+    products are the full table's bit for bit."""
+    plan = launch_plan(Np2, 8, 1)
+    f1, f2 = plan.f1, plan.f2
+    assert r0 < f1 and br <= f1
+    rng = np.random.default_rng(Np2 + br)
+    t = rng.standard_normal(br * f2) + 1j * rng.standard_normal(br * f2)
+    xh = rng.standard_normal(Np2) + 1j * rng.standard_normal(Np2)
+    full = np.zeros((f1, f2), complex)
+    full[(r0 + np.arange(br)) % f1] = t.reshape(br, f2)
+    prod = _band_products(t, xh, r0, f1, f2)
+    assert np.array_equal(prod, full.ravel() * xh)
+    N = Np2 - 5
+    np.testing.assert_allclose(_four_step(prod, N),
+                               np.fft.ifft(full.ravel() * xh)[:N], rtol=0,
+                               atol=1e-12 * np.abs(prod).max())
+    H = rng.standard_normal(Np2) + 1j * rng.standard_normal(Np2)
+    assert np.array_equal(_band_products(H, xh, 0, f1, f2), H * xh)
+
+
+def _four_step(prod, N):
+    """Both launches of one row of products (Np2,), block by block."""
+    Np2 = len(prod)
+    plan = launch_plan(Np2, 8, 1)
+    f1, f2 = plan.f1, plan.f2
     scratch = np.zeros(Np2, complex)
     for blk in range(f2 // plan.P1):              # stage 1
         P, L, S = plan.P1, f1, plan.S1
@@ -524,5 +578,4 @@ def test_four_step_through_the_engine(Np2):
         keep = (k2 < k2hi) & (n < N)
         assert np.isnan(out[n[keep]]).all()
         out[n[keep]] = y[p[keep], k2[keep]]
-    np.testing.assert_allclose(out, np.fft.ifft(prod)[:N], rtol=0,
-                               atol=1e-12 * np.abs(prod).max())
+    return out

@@ -471,8 +471,8 @@ def test_plans_default_to_cuda_and_raise_without_card():
 # builders the kernels' wrappers reach): none may run once a plan streams
 _BUILDERS = [
     ('ssqueezepy_tpu_torch.streaming', n) for n in (
-        '_ssq_cwt_plan', 'stft_plan', '_natural_bins', 'conv_table',
-        'conv_bank', '_fsst2_bank', 'wavelet_table', 'reflect_index',
+        '_ssq_cwt_plan', 'stft_plan', '_natural_bins', 'stft_tables',
+        'fsst2_tables', '_fsst2_bank', 'wavelet_table', 'reflect_index',
         '_pad_index', 'cwt_length_rule', 'stft_length_rule', 'scatter_rule',
         'time_resolution', 'resolve_wavelet', '_device_consts',
         '_supports_order2')] + [
