@@ -241,6 +241,19 @@ with a prime factor above 7 (section 10b); and the analysis layer,
      and host ms of `stft`, `ssq_stft` and `ssq_stft2` with the band on
      and off. Section 10's float32 hop-1 STFT calls (and 12c-12e's) must
      launch B6/B7 on banded tables only (the `*_banded` counters);
+ 12h. (`prune_section`) stage-1 support pruning of the CWT kernel at the
+     headline: the support plan on both engines (rows kept, klim
+     quantiles, the radix-4 stage-1 levels per row), then B1, B3 with one
+     and two planes, B3b on the (4, 160000) batch, B8 and its w2 mode
+     (n_up = 262144), B1 and B8 unpadded (the mixed engine, n_up =
+     160000) and B1 with cmhat from its table, each pruned (the public
+     calls' launch) against the same launch with stage 1 unpruned through
+     the private hook `klims` (rows0 in every row): bit-identical but for
+     the sign of zero cells (their count printed), timed in turns (CUDA
+     events) with its two launches under the profiler (`bins_stage1`,
+     `bins_stage2`). Every CWT-kernel call of the other sections runs
+     pruned, and the CWT kernels' bounds count the DFT levels the pruned
+     rows need (`stage1_levels`);
  13. prints one `{"kernels": [...]}` line (the band plan's six rows, the
      table modes' nine, then the ridge kernels' two, last), then, as the
      last line,
@@ -555,12 +568,16 @@ def wavelet_section(stq, dev, card, x_np, xb_np):
             # inputs read once (the half spectra, the scales; not the
             # table, which the function does not need), outputs written once
             # (Wx; k, w2 or dWx); `planes` inverse DFTs per row at
-            # 5 n log2 n FLOP, less the zero-input first stage on radix 4
+            # 5 n FLOP per level, over the levels the table's pruned rows
+            # need (`stage1_levels`)
             out_b = n_rows * N * (cb + {'wx': 0, 'wx_dwx': cb,
                                         'w2': rb}.get(mode, 4))
             nbytes = xh.numel() * cb + na * rb + out_b
-            lg = np.log2(n_up) - (1 if engine == 'radix-4' else 0)
-            flops = planes * n_rows * 5 * n_up * lg
+            kl = cwt_cuda.table_klims(cwt_cuda.wavelet_table(
+                wv, sc, n_up, planes == 5), n_up).cpu().numpy()
+            lv = (n_rows // na) * float((stage1_levels(kl, n_up) + np.log2(
+                four_step(n_up)[1])).sum())
+            flops = planes * 5 * n_up * lv
             bms, by = bound(nbytes, flops)
             km[(engine, mode)] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bms, bound_by=by,
@@ -1838,11 +1855,11 @@ def analysis_section(stq, dev, card, counters, x_np, spec, scales,
     return rows, launches
 
 
-def stage_ms(fn, reps=5):
-    """Device ms per call of the STFT kernel's two launches
-    (`stft_stage1`, `stft_stage2`) over `reps` calls of `fn` under
-    `torch.profiler`, after one warm-up; {} where the profiler saw no
-    device time."""
+def stage_ms(fn, reps=5, stages=('stft_stage1', 'stft_stage2')):
+    """Device ms per call of a kernel's two launches (the STFT kernel's
+    `stft_stage1`, `stft_stage2`; the CWT kernel's `bins_stage1`,
+    `bins_stage2`) over `reps` calls of `fn` under `torch.profiler`, after
+    one warm-up; {} where the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
@@ -1859,9 +1876,155 @@ def stage_ms(fn, reps=5):
                      getattr(ev, 'self_cuda_time_total', 0))
         if ev.device_type != DeviceType.CUDA or us <= 0:
             continue
-        for stage in ('stft_stage1', 'stft_stage2'):
+        for stage in stages:
             if stage in ev.key:
                 out[stage] = out.get(stage, 0.) + us / 1e3 / reps
+    return out
+
+
+def stage1_levels(klims, n_up):
+    """Per row, the DFT levels (log2 of the length transformed) stage 1 of
+    the CWT kernel runs with its rows pruned at `klims` (ops/cwt_cuda.py::
+    support_klims). Radix-4 engine: from level j + 1 to lg f1, j >= 1 the
+    largest with klim <= f1 / 2^j, and j = 1 where the Nyquist row is in
+    (the first level's partner is zero above n_up/2 but there, and that
+    level runs in registers). Mixed engine: log2(f1 / Ns), Ns the product
+    of the leading radices with klim <= f1 / Ns (`dft_mixed.cuh`'s
+    radices, the passes that only copy)."""
+    from ssqueezepy_tpu_torch.ops.cwt_cuda import four_step
+    from ssqueezepy_tpu_torch.ops.stft_cuda import radices
+    f1 = four_step(n_up)[0]
+    out = []
+    for kl in np.asarray(klims).ravel():
+        if n_up & (n_up - 1) == 0:
+            lg1 = f1.bit_length() - 1
+            j = 1
+            while kl <= f1 // 2 and j < lg1 and kl <= f1 >> (j + 1):
+                j += 1
+            out.append(lg1 - j)
+        else:
+            Ns = 1
+            for R, n in radices(f1):
+                if kl * R > f1 // n:
+                    break
+                Ns = n * R
+            out.append(np.log2(f1 / Ns))
+    return np.array(out, float)
+
+
+def prune_section(stq, dev, card, x_np, xb_np, scales, params):
+    """Section 12h: stage-1 support pruning of the CWT kernel at the
+    headline (the bench's 293 scales, N = 160000): the support plan
+    (rows kept, klim quantiles, the stage-1 levels run per row), then
+    each mode pruned (the public calls' launch) and unpruned (the private
+    hook `klims`, rows0 in every row): B1, B3 with one and two planes, B3b
+    on the (4, 160000) batch, B8 and its w2 mode on the radix-4 engine
+    (n_up = 262144), B1 and B8 unpadded on the mixed engine (n_up =
+    160000), and B1 with cmhat from its table at cmhat's own scales. Each
+    pair bit-identical but for the sign of zero cells (their count
+    printed), timed in turns (unpruned, pruned, pruned, unpruned; CUDA
+    events) and its two launches under the profiler (`bins_stage1`,
+    `bins_stage2`). Returns {mode: numbers}."""
+    import torch
+    from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
+    from ssqueezepy_tpu_torch.ops import cwt_cuda as cc
+    from ssqueezepy_tpu_torch.ops.fft import rfft
+    from ssqueezepy_tpu_torch.ops.pad import pad_params, padsignal
+    t0 = time.perf_counter()
+    N = x_np.shape[-1]
+    gamma = 10 * float(np.finfo(np.float32).eps)
+    wv = resolve_wavelet(('gmw', {'dtype': 'float32'}), N=N)
+    cm = resolve_wavelet(('cmhat', {'dtype': 'float32'}), N=N)
+    sc = torch.as_tensor(np.ravel(scales), dtype=torch.float32, device=dev)
+    sc_cm = torch.as_tensor(np.ravel(stq.process_scales(
+        'log-piecewise', N, cm)[:300]), dtype=torch.float32, device=dev)
+    n_up, n1, _ = pad_params(N, 'reflect')
+    x = torch.as_tensor(x_np, device=dev)
+    xh = rfft(padsignal(x, 'reflect')).contiguous()
+    xhb = rfft(padsignal(torch.as_tensor(xb_np, device=dev),
+                         'reflect')).contiguous()
+    xhm = rfft(x).contiguous()
+    for what, n in (('radix-4', n_up), ('mixed', N)):
+        k = cc.support_klims(wv, np.ravel(scales), n, 'float32')
+        rows0 = cc.stage1_rows(n)
+        lv = ("; stage 1 runs %.2f DFT levels per row on average, "
+              "against %d unpruned" % (stage1_levels(k, n).mean(),
+                                       cc.four_step(n)[0].bit_length() - 2)
+              if what == 'radix-4' else "")
+        print("support plan, %s engine at n_up=%d=%dx%d: %d scales, rows0 "
+              "%d, %.1f%% of the rows kept, klim quantiles 10/25/50/75/90%% "
+              "%s, %d scales on row 0 alone%s"
+              % ((what, n) + cc.four_step(n) + (len(k), rows0,
+                 100 * k.sum() / (len(k) * rows0),
+                 '/'.join('%d' % q for q in np.quantile(
+                     k, [.1, .25, .5, .75, .9])), int((k == 1).sum()), lv)),
+              flush=True)
+    bins = (True, params, gamma, True)
+    cases = [
+        ('B1', cc.cwt_bins, cc._OUT_BINS, xh, sc, wv, n_up, n1, bins, {}),
+        ('B3 Wx only', cc.cwt_fused, cc._OUT_W, xh, sc, wv, n_up, n1,
+         (True,), {}),
+        ('B3 Wx + dWx', cc.cwt_fused, cc._OUT_W_DW, xh, sc, wv, n_up, n1,
+         (True,), {}),
+        ('B3b', cc.cwt_bins, cc._OUT_BINS, xhb, sc, wv, n_up, n1, bins, {}),
+        ('B8', cc.cwt_bins2, cc._OUT_BINS2, xh, sc, wv, n_up, n1, bins, {}),
+        ('B8 w2', cc.cwt_w2, cc._OUT_W2, xh, sc, wv, n_up, n1, (True,),
+         dict(gamma=gamma)),
+        ('mixed B1', cc.cwt_bins, cc._OUT_BINS, xhm, sc, wv, N, 0, bins, {}),
+        ('mixed B8', cc.cwt_bins2, cc._OUT_BINS2, xhm, sc, wv, N, 0, bins,
+         {}),
+        ('B1 cmhat table', cc.cwt_bins, cc._OUT_BINS, xh, sc_cm, cm, n_up,
+         n1, bins, {})]
+    out = {}
+    for name, wrapper, mode, z, s, w, nu, n1e, args, kw in cases:
+        full = torch.full(s.shape, cc.stage1_rows(nu), dtype=torch.int32,
+                          device=dev)
+
+        def run(klims=None, z=z, s=s, w=w, nu=nu, n1e=n1e, args=args,
+                kw=kw, wrapper=wrapper, mode=mode):
+            return cc._launch(wrapper, mode, z, s, w, nu, n1e, N, 1., *args,
+                              klims=klims, **kw)
+        pruned, unpruned = run(), run(full)
+        torch.cuda.synchronize()
+        signs = 0
+        for a, b in zip(pruned, unpruned):
+            if a is None:
+                continue
+            if a.is_complex():
+                a, b = torch.view_as_real(a), torch.view_as_real(b)
+            same = torch.equal(a, b)
+            if not same and a.is_floating_point():
+                ib = torch.int32 if a.element_size() == 4 else torch.int64
+                differ = a.view(ib) != b.view(ib)
+                same = bool((a == b).all() and (a[differ] == 0).all())
+                signs += int(differ.sum())
+            check(same, "pruned %s: bit-identical to unpruned stage 1 but "
+                  "for the sign of zero cells" % name)
+        del pruned, unpruned
+        torch.cuda.empty_cache()
+        t = [cuda_ms(f) for f in (lambda: run(full), run, run,
+                                  lambda: run(full))]
+        row = dict(ms=(t[1] + t[2]) / 2, ms_full=(t[0] + t[3]) / 2,
+                   signs=signs,
+                   stages=stage_ms(run, 3, ('bins_stage1', 'bins_stage2')),
+                   stages_full=stage_ms(lambda: run(full), 3,
+                                        ('bins_stage1', 'bins_stage2')))
+        st = lambda d: ("stage 1 %.3f + stage 2 %.3f ms"
+                        % (d['bins_stage1'], d['bins_stage2'])
+                        if {'bins_stage1', 'bins_stage2'} <= set(d)
+                        else "stages not measured (no device time in the "
+                        "profile)")
+        print("pruned %s at %s, n_up=%d: %.3f ms pruned vs %.3f ms "
+              "unpruned (CUDA events, in turns); pruned %s, unpruned %s "
+              "(profiler); %d cells differ in the sign of a zero; card: %s"
+              % (name, tuple(z.shape[:-1]) + (s.shape[0], N), nu, row['ms'],
+                 row['ms_full'], st(row['stages']), st(row['stages_full']),
+                 signs, card), flush=True)
+        out[name] = row
+        torch.cuda.empty_cache()
+    cc._TABLES.clear()
+    torch.cuda.empty_cache()
+    print("prune section: %.1f s" % (time.perf_counter() - t0), flush=True)
     return out
 
 
@@ -2057,7 +2220,8 @@ def main():
         from ssqueezepy_tpu_torch.ops import _build
         from ssqueezepy_tpu_torch.ops.cwt_cuda import (
             bins_plan, cwt_bins, cwt_bins_plain, cwt_bins2, cwt_bins2_plain,
-            cwt_fused, cwt_fused_plain, cwt_w2, four_step, wsst2_rows)
+            cwt_fused, cwt_fused_plain, cwt_w2, four_step, support_klims,
+            wsst2_rows)
         from ssqueezepy_tpu_torch.ops.ssq_cuda import (
             scatter_kv, scatter_kv_plain, scatter_launch_plan, shift_scatter,
             shift_scatter_plain, ssq_fused, ssq_fused_plain)
@@ -3875,12 +4039,20 @@ def main():
 
     # ---- bounds from this run's shapes -------------------------------------
     b1_bytes = xh.numel() * cb + sc.numel() * rb + na * N * (cb + 4)
-    lg = n_up.bit_length() - 1
     # two length-n_up inverse DFTs per scale (W and dW) at the usual
-    # 5 n log2 n FLOP, less one stage: the spectrum is zero above n_up/2,
-    # so every pair of the first stage has a zero input. The four-step
-    # design's own twiddle multiplies are not work the function needs.
-    b1_flops = na * 2 * 5 * n_up * (lg - 1)
+    # 5 n FLOP per level, over the levels the data needs: every level of
+    # the second factor, and of the first the levels that stage 1 runs on
+    # the scale's pruned rows (`stage1_levels`: the spectrum is zero above
+    # n_up/2 and beyond the wavelet's support, so those levels' pairs have
+    # a zero input). The four-step design's own twiddle multiplies are not
+    # work the function needs.
+    lg2 = np.log2(four_step(n_up)[1])
+    lv1 = float((stage1_levels(support_klims(wav, scales, n_up), n_up)
+                 + lg2).sum())
+    lv2 = float((stage1_levels(support_klims(wav, scales, n_up,
+                                             order2=True), n_up)
+                 + lg2).sum())
+    b1_flops = 2 * 5 * n_up * lv1
     b1_bound, b1_by = bound(b1_bytes, b1_flops)
     b2_bytes = na * N * (cb + 4) + na * rb + nbins * N * cb
     b2_bound, b2_by = bound(b2_bytes, 4 * n_valid)
@@ -3890,14 +4062,14 @@ def main():
     b6_flops = 2 * n_rows * 5 * Np2 * np.log2(Np2)
     b6_bound, b6_by = bound(b6_bytes, b6_flops)
     # B3 (Wx only): xh and scales read, Wx written; one inverse DFT per
-    # scale, less the zero-input first stage
+    # scale over the levels B1's counts
     b3_bytes = n_xh3 * cb + na * rb + na * N * cb
-    b3_flops = na * 5 * n_up * (lg - 1)
+    b3_flops = 5 * n_up * lv1
     b3_bound, b3_by = bound(b3_bytes, b3_flops)
-    # B8: xh and scales read, W and k written; five inverse DFTs per scale,
-    # less the zero-input first stage
+    # B8: xh and scales read, W and k written; five inverse DFTs per scale
+    # over the levels of the order-2 support plan (one row more)
     b8_bytes = n_xh8 * cb + na * rb + na * N * (cb + 4)
-    b8_flops = na * 5 * 5 * n_up * (lg - 1)
+    b8_flops = 5 * 5 * n_up * lv2
     b8_bound, b8_by = bound(b8_bytes, b8_flops)
     # B7: xh read, V and k written; five length-Np2 inverse DFTs per row.
     # The five window tables and the scratch are one design's.
@@ -3906,25 +4078,30 @@ def main():
     b7_bound, b7_by = bound(b7_bytes, b7_flops)
     # B3b: B1's function over the batch
     b3b_bytes = n_xhb * cb + na * rb + B4N * na * N * (cb + 4)
-    b3b_flops = B4N * na * 2 * 5 * n_up * (lg - 1)
+    b3b_flops = B4N * 2 * 5 * n_up * lv1
     b3b_bound, b3b_by = bound(b3b_bytes, b3b_flops)
     # B6 in Sx mode: xh read, Sx written; one length-Np2 inverse DFT per
     # row. B3 with two planes: xh and scales read, Wx and dWx written; two
-    # inverse DFTs per scale, less the zero-input first stage
+    # inverse DFTs per scale
     b6_sx_bound, b6_sx_by = bound(Np2 * cb + n_rows * N * cb, b6_flops / 2)
     b3d_bytes = n_xh3 * cb + na * rb + 2 * na * N * cb
     b3d_bound, b3d_by = bound(b3d_bytes, 2 * b3_flops)
     # the mixed engine at n_up = 160000 = N: each mode's function (inputs
     # read, outputs written once) over na scales, 5 n log2 n FLOP per
     # length-n_up inverse DFT
-    dft_m = 5 * nm * np.log2(nm)
+    # over the levels the pruned rows need (`stage1_levels`)
+    lg2m = np.log2(four_step(nm)[1])
+    dft_m = 5 * nm * float((stage1_levels(support_klims(
+        wav, scales, nm), nm) + lg2m).sum()) / na
+    dft_m2 = 5 * nm * float((stage1_levels(support_klims(
+        wav, scales, nm, order2=True), nm) + lg2m).sum()) / na
     xhm_b = (nm // 2 + 1) * cb + na * rb
     mb = {
         'b1': bound(xhm_b + na * nm * (cb + 4), 2 * na * dft_m),
         'b3': bound(xhm_b + na * nm * cb, na * dft_m),
         'b3d': bound(xhm_b + 2 * na * nm * cb, 2 * na * dft_m),
-        'b8': bound(xhm_b + na * nm * (cb + 4), 5 * na * dft_m),
-        'w2': bound(xhm_b + na * nm * (cb + rb), 5 * na * dft_m),
+        'b8': bound(xhm_b + na * nm * (cb + 4), 5 * na * dft_m2),
+        'w2': bound(xhm_b + na * nm * (cb + rb), 5 * na * dft_m2),
         'b3b': bound(n_xhbm * cb + na * rb + B4N * na * nm * (cb + 4),
                      2 * B4N * na * dft_m)}
     # B6, B7 and B8 over the batch: their one-signal functions B4N times
@@ -4049,6 +4226,7 @@ def main():
               % (what, ms, nbytes / ms / 1e9, nbytes, bms, 100 * bms / ms,
                  card), flush=True)
     band = band_section(stq, dev, card, x_np, xb_big, n_fft)
+    prune_section(stq, dev, card, x_np, xb_big, scales, params)
     wav_rows, _ = wavelet_section(stq, dev, card, x_np, xb_big)
     for k, v in streaming_section(stq, dev, card, all_kernels).items():
         launches[k] += v

@@ -5,7 +5,11 @@ B3b in bins mode, B3 with one plane and with two, in the L1 and L2 norm,
 B8 in order-2 mode and, where the checkout has it (`cwt_w2`), in its w2
 mode, one signal and a batch, on both DFT engines; and, where the
 checkout has the wavelet table (`wavelet_table`), every mode again with
-the order-1 GMW read from its table, keys "... table <kernel> ..."), so
+the order-1 GMW read from its table, keys "... table <kernel> ..."; and,
+where the checkout prunes stage 1 to each scale's support
+(`stage1_rows`), every run again with stage 1 unpruned through the
+private hook `_launch(..., klims=...)`, keys "... <kernel> unpruned
+..."), so
 that two checkouts of the port can be compared bit for bit on one NVIDIA
 GPU; and, with `--time`, the kernels' times at the headline.
 
@@ -22,7 +26,8 @@ float32 (the 293 scales) and 99225 = 315 x 315 in float64; a batch
 stacks the spectrum with those of seeds N + 1 and N + 2. Prints one JSON
 object {"<N> <dtype> <kernel> <output>": sha256 of the bytes, ...} with
 the card's name and power limit; `--time` adds "<kernel> ms" at N =
-160000 reflect-padded (CUDA events, mean of 20 after 3 warm-up launches).
+160000 reflect-padded (CUDA events, mean of 20 after 3 warm-up launches),
+the unpruned runs' as "<kernel> unpruned ms".
 Needs a CUDA device.
 """
 import argparse
@@ -131,6 +136,31 @@ def main():
                     True)),
                 'table B8 w2': (('W', 'w2'), lambda z: cwt_cuda.cwt_w2(
                     z, sc, wt, n_up, n1, N, 1., gamma))})
+        if hasattr(cwt_cuda, 'stage1_rows'):
+            # the same launches with stage 1 unpruned (the private hook of
+            # `_launch`: every row's limit rows0), keys "... unpruned ..."
+            full = torch.full((len(sc),), cwt_cuda.stage1_rows(n_up),
+                              dtype=torch.int32, device=dev)
+
+            def hook(wrapper, out_mode, wv, *args, **kw):
+                return lambda z: cwt_cuda._launch(
+                    wrapper, out_mode, z, sc, wv, n_up, n1, N, 1., *args,
+                    klims=full, **kw)
+            c = cwt_cuda
+            bins = (True, plan['params'], gamma, True)
+            for tag, w in (('', wv), ('table ', wt)):
+                for kernel, f in (
+                        ('B1', hook(cwt_bins, c._OUT_BINS, w, *bins)),
+                        ('B3 Wx only', hook(cwt_fused, c._OUT_W, w, True)),
+                        ('B3 Wx + dWx', hook(cwt_fused, c._OUT_W_DW, w,
+                                             True)),
+                        ('B3 L2', hook(cwt_fused, c._OUT_W, w, False)),
+                        ('B8', hook(cwt_bins2, c._OUT_BINS2, w, *bins)),
+                        ('B8 w2', hook(c.cwt_w2, c._OUT_W2, w, True,
+                                       gamma=gamma))):
+                    if tag + kernel in runs:
+                        runs[tag + kernel + ' unpruned'] = (
+                            runs[tag + kernel][0], f)
         xh = spectrum(N)
         xb = torch.stack([xh, spectrum(N + 1), spectrum(N + 2)])
         tag = '' if padtype else 'unpadded '

@@ -67,7 +67,11 @@
 //     Synthesizes psih (closed form) or reads it (table), forms the NP
 //     spectra, runs the length-f1 inverse DFT over m1 in shared memory,
 //     applies the twiddle e^{+2 pi i m2 k1 / n_up} / n_up and writes the
-//     planes to a scratch buffer (NP x rows x n_up complex).
+//     planes to a scratch buffer (NP x rows x n_up complex). Only the
+//     columns m1 below the row's support limit are formed, and the DFT
+//     levels that would only copy them are skipped (the TPU kernel's
+//     stage-1 pruning, ssqueezepy_tpu/ops/cwt_pallas.py::support_klims;
+//     the limits from ops/cwt_cuda.py::_stage1_klims).
 //   launch 2 (bins_stage2): one block per (row, P2 columns k1). Runs the
 //     length-f2 DFT over m2, keeps the k2 whose n lands in [n1, n1+N),
 //     and writes Wx (and dWx), or runs the bins or order-2 epilogue,
@@ -411,17 +415,69 @@ __device__ __forceinline__ void spectra(const typename Cplx<T>::type* xh,
   }
 }
 
+// The mixed engine's gather of stage 1: the NP spectra of P columns m2
+// at the L / Ns columns m1 (zero from klim on and beyond the last column
+// m2), walked m1 = swz(., w) over the power of two in L / Ns, each written
+// to its Ns positions m1 Ns ... m1 Ns + Ns - 1 of buf; COPIES = false is
+// Ns = 1, every column in place, which compiles as the unpruned gather.
+template <typename T, int NP, int SYN, bool COPIES>
+__device__ __forceinline__ void mixed_columns(
+    const typename Cplx<T>::type* xh, T scale, T norm, const Cfg& c,
+    const T* tab, size_t tplane, typename Cplx<T>::type* buf, int P,
+    int lgP, int S, int m2_0, int klim, int Ns) {
+  typedef typename Cplx<T>::type CT;
+  const int n1s = c.f1 / Ns;
+  const int w = min(c.sw1, __ffs(n1s) - 1);
+  for (int e = threadIdx.x; e < P * n1s; e += blockDim.x) {
+    const int p = e & (P - 1);
+    const int m1 = swz(e >> lgP, w);
+    CT X[NP];
+    if (m2_0 + p < c.f2 && m1 < klim) {
+      spectra<T, NP, SYN>(xh, (long)m1 * c.f2 + m2_0 + p, scale, norm, c,
+                          tab, tplane, X);
+    } else {                      // beyond the support or the last column
+#pragma unroll
+      for (int q = 0; q < NP; ++q) X[q].x = X[q].y = (T)0;
+    }
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      if constexpr (COPIES) {
+        CT* d = buf + (q * P + p) * S + m1 * Ns;
+        for (int t = 0; t < Ns; ++t) d[t] = X[q];
+      } else {
+        buf[(q * P + p) * S + m1] = X[q];
+      }
+    }
+  }
+}
+
 // Stage 1: the NP spectra of P1 columns m2, the length-f1 DFT over m1,
-// the four-step twiddle, NP scratch planes. Radix-4 engine: the first DFT
-// level pairs position 2u (column m1 = bitrev(2u) < L/2) with 2u + 1
-// (m1 + L/2, whose spectra are zero except at the Nyquist column), with
-// twiddle tw[0] = 1: a thread forms both columns and runs that butterfly
-// in registers, and the passes start at level 2. Mixed engine: every
-// column m1 is formed and gathered in natural order, then the passes.
+// the four-step twiddle, NP scratch planes. The row's support limit klim
+// (klims[g % na], ops/cwt_cuda.py::_stage1_klims) prunes it: the spectra
+// of the columns m1 >= klim are zero (the wavelet is, in the kernel's
+// arithmetic), so they are neither synthesized nor loaded.
+//   Radix-4 engine, klim = rows0 = L/2 + 1 (the Nyquist row in): the
+// first DFT level pairs position 2u (column m1 = bitrev(2u) < L/2) with
+// 2u + 1 (m1 + L/2, whose spectra are zero except at the Nyquist column),
+// with twiddle tw[0] = 1: a thread forms both columns and runs that
+// butterfly in registers, and the passes start at level 2.
+//   Radix-4 engine, klim <= L / 2^j (j >= 1 the largest such): in every
+// aligned block of 2^j positions only the first, i = B 2^j (column m1 =
+// bitrev(i) < L / 2^j), can hold a nonzero input, so the first j levels
+// only copy it to the block's 2^j positions (x0 + w 0 = x0, bit for bit
+// but for the sign of a zero): a thread forms one of the L / 2^j columns,
+// writes its 2^j copies, and the passes start at level j + 1 (none for
+// klim = 1). The passes that remain are the unpruned stage's butterflies.
+//   Mixed engine (Stockham, natural order): while klim <= L / Ns for the
+// product Ns of the leading radices, those passes only copy (position i
+// then holds column i / Ns), so a thread forms one of the L / Ns columns
+// (zero from klim on), writes it to its Ns positions, and the passes
+// start after them.
 template <typename T, int NP, int ENG, int SYN>
 __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
                             const T* __restrict__ scales,
-                            const T* __restrict__ table, Cfg c,
+                            const T* __restrict__ table,
+                            const int* __restrict__ klims, Cfg c,
                             typename Cplx<T>::type* __restrict__ scratch) {
   typedef typename Cplx<T>::type CT;
   extern __shared__ unsigned char smem_raw[];
@@ -438,53 +494,90 @@ __global__ void bins_stage1(const typename Cplx<T>::type* __restrict__ xh,
   const T* tab = SYN == SYN_TABLE ? table + (size_t)(g % c.na) * c.half
                                   : nullptr;
   const T norm = c.l1_norm ? (T)1 : sqrt_t(scale);
+  // spectrum columns m1 >= klim are zero
+  const int klim = klims[g % c.na];
   const CT* res;                          // sequence plane * P + p at s * S
   if constexpr (ENG == ENG_RADIX4) {
     CT* buf = tw + (L >> 1);
     fill_twiddles<T>(tw, L);
-    CT one;                                 // tw[0] = sincospi(0), exactly
-    one.x = (T)1;
-    one.y = (T)0;
-    for (int e = threadIdx.x; e < P * (L >> 1); e += blockDim.x) {
-      const int p = e & (P - 1);
-      const int i = 2 * swz(e >> lgP, c.sw1 - 1);  // pair (i, i + 1)
-      const long m = (long)bitrev(i, c.lg1) * c.f2 + m2_0 + p;
-      CT X0[NP], X1[NP];
-      spectra<T, NP, SYN>(xh, m, scale, norm, c, tab, tplane, X0);
-      spectra<T, NP, SYN>(xh, m + (long)(L >> 1) * c.f2, scale, norm, c,
-                          tab, tplane, X1);
+    int s0 = 2;                             // the first level left to run
+    if (klim > (L >> 1)) {                  // the Nyquist row is in
+      CT one;                               // tw[0] = sincospi(0), exactly
+      one.x = (T)1;
+      one.y = (T)0;
+      for (int e = threadIdx.x; e < P * (L >> 1); e += blockDim.x) {
+        const int p = e & (P - 1);
+        const int i = 2 * swz(e >> lgP, c.sw1 - 1);  // pair (i, i + 1)
+        const long m = (long)bitrev(i, c.lg1) * c.f2 + m2_0 + p;
+        CT X0[NP], X1[NP];
+        spectra<T, NP, SYN>(xh, m, scale, norm, c, tab, tplane, X0);
+        spectra<T, NP, SYN>(xh, m + (long)(L >> 1) * c.f2, scale, norm, c,
+                            tab, tplane, X1);
 #pragma unroll
-      for (int q = 0; q < NP; ++q) bfly<T>(X0[q], X1[q], one);
+        for (int q = 0; q < NP; ++q) bfly<T>(X0[q], X1[q], one);
 #pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        buf[(q * P + p) * S + i] = X0[q];
-        buf[(q * P + p) * S + i + 1] = X1[q];
+        for (int q = 0; q < NP; ++q) {
+          buf[(q * P + p) * S + i] = X0[q];
+          buf[(q * P + p) * S + i + 1] = X1[q];
+        }
       }
+    } else {                                // klim <= L / 2^j, j >= 1
+      int j = 1;
+      while (j < c.lg1 && klim <= (L >> (j + 1))) ++j;
+      // a wavefront's threads cover P columns and 2^lgG block starts;
+      // reversing the starts' low w bits puts the starts P apart in the
+      // banks, as the pairs' walk above (j = 1) does. Where w < lgG the
+      // remaining bits of the start's index go to the copy order instead:
+      // each thread writes copy r at i + (r ^ rot)
+      const int w = c.sw1 > j ? c.sw1 - j : 0;
+      const int lgG = c.sw1 > lgP ? c.sw1 - lgP : 0;
+      for (int e = threadIdx.x; e < P * (L >> j); e += blockDim.x) {
+        const int p = e & (P - 1);
+        const int i = swz(e >> lgP, w) << j;  // block start, m1 < L / 2^j
+        const int rot = (((e >> lgP) & ((1 << lgG) - 1)) >> w) << lgP;
+        const int m1 = bitrev(i, c.lg1);
+        CT X[NP];
+        if (m1 < klim) {
+          spectra<T, NP, SYN>(xh, (long)m1 * c.f2 + m2_0 + p, scale, norm,
+                              c, tab, tplane, X);
+        } else {
+#pragma unroll
+          for (int q = 0; q < NP; ++q) X[q].x = X[q].y = (T)0;
+        }
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          CT* d = buf + (q * P + p) * S + i;
+          for (int r = 0; r < (1 << j); ++r) d[r ^ rot] = X[q];
+        }
+      }
+      s0 = j + 1;
     }
     __syncthreads();
-    block_fft4<T, NP>(buf, lgP, S, L, c.lg1, 2, tw);
+    block_fft4<T, NP>(buf, lgP, S, L, c.lg1, s0, tw);
     res = buf;
   } else {
     CT* bufa = tw + L;
     CT* bufb = bufa + NP * P * S;
     dft::fill_twiddles<T>(tw, L);
-    for (int e = threadIdx.x; e < P * L; e += blockDim.x) {
-      const int p = e & (P - 1);
-      const int m1 = swz(e >> lgP, c.sw1);
-      CT X[NP];
-      if (m2_0 + p < c.f2) {
-        spectra<T, NP, SYN>(xh, (long)m1 * c.f2 + m2_0 + p, scale, norm,
-                            c, tab, tplane, X);
-      } else {                              // beyond the last column
-#pragma unroll
-        for (int q = 0; q < NP; ++q) X[q].x = X[q].y = (T)0;
-      }
-#pragma unroll
-      for (int q = 0; q < NP; ++q) bufb[(q * P + p) * S + m1] = X[q];
+    // the leading passes (radices multiplying to Ns) whose partners are
+    // all zero, klim <= L / Ns: they only copy, so that after them
+    // position i holds column i / Ns, and the passes start after them
+    int Ns = 1;
+    for (int rem = L; rem > 1;) {
+      const int R = dft::next_radix<true>(rem);
+      if (klim * R > rem) break;
+      Ns *= R;
+      rem /= R;
     }
+    if (Ns == 1)
+      mixed_columns<T, NP, SYN, false>(xh, scale, norm, c, tab, tplane,
+                                       bufb, P, lgP, S, m2_0, klim, 1);
+    else
+      mixed_columns<T, NP, SYN, true>(xh, scale, norm, c, tab, tplane,
+                                      bufb, P, lgP, S, m2_0, klim, Ns);
     __syncthreads();
     res = dft::transform<T, NP, true>(dft::SmemSeq<CT>{bufb, S}, bufa,
-                                      bufb, lgP, S, L, tw);
+                                      bufb, lgP, S, L, tw, Ns);
   }
 
   const T inv_n = (T)1 / (T)c.n_up;
@@ -613,8 +706,8 @@ size_t smem_bytes(int L, int np, int P, int S) {
 
 template <typename T, int NP, int ENG, int SYN>
 cudaError_t launch_stage1(const void* xh, const void* scales,
-                          const void* table, const Cfg& c, void* scratch,
-                          size_t sm1, cudaStream_t st) {
+                          const void* table, const int* klims, const Cfg& c,
+                          void* scratch, size_t sm1, cudaStream_t st) {
   typedef typename Cplx<T>::type CT;
   cudaFuncSetAttribute(bins_stage1<T, NP, ENG, SYN>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
@@ -622,14 +715,14 @@ cudaError_t launch_stage1(const void* xh, const void* scales,
   dim3 g1((c.f2 + c.P1 - 1) / c.P1, c.rows);
   bins_stage1<T, NP, ENG, SYN><<<g1, 256, sm1, st>>>(
       static_cast<const CT*>(xh), static_cast<const T*>(scales),
-      static_cast<const T*>(table), c, static_cast<CT*>(scratch));
+      static_cast<const T*>(table), klims, c, static_cast<CT*>(scratch));
   return cudaGetLastError();
 }
 
 template <typename T, int MODE, int ENG>
 int launch_mode(const void* xh, const void* scales, const void* table,
-                const Cfg& c, void* scratch, void* wx, void* out2,
-                cudaStream_t st) {
+                const int* klims, const Cfg& c, void* scratch, void* wx,
+                void* out2, cudaStream_t st) {
   typedef typename Cplx<T>::type CT;
   constexpr int NP = planes_of(MODE);
   const size_t sm1 = smem_bytes<T, ENG>(c.f1, NP, c.P1, c.S1);
@@ -638,9 +731,9 @@ int launch_mode(const void* xh, const void* scales, const void* table,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm2);
   dim3 g2((c.f1 + c.P2 - 1) / c.P2, c.rows);
   cudaError_t err =
-      table ? launch_stage1<T, NP, ENG, SYN_TABLE>(xh, scales, table, c,
-                                                   scratch, sm1, st)
-            : launch_stage1<T, NP, ENG, SYN_GMW>(xh, scales, table, c,
+      table ? launch_stage1<T, NP, ENG, SYN_TABLE>(xh, scales, table, klims,
+                                                   c, scratch, sm1, st)
+            : launch_stage1<T, NP, ENG, SYN_GMW>(xh, scales, table, klims, c,
                                                  scratch, sm1, st);
   if (err != cudaSuccess) return (int)err;
   bins_stage2<T, MODE, ENG><<<g2, 256, sm2, st>>>(
@@ -650,39 +743,40 @@ int launch_mode(const void* xh, const void* scales, const void* table,
 
 template <typename T, int ENG>
 int launch_engine(const void* xh, const void* scales, const void* table,
-                  const Cfg& c, void* scratch, void* wx, void* out2,
-                  cudaStream_t st) {
+                  const int* klims, const Cfg& c, void* scratch, void* wx,
+                  void* out2, cudaStream_t st) {
   switch (c.out_mode) {
     case MODE_BINS:
-      return launch_mode<T, MODE_BINS, ENG>(xh, scales, table, c, scratch,
-                                            wx, out2, st);
+      return launch_mode<T, MODE_BINS, ENG>(xh, scales, table, klims, c,
+                                            scratch, wx, out2, st);
     case MODE_W:
-      return launch_mode<T, MODE_W, ENG>(xh, scales, table, c, scratch, wx,
-                                         out2, st);
+      return launch_mode<T, MODE_W, ENG>(xh, scales, table, klims, c,
+                                         scratch, wx, out2, st);
     case MODE_W_DW:
-      return launch_mode<T, MODE_W_DW, ENG>(xh, scales, table, c, scratch,
-                                            wx, out2, st);
+      return launch_mode<T, MODE_W_DW, ENG>(xh, scales, table, klims, c,
+                                            scratch, wx, out2, st);
     case MODE_BINS2:
-      return launch_mode<T, MODE_BINS2, ENG>(xh, scales, table, c, scratch,
-                                             wx, out2, st);
+      return launch_mode<T, MODE_BINS2, ENG>(xh, scales, table, klims, c,
+                                             scratch, wx, out2, st);
     case MODE_W2:
-      return launch_mode<T, MODE_W2, ENG>(xh, scales, table, c, scratch, wx,
-                                          out2, st);
+      return launch_mode<T, MODE_W2, ENG>(xh, scales, table, klims, c,
+                                          scratch, wx, out2, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int launch(const void* xh, const void* scales, const void* table,
-           const Cfg& c, void* scratch, void* wx, void* out2, void* stream) {
+           const int* klims, const Cfg& c, void* scratch, void* wx,
+           void* out2, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (c.engine) {
     case ENG_RADIX4:
-      return launch_engine<T, ENG_RADIX4>(xh, scales, table, c, scratch, wx,
-                                          out2, st);
+      return launch_engine<T, ENG_RADIX4>(xh, scales, table, klims, c,
+                                          scratch, wx, out2, st);
     case ENG_MIXED:
-      return launch_engine<T, ENG_MIXED>(xh, scales, table, c, scratch, wx,
-                                         out2, st);
+      return launch_engine<T, ENG_MIXED>(xh, scales, table, klims, c,
+                                         scratch, wx, out2, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -709,21 +803,23 @@ Cfg make_cfg(const int* ip, const double* dp) {
 // ip: 24 ints, dp: 14 doubles (layout in ops/cwt_cuda.py). `table` is
 // the wavelet table (real, of the scales' type: (na, n_up/2 + 1), three
 // such planes in the order-2 modes) or null for the closed-form GMW.
+// `klims` holds na int32 stage-1 row limits in device memory (row g reads
+// klims[g % na]; rows0 = ceil((n_up/2 + 1) / f2) runs a row unpruned).
 // `out2` is k (out_mode 0 or 3), dWx (2), w2 (4, real) or null (1);
 // out_mode in ip says which. Returns cudaGetLastError() after the
 // launches.
 extern "C" int cwt_bins_f32(const void* xh, const void* scales,
-                            const void* table, const int* ip,
-                            const double* dp, void* scratch, void* wx,
-                            void* out2, void* stream) {
-  return launch<float>(xh, scales, table, make_cfg(ip, dp), scratch, wx,
-                       out2, stream);
+                            const void* table, const int* klims,
+                            const int* ip, const double* dp, void* scratch,
+                            void* wx, void* out2, void* stream) {
+  return launch<float>(xh, scales, table, klims, make_cfg(ip, dp), scratch,
+                       wx, out2, stream);
 }
 
 extern "C" int cwt_bins_f64(const void* xh, const void* scales,
-                            const void* table, const int* ip,
-                            const double* dp, void* scratch, void* wx,
-                            void* out2, void* stream) {
-  return launch<double>(xh, scales, table, make_cfg(ip, dp), scratch, wx,
-                        out2, stream);
+                            const void* table, const int* klims,
+                            const int* ip, const double* dp, void* scratch,
+                            void* wx, void* out2, void* stream) {
+  return launch<double>(xh, scales, table, klims, make_cfg(ip, dp), scratch,
+                        wx, out2, stream);
 }

@@ -163,18 +163,30 @@ __device__ __forceinline__ void stockham_pass(Src src,
   __syncthreads();
 }
 
+// The radix of the next pass over what is left of L, `rem`: 4 while 4
+// divides it, then 2, 3, 5 and, with R7, 7.
+template <bool R7>
+__device__ __forceinline__ int next_radix(int rem) {
+  return rem % 4 == 0 ? 4 : rem % 2 == 0 ? 2 : rem % 3 == 0 ? 3
+         : (!R7 || rem % 5 == 0) ? 5 : 7;
+}
+
 // The unnormalized inverse DFT of the NP << lgP length-L sequences, read
 // as first(q, i) by the first pass (which the caller's loads feed
 // directly, so the input never passes through shared memory), then
 // ping-ponging between a and b at a[q * S + i]; returns the buffer
 // holding the result. L's prime factors are 2, 3, 5, and 7 with R7. The
 // caller has filled `tw` and synchronized; ends with __syncthreads().
+// Ns0 > 1 starts from the pass after those whose radices multiply to Ns0
+// (first(q, i) then holds their result; with Ns0 = L no pass runs and
+// the result is the buffer `first` reads, which the caller passes as b).
 template <typename T, int NP, bool R7 = false, typename Src>
 __device__ typename Cplx<T>::type* transform(Src first,
                                              typename Cplx<T>::type* a,
                                              typename Cplx<T>::type* b,
                                              int lgP, int S, int L,
-                                             const typename Cplx<T>::type* tw) {
+                                             const typename Cplx<T>::type* tw,
+                                             int Ns0 = 1) {
   typedef typename Cplx<T>::type CT;
   if (L == 1) {                            // no pass: the input as it is
     for (int q = threadIdx.x; q < (NP << lgP); q += blockDim.x)
@@ -182,21 +194,10 @@ __device__ typename Cplx<T>::type* transform(Src first,
     __syncthreads();
     return a;
   }
-  int Ns = 1, rem = L;
+  int Ns = Ns0, rem = L / Ns0;
   bool head = true;
   while (rem > 1) {
-    int R;
-    if (rem % 4 == 0) {
-      R = 4;
-    } else if (rem % 2 == 0) {
-      R = 2;
-    } else if (rem % 3 == 0) {
-      R = 3;
-    } else if (!R7 || rem % 5 == 0) {
-      R = 5;
-    } else {
-      R = 7;
-    }
+    const int R = next_radix<R7>(rem);
     if (head) {
       switch (R) {
         case 4: stockham_pass<T, NP, 4>(first, a, lgP, S, L, Ns, tw); break;

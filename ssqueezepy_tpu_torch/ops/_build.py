@@ -87,7 +87,7 @@ def build_all(ptxas=None):
 
 # each library's C entry points (float32 and float64) and their arguments
 _SIGNATURES = {
-    'cwt_bins': [(('cwt_bins_f32', 'cwt_bins_f64'), [ctypes.c_void_p] * 9)],
+    'cwt_bins': [(('cwt_bins_f32', 'cwt_bins_f64'), [ctypes.c_void_p] * 10)],
     'scatter_kv': [
         (('scatter_kv_f32', 'scatter_kv_f64'),
          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2),

@@ -30,6 +30,18 @@ wavelet, scales and length, as the JAX kernel traces the wavelet fn into
 its body. The plain versions take every wavelet through the same table
 function, evaluated anew on each call.
 
+Stage 1 of the kernel forms, for each scale, only the leading rows m1
+(f2-wide blocks of the half spectrum, `four_step`) where its wavelet can be
+nonzero, and skips the DFT levels that would only copy them, as the JAX
+kernel prunes its stage-1 contraction (`ops/cwt_pallas.py::
+support_klims`): the limits come from `support_klims` for the closed-form
+GMW (its float32 or float64 subnormal threshold, one row of margin, one
+more for order 2) and from `table_klims` for a table (exact), one (na,)
+int32 tensor on the card per scales or table tensor (`_stage1_klims`),
+with no host-device sync on a memo hit. The pruning is exact: beyond a
+limit every spectrum term is a zero the unpruned kernel multiplies in
+too, so the outputs keep their bits but, at most, the sign of a zero.
+
 The inverse DFT is computed in the kernel itself, four-step, in shared
 memory laid out against bank conflicts, for every mode: radix-4 passes
 for a power-of-two n_up, the mixed-radix (4, 2, 3, 5, 7) passes of
@@ -65,7 +77,9 @@ import collections
 import ctypes
 import functools
 import math
+import weakref
 
+import numpy as np
 import torch
 
 from ..models.wavelets import _xifn
@@ -78,7 +92,7 @@ from .phase import cdiv, cmul, div_tiny
 __all__ = ['cwt_bins', 'cwt_bins_plain', 'cwt_fused', 'cwt_fused_plain',
            'cwt_bins2', 'cwt_bins2_plain', 'cwt_w2', 'wsst2_rows',
            'wavelet_table', 'kernel_length', 'four_step', 'bins_plan',
-           'cwt_length_rule',
+           'cwt_length_rule', 'stage1_rows', 'support_klims', 'table_klims',
            'smem_index', 'swz', 'CwtBinsGrad', 'CwtFusedGrad',
            'CwtBins2Grad', 'CwtW2Grad']
 
@@ -107,6 +121,15 @@ _MAX_COLUMNS = 8
 # wavelet tables held at once (`wavelet_table`)
 _TABLE_SLOTS = 4
 _TABLES = collections.OrderedDict()
+# stage 1's support plan: the smallest subnormal of the dtype the kernel
+# computes in (1.4e-45 is the JAX package's float32 constant), the host
+# limits of the closed form held at once, and the card's limits per
+# source tensor held at once
+_SUBNORMAL = {'float32': 1.4e-45, 'float64': 4.9e-324}
+_KLIM_HOST_SLOTS = 64
+_KLIM_HOST = collections.OrderedDict()
+_KLIM_SLOTS = 16
+_KLIMS = collections.OrderedDict()
 
 
 def kernel_length(n_up):
@@ -300,6 +323,116 @@ def wavelet_table(wavelet, scales, n_up, order2=False, memo=False):
     return table
 
 
+def stage1_rows(n_up):
+    """Rows stage 1 of the CWT kernel contracts over unpruned: the f2-wide
+    blocks m1 of the half spectrum m = m1 f2 + m2 <= n_up/2 (`four_step`),
+    ceil((n_up//2 + 1) / f2); f1/2 + 1 on the radix-4 engine, the last
+    holding the Nyquist bin alone."""
+    return -(-(int(n_up) // 2 + 1) // four_step(n_up)[1])
+
+
+def _memo_put(memo, key, value, slots):
+    memo[key] = value
+    while len(memo) > slots:
+        memo.popitem(last=False)
+
+
+def support_klims(wavelet, scales, n_up, dtype='float32', order2=False):
+    """The support plan of stage 1 for a wavelet the kernel synthesizes
+    (the JAX package's `ops/cwt_pallas.py::support_klims`, on this
+    kernel's split `four_step`): per scale, the count of leading rows
+    (`stage1_rows`' f2-wide blocks m1) where psih(a xi) can be nonzero in
+    `dtype`. psih is sampled in float64 numpy (`wavelet.fn(w, xp=np)`) at
+    row boundaries and midpoints, floor(k f2 / 2) (the JAX package's
+    k (f2 // 2) for an even f2, and still each row's start and middle for
+    an odd one, down to f2 = 1); a row counts up to the last sample above
+    the smallest subnormal of `dtype` (1.4e-45 for float32, 4.9e-324 for
+    float64), plus one row of margin, row 0 always, capped at
+    `stage1_rows`; `order2` adds one row for the derivative banks (as the
+    JAX package's `models/ssq_cwt2.py` does). Beyond it psih is exactly 0
+    in `dtype` (tests/test_torch_cwt_prune.py). (na,) int32 numpy,
+    memoized per (wavelet, scales, n_up, dtype, order2) for this
+    package's wavelets; read-only."""
+    from ..models.cwt import _is_custom, _wavelet_key
+    scales = np.asarray(scales, np.float64).reshape(-1)
+    n_up, dtype, order2 = int(n_up), str(dtype), bool(order2)
+    key = None
+    if not _is_custom(wavelet):
+        key = (_wavelet_key(wavelet), scales.tobytes(), n_up, dtype, order2)
+        hit = _KLIM_HOST.get(key)
+        if hit is not None:
+            _KLIM_HOST.move_to_end(key)
+            return hit
+    f2 = four_step(n_up)[1]
+    half = n_up // 2 + 1
+    rows0 = stage1_rows(n_up)
+    samp = np.minimum(np.arange(2 * rows0 + 1) * f2 // 2, half - 1)
+    psis = np.abs(np.asarray(wavelet.fn(scales[:, None]
+                                        * _xifn(1., n_up)[samp], xp=np),
+                             np.float64))
+    need = psis > _SUBNORMAL[dtype]
+    last = need.shape[1] - 1 - need[:, ::-1].argmax(axis=1)
+    klim = np.clip(np.where(need.any(axis=1), last // 2 + 2, 1), 1, rows0)
+    klim = np.minimum(klim + order2, rows0).astype(np.int32)
+    klim.setflags(write=False)                # shared by every caller
+    if key is not None:
+        _memo_put(_KLIM_HOST, key, klim, _KLIM_HOST_SLOTS)
+    return klim
+
+
+def table_klims(table, n_up):
+    """The support plan of stage 1 for a wavelet read from its table
+    (`wavelet_table`: (na, n_up//2 + 1), or (3, na, n_up//2 + 1) for
+    order 2, the maximum over the planes): per scale, the row m1 holding
+    the last nonzero entry, plus one (1 for a row of zeros). Exact: every
+    entry beyond it is 0. (na,) int32 on the table's device, computed
+    there with no host read."""
+    f2 = four_step(n_up)[1]
+    nz = table != 0
+    full = nz.shape[-1] // f2 * f2
+    rows = [nz[..., :full].unflatten(-1, (-1, f2)).any(-1)]
+    if full < nz.shape[-1]:
+        rows.append(nz[..., full:].any(-1, keepdim=True))
+    rows = torch.cat(rows, -1)
+    if rows.dim() == 3:
+        rows = rows.any(0)
+    idx = torch.arange(1, rows.shape[-1] + 1, dtype=torch.int32,
+                       device=table.device)
+    return torch.where(rows, idx, 0).amax(-1).clamp_min(1).to(torch.int32)
+
+
+def _stage1_klims(wavelet, scales, n_up, order2, table):
+    """The (na,) int32 row limits stage 1 reads on the card: from `table`
+    (`table_klims`) where the wavelet comes from one, else the closed
+    form's support plan (`support_klims` in the scales' dtype, whose
+    scales are read to the host once per scales tensor). Memoized per
+    source tensor and version (`_KLIM_SLOTS` at once; a table by a weak
+    reference, the scales by a strong one, which keeps their storage and
+    so their address unique), so a call that hits costs no host-device
+    sync."""
+    if table is not None:
+        key = ('table', id(table), table._version, int(n_up))
+        hit = _KLIMS.get(key)
+        if hit is not None and hit[0]() is table:
+            _KLIMS.move_to_end(key)
+            return hit[1]
+        value = (weakref.ref(table), table_klims(table, n_up))
+    else:
+        kp = tuple(sorted(wavelet.fn.kernel_params.items()))
+        key = ('gmw', scales.data_ptr(), scales.shape[0], scales.stride(0),
+               scales.dtype, str(scales.device), scales._version, int(n_up),
+               bool(order2), kp)
+        hit = _KLIMS.get(key)
+        if hit is not None:
+            _KLIMS.move_to_end(key)
+            return hit[1]
+        host = support_klims(wavelet, scales.detach().cpu().numpy(), n_up,
+                             str(scales.dtype).split('.')[-1], order2)
+        value = (scales, torch.tensor(host, device=scales.device))
+    _memo_put(_KLIMS, key, value, _KLIM_SLOTS)
+    return value[1]
+
+
 def _halve_nyquist(xh, n_up):
     """xh with its Nyquist bin halved (even n_up), as a new tensor: the
     plain versions halve the spectrum where the kernel does, which equals
@@ -389,14 +522,8 @@ def cwt_bins(xh, scales, wavelet, n_up, n1, N, dt, l1_norm, params, gamma,
         if xh.device.type != 'cuda':
             raise RuntimeError("cwt_bins runs on CUDA or CPU tensors (got "
                                "%s)" % xh.device)
-        shape = xh.shape[:-1] + (scales.shape[0], N)
-        Wx = torch.empty(shape, dtype=xh.dtype, device=xh.device)
-        k = torch.empty(shape, dtype=torch.int32, device=xh.device)
-        _launch(cwt_bins, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
-                _OUT_BINS, Wx, k, params, gamma, flipud,
-                counter='batched_launches' if xh.dim() == 2 else 'launches',
-                table=table)
-        return Wx, k
+        return _launch(cwt_bins, _OUT_BINS, xh, scales, wavelet, n_up, n1,
+                       N, dt, l1_norm, params, gamma, flipud, table=table)
 
     if not needs_grad(xh, scales):
         return run(xh, scales)
@@ -436,34 +563,64 @@ def _zero_counters(wrapper, names=_COUNTERS):
 _zero_counters(cwt_bins)
 
 
-def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
-            out_mode, Wx, out2, params=None, gamma=0., flipud=False,
-            counter='launches', table=None):
-    """Run the two-launch kernel over every row of `Wx` (B * na, N),
-    chunking rows to the scratch budget; counts each C call on the
-    wrapper's attribute `counter`, prefixed `mixed_` on the mixed engine
-    and `table_` where the wavelet comes from its table (every wavelet
-    but the order-0 GMW, which the kernel synthesizes): the caller's
-    `table`, else the memo's."""
+def _outputs(out_mode, xh, scales, N):
+    """The kernel's outputs for `out_mode`, (B *) na x N: Wx (W) of xh's
+    type, and k (int32, bins modes), dWx (derivative mode), w2 (real,
+    w2 mode) or None (Wx only)."""
+    shape = xh.shape[:-1] + (scales.shape[0], N)
+    Wx = torch.empty(shape, dtype=xh.dtype, device=xh.device)
+    if out_mode in (_OUT_BINS, _OUT_BINS2):
+        return Wx, torch.empty(shape, dtype=torch.int32, device=xh.device)
+    if out_mode == _OUT_W_DW:
+        return Wx, torch.empty_like(Wx)
+    if out_mode == _OUT_W2:
+        return Wx, torch.empty(shape, dtype=scales.dtype, device=xh.device)
+    return Wx, None
+
+
+def _launch(wrapper, out_mode, xh, scales, wavelet, n_up, n1, N, dt,
+            l1_norm, params=None, gamma=0., flipud=False, table=None,
+            klims=None):
+    """Run the two-launch kernel of `out_mode` over every row of its
+    outputs (`_outputs`), chunking rows to the scratch budget; returns
+    (Wx, out2). Counts each C call on the wrapper's attribute `launches`
+    (`batched_launches` for a batch, where the wrapper has one), prefixed
+    `mixed_` on the mixed engine and `table_` where the wavelet comes from
+    its table (every wavelet but the order-0 GMW, which the kernel
+    synthesizes): the caller's `table`, else the memo's. Stage 1 reads
+    each row's support limit (`_stage1_klims`). `klims` is a private hook
+    that replaces those limits by an (na,) int32 tensor on the card, for
+    holding pruned against unpruned stage 1 in one run (`chip_smoke.py`,
+    `tests/test_torch_cuda.py`, `scripts/torch_cwt_digest.py`):
+    `stage1_rows(n_up)` in every row runs stage 1 unpruned."""
+    planes = _PLANES[out_mode]
     kp = getattr(wavelet.fn, 'kernel_params', None)
     if kp is None:
         if table is None:
-            table = wavelet_table(wavelet, scales, n_up,
-                                  order2=_PLANES[out_mode] == 5, memo=True)
+            table = wavelet_table(wavelet, scales, n_up, order2=planes == 5,
+                                  memo=True)
         kp = dict(logconst=0., amp=0., gamma=1., beta=0., wc=1.)
     else:
         table = None
+    na = scales.shape[0]
+    if klims is None:
+        klims = _stage1_klims(wavelet, scales, n_up, planes == 5, table)
+    elif (tuple(klims.shape) != (na,) or klims.dtype != torch.int32
+          or klims.device != xh.device or not klims.is_contiguous()):
+        raise ValueError("klims must be a contiguous (%d,) int32 tensor on "
+                         "%s" % (na, xh.device))
+    Wx, out2 = _outputs(out_mode, xh, scales, N)
     lib = _build.load('cwt_bins')
     f32 = scales.dtype == torch.float32
     itemsize = xh.element_size()
-    planes = _PLANES[out_mode]
     bp = bins_plan(n_up, itemsize, planes)
     f1, f2 = bp.f1, bp.f2
+    counter = ('batched_launches' if xh.dim() == 2
+               and hasattr(wrapper, 'batched_launches') else 'launches')
     if bp.engine == _ENGINE_MIXED:
         counter = 'mixed_' + counter
     if table is not None:
         counter = 'table_' + counter
-    na = scales.shape[0]
     n_all = Wx.numel() // N
     dev = xh.device
     rows = max(1, min(n_all, _MAX_GRID_Y,
@@ -493,11 +650,13 @@ def _launch(wrapper, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
             int(bool(flipud)), out_mode, na, bp.S1, bp.S2, bp.sw1, bp.sw2,
             bp.engine)
         err = fn(xh.data_ptr(), scales.data_ptr(),
-                 None if table is None else table.data_ptr(), ip, dp,
-                 scratch.data_ptr(), Wx.data_ptr(),
-                 None if out2 is None else out2.data_ptr(), stream)
+                 None if table is None else table.data_ptr(),
+                 klims.data_ptr(), ip, dp, scratch.data_ptr(),
+                 Wx.data_ptr(), None if out2 is None else out2.data_ptr(),
+                 stream)
         _build.check(err, wrapper.__name__)
         setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+    return Wx, out2
 
 
 def cwt_fused_plain(xh, scales, wavelet, n_up, n1, N, dt, derivative,
@@ -532,12 +691,9 @@ def cwt_fused(xh, scales, wavelet, n_up, n1, N, dt, derivative, l1_norm,
         if xh.device.type != 'cuda':
             raise RuntimeError("cwt_fused runs on CUDA or CPU tensors (got "
                                "%s)" % xh.device)
-        shape = xh.shape[:-1] + (scales.shape[0], N)
-        Wx = torch.empty(shape, dtype=xh.dtype, device=xh.device)
-        dWx = torch.empty_like(Wx) if derivative else None
-        _launch(cwt_fused, xh, scales, wavelet, n_up, n1, N, dt, l1_norm,
-                _OUT_W_DW if derivative else _OUT_W, Wx, dWx, table=table)
-        return Wx, dWx
+        return _launch(cwt_fused, _OUT_W_DW if derivative else _OUT_W, xh,
+                       scales, wavelet, n_up, n1, N, dt, l1_norm,
+                       table=table)
 
     if not needs_grad(xh, scales):
         return run(xh, scales)
@@ -617,14 +773,8 @@ def cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params, gamma, flipud,
         if xh.device.type != 'cuda':
             raise RuntimeError("cwt_bins2 runs on CUDA or CPU tensors (got "
                                "%s)" % xh.device)
-        shape = xh.shape[:-1] + (scales.shape[0], N)
-        W = torch.empty(shape, dtype=xh.dtype, device=xh.device)
-        k = torch.empty(shape, dtype=torch.int32, device=xh.device)
-        _launch(cwt_bins2, xh, scales, wavelet, n_up, n1, N, dt, True,
-                _OUT_BINS2, W, k, params, gamma, flipud,
-                counter='batched_launches' if xh.dim() == 2 else 'launches',
-                table=table)
-        return W, k
+        return _launch(cwt_bins2, _OUT_BINS2, xh, scales, wavelet, n_up, n1,
+                       N, dt, True, params, gamma, flipud, table=table)
 
     if not needs_grad(xh, scales):
         return run(xh, scales)
@@ -665,13 +815,8 @@ def cwt_w2(xh, scales, wavelet, n_up, n1, N, dt, gamma):
         if xh.device.type != 'cuda':
             raise RuntimeError("cwt_w2 runs on CUDA or CPU tensors (got %s)"
                                % xh.device)
-        shape = xh.shape[:-1] + (scales.shape[0], N)
-        W = torch.empty(shape, dtype=xh.dtype, device=xh.device)
-        w2 = torch.empty(shape, dtype=scales.dtype, device=xh.device)
-        _launch(cwt_w2, xh, scales, wavelet, n_up, n1, N, dt, True, _OUT_W2,
-                W, w2, gamma=gamma,
-                counter='batched_launches' if xh.dim() == 2 else 'launches')
-        return W, w2
+        return _launch(cwt_w2, _OUT_W2, xh, scales, wavelet, n_up, n1, N,
+                       dt, True, gamma=gamma)
 
     if not needs_grad(xh, scales):
         return run(xh, scales)

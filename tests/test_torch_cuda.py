@@ -51,7 +51,11 @@ elements, and the length rules raising alike on the card and the CPU.
 Each kernel's `torch.autograd.Function`: its forward the kernel's one
 launch, bit-identical to the launch without grad; its backward launching
 nothing and within 1e-5 of max of the gradient through the plain version
-on the card.
+on the card. The CWT kernel's stage-1 support pruning: every mode, both
+engines, both sources of psih and both dtypes against the same launch
+unpruned through the private hook `cwt_cuda._launch(..., klims=...)`,
+bit for bit but for the sign of zero cells; pruned batch rows across row
+chunks against one-signal launches; malformed limits raising.
 """
 import ctypes
 
@@ -2333,3 +2337,145 @@ def test_extract_ridges_on_card(dev, monkeypatch):
     assert (ridge_forward.launches - f0, ridge_trace.launches - t0) == (2, 2)
     for a, b in zip(out, ref):
         assert np.array_equal(a, b)
+
+
+# ---- stage-1 support pruning of the CWT kernel ----------------------------
+
+_PRUNE_MODES = ('bins', 'wx', 'wx_dwx_l2', 'order2', 'w2')
+
+
+def _prune_run(mode, xh, sc, wav, n_up, n1, N, params, gamma, klims=None):
+    """The CWT kernel in `mode` through `cwt_cuda._launch`: stage 1 pruned
+    by the support plan, or by `klims` (the private hook; `stage1_rows`
+    in every row runs it unpruned)."""
+    c = cwt_cuda
+    if mode == 'bins':
+        return c._launch(c.cwt_bins, c._OUT_BINS, xh, sc, wav, n_up, n1, N,
+                         1., True, params, gamma, True, klims=klims)
+    if mode == 'wx':
+        return c._launch(c.cwt_fused, c._OUT_W, xh, sc, wav, n_up, n1, N,
+                         1., True, klims=klims)
+    if mode == 'wx_dwx_l2':
+        return c._launch(c.cwt_fused, c._OUT_W_DW, xh, sc, wav, n_up, n1, N,
+                         1., False, klims=klims)
+    if mode == 'order2':
+        return c._launch(c.cwt_bins2, c._OUT_BINS2, xh, sc, wav, n_up, n1, N,
+                         1., True, params, gamma, True, klims=klims)
+    return c._launch(c.cwt_w2, c._OUT_W2, xh, sc, wav, n_up, n1, N, 1., True,
+                     gamma=gamma, klims=klims)
+
+
+def _full_klims(sc, n_up):
+    return torch.full(sc.shape, cwt_cuda.stage1_rows(n_up),
+                      dtype=torch.int32, device=sc.device)
+
+
+def _same_but_zero_signs(a, b):
+    """`a` and `b` equal bit for bit but for the sign of zero cells (or
+    both NaN); returns the count of cells whose zero signs differ."""
+    if a is None:
+        assert b is None
+        return 0
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    if not a.is_floating_point():
+        assert torch.equal(a, b)
+        return 0
+    ib = torch.int32 if a.element_size() == 4 else torch.int64
+    differ = a.view(ib) != b.view(ib)
+    assert bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    assert bool((a[differ] == 0).all())
+    return int(differ.sum())
+
+
+@pytest.mark.parametrize('mode', _PRUNE_MODES)
+@pytest.mark.parametrize('engine', ['radix-4', 'mixed'])
+@pytest.mark.parametrize('source', ['gmw', 'table'])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_pruned_stage1_equals_unpruned(dev, mode, engine, source, dtype):
+    """Every mode of the CWT kernel with stage 1 pruned by the support plan
+    equals the same launch unpruned through the private hook (`klims` of
+    rows0 in every row), bit for bit but for signed zeros (counted and
+    printed), on both engines (n_up = 16384, and 4725 unpadded), from the
+    closed-form GMW and from a table (an order-1 GMW), one C call each
+    on the mode's counter; the public wrapper's launch is the pruned one;
+    the plan prunes some rows and keeps others whole."""
+    N, padtype = (10000, 'reflect') if engine == 'radix-4' else (4725, None)
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(
+        N, dtype, 'log-piecewise', dev, padtype=padtype)
+    if source == 'table':
+        wav = resolve_wavelet(('gmw', {'order': 1, 'dtype': dtype}), N=N)
+    planes = {'bins': 2, 'wx': 1, 'wx_dwx_l2': 2}.get(mode, 5)
+    table = (cwt_cuda.wavelet_table(wav, sc, n_up, order2=planes == 5,
+                                    memo=True) if source == 'table' else None)
+    klims = cwt_cuda._stage1_klims(wav, sc, n_up, planes == 5, table)
+    rows0 = cwt_cuda.stage1_rows(n_up)
+    assert int(klims.min()) < rows0 and int(klims.max()) == rows0
+    wrapper = {'bins': cwt_bins, 'wx': cwt_fused, 'wx_dwx_l2': cwt_fused,
+               'order2': cwt_bins2, 'w2': cwt_cuda.cwt_w2}[mode]
+    name = (('table_' if source == 'table' else '')
+            + ('mixed_' if engine == 'mixed' else '') + 'launches')
+    before = getattr(wrapper, name)
+    pruned = _prune_run(mode, xh, sc, wav, n_up, n1, N, params, gamma)
+    full = _prune_run(mode, xh, sc, wav, n_up, n1, N, params, gamma,
+                      _full_klims(sc, n_up))
+    torch.cuda.synchronize()
+    assert getattr(wrapper, name) - before == 2
+    signs = sum(_same_but_zero_signs(a, b) for a, b in zip(pruned, full))
+    print("pruned %s %s %s %s: %d cells differ in the sign of a zero"
+          % (mode, engine, source, dtype, signs))
+    public = {
+        'bins': lambda: cwt_bins(xh, sc, wav, n_up, n1, N, 1., True, params,
+                                 gamma, True),
+        'wx': lambda: cwt_fused(xh, sc, wav, n_up, n1, N, 1., False, True),
+        'wx_dwx_l2': lambda: cwt_fused(xh, sc, wav, n_up, n1, N, 1., True,
+                                       False),
+        'order2': lambda: cwt_bins2(xh, sc, wav, n_up, n1, N, 1., params,
+                                    gamma, True),
+        'w2': lambda: cwt_cuda.cwt_w2(xh, sc, wav, n_up, n1, N, 1., gamma)
+    }[mode]()
+    for a, b in zip(public, pruned):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize('mode', _PRUNE_MODES)
+@pytest.mark.parametrize('engine', ['radix-4', 'mixed'])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_pruned_batch_rows_equal_one_signal(dev, mode, engine, dtype,
+                                            monkeypatch):
+    """Over a batch of three spectra (B3b, B3, B8 and its w2 mode), in
+    row chunks that cross signals, each pruned row equals its signal
+    launched alone and the batch launched unpruned: every row g takes
+    its scale's limit g % na."""
+    N, padtype = (4000, 'reflect') if engine == 'radix-4' else (3000, None)
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(
+        N, dtype, 'log-piecewise', dev, padtype=padtype)
+    xb = torch.stack([xh] + [_inputs(N, dtype, 'log-piecewise', dev,
+                                     padtype=padtype, seed=s)[0]
+                             for s in (1, 2)])
+    planes = {'bins': 2, 'wx': 1, 'wx_dwx_l2': 2}.get(mode, 5)
+    # chunks of na + 3 rows: every chunk but the first starts mid-signal
+    monkeypatch.setattr(cwt_cuda, '_SCRATCH_BUDGET',
+                        (len(sc) + 3) * planes * n_up * xh.element_size())
+    out = _prune_run(mode, xb, sc, wav, n_up, n1, N, params, gamma)
+    full = _prune_run(mode, xb, sc, wav, n_up, n1, N, params, gamma,
+                      _full_klims(sc, n_up))
+    for a, b in zip(out, full):
+        _same_but_zero_signs(a, b)
+    for i in range(3):
+        one = _prune_run(mode, xb[i].contiguous(), sc, wav, n_up, n1, N,
+                         params, gamma)
+        for a, b in zip(out, one):
+            assert (a is None and b is None) or torch.equal(a[i], b)
+
+
+def test_malformed_klims_raise_before_launch(dev):
+    """The private hook takes only an (na,) int32 tensor on the card."""
+    xh, sc, c, wav, n_up, n1, params, gamma = _inputs(
+        2000, 'float32', 'log-piecewise', dev)
+    n0 = cwt_fused.launches
+    for bad in (_full_klims(sc, n_up)[1:], _full_klims(sc, n_up).long(),
+                _full_klims(sc, n_up).cpu()):
+        with pytest.raises(ValueError, match='klims'):
+            _prune_run('wx', xh, sc, wav, n_up, n1, 2000, params, gamma, bad)
+    assert cwt_fused.launches == n0
