@@ -118,11 +118,13 @@ with a prime factor above 7 (section 10b); and the analysis layer,
      against the same call on the CPU (Wx within 1e-5 of max, Tx by the
      bins criterion), at 160001 by a chirp's round trip (`issq_cwt`,
      `icwt`; mad_rms < 0.1), each timed beside the same call padded at
-     N = 160000 (the kernel route); then checks that a call just past
-     each ceiling of the kernels (the CWT kernel's for 1, 2 and 5 planes
-     in float32, the STFT kernel's 2^22, the scatters' 25600 bins)
-     raises the same error naming ROADMAP.md queue C, C1b on the card and
-     on the CPU, launching nothing; runs the radix-4 engine at its
+     N = 160000 (the kernel route); then checks that each kernel
+     wrapper called just past its rule (the CWT kernel's for two and five
+     planes in float64, the STFT kernel's past 2^22 and for five planes
+     in float64, the scatters' 25600 bins) raises the same error naming
+     ROADMAP.md queue C, C1b on the card and on the CPU, launching
+     nothing (the public calls take their general routes there, 12i);
+     runs the radix-4 engine at its
      largest lengths through the public calls: `cwt(padtype=None)` at
      n_up = 2^28 (three scales, one plane) and `ssq_cwt2(padtype=None)`
      at n_up = 2^24 (eight scales, five planes), against the plain path
@@ -254,6 +256,27 @@ with a prime factor above 7 (section 10b); and the analysis layer,
      `bins_stage2`). Every CWT-kernel call of the other sections runs
      pruned, and the CWT kernels' bounds count the DFT levels the pruned
      rows need (`stage1_levels`);
+ 12i. (`past_ceiling_section`, after 12f) the public calls past the
+     kernels' rules (ROADMAP.md queue C, C1b) on their general routes:
+     (a) `stft` and `ssq_stft` at N = 4194304 (float32, hop 1, n_fft =
+     598: Np2 = 4718592), `ssq_stft2` at N = 1200000 (float64), `ssq_cwt2`
+     at N = 3000000 (float64, reflect, 300 log-piecewise scales: n_up =
+     2^23), `ssq_cwt(padtype=None)` at N = 10^7 (float64, 8 scales) and
+     `ssq_stft` at N = 4096 with n_fft = 51200 (25601 bins), each with
+     the counters zeroed just before: exactly its general functions
+     (`stft_general`, `fsst2_general`, `wsst2_general`, `cwt_general`,
+     `scatter_general`) and B4 or B5, no launch of a CWT or STFT kernel
+     (any counter), finite outputs, `istft` of the `stft` back (MAE <
+     1e-5), each call's host ms and peak GB (lines `past ceiling: ...`);
+     (b) at N = 160000 with the three predicates answering False
+     in-process (`general_only`), `stft`, `ssq_stft`, `ssq_stft2`, `cwt`,
+     `ssq_cwt` and `ssq_cwt2` on their general routes against the kernel
+     routes: Sx/Wx within 2e-5 of max, Tx by the bins criterion, both
+     timed (lines `general route at N=160000: ...`); (c) the helpers of
+     the top level (`replace_*`, `zero_denormals`, `S`, `Q`, `mad`,
+     `est_riskshrink_thresh`, `unbuffer`, `FFT_GLOBAL`, `asnumpy`,
+     `visuals._np`) on CUDA tensors: outputs on the card, equal to the
+     CPU's; (a)'s launches are added to the `kernels` line's counts;
  13. prints one `{"kernels": [...]}` line (the band plan's six rows, the
      table modes' nine, then the ridge kernels' two, last), then, as the
      last line,
@@ -2208,6 +2231,211 @@ def band_section(stq, dev, card, x_np, xb_np, n_fft):
     return out
 
 
+def _transform_counters():
+    """(name, wrapper, attribute) of every launch counter of the CWT and
+    STFT kernels' wrappers (one signal, batch, mixed, table, banded)."""
+    from ssqueezepy_tpu_torch.ops import cwt_cuda, stft_cuda
+    return [('%s.%s' % (w.__name__, a), w, a)
+            for w in (cwt_cuda.cwt_bins, cwt_cuda.cwt_fused,
+                      cwt_cuda.cwt_bins2, cwt_cuda.cwt_w2,
+                      stft_cuda.stft_conv, stft_cuda.fsst2_conv,
+                      stft_cuda.fsst2_w)
+            for a in sorted(vars(w)) if a.endswith('launches')]
+
+
+class general_only:
+    """Within the block the public entry points take their general
+    routes at any shape: the three host predicates (`cwt_kernel_fits`,
+    `stft_kernel_fits`, `scatter_fits`) answer False in-process."""
+
+    def __enter__(self):
+        from ssqueezepy_tpu_torch.ops import cwt_cuda, ssq_cuda, stft_cuda
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (cwt_cuda, 'cwt_kernel_fits'), (stft_cuda, 'stft_kernel_fits'),
+            (ssq_cuda, 'scatter_fits'))]
+        for m, n, _ in self.saved:
+            setattr(m, n, lambda *a: False)
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def past_ceiling_section(stq, dev, card, counters, x_np, spec, scales,
+                         ssq_freqs, n_fft):
+    """12i: the public calls past the kernels' rules (ROADMAP.md queue C,
+    C1b) on their general routes. (a) each past-ceiling case on the card,
+    with the counters zeroed just before: the general functions' counters
+    move, no CWT/STFT kernel launches, the outputs are finite; its host
+    ms and peak GB (second call). (b) at N = 160000 with the predicates
+    answering False, each route against the kernel route of the same call
+    (Sx/Wx within 2e-5 of max, Tx by the bins criterion), both timed.
+    (c) the A12b helpers on CUDA tensors: outputs on the card, equal to
+    the CPU's. Returns the launches per kernel counter of (a)."""
+    import torch
+    from ssqueezepy_tpu_torch.models import (cwt as m_cwt,
+                                             ssq_cwt2 as m_ssq2,
+                                             ssq_stft as m_ssq_stft,
+                                             stft as m_stft)
+    from ssqueezepy_tpu_torch.ops.ssq_kernels import scatter_general
+    general = [(f.__name__, f, 'calls') for f in (
+        m_cwt.cwt_general, m_ssq2.wsst2_general, m_stft.stft_general,
+        m_ssq_stft.fsst2_general, scatter_general)]
+    transforms = _transform_counters()
+    ctr = counters + general + transforms
+    kernel_names = {n for n, _, _ in counters}
+    launches = {}
+
+    def finite(t):
+        t = torch.view_as_real(t) if t.is_complex() else t
+        return bool(torch.isfinite(t).all())
+
+    # ---- (a) the past-ceiling calls ----------------------------------
+    g = torch.Generator(device=dev)
+    x4m = torch.randn(4194304, generator=g.manual_seed(1), device=dev)
+    x12 = torch.randn(1200000, generator=g.manual_seed(2), device=dev,
+                      dtype=torch.float64)
+    x3m = torch.randn(3000000, generator=g.manual_seed(3), device=dev,
+                      dtype=torch.float64)
+    x1e7 = torch.randn(10 ** 7, generator=g.manual_seed(4), device=dev,
+                       dtype=torch.float64)
+    x4k = torch.randn(4096, generator=g.manual_seed(5), device=dev)
+    g64 = ('gmw', {'dtype': 'float64'})
+    sc300 = stq.process_scales('log-piecewise', 3000000,
+                               stq.Wavelet(g64))[:300]
+    sc8 = 2. ** (2 + np.arange(8) / 4)
+    cases = [
+        ('stft at N=4194304, float32, hop 1, n_fft=%d' % n_fft,
+         lambda: (stq.stft(x4m, n_fft=n_fft),), {'stft_general'},
+         (n_fft // 2 + 1, 4194304)),
+        ('ssq_stft at N=4194304, float32, hop 1, n_fft=%d' % n_fft,
+         lambda: stq.ssq_stft(x4m, n_fft=n_fft)[:2],
+         {'stft_general', 'ssq_fused'}, (n_fft // 2 + 1, 4194304)),
+        ('ssq_stft2 at N=1200000, float64, n_fft=%d' % n_fft,
+         lambda: stq.ssq_stft2(x12, n_fft=n_fft, dtype='float64')[:2],
+         {'fsst2_general', 'shift_scatter'}, (n_fft // 2 + 1, 1200000)),
+        ('ssq_cwt2 at N=3000000, float64, reflect, %d scales (n_up = '
+         '2^23)' % len(sc300),
+         lambda: stq.ssq_cwt2(x3m, g64, scales=sc300)[:2],
+         {'wsst2_general', 'shift_scatter'}, (len(sc300), 3000000)),
+        ('ssq_cwt(padtype=None) at N=10^7, float64, 8 scales',
+         lambda: stq.ssq_cwt(x1e7, g64, scales=sc8, padtype=None)[:2],
+         {'cwt_general', 'ssq_fused'}, (8, 10 ** 7)),
+        ('ssq_stft at N=4096, float32, n_fft=51200, hann (25601 bins)',
+         lambda: stq.ssq_stft(x4k, n_fft=51200, window='hann')[:2],
+         {'stft_general', 'scatter_general'}, (25601, 4096))]
+    for what, fn, need, shape in cases:
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 1e9
+        out, counts = launches_of(ctr, fn)
+        moved = {k: v for k, v in counts.items() if v}
+        check(moved == dict.fromkeys(need, 1), "%s: the general route, "
+              "exactly %s, no CWT/STFT kernel launch (%s)"
+              % (what, sorted(need), moved))
+        check(all(tuple(o.shape[-2:]) == shape and finite(o) for o in out),
+              "%s: %s finite, %s" % (what, 'Tx, Sx/Wx' if len(out) == 2
+                                     else 'Sx', shape))
+        for k in kernel_names & set(moved):
+            launches[k] = launches.get(k, 0) + moved[k]
+        if what.startswith('stft'):
+            xr = stq.istft(out[0], n_fft=n_fft, N=4194304)
+            err = float(np.abs(xr - x4m.cpu().numpy()).mean())
+            check(err < 1e-5, "%s: istft round trip MAE %.3g (< 1e-5)"
+                  % (what, err))
+        del out
+        torch.cuda.empty_cache()
+        ms, gb = host_ms(fn, reps=1, warm=0)
+        print("past ceiling: %s: %.3f ms, peak %.3f GB above the %.3f GB "
+              "the script holds (host clock, second call); card: %s"
+              % (what, ms, gb - held, held, card), flush=True)
+        torch.cuda.empty_cache()
+    del x4m, x12, x3m, x1e7, x4k
+    torch.cuda.empty_cache()
+
+    # ---- (b) general against kernel routes at the headline -----------
+    x = torch.as_tensor(x_np, device=dev)
+    routes = {
+        'stft': (lambda: (stq.stft(x, n_fft=n_fft),), False),
+        'ssq_stft': (lambda: stq.ssq_stft(x, n_fft=n_fft)[:2], True),
+        'ssq_stft2': (lambda: stq.ssq_stft2(x, n_fft=n_fft)[:2], True),
+        'cwt': (lambda: stq.cwt(x, wavelet=spec, scales=scales)[:1],
+                False),
+        'ssq_cwt': (lambda: stq.ssq_cwt(x, spec, scales=scales,
+                                        ssq_freqs=ssq_freqs)[:2], True),
+        'ssq_cwt2': (lambda: stq.ssq_cwt2(x, spec, scales=scales)[:2],
+                     True)}
+    for name, (fn, ssq) in routes.items():
+        ref = fn()
+        with general_only():
+            out, counts = launches_of(ctr, fn)
+            check(not any(counts[n] for n, _, _ in transforms),
+                  "%s at N=160000, predicates False: no CWT/STFT kernel "
+                  "launch" % name)
+            ms_g, gb_g = host_ms(fn, reps=3, warm=1)
+        ms_k, gb_k = host_ms(fn, reps=3, warm=1)
+        err = rel_err(out[-1], ref[-1])
+        check(err <= 2e-5, "%s at N=160000: the general route's %s within "
+              "%.3g of max of the kernel route's (limit 2e-5)"
+              % (name, 'Sx' if 'stft' in name else 'Wx', err))
+        if ssq:
+            bins_criterion(out[0], ref[0], "%s at N=160000: general vs "
+                           "kernel route" % name)
+        print("general route at N=160000: %s %.3f ms (peak %.3f GB) "
+              "against the kernel route's %.3f ms (peak %.3f GB), ratio "
+              "%.2f (host clock, mean of 3 after warm-up); card: %s"
+              % (name, ms_g, gb_g, ms_k, gb_k, ms_g / ms_k, card),
+              flush=True)
+        del out, ref
+        torch.cuda.empty_cache()
+
+    # ---- (c) the A12b helpers on CUDA tensors --------------------------
+    rng = np.random.default_rng(12)
+    h = rng.standard_normal(4096) * 1e-3
+    h[::97], h[::101], h[5::89] = np.inf, np.nan, 0.
+    hc = torch.as_tensor(h, device=dev)
+
+    def same(a, b, what, tol=0.):
+        ok = isinstance(a, torch.Tensor) and a.device.type == 'cuda'
+        a, b = a.cpu(), torch.as_tensor(b)
+        ok = ok and a.dtype == b.dtype and a.shape == b.shape and \
+            torch.allclose(a, b, rtol=tol, atol=0., equal_nan=True)
+        check(ok, "helpers on the card: %s stays on the card, equal to the "
+              "CPU's%s" % (what, '' if tol == 0. else ' (%g)' % tol))
+    for name, kw in (('replace_at_inf_or_nan', dict(replacement=7.)),
+                     ('replace_at_inf', {}), ('replace_at_nan', {}),
+                     ('replace_at_value', dict(value=0., replacement=3.)),
+                     ('replace_under_abs', dict(value=5e-4))):
+        fn = getattr(stq, name)
+        same(fn(hc, **kw), fn(torch.as_tensor(h), **kw), name)
+        same(fn(hc, hc, **kw), fn(h.copy(), **kw), name + ' (numpy ref)')
+    hf = np.where(np.isfinite(h), h, 1.)
+    hfc = torch.as_tensor(hf, device=dev)
+    same(stq.zero_denormals(hfc * 1e-306),
+         stq.zero_denormals(torch.as_tensor(hf) * 1e-306), 'zero_denormals')
+    S, Q = stq.S, stq.Q
+    same(S.asarray([1., 2.], dtype='float64', like=hfc), np.array([1., 2.]),
+         'S.asarray')
+    same(S.zeros(3, dtype='float64', like=hfc), np.zeros(3), 'S.zeros')
+    same(Q.abs(hfc), np.abs(hf), 'Q.abs')
+    same(Q.cumsum(hfc, 0), np.cumsum(hf), 'Q.cumsum', 1e-12)
+    same(stq.mad(hfc), stq.mad(hf), 'mad', 1e-12)
+    W = hf.reshape(8, 512) + 1j * hf[::-1].reshape(8, 512)
+    same(stq.est_riskshrink_thresh(torch.as_tensor(W, device=dev), 3),
+         stq.est_riskshrink_thresh(W, 3), 'est_riskshrink_thresh', 1e-12)
+    win = stq.get_window('hann', 64, 64)
+    xbuf = hf[:64 * 40].reshape(64, 40)
+    same(stq.unbuffer(torch.as_tensor(xbuf, device=dev), win, 4, 64, 200),
+         stq.unbuffer(xbuf, win, 4, 64, 200), 'unbuffer', 1e-12)
+    same(stq.FFT_GLOBAL.rfft(hfc), np.fft.rfft(hf), 'FFT_GLOBAL.rfft',
+         1e-12)
+    a = stq.asnumpy(hfc)
+    check(isinstance(a, np.ndarray) and np.array_equal(a, hf)
+          and np.array_equal(stq.visuals._np(hfc), hf),
+          "helpers on the card: asnumpy and visuals' _np bring a CUDA "
+          "tensor to the host")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2230,7 +2458,8 @@ def main():
         from ssqueezepy_tpu_torch.ops.phase import (phase_cwt, phase_cwt_num,
                                                     phase_stft,
                                                     phase_transform_w)
-        from ssqueezepy_tpu_torch.ops.ssq_kernels import compute_bins
+        from ssqueezepy_tpu_torch.ops.ssq_kernels import (compute_bins,
+                                                          ssq_bin_params)
         from ssqueezepy_tpu_torch.ops.stft_cuda import (
             fsst2_conv, fsst2_conv_plain, fsst2_rows, fsst2_w, stft_conv,
             stft_conv_plain, split_fft_len)
@@ -3606,43 +3835,69 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- the kernels' ceilings: one rule on every device -----------------
-    # a call just past each ceiling raises the same error naming C1b on
-    # the card and on the CPU, before any FFT or launch: the CWT kernel's
-    # radix-4 engine in float32 past 2^28 (one plane: cwt), 2^26 (two:
-    # ssq_cwt) and 2^24 (five: ssq_cwt2), reached by reflect padding
-    # (n_up = p2up(N)); the STFT kernel past 2^22; the scatters past 25600
-    # bins
-    sc8s = 2. ** (2 + np.arange(8) / 4)
-    for what, fn in (
-            ('cwt, n_up = 2^29', lambda d: stq.cwt(
-                np.ones(3 << 26, np.float32), scales=sc8s, nv=None,
-                device=d)),
-            ('ssq_cwt, n_up = 2^27', lambda d: stq.ssq_cwt(
-                np.ones(3 << 24, np.float32), scales=sc8s, device=d)),
-            ('ssq_cwt2, n_up = 2^25', lambda d: stq.ssq_cwt2(
-                np.ones(3 << 22, np.float32), scales=sc8s, device=d)),
-            ('ssq_stft2, Np2 > 2^22', lambda d: stq.ssq_stft2(
-                np.ones(1 << 22, np.float32), n_fft=n_fft, device=d)),
-            ('stft, Np2 > 2^22', lambda d: stq.stft(
-                np.ones(1 << 22, np.float32), n_fft=n_fft, device=d)),
-            ('ssq_stft, nbins = 25601', lambda d: stq.ssq_stft(
-                np.ones(4096, np.float32), n_fft=51200, window='hann',
-                device=d))):
-        msgs = []
-        for d in ('cuda', 'cpu'):
+    # each kernel wrapper called just past its rule raises the same error
+    # naming C1b on the card and on the CPU, before any launch (the public
+    # calls take their general routes there: section 12i): the CWT
+    # kernel's for two planes at n_up = 10^7 and five at 2,000,000 in
+    # float64 (the mixed engine), the STFT kernel's past 2^22 and for five
+    # planes at 1310720 in float64, the scatters' past 25600 bins
+    wav64 = resolve_wavelet(('gmw', {'dtype': 'float64'}))
+    c1b_params = ssq_bin_params(np.linspace(.01, .4, 25601), False)
+
+    def past_rules(d):
+        sc2 = torch.tensor([4., 8.], dtype=torch.float64, device=d)
+        xh7 = torch.empty(10 ** 7 // 2 + 1, dtype=torch.complex128,
+                          device=d)
+        xh2m = torch.empty(1000001, dtype=torch.complex128, device=d)
+        xh22 = torch.empty(9 << 19, dtype=torch.complex64, device=d)
+        xh5 = torch.empty(1310720, dtype=torch.complex128, device=d)
+        tab5 = torch.empty((5, 1, 1310720), dtype=torch.complex128,
+                           device=d)
+        sfs = torch.zeros(1, dtype=torch.float64, device=d)
+        bins5 = dict(Sfs=sfs, params=ssq_bin_params(np.arange(4.), False),
+                     gamma=1e-10, flipud=False)
+        v = torch.zeros((3, 8), dtype=torch.complex64, device=d)
+        k = torch.zeros((3, 8), dtype=torch.int32, device=d)
+        c = torch.ones(3, device=d)
+        return (
+            ('cwt_bins, n_up = 10^7, float64', lambda: cwt_bins(
+                xh7, sc2, wav64, 10 ** 7, 0, 8, 1., True, c1b_params, 1e-10,
+                False)),
+            ('cwt_fused with dWx, n_up = 10^7, float64', lambda: cwt_fused(
+                xh7, sc2, wav64, 10 ** 7, 0, 8, 1., True, True)),
+            ('cwt_bins2, n_up = 2,000,000, float64', lambda: cwt_bins2(
+                xh2m, sc2, wav64, 2000000, 0, 8, 1., c1b_params, 1e-10,
+                False)),
+            ('cwt_w2, n_up = 2,000,000, float64', lambda: cwt_w2(
+                xh2m, sc2, wav64, 2000000, 0, 8, 1., 1e-10)),
+            ('stft_conv, Np2 = 9 x 2^19', lambda: stft_conv(
+                xh22, torch.empty((1, 9 << 19), dtype=torch.complex64,
+                                  device=d), None, 8)),
+            ('fsst2_conv, Np2 = 1310720, float64', lambda: fsst2_conv(
+                xh5, tab5, 8, 1., bins5)),
+            ('fsst2_w, Np2 = 1310720, float64', lambda: fsst2_w(
+                xh5, tab5, 8, 1., sfs, 1e-10)),
+            ('scatter_kv, nbins = 25601', lambda: scatter_kv(
+                v, k, c, 25601)),
+            ('ssq_fused, nbins = 25601', lambda: ssq_fused(
+                v, v, c, c1b_params, 1e-6, False)),
+            ('shift_scatter, nbins = 25601', lambda: shift_scatter(
+                v, k, None, 25601, c)))
+    msgs = {}
+    for d in ('cuda', 'cpu'):
+        for what, fn in past_rules(d):
             def refused():
                 try:
-                    fn(d)
+                    fn()
                 except NotImplementedError as e:
                     return str(e)
                 return None
             msg, counts = launches_of(all_kernels, refused)
-            msgs.append(msg)
             check(msg is not None and 'ROADMAP.md queue C, C1b' in msg
                   and not any(counts.values()), "%s on device=%r raises "
-                  "naming C1b, launching nothing: %r" % (what, d, msg))
-        check(msgs[0] == msgs[1], "%s: the same error on both devices"
-              % what)
+                  "naming C1b, launching nothing" % (what, d))
+            check(msgs.setdefault(what, msg) == msg,
+                  "%s: the same error on both devices" % what)
     torch.cuda.empty_cache()
 
     # ---- the radix-4 engine at its largest lengths, public calls ---------
@@ -3651,6 +3906,7 @@ def main():
     # n_up = 2^24 (five planes, eight scales), float32, against the plain
     # path on the card
     sc3 = np.array([4., 16., 64.])
+    sc8s = 2. ** (2 + np.arange(8) / 4)
     for lg, what in ((28, 'cwt'), (24, 'ssq_cwt2')):
         nl = 1 << lg
         xl = torch.randn(nl, generator=torch.Generator(
@@ -4240,11 +4496,17 @@ def main():
         stq, dev, card, all_kernels, x_np, spec, scales, ssq_freqs)
     for kn, v in ridge_launches.items():
         launches[kn] += v
+    torch.cuda.empty_cache()
+    for kn, v in past_ceiling_section(stq, dev, card, all_kernels, x_np,
+                                      spec, scales, ssq_freqs,
+                                      n_fft).items():
+        launches[kn] += v
     print("main-path launches per kernel, summed over the %d public "
           "calls, the prime lengths' counted calls, the streaming "
           "section's counted calls, the gradient section's forwards, the "
-          "parallel section's world of one and the analysis section's "
-          "counted calls: %s" % (len(calls), launches), flush=True)
+          "parallel section's world of one, the analysis section's "
+          "counted calls and the past-ceiling section's: %s"
+          % (len(calls), launches), flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),
           flush=True)
 

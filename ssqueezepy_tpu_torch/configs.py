@@ -21,7 +21,8 @@ import dataclasses
 from dataclasses import dataclass, field
 
 __all__ = ['Config', 'get_config', 'configure',
-           'default_dtype', 'device_dtype', 'gdefaults']
+           'default_dtype', 'device_dtype', 'gdefaults', 'backend',
+           'IS_PARALLEL', 'USE_GPU']
 
 
 @dataclass
@@ -84,6 +85,15 @@ def configure(**kw):
     return cfg
 
 
+def backend():
+    """Where the entry points run by default: 'cuda' where a CUDA card is
+    present, else 'cpu' (where a default call raises and a call with
+    ``device='cpu'`` runs the plain versions). A report: no setting
+    changes it."""
+    import torch
+    return 'cuda' if torch.cuda.is_available() else 'cpu'
+
+
 def default_dtype():
     return get_config().dtype
 
@@ -106,3 +116,18 @@ def gdefaults(section, **kw):
     for k, v in kw.items():
         out[k] = table.get(k) if v is None else v
     return out
+
+
+def IS_PARALLEL():
+    """The reference library's `IS_PARALLEL`, as a report only: False
+    where the environment sets ``SSQ_PARALLEL=0``. Nothing here reads it:
+    the kernels and torch's own threads are parallel whatever it says."""
+    return os.environ.get('SSQ_PARALLEL', '1') != '0'
+
+
+def USE_GPU():
+    """The reference library's `USE_GPU`, as a report only: True where a
+    CUDA card is present, which is where the entry points' default
+    ``device='cuda'`` runs. It changes nothing: a call's `device` picks
+    where it runs."""
+    return backend() == 'cuda'

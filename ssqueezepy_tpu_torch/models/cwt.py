@@ -14,29 +14,33 @@ and two-integral). `cwt` routes as the JAX package's gates do:
     factors are at most 7 (`ops/cwt_cuda.py::kernel_length`): pad ->
     `torch.fft.rfft` -> the fused CWT kernel (`cwt_fused`; the order-0
     GMW synthesized in the kernel, every other wavelet read from its
-    table); with ``device='cpu'`` its plain version. Its DFT factors must
-    fit one block's shared memory (`ops/cwt_cuda.py::cwt_length_rule`: a
-    padded N up to n_up = 2^28, one plane, float32); past that a call
-    raises on every device, before the signal's FFT;
+    table); with ``device='cpu'`` its plain version, where its DFT
+    factors fit one block's shared memory (`ops/cwt_cuda.py::
+    cwt_length_rule`: a padded N up to n_up = 2^28, one plane, float32);
   * any other wavelet (morlet, hhhat with mu < 0, another bump, a user's
-    callable), and any wavelet at an n_up with a prime factor above 7
-    (an unpadded N such as 1031 or 2002): `cwt_general`, the JAX
+    callable), any wavelet at an n_up with a prime factor above 7
+    (an unpadded N such as 1031 or 2002), and any n_up past the kernel's
+    rule (`ops/cwt_cuda.py::cwt_kernel_fits`): `cwt_general`, the JAX
     package's XLA branch, by `torch.fft` on the signal's device, at any
-    length. The route is decided by the wavelet and n_up before anything
-    runs (`_kernel_route`).
+    length, its scales in row blocks of at most 2 GiB per plane
+    (`utils/common.py::row_blocks`). The route is decided by the
+    wavelet, n_up and the dtype before anything runs (`_kernel_route`,
+    `_public_route`).
 """
 import numpy as np
 import torch
 
 from ..configs import device_dtype
+from ..ops import cwt_cuda
 from ..ops.cwt_cuda import (cwt_fused, cwt_length_rule, kernel_length,
                              wavelet_table, _halve_nyquist)
 from ..ops.fft import fft, ifft, rfft
 from ..ops.pad import padsignal, pad_params, _MODE_MAP
-from ..utils.common import WARN, numpy_unless_grad, resolve_device
+from ..utils.common import (WARN, numpy_unless_grad, resolve_device,
+                            row_blocks)
 from ..utils.cwt_utils import (process_scales, logscale_transition_idx,
                                adm_ssq, adm_cwt, _process_fs_and_t)
-from .wavelets import Wavelet, _xifn
+from .wavelets import Wavelet, _xi_grid
 
 __all__ = ['cwt', 'icwt', 'cwt_core', 'cwt_general', 'cwt_higher_order',
            'resolve_wavelet', 'cwt_spectrum', 'padded_length']
@@ -84,6 +88,17 @@ def _kernel_route(wavelet, n_up):
     path (`cwt_general`)."""
     return (kernel_length(n_up) and _is_analytic(wavelet)
             and _is_real(wavelet))
+
+
+def _public_route(wavelet, n_up, xt, planes):
+    """The public entry points' route for the real signal `xt`: the
+    kernel's (`_kernel_route`) where n_up also fits the kernel's rule for
+    `planes` planes of xt's complex type (`ops/cwt_cuda.py::
+    cwt_kernel_fits`), else the general path. Decided before the
+    signal's FFT."""
+    itemsize = 2 * xt.element_size()
+    return (_kernel_route(wavelet, n_up)
+            and cwt_cuda.cwt_kernel_fits(n_up, itemsize, planes))
 
 
 def _wavelet_key(wavelet):
@@ -181,9 +196,7 @@ def cwt_core(xh, wavelet, scales, n_up, n1, N, dt, derivative, l1_norm,
     xh's device; `xh` may be a (B, n_up//2 + 1) batch; `table`, where
     given, is that wavelet table already made. Returns (Wx, dWx or None),
     complex (na, N) or (B, na, N)."""
-    half = n_up // 2 + 1
-    xi = torch.as_tensor(_xifn(1., n_up)[:half], dtype=scales.dtype,
-                         device=scales.device)
+    xi = _xi_grid(n_up, scales.dtype, scales.device, half=True)
     psih = wavelet_table(wavelet, scales, n_up) if table is None else table
     Psih_xh = psih * _halve_nyquist(xh, n_up).unsqueeze(-2)
     return _convolve(Psih_xh, xi, scales, n_up, n1, N, dt, derivative,
@@ -196,27 +209,35 @@ def cwt_general(xp, wavelet, scales, n1, N, dt, derivative, l1_norm):
     by `torch.fft` on xp's device: the full spectrum and the wavelet on
     the full grid, or for an analytic wavelet with a complex spectrum the
     half of both; the Nyquist bin halved; the inverse FFT kept to
-    [n1, n1+N). `scales` a real (na,) tensor on xp's device. Returns (Wx,
-    dWx or None), complex (na, N) or (B, na, N). Counts its calls on
-    `cwt_general.calls`."""
+    [n1, n1+N). `scales` a real (na,) tensor on xp's device, taken in
+    row blocks that keep each plane within 2 GiB
+    (`utils/common.py::row_blocks`; each row is computed as in one
+    block). Returns (Wx, dWx or None), complex (na, N) or (B, na, N).
+    Counts its calls on `cwt_general.calls`."""
     cwt_general.calls += 1
     n_up = xp.shape[-1]
     analytic = _is_analytic(wavelet)
-    half = n_up // 2 + 1
-    xh = rfft(xp) if analytic else fft(xp)
-    xi = torch.as_tensor(_xifn(1., n_up)[:half] if analytic else
-                         _xifn(1., n_up), dtype=scales.dtype,
-                         device=scales.device)
-    psih = wavelet.fn(scales.reshape(-1, 1) * xi, xp=torch)
-    if isinstance(psih, tuple):                     # complex wavelet
-        psih = torch.complex(*psih)
-    if n_up % 2 == 0:                               # Nyquist halving
-        psih = psih.clone()
-        psih[..., n_up // 2] /= 2
-    Psih_xh = psih * xh.unsqueeze(-2)
-    Wx, dWx = _convolve(Psih_xh, xi, scales, n_up, n1, N, dt, derivative,
-                        l1_norm)
-    return Wx.contiguous(), (None if dWx is None else dWx.contiguous())
+    xh = (rfft(xp) if analytic else fft(xp)).unsqueeze(-2)
+    xi = _xi_grid(n_up, scales.dtype, scales.device, half=analytic)
+    shape = xp.shape[:-1] + (len(scales), N)
+    Wx = torch.empty(shape, dtype=xh.dtype, device=xp.device)
+    dWx = torch.empty_like(Wx) if derivative else None
+    # per row: the product and the inverse FFT, n_up elements per signal
+    for lo, hi in row_blocks(len(scales),
+                             xh[..., :1].numel() * n_up * xh.element_size()):
+        s = scales[lo:hi]
+        psih = wavelet.fn(s.reshape(-1, 1) * xi, xp=torch)
+        if isinstance(psih, tuple):                 # complex wavelet
+            psih = torch.complex(*psih)
+        if n_up % 2 == 0:                           # Nyquist halving
+            psih = psih.clone()
+            psih[..., n_up // 2] /= 2
+        W, dW = _convolve(psih * xh, xi, s, n_up, n1, N, dt, derivative,
+                          l1_norm)
+        Wx[..., lo:hi, :] = W
+        if derivative:
+            dWx[..., lo:hi, :] = dW
+    return Wx, dWx
 
 
 cwt_general.calls = 0
@@ -294,7 +315,8 @@ def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
     `wavelet` is a name ('gmw', 'morlet', 'bump', 'cmhat', 'hhhat'), a
     (name, dict) pair, a `Wavelet` or a function of a torch tensor of
     radian frequencies. `padtype=None` transforms the signal unpadded
-    (n_up = N; an N with a prime factor above 7 takes `cwt_general`);
+    (n_up = N; an N with a prime factor above 7 takes `cwt_general`, as
+    does an n_up past the CWT kernel's rule);
     `rpadded=True` returns the whole padded transform, (na, n_up) or
     (B, na, n_up). `l1_norm=False` uses the L2 ('energy') GMW and
     multiplies rows by sqrt(scale); `vectorized=False` runs the scales in
@@ -321,8 +343,9 @@ def cwt(x, wavelet='gmw', scales='log-piecewise', fs=None, t=None, nv=32,
 
     xt = torch.as_tensor(x, dtype=dtype, device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
-    if _kernel_route(wavelet, padded_length(N, padtype)):
-        xh, n_up, n1 = cwt_spectrum(xt, padtype, 2 if derivative else 1)
+    planes = 2 if derivative else 1
+    if _public_route(wavelet, padded_length(N, padtype), xt, planes):
+        xh, n_up, n1 = cwt_spectrum(xt, padtype, planes)
 
         def rows(s):
             return cwt_fused(xh, s, wavelet, n_up, n1, N, dt, derivative,

@@ -41,10 +41,14 @@ otherwise.
 
 `padtype=None` transforms the signal unpadded (n_up = N) on each route;
 the kernel's route takes it where N's prime factors are at most 7
-(`ops/cwt_cuda.py::kernel_length`; `cwt_length_rule` also bounds n_up by
-one block's shared memory, and `ops/ssq_cuda.py::scatter_rule` the
-bins, on every device), `cwt_general` at any other N, chosen before
-anything runs, with every option carried as on a non-kernel wavelet.
+(`ops/cwt_cuda.py::kernel_length`), `cwt_general` at any other N,
+chosen before anything runs, with every option carried as on a
+non-kernel wavelet. An n_up past the CWT kernel's rule (`ops/cwt_cuda.py::
+cwt_length_rule`, one block's shared memory; `cwt_kernel_fits`) takes
+`cwt_general` the same way, and bins past the reassignment kernels' rule
+(`ops/ssq_cuda.py::scatter_rule`) take `ops/ssq_kernels.py::
+scatter_general` in the scatter's place (after the torch phase
+transform and bin map in B4's: `ssq_fused_general`), on every device.
 The JAX package takes its XLA CWT and
 `ssqueeze_fast` there; its Tx agrees with this one by the bins criterion
 and its Wx to 2e-5 of max (float32) or 1e-9 (float64).
@@ -63,15 +67,17 @@ from ..configs import device_dtype
 from ..ops.cwt_cuda import cwt_bins, cwt_fused
 from ..ops.diff import trigdiff
 from ..ops.phase import phase_cwt, phase_cwt_num
-from ..ops.ssq_cuda import scatter_kv, scatter_rule, ssq_fused
-from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
+from ..ops import ssq_cuda
+from ..ops.ssq_cuda import scatter_kv, ssq_fused
+from ..ops.ssq_kernels import (indexed_sum_onfly, scatter_general,
+                               ssq_bin_params, ssq_fused_general)
 from ..utils.common import (EPS32, EPS64, check_batch, numpy_unless_grad,
                             p2up, resolve_device)
 from ..utils.cwt_utils import (process_scales, adm_ssq, _process_fs_and_t,
                                infer_scaletype, nv_from_scales)
 from ..utils.plan_cache import disk_memo
 from .cwt import (cwt, cwt_general, cwt_spectrum, padded_length,
-                  padded_signal, resolve_wavelet, _is_custom, _kernel_route,
+                  padded_signal, resolve_wavelet, _is_custom, _public_route,
                   _wavelet_key)
 from .wavelets import Wavelet
 from .ssqueezing import (_apply_squeezing, _check_ssqueezing_args,
@@ -232,10 +238,10 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
                                      device)
 
     nbins = params['omax'] + 1
-    scatter_rule(nbins, 2 * np.dtype(dtype).itemsize)
     xt = torch.as_tensor(x, dtype=getattr(torch, dtype), device=device)
     xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
-    kernel = _kernel_route(wavelet, padded_length(N, padtype))
+    kernel = _public_route(wavelet, padded_length(N, padtype), xt, 2)
+    fits = ssq_cuda.scatter_fits(nbins, 2 * xt.element_size())
     higher = isinstance(order, (tuple, list, range)) or order > 0
     dWx = None
     if higher:
@@ -294,11 +300,14 @@ def ssq_cwt(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
         if not higher:
             Wx, dWx = planes(n1, N)
         Wx, dWx = Wx.contiguous(), dWx.contiguous()
-        Tx = ssq_fused(Wx, dWx, const_t, params, gamma, flipud)
+        Tx = (ssq_fused if fits else ssq_fused_general)(
+            Wx, dWx, const_t, params, gamma, flipud)
     else:
         Wx, k = cwt_bins(xh, scales_t, wavelet, n_up, n1, N, dt, True,
                          params, gamma, flipud)
-        Tx = scatter_kv(_apply_squeezing(Wx, squeezing), k, const_t, nbins)
+        Wx_s = _apply_squeezing(Wx, squeezing)
+        Tx = (scatter_kv(Wx_s, k, const_t, nbins) if fits else
+              scatter_general(Wx_s, k, k >= 0, nbins, const_t))
     if not get_Wx:
         Wx = None
 

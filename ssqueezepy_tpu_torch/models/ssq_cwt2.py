@@ -17,17 +17,22 @@ runs instead, then `_apply_squeezing` on W -> the generic scatter by the
 bins of w2 (`ops/ssq_kernels.py::indexed_sum_onfly`), as the JAX
 package's XLA path runs it, and w2 is returned. A (B, N) batch runs each
 kernel once over the batch. At a padded length with a prime factor above
-7 (`padtype=None` at an N such as 1031; `ops/cwt_cuda.py::kernel_length`,
-decided before anything runs) the general route `wsst2_general` runs in
-the kernel's place: the JAX package's XLA branch `_wsst2_rows`, by
-torch.fft (`ops/cwt_cuda.py::wsst2_rows`), then `_apply_squeezing` on W
-and the generic scatter by the bins of w2, for one signal or a batch,
-with or without `get_w`. Every wavelet that the JAX package's
-`_supports_order2` accepts runs there: an analytic wavelet, or one whose
-spectrum is below 1e-12 on [-20, 0] (morlet, a user's callable), with a
-real-valued spectrum that torch autograd differentiates twice; the order-0
-GMW is synthesized in the kernel, any other wavelet read from its
-three-plane table (`ops/cwt_cuda.py::wavelet_table`). Another raises with
+7 (`padtype=None` at an N such as 1031; `ops/cwt_cuda.py::kernel_length`)
+or past the kernel's rule for five planes (`ops/cwt_cuda.py::
+cwt_kernel_fits`; n_up beyond 2^22 in float64), decided before anything
+runs, the general route `wsst2_general` runs in the kernel's place: the
+JAX package's XLA branch `_wsst2_rows`, by torch.fft (`ops/cwt_cuda.py::
+wsst2_rows`) in row blocks of at most 2 GiB per intermediate
+(`utils/common.py::row_blocks`), then `_apply_squeezing` on W and the
+generic scatter by the bins of w2, for one signal or a batch, with or
+without `get_w`. Bins past the reassignment kernels' rule
+(`ops/ssq_cuda.py::scatter_fits`) take `ops/ssq_kernels.py::
+scatter_general` in the scatter's place. Every wavelet that the JAX
+package's `_supports_order2` accepts runs there: an analytic wavelet, or
+one whose spectrum is below 1e-12 on [-20, 0] (morlet, a user's
+callable), with a real-valued spectrum that torch autograd differentiates
+twice; the order-0 GMW is synthesized in the kernel, any other wavelet
+read from its three-plane table (`ops/cwt_cuda.py::wavelet_table`). Another raises with
 the JAX package's message. Inversion is `issq_cwt`: reassignment only
 moves energy within a column.
 """
@@ -35,12 +40,13 @@ import numpy as np
 import torch
 
 from ..configs import device_dtype
-from ..ops.cwt_cuda import (cwt_bins2, cwt_w2, kernel_length, wsst2_rows,
-                             _wavelet_derivatives)
+from ..ops import cwt_cuda, ssq_cuda
+from ..ops.cwt_cuda import cwt_bins2, cwt_w2, wsst2_rows, _wavelet_derivatives
 from ..ops.fft import rfft
-from ..ops.ssq_cuda import scatter_kv, scatter_rule
-from ..ops.ssq_kernels import indexed_sum_onfly
-from ..utils.common import EPS32, EPS64, check_batch, resolve_device
+from ..ops.ssq_cuda import scatter_kv
+from ..ops.ssq_kernels import indexed_sum_onfly, scatter_general
+from ..utils.common import (EPS32, EPS64, check_batch, resolve_device,
+                            row_blocks)
 from ..utils.cwt_utils import _process_fs_and_t
 from .cwt import (cwt_spectrum, padded_length, padded_signal,
                   resolve_wavelet, _is_analytic, _is_custom, _wavelet_key)
@@ -95,11 +101,21 @@ def wsst2_general(xt, padtype, scales, wavelet, N, dt, gamma):
     kernel's lengths: padded by `padtype` (none for None), its half
     spectrum by `torch.fft.rfft`, then the torch WSST2 rows
     (`ops/cwt_cuda.py::wsst2_rows`, the JAX package's `_wsst2_rows`) on
-    xt's device at any n_up. Counts its calls on
-    `wsst2_general.calls`."""
+    xt's device at any n_up, its scales in row blocks that keep the five
+    banks within 2 GiB (`utils/common.py::row_blocks`; each row is
+    computed as in one block, its wavelet table with it). Counts its
+    calls on `wsst2_general.calls`."""
     wsst2_general.calls += 1
     xp, n_up, n1 = padded_signal(xt, padtype)
-    return wsst2_rows(rfft(xp), scales, wavelet, n_up, n1, N, dt, gamma)
+    xh = rfft(xp)
+    W = torch.empty(xt.shape[:-1] + (len(scales), N), dtype=xh.dtype,
+                    device=xt.device)
+    w2 = torch.empty(W.shape, dtype=xt.dtype, device=xt.device)
+    for lo, hi in row_blocks(len(scales), 5 * xh[..., :1].numel() * n_up
+                             * xh.element_size()):
+        W[..., lo:hi, :], w2[..., lo:hi, :] = wsst2_rows(
+            xh, scales[lo:hi], wavelet, n_up, n1, N, dt, gamma)
+    return W, w2
 
 
 wsst2_general.calls = 0
@@ -109,19 +125,25 @@ def wsst2_tx(xt, padtype, scales, wavelet, N, dt, gamma, params, flipud,
              squeeze, const, get_w=False):
     """(Tx, W, w2) of the real signal or (B, N) batch `xt`, on the route
     its padded length takes (decided before anything runs): a 7-smooth
-    n_up runs the WSST2 kernel, in its bins mode then the reassignment
-    scatter on `squeeze(W)`, or with `get_w` in its w2 mode; any other
-    n_up runs `wsst2_general`. w2 then feeds the generic scatter by its
-    bins; it is None on the bins mode."""
+    n_up that fits the kernel's rule for five planes runs the WSST2
+    kernel, in its bins mode then the reassignment scatter on
+    `squeeze(W)` (`scatter_general` past the scatters' rule), or with
+    `get_w` in its w2 mode; any other n_up runs `wsst2_general`. w2 then
+    feeds the generic scatter by its bins; it is None on the bins
+    mode."""
     nbins = params['omax'] + 1
-    if not kernel_length(padded_length(N, padtype)):
+    if not cwt_cuda.cwt_kernel_fits(padded_length(N, padtype),
+                                    2 * xt.element_size(), 5):
         W, w2 = wsst2_general(xt, padtype, scales, wavelet, N, dt, gamma)
     else:
         xh, n_up, n1 = cwt_spectrum(xt, padtype, 5)
         if not get_w:
             W, k = cwt_bins2(xh, scales, wavelet, n_up, n1, N, dt, params,
                              gamma, flipud)
-            return scatter_kv(squeeze(W), k, const, nbins), W, None
+            if ssq_cuda.scatter_fits(nbins, W.element_size()):
+                return scatter_kv(squeeze(W), k, const, nbins), W, None
+            return scatter_general(squeeze(W), k, k >= 0, nbins,
+                                   const), W, None
         W, w2 = cwt_w2(xh, scales, wavelet, n_up, n1, N, dt, gamma)
     Tx = indexed_sum_onfly(squeeze(W), w2, None, const, params=params,
                            flipud=flipud, device=xt.device)
@@ -169,8 +191,6 @@ def ssq_cwt2(x, wavelet='gmw', scales='log-piecewise', nv=None, fs=None,
     scales_t, const_t = _device_plan(key, plan.scales, plan.const, dtype,
                                      device)
 
-    nbins = params['omax'] + 1
-    scatter_rule(nbins, 2 * np.dtype(dtype).itemsize)
     Tx, Wx, w2 = wsst2_tx(
         _as_signal(x, dtype, device), padtype, scales_t, wavelet, N, dt,
         float(gamma), params, flipud,

@@ -22,10 +22,22 @@ scatter by the bins of w2, as the JAX package's XLA path runs it. A
 (B, N) batch runs every kernel once over the batch (its rows b * n_rows
 + i in the table kernel, a batch axis in the scatters). On a CUDA device
 the kernels are the hand-written CUDA ones; with ``device='cpu'`` their
-plain PyTorch versions run. Both check the bins against the scatters'
-rule (`ops/ssq_cuda.py::scatter_rule`) and, at hop 1, the transform
-length against the table kernel's (`models/stft.py::signal_spectrum`),
-on every device before the transform.
+plain PyTorch versions run.
+
+Both decide on every device, before the transform, whether the kernels
+take the call: the bins must fit the scatters' rule (`ops/ssq_cuda.py::
+scatter_fits`) and, at hop 1, the transform length the table kernel's
+(`models/stft.py::stft_kernel_route`). At hop 1 past either, the STFT
+runs on the general route: `models/stft.py::stft_general` (Sx, dSx) for
+`ssq_stft`, fed to the reassignment of its hop > 1 route, and
+`fsst2_general` (the torch FSST2 rows on the bank, block by block) for
+`ssq_stft2`, then the bin map of w2 and the generic scatter. (An STFT
+with more bins than the scatters take, n_fft beyond ~51200, has window
+tables of 25601 x 51200 complex elements and more, which the kernel's
+route holds whole; the general route builds them per row block.) Bins
+past the scatters' rule take `ops/ssq_kernels.py::scatter_general` in
+the scatter's place (after the torch phase transform and bin map in
+B4's: `ssq_fused_general`).
 """
 import collections
 
@@ -34,20 +46,23 @@ import torch
 
 from ..configs import default_dtype
 from ..ops.phase import phase_stft
-from ..ops.ssq_cuda import scatter_kv, scatter_rule, ssq_fused
-from ..ops.ssq_kernels import indexed_sum_onfly, ssq_bin_params
-from ..ops.stft_conv import fsst2_tables, stft_tables
-from ..ops.stft_cuda import fsst2_conv, fsst2_w, stft_conv
+from ..ops import ssq_cuda
+from ..ops.ssq_cuda import scatter_kv, ssq_fused
+from ..ops.ssq_kernels import (indexed_sum_onfly, ssq_bin_params,
+                               ssq_fused_general)
+from ..ops.stft_conv import fsst2_tables, stft_tables, table_rows
+from ..ops.stft_cuda import fsst2_conv, fsst2_rows, fsst2_w, stft_conv
 from ..utils.common import (WARN, EPS32, EPS64, check_batch,
-                            numpy_unless_grad, resolve_device)
+                            numpy_unless_grad, resolve_device, row_blocks)
 from ..utils.cwt_utils import _process_fs_and_t, infer_scaletype
 from .ssq_cwt import (_invert_components, _process_component_inversion_args,
                       _spec_key)
 from .ssqueezing import _apply_squeezing, _check_ssqueezing_args
-from .stft import _as_signal, signal_spectrum, stft
+from .stft import (_as_signal, _spectrum, signal_spectrum, stft,
+                   stft_general, stft_kernel_route)
 from .windows import get_window, _check_NOLA
 
-__all__ = ['ssq_stft', 'issq_stft', 'ssq_stft2']
+__all__ = ['ssq_stft', 'issq_stft', 'ssq_stft2', 'fsst2_general']
 
 # window, diff_window (numpy, length n_fft); Sfs (n_rows,) and ssq_freqs
 # (nbins,) numpy; const: the squeeze constant; params: the 'lin' bin map
@@ -117,11 +132,10 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     and dSx like Sx with `get_dWx=True`.
     `squeezing` is 'sum', 'lebesgue', 'abs' or a function of Sx.
     `ssq_freqs` may be a user's linear grid (numpy). The scatter keeps a
-    shared-memory accumulator of nbins rows per block, so nbins is bounded
-    (25600 in float32, 12800 in float64: n_fft up to ~51200 or ~25600;
-    beyond it raises on every device, `ops/ssq_cuda.py::scatter_rule`),
-    and at hop 1 the transform length N + n_fft - 1 by the table kernel's
-    rule (up to 2^22)."""
+    shared-memory accumulator of nbins rows per block (25600 in float32,
+    12800 in float64: n_fft up to ~51200 or ~25600), and at hop 1 the
+    table kernel takes transform lengths N + n_fft - 1 up to 2^22; past
+    either the call runs on the general route (module docstring)."""
     ndim = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
     check_batch(ndim, get_w)
     device = resolve_device(device)
@@ -145,11 +159,19 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
 
     dSx = w = None
     nbins = plan.params['omax'] + 1
-    scatter_rule(nbins, 2 * np.dtype(dtype).itemsize)
-    if int(hop_len) != 1 or get_dWx or get_w:
-        Sx, dSx = stft(x, window, n_fft, win_len, hop_len, fs, t, padtype,
-                       modulated, derivative=True, dtype=dtype,
-                       device=device)
+    fits = ssq_cuda.scatter_fits(nbins, 2 * np.dtype(dtype).itemsize)
+    hop1 = int(hop_len) == 1
+    general = hop1 and not (fits and stft_kernel_route(N, n_fft, dtype, 2))
+    if general or not hop1 or get_dWx or get_w:
+        if general:
+            Sx, dSx = stft_general(_as_signal(x, dtype, device),
+                                   [plan.window, plan.diff_window], n_fft,
+                                   padtype, modulated)
+            dSx.mul_(fs_)
+        else:
+            Sx, dSx = stft(x, window, n_fft, win_len, hop_len, fs, t,
+                           padtype, modulated, derivative=True,
+                           dtype=dtype, device=device)
         Sx, dSx = Sx.contiguous(), dSx.contiguous()
         if get_w or squeezing != 'sum':
             w = phase_stft(Sx, dSx, Sfs_t, gamma)
@@ -157,10 +179,12 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
                                    const_t, params=plan.params,
                                    flipud=flipud, device=device)
         else:
-            Tx = ssq_fused(Sx, dSx, const_t, plan.params, float(gamma),
-                           bool(flipud), Sfs_t)
+            Tx = (ssq_fused if fits else ssq_fused_general)(
+                Sx, dSx, const_t, plan.params, float(gamma), bool(flipud),
+                Sfs_t)
     else:
-        xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype, 2)
+        xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype,
+                             2)
         Np2 = xh.shape[-1]
         H, Hd = stft_tables(plan.window, plan.diff_window, n_fft, Np2,
                             modulated, dtype, device)
@@ -276,9 +300,17 @@ def ssq_stft2(x, window=None, n_fft=None, win_len=None, fs=None, t=None,
     plan = fsst2_plan(window, ssq_freqs, n_fft, win_len, fs_, dtype)
     Sfs_t, const_t = _device_consts(plan, dtype, device)
     nbins = plan.params['omax'] + 1
-    scatter_rule(nbins, 2 * np.dtype(dtype).itemsize)
+    xt = _as_signal(x, dtype, device)
+    if not (ssq_cuda.scatter_fits(nbins, 2 * xt.element_size())
+            and stft_kernel_route(N, n_fft, dtype, 5)):
+        Sx, w2 = fsst2_general(xt, plan.bank, n_fft, padtype, modulated,
+                               float(fs_), Sfs_t, float(gamma))
+        Tx = indexed_sum_onfly(_apply_squeezing(Sx, squeezing), w2, None,
+                               const_t, params=plan.params, flipud=flipud,
+                               device=device)
+        return _ssq_stft2_out(Tx, Sx, w2, plan, flipud, astensor, get_w)
 
-    xh = signal_spectrum(_as_signal(x, dtype, device), n_fft, padtype, 5)
+    xh = signal_spectrum(xt, n_fft, padtype, 5)
     tables = fsst2_tables(plan.bank, n_fft, xh.shape[-1], modulated, dtype,
                           device)
     if get_w:
@@ -291,7 +323,13 @@ def ssq_stft2(x, window=None, n_fft=None, win_len=None, fs=None, t=None,
                     flipud=bool(flipud))
         Sx, k = fsst2_conv(xh, tables, N, float(fs_), bins)
         Tx = scatter_kv(_apply_squeezing(Sx, squeezing), k, const_t, nbins)
+        w2 = None
+    return _ssq_stft2_out(Tx, Sx, w2, plan, flipud, astensor, get_w)
 
+
+def _ssq_stft2_out(Tx, Sx, w2, plan, flipud, astensor, get_w):
+    """`ssq_stft2`'s outputs: (Tx, Sx, ssq_freqs, Sfs[, w2]), numpy
+    without `astensor`."""
     ssq_freqs_out = (np.asarray(plan.ssq_freqs)[::-1].copy() if flipud
                      else np.asarray(plan.ssq_freqs))
     if not astensor:
@@ -300,3 +338,33 @@ def ssq_stft2(x, window=None, n_fft=None, win_len=None, fs=None, t=None,
         return Tx, Sx, ssq_freqs_out, plan.Sfs, (
             w2.cpu().numpy() if not astensor else w2)
     return Tx, Sx, ssq_freqs_out, plan.Sfs
+
+
+def fsst2_general(xt, bank, n_fft, padtype, modulated, fs, Sfs, gamma):
+    """(V, w2) of the second-order STFT of the real signal or (B, N)
+    batch `xt`, hop 1, for transform lengths or bins past the kernels'
+    rules: the JAX package's XLA branch (`_fsst2_rows` after its full
+    bank of tables) on torch ops. The spectrum of the signal padded to
+    N + n_fft - 1 at `next_fft_len` of that, then per block of rows the
+    five windows' full tables (`ops/stft_conv.py::table_rows`, built on
+    xt's device per block) and the FSST2 rows of `ops/stft_cuda.py::
+    fsst2_rows` with the block's `Sfs`; row blocks keep each
+    intermediate within 2 GiB (`utils/common.py::row_blocks`). Counts
+    its calls on `fsst2_general.calls`."""
+    fsst2_general.calls += 1
+    N = xt.shape[-1]
+    xh = _spectrum(xt, n_fft, padtype)
+    Np2, n_rows = xh.shape[-1], n_fft // 2 + 1
+    V = torch.empty(xt.shape[:-1] + (n_rows, N), dtype=xh.dtype,
+                    device=xt.device)
+    w2 = torch.empty(V.shape, dtype=xt.dtype, device=xt.device)
+    for lo, hi in row_blocks(n_rows, len(bank) * xh[..., :1].numel() * Np2
+                             * 16):
+        tables = table_rows(bank, n_fft, Np2, modulated, lo, hi, xh.dtype,
+                            xt.device)
+        V[..., lo:hi, :], w2[..., lo:hi, :] = fsst2_rows(
+            xh, tables, N, fs, Sfs[lo:hi], gamma)
+    return V, w2
+
+
+fsst2_general.calls = 0

@@ -10,7 +10,9 @@ squeezing through the fused phase + bins + scatter kernel
 (`ops/ssq_kernels.py::ssqueeze_fast`); from a precomputed `w`, or with
 'lebesgue', 'abs' or a callable squeezing, it takes the phase transform
 of the raw Wx and scatters the squeezed values through the generic
-scatter (`ops/ssq_kernels.py::indexed_sum_onfly`).
+scatter (`ops/ssq_kernels.py::indexed_sum_onfly`). Past the reassignment
+kernels' rule on the bins both take `ops/ssq_kernels.py::
+scatter_general` in the scatter's place.
 """
 from types import FunctionType
 
@@ -18,7 +20,6 @@ import numpy as np
 import torch
 
 from ..ops.phase import phase_transform_w
-from ..ops.ssq_cuda import scatter_rule
 from ..ops.ssq_kernels import indexed_sum_onfly, ssqueeze_fast
 from ..utils.common import (NOTE, WARN, pi, p2up, assert_is_one_of,
                             resolve_device, to_device)
@@ -97,7 +98,6 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
 
     logscale = bool(ssq_scaletype.startswith('log'))
     Sfs = Sfs if transform == 'stft' else None
-    scatter_rule(len(ssq_freqs), 2 * Wx.real.element_size())
     if w is None and squeezing == 'sum':
         Tx = ssqueeze_fast(Wx, dWx, ssq_freqs, const, logscale, flipud,
                            gamma, Sfs=Sfs, device=device)

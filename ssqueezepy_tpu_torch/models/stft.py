@@ -15,8 +15,12 @@ each frame is transformed as in a one-signal call, whatever the batch
 and the CPU's thread count. A (B, N) batch
 runs as one call: the table kernel over its B spectra, or the framed
 path over its B signals. At hop 1 the transform length is checked
-against the table kernel's rule (`ops/stft_cuda.py::stft_length_rule`)
-on every device before the signal's FFT. The inverse is
+against the table kernel's rule (`ops/stft_cuda.py::stft_kernel_fits`)
+on every device before the signal's FFT; past it the call takes
+`stft_general`, the JAX package's XLA branch (`_stft_conv_jit`): the
+same row products with the full tables, built on the device block by
+block (`ops/stft_conv.py::table_rows`), and `torch.fft.ifft`, in row
+blocks of at most 2 GiB per intermediate. The inverse is
 irfft -> fftshift -> windowed overlap-add -> window-norm divide -> unpad,
 on the tensor's device.
 """
@@ -29,13 +33,15 @@ from ..configs import default_dtype
 from ..ops.fft import fft, irfft, fftshift, ifftshift, next_fft_len
 from ..ops.framing import frame_rows, overlap_add, window_norm
 from ..ops.pad import padsignal
-from ..ops.stft_conv import stft_tables
+from ..ops.stft_conv import stft_tables, table_rows
+from ..ops import stft_cuda
 from ..ops.stft_cuda import stft_conv, stft_length_rule
-from ..utils.common import check_batch, numpy_unless_grad, resolve_device
+from ..utils.common import (check_batch, numpy_unless_grad, resolve_device,
+                            row_blocks)
 from ..utils.cwt_utils import _process_fs_and_t
 from .windows import get_window, _check_NOLA
 
-__all__ = ['stft', 'istft']
+__all__ = ['stft', 'istft', 'stft_general']
 
 
 def _as_signal(x, dtype, device):
@@ -51,11 +57,57 @@ def signal_spectrum(xt, n_fft, padtype, planes=1):
     kernel's transform length `next_fft_len(N + n_fft - 1)`, which is
     checked first against the kernel's length rule for the route's
     `planes` (1: Sx; 2: Sx and dSx, or bins; 5: FSST2)."""
+    stft_length_rule(next_fft_len(xt.shape[-1] + n_fft - 1),
+                     2 * xt.element_size(), planes)
+    return _spectrum(xt, n_fft, padtype)
+
+
+def _spectrum(xt, n_fft, padtype):
+    """`signal_spectrum` without the kernel's rule (the general routes)."""
     padlength = xt.shape[-1] + n_fft - 1
-    Np2 = next_fft_len(padlength)
-    stft_length_rule(Np2, 2 * xt.element_size(), planes)
     xp = padsignal(xt, padtype, padlength=padlength)
-    return fft(xp, n=Np2).contiguous()
+    return fft(xp, n=next_fft_len(padlength)).contiguous()
+
+
+def stft_kernel_route(N, n_fft, dtype, planes):
+    """Whether the hop-1 STFT of a length-N signal in `dtype` ('float32'
+    or 'float64') runs the table kernel: its transform length fits the
+    kernel's rule for `planes` planes of the complex type
+    (`ops/stft_cuda.py::stft_kernel_fits`); else the general route.
+    Decided before the signal's FFT."""
+    return stft_cuda.stft_kernel_fits(next_fft_len(N + n_fft - 1),
+                                      2 * np.dtype(dtype).itemsize, planes)
+
+
+def stft_general(xt, windows, n_fft, padtype, modulated):
+    """The hop-1 STFT rows of the real signal or (B, N) batch `xt` with
+    each window of `windows` (numpy (n_w, n_fft)): the JAX package's XLA
+    branch `_stft_conv_jit` on torch ops, for transform lengths past the
+    table kernel's rule. The spectrum of the signal padded to N + n_fft -
+    1 at `next_fft_len` of that, times each block of rows of the windows'
+    full tables (`ops/stft_conv.py::table_rows`, built on xt's device per
+    block), then `torch.fft.ifft` kept to [0, N); row blocks keep each
+    intermediate within 2 GiB (`utils/common.py::row_blocks`). Returns
+    one (n_fft//2 + 1, N) or (B, n_fft//2 + 1, N) complex tensor per
+    window. Counts its calls on `stft_general.calls`."""
+    stft_general.calls += 1
+    N = xt.shape[-1]
+    xh = _spectrum(xt, n_fft, padtype)[..., None, :]
+    Np2 = xh.shape[-1]
+    n_w, n_rows = len(windows), n_fft // 2 + 1
+    out = [torch.empty(xt.shape[:-1] + (n_rows, N), dtype=xh.dtype,
+                       device=xt.device) for _ in range(n_w)]
+    # per row: the complex128 tables and their products with each signal
+    for lo, hi in row_blocks(n_rows, n_w * xh[..., :1].numel() * Np2 * 16):
+        H = table_rows(windows, n_fft, Np2, modulated, lo, hi, xh.dtype,
+                       xt.device)
+        for q in range(n_w):
+            out[q][..., lo:hi, :] = torch.fft.ifft(H[q] * xh,
+                                                   dim=-1)[..., :N]
+    return out
+
+
+stft_general.calls = 0
 
 
 def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
@@ -80,7 +132,12 @@ def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     _check_NOLA(window, hop_len, dtype)
     xt = _as_signal(x, dtype, device)
 
-    if int(hop_len) == 1:
+    if int(hop_len) == 1 and not stft_kernel_route(
+            N, n_fft, dtype, 2 if derivative else 1):
+        planes = stft_general(xt, [window, diff_window][:1 + derivative],
+                              n_fft, padtype, modulated)
+        Sx, dSx = planes[0], planes[1].mul_(fs_) if derivative else None
+    elif int(hop_len) == 1:
         xh = signal_spectrum(xt, n_fft, padtype, 2 if derivative else 1)
         Np2 = xh.shape[-1]
         H, Hd = stft_tables(window, diff_window, n_fft, Np2, modulated,

@@ -9,13 +9,14 @@ names, `DEFAULT_*` settings, `make_signals` grammar (``#``-reflection,
 ``carrier:am``) and `get_params` output, so the same N, snr and seed
 give bit-identical signals. Pure numpy and scipy: signals are made on
 the host. The drawing methods (`demo`, `test_transforms`, `wavcomp`,
-`cwt_vs_stft`, `ridgecomp`) wait for the visuals (ROADMAP.md queue A,
-A12b) and raise.
+`cwt_vs_stft`, `ridgecomp`) draw through `visuals`; those that run a
+transform run the port's on `device` ('cuda' unless the caller passes
+'cpu').
 """
 import numpy as np
 import scipy.signal as sig
 
-from ..utils.common import WARN, not_ported, pi
+from ..utils.common import WARN, pi
 
 __all__ = ['TestSignals']
 
@@ -433,32 +434,95 @@ class TestSignals():
         xs = [v[0] for v in data.values()]
         return xs[0] if len(xs) == 1 else xs
 
-    # ---- demo / comparison plots (visual) ---------------------------------
+    # ---- demo / comparison drivers (visual) -------------------------------
     def demo(self, signals='all', N=None, dft=None):
         """Plot waveforms (and optionally DFTs) of `signals`."""
-        not_ported("TestSignals.demo (matplotlib visuals)", 'A12b')
+        from .. import visuals
+        if dft not in (None, 'rows', 'cols'):
+            raise ValueError(f"`dft` must be 'rows', 'cols', or None "
+                             f"(got {dft})")
+        for name, (x, t, (fp, ap)) in self.make_signals(
+                signals, N, get_params=True).items():
+            title = self._title(name, len(x), fp, ap)
+            if dft:
+                visuals.plots([t, None], [x, np.abs(np.fft.rfft(x))],
+                              pkw=[{'title': title},
+                                   {'title': f"rDFT({name})"}], show=1)
+            else:
+                visuals.plot(t, x, show=1, title=title)
 
     def test_transforms(self, fn, signals='all', N=None):
         """Apply `fn(x, t, (name, fparams, aparams))` to every signal and
         imshow returned transforms."""
-        not_ported("TestSignals.test_transforms (matplotlib visuals)",
-                   'A12b')
+        from .. import visuals
+        for name, (x, t, (fp, ap)) in self.make_signals(
+                signals, N, get_params=True).items():
+            out = fn(x, t, (name, fp, ap))
+            if out is None:
+                continue
+            out, pkw = out
+            pkw = dict(pkw)
+            pkw.setdefault('title', self._title(name, len(x), fp, ap))
+            pkw.setdefault('abs', 1)
+            pkw.setdefault('show', 1)
+            for o in (out if isinstance(out, (tuple, list)) else [out]):
+                visuals.imshow(o, **pkw)
 
     def wavcomp(self, wavelets, signals='all', N=None, w=None, h=None,
-                tight_kw=None):
-        """Compare CWTs under different wavelets (draws)."""
-        not_ported("TestSignals.wavcomp (matplotlib visuals)", 'A12b')
+                tight_kw=None, device='cuda'):
+        """Compare synchrosqueezed CWTs under different wavelets (draws),
+        each computed on `device`."""
+        from .ssq_cwt import ssq_cwt
+
+        def fn(x, t, params):
+            return [np.abs(ssq_cwt(x, wav, astensor=False,
+                                   device=device)[0])
+                    for wav in wavelets], {}
+        self.test_transforms(fn, signals, N)
 
     def cwt_vs_stft(self, wavelet, window, signals='all', N=None,
                     win_len=None, n_fft=None, window_name=None,
-                    config_str='', w=None, h=None):
-        """Compare SSQ-CWT vs SSQ-STFT side by side (draws)."""
-        not_ported("TestSignals.cwt_vs_stft (matplotlib visuals)", 'A12b')
+                    config_str='', w=None, h=None, device='cuda'):
+        """Compare SSQ-CWT and SSQ-STFT side by side (draws), each
+        computed on `device`."""
+        from .ssq_cwt import ssq_cwt
+        from .ssq_stft import ssq_stft
+
+        def fn(x, t, params):
+            Tx_c = ssq_cwt(x, wavelet, astensor=False, device=device)[0]
+            Tx_s = ssq_stft(x, window, n_fft=n_fft, win_len=win_len,
+                            astensor=False, device=device)[0]
+            return [np.abs(Tx_c), np.abs(Tx_s)], {}
+        self.test_transforms(fn, signals, N)
 
     def ridgecomp(self, transform='cwt', signals='all', N=None, n_ridges=2,
-                  penalty=20, **transform_kw):
-        """Ridge extraction comparison across signals (draws)."""
-        not_ported("TestSignals.ridgecomp (matplotlib visuals)", 'A12b')
+                  penalty=20, device='cuda', **transform_kw):
+        """Ridge extraction across signals (draws): the synchrosqueezed
+        CWT or STFT and `extract_ridges` of its transform, on
+        `device`."""
+        from .ssq_cwt import ssq_cwt
+        from .ssq_stft import ssq_stft
+        from .ridge_extraction import extract_ridges
+        from .. import visuals
+
+        for name, (x, t, _) in self.make_signals(
+                signals, N, get_params=True).items():
+            if transform == 'cwt':
+                Tx, Wx, _, scales = ssq_cwt(x, astensor=False, device=device,
+                                            **transform_kw)[:4]
+                ridges = extract_ridges(Wx, scales, penalty=penalty,
+                                        n_ridges=n_ridges, transform='cwt',
+                                        device=device)
+            else:
+                Tx, Sx, _, Sfs = ssq_stft(x, astensor=False, device=device,
+                                          **transform_kw)[:4]
+                ridges = extract_ridges(Sx, Sfs, penalty=penalty,
+                                        n_ridges=n_ridges, transform='stft',
+                                        device=device)
+            visuals.imshow(Tx, abs=1, show=0, title=name)
+            for r in ridges.T:
+                visuals.plot(r, color='r', show=0)
+            visuals.plot([], show=1)
 
     @classmethod
     def _title(cls, signal, N, fparams, aparams, wrap_len=70):

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from scipy import integrate
 
-from ..utils.common import pi, NOTE, assert_is_one_of, not_ported
+from ..utils.common import pi, NOTE, assert_is_one_of
 from ..configs import default_dtype, gdefaults
 from ..ops.search import find_maximum
 from .gmw import gmw as _gmw_factory
@@ -38,6 +38,20 @@ def _xifn(scale, N, dtype=np.float64):
     xi[:m + 1] = np.arange(m + 1) * h
     xi[m + 1:] = np.arange(m + 1 - N, 0) * h
     return xi
+
+
+def _xi_grid(N, dtype, device, half=False):
+    """`_xifn(1., N)` as a tensor of `dtype` made on `device` (its first
+    N//2 + 1 entries with `half`): the same float64 products of integers
+    and 2 pi / N, then cast, so the same values, with no host array and
+    no copy to the device (at the general routes' lengths, 10^7 points,
+    the host array costs more than the transform)."""
+    m = N // 2
+    k = torch.arange(m + 1 if half else N, dtype=torch.float64,
+                     device=device)
+    if not half:
+        k[m + 1:] -= N
+    return (k * ((2 * pi) / N)).to(dtype)
 
 
 def _asarray(w, xp):
@@ -404,7 +418,11 @@ class Wavelet:
                    std_t * std_w))
 
     def viz(self, name='overview', **kw):
-        not_ported("Wavelet.viz (the visuals module)", 'A12')
+        """Draw the wavelet (`visuals.wavelet_viz`: 'overview',
+        'heatmap', 'waveforms', 'filterbank', 'harea', 'std_t', 'std_w',
+        'time-frequency', 'anim:time-frequency')."""
+        from .. import visuals
+        visuals.wavelet_viz(self, name, **kw)
 
     def _desc(self, N=None, scale=None, show_N=True):
         ptxt = ("" if self.config_str == "Default configs" else

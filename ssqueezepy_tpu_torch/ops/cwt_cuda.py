@@ -52,7 +52,9 @@ wrapper, and by the models before the signal's FFT): `four_step` takes
 the 7-smooth n_up (`kernel_length`; another raises, and the public entry
 points route such lengths to the general path before anything runs) and
 `bins_plan` sizes either engine for the mode's planes, one column per
-block at most `_SMEM_MAX` bytes (beyond it raises naming C1b).
+block at most `_SMEM_MAX` bytes (beyond it raises naming C1b). The
+public entry points ask `cwt_kernel_fits` first and take the general
+path past the rule.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors. Where autograd records and xh or the scales
@@ -82,7 +84,7 @@ import weakref
 import numpy as np
 import torch
 
-from ..models.wavelets import _xifn
+from ..models.wavelets import _xi_grid, _xifn
 from ..utils.common import not_ported
 from . import _build
 from .adjoint import Adjoint, needs_grad
@@ -92,9 +94,9 @@ from .phase import cdiv, cmul, div_tiny
 __all__ = ['cwt_bins', 'cwt_bins_plain', 'cwt_fused', 'cwt_fused_plain',
            'cwt_bins2', 'cwt_bins2_plain', 'cwt_w2', 'wsst2_rows',
            'wavelet_table', 'kernel_length', 'four_step', 'bins_plan',
-           'cwt_length_rule', 'stage1_rows', 'support_klims', 'table_klims',
-           'smem_index', 'swz', 'CwtBinsGrad', 'CwtFusedGrad',
-           'CwtBins2Grad', 'CwtW2Grad']
+           'cwt_length_rule', 'cwt_kernel_fits', 'stage1_rows',
+           'support_klims', 'table_klims', 'smem_index', 'swz',
+           'CwtBinsGrad', 'CwtFusedGrad', 'CwtBins2Grad', 'CwtW2Grad']
 
 _MODES = {'lin': 0, 'log': 1, 'log-piecewise': 2}
 # stage-1 scratch held at once (all planes); rows are chunked beyond it
@@ -262,6 +264,19 @@ def cwt_length_rule(n_up, itemsize, planes):
     return bins_plan(int(n_up), int(itemsize), int(planes))
 
 
+def cwt_kernel_fits(n_up, itemsize, planes):
+    """Whether `cwt_length_rule` admits n_up for `planes` planes of
+    `itemsize`-byte complex elements (False at a length with a prime
+    factor above 7 too). The public entry points ask it before the
+    signal's FFT and take the general route where it is False; the
+    wrappers keep the rule, and raise past it."""
+    try:
+        cwt_length_rule(n_up, itemsize, planes)
+    except NotImplementedError:
+        return False
+    return True
+
+
 def _wavelet_derivatives(fn, w):
     """(psih, psih', psih'') of the elementwise wavelet fn at `w`: the
     closed form `fn.derivatives` where the fn has one, else torch autograd
@@ -304,9 +319,7 @@ def wavelet_table(wavelet, scales, n_up, order2=False, memo=False):
         if hit is not None and hit[0] is scales:
             _TABLES.move_to_end(key)
             return hit[1]
-    half = n_up // 2 + 1
-    xi = torch.as_tensor(_xifn(1., n_up)[:half], dtype=scales.dtype,
-                         device=scales.device)
+    xi = _xi_grid(n_up, scales.dtype, scales.device, half=True)
     w = scales.reshape(-1, 1) * xi
     if order2:
         table = torch.stack(_wavelet_derivatives(wavelet.fn, w))
@@ -720,9 +733,7 @@ def wsst2_rows(xh, scales, wavelet, n_up, n1, N, dt, gamma, table=None):
     divides) and w2 = |Im p1| / (2 pi dt), inf where not finite or where
     |W|^2 <= gamma^2. `table`, where given, is the (3, na, n_up//2 + 1)
     `wavelet_table` of `scales`."""
-    half = n_up // 2 + 1
-    xi = torch.as_tensor(_xifn(1., n_up)[:half], dtype=scales.dtype,
-                         device=scales.device)
+    xi = _xi_grid(n_up, scales.dtype, scales.device, half=True)
     a = scales.reshape(-1, 1)
     psih, d1, d2 = (wavelet_table(wavelet, scales, n_up, order2=True)
                     if table is None else table)

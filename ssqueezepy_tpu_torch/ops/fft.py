@@ -3,12 +3,13 @@
 kernel: the forward FFT of the padded signal, the inverse STFT, and the
 plain versions of the kernels. Counterpart of the dispatching API of
 `ssqueezepy_tpu/ops/fft.py` (its matmul engine existed for the TPU and
-is not ported). `out_range` slices the output along `axis`.
+is not ported). `out_range` slices the output along `axis`. `FFT` is the
+reference library's object-style handle over the same functions.
 """
 import torch
 
 __all__ = ['fft', 'ifft', 'rfft', 'irfft', 'fftshift', 'ifftshift',
-           'next_fft_len']
+           'next_fft_len', 'FFT', 'FFT_GLOBAL']
 
 
 def _slice_axis(z, axis, out_range):
@@ -55,3 +56,42 @@ def next_fft_len(n):
         if mult * a >= n:
             best = min(best, mult * a)
     return best
+
+
+_PATIENCE_NOTED = False
+
+
+def _note_patience(patience):
+    """One NOTE per process when a caller asks for a non-zero FFTW
+    planning tier (the reference library's `patience`): torch.fft plans
+    its transforms itself (cuFFT on the card, with its plan cache), so
+    the request has no effect; say so instead of dropping it silently."""
+    global _PATIENCE_NOTED
+    if patience and not _PATIENCE_NOTED:
+        from ..utils.common import NOTE
+        NOTE("`patience=%r` requested: FFTW planning tiers do not exist "
+             "here; torch.fft plans and caches its transforms itself, so "
+             "the argument is accepted for compatibility and has no "
+             "effect." % (patience,))
+        _PATIENCE_NOTED = True
+
+
+class FFT:
+    """Object-style FFT handle of the reference library (its `FFT`
+    class) over this module's functions. `patience` is accepted for
+    compatibility (a one-time NOTE on a non-zero value)."""
+
+    def __init__(self, patience=0):
+        _note_patience(patience)
+        self.patience = patience
+        self.planning_timelimit = None
+
+    fft = staticmethod(fft)
+    ifft = staticmethod(ifft)
+    rfft = staticmethod(rfft)
+    irfft = staticmethod(irfft)
+    fftshift = staticmethod(fftshift)
+    ifftshift = staticmethod(ifftshift)
+
+
+FFT_GLOBAL = FFT()

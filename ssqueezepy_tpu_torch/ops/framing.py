@@ -1,17 +1,21 @@
 # -*- coding: utf-8 -*-
-"""Signal framing and overlap-add for the framed STFT and its inverse.
+"""Signal framing and overlap-add for the framed STFT and its inverse, and
+the window measures.
 
-Counterpart of `buffer`, the overlap-add of `istft` and `window_norm` in
-`ssqueezepy_tpu/ops/framing.py`. Frames are `Tensor.unfold` views, one
+Counterpart of `buffer`, `unbuffer`, the overlap-add of `istft`,
+`window_norm`, `window_resolution` and `window_area` in
+`ssqueezepy_tpu/ops/framing.py` (the window measures are host numpy, as
+there). Frames are `Tensor.unfold` views, one
 frame per row (`frame_rows`; `buffer` is their transpose); the
 overlap-add is `torch.nn.functional.fold`, which gathers per output
 sample (no atomics, so it is deterministic on the card).
 """
 import numpy as np
 import torch
+from scipy import integrate
 
-__all__ = ['frame_rows', 'buffer', 'overlap_add', 'window_norm',
-           'mod_roll_amount']
+__all__ = ['frame_rows', 'buffer', 'unbuffer', 'overlap_add', 'window_norm',
+           'window_resolution', 'window_area', 'mod_roll_amount']
 
 
 def mod_roll_amount(seg_len):
@@ -57,6 +61,31 @@ def overlap_add(frames, hop_len, out_len):
     return torch.nn.functional.pad(out, (0, out_len - span))
 
 
+def unbuffer(xbuf, window, hop_len, n_fft, N, win_exp=1):
+    """Overlap-add inverse of `buffer`: the frames `xbuf` (n_fft, n_segs)
+    weighted by window ** win_exp, added `hop_len` apart into a signal of
+    N + n_fft - 1 samples (N None: n_segs * hop_len + len(window) - 1).
+    numpy in, numpy out; a tensor stays on its device."""
+    if N is None:
+        N = xbuf.shape[1] * hop_len + len(window) - 1
+    if len(window) != n_fft:
+        raise ValueError("Must have `len(window) == n_fft` "
+                         "(got %s != %s)" % (len(window), n_fft))
+    w = np.asarray(window)
+    w = np.ones_like(w) if win_exp == 0 else w if win_exp == 1 else \
+        w ** win_exp
+    if isinstance(xbuf, torch.Tensor):
+        wt = torch.as_tensor(w, dtype=xbuf.dtype, device=xbuf.device)
+        return overlap_add(xbuf * wt.reshape(-1, 1), hop_len,
+                           N + n_fft - 1)
+    xbuf = np.asarray(xbuf)
+    x = np.zeros(N + n_fft - 1, dtype=xbuf.dtype)
+    wb = xbuf * w[:, None]
+    for i in range(xbuf.shape[1]):
+        x[i * hop_len:i * hop_len + n_fft] += wb[:, i]
+    return x
+
+
 def window_norm(window, hop_len, n_fft, N, win_exp=1):
     """Window modulation array that `istft` divides by (host numpy, a
     plan constant)."""
@@ -67,3 +96,46 @@ def window_norm(window, hop_len, n_fft, N, win_exp=1):
         n = i * hop_len
         wn[n:n + n_fft] += wpow
     return wn
+
+
+def _xi_centered(N):
+    from ..models.wavelets import _xifn
+    return np.fft.fftshift(_xifn(1, N))
+
+
+def window_resolution(window):
+    """(std_w, std_t, harea) of a window (numpy, >= 0), its spectrum
+    centered about dc."""
+    window = np.asarray(window)
+    if window.min() < 0:
+        raise ValueError("`window` must be >= 0 (got min=%s)"
+                         % window.min())
+    N = len(window)
+    t = np.arange(-N / 2, N / 2, step=1)
+    ws = _xi_centered(N)
+    apsi2 = np.abs(window) ** 2
+    apsih2s = np.abs(np.fft.fftshift(np.fft.fft(window))) ** 2
+    var_w = (integrate.trapezoid(ws ** 2 * apsih2s, ws) /
+             integrate.trapezoid(apsih2s, ws))
+    var_t = (integrate.trapezoid(t ** 2 * apsi2, t) /
+             integrate.trapezoid(apsi2, t))
+    std_w, std_t = np.sqrt(var_w), np.sqrt(var_t)
+    return std_w, std_t, std_w * std_t
+
+
+def window_area(window, time=True, frequency=False):
+    """The area under |window|^2 in time and/or under its |spectrum|^2 in
+    frequency (numpy)."""
+    if not time and not frequency:
+        raise ValueError("must compute something")
+    window = np.asarray(window)
+    if time:
+        t = np.arange(-len(window) / 2, len(window) / 2, step=1)
+        at = integrate.trapezoid(np.abs(window) ** 2, t)
+    if frequency:
+        ws = _xi_centered(len(window))
+        apsih2s = np.abs(np.fft.fftshift(np.fft.fft(window))) ** 2
+        aw = integrate.trapezoid(apsih2s, ws)
+    if time and frequency:
+        return at, aw
+    return at if time else aw

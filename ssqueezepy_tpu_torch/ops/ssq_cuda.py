@@ -41,8 +41,9 @@ the JAX package's `_scatter_kv_vjp_fn`, `_ssq_fused_vjp_fn` and
 bins; `scatter_kv.launches`, `ssq_fused.launches` and
 `shift_scatter.launches` count kernel launches. `scatter_rule` bounds
 the bins of all three (one column's accumulator in shared memory),
-checked on every device by each wrapper and by the synchrosqueezing
-models before their transforms run.
+checked on every device by each wrapper; the synchrosqueezing models ask
+`scatter_fits` before their transforms run and take `ops/ssq_kernels.py::
+scatter_general` past it.
 """
 import ctypes
 import itertools
@@ -59,7 +60,8 @@ from .ssq_kernels import compute_bins, scatter_plain
 
 __all__ = ['scatter_kv', 'scatter_kv_plain', 'ssq_fused', 'ssq_fused_plain',
            'shift_scatter', 'shift_scatter_plain', 'scatter_plan',
-           'scatter_launch_plan', 'scatter_rule', 'ScatterKvGrad',
+           'scatter_launch_plan', 'scatter_rule', 'scatter_fits',
+           'ScatterKvGrad',
            'SsqFusedGrad', 'ShiftScatterGrad']
 
 _SMEM_BUDGET = 200 * 1024
@@ -124,6 +126,19 @@ def scatter_rule(nbins, itemsize):
                    "CUDA reassignment kernels (one column's accumulator "
                    "exceeds the block's shared memory)" % (nbins, itemsize),
                    'C1b')
+
+
+def scatter_fits(nbins, itemsize):
+    """Whether `scatter_rule` admits `nbins` bins of `itemsize`-byte
+    complex elements. The public entry points reach the reassignment
+    kernels only where it is True, and `ops/ssq_kernels.py::
+    scatter_general` where it is False; the wrappers keep the rule, and
+    raise past it."""
+    try:
+        scatter_rule(nbins, itemsize)
+    except NotImplementedError:
+        return False
+    return True
 
 
 def scatter_plan(nbins, itemsize, occupancy):

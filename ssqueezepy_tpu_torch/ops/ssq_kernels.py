@@ -14,15 +14,26 @@ phase transform w on the device (elementwise torch ops) and runs the
 generic scatter (`ops/ssq_cuda.py::shift_scatter`): on CUDA tensors the
 kernels, on CPU tensors their plain versions. `find_closest*` are host
 numpy.
+
+The kernels hold one column's bins in shared memory
+(`ops/ssq_cuda.py::scatter_rule`). Past that rule the entry points take
+`scatter_general`, the counterpart of the JAX package's `_scatter_xla`:
+a flat `index_add_` of the values at their bins, by torch ops on the
+device (`ssq_fused_general` puts the phase transform and the bin map
+before it in B4's place). The entry points choose by `ops/ssq_cuda.py::
+scatter_fits` before anything runs (`ssqueeze_fast`, `_dispatch_scatter`
+and the models); no kernel wrapper reaches `scatter_general`.
 """
 import functools
 
 import numpy as np
 import torch
 
-from ..utils.common import WARN, EPS64, resolve_device, to_device
+from ..utils.common import (WARN, EPS64, resolve_device, row_blocks,
+                            to_device)
 
 __all__ = ['ssq_bin_params', 'compute_bins', 'scatter_plain',
+           'scatter_general', 'ssq_fused_general',
            'ssqueeze_fast', 'indexed_sum_onfly', 'indexed_sum',
            'find_closest', 'find_closest_smart', 'find_closest_brute',
            'find_closest_log', 'find_closest_lin']
@@ -104,6 +115,21 @@ def compute_bins(w, params, flipud=False):
     return k, valid
 
 
+def _row_bins(w, params, flipud):
+    """`compute_bins` by blocks of rows (`utils/common.py::row_blocks`),
+    so that each of its elementwise temporaries stays within 2 GiB at the
+    general routes' sizes: the same bins."""
+    blocks = row_blocks(w.shape[-2], w[..., :1, :].numel() * 8)
+    if len(blocks) == 1:
+        return compute_bins(w, params, flipud)
+    k = torch.empty(w.shape, dtype=torch.int32, device=w.device)
+    valid = torch.empty(w.shape, dtype=torch.bool, device=w.device)
+    for lo, hi in blocks:
+        k[..., lo:hi, :], valid[..., lo:hi, :] = compute_bins(
+            w[..., lo:hi, :], params, flipud)
+    return k, valid
+
+
 def scatter_plain(v, k, nbins):
     """out[k[i,j], j] += v[i,j] over complex `v` (na, N), or per signal of
     a (B, na, N) batch; entries with k outside [0, nbins) are dropped."""
@@ -116,6 +142,61 @@ def scatter_plain(v, k, nbins):
     out.index_put_((k[valid].long(), cols[valid]), v[valid],
                    accumulate=True)
     return out
+
+
+def scatter_general(v, k, valid, nbins, const=None):
+    """out[k'[i, j], j] += v[i, j] * const[i] over complex `v` (na, N),
+    or per signal of a (B, na, N) batch, by one flat `index_add_` per
+    block of rows (`utils/common.py::row_blocks`): the torch counterpart
+    of the JAX package's `_scatter_xla`, for bins past the reassignment
+    kernels' rule. k' = k + nbins where k < 0, as `shift_scatter` wraps;
+    a cell not `valid` (a bool mask of v's shape, or None: all) or with
+    k' outside [0, nbins) is dropped. `const` (na,) or None (1). Returns
+    (nbins, N) or (B, nbins, N) on v's device; on a CUDA device the sums'
+    order, and so their last bits, may vary from run to run. Counts its
+    calls on `scatter_general.calls`."""
+    scatter_general.calls += 1
+    lead, (na, N) = v.shape[:-2], v.shape[-2:]
+    B = int(np.prod(lead, dtype=np.int64))
+    v3, k3 = v.reshape(B, na, N), k.reshape(B, na, N)
+    valid3 = None if valid is None else valid.reshape(B, na, N)
+    dev = v.device
+    # one real pair per cell of the output, and one more that takes the
+    # dropped cells
+    out = torch.zeros((B * nbins * N + 1, 2), dtype=v.real.dtype,
+                      device=dev)
+    dropped = B * nbins * N
+    cols = torch.arange(N, device=dev)
+    base = (torch.arange(B, device=dev) * (nbins * N)).reshape(B, 1, 1)
+    # per cell: the int64 index, the bin and its mask, the value
+    for lo, hi in row_blocks(na, B * N * (24 + v.element_size())):
+        kb = k3[:, lo:hi].long()
+        kb = torch.where(kb < 0, kb + nbins, kb)
+        keep = (kb >= 0) & (kb < nbins)
+        if valid3 is not None:
+            keep &= valid3[:, lo:hi]
+        idx = torch.where(keep, base + kb * N + cols,
+                          torch.full_like(kb, dropped))
+        vals = v3[:, lo:hi]
+        if const is not None:
+            vals = vals * const[lo:hi].reshape(-1, 1)
+        out.index_add_(0, idx.reshape(-1),
+                       torch.view_as_real(vals).reshape(-1, 2))
+    return torch.view_as_complex(out[:-1]).reshape(lead + (nbins, N))
+
+
+scatter_general.calls = 0
+
+
+def ssq_fused_general(Wx, dWx, const, params, gamma, flipud, Sfs=None):
+    """Tx from (Wx, dWx) as `ops/ssq_cuda.py::ssq_fused` (B4) computes it,
+    for bins past its rule: the phase transform (`ops/phase.py::
+    phase_transform_w`, with `Sfs`), the bin map (`compute_bins`) and
+    `scatter_general`, on torch ops."""
+    from .phase import phase_transform_w
+    w = phase_transform_w(Wx, dWx, gamma, Sfs)
+    k, valid = _row_bins(w, params, flipud)
+    return scatter_general(Wx, k, valid, params['omax'] + 1, const)
 
 
 def _broadcast_const(const, na, dtype, device):
@@ -145,8 +226,9 @@ def ssqueeze_fast(Wx, dWx, ssq_freqs, const, logscale=False, flipud=False,
     `ssq_bin_params` (else built from `ssq_freqs` and `logscale`). `gamma`
     is required: it gates |Wx| <= gamma. `out` is ignored and
     `natural_bins` has no effect (the JAX package's parameters, at its
-    positions: there they pick the TPU scatter's layout)."""
-    from .ssq_cuda import ssq_fused
+    positions: there they pick the TPU scatter's layout). Past the
+    kernel's rule on the bins it runs `ssq_fused_general`."""
+    from .ssq_cuda import scatter_fits, ssq_fused
     if gamma is None:
         raise ValueError("`gamma` is required")
     device = resolve_device(device)
@@ -160,15 +242,21 @@ def ssqueeze_fast(Wx, dWx, ssq_freqs, const, logscale=False, flipud=False,
     if Sfs is not None:
         Sfs = torch.as_tensor(Sfs).to(dtype=rdt, device=Wx.device)
         Sfs = Sfs.reshape(-1).contiguous()
-    return ssq_fused(Wx.contiguous(), dWx.contiguous(), c, params,
-                     float(gamma), bool(flipud), Sfs)
+    fused = (ssq_fused if scatter_fits(params['omax'] + 1,
+                                       Wx.element_size())
+             else ssq_fused_general)
+    return fused(Wx.contiguous(), dWx.contiguous(), c, params, float(gamma),
+                 bool(flipud), Sfs)
 
 
 def _dispatch_scatter(v, k, valid, nbins, const=None):
     """out[k, j] += v[i, j] (* const[i]) over the valid cells, negative k
-    wrapped once: the generic scatter (B5) on v's device."""
-    from .ssq_cuda import shift_scatter
-    return shift_scatter(v, k, valid, nbins, const)
+    wrapped once: the generic scatter (B5) on v's device where nbins fits
+    its rule, else `scatter_general`."""
+    from .ssq_cuda import scatter_fits, shift_scatter
+    if scatter_fits(nbins, v.element_size()):
+        return shift_scatter(v, k, valid, nbins, const)
+    return scatter_general(v, k, valid, nbins, const)
 
 
 def indexed_sum_onfly(Wx, w, ssq_freqs, const=1, logscale=False,
@@ -186,7 +274,7 @@ def indexed_sum_onfly(Wx, w, ssq_freqs, const=1, logscale=False,
     w = to_device(w, device)
     if params is None:
         params = ssq_bin_params(np.asarray(ssq_freqs), logscale)
-    k, valid = compute_bins(w, params, flipud)
+    k, valid = _row_bins(w, params, flipud)
     c = _broadcast_const(const, Wx.shape[-2], Wx.real.dtype, Wx.device)
     return _dispatch_scatter(Wx.contiguous(), k.contiguous(),
                              valid.contiguous(), params['omax'] + 1, c)
@@ -240,15 +328,17 @@ def find_closest_brute(a, v):
     return np.argmin(np.abs(a[..., None] - v), axis=-1)
 
 
-def find_closest_log(a, v):
-    """The 'log' bin map of grid `v` applied to `a`."""
+def find_closest_log(a, v, parallel=None):
+    """The 'log' bin map of grid `v` applied to `a`; `parallel` is
+    ignored."""
     k, _ = compute_bins(to_device(np.asarray(a), 'cpu'),
                         ssq_bin_params(v, logscale=True))
     return k.numpy()
 
 
-def find_closest_lin(a, v):
-    """The 'lin' bin map of grid `v` applied to `a`."""
+def find_closest_lin(a, v, parallel=None):
+    """The 'lin' bin map of grid `v` applied to `a`; `parallel` is
+    ignored."""
     k, _ = compute_bins(to_device(np.asarray(a), 'cpu'),
                         ssq_bin_params(v, logscale=False))
     return k.numpy()

@@ -35,6 +35,11 @@ pays, and the full tables of `conv_table` / `conv_bank` otherwise
 (float64 keeps them: a 1e-7 tail is far above its tolerance). The
 setting chooses the function (the exact correlation or the one with
 each row's 1e-7 tail dropped); both run the same kernel.
+
+`table_rows` builds a block of rows of the same full tables on the
+device, held nowhere: the general routes past the kernel's length rule
+(`models/stft.py::stft_general`, `models/ssq_stft.py::fsst2_general`)
+take their tables block by block.
 """
 import collections
 
@@ -45,8 +50,8 @@ from ..configs import get_config
 from .framing import mod_roll_amount
 from .stft_cuda import BandedTable, split_fft_len
 
-__all__ = ['conv_table', 'conv_bank', 'stft_tables', 'fsst2_tables',
-           'row_block']
+__all__ = ['conv_table', 'conv_bank', 'table_rows', 'stft_tables',
+           'fsst2_tables', 'row_block']
 
 _TABLE_CACHE = collections.OrderedDict()
 _TABLE_CACHE_SIZE = 8
@@ -78,6 +83,29 @@ def _build_table(window, n_fft, Np2, modulated, cdtype, device):
     # corr[j] = sum_m g[m] x[j + m]  ->  H = conj(fft(conj(g)))
     H = torch.fft.fft(g.conj_physical_(), dim=-1).conj_physical_()
     return H.to(cdtype).contiguous()
+
+
+def table_rows(windows, n_fft, Np2, modulated, lo, hi, cdtype, device):
+    """Rows [lo, hi) of the tables of `windows` (numpy (n_w, n_fft)) as
+    `conv_table` defines them, (n_w, hi - lo, Np2) of `cdtype` on
+    `device`: formed there in complex128, the phase of row k at m the
+    integer k (m - s21) mod n_fft (s21 = 0 unmodulated), then cast. Not
+    memoized: the general routes build each row block once per call."""
+    v = np.asarray(windows, np.float64).reshape(-1, n_fft)
+    s21 = 0
+    if modulated:
+        s21 = mod_roll_amount(n_fft)
+        v = np.roll(np.fft.ifftshift(v, axes=-1), s21, axis=-1)
+    k = torch.arange(lo, hi, device=device).reshape(-1, 1)
+    m = torch.arange(n_fft, device=device) - s21
+    phase = ((k * m) % n_fft).to(torch.float64) * (-2 * np.pi / n_fft)
+    g = torch.zeros((len(v), hi - lo, Np2), dtype=torch.complex128,
+                    device=device)
+    g[..., :n_fft] = torch.polar(torch.ones_like(phase), phase) * \
+        torch.as_tensor(v, device=device)[:, None, :]
+    # corr[j] = sum_m g[m] x[j + m]  ->  H = conj(fft(conj(g)))
+    H = torch.fft.fft(g.conj_physical_(), dim=-1).conj_physical_()
+    return H.to(cdtype)
 
 
 def _key(windows, *geometry):

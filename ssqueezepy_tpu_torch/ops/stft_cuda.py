@@ -30,7 +30,8 @@ row cut to the rows of its (f1, f2) view that hold its spectral band
 and takes the products outside the band as zero; the plain versions
 expand the band into a zero-filled full table. `stft_length_rule` is the
 kernel's one rule on the transform length, checked on every device (by
-each wrapper, and by the models before the signal's FFT).
+each wrapper, and by the models before the signal's FFT, through
+`stft_kernel_fits`: past it they take the general route).
 
 `stft_conv`, `fsst2_conv` and `fsst2_w` launch the kernel for CUDA
 tensors and run their plain versions for CPU tensors. Where autograd
@@ -63,8 +64,9 @@ from .phase import cdiv, cmul, div_tiny
 
 __all__ = ['stft_conv', 'stft_conv_plain', 'fsst2_conv', 'fsst2_conv_plain',
            'fsst2_w', 'fsst2_rows', 'split_fft_len', 'launch_plan',
-           'stft_length_rule', 'radices', 'BandedTable', 'full_table',
-           'StftConvGrad', 'Fsst2ConvGrad', 'Fsst2WGrad']
+           'stft_length_rule', 'stft_kernel_fits', 'radices',
+           'BandedTable', 'full_table', 'StftConvGrad', 'Fsst2ConvGrad',
+           'Fsst2WGrad']
 
 _TWO_PI = 6.283185307179586
 _MODE_SX, _MODE_SX_DSX, _MODE_BINS, _MODE_FSST2, _MODE_FSST2_W = range(5)
@@ -196,6 +198,19 @@ def stft_length_rule(Np2, itemsize, planes):
     its band, but the spectrum and the scratch planes keep rows x Np2
     elements. Returns the plan."""
     return launch_plan(int(Np2), int(itemsize), int(planes))
+
+
+def stft_kernel_fits(Np2, itemsize, planes):
+    """Whether `stft_length_rule` admits the transform length Np2 for
+    `planes` planes of `itemsize`-byte complex elements. The public entry
+    points ask it before the signal's FFT and take the general route
+    (`models/stft.py::stft_general`) where it is False; the wrappers keep
+    the rule, and raise past it."""
+    try:
+        stft_length_rule(Np2, itemsize, planes)
+    except NotImplementedError:
+        return False
+    return True
 
 
 class BandedTable:

@@ -1,13 +1,13 @@
 # -*- coding: utf-8 -*-
 """Small analysis helpers: the reconstruction metric, stepped-frequency
-test tones, the indices of a maximum and a linear band's geometry.
-Counterpart of `ssqueezepy_tpu/toolkit.py` (`lin_band`, which draws,
-waits for the visuals: ROADMAP.md queue A, A12b). Host numpy; a tensor
-argument is brought to the host."""
+test tones, the indices of a maximum and a linear band picker that draws
+the band (`lin_band`, through `visuals`). Counterpart of
+`ssqueezepy_tpu/toolkit.py`. Host numpy; a tensor argument is brought to
+the host."""
 import numpy as np
 import torch
 
-__all__ = ['cos_f', 'sin_f', 'mad_rms', 'where_amax']
+__all__ = ['lin_band', 'cos_f', 'sin_f', 'mad_rms', 'where_amax']
 
 
 def _host(a):
@@ -61,4 +61,19 @@ def _linear_band_geometry(shape, slope, offset, bw):
     t = np.linspace(0., 1., N)
     cc = (slope * na * (t + offset)).astype(np.int32)
     cw = np.full(N, int(bw * na), np.int32)
+    return cc, cw
+
+
+def lin_band(Tx, slope, offset, bw=.025, **kw):
+    """Plot |Tx| with a linear band overlaid and return the band's
+    (curve centers, half-widths) for masked component inversion
+    (`issq_cwt(Tx, cc=..., cw=...)`). `Tx` numpy or a tensor on any
+    device."""
+    from . import visuals
+    Tx = _host(Tx)
+    cc, cw = _linear_band_geometry(Tx.shape, slope, offset, bw)
+
+    visuals.imshow(Tx, abs=1, aspect='auto', show=0, **kw)
+    visuals.plot(cc + cw, color='r')
+    visuals.plot(cc - cw, color='r', show=1)
     return cc, cw

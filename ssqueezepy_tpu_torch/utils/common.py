@@ -10,10 +10,16 @@ import numpy as np
 import torch
 
 __all__ = ['WARN', 'NOTE', 'pi', 'EPS32', 'EPS64', 'assert_is_one_of',
-           'p2up', 'not_ported', 'check_batch', 'resolve_device',
-           'to_device', 'numpy_unless_grad']
+           'mad', 'est_riskshrink_thresh', 'p2up', 'not_ported',
+           'check_batch', 'resolve_device', 'to_device', 'numpy_unless_grad',
+           'row_blocks']
 
 _logger = logging.getLogger('ssqueezepy_tpu_torch')
+
+# the general routes (past the kernels' rules) hold no intermediate plane
+# above this many bytes, the bound the kernels' scratch keeps: their rows
+# run in blocks (`row_blocks`)
+_BLOCK_BYTES = 2 << 30
 
 
 def WARN(msg):
@@ -33,6 +39,31 @@ def assert_is_one_of(x, name, supported, e=ValueError):
     if x not in supported:
         opts = ', '.join(map(str, supported))
         raise e(f"`{name}` must be one of: {opts} (got {x})")
+
+
+def mad(data, axis=None):
+    """Mean absolute deviation about the mean (the mean over `axis`
+    broadcast back as numpy broadcasts it): numpy for array-likes, a
+    tensor on its device for a tensor."""
+    if isinstance(data, torch.Tensor):
+        mean = data.mean() if axis is None else data.mean(axis)
+        centered = data - mean
+        return centered.abs().mean() if axis is None else \
+            centered.abs().mean(axis)
+    data = np.asarray(data)
+    centered = data - data.mean(axis)
+    return np.abs(centered).mean(axis)
+
+
+def est_riskshrink_thresh(Wx, nv):
+    """RiskShrink hard-threshold estimate: the noise sigma from the MAD
+    of |Wx| over the `nv` finest scale rows, times the universal
+    threshold's sqrt(2 log n) (n = Wx.shape[-1]); a tensor stays on its
+    device."""
+    n = Wx.shape[-1]
+    finest = (Wx[:int(nv)].abs() if isinstance(Wx, torch.Tensor)
+              else np.abs(np.asarray(Wx)[:int(nv)]))
+    return 1.4826 * mad(finest) * np.sqrt(2 * np.log(n))
 
 
 def p2up(n):
@@ -94,3 +125,12 @@ def numpy_unless_grad(t):
     if torch.is_grad_enabled() and t.requires_grad:
         return t
     return t.cpu().numpy()
+
+
+def row_blocks(n_rows, row_bytes):
+    """[lo, hi) blocks of `n_rows` rows, as many rows per block as keep
+    `row_bytes` bytes per row within `_BLOCK_BYTES` (one at least). The
+    rows of the general routes are independent, so a block's rows equal
+    the same rows computed in one block."""
+    step = max(1, _BLOCK_BYTES // max(1, int(row_bytes)))
+    return [(lo, min(n_rows, lo + step)) for lo in range(0, n_rows, step)]

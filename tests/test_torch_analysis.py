@@ -15,8 +15,9 @@
     is a near-tie's choice);
   * `TestSignals`: every `DEMO` signal (and the rest of the catalog)
     bit-identical at N = 256, also with `snr=10, seed=0`, with the same
-    `get_params`; the defaults equal; the drawing methods raise naming
-    A12b;
+    `get_params`; the defaults equal; the drawing methods draw (on
+    `device='cpu'` where they run a transform; the default 'cuda' raises
+    without a card);
   * `experimental`: `freq_to_scale` and `scale_to_freq` within 1e-6
     relative, `phase_ssqueeze` (CWT and STFT, with and without `get_w`)
     by the bins criterion (column sums within 1e-4 of max, energy within
@@ -252,11 +253,28 @@ def test_test_signals_catalog_and_defaults():
 
 @pytest.mark.parametrize('method', ['demo', 'test_transforms', 'wavcomp',
                                     'cwt_vs_stft', 'ridgecomp'])
-def test_test_signals_drawing_raises(method):
-    args = {'test_transforms': (None,), 'wavcomp': (['gmw'],),
-            'cwt_vs_stft': ('gmw', 'hann')}.get(method, ())
-    with pytest.raises(NotImplementedError, match='A12b'):
-        getattr(tts.TestSignals(), method)(*args)
+def test_test_signals_drawing_raises(method, monkeypatch):
+    """Each drawing method draws at N = 256 (`plt.show` counted, under
+    Agg); those that run the port's transforms (`wavcomp`,
+    `cwt_vs_stft`, `ridgecomp`) take `device='cpu'` for it, and without a
+    card their default 'cuda' raises as every entry point does."""
+    import matplotlib.pyplot as plt
+    shows = []
+    monkeypatch.setattr(plt, 'show', lambda *a, **k: shows.append(1))
+    args = {'test_transforms': (lambda x, t, p: (x[None], {}),),
+            'wavcomp': (['gmw'],), 'cwt_vs_stft': ('gmw', 'hann')}.get(
+                method, ())
+    kw = dict(signals='cosine')
+    transform = method in ('wavcomp', 'cwt_vs_stft', 'ridgecomp')
+    try:
+        getattr(tts.TestSignals(N=256), method)(
+            *args, **kw, **(dict(device='cpu') if transform else {}))
+        assert shows
+        if transform and not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                getattr(tts.TestSignals(N=256), method)(*args, **kw)
+    finally:
+        plt.close('all')
 
 
 # ---- experimental and toolkit ------------------------------------------
@@ -341,4 +359,4 @@ def test_analysis_exports():
     assert tstq.ridge_extraction.extract_ridges is tstq.extract_ridges
     for name in texp.__all__:
         assert hasattr(jexp, name)
-    assert set(ttk.__all__) == set(jtk.__all__) - {'lin_band'}
+    assert set(ttk.__all__) == set(jtk.__all__)

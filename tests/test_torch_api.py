@@ -18,8 +18,15 @@ effect here. Each function is called with every argument positional, in
 JAX's order, on the same seeded inputs in both packages (device='cpu':
 the plain PyTorch versions), at the tolerances of
 tests/test_torch_scatter.py and tests/test_torch_ssqueeze.py.
+
+The top level exports every public name of the JAX package's but its
+TPU mechanics (`Complex`, `as_complex`, `fft_matmul`, `ifft_matmul`),
+and `algos` (the reference library's shim) matches name for name, each
+a callable of the same parameters (the port's `device` last, where it
+has one).
 """
 import inspect
+import types
 
 import numpy as np
 import pytest
@@ -30,7 +37,11 @@ import jax.numpy as jnp
 from ssqueezepy_tpu.ops import phase as jphase
 from ssqueezepy_tpu.ops import ssq_kernels as jssq
 from ssqueezepy_tpu.ops.complexlib import Complex
+import ssqueezepy_tpu as jstq
+from ssqueezepy_tpu import algos as jalgos
 
+import ssqueezepy_tpu_torch as tstq
+from ssqueezepy_tpu_torch import algos as talgos
 from ssqueezepy_tpu_torch.ops import phase as tphase
 from ssqueezepy_tpu_torch.ops import ssq_kernels as tssq
 from torch_jax_reference import xla_reference  # noqa: F401
@@ -167,3 +178,43 @@ def test_phase_stft_positional():
     assert np.array_equal(inf_t, np.isinf(w_j)) and inf_t[5, :20].all()
     fin = ~inf_t
     assert np.abs(w_t[fin] - w_j[fin]).max() <= 1e-9 * np.abs(w_j[fin]).max()
+
+
+# the JAX package's TPU mechanics, which the port does not export
+TPU_ONLY = {'Complex', 'as_complex', 'fft_matmul', 'ifft_matmul'}
+
+
+def _public(mod, aliases):
+    """`mod`'s public top-level names: its functions, classes and
+    constants, and of its module attributes only the `aliases` (not the
+    subpackages that importing puts in its namespace)."""
+    return {n for n in dir(mod) if not n.startswith('_') and (
+        n in aliases or not isinstance(getattr(mod, n), types.ModuleType))}
+
+
+def test_top_level_names_match_jax():
+    aliases = set(tstq._MODULE_ALIASES)
+    assert aliases == {'wavelets', 'ssqueezing', 'ridge_extraction',
+                       'configs', 'toolkit', 'experimental', 'visuals',
+                       'algos', 'parallel'}
+    want = _public(jstq, aliases) - TPU_ONLY
+    assert set(tstq.__all__) == want
+    assert _public(tstq, aliases) == want
+    for name in aliases:
+        assert isinstance(getattr(tstq, name), types.ModuleType), name
+    for name in want - aliases:
+        assert callable(getattr(jstq, name)) == callable(
+            getattr(tstq, name)), name
+    assert tstq.wavelets.Wavelet is tstq.Wavelet
+    assert tstq.ssqueezing.ssqueeze is tstq.ssqueeze
+
+
+def test_algos_names_match_jax():
+    assert talgos.__all__ == jalgos.__all__
+    for name in jalgos.__all__:
+        jsig = inspect.signature(getattr(jalgos, name)).parameters
+        tsig = inspect.signature(getattr(talgos, name)).parameters
+        assert [n for n in tsig if n != 'device'] == list(jsig), name
+    assert talgos.phase_cwt_cpu is talgos.phase_cwt_gpu is tstq.phase_cwt
+    assert talgos.phase_stft_cpu is talgos.phase_stft_gpu is \
+        tstq.phase_stft

@@ -47,7 +47,8 @@ and its finite cells within 1e-9 of max in float64; W/V bit-identical to
 the bins modes' and the bins of w2 equal to their k; batches and row
 chunks bit-identical to one signal. The radix-4 engine at its largest
 n_up (2^28, 2^26, 2^24 for 1, 2, 5 planes in float32), Wx past 2^31
-elements, and the length rules raising alike on the card and the CPU.
+elements, and the public calls past the rules on their general routes
+alike on the card and the CPU, launching no CWT or STFT kernel.
 Each kernel's `torch.autograd.Function`: its forward the kernel's one
 launch, bit-identical to the launch without grad; its backward launching
 nothing and within 1e-5 of max of the gradient through the plain version
@@ -1762,29 +1763,66 @@ def test_cwt_offsets_past_2_31(dev):
     torch.cuda.empty_cache()
 
 
+def _transform_launches():
+    """Every launch counter of the CWT and STFT kernels' wrappers."""
+    return {'%s.%s' % (w.__name__, a): getattr(w, a)
+            for w in (cwt_bins, cwt_fused, cwt_bins2, cwt_cuda.cwt_w2,
+                      stft_conv, fsst2_conv, stft_cuda.fsst2_w)
+            for a in vars(w) if a.endswith('launches')}
+
+
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
-def test_rules_raise_alike_on_both_devices(dev, dtype):
-    """A call just past each ceiling raises the same C1b error on the card
-    and on the CPU, before any launch."""
+def test_rules_raise_alike_on_both_devices(dev, dtype, monkeypatch):
+    """Past the kernels' rules the public calls take their general routes
+    alike on the card and the CPU (they raised naming C1b before those
+    routes came): `ssq_stft` with more bins than the scatters take
+    (n_fft = 51200 in float32, 25600 in float64; hann, N = 4096) on
+    `stft_general` and `scatter_general`, finite; then, with the three
+    predicates answering False (chip_smoke.py 12i (b) at the CPU tests'
+    shapes, N = 2048), `ssq_cwt`, `cwt`, `ssq_cwt2`, `stft`, `ssq_stft`
+    and `ssq_stft2`: no launch of a CWT or STFT kernel, the planes within
+    2e-5 (float32) or 1e-9 (float64) of max of the same call on the CPU,
+    Tx by the bins criterion."""
+    from ssqueezepy_tpu_torch.ops.ssq_kernels import scatter_general
     itemsize = 8 if dtype == 'float32' else 16
-    scales = 2. ** (2 + np.arange(8) / 4)
-    lg5 = 22 if dtype == 'float64' else 24
-    N5 = 3 << (lg5 - 2)                    # p2up -> n_up = 2^(lg5 + 1)
-    cases = [
-        lambda d: stq.ssq_cwt2(np.ones(N5, dtype), ('gmw', {'dtype': dtype}),
-                               scales=scales, device=d),
-        lambda d: stq.ssq_stft(np.ones(4096, dtype), n_fft=2 * (
-            200 * 1024 // itemsize), window='hann', dtype=dtype, device=d)]
-    for fn in cases:
-        msgs = []
-        c0 = _mixed_counts()
-        for d in ('cuda', 'cpu'):
-            with pytest.raises(NotImplementedError,
-                               match='queue C, C1b') as e:
-                fn(d)
-            msgs.append(str(e.value))
-        assert msgs[0] == msgs[1]
-        assert _mixed_counts() == c0
+    tol = 2e-5 if dtype == 'float32' else 1e-9
+    x4k = np.random.default_rng(4).standard_normal(4096).astype(dtype)
+    c0, g0 = _transform_launches(), scatter_general.calls
+    Tx, Sx = stq.ssq_stft(x4k, n_fft=2 * (200 * 1024 // itemsize),
+                          window='hann', dtype=dtype)[:2]
+    torch.cuda.synchronize()
+    assert _transform_launches() == c0
+    assert scatter_general.calls == g0 + 1
+    assert Tx.shape == (200 * 1024 // itemsize + 1, 4096)
+    assert bool(torch.isfinite(torch.view_as_real(Tx)).all())
+    del Tx, Sx
+    for mod, name in ((cwt_cuda, 'cwt_kernel_fits'),
+                      (stft_cuda, 'stft_kernel_fits'),
+                      (ssq_cuda, 'scatter_fits')):
+        monkeypatch.setattr(mod, name, lambda *a: False)
+    x = np.random.default_rng(5).standard_normal(2048).astype(dtype)
+    wav = ('gmw', {'dtype': dtype})
+    sc = 2. ** (1.5 + np.arange(12) / 2)
+    calls = {
+        'ssq_cwt': lambda d: stq.ssq_cwt(x, wav, scales=sc, device=d)[:2],
+        'cwt': lambda d: stq.cwt(x, wav, scales=sc, nv=None,
+                                 device=d)[:1],
+        'ssq_cwt2': lambda d: stq.ssq_cwt2(x, wav, scales=sc,
+                                           device=d)[:2],
+        'stft': lambda d: (stq.stft(x, n_fft=96, dtype=dtype, device=d),),
+        'ssq_stft': lambda d: stq.ssq_stft(x, n_fft=96, dtype=dtype,
+                                           device=d)[:2],
+        'ssq_stft2': lambda d: stq.ssq_stft2(x, n_fft=96, dtype=dtype,
+                                             device=d)[:2]}
+    for name, fn in calls.items():
+        c0 = _transform_launches()
+        out = fn('cuda')
+        torch.cuda.synchronize()
+        assert _transform_launches() == c0, name
+        ref = fn('cpu')
+        assert _rel_err(out[-1].cpu(), ref[-1]) <= tol, name
+        if len(out) == 2:
+            _bins_criterion(out[0].cpu(), ref[0])
 
 
 # ---- the wavelet table: every other wavelet through every mode -----------

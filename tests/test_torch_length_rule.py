@@ -6,9 +6,13 @@
     boundaries, in float32 and float64 and for 1, 2 and 5 planes: the
     largest length (bins) that passes and the next one, which raises
     naming ROADMAP.md queue C, C1b;
-  * the public calls past a ceiling raise that error on `device='cpu'`
-    before any FFT runs (the FFTs are replaced by a function that fails),
-    with a tiny scales array so that nothing large is allocated;
+  * the public calls past a ceiling take their general route on
+    `device='cpu'`, decided before any FFT runs (the FFTs are replaced by
+    a function that fails, the general functions by one that records its
+    arguments and stops the call), with a tiny scales array: the route
+    is reached with the signal alone, before any plane of the
+    transform's size exists; and each kernel wrapper called directly
+    past its rule still raises naming C1b;
   * the main path's plans are the ones before the radix-4 engine's
     column limit was raised to `_SMEM_MAX`: `bins_plan` at n_up = 262144
     and 160000 and `launch_plan` at Np2 = 163840, for every plane count.
@@ -27,6 +31,7 @@ from ssqueezepy_tpu_torch.ops import cwt_cuda, ssq_cuda, stft_cuda
 from ssqueezepy_tpu_torch.ops.cwt_cuda import bins_plan, cwt_length_rule
 from ssqueezepy_tpu_torch.ops.ssq_cuda import scatter_rule
 from ssqueezepy_tpu_torch.ops.stft_cuda import launch_plan, stft_length_rule
+from ssqueezepy_tpu_torch.utils.common import p2up
 
 C1B = 'ROADMAP.md queue C, C1b'
 ITEMSIZE = {'float32': 8, 'float64': 16}
@@ -128,6 +133,35 @@ def _x(N, dtype):
     return np.ones(N, dtype=dtype)
 
 
+class _Reached(Exception):
+    """Raised by a general function in place of its work."""
+
+
+@pytest.fixture
+def stop_at_general(monkeypatch):
+    """Each general function the public calls reach past a ceiling, in
+    every model namespace that calls it, replaced by one that records
+    its name and the largest tensor it was given, then stops the call."""
+    from ssqueezepy_tpu_torch.models import (cwt as m_cwt, ssq_cwt as m_ssq,
+                                             ssq_cwt2 as m_ssq2,
+                                             ssq_stft as m_ssq_stft,
+                                             stft as m_stft)
+    seen = []
+
+    def stop(name):
+        def fn(*args, **kwargs):
+            seen.append((name, max(a.numel() for a in args
+                                   if isinstance(a, torch.Tensor))))
+            raise _Reached(name)
+        return fn
+    for mod, name in ((m_cwt, 'cwt_general'), (m_ssq, 'cwt_general'),
+                      (m_ssq2, 'wsst2_general'), (m_stft, 'stft_general'),
+                      (m_ssq_stft, 'stft_general'),
+                      (m_ssq_stft, 'fsst2_general')):
+        monkeypatch.setattr(mod, name, stop(name))
+    return seen
+
+
 @pytest.mark.parametrize('case', [
     # order 2 in float64, padded: n_up = 2^23 > 2^22
     ('ssq_cwt2', 3000000, 'float64', dict(padtype='reflect')),
@@ -144,16 +178,80 @@ def _x(N, dtype):
     ('ssq_stft', 4096, 'float32', dict(n_fft=51200, window='hann')),
 ], ids=lambda c: '%s-%d-%s-%s' % (c[0], c[1], c[2], '-'.join(
     '%s=%s' % kv for kv in c[3].items() if kv[0] != 'window')))
-def test_public_calls_raise_before_any_fft(no_fft, case):
+def test_public_calls_raise_before_any_fft(no_fft, stop_at_general, case):
+    """A call past a ceiling reaches its general route (`cwt_general`,
+    `wsst2_general`, `stft_general` or `fsst2_general`), stopped there by
+    the fixture, before any FFT has run and with no tensor larger than
+    the padded signal: the route is decided before the transform."""
     name, N, dtype, kw = case
     kw = dict(kw)
     if name in ('ssq_cwt2', 'ssq_cwt'):
         kw.update(wavelet=('gmw', {'dtype': dtype}),
                   scales=2. ** (2 + np.arange(8) / 4))
+        general = {'ssq_cwt': 'cwt_general'}.get(name, 'wsst2_general')
+        longest = p2up(N)[0] if kw['padtype'] else N
     else:
         kw.update(dtype=dtype)
-    with pytest.raises(NotImplementedError, match=C1B):
+        general = 'fsst2_general' if name == 'ssq_stft2' else 'stft_general'
+        longest = N
+    with pytest.raises(_Reached):
         getattr(tstq, name)(_x(N, dtype), device='cpu', **kw)
+    assert len(stop_at_general) == 1
+    reached, numel = stop_at_general[0]
+    assert reached == general and numel <= longest
+
+
+def test_wrappers_raise_past_their_rules():
+    """Called directly past its rule, each kernel wrapper raises naming
+    C1b on the CPU too (the rule is checked on every device): the CWT
+    kernel's for two planes at n_up = 10^7 and five at 2,000,000 in
+    float64 (the mixed engine), the STFT kernel's at Np2 = 9 x 2^19 (past
+    2^22) and for five planes at 1310720 in float64, and the scatters'
+    at 25601 bins in float32."""
+    from ssqueezepy_tpu_torch.models.cwt import resolve_wavelet
+    from ssqueezepy_tpu_torch.ops.cwt_cuda import (cwt_bins, cwt_bins2,
+                                                    cwt_fused, cwt_w2)
+    from ssqueezepy_tpu_torch.ops.ssq_cuda import (scatter_kv,
+                                                   shift_scatter, ssq_fused)
+    from ssqueezepy_tpu_torch.ops.ssq_kernels import ssq_bin_params
+    from ssqueezepy_tpu_torch.ops.stft_cuda import (fsst2_conv, fsst2_w,
+                                                    stft_conv)
+    wav = resolve_wavelet(('gmw', {'dtype': 'float64'}))
+    sc = torch.tensor([4., 8.], dtype=torch.float64)
+    params = ssq_bin_params(np.linspace(.01, .4, 25601), False)
+    for n_up, calls in ((10 ** 7, (
+            lambda xh: cwt_bins(xh, sc, wav, n_up, 0, 8, 1., True, params,
+                                1e-10, False),
+            lambda xh: cwt_fused(xh, sc, wav, n_up, 0, 8, 1., True, True))),
+                        (2000000, (
+            lambda xh: cwt_bins2(xh, sc, wav, n_up, 0, 8, 1., params,
+                                 1e-10, False),
+            lambda xh: cwt_w2(xh, sc, wav, n_up, 0, 8, 1., 1e-10)))):
+        xh = torch.empty(n_up // 2 + 1, dtype=torch.complex128)
+        for call in calls:
+            with pytest.raises(NotImplementedError, match=C1B):
+                call(xh)
+    xh = torch.empty(9 << 19, dtype=torch.complex64)
+    with pytest.raises(NotImplementedError, match=C1B):
+        stft_conv(xh, torch.empty((1, 9 << 19), dtype=torch.complex64),
+                  None, 8)
+    xh = torch.empty(1310720, dtype=torch.complex128)
+    tables = torch.empty((5, 1, 1310720), dtype=torch.complex128)
+    sfs = torch.zeros(1, dtype=torch.float64)
+    bins = dict(Sfs=sfs, params=ssq_bin_params(np.arange(4.), False),
+                gamma=1e-10, flipud=False)
+    for call in (lambda: fsst2_conv(xh, tables, 8, 1., bins),
+                 lambda: fsst2_w(xh, tables, 8, 1., sfs, 1e-10)):
+        with pytest.raises(NotImplementedError, match=C1B):
+            call()
+    v = torch.zeros((3, 8), dtype=torch.complex64)
+    k = torch.zeros((3, 8), dtype=torch.int32)
+    c = torch.ones(3)
+    for call in (lambda: scatter_kv(v, k, c, 25601),
+                 lambda: ssq_fused(v, v, c, params, 1e-6, False),
+                 lambda: shift_scatter(v, k, None, 25601, c)):
+        with pytest.raises(NotImplementedError, match=C1B):
+            call()
 
 
 @pytest.mark.parametrize('itemsize', [8, 16])

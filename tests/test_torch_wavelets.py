@@ -290,9 +290,19 @@ def test_fresh_callables_leave_no_cache_entries():
     assert all(r() is None for r in refs)
 
 
-def test_viz_raises_naming_a12():
-    with pytest.raises(NotImplementedError, match='A12'):
-        TWavelet('morlet').viz()
+def test_viz_raises_naming_a12(monkeypatch):
+    """`Wavelet.viz` draws through the visuals (it raised naming A12
+    before they were ported); an unknown visual raises."""
+    import matplotlib.pyplot as plt
+    shows = []
+    monkeypatch.setattr(plt, 'show', lambda *a, **k: shows.append(1))
+    try:
+        TWavelet('morlet', N=256).viz('filterbank')
+        assert shows
+        with pytest.raises(ValueError, match='not supported'):
+            TWavelet('morlet').viz('nope')
+    finally:
+        plt.close('all')
 
 
 def test_wavelet_call_and_psifn():
