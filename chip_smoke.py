@@ -277,9 +277,37 @@ with a prime factor above 7 (section 10b); and the analysis layer,
      `est_riskshrink_thresh`, `unbuffer`, `FFT_GLOBAL`, `asnumpy`,
      `visuals._np`) on CUDA tensors: outputs on the card, equal to the
      CPU's; (a)'s launches are added to the `kernels` line's counts;
+ 12j. (`ridge_tiled_section`, after 12i) the ridge kernels' row-tiled
+     mode and the plans past the kernels' rules (ROADMAP.md queue C items
+     5 and 1c): (a) `extract_ridges(Tx, ssq_freqs, penalty=2, n_ridges=2,
+     transform='stft')` on `ssq_stft(x, n_fft=32768, hop_len=128)` of the
+     two-chirp `TestSignals` signal at N = 160000, float32 (F = 16385, T
+     = 1250): exactly 2 + 2 launches on the tiled counters, the median
+     relative error of `ssq_freqs[ridge]` against the two laws on the
+     interior 80% of columns < 10%, each kernel against its plain version
+     there (pe bit-identical, the indices equal) and timed beside it and
+     its bound, the public call's ms and peak; (b) the tiled kernels
+     against their plain versions at (1, 64, 16385) float32 and (1, 64,
+     8193) float64, and forced at F = 293 against the resident mode on a
+     (3, 2000, 293) batch with NaN cells and ties (bit-identical, equal
+     indices); (c) a world of one under NCCL: `ShardedSSQSTFT` at n_fft =
+     65536 (32769 bins, past the scatters' 25600) on a (1, 16384) batch
+     on `stft_general` and `scatter_general` against the one-device
+     `ssq_stft` (Sx bit-identical, Tx within 1e-6 of max: the general
+     scatter's atomics sum in no fixed order), `sharded_cwt` with the
+     CWT kernel's limit forced to 0 (as the CPU tests force it) against
+     the one-device `cwt` under the same limit (bit-identical, on
+     `cwt_general`); then a `StreamingSSQSTFT` plan at n_fft = 65536
+     (chunk 32769, longer than the history of 32768, so that the stream
+     is exact at the edges: the window is 98304 samples) over one chunk
+     and `finalize` against the offline `ssq_stft` on the same 32769
+     samples (Sx within 1e-5 of max, Tx by the bins criterion: the
+     streaming tests' criterion), the offline planes held in host memory
+     (lines `ridge tiled ...`, `past the rules ...`); (a)'s launches are
+     added to the `kernels` line's counts;
  13. prints one `{"kernels": [...]}` line (the band plan's six rows, the
-     table modes' nine, then the ridge kernels' two, last), then, as the
-     last line,
+     table modes' nine, then the ridge kernels' two and their tiled
+     mode's two, last), then, as the last line,
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before those lines. Without a CUDA
@@ -2436,6 +2464,283 @@ def past_ceiling_section(stq, dev, card, counters, x_np, spec, scales,
     return launches
 
 
+def _planted_ridges(B, T, F, dtype, seed, dev):
+    """-log-normalized energy of noise with two planted wandering ridges,
+    time-major (B, T, F) on `dev`, and log-spaced row coordinates."""
+    import torch
+    rng = np.random.default_rng(seed)
+    E = rng.random((B, F, T)) * 0.05
+    t = np.arange(T)
+    for b in range(B):
+        for amp, c, w, p in ((1., .3, .2, 300.), (.6, .7, .1, 500.)):
+            r = (F * (c + w * np.sin(2 * np.pi * t / p + b))).astype(int)
+            E[b, np.clip(r, 0, F - 1), t] += amp
+    e = -np.log(E / E.max(axis=1, keepdims=True) + np.finfo(dtype).eps)
+    e = torch.as_tensor(np.ascontiguousarray(
+        e.astype(dtype).transpose(0, 2, 1)), device=dev)
+    v = torch.as_tensor(np.log(np.geomspace(1., 300., F)).astype(dtype),
+                        device=dev)
+    return e, v
+
+
+def ridge_tiled_section(stq, dev, card, counters, xb_np, spec, scales):
+    """12j: the ridge kernels' row-tiled mode at F = 16385 on the public
+    call, against their plain versions and the resident mode; the plans
+    past the kernels' rules against their one-device and offline calls
+    (module docstring). Returns (the tiled kernels' rows, launches per
+    counter of (a))."""
+    import ctypes
+    import torch
+    import torch.distributed as dist
+    from ssqueezepy_tpu_torch import parallel as par
+    from ssqueezepy_tpu_torch.models import cwt as m_cwt, stft as m_stft
+    from ssqueezepy_tpu_torch.models.ridge_extraction import _normalized
+    from ssqueezepy_tpu_torch.models.test_signals import (_law_exp,
+                                                          _law_linear)
+    from ssqueezepy_tpu_torch.ops import _build, cwt_cuda
+    from ssqueezepy_tpu_torch.ops.ridge_cuda import (
+        ridge_forward, ridge_forward_plain, ridge_plan, ridge_trace,
+        ridge_trace_plain)
+    from ssqueezepy_tpu_torch.ops.ssq_kernels import scatter_general
+    from ssqueezepy_tpu_torch.streaming import StreamingSSQSTFT
+
+    # ---- (a) extract_ridges at F = 16385 on the tiled kernels -----------
+    N, n_fft, hop = 160000, 32768, 128
+    eps = float(np.finfo(np.float32).eps)
+    ts = stq.TestSignals(N=N)
+    f_lin, f_exp = (.0125 * N, .075 * N), (.125 * N, .375 * N)
+    (x1, t), (x2, _) = ts.lchirp(N, *f_lin), ts.echirp(N, *f_exp)
+    x = torch.as_tensor((x1 + x2).astype(np.float32), device=dev)
+    Tx, _, sf, _ = stq.ssq_stft(x, n_fft=n_fft, hop_len=hop)
+    F, T = Tx.shape
+    torch.cuda.synchronize()
+
+    def run():
+        return stq.extract_ridges(Tx, sf, penalty=2, n_ridges=2,
+                                  transform='stft')
+    run()                                     # first launches
+    ridges, counts = launches_of(counters, run)
+    moved = {k: v for k, v in counts.items() if v}
+    check(moved == {'ridge_forward_tiled': 2, 'ridge_trace_tiled': 2}
+          and ridges.shape == (T, 2) and F == 16385 and T == 1250,
+          "extract_ridges(Tx, ssq_freqs, penalty=2, n_ridges=2, "
+          "transform='stft') on ssq_stft(n_fft=%d, hop_len=%d) at (%d, %d): "
+          "exactly 2 forward + 2 trace launches of the tiled mode (%s)"
+          % (n_fft, hop, F, T, moved))
+    launches = dict(moved)
+    dt = t[1] - t[0]
+    tc = t[::hop][:T]
+    laws = [law(tc, 0, 1, *f)[1] / (2 * np.pi) * dt
+            for law, f in ((_law_linear, f_lin), (_law_exp, f_exp))]
+    lo, hi = T // 10, T - T // 10
+    med = [[float(np.median(np.abs(sf[ridges[lo:hi, i]] / law[lo:hi] - 1)))
+            for law in laws] for i in range(2)]
+    errs = min((med[0][0], med[1][1]), (med[0][1], med[1][0]),
+               key=lambda p: p[0] + p[1])
+    check(max(errs) < 0.1, "extract_ridges at F = %d (tiled) on lchirp + "
+          "echirp: median relative error of ssq_freqs[ridge] against the "
+          "known laws %.4g (linear), %.4g (exponential) on the interior 80%% "
+          "of columns (< 0.1)" % ((F,) + errs))
+    a = Tx.abs()
+    E = (a * a)[None]
+    del a
+    e = _normalized(E, eps, torch.float32)
+    v = torch.as_tensor(np.asarray(sf, np.float32), device=dev)
+    plan = ridge_plan(F, 4)
+    n = ctypes.c_int(0)
+    _build.check(_build.load('ridge_dp').ridge_forward_tiled_ctas(
+        4, ctypes.addressof(n)), 'ridge_forward_tiled_ctas')
+    print("ridge tiled plan at F = %d float32: %d row tiles of %d rows by "
+          "%d chunks of %d g (%d work items per column), %d B of shared "
+          "memory per CTA, %d CTAs resident on the card (the grid's most); "
+          "trace one block of 512 threads per batch row"
+          % (F, len(plan.row_ranges), plan.rows, plan.chunks, plan.chunk,
+             len(plan.row_ranges) * plan.chunks, plan.forward_smem, n.value),
+          flush=True)
+    check(plan.tiled and n.value >= 1, "ridge tiled plan at F = %d: CTAs "
+          "of the cooperative launch fit the card" % F)
+    fw_ms = cuda_ms(lambda: ridge_forward(e, v, 2.), reps=3, warm=1)
+    pe = ridge_forward(e, v, 2.)
+    tr_ms = cuda_ms(lambda: ridge_trace(pe, e, v, 2., eps), reps=3, warm=1)
+    r = ridge_trace(pe, e, v, 2., eps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pe_p = ridge_forward_plain(e, v, 2.)
+    torch.cuda.synchronize()
+    fw_plain = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    r_p = ridge_trace_plain(pe, e, v, 2., eps)
+    torch.cuda.synchronize()
+    tr_plain = (time.perf_counter() - t0) * 1e3
+    err_f = float((pe - pe_p).abs().max())
+    err_t = int((r - r_p).abs().max())
+    check(torch.equal(pe, pe_p) and torch.equal(r, r_p),
+          "ridge kernels (tiled) vs plain on (1, %d, %d) float32: pe "
+          "bit-identical, indices equal (max |dpe| %.3g, max |dr| %d)"
+          % (T, F, err_f, err_t))
+    del pe_p, r_p, r, pe
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    e2e, gb = host_ms(run, reps=3, warm=1)
+    fw_bound, fw_by = bound(2 * T * F * 4, 2 * (T - 1) * F * F)
+    tr_bound, tr_by = bound(T * F * 4 + 2 * T * 4, 4 * T * F)
+    print("ridge tiled: ridge_forward at (1, %d, %d) float32 %.3f ms (%.3f "
+          "us per column; plain %.1f ms; bound %.3f ms by %s, %.1f%% of it); "
+          "ridge_trace %.3f ms (%.3f us per column; plain %.1f ms; bound "
+          "%.4f ms by %s); extract_ridges (2 ridges) %.1f ms end to end "
+          "(host clock, mean of 3 after one warm-up), peak %.3f GB above "
+          "the %.3f GB the script holds; card: %s"
+          % (T, F, fw_ms, fw_ms * 1e3 / (T - 1), fw_plain, fw_bound, fw_by,
+             100 * fw_bound / fw_ms, tr_ms, tr_ms * 1e3 / (T - 1), tr_plain,
+             tr_bound, tr_by, e2e, gb - held, held, card), flush=True)
+    del E, e, Tx, x
+    torch.cuda.empty_cache()
+
+    # ---- (b) the tiled kernels against plain and the resident mode -------
+    for dtype, F_ in (('float32', 16385), ('float64', 8193)):
+        e, v = _planted_ridges(1, 64, F_, dtype, F_, dev)
+        tol = float(np.finfo(dtype).eps)
+        p = ridge_plan(F_, e.element_size())
+        pe, r = ridge_forward(e, v, 2.), None
+        r = ridge_trace(pe, e, v, 2., tol)
+        pe_p = ridge_forward_plain(e, v, 2.)
+        r_p = ridge_trace_plain(pe_p, e, v, 2., tol)
+        torch.cuda.synchronize()
+        d = float((pe - pe_p).abs().max())
+        err_f = max(err_f, d) if dtype == 'float32' else err_f
+        check(p.tiled and torch.equal(pe, pe_p) and torch.equal(r, r_p),
+              "ridge kernels (tiled, %d chunks) vs plain on (1, 64, %d) %s: "
+              "pe bit-identical, indices equal (max |dpe| %.3g)"
+              % (p.chunks, F_, dtype, d))
+        del e, v, pe, r, pe_p, r_p
+    e, v = _planted_ridges(3, 2000, 293, 'float32', 5, dev)
+    e[:, ::9] = 1.
+    e[1, 1500, 17] = float('nan')
+    e[2, 1999, ::5] = float('nan')
+    tiled = ridge_plan(293, 4, tiled=True, batch=3)
+    pe_t = ridge_forward(e, v, 2., plan=tiled)
+    pe_r = ridge_forward(e, v, 2.)
+    r_t = ridge_trace(pe_t, e, v, 2., eps, plan=tiled)
+    r_r = ridge_trace(pe_r, e, v, 2., eps)
+    nan = pe_r.isnan()
+    check(torch.equal(pe_t.isnan(), nan) and bool(nan[1, 1501:].all())
+          and torch.equal(pe_t[~nan], pe_r[~nan]) and torch.equal(r_t, r_r),
+          "ridge kernels at F = 293, tiled mode forced vs the resident mode "
+          "on (3, 2000, 293) with NaN cells and ties: pe bit-identical, "
+          "indices equal")
+    del e, v, pe_t, pe_r, r_t, r_r
+    torch.cuda.empty_cache()
+
+    # ---- (c) the plans past the rules ---------------------------------
+    general = [(f.__name__, f, 'calls') for f in (
+        m_cwt.cwt_general, m_stft.stft_general, scatter_general)]
+    ctr = counters + general + _transform_counters()
+    rank, world = par.init_distributed(backend='nccl', device_type='cuda')
+    check((rank, world) == (0, 1), "past the rules: a world of one under "
+          "NCCL (rank %d of %d)" % (rank, world))
+    mesh = par.make_mesh(device_type='cuda')
+    g = torch.Generator(device=dev)
+    x16 = torch.randn((1, 16384), generator=g.manual_seed(6), device=dev)
+    sp = par.ShardedSSQSTFT(16384, n_fft=65536, mesh=mesh, dtype='float32')
+    (Tp, Sp), got = launches_of(ctr, lambda: sp(x16))
+    moved = {k: v for k, v in got.items() if v}
+    check(moved == {'stft_general': 1, 'scatter_general': 1},
+          "past the rules: ShardedSSQSTFT at n_fft = 65536 (%d bins) on "
+          "exactly stft_general and scatter_general (%s)" % (sp.nbins, moved))
+    T1, S1 = stq.ssq_stft(x16, n_fft=65536)[:2]
+    et = rel_err(Tp, T1)
+    check(torch.equal(Sp, S1) and et <= 1e-6, "past the rules: "
+          "ShardedSSQSTFT at n_fft = 65536 against the one-device ssq_stft "
+          "on (1, 16384): Sx bit-identical, Tx within %.3g of max (1e-6)"
+          % et)
+    del Tp, Sp, T1, S1, sp
+    torch.cuda.empty_cache()
+    xb = torch.as_tensor(xb_np, device=dev)
+    saved = cwt_cuda._SMEM_MAX
+    cwt_cuda._SMEM_MAX = 0
+    cwt_cuda.bins_plan.cache_clear()
+    try:
+        (Wp,), got = launches_of(ctr, lambda: par.sharded_cwt(
+            xb, spec, scales, nv=None, mesh=mesh)[:1])
+        W1 = stq.cwt(xb, spec, scales=scales)[0]
+    finally:
+        cwt_cuda._SMEM_MAX = saved
+        cwt_cuda.bins_plan.cache_clear()
+    moved = {k: v for k, v in got.items() if v}
+    check(moved == {'cwt_general': 1} and torch.equal(Wp, W1),
+          "past the rules: sharded_cwt with the CWT kernel's limit forced "
+          "to 0 on %s: exactly cwt_general (%s), bit-identical to the "
+          "one-device cwt under the same limit" % (tuple(xb.shape), moved))
+    del Wp, W1, xb
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # the smallest exact stream: a chunk longer than the history, so that
+    # its reflected pre-signal context is the offline left pad; one chunk
+    # and the flush's step (the offline call's planes at twice the length
+    # would not fit the card beside its temporaries)
+    chunk = Ns = 32769
+    xs = torch.randn(Ns, generator=g.manual_seed(7), device=dev)
+    t0 = time.perf_counter()
+    To, So = (a.cpu() for a in stq.ssq_stft(xs, n_fft=65536)[:2])
+    off_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.empty_cache()
+    plan = StreamingSSQSTFT(chunk, n_fft=65536)
+    check(plan._general and plan.history == 32768,
+          "past the rules: StreamingSSQSTFT at n_fft = 65536, chunk %d: the "
+          "general route (%d bins), history %d" % (chunk, plan.nbins,
+                                                    plan.history))
+    pos, errs, cols = 0, [], []
+    e_s = e_o = 0.
+    t0 = time.perf_counter()
+    for i in range(Ns // chunk + 1):
+        Tc, Sc = (plan.process(xs[i * chunk:(i + 1) * chunk])
+                  if i < Ns // chunk else plan.finalize())
+        k = Sc.shape[-1]
+        So_c = So[..., pos:pos + k].to(dev)
+        errs.append(float((Sc - So_c).abs().max()))
+        del So_c
+        To_c = To[..., pos:pos + k].to(dev)
+        cols.append(float((Tc.sum(-2) - To_c.sum(-2)).abs().max()))
+        e_s += float(Tc.abs().sum())
+        e_o += float(To_c.abs().sum())
+        del Tc, Sc, To_c
+        torch.cuda.empty_cache()
+        pos += k
+    torch.cuda.synchronize()
+    st_ms = (time.perf_counter() - t0) * 1e3
+    mS, mT = float(So.abs().max()), float(To.abs().max())
+    check(pos == Ns and max(errs) <= 1e-5 * mS and max(cols) < 1e-4 * mT
+          and abs(e_s - e_o) / e_o < 5e-3,
+          "past the rules: StreamingSSQSTFT at n_fft = 65536, a chunk of %d "
+          "and finalize, against the offline ssq_stft on the same %d "
+          "samples: Sx %.3g of max (1e-5), Tx column sums %.3g of max "
+          "(1e-4), energy %.3g (5e-3)" % (chunk, Ns, max(errs) / mS,
+                                          max(cols) / mT,
+                                          abs(e_s - e_o) / e_o))
+    print("past the rules: offline ssq_stft at n_fft = 65536 on %d samples "
+          "%.1f ms (host clock, one call, with the copy to host), the stream "
+          "%.1f ms for its chunk and finalize (with the comparisons); "
+          "card: %s"
+          % (Ns, off_ms, st_ms, card), flush=True)
+    del To, So, xs, plan
+    torch.cuda.empty_cache()
+    rows = [
+        dict(name='ridge_forward_tiled', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/ridge_dp.cu',
+             replaces='ssqueezepy_tpu/models/ridge_extraction.py:24',
+             launches=launches['ridge_forward_tiled'], max_abs_err=err_f,
+             ms=fw_ms, plain_ms=fw_plain, bound_ms=fw_bound,
+             bound_by=fw_by, library_ms=None),
+        dict(name='ridge_trace_tiled', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/ridge_dp.cu',
+             replaces='ssqueezepy_tpu/models/ridge_extraction.py:24',
+             launches=launches['ridge_trace_tiled'], max_abs_err=err_t,
+             ms=tr_ms, plain_ms=tr_plain, bound_ms=tr_bound,
+             bound_by=tr_by, library_ms=None)]
+    return rows, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2484,6 +2789,9 @@ def main():
         cwt_bins, scatter_kv, stft_conv, cwt_fused, cwt_bins2, fsst2_conv,
         ssq_fused, shift_scatter, cwt_w2, fsst2_w, ridge_forward,
         ridge_trace)] + [
+        # the ridge kernels' row-tiled mode on its own counters
+        (k.__name__ + '_tiled', k, 'tiled_launches')
+        for k in (ridge_forward, ridge_trace)] + [
         (k.__name__ + '_batched', k, 'batched_launches')
         for k in (cwt_bins, stft_conv, fsst2_conv, cwt_bins2, cwt_w2,
                   fsst2_w)] + [
@@ -4501,11 +4809,17 @@ def main():
                                       spec, scales, ssq_freqs,
                                       n_fft).items():
         launches[kn] += v
+    torch.cuda.empty_cache()
+    tiled_rows, tiled_launches = ridge_tiled_section(
+        stq, dev, card, all_kernels, xb_big, spec, scales)
+    for kn, v in tiled_launches.items():
+        launches[kn] += v
     print("main-path launches per kernel, summed over the %d public "
           "calls, the prime lengths' counted calls, the streaming "
           "section's counted calls, the gradient section's forwards, the "
           "parallel section's world of one, the analysis section's "
-          "counted calls and the past-ceiling section's: %s"
+          "counted calls, the past-ceiling section's and the tiled ridge "
+          "section's: %s"
           % (len(calls), launches), flush=True)
     print("total smoke time %.1f s" % (time.perf_counter() - t0),
           flush=True)
@@ -4642,7 +4956,7 @@ def main():
             launches=launches[name], max_abs_err=r['err'], ms=r['ms'],
             plain_ms=r['plain_ms'], bound_ms=bnd[0], bound_by=bnd[1],
             library_ms=lib))
-    kernels += wav_rows + ridge_rows
+    kernels += wav_rows + ridge_rows + tiled_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

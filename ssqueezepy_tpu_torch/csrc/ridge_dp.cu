@@ -78,7 +78,40 @@
 // only where none qualifies (rarely, along a ridge) does the warp take
 // argmin_f pe[t] (its first NaN, else the first least value, by
 // redux.sync). Nothing in the step loop is block-wide. At the largest F
-// the rule admits, one row per slot, two slots of pe and one of e.
+// the resident plan takes, one row per slot, two slots of pe and one of e.
+//
+// The resident plan keeps whole rows of F in one block's shared memory:
+// ops/ridge_cuda.py::ridge_resident takes it up to F = 11264 in float32
+// and 5632 in float64. Past that (or when the plan asks for it) both
+// kernels run row-tiled, with shared bytes that do not grow with F, so F
+// is bounded by device memory alone:
+//
+// Tiled forward: one cooperative launch (every CTA resident at once, a
+// grid barrier per column). A work item is (b, a tile of kTileRows rows
+// f, a chunk of g): its CTA keeps its 2 rows per thread of min-plus
+// accumulators in registers and streams the chunk's pe[t-1] and v
+// through shared memory in tiles of kTileG. Items are B x ceil(F / 512) x
+// S, S chunks of g chosen on the host so that the items fill the card
+// (about 264 at B = 1); a CTA takes items i, i + grid, ... Each item
+// writes its rows' partial minima over its chunk to part[t % 2][b][s], a
+// scratch of 2 B S F elements; column t reads column t - 1 as pe[t-1, g]
+// = e[t-1, g] + min_s part[(t-1) % 2][b][s][g] (the min is exact and its
+// order free, so this is the plain version's value bit for bit, NaN by
+// the same rule), and the items of the first row tile write that value
+// to pe. Column 0 is e's, the last column is combined after the last
+// barrier. Two parities: column t + 1 writes the buffer column t - 1
+// wrote only after the barrier that follows every read of it. The
+// partials are read through L2 (ld.global.cg), never a stale L1 line.
+//
+// Tiled trace: one block of kTraceThreads per batch row. Only one element
+// of e and pe is needed per step beside pe[t] (val = pe[t+1, n] - e[t+1,
+// n]: two scalar loads). The block scans pe[t] and v from global memory
+// in tiles of kTraceThreads kScan elements from the high-f end, each
+// thread testing kScan f with its loads issued together, one block-wide
+// max per tile, and stops at the first tile that holds a qualifying f,
+// which is the last one overall; only where none qualifies does it take
+// the first-occurrence argmin over the whole row (three block-wide
+// reductions: the first NaN, the least value, its first f).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -117,6 +150,7 @@ template <> struct MinAcc<float> {
     asm("min.NaN.f32 %0, %0, %1;" : "+f"(m) : "f"(s));
   }
   __device__ __forceinline__ void merge(const MinAcc& o) { add(o.m); }
+  __device__ __forceinline__ float value() const { return m; }
   __device__ __forceinline__ float warp_min() const {
     const int i = __float_as_int(m);
     const int k = __reduce_min_sync(kFull, i >= 0 ? i : i ^ 0x7fffffff);
@@ -135,6 +169,9 @@ template <> struct MinAcc<double> {
   __device__ __forceinline__ void merge(const MinAcc& o) {
     m = fmin(m, o.m);
     nan |= o.nan;
+  }
+  __device__ __forceinline__ double value() const {
+    return nan ? nan_t<double>() : m;
   }
   __device__ __forceinline__ double warp_min() const {
     double r = m;
@@ -699,6 +736,212 @@ __global__ void __launch_bounds__(64)
   }
 }
 
+
+// ---- the row-tiled mode (F past the resident plan) ----------------------
+constexpr int kTileThreads = 256;            // forward CTA
+constexpr int kTileRows = 2 * kTileThreads;  // rows f per work item
+constexpr int kTileG = 1024;                 // g per shared-memory tile
+constexpr int kTraceThreads = 512;           // trace block
+constexpr int kTraceWarps = kTraceThreads / 32;
+
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ double ldcg(const double* p) { return __ldcg(p); }
+
+// Shared memory of one tiled forward CTA, in bytes: a tile of pe[t-1]
+// and of v (ops/ridge_cuda.py::ridge_plan states the same).
+__host__ __device__ __forceinline__ size_t tiled_smem_bytes(int isz) {
+  return (size_t)2 * kTileG * isz;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+    ridge_forward_tiled_kernel(const T* __restrict__ e,
+                               const T* __restrict__ v, T pen, int B, int F,
+                               int Tn, int S, int chunk, T* part,
+                               T* __restrict__ pe) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sp = reinterpret_cast<T*>(smem_raw);  // pe[t-1] of the tile
+  T* sv = sp + kTileG;                     // v of the tile
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int nf = (F + kTileRows - 1) / kTileRows;
+  const long long items = (long long)B * nf * S;
+  const size_t plane = (size_t)B * S * F;  // one parity of part
+  const size_t nth = (size_t)gridDim.x * blockDim.x;
+  const size_t gtid = (size_t)blockIdx.x * blockDim.x + tid;
+
+  for (size_t i = gtid; i < (size_t)B * F; i += nth) {  // column 0
+    const size_t o = i / F * Tn * F + i % F;
+    pe[o] = e[o];
+  }
+  for (int t = 1; t < Tn; ++t) {
+    const T* pin = part + (size_t)((t - 1) & 1) * plane;
+    T* pout = part + (size_t)(t & 1) * plane;
+    for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+      const int s = (int)(it % S);
+      const long long r = it / S;
+      const int i = (int)(r % nf), b = (int)(r / nf);
+      const int g0 = s * chunk, g1 = min(F, g0 + chunk);
+      const size_t col = ((size_t)b * Tn + (t - 1)) * F;  // column t - 1
+      const T* pb = pin + (size_t)b * S * F;
+      const int fa = i * kTileRows + tid, fb = fa + kTileThreads;
+      const T va = v[min(fa, F - 1)], vb = v[min(fb, F - 1)];
+      MinAcc<T> a[4], c[4];
+      for (int gt = g0; gt < g1; gt += kTileG) {
+        const int n = min(kTileG, g1 - gt);
+        __syncthreads();  // the previous tile's reads are done
+        for (int j = tid; j < kTileG; j += kTileThreads) {
+          T x = inf_t<T>(), w = T(0);  // past the chunk: +inf, v 0
+          if (j < n) {
+            const int g = gt + j;
+            if (t == 1) {
+              x = e[col + g];
+            } else {
+              MinAcc<T> m;
+              for (int q = 0; q < S; ++q) m.add(ldcg(pb + (size_t)q * F + g));
+              x = add_rn(e[col + g], m.value());
+              if (i == 0) pe[col + g] = x;
+            }
+            w = v[g];
+          }
+          sp[j] = x;
+          sv[j] = w;
+        }
+        __syncthreads();
+#pragma unroll 2
+        for (int j = 0; j < n; j += 4) {
+          const Quad<T> p = load4(sp + j);
+          const Quad<T> w = load4(sv + j);
+          a[0].add(add_rn(p.a, penalty(pen, va, w.a)));
+          c[0].add(add_rn(p.a, penalty(pen, vb, w.a)));
+          a[1].add(add_rn(p.b, penalty(pen, va, w.b)));
+          c[1].add(add_rn(p.b, penalty(pen, vb, w.b)));
+          a[2].add(add_rn(p.c, penalty(pen, va, w.c)));
+          c[2].add(add_rn(p.c, penalty(pen, vb, w.c)));
+          a[3].add(add_rn(p.d, penalty(pen, va, w.d)));
+          c[3].add(add_rn(p.d, penalty(pen, vb, w.d)));
+        }
+      }
+      a[0].merge(a[1]); a[2].merge(a[3]); a[0].merge(a[2]);
+      c[0].merge(c[1]); c[2].merge(c[3]); c[0].merge(c[2]);
+      T* po = pout + ((size_t)b * S + s) * F;
+      if (fa < F) po[fa] = a[0].value();
+      if (fb < F) po[fb] = c[0].value();
+    }
+    grid.sync();
+  }
+  if (Tn > 1) {  // the last column from its partial minima
+    const T* pin = part + (size_t)((Tn - 1) & 1) * plane;
+    for (size_t i = gtid; i < (size_t)B * F; i += nth) {
+      const size_t b = i / F, g = i % F;
+      MinAcc<T> m;
+      for (int q = 0; q < S; ++q) m.add(ldcg(pin + (b * S + q) * F + g));
+      const size_t o = (b * Tn + (Tn - 1)) * F + g;
+      pe[o] = add_rn(e[o], m.value());
+    }
+  }
+}
+
+// Block-wide reductions of the tiled trace, every thread gets the result.
+// Two buffers used in turns: between two writes of one buffer lies a
+// barrier that every thread passes only after reading the first.
+struct BlockReduce {
+  int* ibuf;     // [2][kTraceWarps]
+  void* vbuf;    // [2][kTraceWarps] of T
+  int ph;
+  template <bool kMax>
+  __device__ __forceinline__ int ints(int x) {
+    x = kMax ? __reduce_max_sync(kFull, x) : __reduce_min_sync(kFull, x);
+    int* buf = ibuf + ph * kTraceWarps;
+    if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = x;
+    __syncthreads();
+    int r = buf[0];
+    for (int w = 1; w < kTraceWarps; ++w)
+      r = kMax ? max(r, buf[w]) : min(r, buf[w]);
+    ph ^= 1;
+    return r;
+  }
+  template <typename T>
+  __device__ __forceinline__ T least(T x) {  // NaN-free inputs
+    for (int o = 16; o > 0; o >>= 1) x = fmin(x, __shfl_xor_sync(kFull, x, o));
+    T* buf = reinterpret_cast<T*>(vbuf) + ph * kTraceWarps;
+    if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = x;
+    __syncthreads();
+    T r = buf[0];
+    for (int w = 1; w < kTraceWarps; ++w) r = fmin(r, buf[w]);
+    ph ^= 1;
+    return r;
+  }
+};
+
+// argmin_f row[f] over the block: the first NaN if any, else the first f
+// of the least value (-0 and +0 equal), as warp_argmin.
+template <typename T>
+__device__ __forceinline__ int block_argmin(const T* row, int F,
+                                            BlockReduce& red) {
+  constexpr int kNone = 0x7fffffff;
+  T best = inf_t<T>();
+  int ib = kNone, inan = kNone;
+  for (int f = threadIdx.x; f < F; f += kTraceThreads) {
+    const T x = row[f];
+    if (x != x)
+      inan = min(inan, f);
+    else if (ib == kNone || x < best) {
+      best = x;
+      ib = f;
+    }
+  }
+  inan = red.ints<false>(inan);
+  if (inan != kNone) return inan;
+  const T m = red.least(best);
+  return red.ints<false>(ib != kNone && best == m ? ib : kNone);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTraceThreads)
+    ridge_trace_tiled_kernel(const T* __restrict__ pe,
+                             const T* __restrict__ e,
+                             const T* __restrict__ v, T pen, T eps, int F,
+                             int Tn, int* __restrict__ ridge) {
+  __shared__ int ibuf[2 * kTraceWarps];
+  __shared__ T vbuf[2 * kTraceWarps];
+  BlockReduce red{ibuf, vbuf, 0};
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)blockIdx.x * Tn;
+  int* rb = ridge + row0;
+  constexpr int W = kTraceThreads * kScan;  // f per tile
+  int r = block_argmin(pe + (row0 + Tn - 1) * F, F, red);
+  if (tid == 0) rb[Tn - 1] = r;
+  for (int t = Tn - 2; t >= 0; --t) {
+    const size_t nxt = (row0 + t + 1) * F + r;
+    const T val = sub_rn(pe[nxt], e[nxt]), vn = v[r];
+    const T* row = pe + (row0 + t) * F;
+    int last = -1;
+    for (int hi = F; hi > 0 && last < 0; hi -= W) {
+      const int lo = max(0, hi - W);
+      T x[kScan], w[kScan];
+#pragma unroll
+      for (int j = 0; j < kScan; ++j) {
+        const int f = min(lo + tid + kTraceThreads * j, hi - 1);
+        x[j] = row[f];
+        w[j] = v[f];
+      }
+      int mine = -1;
+#pragma unroll
+      for (int j = 0; j < kScan; ++j) {
+        const int f = lo + tid + kTraceThreads * j;
+        const T s = add_rn(x[j], penalty(pen, vn, w[j]));
+        const bool ok = (abs_t(sub_rn(val, s)) < eps) & (f < hi);
+        mine = ok ? f : mine;
+      }
+      last = red.ints<true>(mine);
+    }
+    if (last < 0) last = block_argmin(row, F, red);  // nothing qualifies
+    r = last;
+    if (tid == 0) rb[t] = r;
+  }
+}
+
 // Launcher errors of the plan (the wrapper names them).
 constexpr int kErrLayout = -2;     // the plan's shared bytes disagree
 constexpr int kErrNoCluster = -3;  // no cluster of C CTAs fits the card
@@ -796,6 +1039,66 @@ int trace(const void* pe, const void* e, const void* v, double pen,
   return (int)cudaGetLastError();
 }
 
+// Co-resident CTAs of the tiled forward on this card (its grid's most).
+template <typename T>
+int tiled_ctas(int* ctas) {
+  auto fn = ridge_forward_tiled_kernel<T>;
+  const int smem = (int)tiled_smem_bytes(sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fn, kTileThreads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  *ctas = per * sms;
+  return 0;
+}
+
+template <typename T>
+int forward_tiled(const void* e, const void* v, double pen, int B, int F,
+                  int Tn, int S, int chunk, void* part, void* pe,
+                  void* stream) {
+  if (B < 1 || F < 1 || Tn < 1 || S < 1 || chunk < 1 ||
+      (long long)S * chunk < F || (long long)(S - 1) * chunk >= F)
+    return (int)cudaErrorInvalidValue;
+  int ctas = 0;
+  int err = tiled_ctas<T>(&ctas);
+  if (err) return err;
+  if (ctas < 1) return kErrNoCluster;
+  const long long items =
+      (long long)B * ((F + kTileRows - 1) / kTileRows) * S;
+  const unsigned grid = (unsigned)(items < ctas ? items : ctas);
+  const T* ep = (const T*)e;
+  const T* vp = (const T*)v;
+  T pn = (T)pen;
+  T* qp = (T*)part;
+  T* op = (T*)pe;
+  void* args[] = {(void*)&ep, (void*)&vp, (void*)&pn, (void*)&B, (void*)&F,
+                  (void*)&Tn, (void*)&S, (void*)&chunk, (void*)&qp,
+                  (void*)&op};
+  err = (int)cudaLaunchCooperativeKernel(
+      (const void*)ridge_forward_tiled_kernel<T>, dim3(grid),
+      dim3(kTileThreads), args, tiled_smem_bytes(sizeof(T)),
+      (cudaStream_t)stream);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int trace_tiled(const void* pe, const void* e, const void* v, double pen,
+                double eps, int B, int F, int Tn, void* ridge, void* stream) {
+  if (B < 1 || F < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
+  ridge_trace_tiled_kernel<T><<<B, kTraceThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)pe, (const T*)e, (const T*)v, (T)pen, (T)eps, F, Tn,
+      (int*)ridge);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // pe (B, T, F) from e (B, T, F) and v (F,); pen is rounded to the type.
@@ -847,4 +1150,43 @@ extern "C" int ridge_trace_f64(const void* pe, const void* e, const void* v,
                                void* stream) {
   return trace<double>(pe, e, v, pen, eps, B, F, Tn, G, dp, de, smem, ridge,
                        stream);
+}
+
+// The row-tiled mode (ridge_plan's `tiled`): pe (B, T, F) from e and v,
+// S chunks of `chunk` g, `part` a scratch of 2 B S F elements.
+extern "C" int ridge_forward_tiled_f32(const void* e, const void* v,
+                                       double pen, int B, int F, int Tn,
+                                       int S, int chunk, void* part, void* pe,
+                                       void* stream) {
+  return forward_tiled<float>(e, v, pen, B, F, Tn, S, chunk, part, pe,
+                              stream);
+}
+
+extern "C" int ridge_forward_tiled_f64(const void* e, const void* v,
+                                       double pen, int B, int F, int Tn,
+                                       int S, int chunk, void* part, void* pe,
+                                       void* stream) {
+  return forward_tiled<double>(e, v, pen, B, F, Tn, S, chunk, part, pe,
+                               stream);
+}
+
+// How many CTAs of the tiled forward the card holds at once (its grid's
+// largest size); itemsize 4 or 8.
+extern "C" int ridge_forward_tiled_ctas(int itemsize, int* ctas) {
+  return itemsize == 4 ? tiled_ctas<float>(ctas) : tiled_ctas<double>(ctas);
+}
+
+// ridge (B, T) int32 from pe and e (B, T, F) and v (F,), row-tiled.
+extern "C" int ridge_trace_tiled_f32(const void* pe, const void* e,
+                                     const void* v, double pen, double eps,
+                                     int B, int F, int Tn, void* ridge,
+                                     void* stream) {
+  return trace_tiled<float>(pe, e, v, pen, eps, B, F, Tn, ridge, stream);
+}
+
+extern "C" int ridge_trace_tiled_f64(const void* pe, const void* e,
+                                     const void* v, double pen, double eps,
+                                     int B, int F, int Tn, void* ridge,
+                                     void* stream) {
+  return trace_tiled<double>(pe, e, v, pen, eps, B, F, Tn, ridge, stream);
 }

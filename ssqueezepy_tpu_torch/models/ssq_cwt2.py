@@ -96,17 +96,22 @@ def _supports_order2_probe(wavelet, dtype):
     return True, None
 
 
-def wsst2_general(xt, padtype, scales, wavelet, N, dt, gamma):
+def wsst2_general(xt, padtype, scales, wavelet, N, dt, gamma, n1=None):
     """(W, w2) of the real signal or (B, N) batch `xt` off the WSST2
     kernel's lengths: padded by `padtype` (none for None), its half
     spectrum by `torch.fft.rfft`, then the torch WSST2 rows
     (`ops/cwt_cuda.py::wsst2_rows`, the JAX package's `_wsst2_rows`) on
     xt's device at any n_up, its scales in row blocks that keep the five
     banks within 2 GiB (`utils/common.py::row_blocks`; each row is
-    computed as in one block, its wavelet table with it). Counts its
-    calls on `wsst2_general.calls`."""
+    computed as in one block, its wavelet table with it). Given `n1`,
+    `xt` is already the padded window (a streaming plan's; `padtype`
+    unused) and the columns are [n1, n1 + N). Counts its calls on
+    `wsst2_general.calls`."""
     wsst2_general.calls += 1
-    xp, n_up, n1 = padded_signal(xt, padtype)
+    if n1 is None:
+        xp, n_up, n1 = padded_signal(xt, padtype)
+    else:
+        xp, n_up = xt, xt.shape[-1]
     xh = rfft(xp)
     W = torch.empty(xt.shape[:-1] + (len(scales), N), dtype=xh.dtype,
                     device=xt.device)

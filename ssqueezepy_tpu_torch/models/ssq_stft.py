@@ -58,7 +58,7 @@ from ..utils.cwt_utils import _process_fs_and_t, infer_scaletype
 from .ssq_cwt import (_invert_components, _process_component_inversion_args,
                       _spec_key)
 from .ssqueezing import _apply_squeezing, _check_ssqueezing_args
-from .stft import (_as_signal, _spectrum, signal_spectrum, stft,
+from .stft import (_as_signal, _general_spectrum, signal_spectrum, stft,
                    stft_general, stft_kernel_route)
 from .windows import get_window, _check_NOLA
 
@@ -99,6 +99,22 @@ def stft_plan(window, ssq_freqs, n_fft, win_len, fs, dtype):
     if key is not None:
         _PLANS[key] = plan
     return plan
+
+
+def squeeze_planes(Sx, dSx, Sfs, const, params, gamma, flipud, squeezing,
+                   squeeze, fits):
+    """Tx of the hop-1 planes (Sx, dSx) on the general route, as `ssq_stft`
+    reassigns them there: 'sum' by B4 (`ssq_fused`, or
+    `ssq_fused_general` past the scatters' rule, `fits` False), any
+    other squeezing by the phase transform and the generic scatter of
+    `squeeze(Sx)`. The sharded and streaming plans call it on their rows
+    or window."""
+    if squeezing == 'sum':
+        return (ssq_fused if fits else ssq_fused_general)(
+            Sx, dSx, const, params, gamma, flipud, Sfs)
+    w = phase_stft(Sx, dSx, Sfs, gamma)
+    return indexed_sum_onfly(squeeze(Sx), w, None, const, params=params,
+                             flipud=flipud, device=Sx.device)
 
 
 def _device_consts(plan, dtype, device):
@@ -340,7 +356,8 @@ def _ssq_stft2_out(Tx, Sx, w2, plan, flipud, astensor, get_w):
     return Tx, Sx, ssq_freqs_out, plan.Sfs
 
 
-def fsst2_general(xt, bank, n_fft, padtype, modulated, fs, Sfs, gamma):
+def fsst2_general(xt, bank, n_fft, padtype, modulated, fs, Sfs, gamma,
+                  rows=None, padded=False):
     """(V, w2) of the second-order STFT of the real signal or (B, N)
     batch `xt`, hop 1, for transform lengths or bins past the kernels'
     rules: the JAX package's XLA branch (`_fsst2_rows` after its full
@@ -348,22 +365,24 @@ def fsst2_general(xt, bank, n_fft, padtype, modulated, fs, Sfs, gamma):
     N + n_fft - 1 at `next_fft_len` of that, then per block of rows the
     five windows' full tables (`ops/stft_conv.py::table_rows`, built on
     xt's device per block) and the FSST2 rows of `ops/stft_cuda.py::
-    fsst2_rows` with the block's `Sfs`; row blocks keep each
-    intermediate within 2 GiB (`utils/common.py::row_blocks`). Counts
-    its calls on `fsst2_general.calls`."""
+    fsst2_rows` with the block's `Sfs` (all n_fft//2 + 1 rows' on xt's
+    device); row blocks keep each intermediate within 2 GiB
+    (`utils/common.py::row_blocks`). `rows` and `padded` as
+    `models/stft.py::stft_general` takes them. Counts its calls on
+    `fsst2_general.calls`."""
     fsst2_general.calls += 1
-    N = xt.shape[-1]
-    xh = _spectrum(xt, n_fft, padtype)
-    Np2, n_rows = xh.shape[-1], n_fft // 2 + 1
-    V = torch.empty(xt.shape[:-1] + (n_rows, N), dtype=xh.dtype,
+    xh, N = _general_spectrum(xt, n_fft, padtype, padded)
+    Np2 = xh.shape[-1]
+    r0, r1 = rows or (0, n_fft // 2 + 1)
+    V = torch.empty(xt.shape[:-1] + (r1 - r0, N), dtype=xh.dtype,
                     device=xt.device)
     w2 = torch.empty(V.shape, dtype=xt.dtype, device=xt.device)
-    for lo, hi in row_blocks(n_rows, len(bank) * xh[..., :1].numel() * Np2
+    for lo, hi in row_blocks(r1 - r0, len(bank) * xh[..., :1].numel() * Np2
                              * 16):
-        tables = table_rows(bank, n_fft, Np2, modulated, lo, hi, xh.dtype,
-                            xt.device)
+        tables = table_rows(bank, n_fft, Np2, modulated, r0 + lo, r0 + hi,
+                            xh.dtype, xt.device)
         V[..., lo:hi, :], w2[..., lo:hi, :] = fsst2_rows(
-            xh, tables, N, fs, Sfs[lo:hi], gamma)
+            xh, tables, N, fs, Sfs[r0 + lo:r0 + hi], gamma)
     return V, w2
 
 

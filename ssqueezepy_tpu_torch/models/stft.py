@@ -69,6 +69,16 @@ def _spectrum(xt, n_fft, padtype):
     return fft(xp, n=next_fft_len(padlength)).contiguous()
 
 
+def _general_spectrum(xt, n_fft, padtype, padded):
+    """(spectrum, N) of the general routes: `_spectrum` of the length-N
+    `xt`, or with `padded` the FFT of `xt`, already the padded signal of
+    N + n_fft - 1 samples, at the same length."""
+    if padded:
+        return (fft(xt, n=next_fft_len(xt.shape[-1])).contiguous(),
+                xt.shape[-1] - n_fft + 1)
+    return _spectrum(xt, n_fft, padtype), xt.shape[-1]
+
+
 def stft_kernel_route(N, n_fft, dtype, planes):
     """Whether the hop-1 STFT of a length-N signal in `dtype` ('float32'
     or 'float64') runs the table kernel: its transform length fits the
@@ -79,7 +89,8 @@ def stft_kernel_route(N, n_fft, dtype, planes):
                                       2 * np.dtype(dtype).itemsize, planes)
 
 
-def stft_general(xt, windows, n_fft, padtype, modulated):
+def stft_general(xt, windows, n_fft, padtype, modulated, rows=None,
+                 padded=False):
     """The hop-1 STFT rows of the real signal or (B, N) batch `xt` with
     each window of `windows` (numpy (n_w, n_fft)): the JAX package's XLA
     branch `_stft_conv_jit` on torch ops, for transform lengths past the
@@ -87,20 +98,24 @@ def stft_general(xt, windows, n_fft, padtype, modulated):
     1 at `next_fft_len` of that, times each block of rows of the windows'
     full tables (`ops/stft_conv.py::table_rows`, built on xt's device per
     block), then `torch.fft.ifft` kept to [0, N); row blocks keep each
-    intermediate within 2 GiB (`utils/common.py::row_blocks`). Returns
-    one (n_fft//2 + 1, N) or (B, n_fft//2 + 1, N) complex tensor per
-    window. Counts its calls on `stft_general.calls`."""
+    intermediate within 2 GiB (`utils/common.py::row_blocks`). `rows`
+    (lo, hi): those rows of the n_fft//2 + 1 alone (a sharded plan's
+    block); `padded`: `xt` is already the padded signal of N + n_fft - 1
+    samples (a streaming window; `padtype` unused). Returns one
+    (rows, N) or (B, rows, N) complex tensor per window. Counts its calls
+    on `stft_general.calls`."""
     stft_general.calls += 1
-    N = xt.shape[-1]
-    xh = _spectrum(xt, n_fft, padtype)[..., None, :]
+    xh, N = _general_spectrum(xt, n_fft, padtype, padded)
+    xh = xh[..., None, :]
     Np2 = xh.shape[-1]
-    n_w, n_rows = len(windows), n_fft // 2 + 1
-    out = [torch.empty(xt.shape[:-1] + (n_rows, N), dtype=xh.dtype,
+    n_w = len(windows)
+    r0, r1 = rows or (0, n_fft // 2 + 1)
+    out = [torch.empty(xt.shape[:-1] + (r1 - r0, N), dtype=xh.dtype,
                        device=xt.device) for _ in range(n_w)]
     # per row: the complex128 tables and their products with each signal
-    for lo, hi in row_blocks(n_rows, n_w * xh[..., :1].numel() * Np2 * 16):
-        H = table_rows(windows, n_fft, Np2, modulated, lo, hi, xh.dtype,
-                       xt.device)
+    for lo, hi in row_blocks(r1 - r0, n_w * xh[..., :1].numel() * Np2 * 16):
+        H = table_rows(windows, n_fft, Np2, modulated, r0 + lo, r0 + hi,
+                       xh.dtype, xt.device)
         for q in range(n_w):
             out[q][..., lo:hi, :] = torch.fft.ifft(H[q] * xh,
                                                    dim=-1)[..., :N]

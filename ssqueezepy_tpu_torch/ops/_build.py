@@ -105,6 +105,13 @@ _SIGNATURES = {
         (('ridge_forward_clusters',), [ctypes.c_int] * 5 + [ctypes.c_void_p]),
         (('ridge_trace_f32', 'ridge_trace_f64'),
          [ctypes.c_void_p] * 3 + [ctypes.c_double] * 2 + [ctypes.c_int] * 7
+         + [ctypes.c_void_p] * 2),
+        (('ridge_forward_tiled_f32', 'ridge_forward_tiled_f64'),
+         [ctypes.c_void_p] * 2 + [ctypes.c_double] + [ctypes.c_int] * 5
+         + [ctypes.c_void_p] * 3),
+        (('ridge_forward_tiled_ctas',), [ctypes.c_int, ctypes.c_void_p]),
+        (('ridge_trace_tiled_f32', 'ridge_trace_tiled_f64'),
+         [ctypes.c_void_p] * 3 + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
          + [ctypes.c_void_p] * 2)],
 }
 

@@ -15,42 +15,43 @@ penalty matrix P[f, g] = penalty * (v_f - v_g)^2 of the row coordinates v
     e[t+1, r[t+1]], else argmin_f pe[t] (first occurrence).
 
 Each wrapper launches its kernel for CUDA tensors (one launch for the
-whole batch: the forward on one thread-block cluster per batch row, the
-trace on one block) and runs its plain version, a loop over t that
-mirrors `_fw_bw_jit` step by step, for CPU tensors; on the card the plain
-versions are the kernels' oracle. `ridge_forward.launches` and
-`ridge_trace.launches` count the launches. `ridge_rule` bounds F (the
-kernels' rows in one block's shared memory), checked on every device;
-`ridge_plan` decides each launch on the host (cluster size, rows per
-CTA, P in registers or recomputed, the trace's rings, shared bytes).
-Design and bound are noted in the source.
+whole batch) and runs its plain version, a loop over t that mirrors
+`_fw_bw_jit` step by step, for CPU tensors; on the card the plain
+versions are the kernels' oracle. `ridge_plan` decides each launch on
+the host, before it: where `ridge_resident` admits F (whole rows of F in
+one block's shared memory: F <= 11264 in float32, 5632 in float64) the
+resident mode (the forward on one thread-block cluster per batch row,
+the trace on one block with rings of rows; cluster size, rows per CTA, P
+in registers or recomputed, the rings, shared bytes), past it the
+row-tiled mode (the forward one cooperative launch over the whole card,
+the trace one block per batch row scanning rows in tiles; shared bytes
+that do not grow with F, so any F that device memory holds).
+`ridge_forward.launches` and `ridge_trace.launches` count the resident
+mode's launches, `.tiled_launches` the tiled mode's. Design and bound
+are noted in the source.
 """
 from collections import namedtuple
 
 import torch
 
-from ..utils.common import not_ported
 from . import _build
 from .ssq_cuda import _on_card
 
 __all__ = ['ridge_forward', 'ridge_forward_plain', 'ridge_trace',
-           'ridge_trace_plain', 'ridge_penalty', 'ridge_rule', 'ridge_plan']
+           'ridge_trace_plain', 'ridge_penalty', 'ridge_resident',
+           'ridge_plan']
 
 # shared bytes a block may take (the card's limit is 227 KB)
 _SMEM_MAX = 220 * 1024
 
 
-def ridge_rule(F, itemsize):
-    """The ridge kernels' rule on the rows, checked on every device: v and
-    two pe rows (padded to a multiple of 4) and v with two rows each of pe
-    and e fit one block's shared memory: F <= 11264 in float32, 5632 in
-    float64. `ridge_plan` builds both kernels' launches for every F it
-    admits."""
-    need = max(3 * ((F + 3) & ~3), 5 * F) * itemsize
-    if need > _SMEM_MAX:
-        not_ported("the ridge kernels at F=%d rows of %d-byte elements "
-                   "(%d B of shared memory per block)" % (F, itemsize, need),
-                   'C1b')
+def ridge_resident(F, itemsize):
+    """Whether the ridge kernels take rows of F elements of `itemsize`
+    bytes in their resident mode: v and two pe rows (padded to a multiple
+    of 4) and v with two rows each of pe and e fit one block's shared
+    memory: F <= 11264 in float32, 5632 in float64. Past it `ridge_plan`
+    takes the row-tiled mode, on every device's plan alike."""
+    return max(3 * ((F + 3) & ~3), 5 * F) * itemsize <= _SMEM_MAX
 
 
 # the forward's cluster size (8, portable: measured against 16 in
@@ -60,6 +61,15 @@ def ridge_rule(F, itemsize):
 _CLUSTER = 8
 _E_RING = 4
 _P_QUADS = 3
+# the tiled mode (csrc/ridge_dp.cu kTileThreads, kTileRows, kTileG,
+# kTraceThreads, kScan) and the work items the forward's chunks of g aim
+# at (two CTAs per SM of an H100's 132)
+_TILE_THREADS = 256
+_TILE_ROWS = 2 * _TILE_THREADS
+_TILE_G = 1024
+_TILE_ITEMS = 264
+_TRACE_THREADS = 512
+_TRACE_SCAN = 12
 
 RidgePlan = namedtuple('RidgePlan', [
     'clusters',       # C, CTAs per batch row (forward)
@@ -72,7 +82,13 @@ RidgePlan = namedtuple('RidgePlan', [
     'trace_depth',    # slots of the trace's pe ring
     'trace_e_depth',  # slots of its e ring
     'trace_slot',     # bytes per slot (a 16-byte aligned superset)
-    'trace_smem'])    # shared bytes per trace block
+    'trace_smem',     # shared bytes per trace block
+    'tiled',          # the row-tiled mode: then `rows` and `row_ranges`
+                      # are the work items' row tiles, `warps` and
+                      # `forward_smem` the forward CTA's, `clusters` None
+                      # and the trace's fields 0
+    'chunks',         # S, chunks of g per (batch row, row tile) (tiled)
+    'chunk'])         # g per chunk (tiled)
 
 
 def _pad4(n):
@@ -89,26 +105,46 @@ def _span_slot(n, itemsize):
     return _up16(n * itemsize) + 16
 
 
-def ridge_plan(F, itemsize, clusters=None):
+def ridge_plan(F, itemsize, clusters=None, tiled=None, batch=1):
     """The launch plan of both ridge kernels for rows of F elements of
-    `itemsize` bytes, decided on the host (csrc/ridge_dp.cu states the
-    same layouts and its launchers check the shared bytes):
+    `itemsize` bytes over `batch` rows, decided on the host
+    (csrc/ridge_dp.cu states the same layouts and its launchers check the
+    shared bytes). The resident mode where `ridge_resident` admits F (or
+    `tiled=False`), else (or `tiled=True`) the row-tiled mode:
 
-      * forward: a cluster of C = min(`clusters` or 8, F) CTAs per batch
-        row, CTA c on rows [c R, min(F, (c + 1) R)), R = ceil(F / C),
-        ceil(R / 2) warps of a row pair each; shared memory v, three pe
-        rows and a 4-column ring of e's R rows (padded to 4) and three
+      * resident forward: a cluster of C = min(`clusters` or 8, F) CTAs
+        per batch row, CTA c on rows [c R, min(F, (c + 1) R)), R = ceil(F
+        / C), ceil(R / 2) warps of a row pair each; shared memory v, three
+        pe rows and a 4-column ring of e's R rows (padded to 4) and three
         mbarriers; P resident (each warp's two rows of P in its
         registers) where F <= 384 and R <= 48, else recomputed per use;
-      * trace: rings of pe and e, each slot G consecutive rows (one bulk
-        copy, a 16-byte aligned superset), G up to 16 (about 16 KB a
-        slot) and 2 to 4 slots of each beside v and two mbarriers per
-        slot; where not even two slots of one row fit (the rule's largest
-        F), two slots of pe and one of e.
+      * resident trace: rings of pe and e, each slot G consecutive rows
+        (one bulk copy, a 16-byte aligned superset), G up to 16 (about 16
+        KB a slot) and 2 to 4 slots of each beside v and two mbarriers
+        per slot; where not even two slots of one row fit (the largest
+        resident F), two slots of pe and one of e;
+      * tiled forward: work items of 512 rows (`row_ranges`) by S chunks
+        of g, S up to ceil(F / 1024) and as many as bring batch x ceil(F
+        / 512) x S items to about 264 (two CTAs per SM of an H100); tiles
+        of 1024 elements of pe and v in shared memory per CTA;
+      * tiled trace: one block of 512 threads per batch row, no dynamic
+        shared memory.
 
-    Each kernel's shared bytes are at most `_SMEM_MAX`. F past
-    `ridge_rule` raises naming C1b; a plan that cannot be built raises."""
-    ridge_rule(F, itemsize)
+    A resident plan's shared bytes are at most `_SMEM_MAX`; a resident
+    plan that cannot be built raises."""
+    if tiled is None:
+        tiled = not ridge_resident(F, itemsize)
+    if tiled:
+        nf = -(-F // _TILE_ROWS)
+        S = max(1, min(-(-F // _TILE_G),
+                       -(-_TILE_ITEMS // (max(1, batch) * nf))))
+        chunk = -(-F // S)
+        S = -(-F // chunk)
+        ranges = tuple((i * _TILE_ROWS, min(F, (i + 1) * _TILE_ROWS))
+                       for i in range(nf))
+        return RidgePlan(None, _TILE_ROWS, ranges, False,
+                         _TILE_THREADS // 32, 2 * _TILE_G * itemsize, 0, 0,
+                         0, 0, 0, True, S, chunk)
     C = min(clusters or _CLUSTER, F)
     if not 1 <= C <= 16:
         raise ValueError("a ridge cluster has 1 to 16 CTAs (got %d)" % C)
@@ -123,7 +159,7 @@ def ridge_plan(F, itemsize, clusters=None):
     def trace_bytes(G, dp, de):
         return (dp + de) * _span_slot(G * F, itemsize) + _up16(row) + \
             16 * (dp + de)
-    G, dp, de = 1, 2, 1  # the rule's edge: two slots of pe, one of e
+    G, dp, de = 1, 2, 1  # the largest F: two slots of pe, one of e
     for g in range(min(16, max(1, 16384 // row)), 0, -1):
         d = max((d for d in range(2, 5) if trace_bytes(g, d, d) <=
                  _SMEM_MAX), default=0)
@@ -131,10 +167,11 @@ def ridge_plan(F, itemsize, clusters=None):
             G, dp, de = g, d, d
             break
     if fw > _SMEM_MAX or trace_bytes(G, dp, de) > _SMEM_MAX:
-        raise ValueError("no ridge plan fits %d B of shared memory at F=%d, "
-                         "itemsize %d" % (_SMEM_MAX, F, itemsize))
+        raise ValueError("no resident ridge plan fits %d B of shared memory "
+                         "at F=%d, itemsize %d" % (_SMEM_MAX, F, itemsize))
     return RidgePlan(C, R, ranges, resident, warps, fw, G, dp, de,
-                     _span_slot(G * F, itemsize), trace_bytes(G, dp, de))
+                     _span_slot(G * F, itemsize), trace_bytes(G, dp, de),
+                     False, 0, 0)
 
 
 def ridge_penalty(v, penalty):
@@ -155,7 +192,6 @@ def _check(e, v, what):
         raise ValueError("e and v must be on one device")
     if not (e.is_contiguous() and v.is_contiguous()):
         raise ValueError("e and v must be contiguous")
-    ridge_rule(e.shape[-1], e.element_size())
 
 
 def ridge_forward_plain(e, v, penalty):
@@ -190,10 +226,21 @@ def ridge_forward(e, v, penalty, plan=None):
     _on_card(e, 'ridge_forward')
     lib = _build.load('ridge_dp')
     B, T, F = e.shape
-    plan = plan or ridge_plan(F, e.element_size())
+    plan = plan or ridge_plan(F, e.element_size(), batch=B)
     pe = torch.empty_like(e)
-    fn = (lib.ridge_forward_f32 if e.dtype == torch.float32
-          else lib.ridge_forward_f64)
+    f32 = e.dtype == torch.float32
+    if plan.tiled:
+        part = torch.empty((2, B, plan.chunks, F), dtype=e.dtype,
+                           device=e.device)
+        fn = lib.ridge_forward_tiled_f32 if f32 else \
+            lib.ridge_forward_tiled_f64
+        err = fn(e.data_ptr(), v.data_ptr(), float(penalty), B, F, T,
+                 plan.chunks, plan.chunk, part.data_ptr(), pe.data_ptr(),
+                 torch.cuda.current_stream(e.device).cuda_stream)
+        _check_launch(err, 'ridge_forward', plan)
+        ridge_forward.tiled_launches += 1
+        return pe
+    fn = lib.ridge_forward_f32 if f32 else lib.ridge_forward_f64
     err = fn(e.data_ptr(), v.data_ptr(), float(penalty), B, F, T,
              plan.clusters, plan.rows, int(plan.resident), plan.warps,
              plan.forward_smem, pe.data_ptr(),
@@ -204,6 +251,7 @@ def ridge_forward(e, v, penalty, plan=None):
 
 
 ridge_forward.launches = 0
+ridge_forward.tiled_launches = 0
 
 
 def ridge_trace_plain(pe, e, v, penalty, eps):
@@ -225,10 +273,11 @@ def ridge_trace_plain(pe, e, v, penalty, eps):
     return ridge
 
 
-def ridge_trace(pe, e, v, penalty, eps):
+def ridge_trace(pe, e, v, penalty, eps, plan=None):
     """ridge (B, T) int64 of the backward trace over pe and e (B, T, F),
     time-major, with v (F,), `penalty` and `eps` floats (rounded to pe's
-    type)."""
+    type). `plan` (the card only): a `ridge_plan` of F and pe's item size
+    in place of the default one."""
     _check(e, v, 'ridge_trace')
     if pe.shape != e.shape or pe.dtype != e.dtype or \
             pe.device != e.device or not pe.is_contiguous():
@@ -239,19 +288,28 @@ def ridge_trace(pe, e, v, penalty, eps):
     _on_card(pe, 'ridge_trace')
     lib = _build.load('ridge_dp')
     B, T, F = pe.shape
-    plan = ridge_plan(F, pe.element_size())
+    plan = plan or ridge_plan(F, pe.element_size(), batch=B)
+    ridge = torch.empty((B, T), dtype=torch.int32, device=pe.device)
+    stream = torch.cuda.current_stream(pe.device).cuda_stream
+    if plan.tiled:
+        fn = (lib.ridge_trace_tiled_f32 if pe.dtype == torch.float32
+              else lib.ridge_trace_tiled_f64)
+        err = fn(pe.data_ptr(), e.data_ptr(), v.data_ptr(), float(penalty),
+                 float(eps), B, F, T, ridge.data_ptr(), stream)
+        _check_launch(err, 'ridge_trace', plan)
+        ridge_trace.tiled_launches += 1
+        return ridge.long()
     # the rings' bulk copies read 16-byte aligned pieces of the tensors
     pe, e = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (pe, e))
-    ridge = torch.empty((B, T), dtype=torch.int32, device=pe.device)
     fn = (lib.ridge_trace_f32 if pe.dtype == torch.float32
           else lib.ridge_trace_f64)
     err = fn(pe.data_ptr(), e.data_ptr(), v.data_ptr(), float(penalty),
              float(eps), B, F, T, plan.trace_rows, plan.trace_depth,
-             plan.trace_e_depth, plan.trace_smem, ridge.data_ptr(),
-             torch.cuda.current_stream(pe.device).cuda_stream)
+             plan.trace_e_depth, plan.trace_smem, ridge.data_ptr(), stream)
     _check_launch(err, 'ridge_trace', plan)
     ridge_trace.launches += 1
     return ridge.long()
 
 
 ridge_trace.launches = 0
+ridge_trace.tiled_launches = 0

@@ -17,14 +17,15 @@ a (batch, scale, time) mesh:
     size: the derivative mode (B3), then B4;
   * one sum over 'scale' (`collectives.psum`) completes the bins.
 
-A wavelet off the CWT kernel's route runs `cwt_general` and B4 on the
-interior rows too.
+A wavelet off the CWT kernel's route, or a window's n_up past its rule,
+runs `cwt_general` and B4 on the interior rows too; bins past the
+reassignment kernels' rule take `scatter_general` in B2's place and
+`ssq_fused_general` in B4's (`time_sharded._TimeSharded`'s routes).
 """
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.ssq_cuda import scatter_kv, ssq_fused
 from .collectives import dim_size, psum
 from .distributed import init_distributed
 from .mesh import build_mesh
@@ -84,18 +85,16 @@ class FullShardedSSQCWT(_TimeSharded):
         src = self._interior(xc)
         if len(self._mid) and self._kernel:
             Wx, k = self._bins(*src, self._mid)
-            Tx = scatter_kv(Wx.contiguous(), k.contiguous(), self._mid_const,
-                            self.nbins)
+            Tx = self._scatter(Wx.contiguous(), k.contiguous(),
+                               self._mid_const)
         elif len(self._mid):
             Wx, dWx = self._planes(*src, self._mid)
-            Tx = ssq_fused(Wx.contiguous(), dWx.contiguous(),
-                           self._mid_const, self.params, self.gamma,
-                           self.flipud)
+            Tx = self._fused(Wx.contiguous(), dWx.contiguous(),
+                             self._mid_const)
         else:
             Tx = no_rows(xc, (xc.shape[0], self.nbins, self.C))
         if self.n_exact:
             Wg, dWg = self._planes(*self._global(xc), self._exact)
-            Tx = Tx + ssq_fused(Wg.contiguous(), dWg.contiguous(),
-                                self._exact_const, self.params, self.gamma,
-                                self.flipud)
+            Tx = Tx + self._fused(Wg.contiguous(), dWg.contiguous(),
+                                  self._exact_const)
         return psum(Tx, self._group)

@@ -15,10 +15,15 @@ block of the filterbank rows (scales) and its block of the signals:
     (`collectives.psum`) completes the synchrosqueezing bin reduction,
     the only communication of the forward pass.
 
-A wavelet off the CWT kernel's route (`models/cwt.py::_kernel_route`)
-runs `cwt_general` on the block, then the fused phase + bins + scatter
-kernel (B4) for 'sum' squeezing, or the phase transform and the generic
-scatter (B5) for another, as the one-device `ssq_cwt` routes it. A rank's
+A wavelet off the CWT kernel's route, or a padded length past its rule
+(`models/cwt.py::_public_route`, as the one-device calls decide it, once,
+before the signal's FFT), runs `cwt_general` on the block, then the fused
+phase + bins + scatter kernel (B4) for 'sum' squeezing, or the phase
+transform and the generic scatter (B5) for another, as the one-device
+`ssq_cwt` routes it; bins past the reassignment kernels' rule
+(`scatter_fits`) take `ops/ssq_kernels.py::scatter_general` in B2's
+place (after the torch phase transform and bin map in B4's:
+`ssq_fused_general`). A rank's
 block is its `row_block` of the scales: the JAX plan's padded rows
 (const 0, `_pad_scales`) add nothing to Tx and are not computed, so the
 last blocks are shorter, or empty (no launch). Plans take the global
@@ -31,13 +36,14 @@ import torch
 from ..configs import device_dtype
 from ..models.cwt import (cwt_general, cwt_spectrum, padded_length,
                           padded_signal, resolve_wavelet, _cached_scales,
-                          _kernel_route)
+                          _public_route)
 from ..models.ssq_cwt import _device_plan, _ssq_cwt_plan
 from ..models.ssqueezing import _apply_squeezing, _check_ssqueezing_args
 from ..ops.cwt_cuda import cwt_bins, cwt_fused
 from ..ops.phase import phase_cwt
-from ..ops.ssq_cuda import scatter_kv, scatter_rule, ssq_fused
-from ..ops.ssq_kernels import indexed_sum_onfly
+from ..ops.ssq_cuda import scatter_fits, scatter_kv, ssq_fused
+from ..ops.ssq_kernels import (indexed_sum_onfly, scatter_general,
+                               ssq_fused_general)
 from ..streaming import _one_signal, _rebatch
 from ..utils.common import EPS32, EPS64, to_device
 from .collectives import (dim_size, gather_shards, psum, replicated_in,
@@ -173,14 +179,16 @@ class ShardedSSQCWT(_ScaleSharded):
         self.params = plan.params
         self.nbins = self.params['omax'] + 1
         self.n_rows = self.na = len(plan.scales)
-        scatter_rule(self.nbins, 2 * np.dtype(self.dtype).itemsize)
         self._init_mesh(mesh, self.na)
         sc, c = _device_plan(key, plan.scales, plan.const, self.dtype,
                              self.device)
         lo, hi = self.rows
         self._scales, self._const = sc[lo:hi], c[lo:hi]
-        self._kernel = _kernel_route(self.wavelet,
-                                     padded_length(self.N, self.padtype))
+        # the routes, as the one-device `ssq_cwt` decides them
+        self._fits = scatter_fits(self.nbins, 2 * sc.element_size())
+        self._kernel = _public_route(self.wavelet,
+                                     padded_length(self.N, self.padtype),
+                                     sc, 2)
 
     def _rows(self, xt):
         sc, c, N, dt = self._scales, self._const, self.N, self.dt
@@ -190,12 +198,15 @@ class ShardedSSQCWT(_ScaleSharded):
             Wx, k = _rebatch(one, *cwt_bins(
                 xh, sc, self.wavelet, n_up, n1, N, dt, True, self.params,
                 self.gamma, self.flipud))
-            return scatter_kv(self._squeeze(Wx), k, c, self.nbins), Wx
+            Wx_s = self._squeeze(Wx)
+            return (scatter_kv(Wx_s, k, c, self.nbins) if self._fits else
+                    scatter_general(Wx_s, k, k >= 0, self.nbins, c)), Wx
         xp, n_up, n1 = padded_signal(xt, self.padtype)
         Wx, dWx = cwt_general(xp, self.wavelet, sc, n1, N, dt, True, True)
         if self.squeezing == 'sum':
-            return ssq_fused(Wx, dWx, c, self.params, self.gamma,
-                             self.flipud), Wx
+            Wx, dWx = Wx.contiguous(), dWx.contiguous()
+            return (ssq_fused if self._fits else ssq_fused_general)(
+                Wx, dWx, c, self.params, self.gamma, self.flipud), Wx
         w = phase_cwt(Wx, dWx, 'trig', self.gamma)
         return indexed_sum_onfly(self._squeeze(Wx), w, None, c,
                                  params=self.params, flipud=self.flipud,
@@ -222,7 +233,9 @@ def sharded_cwt(x, wavelet='gmw', scales='log-piecewise', nv=32, fs=1.,
     """Batched scale-sharded forward CWT of the global (B, N) `x`, on every
     rank: (Wx (B, na, N), scales). Each rank runs the CWT kernel's plain
     mode (B3, `cwt_fused`) on its scale block and signals (`cwt_general`
-    for a wavelet off the kernel's route); the shards are then gathered."""
+    for a wavelet off the kernel's route or a padded length past its
+    rule: `_public_route`, as `cwt` decides it); the shards are then
+    gathered."""
     N = np.shape(x)[-1]
     mesh = mesh if mesh is not None else make_mesh()
     wavelet = resolve_wavelet(wavelet, l1_norm=True, N=N)
@@ -236,7 +249,7 @@ def sharded_cwt(x, wavelet='gmw', scales='log-piecewise', nv=32, fs=1.,
     xt = batch_block(x, mesh, dtype, device)
     if hi == lo:
         Wx = no_rows(xt, (xt.shape[0], 0, N))
-    elif _kernel_route(wavelet, padded_length(N, padtype)):
+    elif _public_route(wavelet, padded_length(N, padtype), xt, 1):
         xh, n_up, n1 = cwt_spectrum(xt, padtype, 1)
         xh, one = _one_signal(xh)
         Wx, = _rebatch(one, cwt_fused(xh, sc, wavelet, n_up, n1, N, 1.,

@@ -17,14 +17,16 @@ block here is its real rows alone.
 import numpy as np
 
 from ..configs import default_dtype
-from ..models.ssq_stft import _device_consts, fsst2_plan, stft_plan
+from ..models.ssq_stft import (_device_consts, fsst2_general, fsst2_plan,
+                               squeeze_planes, stft_plan)
 from ..models.ssqueezing import _check_ssqueezing_args
-from ..models.stft import signal_spectrum
+from ..models.stft import signal_spectrum, stft_general
 from ..models.windows import _check_NOLA
 from ..ops.fft import next_fft_len
-from ..ops.ssq_cuda import scatter_kv, scatter_rule
+from ..ops.ssq_cuda import scatter_fits, scatter_kv
+from ..ops.ssq_kernels import indexed_sum_onfly, scatter_general
 from ..ops.stft_conv import fsst2_tables, row_block, stft_tables
-from ..ops.stft_cuda import fsst2_conv, stft_conv, stft_length_rule
+from ..ops.stft_cuda import fsst2_conv, stft_conv, stft_kernel_fits
 from ..streaming import _one_signal, _rebatch
 from .sharded import _ScaleSharded, _gamma
 
@@ -70,17 +72,21 @@ class ShardedSSQSTFT(_ScaleSharded):
         self.params = plan.params
         self.nbins = self.params['omax'] + 1
         self.n_rows = self.n_fft // 2 + 1
+        # the routes, as the one-device calls decide them
         itemsize = 2 * np.dtype(self.dtype).itemsize
-        scatter_rule(self.nbins, itemsize)
         self.Np2 = next_fft_len(self.N + self.n_fft - 1)
-        stft_length_rule(self.Np2, itemsize, self._planes)
+        self._fits = scatter_fits(self.nbins, itemsize)
+        self._general = not (self._fits and stft_kernel_fits(
+            self.Np2, itemsize, self._planes))
         self._init_mesh(mesh, self.n_rows)
         sfs, const = _device_consts(plan, self.dtype, self.device)
         lo, hi = self.rows
         self._const = const[lo:hi]
         self._bins = dict(Sfs=sfs[lo:hi], params=self.params,
                           gamma=self.gamma, flipud=self.flipud)
-        self._tables = self._device_tables(plan, lo, hi)
+        self._plan, self._sfs = plan, sfs
+        self._tables = (None if self._general else
+                        self._device_tables(plan, lo, hi))
 
     def _host_plan(self, window, win_len):
         plan = stft_plan(window, None, self.n_fft, win_len, self.fs,
@@ -98,11 +104,26 @@ class ShardedSSQSTFT(_ScaleSharded):
         return stft_conv(xh, *self._tables, self.N, self.fs, self._bins)
 
     def _rows(self, xt):
+        if self._general:
+            return self._general_rows(xt)
         xh, one = _one_signal(signal_spectrum(xt, self.n_fft, self.padtype,
                                               self._planes))
         Sx, k = _rebatch(one, *self._transform(xh))
-        return scatter_kv(self._squeeze(Sx), k, self._const,
-                          self.nbins), Sx
+        Sx_s = self._squeeze(Sx)
+        return (scatter_kv(Sx_s, k, self._const, self.nbins) if self._fits
+                else scatter_general(Sx_s, k, k >= 0, self.nbins,
+                                     self._const)), Sx
+
+    def _general_rows(self, xt):
+        """(Tx, Sx) of this rank's rows on the general route, as the
+        one-device `ssq_stft` runs all rows there."""
+        Sx, dSx = stft_general(xt, [self._plan.window,
+                                    self._plan.diff_window], self.n_fft,
+                               self.padtype, True, rows=self.rows)
+        dSx.mul_(self.fs)
+        return squeeze_planes(Sx, dSx, self._bins['Sfs'], self._const,
+                              self.params, self.gamma, self.flipud,
+                              self.squeezing, self._squeeze, self._fits), Sx
 
     @property
     def ssq_freqs_out(self):
@@ -141,3 +162,13 @@ class ShardedSSQSTFT2(ShardedSSQSTFT):
 
     def _transform(self, xh):
         return fsst2_conv(xh, self._tables, self.N, self.fs, self._bins)
+
+    def _general_rows(self, xt):
+        """(Tx, V) of this rank's rows on the general route, as the
+        one-device `ssq_stft2` runs all rows there."""
+        V, w2 = fsst2_general(xt, self._plan.bank, self.n_fft, self.padtype,
+                              True, self.fs, self._sfs, self.gamma,
+                              rows=self.rows)
+        return indexed_sum_onfly(self._squeeze(V), w2, None, self._const,
+                                 params=self.params, flipud=self.flipud,
+                                 device=self.device), V

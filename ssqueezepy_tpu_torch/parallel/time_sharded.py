@@ -29,8 +29,13 @@ rows on the global spectrum (n1 = its pad + the chunk's offset, N = C):
     kinds of rows, the bins merged, then the scatter from bins (B2);
     returns (Tx, Wx).
 
-A wavelet off the CWT kernel's route runs `cwt_general` for (Wx, dWx),
-then B4. The overlap-save rows equal the global transform up to the
+A wavelet off the CWT kernel's route, or an n_up of either window past
+its rule (`ops/cwt_cuda.py::cwt_kernel_fits` for two planes, decided
+when the plan is made, as the one-device calls decide it), runs
+`cwt_general` for (Wx, dWx), then B4; bins past the reassignment
+kernels' rule (`scatter_fits`) take `ops/ssq_kernels.py::
+scatter_general` in B2's place and `ssq_fused_general` in B4's. The
+overlap-save rows equal the global transform up to the
 wavelet's decay tail beyond the halo; the exact rows equal it. The
 collectives carry no gradient: a signal that requires grad raises.
 """
@@ -42,10 +47,11 @@ from ..configs import device_dtype
 from ..models.cwt import cwt_general, resolve_wavelet, _kernel_route
 from ..models.ssq_cwt import _ssq_cwt_plan
 from ..models.wavelets import time_resolution
-from ..ops.cwt_cuda import cwt_bins, cwt_fused, cwt_length_rule
+from ..ops.cwt_cuda import cwt_bins, cwt_fused, cwt_kernel_fits
 from ..ops.fft import next_fft_len, rfft
 from ..ops.pad import _reflect, pad_params, padsignal
-from ..ops.ssq_cuda import scatter_kv, scatter_rule, ssq_fused
+from ..ops.ssq_cuda import scatter_fits, scatter_kv, ssq_fused
+from ..ops.ssq_kernels import scatter_general, ssq_fused_general
 from ..streaming import _one_signal, _rebatch
 from .collectives import all_gather, dim_size, gather_shards
 from .distributed import init_distributed
@@ -129,13 +135,12 @@ class _TimeSharded:
         self.n_lo, self.n_hi = _row_split(self.wavelet, plan.scales, self.N,
                                           self.halo, halo_mult)
         self.g_nup, self.g_n1, _ = pad_params(self.N, 'reflect')
-        self._kernel = all(_kernel_route(self.wavelet, n)
-                           for n in (self.n_up, self.g_nup))
+        # the routes, as the one-device `ssq_cwt` decides them
         itemsize = 2 * np.dtype(self.dtype).itemsize
-        scatter_rule(self.nbins, itemsize)
-        if self._kernel:
-            for n in (self.n_up, self.g_nup):
-                cwt_length_rule(n, itemsize, 2)
+        self._kernel = all(_kernel_route(self.wavelet, n) and
+                           cwt_kernel_fits(n, itemsize, 2)
+                           for n in (self.n_up, self.g_nup))
+        self._fits = scatter_fits(self.nbins, itemsize)
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a, np.float64).reshape(-1),
@@ -197,6 +202,19 @@ class _TimeSharded:
             xh, scales, self.wavelet, n_up, n1, self.C, self.dt, True,
             self.params, self.gamma, self.flipud))
 
+    def _scatter(self, Wx, k, const):
+        """Tx from the bins k of Wx (B2, or `scatter_general` past its
+        rule)."""
+        if self._fits:
+            return scatter_kv(Wx, k, const, self.nbins)
+        return scatter_general(Wx, k, k >= 0, self.nbins, const)
+
+    def _fused(self, Wx, dWx, const):
+        """Tx from (Wx, dWx) (B4, or `ssq_fused_general` past the
+        scatters' rule)."""
+        return (ssq_fused if self._fits else ssq_fused_general)(
+            Wx, dWx, const, self.params, self.gamma, self.flipud)
+
     def gather(self, *shards):
         """The global arrays (B, rows, N) of this rank's shards (B_local,
         rows, C), on every rank."""
@@ -254,9 +272,8 @@ class TimeShardedSSQCWT(_TimeSharded):
             run(*self._interior(xc), self._mid) if len(self._mid) else None)
         Wx, P2 = Wx.contiguous(), P2.contiguous()
         if bins:
-            return scatter_kv(Wx, P2, self._const, self.nbins), Wx
-        Tx = ssq_fused(Wx, P2, self._const, self.params, self.gamma,
-                       self.flipud)
+            return self._scatter(Wx, P2, self._const), Wx
+        Tx = self._fused(Wx, P2, self._const)
         return (Tx, Wx, P2) if self.derivative else (Tx, Wx)
 
 

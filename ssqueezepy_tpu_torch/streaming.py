@@ -35,6 +35,19 @@ its window, as the kernels already take it:
     bins criterion). `StreamingSTFT` runs B6's Sx mode and
     `StreamingSSQSTFT2` the FSST2 mode (`fsst2_conv`, B7), then B2.
 
+Past a kernel's rule the plan keeps its geometry and runs the general
+functions the offline calls take there, on the same window: the route is
+fixed when the plan is made, with the offline calls' predicates
+(`ops/cwt_cuda.py::cwt_kernel_fits`, `ops/stft_cuda.py::
+stft_kernel_fits`, `ops/ssq_cuda.py::scatter_fits`). A CWT window past
+the kernel's rule takes the XLA branch above; an order-2 one
+`models/ssq_cwt2.py::wsst2_general` and the generic scatter by the bins
+of w2; an STFT window past the table kernel's rule or the scatters'
+`models/stft.py::stft_general` (then B4, or the phase transform and the
+generic scatter for a squeezing other than 'sum') or `models/ssq_stft.py
+::fsst2_general` (then the generic scatter); bins past the scatters'
+rule `ops/ssq_kernels.py::scatter_general` in B2's place.
+
 A (chunk,) or (1, chunk) stream launches the kernels' one-signal
 counters, a (B > 1, chunk) stream the batched ones. `deriv_lowprec` is
 taken for the JAX signature: the derivative runs in the plan's precision,
@@ -51,20 +64,23 @@ import torch
 from .configs import default_dtype, device_dtype
 from .models.cwt import cwt_general, resolve_wavelet, _kernel_route
 from .models.ssq_cwt import _ssq_cwt_plan
-from .models.ssq_cwt2 import _supports_order2
-from .models.ssq_stft import _device_consts, _fsst2_bank, stft_plan
+from .models.ssq_cwt2 import _supports_order2, wsst2_general
+from .models.ssq_stft import (_device_consts, _fsst2_bank, fsst2_general,
+                              squeeze_planes, stft_plan)
 from .models.ssqueezing import _apply_squeezing, _natural_bins
+from .models.stft import stft_general
 from .models.wavelets import time_resolution
 from .models.windows import _check_NOLA
-from .ops.cwt_cuda import (cwt_bins, cwt_bins2, cwt_fused, cwt_length_rule,
+from .ops.cwt_cuda import (cwt_bins, cwt_bins2, cwt_fused, cwt_kernel_fits,
                            wavelet_table)
 from .ops.fft import fft, next_fft_len, rfft
 from .ops.pad import _pad_index, reflect_index
 from .ops.phase import _imag_ratio_over_2pi
-from .ops.ssq_cuda import scatter_kv, scatter_rule
-from .ops.ssq_kernels import _dispatch_scatter, compute_bins
+from .ops.ssq_cuda import scatter_fits, scatter_kv
+from .ops.ssq_kernels import (_dispatch_scatter, compute_bins,
+                              indexed_sum_onfly, scatter_general)
 from .ops.stft_conv import fsst2_tables, stft_tables
-from .ops.stft_cuda import fsst2_conv, stft_conv, stft_length_rule
+from .ops.stft_cuda import fsst2_conv, stft_conv, stft_kernel_fits
 from .utils.common import EPS32, EPS64, resolve_device, to_device
 
 __all__ = ['StreamingSSQCWT', 'StreamingSSQCWT2', 'StreamingCWT',
@@ -147,6 +163,13 @@ class _StreamingBase:
                                         device=self.device)
         self._gamma2 = torch.tensor(self.gamma, dtype=tdt,
                                     device=self.device) ** 2
+
+    def _scatter(self, Wx, k):
+        """Tx from the bins k of Wx: B2, or `scatter_general` past the
+        scatters' rule (`self._fits`)."""
+        if self._fits:
+            return scatter_kv(Wx, k, self._const_t, self.nbins)
+        return scatter_general(Wx, k, k >= 0, self.nbins, self._const_t)
 
     def _ssq_from_derivative(self, Wx, dWx):
         """Tx from (Wx, dWx) as the JAX package's XLA body runs it: the
@@ -340,16 +363,17 @@ class StreamingSSQCWT(_StreamingBase):
 
     # -- the per-chunk body ---------------------------------------------
     def _build(self, order2=False):
-        """The route and its plan constants: the kernel's length rule for
-        its planes, the scatter's for nbins, and the wavelet table where
-        the kernel reads one (any wavelet but the order-0 GMW)."""
-        self._kernel = order2 or _kernel_route(self.wavelet, self.n_up)
+        """The route and its plan constants: the kernel's where the wavelet
+        takes it (any order-2 one does) and n_up fits its rule for its
+        planes, the scatters' where nbins fits theirs, and the wavelet
+        table where the kernel reads one (any wavelet but the order-0
+        GMW)."""
         itemsize = 2 * np.dtype(self.dtype).itemsize
-        if self._kernel:
-            cwt_length_rule(self.n_up, itemsize,
-                            5 if order2 else (2 if self.ssq else 1))
-        if self.ssq:
-            scatter_rule(self.nbins, itemsize)
+        self._kernel = ((order2 or _kernel_route(self.wavelet, self.n_up))
+                        and cwt_kernel_fits(self.n_up, itemsize,
+                                            5 if order2 else
+                                            (2 if self.ssq else 1)))
+        self._fits = not self.ssq or scatter_fits(self.nbins, itemsize)
         self._table = None
         if (self._kernel and
                 getattr(self.wavelet.fn, 'kernel_params', None) is None):
@@ -373,7 +397,7 @@ class StreamingSSQCWT(_StreamingBase):
             Wx, k = cwt_bins(xh, self._scales_t, self.wavelet, self.n_up, h,
                              c, dt, True, self.params, self.gamma,
                              self.flipud, self._table)
-            Tx = scatter_kv(Wx, k, self._const_t, self.nbins)
+            Tx = self._scatter(Wx, k)
         else:
             Tx = None
             Wx, _ = cwt_fused(xh, self._scales_t, self.wavelet, self.n_up,
@@ -401,7 +425,9 @@ class StreamingSSQCWT2(StreamingSSQCWT):
     `ssq_cwt2` runs. Same latency/reliability contract as first order,
     with `support_np` widened by ``(halo_mult + 2) / halo_mult``: the
     t- and t^2-weighted kernels carry their mass ~1-2 sigma_t further
-    out than psi itself. A wavelet `ssq_cwt2` refuses raises here."""
+    out than psi itself. A wavelet `ssq_cwt2` refuses raises here. Past
+    the kernel's rule for five planes each chunk runs `wsst2_general`
+    on the window, then the generic scatter by the bins of w2."""
 
     def __init__(self, *args, **kw):
         kw.pop('ssq', None)
@@ -417,11 +443,18 @@ class StreamingSSQCWT2(StreamingSSQCWT):
         super()._build(order2=True)
 
     def _body(self, w):
+        if not self._kernel:
+            W, w2 = wsst2_general(self._padded(w), None, self._scales_t,
+                                  self.wavelet, self.chunk, self.dt,
+                                  self.gamma, n1=self.history)
+            return indexed_sum_onfly(W, w2, None, self._const_t,
+                                     params=self.params, flipud=self.flipud,
+                                     device=self.device), W
         xh, one = _one_signal(rfft(self._padded(w)).contiguous())
         W, k = cwt_bins2(xh, self._scales_t, self.wavelet, self.n_up,
                          self.history, self.chunk, self.dt, self.params,
                          self.gamma, self.flipud, self._table)
-        return _rebatch(one, scatter_kv(W, k, self._const_t, self.nbins), W)
+        return _rebatch(one, self._scatter(W, k), W)
 
 
 class StreamingCWT(StreamingSSQCWT):
@@ -501,22 +534,45 @@ class StreamingSSQSTFT(_StreamingBase):
                           gamma=self.gamma, flipud=self.flipud)
         self._build(plan)
 
-    def _build(self, plan):
+    def _route(self, planes):
+        """Whether the table kernel takes the window (its rule for
+        `planes` planes and, with ssq, the scatters'), as the offline
+        hop-1 calls decide it; sets `self._fits`."""
         itemsize = 2 * np.dtype(self.dtype).itemsize
-        stft_length_rule(self.Np2, itemsize, 2 if self.ssq else 1)
-        if self.ssq:
-            scatter_rule(self.nbins, itemsize)
-        self._H, self._Hd = stft_tables(
-            plan.window, plan.diff_window, self.n_fft, self.Np2,
-            self.modulated, self.dtype, self.device, self.ssq)
+        self._fits = not self.ssq or scatter_fits(self.nbins, itemsize)
+        self._general = not (self._fits and stft_kernel_fits(
+            self.Np2, itemsize, planes))
+
+    def _build(self, plan):
+        self._route(2 if self.ssq else 1)
+        self._windows = [plan.window, plan.diff_window][:1 + self.ssq]
+        if not self._general:
+            self._H, self._Hd = stft_tables(
+                plan.window, plan.diff_window, self.n_fft, self.Np2,
+                self.modulated, self.dtype, self.device, self.ssq)
+
+    def _general_body(self, w):
+        """(Tx, Sx) of the window on the general route, as the offline
+        `ssq_stft` runs it there."""
+        planes = stft_general(w, self._windows, self.n_fft, None,
+                              self.modulated, padded=True)
+        if not self.ssq:
+            return None, planes[0]
+        Sx, dSx = planes
+        dSx.mul_(self.fs)
+        return squeeze_planes(
+            Sx, dSx, self._Sfs_t, self._const_t, self.params, self.gamma,
+            self.flipud, self.squeezing,
+            lambda S: _apply_squeezing(S, self.squeezing), self._fits), Sx
 
     def _body(self, w):
+        if self._general:
+            return self._general_body(w)
         xh, one = _one_signal(fft(w, n=self.Np2).contiguous())
         if self.ssq:
             Sx, k = stft_conv(xh, self._H, self._Hd, self.chunk, self.fs,
                               self._bins)
-            Tx = scatter_kv(_apply_squeezing(Sx, self.squeezing), k,
-                            self._const_t, self.nbins)
+            Tx = self._scatter(_apply_squeezing(Sx, self.squeezing), k)
         else:
             Tx = None
             Sx = stft_conv(xh, self._H, None, self.chunk, self.fs)[0]
@@ -534,22 +590,31 @@ class StreamingSSQSTFT2(StreamingSSQSTFT):
     share the finite `n_fft` support, so the window ``history + chunk +
     lookahead`` pins every emitted column to the offline `ssq_stft2`
     geometry. Each chunk runs the FSST2 mode of the STFT table kernel
-    (`fsst2_conv`, B7) over the five tables, built once, then B2."""
+    (`fsst2_conv`, B7) over the five tables, built once, then B2; past
+    either rule `fsst2_general` on the window, then the generic scatter
+    by the bins of w2, as the offline `ssq_stft2` runs it there."""
 
     def _build(self, plan):
-        itemsize = 2 * np.dtype(self.dtype).itemsize
-        stft_length_rule(self.Np2, itemsize, 5)
-        scatter_rule(self.nbins, itemsize)
-        bank = _fsst2_bank(self._window_spec, self.win_len, self.n_fft,
-                           self.dtype)
-        self._tables = fsst2_tables(bank, self.n_fft, self.Np2,
-                                    self.modulated, self.dtype, self.device)
+        self._route(5)
+        self._bank = _fsst2_bank(self._window_spec, self.win_len,
+                                 self.n_fft, self.dtype)
+        if not self._general:
+            self._tables = fsst2_tables(self._bank, self.n_fft, self.Np2,
+                                        self.modulated, self.dtype,
+                                        self.device)
 
     def _body(self, w):
+        if self._general:
+            V, w2 = fsst2_general(w, self._bank, self.n_fft, None,
+                                  self.modulated, self.fs, self._Sfs_t,
+                                  self.gamma, padded=True)
+            return indexed_sum_onfly(
+                _apply_squeezing(V, self.squeezing), w2, None,
+                self._const_t, params=self.params, flipud=self.flipud,
+                device=self.device), V
         xh, one = _one_signal(fft(w, n=self.Np2).contiguous())
         Sx, k = fsst2_conv(xh, self._tables, self.chunk, self.fs, self._bins)
-        Tx = scatter_kv(_apply_squeezing(Sx, self.squeezing), k,
-                        self._const_t, self.nbins)
+        Tx = self._scatter(_apply_squeezing(Sx, self.squeezing), k)
         return _rebatch(one, Tx, Sx)
 
 

@@ -27,19 +27,21 @@ level, shared by the blocks), each block's window padded by reflection to
 planes (`ops/cwt_cuda.py::cwt_fused(..., derivative=True)`, B3) at
 scales/2^j, dt 2^j, n1 = a_j, N = L_j; `interp2` j times and the crop;
 then the phase transform, `compute_bins` and the generic scatter (B5), as
-the JAX package's body runs. A wavelet off the kernel's route takes
-`models/cwt.py::cwt_general`. The scales, pad indices, wavelet tables
+the JAX package's body runs. A wavelet off the kernel's route, or a
+block whose n_up is past the kernel's rule (`ops/cwt_cuda.py::
+cwt_kernel_fits`, asked per block when the plan is made), takes
+`models/cwt.py::cwt_general`; the scatter is `ops/ssq_kernels.py::
+scatter_general` past its rule. The scales, pad indices, wavelet tables
 and FIR taps of every block are built once, with the plan.
 """
 import numpy as np
 import torch
 
 from .models.cwt import cwt_general, _kernel_route
-from .ops.cwt_cuda import cwt_fused, cwt_length_rule, wavelet_table
+from .ops.cwt_cuda import cwt_fused, cwt_kernel_fits, wavelet_table
 from .ops.fft import next_fft_len, rfft
 from .ops.multirate import conv_valid, halfband_fir, interp2
 from .ops.pad import _pad_index
-from .ops.ssq_cuda import scatter_rule
 from .streaming import _StreamingBase, _one_signal, _rebatch
 
 __all__ = ['StreamingMultirateSSQCWT']
@@ -159,8 +161,9 @@ class StreamingMultirateSSQCWT(_StreamingBase):
     def _build(self):
         """Per block: its rows' scales at the block's rate, the window
         slice or cascade level it transforms, the reflection index to its
-        `next_fft_len`, the CWT column span, the crop, the kernel's length
-        rule and the wavelet table where the kernel reads one."""
+        `next_fft_len`, the CWT column span, the crop, its route (the
+        kernel's where the wavelet takes it and n_up fits its rule) and
+        the wavelet table where the kernel reads one."""
         h, c = self.history, self.chunk
         tdt = getattr(torch, self.dtype)
         itemsize = 2 * np.dtype(self.dtype).itemsize
@@ -183,9 +186,8 @@ class StreamingMultirateSSQCWT(_StreamingBase):
                 for _ in range(j):
                     n = (n - self.taps + 1 + 1) // 2
             n_up = next_fft_len(n)
-            kernel = _kernel_route(self.wavelet, n_up)
-            if kernel:
-                cwt_length_rule(n_up, itemsize, 2 if self.ssq else 1)
+            kernel = (_kernel_route(self.wavelet, n_up) and
+                      cwt_kernel_fits(n_up, itemsize, 2 if self.ssq else 1))
             plans.append(dict(
                 j=j, scales=scales, span=span, n1=n1, N=N, crop=crop,
                 n_up=n_up, dt=self.dt * 2 ** j, kernel=kernel,
@@ -195,8 +197,6 @@ class StreamingMultirateSSQCWT(_StreamingBase):
                        if kernel and not synth else None)))
         self._plans = plans
         self._kernel = all(p['kernel'] for p in plans)
-        if self.ssq:
-            scatter_rule(self.nbins, itemsize)
 
     def _rows(self, wj, p):
         """(Wx, dWx or None) of one block's rows, at its own rate, over

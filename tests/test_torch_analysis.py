@@ -39,8 +39,8 @@ import ssqueezepy_tpu_torch as tstq
 from ssqueezepy_tpu_torch import experimental as texp, toolkit as ttk
 from ssqueezepy_tpu_torch.models import test_signals as tts
 from ssqueezepy_tpu_torch.models.ridge_extraction import _normalized
-from ssqueezepy_tpu_torch.ops.ridge_cuda import (ridge_forward, ridge_rule,
-                                                 ridge_trace)
+from ssqueezepy_tpu_torch.ops.ridge_cuda import (ridge_forward, ridge_plan,
+                                                 ridge_resident, ridge_trace)
 from torch_jax_reference import xla_reference  # noqa: F401
 
 DTYPES = {'float32': (np.complex64, np.finfo(np.float32).eps),
@@ -99,12 +99,15 @@ def test_ridge_dp_vs_jax(dtype, B):
 
 
 def test_ridge_rule():
-    """F bounded by one block's shared memory, on every device."""
-    ridge_rule(11264, 4)
-    ridge_rule(5632, 8)
-    for F, itemsize in ((11265, 4), (5633, 8)):
-        with pytest.raises(NotImplementedError, match='C1b'):
-            ridge_rule(F, itemsize)
+    """The resident plan up to one block's shared memory of rows (F =
+    11264 in float32, 5632 in float64), the row-tiled plan past it on
+    every device, up to F = 10^6: no F raises (C1b before the tiled
+    mode)."""
+    assert ridge_resident(11264, 4) and ridge_resident(5632, 8)
+    assert not ridge_plan(11264, 4).tiled and not ridge_plan(5632, 8).tiled
+    for F, itemsize in ((11265, 4), (5633, 8), (10 ** 6, 4), (10 ** 6, 8)):
+        assert not ridge_resident(F, itemsize)
+        assert ridge_plan(F, itemsize).tiled
 
 
 def _jax_state(Tf, dtype, eps, ridges, bw):

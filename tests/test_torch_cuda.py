@@ -2233,15 +2233,21 @@ def _ridge_inputs(B, T, F, dtype, seed, dev):
 
 
 def _ridge_vs_plain(e, v, eps, plan=None):
-    """Both ridge kernels, one launch each, against their plain versions:
-    pe bit-identical (NaN cells NaN on both sides), the indices equal."""
+    """Both ridge kernels, one launch each (on the counters of the plan's
+    mode), against their plain versions: pe bit-identical (NaN cells NaN
+    on both sides), the indices equal."""
     from ssqueezepy_tpu_torch.ops.ridge_cuda import (
-        ridge_forward, ridge_forward_plain, ridge_trace, ridge_trace_plain)
-    f0, t0 = ridge_forward.launches, ridge_trace.launches
+        ridge_forward, ridge_forward_plain, ridge_plan, ridge_trace,
+        ridge_trace_plain)
+    B, _, F = e.shape
+    mode = (plan or ridge_plan(F, e.element_size(), batch=B)).tiled
+    attr = 'tiled_launches' if mode else 'launches'
+    f0, t0 = getattr(ridge_forward, attr), getattr(ridge_trace, attr)
     pe = ridge_forward(e, v, 2., plan=plan)
-    r = ridge_trace(pe, e, v, 2., eps)
+    r = ridge_trace(pe, e, v, 2., eps, plan=plan)
     torch.cuda.synchronize()
-    assert (ridge_forward.launches - f0, ridge_trace.launches - t0) == (1, 1)
+    assert (getattr(ridge_forward, attr) - f0,
+            getattr(ridge_trace, attr) - t0) == (1, 1)
     pe_p = ridge_forward_plain(e, v, 2.)
     nan = pe_p.isnan()
     assert torch.equal(pe.isnan(), nan)
@@ -2262,20 +2268,56 @@ def test_ridge_kernels_vs_plain(dev, B, T, F, dtype):
     batch. F = 5 runs fewer rows than the cluster's 8 CTAs, F = 9 one more
     (spare CTAs); B = 20 runs 160 CTAs, more than fit at once (cluster
     waves); T = 1 and 2; F = 1100 recomputes P (F = 5632 in float64 and
-    11264 in float32, the rule's edge, also with one slot of e in the
-    trace); F = 11264 in float64 is past the rule and raises on the card
-    as on the CPU."""
+    11264 in float32, the resident plan's edge, also with one slot of e in
+    the trace); F = 11264 in float64 is past the resident plan and runs
+    the row-tiled mode."""
     from ssqueezepy_tpu_torch.ops.ridge_cuda import ridge_plan
-    if F * np.dtype(dtype).itemsize > 11264 * 4:
-        e = torch.zeros((B, T, F), dtype=getattr(torch, dtype), device=dev)
-        with pytest.raises(NotImplementedError, match='C1b'):
-            stq.ops.ridge_cuda.ridge_forward(e, e[0, 0], 2.)
-        return
     e, v = _ridge_inputs(B, T, F, dtype, B + T, dev)
-    plan = ridge_plan(F, e.element_size())
-    assert plan.clusters == min(8, F)
-    assert plan.resident == (F <= 293)
+    plan = ridge_plan(F, e.element_size(), batch=B)
+    assert plan.tiled == (F * e.element_size() > 11264 * 4)
+    if not plan.tiled:
+        assert plan.clusters == min(8, F)
+        assert plan.resident == (F <= 293)
     _ridge_vs_plain(e, v, float(np.finfo(dtype).eps))
+
+
+@pytest.mark.parametrize('B,T,F,dtype', [
+    (1, 24, 11265, 'float32'), (1, 24, 16385, 'float32'),
+    (2, 12, 16385, 'float32'), (1, 24, 5633, 'float64'),
+    (1, 24, 8193, 'float64'), (3, 40, 1100, 'float64'),
+    (2, 1, 5633, 'float64'), (1, 2, 11265, 'float32'), (2, 30, 7, 'float32')])
+def test_ridge_tiled_vs_plain(dev, B, T, F, dtype):
+    """The row-tiled mode past the resident plan (F = 11265 and 16385 in
+    float32, 5633 and 8193 in float64; F = 1100 and 7 forced tiled over a
+    batch; T = 1 and 2) against the plain versions: pe bit-identical, the
+    indices equal, one launch each on the tiled counters."""
+    from ssqueezepy_tpu_torch.ops.ridge_cuda import ridge_plan
+    e, v = _ridge_inputs(B, T, F, dtype, B + T + F, dev)
+    plan = ridge_plan(F, e.element_size(), tiled=True, batch=B)
+    assert plan.tiled and plan.chunks * plan.chunk >= F
+    _ridge_vs_plain(e, v, float(np.finfo(dtype).eps), plan=plan)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ridge_tiled_vs_resident(dev, dtype):
+    """At F = 293 the tiled mode forced against the resident mode: pe
+    bit-identical, the indices equal, with NaN cells and exact ties (a
+    NaN of e spreads through every later column of pe; constant columns
+    tie every f)."""
+    from ssqueezepy_tpu_torch.ops.ridge_cuda import (ridge_forward,
+                                                     ridge_plan, ridge_trace)
+    e, v = _ridge_inputs(3, 400, 293, dtype, 11, dev)
+    e[:, ::9] = 1.
+    e[1, 350, 17] = float('nan')
+    e[2, 399, ::5] = float('nan')
+    eps = float(np.finfo(dtype).eps)
+    pe, r = _ridge_vs_plain(e, v, eps, plan=ridge_plan(
+        293, e.element_size(), tiled=True, batch=3))
+    pe_r = ridge_forward(e, v, 2.)
+    nan = pe_r.isnan()
+    assert torch.equal(pe.isnan(), nan) and pe[1, 351:].isnan().all()
+    assert torch.equal(pe[~nan], pe_r[~nan])
+    assert torch.equal(r, ridge_trace(pe_r, e, v, 2., eps))
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])

@@ -6,7 +6,9 @@ kernel run here.
 
   * the plan: every CTA's row range, the shared bytes of both kernels
     against `_SMEM_MAX`, P resident at the main path's F = 293, the
-    trace's ring at least two deep, F past `ridge_rule` raising C1b;
+    trace's ring at least two deep; F past `ridge_resident` taking the
+    row-tiled mode, whose shared bytes do not grow with F, for every F up
+    to 20000 and a sweep to 10^6;
   * the forward's map (`ridge_forward_kernel`): a cluster's CTAs, their
     warps' row pairs and the lanes' 16-byte pieces of g cover every
     (f, g) (once, but for the repeated last piece of the register mode),
@@ -19,7 +21,14 @@ kernel run here.
     the full/empty mbarrier parities admit each row exactly when it has
     landed (a randomised interleaving of producer and walker), and the
     walker's lane split, last-qualifying max and argmin (where nothing
-    qualifies) give the plain version's indices.
+    qualifies) give the plain version's indices;
+  * the row-tiled mode (`ridge_forward_tiled_kernel`,
+    `ridge_trace_tiled_kernel`): the work items (batch row, row tile,
+    chunk of g) cover every (f, g) once per column, the partial minima
+    in their two parities and the combination into pe[t-1] give pe bit
+    for bit, each column written once; the trace's tiles from the high-f
+    end, the stop at the first tile that qualifies and the block argmin
+    give the plain version's indices.
 
 The mirrors follow the kernels line for line: change both together.
 """
@@ -29,11 +38,15 @@ import numpy as np
 import pytest
 import torch
 
+from ssqueezepy_tpu_torch.ops import ridge_cuda
 from ssqueezepy_tpu_torch.ops.ridge_cuda import (_E_RING, _SMEM_MAX,
-                                                 _span_slot,
+                                                 _TILE_G, _TILE_ROWS,
+                                                 _TILE_THREADS,
+                                                 _TRACE_SCAN,
+                                                 _TRACE_THREADS, _span_slot,
                                                  ridge_forward_plain,
                                                  ridge_penalty, ridge_plan,
-                                                 ridge_rule,
+                                                 ridge_resident,
                                                  ridge_trace_plain)
 
 FS = (1, 5, 7, 8, 9, 40, 293, 1100, 5632, 11264)
@@ -101,12 +114,38 @@ def test_plan_cluster_sizes(clusters):
         ridge_plan(293, 4, clusters=17)
 
 
-@pytest.mark.parametrize('F,isz', [(11265, 4), (5633, 8), (11264, 8)])
+@pytest.mark.parametrize('F,isz', [(11265, 4), (5633, 8), (11264, 8),
+                                   (10 ** 6, 4), (10 ** 6, 8)])
 def test_plan_past_rule_raises(F, isz):
-    """F past `ridge_rule` raises naming C1b, in the plan as in the rule."""
-    for fn in (ridge_rule, ridge_plan):
-        with pytest.raises(NotImplementedError, match='C1b'):
-            fn(F, isz)
+    """F past `ridge_resident` builds the row-tiled plan (it raised C1b
+    before that mode): shared bytes within `_SMEM_MAX` and independent of
+    F, row tiles covering [0, F) once, S chunks of g covering it with no
+    empty chunk, at every batch size."""
+    assert not ridge_resident(F, isz)
+    for batch in (1, 3, 64):
+        p = ridge_plan(F, isz, batch=batch)
+        assert p.tiled and p.forward_smem == 2 * _TILE_G * isz <= _SMEM_MAX
+        assert p.trace_smem == 0 and p.clusters is None
+        assert [f for lo, hi in p.row_ranges for f in range(lo, hi)] == \
+            list(range(F)) if F < 10 ** 5 else p.row_ranges[-1][1] == F
+        assert all(hi - lo <= _TILE_ROWS for lo, hi in p.row_ranges)
+        assert p.chunks * p.chunk >= F > (p.chunks - 1) * p.chunk
+        assert 1 <= p.chunks <= -(-F // _TILE_G)
+
+
+@pytest.mark.parametrize('isz', [4, 8])
+def test_plan_every_F(isz):
+    """Every F up to 20000 (both modes' edges), then every 397th up to
+    10^6 and 10^6 itself: a plan builds, the resident one exactly where
+    `ridge_resident` admits F (11264 in float32, 5632 in float64), every
+    plan's shared bytes within `_SMEM_MAX`; no F raises."""
+    edge = 11264 * 4 // isz
+    Fs = list(range(1, 20001)) + list(range(20001, 10 ** 6, 397)) + \
+        [10 ** 6]
+    for F in Fs:
+        p = ridge_plan(F, isz)
+        assert p.tiled == (F > edge) == (not ridge_resident(F, isz))
+        assert p.forward_smem <= _SMEM_MAX and p.trace_smem <= _SMEM_MAX
 
 
 # ---- the forward's map -------------------------------------------------
@@ -379,3 +418,184 @@ def test_trace_mirror_nan_and_ties():
     assert torch.equal(_trace_mirror(pe, e, v, 2., eps, plan, 1), ref)
     P = ridge_penalty(v, 2.)
     assert P.shape == (16, 16)
+
+
+# ---- the row-tiled mode ---------------------------------------------------
+def _tiled_forward_mirror(e, v, pen, plan):
+    """`ridge_forward_tiled_kernel`: per column, every work item (b, row
+    tile i, chunk s) in the grid's order, its partial minima over the
+    chunk into part[t % 2][b][s], the items of tile 0 writing pe[t-1] as
+    they combine it; returns pe, how often each (f, g) candidate of
+    column 1 was taken and each column's count of candidates, and how
+    often each pe cell was written."""
+    B, T, F = e.shape
+    dtype = DTYPE[e.element_size()]
+    en, vn = e.numpy(), v.numpy()
+    pen = dtype(pen)
+    S, chunk = plan.chunks, plan.chunk
+    nf = len(plan.row_ranges)
+    part = np.full((2, B, S, F), np.nan, dtype)   # stale contents
+    pe = np.full_like(en, np.nan)
+    written = np.zeros(en.shape, int)
+    seen = np.zeros((F, F), np.uint8)
+    taken = np.zeros(T, np.int64)
+    pe[:, 0] = en[:, 0]
+    written[:, 0] += 1
+
+    def combine(parts, col):
+        m = parts.min(axis=0) if not np.isnan(parts).any(axis=0).any() \
+            else np.where(np.isnan(parts).any(axis=0), dtype(np.nan),
+                          np.nanmin(np.where(np.isnan(parts), np.inf,
+                                             parts), axis=0))
+        return (col + m).astype(dtype)
+
+    for t in range(1, T):
+        pin, pout = part[(t - 1) & 1], part[t & 1]
+        for it in range(B * nf * S):
+            s, r = it % S, it // S
+            i, b = r % nf, r // nf
+            g0, g1 = s * chunk, min(F, s * chunk + chunk)
+            fa = i * _TILE_ROWS + np.arange(_TILE_THREADS)
+            rows = np.concatenate([fa, fa + _TILE_THREADS])
+            vf = vn[np.minimum(rows, F - 1)]
+            acc = np.full(len(rows), np.inf, dtype)
+            nan = np.zeros(len(rows), bool)
+            for gt in range(g0, g1, _TILE_G):
+                n = min(_TILE_G, g1 - gt)
+                g = gt + np.arange(n)
+                if t == 1:
+                    x = en[b, 0, g]
+                else:
+                    x = combine(pin[b, :, g].T, en[b, t - 1, g])
+                    if i == 0:
+                        pe[b, t - 1, g] = x
+                        written[b, t - 1, g] += 1
+                d = (vf[:, None] - vn[g][None, :]).astype(dtype)
+                c = (x[None, :] + (pen * (d * d)).astype(dtype)).astype(
+                    dtype)
+                nan |= np.isnan(c).any(axis=1)
+                acc = np.minimum(acc, np.where(np.isnan(c), np.inf,
+                                               c).min(axis=1))
+                ok = rows < F
+                taken[t] += ok.sum() * n
+                if b == 0 and t == 1:
+                    seen[np.ix_(rows[ok], g)] += 1
+            val = np.where(nan, dtype(np.nan), acc).astype(dtype)
+            ok = rows < F
+            pout[b, s, rows[ok]] = val[ok]
+    if T > 1:
+        pin = part[(T - 1) & 1]
+        for b in range(B):
+            pe[b, T - 1] = combine(pin[b], en[b, T - 1])
+            written[b, T - 1] += 1
+    return torch.as_tensor(pe), seen, taken, written
+
+
+@pytest.mark.parametrize('B,T,F', [(2, 6, 1100), (1, 4, 2100), (3, 4, 40),
+                                   (1, 1, 600), (2, 2, 513)])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_tiled_forward_mirror_vs_plain(B, T, F, dtype):
+    """The tiled forward's items cover every (f, g) once per column, each
+    pe cell is written once, and pe equals the plain version bit for bit
+    with NaN cells (a NaN in e spreads to every later column), at the
+    plan's chunks (F = 1100: 3 row tiles by 2 chunks; 2100: 5 by 3) and
+    at one chunk."""
+    e, v = _inputs(B, T, F, dtype, F + T)
+    if T > 3:
+        e[-1, 2, F // 3] = float('nan')
+    ref = ridge_forward_plain(e, v, 2.)
+    plan = ridge_plan(F, e.element_size(), tiled=True, batch=B)
+    for p in (plan, plan._replace(chunks=1, chunk=F)):
+        pe, seen, taken, written = _tiled_forward_mirror(e, v, 2., p)
+        assert (seen == 1).all() if T > 1 else True
+        assert (taken[1:] == B * F * F).all() and (written == 1).all()
+        assert torch.equal(pe.isnan(), ref.isnan())
+        assert torch.equal(pe[~pe.isnan()], ref[~ref.isnan()])
+    if F == 1100:
+        assert (len(plan.row_ranges), plan.chunks) == (3, 2)
+
+
+def _tiled_trace_mirror(pe, e, v, pen, eps, W=_TRACE_THREADS * _TRACE_SCAN):
+    """`ridge_trace_tiled_kernel`: per step the tiles [max(0, hi - W), hi)
+    from hi = F down, each thread's last qualifying f of its kScan, the
+    block's max, the stop at the first tile with one; the block argmin
+    where none qualifies. Returns the indices and the tiles scanned."""
+    B, T, F = pe.shape
+    dtype = DTYPE[pe.element_size()]
+    p, en, vn = pe.numpy(), e.numpy(), v.numpy()
+    pen, eps = dtype(pen), dtype(eps)
+    out = np.empty((B, T), np.int64)
+    tiles = 0
+
+    def argmin(row):
+        if np.isnan(row).any():
+            return int(np.argmax(np.isnan(row)))
+        return int(np.argmin(row))
+    for b in range(B):
+        r = argmin(p[b, T - 1])
+        out[b, T - 1] = r
+        for t in range(T - 2, -1, -1):
+            val = dtype(p[b, t + 1, r] - en[b, t + 1, r])
+            vr = vn[r]
+            last, hi = -1, F
+            while hi > 0 and last < 0:
+                lo = max(0, hi - W)
+                tiles += 1
+                # thread tid's f: lo + tid + 512 j, j < kScan (W = 6144);
+                # a narrower W keeps the first W // 512 of them
+                f = lo + np.arange(_TRACE_THREADS)[:, None] + \
+                    _TRACE_THREADS * np.arange(-(-W // _TRACE_THREADS))
+                fc = np.minimum(f, hi - 1)
+                d = (vr - vn[fc]).astype(dtype)
+                s = (p[b, t, fc] + (pen * (d * d)).astype(dtype)).astype(
+                    dtype)
+                ok = (np.abs((val - s).astype(dtype)) < eps) & (f < hi) & \
+                    (f < lo + W)
+                mine = np.where(ok, f, -1).max(axis=1)   # each thread's
+                last = int(mine.max())                   # the block's max
+                hi -= W
+            r = last if last >= 0 else argmin(p[b, t])
+            out[b, t] = r
+    return torch.as_tensor(out), tiles
+
+
+@pytest.mark.parametrize('B,T,F,W', [(2, 30, 293, None),
+                                     (1, 6, 12300, None), (2, 25, 300, 64),
+                                     (1, 20, 1000, 96)])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_tiled_trace_mirror_vs_plain(B, T, F, W, dtype):
+    """The tiled trace's scan from the high-f end gives the plain
+    version's indices, at the kernel's tile (6144 f: F = 12300 takes three
+    tiles where the ridge is low) and at narrow tiles that split the rows
+    into many."""
+    e, v = _inputs(B, T, F, dtype, T + F)
+    e[:, ::5] = 0.5                          # constant columns: ties
+    eps = float(np.finfo(dtype).eps)
+    pe = ridge_forward_plain(e, v, 2.)
+    ref = ridge_trace_plain(pe, e, v, 2., eps)
+    got, tiles = _tiled_trace_mirror(pe, e, v, 2., eps,
+                                     *(() if W is None else (W,)))
+    assert torch.equal(got, ref)
+    assert tiles >= B * (T - 1)
+
+
+def test_tiled_trace_mirror_nan():
+    """NaN rows in the tiled trace: the argmin takes the first NaN, and
+    nothing qualifies against a NaN val."""
+    e, v = _inputs(2, 30, 200, 'float32', 5)
+    e[:, 20:23, 3] = float('nan')
+    pe = ridge_forward_plain(e, v, 2.)
+    assert pe.isnan().any()
+    eps = float(np.finfo(np.float32).eps)
+    got, _ = _tiled_trace_mirror(pe, e, v, 2., eps, 64)
+    assert torch.equal(got, ridge_trace_plain(pe, e, v, 2., eps))
+
+
+def test_tiled_plan_forced_and_lowered_limit(monkeypatch):
+    """`tiled=True` at the main path's F = 293 (one row tile, one chunk);
+    the resident plan's limit lowered takes F = 300 to the tiled mode."""
+    p = ridge_plan(293, 4, tiled=True)
+    assert p.tiled and p.row_ranges == ((0, 293),) and p.chunks == 1
+    assert not ridge_plan(293, 4).tiled
+    monkeypatch.setattr(ridge_cuda, '_SMEM_MAX', 1024)
+    assert ridge_plan(300, 8).tiled and not ridge_resident(300, 8)

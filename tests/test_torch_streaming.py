@@ -467,18 +467,18 @@ def test_plans_default_to_cuda_and_raise_without_card():
             make()
 
 
-# the plan builders of the streaming modules (and the table/window
-# builders the kernels' wrappers reach): none may run once a plan streams
+# the plan builders of the streaming modules (the route's predicates among
+# them, and the table/window builders the kernels' wrappers reach): none
+# may run once a plan streams
 _BUILDERS = [
     ('ssqueezepy_tpu_torch.streaming', n) for n in (
         '_ssq_cwt_plan', 'stft_plan', '_natural_bins', 'stft_tables',
         'fsst2_tables', '_fsst2_bank', 'wavelet_table', 'reflect_index',
-        '_pad_index', 'cwt_length_rule', 'stft_length_rule', 'scatter_rule',
+        '_pad_index', 'cwt_kernel_fits', 'stft_kernel_fits', 'scatter_fits',
         'time_resolution', 'resolve_wavelet', '_device_consts',
         '_supports_order2')] + [
     ('ssqueezepy_tpu_torch.streaming_multirate', n) for n in (
-        'halfband_fir', 'wavelet_table', '_pad_index', 'cwt_length_rule',
-        'scatter_rule')] + [
+        'halfband_fir', 'wavelet_table', '_pad_index', 'cwt_kernel_fits')] + [
     ('ssqueezepy_tpu_torch.models.ssq_cwt', 'process_scales'),
     ('ssqueezepy_tpu_torch.models.cwt', 'wavelet_table'),
     ('ssqueezepy_tpu_torch.ops.cwt_cuda', 'wavelet_table'),

@@ -192,6 +192,82 @@ def full_world(rank, world, b, s, t):
     return out if rank == 0 else None
 
 
+SC12 = 2. ** (1.5 + np.arange(12) / 2)   # the past-ceiling tests' scales
+
+
+def _past_ceilings(cwt=True, stft=True, scatter=True):
+    """The kernels' rules made to refuse every shape in this rank (their
+    limits set to 0, the launch plans' memos cleared), as
+    `tests/test_torch_past_ceiling.py::past_ceilings` does in-process;
+    the limits left out are restored. Returns the general functions
+    {name: fn} whose `calls` count the routes."""
+    from ssqueezepy_tpu_torch.models import (cwt as m_cwt, ssq_cwt2 as m2,
+                                             ssq_stft as m_ssq, stft as m_st)
+    from ssqueezepy_tpu_torch.ops import cwt_cuda, ssq_cuda, stft_cuda
+    from ssqueezepy_tpu_torch.ops.ssq_kernels import scatter_general
+    saved = _past_ceilings.__dict__.setdefault('limits', (
+        cwt_cuda._SMEM_MAX, stft_cuda._MAX_LEN, ssq_cuda._SMEM_BUDGET))
+    cwt_cuda._SMEM_MAX = 0 if cwt else saved[0]
+    stft_cuda._MAX_LEN = 0 if stft else saved[1]
+    ssq_cuda._SMEM_BUDGET = 0 if scatter else saved[2]
+    for fn in (cwt_cuda.bins_plan, stft_cuda.launch_plan):
+        fn.cache_clear()
+    return {f.__name__: f for f in (
+        m_cwt.cwt_general, m2.wsst2_general, m_st.stft_general,
+        m_ssq.fsst2_general, scatter_general)}
+
+
+def past_ceiling_world(rank, world, b, s):
+    """Every sharded plan past the kernels' rules on (b, s) meshes: a
+    ('batch', 'scale') one, a ('batch', 'time') one and a three-axis one
+    with s on 'time', float64 at N = 2048; first with every rule refusing
+    every shape, then with the scatters' rule alone. Each leg's result
+    (the global arrays) beside the calls its general functions made."""
+    from ssqueezepy_tpu_torch import parallel as par
+    mesh = par.make_mesh(batch=b, scale=s, device_type='cpu')
+    tmesh = par.make_mesh_time(batch=b, time=s, device_type='cpu')
+    m3 = par.make_mesh3(batch=b, scale=1, time=s, device_type='cpu')
+    x = noise((2 * b, 2048), np.float64)
+    kw = dict(wavelet=G64, scales=SC12, nv=None)
+    out = {}
+
+    def leg(name, fn):
+        before = {k: f.calls for k, f in general.items()}
+        res = fn()
+        res = tuple(_np(a) for a in (res if isinstance(res, tuple)
+                                     else (res,)))
+        out[name] = (res, {k: f.calls - before[k] for k, f in
+                           general.items() if f.calls != before[k]})
+
+    def plan(cls, *a, **k):
+        p = cls(*a, **k)
+        return lambda: p.gather(*p(x))
+    general = _past_ceilings()
+    leg('cwt', lambda: par.sharded_cwt(x, mesh=mesh, **kw)[0])
+    leg('ssq', plan(par.ShardedSSQCWT, 2048, mesh=mesh, **kw))
+    leg('ssq_lebesgue', plan(par.ShardedSSQCWT, 2048, mesh=mesh,
+                             squeezing='lebesgue', **kw))
+    leg('cwt2', plan(par.ShardedSSQCWT2, 2048, mesh=mesh, **kw))
+    leg('time', plan(par.TimeShardedSSQCWT, 2048, mesh=tmesh, **kw))
+    leg('time_bins', plan(par.TimeShardedSSQCWT, 2048, mesh=tmesh,
+                          derivative=False, **kw))
+    p3 = par.FullShardedSSQCWT(2048, mesh=m3, **kw)
+    leg('full', lambda: p3.gather(p3(x)))
+    for sq in ('sum', 'abs'):
+        leg('stft_' + sq, plan(par.ShardedSSQSTFT, 2048, n_fft=96, mesh=mesh,
+                               dtype='float64', squeezing=sq))
+    leg('stft2', plan(par.ShardedSSQSTFT2, 2048, n_fft=96, mesh=mesh,
+                      dtype='float64'))
+    # the scatters' rule alone: the CWT kernel's routes (plain versions
+    # here) with `scatter_general` in B2's place
+    general = _past_ceilings(cwt=False, stft=False)
+    leg('ssq_scatter', plan(par.ShardedSSQCWT, 2048, mesh=mesh, **kw))
+    leg('time_bins_scatter', plan(par.TimeShardedSSQCWT, 2048, mesh=tmesh,
+                                  derivative=False, **kw))
+    out['jax_imported'] = 'jax' in sys.modules
+    return out if rank == 0 else None
+
+
 def health_world(rank, world):
     """The heartbeat on a live world of two, then a stall: rank 1 misses
     two beats, which trips rank 0's monitor; it then issues them, and both
