@@ -282,11 +282,21 @@ with a prime factor above 7 (section 10b); and the analysis layer,
      5 and 1c): (a) `extract_ridges(Tx, ssq_freqs, penalty=2, n_ridges=2,
      transform='stft')` on `ssq_stft(x, n_fft=32768, hop_len=128)` of the
      two-chirp `TestSignals` signal at N = 160000, float32 (F = 16385, T
-     = 1250): exactly 2 + 2 launches on the tiled counters, the median
-     relative error of `ssq_freqs[ridge]` against the two laws on the
-     interior 80% of columns < 10%, each kernel against its plain version
-     there (pe bit-identical, the indices equal) and timed beside it and
-     its bound, the public call's ms and peak; (b) the tiled kernels
+     = 1250): exactly 2 + 2 launches on the tiled counters and 2 of the
+     trace's prologue, the median relative error of `ssq_freqs[ridge]`
+     against the two laws on the interior 80% of columns < 10%, the
+     public call's ms and peak; on its first DP input, on white noise
+     (seed 8) through the same `ssq_stft` and on a constant e with
+     penalty 0 (the forward's worst case: every pair kept), the forward,
+     the trace's prologue and its walk against their plain versions (pe
+     bit-identical, the records equal, the indices equal), each timed
+     beside its plain version with the share of pairs the forward keeps
+     and the tiles the walk scans (the torch replicas
+     `tests/torch_ridge_tiled.py::ridge_forward_pairs`,
+     `ridge_trace_tiles`), the bound of all pairs
+     and of this input's work; the forward's per-column floor, timed on
+     e = 0 with penalty 2 (one tile of g kept per tile of rows); (b) the
+     tiled kernels
      against their plain versions at (1, 64, 16385) float32 and (1, 64,
      8193) float64, and forced at F = 293 against the resident mode on a
      (3, 2000, 293) batch with NaN cells and ties (bit-identical, equal
@@ -307,7 +317,7 @@ with a prime factor above 7 (section 10b); and the analysis layer,
      added to the `kernels` line's counts;
  13. prints one `{"kernels": [...]}` line (the band plan's six rows, the
      table modes' nine, then the ridge kernels' two and their tiled
-     mode's two, last), then, as the last line,
+     mode's three, last), then, as the last line,
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before those lines. Without a CUDA
@@ -2499,8 +2509,12 @@ def ridge_tiled_section(stq, dev, card, counters, xb_np, spec, scales):
                                                           _law_linear)
     from ssqueezepy_tpu_torch.ops import _build, cwt_cuda
     from ssqueezepy_tpu_torch.ops.ridge_cuda import (
-        ridge_forward, ridge_forward_plain, ridge_plan, ridge_trace,
-        ridge_trace_plain)
+        _trace_records, _trace_records_plain, _trace_walk, ridge_forward,
+        ridge_forward_plain, ridge_plan, ridge_trace, ridge_trace_plain)
+    # the torch replicas of the tiled kernels' skip tests (the CPU tests'
+    # module: torch only)
+    sys.path.insert(0, os.path.join(HERE, 'tests'))
+    from torch_ridge_tiled import ridge_forward_pairs, ridge_trace_tiles
     from ssqueezepy_tpu_torch.ops.ssq_kernels import scatter_general
     from ssqueezepy_tpu_torch.streaming import StreamingSSQSTFT
 
@@ -2521,11 +2535,13 @@ def ridge_tiled_section(stq, dev, card, counters, xb_np, spec, scales):
     run()                                     # first launches
     ridges, counts = launches_of(counters, run)
     moved = {k: v for k, v in counts.items() if v}
-    check(moved == {'ridge_forward_tiled': 2, 'ridge_trace_tiled': 2}
+    check(moved == {'ridge_forward_tiled': 2, 'ridge_trace_tiled': 2,
+                    'ridge_trace_prologue': 2}
           and ridges.shape == (T, 2) and F == 16385 and T == 1250,
           "extract_ridges(Tx, ssq_freqs, penalty=2, n_ridges=2, "
           "transform='stft') on ssq_stft(n_fft=%d, hop_len=%d) at (%d, %d): "
-          "exactly 2 forward + 2 trace launches of the tiled mode (%s)"
+          "exactly 2 forward + 2 trace launches of the tiled mode, each "
+          "trace with its prologue (%s)"
           % (n_fft, hop, F, T, moved))
     launches = dict(moved)
     dt = t[1] - t[0]
@@ -2545,56 +2561,145 @@ def ridge_tiled_section(stq, dev, card, counters, xb_np, spec, scales):
     E = (a * a)[None]
     del a
     e = _normalized(E, eps, torch.float32)
+    del E
     v = torch.as_tensor(np.asarray(sf, np.float32), device=dev)
     plan = ridge_plan(F, 4)
     n = ctypes.c_int(0)
     _build.check(_build.load('ridge_dp').ridge_forward_tiled_ctas(
         4, ctypes.addressof(n)), 'ridge_forward_tiled_ctas')
-    print("ridge tiled plan at F = %d float32: %d row tiles of %d rows by "
-          "%d chunks of %d g (%d work items per column), %d B of shared "
-          "memory per CTA, %d CTAs resident on the card (the grid's most); "
-          "trace one block of 512 threads per batch row"
-          % (F, len(plan.row_ranges), plan.rows, plan.chunks, plan.chunk,
-             len(plan.row_ranges) * plan.chunks, plan.forward_smem, n.value),
-          flush=True)
+    print("ridge tiled plan at F = %d float32: %d tiles of %d rows (and of "
+          "g), %d B of static shared arrays per forward CTA of %d warps, "
+          "%d CTAs resident on the card (the grid's most); trace: %d tiles "
+          "of %d f, records of %d B, a walk of one warp per batch row with "
+          "%d B of shared memory"
+          % (F, plan.tiles, plan.rows, plan.forward_smem, plan.warps,
+             n.value, plan.trace_tiles, plan.trace_rows, plan.trace_slot,
+             plan.trace_smem), flush=True)
     check(plan.tiled and n.value >= 1, "ridge tiled plan at F = %d: CTAs "
           "of the cooperative launch fit the card" % F)
-    fw_ms = cuda_ms(lambda: ridge_forward(e, v, 2.), reps=3, warm=1)
-    pe = ridge_forward(e, v, 2.)
-    tr_ms = cuda_ms(lambda: ridge_trace(pe, e, v, 2., eps), reps=3, warm=1)
-    r = ridge_trace(pe, e, v, 2., eps)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pe_p = ridge_forward_plain(e, v, 2.)
-    torch.cuda.synchronize()
-    fw_plain = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    r_p = ridge_trace_plain(pe, e, v, 2., eps)
-    torch.cuda.synchronize()
-    tr_plain = (time.perf_counter() - t0) * 1e3
-    err_f = float((pe - pe_p).abs().max())
-    err_t = int((r - r_p).abs().max())
-    check(torch.equal(pe, pe_p) and torch.equal(r, r_p),
-          "ridge kernels (tiled) vs plain on (1, %d, %d) float32: pe "
-          "bit-identical, indices equal (max |dpe| %.3g, max |dr| %d)"
-          % (T, F, err_f, err_t))
-    del pe_p, r_p, r, pe
+
+    def case(name, e, v, pen):
+        """The tiled kernels on one input against their plain versions
+        (pe bit-identical, NaN where NaN; records equal; indices equal),
+        timed beside them, with the kept pairs and scanned tiles of the
+        torch replicas and the bounds."""
+        fw_ms = cuda_ms(lambda: ridge_forward(e, v, pen), reps=3, warm=1)
+        pe = ridge_forward(e, v, pen)
+        pro_ms = cuda_ms(lambda: _trace_records(pe, e, v, plan),
+                         reps=3, warm=1)
+        rec, vr = _trace_records(pe, e, v, plan)
+        walk_ms = cuda_ms(lambda: _trace_walk(pe, e, v, pen, eps, rec, vr,
+                                              plan), reps=3, warm=1)
+        r = ridge_trace(pe, e, v, pen, eps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pe_p = ridge_forward_plain(e, v, pen)
+        torch.cuda.synchronize()
+        fw_plain = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rec_p, vr_p = _trace_records_plain(pe, e, v, plan)
+        torch.cuda.synchronize()
+        pro_plain = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        r_p = ridge_trace_plain(pe, e, v, pen, eps)
+        torch.cuda.synchronize()
+        tr_plain = (time.perf_counter() - t0) * 1e3
+        nan = pe_p.isnan()
+        k = plan.trace_tiles + 3
+        rn = rec_p[..., :k].isnan()
+        same = (torch.equal(pe.isnan(), nan) and torch.equal(pe[~nan],
+                                                             pe_p[~nan])
+                and torch.equal(rec[..., :k].isnan(), rn)
+                and torch.equal(rec[..., :k][~rn], rec_p[..., :k][~rn])
+                and torch.equal(vr, vr_p) and torch.equal(r, r_p))
+        d_pe = float((pe - pe_p)[~nan].abs().max()) if (~nan).any() else 0.
+        d_rec = float((rec[..., :k] - rec_p[..., :k])[~rn].abs().max())
+        d_r = int((r - r_p).abs().max())
+        check(same, "ridge kernels (tiled) vs plain on %s, (1, %d, %d) "
+              "float32, penalty %g: pe bit-identical, the prologue's "
+              "records and v ranges equal, indices equal (max |dpe| %.3g, "
+              "|drec| %.3g, |dr| %d)" % (name, T, F, pen, d_pe, d_rec, d_r))
+        del pe_p, rec_p, vr_p, r_p
+        pairs, tests = (int(x.sum()) for x in ridge_forward_pairs(pe, v,
+                                                                  pen))
+        tiles = int(ridge_trace_tiles(pe, e, v, pen, eps, r, plan).sum())
+        del pe, rec, vr, r
+        torch.cuda.empty_cache()
+        stride = plan.trace_slot // 4
+        out = dict(
+            fw_ms=fw_ms, pro_ms=pro_ms, walk_ms=walk_ms, fw_plain=fw_plain,
+            pro_plain=pro_plain, tr_plain=tr_plain, d_pe=d_pe, d_rec=d_rec,
+            d_r=d_r, share=pairs / ((T - 1) * F * F), pairs=pairs,
+            tiles=tiles,
+            # all pairs; the work this input needs (kept pairs, 2
+            # operations each, and 8 per tile test; or e in, pe out)
+            fw_all=bound(2 * T * F * 4, 2 * (T - 1) * F * F),
+            fw_work=bound(2 * T * F * 4, 2 * pairs + 8 * tests),
+            pro_bound=bound(T * F * 4 + T * stride * 4, T * F),
+            # the walk: its records, the scanned tiles' pe, v and e, the
+            # indices
+            walk_bound=bound(T * stride * 4 + tiles * plan.trace_rows * 12
+                             + T * 4, 4 * tiles * plan.trace_rows))
+        print("ridge tiled on %s, (1, %d, %d) float32, penalty %g: forward "
+              "%.3f ms (%.3f us per column; plain %.1f ms), %.4f%% of the "
+              "pairs kept (replica), bound %.3f ms by %s for all pairs, "
+              "%.4f ms by %s for this input's work; trace prologue %.3f ms "
+              "(plain %.1f ms; bound %.4f ms by %s), walk %.3f ms (%.3f us "
+              "per step; %d tiles scanned, %.3f per step; bound %.4f ms by "
+              "%s; the plain trace %.1f ms); card: %s"
+              % (name, T, F, pen, fw_ms, fw_ms * 1e3 / (T - 1), fw_plain,
+                 100 * out['share'], out['fw_all'][0], out['fw_all'][1],
+                 out['fw_work'][0], out['fw_work'][1], pro_ms, pro_plain,
+                 out['pro_bound'][0], out['pro_bound'][1], walk_ms,
+                 walk_ms * 1e3 / (T - 1), tiles, tiles / (T - 1),
+                 out['walk_bound'][0], out['walk_bound'][1], tr_plain,
+                 card), flush=True)
+        return out
+
+    cases = {'chirps': case('the two chirps (12j (a))', e, v, 2.)}
+    # the per-column floor: e = 0 with penalty 2 keeps only each tile of
+    # rows' own tile of g (tests/test_torch_ridge_prune.py)
+    z = torch.zeros_like(e)
+    floor_ms = cuda_ms(lambda: ridge_forward(z, v, 2.), reps=3, warm=1)
+    pz = ridge_forward(z, v, 2.)
+    kept = int(ridge_forward_pairs(pz, v, 2.)[0].sum())
+    check(kept == (T - 1) * int(sum((hi - lo) ** 2 for lo, hi in
+                                    plan.row_ranges)),
+          "ridge tiled floor input (e = 0, penalty 2): each tile of rows "
+          "keeps only its own tile of g")
+    del z, pz
+    floor_us = floor_ms * 1e3 / (T - 1)
+    print("ridge tiled forward's per-column floor (e = 0, penalty 2, one "
+          "tile of g per tile of rows) at (1, %d, %d) float32: %.3f ms, "
+          "%.3f us per column, x (T - 1) = %.3f ms; card: %s"
+          % (T, F, floor_ms, floor_us, floor_us * (T - 1) / 1e3, card),
+          flush=True)
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 1e9
     e2e, gb = host_ms(run, reps=3, warm=1)
-    fw_bound, fw_by = bound(2 * T * F * 4, 2 * (T - 1) * F * F)
-    tr_bound, tr_by = bound(T * F * 4 + 2 * T * 4, 4 * T * F)
-    print("ridge tiled: ridge_forward at (1, %d, %d) float32 %.3f ms (%.3f "
-          "us per column; plain %.1f ms; bound %.3f ms by %s, %.1f%% of it); "
-          "ridge_trace %.3f ms (%.3f us per column; plain %.1f ms; bound "
-          "%.4f ms by %s); extract_ridges (2 ridges) %.1f ms end to end "
-          "(host clock, mean of 3 after one warm-up), peak %.3f GB above "
-          "the %.3f GB the script holds; card: %s"
-          % (T, F, fw_ms, fw_ms * 1e3 / (T - 1), fw_plain, fw_bound, fw_by,
-             100 * fw_bound / fw_ms, tr_ms, tr_ms * 1e3 / (T - 1), tr_plain,
-             tr_bound, tr_by, e2e, gb - held, held, card), flush=True)
-    del E, e, Tx, x
+    print("ridge tiled: extract_ridges (2 ridges) at (%d, %d) %.1f ms end "
+          "to end (host clock, mean of 3 after one warm-up), peak %.3f GB "
+          "above the %.3f GB the script holds; card: %s"
+          % (F, T, e2e, gb - held, held, card), flush=True)
+    del e, Tx, x
     torch.cuda.empty_cache()
+    # (b) white noise from a seed through the same ssq_stft, (c) a
+    # constant e with penalty 0 (every pair kept: the bound is equal)
+    g = torch.Generator(device=dev).manual_seed(8)
+    xn = torch.randn(N, generator=g, device=dev)
+    Tn_, _, sfn, _ = stq.ssq_stft(xn, n_fft=n_fft, hop_len=hop)
+    a = Tn_.abs()
+    e = _normalized((a * a)[None], eps, torch.float32)
+    del a, Tn_, xn
+    cases['noise'] = case('white noise', e, v, 2.)
+    e.fill_(1.5)
+    cases['constant'] = case('a constant e', e, v, 0.)
+    del e
+    torch.cuda.empty_cache()
+    fw_ms, fw_plain = cases['chirps']['fw_ms'], cases['chirps']['fw_plain']
+    fw_bound, fw_by = cases['chirps']['fw_work']
+    err_f = max(c['d_pe'] for c in cases.values())
+    err_t = max(c['d_r'] for c in cases.values())
 
     # ---- (b) the tiled kernels against plain and the resident mode -------
     for dtype, F_ in (('float32', 16385), ('float64', 8193)):
@@ -2609,9 +2714,9 @@ def ridge_tiled_section(stq, dev, card, counters, xb_np, spec, scales):
         d = float((pe - pe_p).abs().max())
         err_f = max(err_f, d) if dtype == 'float32' else err_f
         check(p.tiled and torch.equal(pe, pe_p) and torch.equal(r, r_p),
-              "ridge kernels (tiled, %d chunks) vs plain on (1, 64, %d) %s: "
-              "pe bit-identical, indices equal (max |dpe| %.3g)"
-              % (p.chunks, F_, dtype, d))
+              "ridge kernels (tiled, %d tiles of rows) vs plain on (1, 64, "
+              "%d) %s: pe bit-identical, indices equal (max |dpe| %.3g)"
+              % (p.tiles, F_, dtype, d))
         del e, v, pe, r, pe_p, r_p
     e, v = _planted_ridges(3, 2000, 293, 'float32', 5, dev)
     e[:, ::9] = 1.
@@ -2725,6 +2830,7 @@ def ridge_tiled_section(stq, dev, card, counters, xb_np, spec, scales):
           % (Ns, off_ms, st_ms, card), flush=True)
     del To, So, xs, plan
     torch.cuda.empty_cache()
+    c = cases['chirps']
     rows = [
         dict(name='ridge_forward_tiled', route='cuda',
              source='ssqueezepy_tpu_torch/csrc/ridge_dp.cu',
@@ -2736,8 +2842,17 @@ def ridge_tiled_section(stq, dev, card, counters, xb_np, spec, scales):
              source='ssqueezepy_tpu_torch/csrc/ridge_dp.cu',
              replaces='ssqueezepy_tpu/models/ridge_extraction.py:24',
              launches=launches['ridge_trace_tiled'], max_abs_err=err_t,
-             ms=tr_ms, plain_ms=tr_plain, bound_ms=tr_bound,
-             bound_by=tr_by, library_ms=None)]
+             ms=c['walk_ms'], plain_ms=c['tr_plain'],
+             bound_ms=c['walk_bound'][0], bound_by=c['walk_bound'][1],
+             library_ms=None),
+        dict(name='ridge_trace_prologue', route='cuda',
+             source='ssqueezepy_tpu_torch/csrc/ridge_dp.cu',
+             replaces='ssqueezepy_tpu/models/ridge_extraction.py:24',
+             launches=launches['ridge_trace_prologue'],
+             max_abs_err=max(x['d_rec'] for x in cases.values()),
+             ms=c['pro_ms'], plain_ms=c['pro_plain'],
+             bound_ms=c['pro_bound'][0], bound_by=c['pro_bound'][1],
+             library_ms=None)]
     return rows, launches
 
 
@@ -2789,9 +2904,11 @@ def main():
         cwt_bins, scatter_kv, stft_conv, cwt_fused, cwt_bins2, fsst2_conv,
         ssq_fused, shift_scatter, cwt_w2, fsst2_w, ridge_forward,
         ridge_trace)] + [
-        # the ridge kernels' row-tiled mode on its own counters
+        # the ridge kernels' row-tiled mode on its own counters, the
+        # trace's prologue on one of its own
         (k.__name__ + '_tiled', k, 'tiled_launches')
         for k in (ridge_forward, ridge_trace)] + [
+        ('ridge_trace_prologue', ridge_trace, 'prologue_launches')] + [
         (k.__name__ + '_batched', k, 'batched_launches')
         for k in (cwt_bins, stft_conv, fsst2_conv, cwt_bins2, cwt_w2,
                   fsst2_w)] + [

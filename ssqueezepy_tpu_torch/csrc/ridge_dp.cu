@@ -86,32 +86,74 @@
 // kernels run row-tiled, with shared bytes that do not grow with F, so F
 // is bounded by device memory alone:
 //
-// Tiled forward: one cooperative launch (every CTA resident at once, a
-// grid barrier per column). A work item is (b, a tile of kTileRows rows
-// f, a chunk of g): its CTA keeps its 2 rows per thread of min-plus
-// accumulators in registers and streams the chunk's pe[t-1] and v
-// through shared memory in tiles of kTileG. Items are B x ceil(F / 512) x
-// S, S chunks of g chosen on the host so that the items fill the card
-// (about 264 at B = 1); a CTA takes items i, i + grid, ... Each item
-// writes its rows' partial minima over its chunk to part[t % 2][b][s], a
-// scratch of 2 B S F elements; column t reads column t - 1 as pe[t-1, g]
-// = e[t-1, g] + min_s part[(t-1) % 2][b][s][g] (the min is exact and its
-// order free, so this is the plain version's value bit for bit, NaN by
-// the same rule), and the items of the first row tile write that value
-// to pe. Column 0 is e's, the last column is combined after the last
-// barrier. Two parities: column t + 1 writes the buffer column t - 1
-// wrote only after the barrier that follows every read of it. The
-// partials are read through L2 (ld.global.cg), never a stale L1 line.
+// Tiled forward: one cooperative launch (every CTA resident at once, one
+// grid barrier per column). A work item is (b, a tile i of kTile = 64
+// rows f); its CTA (8 warps) owns the tile's rows, writes each of their
+// pe once and, with it, the tile's summary (the least pe of the column
+// over the tile and v at its first least row) into summ[t % 2], a
+// scratch of 2 B ceil(F / 64) x 2 elements; column 0 also writes each
+// tile's v range [vlo, vhi]. The g axis is cut into the same tiles. Per
+// column, a CTA reads the summaries of column t - 1 (through L2,
+// ld.global.cg: they and pe[t-1] were written in this launch) and takes
+// the column's least, m* at g* (torch.argmin's first occurrence), then
+// bounds each of its rows from above by two real candidates, each with
+// the plain version's arithmetic, UB_f = min(pe[t-1, f] + P(f, f), m* +
+// P(f, g*)), and the tile from below: for a tile j of g with least m_j,
+// LB_ij = m_j + pen (D_ij D_ij), D_ij the distance of the two tiles' v
+// ranges (0 where they overlap), rounded. A CTA skips tile j iff LB_ij >
+// max_f UB_f over its rows; its warps take the kept tiles (warp w the
+// tiles j = w + 8 lane + 256 k, a ballot per k), each kept tile's
+// pe[t-1] and v through the warp's two shared buffers, the next tile's
+// loads in flight while the warp evaluates the current one (the tile of
+// the CTA's own rows, nearly always kept, is fetched before the
+// reduction), every pair by the plain arithmetic (2 rows a lane, 4
+// partial minima a row); then warp 0 takes the 8 warps' partial minima,
+// adds e and stores.
 //
-// Tiled trace: one block of kTraceThreads per batch row. Only one element
-// of e and pe is needed per step beside pe[t] (val = pe[t+1, n] - e[t+1,
-// n]: two scalar loads). The block scans pe[t] and v from global memory
-// in tiles of kTraceThreads kScan elements from the high-f end, each
-// thread testing kScan f with its loads issued together, one block-wide
-// max per tile, and stops at the first tile that holds a qualifying f,
-// which is the last one overall; only where none qualifies does it take
-// the first-occurrence argmin over the whole row (three block-wide
-// reductions: the first NaN, the least value, its first f).
+// Why the skip is exact. The bound is tried only where pen is finite and
+// >= 0, every v is finite and the square of v's spread is finite (a flag
+// the launch computes from the v ranges; else every pair is evaluated):
+// then no P is NaN, and rounded sub, mul and add are monotone, so for f
+// in tile i and g in tile j, |fl(v_f - v_g)| >= D_ij, P(f, g) >= pen (D_ij
+// D_ij) and pe[t-1, g] + P(f, g) >= LB_ij. A skipped tile's candidates
+// are all > UB_f >= the least candidate of the tile that holds UB_f's
+// candidate, which is kept (its LB is at most that candidate), so the
+// min, exact and order-free, is the plain loop's bit for bit. NaN: a NaN
+// in pe[t-1] makes m_j and m* NaN, so UB and LB are NaN, the comparison
+// false and nothing is skipped; -inf in a tile makes its LB -inf or NaN,
+// never skipped. The flags keep subnormal results (no --use_fast_math,
+// no -ftz). Tiles past F (the last tile's rows and g) are masked.
+//
+// Bound of the tiled forward: the all-pairs bound above; the work this
+// kernel does on an input (its kept pairs, 2 operations each, and its
+// tile tests, 8 each, or the bytes of e and pe) is what the torch
+// replica tests/torch_ridge_tiled.py::ridge_forward_pairs counts; its
+// floor per column is one grid barrier, a read of the summaries through
+// L2 and a block-wide reduction, one kept tile per warp and the stores.
+//
+// Tiled trace: two launches. A prologue (one block per (b, t), all in
+// parallel) writes each step's record: the least of pe[t] over each
+// trace tile of G f (G = 256 up to F = 131072, more past it so that
+// there are at most 512 tiles), pe[t, fw] - e[t, fw], v[fw] and fw, the
+// first-occurrence argmin of pe[t] (the first NaN, else the first least
+// value), which does not depend on the walk; block 0 writes the tiles' v
+// ranges. The walk, one warp per batch row, takes the records from T - 1
+// down by bulk copies (cp.async.bulk, complete-tx on a full mbarrier per
+// slot) into a ring of 8 slots, so a step's tile minima are in shared
+// memory when it starts. With n = r[t+1], val = pe[t+1, n] - e[t+1, n]
+// and v[n] carried from the step before (the lane that found n computed
+// them), a tile can hold a qualifying f only if not fl(val - LB) < -eps,
+// LB = m_tile(t) + pen (D D), D the distance of v[n] to the tile's v
+// range: fl(val - LB) < -eps means val - LB < -eps exactly, so for every
+// f of the tile val - s_f < -eps and |fl(val - s_f)| >= eps. NaN in LB or
+// val never skips (val NaN, or eps NaN or <= 0, qualifies nothing: fw);
+// with pen NaN or negative every tile is scanned. Lanes test 32 tiles at
+// a time from the high-f end; the kept ones are scanned in that order,
+// 8 f a lane with their loads (pe, v, e) issued together, the first tile
+// holding a qualifying f giving the last such f; if none does, fw. The
+// ridge moves slowly, so the found f's tile of pe and e for the next 4
+// rows is prefetched into L1. No step has a block-wide barrier; its
+// chain is one scan's loads.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -738,207 +780,550 @@ __global__ void __launch_bounds__(64)
 
 
 // ---- the row-tiled mode (F past the resident plan) ----------------------
-constexpr int kTileThreads = 256;            // forward CTA
-constexpr int kTileRows = 2 * kTileThreads;  // rows f per work item
-constexpr int kTileG = 1024;                 // g per shared-memory tile
-constexpr int kTraceThreads = 512;           // trace block
-constexpr int kTraceWarps = kTraceThreads / 32;
+constexpr int kTile = 64;                      // rows per item = g per tile
+constexpr int kTileWarps = 8;                  // forward CTA
+constexpr int kTileThreads = 32 * kTileWarps;
+constexpr int kTileStride = kTileThreads;  // tile j = w + 8 lane + 256 k
+constexpr int kHeld = 2;          // tiles of a thread whose summaries it holds
+constexpr int kWalkTiles = 512;   // trace tiles per row, at most
+constexpr int kWalkSlot = kWalkTiles + 8;  // elements per ring slot
+constexpr int kWalkRing = 8;      // step records in flight (trace)
+constexpr int kWalkScan = 8;      // f per lane per load round (trace)
+constexpr int kWalkAhead = 4;     // rows the walk prefetches into L1
+constexpr int kProThreads = 256;  // trace prologue block
+constexpr int kNone = 0x7fffffff;
 
 __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ double ldcg(const double* p) { return __ldcg(p); }
 
-// Shared memory of one tiled forward CTA, in bytes: a tile of pe[t-1]
-// and of v (ops/ridge_cuda.py::ridge_plan states the same).
-__host__ __device__ __forceinline__ size_t tiled_smem_bytes(int isz) {
-  return (size_t)2 * kTileG * isz;
-}
-
+// NaN-propagating min and max of two, as torch.minimum and torch.maximum.
 template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
-    ridge_forward_tiled_kernel(const T* __restrict__ e,
-                               const T* __restrict__ v, T pen, int B, int F,
-                               int Tn, int S, int chunk, T* part,
-                               T* __restrict__ pe) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sp = reinterpret_cast<T*>(smem_raw);  // pe[t-1] of the tile
-  T* sv = sp + kTileG;                     // v of the tile
-  cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x;
-  const int nf = (F + kTileRows - 1) / kTileRows;
-  const long long items = (long long)B * nf * S;
-  const size_t plane = (size_t)B * S * F;  // one parity of part
-  const size_t nth = (size_t)gridDim.x * blockDim.x;
-  const size_t gtid = (size_t)blockIdx.x * blockDim.x + tid;
-
-  for (size_t i = gtid; i < (size_t)B * F; i += nth) {  // column 0
-    const size_t o = i / F * Tn * F + i % F;
-    pe[o] = e[o];
-  }
-  for (int t = 1; t < Tn; ++t) {
-    const T* pin = part + (size_t)((t - 1) & 1) * plane;
-    T* pout = part + (size_t)(t & 1) * plane;
-    for (long long it = blockIdx.x; it < items; it += gridDim.x) {
-      const int s = (int)(it % S);
-      const long long r = it / S;
-      const int i = (int)(r % nf), b = (int)(r / nf);
-      const int g0 = s * chunk, g1 = min(F, g0 + chunk);
-      const size_t col = ((size_t)b * Tn + (t - 1)) * F;  // column t - 1
-      const T* pb = pin + (size_t)b * S * F;
-      const int fa = i * kTileRows + tid, fb = fa + kTileThreads;
-      const T va = v[min(fa, F - 1)], vb = v[min(fb, F - 1)];
-      MinAcc<T> a[4], c[4];
-      for (int gt = g0; gt < g1; gt += kTileG) {
-        const int n = min(kTileG, g1 - gt);
-        __syncthreads();  // the previous tile's reads are done
-        for (int j = tid; j < kTileG; j += kTileThreads) {
-          T x = inf_t<T>(), w = T(0);  // past the chunk: +inf, v 0
-          if (j < n) {
-            const int g = gt + j;
-            if (t == 1) {
-              x = e[col + g];
-            } else {
-              MinAcc<T> m;
-              for (int q = 0; q < S; ++q) m.add(ldcg(pb + (size_t)q * F + g));
-              x = add_rn(e[col + g], m.value());
-              if (i == 0) pe[col + g] = x;
-            }
-            w = v[g];
-          }
-          sp[j] = x;
-          sv[j] = w;
-        }
-        __syncthreads();
-#pragma unroll 2
-        for (int j = 0; j < n; j += 4) {
-          const Quad<T> p = load4(sp + j);
-          const Quad<T> w = load4(sv + j);
-          a[0].add(add_rn(p.a, penalty(pen, va, w.a)));
-          c[0].add(add_rn(p.a, penalty(pen, vb, w.a)));
-          a[1].add(add_rn(p.b, penalty(pen, va, w.b)));
-          c[1].add(add_rn(p.b, penalty(pen, vb, w.b)));
-          a[2].add(add_rn(p.c, penalty(pen, va, w.c)));
-          c[2].add(add_rn(p.c, penalty(pen, vb, w.c)));
-          a[3].add(add_rn(p.d, penalty(pen, va, w.d)));
-          c[3].add(add_rn(p.d, penalty(pen, vb, w.d)));
-        }
-      }
-      a[0].merge(a[1]); a[2].merge(a[3]); a[0].merge(a[2]);
-      c[0].merge(c[1]); c[2].merge(c[3]); c[0].merge(c[2]);
-      T* po = pout + ((size_t)b * S + s) * F;
-      if (fa < F) po[fa] = a[0].value();
-      if (fb < F) po[fb] = c[0].value();
-    }
-    grid.sync();
-  }
-  if (Tn > 1) {  // the last column from its partial minima
-    const T* pin = part + (size_t)((Tn - 1) & 1) * plane;
-    for (size_t i = gtid; i < (size_t)B * F; i += nth) {
-      const size_t b = i / F, g = i % F;
-      MinAcc<T> m;
-      for (int q = 0; q < S; ++q) m.add(ldcg(pin + (b * S + q) * F + g));
-      const size_t o = (b * Tn + (Tn - 1)) * F + g;
-      pe[o] = add_rn(e[o], m.value());
-    }
-  }
+__device__ __forceinline__ T nan_min(T a, T b) {
+  return a != a ? a : (b != b ? b : (b < a ? b : a));
+}
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return a != a ? a : (b != b ? b : (b > a ? b : a));
+}
+template <typename T>
+__device__ __forceinline__ T warp_nan_min(T x) {
+  for (int o = 16; o > 0; o >>= 1) x = nan_min(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+template <typename T>
+__device__ __forceinline__ T warp_nan_max(T x) {
+  for (int o = 16; o > 0; o >>= 1) x = nan_max(x, __shfl_xor_sync(kFull, x, o));
+  return x;
 }
 
-// Block-wide reductions of the tiled trace, every thread gets the result.
-// Two buffers used in turns: between two writes of one buffer lies a
-// barrier that every thread passes only after reading the first.
-struct BlockReduce {
-  int* ibuf;     // [2][kTraceWarps]
-  void* vbuf;    // [2][kTraceWarps] of T
-  int ph;
-  template <bool kMax>
-  __device__ __forceinline__ int ints(int x) {
-    x = kMax ? __reduce_max_sync(kFull, x) : __reduce_min_sync(kFull, x);
-    int* buf = ibuf + ph * kTraceWarps;
-    if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = x;
-    __syncthreads();
-    int r = buf[0];
-    for (int w = 1; w < kTraceWarps; ++w)
-      r = kMax ? max(r, buf[w]) : min(r, buf[w]);
-    ph ^= 1;
-    return r;
+// A least element by torch.argmin's rule (the first NaN, else the first
+// least value, -0 and +0 equal): value m, its index j (kNone: none yet)
+// and a companion value w (v at the index). take() is commutative and
+// associative, so any order of takes gives the same element.
+template <typename T>
+struct Least {
+  T m, w;
+  int j;
+  __device__ __forceinline__ Least() : m(inf_t<T>()), w(T(0)), j(kNone) {}
+  __device__ __forceinline__ void take(T m2, T w2, int j2) {
+    const bool an = m != m, bn = m2 != m2;
+    const bool better =
+        an ? (bn && j2 < j) : (bn || m2 < m || (m2 == m && j2 < j));
+    if (better) {
+      m = m2;
+      w = w2;
+      j = j2;
+    }
   }
-  template <typename T>
-  __device__ __forceinline__ T least(T x) {  // NaN-free inputs
-    for (int o = 16; o > 0; o >>= 1) x = fmin(x, __shfl_xor_sync(kFull, x, o));
-    T* buf = reinterpret_cast<T*>(vbuf) + ph * kTraceWarps;
-    if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = x;
-    __syncthreads();
-    T r = buf[0];
-    for (int w = 1; w < kTraceWarps; ++w) r = fmin(r, buf[w]);
-    ph ^= 1;
-    return r;
+  __device__ __forceinline__ void warp_reduce() {
+    for (int o = 16; o > 0; o >>= 1) {
+      const T m2 = __shfl_xor_sync(kFull, m, o);
+      const T w2 = __shfl_xor_sync(kFull, w, o);
+      const int j2 = __shfl_xor_sync(kFull, j, o);
+      take(m2, w2, j2);
+    }
   }
 };
 
-// argmin_f row[f] over the block: the first NaN if any, else the first f
-// of the least value (-0 and +0 equal), as warp_argmin.
+// Warp 0 of a forward item: the column's rows f0 + lane (x0) and f0 + 32 +
+// lane (x1) to pe, and the tile's summary, its least value and v at its
+// first least row, to dst.
 template <typename T>
-__device__ __forceinline__ int block_argmin(const T* row, int F,
-                                            BlockReduce& red) {
-  constexpr int kNone = 0x7fffffff;
-  T best = inf_t<T>();
-  int ib = kNone, inan = kNone;
-  for (int f = threadIdx.x; f < F; f += kTraceThreads) {
-    const T x = row[f];
-    if (x != x)
-      inan = min(inan, f);
-    else if (ib == kNone || x < best) {
-      best = x;
-      ib = f;
+__device__ __forceinline__ void store_item(T x0, T x1, T v0, T v1, int f0,
+                                           int F, T* col, T* dst, int lane) {
+  const int fa = f0 + lane, fb = fa + 32;
+  Least<T> s;
+  if (fa < F) {
+    col[fa] = x0;
+    s.take(x0, v0, fa);
+  }
+  if (fb < F) {
+    col[fb] = x1;
+    s.take(x1, v1, fb);
+  }
+  s.warp_reduce();
+  if (lane == 0) {
+    dst[0] = s.m;
+    dst[1] = s.w;
+  }
+}
+
+// One tile of g of pe[t-1] and v, a lane's two elements of each, read
+// through L2 (pe[t-1] was written in this launch); past F, pe +inf and v
+// of the last row (the tail is masked where it is evaluated).
+template <typename T>
+struct TileRegs {
+  T p0, p1, w0, w1;
+  __device__ __forceinline__ void fetch(const T* prev, const T* v, int F,
+                                        int g0, int lane) {
+    const int g = g0 + lane, h = g + 32;
+    p0 = g < F ? ldcg(prev + g) : inf_t<T>();
+    p1 = h < F ? ldcg(prev + h) : inf_t<T>();
+    w0 = v[min(g, F - 1)];
+    w1 = v[min(h, F - 1)];
+  }
+  __device__ __forceinline__ void stash(T* s, int lane) const {
+    s[lane] = p0;
+    s[lane + 32] = p1;
+    s[kTile + lane] = w0;
+    s[kTile + lane + 32] = w1;
+  }
+};
+
+// The candidates of rows a (v_a) and b (v_b) over one tile held in shared
+// memory (pe[t-1] then v), the plain version's arithmetic; n < kTile: the
+// tile at the end of the row, its first n g only.
+template <typename T>
+__device__ __forceinline__ void eval_tile(const T* s, int n, T pen, T va,
+                                          T vb, MinAcc<T> (&a)[4],
+                                          MinAcc<T> (&c)[4]) {
+  const T* sv = s + kTile;
+  if (n == kTile) {
+#pragma unroll 4
+    for (int g = 0; g < kTile; g += 4) {
+      const Quad<T> p = load4(s + g);
+      const Quad<T> w = load4(sv + g);
+      a[0].add(add_rn(p.a, penalty(pen, va, w.a)));
+      c[0].add(add_rn(p.a, penalty(pen, vb, w.a)));
+      a[1].add(add_rn(p.b, penalty(pen, va, w.b)));
+      c[1].add(add_rn(p.b, penalty(pen, vb, w.b)));
+      a[2].add(add_rn(p.c, penalty(pen, va, w.c)));
+      c[2].add(add_rn(p.c, penalty(pen, vb, w.c)));
+      a[3].add(add_rn(p.d, penalty(pen, va, w.d)));
+      c[3].add(add_rn(p.d, penalty(pen, vb, w.d)));
+    }
+  } else {
+    for (int g = 0; g < n; ++g) {
+      a[0].add(add_rn(s[g], penalty(pen, va, sv[g])));
+      c[0].add(add_rn(s[g], penalty(pen, vb, sv[g])));
     }
   }
-  inan = red.ints<false>(inan);
-  if (inan != kNone) return inan;
-  const T m = red.least(best);
-  return red.ints<false>(ib != kNone && best == m ? ib : kNone);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kTraceThreads)
+__global__ void __launch_bounds__(kTileThreads, 2)
+    ridge_forward_tiled_kernel(const T* __restrict__ e,
+                               const T* __restrict__ v, T pen, int B, int F,
+                               int Tn, T* summ, T* vr, T* __restrict__ pe) {
+  __shared__ __align__(16) T buf[kTileWarps][2][2 * kTile];
+  __shared__ T part[kTileWarps][kTile];
+  __shared__ T red_m[kTileWarps], red_w[kTileWarps];
+  __shared__ int red_j[kTileWarps];
+  __shared__ int prune_s;
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nT = (F + kTile - 1) / kTile;
+  const int items = B * nT;
+  const size_t plane = (size_t)B * nT * 2;  // one parity of summ
+
+  // column 0: pe = e and its tiles' summaries; each tile's v range
+  if (w == 0)
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int b = it / nT, i = it % nT, f0 = i * kTile;
+      const int fa = f0 + lane, fb = fa + 32;
+      const T va = v[min(fa, F - 1)], vb = v[min(fb, F - 1)];
+      const T* col = e + (size_t)b * Tn * F;
+      store_item(fa < F ? col[fa] : T(0), fb < F ? col[fb] : T(0), va, vb,
+                 f0, F, pe + (size_t)b * Tn * F, summ + (size_t)it * 2, lane);
+      if (b == 0) {  // rows past F repeat v[F - 1], which is in this tile
+        const T lo = warp_nan_min(nan_min(va, vb));
+        const T hi = warp_nan_max(nan_max(va, vb));
+        if (lane == 0) {
+          vr[2 * i] = lo;
+          vr[2 * i + 1] = hi;
+        }
+      }
+    }
+  if (Tn == 1) return;
+  grid.sync();
+
+  // Whether the bound may skip: pen finite and >= 0, every v finite and
+  // the square of its spread finite, so that no P is NaN and every
+  // candidate of a tile is at least its bound (module note).
+  {
+    T lo = inf_t<T>(), hi = -inf_t<T>();
+    for (int j = threadIdx.x; j < nT; j += kTileThreads) {
+      lo = nan_min(lo, ldcg(vr + 2 * j));
+      hi = nan_max(hi, ldcg(vr + 2 * j + 1));
+    }
+    lo = warp_nan_min(lo);
+    hi = warp_nan_max(hi);
+    if (lane == 0) {
+      red_m[w] = lo;
+      red_w[w] = hi;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int q = 1; q < kTileWarps; ++q) {
+        lo = nan_min(lo, red_m[q]);
+        hi = nan_max(hi, red_w[q]);
+      }
+      const T s = sub_rn(hi, lo), inf = inf_t<T>();
+      prune_s = pen >= T(0) && pen < inf && lo > -inf && hi < inf &&
+                mul_rn(s, s) < inf;
+    }
+    __syncthreads();
+  }
+  const bool prune = prune_s != 0;
+  // the v ranges of the thread's held tiles
+  T hlo[kHeld], hhi[kHeld];
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k) {
+    const int j = w + 8 * lane + kTileStride * k;
+    hlo[k] = j < nT ? ldcg(vr + 2 * j) : T(0);
+    hhi[k] = j < nT ? ldcg(vr + 2 * j + 1) : T(0);
+  }
+
+  for (int t = 1; t < Tn; ++t) {
+    const T* sin = summ + (size_t)((t - 1) & 1) * plane;
+    T* sout = summ + (size_t)(t & 1) * plane;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int b = it / nT, i = it % nT, f0 = i * kTile;
+      const int fa = f0 + lane, fb = fa + 32;
+      const T* prev = pe + ((size_t)b * Tn + t - 1) * F;
+      const T* sb = sin + (size_t)b * nT * 2;
+      // loads: the held tiles' summaries, the item's rows and v range
+      T hm[kHeld];
+      Least<T> l;
+#pragma unroll
+      for (int k = 0; k < kHeld; ++k) {
+        const int j = w + 8 * lane + kTileStride * k;
+        hm[k] = T(0);
+        if (j < nT) {
+          hm[k] = ldcg(sb + 2 * j);
+          l.take(hm[k], ldcg(sb + 2 * j + 1), j);
+        }
+      }
+      for (int j = w + 8 * lane + kTileStride * kHeld; j < nT;
+           j += kTileStride)
+        l.take(ldcg(sb + 2 * j), ldcg(sb + 2 * j + 1), j);
+      const T pa = fa < F ? ldcg(prev + fa) : T(0);
+      const T pb = fb < F ? ldcg(prev + fb) : T(0);
+      const T va = v[min(fa, F - 1)], vb = v[min(fb, F - 1)];
+      const T* ec = e + ((size_t)b * Tn + t) * F;
+      const T ea = fa < F ? ec[fa] : T(0), eb = fb < F ? ec[fb] : T(0);
+      const T lo_i = ldcg(vr + 2 * i), hi_i = ldcg(vr + 2 * i + 1);
+      // the tile of g of the item's own rows, which the bound nearly
+      // always keeps, in flight already: its warp (i % 8) takes it
+      TileRegs<T> own;
+      if (w == i % kTileWarps) own.fetch(prev, v, F, f0, lane);
+      // the column's least (its first occurrence), over the block
+      l.warp_reduce();
+      if (lane == 0) {
+        red_m[w] = l.m;
+        red_w[w] = l.w;
+        red_j[w] = l.j;
+      }
+      __syncthreads();
+      Least<T> s;
+#pragma unroll
+      for (int q = 0; q < kTileWarps; ++q) s.take(red_m[q], red_w[q], red_j[q]);
+      // the rows' upper bounds, real candidates: g = f and the least g
+      T ub = -inf_t<T>();
+      if (fa < F)
+        ub = nan_min(add_rn(pa, penalty(pen, va, va)),
+                     add_rn(s.m, penalty(pen, va, s.w)));
+      if (fb < F)
+        ub = nan_max(ub, nan_min(add_rn(pb, penalty(pen, vb, vb)),
+                                 add_rn(s.m, penalty(pen, vb, s.w))));
+      ub = warp_nan_max(ub);
+
+      // the warp's tiles j = w + 8 lane + kTileStride k: a ballot of those
+      // the bound keeps, then each kept tile by the whole warp, the next
+      // one's loads in flight while the warp evaluates the current one
+      MinAcc<T> a[4], c[4];
+      T* wb = &buf[w][0][0];
+      int p = 0;
+      auto keep = [&](int j, T m, T lo, T hi) -> bool {
+        if (j >= nT) return false;
+        if (!prune) return true;
+        const T D = nan_max(nan_max(sub_rn(lo, hi_i), sub_rn(lo_i, hi)), T(0));
+        return !(add_rn(m, mul_rn(pen, mul_rn(D, D))) > ub);
+      };
+      auto run = [&](unsigned mask, int k) {
+        TileRegs<T> r;
+        if (mask) {
+          const int j = w + 8 * (__ffs(mask) - 1) + kTileStride * k;
+          if (j == i)
+            r = own;
+          else
+            r.fetch(prev, v, F, j * kTile, lane);
+        }
+        while (mask) {
+          const int j = w + 8 * (__ffs(mask) - 1) + kTileStride * k;
+          mask &= mask - 1;
+          T* sp = wb + p * 2 * kTile;
+          r.stash(sp, lane);
+          __syncwarp();
+          if (mask)
+            r.fetch(prev, v, F, (w + 8 * (__ffs(mask) - 1) +
+                                 kTileStride * k) * kTile, lane);
+          eval_tile(sp, min(kTile, F - j * kTile), pen, va, vb, a, c);
+          p ^= 1;
+        }
+      };
+#pragma unroll
+      for (int k = 0; k < kHeld; ++k) {
+        const int j = w + 8 * lane + kTileStride * k;
+        run(__ballot_sync(kFull, keep(j, hm[k], hlo[k], hhi[k])), k);
+      }
+      for (int k = kHeld; w + kTileStride * k < nT; ++k) {
+        const int j = w + 8 * lane + kTileStride * k;
+        const bool in = j < nT;
+        run(__ballot_sync(kFull, keep(j, in ? ldcg(sb + 2 * j) : T(0),
+                                      in ? ldcg(vr + 2 * j) : T(0),
+                                      in ? ldcg(vr + 2 * j + 1) : T(0))),
+            k);
+      }
+      a[0].merge(a[1]); a[2].merge(a[3]); a[0].merge(a[2]);
+      c[0].merge(c[1]); c[2].merge(c[3]); c[0].merge(c[2]);
+      part[w][lane] = a[0].value();
+      part[w][lane + 32] = c[0].value();
+      __syncthreads();
+      if (w == 0) {  // the warps' partial minima, then e, to pe
+        MinAcc<T> m0, m1;
+#pragma unroll
+        for (int q = 0; q < kTileWarps; ++q) {
+          m0.add(part[q][lane]);
+          m1.add(part[q][lane + 32]);
+        }
+        store_item(add_rn(ea, m0.value()), add_rn(eb, m1.value()), va, vb,
+                   f0, F, pe + ((size_t)b * Tn + t) * F,
+                   sout + (size_t)it * 2, lane);
+      }
+    }
+    if (t + 1 < Tn) grid.sync();
+  }
+}
+
+// The tiled trace's prologue, one block per (b, t): the step record of
+// pe[t], its least over each trace tile of G f (NaN-propagating), then
+// pe[t, fw] - e[t, fw], v[fw] and the bits of fw = argmin_f pe[t] (the
+// first NaN, else the first least value), in a row of `stride` elements.
+// Block 0 also writes each tile's v range.
+template <typename T>
+__device__ __forceinline__ T int_bits(int x);
+template <>
+__device__ __forceinline__ float int_bits<float>(int x) {
+  return __int_as_float(x);
+}
+template <>
+__device__ __forceinline__ double int_bits<double>(int x) {
+  return __longlong_as_double((long long)x);
+}
+template <typename T>
+__device__ __forceinline__ int bits_int(T x);
+template <>
+__device__ __forceinline__ int bits_int<float>(float x) {
+  return __float_as_int(x);
+}
+template <>
+__device__ __forceinline__ int bits_int<double>(double x) {
+  return (int)__double_as_longlong(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kProThreads)
+    ridge_trace_prologue_kernel(const T* __restrict__ pe,
+                                const T* __restrict__ e,
+                                const T* __restrict__ v, int F, int G,
+                                int nT, int stride, T* __restrict__ rec,
+                                T* __restrict__ vr) {
+  __shared__ T red_m[kProThreads / 32], red_w[kProThreads / 32];
+  __shared__ int red_j[kProThreads / 32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  constexpr int nw = kProThreads / 32;
+  const size_t row = blockIdx.x;  // b Tn + t
+  const T* p = pe + row * F;
+  T* out = rec + row * stride;
+  Least<T> l;
+  for (int q = w; q < nT; q += nw) {  // the warp's tiles
+    const int g0 = q * G, n = min(G, F - g0);
+    MinAcc<T> acc;
+#pragma unroll 8
+    for (int x = lane; x < n; x += 32) {
+      const T y = p[g0 + x];
+      acc.add(y);
+      l.take(y, T(0), g0 + x);
+    }
+    const T m = acc.warp_min();
+    if (lane == 0) out[q] = m;
+    if (row == 0) {  // the tile's v range
+      T lo = inf_t<T>(), hi = -inf_t<T>();
+      for (int x = lane; x < n; x += 32) {
+        lo = nan_min(lo, v[g0 + x]);
+        hi = nan_max(hi, v[g0 + x]);
+      }
+      lo = warp_nan_min(lo);
+      hi = warp_nan_max(hi);
+      if (lane == 0) {
+        vr[2 * q] = lo;
+        vr[2 * q + 1] = hi;
+      }
+    }
+  }
+  l.warp_reduce();
+  if (lane == 0) {
+    red_m[w] = l.m;
+    red_w[w] = l.w;
+    red_j[w] = l.j;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    Least<T> s;
+    for (int q = 0; q < nw; ++q) s.take(red_m[q], red_w[q], red_j[q]);
+    out[nT] = sub_rn(p[s.j], e[row * F + s.j]);
+    out[nT + 1] = v[s.j];
+    out[nT + 2] = int_bits<T>(s.j);
+  }
+}
+
+// The tiled trace's walk: one warp per batch row, fed the step records
+// (T-1 .. 0) by bulk copies into a ring of kWalkRing slots, each with a
+// full mbarrier (the walker re-issues a slot's copy once it has read it).
+template <typename T>
+__global__ void __launch_bounds__(32)
     ridge_trace_tiled_kernel(const T* __restrict__ pe,
                              const T* __restrict__ e,
-                             const T* __restrict__ v, T pen, T eps, int F,
-                             int Tn, int* __restrict__ ridge) {
-  __shared__ int ibuf[2 * kTraceWarps];
-  __shared__ T vbuf[2 * kTraceWarps];
-  BlockReduce red{ibuf, vbuf, 0};
-  const int tid = threadIdx.x;
+                             const T* __restrict__ v,
+                             const T* __restrict__ rec,
+                             const T* __restrict__ vr, T pen, T eps, int F,
+                             int Tn, int G, int nT, int stride,
+                             int* __restrict__ ridge) {
+  __shared__ __align__(16) T ring[kWalkRing][kWalkSlot];
+  __shared__ T svr[2 * kWalkTiles];
+  __shared__ __align__(8) uint64_t full[kWalkRing];
+  const int lane = threadIdx.x;
   const size_t row0 = (size_t)blockIdx.x * Tn;
-  int* rb = ridge + row0;
-  constexpr int W = kTraceThreads * kScan;  // f per tile
-  int r = block_argmin(pe + (row0 + Tn - 1) * F, F, red);
-  if (tid == 0) rb[Tn - 1] = r;
-  for (int t = Tn - 2; t >= 0; --t) {
-    const size_t nxt = (row0 + t + 1) * F + r;
-    const T val = sub_rn(pe[nxt], e[nxt]), vn = v[r];
-    const T* row = pe + (row0 + t) * F;
-    int last = -1;
-    for (int hi = F; hi > 0 && last < 0; hi -= W) {
-      const int lo = max(0, hi - W);
-      T x[kScan], w[kScan];
+  const T* rb = rec + row0 * stride;
+  int* out = ridge + row0;
+  const unsigned bytes = (unsigned)(stride * sizeof(T));
+  for (int q = lane; q < 2 * nT; q += 32) svr[q] = vr[q];
+  // the record of step t into its slot (u = Tn - 1 - t: steps in order)
+  auto issue = [&](int t) {
+    const int u = Tn - 1 - t, s = u % kWalkRing;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive_tx(full + s, bytes);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(ring[s])),
+        "l"(rb + (size_t)t * stride), "r"(bytes), "r"(smem_u32(full + s))
+        : "memory");
+  };
+  if (lane == 0) {
+    for (int s = 0; s < kWalkRing; ++s) mbar_init(full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int u = 0; u < kWalkRing && u < Tn; ++u) issue(Tn - 1 - u);
+  }
+  __syncwarp();
+  // the bound holds for pen >= 0 (NaN or negative: every tile is scanned);
+  // with eps NaN or <= 0 no f qualifies
+  const bool prune = pen >= T(0), none = !(eps > T(0));
+  T val = T(0), vn = T(0);
+  for (int t = Tn - 1; t >= 0; --t) {
+    const int u = Tn - 1 - t, s = u % kWalkRing;
+    mbar_wait(full + s, (unsigned)((u / kWalkRing) & 1));
+    const T* r = ring[s];
+    int found = -1;
+    T nval = T(0), nvn = T(0);
+    // val NaN: no f qualifies, as none does with eps NaN or <= 0
+    if (t < Tn - 1 && !none && val == val) {
+      const T* pr = pe + (row0 + t) * F;
+      const T* er = e + (row0 + t) * F;
+      // tiles from the high-f end: lane l tests tile nT - 1 - l - 32 k
+      for (int k = 0; 32 * k < nT && found < 0; ++k) {
+        const int j = nT - 1 - lane - 32 * k;
+        bool can = j >= 0;
+        if (can && prune) {
+          const T D = nan_max(
+              nan_max(sub_rn(svr[2 * j], vn), sub_rn(vn, svr[2 * j + 1])),
+              T(0));
+          can = !(sub_rn(val, add_rn(r[j], mul_rn(pen, mul_rn(D, D)))) <
+                  -eps);
+        }
+        unsigned mask = __ballot_sync(kFull, can);
+        while (mask && found < 0) {  // the highest tile first
+          const int jj = nT - 1 - (__ffs(mask) - 1) - 32 * k;
+          mask &= mask - 1;
+          const int g0 = jj * G, n = min(G, F - g0);
+          int last = -1;
+          T lval = T(0), lv = T(0);
+          for (int x0 = 0; x0 < n; x0 += 32 * kWalkScan) {
+            T y[kWalkScan], wv[kWalkScan], ee[kWalkScan];
 #pragma unroll
-      for (int j = 0; j < kScan; ++j) {
-        const int f = min(lo + tid + kTraceThreads * j, hi - 1);
-        x[j] = row[f];
-        w[j] = v[f];
-      }
-      int mine = -1;
+            for (int q = 0; q < kWalkScan; ++q) {
+              const int f = g0 + min(x0 + lane + 32 * q, n - 1);
+              y[q] = pr[f];
+              wv[q] = v[f];
+              ee[q] = er[f];
+            }
 #pragma unroll
-      for (int j = 0; j < kScan; ++j) {
-        const int f = lo + tid + kTraceThreads * j;
-        const T s = add_rn(x[j], penalty(pen, vn, w[j]));
-        const bool ok = (abs_t(sub_rn(val, s)) < eps) & (f < hi);
-        mine = ok ? f : mine;
+            for (int q = 0; q < kWalkScan; ++q) {
+              const int x = x0 + lane + 32 * q;
+              const T sc = add_rn(y[q], penalty(pen, vn, wv[q]));
+              if ((abs_t(sub_rn(val, sc)) < eps) & (x < n)) {
+                last = g0 + x;
+                lval = sub_rn(y[q], ee[q]);
+                lv = wv[q];
+              }
+            }
+          }
+          const int best = __reduce_max_sync(kFull, last);
+          if (best >= 0) {  // f = g0 + lane + 32 q: its lane is f % 32
+            nval = __shfl_sync(kFull, lval, best & 31);
+            nvn = __shfl_sync(kFull, lv, best & 31);
+            found = best;
+          }
+        }
       }
-      last = red.ints<true>(mine);
     }
-    if (last < 0) last = block_argmin(row, F, red);  // nothing qualifies
-    r = last;
-    if (tid == 0) rb[t] = r;
+    if (found < 0) {  // nothing qualifies (or the last column): fw
+      found = bits_int<T>(r[nT + 2]);
+      nval = r[nT];
+      nvn = r[nT + 1];
+    }
+    __syncwarp();  // every lane has read the slot
+    if (lane == 0) {
+      out[t] = found;
+      if (t - kWalkRing >= 0) issue(t - kWalkRing);
+    }
+    // the ridge moves slowly: the found f's tile of pe and e for the
+    // next kWalkAhead rows into L1 (lines of 128 bytes, a few a lane)
+    {
+      constexpr int L = 128 / sizeof(T);  // elements per line
+      const int g0 = found / G * G, n = min(G, F - g0);
+      const int lines = (n + L - 1) / L;
+      for (int q = lane; q < 2 * kWalkAhead * lines; q += 32) {
+        const int row = t - 1 - q / (2 * lines);
+        const int x = q % (2 * lines);
+        if (row < 0) break;
+        const T* base = (x < lines ? pe : e) + (row0 + row) * F + g0;
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(
+            base + min((x % lines) * L, n - 1)));
+      }
+    }
+    val = nval;
+    vn = nvn;
   }
 }
 
@@ -1042,18 +1427,13 @@ int trace(const void* pe, const void* e, const void* v, double pen,
 // Co-resident CTAs of the tiled forward on this card (its grid's most).
 template <typename T>
 int tiled_ctas(int* ctas) {
-  auto fn = ridge_forward_tiled_kernel<T>;
-  const int smem = (int)tiled_smem_bytes(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per = 0;
-  err = cudaGetDevice(&dev);
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fn, kTileThreads,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per, ridge_forward_tiled_kernel<T>, kTileThreads, 0);
   if (err != cudaSuccess) return (int)err;
   *ctas = per * sms;
   return 0;
@@ -1061,41 +1441,68 @@ int tiled_ctas(int* ctas) {
 
 template <typename T>
 int forward_tiled(const void* e, const void* v, double pen, int B, int F,
-                  int Tn, int S, int chunk, void* part, void* pe,
-                  void* stream) {
-  if (B < 1 || F < 1 || Tn < 1 || S < 1 || chunk < 1 ||
-      (long long)S * chunk < F || (long long)(S - 1) * chunk >= F)
+                  int Tn, void* summ, void* vr, void* pe, void* stream) {
+  if (B < 1 || F < 1 || Tn < 1 ||
+      (long long)B * ((F + kTile - 1) / kTile) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   int ctas = 0;
   int err = tiled_ctas<T>(&ctas);
   if (err) return err;
   if (ctas < 1) return kErrNoCluster;
-  const long long items =
-      (long long)B * ((F + kTileRows - 1) / kTileRows) * S;
+  const int items = B * ((F + kTile - 1) / kTile);
   const unsigned grid = (unsigned)(items < ctas ? items : ctas);
   const T* ep = (const T*)e;
   const T* vp = (const T*)v;
   T pn = (T)pen;
-  T* qp = (T*)part;
+  T* sp = (T*)summ;
+  T* rp = (T*)vr;
   T* op = (T*)pe;
-  void* args[] = {(void*)&ep, (void*)&vp, (void*)&pn, (void*)&B, (void*)&F,
-                  (void*)&Tn, (void*)&S, (void*)&chunk, (void*)&qp,
+  void* args[] = {(void*)&ep, (void*)&vp, (void*)&pn, (void*)&B,
+                  (void*)&F,  (void*)&Tn, (void*)&sp, (void*)&rp,
                   (void*)&op};
   err = (int)cudaLaunchCooperativeKernel(
       (const void*)ridge_forward_tiled_kernel<T>, dim3(grid),
-      dim3(kTileThreads), args, tiled_smem_bytes(sizeof(T)),
-      (cudaStream_t)stream);
+      dim3(kTileThreads), args, 0, (cudaStream_t)stream);
   if (err) return err;
   return (int)cudaGetLastError();
 }
 
+// The trace tiles' layout the plan states: G a multiple of 32, nT tiles
+// of G covering F, at most kWalkTiles, records of `stride` elements (a
+// multiple of 16 bytes) holding nT + 3.
 template <typename T>
-int trace_tiled(const void* pe, const void* e, const void* v, double pen,
-                double eps, int B, int F, int Tn, void* ridge, void* stream) {
-  if (B < 1 || F < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
-  ridge_trace_tiled_kernel<T><<<B, kTraceThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)pe, (const T*)e, (const T*)v, (T)pen, (T)eps, F, Tn,
-      (int*)ridge);
+bool walk_layout(int F, int G, int nT, int stride) {
+  constexpr int Q = 16 / sizeof(T);
+  return G >= 32 && G % 32 == 0 && nT >= 1 && nT <= kWalkTiles &&
+         (long long)nT * G >= F && (long long)(nT - 1) * G < F &&
+         stride >= nT + 3 && stride <= kWalkSlot && stride % Q == 0;
+}
+
+template <typename T>
+int trace_prologue(const void* pe, const void* e, const void* v, int B,
+                   int F, int Tn, int G, int nT, int stride, void* rec,
+                   void* vr, void* stream) {
+  if (B < 1 || F < 1 || Tn < 1 || (long long)B * Tn > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  if (!walk_layout<T>(F, G, nT, stride)) return kErrLayout;
+  ridge_trace_prologue_kernel<T>
+      <<<(unsigned)(B * Tn), kProThreads, 0, (cudaStream_t)stream>>>(
+          (const T*)pe, (const T*)e, (const T*)v, F, G, nT, stride, (T*)rec,
+          (T*)vr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int trace_tiled(const void* pe, const void* e, const void* v,
+                const void* rec, const void* vr, double pen, double eps,
+                int B, int F, int Tn, int G, int nT, int stride, void* ridge,
+                void* stream) {
+  if (B < 1 || F < 1 || Tn < 1 || (uintptr_t)rec % 16)
+    return (int)cudaErrorInvalidValue;
+  if (!walk_layout<T>(F, G, nT, stride)) return kErrLayout;
+  ridge_trace_tiled_kernel<T><<<B, 32, 0, (cudaStream_t)stream>>>(
+      (const T*)pe, (const T*)e, (const T*)v, (const T*)rec, (const T*)vr,
+      (T)pen, (T)eps, F, Tn, G, nT, stride, (int*)ridge);
   return (int)cudaGetLastError();
 }
 
@@ -1152,22 +1559,21 @@ extern "C" int ridge_trace_f64(const void* pe, const void* e, const void* v,
                        stream);
 }
 
-// The row-tiled mode (ridge_plan's `tiled`): pe (B, T, F) from e and v,
-// S chunks of `chunk` g, `part` a scratch of 2 B S F elements.
+// The row-tiled mode (ridge_plan's `tiled`): pe (B, T, F) from e and v;
+// summ a scratch of 2 B ceil(F / 64) 2 elements (the tiles' summaries in
+// two parities), vr of ceil(F / 64) 2 (their v ranges).
 extern "C" int ridge_forward_tiled_f32(const void* e, const void* v,
                                        double pen, int B, int F, int Tn,
-                                       int S, int chunk, void* part, void* pe,
+                                       void* summ, void* vr, void* pe,
                                        void* stream) {
-  return forward_tiled<float>(e, v, pen, B, F, Tn, S, chunk, part, pe,
-                              stream);
+  return forward_tiled<float>(e, v, pen, B, F, Tn, summ, vr, pe, stream);
 }
 
 extern "C" int ridge_forward_tiled_f64(const void* e, const void* v,
                                        double pen, int B, int F, int Tn,
-                                       int S, int chunk, void* part, void* pe,
+                                       void* summ, void* vr, void* pe,
                                        void* stream) {
-  return forward_tiled<double>(e, v, pen, B, F, Tn, S, chunk, part, pe,
-                               stream);
+  return forward_tiled<double>(e, v, pen, B, F, Tn, summ, vr, pe, stream);
 }
 
 // How many CTAs of the tiled forward the card holds at once (its grid's
@@ -1176,17 +1582,41 @@ extern "C" int ridge_forward_tiled_ctas(int itemsize, int* ctas) {
   return itemsize == 4 ? tiled_ctas<float>(ctas) : tiled_ctas<double>(ctas);
 }
 
-// ridge (B, T) int32 from pe and e (B, T, F) and v (F,), row-tiled.
+// The tiled trace's prologue: rec (B, T, stride), each step's record (the
+// least of pe[t] over each of nT tiles of G f, pe - e and v at the first
+// argmin, its bits), and vr (nT, 2), the tiles' v ranges.
+extern "C" int ridge_trace_prologue_f32(const void* pe, const void* e,
+                                        const void* v, int B, int F, int Tn,
+                                        int G, int nT, int stride, void* rec,
+                                        void* vr, void* stream) {
+  return trace_prologue<float>(pe, e, v, B, F, Tn, G, nT, stride, rec, vr,
+                               stream);
+}
+
+extern "C" int ridge_trace_prologue_f64(const void* pe, const void* e,
+                                        const void* v, int B, int F, int Tn,
+                                        int G, int nT, int stride, void* rec,
+                                        void* vr, void* stream) {
+  return trace_prologue<double>(pe, e, v, B, F, Tn, G, nT, stride, rec, vr,
+                                stream);
+}
+
+// ridge (B, T) int32 from pe and e (B, T, F), v (F,) and the prologue's
+// rec (16-byte aligned) and vr, row-tiled.
 extern "C" int ridge_trace_tiled_f32(const void* pe, const void* e,
-                                     const void* v, double pen, double eps,
-                                     int B, int F, int Tn, void* ridge,
-                                     void* stream) {
-  return trace_tiled<float>(pe, e, v, pen, eps, B, F, Tn, ridge, stream);
+                                     const void* v, const void* rec,
+                                     const void* vr, double pen, double eps,
+                                     int B, int F, int Tn, int G, int nT,
+                                     int stride, void* ridge, void* stream) {
+  return trace_tiled<float>(pe, e, v, rec, vr, pen, eps, B, F, Tn, G, nT,
+                            stride, ridge, stream);
 }
 
 extern "C" int ridge_trace_tiled_f64(const void* pe, const void* e,
-                                     const void* v, double pen, double eps,
-                                     int B, int F, int Tn, void* ridge,
-                                     void* stream) {
-  return trace_tiled<double>(pe, e, v, pen, eps, B, F, Tn, ridge, stream);
+                                     const void* v, const void* rec,
+                                     const void* vr, double pen, double eps,
+                                     int B, int F, int Tn, int G, int nT,
+                                     int stride, void* ridge, void* stream) {
+  return trace_tiled<double>(pe, e, v, rec, vr, pen, eps, B, F, Tn, G, nT,
+                             stride, ridge, stream);
 }

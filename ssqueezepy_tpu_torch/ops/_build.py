@@ -107,11 +107,13 @@ _SIGNATURES = {
          [ctypes.c_void_p] * 3 + [ctypes.c_double] * 2 + [ctypes.c_int] * 7
          + [ctypes.c_void_p] * 2),
         (('ridge_forward_tiled_f32', 'ridge_forward_tiled_f64'),
-         [ctypes.c_void_p] * 2 + [ctypes.c_double] + [ctypes.c_int] * 5
-         + [ctypes.c_void_p] * 3),
+         [ctypes.c_void_p] * 2 + [ctypes.c_double] + [ctypes.c_int] * 3
+         + [ctypes.c_void_p] * 4),
         (('ridge_forward_tiled_ctas',), [ctypes.c_int, ctypes.c_void_p]),
+        (('ridge_trace_prologue_f32', 'ridge_trace_prologue_f64'),
+         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3),
         (('ridge_trace_tiled_f32', 'ridge_trace_tiled_f64'),
-         [ctypes.c_void_p] * 3 + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
+         [ctypes.c_void_p] * 5 + [ctypes.c_double] * 2 + [ctypes.c_int] * 6
          + [ctypes.c_void_p] * 2)],
 }
 

@@ -23,12 +23,18 @@ one block's shared memory: F <= 11264 in float32, 5632 in float64) the
 resident mode (the forward on one thread-block cluster per batch row,
 the trace on one block with rings of rows; cluster size, rows per CTA, P
 in registers or recomputed, the rings, shared bytes), past it the
-row-tiled mode (the forward one cooperative launch over the whole card,
-the trace one block per batch row scanning rows in tiles; shared bytes
-that do not grow with F, so any F that device memory holds).
-`ridge_forward.launches` and `ridge_trace.launches` count the resident
-mode's launches, `.tiled_launches` the tiled mode's. Design and bound
-are noted in the source.
+row-tiled mode, whose shared bytes do not grow with F, so any F that
+device memory holds: the forward one cooperative launch over the whole
+card, each CTA owning tiles of 64 rows and skipping, by an exact bound,
+the tiles of g that cannot hold a row's minimum; the trace a prologue
+over all columns at once (each column's tile minima and first argmin)
+and a walk of one warp per batch row that scans only the tiles that can
+hold a qualifying f (`_trace_records`, `_trace_walk`, which only
+`ridge_trace` calls with its checked inputs). `ridge_forward.launches`
+and `ridge_trace.launches` count the resident mode's launches,
+`.tiled_launches` the tiled mode's (the forward, the walk) and
+`ridge_trace.prologue_launches` the prologue's. Design and bound are
+noted in the source.
 """
 from collections import namedtuple
 
@@ -61,15 +67,16 @@ def ridge_resident(F, itemsize):
 _CLUSTER = 8
 _E_RING = 4
 _P_QUADS = 3
-# the tiled mode (csrc/ridge_dp.cu kTileThreads, kTileRows, kTileG,
-# kTraceThreads, kScan) and the work items the forward's chunks of g aim
-# at (two CTAs per SM of an H100's 132)
-_TILE_THREADS = 256
-_TILE_ROWS = 2 * _TILE_THREADS
-_TILE_G = 1024
-_TILE_ITEMS = 264
-_TRACE_THREADS = 512
-_TRACE_SCAN = 12
+# the tiled mode (csrc/ridge_dp.cu kTile, kTileWarps, kWalkTiles,
+# kWalkSlot, kWalkRing): the forward's tiles of rows and of g, its warps
+# per CTA; the trace's least tile width (the plan's), most tiles per row,
+# elements per ring slot and ring depth
+_TILE = 64
+_TILE_WARPS = 8
+_WALK_TILE = 256
+_WALK_TILES = 512
+_WALK_SLOT = _WALK_TILES + 8
+_WALK_RING = 8
 
 RidgePlan = namedtuple('RidgePlan', [
     'clusters',       # C, CTAs per batch row (forward)
@@ -83,12 +90,15 @@ RidgePlan = namedtuple('RidgePlan', [
     'trace_e_depth',  # slots of its e ring
     'trace_slot',     # bytes per slot (a 16-byte aligned superset)
     'trace_smem',     # shared bytes per trace block
-    'tiled',          # the row-tiled mode: then `rows` and `row_ranges`
-                      # are the work items' row tiles, `warps` and
-                      # `forward_smem` the forward CTA's, `clusters` None
-                      # and the trace's fields 0
-    'chunks',         # S, chunks of g per (batch row, row tile) (tiled)
-    'chunk'])         # g per chunk (tiled)
+    'tiled',          # the row-tiled mode: then `rows` (64) and
+                      # `row_ranges` are the forward's tiles of rows (and
+                      # of g), `warps` and `forward_smem` its CTA's,
+                      # `clusters` None; `trace_rows` the f per trace
+                      # tile, `trace_depth` the walk's ring slots,
+                      # `trace_slot` the bytes of a step record,
+                      # `trace_smem` the walk's shared bytes
+    'tiles',          # the forward's tiles (tiled)
+    'trace_tiles'])   # the trace's tiles (tiled)
 
 
 def _pad4(n):
@@ -123,28 +133,35 @@ def ridge_plan(F, itemsize, clusters=None, tiled=None, batch=1):
         KB a slot) and 2 to 4 slots of each beside v and two mbarriers
         per slot; where not even two slots of one row fit (the largest
         resident F), two slots of pe and one of e;
-      * tiled forward: work items of 512 rows (`row_ranges`) by S chunks
-        of g, S up to ceil(F / 1024) and as many as bring batch x ceil(F
-        / 512) x S items to about 264 (two CTAs per SM of an H100); tiles
-        of 1024 elements of pe and v in shared memory per CTA;
-      * tiled trace: one block of 512 threads per batch row, no dynamic
-        shared memory.
+      * tiled forward: work items of 64 rows (`row_ranges`, also the
+        tiles of g), B x ceil(F / 64) of them over the card's co-resident
+        CTAs of 8 warps, 2 x 8 x 2 x 64 elements of pe and v and the
+        warps' partial minima in static shared memory;
+      * tiled trace: the prologue one block of 256 threads per (b, t),
+        the walk one warp per batch row; tiles of G f, G = 256 or, past
+        F = 131072, the least multiple of 32 that keeps them to 512; step
+        records of ceil(F / G) + 3 elements padded to 16 bytes, a ring of
+        8 of them in static shared memory beside the tiles' v ranges.
 
     A resident plan's shared bytes are at most `_SMEM_MAX`; a resident
     plan that cannot be built raises."""
     if tiled is None:
         tiled = not ridge_resident(F, itemsize)
     if tiled:
-        nf = -(-F // _TILE_ROWS)
-        S = max(1, min(-(-F // _TILE_G),
-                       -(-_TILE_ITEMS // (max(1, batch) * nf))))
-        chunk = -(-F // S)
-        S = -(-F // chunk)
-        ranges = tuple((i * _TILE_ROWS, min(F, (i + 1) * _TILE_ROWS))
-                       for i in range(nf))
-        return RidgePlan(None, _TILE_ROWS, ranges, False,
-                         _TILE_THREADS // 32, 2 * _TILE_G * itemsize, 0, 0,
-                         0, 0, 0, True, S, chunk)
+        nt = -(-F // _TILE)
+        ranges = tuple((i * _TILE, min(F, (i + 1) * _TILE))
+                       for i in range(nt))
+        fw = (_TILE_WARPS * (2 * 2 + 1) * _TILE + 2 * _TILE_WARPS) * \
+            itemsize + 4 * _TILE_WARPS + 4
+        G = max(_WALK_TILE, 32 * -(-F // (32 * _WALK_TILES)))
+        nt2 = -(-F // G)
+        q = 16 // itemsize
+        stride = -(-(nt2 + 3) // q) * q
+        walk = (_WALK_RING * _WALK_SLOT + 2 * _WALK_TILES) * itemsize + \
+            8 * _WALK_RING
+        return RidgePlan(None, _TILE, ranges, False, _TILE_WARPS, fw, G,
+                         _WALK_RING, 0, stride * itemsize, walk, True, nt,
+                         nt2)
     C = min(clusters or _CLUSTER, F)
     if not 1 <= C <= 16:
         raise ValueError("a ridge cluster has 1 to 16 CTAs (got %d)" % C)
@@ -230,12 +247,13 @@ def ridge_forward(e, v, penalty, plan=None):
     pe = torch.empty_like(e)
     f32 = e.dtype == torch.float32
     if plan.tiled:
-        part = torch.empty((2, B, plan.chunks, F), dtype=e.dtype,
+        summ = torch.empty((2, B, plan.tiles, 2), dtype=e.dtype,
                            device=e.device)
+        vr = torch.empty((plan.tiles, 2), dtype=e.dtype, device=e.device)
         fn = lib.ridge_forward_tiled_f32 if f32 else \
             lib.ridge_forward_tiled_f64
         err = fn(e.data_ptr(), v.data_ptr(), float(penalty), B, F, T,
-                 plan.chunks, plan.chunk, part.data_ptr(), pe.data_ptr(),
+                 summ.data_ptr(), vr.data_ptr(), pe.data_ptr(),
                  torch.cuda.current_stream(e.device).cuda_stream)
         _check_launch(err, 'ridge_forward', plan)
         ridge_forward.tiled_launches += 1
@@ -273,6 +291,55 @@ def ridge_trace_plain(pe, e, v, penalty, eps):
     return ridge
 
 
+def _trace_records_plain(pe, e, v, plan):
+    """Plain version of the tiled trace's prologue: (rec, vr) as
+    `_trace_records` gives them, rec's padding past each record's nT + 3
+    elements zero."""
+    B, T, F = pe.shape
+    G, nt = plan.trace_rows, plan.trace_tiles
+    stride = plan.trace_slot // pe.element_size()
+    inf = torch.tensor(float('inf'), dtype=pe.dtype, device=pe.device)
+    tiles = torch.cat([pe, inf.expand(B, T, nt * G - F)], -1)
+    fw = torch.argmin(pe, dim=-1)                          # (B, T)
+    at = fw[..., None]
+    rec = torch.zeros((B, T, stride), dtype=pe.dtype, device=pe.device)
+    rec[..., :nt] = tiles.view(B, T, nt, G).amin(-1)
+    rec[..., nt] = (pe.gather(-1, at) - e.gather(-1, at))[..., 0]
+    rec[..., nt + 1] = v[fw]
+    ibits = torch.int32 if pe.dtype == torch.float32 else torch.int64
+    rec[..., nt + 2] = fw.to(ibits).view(pe.dtype)
+    vt = torch.cat([v, v[-1:].expand(nt * G - F)]).view(nt, G)
+    vr = torch.stack([vt.amin(-1), vt.amax(-1)], -1)
+    return rec, vr
+
+
+def _trace_records(pe, e, v, plan):
+    """The tiled trace's prologue on the card: rec (B, T, stride), each
+    step's record (the least of pe[t] over each of the plan's
+    `trace_tiles` tiles of `trace_rows` f, NaN-propagating, then pe[t, fw]
+    - e[t, fw], v[fw] and the bits of fw = argmin_f pe[t], its first
+    occurrence), and vr (nT, 2), each tile's v range. Counted on
+    `ridge_trace.prologue_launches`; CPU tensors take the plain version.
+    pe, e and v as `ridge_trace` checks them, `plan` a tiled plan of F."""
+    if pe.device.type == 'cpu':
+        return _trace_records_plain(pe, e, v, plan)
+    _on_card(pe, 'ridge_trace')
+    B, T, F = pe.shape
+    lib = _build.load('ridge_dp')
+    stride = plan.trace_slot // pe.element_size()
+    rec = torch.empty((B, T, stride), dtype=pe.dtype, device=pe.device)
+    vr = torch.empty((plan.trace_tiles, 2), dtype=pe.dtype,
+                     device=pe.device)
+    fn = (lib.ridge_trace_prologue_f32 if pe.dtype == torch.float32
+          else lib.ridge_trace_prologue_f64)
+    err = fn(pe.data_ptr(), e.data_ptr(), v.data_ptr(), B, F, T,
+             plan.trace_rows, plan.trace_tiles, stride, rec.data_ptr(),
+             vr.data_ptr(), torch.cuda.current_stream(pe.device).cuda_stream)
+    _check_launch(err, 'ridge_trace', plan)
+    ridge_trace.prologue_launches += 1
+    return rec, vr
+
+
 def ridge_trace(pe, e, v, penalty, eps, plan=None):
     """ridge (B, T) int64 of the backward trace over pe and e (B, T, F),
     time-major, with v (F,), `penalty` and `eps` floats (rounded to pe's
@@ -286,19 +353,14 @@ def ridge_trace(pe, e, v, penalty, eps, plan=None):
     if pe.device.type == 'cpu':
         return ridge_trace_plain(pe, e, v, penalty, eps)
     _on_card(pe, 'ridge_trace')
-    lib = _build.load('ridge_dp')
     B, T, F = pe.shape
     plan = plan or ridge_plan(F, pe.element_size(), batch=B)
+    if plan.tiled:
+        rec, vr = _trace_records(pe, e, v, plan)
+        return _trace_walk(pe, e, v, penalty, eps, rec, vr, plan)
+    lib = _build.load('ridge_dp')
     ridge = torch.empty((B, T), dtype=torch.int32, device=pe.device)
     stream = torch.cuda.current_stream(pe.device).cuda_stream
-    if plan.tiled:
-        fn = (lib.ridge_trace_tiled_f32 if pe.dtype == torch.float32
-              else lib.ridge_trace_tiled_f64)
-        err = fn(pe.data_ptr(), e.data_ptr(), v.data_ptr(), float(penalty),
-                 float(eps), B, F, T, ridge.data_ptr(), stream)
-        _check_launch(err, 'ridge_trace', plan)
-        ridge_trace.tiled_launches += 1
-        return ridge.long()
     # the rings' bulk copies read 16-byte aligned pieces of the tensors
     pe, e = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (pe, e))
     fn = (lib.ridge_trace_f32 if pe.dtype == torch.float32
@@ -313,3 +375,27 @@ def ridge_trace(pe, e, v, penalty, eps, plan=None):
 
 ridge_trace.launches = 0
 ridge_trace.tiled_launches = 0
+ridge_trace.prologue_launches = 0
+
+
+def _trace_walk(pe, e, v, penalty, eps, rec, vr, plan):
+    """The tiled trace's walk on the card, from `_trace_records`' `rec`
+    and `vr` for the same pe, e, v and `plan`: ridge (B, T) int64, as
+    `ridge_trace` gives it. Counted on `ridge_trace.tiled_launches`; CPU
+    tensors take the plain trace."""
+    if pe.device.type == 'cpu':
+        return ridge_trace_plain(pe, e, v, penalty, eps)
+    _on_card(pe, 'ridge_trace')
+    B, T, F = pe.shape
+    lib = _build.load('ridge_dp')
+    ridge = torch.empty((B, T), dtype=torch.int32, device=pe.device)
+    fn = (lib.ridge_trace_tiled_f32 if pe.dtype == torch.float32
+          else lib.ridge_trace_tiled_f64)
+    err = fn(pe.data_ptr(), e.data_ptr(), v.data_ptr(), rec.data_ptr(),
+             vr.data_ptr(), float(penalty), float(eps), B, F, T,
+             plan.trace_rows, plan.trace_tiles,
+             plan.trace_slot // pe.element_size(), ridge.data_ptr(),
+             torch.cuda.current_stream(pe.device).cuda_stream)
+    _check_launch(err, 'ridge_trace', plan)
+    ridge_trace.tiled_launches += 1
+    return ridge.long()

@@ -2232,10 +2232,11 @@ def _ridge_inputs(B, T, F, dtype, seed, dev):
     return e, v
 
 
-def _ridge_vs_plain(e, v, eps, plan=None):
+def _ridge_vs_plain(e, v, eps, plan=None, pen=2.):
     """Both ridge kernels, one launch each (on the counters of the plan's
-    mode), against their plain versions: pe bit-identical (NaN cells NaN
-    on both sides), the indices equal."""
+    mode, and the tiled trace's prologue on its own), against their plain
+    versions: pe bit-identical (NaN cells NaN on both sides), the indices
+    equal."""
     from ssqueezepy_tpu_torch.ops.ridge_cuda import (
         ridge_forward, ridge_forward_plain, ridge_plan, ridge_trace,
         ridge_trace_plain)
@@ -2243,16 +2244,18 @@ def _ridge_vs_plain(e, v, eps, plan=None):
     mode = (plan or ridge_plan(F, e.element_size(), batch=B)).tiled
     attr = 'tiled_launches' if mode else 'launches'
     f0, t0 = getattr(ridge_forward, attr), getattr(ridge_trace, attr)
-    pe = ridge_forward(e, v, 2., plan=plan)
-    r = ridge_trace(pe, e, v, 2., eps, plan=plan)
+    p0 = ridge_trace.prologue_launches
+    pe = ridge_forward(e, v, pen, plan=plan)
+    r = ridge_trace(pe, e, v, pen, eps, plan=plan)
     torch.cuda.synchronize()
     assert (getattr(ridge_forward, attr) - f0,
-            getattr(ridge_trace, attr) - t0) == (1, 1)
-    pe_p = ridge_forward_plain(e, v, 2.)
+            getattr(ridge_trace, attr) - t0,
+            ridge_trace.prologue_launches - p0) == (1, 1, int(mode))
+    pe_p = ridge_forward_plain(e, v, pen)
     nan = pe_p.isnan()
     assert torch.equal(pe.isnan(), nan)
     assert torch.equal(pe[~nan], pe_p[~nan])
-    assert torch.equal(r, ridge_trace_plain(pe_p, e, v, 2., eps))
+    assert torch.equal(r, ridge_trace_plain(pe_p, e, v, pen, eps))
     assert r.dtype == torch.int64 and r.shape == e.shape[:2]
     return pe, r
 
@@ -2294,8 +2297,68 @@ def test_ridge_tiled_vs_plain(dev, B, T, F, dtype):
     from ssqueezepy_tpu_torch.ops.ridge_cuda import ridge_plan
     e, v = _ridge_inputs(B, T, F, dtype, B + T + F, dev)
     plan = ridge_plan(F, e.element_size(), tiled=True, batch=B)
-    assert plan.tiled and plan.chunks * plan.chunk >= F
+    assert plan.tiled and plan.tiles * 64 >= F
     _ridge_vs_plain(e, v, float(np.finfo(dtype).eps), plan=plan)
+
+
+@pytest.mark.parametrize('case', ['pen0', 'pen-inf', 'pen-neg', 'nan-v',
+                                  'inf-e', 'zero-ties', 'dup-v',
+                                  'subnormal-v', 'const-pen0', 'eps0'])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ridge_tiled_edges(dev, case, dtype):
+    """The tiled kernels' skips at their edges against the plain
+    versions (pe bit-identical, indices equal) at F = 2100: pen 0, inf
+    and negative, NaN in v, +-inf in e, +-0 ties, duplicate and unsorted
+    v, a subnormal v spacing, a constant e with pen 0, eps 0."""
+    from ssqueezepy_tpu_torch.ops.ridge_cuda import ridge_plan
+    B, T, F = 2, 40, 2100
+    e, v = _ridge_inputs(B, T, F, dtype, 9, dev)
+    pen = {'pen0': 0., 'pen-inf': float('inf'), 'pen-neg': -1.,
+           'const-pen0': 0.}.get(case, 2.)
+    eps = 0. if case == 'eps0' else float(np.finfo(dtype).eps)
+    if case == 'nan-v':
+        v[700] = float('nan')
+    if case == 'inf-e':
+        e[0, 3, 40:90] = float('inf')
+        e[1, 5, 200] = -float('inf')
+        e[0, 9:, 250] = float('inf')
+    if case == 'zero-ties':
+        e[:, ::3] = 0.
+        e[:, 1::6, ::2] = -0.
+    if case == 'dup-v':
+        g = torch.Generator(device=dev).manual_seed(3)
+        v = (v * 10).round()[torch.randperm(F, generator=g, device=dev)] / 10
+    if case == 'subnormal-v':
+        v = torch.arange(F, dtype=e.dtype, device=dev) * \
+            float(np.finfo(dtype).smallest_subnormal) * 3
+    if case == 'const-pen0':
+        e[:] = 1.5
+    plan = ridge_plan(F, e.element_size(), tiled=True, batch=B)
+    _ridge_vs_plain(e, v.contiguous(), eps, plan=plan, pen=pen)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_ridge_trace_records_vs_plain(dev, dtype):
+    """The tiled trace's prologue against its plain version: each step's
+    tile minima, pe - e and v at the first argmin and its index, with NaN
+    cells (the first NaN is the argmin), and the tiles' v ranges."""
+    from ssqueezepy_tpu_torch.ops.ridge_cuda import (
+        _trace_records, _trace_records_plain, ridge_forward_plain,
+        ridge_plan, ridge_trace)
+    e, v = _ridge_inputs(2, 50, 3000, dtype, 4, dev)
+    e[1, 20:23, 7] = float('nan')
+    pe = ridge_forward_plain(e, v, 2.)
+    plan = ridge_plan(3000, e.element_size(), tiled=True, batch=2)
+    p0 = ridge_trace.prologue_launches
+    rec, vr = _trace_records(pe, e, v, plan)
+    rec_p, vr_p = _trace_records_plain(pe, e, v, plan)
+    torch.cuda.synchronize()
+    assert ridge_trace.prologue_launches - p0 == 1
+    n = plan.trace_tiles + 3
+    a, b = rec[..., :n], rec_p[..., :n]
+    nan = b.isnan()
+    assert torch.equal(a.isnan(), nan) and torch.equal(a[~nan], b[~nan])
+    assert torch.equal(vr, vr_p)
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])

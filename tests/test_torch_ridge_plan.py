@@ -23,12 +23,11 @@ kernel run here.
     walker's lane split, last-qualifying max and argmin (where nothing
     qualifies) give the plain version's indices;
   * the row-tiled mode (`ridge_forward_tiled_kernel`,
-    `ridge_trace_tiled_kernel`): the work items (batch row, row tile,
-    chunk of g) cover every (f, g) once per column, the partial minima
-    in their two parities and the combination into pe[t-1] give pe bit
-    for bit, each column written once; the trace's tiles from the high-f
-    end, the stop at the first tile that qualifies and the block argmin
-    give the plain version's indices.
+    `ridge_trace_prologue_kernel`, `ridge_trace_tiled_kernel`) by the
+    mirrors of `tests/torch_ridge_tiled.py`: the forward's tiles of 64
+    rows, pe bit for bit with a NaN cell, its kept pairs the torch
+    replica's; the trace's tiles (the plan's and narrow ones that split
+    the rows into many) give the plain version's indices, NaN rows too.
 
 The mirrors follow the kernels line for line: change both together.
 """
@@ -39,15 +38,14 @@ import pytest
 import torch
 
 from ssqueezepy_tpu_torch.ops import ridge_cuda
-from ssqueezepy_tpu_torch.ops.ridge_cuda import (_E_RING, _SMEM_MAX,
-                                                 _TILE_G, _TILE_ROWS,
-                                                 _TILE_THREADS,
-                                                 _TRACE_SCAN,
-                                                 _TRACE_THREADS, _span_slot,
+from ssqueezepy_tpu_torch.ops.ridge_cuda import (_E_RING, _SMEM_MAX, _TILE,
+                                                 _span_slot,
                                                  ridge_forward_plain,
                                                  ridge_penalty, ridge_plan,
                                                  ridge_resident,
                                                  ridge_trace_plain)
+from torch_ridge_tiled import (forward_mirror, ridge_forward_pairs,
+                               ridge_trace_tiles, trace_mirror)
 
 FS = (1, 5, 7, 8, 9, 40, 293, 1100, 5632, 11264)
 CASES = [(F, isz) for F in FS for isz in (4, 8) if F * isz <= 11264 * 4]
@@ -118,19 +116,21 @@ def test_plan_cluster_sizes(clusters):
                                    (10 ** 6, 4), (10 ** 6, 8)])
 def test_plan_past_rule_raises(F, isz):
     """F past `ridge_resident` builds the row-tiled plan (it raised C1b
-    before that mode): shared bytes within `_SMEM_MAX` and independent of
-    F, row tiles covering [0, F) once, S chunks of g covering it with no
-    empty chunk, at every batch size."""
+    before that mode): static shared bytes within 48 KB whatever F, tiles
+    of 64 rows covering [0, F) once, the trace's tiles covering it, the
+    same plan at every batch size."""
     assert not ridge_resident(F, isz)
     for batch in (1, 3, 64):
         p = ridge_plan(F, isz, batch=batch)
-        assert p.tiled and p.forward_smem == 2 * _TILE_G * isz <= _SMEM_MAX
-        assert p.trace_smem == 0 and p.clusters is None
+        assert p.tiled and p.forward_smem <= 48 * 1024 <= _SMEM_MAX
+        assert p.clusters is None and p.trace_smem <= 48 * 1024
         assert [f for lo, hi in p.row_ranges for f in range(lo, hi)] == \
             list(range(F)) if F < 10 ** 5 else p.row_ranges[-1][1] == F
-        assert all(hi - lo <= _TILE_ROWS for lo, hi in p.row_ranges)
-        assert p.chunks * p.chunk >= F > (p.chunks - 1) * p.chunk
-        assert 1 <= p.chunks <= -(-F // _TILE_G)
+        assert all(hi - lo <= _TILE for lo, hi in p.row_ranges)
+        assert p.tiles == len(p.row_ranges) == -(-F // _TILE)
+        assert p.trace_tiles * p.trace_rows >= F > \
+            (p.trace_tiles - 1) * p.trace_rows
+        assert p == ridge_plan(F, isz, batch=1)
 
 
 @pytest.mark.parametrize('isz', [4, 8])
@@ -421,142 +421,30 @@ def test_trace_mirror_nan_and_ties():
 
 
 # ---- the row-tiled mode ---------------------------------------------------
-def _tiled_forward_mirror(e, v, pen, plan):
-    """`ridge_forward_tiled_kernel`: per column, every work item (b, row
-    tile i, chunk s) in the grid's order, its partial minima over the
-    chunk into part[t % 2][b][s], the items of tile 0 writing pe[t-1] as
-    they combine it; returns pe, how often each (f, g) candidate of
-    column 1 was taken and each column's count of candidates, and how
-    often each pe cell was written."""
-    B, T, F = e.shape
-    dtype = DTYPE[e.element_size()]
-    en, vn = e.numpy(), v.numpy()
-    pen = dtype(pen)
-    S, chunk = plan.chunks, plan.chunk
-    nf = len(plan.row_ranges)
-    part = np.full((2, B, S, F), np.nan, dtype)   # stale contents
-    pe = np.full_like(en, np.nan)
-    written = np.zeros(en.shape, int)
-    seen = np.zeros((F, F), np.uint8)
-    taken = np.zeros(T, np.int64)
-    pe[:, 0] = en[:, 0]
-    written[:, 0] += 1
-
-    def combine(parts, col):
-        m = parts.min(axis=0) if not np.isnan(parts).any(axis=0).any() \
-            else np.where(np.isnan(parts).any(axis=0), dtype(np.nan),
-                          np.nanmin(np.where(np.isnan(parts), np.inf,
-                                             parts), axis=0))
-        return (col + m).astype(dtype)
-
-    for t in range(1, T):
-        pin, pout = part[(t - 1) & 1], part[t & 1]
-        for it in range(B * nf * S):
-            s, r = it % S, it // S
-            i, b = r % nf, r // nf
-            g0, g1 = s * chunk, min(F, s * chunk + chunk)
-            fa = i * _TILE_ROWS + np.arange(_TILE_THREADS)
-            rows = np.concatenate([fa, fa + _TILE_THREADS])
-            vf = vn[np.minimum(rows, F - 1)]
-            acc = np.full(len(rows), np.inf, dtype)
-            nan = np.zeros(len(rows), bool)
-            for gt in range(g0, g1, _TILE_G):
-                n = min(_TILE_G, g1 - gt)
-                g = gt + np.arange(n)
-                if t == 1:
-                    x = en[b, 0, g]
-                else:
-                    x = combine(pin[b, :, g].T, en[b, t - 1, g])
-                    if i == 0:
-                        pe[b, t - 1, g] = x
-                        written[b, t - 1, g] += 1
-                d = (vf[:, None] - vn[g][None, :]).astype(dtype)
-                c = (x[None, :] + (pen * (d * d)).astype(dtype)).astype(
-                    dtype)
-                nan |= np.isnan(c).any(axis=1)
-                acc = np.minimum(acc, np.where(np.isnan(c), np.inf,
-                                               c).min(axis=1))
-                ok = rows < F
-                taken[t] += ok.sum() * n
-                if b == 0 and t == 1:
-                    seen[np.ix_(rows[ok], g)] += 1
-            val = np.where(nan, dtype(np.nan), acc).astype(dtype)
-            ok = rows < F
-            pout[b, s, rows[ok]] = val[ok]
-    if T > 1:
-        pin = part[(T - 1) & 1]
-        for b in range(B):
-            pe[b, T - 1] = combine(pin[b], en[b, T - 1])
-            written[b, T - 1] += 1
-    return torch.as_tensor(pe), seen, taken, written
-
-
 @pytest.mark.parametrize('B,T,F', [(2, 6, 1100), (1, 4, 2100), (3, 4, 40),
                                    (1, 1, 600), (2, 2, 513)])
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
 def test_tiled_forward_mirror_vs_plain(B, T, F, dtype):
-    """The tiled forward's items cover every (f, g) once per column, each
-    pe cell is written once, and pe equals the plain version bit for bit
-    with NaN cells (a NaN in e spreads to every later column), at the
-    plan's chunks (F = 1100: 3 row tiles by 2 chunks; 2100: 5 by 3) and
-    at one chunk."""
+    """The tiled forward (tiles of 64 rows and of g) gives pe equal to the
+    plain version bit for bit with NaN cells (a NaN in e spreads to every
+    later column, whose pairs are then all kept), its kept pairs and tests
+    the torch replica's (F = 1100: 18 tiles; 513: one row in the last)."""
     e, v = _inputs(B, T, F, dtype, F + T)
     if T > 3:
         e[-1, 2, F // 3] = float('nan')
     ref = ridge_forward_plain(e, v, 2.)
+    pe, pairs, tests = forward_mirror(e, v, 2.)
+    assert torch.equal(pe.isnan(), ref.isnan())
+    assert torch.equal(pe[~pe.isnan()], ref[~ref.isnan()])
+    rp, rt = ridge_forward_pairs(ref, v, 2.)
+    assert np.array_equal(rp.numpy(), pairs)
+    assert np.array_equal(rt.numpy(), tests)
+    assert (pairs[1:] <= B * F * F).all()
+    if T > 3:                            # the NaN row keeps every pair
+        assert (pairs[3:] >= F * F).all()
     plan = ridge_plan(F, e.element_size(), tiled=True, batch=B)
-    for p in (plan, plan._replace(chunks=1, chunk=F)):
-        pe, seen, taken, written = _tiled_forward_mirror(e, v, 2., p)
-        assert (seen == 1).all() if T > 1 else True
-        assert (taken[1:] == B * F * F).all() and (written == 1).all()
-        assert torch.equal(pe.isnan(), ref.isnan())
-        assert torch.equal(pe[~pe.isnan()], ref[~ref.isnan()])
     if F == 1100:
-        assert (len(plan.row_ranges), plan.chunks) == (3, 2)
-
-
-def _tiled_trace_mirror(pe, e, v, pen, eps, W=_TRACE_THREADS * _TRACE_SCAN):
-    """`ridge_trace_tiled_kernel`: per step the tiles [max(0, hi - W), hi)
-    from hi = F down, each thread's last qualifying f of its kScan, the
-    block's max, the stop at the first tile with one; the block argmin
-    where none qualifies. Returns the indices and the tiles scanned."""
-    B, T, F = pe.shape
-    dtype = DTYPE[pe.element_size()]
-    p, en, vn = pe.numpy(), e.numpy(), v.numpy()
-    pen, eps = dtype(pen), dtype(eps)
-    out = np.empty((B, T), np.int64)
-    tiles = 0
-
-    def argmin(row):
-        if np.isnan(row).any():
-            return int(np.argmax(np.isnan(row)))
-        return int(np.argmin(row))
-    for b in range(B):
-        r = argmin(p[b, T - 1])
-        out[b, T - 1] = r
-        for t in range(T - 2, -1, -1):
-            val = dtype(p[b, t + 1, r] - en[b, t + 1, r])
-            vr = vn[r]
-            last, hi = -1, F
-            while hi > 0 and last < 0:
-                lo = max(0, hi - W)
-                tiles += 1
-                # thread tid's f: lo + tid + 512 j, j < kScan (W = 6144);
-                # a narrower W keeps the first W // 512 of them
-                f = lo + np.arange(_TRACE_THREADS)[:, None] + \
-                    _TRACE_THREADS * np.arange(-(-W // _TRACE_THREADS))
-                fc = np.minimum(f, hi - 1)
-                d = (vr - vn[fc]).astype(dtype)
-                s = (p[b, t, fc] + (pen * (d * d)).astype(dtype)).astype(
-                    dtype)
-                ok = (np.abs((val - s).astype(dtype)) < eps) & (f < hi) & \
-                    (f < lo + W)
-                mine = np.where(ok, f, -1).max(axis=1)   # each thread's
-                last = int(mine.max())                   # the block's max
-                hi -= W
-            r = last if last >= 0 else argmin(p[b, t])
-            out[b, t] = r
-    return torch.as_tensor(out), tiles
+        assert len(plan.row_ranges) == plan.tiles == 18
 
 
 @pytest.mark.parametrize('B,T,F,W', [(2, 30, 293, None),
@@ -564,38 +452,49 @@ def _tiled_trace_mirror(pe, e, v, pen, eps, W=_TRACE_THREADS * _TRACE_SCAN):
                                      (1, 20, 1000, 96)])
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
 def test_tiled_trace_mirror_vs_plain(B, T, F, W, dtype):
-    """The tiled trace's scan from the high-f end gives the plain
-    version's indices, at the kernel's tile (6144 f: F = 12300 takes three
-    tiles where the ridge is low) and at narrow tiles that split the rows
-    into many."""
+    """The tiled trace's walk gives the plain version's indices at the
+    plan's tiles (256 f: F = 12300 takes 49) and at narrow tiles (64, 96
+    f) that split the rows into many; its scanned tiles are the torch
+    replica's."""
     e, v = _inputs(B, T, F, dtype, T + F)
     e[:, ::5] = 0.5                          # constant columns: ties
     eps = float(np.finfo(dtype).eps)
     pe = ridge_forward_plain(e, v, 2.)
     ref = ridge_trace_plain(pe, e, v, 2., eps)
-    got, tiles = _tiled_trace_mirror(pe, e, v, 2., eps,
-                                     *(() if W is None else (W,)))
+    plan = ridge_plan(F, e.element_size(), tiled=True, batch=B)
+    if W is not None:
+        n = -(-F // W)
+        plan = plan._replace(trace_rows=W, trace_tiles=n, trace_slot=-(-(
+            n + 3) * e.element_size() // 16) * 16)
+    got, scanned, _ = trace_mirror(pe, e, v, 2., eps, plan)
     assert torch.equal(got, ref)
-    assert tiles >= B * (T - 1)
+    assert np.array_equal(ridge_trace_tiles(pe, e, v, 2., eps, ref,
+                                            plan).numpy(), scanned)
+    assert scanned[:T - 1].sum() >= 1
 
 
 def test_tiled_trace_mirror_nan():
     """NaN rows in the tiled trace: the argmin takes the first NaN, and
-    nothing qualifies against a NaN val."""
+    nothing qualifies against a NaN val (no tile scanned there)."""
     e, v = _inputs(2, 30, 200, 'float32', 5)
     e[:, 20:23, 3] = float('nan')
     pe = ridge_forward_plain(e, v, 2.)
     assert pe.isnan().any()
     eps = float(np.finfo(np.float32).eps)
-    got, _ = _tiled_trace_mirror(pe, e, v, 2., eps, 64)
+    plan = ridge_plan(200, 4, tiled=True, batch=2)
+    plan = plan._replace(trace_rows=64, trace_tiles=4, trace_slot=16)
+    got, scanned, _ = trace_mirror(pe, e, v, 2., eps, plan)
     assert torch.equal(got, ridge_trace_plain(pe, e, v, 2., eps))
+    assert scanned[20:28].sum() == 0
 
 
 def test_tiled_plan_forced_and_lowered_limit(monkeypatch):
-    """`tiled=True` at the main path's F = 293 (one row tile, one chunk);
-    the resident plan's limit lowered takes F = 300 to the tiled mode."""
+    """`tiled=True` at the main path's F = 293 (5 tiles of 64 rows, the
+    last of 37; trace tiles of 256: two); the resident plan's limit
+    lowered takes F = 300 to the tiled mode."""
     p = ridge_plan(293, 4, tiled=True)
-    assert p.tiled and p.row_ranges == ((0, 293),) and p.chunks == 1
+    assert p.tiled and p.tiles == 5 and p.row_ranges[-1] == (256, 293)
+    assert (p.trace_rows, p.trace_tiles) == (256, 2)
     assert not ridge_plan(293, 4).tiled
     monkeypatch.setattr(ridge_cuda, '_SMEM_MAX', 1024)
     assert ridge_plan(300, 8).tiled and not ridge_resident(300, 8)
